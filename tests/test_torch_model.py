@@ -1,0 +1,116 @@
+"""The whole serving slice: raw frames -> logits, port against `vitiq`.
+
+* f32 `reference`: the port's `build_serving_fn` against
+  `vitiq.serve.build_serving_fn`, atol 1e-5 on logits.
+* bf16 `tpu`: the port (plain version of the fused kernels on the CPU)
+  against `vitiq`'s `make_forward(numerics="tpu")` with its preprocess,
+  max |dlogit| <= 0.05 (the fused-serving gate of scripts/tpu_check_fused.py).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import vitiq.serve as jax_serve
+from vitiq.config import DataConfig, ExperimentConfig, ModelConfig
+from vitiq.dsp import preprocess_batch_rawiq, preprocess_batch_vit
+from vitiq.models import init_amc_params, make_forward
+from vitiq_torch.interop import state_dict_from_vitiq
+from vitiq_torch.models import AMCModel
+from vitiq_torch.ops.cuda import fused_encoder_layer as fel
+from vitiq_torch.serve import Server, build_serving_fn
+
+STATS = {"i_mean": 0.05, "i_std": 1.2, "q_mean": -0.02, "q_std": 0.8}
+CONFIGS = {
+    # small ViT: d64/L2/H4 over a 16x16 image (128-sample frames, 17 tokens)
+    "vit": (ModelConfig(arm="vit", num_classes=7, d_model=64, n_head=4, n_layers=2,
+                        ffn_hidden=128, img_size_h=16, img_size_w=16,
+                        seq_length=128), 128),
+    # small rawIQ: seg-16 over 256 samples (17 tokens with CLS, 16 without)
+    "rawiq_cls": (ModelConfig(arm="rawiq", num_classes=7, d_model=64, n_head=4,
+                              n_layers=2, ffn_hidden=128, seq_length=256,
+                              segment_size=16), 256),
+    "rawiq_mean": (ModelConfig(arm="rawiq", num_classes=7, d_model=64, n_head=4,
+                               n_layers=2, ffn_hidden=128, seq_length=256,
+                               segment_size=16, use_cls_token=False), 256),
+}
+
+
+def _setup(name, numerics, seed=0):
+    mcfg, frame_len = CONFIGS[name]
+    mcfg = dataclasses.replace(mcfg, numerics=numerics)
+    exp = ExperimentConfig(model=mcfg, data=DataConfig(synthetic_frame_len=frame_len))
+    params = init_amc_params(jax.random.PRNGKey(seed), mcfg)
+    model = AMCModel(mcfg)
+    model.load_state_dict(state_dict_from_vitiq(params, mcfg))
+    x = np.random.default_rng(seed).standard_normal((6, frame_len, 2)).astype(np.float32)
+    return exp, params, model, x
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_reference_logits_match_vitiq(name):
+    exp, params, model, x = _setup(name, "reference")
+    want = np.asarray(jax.jit(jax_serve.build_serving_fn(exp, params, STATS))(jnp.asarray(x)))
+    got = build_serving_fn(exp, model, STATS, "cpu")(x)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_tpu_numerics_logits_match_vitiq(name):
+    exp, params, model, x = _setup(name, "tpu")
+    mcfg = exp.model
+    if mcfg.arm == "vit":
+        pre = lambda z: preprocess_batch_vit(z, STATS, H=mcfg.img_size_h, W=mcfg.img_size_w)
+    else:
+        pre = lambda z: preprocess_batch_rawiq(z, STATS)
+    fwd = make_forward(mcfg)
+    want = np.asarray(jax.jit(lambda p, z: fwd(p, pre(z)))(params, jnp.asarray(x)))
+    got = build_serving_fn(exp, model, STATS, "cpu")(x)
+    assert np.abs(got.numpy() - want).max() <= 0.05
+
+
+def test_tpu_serving_takes_fused_path_with_cls_tail(monkeypatch):
+    exp, _, model, x = _setup("vit", "tpu")
+    calls = []
+    real = fel.fused_layer_reference
+
+    def spy(xx, ops, n_head, n_q):
+        calls.append((tuple(xx.shape), xx.dtype, n_q))
+        return real(xx, ops, n_head, n_q)
+
+    monkeypatch.setattr(fel, "fused_layer_reference", spy)
+    build_serving_fn(exp, model, STATS, "cpu")(x)
+    # one full layer, then the last layer for the CLS row only
+    assert calls == [((6, 17, 64), torch.bfloat16, 17), ((6, 17, 64), torch.bfloat16, 1)]
+
+
+@pytest.mark.parametrize("env", ["VITIQ_NO_FUSED_LAYER=1", "VITIQ_CLS_ONLY=0"])
+def test_opt_outs_compute_the_same_logits(env, monkeypatch):
+    exp, _, model, x = _setup("vit", "tpu")
+    serve = build_serving_fn(exp, model, STATS, "cpu")
+    fused = serve(x)
+    key, value = env.split("=")
+    monkeypatch.setenv(key, value)
+    assert torch.abs(serve(x) - fused).max() <= 0.05
+
+
+@pytest.mark.parametrize("numerics", ["reference", "tpu"])
+def test_bucket_routing_pads_and_slices(numerics):
+    exp, _, model, x = _setup("vit", numerics)
+    serve = build_serving_fn(exp, model, STATS, "cpu")
+    server = Server(serve, frame_len=128, batch_sizes=(4, 16))
+    assert server.bucket(1) == 4 and server.bucket(5) == 16
+    for b in (1, 4, 5):
+        got = server.run(x[:b])
+        assert tuple(got.shape) == (b, 7)
+        torch.testing.assert_close(got, serve(x[:b]), rtol=0, atol=1e-6)
+    assert torch.equal(server.predict(x[:3]), server.run(x[:3]).argmax(-1))
+    with pytest.raises(ValueError, match="largest bucket"):
+        server.run(np.zeros((17, 128, 2), np.float32))
+    with pytest.raises(ValueError, match="raw I/Q frames"):
+        server.run(np.zeros((2, 64, 2), np.float32))

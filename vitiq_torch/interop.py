@@ -1,0 +1,74 @@
+"""A `vitiq` parameter tree as the port's `state_dict` — the exact inverse of
+`vitiq.interop.load_torch_state_dict`.
+
+Keys are the reference PyTorch checkpoint's (see `vitiq/interop.py`); layout
+conversions go the other way:
+  kernel [in, out]          -> Linear weight [out, in]
+  kernel [(C*p*p), d]       -> Conv2d weight [d, C, p, p]  ((C, kh, kw) rows)
+  kernel [(C*k), d]         -> Conv1d weight [d, C, k]     ((C, k) rows)
+The tree's leaves may be numpy arrays or anything `numpy.asarray` accepts.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from vitiq.config import ModelConfig
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _linear(sd: Dict, prefix: str, p: Mapping[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv(sd: Dict, prefix: str, p: Mapping[str, Any], shape: tuple) -> None:
+    kernel = np.asarray(p["kernel"])  # [(C*k...), d]
+    sd[f"{prefix}.weight"] = _t(kernel.T.reshape((kernel.shape[1],) + shape))
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def encoder_layer_state_dict(layer: Mapping[str, Any],
+                             prefix: str = "") -> "OrderedDict[str, torch.Tensor]":
+    """One vitiq encoder-layer tree -> `EncoderLayer` state_dict entries."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for name in ("w_q", "w_k", "w_v", "w_concat"):
+        _linear(sd, f"{prefix}attention.{name}", layer["attention"][name])
+    for norm in ("norm1", "norm2"):
+        sd[f"{prefix}{norm}.gamma"] = _t(layer[norm]["gamma"])
+        sd[f"{prefix}{norm}.beta"] = _t(layer[norm]["beta"])
+    _linear(sd, f"{prefix}ffn.linear1", layer["ffn"]["linear1"])
+    _linear(sd, f"{prefix}ffn.linear2", layer["ffn"]["linear2"])
+    return sd
+
+
+def state_dict_from_vitiq(params: Mapping[str, Any], cfg: ModelConfig) -> "OrderedDict[str, torch.Tensor]":
+    """vitiq parameter tree for `cfg` -> the port's (reference-keyed) state_dict."""
+    cfg.validate()
+    enc = params["encoder"]
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    if cfg.arm == "vit":
+        _conv(sd, "encoder.patch_embedding.projection", enc["embedding"]["proj"],
+              (cfg.in_channels, cfg.patch_size, cfg.patch_size))
+    else:
+        k = 1 if cfg.embedding_type == "conv1d" else cfg.segment_size
+        _conv(sd, "encoder.sequence_embedding.projection", enc["embedding"]["proj"],
+              (cfg.in_channels, k))
+    for i, layer in enumerate(enc["layers"]):
+        sd.update(encoder_layer_state_dict(layer, f"encoder.layers.{i}."))
+    if "cls_token" in enc:
+        sd["encoder.cls_token"] = _t(enc["cls_token"])
+    if cfg.arm == "vit":
+        _linear(sd, "mlp_head", params["mlp_head"])
+    else:
+        sd["mlp_head.0.weight"] = _t(params["head_norm"]["gamma"])
+        sd["mlp_head.0.bias"] = _t(params["head_norm"]["beta"])
+        _linear(sd, "mlp_head.1", params["mlp_head"])
+    return sd
