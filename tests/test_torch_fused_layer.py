@@ -87,6 +87,30 @@ def test_layer_operands_layout_and_cache():
     assert not torch.equal(fresh[0], ops[0])
 
 
+def test_in_place_parameter_update_rebuilds_operands():
+    """An optimizer updates parameters in place; the fused eval path must
+    then run the new weights, exactly as a model loaded from them does."""
+    from vitiq_torch.config import ModelConfig
+    from vitiq_torch.models import AMCModel
+
+    cfg = ModelConfig(arm="vit", num_classes=5, d_model=64, n_head=4, n_layers=2,
+                      ffn_hidden=128, img_size_h=16, img_size_w=16, numerics="tpu")
+    model = AMCModel(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    src = torch.from_numpy(
+        np.random.default_rng(6).standard_normal((3, 1, 16, 16)).astype(np.float32))
+    with torch.no_grad():
+        before = model(src)
+        for p in model.parameters():
+            p.add_(0.05)
+        after = model(src)
+    fresh = AMCModel(cfg).eval()
+    fresh.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        want = fresh(src)
+    assert not torch.equal(before, want)
+    torch.testing.assert_close(after, want, atol=0, rtol=0)
+
+
 def test_cpu_tensor_takes_plain_version_without_counting():
     _, port = _layers([46, 47])
     fel.reset_launches()

@@ -137,7 +137,7 @@ class PositionwiseFeedForward(nn.Module):
 class EncoderLayer(nn.Module):
     """Post-norm encoder layer. `kernel_operands` caches the weights in the
     fused kernel's layout (see `vitiq_torch.ops.cuda.fused_encoder_layer.
-    layer_operands`); loading a state dict clears it."""
+    layer_operands`), rebuilt whenever a parameter changes."""
 
     def __init__(self, d_model: int, ffn_hidden: int, n_head: int,
                  drop_prob: float = 0.0, device=None,
@@ -149,10 +149,6 @@ class EncoderLayer(nn.Module):
         self.ffn = PositionwiseFeedForward(d_model, ffn_hidden, device, generator)
         self.norm2 = LayerNorm(d_model, device=device)
         self.kernel_operands = {}
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        self.kernel_operands.clear()
-        super()._load_from_state_dict(*args, **kwargs)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 policy: Policy = REFERENCE,

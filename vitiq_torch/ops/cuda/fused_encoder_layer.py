@@ -48,12 +48,16 @@ def layer_operands(layer, n_head: int, dtype=torch.bfloat16) -> List[torch.Tenso
     are multiplied by log2(e)/sqrt(d_head) in f32 before the cast.
 
     Cached on the layer (`EncoderLayer.kernel_operands`) per (n_head, dtype,
-    device); the layer clears the cache when a state dict is loaded."""
+    device) together with the storage and version counter of every parameter
+    it reads: an in-place update (an optimizer step) or a loaded state dict
+    rebuilds the operands. Every cached operand is a copy, never a view of a
+    parameter."""
     att = layer.attention
     key = (n_head, dtype, att.w_q.weight.device)
+    stamp = tuple((p.data_ptr(), p._version) for p in layer.parameters())
     cached = layer.kernel_operands.get(key)
-    if cached is not None:
-        return cached
+    if cached is not None and cached[0] == stamp:
+        return cached[1]
     d_model = att.w_q.weight.shape[0]
     scale = _LOG2E / math.sqrt(d_model // n_head)
 
@@ -61,7 +65,7 @@ def layer_operands(layer, n_head: int, dtype=torch.bfloat16) -> List[torch.Tenso
         return lin.weight.detach().float().t()
 
     def vec(t):
-        return t.detach().float().contiguous()
+        return t.detach().to(torch.float32, copy=True)
 
     with torch.no_grad():
         wqkv = torch.cat([kernel(att.w_q) * scale, kernel(att.w_k), kernel(att.w_v)], dim=1)
@@ -74,7 +78,7 @@ def layer_operands(layer, n_head: int, dtype=torch.bfloat16) -> List[torch.Tenso
             kernel(layer.ffn.linear2).to(dtype).contiguous(), vec(layer.ffn.linear2.bias),
             vec(layer.norm2.gamma), vec(layer.norm2.beta),
         ]
-    layer.kernel_operands[key] = ops
+    layer.kernel_operands[key] = (stamp, ops)
     return ops
 
 
