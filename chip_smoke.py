@@ -22,9 +22,24 @@ which raises (exit code 1) on failure:
    weights on the f32 `reference` path on the GPU: max |dlogit| < 0.05 and
    argmax agreement >= 0.99 on rows whose reference top-2 margin exceeds
    4 * max |dlogit|. The rawIQ flagship (seg-16, FFN 1024) repeats the check.
-5. timing (CUDA events after warm-up): per-layer kernel time against the
-   plain version at B=4096, and serving frames/s and p50 latency at B=4096
-   for both flagships, beside the card's name and power limit.
+5. train-kernels: K3-fwd and K3-bwd (the fused training layer) on the GPU
+   against their plain PyTorch versions at the ViT flagship shape (B=256,
+   L=129, F=512, H=8) with dropout 0.1: the forward and dx within LAYER_TOL,
+   each of the 12 weight, bias and LN gradients within GRAD_REL of the plain
+   gradient in the L2 norm (max |difference| printed).
+6. train: the ViT flagship (bf16 `tpu` numerics, seeded random weights)
+   takes 20 `make_train_step` steps at B=256 on one repeated random batch at
+   lr 1e-3. The K3 launch counters are reset just before and read just
+   after: every step must launch K3-fwd and K3-bwd once per layer (6 each).
+   The loss must stay finite and end below where it started. One step's
+   gradient at dropout 0 from the same weights is held against the plain
+   bf16 layers (VITIQ_FUSED_TRAIN=0, cosine >= 0.999) and the f32
+   `reference` path (cosine >= 0.995).
+7. timing (CUDA events after warm-up): per-layer kernel time against the
+   plain version at B=4096 (K1, K2, K3-fwd, K3-bwd), serving frames/s and p50
+   latency at B=4096 for both flagships, and ViT train-step frames/s at
+   B=4096 through the kernels and through the plain layers, beside the
+   card's name and power limit.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -34,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -42,13 +58,17 @@ import time
 
 import torch
 
-from vitiq_torch.config import DataConfig, ExperimentConfig
+from vitiq_torch.config import DataConfig, ExperimentConfig, TrainConfig
 from vitiq_torch.config import flagship_rawiq_config, flagship_vit_config
 from vitiq_torch.models import AMCModel
 from vitiq_torch.models.layers import EncoderLayer
 from vitiq_torch.ops.cuda import _build
 from vitiq_torch.ops.cuda import fused_encoder_layer as fel
-from vitiq_torch.serve import Server, build_serving_fn
+from vitiq_torch.ops.cuda import fused_layer_train as flt
+from vitiq_torch.ops.metrics import label_smoothed_cross_entropy
+from vitiq_torch.serve import Server, build_preprocess, build_serving_fn
+from vitiq_torch.train import make_train_step
+from vitiq_torch.train.optim import create_train_state, make_optimizer
 
 # (atol, rtol) on bf16 outputs, |kernel - plain| <= atol + rtol * |plain|.
 # One layer on the same input: about two bf16 ulps (2^-7 relative each) plus
@@ -58,10 +78,18 @@ from vitiq_torch.serve import Server, build_serving_fn
 LAYER_TOL = (3e-2, 1.6e-2)
 STACK_TOL = (6e-2, 3.2e-2)
 LOGIT_GATE, AGREE_GATE = 0.05, 0.99
+# K3-bwd's gradients are sums over B*L rows taken in another order than the
+# plain version's, from operands whose bf16 roundings may flip: each within
+# 1% of the plain gradient in the L2 norm.
+GRAD_REL = 1e-2
+COSINE_PLAIN, COSINE_F32 = 0.999, 0.995
+TRAIN_DROP, TRAIN_SEED = 0.1, 1234
 STATS = {"i_mean": 0.0, "i_std": 1.0, "q_mean": 0.0, "q_std": 1.0}
 FRAME_LEN = 1024
 SOURCE = "vitiq_torch/csrc/fused_encoder_layer.cu"
 TPU_SOURCE = "vitiq/ops/pallas/fused_encoder_layer.py"
+TRAIN_SOURCE = "vitiq_torch/csrc/fused_layer_train.cu"
+TRAIN_TPU_SOURCE = "vitiq/ops/pallas/fused_layer_train.py"
 DEVICE = torch.device("cuda", 0)
 
 
@@ -213,6 +241,139 @@ def time_serving(label: str, serve, batch: int, device, card: str, iters: int = 
           flush=True)
 
 
+def train_operands(ffn: int, seed: int, device):
+    layer = random_layers(1, ffn, seed, device)[0]
+    return [t.detach().contiguous() for t in flt.flat_weights(layer, torch.bfloat16)]
+
+
+def check_train_kernels(device) -> dict:
+    """K3-fwd and K3-bwd against their plain versions at the ViT flagship
+    shape, dropout on. Returns the largest difference of each kernel."""
+    print("phase train-kernels: K3 vs plain version on the GPU, B=256 L=129 F=512 H=8, "
+          f"dropout {TRAIN_DROP}", flush=True)
+    ops = train_operands(512, 21, device)
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn((256, 129, 128), generator=gen).to(device, torch.bfloat16)
+    dy = (0.05 * torch.randn((256, 129, 128), generator=gen)).to(device, torch.bfloat16)
+    args = (8, TRAIN_DROP, TRAIN_SEED, 3)
+    with torch.no_grad():
+        y = flt.fused_train_layer_fwd(x, ops, *args)
+        want = flt.fused_train_layer_reference(x, ops, *args)
+        torch.cuda.synchronize()
+        fwd = check_close("K3-fwd", y, want, LAYER_TOL)
+        dx, grads = flt.fused_train_layer_bwd(x, dy, ops, *args)
+        want_dx, want_grads = flt.fused_train_layer_backward_reference(x, dy, ops, *args)
+        torch.cuda.synchronize()
+    bwd = check_close("K3-bwd dx", dx, want_dx, LAYER_TOL)
+    names = ("dWqkv", "dbqkv", "dWo", "dbo", "dg1", "dbe1", "dW1", "db1", "dW2", "db2",
+             "dg2", "dbe2")
+    for name, got, ref in zip(names, grads, want_grads):
+        got, ref = got.float(), ref.float()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"K3-bwd {name}: bad gradient {tuple(got.shape)}")
+        rel = ((got - ref).norm() / ref.norm()).item()
+        max_abs = (got - ref).abs().max().item()
+        bwd = max(bwd, max_abs)
+        print(f"  K3-bwd {name}: ||kernel - plain|| / ||plain|| = {rel:.6g} (limit {GRAD_REL}), "
+              f"max |kernel - plain| = {max_abs:.6g}, max |plain| = {ref.abs().max().item():.6g}",
+              flush=True)
+        if not rel <= GRAD_REL:
+            raise AssertionError(f"K3-bwd {name}: kernel gradient disagrees with the plain one")
+    return {"k3f": fwd, "k3b": bwd}
+
+
+def flat_grad(model, inputs, labels, seed) -> torch.Tensor:
+    """The gradient of one training step's loss, flat in f32."""
+    model.train()
+    gen = torch.Generator(device=inputs.device).manual_seed(0)
+    loss = label_smoothed_cross_entropy(model(inputs, generator=gen, seed=seed), labels, 0.1)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return torch.cat([g.reshape(-1).float() for g in grads])
+
+
+def train_check(device) -> dict:
+    """20 train steps of the ViT flagship through K3, then the gradient of
+    one dropout-free step against the plain bf16 and the f32 paths."""
+    print("phase train: ViT flagship, 20 make_train_step steps, B=256, lr 1e-3", flush=True)
+    cfg = flagship_vit_config("tpu")
+    exp = ExperimentConfig(model=cfg, data=DataConfig(synthetic_frame_len=FRAME_LEN),
+                           train=TrainConfig(batch_size=256, learning_rate=1e-3))
+    model = AMCModel(cfg, generator=torch.Generator().manual_seed(0)).to(device)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator().manual_seed(5)
+    frames = torch.randn((256, FRAME_LEN, 2), generator=gen).to(device)
+    labels = torch.randint(0, cfg.num_classes, (256,), generator=gen).to(device)
+    pre = build_preprocess(exp, STATS)
+    step = make_train_step(make_optimizer(exp.train), exp.train.label_smoothing, pre)
+    state = create_train_state(model, exp.train)
+    n = cfg.n_layers
+
+    flt.reset_launches()
+    losses = []
+    for i in range(20):
+        before = dict(flt.launches)
+        state, metrics = step(state, frames, labels, exp.train.dropout_seed)
+        losses.append(float(metrics["loss"]))
+        got = tuple(flt.launches[k] - before[k] for k in ("fused_train_layer_fwd",
+                                                          "fused_train_layer_bwd"))
+        if got != (n, n):
+            raise AssertionError(f"train step {i} launched K3-fwd {got[0]}x and K3-bwd "
+                                 f"{got[1]}x, expected {n}x each")
+    counts = dict(flt.launches)
+    print(f"  launches over 20 steps: K3-fwd {counts['fused_train_layer_fwd']}, K3-bwd "
+          f"{counts['fused_train_layer_bwd']}; loss step 1 {losses[0]:.6g}, step 10 "
+          f"{losses[9]:.6g}, step 20 {losses[-1]:.6g}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    cfg0 = dataclasses.replace(cfg, drop_prob=0.0)
+    fused = AMCModel(cfg0).to(device)
+    fused.load_state_dict(init)
+    inputs = pre(frames)
+    before = dict(flt.launches)
+    g_fused = flat_grad(fused, inputs, labels, TRAIN_SEED)
+    if flt.launches["fused_train_layer_bwd"] - before["fused_train_layer_bwd"] != n:
+        raise AssertionError("the dropout-free step did not run K3")
+    os.environ["VITIQ_FUSED_TRAIN"] = "0"
+    try:
+        g_plain = flat_grad(fused, inputs, labels, TRAIN_SEED)
+    finally:
+        del os.environ["VITIQ_FUSED_TRAIN"]
+    ref = AMCModel(dataclasses.replace(cfg0, numerics="reference")).to(device)
+    ref.load_state_dict(init)
+    g_ref = flat_grad(ref, inputs, labels, TRAIN_SEED)
+    cos_plain = torch.nn.functional.cosine_similarity(g_fused, g_plain, dim=0).item()
+    cos_f32 = torch.nn.functional.cosine_similarity(g_fused, g_ref, dim=0).item()
+    print(f"  gradient cosine at dropout 0: vs plain bf16 layers {cos_plain:.6f} (limit "
+          f"{COSINE_PLAIN}), vs f32 reference path {cos_f32:.6f} (limit {COSINE_F32})",
+          flush=True)
+    if not cos_plain >= COSINE_PLAIN or not cos_f32 >= COSINE_F32:
+        raise AssertionError("K3 gradients diverge from the plain paths")
+    return {"counts": counts, "exp": exp, "pre": pre}
+
+
+def time_train_step(label: str, exp, pre, batch: int, device, card: str, iters: int) -> float:
+    cfg = exp.model
+    model = AMCModel(cfg, generator=torch.Generator().manual_seed(0)).to(device)
+    gen = torch.Generator().manual_seed(6)
+    frames = torch.randn((batch, FRAME_LEN, 2), generator=gen).to(device)
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen).to(device)
+    step = make_train_step(make_optimizer(exp.train), exp.train.label_smoothing, pre)
+    box = [create_train_state(model, exp.train)]
+
+    def one():
+        box[0] = step(box[0], frames, labels, exp.train.dropout_seed)[0]
+
+    ms = cuda_ms(one, iters, warmup=2)
+    print(f"  {label} train step B={batch}: {ms:.4f} ms/step, {batch / (ms / 1e3):.1f} frames/s "
+          f"(CUDA events)  [{card}]", flush=True)
+    del box, model
+    torch.cuda.empty_cache()
+    return ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a GPU",
@@ -240,6 +401,9 @@ def main() -> int:
     rawiq = serve_check("rawiq flagship", flagship_rawiq_config("tpu"), device,
                         (1, 37, 256, 1000), (256, 1024))
 
+    train_errs = check_train_kernels(device)
+    train = train_check(device)
+
     print(f"phase timing (CUDA events after warm-up) on {card}:", flush=True)
     times = {}
     for name, L, ffn in (("vit", 129, 512), ("rawiq", 65, 1024)):
@@ -257,6 +421,34 @@ def main() -> int:
         print(f"  {name} layer B=4096 L={L} F={ffn}: K1 {t['k1_ms']:.4f} ms vs plain "
               f"{t['k1_plain_ms']:.4f} ms; K2 {t['k2_ms']:.4f} ms vs plain "
               f"{t['k2_plain_ms']:.4f} ms  [{card}]", flush=True)
+    ops = train_operands(512, 13, device)
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((4096, 129, 128), generator=gen).to(device, torch.bfloat16)
+    dy = (0.05 * torch.randn((4096, 129, 128), generator=gen)).to(device, torch.bfloat16)
+    args = (8, TRAIN_DROP, TRAIN_SEED, 0)
+    with torch.no_grad():
+        t = {
+            "k3f_ms": cuda_ms(lambda: flt.fused_train_layer_fwd(x, ops, *args), 10),
+            "k3f_plain_ms": cuda_ms(lambda: flt.fused_train_layer_reference(x, ops, *args), 3,
+                                    warmup=1),
+            "k3b_ms": cuda_ms(lambda: flt.fused_train_layer_bwd(x, dy, ops, *args), 10),
+            "k3b_plain_ms": cuda_ms(
+                lambda: flt.fused_train_layer_backward_reference(x, dy, ops, *args), 3, warmup=1),
+        }
+    times["vit"].update(t)
+    print(f"  vit train layer B=4096 L=129 F=512 dropout {TRAIN_DROP}: K3-fwd {t['k3f_ms']:.4f} ms "
+          f"vs plain {t['k3f_plain_ms']:.4f} ms; K3-bwd {t['k3b_ms']:.4f} ms vs plain "
+          f"{t['k3b_plain_ms']:.4f} ms  [{card}]", flush=True)
+    del x, dy
+    torch.cuda.empty_cache()
+    time_train_step("vit flagship (K3 kernels)", train["exp"], train["pre"], 4096, device, card, 5)
+    os.environ["VITIQ_FUSED_TRAIN"] = "0"
+    try:
+        time_train_step("vit flagship (plain layers, VITIQ_FUSED_TRAIN=0)", train["exp"],
+                        train["pre"], 4096, device, card, 3)
+    finally:
+        del os.environ["VITIQ_FUSED_TRAIN"]
+
     for label, res in (("vit flagship", vit), ("rawiq flagship", rawiq)):
         serve = build_serving_fn(res["exp"], res["model"], STATS, device)
         time_serving(label + " (kernels)", serve, 4096, device, card)
@@ -277,6 +469,16 @@ def main() -> int:
          "replaces": f"{TPU_SOURCE}:920", "launches": counts["fused_encoder_layer_cls"],
          "max_abs_err": errs["k2"], "ms": times["vit"]["k2_ms"],
          "plain_ms": times["vit"]["k2_plain_ms"]},
+        {"name": "fused_train_layer_fwd (K3-fwd)", "route": "cuda", "source": TRAIN_SOURCE,
+         "replaces": f"{TRAIN_TPU_SOURCE}:417",
+         "launches": train["counts"]["fused_train_layer_fwd"],
+         "max_abs_err": train_errs["k3f"], "ms": times["vit"]["k3f_ms"],
+         "plain_ms": times["vit"]["k3f_plain_ms"]},
+        {"name": "fused_train_layer_bwd (K3-bwd)", "route": "cuda", "source": TRAIN_SOURCE,
+         "replaces": f"{TRAIN_TPU_SOURCE}:674",
+         "launches": train["counts"]["fused_train_layer_bwd"],
+         "max_abs_err": train_errs["k3b"], "ms": times["vit"]["k3b_ms"],
+         "plain_ms": times["vit"]["k3b_plain_ms"]},
     ]
     for k in kernels:
         if k["launches"] <= 0:

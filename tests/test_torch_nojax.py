@@ -1,5 +1,6 @@
 """The port runs where JAX is absent: a fresh interpreter in which every
-`import jax` fails imports `vitiq_torch` and serves one batch on the CPU."""
+`import jax` fails imports `vitiq_torch`, serves one batch and trains one
+epoch through the fused training stack (`fit`) on the CPU."""
 
 import subprocess
 import sys
@@ -30,6 +31,25 @@ server = Server(build_serving_fn(cfg, model, stats, "cpu"), 128, (8,))
 x = torch.randn((3, 128, 2), generator=torch.Generator().manual_seed(1))
 logits = server.run(x)
 assert logits.shape == (3, 4) and bool(torch.isfinite(logits).all())
+import numpy as np
+from vitiq.config import TrainConfig
+from vitiq_torch.data import ArrayFeed
+from vitiq_torch.dsp.frontend import preprocess_batch_vit
+from vitiq_torch.ops import metrics
+from vitiq_torch.ops.cuda import fused_layer_train
+from vitiq_torch.train import fit
+
+train_cfg = ExperimentConfig(
+    model=ModelConfig(arm="vit", num_classes=4, d_model=128, n_head=8, n_layers=1,
+                      ffn_hidden=128, img_size_h=16, img_size_w=16, numerics="tpu"),
+    train=TrainConfig(batch_size=4, num_epochs=1))
+rng = np.random.default_rng(0)
+frames = rng.standard_normal((12, 128, 2)).astype(np.float32)
+labels = rng.integers(0, 4, 12)
+res = fit(train_cfg, AMCModel(train_cfg.model), (frames[:8], labels[:8]),
+          ArrayFeed(frames[8:], labels[8:]),
+          preprocess_fn=lambda t: preprocess_batch_vit(t, stats, H=16, W=16), verbose=False)
+assert res.state.step == 2 and np.isfinite(res.history["train_loss"]).all()
 leaked = sorted(m for m in sys.modules if m.startswith("jax") and sys.modules[m] is not None)
 assert not leaked, leaked
 print("OK")

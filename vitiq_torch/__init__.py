@@ -11,16 +11,21 @@ files load with a plain `load_state_dict`.
 Run-time imports stay free of JAX: the only part of `vitiq` imported here is
 `vitiq.config`, which needs the standard library alone.
 
-Ported so far (the bf16 serving slice): numerics policies, attention, the
-encoder layers, embeddings, encoder, classifier heads, the ViT / rawIQ
-front-ends, checkpoint interop, the bucketed server, and the CUDA port of the
-fused encoder-layer kernels (`csrc/fused_encoder_layer.cu`).
+Ported so far: numerics policies, attention, the encoder layers,
+embeddings, encoder, classifier heads, the ViT / rawIQ front-ends,
+checkpoint interop, the bucketed server and the CUDA port of the fused
+encoder-layer kernels (`csrc/fused_encoder_layer.cu`) for serving; the loss
+and metrics, clip + AdamW, the plateau and early-stopping controllers, the
+in-RAM feed, the train and eval steps and `fit`, and the CUDA port of the
+fused training layer, forward and backward (`csrc/fused_layer_train.cu`),
+for training.
 """
 
 from vitiq_torch.config import (  # noqa: F401
     DataConfig,
     ExperimentConfig,
     ModelConfig,
+    TrainConfig,
     flagship_rawiq_config,
     flagship_vit_config,
 )

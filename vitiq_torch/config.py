@@ -7,9 +7,9 @@ instead of copying it. The flagship constructors mirror `vitiq/bench.py`
 
 from __future__ import annotations
 
-from vitiq.config import DataConfig, ExperimentConfig, ModelConfig
+from vitiq.config import DataConfig, ExperimentConfig, ModelConfig, TrainConfig
 
-__all__ = ["DataConfig", "ExperimentConfig", "ModelConfig",
+__all__ = ["DataConfig", "ExperimentConfig", "ModelConfig", "TrainConfig",
            "flagship_vit_config", "flagship_rawiq_config"]
 
 

@@ -71,16 +71,12 @@
 //       16-row query tiles is the query tiling).
 //   VITIQ_V3_PROBE                                -> timing-only surgery; none.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
 
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
 using namespace nvcuda;
 
 constexpr int BM = 64;    // GEMM tile rows
@@ -94,17 +90,6 @@ constexpr int ATTN_WARPS = 4;
 constexpr float LN_EPS = 1e-12f;
 
 enum Epilogue { kBias = 0, kBiasRelu = 1, kBiasResidualLN = 2 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 struct GemmArgs {
   const bf16* a;      // A rows: row r starts at a + r * lda, K contiguous values
@@ -123,21 +108,6 @@ struct GemmArgs {
   const float* gamma;
   const float* beta;
 };
-
-// Copy 16 bytes from device to shared memory without staging in registers;
-// src_bytes = 0 writes zeros (rows past the end of A).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 constexpr int A_TILE = BM * A_LD;  // bf16 elements of one stage's A tile
 constexpr int B_TILE = BK * B_LD;  // and of its W tile
@@ -273,8 +243,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
   }
 }
 
-__host__ __device__ __forceinline__ int round16(int n) { return (n + 15) & ~15; }
-
 // Shared-memory row strides (bf16 elements) of the attention core's k
 // [key][K_LD] and v^T [dim][vt_ld(L)] copies: padded so that the eight
 // rows a warp's fragment loads touch fall on distinct banks.
@@ -285,22 +253,6 @@ __host__ __device__ __forceinline__ int vt_ld(int L) { return round16(L) + 8; }
 template <int DH>
 __host__ __device__ __forceinline__ size_t attention_smem_bytes(int L) {
   return ((size_t)round16(L) * k_ld<DH>() + (size_t)DH * vt_ld(L)) * sizeof(bf16);
-}
-
-__device__ __forceinline__ uint32_t ld_b32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D += A B for one 16 x 8 x 16 tile: bf16 operands, f32 accumulators.
-// Fragments (g = lane / 4, t = lane % 4): a = A[g | g+8][2t.. | 2t+8..],
-// b = B[2t.. | 2t+8..][g], c = C[g | g+8][2t, 2t+1].
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Scores of the warp's 16 query rows against keys [j0, j0 + 16): two 16 x 8
@@ -321,16 +273,6 @@ __device__ __forceinline__ void score_block(float sc[2][4], const uint32_t qa[DH
       if (key + 1 >= L) sc[nb][1] = sc[nb][3] = -INFINITY;
     }
   }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // One block per (frame b, head h). qkv: [B, L, 3D] bf16 with q in columns

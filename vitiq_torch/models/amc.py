@@ -59,9 +59,12 @@ class AMCModel(nn.Module):
         self.cls_pooling = cfg.arm == "vit" or cfg.use_cls_token
 
     def forward(self, src: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
+        """In training, `generator` draws the dropout of the plain paths and
+        `seed` (the step's int32 seed) that of the fused training kernels."""
         x = self.encoder(src, self.policy, cls_only_fused=self.cls_pooling,
-                         generator=generator)
+                         generator=generator, seed=seed)
         feat = x[:, 0] if self.cls_pooling else x.mean(dim=1)
         if self.cfg.arm == "vit":
             logits = self.mlp_head(feat, self.policy)

@@ -6,14 +6,18 @@
   x = x + PE[:L]; x = dropout(x)
   for layer in layers: x = EncoderLayer(x, mask)
 
-Dispatch: in eval mode, without a mask and under a bf16 policy, the layer
-stack runs through the fused encoder-layer kernels
-(`vitiq_torch.ops.cuda.fused_encoder_layer`): on a CUDA tensor the
-hand-written kernels, on a CPU tensor their plain PyTorch version. With
-``cls_only_fused`` the last layer computes the CLS row only and the encoder
-returns [B, 1, D]. Opt-outs, as in `vitiq`: ``VITIQ_NO_FUSED_LAYER=1`` runs
-the plain layer loop, ``VITIQ_CLS_ONLY=0`` computes the full last layer.
-Training and dropout run through the plain layers.
+Dispatch, without a mask and under a bf16 policy (on a CUDA tensor the
+hand-written kernels, on a CPU tensor their plain PyTorch versions):
+* training, given the step's dropout seed, with ``VITIQ_FUSED_TRAIN`` not
+  ``0`` and shapes the kernels take (`fused_train_supported`): the fused
+  training stack (`vitiq_torch.ops.cuda.fused_layer_train`, K3 forward and
+  backward, dropout drawn from the seed inside the kernels);
+* eval: the fused inference stack (`vitiq_torch.ops.cuda.fused_encoder_layer`,
+  K1/K2). With ``cls_only_fused`` the last layer computes the CLS row only
+  and the encoder returns [B, 1, D]. Opt-outs, as in `vitiq`:
+  ``VITIQ_NO_FUSED_LAYER=1`` runs the plain layer loop, ``VITIQ_CLS_ONLY=0``
+  computes the full last layer.
+Everything else runs the plain layers, their dropout drawn from `generator`.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from vitiq_torch.models.embeddings import (
 )
 from vitiq_torch.models.layers import EncoderLayer, dropout
 from vitiq_torch.ops.cuda.fused_encoder_layer import fused_encoder_layer_stack
+from vitiq_torch.ops.cuda.fused_layer_train import fused_train_layer_stack, fused_train_supported
 from vitiq_torch.ops.numerics import Policy
 
 
@@ -79,11 +84,21 @@ class Encoder(nn.Module):
     def forward(self, src: torch.Tensor, policy: Policy,
                 mask: Optional[torch.Tensor] = None,
                 cls_only_fused: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
         """The full token sequence [B, L, D], or [B, 1, D] when the fused path
-        computes the CLS row only (``cls_only_fused``)."""
+        computes the CLS row only (``cls_only_fused``). `seed` is the training
+        step's int32 dropout seed for the fused training stack."""
         cfg = self.cfg
         x = dropout(self.embed(src, policy), cfg.drop_prob, self.training, generator)
+        if (self.training
+                and seed is not None
+                and mask is None
+                and policy.compute_dtype == torch.bfloat16
+                and os.environ.get("VITIQ_FUSED_TRAIN", "1") != "0"
+                and fused_train_supported(x.shape[1], cfg.d_model, cfg.ffn_hidden, cfg.n_head)):
+            return fused_train_layer_stack(policy.cast_compute(x), list(self.layers),
+                                           cfg.n_head, cfg.drop_prob, seed)
         if (not self.training
                 and mask is None
                 and policy.compute_dtype == torch.bfloat16
