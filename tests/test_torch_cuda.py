@@ -8,10 +8,12 @@ Tolerance on bf16 outputs, |kernel - plain| <= atol + rtol |plain|: for one
 layer on the same input (3e-2, 1.6e-2), about two bf16 ulps (2^-7 relative
 each) plus an absolute floor near zero -- the two sum in different orders,
 so bf16 roundings may flip; for a stack twice that (6e-2, 3.2e-2), since
-each layer's flips feed the next one's input. K3's backward: dx at the
-one-layer tolerance, each weight, bias and LN gradient within 1% of the
+each layer's flips feed the next one's input. K3's and K4's backward: dx at
+the one-layer tolerance, each weight, bias and LN gradient within 1% of the
 plain version's in the L2 norm (sums over thousands of rows, taken in
-another order and from operands whose bf16 roundings may flip)."""
+another order and from operands whose bf16 roundings may flip). K4's stash:
+its bf16 tensors at the one-layer tolerance, its f32 1/std within 1e-3
+relative (f32 statistics summed in another order)."""
 
 import pytest
 import torch
@@ -117,13 +119,13 @@ def _train_operands(cuda, ffn, n_head):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Lx", [1, 17, 129])
+@pytest.mark.parametrize("Lx,ffn", [(1, 256), (17, 256), (129, 256), (65, 1024)])  # + rawIQ
 @pytest.mark.parametrize("n_head", [8, 4])  # d_head 16 and 32
 @pytest.mark.parametrize("drop", [0.0, 0.1])
-def test_train_kernels_match_plain_versions(cuda, Lx, n_head, drop):
+def test_train_kernels_match_plain_versions(cuda, Lx, ffn, n_head, drop):
     from vitiq_torch.ops.cuda import fused_layer_train as flt
 
-    ops = _train_operands(cuda, 256, n_head)
+    ops = _train_operands(cuda, ffn, n_head)
     gen = torch.Generator().manual_seed(Lx)
     x = torch.randn((37, Lx, D), generator=gen).to(cuda, torch.bfloat16)
     dy = (0.1 * torch.randn((37, Lx, D), generator=gen)).to(cuda, torch.bfloat16)
@@ -147,10 +149,12 @@ def test_train_launch_counts_and_autograd(cuda):
     x = torch.randn((4, 129, D)).to(cuda, torch.bfloat16).requires_grad_(True)
     flt.reset_launches()
     y = flt.fused_train_layer_stack(x, layers, H, 0.1, 5)
-    assert flt.launches == {"fused_train_layer_fwd": 2, "fused_train_layer_bwd": 0}
+    assert flt.launches == {"fused_train_layer_fwd": 2, "fused_train_layer_bwd": 0,
+                            "fused_train_layer_fwd_stash": 0, "fused_train_layer_bwd_stash": 0}
     y.float().square().sum().backward()
     torch.cuda.synchronize()
-    assert flt.launches == {"fused_train_layer_fwd": 2, "fused_train_layer_bwd": 2}
+    assert flt.launches == {"fused_train_layer_fwd": 2, "fused_train_layer_bwd": 2,
+                            "fused_train_layer_fwd_stash": 0, "fused_train_layer_bwd_stash": 0}
     assert x.grad is not None and torch.isfinite(x.grad.float()).all()
     for layer in layers:
         for p in layer.parameters():
@@ -189,3 +193,103 @@ def test_train_backward_is_the_same_bits_run_to_run(cuda):
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0])
     assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+
+
+# --------------------------------------------------------------------------
+# K4: the stash regime of the fused training layer, forward and backward
+# --------------------------------------------------------------------------
+
+STASH_NAMES = ("attn", "xh1", "xh2", "r1", "r2", "pbar")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx,ffn", [(17, 256), (65, 1024), (80, 256)])
+@pytest.mark.parametrize("n_head", [8, 4])  # d_head 16 and 32
+@pytest.mark.parametrize("drop", [0.0, 0.2])
+def test_stash_kernels_match_plain_versions(cuda, Lx, ffn, n_head, drop):
+    """y and the bf16 stash tensors at the one-layer tolerance, 1/std (r1,
+    r2, f32) at a relative 1e-3; dx and the gradients as K3's."""
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    ops = _train_operands(cuda, ffn, n_head)
+    gen = torch.Generator().manual_seed(Lx)
+    x = torch.randn((37, Lx, D), generator=gen).to(cuda, torch.bfloat16)
+    dy = (0.1 * torch.randn((37, Lx, D), generator=gen)).to(cuda, torch.bfloat16)
+    y, stash = flt.fused_train_layer_fwd_stash(x, ops, n_head, drop, 99, 2)
+    dx, grads = flt.fused_train_layer_bwd_stash(x, dy, stash, ops, n_head, drop, 99, 2)
+    torch.cuda.synchronize()
+    want_y, want_stash = flt.fused_train_layer_stash_reference(x, ops, n_head, drop, 99, 2)
+    _assert_close(y, want_y, LAYER_TOL)
+    for name, got, ref in zip(STASH_NAMES, stash, want_stash):
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        _assert_close(got, ref, (0.0, 1e-3) if name in ("r1", "r2") else LAYER_TOL)
+    # the backward on the plain stash, so that only K4-bwd is under test
+    want_dx, want = flt.fused_train_layer_stash_backward_reference(x, dy, want_stash, ops, n_head,
+                                                                   drop, 99, 2)
+    dx_on_plain, grads_on_plain = flt.fused_train_layer_bwd_stash(x, dy, want_stash, ops, n_head,
+                                                                  drop, 99, 2)
+    torch.cuda.synchronize()
+    for got_dx, got_grads in ((dx, grads), (dx_on_plain, grads_on_plain)):
+        _assert_close(got_dx, want_dx, LAYER_TOL)
+        for i, (got, ref) in enumerate(zip(got_grads, want)):
+            assert got.dtype == ref.dtype and got.shape == ref.shape
+            err = (got.float() - ref.float()).norm()
+            assert err <= GRAD_REL * ref.float().norm() + 1e-6, (i, float(err))
+
+
+@pytest.mark.cuda
+def test_stash_backward_is_the_same_bits_run_to_run(cuda):
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    ops = _train_operands(cuda, 1024, H)
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn((64, 65, D), generator=gen).to(cuda, torch.bfloat16)
+    dy = torch.randn((64, 65, D), generator=gen).to(cuda, torch.bfloat16)
+    _, stash = flt.fused_train_layer_fwd_stash(x, ops, H, 0.2, 4, 1)
+    first = flt.fused_train_layer_bwd_stash(x, dy, stash, ops, H, 0.2, 4, 1)
+    second = flt.fused_train_layer_bwd_stash(x, dy, stash, ops, H, 0.2, 4, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+
+
+@pytest.mark.cuda
+def test_stash_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    ops = _train_operands(cuda, 256, H)
+    x = torch.randn((2, 9, D)).to(cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        flt.fused_train_layer_fwd_stash(x, ops, H, 0.1, 1, 0)  # f32 activations
+    with pytest.raises(ValueError, match="stash gate"):  # H * Lp = 8 * 176 > 1280
+        flt.fused_train_layer_fwd_stash(torch.zeros((1, 161, D), dtype=torch.bfloat16,
+                                                    device=cuda), ops, H, 0.1, 1, 0)
+    xb = x.bfloat16()
+    _, stash = flt.fused_train_layer_fwd_stash(xb, ops, H, 0.1, 1, 0)
+    with pytest.raises(ValueError, match="stash tensor 5"):  # pbar of the wrong shape
+        flt.fused_train_layer_bwd_stash(xb, xb, stash[:5] + (stash[5][:, :4],), ops, H, 0.1, 1, 0)
+    with pytest.raises(ValueError, match="stash tensor 3"):  # r1 in bf16
+        flt.fused_train_layer_bwd_stash(xb, xb, stash[:3] + (stash[3].bfloat16(),) + stash[4:],
+                                        ops, H, 0.1, 1, 0)
+    with pytest.raises(ValueError, match="a stash of 6"):
+        flt.fused_train_layer_bwd_stash(xb, xb, stash[:5], ops, H, 0.1, 1, 0)
+
+
+@pytest.mark.cuda
+def test_stash_launch_counts_and_autograd(cuda):
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    layers = [EncoderLayer(D, 1024, H).to(cuda).train() for _ in range(2)]
+    x = torch.randn((4, 65, D)).to(cuda, torch.bfloat16).requires_grad_(True)
+    flt.reset_launches()
+    y = flt.fused_train_layer_stack(x, layers, H, 0.2, 5)
+    assert flt.launches == {"fused_train_layer_fwd": 0, "fused_train_layer_bwd": 0,
+                            "fused_train_layer_fwd_stash": 2, "fused_train_layer_bwd_stash": 0}
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert flt.launches == {"fused_train_layer_fwd": 0, "fused_train_layer_bwd": 0,
+                            "fused_train_layer_fwd_stash": 2, "fused_train_layer_bwd_stash": 2}
+    assert x.grad is not None and torch.isfinite(x.grad.float()).all()
+    for layer in layers:
+        for p in layer.parameters():
+            assert p.grad is not None and p.grad.dtype == torch.float32

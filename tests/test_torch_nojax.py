@@ -1,6 +1,9 @@
 """The port runs where JAX is absent: a fresh interpreter in which every
 `import jax` fails imports `vitiq_torch`, serves one batch and trains one
-epoch through the fused training stack (`fit`) on the CPU."""
+epoch through the fused training stack (`fit`) on the CPU: a ViT on its
+preprocessed images, and a rawIQ model on raw frames through
+`build_forward_and_preprocess` (the fused raw embedding and the stash
+regime)."""
 
 import subprocess
 import sys
@@ -50,6 +53,24 @@ res = fit(train_cfg, AMCModel(train_cfg.model), (frames[:8], labels[:8]),
           ArrayFeed(frames[8:], labels[8:]),
           preprocess_fn=lambda t: preprocess_batch_vit(t, stats, H=16, W=16), verbose=False)
 assert res.state.step == 2 and np.isfinite(res.history["train_loss"]).all()
+
+# rawIQ on raw frames: the fused raw embedding and the stash regime (17 tokens)
+from vitiq_torch.serve import build_forward_and_preprocess
+raw_cfg = ExperimentConfig(
+    model=ModelConfig(arm="rawiq", num_classes=4, d_model=128, n_head=8, n_layers=1,
+                      ffn_hidden=128, seq_length=256, segment_size=16, numerics="tpu"),
+    data=DataConfig(synthetic_frame_len=256), train=TrainConfig(batch_size=4, num_epochs=1))
+raw_stats = {"i_mean": 0.1, "i_std": 1.3, "q_mean": -0.2, "q_std": 0.9}
+model, pre = build_forward_and_preprocess(raw_cfg, raw_cfg.model, raw_stats)
+assert model.raw_stats == raw_stats
+stash_calls = []
+real_stash = fused_layer_train.fused_train_layer_fwd_stash
+fused_layer_train.fused_train_layer_fwd_stash = lambda *a: stash_calls.append(1) or real_stash(*a)
+frames = rng.standard_normal((12, 256, 2)).astype(np.float32)
+res = fit(raw_cfg, model, (frames[:8], labels[:8]), ArrayFeed(frames[8:], labels[8:]),
+          preprocess_fn=pre, verbose=False)
+assert res.state.step == 2 and np.isfinite(res.history["train_loss"]).all()
+assert len(stash_calls) == 2, stash_calls
 leaked = sorted(m for m in sys.modules if m.startswith("jax") and sys.modules[m] is not None)
 assert not leaked, leaked
 print("OK")

@@ -6,7 +6,10 @@ weights and batches: three steps under the f32 `reference` numerics with
 dropout 0 (losses at rtol 1e-5, final parameters at atol 1e-5), and one step
 under the bf16 `tpu` numerics, where the port runs K3's plain versions and
 vitiq its Pallas training stack in interpret mode (loss within 1e-2
-relative: the two round to bf16 at different places)."""
+relative: the two round to bf16 at different places). A small rawIQ model
+repeats both on raw frames through the fused raw embedding: three f32 steps
+with it forced on (losses at rtol 1e-5), and one `tpu` step in which the
+port runs K4's plain versions and vitiq its stash regime (rtol 1e-2)."""
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +33,7 @@ from vitiq_torch.interop import state_dict_from_vitiq
 from vitiq_torch.models import AMCModel
 from vitiq_torch.models import encoder as port_encoder
 from vitiq_torch.ops import metrics as pmetrics
+from vitiq_torch.ops.cuda import fused_layer_train as flt
 from vitiq_torch.train import loop as ploop
 from vitiq_torch.train import optim as poptim
 
@@ -42,9 +46,17 @@ def _vit(numerics="reference", drop=0.0, n_layers=2, ffn=256, classes=5):
                        numerics=numerics)
 
 
-def _frames(n, seed, classes=5):
+def _rawiq(numerics="reference"):
+    """d128/L2/H8, FFN 256, segment 16 over 256 samples: 17 tokens with CLS
+    (Lp 32 in bf16, so vitiq's training stack takes the stash)."""
+    return ModelConfig(arm="rawiq", num_classes=5, d_model=128, n_head=8, n_layers=2,
+                       ffn_hidden=256, drop_prob=0.0, seq_length=256, segment_size=16,
+                       numerics=numerics)
+
+
+def _frames(n, seed, classes=5, length=128):
     rng = np.random.default_rng(seed)
-    return (rng.standard_normal((n, 128, 2)).astype(np.float32),
+    return (rng.standard_normal((n, length, 2)).astype(np.float32),
             rng.integers(0, classes, n).astype(np.int32))
 
 
@@ -132,17 +144,26 @@ def test_array_feed_matches_vitiq():
     assert ploop.as_feed(pf) is pf
 
 
-def _jax_and_port(model_cfg, steps, train_cfg):
+def _jax_and_port(model_cfg, steps, train_cfg, raw=False):
     """Run `steps` train steps of both packages from the same weights on the
-    same batches; returns (jax losses, port losses, jax params, port model)."""
+    same batches; returns (jax losses, port losses, jax params, port model).
+    With `raw`, both models take raw frames through the fused raw embedding
+    (`make_forward(cfg, raw_stats=...)`, `AMCModel(cfg, raw_stats=...)`)
+    and the preprocess is the identity; else the ViT preprocess."""
     params = init_amc_params(jax.random.PRNGKey(0), model_cfg)
-    model = AMCModel(model_cfg)
+    model = AMCModel(model_cfg, raw_stats=STATS if raw else None)
     model.load_state_dict(state_dict_from_vitiq(params, model_cfg))
-    batches = [_frames(6, 10 + i) for i in range(steps)]
+    length = model_cfg.seq_length if raw else 128
+    batches = [_frames(6, 10 + i, length=length) for i in range(steps)]
 
-    jstep = jax_make_train_step(make_forward(model_cfg), joptim.make_optimizer(train_cfg),
-                                train_cfg.label_smoothing,
-                                lambda x: jax_preprocess_vit(x, STATS, H=16, W=16))
+    if raw:
+        jfwd, jpre, ppre = make_forward(model_cfg, raw_stats=STATS), (lambda x: x), None
+    else:
+        jfwd = make_forward(model_cfg)
+        jpre = lambda x: jax_preprocess_vit(x, STATS, H=16, W=16)  # noqa: E731
+        ppre = lambda x: preprocess_batch_vit(x, STATS, H=16, W=16)  # noqa: E731
+    jstep = jax_make_train_step(jfwd, joptim.make_optimizer(train_cfg), train_cfg.label_smoothing,
+                                jpre)
     jstate = joptim.create_train_state(params, train_cfg)
     jlosses = []
     for x, y in batches:
@@ -150,7 +171,7 @@ def _jax_and_port(model_cfg, steps, train_cfg):
         jlosses.append(float(m["loss"]))
 
     pstep = ptrain.make_train_step(poptim.make_optimizer(train_cfg), train_cfg.label_smoothing,
-                                   lambda x: preprocess_batch_vit(x, STATS, H=16, W=16))
+                                   ppre)
     pstate = poptim.create_train_state(model, train_cfg)
     plosses = []
     for x, y in batches:
@@ -189,6 +210,33 @@ def test_train_step_matches_pallas_train_stack_in_bf16(monkeypatch):
     with pltpu.force_tpu_interpret_mode():
         jlosses, plosses, _, _ = _jax_and_port(model_cfg, 1, TrainConfig(learning_rate=1e-3))
     assert calls == [1]
+    np.testing.assert_allclose(plosses, jlosses, rtol=1e-2)
+
+
+def test_three_rawiq_train_steps_match_vitiq_in_f32(monkeypatch):
+    """f32 `reference` numerics with the fused raw embedding forced on both
+    sides (VITIQ_FUSED_EMBED=1): raw frames in, losses at rtol 1e-5."""
+    monkeypatch.setenv("VITIQ_FUSED_EMBED", "1")
+    jlosses, plosses, _, model = _jax_and_port(_rawiq(), 3, TrainConfig(), raw=True)
+    assert model.raw_stats == STATS
+    np.testing.assert_allclose(plosses, jlosses, rtol=1e-5)
+
+
+def test_rawiq_train_step_matches_pallas_stash_in_bf16(monkeypatch):
+    """tpu numerics on raw frames: the fused raw embedding and the port's
+    stash regime (K4's plain versions on the CPU) against vitiq's fused
+    embedding and Pallas training stack (the stash, by its own gate),
+    engaged off the TPU by VITIQ_FUSED_FORCE=1 and run in interpret mode:
+    loss within 1e-2 relative (the two round to bf16 at different places)."""
+    monkeypatch.setenv("VITIQ_FUSED_FORCE", "1")
+    calls = []
+    real = flt.fused_train_layer_fwd_stash
+    monkeypatch.setattr(flt, "fused_train_layer_fwd_stash",
+                        lambda *a: calls.append(1) or real(*a))
+    with pltpu.force_tpu_interpret_mode():
+        jlosses, plosses, _, _ = _jax_and_port(_rawiq("tpu"), 1, TrainConfig(learning_rate=1e-3),
+                                               raw=True)
+    assert calls == [1, 1]  # K4-fwd once per layer
     np.testing.assert_allclose(plosses, jlosses, rtol=1e-2)
 
 

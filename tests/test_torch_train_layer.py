@@ -143,7 +143,7 @@ def test_cpu_tensors_take_plain_versions_without_counting():
     want_dx, want = flt.fused_train_layer_backward_reference(x, dy, ops, 8, 0.1, 3, 1)
     assert torch.equal(dx, want_dx) and all(torch.equal(a, b) for a, b in zip(grads, want))
     assert [g.dtype for g in grads] == [t.dtype for t in ops]
-    assert flt.launches == {"fused_train_layer_fwd": 0, "fused_train_layer_bwd": 0}
+    assert not any(flt.launches.values())
     meta = torch.empty((1, 9, D), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         flt.fused_train_layer_fwd(meta, ops, 8, 0.1, 3, 1)

@@ -1,5 +1,6 @@
 // Fused post-norm encoder layer for TRAINING on Hopper (sm_90a): K3, the
-// forward and the recompute backward.
+// forward and the recompute backward, and K4, the stash forward and the
+// stash backward.
 //
 // Replaces (TPU Pallas kernels of the JAX reference package):
 //   K3-fwd  vitiq/ops/pallas/fused_layer_train.py: _fwd_kernel (pallas_call in
@@ -7,6 +8,11 @@
 //   K3-bwd  vitiq/ops/pallas/fused_layer_train.py: _bwd_kernel in its
 //           recompute regime (pallas_call in _fused_train_layer_bwd): dx and
 //           all 12 weight, bias and LN gradients
+//   K4-fwd  vitiq/ops/pallas/fused_layer_train.py: _fwd_kernel_stash (pallas_call
+//           in _run_fwd with the stash on); _fwd_kernel_stash_xpack and
+//           _fwd_kernel_stash_stacked are TPU schedules of the same function
+//   K4-bwd  vitiq/ops/pallas/fused_layer_train.py: _bwd_kernel with stash=True
+//           (and _bwd_kernel_stacked, its layers-per-call schedule)
 //
 // Function, per layer, on a bf16 [B, L, D] activation (D = 128):
 //   qkv = bf16(x Wqkv + bqkv)                   Wqkv unscaled
@@ -24,7 +30,7 @@
 // forward and the backward regenerate the same mask under any block shape.
 // The plain PyTorch version computes the same bits.
 //
-// Backward (recompute regime: the forward saves only x, the seed and the
+// K3 backward (recompute regime: the forward saves only x, the seed and the
 // weights). The recompute runs the forward's stages again, keeping what the
 // gradients need: qkv, attn, the softmax row max and sum, x1, LN1's
 // normalized input and 1/std, h, LN2's normalized input and 1/std. Then, as
@@ -35,20 +41,39 @@
 // sum_j dP_ij P_ij = dO_i . O_i. The four matrix gradients are handed back
 // rounded to the weights' bf16 by the wrapper, as the JAX backward does.
 //
+// K4 (stash regime). K4-fwd is K3-fwd (the same y) that also writes the
+// stash: attn [B, L, D], LN1's and LN2's normalized inputs xh1, xh2 [B, L, D]
+// in bf16 (the TPU kernel stores them in x's dtype), their 1/std r1, r2
+// [B, L] f32, and pbar = bf16(bf16(exp2(s - max)) / l) [B, H, L, L] (the
+// port's layout; the TPU kernel packs [B, Lp, H*Lp]). K4-bwd runs no
+// attention, out-projection+LN1 or FFN2+LN2 recompute; it rebuilds what the
+// TPU stash backward rebuilds, at the same rounding points: qkv =
+// bf16(x Wqkv + bqkv), x1 = bf16(f32(xh1) g1 + be1), h = bf16(relu(x1 W1 + b1)
+// m2). The LN backwards read the stashed bf16 xh widened to f32; then come
+// K3's gradient stages, except that the attention backward reads pbar from
+// the stash in both of its passes instead of recomputing Q K^T and exp2.
+//
 // Design: one __global__ launch per stage, on the caller's stream.
 //   tgemm<AT, BT, EPI>     WMMA GEMM (bf16 16x16x16 fragments, f32 accumulate)
 //                          over 64 x 128 output tiles with a two-stage cp.async
 //                          pipeline: A or A^T times B or W^T, and a fused
 //                          epilogue per stage (bias, ReLU, dropout, residual,
-//                          LayerNorm forward or backward, column partial sums)
+//                          LayerNorm forward or backward with f32 or bf16 xh,
+//                          column partial sums)
 //   train_attention_fwd    one block per (frame, head), K1's register-fragment
 //                          core (mma.sync), q scaled in the kernel, optionally
 //                          writing each row's max and sum for the backward
-//   train_attention_bwd    one block per (frame, head): q, k, v, dO and their
-//                          transposes in shared memory; a query-major pass
-//                          (dQ) and a key-major pass (dK, dV) that recompute P
-//                          and dS in mma.sync fragments, never in memory
-//   ln_bwd_rows            LN2 backward, one warp per row
+//                          (K3) or, in a third pass over the keys, pbar (K4)
+//   train_attention_bwd    one block per (frame, head): a query-major pass
+//                          (dQ) and a key-major pass (dK, dV), holding q, k,
+//                          v, dO and their transposes in shared memory and
+//                          recomputing P in mma.sync fragments in both passes
+//   train_attention_bwd_stash
+//                          K4's: the same passes, holding v, dO and the
+//                          transposes of q, k, dO, and loading each fragment's
+//                          pbar from the stash
+//   ln_bwd_rows<XH>        LN2 backward, one warp per row, xh f32 or bf16
+//   rebuild_ln_out         K4's x1 = bf16(f32(xh1) g1 + be1)
 //   reduce_rows            column sums of partials, in a fixed order
 // Weight gradients are sums over the B*L rows. The TPU kernel carries them in
 // f32 scratch across its sequential grid; blocks here run in no order, so each
@@ -65,27 +90,47 @@
 // the bf16 ridge (~295), so bytes bound it, and the f32 intermediates of the
 // backward most of all. This first port keeps them in device memory and runs
 // unpipelined WMMA tiles; wgmma, TMA and fusing the FFN hidden are later work.
+// K4 trades the recompute for stash bytes. At the rawIQ flagship shape (L =
+// 65, F = 1024, H = 8) the stash is ~118 KB per frame and layer (pbar 68 KB
+// of it): K4-fwd writes it once; K4-bwd reads it, pbar twice (once per
+// attention pass, the second mostly from L2). The recompute it saves is the
+// attention forward (score and PV products), the out-projection and FFN2
+// GEMMs with their LN epilogues: ~21 MFLOP and ~0.34 MB of device-memory
+// traffic per frame (the FFN hidden read back is most of it), plus the
+// forward's third attention pass that writes pbar. K4-bwd keeps the QKV and
+// FFN1 GEMMs. So K4 moves about as many bytes as K3 and saves its FLOPs and
+// launches; the stash is ~0.5 GB a layer at B = 4096, held from the forward
+// to the backward.
 //
-// TPU schedule knobs of K3 and what computes each here (all are the same
-// function):
+// TPU schedule knobs of K3 and K4 and what computes each here (all are the
+// same function):
+//   VITIQ_TRAIN_STASH (K4 on / off / auto)  -> the wrapper's stash_enabled
+//       routes each layer to K4 or K3, with the TPU gate unchanged.
+//   VITIQ_TRAIN_FWD (xpack / chain stash forward)
+//                                           -> train_attention_fwd; the
+//       packed [B, Lp, H*Lp] probability layout has no counterpart, pbar is
+//       [B, H, L, L].
 //   VITIQ_TRAIN_PB (recompute / reuse the probability tiles)
-//                          -> train_attention_bwd recomputes P from q and k in
-//                             both of its passes; nothing is cached.
+//                          -> K3: train_attention_bwd recomputes P from q and
+//                             k in both of its passes; K4:
+//                             train_attention_bwd_stash reads pbar.
 //   VITIQ_TRAIN_EPI (wide / head divide)    -> one f32 divide per output.
 //   VITIQ_TRAIN_DW (merged / batched dW)    -> one split-K GEMM over all rows.
-//   VITIQ_TRAIN_DWPACK (0 / p1 / full)      -> four separate dW GEMMs.
-//   VITIQ_TRAIN_FPA, _FPG, _FPV, _ATTNBWD   -> train_attention_bwd: heads are
-//       independent blocks, so neither the full-product packing of heads nor
-//       the block-diagonal scratch nor the per-head chain has a counterpart;
-//       the softmax backward is one fragment per 16 x 16 tile.
+//   VITIQ_TRAIN_DWPACK (0 / p1 / full)      -> four separate dW GEMMs, in
+//       both regimes.
+//   VITIQ_TRAIN_FPA, _FPG, _FPV, _ATTNBWD   -> train_attention_bwd, in both
+//       regimes: heads are independent blocks, so neither the full-product
+//       packing of heads nor the block-diagonal scratch nor the per-head
+//       chain has a counterpart; the softmax backward is one fragment per
+//       16 x 16 tile.
 //   VITIQ_TRAIN_RFWD, _RBWD (xpack cores)   -> train_attention_fwd.
 //   VITIQ_TRAIN_TAIL (VPU tail keys)        -> keys are masked per 8-key
-//       fragment column; activations stay [B, L, D] unpadded.
-//   VITIQ_TRAIN_LPC (layers per call), VITIQ_TRAIN_G (frames per block)
-//                                           -> one host call per layer; the
+//       fragment column; activations stay [B, L, D] unpadded. The stash gate
+//       still turns K4 off where the TPU's tail mode would be on.
+//   VITIQ_TRAIN_LPC (layers per call: _fused_train_chunk,
+//       _fwd_kernel_stash_stacked, _bwd_kernel_stacked), VITIQ_TRAIN_G
+//       (frames per block)                  -> one host call per layer; the
 //       GEMMs tile B*L rows, attention is one block per frame and head.
-//   VITIQ_TRAIN_STASH (K4)                  -> not here: this is the recompute
-//       regime only.
 //   VITIQ_TRAIN_PROBE                       -> timing-only surgery; none.
 
 #include <mma.h>
@@ -158,7 +203,8 @@ __device__ __forceinline__ float keep_scale(const Drop& d, long long row, int co
 enum Epi {
   kBias = 0,       // out = bf16(acc + bias)
   kReluDrop = 1,   // out = bf16(relu(acc + bias) * mask)
-  kLnFwd = 2,      // z = (acc + bias) * mask + res; out = bf16(LN(z)); xh, 1/std
+  kLnFwd = 2,      // z = (acc + bias) * mask + res; out = bf16(LN(z)); xh (f32 or
+                   // bf16), 1/std
   kStore = 3,      // out = bf16(acc)
   kDpre = 4,       // d = h > 0 ? acc * mask : 0; out = bf16(d); column sums of d
   kLnBwd = 5,      // g = acc + res32; dz = LN backward of g; out32 = dz;
@@ -182,9 +228,11 @@ struct TGemm {
   float* out32;
   const bf16* res;     // kLnFwd: bf16 residual; kDpre: the FFN hidden h
   const float* res32;  // kLnBwd, kResOut: f32 residual
-  const float* xh;     // kLnBwd: LN's normalized input
+  const float* xh;     // kLnBwd: LN's normalized input (f32), or
+  const bf16* xh16;    //   the same in bf16 (K4's stash)
   const float* rstd;   // kLnBwd: LN's 1/std per row
   float* xh_out;       // kLnFwd (may be null)
+  bf16* xh_out16;      // kLnFwd: xh in bf16 (may be null)
   float* rstd_out;     // kLnFwd (may be null)
   const float* gamma;
   const float* beta;
@@ -337,6 +385,7 @@ __global__ void __launch_bounds__(THREADS) tgemm(TGemm p) {
           const float xh = (v[t] - mean) * rstd;
           if (p.out) p.out[row + c] = __float2bfloat16(p.gamma[c] * xh + p.beta[c]);
           if (p.xh_out) p.xh_out[row + c] = xh;
+          if (p.xh_out16) p.xh_out16[row + c] = __float2bfloat16(xh);
         }
         if (p.rstd_out && lane == 0) p.rstd_out[gm] = rstd;
       } else {
@@ -345,7 +394,7 @@ __global__ void __launch_bounds__(THREADS) tgemm(TGemm p) {
         for (int t = 0; t < TBN / 32; ++t) {
           const int c = lane + 32 * t;
           v[t] = Cs[r * C_LD + c] + p.res32[row + c];
-          xh[t] = p.xh[row + c];
+          xh[t] = p.xh16 ? __bfloat162float(p.xh16[row + c]) : p.xh[row + c];
           const float dyg = v[t] * p.gamma[c];
           s1 += dyg;
           s2 += dyg * xh[t];
@@ -442,9 +491,12 @@ template <int DH>
 __host__ __device__ constexpr int row_ld() { return DH + 8; }
 __host__ __device__ __forceinline__ int col_ld(int L) { return round16(L) + 8; }
 
+// k as rows and v transposed; with `stash` (K4-fwd), 16 pbar rows per warp
+// (at most ~88 KB inside the stash gate, H * round16(L) <= 1280)
 template <int DH>
-__host__ __device__ __forceinline__ size_t attention_fwd_smem_bytes(int L) {
-  return ((size_t)round16(L) * row_ld<DH>() + (size_t)DH * col_ld(L)) * sizeof(bf16);
+__host__ __device__ __forceinline__ size_t attention_fwd_smem_bytes(int L, bool stash) {
+  return ((size_t)round16(L) * row_ld<DH>() + (size_t)DH * col_ld(L) +
+          (stash ? (size_t)ATTN_WARPS * 16 * L : 0)) * sizeof(bf16);
 }
 
 // q, k, v, dO as rows, q, k, dO transposed (bf16); row max, row sum and row
@@ -455,6 +507,16 @@ __host__ __device__ __forceinline__ size_t attention_bwd_smem_bytes(int L) {
   const size_t lp = round16(L);
   return (4 * lp * row_ld<DH>() + 3 * (size_t)DH * col_ld(L)) * sizeof(bf16) +
          (3 * lp + ATTN_WARPS * 3 * DH) * sizeof(float);
+}
+
+// K4's: v and dO as rows, q, k and dO transposed (bf16); the row term, then
+// the column-sum scratch (f32). pbar stays in device memory. The Python gate
+// (fused_layer_train.stash_attention_bwd_smem_bytes) uses the same formula.
+template <int DH>
+__host__ __device__ __forceinline__ size_t stash_attention_bwd_smem_bytes(int L) {
+  const size_t lp = round16(L);
+  return (2 * lp * row_ld<DH>() + 3 * (size_t)DH * col_ld(L)) * sizeof(bf16) +
+         (lp + ATTN_WARPS * 3 * DH) * sizeof(float);
 }
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -503,14 +565,24 @@ __device__ __forceinline__ void load_a(uint32_t a[DH / 16][4], const bf16* rows,
   }
 }
 
-// K3's attention forward, one block per (frame b, head h): K1's
+// pbar = bf16(bf16(exp2(s - m)) / l), the normalized probability as the
+// JAX backward rounds it
+__device__ __forceinline__ float pbar(float s, float m, float l) {
+  return bf16_round(bf16_round(exp2f(s - m)) / l);
+}
+
+// The attention forward of K3 and K4, one block per (frame b, head h): K1's
 // register-fragment core with the q columns of qkv unscaled, scaled here as
-// bf16(q * scale2). With `stats`, writes each query row's max (log2 units)
-// and sum of bf16 probabilities to stats[((b*H + h)*L + i)*2 + {0, 1}].
+// bf16(q * scale2). With `stats` (K3's recompute), writes each query row's
+// max (log2 units) and sum of bf16 probabilities to
+// stats[((b*H + h)*L + i)*2 + {0, 1}]. With `pbar_out` (K4-fwd), a third
+// pass over the keys recomputes the scores and writes pbar of query i and key
+// j to pbar_out[((b*H + h)*L + i)*L + j], through a per-warp staging tile
+// (attention_fwd_smem_bytes with `stash`).
 template <int DH>
 __global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_fwd(
-    const bf16* __restrict__ qkv, bf16* __restrict__ out, float* __restrict__ stats, int L,
-    int D, float scale2) {
+    const bf16* __restrict__ qkv, bf16* __restrict__ out, float* __restrict__ stats,
+    bf16* __restrict__ pbar_out, int L, int D, float scale2) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lp = round16(L), vld = col_ld(L);
   bf16* ks = reinterpret_cast<bf16*>(smem);   // [lp][row_ld]
@@ -609,13 +681,86 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_fwd(
         st[2 * r_hi + 1] = l_hi;
       }
     }
+    if (pbar_out) {
+      // The warp's rows r0..r0+15 of pbar are one contiguous run of the
+      // (b, h) block: stage them in shared memory (row stride L), then store
+      // the run with neighbouring lanes on neighbouring elements.
+      bf16* stage = vt + (size_t)DH * vld + (size_t)warp * 16 * L;
+      for (int j0 = 0; j0 < lp; j0 += 16) {
+        float sc[2][4];
+        product_block<DH>(sc, qa, ks, j0, L, g, t, true);
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = e < 2 ? g : g + 8, col = j0 + nb * 8 + 2 * t + (e & 1);
+            if (r0 + row < L && col < L)
+              stage[row * L + col] =
+                  __float2bfloat16(pbar(sc[nb][e], e < 2 ? m_lo : m_hi, e < 2 ? l_lo : l_hi));
+          }
+      }
+      __syncwarp();
+      bf16* dst = pbar_out + ((long long)(b * H + h) * L + r0) * L;
+      const int n = min(16, L - r0) * L;
+      for (int i = lane; i < n; i += 32) dst[i] = stage[i];
+      __syncwarp();
+    }
   }
 }
 
-// pbar = bf16(bf16(exp2(s - m)) / l), the normalized probability as the
-// JAX backward rounds it
-__device__ __forceinline__ float pbar(float s, float m, float l) {
-  return bf16_round(bf16_round(exp2f(s - m)) / l);
+// Scale a warp's 16-row accumulator (rows r_lo and r_hi of each thread) in
+// place, store its rows < L as bf16 at column offset `col` of dqkv, and add
+// them to the thread's column sums.
+template <int DH>
+__device__ __forceinline__ void store_rows(float acc[DH / 8][4], float scale, bf16* out_base,
+                                           int r_lo, int r_hi, int L, long long row3, int col,
+                                           float cs[DH / 8][2]) {
+#pragma unroll
+  for (int nd = 0; nd < DH / 8; ++nd) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] *= scale;
+    if (r_lo < L) {
+      *reinterpret_cast<uint32_t*>(out_base + (long long)r_lo * row3 + col + nd * 8) =
+          pack_bf16x2(acc[nd][0], acc[nd][1]);
+      cs[nd][0] += acc[nd][0];
+      cs[nd][1] += acc[nd][1];
+    }
+    if (r_hi < L) {
+      *reinterpret_cast<uint32_t*>(out_base + (long long)r_hi * row3 + col + nd * 8) =
+          pack_bf16x2(acc[nd][2], acc[nd][3]);
+      cs[nd][0] += acc[nd][2];
+      cs[nd][1] += acc[nd][3];
+    }
+  }
+}
+
+// The block's column sums of dq, dk and dv: over the 8 row groups of each
+// warp, then over the warps in a fixed order, into part[s * D + c] (section
+// s, the head's column c). `red` is [warp][3][DH] of shared memory.
+template <int DH>
+__device__ __forceinline__ void store_column_sums(float cs[3][DH / 8][2], float* red,
+                                                  float* part, int D) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int s = 0; s < 3; ++s)
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float v = cs[s][nd][u];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (g == 0) red[(warp * 3 + s) * DH + nd * 8 + 2 * t + u] = v;
+      }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 3 * DH; i += blockDim.x) {
+    const int s = i / DH, c = i % DH;
+    float sum = 0.f;
+    for (int w = 0; w < ATTN_WARPS; ++w) sum += red[(w * 3 + s) * DH + c];
+    part[s * D + c] = sum;
+  }
 }
 
 // K3's attention backward, one block per (frame b, head h). Inputs: qkv
@@ -730,23 +875,7 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_bwd(
         mma_bf16_16816(dq[nd], dsa, ld_b32(kt), ld_b32(kt + 8));
       }
     }
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dq[nd][e] *= dq_scale;
-      if (r_lo < L) {
-        *reinterpret_cast<uint32_t*>(out_base + (long long)r_lo * row3 + nd * 8) =
-            pack_bf16x2(dq[nd][0], dq[nd][1]);
-        cs[0][nd][0] += dq[nd][0];
-        cs[0][nd][1] += dq[nd][1];
-      }
-      if (r_hi < L) {
-        *reinterpret_cast<uint32_t*>(out_base + (long long)r_hi * row3 + nd * 8) =
-            pack_bf16x2(dq[nd][2], dq[nd][3]);
-        cs[0][nd][0] += dq[nd][2];
-        cs[0][nd][1] += dq[nd][3];
-      }
-    }
+    store_rows<DH>(dq, dq_scale, out_base, r_lo, r_hi, L, row3, 0, cs[0]);
   }
 
   // pass 2: dK and dV for 16 key rows per warp
@@ -784,51 +913,150 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_bwd(
         mma_bf16_16816(dk[nd], dsa, ld_b32(qt), ld_b32(qt + 8));
       }
     }
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[nd][e] *= dk_scale;
-      if (k_lo < L) {
-        bf16* o = out_base + (long long)k_lo * row3 + nd * 8;
-        *reinterpret_cast<uint32_t*>(o + D) = pack_bf16x2(dk[nd][0], dk[nd][1]);
-        *reinterpret_cast<uint32_t*>(o + 2 * D) = pack_bf16x2(dv[nd][0], dv[nd][1]);
-        cs[1][nd][0] += dk[nd][0];
-        cs[1][nd][1] += dk[nd][1];
-        cs[2][nd][0] += dv[nd][0];
-        cs[2][nd][1] += dv[nd][1];
-      }
-      if (k_hi < L) {
-        bf16* o = out_base + (long long)k_hi * row3 + nd * 8;
-        *reinterpret_cast<uint32_t*>(o + D) = pack_bf16x2(dk[nd][2], dk[nd][3]);
-        *reinterpret_cast<uint32_t*>(o + 2 * D) = pack_bf16x2(dv[nd][2], dv[nd][3]);
-        cs[1][nd][0] += dk[nd][2];
-        cs[1][nd][1] += dk[nd][3];
-        cs[2][nd][0] += dv[nd][2];
-        cs[2][nd][1] += dv[nd][3];
-      }
-    }
+    store_rows<DH>(dk, dk_scale, out_base, k_lo, k_hi, L, row3, D, cs[1]);
+    store_rows<DH>(dv, 1.f, out_base, k_lo, k_hi, L, row3, 2 * D, cs[2]);
   }
 
-  // column sums: over the 8 row groups of the warp, then over the warps
+  store_column_sums<DH>(cs, red, part + (long long)b * row3 + h * DH, D);
+}
+
+// The stash variant of train_attention_bwd (K4-bwd): the same outputs, with
+// pbar read from K4-fwd's stash ([B, H, L, L], bf16) in both passes instead
+// of recomputed, so neither q nor k rows are staged and no row stats are
+// read. Pass 1 forms dP = dO V^T and dS = bf16(pbar * (dP - row)), then dQ;
+// pass 2 forms dP^T = V dO^T, dV = pbar^T dO and dK = dS^T Qs.
+template <int DH>
+__global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_bwd_stash(
+    const bf16* __restrict__ qkv, const bf16* __restrict__ attn, const bf16* __restrict__ dattn,
+    const bf16* __restrict__ pbar_in, bf16* __restrict__ dqkv, float* __restrict__ part, int L,
+    int D, float scale2, float dq_scale, float dk_scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int RLD = row_ld<DH>();
+  const int lp = round16(L), tld = col_ld(L);
+  bf16* v_r = reinterpret_cast<bf16*>(smem);  // [lp][RLD] each
+  bf16* do_r = v_r + (size_t)lp * RLD;
+  bf16* qs_t = do_r + (size_t)lp * RLD;  // [DH][tld] each
+  bf16* k_t = qs_t + (size_t)DH * tld;
+  bf16* do_t = k_t + (size_t)DH * tld;
+  float* row_s = reinterpret_cast<float*>(do_t + (size_t)DH * tld);
+  float* red = row_s + lp;  // [warp][3][DH]
+
+  const int b = blockIdx.x, h = blockIdx.y, H = gridDim.y;
+  const long long row3 = 3LL * D;
+  const bf16* base = qkv + (long long)b * L * row3 + (long long)h * DH;
+  const bf16* dob = dattn + (long long)b * L * D + (long long)h * DH;
+  const bf16* ob = attn + (long long)b * L * D + (long long)h * DH;
+  const bf16* pb = pbar_in + (long long)(b * H + h) * L * L;
+  // pbar of query i and key j; 0 outside the L x L block
+  auto pbar_at = [&](int i, int j) {
+    return i < L && j < L ? __bfloat162float(pb[(long long)i * L + j]) : 0.f;
+  };
+  constexpr int CH = DH / 8;
+  for (int i = threadIdx.x; i < lp * CH; i += blockDim.x) {
+    const int j = i / CH, c = (i % CH) * 8;
+    uint4 qv = make_uint4(0u, 0u, 0u, 0u), kv = qv, vv = qv, dv = qv;
+    if (j < L) {
+      qv = *reinterpret_cast<const uint4*>(base + j * row3 + c);
+      kv = *reinterpret_cast<const uint4*>(base + j * row3 + D + c);
+      vv = *reinterpret_cast<const uint4*>(base + j * row3 + 2 * D + c);
+      dv = *reinterpret_cast<const uint4*>(dob + (long long)j * D + c);
+      uint32_t* qw = reinterpret_cast<uint32_t*>(&qv);
 #pragma unroll
-  for (int s = 0; s < 3; ++s)
+      for (int e = 0; e < 4; ++e) qw[e] = scale_pair(qw[e], scale2);
+    }
+    *reinterpret_cast<uint4*>(v_r + j * RLD + c) = vv;
+    *reinterpret_cast<uint4*>(do_r + j * RLD + c) = dv;
+    const bf16* q8 = reinterpret_cast<const bf16*>(&qv);
+    const bf16* k8 = reinterpret_cast<const bf16*>(&kv);
+    const bf16* d8 = reinterpret_cast<const bf16*>(&dv);
 #pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        float v = cs[s][nd][u];
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if (g == 0) red[(warp * 3 + s) * DH + nd * 8 + 2 * t + u] = v;
-      }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 3 * DH; i += blockDim.x) {
-    const int s = i / DH, c = i % DH;
-    float sum = 0.f;
-    for (int w = 0; w < ATTN_WARPS; ++w) sum += red[(w * 3 + s) * DH + c];
-    part[(long long)b * row3 + s * D + h * DH + c] = sum;
+    for (int e = 0; e < 8; ++e) {
+      qs_t[(c + e) * tld + j] = q8[e];
+      k_t[(c + e) * tld + j] = k8[e];
+      do_t[(c + e) * tld + j] = d8[e];
+    }
   }
+  for (int j = threadIdx.x; j < lp; j += blockDim.x) {
+    float row = 0.f;
+    if (j < L) {
+      for (int d = 0; d < DH; ++d)
+        row += __bfloat162float(dob[(long long)j * D + d]) *
+               __bfloat162float(ob[(long long)j * D + d]);
+    }
+    row_s[j] = row;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float cs[3][DH / 8][2] = {};  // column sums of dq, dk, dv over this thread's rows
+  bf16* out_base = dqkv + (long long)b * L * row3 + (long long)h * DH + 2 * t;
+
+  // pass 1: dQ for 16 query rows per warp
+  for (int r0 = warp * 16; r0 < L; r0 += ATTN_WARPS * 16) {
+    const int r_lo = r0 + g, r_hi = r0 + g + 8;
+    uint32_t da[DH / 16][4];
+    load_a<DH>(da, do_r, r0, g, t);
+    const float row_lo = row_s[r_lo], row_hi = row_s[r_hi];
+    float dq[DH / 8][4] = {};
+    for (int j0 = 0; j0 < lp; j0 += 16) {
+      float dp[2][4];
+      product_block<DH>(dp, da, v_r, j0, L, g, t, false);
+      uint32_t dsa[4];
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        const int col = j0 + nb * 8 + 2 * t;
+        dsa[2 * nb] = pack_bf16x2(pbar_at(r_lo, col) * (dp[nb][0] - row_lo),
+                                  pbar_at(r_lo, col + 1) * (dp[nb][1] - row_lo));
+        dsa[2 * nb + 1] = pack_bf16x2(pbar_at(r_hi, col) * (dp[nb][2] - row_hi),
+                                      pbar_at(r_hi, col + 1) * (dp[nb][3] - row_hi));
+      }
+#pragma unroll
+      for (int nd = 0; nd < DH / 8; ++nd) {
+        const bf16* kt = k_t + (nd * 8 + g) * tld + j0 + 2 * t;
+        mma_bf16_16816(dq[nd], dsa, ld_b32(kt), ld_b32(kt + 8));
+      }
+    }
+    store_rows<DH>(dq, dq_scale, out_base, r_lo, r_hi, L, row3, 0, cs[0]);
+  }
+
+  // pass 2: dK and dV for 16 key rows per warp
+  for (int c0 = warp * 16; c0 < L; c0 += ATTN_WARPS * 16) {
+    const int k_lo = c0 + g, k_hi = c0 + g + 8;
+    uint32_t va[DH / 16][4];
+    load_a<DH>(va, v_r, c0, g, t);
+    float dk[DH / 8][4] = {}, dv[DH / 8][4] = {};
+    for (int i0 = 0; i0 < lp; i0 += 16) {
+      float dpT[2][4];  // [key][query]
+      product_block<DH>(dpT, va, do_r, i0, L, g, t, false);
+      uint32_t pa[4], dsa[4];
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        float pv[4], dsv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = i0 + nb * 8 + 2 * t + (e & 1);
+          pv[e] = pbar_at(q, e < 2 ? k_lo : k_hi);
+          dsv[e] = pv[e] * (dpT[nb][e] - row_s[q]);
+        }
+        pa[2 * nb] = pack_bf16x2(pv[0], pv[1]);
+        pa[2 * nb + 1] = pack_bf16x2(pv[2], pv[3]);
+        dsa[2 * nb] = pack_bf16x2(dsv[0], dsv[1]);
+        dsa[2 * nb + 1] = pack_bf16x2(dsv[2], dsv[3]);
+      }
+#pragma unroll
+      for (int nd = 0; nd < DH / 8; ++nd) {
+        const bf16* dt = do_t + (nd * 8 + g) * tld + i0 + 2 * t;
+        mma_bf16_16816(dv[nd], pa, ld_b32(dt), ld_b32(dt + 8));
+        const bf16* qt = qs_t + (nd * 8 + g) * tld + i0 + 2 * t;
+        mma_bf16_16816(dk[nd], dsa, ld_b32(qt), ld_b32(qt + 8));
+      }
+    }
+    store_rows<DH>(dk, dk_scale, out_base, k_lo, k_hi, L, row3, D, cs[1]);
+    store_rows<DH>(dv, 1.f, out_base, k_lo, k_hi, L, row3, 2 * D, cs[2]);
+  }
+
+  store_column_sums<DH>(cs, red, part + (long long)b * row3 + h * DH, D);
 }
 
 // ---------------------------------------------------------------------------
@@ -839,9 +1067,13 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_bwd(
 // dz = rstd * (dy*g - mean(dy*g) - xh * mean(dy*g*xh)), df = dz * mask.
 // Writes df (bf16) and dz (f32, the gradient reaching x1 through the
 // residual) and the block's column sums of dy*xh, dy and df to
-// part[sum][block][D].
+// part[sum][block][D]. xh is f32 (K3's recompute) or bf16 (K4's stash).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <class XH>
 __global__ void __launch_bounds__(THREADS) ln_bwd_rows(
-    const bf16* __restrict__ dy, const float* __restrict__ xh, const float* __restrict__ rstd,
+    const bf16* __restrict__ dy, const XH* __restrict__ xh, const float* __restrict__ rstd,
     const float* __restrict__ gamma, Drop drop, long long M, bf16* __restrict__ df_out,
     float* __restrict__ dz_out, float* __restrict__ part) {
   __shared__ float red[THREADS / 32][3][TBN];
@@ -857,7 +1089,7 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_rows(
     for (int t = 0; t < TBN / 32; ++t) {
       const int c = lane + 32 * t;
       d[t] = __bfloat162float(dy[row + c]);
-      x[t] = xh[row + c];
+      x[t] = to_f32(xh[row + c]);
       const float dyg = d[t] * gamma[c];
       s1 += dyg;
       s2 += dyg * x[t];
@@ -886,6 +1118,19 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_rows(
     float sum = 0.f;
     for (int w = 0; w < THREADS / 32; ++w) sum += red[w][s][c];
     part[(s * RT + blockIdx.x) * TBN + c] = sum;
+  }
+}
+
+// K4-bwd's x1 = bf16(f32(xh1) * g1 + be1) from the stashed bf16 xh1 (D =
+// TBN columns), multiply and add rounded separately, as the plain version.
+__global__ void __launch_bounds__(THREADS) rebuild_ln_out(const bf16* __restrict__ xh,
+                                                         const float* __restrict__ gamma,
+                                                         const float* __restrict__ beta,
+                                                         long long n, bf16* __restrict__ out) {
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
+       i += (long long)gridDim.x * THREADS) {
+    const int c = (int)(i % TBN);
+    out[i] = __float2bfloat16(__fadd_rn(__fmul_rn(__bfloat162float(xh[i]), gamma[c]), beta[c]));
   }
 }
 
@@ -978,6 +1223,15 @@ bool shapes_ok(const Shape& s) {
   return smem <= 232448;
 }
 
+// K4 also needs the stash gate of the Python wrapper (stash_supported: H *
+// round16(L) <= 1280) and its own attention-backward block to fit.
+bool stash_shapes_ok(const Shape& s) {
+  if (!shapes_ok(s) || s.H * round16(s.L) > 1280) return false;
+  const size_t smem = s.dh() == 16 ? stash_attention_bwd_smem_bytes<16>(s.L)
+                                   : stash_attention_bwd_smem_bytes<32>(s.L);
+  return smem <= 232448;
+}
+
 Drop make_drop(const Shape& s, uint32_t thresh, float scale, int seed, int layer, int site) {
   Drop d;
   const uint32_t salt = (uint32_t)(layer * 3 + site) * 0x9E3779B9u + 0x61C88647u;
@@ -1003,21 +1257,34 @@ cudaError_t launch_attention(K kernel, size_t smem, const Shape& s, cudaStream_t
 
 float scale2_of(const Shape& s) { return (float)(1.4426950408889634 / sqrt((double)s.dh())); }
 
-cudaError_t attention_fwd(const Shape& s, const bf16* qkv, bf16* out, float* stats,
+cudaError_t attention_fwd(const Shape& s, const bf16* qkv, bf16* out, float* stats, bf16* pbar,
                           cudaStream_t st) {
   const float sc = scale2_of(s);
+  const bool stash = pbar != nullptr;
   if (s.dh() == 16)
-    return launch_attention<16>(train_attention_fwd<16>, attention_fwd_smem_bytes<16>(s.L), s,
-                                st, qkv, out, stats, s.L, s.D, sc);
-  return launch_attention<32>(train_attention_fwd<32>, attention_fwd_smem_bytes<32>(s.L), s, st,
-                              qkv, out, stats, s.L, s.D, sc);
+    return launch_attention<16>(train_attention_fwd<16>, attention_fwd_smem_bytes<16>(s.L, stash),
+                                s, st, qkv, out, stats, pbar, s.L, s.D, sc);
+  return launch_attention<32>(train_attention_fwd<32>, attention_fwd_smem_bytes<32>(s.L, stash), s,
+                              st, qkv, out, stats, pbar, s.L, s.D, sc);
 }
 
+// K3's attention backward (row stats from the recompute) or, given `pbar`,
+// K4's (the stashed probabilities).
 cudaError_t attention_bwd(const Shape& s, const bf16* qkv, const bf16* attn, const bf16* dattn,
-                          const float* stats, bf16* dqkv, float* part, cudaStream_t st) {
+                          const float* stats, const bf16* pbar, bf16* dqkv, float* part,
+                          cudaStream_t st) {
   const double scale2 = 1.4426950408889634 / sqrt((double)s.dh());
   const double ln2 = 0.6931471805599453;
   const float sc = (float)scale2, dq = (float)(ln2 * scale2), dk = (float)ln2;
+  if (pbar) {
+    if (s.dh() == 16)
+      return launch_attention<16>(train_attention_bwd_stash<16>,
+                                  stash_attention_bwd_smem_bytes<16>(s.L), s, st, qkv, attn,
+                                  dattn, pbar, dqkv, part, s.L, s.D, sc, dq, dk);
+    return launch_attention<32>(train_attention_bwd_stash<32>,
+                                stash_attention_bwd_smem_bytes<32>(s.L), s, st, qkv, attn, dattn,
+                                pbar, dqkv, part, s.L, s.D, sc, dq, dk);
+  }
   if (s.dh() == 16)
     return launch_attention<16>(train_attention_bwd<16>, attention_bwd_smem_bytes<16>(s.L), s,
                                 st, qkv, attn, dattn, stats, dqkv, part, s.L, s.D, sc, dq, dk);
@@ -1047,21 +1314,37 @@ Weights weights(const void* const* w) {
   return o;
 }
 
-// Activations the forward stages produce; the backward's recompute also
-// keeps the row stats, LN inputs and 1/std.
+// Activations the forward stages produce. K3's backward recompute also keeps
+// the row stats and LN's normalized inputs and 1/std (f32); K4-fwd writes
+// attn, the normalized inputs (bf16), 1/std and pbar into the caller's stash.
 struct Fwd {
-  bf16 *qkv, *attn, *x1, *hid;
+  bf16 *qkv, *attn = nullptr, *x1, *hid;
   float *stats = nullptr, *xh1 = nullptr, *r1 = nullptr, *xh2 = nullptr, *r2 = nullptr;
+  bf16 *xh1h = nullptr, *xh2h = nullptr, *pbar = nullptr;
 };
 
-Fwd carve_fwd(Carve& c, const Shape& s, bool for_bwd) {
+// K4's stash, in the order of the entry points' arguments.
+struct Stash {
+  bf16 *attn, *xh1, *xh2;
+  float *r1, *r2;
+  bf16* pbar;
+};
+
+Stash stash_of(void* attn, void* xh1, void* xh2, void* r1, void* r2, void* pbar) {
+  return Stash{static_cast<bf16*>(attn), static_cast<bf16*>(xh1), static_cast<bf16*>(xh2),
+               static_cast<float*>(r1),  static_cast<float*>(r2),  static_cast<bf16*>(pbar)};
+}
+
+// Workspace of the forward stages. K3 owns attn (K4's lives in the stash);
+// K3's recompute also keeps the f32 residuals.
+Fwd carve_fwd(Carve& c, const Shape& s, bool own_attn, bool residuals) {
   const long long M = s.M();
   Fwd f;
   f.qkv = c.take<bf16>(M * 3 * s.D);
-  f.attn = c.take<bf16>(M * s.D);
+  if (own_attn) f.attn = c.take<bf16>(M * s.D);
   f.x1 = c.take<bf16>(M * s.D);
   f.hid = c.take<bf16>(M * s.F);
-  if (for_bwd) {
+  if (residuals) {
     f.stats = c.take<float>((size_t)s.B * s.H * s.L * 2);
     f.xh1 = c.take<float>(M * s.D);
     f.r1 = c.take<float>(M);
@@ -1071,31 +1354,44 @@ Fwd carve_fwd(Carve& c, const Shape& s, bool for_bwd) {
   return f;
 }
 
+// qkv = bf16(x Wqkv + bqkv)
+void qkv_gemm(const Shape& s, const bf16* x, const Weights& w, bf16* qkv, cudaStream_t st) {
+  const long long D = s.D;
+  TGemm g = tg(x, D, w.wqkv, 3 * D, s.M(), D, 3 * D);
+  g.bias = w.bqkv;
+  g.out = qkv;
+  gemm<false, false, kBias>(g, 3 * D, 1, st);
+}
+
+// h = bf16(relu(x1 W1 + b1) * m2)
+void ffn1_gemm(const Shape& s, const bf16* x1, const Weights& w, bf16* hid, const Drop& drop,
+               cudaStream_t st) {
+  TGemm g = tg(x1, s.D, w.w1, s.F, s.M(), s.D, s.F);
+  g.bias = w.b1;
+  g.out = hid;
+  g.drop = drop;
+  gemm<false, false, kReluDrop>(g, s.F, 1, st);
+}
+
 // The forward's five stages; y may be null (the backward's recompute).
 cudaError_t forward(const Shape& s, const bf16* x, bf16* y, const Weights& w, const Fwd& f,
                     const Drop* drop, cudaStream_t st) {
   const long long M = s.M(), D = s.D, F = s.F;
-  TGemm g = tg(x, D, w.wqkv, 3 * D, M, D, 3 * D);
-  g.bias = w.bqkv;
-  g.out = f.qkv;
-  gemm<false, false, kBias>(g, 3 * D, 1, st);
-  const cudaError_t err = attention_fwd(s, f.qkv, f.attn, f.stats, st);
+  qkv_gemm(s, x, w, f.qkv, st);
+  const cudaError_t err = attention_fwd(s, f.qkv, f.attn, f.stats, f.pbar, st);
   if (err != cudaSuccess) return err;
-  g = tg(f.attn, D, w.wo, D, M, D, D);
+  TGemm g = tg(f.attn, D, w.wo, D, M, D, D);
   g.bias = w.bo;
   g.res = x;
   g.gamma = w.g1;
   g.beta = w.be1;
   g.out = f.x1;
   g.xh_out = f.xh1;
+  g.xh_out16 = f.xh1h;
   g.rstd_out = f.r1;
   g.drop = drop[0];
   gemm<false, false, kLnFwd>(g, D, 1, st);
-  g = tg(f.x1, D, w.w1, F, M, D, F);
-  g.bias = w.b1;
-  g.out = f.hid;
-  g.drop = drop[1];
-  gemm<false, false, kReluDrop>(g, F, 1, st);
+  ffn1_gemm(s, f.x1, w, f.hid, drop[1], st);
   g = tg(f.hid, F, w.w2, D, M, F, D);
   g.bias = w.b2;
   g.res = f.x1;
@@ -1103,6 +1399,7 @@ cudaError_t forward(const Shape& s, const bf16* x, bf16* y, const Weights& w, co
   g.beta = w.be2;
   g.out = y;
   g.xh_out = f.xh2;
+  g.xh_out16 = f.xh2h;
   g.rstd_out = f.r2;
   g.drop = drop[2];
   gemm<false, false, kLnFwd>(g, D, 1, st);
@@ -1115,10 +1412,11 @@ struct Bwd {
   float *dz2, *dz1, *part_rows, *part_frames, *part_dw, *scratch;
 };
 
-Bwd carve_bwd(Carve& c, const Shape& s) {
+// K3's backward recomputes the full forward; K4's rebuilds qkv, x1 and h.
+Bwd carve_bwd(Carve& c, const Shape& s, bool stash) {
   const long long M = s.M(), D = s.D, F = s.F;
   Bwd b;
-  b.f = carve_fwd(c, s, true);
+  b.f = carve_fwd(c, s, !stash, !stash);
   b.dfb = c.take<bf16>(M * D);
   b.dz2 = c.take<float>(M * D);
   b.dpreb = c.take<bf16>(M * F);
@@ -1145,12 +1443,26 @@ void weight_grad(const Shape& s, const Bwd& b, const bf16* act, long long k1, co
   reduce(b.part_dw, splits, k1 * n, out, b.scratch, st);
 }
 
+// K3-bwd (stash null): recompute the forward from x, then the gradient
+// stages. K4-bwd: rebuild qkv, x1 = bf16(f32(xh1) g1 + be1) and h, then the
+// same stages on the stash (bf16 LN inputs, stashed attn and pbar).
 cudaError_t backward(const Shape& s, const bf16* x, const bf16* dy, bf16* dx, float* grads,
-                     const Weights& w, const Bwd& b, const Drop* drop, cudaStream_t st) {
+                     const Weights& w, const Bwd& b, const Drop* drop, const Stash* stash,
+                     cudaStream_t st) {
   const long long M = s.M(), D = s.D, F = s.F, RT = s.RT();
   const Fwd& f = b.f;
-  cudaError_t err = forward(s, x, nullptr, w, f, drop, st);
-  if (err != cudaSuccess) return err;
+  cudaError_t err = cudaSuccess;
+  if (stash) {
+    qkv_gemm(s, x, w, f.qkv, st);
+    const unsigned blocks = (unsigned)std::min<long long>((M * D + THREADS - 1) / THREADS, 4096);
+    rebuild_ln_out<<<blocks, THREADS, 0, st>>>(stash->xh1, w.g1, w.be1, M * D, f.x1);
+    ffn1_gemm(s, f.x1, w, f.hid, drop[1], st);
+  } else {
+    err = forward(s, x, nullptr, w, f, drop, st);
+    if (err != cudaSuccess) return err;
+  }
+  const bf16* attn = stash ? stash->attn : f.attn;
+  const float* r1 = stash ? stash->r1 : f.r1;
   // gradient slots, in the order of the 12 weights
   float* dwqkv = grads;
   float* dbqkv = dwqkv + D * 3 * D;
@@ -1166,8 +1478,12 @@ cudaError_t backward(const Shape& s, const bf16* x, const bf16* dy, bf16* dx, fl
   float* dbe2 = dg2 + D;
 
   // LN2, dropout m3: df, dz2 (-> x1); dg2, dbe2, db2
-  ln_bwd_rows<<<(unsigned)RT, THREADS, 0, st>>>(dy, f.xh2, f.r2, w.g2, drop[2], M, b.dfb, b.dz2,
-                                                 b.part_rows);
+  if (stash)
+    ln_bwd_rows<bf16><<<(unsigned)RT, THREADS, 0, st>>>(dy, stash->xh2, stash->r2, w.g2, drop[2],
+                                                         M, b.dfb, b.dz2, b.part_rows);
+  else
+    ln_bwd_rows<float><<<(unsigned)RT, THREADS, 0, st>>>(dy, f.xh2, f.r2, w.g2, drop[2], M,
+                                                          b.dfb, b.dz2, b.part_rows);
   reduce(b.part_rows, RT, D, dg2, b.scratch, st);
   reduce(b.part_rows + RT * D, RT, D, dbe2, b.scratch, st);
   reduce(b.part_rows + 2 * RT * D, RT, D, db2, b.scratch, st);
@@ -1185,7 +1501,8 @@ cudaError_t backward(const Shape& s, const bf16* x, const bf16* dy, bf16* dx, fl
   g = tg(b.dpreb, F, w.w1, F, M, F, D);
   g.res32 = b.dz2;
   g.xh = f.xh1;
-  g.rstd = f.r1;
+  g.xh16 = stash ? stash->xh1 : nullptr;
+  g.rstd = r1;
   g.gamma = w.g1;
   g.drop = drop[0];
   g.out = b.dab;
@@ -1196,12 +1513,13 @@ cudaError_t backward(const Shape& s, const bf16* x, const bf16* dy, bf16* dx, fl
   reduce(b.part_rows + RT * D, RT, D, dbe1, b.scratch, st);
   reduce(b.part_rows + 2 * RT * D, RT, D, dbo, b.scratch, st);
   // out-projection: dWo = attn^T da; dattn = bf16(da Wo^T)
-  weight_grad(s, b, f.attn, D, b.dab, D, dwo, st);
+  weight_grad(s, b, attn, D, b.dab, D, dwo, st);
   g = tg(b.dab, D, w.wo, D, M, D, D);
   g.out = b.dattn;
   gemm<false, true, kStore>(g, D, 1, st);
   // attention backward: dqkv; dbqkv
-  err = attention_bwd(s, f.qkv, f.attn, b.dattn, f.stats, b.dqkv, b.part_frames, st);
+  err = attention_bwd(s, f.qkv, attn, b.dattn, f.stats, stash ? stash->pbar : nullptr, b.dqkv,
+                      b.part_frames, st);
   if (err != cudaSuccess) return err;
   reduce(b.part_frames, s.B, 3 * D, dbqkv, b.scratch, st);
   // QKV projection: dWqkv = x^T dqkv; dx = bf16(dz1 + dqkv Wqkv^T)
@@ -1213,14 +1531,25 @@ cudaError_t backward(const Shape& s, const bf16* x, const bf16* dy, bf16* dx, fl
   return cudaSuccess;
 }
 
+struct Drops {
+  Drop site[3];  // attention output, FFN hidden, FFN output
+};
+
+Drops make_drops(const Shape& s, uint32_t thresh, float scale, int seed, int layer) {
+  return Drops{{make_drop(s, thresh, scale, seed, layer, 0),
+                make_drop(s, thresh, scale, seed, layer, 1),
+                make_drop(s, thresh, scale, seed, layer, 2)}};
+}
+
 }  // namespace
 
-// Bytes of workspace K3-fwd / K3-bwd need at this shape (0 if unsupported).
+// Bytes of workspace K3-fwd / K3-bwd / K4-fwd / K4-bwd need at this shape (0
+// if unsupported).
 extern "C" size_t vitiq_train_layer_fwd_workspace(int B, int L, int D, int H, int F) {
   const Shape s{B, L, D, H, F};
   if (!shapes_ok(s)) return 0;
   Carve c{nullptr};
-  carve_fwd(c, s, false);
+  carve_fwd(c, s, true, false);
   return c.off;
 }
 
@@ -1228,7 +1557,23 @@ extern "C" size_t vitiq_train_layer_bwd_workspace(int B, int L, int D, int H, in
   const Shape s{B, L, D, H, F};
   if (!shapes_ok(s)) return 0;
   Carve c{nullptr};
-  carve_bwd(c, s);
+  carve_bwd(c, s, false);
+  return c.off;
+}
+
+extern "C" size_t vitiq_train_layer_fwd_stash_workspace(int B, int L, int D, int H, int F) {
+  const Shape s{B, L, D, H, F};
+  if (!stash_shapes_ok(s)) return 0;
+  Carve c{nullptr};
+  carve_fwd(c, s, false, false);
+  return c.off;
+}
+
+extern "C" size_t vitiq_train_layer_bwd_stash_workspace(int B, int L, int D, int H, int F) {
+  const Shape s{B, L, D, H, F};
+  if (!stash_shapes_ok(s)) return 0;
+  Carve c{nullptr};
+  carve_bwd(c, s, true);
   return c.off;
 }
 
@@ -1247,12 +1592,10 @@ extern "C" int vitiq_train_layer_fwd(
   if (!shapes_ok(s)) return (int)cudaErrorInvalidValue;
   const void* wp[12] = {w0, w1, w2, w3, w4, w5, w6, w7, w8, w9, w10, w11};
   Carve c{static_cast<char*>(workspace)};
-  const Fwd f = carve_fwd(c, s, false);
-  const Drop drop[3] = {make_drop(s, thresh, scale, seed, layer, 0),
-                        make_drop(s, thresh, scale, seed, layer, 1),
-                        make_drop(s, thresh, scale, seed, layer, 2)};
+  const Fwd f = carve_fwd(c, s, true, false);
+  const Drops drop = make_drops(s, thresh, scale, seed, layer);
   const cudaError_t err = forward(s, static_cast<const bf16*>(x), static_cast<bf16*>(y),
-                                  weights(wp), f, drop, static_cast<cudaStream_t>(stream_ptr));
+                                  weights(wp), f, drop.site, static_cast<cudaStream_t>(stream_ptr));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1272,14 +1615,65 @@ extern "C" int vitiq_train_layer_bwd(
   if (!shapes_ok(s)) return (int)cudaErrorInvalidValue;
   const void* wp[12] = {w0, w1, w2, w3, w4, w5, w6, w7, w8, w9, w10, w11};
   Carve c{static_cast<char*>(workspace)};
-  const Bwd b = carve_bwd(c, s);
-  const Drop drop[3] = {make_drop(s, thresh, scale, seed, layer, 0),
-                        make_drop(s, thresh, scale, seed, layer, 1),
-                        make_drop(s, thresh, scale, seed, layer, 2)};
+  const Bwd b = carve_bwd(c, s, false);
+  const Drops drop = make_drops(s, thresh, scale, seed, layer);
   const cudaError_t err =
       backward(s, static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
-               static_cast<bf16*>(dx), static_cast<float*>(grads), weights(wp), b, drop,
-               static_cast<cudaStream_t>(stream_ptr));
+               static_cast<bf16*>(dx), static_cast<float*>(grads), weights(wp), b, drop.site,
+               nullptr, static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// K4-fwd: K3-fwd's y, plus the stash: attn [B, L, D] bf16, xh1 and xh2 [B, L,
+// D] bf16, r1 and r2 [B, L] f32, pbar [B, H, L, L] bf16. Workspace of
+// vitiq_train_layer_fwd_stash_workspace bytes. Returns cudaGetLastError().
+extern "C" int vitiq_train_layer_fwd_stash(
+    const void* x, void* y, void* attn, void* xh1, void* xh2, void* r1, void* r2, void* pbar,
+    const void* w0, const void* w1, const void* w2, const void* w3, const void* w4,
+    const void* w5, const void* w6, const void* w7, const void* w8, const void* w9,
+    const void* w10, const void* w11, void* workspace, int B, int L, int D, int H, int F,
+    uint32_t thresh, float scale, int seed, int layer, void* stream_ptr) {
+  const Shape s{B, L, D, H, F};
+  if (!stash_shapes_ok(s)) return (int)cudaErrorInvalidValue;
+  const void* wp[12] = {w0, w1, w2, w3, w4, w5, w6, w7, w8, w9, w10, w11};
+  Carve c{static_cast<char*>(workspace)};
+  Fwd f = carve_fwd(c, s, false, false);
+  const Stash sh = stash_of(attn, xh1, xh2, r1, r2, pbar);
+  f.attn = sh.attn;
+  f.xh1h = sh.xh1;
+  f.xh2h = sh.xh2;
+  f.r1 = sh.r1;
+  f.r2 = sh.r2;
+  f.pbar = sh.pbar;
+  const Drops drop = make_drops(s, thresh, scale, seed, layer);
+  const cudaError_t err = forward(s, static_cast<const bf16*>(x), static_cast<bf16*>(y),
+                                  weights(wp), f, drop.site, static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// K4-bwd: dx and the 12 gradients (as K3-bwd) from x, dy and K4-fwd's stash
+// (the same six tensors, read only). Workspace of
+// vitiq_train_layer_bwd_stash_workspace bytes. Returns cudaGetLastError().
+extern "C" int vitiq_train_layer_bwd_stash(
+    const void* x, const void* dy, void* dx, void* grads, void* attn, void* xh1, void* xh2,
+    void* r1, void* r2, void* pbar, const void* w0, const void* w1, const void* w2,
+    const void* w3, const void* w4, const void* w5, const void* w6, const void* w7,
+    const void* w8, const void* w9, const void* w10, const void* w11, void* workspace, int B,
+    int L, int D, int H, int F, uint32_t thresh, float scale, int seed, int layer,
+    void* stream_ptr) {
+  const Shape s{B, L, D, H, F};
+  if (!stash_shapes_ok(s)) return (int)cudaErrorInvalidValue;
+  const void* wp[12] = {w0, w1, w2, w3, w4, w5, w6, w7, w8, w9, w10, w11};
+  Carve c{static_cast<char*>(workspace)};
+  const Bwd b = carve_bwd(c, s, true);
+  const Stash sh = stash_of(attn, xh1, xh2, r1, r2, pbar);
+  const Drops drop = make_drops(s, thresh, scale, seed, layer);
+  const cudaError_t err =
+      backward(s, static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
+               static_cast<bf16*>(dx), static_cast<float*>(grads), weights(wp), b, drop.site,
+               &sh, static_cast<cudaStream_t>(stream_ptr));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -9,11 +9,17 @@
 
 Logits are rounded to the compute dtype by the head's ``cast_output`` and
 returned as f32.
+
+With ``raw_stats`` (the i/q mean and std dict, counterpart of
+`make_forward(cfg, raw_stats=...)`), the model takes raw [B, L, 2] frames and
+the encoder runs preprocess + embedding + CLS + PE as one GEMM
+(`models/raw_embed.py`). The stats are a plain attribute, not parameters or
+buffers: the state_dict keys do not change.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -40,13 +46,16 @@ class HeadLayerNorm(nn.Module):
 
 
 class AMCModel(nn.Module):
-    """src [B, 1, H, W] (vit) or [B, C, L] (rawiq) -> logits [B, num_classes] f32."""
+    """src [B, 1, H, W] (vit) or [B, C, L] (rawiq), or raw [B, L, 2] frames
+    when `raw_stats` is set -> logits [B, num_classes] f32."""
 
     def __init__(self, cfg: ModelConfig, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 raw_stats: Optional[Dict[str, float]] = None):
         super().__init__()
         cfg.validate()
         self.cfg = cfg
+        self.raw_stats = raw_stats
         self.policy = policy_for(cfg.numerics)
         self.encoder = Encoder(cfg, device, generator)
         head = Linear(cfg.d_model, cfg.num_classes, device, generator)
@@ -64,7 +73,7 @@ class AMCModel(nn.Module):
         """In training, `generator` draws the dropout of the plain paths and
         `seed` (the step's int32 seed) that of the fused training kernels."""
         x = self.encoder(src, self.policy, cls_only_fused=self.cls_pooling,
-                         generator=generator, seed=seed)
+                         generator=generator, seed=seed, raw_stats=self.raw_stats)
         feat = x[:, 0] if self.cls_pooling else x.mean(dim=1)
         if self.cfg.arm == "vit":
             logits = self.mlp_head(feat, self.policy)

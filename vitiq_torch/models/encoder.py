@@ -6,12 +6,16 @@
   x = x + PE[:L]; x = dropout(x)
   for layer in layers: x = EncoderLayer(x, mask)
 
+With ``raw_stats`` (the i/q mean and std), `src` is the raw [B, L, 2] frame
+batch and the first three lines are one GEMM (`models/raw_embed.py`).
+
 Dispatch, without a mask and under a bf16 policy (on a CUDA tensor the
 hand-written kernels, on a CPU tensor their plain PyTorch versions):
 * training, given the step's dropout seed, with ``VITIQ_FUSED_TRAIN`` not
   ``0`` and shapes the kernels take (`fused_train_supported`): the fused
-  training stack (`vitiq_torch.ops.cuda.fused_layer_train`, K3 forward and
-  backward, dropout drawn from the seed inside the kernels);
+  training stack (`vitiq_torch.ops.cuda.fused_layer_train`: K4, the stash
+  regime, where `stash_enabled` puts it, K3 elsewhere; dropout drawn from the
+  seed inside the kernels);
 * eval: the fused inference stack (`vitiq_torch.ops.cuda.fused_encoder_layer`,
   K1/K2). With ``cls_only_fused`` the last layer computes the CLS row only
   and the encoder returns [B, 1, D]. Opt-outs, as in `vitiq`:
@@ -23,7 +27,7 @@ Everything else runs the plain layers, their dropout drawn from `generator`.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -35,6 +39,7 @@ from vitiq_torch.models.embeddings import (
     add_positional_encoding,
 )
 from vitiq_torch.models.layers import EncoderLayer, dropout
+from vitiq_torch.models.raw_embed import fused_raw_embed_apply
 from vitiq_torch.ops.cuda.fused_encoder_layer import fused_encoder_layer_stack
 from vitiq_torch.ops.cuda.fused_layer_train import fused_train_layer_stack, fused_train_supported
 from vitiq_torch.ops.numerics import Policy
@@ -85,12 +90,18 @@ class Encoder(nn.Module):
                 mask: Optional[torch.Tensor] = None,
                 cls_only_fused: bool = False,
                 generator: Optional[torch.Generator] = None,
-                seed: Optional[int] = None) -> torch.Tensor:
+                seed: Optional[int] = None,
+                raw_stats: Optional[Dict[str, float]] = None) -> torch.Tensor:
         """The full token sequence [B, L, D], or [B, 1, D] when the fused path
         computes the CLS row only (``cls_only_fused``). `seed` is the training
-        step's int32 dropout seed for the fused training stack."""
+        step's int32 dropout seed for the fused training stack. With
+        `raw_stats`, `src` is the raw [B, L, 2] frame batch."""
         cfg = self.cfg
-        x = dropout(self.embed(src, policy), cfg.drop_prob, self.training, generator)
+        if raw_stats is not None:
+            x = fused_raw_embed_apply(self, src, cfg, raw_stats, policy)
+        else:
+            x = self.embed(src, policy)
+        x = dropout(x, cfg.drop_prob, self.training, generator)
         if (self.training
                 and seed is not None
                 and mask is None

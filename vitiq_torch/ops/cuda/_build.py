@@ -27,16 +27,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C entry points: name -> (argtypes, restype)
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _LAYER_ARGS = [_P] * 18 + [_I] * 5 + [_P]
-# x, out (y or dy), [dx, grads,] the 12 weights, workspace; B, L, D, H, F;
-# dropout threshold and scale, seed, layer index; stream
+# x, out (y or dy), [dx, grads,] [the 6 stash tensors,] the 12 weights,
+# workspace; B, L, D, H, F; dropout threshold and scale, seed, layer index;
+# stream
 _DROP_ARGS = [_I] * 5 + [_U, _F, _I, _I, _P]
 SIGNATURES = {
     "vitiq_encoder_layer_full": (_LAYER_ARGS, _I),
     "vitiq_encoder_layer_cls": (_LAYER_ARGS, _I),
     "vitiq_train_layer_fwd": ([_P] * 15 + _DROP_ARGS, _I),
     "vitiq_train_layer_bwd": ([_P] * 17 + _DROP_ARGS, _I),
+    "vitiq_train_layer_fwd_stash": ([_P] * 21 + _DROP_ARGS, _I),
+    "vitiq_train_layer_bwd_stash": ([_P] * 23 + _DROP_ARGS, _I),
     "vitiq_train_layer_fwd_workspace": ([_I] * 5, ctypes.c_size_t),
     "vitiq_train_layer_bwd_workspace": ([_I] * 5, ctypes.c_size_t),
+    "vitiq_train_layer_fwd_stash_workspace": ([_I] * 5, ctypes.c_size_t),
+    "vitiq_train_layer_bwd_stash_workspace": ([_I] * 5, ctypes.c_size_t),
     "vitiq_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,13 +1,22 @@
 """Fused post-norm encoder layer for training: the wrappers of the CUDA
-kernels in `vitiq_torch/csrc/fused_layer_train.cu` (K3), their plain PyTorch
-versions and the differentiable stack (counterpart of
-`vitiq/ops/pallas/fused_layer_train.py`, `fused_train_layer_stack`, in its
-recompute regime).
+kernels in `vitiq_torch/csrc/fused_layer_train.cu` (K3, K4), their plain
+PyTorch versions and the differentiable stack (counterpart of
+`vitiq/ops/pallas/fused_layer_train.py`, `fused_train_layer_stack`, in both
+of its residual regimes).
 
 * K3-fwd (`fused_train_layer_fwd`): one training layer, [B, L, D] -> [B, L, D],
   dropout at the three sites of the reference layer.
 * K3-bwd (`fused_train_layer_bwd`): recompute the layer from x, then dx and
   the gradients of all 12 operands.
+* K4-fwd (`fused_train_layer_fwd_stash`): K3-fwd's y plus the stash the
+  backward reads instead of recomputing: attn [B, L, D], LN1's and LN2's
+  normalized inputs xh1, xh2 [B, L, D] in x's dtype, their 1/std r1, r2
+  [B, L] f32, and the normalized probabilities pbar [B, H, L, L] in x's dtype.
+* K4-bwd (`fused_train_layer_bwd_stash`): dx and the 12 gradients from x, dy
+  and the stash; it rebuilds only qkv, x1 = g1 * xh1 + be1 and the FFN
+  hidden, as the JAX stash backward does.
+`fused_train_layer_stack` takes K4 where `stash_enabled` (the JAX gate
+`_stash_enabled`, `VITIQ_TRAIN_STASH`) puts the stash, K3 elsewhere.
 
 The numerics follow the JAX kernels: q rounded, scaled by log2(e)/sqrt(dh) in
 f32 and rounded again; exp2 probabilities rounded to the activation dtype and
@@ -31,7 +40,8 @@ plain versions count nothing.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -45,7 +55,10 @@ SUPPORTED_D_HEAD = (16, 32)
 MAX_SHARED_MEMORY = 232448  # bytes a block may use on Hopper
 _M32 = 0xFFFFFFFF
 
-launches = {"fused_train_layer_fwd": 0, "fused_train_layer_bwd": 0}
+STASH_MAX_HEAD_LANES = 1280  # H * Lp bound of the stash (`_stash_supported`)
+
+launches = {"fused_train_layer_fwd": 0, "fused_train_layer_bwd": 0,
+            "fused_train_layer_fwd_stash": 0, "fused_train_layer_bwd_stash": 0}
 
 
 def reset_launches() -> None:
@@ -60,6 +73,14 @@ def attention_bwd_smem_bytes(L: int, d_head: int) -> int:
     return (4 * lp * (d_head + 8) + 3 * d_head * (lp + 8)) * 2 + (3 * lp + 4 * 3 * d_head) * 4
 
 
+def stash_attention_bwd_smem_bytes(L: int, d_head: int) -> int:
+    """Shared memory of K4's attention-backward block at L tokens (the
+    formula of `stash_attention_bwd_smem_bytes` in the .cu): v, dO as rows,
+    q, k, dO transposed; pbar is read from the stash, not staged."""
+    lp = (L + 15) // 16 * 16
+    return (2 * lp * (d_head + 8) + 3 * d_head * (lp + 8)) * 2 + (lp + 4 * 3 * d_head) * 4
+
+
 def fused_train_supported(L: int, D: int, ffn_hidden: int, n_head: int) -> bool:
     """Shapes the K3 kernels take: d_model 128, d_head 16 or 32, an FFN width
     that is a multiple of 128, and an L whose attention-backward block fits
@@ -69,6 +90,54 @@ def fused_train_supported(L: int, D: int, ffn_hidden: int, n_head: int) -> bool:
     dh = D // n_head
     return (dh in SUPPORTED_D_HEAD and ffn_hidden > 0 and ffn_hidden % 128 == 0
             and attention_bwd_smem_bytes(L, dh) <= MAX_SHARED_MEMORY)
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _key_split(lp: int, seq_len: int) -> Tuple[int, int]:
+    """(mxu_k, n_tail) of `_key_split`: the TPU kernels' tail-key mode
+    (``VITIQ_TRAIN_TAIL=1``), which the stash does not serve."""
+    if os.environ.get("VITIQ_TRAIN_TAIL", "0") != "1":
+        return lp, 0
+    mxu_k = (lp // 128) * 128
+    if 128 <= mxu_k <= seq_len and seq_len - mxu_k <= 8:
+        return mxu_k, seq_len - mxu_k
+    return lp, 0
+
+
+def stash_supported(lp: int, seq_len: int, n_head: int) -> bool:
+    """`_stash_supported`: no tail mode and H * Lp <= 1280."""
+    return _key_split(lp, seq_len)[1] == 0 and n_head * lp <= STASH_MAX_HEAD_LANES
+
+
+def stash_enabled(L: int, n_head: int, d: int, batch: Optional[int] = None,
+                  dtype: torch.dtype = torch.bfloat16) -> bool:
+    """`_stash_enabled` at L tokens in `dtype` (Lp = L rounded up to 16 in
+    bf16, to 8 otherwise). ``VITIQ_TRAIN_STASH``: ``0`` off, ``1`` on
+    wherever `stash_supported`, ``auto`` (default) on at d <= 128 for
+    Lp <= 80, and at d <= 256 for Lp <= 64 with a known batch <= 4096."""
+    lp = _round_up(L, 16 if dtype == torch.bfloat16 else 8)
+    env = os.environ.get("VITIQ_TRAIN_STASH", "auto")
+    if env == "0" or not stash_supported(lp, L, n_head):
+        return False
+    if env == "1":
+        return True
+    if d <= 128:
+        return lp <= 80
+    return batch is not None and batch <= 4096 and lp <= 64 and d <= 256
+
+
+def fused_train_stash_supported(L: int, D: int, ffn_hidden: int, n_head: int) -> bool:
+    """Shapes the K4 kernels take: K3's (d_model 128, d_head 16 or 32, an FFN
+    width that is a multiple of 128), an L inside the stash gate
+    (`stash_supported` at Lp = round_up(L, 16)) and an attention-backward
+    block that fits the card's shared memory."""
+    if not fused_train_supported(L, D, ffn_hidden, n_head):
+        return False
+    return (stash_supported(_round_up(L, 16), L, n_head)
+            and stash_attention_bwd_smem_bytes(L, D // n_head) <= MAX_SHARED_MEMORY)
 
 
 def flat_weights(layer, dtype) -> List[torch.Tensor]:
@@ -177,6 +246,12 @@ def _masks(x: torch.Tensor, F: int, drop: float, seed: int, layer_idx: int):
             for site, w in ((0, D), (1, F), (2, D))]
 
 
+def _heads(t: torch.Tensor, n_head: int) -> torch.Tensor:
+    """[B, L, D] -> [B, H, L, dh] f32."""
+    B, L, D = t.shape
+    return t.float().reshape(B, L, n_head, D // n_head).transpose(1, 2)
+
+
 def _forward(x, ops, n_head, drop, seed, layer_idx):
     """The layer and every intermediate the backward needs, in x's dtype
     where the kernels round to bf16."""
@@ -186,11 +261,7 @@ def _forward(x, ops, n_head, drop, seed, layer_idx):
     dh = D // n_head
     m1, m2, m3 = _masks(x, w1.shape[1], drop, seed, layer_idx)
     qkv = (_mm(x, wqkv) + bqkv).to(dt)
-
-    def heads(t):  # [B, L, D] -> [B, H, L, dh] f32
-        return t.float().reshape(B, L, n_head, dh).transpose(1, 2)
-
-    q, k, v = (heads(t) for t in qkv.split(D, dim=-1))
+    q, k, v = (_heads(t, n_head) for t in qkv.split(D, dim=-1))
     qs = (q * (_LOG2E / math.sqrt(dh))).to(dt).float()
     s = qs @ k.transpose(-1, -2)  # log2 units
     p = torch.exp2(s - s.amax(dim=-1, keepdim=True)).to(dt).float()
@@ -203,6 +274,58 @@ def _forward(x, ops, n_head, drop, seed, layer_idx):
     y, xh2, r2 = _ln((_mm(h, w2) + b2) * m3 + x1.float(), g2, be2)
     return y.to(dt), dict(qs=qs, k=k, v=v, p=p, den=den, attn=attn, attn_flat=attn_flat,
                           x1=x1, xh1=xh1, r1=r1, h=h, xh2=xh2, r2=r2, masks=(m1, m2, m3))
+
+
+def _gradients(x, dy, r, ops, n_head):
+    """dx (x's dtype) and the 12 operand gradients (f32) from the activations
+    the backward reads (`r`: qs, k, v, the rounded normalized probabilities
+    pbar and attn per head, attn_flat, x1, h, xh1, r1, xh2, r2, the masks):
+    the gradient stages shared by K3-bwd and K4-bwd."""
+    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = ops
+    dt = x.dtype
+    B, L, D = x.shape
+    dh = D // n_head
+    scale2 = _LOG2E / math.sqrt(dh)
+    m1, m2, m3 = r["masks"]
+    h, x1, attn_flat = r["h"], r["x1"], r["attn_flat"]
+
+    def colsum(t):
+        return t.reshape(-1, t.shape[-1]).sum(dim=0)
+
+    def wgrad(act, grad):  # act^T grad over all rows
+        return _mm(act.reshape(-1, act.shape[-1]).t(), grad.reshape(-1, grad.shape[-1]))
+
+    dy = dy.to(dt).float()
+    dg2, dbe2 = colsum(dy * r["xh2"]), colsum(dy)
+    dz2 = _ln_bwd(dy, r["xh2"], r["r2"], g2)
+    df = dz2 * m3
+    dfb = df.to(dt)
+    db2, dw2 = colsum(df), wgrad(h, dfb)
+    dpre = torch.where(h.float() > 0, _mm(dfb, w2.t()) * m2, torch.zeros_like(m2))
+    dpreb = dpre.to(dt)
+    db1, dw1 = colsum(dpre), wgrad(x1, dpreb)
+    dx1 = dz2 + _mm(dpreb, w1.t())
+    dg1, dbe1 = colsum(dx1 * r["xh1"]), colsum(dx1)
+    dz1 = _ln_bwd(dx1, r["xh1"], r["r1"], g1)
+    da = dz1 * m1
+    dab = da.to(dt)
+    dbo, dwo = colsum(da), wgrad(attn_flat, dab)
+    dattn = _mm(dab, wo.t()).to(dt)
+
+    # attention, per head: the flash identity gives the row term
+    do = _heads(dattn, n_head)
+    pbar = r["pbar"]
+    row = (do * r["attn"].float()).sum(dim=-1, keepdim=True)
+    ds = (pbar * (do @ r["v"].transpose(-1, -2) - row)).to(dt).float()
+    dq = (ds @ r["k"]) * (_LN2 * scale2)
+    dk = (ds.transpose(-1, -2) @ r["qs"]) * _LN2
+    dv = pbar.transpose(-1, -2) @ do
+    dqkv = torch.cat([t.transpose(1, 2).reshape(B, L, D) for t in (dq, dk, dv)], dim=-1)
+    dqkvb = dqkv.to(dt)
+    dbqkv, dwqkv = colsum(dqkv), wgrad(x, dqkvb)
+    dx = (dz1 + _mm(dqkvb, wqkv.t())).to(dt)
+    grads = [dwqkv, dbqkv, dwo, dbo, dg1, dbe1, dw1, db1, dw2, db2, dg2, dbe2]
+    return dx, [g.to(w.dtype) for g, w in zip(grads, ops)]
 
 
 def fused_train_layer_reference(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
@@ -218,61 +341,61 @@ def fused_train_layer_backward_reference(
     """Plain version of K3-bwd, an explicit recompute and backprop: returns
     dx (x's dtype) and the gradients of the 12 operands (matrices rounded to
     their dtype, vectors f32)."""
-    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = ops
-    dt = x.dtype
-    B, L, D = x.shape
-    dh = D // n_head
-    scale2 = _LOG2E / math.sqrt(dh)
     with torch.no_grad():
         _, r = _forward(x, ops, n_head, drop, seed, layer_idx)
-        m1, m2, m3 = r["masks"]
-        h, x1, attn_flat = r["h"], r["x1"], r["attn_flat"]
+        r["pbar"] = (r["p"] / r["den"]).to(x.dtype).float()
+        return _gradients(x, dy, r, ops, n_head)
 
-        def colsum(t):
-            return t.reshape(-1, t.shape[-1]).sum(dim=0)
 
-        def wgrad(act, grad):  # act^T grad over all rows
-            return _mm(act.reshape(-1, act.shape[-1]).t(), grad.reshape(-1, grad.shape[-1]))
+def fused_train_layer_stash_reference(
+        x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int, drop: float, seed: int,
+        layer_idx: int) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Plain version of K4-fwd: (y, stash). y is K3's plain y, bit for bit;
+    the stash is (attn [B, L, D], xh1, xh2 [B, L, D] in x's dtype, r1, r2
+    [B, L] f32, pbar [B, H, L, L] in x's dtype, pbar = bf16(bf16(exp2(s -
+    max)) / l))."""
+    with torch.no_grad():
+        y, r = _forward(x, ops, n_head, drop, seed, layer_idx)
+        dt = x.dtype
+        pbar = (r["p"] / r["den"]).to(dt)
+        stash = (r["attn_flat"], r["xh1"].to(dt), r["xh2"].to(dt), r["r1"][..., 0],
+                 r["r2"][..., 0], pbar)
+    return y, stash
 
-        dy = dy.to(dt).float()
-        dg2, dbe2 = colsum(dy * r["xh2"]), colsum(dy)
-        dz2 = _ln_bwd(dy, r["xh2"], r["r2"], g2)
-        df = dz2 * m3
-        dfb = df.to(dt)
-        db2, dw2 = colsum(df), wgrad(h, dfb)
-        dpre = torch.where(h.float() > 0, _mm(dfb, w2.t()) * m2, torch.zeros_like(m2))
-        dpreb = dpre.to(dt)
-        db1, dw1 = colsum(dpre), wgrad(x1, dpreb)
-        dx1 = dz2 + _mm(dpreb, w1.t())
-        dg1, dbe1 = colsum(dx1 * r["xh1"]), colsum(dx1)
-        dz1 = _ln_bwd(dx1, r["xh1"], r["r1"], g1)
-        da = dz1 * m1
-        dab = da.to(dt)
-        dbo, dwo = colsum(da), wgrad(attn_flat, dab)
-        dattn = _mm(dab, wo.t()).to(dt)
 
-        # attention, per head: the flash identity gives the row term
-        do = dattn.float().reshape(B, L, n_head, dh).transpose(1, 2)
-        pbar = (r["p"] / r["den"]).to(dt).float()
-        row = (do * r["attn"].float()).sum(dim=-1, keepdim=True)
-        ds = (pbar * (do @ r["v"].transpose(-1, -2) - row)).to(dt).float()
-        dq = (ds @ r["k"]) * (_LN2 * scale2)
-        dk = (ds.transpose(-1, -2) @ r["qs"]) * _LN2
-        dv = pbar.transpose(-1, -2) @ do
-        dqkv = torch.cat([t.transpose(1, 2).reshape(B, L, D) for t in (dq, dk, dv)], dim=-1)
-        dqkvb = dqkv.to(dt)
-        dbqkv, dwqkv = colsum(dqkv), wgrad(x, dqkvb)
-        dx = (dz1 + _mm(dqkvb, wqkv.t())).to(dt)
-    grads = [dwqkv, dbqkv, dwo, dbo, dg1, dbe1, dw1, db1, dw2, db2, dg2, dbe2]
-    return dx, [g.to(w.dtype) for g, w in zip(grads, ops)]
+def fused_train_layer_stash_backward_reference(
+        x: torch.Tensor, dy: torch.Tensor, stash: Sequence[torch.Tensor],
+        ops: Sequence[torch.Tensor], n_head: int, drop: float, seed: int,
+        layer_idx: int) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Plain version of K4-bwd: rebuild qkv = bf16(x Wqkv + bqkv), x1 =
+    bf16(xh1 g1 + be1) from the stashed xh1, h = bf16(relu(x1 W1 + b1) m2),
+    then K3's gradient stages on the stash (LN backwards on the stashed xh,
+    the attention backward on the stashed pbar and attn)."""
+    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = ops
+    attn, xh1, xh2, r1, r2, pbar = stash
+    dt = x.dtype
+    D = x.shape[-1]
+    with torch.no_grad():
+        masks = _masks(x, w1.shape[1], drop, seed, layer_idx)
+        qkv = (_mm(x, wqkv) + bqkv).to(dt)
+        q, k, v = (_heads(t, n_head) for t in qkv.split(D, dim=-1))
+        qs = (q * (_LOG2E / math.sqrt(D // n_head))).to(dt).float()
+        x1 = (xh1.float() * g1 + be1).to(dt)
+        h = (torch.relu(_mm(x1, w1) + b1) * masks[1]).to(dt)
+        r = dict(qs=qs, k=k, v=v, pbar=pbar.float(), attn=_heads(attn, n_head),
+                 attn_flat=attn, x1=x1, h=h, xh1=xh1.float(), r1=r1[..., None],
+                 xh2=xh2.float(), r2=r2[..., None], masks=masks)
+        return _gradients(x, dy, r, ops, n_head)
 
 
 # --------------------------------------------------------------------------
 # CUDA kernels
 # --------------------------------------------------------------------------
 
-def _check_inputs(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int) -> int:
-    """Validate what the kernels take; returns the FFN width."""
+def _check_inputs(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
+                  stash: bool = False) -> int:
+    """Validate what the kernels (K3, or K4 with `stash`) take; returns the
+    FFN width."""
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernels need a CUDA tensor, got {x.device}")
     if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
@@ -283,9 +406,13 @@ def _check_inputs(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int) -> 
         raise ValueError(f"expected 12 layer operands, got {len(ops)}")
     F = ops[6].shape[-1]
     if B == 0 or not fused_train_supported(L, D, F, n_head):
-        raise ValueError(f"K3 takes d_model={SUPPORTED_D_MODEL}, d_head in {SUPPORTED_D_HEAD}, "
+        raise ValueError(f"{'K4' if stash else 'K3'} takes d_model={SUPPORTED_D_MODEL}, "
+                         f"d_head in {SUPPORTED_D_HEAD}, "
                          f"an FFN width that is a multiple of 128 and L up to the shared-memory "
                          f"bound; got B={B}, L={L}, d_model={D}, n_head={n_head}, ffn={F}")
+    if stash and not fused_train_stash_supported(L, D, F, n_head):
+        raise ValueError(f"K4 takes L inside the stash gate (H * round_up(L, 16) <= "
+                         f"{STASH_MAX_HEAD_LANES}, no tail keys); got L={L}, n_head={n_head}")
     shapes = [(D, 3 * D), (3 * D,), (D, D), (D,), (D,), (D,),
               (D, F), (F,), (F, D), (D,), (D,), (D,)]
     for i, (t, shape) in enumerate(zip(ops, shapes)):
@@ -352,6 +479,65 @@ def fused_train_layer_bwd(x: torch.Tensor, dy: torch.Tensor, ops: Sequence[torch
     return dx, [g.view(t.shape).to(t.dtype) for g, t in zip(parts, ops)]
 
 
+def stash_shapes(x: torch.Tensor, n_head: int):
+    """(shape, dtype) of each stash tensor for activations x [B, L, D]:
+    attn, xh1, xh2, r1, r2, pbar."""
+    B, L, D = x.shape
+    dt = x.dtype
+    return [((B, L, D), dt), ((B, L, D), dt), ((B, L, D), dt), ((B, L), torch.float32),
+            ((B, L), torch.float32), ((B, n_head, L, L), dt)]
+
+
+def fused_train_layer_fwd_stash(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
+                                drop: float, seed: int,
+                                layer_idx: int) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """K4-fwd: (y, stash) for bf16 [B, L, D] activations (see
+    `fused_train_layer_stash_reference`); the plain version for a CPU
+    tensor."""
+    if x.device.type == "cpu":
+        return fused_train_layer_stash_reference(x, ops, n_head, drop, seed, layer_idx)
+    F = _check_inputs(x, ops, n_head, stash=True)
+    y = torch.empty_like(x)
+    stash = tuple(torch.empty(shape, dtype=dt, device=x.device)
+                  for shape, dt in stash_shapes(x, n_head))
+    _launch("vitiq_train_layer_fwd_stash", "fused_train_layer_fwd_stash", x,
+            (x.data_ptr(), y.data_ptr(), *(t.data_ptr() for t in stash)),
+            ops, n_head, F, drop, seed, layer_idx)
+    return y, stash
+
+
+def fused_train_layer_bwd_stash(x: torch.Tensor, dy: torch.Tensor, stash: Sequence[torch.Tensor],
+                                ops: Sequence[torch.Tensor], n_head: int, drop: float, seed: int,
+                                layer_idx: int) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """K4-bwd: dx and the 12 operand gradients (matrices rounded to bf16,
+    vectors f32) from x, dy and K4-fwd's stash; the plain version for a CPU
+    tensor."""
+    if x.device.type == "cpu":
+        return fused_train_layer_stash_backward_reference(x, dy, stash, ops, n_head, drop, seed,
+                                                          layer_idx)
+    F = _check_inputs(x, ops, n_head, stash=True)
+    want = stash_shapes(x, n_head)
+    if len(stash) != len(want):
+        raise ValueError(f"expected a stash of {len(want)} tensors, got {len(stash)}")
+    for i, (t, (shape, dt)) in enumerate(zip(stash, want)):
+        if (tuple(t.shape) != shape or t.dtype != dt or t.device != x.device
+                or not t.is_contiguous()):
+            raise ValueError(f"stash tensor {i}: want contiguous {dt} {shape} on {x.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    dy = dy.to(x.dtype).contiguous()
+    if dy.shape != x.shape or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} does not match x "
+                         f"{tuple(x.shape)} on {x.device}")
+    dx = torch.empty_like(x)
+    grads = torch.empty(sum(t.numel() for t in ops), dtype=torch.float32, device=x.device)
+    _launch("vitiq_train_layer_bwd_stash", "fused_train_layer_bwd_stash", x,
+            (x.data_ptr(), dy.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+             *(t.data_ptr() for t in stash)),
+            ops, n_head, F, drop, seed, layer_idx)
+    parts = grads.split([t.numel() for t in ops])
+    return dx, [g.view(t.shape).to(t.dtype) for g, t in zip(parts, ops)]
+
+
 class _FusedTrainLayer(torch.autograd.Function):
     """One training layer: the forward launches K3-fwd and saves only x and
     the operands (the seed rides along as a constant); the backward launches
@@ -370,12 +556,37 @@ class _FusedTrainLayer(torch.autograd.Function):
         return (dx, None, None, None, None, *grads)
 
 
+class _FusedTrainLayerStash(torch.autograd.Function):
+    """One training layer in the stash regime: the forward launches K4-fwd
+    and saves x, the stash and the operands; the backward launches K4-bwd,
+    which reads the stash instead of recomputing the layer."""
+
+    @staticmethod
+    def forward(ctx, x, n_head, drop, seed, layer_idx, *ops):
+        y, stash = fused_train_layer_fwd_stash(x, ops, n_head, drop, seed, layer_idx)
+        ctx.save_for_backward(x, *stash, *ops)
+        ctx.layer = (n_head, drop, seed, layer_idx)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *rest = ctx.saved_tensors
+        stash, ops = rest[:6], rest[6:]
+        dx, grads = fused_train_layer_bwd_stash(x, dy, stash, ops, *ctx.layer)
+        return (dx, None, None, None, None, *grads)
+
+
 def fused_train_layer_stack(x: torch.Tensor, layers, n_head: int, drop_prob: float,
                             seed: int) -> torch.Tensor:
     """Differentiable fused training stack over `EncoderLayer` modules: x
     [B, L, D] in the compute dtype; `seed` the step's int32 dropout seed.
-    Gradients reach x and every layer parameter through K3-bwd."""
+    Each layer runs K4 where `stash_enabled` puts the stash (the rawIQ
+    flagship, Lp=80), K3 elsewhere (the ViT flagship, Lp=144); gradients
+    reach x and every layer parameter through K4-bwd or K3-bwd."""
+    B, L, D = x.shape
+    layer_fn = (_FusedTrainLayerStash if stash_enabled(L, n_head, D, B, x.dtype)
+                else _FusedTrainLayer)
     for i, layer in enumerate(layers):
-        x = _FusedTrainLayer.apply(x, n_head, float(drop_prob), int(seed), i,
-                                   *flat_weights(layer, x.dtype))
+        x = layer_fn.apply(x, n_head, float(drop_prob), int(seed), i,
+                           *flat_weights(layer, x.dtype))
     return x

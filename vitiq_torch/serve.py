@@ -11,13 +11,14 @@ artifacts are not part of this module yet.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 import torch
 
-from vitiq.config import ExperimentConfig
+from vitiq.config import ExperimentConfig, ModelConfig
 from vitiq_torch.dsp.frontend import preprocess_batch_rawiq, preprocess_batch_vit
 from vitiq_torch.models.amc import AMCModel
+from vitiq_torch.models.raw_embed import fused_raw_embed_enabled
 
 
 def build_preprocess(cfg: ExperimentConfig, stats: Dict[str, float]) -> Callable:
@@ -33,12 +34,32 @@ def build_preprocess(cfg: ExperimentConfig, stats: Dict[str, float]) -> Callable
     return lambda x: preprocess_batch_rawiq(x, stats)
 
 
+def build_forward_and_preprocess(cfg: ExperimentConfig, model_or_cfg: Union[AMCModel, ModelConfig],
+                                 stats: Dict[str, float]) -> Tuple[AMCModel, Callable]:
+    """(model, preprocess) for the experiment. Where the fused raw embedding
+    applies (iq features at sps 1 and `fused_raw_embed_enabled`), the model
+    takes raw [B, L, 2] frames through it and preprocess is the identity;
+    otherwise the model takes `build_preprocess`'s output. Given a model,
+    sets its `raw_stats` accordingly and returns it; given a config, builds
+    the model."""
+    fused = (cfg.data.sps <= 1 and cfg.data.features == "iq"
+             and fused_raw_embed_enabled(cfg.model))
+    raw_stats = dict(stats) if fused else None
+    if isinstance(model_or_cfg, AMCModel):
+        model = model_or_cfg
+        model.raw_stats = raw_stats
+    else:
+        model = AMCModel(model_or_cfg, raw_stats=raw_stats)
+    return model, ((lambda x: x) if fused else build_preprocess(cfg, stats))
+
+
 def build_serving_fn(cfg: ExperimentConfig, model: AMCModel, stats: Dict[str, float],
                      device) -> Callable[[torch.Tensor], torch.Tensor]:
     """Raw [B, frame_len, 2] f32 frames -> [B, num_classes] f32 logits on
-    `device`. Puts `model` on `device` in eval mode."""
+    `device`, through `build_forward_and_preprocess`. Puts `model` on
+    `device` in eval mode."""
     device = torch.device(device)
-    pre = build_preprocess(cfg, stats)
+    model, pre = build_forward_and_preprocess(cfg, model, stats)
     model.to(device).eval()
 
     @torch.no_grad()
