@@ -6,14 +6,19 @@ which raises (exit code 1) on failure:
 
 1. device: a CUDA GPU must be present; the card's name and power limit.
 2. build: the kernels of `vitiq_torch/csrc/*.cu` are compiled with nvcc for
-   sm_90a and loaded.
+   sm_90a (one nvcc per source, all started together) and loaded.
 3. kernels: K1 (full fused layers) and K2 (the CLS-row layer) on the GPU
    against their plain PyTorch version on the GPU, on the same bf16 inputs
-   and seeded random weights, at the ViT flagship (L=129, F=512) and rawIQ
-   flagship (L=65, F=1024) shapes, B=256, D=128, H=8: each of five K1
-   layers and the K2 layer on the plain version's input to it
-   (|kernel - plain| <= 3e-2 + 1.6e-2 * |plain|), and the five K1 layers as
-   one stack (6e-2 + 3.2e-2 * |plain|); see LAYER_TOL and STACK_TOL.
+   and seeded random weights, at the ViT flagship (L=129, F=512, B=256),
+   rawIQ flagship (L=65, F=1024, B=256) and conv1d flagship (L=1025,
+   F=1024, B=64) shapes, D=128, H=8: each of five K1 layers and the K2 layer
+   on the plain version's input to it (|kernel - plain| <= 3e-2 + 1.6e-2 *
+   |plain|), and the five K1 layers as one stack (6e-2 + 3.2e-2 * |plain|);
+   see LAYER_TOL and STACK_TOL. Then K5-fwd and K5-bwd (the standalone
+   packed attention) against their plain versions at B=64, L 17 and 1025
+   (d_head 16) and L 1025 at d_head 32: out within LAYER_TOL, dq, dk, dv each
+   within GRAD_REL in the L2 norm (max |difference| printed), the padded
+   rows of the backward's tile buffers exactly zero.
 4. serve: the ViT flagship (d128/L6/H8, bf16 `tpu` numerics, seeded random
    weights) answers ragged requests of 1, 37, 256 and 1000 raw [B, 1024, 2]
    frames through `Server` with buckets (256, 1024). Every launch counter is
@@ -25,6 +30,9 @@ which raises (exit code 1) on failure:
    with non-trivial stats (RAW_STATS) through `build_forward_and_preprocess`,
    which gives it the fused raw embedding (raw frames straight into one
    GEMM), as the JAX package serves it; its f32 path keeps the unfused chain.
+   The conv1d flagship (1025 tokens) repeats it with requests of 1, 37 and
+   256 through buckets (64, 256), and again with VITIQ_NO_FUSED_LAYER=1,
+   where each request must launch K5-fwd once per layer and K1/K2 never.
 5. train-kernels: K3-fwd and K3-bwd (the fused training layer, recompute
    regime) on the GPU against their plain PyTorch versions at the ViT
    flagship shape (B=256, L=129, F=512, H=8, dropout 0.1) and the rawIQ one
@@ -39,19 +47,32 @@ which raises (exit code 1) on failure:
    one repeated random batch at lr 1e-3, the rawIQ one on raw frames through
    the fused raw embedding. The launch counters are reset just before each
    step and read just after: every ViT step must launch K3-fwd and K3-bwd
-   once per layer (6 each) and K4 never; every rawIQ step K4-fwd and K4-bwd
-   6 times each and K3 never, the regimes the JAX package's stash gate picks
-   (Lp 144 and 80). The loss must stay finite and end below where it
-   started. One step's gradient at dropout 0 from the same weights is held
+   once per layer (6 each) and K4 and K5 never; every rawIQ step K4-fwd and
+   K4-bwd 6 times each and K3 and K5 never, the regimes the JAX package's
+   stash gate picks (Lp 144 and 80). The loss must stay finite and end
+   below where it started. One step's gradient at dropout 0 from the same weights is held
    against the plain bf16 layers (VITIQ_FUSED_TRAIN=0, cosine >= 0.999) and
-   the f32 `reference` path (cosine >= 0.995).
+   the f32 `reference` path (cosine >= 0.995). The conv1d flagship takes 20
+   steps at B=64 through the plain layers, rematerialized (VITIQ_TRAIN_REMAT
+   auto), with K5 as their attention: every step must launch K5-fwd 12
+   times (6 forward, 6 recompute) and K5-bwd 6 times, K3 and K4 never; its
+   gradient at dropout 0 is held to the f32 path at B=8 (cosine >= 0.995).
 7. timing (CUDA events after warm-up): per-layer kernel time against the
-   plain version at B=4096 (K1, K2 and K3 at both flagship shapes, K4 at
-   the rawIQ one), serving frames/s and p50 latency at B=4096 for both
-   flagships, and train-step frames/s and peak device memory at B=4096: the
-   ViT flagship through K3 and through the plain layers, the rawIQ flagship
-   through K4, through K3 (VITIQ_TRAIN_STASH=0) and through the plain
-   layers, beside the card's name and power limit.
+   plain version (K1 and K2 at the three shapes, B=4096 and, at 1025 tokens,
+   B=256; K3 at the ViT and rawIQ shapes and K4 at the rawIQ one, B=4096;
+   K5-fwd and K5-bwd at B=256, L=1025), each beside its bound (the larger of
+   its FLOPs over 989 TFLOP/s and its compulsory bytes over 3.35 TB/s) and,
+   as yardsticks the port never calls, nn.TransformerEncoderLayer's time
+   beside K1 (ViT and rawIQ shapes, B=4096, with whether its fused fast path
+   ran) and scaled_dot_product_attention's beside K5 (forward; backward on a
+   kept graph); serving frames/s and p50 latency at B=4096 (ViT, rawIQ) and
+   B=2048 (conv1d), through the kernels and through the plain layer loop;
+   train-step frames/s and peak device memory: the ViT flagship through K3
+   and through the plain layers, the rawIQ flagship through K4, through K3
+   (VITIQ_TRAIN_STASH=0) and through the plain layers (B=4096), the conv1d
+   flagship with remat (auto) and without (VITIQ_TRAIN_REMAT=0) (B=256),
+   and a `torch.profiler` breakdown of the conv1d step (device kernel time
+   by kernel, idle share); beside the card's name and power limit.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -71,10 +92,11 @@ import time
 import torch
 
 from vitiq_torch.config import DataConfig, ExperimentConfig, TrainConfig
-from vitiq_torch.config import flagship_rawiq_config, flagship_vit_config
+from vitiq_torch.config import flagship_conv1d_config, flagship_rawiq_config, flagship_vit_config
 from vitiq_torch.models import AMCModel
 from vitiq_torch.models.layers import EncoderLayer
 from vitiq_torch.ops.cuda import _build
+from vitiq_torch.ops.cuda import flash_attention as fa
 from vitiq_torch.ops.cuda import fused_encoder_layer as fel
 from vitiq_torch.ops.cuda import fused_layer_train as flt
 from vitiq_torch.ops.metrics import label_smoothed_cross_entropy
@@ -108,7 +130,17 @@ SOURCE = "vitiq_torch/csrc/fused_encoder_layer.cu"
 TPU_SOURCE = "vitiq/ops/pallas/fused_encoder_layer.py"
 TRAIN_SOURCE = "vitiq_torch/csrc/fused_layer_train.cu"
 TRAIN_TPU_SOURCE = "vitiq/ops/pallas/fused_layer_train.py"
+ATTN_SOURCE = "vitiq_torch/csrc/flash_attention.cu"
+ATTN_TPU_SOURCE = "vitiq/ops/pallas/flash_attention.py"
+K5 = ("fused_attention_fwd", "fused_attention_bwd")
+CONV1D_L = 1025  # the conv1d flagship's tokens, CLS included
 DEVICE = torch.device("cuda", 0)
+# Published peaks of one H100 SXM:
+# dense bf16 tensor-core FLOP/s and HBM bytes/s. A kernel's bound is the larger
+# of its FLOPs and its compulsory bytes (inputs read once, outputs written
+# once) over these.
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+SFU_EXP2_PER_CLOCK_SM, N_SM = 16, 132  # Hopper's special-function units
 
 
 def card_line() -> str:
@@ -161,17 +193,19 @@ def check_close(label: str, got: torch.Tensor, want: torch.Tensor, tol) -> float
     return max_abs
 
 
-def check_kernels(device) -> dict:
+def check_kernels(device, conv1d_batch: int = 64) -> dict:
     """Each K1 layer and the K2 layer on the same input as the plain version
     (the plain output of the layer before), then the 5-layer K1 stack end to
     end. Returns the largest per-layer difference of each kernel."""
-    print("phase kernels: kernel vs plain version on the GPU, B=256", flush=True)
     errs = {"k1": 0.0, "k2": 0.0}
     gen = torch.Generator().manual_seed(7)
-    for name, L, ffn in (("vit", 129, 512), ("rawiq", 65, 1024)):
-        layers = random_layers(6, ffn, seed=11 if name == "vit" else 12, device=device)
+    for seed, (name, L, ffn, B) in enumerate((("vit", 129, 512, 256), ("rawiq", 65, 1024, 256),
+                                              ("conv1d", CONV1D_L, 1024, conv1d_batch))):
+        print(f"phase kernels: K1/K2 vs plain version on the GPU, {name} shape B={B} L={L} "
+              f"F={ffn}", flush=True)
+        layers = random_layers(6, ffn, seed=11 + seed, device=device)
         ops = [fel.layer_operands(layer, 8) for layer in layers]
-        x = torch.randn((256, L, 128), generator=gen).to(device, torch.bfloat16)
+        x = torch.randn((B, L, 128), generator=gen).to(device, torch.bfloat16)
         with torch.no_grad():
             h = x
             for i in range(5):
@@ -192,9 +226,60 @@ def check_kernels(device) -> dict:
     return errs
 
 
-def serve_check(label: str, model_cfg, stats, device, sizes, buckets) -> dict:
-    """Serve ragged requests through the kernels; compare with the f32 path."""
-    n_full = model_cfg.n_layers - 1
+def check_attention_kernels(device, B: int = 64) -> dict:
+    """K5-fwd and K5-bwd against their plain versions on the same bf16
+    inputs (q, k, v the column slices of one [B, L, 3D] qkv, as the model
+    passes them): out within LAYER_TOL, dq, dk, dv each within GRAD_REL of
+    the plain gradient in the L2 norm, and the rows past L of the backward's
+    padded buffers (whole 64-row key tiles) exactly zero. Returns the largest
+    difference of each kernel."""
+    errs = {"k5f": 0.0, "k5b": 0.0}
+    gen = torch.Generator().manual_seed(9)
+    for L, n_head in ((17, 8), (CONV1D_L, 8), (CONV1D_L, 4)):
+        dh = 128 // n_head
+        print(f"phase attention-kernels: K5 vs plain version on the GPU, B={B} L={L} "
+              f"H={n_head} d_head={dh}", flush=True)
+        qkv = torch.randn((B, L, 384), generator=gen).to(device, torch.bfloat16)
+        dout = (0.1 * torch.randn((B, L, 128), generator=gen)).to(device, torch.bfloat16)
+        q, k, v = qkv.split(128, dim=-1)
+        with torch.no_grad():
+            out, lse = fa.fused_attention_fwd(q, k, v, n_head)
+            grads = fa.fused_attention_bwd(q, k, v, out, lse, dout, n_head)
+            torch.cuda.synchronize()
+            want = fa.attention_reference(q, k, v, n_head)
+            errs["k5f"] = max(errs["k5f"], check_close(f"K5-fwd out (L={L}, d_head {dh})", out,
+                                                       want, LAYER_TOL))
+            want_grads = fa.attention_bwd_reference(q, k, v, out, dout, n_head)
+        lp = (L + fa.TILE - 1) // fa.TILE * fa.TILE
+        for name, grad, want_grad in zip(("dq", "dk", "dv"), grads, want_grads):
+            got, ref = grad.float(), want_grad.float()
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"K5-bwd {name}: bad gradient {tuple(got.shape)}")
+            rel = ((got - ref).norm() / ref.norm()).item()
+            max_abs = (got - ref).abs().max().item()
+            errs["k5b"] = max(errs["k5b"], max_abs)
+            # the kernel's buffers hold whole 64-row tiles (the plain version,
+            # on the CPU, holds L rows)
+            pad = (grad.as_strided((B, lp, 128), grad.stride())[:, L:] if grad.is_cuda
+                   else grad[:, L:])
+            print(f"  K5-bwd {name} (L={L}, d_head {dh}): ||kernel - plain|| / ||plain|| = "
+                  f"{rel:.6g} (limit {GRAD_REL}), max |kernel - plain| = {max_abs:.6g}, "
+                  f"max |plain| = {ref.abs().max().item():.6g}; {pad.shape[1]} padded rows, "
+                  f"max |value| {pad.float().abs().max().item() if pad.numel() else 0.0}",
+                  flush=True)
+            if not rel <= GRAD_REL:
+                raise AssertionError(f"K5-bwd {name}: kernel gradient disagrees with the plain one")
+            if pad.numel() and bool(pad.ne(0).any()):
+                raise AssertionError(f"K5-bwd {name}: padded key rows are not exactly zero")
+    return errs
+
+
+def serve_check(label: str, model_cfg, stats, device, sizes, buckets, k5_route=False) -> dict:
+    """Serve ragged requests through the kernels; compare with the f32 path.
+    By default each request must launch K1 once per full layer and K2 once;
+    with `k5_route` (VITIQ_NO_FUSED_LAYER=1, the plain layer loop) K5-fwd
+    once per layer and K1/K2 never."""
+    n_layers = model_cfg.n_layers
     exp = ExperimentConfig(model=model_cfg, data=DataConfig(synthetic_frame_len=FRAME_LEN))
     model = AMCModel(model_cfg, generator=torch.Generator().manual_seed(0))
     ref_cfg = ExperimentConfig(model=dataclasses.replace(model_cfg, numerics="reference"),
@@ -205,19 +290,28 @@ def serve_check(label: str, model_cfg, stats, device, sizes, buckets) -> dict:
     ref_serve = build_serving_fn(ref_cfg, ref_model, stats, device)
     gen = torch.Generator().manual_seed(1)
     requests = [torch.randn((n, FRAME_LEN, 2), generator=gen).to(device) for n in sizes]
+    want_per_request = ({"fused_encoder_layer": 0, "fused_encoder_layer_cls": 0,
+                         K5[0]: n_layers, K5[1]: 0} if k5_route else
+                        {"fused_encoder_layer": n_layers - 1, "fused_encoder_layer_cls": 1,
+                         K5[0]: 0, K5[1]: 0})
 
-    fel.reset_launches()
-    outs = []
-    for x in requests:
-        before = dict(fel.launches)
-        outs.append(server.run(x))
-        torch.cuda.synchronize()
-        k1 = fel.launches["fused_encoder_layer"] - before["fused_encoder_layer"]
-        k2 = fel.launches["fused_encoder_layer_cls"] - before["fused_encoder_layer_cls"]
-        if (k1, k2) != (n_full, 1):
-            raise AssertionError(f"{label}: request of {x.shape[0]} launched K1 {k1}x and "
-                                 f"K2 {k2}x, expected {n_full}x and 1x")
-    counts = dict(fel.launches)
+    if k5_route:
+        os.environ["VITIQ_NO_FUSED_LAYER"] = "1"
+    try:
+        fel.reset_launches()
+        fa.reset_launches()
+        outs = []
+        for x in requests:
+            before = {**fel.launches, **fa.launches}
+            outs.append(server.run(x))
+            torch.cuda.synchronize()
+            got = {k: v - before[k] for k, v in {**fel.launches, **fa.launches}.items()}
+            if got != want_per_request:
+                raise AssertionError(f"{label}: request of {x.shape[0]} launched {got}, "
+                                     f"expected {want_per_request}")
+        counts = {**fel.launches, **fa.launches}
+    finally:
+        os.environ.pop("VITIQ_NO_FUSED_LAYER", None)
 
     got = torch.cat(outs)
     want = torch.cat([ref_serve(x) for x in requests])
@@ -231,14 +325,16 @@ def serve_check(label: str, model_cfg, stats, device, sizes, buckets) -> dict:
     agree_conf = agree[confident].mean().item() if confident.any() else 1.0
     front = "fused raw embedding" if model.raw_stats is not None else "preprocess + embedding"
     print(f"  {label}: requests {list(sizes)} via buckets {list(buckets)} ({front}); launches "
-          f"K1 {counts['fused_encoder_layer']}, K2 {counts['fused_encoder_layer_cls']}; "
-          f"max |dlogit| vs f32 path {max_abs:.6g}; argmax agreement "
+          f"K1 {counts['fused_encoder_layer']}, K2 {counts['fused_encoder_layer_cls']}, "
+          f"K5-fwd {counts[K5[0]]}; max |dlogit| vs f32 path {max_abs:.6g}; argmax agreement "
           f"{agree.mean().item():.4f} (confident rows: {agree_conf:.4f} over "
           f"{int(confident.sum())})", flush=True)
     if not max_abs < LOGIT_GATE:
         raise AssertionError(f"{label}: bf16 logits diverge from the f32 path")
     if agree_conf < AGREE_GATE:
         raise AssertionError(f"{label}: argmax diverges on confident rows")
+    del ref_model, ref_serve
+    torch.cuda.empty_cache()
     return {"counts": counts, "max_abs": max_abs, "model": model, "exp": exp, "stats": stats,
             "raw_embed": model.raw_stats is not None}
 
@@ -345,6 +441,33 @@ def train_experiment(cfg, batch: int) -> ExperimentConfig:
                             train=TrainConfig(batch_size=batch, learning_rate=1e-3))
 
 
+def train_steps(label: str, exp, model, pre, frames, labels, want: dict, steps: int) -> dict:
+    """`steps` make_train_step steps on one batch. The training kernels'
+    launch counters (K3, K4, K5) are reset just before each step and read
+    just after: every step must launch exactly `want`. The loss must stay
+    finite and end below where it started. Returns the launches summed."""
+    step = make_train_step(make_optimizer(exp.train), exp.train.label_smoothing, pre)
+    state = create_train_state(model, exp.train)
+    counts = {k: 0 for k in want}
+    losses = []
+    for i in range(steps):
+        flt.reset_launches()
+        fa.reset_launches()
+        state, metrics = step(state, frames, labels, exp.train.dropout_seed)
+        losses.append(float(metrics["loss"]))
+        got = {**flt.launches, **fa.launches}
+        if got != want:
+            raise AssertionError(f"{label} train step {i} launched {got}, expected {want}")
+        counts = {k: counts[k] + got[k] for k in counts}
+    print(f"  launches over {steps} steps: {counts}; loss step 1 {losses[0]:.6g}, step "
+          f"{steps // 2} {losses[steps // 2 - 1]:.6g}, step {steps} {losses[-1]:.6g}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: training loss did not fall: {losses[0]} -> {losses[-1]}")
+    return counts
+
+
 def train_check(label: str, cfg, stats, kernels, device) -> dict:
     """20 train steps of a flagship through the training kernels `kernels`
     (K3 or K4, the other never launching), then the gradient of one
@@ -354,38 +477,19 @@ def train_check(label: str, cfg, stats, kernels, device) -> dict:
     print(f"phase train: {label}, 20 make_train_step steps, B=256, lr 1e-3", flush=True)
     exp = train_experiment(cfg, 256)
     model, pre = build_forward_and_preprocess(
-        exp, AMCModel(cfg, generator=torch.Generator().manual_seed(0)), stats)
-    model.to(device)
+        exp, AMCModel(cfg, generator=torch.Generator().manual_seed(0)), stats, device)
     init = {k: v.clone() for k, v in model.state_dict().items()}
     gen = torch.Generator().manual_seed(5)
     frames = torch.randn((256, FRAME_LEN, 2), generator=gen).to(device)
     labels = torch.randint(0, cfg.num_classes, (256,), generator=gen).to(device)
-    step = make_train_step(make_optimizer(exp.train), exp.train.label_smoothing, pre)
-    state = create_train_state(model, exp.train)
     n = cfg.n_layers
     others = K4 if kernels == K3 else K3
-    want = {kernels[0]: n, kernels[1]: n, others[0]: 0, others[1]: 0}
-
-    counts = {k: 0 for k in flt.launches}
-    losses = []
-    for i in range(20):
-        flt.reset_launches()
-        state, metrics = step(state, frames, labels, exp.train.dropout_seed)
-        losses.append(float(metrics["loss"]))
-        got = dict(flt.launches)
-        if got != want:
-            raise AssertionError(f"{label} train step {i} launched {got}, expected {want}")
-        counts = {k: counts[k] + got[k] for k in counts}
-    print(f"  launches over 20 steps: {counts}; loss step 1 {losses[0]:.6g}, step 10 "
-          f"{losses[9]:.6g}, step 20 {losses[-1]:.6g}", flush=True)
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite training loss: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"training loss did not fall: {losses[0]} -> {losses[-1]}")
+    want = {kernels[0]: n, kernels[1]: n, others[0]: 0, others[1]: 0, K5[0]: 0, K5[1]: 0}
+    counts = train_steps(label, exp, model, pre, frames, labels, want, 20)
 
     cfg0 = dataclasses.replace(cfg, drop_prob=0.0)
-    fused, pre0 = build_forward_and_preprocess(train_experiment(cfg0, 256), cfg0, stats)
-    fused.to(device).load_state_dict(init)
+    fused, pre0 = build_forward_and_preprocess(train_experiment(cfg0, 256), cfg0, stats, device)
+    fused.load_state_dict(init)
     inputs = pre0(frames)
     flt.reset_launches()
     g_fused = flat_grad(fused, inputs, labels, TRAIN_SEED)
@@ -397,8 +501,9 @@ def train_check(label: str, cfg, stats, kernels, device) -> dict:
     finally:
         del os.environ["VITIQ_FUSED_TRAIN"]
     ref_cfg = dataclasses.replace(cfg0, numerics="reference")
-    ref, ref_pre = build_forward_and_preprocess(train_experiment(ref_cfg, 256), ref_cfg, stats)
-    ref.to(device).load_state_dict(init)
+    ref, ref_pre = build_forward_and_preprocess(train_experiment(ref_cfg, 256), ref_cfg, stats,
+                                                device)
+    ref.load_state_dict(init)
     g_ref = flat_grad(ref, ref_pre(frames), labels, TRAIN_SEED)
     cos_plain = torch.nn.functional.cosine_similarity(g_fused, g_plain, dim=0).item()
     cos_f32 = torch.nn.functional.cosine_similarity(g_fused, g_ref, dim=0).item()
@@ -410,6 +515,53 @@ def train_check(label: str, cfg, stats, kernels, device) -> dict:
     return {"counts": counts, "stats": stats}
 
 
+def conv1d_train_check(device, batch: int = 64, steps: int = 20, grad_batch: int = 8) -> dict:
+    """20 train steps of the conv1d flagship (1025 tokens) at B=64 on raw
+    frames through the fused raw embedding: the fused training stack turns
+    the shape down, so every layer is a plain layer rematerialized in the
+    backward (VITIQ_TRAIN_REMAT auto) with K5 as its attention. Every step
+    must launch K5-fwd 12 times (6 forward, 6 recompute) and K5-bwd 6 times,
+    K3 and K4 never; the loss must stay finite and fall. Then one step's
+    gradient at dropout 0 against the f32 `reference` path at B=8."""
+    cfg = flagship_conv1d_config("tpu")
+    n = cfg.n_layers
+    print(f"phase train: conv1d flagship ({cfg.num_tokens} tokens), {steps} make_train_step "
+          f"steps, B={batch}, lr 1e-3, dropout {cfg.drop_prob}", flush=True)
+    exp = train_experiment(cfg, batch)
+    model, pre = build_forward_and_preprocess(
+        exp, AMCModel(cfg, generator=torch.Generator().manual_seed(0)), RAW_STATS, device)
+    if model.raw_stats is None:
+        raise AssertionError("the conv1d flagship must train through the fused raw embedding")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator().manual_seed(5)
+    frames = torch.randn((batch, FRAME_LEN, 2), generator=gen).to(device)
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen).to(device)
+    want = {K5[0]: 2 * n, K5[1]: n, **{k: 0 for k in flt.launches}}
+    counts = train_steps("conv1d flagship", exp, model, pre, frames, labels, want, steps)
+    del model
+    torch.cuda.empty_cache()
+
+    cfg0 = dataclasses.replace(cfg, drop_prob=0.0)
+    fused, pre0 = build_forward_and_preprocess(train_experiment(cfg0, grad_batch), cfg0,
+                                               RAW_STATS, device)
+    fused.load_state_dict(init)
+    fa.reset_launches()
+    g_fused = flat_grad(fused, pre0(frames[:grad_batch]), labels[:grad_batch], TRAIN_SEED)
+    if fa.launches[K5[1]] != n:
+        raise AssertionError("the dropout-free step did not run K5-bwd once per layer")
+    ref_cfg = dataclasses.replace(cfg0, numerics="reference")
+    ref, ref_pre = build_forward_and_preprocess(train_experiment(ref_cfg, grad_batch), ref_cfg,
+                                                RAW_STATS, device)
+    ref.load_state_dict(init)
+    g_ref = flat_grad(ref, ref_pre(frames[:grad_batch]), labels[:grad_batch], TRAIN_SEED)
+    cos_f32 = torch.nn.functional.cosine_similarity(g_fused, g_ref, dim=0).item()
+    print(f"  gradient cosine at dropout 0, B={grad_batch}: vs f32 reference path {cos_f32:.6f} (limit "
+          f"{COSINE_F32})", flush=True)
+    if not cos_f32 >= COSINE_F32:
+        raise AssertionError("conv1d: K5 training gradients diverge from the f32 path")
+    return {"counts": counts}
+
+
 def time_train_step(label: str, cfg, stats, batch: int, device, card: str, iters: int,
                     env=None) -> float:
     """ms per `make_train_step` step at `batch` (CUDA events after two warm-up
@@ -417,8 +569,7 @@ def time_train_step(label: str, cfg, stats, batch: int, device, card: str, iters
     os.environ.update(env or {})
     try:
         exp = train_experiment(cfg, batch)
-        model, pre = build_forward_and_preprocess(exp, cfg, stats)
-        model.to(device)
+        model, pre = build_forward_and_preprocess(exp, cfg, stats, device)
         gen = torch.Generator().manual_seed(6)
         frames = torch.randn((batch, FRAME_LEN, 2), generator=gen).to(device)
         labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen).to(device)
@@ -440,6 +591,50 @@ def time_train_step(label: str, cfg, stats, batch: int, device, card: str, iters
     del box, model
     torch.cuda.empty_cache()
     return ms
+
+
+def profile_train_step(label: str, cfg, stats, batch: int, device, card: str,
+                       steps: int = 3, top: int = 12) -> None:
+    """Where a train step's time goes: `torch.profiler` over `steps` steps
+    after two warm-up steps; the device's busy time (the sum of its kernels'
+    times: one stream) against the host clock gives the idle share, and the
+    kernels with the most device time are printed with their counts."""
+    exp = train_experiment(cfg, batch)
+    model, pre = build_forward_and_preprocess(exp, cfg, stats, device)
+    gen = torch.Generator().manual_seed(6)
+    frames = torch.randn((batch, FRAME_LEN, 2), generator=gen).to(device)
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen).to(device)
+    step = make_train_step(make_optimizer(exp.train), exp.train.label_smoothing, pre)
+    box = [create_train_state(model, exp.train)]
+
+    def one():
+        box[0] = step(box[0], frames, labels, exp.train.dropout_seed)[0]
+
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            one()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3 / steps
+    print(f"  {label} profile B={batch}, {steps} steps: host wall {wall_ms:.4f} ms/step "
+          f"(profiler on), device kernel time {busy_ms:.4f} ms/step, idle share "
+          f"{1 - busy_ms / wall_ms:.4f}  [{card}]", flush=True)
+    for e in sorted(kernels, key=device_us, reverse=True)[:top]:
+        print(f"    {device_us(e) / 1e3 / steps:9.4f} ms/step  {e.count // steps:4d}x  "
+              f"{e.key[:100]}", flush=True)
+    del box, model
+    torch.cuda.empty_cache()
 
 
 def time_train_layers(label: str, L: int, ffn: int, drop: float, device, card: str,
@@ -483,6 +678,154 @@ def time_train_layers(label: str, L: int, ffn: int, drop: float, device, card: s
     return t
 
 
+# --------------------------------------------------------------------------
+# bounds: the least time the card could take for a kernel's work
+# --------------------------------------------------------------------------
+
+def bound(flops: float, nbytes: float):
+    """(ms, "operations" or "bytes"): the larger of the FLOPs over the bf16
+    tensor-core peak and the compulsory bytes over the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def gemm_flops(rows: int, D: int, F: int, kv_rows=None) -> float:
+    """FLOPs of one layer's forward GEMMs for `rows` output rows: q for
+    `rows`, k and v for `kv_rows` (default `rows`), out-projection, FFN."""
+    kv_rows = rows if kv_rows is None else kv_rows
+    return 2.0 * rows * D * D + 4.0 * kv_rows * D * D + 2.0 * rows * D * D + 4.0 * rows * D * F
+
+
+def weight_bytes(D: int, F: int) -> float:
+    """The 12 layer operands: bf16 matrices, f32 vectors."""
+    return (4 * D * D + 2 * D * F) * 2.0 + (10 * D + F) * 4.0
+
+
+def layer_bounds(B: int, L: int, F: int, D: int = 128, H: int = 8) -> dict:
+    """Bounds of K1-K4 at [B, L, D] activations. Dropout and the LN and
+    softmax arithmetic add no tensor-core FLOPs; a backward's GEMMs are twice
+    the forward's (input and weight gradients), its attention 8 L^2 dh per
+    frame-head (dP, dV, dQ, dK)."""
+    M, dh = B * L, D // H
+    act = M * D * 2.0
+    fwd = gemm_flops(M, D, F) + 4.0 * B * H * L * L * dh
+    attn_bwd = 8.0 * B * H * L * L * dh
+    grads = (4 * D * D + 2 * D * F + 10 * D + F) * 4.0
+    stash = 3 * act + 2 * M * 4.0 + B * H * L * L * 2.0
+    return {
+        "k1": bound(fwd, 2 * act + weight_bytes(D, F)),
+        "k2": bound(gemm_flops(B, D, F, kv_rows=M) + 4.0 * B * H * L * dh,
+                    act + B * D * 2.0 + weight_bytes(D, F)),
+        "k3f": bound(fwd, 2 * act + weight_bytes(D, F)),
+        # the recompute regime: the forward again, then the gradients
+        "k3b": bound(fwd + 2 * gemm_flops(M, D, F) + attn_bwd,
+                     3 * act + grads + weight_bytes(D, F)),
+        "k4f": bound(fwd, 2 * act + stash + weight_bytes(D, F)),
+        # from the stash: qkv and the FFN hidden rebuilt, then the gradients
+        "k4b": bound(2 * gemm_flops(M, D, F) + 6.0 * M * D * D + 2.0 * M * D * F + attn_bwd,
+                     3 * act + stash + grads + weight_bytes(D, F)),
+    }
+
+
+def attention_bounds(B: int, L: int, D: int = 128, H: int = 8) -> dict:
+    """K5: forward 4 L^2 dh FLOPs per frame-head (Q K^T, P V), reading q, k, v
+    and writing out and the f32 lse; backward 10 L^2 dh (S recomputed, dP,
+    dV, dQ, dK), reading q, k, v, out, dout and the lse, writing dq, dk, dv."""
+    dh, act, lse = D // H, B * L * D * 2.0, B * H * L * 4.0
+    return {"k5f": bound(4.0 * B * H * L * L * dh, 4 * act + lse),
+            "k5b": bound(10.0 * B * H * L * L * dh, 8 * act + lse)}
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def time_attention(device, card: str, B: int = 256, L: int = CONV1D_L, H: int = 8) -> dict:
+    """K5-fwd and K5-bwd on one layer's attention at the conv1d train shape,
+    against their plain versions and against the yardstick
+    torch.nn.functional.scaled_dot_product_attention on [B, H, L, dh] bf16
+    (forward, and backward alone on a kept graph), which the port never
+    calls."""
+    gen = torch.Generator().manual_seed(10)
+    qkv = torch.randn((B, L, 384), generator=gen).to(device, torch.bfloat16)
+    dout = (0.1 * torch.randn((B, L, 128), generator=gen)).to(device, torch.bfloat16)
+    q, k, v = qkv.split(128, dim=-1)
+    with torch.no_grad():
+        out, lse = fa.fused_attention_fwd(q, k, v, H)
+        t = {
+            "k5f_ms": cuda_ms(lambda: fa.fused_attention_fwd(q, k, v, H), 20),
+            "k5f_plain_ms": cuda_ms(lambda: fa.attention_plain(q, k, v, H), 3, warmup=1),
+            "k5b_ms": cuda_ms(lambda: fa.fused_attention_bwd(q, k, v, out, lse, dout, H), 20),
+            "k5b_plain_ms": cuda_ms(lambda: fa.attention_bwd_reference(q, k, v, out, dout, H),
+                                    3, warmup=1),
+        }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    heads = [t_.reshape(B, L, H, 128 // H).transpose(1, 2).contiguous().requires_grad_(True)
+             for t_ in (q, k, v)]
+    dheads = dout.reshape(B, L, H, 128 // H).transpose(1, 2).contiguous()
+    with torch.no_grad():
+        t["sdpa_fwd_ms"] = cuda_ms(lambda: sdpa(*heads), 20)
+    o = sdpa(*heads)
+    t["sdpa_bwd_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(o, heads, dheads, retain_graph=True), 20)
+    t.update(attention_bounds(B, L, 128, H))
+    exps = B * H * L * L
+    t["sfu_ms"] = exps / (SFU_EXP2_PER_CLOCK_SM * N_SM * max_sm_clock_hz()) * 1e3
+    print(f"  K5 attention B={B} L={L} H={H} d_head {128 // H}: K5-fwd {t['k5f_ms']:.4f} ms vs "
+          f"plain {t['k5f_plain_ms']:.4f} ms vs SDPA {t['sdpa_fwd_ms']:.4f} ms (bound "
+          f"{t['k5f'][0]:.4f} ms by {t['k5f'][1]}); K5-bwd {t['k5b_ms']:.4f} ms vs plain "
+          f"{t['k5b_plain_ms']:.4f} ms vs SDPA backward {t['sdpa_bwd_ms']:.4f} ms (bound "
+          f"{t['k5b'][0]:.4f} ms by {t['k5b'][1]}); fwd+bwd K5 {t['k5f_ms'] + t['k5b_ms']:.4f} "
+          f"ms vs SDPA {t['sdpa_fwd_ms'] + t['sdpa_bwd_ms']:.4f} ms; {exps} exp2 per pass, "
+          f"{t['sfu_ms']:.4f} ms at {SFU_EXP2_PER_CLOCK_SM}/clock/SM and the max SM clock  "
+          f"[{card}]", flush=True)
+    del qkv, dout, q, k, v, out, lse, heads, dheads, o
+    torch.cuda.empty_cache()
+    return t
+
+
+def time_k1_library(name: str, L: int, ffn: int, device, card: str, batch: int = 4096) -> float:
+    """The yardstick for K1: torch.nn.TransformerEncoderLayer (post-norm,
+    ReLU, eps 1e-12, no dropout) in eval and no-grad bf16 on one layer's
+    weights, which the port never calls; prints whether PyTorch took its
+    fused fast path (the aten::_transformer_encoder_layer_fwd kernel) and its
+    largest difference from K1."""
+    layer = random_layers(1, ffn, seed=14, device=device)[0]
+    lib = torch.nn.TransformerEncoderLayer(128, 8, ffn, dropout=0.0, batch_first=True,
+                                           norm_first=False, layer_norm_eps=1e-12)
+    att = layer.attention
+    with torch.no_grad():
+        lib.self_attn.in_proj_weight.copy_(torch.cat([att.w_q.weight, att.w_k.weight,
+                                                      att.w_v.weight]))
+        lib.self_attn.in_proj_bias.copy_(torch.cat([att.w_q.bias, att.w_k.bias, att.w_v.bias]))
+        lib.self_attn.out_proj.weight.copy_(att.w_concat.weight)
+        lib.self_attn.out_proj.bias.copy_(att.w_concat.bias)
+        for mine, theirs in ((layer.ffn.linear1, lib.linear1), (layer.ffn.linear2, lib.linear2)):
+            theirs.weight.copy_(mine.weight)
+            theirs.bias.copy_(mine.bias)
+        for mine, theirs in ((layer.norm1, lib.norm1), (layer.norm2, lib.norm2)):
+            theirs.weight.copy_(mine.gamma)
+            theirs.bias.copy_(mine.beta)
+    lib = lib.to(device, torch.bfloat16).eval()
+    x = torch.randn((batch, L, 128), generator=torch.Generator().manual_seed(3))
+    x = x.to(device, torch.bfloat16)
+    with torch.no_grad():
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            y = lib(x)
+        fast = any("_transformer_encoder_layer_fwd" in e.key for e in prof.key_averages())
+        diff = (y.float() - fel.fused_encoder_layer(x, fel.layer_operands(layer, 8), 8).float())
+        ms = cuda_ms(lambda: lib(x), 20)
+    print(f"  {name} layer B={batch} L={L} F={ffn}: nn.TransformerEncoderLayer {ms:.4f} ms "
+          f"(fused fast path taken: {fast}; max |it - K1| {diff.abs().max().item():.6g})  "
+          f"[{card}]", flush=True)
+    del lib, x, y, diff
+    torch.cuda.empty_cache()
+    return ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a GPU",
@@ -503,24 +846,32 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     errs = check_kernels(device)
+    errs.update(check_attention_kernels(device))
 
     print("phase serve: ragged requests through Server, bf16 kernels vs f32 path", flush=True)
     vit = serve_check("vit flagship", flagship_vit_config("tpu"), STATS, device,
                       (1, 37, 256, 1000), (256, 1024))
     rawiq = serve_check("rawiq flagship", flagship_rawiq_config("tpu"), RAW_STATS, device,
                         (1, 37, 256, 1000), (256, 1024))
-    if vit["raw_embed"] or not rawiq["raw_embed"]:
-        raise AssertionError("the fused raw embedding must serve the rawIQ flagship only")
+    conv1d = serve_check("conv1d flagship", flagship_conv1d_config("tpu"), RAW_STATS, device,
+                         (1, 37, 256), (64, 256))
+    serve_check("conv1d flagship (plain layer loop, VITIQ_NO_FUSED_LAYER=1)",
+                flagship_conv1d_config("tpu"), RAW_STATS, device, (1, 37, 256), (64, 256),
+                k5_route=True)
+    if vit["raw_embed"] or not rawiq["raw_embed"] or not conv1d["raw_embed"]:
+        raise AssertionError("the fused raw embedding must serve the rawIQ arms only")
 
-    train_errs = check_train_kernels(device)
+    errs.update(check_train_kernels(device))
     vit_train = train_check("ViT flagship", flagship_vit_config("tpu"), STATS, K3, device)
     raw_train = train_check("rawIQ flagship", flagship_rawiq_config("tpu"), RAW_STATS, K4, device)
+    conv_train = conv1d_train_check(device)
 
     print(f"phase timing (CUDA events after warm-up) on {card}:", flush=True)
     times = {}
-    for name, L, ffn in (("vit", 129, 512), ("rawiq", 65, 1024)):
+    for name, L, ffn, B in (("vit", 129, 512, 4096), ("rawiq", 65, 1024, 4096),
+                            ("conv1d", CONV1D_L, 1024, 256)):
         ops = fel.layer_operands(random_layers(1, ffn, seed=13, device=device)[0], 8)
-        x = torch.randn((4096, L, 128), generator=torch.Generator().manual_seed(3))
+        x = torch.randn((B, L, 128), generator=torch.Generator().manual_seed(3))
         x = x.to(device, torch.bfloat16)
         with torch.no_grad():
             t = {
@@ -529,15 +880,27 @@ def main() -> int:
                 "k2_ms": cuda_ms(lambda: fel.fused_encoder_layer_cls(x, ops, 8), 20),
                 "k2_plain_ms": cuda_ms(lambda: fel.fused_layer_reference(x, ops, 8, 1), 10),
             }
+        t.update(layer_bounds(B, L, ffn))
         times[name] = t
-        print(f"  {name} layer B=4096 L={L} F={ffn}: K1 {t['k1_ms']:.4f} ms vs plain "
-              f"{t['k1_plain_ms']:.4f} ms; K2 {t['k2_ms']:.4f} ms vs plain "
-              f"{t['k2_plain_ms']:.4f} ms  [{card}]", flush=True)
-    del x
+        print(f"  {name} layer B={B} L={L} F={ffn}: K1 {t['k1_ms']:.4f} ms vs plain "
+              f"{t['k1_plain_ms']:.4f} ms (bound {t['k1'][0]:.4f} ms by {t['k1'][1]}); K2 "
+              f"{t['k2_ms']:.4f} ms vs plain {t['k2_plain_ms']:.4f} ms (bound "
+              f"{t['k2'][0]:.4f} ms by {t['k2'][1]})  [{card}]", flush=True)
+        del x
+        torch.cuda.empty_cache()
+    for name, L, ffn in (("vit", 129, 512), ("rawiq", 65, 1024)):
+        times[name]["k1_library_ms"] = time_k1_library(name, L, ffn, device, card)
     times["vit"].update(time_train_layers("vit", 129, 512, TRAIN_DROP, device, card, False))
     times["rawiq"].update(time_train_layers("rawiq", 65, 1024, RAW_DROP, device, card, True))
+    for name, L, ffn in (("vit", 129, 512), ("rawiq", 65, 1024)):
+        b = times[name]
+        print(f"  {name} train layer B=4096 bounds: K3-fwd {b['k3f'][0]:.4f} ms by {b['k3f'][1]}, "
+              f"K3-bwd {b['k3b'][0]:.4f} ms by {b['k3b'][1]}, K4-fwd {b['k4f'][0]:.4f} ms by "
+              f"{b['k4f'][1]}, K4-bwd {b['k4b'][0]:.4f} ms by {b['k4b'][1]}", flush=True)
+    times["conv1d"].update(time_attention(device, card))
 
     vit_cfg, raw_cfg = flagship_vit_config("tpu"), flagship_rawiq_config("tpu")
+    conv_cfg = flagship_conv1d_config("tpu")
     time_train_step("vit flagship (K3 kernels)", vit_cfg, STATS, 4096, device, card, 5)
     time_train_step("vit flagship (plain layers, VITIQ_FUSED_TRAIN=0)", vit_cfg, STATS, 4096,
                     device, card, 3, {"VITIQ_FUSED_TRAIN": "0"})
@@ -546,38 +909,56 @@ def main() -> int:
                     device, card, 5, {"VITIQ_TRAIN_STASH": "0"})
     time_train_step("rawiq flagship (plain layers, VITIQ_FUSED_TRAIN=0)", raw_cfg, RAW_STATS,
                     4096, device, card, 3, {"VITIQ_FUSED_TRAIN": "0"})
+    time_train_step("conv1d flagship (K5, remat auto)", conv_cfg, RAW_STATS, 256, device, card,
+                    5)
+    time_train_step("conv1d flagship (K5, VITIQ_TRAIN_REMAT=0)", conv_cfg, RAW_STATS, 256, device,
+                    card, 5, {"VITIQ_TRAIN_REMAT": "0"})
+    profile_train_step("conv1d flagship (K5, remat auto)", conv_cfg, RAW_STATS, 256, device, card)
 
-    for label, res in (("vit flagship", vit), ("rawiq flagship", rawiq)):
+    for label, res, batch in (("vit flagship", vit, 4096), ("rawiq flagship", rawiq, 4096),
+                              ("conv1d flagship", conv1d, 2048)):
         serve = build_serving_fn(res["exp"], res["model"], res["stats"], device)
-        time_serving(label + " (kernels)", serve, 4096, device, card)
+        time_serving(label + " (kernels)", serve, batch, device, card)
         os.environ["VITIQ_NO_FUSED_LAYER"] = "1"
         try:
-            time_serving(label + " (plain layer loop, VITIQ_NO_FUSED_LAYER=1)", serve, 4096,
+            time_serving(label + " (plain layer loop, VITIQ_NO_FUSED_LAYER=1)", serve, batch,
                          device, card)
         finally:
             del os.environ["VITIQ_NO_FUSED_LAYER"]
 
-    counts, k3, k4 = vit["counts"], vit_train["counts"], raw_train["counts"]
-    vt, rt = times["vit"], times["rawiq"]
+    counts, k3, k4, k5 = vit["counts"], vit_train["counts"], raw_train["counts"], conv_train["counts"]
+    vt, rt, ct = times["vit"], times["rawiq"], times["conv1d"]
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+
     kernels = [
-        {"name": "fused_encoder_layer (K1, full layers)", "route": "cuda", "source": SOURCE,
-         "replaces": f"{TPU_SOURCE}:717", "launches": counts["fused_encoder_layer"],
-         "max_abs_err": errs["k1"], "ms": vt["k1_ms"], "plain_ms": vt["k1_plain_ms"]},
-        {"name": "fused_encoder_layer_cls (K2, CLS row)", "route": "cuda", "source": SOURCE,
-         "replaces": f"{TPU_SOURCE}:920", "launches": counts["fused_encoder_layer_cls"],
-         "max_abs_err": errs["k2"], "ms": vt["k2_ms"], "plain_ms": vt["k2_plain_ms"]},
-        {"name": "fused_train_layer_fwd (K3-fwd)", "route": "cuda", "source": TRAIN_SOURCE,
-         "replaces": f"{TRAIN_TPU_SOURCE}:417", "launches": k3["fused_train_layer_fwd"],
-         "max_abs_err": train_errs["k3f"], "ms": vt["k3f_ms"], "plain_ms": vt["k3f_plain_ms"]},
-        {"name": "fused_train_layer_bwd (K3-bwd)", "route": "cuda", "source": TRAIN_SOURCE,
-         "replaces": f"{TRAIN_TPU_SOURCE}:674", "launches": k3["fused_train_layer_bwd"],
-         "max_abs_err": train_errs["k3b"], "ms": vt["k3b_ms"], "plain_ms": vt["k3b_plain_ms"]},
-        {"name": "fused_train_layer_fwd_stash (K4-fwd)", "route": "cuda", "source": TRAIN_SOURCE,
-         "replaces": f"{TRAIN_TPU_SOURCE}:478", "launches": k4["fused_train_layer_fwd_stash"],
-         "max_abs_err": train_errs["k4f"], "ms": rt["k4f_ms"], "plain_ms": rt["k4f_plain_ms"]},
-        {"name": "fused_train_layer_bwd_stash (K4-bwd)", "route": "cuda", "source": TRAIN_SOURCE,
-         "replaces": f"{TRAIN_TPU_SOURCE}:674", "launches": k4["fused_train_layer_bwd_stash"],
-         "max_abs_err": train_errs["k4b"], "ms": rt["k4b_ms"], "plain_ms": rt["k4b_plain_ms"]},
+        entry("fused_encoder_layer (K1, full layers)", SOURCE, f"{TPU_SOURCE}:717",
+              counts["fused_encoder_layer"], errs["k1"], vt["k1_ms"], vt["k1_plain_ms"], vt["k1"],
+              vt["k1_library_ms"]),
+        entry("fused_encoder_layer_cls (K2, CLS row)", SOURCE, f"{TPU_SOURCE}:920",
+              counts["fused_encoder_layer_cls"], errs["k2"], vt["k2_ms"], vt["k2_plain_ms"],
+              vt["k2"], None),
+        entry("fused_train_layer_fwd (K3-fwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:417",
+              k3["fused_train_layer_fwd"], errs["k3f"], vt["k3f_ms"], vt["k3f_plain_ms"],
+              vt["k3f"], None),
+        entry("fused_train_layer_bwd (K3-bwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:674",
+              k3["fused_train_layer_bwd"], errs["k3b"], vt["k3b_ms"], vt["k3b_plain_ms"],
+              vt["k3b"], None),
+        entry("fused_train_layer_fwd_stash (K4-fwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:478",
+              k4["fused_train_layer_fwd_stash"], errs["k4f"], rt["k4f_ms"], rt["k4f_plain_ms"],
+              rt["k4f"], None),
+        entry("fused_train_layer_bwd_stash (K4-bwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:674",
+              k4["fused_train_layer_bwd_stash"], errs["k4b"], rt["k4b_ms"], rt["k4b_plain_ms"],
+              rt["k4b"], None),
+        entry("fused_attention_fwd (K5-fwd)", ATTN_SOURCE, f"{ATTN_TPU_SOURCE}:62",
+              k5[K5[0]], errs["k5f"], ct["k5f_ms"], ct["k5f_plain_ms"], ct["k5f"],
+              ct["sdpa_fwd_ms"]),
+        entry("fused_attention_bwd (K5-bwd)", ATTN_SOURCE, f"{ATTN_TPU_SOURCE}:176",
+              k5[K5[1]], errs["k5b"], ct["k5b_ms"], ct["k5b_plain_ms"], ct["k5b"],
+              ct["sdpa_bwd_ms"]),
     ]
     for k in kernels:
         if k["launches"] <= 0:

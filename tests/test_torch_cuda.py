@@ -293,3 +293,94 @@ def test_stash_launch_counts_and_autograd(cuda):
     for layer in layers:
         for p in layer.parameters():
             assert p.grad is not None and p.grad.dtype == torch.float32
+
+
+# --------------------------------------------------------------------------
+# K5: the standalone packed attention, forward and backward
+# --------------------------------------------------------------------------
+
+def _qkv(cuda, B, L, seed, d=D):
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((B, L, 3 * d), generator=gen).to(cuda, torch.bfloat16)
+    dout = (0.1 * torch.randn((B, L, d), generator=gen)).to(cuda, torch.bfloat16)
+    return qkv, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx", [1, 17, 1025, 1040])
+@pytest.mark.parametrize("n_head", [8, 4, 2])  # d_head 16, 32, 64
+def test_attention_kernels_match_plain_versions(cuda, Lx, n_head):
+    """out at the one-layer tolerance, the lse within 1e-3 (f32 sums in
+    another order), dq, dk, dv each within GRAD_REL of the plain gradient in
+    the L2 norm, and the rows past L of the backward's padded buffers
+    exactly zero."""
+    from vitiq_torch.ops.cuda import flash_attention as fa
+
+    qkv, dout = _qkv(cuda, 3, Lx, Lx + n_head)
+    q, k, v = qkv.split(D, dim=-1)  # column slices of qkv, as the model passes them
+    out, lse = fa.fused_attention_fwd(q, k, v, n_head)
+    grads = fa.fused_attention_bwd(q, k, v, out, lse, dout, n_head)
+    torch.cuda.synchronize()
+    want, want_lse = fa.attention_plain(q, k, v, n_head)
+    _assert_close(out, want, LAYER_TOL)
+    assert lse.shape == want_lse.shape and (lse - want_lse).abs().max() <= 1e-3
+    for got, ref in zip(grads, fa.attention_bwd_reference(q, k, v, out, dout, n_head)):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - ref.float()).norm()
+        assert err <= GRAD_REL * ref.float().norm() + 1e-6, float(err)
+    lp = (Lx + 63) // 64 * 64
+    for got in grads:
+        padded = got.as_strided((3, lp, D), got.stride())
+        assert torch.equal(padded[:, Lx:], torch.zeros_like(padded[:, Lx:]))
+
+
+@pytest.mark.cuda
+def test_attention_kernels_read_strided_and_contiguous_inputs_alike(cuda):
+    from vitiq_torch.ops.cuda import flash_attention as fa
+
+    qkv, dout = _qkv(cuda, 4, 129, 3)
+    views = qkv.split(D, dim=-1)
+    dense = [t.contiguous() for t in views]
+    a = fa.fused_attention_fwd(*views, 8)
+    b = fa.fused_attention_fwd(*dense, 8)
+    ga = fa.fused_attention_bwd(*views, a[0], a[1], dout, 8)
+    gb = fa.fused_attention_bwd(*dense, b[0], b[1], dout, 8)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a + ga, b + gb))
+
+
+@pytest.mark.cuda
+def test_attention_launch_counts_and_autograd(cuda):
+    from vitiq_torch.ops.cuda import flash_attention as fa
+    from vitiq_torch.ops.numerics import TPU
+
+    qkv, dout = _qkv(cuda, 2, 65, 4)
+    qkv.requires_grad_(True)
+    fa.reset_launches()
+    out = fa.fused_attention(*qkv.split(D, dim=-1), 8, policy=TPU)
+    assert fa.launches == {"fused_attention_fwd": 1, "fused_attention_bwd": 0}
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert fa.launches == {"fused_attention_fwd": 1, "fused_attention_bwd": 1}
+    assert qkv.grad is not None and torch.isfinite(qkv.grad.float()).all()
+    # f32 on the card takes the plain split-head path, and launches nothing
+    fa.fused_attention(*qkv.detach().float().split(D, dim=-1), 8)
+    assert fa.launches == {"fused_attention_fwd": 1, "fused_attention_bwd": 1}
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from vitiq_torch.ops.cuda import flash_attention as fa
+
+    qkv, dout = _qkv(cuda, 2, 9, 5)
+    q, k, v = qkv.split(D, dim=-1)
+    with pytest.raises(ValueError, match="bf16"):
+        fa.fused_attention_fwd(q.float(), k, v, 8)
+    with pytest.raises(ValueError, match="d_head"):
+        fa.fused_attention_fwd(q, k, v, 16)  # d_head 8
+    with pytest.raises(ValueError, match="like q"):
+        fa.fused_attention_fwd(q, k[:, :4], v, 8)
+    out, lse = fa.fused_attention_fwd(q, k, v, 8)
+    with pytest.raises(ValueError, match="lse"):
+        fa.fused_attention_bwd(q, k, v, out, lse[:, :4], dout, 8)

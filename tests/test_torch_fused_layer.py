@@ -5,7 +5,11 @@ against the Pallas kernel run in interpret mode in f32 (atol 1e-4, the
 tolerance vitiq's own xpack test uses against the unfused layers). The CUDA
 kernels are compared with the plain version on the GPU in
 tests/test_torch_cuda.py, which imports no JAX so that it also runs on a
-GPU machine without it."""
+GPU machine without it.
+
+K9 (the key-tiled long-sequence stack) and K10 (the query-tiled one) are TPU
+schedules of K1's function; their interpret-mode runs at 520 tokens are
+held to the port's K1/K2 stack here, which closes them as mappings onto K1."""
 
 import jax
 import jax.numpy as jnp
@@ -137,3 +141,48 @@ def test_kernel_wrappers_take_plain_version_on_cpu_only():
         fel.fused_encoder_layer(meta, ops, H)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fel.fused_encoder_layer_cls(meta, ops, H)
+
+
+# K9 and K10 are TPU schedules of K1's function at long L (key tiling and
+# query tiling); the port computes them with K1 (and K2 for a CLS tail).
+LONG_L = 520
+
+
+def _long_case(seed):
+    trees, port = _layers([60 + seed, 61 + seed], f=256)
+    x = np.random.default_rng(seed).standard_normal((2, LONG_L, D)).astype(np.float32)
+    return trees, port, x
+
+
+def test_k9_key_tiled_stack_maps_onto_k1():
+    """K9 (`fused_encoder_layer_xpack_kt_stack`, interpret mode) against the
+    port's plain K1 stack: in f32 at atol 1e-4; in bf16 against the port's
+    f32 stack at the 0.05 gate the port's long-sequence path is held to
+    against the f32 path (K9 itself was looser than that on the TPU)."""
+    from vitiq.ops.pallas.serve_xpack_kt import fused_encoder_layer_xpack_kt_stack
+
+    trees, port, x = _long_case(0)
+    want = fel.fused_encoder_layer_stack(torch.from_numpy(x), port, H).numpy()
+    with pltpu.force_tpu_interpret_mode():
+        got = np.asarray(fused_encoder_layer_xpack_kt_stack(jnp.asarray(x), trees, H))
+        got16 = np.asarray(fused_encoder_layer_xpack_kt_stack(
+            jnp.asarray(x, jnp.bfloat16), trees, H).astype(jnp.float32))
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    assert np.abs(got16 - want).max() < 0.05
+
+
+@pytest.mark.parametrize("cls_only", [False, True])
+def test_k10_query_tiled_stack_maps_onto_k1(cls_only, monkeypatch):
+    """K10 (`fused_encoder_layer_v4long_stack`, interpret mode, query tiles
+    of 128 with a padded tail) against the port's plain K1/K2 stack in f32
+    at atol 1e-4."""
+    from vitiq.ops.pallas.fused_encoder_layer import fused_encoder_layer_v4long_stack
+
+    monkeypatch.setenv("VITIQ_V4_TQ", "128")
+    trees, port, x = _long_case(1)
+    want = fel.fused_encoder_layer_stack(torch.from_numpy(x), port, H, cls_only=cls_only).numpy()
+    with pltpu.force_tpu_interpret_mode():
+        got = np.asarray(fused_encoder_layer_v4long_stack(jnp.asarray(x), trees, H,
+                                                          cls_only=cls_only))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4)

@@ -103,7 +103,7 @@ def test_opt_outs_compute_the_same_logits(env, monkeypatch):
 def test_bucket_routing_pads_and_slices(numerics):
     exp, _, model, x = _setup("vit", numerics)
     serve = build_serving_fn(exp, model, STATS, "cpu")
-    server = Server(serve, frame_len=128, batch_sizes=(4, 16))
+    server = Server(serve, frame_len=128, batch_sizes=(4, 16), device="cpu")
     assert server.bucket(1) == 4 and server.bucket(5) == 16
     for b in (1, 4, 5):
         got = server.run(x[:b])

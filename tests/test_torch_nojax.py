@@ -1,10 +1,13 @@
-"""The port runs where JAX is absent: a fresh interpreter in which every
-`import jax` fails imports `vitiq_torch`, serves one batch and trains one
-epoch through the fused training stack (`fit`) on the CPU: a ViT on its
-preprocessed images, and a rawIQ model on raw frames through
-`build_forward_and_preprocess` (the fused raw embedding and the stash
-regime)."""
+"""The port runs where JAX and the JAX package are absent: a fresh
+interpreter in which every `import jax` and every `import vitiq` fails
+imports `vitiq_torch`, serves one batch and trains one epoch (`fit`) on the
+CPU: a ViT on its preprocessed images through the fused training stack, a
+rawIQ model on raw frames through `build_forward_and_preprocess` (the fused
+raw embedding and the stash regime), and a conv1d model through the plain
+layers with K5 as their attention. The port's sources, and `chip_smoke.py`,
+import neither."""
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -17,6 +20,9 @@ for name in [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxl
     del sys.modules[name]
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
+for name in [m for m in sys.modules if m == "vitiq" or m.startswith("vitiq.")]:
+    del sys.modules[name]
+sys.modules["vitiq"] = None
 
 import torch
 from vitiq_torch import ExperimentConfig, ModelConfig, DataConfig
@@ -30,12 +36,12 @@ cfg = ExperimentConfig(
     data=DataConfig(synthetic_frame_len=128))
 model = AMCModel(cfg.model, generator=torch.Generator().manual_seed(0))
 stats = {"i_mean": 0.0, "i_std": 1.0, "q_mean": 0.0, "q_std": 1.0}
-server = Server(build_serving_fn(cfg, model, stats, "cpu"), 128, (8,))
+server = Server(build_serving_fn(cfg, model, stats, "cpu"), 128, (8,), device="cpu")
 x = torch.randn((3, 128, 2), generator=torch.Generator().manual_seed(1))
 logits = server.run(x)
 assert logits.shape == (3, 4) and bool(torch.isfinite(logits).all())
 import numpy as np
-from vitiq.config import TrainConfig
+from vitiq_torch.config import TrainConfig
 from vitiq_torch.data import ArrayFeed
 from vitiq_torch.dsp.frontend import preprocess_batch_vit
 from vitiq_torch.ops import metrics
@@ -61,7 +67,7 @@ raw_cfg = ExperimentConfig(
                       ffn_hidden=128, seq_length=256, segment_size=16, numerics="tpu"),
     data=DataConfig(synthetic_frame_len=256), train=TrainConfig(batch_size=4, num_epochs=1))
 raw_stats = {"i_mean": 0.1, "i_std": 1.3, "q_mean": -0.2, "q_std": 0.9}
-model, pre = build_forward_and_preprocess(raw_cfg, raw_cfg.model, raw_stats)
+model, pre = build_forward_and_preprocess(raw_cfg, raw_cfg.model, raw_stats, device="cpu")
 assert model.raw_stats == raw_stats
 stash_calls = []
 real_stash = fused_layer_train.fused_train_layer_fwd_stash
@@ -71,7 +77,25 @@ res = fit(raw_cfg, model, (frames[:8], labels[:8]), ArrayFeed(frames[8:], labels
           preprocess_fn=pre, verbose=False)
 assert res.state.step == 2 and np.isfinite(res.history["train_loss"]).all()
 assert len(stash_calls) == 2, stash_calls
-leaked = sorted(m for m in sys.modules if m.startswith("jax") and sys.modules[m] is not None)
+
+# conv1d (129 tokens): the plain layers, K5's plain versions as attention
+from vitiq_torch.ops.cuda import flash_attention
+conv_cfg = ExperimentConfig(
+    model=ModelConfig(arm="rawiq", num_classes=4, d_model=64, n_head=4, n_layers=1,
+                      ffn_hidden=128, seq_length=128, embedding_type="conv1d",
+                      numerics="tpu"),
+    data=DataConfig(synthetic_frame_len=128), train=TrainConfig(batch_size=4, num_epochs=1))
+model, pre = build_forward_and_preprocess(conv_cfg, conv_cfg.model, raw_stats, device="cpu")
+k5_calls = []
+real_k5 = flash_attention.fused_attention_fwd
+flash_attention.fused_attention_fwd = lambda *a: k5_calls.append(1) or real_k5(*a)
+frames = rng.standard_normal((12, 128, 2)).astype(np.float32)
+res = fit(conv_cfg, model, (frames[:8], labels[:8]), ArrayFeed(frames[8:], labels[8:]),
+          preprocess_fn=pre, verbose=False)
+assert res.state.step == 2 and np.isfinite(res.history["train_loss"]).all()
+assert len(k5_calls) == 2, k5_calls  # one layer, two train steps; eval runs K1/K2
+leaked = sorted(m for m in sys.modules if m.startswith(("jax", "vitiq."))
+                and sys.modules[m] is not None)
 assert not leaked, leaked
 print("OK")
 """
@@ -84,11 +108,26 @@ def test_port_imports_and_serves_without_jax():
     assert proc.stdout.strip().endswith("OK")
 
 
-def test_port_sources_never_import_jax():
+def _sources():
+    return sorted((ROOT / "vitiq_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _offending_imports(pattern):
     offenders = []
-    for path in sorted((ROOT / "vitiq_torch").rglob("*.py")):
+    for path in _sources():
         for line in path.read_text().splitlines():
-            stripped = line.strip()
-            if stripped.startswith(("import jax", "from jax")):
-                offenders.append(f"{path.relative_to(ROOT)}: {stripped}")
+            if re.match(pattern, line):
+                offenders.append(f"{path.relative_to(ROOT)}: {line.strip()}")
+    return offenders
+
+
+def test_port_sources_never_import_jax():
+    offenders = _offending_imports(r"\s*(from|import)\s+jax(lib)?(\.|\s|$)")
+    assert not offenders, offenders
+
+
+def test_port_sources_never_import_vitiq():
+    """Nothing of the JAX package, not even a module that needs no JAX: the
+    port keeps its own copy (vitiq_torch/config.py)."""
+    offenders = _offending_imports(r"\s*(from|import)\s+vitiq(\.|\s|$)")
     assert not offenders, offenders

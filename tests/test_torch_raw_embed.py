@@ -152,8 +152,8 @@ def test_build_forward_and_preprocess_picks_vitiq_branch(name, numerics, env, mo
     exp = ExperimentConfig(model=cfg, data=DataConfig(synthetic_frame_len=cfg.seq_length))
     _, jax_pre = jax_runner.build_forward_and_preprocess(exp, STATS)
     fused = jax_pre(x) is x  # vitiq's identity preprocess
-    built, pre = build_forward_and_preprocess(exp, cfg, STATS)
-    given, pre2 = build_forward_and_preprocess(exp, model, STATS)
+    built, pre = build_forward_and_preprocess(exp, cfg, STATS, device="cpu")
+    given, pre2 = build_forward_and_preprocess(exp, model, STATS, device="cpu")
     assert given is model
     xt = torch.from_numpy(x)
     for m, p in ((built, pre), (given, pre2)):

@@ -8,8 +8,18 @@ The layout mirrors `vitiq/`: the counterpart of `vitiq/models/encoder.py` is
 reference PyTorch checkpoint's own (`vitiq/interop.py`), so reference `.pth`
 files load with a plain `load_state_dict`.
 
-Run-time imports stay free of JAX: the only part of `vitiq` imported here is
-`vitiq.config`, which needs the standard library alone.
+The port imports nothing of `vitiq` (and so no JAX): what it needs of a
+`vitiq` module it keeps as its own copy (`vitiq_torch/config.py` copies
+`vitiq/config.py`). Only the tests import both packages.
+
+Devices: the entry points a user calls run on the card unless the caller
+asks for another device -- `serve.build_forward_and_preprocess(...,
+device="cuda")`, `serve.Server(..., device="cuda")`, and
+`serve.build_serving_fn(..., device)` with its device required; they raise
+where CUDA is absent and never fall back to the CPU (pass ``device="cpu"``
+for a run on the host). The modules (`AMCModel`, `Encoder`, `EncoderLayer`)
+keep PyTorch's ``device=None`` constructor idiom instead: a module is built
+where its caller says, on the CPU by default, like any `torch.nn.Module`.
 
 Ported so far: numerics policies, attention, the encoder layers,
 embeddings, encoder, classifier heads, the ViT / rawIQ front-ends,
@@ -18,7 +28,10 @@ encoder-layer kernels (`csrc/fused_encoder_layer.cu`) for serving; the loss
 and metrics, clip + AdamW, the plateau and early-stopping controllers, the
 in-RAM feed, the train and eval steps and `fit`, and the CUDA port of the
 fused training layer, forward and backward (`csrc/fused_layer_train.cu`),
-for training.
+for training; the standalone packed attention, forward and flash backward
+(`csrc/flash_attention.cu`, K5), which every plain layer runs under `tpu`
+numerics (the conv1d arm's 1025 tokens in training, with each layer
+rematerialized above 512 tokens).
 """
 
 from vitiq_torch.config import (  # noqa: F401
@@ -26,6 +39,7 @@ from vitiq_torch.config import (  # noqa: F401
     ExperimentConfig,
     ModelConfig,
     TrainConfig,
+    flagship_conv1d_config,
     flagship_rawiq_config,
     flagship_vit_config,
 )

@@ -52,7 +52,8 @@
 //       are independent blocks, so neither the block-diagonal packing (xpack,
 //       K13) nor the per-head chain (chain) nor key tiling (kt, K9) has a
 //       counterpart; a frame-head's K/V fit shared memory up to ~2.9K
-//       tokens at d_head 16 (~1.6K at d_head 32).
+//       tokens at d_head 16 (~1.6K at d_head 32); checked against the plain
+//       version on the card at the conv1d arm's 1025 tokens.
 //   VITIQ_V3_PACK (batch packing), VITIQ_V3_G / _LPC (frames per block,
 //       layers per call)                          -> one block per frame-head;
 //       one host call per layer.

@@ -17,7 +17,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from vitiq.config import ModelConfig
+from vitiq_torch.config import ModelConfig
 
 
 def _t(a) -> torch.Tensor:

@@ -7,6 +7,10 @@
   head is registered as ``mlp_head.0`` / ``mlp_head.1``, the reference's
   ``nn.Sequential`` keys.
 
+The plain layers' attention is K5 (`fused_attention`) under `tpu` numerics
+and the split-head `scaled_dot_product_attention` under `reference`, as
+`make_forward` picks it; only a packed one admits the fused layer stacks.
+
 Logits are rounded to the compute dtype by the head's ``cast_output`` and
 returned as f32.
 
@@ -24,9 +28,11 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from vitiq.config import ModelConfig
+from vitiq_torch.config import ModelConfig
 from vitiq_torch.models.encoder import Encoder
 from vitiq_torch.models.layers import Linear, layer_norm
+from vitiq_torch.ops.attention import scaled_dot_product_attention
+from vitiq_torch.ops.cuda.flash_attention import fused_attention
 from vitiq_torch.ops.numerics import policy_for
 
 HEAD_LN_EPS = 1e-5  # the rawIQ head is a torch nn.LayerNorm (default eps)
@@ -57,6 +63,10 @@ class AMCModel(nn.Module):
         self.cfg = cfg
         self.raw_stats = raw_stats
         self.policy = policy_for(cfg.numerics)
+        # as `make_forward`: K5 under the bf16 `tpu` numerics, the plain
+        # split-head attention under `reference`
+        self.attention_fn = (fused_attention if cfg.numerics == "tpu"
+                             else scaled_dot_product_attention)
         self.encoder = Encoder(cfg, device, generator)
         head = Linear(cfg.d_model, cfg.num_classes, device, generator)
         if cfg.arm == "vit":
@@ -73,7 +83,8 @@ class AMCModel(nn.Module):
         """In training, `generator` draws the dropout of the plain paths and
         `seed` (the step's int32 seed) that of the fused training kernels."""
         x = self.encoder(src, self.policy, cls_only_fused=self.cls_pooling,
-                         generator=generator, seed=seed, raw_stats=self.raw_stats)
+                         generator=generator, seed=seed, raw_stats=self.raw_stats,
+                         attention_fn=self.attention_fn)
         feat = x[:, 0] if self.cls_pooling else x.mean(dim=1)
         if self.cfg.arm == "vit":
             logits = self.mlp_head(feat, self.policy)

@@ -9,8 +9,10 @@
 With ``raw_stats`` (the i/q mean and std), `src` is the raw [B, L, 2] frame
 batch and the first three lines are one GEMM (`models/raw_embed.py`).
 
-Dispatch, without a mask and under a bf16 policy (on a CUDA tensor the
-hand-written kernels, on a CPU tensor their plain PyTorch versions):
+Dispatch, without a mask, under a bf16 policy and with a packed
+`attention_fn` (K5's `fused_attention`, which `AMCModel` picks under `tpu`
+numerics, as `make_forward` does) -- the fused families, on a CUDA tensor
+the hand-written kernels, on a CPU tensor their plain PyTorch versions:
 * training, given the step's dropout seed, with ``VITIQ_FUSED_TRAIN`` not
   ``0`` and shapes the kernels take (`fused_train_supported`): the fused
   training stack (`vitiq_torch.ops.cuda.fused_layer_train`: K4, the stash
@@ -21,18 +23,24 @@ hand-written kernels, on a CPU tensor their plain PyTorch versions):
   and the encoder returns [B, 1, D]. Opt-outs, as in `vitiq`:
   ``VITIQ_NO_FUSED_LAYER=1`` runs the plain layer loop, ``VITIQ_CLS_ONLY=0``
   computes the full last layer.
-Everything else runs the plain layers, their dropout drawn from `generator`.
+Everything else runs the plain layers with `attention_fn` (under `tpu`, K5
+for every layer's attention: the conv1d arm's 1025 tokens in training, which
+`fused_train_supported` turns down, and ``VITIQ_NO_FUSED_LAYER=1`` in eval),
+their dropout drawn from `generator`. In training above 512 tokens each plain
+layer is rematerialized (`use_remat`, ``VITIQ_TRAIN_REMAT``), as the JAX
+encoder does with `jax.checkpoint`.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from vitiq.config import ModelConfig
+from vitiq_torch.config import ModelConfig
 from vitiq_torch.models.embeddings import (
     PatchEmbedding2d,
     SequenceEmbedding,
@@ -40,6 +48,7 @@ from vitiq_torch.models.embeddings import (
 )
 from vitiq_torch.models.layers import EncoderLayer, dropout
 from vitiq_torch.models.raw_embed import fused_raw_embed_apply
+from vitiq_torch.ops.attention import scaled_dot_product_attention
 from vitiq_torch.ops.cuda.fused_encoder_layer import fused_encoder_layer_stack
 from vitiq_torch.ops.cuda.fused_layer_train import fused_train_layer_stack, fused_train_supported
 from vitiq_torch.ops.numerics import Policy
@@ -91,34 +100,78 @@ class Encoder(nn.Module):
                 cls_only_fused: bool = False,
                 generator: Optional[torch.Generator] = None,
                 seed: Optional[int] = None,
-                raw_stats: Optional[Dict[str, float]] = None) -> torch.Tensor:
+                raw_stats: Optional[Dict[str, float]] = None,
+                attention_fn: Callable = scaled_dot_product_attention) -> torch.Tensor:
         """The full token sequence [B, L, D], or [B, 1, D] when the fused path
         computes the CLS row only (``cls_only_fused``). `seed` is the training
         step's int32 dropout seed for the fused training stack. With
-        `raw_stats`, `src` is the raw [B, L, 2] frame batch."""
+        `raw_stats`, `src` is the raw [B, L, 2] frame batch. `attention_fn`
+        is the plain layers' attention (see `EncoderLayer`)."""
         cfg = self.cfg
         if raw_stats is not None:
             x = fused_raw_embed_apply(self, src, cfg, raw_stats, policy)
         else:
             x = self.embed(src, policy)
         x = dropout(x, cfg.drop_prob, self.training, generator)
+        fused_family = (policy.compute_dtype == torch.bfloat16
+                        and getattr(attention_fn, "packed_layout", False))
         if (self.training
                 and seed is not None
                 and mask is None
-                and policy.compute_dtype == torch.bfloat16
+                and fused_family
                 and os.environ.get("VITIQ_FUSED_TRAIN", "1") != "0"
                 and fused_train_supported(x.shape[1], cfg.d_model, cfg.ffn_hidden, cfg.n_head)):
             return fused_train_layer_stack(policy.cast_compute(x), list(self.layers),
                                            cfg.n_head, cfg.drop_prob, seed)
         if (not self.training
                 and mask is None
-                and policy.compute_dtype == torch.bfloat16
+                and fused_family
                 and os.environ.get("VITIQ_NO_FUSED_LAYER") != "1"):
             cls_only = (cls_only_fused
                         and os.environ.get("VITIQ_CLS_ONLY", "1") != "0")
             return fused_encoder_layer_stack(policy.cast_compute(x),
                                              list(self.layers), cfg.n_head,
                                              cls_only=cls_only)
+        kwargs = dict(mask=mask, policy=policy, attention_fn=attention_fn)
+        if use_remat(self.training, x.shape[1]):
+            for layer in self.layers:
+                x = _checkpointed(layer, x, generator, kwargs)
+            return x
         for layer in self.layers:
-            x = layer(x, mask=mask, policy=policy, generator=generator)
+            x = layer(x, generator=generator, **kwargs)
         return x
+
+
+def use_remat(train: bool, seq_len: int) -> bool:
+    """``VITIQ_TRAIN_REMAT`` as the JAX encoder reads it: ``auto`` (default)
+    rematerializes each plain layer in training above 512 tokens, ``1``
+    always, ``0`` never."""
+    env = os.environ.get("VITIQ_TRAIN_REMAT", "auto")
+    return train and (env == "1" or (env == "auto" and seq_len > 512))
+
+
+def _checkpointed(layer, x, generator, kwargs):
+    """One plain layer under `torch.utils.checkpoint` (the counterpart of
+    `jax.checkpoint`): its activations are dropped after the forward and
+    recomputed in the backward. `checkpoint` replays the default CPU and CUDA
+    RNG states, not an explicit generator, and the layer draws its dropout
+    masks from `generator`: its state is taken before the layer, the
+    recompute starts from it and so draws the forward's masks, and the
+    generator is handed back where the recompute found it."""
+    if generator is None:
+        return checkpoint(layer, x, use_reentrant=False, **kwargs)
+    state = generator.get_state()
+    forward_done = []
+
+    def run(inp):
+        if not forward_done:
+            forward_done.append(True)
+            return layer(inp, generator=generator, **kwargs)
+        caller = generator.get_state()
+        generator.set_state(state)
+        try:
+            return layer(inp, generator=generator, **kwargs)
+        finally:
+            generator.set_state(caller)
+
+    return checkpoint(run, x, use_reentrant=False)

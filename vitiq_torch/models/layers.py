@@ -4,7 +4,9 @@ Reference numerics, as in `vitiq`:
   * LayerNorm: biased variance, eps=1e-12, affine gamma/beta, statistics in
     f32; the output dtype is the residual-stream dtype of the policy.
   * MultiHeadAttention: four Linear(d, d) projections with bias, one fused
-    QKV GEMM, -10000 mask fill, no attention dropout.
+    QKV GEMM, -10000 mask fill, no attention dropout. Its `attention_fn`, as
+    `mha_apply`'s: one with ``packed_layout`` (K5's `fused_attention`) takes
+    [B, L, D] q, k, v and `n_head`, any other the split heads [B, H, L, dh].
   * PositionwiseFeedForward: Linear -> ReLU -> Dropout -> Linear.
   * EncoderLayer: post-norm, dropout before each residual add.
 
@@ -17,7 +19,7 @@ CPU from an optional `torch.Generator`.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -101,7 +103,8 @@ class MultiHeadAttention(nn.Module):
         self.w_concat = Linear(d_model, d_model, device, generator)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                policy: Policy = REFERENCE) -> torch.Tensor:
+                policy: Policy = REFERENCE,
+                attention_fn: Callable = scaled_dot_product_attention) -> torch.Tensor:
         """Self-attention (q = k = v = x); one [D, 3D] QKV GEMM."""
         B, L, D = x.shape
         d_head = D // self.n_head
@@ -109,13 +112,14 @@ class MultiHeadAttention(nn.Module):
         b_qkv = torch.cat([self.w_q.bias, self.w_k.bias, self.w_v.bias])
         qkv = policy.cast_output(policy.dot(x, w_qkv) + b_qkv)
         q, k, v = qkv.split(D, dim=-1)
+        if getattr(attention_fn, "packed_layout", False):
+            out = attention_fn(q, k, v, self.n_head, mask=mask, policy=policy)
+        else:
+            def split(t):  # [B, L, D] -> [B, H, L, Dh]
+                return t.reshape(B, L, self.n_head, d_head).transpose(1, 2)
 
-        def split(t):  # [B, L, D] -> [B, H, L, Dh]
-            return t.reshape(B, L, self.n_head, d_head).transpose(1, 2)
-
-        out = scaled_dot_product_attention(split(q), split(k), split(v),
-                                           mask=mask, policy=policy)
-        out = out.transpose(1, 2).reshape(B, L, D)
+            out = attention_fn(split(q), split(k), split(v), mask=mask, policy=policy)
+            out = out.transpose(1, 2).reshape(B, L, D)
         return self.w_concat(out, policy)
 
 
@@ -152,12 +156,13 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 policy: Policy = REFERENCE,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                attention_fn: Callable = scaled_dot_product_attention) -> torch.Tensor:
         train = self.training
         # residual stream: f32 under the reference policy, the compute dtype
         # (bf16) under the TPU policy
         stream = None if policy.compute_dtype == torch.float32 else policy.compute_dtype
-        attn = self.attention(x, mask=mask, policy=policy)
+        attn = self.attention(x, mask=mask, policy=policy, attention_fn=attention_fn)
         x = self.norm1(dropout(attn, self.drop_prob, train, generator) + x,
                        out_dtype=stream)
         ffn = self.ffn(x, self.drop_prob, train, policy=policy, generator=generator)

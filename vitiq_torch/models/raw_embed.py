@@ -34,7 +34,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from vitiq.config import ModelConfig
+from vitiq_torch.config import ModelConfig
 from vitiq_torch.models.embeddings import sinusoidal_encoding
 from vitiq_torch.ops.numerics import Policy
 

@@ -42,6 +42,10 @@ SIGNATURES = {
     "vitiq_train_layer_bwd_workspace": ([_I] * 5, ctypes.c_size_t),
     "vitiq_train_layer_fwd_stash_workspace": ([_I] * 5, ctypes.c_size_t),
     "vitiq_train_layer_bwd_stash_workspace": ([_I] * 5, ctypes.c_size_t),
+    # q, k, v, out, lse; ldq, ldk, ldv; B, L, H, D; stream
+    "vitiq_attention_fwd": ([_P] * 5 + [_I] * 7 + [_P], _I),
+    # q, k, v, out, dout, lse, delta, dq, dk, dv; ldq, ldk, ldv; B, L, H, D; stream
+    "vitiq_attention_bwd": ([_P] * 10 + [_I] * 7 + [_P], _I),
     "vitiq_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -7,6 +7,12 @@ smallest bucket that holds it: the batch is padded with zero frames and the
 logits are sliced back. Frames are independent rows in the serving path, so
 padding never changes a real row's result. Exported (`torch.export`)
 artifacts are not part of this module yet.
+
+The entry points run on the card: `build_forward_and_preprocess` and
+`Server` take ``device="cuda"`` unless the caller passes another device
+(``device="cpu"`` for a run on the host, as the CPU tests do), and
+`build_serving_fn` takes its device as a required argument. Asking for the
+card where CUDA is absent raises; nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from typing import Callable, Dict, Sequence, Tuple, Union
 
 import torch
 
-from vitiq.config import ExperimentConfig, ModelConfig
+from vitiq_torch.config import ExperimentConfig, ModelConfig
 from vitiq_torch.dsp.frontend import preprocess_batch_rawiq, preprocess_batch_vit
 from vitiq_torch.models.amc import AMCModel
 from vitiq_torch.models.raw_embed import fused_raw_embed_enabled
@@ -34,22 +40,35 @@ def build_preprocess(cfg: ExperimentConfig, stats: Dict[str, float]) -> Callable
     return lambda x: preprocess_batch_rawiq(x, stats)
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; raises where a CUDA device is asked for
+    and CUDA is absent (no fallback to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} was asked for, but CUDA is not available; "
+                           "pass device='cpu' to run on the host")
+    return device
+
+
 def build_forward_and_preprocess(cfg: ExperimentConfig, model_or_cfg: Union[AMCModel, ModelConfig],
-                                 stats: Dict[str, float]) -> Tuple[AMCModel, Callable]:
-    """(model, preprocess) for the experiment. Where the fused raw embedding
-    applies (iq features at sps 1 and `fused_raw_embed_enabled`), the model
-    takes raw [B, L, 2] frames through it and preprocess is the identity;
-    otherwise the model takes `build_preprocess`'s output. Given a model,
-    sets its `raw_stats` accordingly and returns it; given a config, builds
-    the model."""
+                                 stats: Dict[str, float],
+                                 device="cuda") -> Tuple[AMCModel, Callable]:
+    """(model, preprocess) for the experiment, the model on `device`. Where
+    the fused raw embedding applies (iq features at sps 1 and
+    `fused_raw_embed_enabled`), the model takes raw [B, L, 2] frames through
+    it and preprocess is the identity; otherwise the model takes
+    `build_preprocess`'s output. Given a model, sets its `raw_stats`
+    accordingly, moves it to `device` and returns it; given a config, builds
+    the model there."""
+    device = resolve_device(device)
     fused = (cfg.data.sps <= 1 and cfg.data.features == "iq"
              and fused_raw_embed_enabled(cfg.model))
     raw_stats = dict(stats) if fused else None
     if isinstance(model_or_cfg, AMCModel):
-        model = model_or_cfg
+        model = model_or_cfg.to(device)
         model.raw_stats = raw_stats
     else:
-        model = AMCModel(model_or_cfg, raw_stats=raw_stats)
+        model = AMCModel(model_or_cfg, device=device, raw_stats=raw_stats)
     return model, ((lambda x: x) if fused else build_preprocess(cfg, stats))
 
 
@@ -58,9 +77,9 @@ def build_serving_fn(cfg: ExperimentConfig, model: AMCModel, stats: Dict[str, fl
     """Raw [B, frame_len, 2] f32 frames -> [B, num_classes] f32 logits on
     `device`, through `build_forward_and_preprocess`. Puts `model` on
     `device` in eval mode."""
-    device = torch.device(device)
-    model, pre = build_forward_and_preprocess(cfg, model, stats)
-    model.to(device).eval()
+    device = resolve_device(device)
+    model, pre = build_forward_and_preprocess(cfg, model, stats, device)
+    model.eval()
 
     @torch.no_grad()
     def serve(x) -> torch.Tensor:
@@ -71,17 +90,18 @@ def build_serving_fn(cfg: ExperimentConfig, model: AMCModel, stats: Dict[str, fl
 
 
 class Server:
-    """Bucketed serving over a serving function."""
+    """Bucketed serving over a serving function; requests are padded on
+    `device` (the serving function's)."""
 
     def __init__(self, serve_fn: Callable[[torch.Tensor], torch.Tensor], frame_len: int,
-                 batch_sizes: Sequence[int] = (256, 8192), device="cpu"):
+                 batch_sizes: Sequence[int] = (256, 8192), device="cuda"):
         sizes = sorted(set(int(b) for b in batch_sizes))
         if not sizes or sizes[0] <= 0:
             raise ValueError(f"batch_sizes must be positive, got {list(batch_sizes)}")
         self.serve_fn = serve_fn
         self.frame_len = frame_len
         self.batch_sizes = sizes
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def bucket(self, b: int) -> int:
         for cand in self.batch_sizes:

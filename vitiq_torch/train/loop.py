@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from vitiq.config import ExperimentConfig
+from vitiq_torch.config import ExperimentConfig
 from vitiq_torch.data.feeds import DataFeed, as_feed
 from vitiq_torch.ops.metrics import (
     accuracy,

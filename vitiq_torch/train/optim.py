@@ -20,7 +20,7 @@ from typing import Any, Callable, List, NamedTuple, Sequence, Tuple
 import torch
 from torch import nn
 
-from vitiq.config import TrainConfig
+from vitiq_torch.config import TrainConfig
 
 
 class TrainState(NamedTuple):
