@@ -16,9 +16,10 @@ which raises (exit code 1) on failure:
    |plain|), and the five K1 layers as one stack (6e-2 + 3.2e-2 * |plain|);
    see LAYER_TOL and STACK_TOL. Then K5-fwd and K5-bwd (the standalone
    packed attention) against their plain versions at B=64, L 17 and 1025
-   (d_head 16) and L 1025 at d_head 32: out within LAYER_TOL, dq, dk, dv each
-   within GRAD_REL in the L2 norm (max |difference| printed), the padded
-   rows of the backward's tile buffers exactly zero.
+   (d_head 16) and L 1025 at d_head 32: out within GRAD_REL in the L2 norm and
+   elementwise within K5_OUT_TOL (scaled to the output's rms), the f32
+   log-sum-exp within K5_LSE_ATOL, dq, dk, dv each within GRAD_REL in the L2
+   norm (max |difference| printed).
 4. serve: the ViT flagship (d128/L6/H8, bf16 `tpu` numerics, seeded random
    weights) answers ragged requests of 1, 37, 256 and 1000 raw [B, 1024, 2]
    frames through `Server` with buckets (256, 1024). Every launch counter is
@@ -116,6 +117,14 @@ LOGIT_GATE, AGREE_GATE = 0.05, 0.99
 # plain version's, from operands whose bf16 roundings may flip: each within
 # 1% of the plain gradient in the L2 norm.
 GRAD_REL = 1e-2
+# K5-fwd's out, |kernel - plain| <= 0.08 * rms(plain) + 1.6e-2 * |plain|: an
+# output of attention over L keys of unit-variance scores has an rms near
+# sqrt(e / L) (~0.05 at L=1025), so the floor follows it, while the relative
+# part keeps LAYER_TOL's two bf16 ulps. The f32 log-sum-exp (log2 units) sums
+# the same f32 p in another order: within 1e-3 (a dropped key or a denominator
+# a few tenths of a percent off moves it more).
+K5_OUT_TOL = (0.08, 1.6e-2)
+K5_LSE_ATOL = 1e-3
 COSINE_PLAIN, COSINE_F32 = 0.999, 0.995
 TRAIN_DROP, TRAIN_SEED = 0.1, 1234
 STATS = {"i_mean": 0.0, "i_std": 1.0, "q_mean": 0.0, "q_std": 1.0}
@@ -226,13 +235,32 @@ def check_kernels(device, conv1d_batch: int = 64) -> dict:
     return errs
 
 
+def check_rel(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want|| <= GRAD_REL (printed with max |difference|);
+    returns the max |difference|."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: bad kernel output {tuple(got.shape)}")
+    rel = ((got - want).norm() / want.norm()).item()
+    max_abs = (got - want).abs().max().item()
+    print(f"  {label}: ||kernel - plain|| / ||plain|| = {rel:.6g} (limit {GRAD_REL}), "
+          f"max |kernel - plain| = {max_abs:.6g}, max |plain| = {want.abs().max().item():.6g}",
+          flush=True)
+    if not rel <= GRAD_REL:
+        raise AssertionError(f"{label}: kernel disagrees with the plain version")
+    return max_abs
+
+
 def check_attention_kernels(device, B: int = 64) -> dict:
     """K5-fwd and K5-bwd against their plain versions on the same bf16
     inputs (q, k, v the column slices of one [B, L, 3D] qkv, as the model
-    passes them): out within LAYER_TOL, dq, dk, dv each within GRAD_REL of
-    the plain gradient in the L2 norm, and the rows past L of the backward's
-    padded buffers (whole 64-row key tiles) exactly zero. Returns the largest
-    difference of each kernel."""
+    passes them). K5-fwd: out within GRAD_REL of the plain output in the L2
+    norm and elementwise within K5_OUT_TOL (its atol a share of the plain
+    output's rms, which falls as 1/sqrt(L): a tolerance fixed at LAYER_TOL's
+    3e-2 would pass a kernel that drops a key or mis-sums the denominator at
+    L=1025), and the f32 lse within K5_LSE_ATOL of the plain one. K5-bwd: dq,
+    dk, dv each within GRAD_REL of the plain gradient in the L2 norm. Returns
+    the largest difference of each kernel."""
     errs = {"k5f": 0.0, "k5b": 0.0}
     gen = torch.Generator().manual_seed(9)
     for L, n_head in ((17, 8), (CONV1D_L, 8), (CONV1D_L, 4)):
@@ -246,31 +274,24 @@ def check_attention_kernels(device, B: int = 64) -> dict:
             out, lse = fa.fused_attention_fwd(q, k, v, n_head)
             grads = fa.fused_attention_bwd(q, k, v, out, lse, dout, n_head)
             torch.cuda.synchronize()
-            want = fa.attention_reference(q, k, v, n_head)
-            errs["k5f"] = max(errs["k5f"], check_close(f"K5-fwd out (L={L}, d_head {dh})", out,
-                                                       want, LAYER_TOL))
+            want, want_lse = fa.attention_plain(q, k, v, n_head)
             want_grads = fa.attention_bwd_reference(q, k, v, out, dout, n_head)
-        lp = (L + fa.TILE - 1) // fa.TILE * fa.TILE
+        label = f"(L={L}, d_head {dh})"
+        rms = want.float().square().mean().sqrt().item()
+        tol = (K5_OUT_TOL[0] * rms, K5_OUT_TOL[1])
+        print(f"  K5-fwd out {label}: rms of the plain output {rms:.6g}, atol {tol[0]:.6g}",
+              flush=True)
+        errs["k5f"] = max(errs["k5f"], check_close(f"K5-fwd out {label}", out, want, tol),
+                          check_rel(f"K5-fwd out {label}", out, want))
+        if lse.shape != want_lse.shape or not torch.isfinite(lse).all():
+            raise AssertionError(f"K5-fwd lse {label}: bad shape or values")
+        lse_err = (lse - want_lse).abs().max().item()
+        print(f"  K5-fwd lse {label}: max |kernel - plain| = {lse_err:.6g} (limit {K5_LSE_ATOL})",
+              flush=True)
+        if not lse_err <= K5_LSE_ATOL:
+            raise AssertionError(f"K5-fwd lse {label}: kernel disagrees with the plain version")
         for name, grad, want_grad in zip(("dq", "dk", "dv"), grads, want_grads):
-            got, ref = grad.float(), want_grad.float()
-            if got.shape != ref.shape or not torch.isfinite(got).all():
-                raise AssertionError(f"K5-bwd {name}: bad gradient {tuple(got.shape)}")
-            rel = ((got - ref).norm() / ref.norm()).item()
-            max_abs = (got - ref).abs().max().item()
-            errs["k5b"] = max(errs["k5b"], max_abs)
-            # the kernel's buffers hold whole 64-row tiles (the plain version,
-            # on the CPU, holds L rows)
-            pad = (grad.as_strided((B, lp, 128), grad.stride())[:, L:] if grad.is_cuda
-                   else grad[:, L:])
-            print(f"  K5-bwd {name} (L={L}, d_head {dh}): ||kernel - plain|| / ||plain|| = "
-                  f"{rel:.6g} (limit {GRAD_REL}), max |kernel - plain| = {max_abs:.6g}, "
-                  f"max |plain| = {ref.abs().max().item():.6g}; {pad.shape[1]} padded rows, "
-                  f"max |value| {pad.float().abs().max().item() if pad.numel() else 0.0}",
-                  flush=True)
-            if not rel <= GRAD_REL:
-                raise AssertionError(f"K5-bwd {name}: kernel gradient disagrees with the plain one")
-            if pad.numel() and bool(pad.ne(0).any()):
-                raise AssertionError(f"K5-bwd {name}: padded key rows are not exactly zero")
+            errs["k5b"] = max(errs["k5b"], check_rel(f"K5-bwd {name} {label}", grad, want_grad))
     return errs
 
 
@@ -365,20 +386,8 @@ def train_operands(ffn: int, seed: int, device):
 def check_grads(label: str, grads, want) -> float:
     """Each gradient within GRAD_REL of the plain one in the L2 norm; returns
     the largest max |difference|."""
-    worst = 0.0
-    for name, got, ref in zip(GRAD_NAMES, grads, want):
-        got, ref = got.float(), ref.float()
-        if got.shape != ref.shape or not torch.isfinite(got).all():
-            raise AssertionError(f"{label} {name}: bad gradient {tuple(got.shape)}")
-        rel = ((got - ref).norm() / ref.norm()).item()
-        max_abs = (got - ref).abs().max().item()
-        worst = max(worst, max_abs)
-        print(f"  {label} {name}: ||kernel - plain|| / ||plain|| = {rel:.6g} (limit {GRAD_REL}), "
-              f"max |kernel - plain| = {max_abs:.6g}, max |plain| = {ref.abs().max().item():.6g}",
-              flush=True)
-        if not rel <= GRAD_REL:
-            raise AssertionError(f"{label} {name}: kernel gradient disagrees with the plain one")
-    return worst
+    return max(check_rel(f"{label} {name}", got, ref)
+               for name, got, ref in zip(GRAD_NAMES, grads, want))
 
 
 def check_train_kernels(device) -> dict:

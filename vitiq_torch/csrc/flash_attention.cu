@@ -56,12 +56,10 @@
 // K3's attention backward (fused_layer_train.cu: train_attention_bwd) holds
 // a whole frame-head's L rows in shared memory; these passes take the same
 // products over 64-row tiles instead, so neither pass is bounded by L.
-// Rows past L: queries read as zero and are never stored by the forward; in
-// the backward their lse is +inf and their delta 0, so P = dS = 0. Keys past
-// L are -inf scores in the forward and P = dS = 0 in both backward passes, so
-// a padded key contributes nothing, and the dk and dv rows of a key tile's
-// padding (the backward writes whole 64-row tiles into buffers of
-// round_up(L, 64) rows) are exactly zero.
+// Rows past L: queries read as zero; in the backward their lse is +inf and
+// their delta 0, so P = dS = 0. Keys past L are -inf scores in the forward
+// and P = dS = 0 in both backward passes, so a padded key contributes
+// nothing. No pass stores a row past L: out, dq, dk and dv are [B, L, D].
 //
 // What bounds it on the card: per score element the forward does 4 dh tensor
 // FLOPs (Q K^T and P V) and one exp2, the backward 10 dh FLOPs (recompute, dP,
@@ -256,14 +254,14 @@ __global__ void __launch_bounds__(FA_THREADS) attention_fwd(
   }
 }
 
-// K5-bwd, query-major pass. grid (B * H, Lp / TILE). Writes delta [B, H, L]
-// for its rows and dq into [B, Lp, D] (every row < Lp; rows >= L are zero).
+// K5-bwd, query-major pass. grid (B * H, ceil(L / TILE)). Writes delta
+// [B, H, L] and dq [B, L, D] for its rows.
 template <int DH>
 __global__ void __launch_bounds__(FA_THREADS) attention_bwd_dq(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     int ldq, int ldk, int ldv, const bf16* __restrict__ out, const bf16* __restrict__ dout,
     const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq, int L,
-    int Lp, int H, float scale2, float scale) {
+    int H, float scale2, float scale) {
   __shared__ __align__(16) bf16 ks[TILE * rld<DH>()];
   __shared__ __align__(16) bf16 vs[TILE * rld<DH>()];
   __shared__ __align__(16) bf16 kt[DH * TLD];
@@ -325,17 +323,17 @@ __global__ void __launch_bounds__(FA_THREADS) attention_bwd_dq(
       accumulate16<DH>(acc, dsa, kt, j * 16, g, t);
     }
   }
-  store16<DH>(acc, scale, dq + (long long)b * Lp * D + h * DH, D, r_lo, r_hi, Lp, t);
+  store16<DH>(acc, scale, dq + frame, D, r_lo, r_hi, L, t);
 }
 
-// K5-bwd, key-major pass. grid (B * H, Lp / TILE). Reads delta from the
-// query-major pass; writes dk and dv into [B, Lp, D] (rows >= L are zero).
+// K5-bwd, key-major pass. grid (B * H, ceil(L / TILE)). Reads delta from
+// the query-major pass; writes dk and dv [B, L, D] for its key rows.
 template <int DH>
 __global__ void __launch_bounds__(FA_THREADS) attention_bwd_dkdv(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     int ldq, int ldk, int ldv, const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int L,
-    int Lp, int H, float scale2, float scale) {
+    int H, float scale2, float scale) {
   __shared__ __align__(16) bf16 qs[TILE * rld<DH>()];
   __shared__ __align__(16) bf16 dos[TILE * rld<DH>()];
   __shared__ __align__(16) bf16 qt[DH * TLD];
@@ -389,9 +387,9 @@ __global__ void __launch_bounds__(FA_THREADS) attention_bwd_dkdv(
       accumulate16<DH>(dka, dsa, qt, j * 16, g, t);
     }
   }
-  const long long fo = (long long)b * Lp * D + h * DH;
-  store16<DH>(dka, scale, dk + fo, D, c_lo, c_hi, Lp, t);
-  store16<DH>(dva, 1.f, dv + fo, D, c_lo, c_hi, Lp, t);
+  const long long fo = (long long)b * L * D + h * DH;
+  store16<DH>(dka, scale, dk + fo, D, c_lo, c_hi, L, t);
+  store16<DH>(dva, 1.f, dv + fo, D, c_lo, c_hi, L, t);
 }
 
 bool shapes_ok(int B, int L, int H, int D, int ldq, int ldk, int ldv) {
@@ -419,20 +417,19 @@ template <int DH>
 int bwd(const void* q, const void* k, const void* v, const void* out, const void* dout,
         const void* lse, void* delta, void* dq, void* dk, void* dv, int ldq, int ldk, int ldv,
         int B, int L, int H, cudaStream_t s) {
-  const int Lp = round_tile(L);
-  const dim3 grid((unsigned)B * H, (unsigned)(Lp / TILE));
+  const dim3 grid((unsigned)B * H, (unsigned)(round_tile(L) / TILE));
   const float scale2 = LOG2E / sqrtf((float)DH), scale = 1.f / sqrtf((float)DH);
   const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
              *vb = static_cast<const bf16*>(v), *dob = static_cast<const bf16*>(dout);
   attention_bwd_dq<DH><<<grid, FA_THREADS, 0, s>>>(
       qb, kb, vb, ldq, ldk, ldv, static_cast<const bf16*>(out), dob,
-      static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<bf16*>(dq), L, Lp,
-      H, scale2, scale);
+      static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<bf16*>(dq), L, H,
+      scale2, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   attention_bwd_dkdv<DH><<<grid, FA_THREADS, 0, s>>>(
       qb, kb, vb, ldq, ldk, ldv, dob, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, Lp, H,
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, H,
       scale2, scale);
   return (int)cudaGetLastError();
 }
@@ -456,8 +453,7 @@ extern "C" int vitiq_attention_fwd(const void* q, const void* k, const void* v, 
 }
 
 // K5-bwd. q, k, v as for the forward; out, dout [B, L, D] bf16; lse the
-// forward's; delta [B, H, L] f32 scratch; dq, dk, dv [B, round_up(L, 64), D]
-// bf16, every row written (rows >= L zero).
+// forward's; delta [B, H, L] f32 scratch; dq, dk, dv [B, L, D] bf16.
 extern "C" int vitiq_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                    const void* dout, const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int ldq, int ldk, int ldv, int B, int L,

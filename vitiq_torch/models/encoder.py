@@ -48,7 +48,6 @@ from vitiq_torch.models.embeddings import (
 )
 from vitiq_torch.models.layers import EncoderLayer, dropout
 from vitiq_torch.models.raw_embed import fused_raw_embed_apply
-from vitiq_torch.ops.attention import scaled_dot_product_attention
 from vitiq_torch.ops.cuda.fused_encoder_layer import fused_encoder_layer_stack
 from vitiq_torch.ops.cuda.fused_layer_train import fused_train_layer_stack, fused_train_supported
 from vitiq_torch.ops.numerics import Policy
@@ -95,18 +94,18 @@ class Encoder(nn.Module):
             x = torch.cat([cls, x], dim=1)
         return add_positional_encoding(x, cfg.num_tokens)
 
-    def forward(self, src: torch.Tensor, policy: Policy,
+    def forward(self, src: torch.Tensor, policy: Policy, attention_fn: Callable,
                 mask: Optional[torch.Tensor] = None,
                 cls_only_fused: bool = False,
                 generator: Optional[torch.Generator] = None,
                 seed: Optional[int] = None,
-                raw_stats: Optional[Dict[str, float]] = None,
-                attention_fn: Callable = scaled_dot_product_attention) -> torch.Tensor:
+                raw_stats: Optional[Dict[str, float]] = None) -> torch.Tensor:
         """The full token sequence [B, L, D], or [B, 1, D] when the fused path
-        computes the CLS row only (``cls_only_fused``). `seed` is the training
+        computes the CLS row only (``cls_only_fused``). `attention_fn` is the
+        plain layers' attention (see `EncoderLayer`); only a packed one admits
+        the fused families, so it has no default. `seed` is the training
         step's int32 dropout seed for the fused training stack. With
-        `raw_stats`, `src` is the raw [B, L, 2] frame batch. `attention_fn`
-        is the plain layers' attention (see `EncoderLayer`)."""
+        `raw_stats`, `src` is the raw [B, L, 2] frame batch."""
         cfg = self.cfg
         if raw_stats is not None:
             x = fused_raw_embed_apply(self, src, cfg, raw_stats, policy)

@@ -47,7 +47,6 @@ from vitiq_torch.ops.numerics import REFERENCE, Policy
 
 _LOG2E = 1.4426950408889634
 SUPPORTED_D_HEAD = (16, 32, 64)
-TILE = 64  # rows of the kernels' query and key tiles
 
 launches = {"fused_attention_fwd": 0, "fused_attention_bwd": 0}
 
@@ -200,9 +199,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
                         lse: torch.Tensor, dout: torch.Tensor,
                         n_head: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5-bwd: (dq, dk, dv) [B, L, D] bf16; the plain version (which
-    recomputes the lse) for a CPU tensor. On the card each is the [:, :L]
-    view of a buffer of round_up(L, 64) rows per frame whose rows past L are
-    zero."""
+    recomputes the lse) for a CPU tensor."""
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, out, dout, n_head)
     _check(q, k, v, n_head)
@@ -216,8 +213,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     lse = lse.contiguous()
     (q, ldq), (k, ldk), (v, ldv) = _rows(q), _rows(k), _rows(v)
-    lp = (L + TILE - 1) // TILE * TILE
-    dq, dk, dv = (torch.empty((B, lp, D), dtype=q.dtype, device=q.device) for _ in range(3))
+    dq, dk, dv = (torch.empty((B, L, D), dtype=q.dtype, device=q.device) for _ in range(3))
     delta = torch.empty((B, n_head, L), dtype=torch.float32, device=q.device)
     lib = _build.library()
     with torch.cuda.device(q.device):
@@ -228,7 +224,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
                                       B, L, n_head, D, stream)
     _raise_on(err, "vitiq_attention_bwd", lib)
     launches["fused_attention_bwd"] += 1
-    return dq[:, :L], dk[:, :L], dv[:, :L]
+    return dq, dk, dv
 
 
 class FusedAttention(torch.autograd.Function):
