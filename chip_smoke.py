@@ -20,6 +20,13 @@ which raises (exit code 1) on failure:
    elementwise within K5_OUT_TOL (scaled to the output's rms), the f32
    log-sum-exp within K5_LSE_ATOL, dq, dk, dv each within GRAD_REL in the L2
    norm (max |difference| printed).
+   int8-kernels: K6 (the int8 W8A8 layer) against its plain version at the
+   three flagship shapes (B=256, B=256, B=64), d_head 16 and 32: each of
+   five layers on the plain version's input and the five layers with the K2
+   CLS tail (on dequantized weights) as one stack, by relative L2 and a max
+   in quantization steps (K6_LAYER_TOL, K6_STACK_TOL, both printed); and
+   K6's FFN1 GEMM stage alone, which must equal the plain int8 GEMM bit for
+   bit.
 4. serve: the ViT flagship (d128/L6/H8, bf16 `tpu` numerics, seeded random
    weights) answers ragged requests of 1, 37, 256 and 1000 raw [B, 1024, 2]
    frames through `Server` with buckets (256, 1024). Every launch counter is
@@ -34,6 +41,14 @@ which raises (exit code 1) on failure:
    The conv1d flagship (1025 tokens) repeats it with requests of 1, 37 and
    256 through buckets (64, 256), and again with VITIQ_NO_FUSED_LAYER=1,
    where each request must launch K5-fwd once per layer and K1/K2 never.
+   int8-serve: each flagship's int8 W8A8 twin (`build_int8_serving_fn`,
+   quantized from the same random weights) serves the same ragged requests
+   through `Server`; every counter is reset before each request and read
+   after it: K6 n_layers - 1 times, K2 once, nothing else. Its logits are
+   held to the f32 path with the JAX package's bound, max |dlogit| < 0.35 *
+   max(|ref|, 1), and to the unfused int8 path on the card
+   (VITIQ_NO_FUSED_LAYER=1, which must launch nothing); argmax agreement
+   printed.
 5. train-kernels: K3-fwd and K3-bwd (the fused training layer, recompute
    regime) on the GPU against their plain PyTorch versions at the ViT
    flagship shape (B=256, L=129, F=512, H=8, dropout 0.1) and the rawIQ one
@@ -58,16 +73,28 @@ which raises (exit code 1) on failure:
    auto), with K5 as their attention: every step must launch K5-fwd 12
    times (6 forward, 6 recompute) and K5-bwd 6 times, K3 and K4 never; its
    gradient at dropout 0 is held to the f32 path at B=8 (cosine >= 0.995).
+   evaluate: the ViT flagship (3 classes) trains with `fit` on the default
+   synthetic corpus (3 x 2048 frames, seed 0, EVAL_EPOCHS epochs at B=128,
+   lr 3e-4); the experiment is saved as the JAX package lays it out
+   (config.json, normalization_stats.json, model_best.npz) in a temporary
+   directory and evaluated on its test split by `run_evaluation` on the
+   card, in float and int8: both reports parse back, float test accuracy
+   >= EVAL_MIN_ACC and int8 within 2 points of it.
 7. timing (CUDA events after warm-up): per-layer kernel time against the
    plain version (K1 and K2 at the three shapes, B=4096 and, at 1025 tokens,
    B=256; K3 at the ViT and rawIQ shapes and K4 at the rawIQ one, B=4096;
    K5-fwd and K5-bwd at B=256, L=1025), each beside its bound (the larger of
    its FLOPs over 989 TFLOP/s and its compulsory bytes over 3.35 TB/s) and,
    as yardsticks the port never calls, nn.TransformerEncoderLayer's time
-   beside K1 (ViT and rawIQ shapes, B=4096, with whether its fused fast path
-   ran) and scaled_dot_product_attention's beside K5 (forward; backward on a
-   kept graph); serving frames/s and p50 latency at B=4096 (ViT, rawIQ) and
-   B=2048 (conv1d), through the kernels and through the plain layer loop;
+   beside K1 (ViT and rawIQ shapes, B=4096, conv1d B=256, with whether its
+   fused fast path ran) and scaled_dot_product_attention's beside K5
+   (forward; backward on a kept graph); K6 per layer at B=4096 (ViT, rawIQ)
+   against its plain version and K1, its bound (int8 GEMM operations over
+   1979 TOP/s plus bf16 attention FLOPs over 989 TFLOP/s, or its bytes), and
+   its FFN1 stage against torch._int_mm at that shape; serving frames/s and
+   p50 latency at B=4096 (ViT, rawIQ) and B=2048 (conv1d), through the
+   kernels and through the plain layer loop, and at B=4096 (ViT, rawIQ)
+   through the int8 path;
    train-step frames/s and peak device memory: the ViT flagship through K3
    and through the plain layers, the rawIQ flagship through K4, through K3
    (VITIQ_TRAIN_STASH=0) and through the plain layers (B=4096), the conv1d
@@ -94,15 +121,25 @@ import torch
 
 from vitiq_torch.config import DataConfig, ExperimentConfig, TrainConfig
 from vitiq_torch.config import flagship_conv1d_config, flagship_rawiq_config, flagship_vit_config
+from vitiq_torch.eval import ClassificationReportParser
 from vitiq_torch.models import AMCModel
 from vitiq_torch.models.layers import EncoderLayer
 from vitiq_torch.ops.cuda import _build
 from vitiq_torch.ops.cuda import flash_attention as fa
 from vitiq_torch.ops.cuda import fused_encoder_layer as fel
+from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
 from vitiq_torch.ops.cuda import fused_layer_train as flt
 from vitiq_torch.ops.metrics import label_smoothed_cross_entropy
-from vitiq_torch.serve import Server, build_forward_and_preprocess, build_serving_fn
-from vitiq_torch.train import make_train_step
+from vitiq_torch.ops.quant import QuantizedEncoderLayer, quantize_params_int8
+from vitiq_torch.runner import load_experiment_data, run_evaluation
+from vitiq_torch.serve import (
+    Server,
+    build_forward_and_preprocess,
+    build_int8_serving_fn,
+    build_serving_fn,
+)
+from vitiq_torch.train import fit, make_train_step
+from vitiq_torch.train.checkpoint import save_params
 from vitiq_torch.train.optim import create_train_state, make_optimizer
 
 # (atol, rtol) on bf16 outputs, |kernel - plain| <= atol + rtol * |plain|.
@@ -143,12 +180,33 @@ ATTN_SOURCE = "vitiq_torch/csrc/flash_attention.cu"
 ATTN_TPU_SOURCE = "vitiq/ops/pallas/flash_attention.py"
 K5 = ("fused_attention_fwd", "fused_attention_bwd")
 CONV1D_L = 1025  # the conv1d flagship's tokens, CLS included
+K6 = "fused_encoder_layer_int8"
+# K6 against its plain version: (relative L2, max in quantization steps),
+# ||kernel - plain|| <= rel ||plain|| and every element within `steps` of a
+# row's absmax / 127 of the plain output. Past the exact int8 products a
+# one-ulp bf16 flip in an activation (K1's attention core sums in another
+# order) can move a downstream quantized value by a level, so K6 is not held
+# by bf16 ulps per element. One layer on the plain version's input: 1e-2 and
+# 2 steps; the five-layer stack with its K2 CLS tail: 2e-2 and 4 steps.
+K6_LAYER_TOL = (1e-2, 2.0)
+K6_STACK_TOL = (2e-2, 4.0)
+# int8 serving against the f32 path: the JAX package's own bound,
+# max |dlogit| < 0.35 * max(|ref|, 1) (tests/test_quant.py:74); evaluation of
+# a trained model: int8 test accuracy within 2 points of float
+# (tests/test_quant.py:131-132).
+INT8_LOGIT_BOUND, INT8_ACC_POINTS = 0.35, 0.02
+# the evaluate phase's training: the ViT flagship stays at chance for ~15
+# epochs at lr 3e-4, B=128 on this corpus before it learns (lr 1e-3 at B=256
+# or 64 and lr 1e-4 at B=256 did not leave chance in 16-40 epochs), so early
+# stopping is off (patience = epochs)
+EVAL_EPOCHS, EVAL_BATCH, EVAL_LR = 40, 128, 3e-4
+EVAL_MIN_ACC = 0.5  # 3 classes: chance is 1/3
 DEVICE = torch.device("cuda", 0)
 # Published peaks of one H100 SXM:
-# dense bf16 tensor-core FLOP/s and HBM bytes/s. A kernel's bound is the larger
-# of its FLOPs and its compulsory bytes (inputs read once, outputs written
-# once) over these.
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# dense bf16 tensor-core FLOP/s, int8 tensor-core OP/s and HBM bytes/s. A
+# kernel's bound is the larger of its operations and its compulsory bytes
+# (inputs read once, outputs written once) over these.
+PEAK_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 SFU_EXP2_PER_CLOCK_SM, N_SM = 16, 132  # Hopper's special-function units
 
 
@@ -688,13 +746,267 @@ def time_train_layers(label: str, L: int, ffn: int, drop: float, device, card: s
 
 
 # --------------------------------------------------------------------------
+# K6: int8 W8A8 serving and the evaluation of a saved experiment
+# --------------------------------------------------------------------------
+
+def reset_all_launches() -> None:
+    for module in (fel, k6, fa, flt):
+        module.reset_launches()
+
+
+def all_launches() -> dict:
+    return {**fel.launches, **k6.launches, **fa.launches, **flt.launches}
+
+
+def quantize_layers(layers):
+    """`QuantizedEncoderLayer`s quantized from float `EncoderLayer`s."""
+    out = []
+    for layer in layers:
+        q = QuantizedEncoderLayer(128, layer.ffn.linear1.weight.shape[0],
+                                  device=layer.norm1.gamma.device)
+        q.load_state_dict(quantize_params_int8(layer.state_dict()))
+        out.append(q)
+    return out
+
+
+def check_int8(label: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
+    """K6 against its plain version: relative L2 and a max counted in
+    quantization steps (see K6_LAYER_TOL); returns the max |difference|."""
+    rel, steps = tol
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: bad kernel output {tuple(got.shape)}")
+    err = (got - want).abs()
+    rel_l2 = ((got - want).norm() / want.norm()).item()
+    step = want.abs().amax(dim=-1, keepdim=True) / 127
+    max_steps = (err / step).max().item()
+    print(f"  {label}: ||kernel - plain|| / ||plain|| = {rel_l2:.6g} (limit {rel}), "
+          f"max |kernel - plain| = {err.max().item():.6g} = {max_steps:.4g} quantization "
+          f"steps (limit {steps})", flush=True)
+    if not (rel_l2 <= rel and max_steps <= steps):
+        raise AssertionError(f"{label}: K6 disagrees with its plain version")
+    return err.max().item()
+
+
+def check_int8_kernels(device, batch: int = 256, conv1d_batch: int = 64) -> float:
+    """K6 against its plain version at the three flagship shapes, d_head 16
+    and 32: each of five layers on the plain version's input to it, then the
+    five K6 layers with the K2 CLS tail as one stack; and one GEMM stage
+    (FFN1) bit for bit. Returns the largest per-layer difference."""
+    worst = 0.0
+    gen = torch.Generator().manual_seed(17)
+    for seed, (name, L, ffn, B) in enumerate((("vit", 129, 512, batch), ("rawiq", 65, 1024, batch),
+                                              ("conv1d", CONV1D_L, 1024, conv1d_batch))):
+        layers = quantize_layers(random_layers(6, ffn, seed=31 + seed, device=device))
+        x = torch.randn((B, L, 128), generator=gen).to(device, torch.bfloat16)
+        for n_head in (8, 4):
+            print(f"phase int8-kernels: K6 vs plain version on the GPU, {name} shape B={B} "
+                  f"L={L} F={ffn} H={n_head} (d_head {128 // n_head})", flush=True)
+            ops = [k6.int8_layer_operands(layer, n_head) for layer in layers[:5]]
+            with torch.no_grad():
+                h = x
+                for i in range(5):
+                    got = k6.fused_encoder_layer_int8(h, ops[i], n_head)
+                    want = k6.fused_layer_int8_reference(h, ops[i], n_head)
+                    torch.cuda.synchronize()
+                    worst = max(worst, check_int8(f"{name} K6 layer {i}", got, want,
+                                                  K6_LAYER_TOL))
+                    h = want
+                stack = k6.fused_encoder_layer_int8_stack(x, layers, n_head, cls_only=True)
+                want = fel.fused_layer_reference(
+                    h, k6.dequant_layer_operands(layers[5], n_head), n_head, 1)
+                torch.cuda.synchronize()
+                check_int8(f"{name} 5 K6 layers + K2 CLS tail", stack, want, K6_STACK_TOL)
+        w1, s1, b1 = ops[0][8:11]
+        a = h.reshape(-1, 128)
+        got = k6.int8_gemm(a, w1, s1, b1, relu=True)
+        want = torch.relu(k6.int8_gemm_reference(a, w1, s1, b1)).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        print(f"  {name} K6 FFN1 GEMM stage alone [{a.shape[0]}, 128] x [128, {ffn}]: "
+              f"bit-identical to the plain int8 GEMM: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{name}: K6's GEMM stage is not exact")
+        del layers, x, h, stack, want, got
+        torch.cuda.empty_cache()
+    return worst
+
+
+def int8_serve_check(label: str, model_cfg, stats, device, sizes, buckets) -> dict:
+    """Serve ragged requests through `Server` over the int8 W8A8 twin of a
+    flagship (random weights): every counter is reset just before each
+    request and read just after, and each request must launch K6 once per
+    full layer and K2 once, nothing else. The logits are held to the f32
+    `reference` path of the same float weights (vitiq's bound) and to the
+    port's unfused int8 path on the card (VITIQ_NO_FUSED_LAYER=1)."""
+    n = model_cfg.n_layers
+    exp = ExperimentConfig(model=model_cfg, data=DataConfig(synthetic_frame_len=FRAME_LEN))
+    model = AMCModel(model_cfg, generator=torch.Generator().manual_seed(0))
+    ref_cfg = ExperimentConfig(model=dataclasses.replace(model_cfg, numerics="reference"),
+                               data=exp.data)
+    ref_model = AMCModel(ref_cfg.model)
+    ref_model.load_state_dict(model.state_dict())
+    serve_fn = build_int8_serving_fn(exp, model, stats, device)
+    server = Server(serve_fn, FRAME_LEN, buckets, device)
+    gen = torch.Generator().manual_seed(1)
+    requests = [torch.randn((b, FRAME_LEN, 2), generator=gen).to(device) for b in sizes]
+    want_counts = {k: 0 for k in all_launches()}
+    want_counts.update({K6: n - 1, "fused_encoder_layer_cls": 1})
+    outs, counts = [], {k: 0 for k in want_counts}
+    for x in requests:
+        reset_all_launches()
+        outs.append(server.run(x))
+        torch.cuda.synchronize()
+        got = all_launches()
+        if got != want_counts:
+            raise AssertionError(f"{label}: request of {x.shape[0]} launched {got}, "
+                                 f"expected {want_counts}")
+        counts = {k: counts[k] + got[k] for k in counts}
+    got = torch.cat(outs)
+    os.environ["VITIQ_NO_FUSED_LAYER"] = "1"
+    try:
+        reset_all_launches()
+        unfused = torch.cat([server.run(x) for x in requests])
+        torch.cuda.synchronize()
+        if any(all_launches().values()):
+            raise AssertionError(f"{label}: the unfused int8 path launched {all_launches()}")
+    finally:
+        del os.environ["VITIQ_NO_FUSED_LAYER"]
+    ref_serve = build_serving_fn(ref_cfg, ref_model, stats, device)
+    want = torch.cat([ref_serve(x) for x in requests])
+    torch.cuda.synchronize()
+    if got.shape != (sum(sizes), model_cfg.num_classes) or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: bad int8 logits {tuple(got.shape)}")
+    limit = INT8_LOGIT_BOUND * max(want.abs().max().item(), 1.0)
+    max_ref = (got - want).abs().max().item()
+    max_unfused = (got - unfused).abs().max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    agree_unfused = (got.argmax(-1) == unfused.argmax(-1)).float().mean().item()
+    print(f"  {label} int8: requests {list(sizes)} via buckets {list(buckets)}; launches "
+          f"K6 {counts[K6]}, K2 {counts['fused_encoder_layer_cls']}, K1 "
+          f"{counts['fused_encoder_layer']}; max |dlogit| vs f32 path {max_ref:.6g} (limit "
+          f"{limit:.6g}), argmax agreement {agree:.4f}; vs the unfused int8 path on the card "
+          f"{max_unfused:.6g}, agreement {agree_unfused:.4f}", flush=True)
+    if not (max_ref < limit and max_unfused < limit):
+        raise AssertionError(f"{label}: int8 logits beyond the bound")
+    del ref_model, ref_serve
+    torch.cuda.empty_cache()
+    return {"counts": counts, "serve": serve_fn}
+
+
+def evaluate_check(device, epochs: int = EVAL_EPOCHS, frames_per_class: int = 2048) -> dict:
+    """Train the ViT flagship (3 classes) with `fit` on the default synthetic
+    corpus (3 classes x 2048 frames, seed 0), save the experiment as the JAX
+    package lays it out (config.json, normalization_stats.json,
+    model_best.npz) in a temporary directory, and evaluate it on the test
+    split through `run_evaluation` on the card, in float and int8. Both
+    reports must parse; float accuracy >= EVAL_MIN_ACC, int8 within
+    INT8_ACC_POINTS of float."""
+    import tempfile
+    from pathlib import Path
+
+    cfg = ExperimentConfig(model=dataclasses.replace(flagship_vit_config("tpu"), num_classes=3),
+                           data=DataConfig(synthetic_frames_per_class=frames_per_class),
+                           train=TrainConfig(batch_size=EVAL_BATCH, num_epochs=epochs,
+                                             learning_rate=EVAL_LR, patience=epochs))
+    print(f"phase evaluate: train the ViT flagship (3 classes) on the synthetic corpus "
+          f"({len(cfg.data.synthetic_classes)} x {cfg.data.synthetic_frames_per_class} frames, "
+          f"seed {cfg.data.synthetic_seed}), {epochs} epochs at B={EVAL_BATCH}, lr {EVAL_LR}",
+          flush=True)
+    t0 = time.perf_counter()
+    splits, stats, _ = load_experiment_data(cfg)
+    t_data = time.perf_counter() - t0
+    model, pre = build_forward_and_preprocess(
+        cfg, AMCModel(cfg.model, generator=torch.Generator().manual_seed(0)), stats, device)
+    t0 = time.perf_counter()
+    res = fit(cfg, model, splits["train"][:2], splits["valid"][:2], preprocess_fn=pre,
+              verbose=False)
+    t_fit = time.perf_counter() - t0
+    print(f"  corpus {t_data:.1f} s; fit {res.epochs_run} epochs in {t_fit:.1f} s, val acc "
+          f"{res.history['val_acc'][0]:.4f} -> {res.history['val_acc'][-1]:.4f} (best val "
+          f"loss {min(res.history['val_loss']):.4f})", flush=True)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exp_dir = Path(tmp)
+        cfg.to_json(str(exp_dir / "config.json"))
+        (exp_dir / "normalization_stats.json").write_text(json.dumps(stats, indent=2))
+        save_params(exp_dir / "model_best", res.best_params, cfg.model)
+        for int8 in (False, True):
+            reset_all_launches()
+            r = run_evaluation(str(exp_dir), "test", int8=int8, device=device,
+                               make_plots=False, verbose=False)
+            torch.cuda.synchronize()
+            prefix = "test_int8" if int8 else "test"
+            parsed = ClassificationReportParser(
+                exp_dir / "evaluation" / f"{prefix}_classification_report.txt")
+            if parsed.overall_accuracy != round(r["overall_accuracy"] * 100, 2) or len(
+                    parsed.class_metrics) != 3:
+                raise AssertionError(f"{prefix} report does not parse back")
+            if not (exp_dir / "evaluation" / f"{prefix}_results.pkl").exists():
+                raise AssertionError(f"{prefix}_results.pkl missing")
+            launched = {k: v for k, v in all_launches().items() if v}
+            snr = ", ".join(f"{k:+d} dB {v * 100:.2f}%" for k, v in r["snr_accuracies"].items())
+            print(f"  run_evaluation({'int8' if int8 else 'float'}) on {len(r['labels'])} test "
+                  f"frames: accuracy {r['overall_accuracy'] * 100:.2f}% ({snr}); launches "
+                  f"{launched}", flush=True)
+            out["int8" if int8 else "float"] = r
+    acc_f, acc_q = out["float"]["overall_accuracy"], out["int8"]["overall_accuracy"]
+    agree = float((out["float"]["predictions"] == out["int8"]["predictions"]).mean())
+    print(f"  test accuracy float {acc_f * 100:.2f}%, int8 {acc_q * 100:.2f}% (difference "
+          f"{(acc_q - acc_f) * 100:+.2f} points, limit {INT8_ACC_POINTS * 100:.0f}); prediction "
+          f"agreement {agree:.4f}", flush=True)
+    if acc_f < EVAL_MIN_ACC:
+        raise AssertionError(f"the trained ViT reached only {acc_f:.4f} test accuracy")
+    if abs(acc_q - acc_f) > INT8_ACC_POINTS:
+        raise AssertionError("int8 test accuracy is not within 2 points of float")
+    del model
+    torch.cuda.empty_cache()
+    return {"float_acc": acc_f, "int8_acc": acc_q}
+
+
+def time_int8_layers(name: str, L: int, ffn: int, device, card: str, B: int = 4096) -> dict:
+    """K6 on one layer at [B, L, 128] against its plain version and K1 on the
+    same float weights; its FFN1 stage alone against the yardstick
+    torch._int_mm (int8 x int8 -> int32 only: no row quantization, no
+    dequant epilogue), which the port never calls."""
+    float_layer = random_layers(1, ffn, seed=13, device=device)[0]
+    ops = k6.int8_layer_operands(quantize_layers([float_layer])[0], 8)
+    ops1 = fel.layer_operands(float_layer, 8)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((B, L, 128), generator=gen).to(device, torch.bfloat16)
+    a = torch.randn((B * L, 128), generator=gen).to(device, torch.bfloat16)
+    a8 = torch.randint(-127, 128, (B * L, 128), generator=gen, dtype=torch.int8).to(device)
+    w1, s1, b1 = ops[8:11]
+    with torch.no_grad():
+        t = {
+            "k6_ms": cuda_ms(lambda: k6.fused_encoder_layer_int8(x, ops, 8), 20),
+            "k6_plain_ms": cuda_ms(lambda: k6.fused_layer_int8_reference(x, ops, 8), 5, warmup=1),
+            "k1_ms": cuda_ms(lambda: fel.fused_encoder_layer(x, ops1, 8), 20),
+            "k6_ffn1_ms": cuda_ms(lambda: k6.int8_gemm(a, w1, s1, b1, relu=True), 20),
+            "int_mm_ms": cuda_ms(lambda: torch._int_mm(a8, w1.t()), 20),
+        }
+    b = layer_bounds(B, L, ffn)
+    t.update({"k6": b["k6"], "k6_ffn1": b["k6_ffn1"]})
+    print(f"  {name} int8 layer B={B} L={L} F={ffn}: K6 {t['k6_ms']:.4f} ms vs plain "
+          f"{t['k6_plain_ms']:.4f} ms vs K1 {t['k1_ms']:.4f} ms (K6 bound {b['k6'][0]:.4f} ms by "
+          f"{b['k6'][1]}); FFN1 stage [{B * L}, 128] x [128, {ffn}]: K6 stage "
+          f"{t['k6_ffn1_ms']:.4f} ms vs torch._int_mm {t['int_mm_ms']:.4f} ms (stage bound "
+          f"{b['k6_ffn1'][0]:.4f} ms by {b['k6_ffn1'][1]})  [{card}]", flush=True)
+    del x, a, a8
+    torch.cuda.empty_cache()
+    return t
+
+
+# --------------------------------------------------------------------------
 # bounds: the least time the card could take for a kernel's work
 # --------------------------------------------------------------------------
 
-def bound(flops: float, nbytes: float):
-    """(ms, "operations" or "bytes"): the larger of the FLOPs over the bf16
-    tensor-core peak and the compulsory bytes over the HBM rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, int8_ops: float = 0.0):
+    """(ms, "operations" or "bytes"): the larger of the operations' time
+    (bf16 FLOPs over the bf16 tensor-core peak plus int8 operations over the
+    int8 peak) and the compulsory bytes over the HBM rate."""
+    t_ops = (flops / PEAK_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -711,17 +1023,25 @@ def weight_bytes(D: int, F: int) -> float:
 
 
 def layer_bounds(B: int, L: int, F: int, D: int = 128, H: int = 8) -> dict:
-    """Bounds of K1-K4 at [B, L, D] activations. Dropout and the LN and
-    softmax arithmetic add no tensor-core FLOPs; a backward's GEMMs are twice
-    the forward's (input and weight gradients), its attention 8 L^2 dh per
-    frame-head (dP, dV, dQ, dK)."""
+    """Bounds of K1-K4 and K6 at [B, L, D] activations. Dropout, the LN and
+    softmax arithmetic and K6's quantization add no tensor-core operations; a
+    backward's GEMMs are twice the forward's (input and weight gradients),
+    its attention 8 L^2 dh per frame-head (dP, dV, dQ, dK). K6: its GEMMs
+    as int8 operations, its attention as bf16 FLOPs; its weights int8 with
+    f32 scales, biases and LN parameters. `k6_ffn1` is K6's FFN1 stage
+    alone (bf16 rows in, bf16 hidden out)."""
     M, dh = B * L, D // H
     act = M * D * 2.0
-    fwd = gemm_flops(M, D, F) + 4.0 * B * H * L * L * dh
+    attn = 4.0 * B * H * L * L * dh
+    fwd = gemm_flops(M, D, F) + attn
     attn_bwd = 8.0 * B * H * L * L * dh
     grads = (4 * D * D + 2 * D * F + 10 * D + F) * 4.0
     stash = 3 * act + 2 * M * 4.0 + B * H * L * L * 2.0
+    int8_weights = (4 * D * D + 2 * D * F) * 1.0 + (14 * D + 2 * F) * 4.0
     return {
+        "k6": bound(attn, 2 * act + int8_weights, int8_ops=gemm_flops(M, D, F)),
+        "k6_ffn1": bound(0.0, act + M * F * 2.0 + D * F + 2 * F * 4.0,
+                         int8_ops=2.0 * M * D * F),
         "k1": bound(fwd, 2 * act + weight_bytes(D, F)),
         "k2": bound(gemm_flops(B, D, F, kv_rows=M) + 4.0 * B * H * L * dh,
                     act + B * D * 2.0 + weight_bytes(D, F)),
@@ -856,6 +1176,7 @@ def main() -> int:
 
     errs = check_kernels(device)
     errs.update(check_attention_kernels(device))
+    errs["k6"] = check_int8_kernels(device)
 
     print("phase serve: ragged requests through Server, bf16 kernels vs f32 path", flush=True)
     vit = serve_check("vit flagship", flagship_vit_config("tpu"), STATS, device,
@@ -870,10 +1191,20 @@ def main() -> int:
     if vit["raw_embed"] or not rawiq["raw_embed"] or not conv1d["raw_embed"]:
         raise AssertionError("the fused raw embedding must serve the rawIQ arms only")
 
+    print("phase int8-serve: ragged requests through Server, int8 W8A8 (K6 + K2) vs the f32 "
+          "path and the unfused int8 path", flush=True)
+    vit8 = int8_serve_check("vit flagship", flagship_vit_config("tpu"), STATS, device,
+                            (1, 37, 256, 1000), (256, 1024))
+    raw8 = int8_serve_check("rawiq flagship", flagship_rawiq_config("tpu"), RAW_STATS, device,
+                            (1, 37, 256, 1000), (256, 1024))
+    int8_serve_check("conv1d flagship", flagship_conv1d_config("tpu"), RAW_STATS, device,
+                     (1, 37, 256), (64, 256))
+
     errs.update(check_train_kernels(device))
     vit_train = train_check("ViT flagship", flagship_vit_config("tpu"), STATS, K3, device)
     raw_train = train_check("rawIQ flagship", flagship_rawiq_config("tpu"), RAW_STATS, K4, device)
     conv_train = conv1d_train_check(device)
+    evaluate_check(device)
 
     print(f"phase timing (CUDA events after warm-up) on {card}:", flush=True)
     times = {}
@@ -899,6 +1230,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     for name, L, ffn in (("vit", 129, 512), ("rawiq", 65, 1024)):
         times[name]["k1_library_ms"] = time_k1_library(name, L, ffn, device, card)
+        times[name].update(time_int8_layers(name, L, ffn, device, card))
+    times["conv1d"]["k1_library_ms"] = time_k1_library("conv1d", CONV1D_L, 1024, device, card,
+                                                       batch=256)
     times["vit"].update(time_train_layers("vit", 129, 512, TRAIN_DROP, device, card, False))
     times["rawiq"].update(time_train_layers("rawiq", 65, 1024, RAW_DROP, device, card, True))
     for name, L, ffn in (("vit", 129, 512), ("rawiq", 65, 1024)):
@@ -934,6 +1268,8 @@ def main() -> int:
                          device, card)
         finally:
             del os.environ["VITIQ_NO_FUSED_LAYER"]
+    for label, res in (("vit flagship", vit8), ("rawiq flagship", raw8)):
+        time_serving(label + " (int8 W8A8: K6 + K2)", res["serve"], 4096, device, card)
 
     counts, k3, k4, k5 = vit["counts"], vit_train["counts"], raw_train["counts"], conv_train["counts"]
     vt, rt, ct = times["vit"], times["rawiq"], times["conv1d"]
@@ -950,6 +1286,8 @@ def main() -> int:
         entry("fused_encoder_layer_cls (K2, CLS row)", SOURCE, f"{TPU_SOURCE}:920",
               counts["fused_encoder_layer_cls"], errs["k2"], vt["k2_ms"], vt["k2_plain_ms"],
               vt["k2"], None),
+        entry("fused_encoder_layer_int8 (K6, W8A8 full layers)", SOURCE, f"{TPU_SOURCE}:1695",
+              vit8["counts"][K6], errs["k6"], vt["k6_ms"], vt["k6_plain_ms"], vt["k6"], None),
         entry("fused_train_layer_fwd (K3-fwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:417",
               k3["fused_train_layer_fwd"], errs["k3f"], vt["k3f_ms"], vt["k3f_plain_ms"],
               vt["k3f"], None),

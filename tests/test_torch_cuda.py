@@ -419,3 +419,191 @@ def test_remat_replays_the_dropout_masks_of_a_cuda_generator(cuda, numerics, mon
         torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
     other = grad(generator_seed=4)[1]
     assert not torch.equal(other[0], plain[0])
+
+
+# --------------------------------------------------------------------------
+# K6: the int8 W8A8 fused layer
+# --------------------------------------------------------------------------
+#
+# K6 is held to its plain version by relative L2 and by a max counted in
+# quantization steps (a step is a row's absmax / 127 of the plain output):
+# past the exact int8 products, a one-ulp bf16 flip in an activation (the
+# attention core sums in another order) can move a downstream quantized
+# value by a level. One layer: ||kernel - plain|| <= 1e-2 ||plain|| and
+# every element within 2 steps; a stack of layers: 2e-2 and 4 steps.
+K6_LAYER_TOL = (1e-2, 2.0)
+K6_STACK_TOL = (2e-2, 4.0)
+
+
+def _assert_int8_close(got, want, tol):
+    rel, steps = tol
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape
+    assert torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() <= rel
+    step = want.abs().amax(dim=-1, keepdim=True) / 127
+    assert torch.all((got - want).abs() <= steps * step)
+
+
+def _qlayers(n, ffn, device, n_head=H):
+    from vitiq_torch.ops.quant import QuantizedEncoderLayer, quantize_params_int8
+
+    gen = torch.Generator().manual_seed(5)
+    out = []
+    for _ in range(n):
+        layer = EncoderLayer(D, ffn, n_head, generator=gen)
+        with torch.no_grad():  # LayerNorm affine away from (1, 0)
+            for norm in (layer.norm1, layer.norm2):
+                norm.gamma.copy_(1.0 + 0.1 * torch.randn(D, generator=gen))
+                norm.beta.copy_(0.1 * torch.randn(D, generator=gen))
+        q = QuantizedEncoderLayer(D, ffn)
+        q.load_state_dict(quantize_params_int8(layer.state_dict()))
+        out.append(q.to(device))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx,ffn,n_head,batch", [
+    (1, 256, 8, 37), (17, 256, 8, 37), (17, 256, 4, 37), (65, 1024, 8, 37), (65, 1024, 4, 37),
+    (129, 512, 8, 37), (129, 512, 4, 37), (1025, 1024, 8, 6), (1025, 1024, 4, 6)])
+def test_int8_layer_matches_plain_version(cuda, Lx, ffn, n_head, batch):
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
+
+    ops = k6.int8_layer_operands(_qlayers(1, ffn, cuda, n_head)[0], n_head)
+    x = torch.randn((batch, Lx, D), generator=torch.Generator().manual_seed(Lx)).to(
+        cuda, torch.bfloat16)
+    got = k6.fused_encoder_layer_int8(x, ops, n_head)
+    torch.cuda.synchronize()
+    _assert_int8_close(got, k6.fused_layer_int8_reference(x, ops, n_head), K6_LAYER_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx,ffn", [(129, 512), (65, 1024), (17, 256)])
+@pytest.mark.parametrize("cls_only", [False, True])
+def test_int8_stack_and_cls_tail_match_plain_version(cuda, Lx, ffn, cls_only):
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
+
+    layers = _qlayers(3, ffn, cuda)
+    x = torch.randn((37, Lx, D), generator=torch.Generator().manual_seed(1)).to(
+        cuda, torch.bfloat16)
+    k6.reset_launches()
+    fel.reset_launches()
+    got = k6.fused_encoder_layer_int8_stack(x, layers, H, cls_only=cls_only)
+    torch.cuda.synchronize()
+    assert k6.launches["fused_encoder_layer_int8"] == (2 if cls_only else 3)
+    assert fel.launches == {"fused_encoder_layer": 0, "fused_encoder_layer_cls": int(cls_only)}
+    full = layers[:-1] if cls_only else layers
+    want = k6.fused_encoder_layer_int8_stack_reference(
+        x, [k6.int8_layer_operands(q, H) for q in full], H,
+        k6.dequant_layer_operands(layers[-1], H) if cls_only else None)
+    assert got.shape == ((37, 1, D) if cls_only else (37, Lx, D))
+    _assert_int8_close(got, want, K6_STACK_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(1000, 128, 384), (64, 128, 512), (777, 1024, 128)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_int8_gemm_stage_is_exact(cuda, M, K, N, relu):
+    """A GEMM stage of K6 equals its plain version bit for bit: the same f32
+    row scales and int8 levels, s32 sums that an f32 product of the integer
+    operands reproduces exactly (K <= 1040), the same f32 epilogue."""
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
+
+    gen = torch.Generator().manual_seed(M + K)
+    a = (3 * torch.randn((M, K), generator=gen)).to(cuda, torch.bfloat16)
+    wq = torch.randint(-127, 128, (N, K), generator=gen, dtype=torch.int8).to(cuda)
+    ws = (torch.rand(N, generator=gen) / 127).to(cuda)
+    bias = torch.randn(N, generator=gen).to(cuda)
+    got = k6.int8_gemm(a, wq, ws, bias, relu)
+    want = k6.int8_gemm_reference(a, wq, ws, bias)
+    want = (torch.relu(want) if relu else want).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if K != 128:
+        return
+    # at unit scales and zero biases on integer rows whose absmax is 127, the
+    # stage returns the integer sums themselves (|sum| <= 254: exact in bf16)
+    ints = torch.randint(-1, 2, (M, K), generator=gen)
+    ints[:, 0] = 127
+    small_w = torch.randint(-1, 2, (N, K), generator=gen, dtype=torch.int8)
+    small_w[:, 0] = torch.randint(0, 2, (N,), generator=gen, dtype=torch.int8)
+    sums = ints.float() @ small_w.float().t()
+    assert sums.abs().max() < 256
+    got = k6.int8_gemm(ints.to(cuda, torch.bfloat16), small_w.to(cuda), torch.ones(N, device=cuda),
+                       torch.zeros(N, device=cuda), relu)
+    torch.cuda.synchronize()
+    assert torch.equal(got.float().cpu(), torch.relu(sums) if relu else sums)
+
+
+@pytest.mark.cuda
+def test_int8_padded_frames_and_rows_do_not_leak(cuda):
+    """A frame's output does not depend on the frames batched with it, nor
+    on rows past its L (the attention core's zero-filled key tile)."""
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
+
+    ops = k6.int8_layer_operands(_qlayers(1, 256, cuda)[0], H)
+    x9 = torch.randn((1, 9, D), generator=torch.Generator().manual_seed(3)).to(cuda,
+                                                                                torch.bfloat16)
+    both = torch.cat([x9, torch.full_like(x9, 100.0)])
+    solo = k6.fused_encoder_layer_int8(x9, ops, H)
+    paired = k6.fused_encoder_layer_int8(both, ops, H)
+    torch.cuda.synchronize()
+    assert torch.equal(solo[0], paired[0])
+    assert torch.isfinite(paired).all()
+
+
+@pytest.mark.cuda
+def test_int8_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
+
+    ops = k6.int8_layer_operands(_qlayers(1, 256, cuda)[0], H)
+    x = torch.randn((2, 9, D)).to(cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        k6.fused_encoder_layer_int8(x, ops, H)  # f32 activations
+    with pytest.raises(ValueError, match="d_head"):
+        k6.fused_encoder_layer_int8(x.bfloat16(), ops, 2)  # d_head 64
+    with pytest.raises(ValueError, match="operand 0"):
+        k6.fused_encoder_layer_int8(x.bfloat16(), [ops[0].float()] + ops[1:], H)
+    with pytest.raises(ValueError, match="K % 64"):
+        k6.int8_gemm(x.bfloat16()[0, :, :100].contiguous(), ops[0][:, :100].contiguous(),
+                     ops[1], ops[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["vit", "rawiq"])
+def test_quantized_model_serves_through_k6_and_k2(cuda, arm, monkeypatch):
+    """The quantized model on the card: K6 on every full layer and K2 on the
+    CLS row, no K1; its logits close to its unfused int8 path and to the
+    float model's."""
+    from vitiq_torch.config import ModelConfig
+    from vitiq_torch.models import AMCModel
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
+    from vitiq_torch.ops.quant import QuantizedAMCModel
+
+    if arm == "vit":
+        cfg = ModelConfig(arm="vit", num_classes=5, d_model=128, n_head=8, n_layers=3,
+                          ffn_hidden=256, numerics="tpu")
+        src = torch.randn((9, 1, 32, 64), generator=torch.Generator().manual_seed(4))
+    else:
+        cfg = ModelConfig(arm="rawiq", num_classes=5, d_model=128, n_head=8, n_layers=3,
+                          ffn_hidden=256, seq_length=256, segment_size=16, use_cls_token=True,
+                          numerics="tpu")
+        src = torch.randn((9, 2, 256), generator=torch.Generator().manual_seed(4))
+    model = AMCModel(cfg, device=cuda, generator=torch.Generator().manual_seed(0)).eval()
+    qmodel = QuantizedAMCModel.from_model(model)
+    src = src.to(cuda)
+    k6.reset_launches()
+    fel.reset_launches()
+    got = qmodel(src)
+    torch.cuda.synchronize()
+    assert k6.launches["fused_encoder_layer_int8"] == 2
+    assert fel.launches == {"fused_encoder_layer": 0, "fused_encoder_layer_cls": 1}
+    monkeypatch.setenv("VITIQ_NO_FUSED_LAYER", "1")
+    unfused = qmodel(src)
+    with torch.no_grad():
+        ref = model(src)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    bound = 0.35 * max(ref.abs().max().item(), 1.0)
+    assert (got - ref).abs().max().item() < bound
+    assert (got - unfused).abs().max().item() < bound

@@ -4,7 +4,9 @@ imports `vitiq_torch`, serves one batch and trains one epoch (`fit`) on the
 CPU: a ViT on its preprocessed images through the fused training stack, a
 rawIQ model on raw frames through `build_forward_and_preprocess` (the fused
 raw embedding and the stash regime), and a conv1d model through the plain
-layers with K5 as their attention. The port's sources, and `chip_smoke.py`,
+layers with K5 as their attention; then it evaluates a saved experiment
+(`run_evaluation`, float and int8, plots off) with scikit-learn, matplotlib,
+seaborn and h5py blocked too, as the card's machine lacks them. The port's sources, and `chip_smoke.py`,
 import neither."""
 
 import re
@@ -23,6 +25,8 @@ sys.modules["jaxlib"] = None
 for name in [m for m in sys.modules if m == "vitiq" or m.startswith("vitiq.")]:
     del sys.modules[name]
 sys.modules["vitiq"] = None
+for name in ("sklearn", "matplotlib", "seaborn", "h5py"):  # absent on the card's machine
+    sys.modules[name] = None
 
 import torch
 from vitiq_torch import ExperimentConfig, ModelConfig, DataConfig
@@ -94,6 +98,29 @@ res = fit(conv_cfg, model, (frames[:8], labels[:8]), ArrayFeed(frames[8:], label
           preprocess_fn=pre, verbose=False)
 assert res.state.step == 2 and np.isfinite(res.history["train_loss"]).all()
 assert len(k5_calls) == 2, k5_calls  # one layer, two train steps; eval runs K1/K2
+# evaluate a saved experiment on the CPU, in float and through the int8 path
+import json, tempfile
+from pathlib import Path
+from vitiq_torch.runner import run_evaluation
+from vitiq_torch.train.checkpoint import save_params
+eval_cfg = ExperimentConfig(
+    model=ModelConfig(arm="rawiq", num_classes=3, d_model=128, n_head=8, n_layers=2,
+                      ffn_hidden=128, seq_length=128, segment_size=16, use_cls_token=True,
+                      numerics="tpu"),
+    data=DataConfig(synthetic_frames_per_class=20, synthetic_frame_len=128),
+    train=TrainConfig(batch_size=16))
+with tempfile.TemporaryDirectory() as exp:
+    exp = Path(exp)
+    eval_cfg.to_json(str(exp / "config.json"))
+    (exp / "normalization_stats.json").write_text(json.dumps(raw_stats))
+    save_params(exp / "model_best", AMCModel(eval_cfg.model).state_dict(), eval_cfg.model)
+    for int8 in (False, True):
+        res = run_evaluation(str(exp), int8=int8, device="cpu", make_plots=False,
+                             verbose=False)
+        assert 0.0 <= res["overall_accuracy"] <= 1.0 and len(res["predictions"]) == 9
+        prefix = "test_int8" if int8 else "test"
+        assert (exp / "evaluation" / f"{prefix}_classification_report.txt").exists()
+        assert (exp / "evaluation" / f"{prefix}_results.pkl").exists()
 leaked = sorted(m for m in sys.modules if m.startswith(("jax", "vitiq."))
                 and sys.modules[m] is not None)
 assert not leaked, leaked

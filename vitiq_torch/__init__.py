@@ -31,7 +31,12 @@ fused training layer, forward and backward (`csrc/fused_layer_train.cu`),
 for training; the standalone packed attention, forward and flash backward
 (`csrc/flash_attention.cu`, K5), which every plain layer runs under `tpu`
 numerics (the conv1d arm's 1025 tokens in training, with each layer
-rematerialized above 512 tokens).
+rematerialized above 512 tokens); the evaluation of a saved experiment
+(`runner.run_evaluation`, `python -m vitiq_torch.cli evaluate`: the synthetic
+corpus and its stats, `vitiq`'s parameter files, the confusion artifacts and
+the byte-compatible report), in float and through int8 W8A8 serving
+(`ops/quant.py`) with the CUDA port of the int8 fused layer (K6, in
+`csrc/fused_encoder_layer.cu`).
 """
 
 from vitiq_torch.config import (  # noqa: F401

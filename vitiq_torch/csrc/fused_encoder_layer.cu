@@ -6,6 +6,11 @@
 //          _v3_attention_core_xpack (every full layer of the stack)
 //   K2  vitiq/ops/pallas/fused_encoder_layer.py: _fused_layer_kernel_v3_cls
 //       with the chained core _v3_attention_core (last layer, CLS row only)
+//   K6  vitiq/ops/pallas/fused_encoder_layer.py: fused_encoder_layer_v3_int8_stack
+//       -> _fused_layer_kernel_v3_w8 (every full layer of the int8 W8A8
+//          stack; its CLS tail is K2 on dequantized weights), and the v1
+//          twin fused_encoder_layer_int8 -> _fused_layer_kernel_int8
+//          (VITIQ_FUSED_VERSION=v1, mapped below)
 //
 // Function, per layer, on a bf16 [B, L, D] activation (D = 128):
 //   qkv    = bf16(x @ Wqkv + bqkv)          q pre-scaled by log2(e)/sqrt(dh)
@@ -71,6 +76,31 @@
 //   VITIQ_LONGSEQ=1 v4long (K10, query tiling)    -> K1 (the warp loop over
 //       16-row query tiles is the query tiling).
 //   VITIQ_V3_PROBE                                -> timing-only surgery; none.
+//
+// K6 (vitiq_encoder_layer_int8_full) is K1 with its four GEMM stages made
+// W8A8 (gemm_int8_kernel), the attention stage K1's own attention_kernel:
+//   int8_gemm(t) = (f32(rowquant(t) @ Wq^T) * s_row) * s_col + b, with
+//   s_row = max(max |t_row|, 1e-8) / 127 over the whole bf16 row and
+//   rowquant(t) = clip(rint(t / s_row), -127, 127), int32 accumulation;
+//   qkv = bf16(int8_gemm(x)); attn as K1; x1 = bf16(LN(int8_gemm(attn) + x));
+//   h = bf16(relu(int8_gemm(x1))); y = bf16(LN(int8_gemm(h) + x1)).
+// Each stage quantizes its own input rows (the FFN2 stage reads the bf16
+// hidden row once for its scale, then quantizes it tile by tile), so no
+// stage needs a whole hidden row in one block. Products are s8 x s8 -> s32
+// mma.sync.m16n8k32 tiles; ldmatrix transposes only 16-bit elements, so the
+// int8 W operand is kept K-contiguous, [N, K]. Bound at the ViT shape
+// (L = 129, F = 512): ~51 M int8 ops per frame and layer (~26 us per 1000
+// frames at 1979 TOP/s) against the same ~0.7 MB of bf16 activation traffic
+// as K1 (~0.2 ms per 1000 frames at 3.35 TB/s): with the intermediates'
+// round trips counted, device memory bounds it, more so than K1, since the
+// int8 rate is twice the bf16 one. This first port re-reads each A row for
+// its scale and re-quantizes it in every column tile of a stage, and runs
+// no wgmma.
+// VITIQ_FUSED_VERSION=v1 (fused_encoder_layer_int8 -> _fused_layer_kernel_int8)
+//   -> K6: the same W8A8 layer with the softmax scale applied to f32 scores
+//   of the bf16-rounded q instead of folded into q's dequant scales and
+//   bias, exp2 with no row max, and denominators over the f32 (unrounded)
+//   probabilities; one layer per call.
 
 #include <mma.h>
 
@@ -116,6 +146,64 @@ constexpr int PIPE_BYTES = 2 * (A_TILE + B_TILE) * (int)sizeof(bf16);
 constexpr int C_BYTES = BM * C_LD * (int)sizeof(float);
 constexpr int GEMM_SMEM = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
 
+// The GEMM stages' epilogue over the block's f32 product tile Cs [BM][C_LD]
+// (rows m0.., columns n0..): + bias, + bias then ReLU, or + bias + residual
+// then LayerNorm over the whole row (the tile holds all D = BN columns).
+// Shared by the bf16 (K1/K2) and the int8 (K6) GEMM stages.
+template <int EPI>
+__device__ __forceinline__ void gemm_epilogue(const float* Cs, const GemmArgs& p, long long m0,
+                                              int n0, int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  if constexpr (EPI == kBiasResidualLN) {
+    // one warp per row, 4 columns per lane; the tile holds the whole row
+    for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
+      const long long gm = m0 + r;
+      if (gm >= p.m) break;  // warp-uniform
+      float v[BN / 32];
+      float s = 0.f;
+#pragma unroll
+      for (int t = 0; t < BN / 32; ++t) {
+        const int c = lane + 32 * t;
+        v[t] = Cs[r * C_LD + c] + p.bias[c] + __bfloat162float(p.res[gm * p.ldr + c]);
+        s += v[t];
+      }
+      const float mean = warp_sum(s) * (1.0f / BN);
+      float q = 0.f;
+#pragma unroll
+      for (int t = 0; t < BN / 32; ++t) {
+        const float d = v[t] - mean;
+        q += d * d;
+      }
+      const float rstd = rsqrtf(warp_sum(q) * (1.0f / BN) + LN_EPS);
+#pragma unroll
+      for (int t = 0; t < BN / 32; ++t) {
+        const int c = lane + 32 * t;
+        p.c[gm * p.ldc + c] = __float2bfloat16(p.gamma[c] * ((v[t] - mean) * rstd) + p.beta[c]);
+      }
+    }
+  } else {
+    // 8 consecutive columns per thread, stored as one 16-byte chunk
+    for (int i = tid; i < BM * BN / 8; i += GEMM_THREADS) {
+      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+      const long long gm = m0 + r;
+      if (gm >= p.m) continue;
+      uint4 packed;
+      uint32_t* words = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        float v0 = Cs[r * C_LD + c + e] + p.bias[n0 + c + e];
+        float v1 = Cs[r * C_LD + c + e + 1] + p.bias[n0 + c + e + 1];
+        if (EPI == kBiasRelu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        words[e / 2] = pack_bf16x2(v0, v1);
+      }
+      *reinterpret_cast<uint4*>(p.c + gm * p.ldc + n0 + c) = packed;
+    }
+  }
+}
+
 // C[:, n0 .. n0 + BN) = epilogue(A @ W + bias) for one 64 x 128 tile per
 // block. Block i takes row tile i / n_tiles and column tile i % n_tiles, so
 // the column tiles of one row tile run together and share its A rows in L2.
@@ -129,7 +217,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
   float* Cs = reinterpret_cast<float*>(smem);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+  const int warp = tid >> 5;
   const long long m0 = (long long)(blockIdx.x / p.n_tiles) * BM;
   const int n0 = p.col0 + (int)(blockIdx.x % p.n_tiles) * BN;
   const int wm = warp >> 2, wn = warp & 3;
@@ -193,55 +281,171 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
       wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * C_LD + wn * 32 + j * 16,
                               acc[i][j], C_LD, wmma::mem_row_major);
   __syncthreads();
+  gemm_epilogue<EPI>(Cs, p, m0, n0, tid);
+}
 
-  if constexpr (EPI == kBiasResidualLN) {
-    // one warp per row, 4 columns per lane; the tile holds the whole row
-    for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
-      const long long gm = m0 + r;
-      if (gm >= p.m) break;  // warp-uniform
-      float v[BN / 32];
-      float s = 0.f;
+// ---- K6: the W8A8 GEMM stage ----------------------------------------------
+constexpr int QBK = 64;                // k-step depth: 64 int8 = 64 bytes of a row
+constexpr int Q_LD = QBK + 16;         // int8 shared-memory row stride (bank-conflict
+                                       // pad; 80 bytes keeps rows 16-byte aligned)
+constexpr int QA_TILE = BM * Q_LD;     // bytes of one stage's quantized A tile
+constexpr int QB_TILE = BN * Q_LD;     // and of its int8 W tile ([n][k])
+constexpr int QPIPE_BYTES = 2 * (QA_TILE + QB_TILE);
+constexpr int QGEMM_SMEM = QPIPE_BYTES > C_BYTES ? QPIPE_BYTES : C_BYTES;
+constexpr float ROW_SCALE_FLOOR = 1e-8f;
+
+// C[:, n0 .. n0 + BN) = epilogue(dequant(rowquant(A) @ Wq^T)) for one 64 x
+// 128 tile per block, A bf16 rows of p.k values, Wq int8 [N, p.k] (K
+// contiguous: nn.Linear's [out, in]) with per-column scales wscale [N].
+//   prologue  each row's scale s_r = max(max_k |A[r, k]|, 1e-8) / 127 over
+//             the whole row (one warp per row), before any product;
+//   k loop    A tiles are read as bf16 and quantized on the way to shared
+//             memory, q = clip(rint(a / s_r), -127, 127) (IEEE division,
+//             round half to even); W tiles arrive by cp.async; two stages,
+//             the next tile's loads in flight during this one's products;
+//             s8 x s8 -> s32 products on the tensor cores
+//             (mma.sync.m16n8k32), each warp a 32 x 32 sub-tile;
+//   epilogue  Cs = (f32(acc) * s_r) * wscale[n], then K1's gemm_epilogue.
+// |q_a q_w| summed over K <= 1040 stays below 2^24, so f32(acc) is the exact
+// sum, the same number an f32 product of the integer operands gives.
+template <int EPI>
+__global__ void __launch_bounds__(GEMM_THREADS) gemm_int8_kernel(GemmArgs p,
+                                                                 const int8_t* __restrict__ wq,
+                                                                 const float* __restrict__ wscale) {
+  __shared__ __align__(128) unsigned char smem[QGEMM_SMEM];
+  __shared__ float row_scale[BM];
+  int8_t* stages = reinterpret_cast<int8_t*>(smem);  // [2][A tile | W tile]
+  float* Cs = reinterpret_cast<float*>(smem);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long m0 = (long long)(blockIdx.x / p.n_tiles) * BM;
+  const int n0 = p.col0 + (int)(blockIdx.x % p.n_tiles) * BN;
+  const int wm = warp >> 2, wn = warp & 3;
+
+  for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
+    const long long gm = m0 + r;
+    float amax = 0.f;
+    if (gm < p.m) {
+      const bf16* row = p.a + gm * p.lda;
+      for (int c = lane * 8; c < p.k; c += 32 * 8) {
+        const uint4 v = *reinterpret_cast<const uint4*>(row + c);
+        const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
-      for (int t = 0; t < BN / 32; ++t) {
-        const int c = lane + 32 * t;
-        v[t] = Cs[r * C_LD + c] + p.bias[c] + __bfloat162float(p.res[gm * p.ldr + c]);
-        s += v[t];
-      }
-      const float mean = warp_sum(s) * (1.0f / BN);
-      float q = 0.f;
-#pragma unroll
-      for (int t = 0; t < BN / 32; ++t) {
-        const float d = v[t] - mean;
-        q += d * d;
-      }
-      const float rstd = rsqrtf(warp_sum(q) * (1.0f / BN) + LN_EPS);
-#pragma unroll
-      for (int t = 0; t < BN / 32; ++t) {
-        const int c = lane + 32 * t;
-        p.c[gm * p.ldc + c] = __float2bfloat16(p.gamma[c] * ((v[t] - mean) * rstd) + p.beta[c]);
+        for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(e[i])));
       }
     }
-  } else {
-    // 8 consecutive columns per thread, stored as one 16-byte chunk
-    for (int i = tid; i < BM * BN / 8; i += GEMM_THREADS) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      const long long gm = m0 + r;
-      if (gm >= p.m) continue;
-      uint4 packed;
-      uint32_t* words = reinterpret_cast<uint32_t*>(&packed);
-#pragma unroll
-      for (int e = 0; e < 8; e += 2) {
-        float v0 = Cs[r * C_LD + c + e] + p.bias[n0 + c + e];
-        float v1 = Cs[r * C_LD + c + e + 1] + p.bias[n0 + c + e + 1];
-        if (EPI == kBiasRelu) {
-          v0 = fmaxf(v0, 0.f);
-          v1 = fmaxf(v1, 0.f);
-        }
-        words[e / 2] = pack_bf16x2(v0, v1);
-      }
-      *reinterpret_cast<uint4*>(p.c + gm * p.ldc + n0 + c) = packed;
-    }
+    amax = warp_max(amax);
+    if (lane == 0) row_scale[r] = fmaxf(amax, ROW_SCALE_FLOOR) / 127.0f;
   }
+  __syncthreads();
+
+  // each thread moves two 16-byte chunks of A (8 bf16) and of W (16 int8)
+  uint4 a_regs[2];
+  auto load_a = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int i = tid + j * GEMM_THREADS;
+      const int r = i >> 3, c = (i & 7) * 8;
+      const long long gm = m0 + r;
+      a_regs[j] = gm < p.m ? *reinterpret_cast<const uint4*>(p.a + gm * p.lda + k0 + c)
+                           : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  auto store_a = [&](int stage) {
+    int8_t* As = stages + stage * (QA_TILE + QB_TILE);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int i = tid + j * GEMM_THREADS;
+      const int r = i >> 3, c = (i & 7) * 8;
+      const float s = row_scale[r];
+      const bf16* e = reinterpret_cast<const bf16*>(&a_regs[j]);
+      uint32_t words[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t packed = 0u;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          int q = __float2int_rn(__fdiv_rn(__bfloat162float(e[4 * h + b]), s));
+          q = max(-127, min(127, q));
+          packed |= (static_cast<uint32_t>(q) & 0xffu) << (8 * b);
+        }
+        words[h] = packed;
+      }
+      *reinterpret_cast<uint2*>(As + r * Q_LD + c) = make_uint2(words[0], words[1]);
+    }
+  };
+  auto load_w = [&](int stage, int k0) {
+    int8_t* Bs = stages + stage * (QA_TILE + QB_TILE) + QA_TILE;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int i = tid + j * GEMM_THREADS;
+      const int n = i >> 2, c = (i & 3) * 16;
+      cp_async16(Bs + n * Q_LD + c, wq + (long long)(n0 + n) * p.k + k0 + c, 16);
+    }
+    cp_async_commit();
+  };
+
+  int acc[2][4][4] = {};
+  const int nk = p.k / QBK;
+  load_w(0, 0);
+  load_a(0);
+  store_a(0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const bool more = kt + 1 < nk;
+    if (more) {
+      load_w((kt + 1) & 1, (kt + 1) * QBK);
+      load_a((kt + 1) * QBK);
+      cp_async_wait<1>();  // this k-step's W has landed, the next may not
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int8_t* As = stages + (kt & 1) * (QA_TILE + QB_TILE);
+    const int8_t* Bs = As + QA_TILE;
+#pragma unroll
+    for (int kk = 0; kk < QBK; kk += 32) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int8_t* lo = As + (wm * 32 + i * 16 + g) * Q_LD + kk + 4 * t;
+        const int8_t* hi = lo + 8 * Q_LD;
+        af[i][0] = *reinterpret_cast<const uint32_t*>(lo);
+        af[i][1] = *reinterpret_cast<const uint32_t*>(hi);
+        af[i][2] = *reinterpret_cast<const uint32_t*>(lo + 16);
+        af[i][3] = *reinterpret_cast<const uint32_t*>(hi + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int8_t* col = Bs + (wn * 32 + j * 8 + g) * Q_LD + kk + 4 * t;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(col);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(col + 16);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_s8_16832(acc[i][j], af[i], b0, b1);
+      }
+    }
+    // the other stage was last read in the previous k-step, which every warp
+    // has left (the barrier below it), so its A tile may be written now
+    if (more) store_a((kt + 1) & 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + i * 16 + g + 8 * h, c = wn * 32 + j * 8 + 2 * t;
+        const float s = row_scale[r];
+        Cs[r * C_LD + c] = __fmul_rn(__fmul_rn(static_cast<float>(acc[i][j][2 * h]), s),
+                                     wscale[n0 + c]);
+        Cs[r * C_LD + c + 1] = __fmul_rn(
+            __fmul_rn(static_cast<float>(acc[i][j][2 * h + 1]), s), wscale[n0 + c + 1]);
+      }
+  __syncthreads();
+  gemm_epilogue<EPI>(Cs, p, m0, n0, tid);
 }
 
 // Shared-memory row strides (bf16 elements) of the attention core's k
@@ -497,6 +701,54 @@ int encoder_layer(bool cls_only, const void* x, void* out, void* qkv, void* attn
   return (int)cudaGetLastError();
 }
 
+template <int EPI>
+void launch_gemm_int8(GemmArgs p, const void* wq, const void* wscale, int n_cols,
+                      cudaStream_t stream) {
+  p.n_tiles = n_cols / BN;
+  const long long blocks = (p.m + BM - 1) / BM * p.n_tiles;
+  gemm_int8_kernel<EPI><<<(unsigned)blocks, GEMM_THREADS, 0, stream>>>(
+      p, static_cast<const int8_t*>(wq), static_cast<const float*>(wscale));
+}
+
+// K6: one full W8A8 layer. x, out: [B, L, D] bf16. Scratch: qkv [B, L, 3D],
+// attn and x1 [B, L, D], hid [B, L, F], bf16. Weights int8 in nn.Linear's
+// [out, in] layout: wqkv [3D, D] (q, k, v rows), wo [D, D], w1 [F, D],
+// w2 [D, F]; per-output-channel scales sqkv [3D], so [D], s1 [F], s2 [D] and
+// biases f32, the q section of sqkv and bqkv multiplied by log2(e)/sqrt(dh);
+// LN parameters f32. Returns cudaGetLastError().
+int encoder_layer_int8(const void* x, void* out, void* qkv, void* attn, void* x1, void* hid,
+                       const void* wqkv, const void* sqkv, const void* bqkv, const void* wo,
+                       const void* so, const void* bo, const void* g1, const void* be1,
+                       const void* w1, const void* s1, const void* b1, const void* w2,
+                       const void* s2, const void* b2, const void* g2, const void* be2, int B,
+                       int L, int D, int H, int F, void* stream_ptr) {
+  if (!shapes_ok(B, L, D, H, F) || F % QBK) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* qkvb = static_cast<bf16*>(qkv);
+  bf16* attnb = static_cast<bf16*>(attn);
+  bf16* x1b = static_cast<bf16*>(x1);
+  bf16* hidb = static_cast<bf16*>(hid);
+  auto f32 = [](const void* v) { return static_cast<const float*>(v); };
+  const long long M = (long long)B * L;
+
+  launch_gemm_int8<kBias>(gemm_args(xb, D, nullptr, 0, f32(bqkv), qkvb, 3 * D, M, D, 0), wqkv,
+                          sqkv, 3 * D, s);
+  const cudaError_t err = attention(qkvb, attnb, B, L, L, D, H, (long long)L * D, s);
+  if (err != cudaSuccess) return (int)err;
+  launch_gemm_int8<kBiasResidualLN>(
+      with_ln(gemm_args(attnb, D, nullptr, 0, f32(bo), x1b, D, M, D, 0), xb, D, f32(g1),
+              f32(be1)),
+      wo, so, D, s);
+  launch_gemm_int8<kBiasRelu>(gemm_args(x1b, D, nullptr, 0, f32(b1), hidb, F, M, D, 0), w1, s1,
+                              F, s);
+  launch_gemm_int8<kBiasResidualLN>(
+      with_ln(gemm_args(hidb, F, nullptr, 0, f32(b2), static_cast<bf16*>(out), D, M, F, 0), x1b,
+              D, f32(g2), f32(be2)),
+      w2, s2, D, s);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* vitiq_error_string(int err) {
@@ -523,4 +775,33 @@ extern "C" int vitiq_encoder_layer_cls(
     int B, int L, int D, int H, int F, void* stream_ptr) {
   return encoder_layer(true, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1, w1, b1,
                        w2, b2, g2, be2, B, L, D, H, F, stream_ptr);
+}
+
+// K6: one full W8A8 layer (see encoder_layer_int8).
+extern "C" int vitiq_encoder_layer_int8_full(
+    const void* x, void* out, void* qkv, void* attn, void* x1, void* hid,
+    const void* wqkv, const void* sqkv, const void* bqkv, const void* wo, const void* so,
+    const void* bo, const void* g1, const void* be1, const void* w1, const void* s1,
+    const void* b1, const void* w2, const void* s2, const void* b2, const void* g2,
+    const void* be2, int B, int L, int D, int H, int F, void* stream_ptr) {
+  return encoder_layer_int8(x, out, qkv, attn, x1, hid, wqkv, sqkv, bqkv, wo, so, bo, g1, be1,
+                            w1, s1, b1, w2, s2, b2, g2, be2, B, L, D, H, F, stream_ptr);
+}
+
+// One of K6's GEMM stages alone, c [M, N] bf16 = epilogue(int8_gemm(a)) with
+// the bias (relu = 0) or the bias + ReLU (relu = 1) epilogue; a [M, K] bf16,
+// wq [N, K] int8, wscale and bias [N] f32. K % 64 == 0, N % 128 == 0.
+extern "C" int vitiq_gemm_int8(const void* a, const void* wq, const void* wscale,
+                               const void* bias, void* c, int M, int K, int N, int relu,
+                               void* stream_ptr) {
+  if (M <= 0 || K <= 0 || K % QBK || N <= 0 || N % BN) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  const GemmArgs p = gemm_args(static_cast<const bf16*>(a), K, nullptr, 0,
+                               static_cast<const float*>(bias), static_cast<bf16*>(c), N, M, K,
+                               0);
+  if (relu)
+    launch_gemm_int8<kBiasRelu>(p, wq, wscale, N, s);
+  else
+    launch_gemm_int8<kBias>(p, wq, wscale, N, s);
+  return (int)cudaGetLastError();
 }

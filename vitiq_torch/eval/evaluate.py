@@ -1,0 +1,154 @@
+"""Model evaluation (counterpart of `vitiq/eval/evaluate.py`): batched
+inference on the model's device, the overall and per-SNR confusion matrices,
+the classification report, accuracy against SNR and the pickled results.
+
+Artifacts, as the JAX package writes them:
+
+  {prefix}_confusion_matrix_overall.png
+  {prefix}_confusion_matrix_snr_{t}dB.png   for t in (-8, 0, 8) within 0.5 dB
+  {prefix}_classification_report.txt
+  {prefix}_accuracy_vs_snr.png
+  {prefix}_results.pkl
+
+The plots need matplotlib and seaborn (``make_plots=False`` skips them); the
+confusion matrices and the report are numpy. Batches are read from the feed
+on the host one at a time (the prefetching feed is not ported yet).
+"""
+
+from __future__ import annotations
+
+import pickle
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from vitiq_torch.eval.report import confusion_matrix, write_classification_report
+
+TARGET_SNRS = (-8, 0, 8)  # ref: ViT/training/utils.py:349
+
+
+@torch.no_grad()
+def predict_feed(forward_fn: Callable, feed, batch_size: int, device,
+                 preprocess_fn: Optional[Callable] = None):
+    """Predictions over a DataFeed's raw (x, y, snr) batches: each batch is
+    padded to `batch_size` with zero frames, moved to `device`, run through
+    `preprocess_fn` and `forward_fn`, and its argmax (taken on the device)
+    copied back for the valid rows. Returns (preds, labels, snrs) numpy."""
+    device = torch.device(device)
+    preds, labels, snrs = [], [], []
+    for bx, by, bz in feed.raw_batches(batch_size):
+        n_valid = len(bx)
+        x = torch.as_tensor(np.asarray(bx, np.float32)).to(device)
+        if n_valid < batch_size:
+            pad = torch.zeros((batch_size - n_valid,) + tuple(x.shape[1:]), dtype=x.dtype,
+                              device=device)
+            x = torch.cat([x, pad])
+        inputs = preprocess_fn(x) if preprocess_fn is not None else x
+        preds.append(forward_fn(inputs).argmax(dim=-1)[:n_valid].cpu().numpy())
+        labels.append(np.asarray(by))
+        snrs.append(np.asarray(bz))
+    return np.concatenate(preds), np.concatenate(labels), np.concatenate(snrs)
+
+
+def evaluate_feed_with_confusion(
+    forward_fn: Callable,
+    feed,
+    class_names: Sequence[str],
+    save_dir: str | Path,
+    device,
+    prefix: str = "test",
+    batch_size: int = 256,
+    preprocess_fn: Optional[Callable] = None,
+    save_pickle: bool = True,
+    make_plots: bool = True,
+    verbose: bool = True,
+) -> Dict:
+    """`predict_feed` then `confusion_artifacts`; returns the results dict."""
+    preds, labels, snrs = predict_feed(forward_fn, feed, batch_size, device, preprocess_fn)
+    return confusion_artifacts(preds, labels, snrs, class_names, save_dir, prefix=prefix,
+                               save_pickle=save_pickle, make_plots=make_plots,
+                               verbose=verbose)
+
+
+def confusion_artifacts(
+    preds: np.ndarray,
+    labels: np.ndarray,
+    snrs: np.ndarray,
+    class_names: Sequence[str],
+    save_dir: str | Path,
+    prefix: str = "test",
+    save_pickle: bool = True,
+    make_plots: bool = True,
+    verbose: bool = True,
+) -> Dict:
+    """The confusion matrices, the report, accuracy against SNR and the
+    pickle, given predictions (ref: ViT/training/utils.py:284-466)."""
+    save_dir = Path(save_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    if make_plots:
+        from vitiq_torch.eval.plots import plot_accuracy_vs_snr, plot_confusion_matrix
+
+    # 1. overall confusion matrix
+    if make_plots:
+        cm_overall, acc_overall = plot_confusion_matrix(
+            labels, preds, class_names,
+            title=f"Overall Confusion Matrix - {prefix.capitalize()} Set",
+            save_path=save_dir / f"{prefix}_confusion_matrix_overall.png",
+        )
+    else:
+        cm_overall = confusion_matrix(labels, preds, len(class_names))
+        acc_overall = float((labels == preds).mean())
+    if verbose:
+        print(f"Overall Accuracy: {acc_overall * 100:.2f}%")
+
+    # 2. per-SNR confusion matrices at the target SNRs (within 0.5 dB)
+    snr_accuracies: Dict[int, float] = {}
+    for target in TARGET_SNRS:
+        mask = np.abs(snrs - target) <= 0.5
+        if mask.sum() == 0:
+            if verbose:
+                print(f"no samples found for SNR = {target} dB")
+            continue
+        if make_plots:
+            _, acc = plot_confusion_matrix(
+                labels[mask], preds[mask], class_names,
+                title=f"Confusion Matrix - {prefix.capitalize()} Set (SNR = {target} dB)",
+                save_path=save_dir / f"{prefix}_confusion_matrix_snr_{target}dB.png",
+            )
+        else:
+            acc = float((labels[mask] == preds[mask]).mean())
+        snr_accuracies[target] = acc
+        if verbose:
+            print(f"Accuracy @ {target} dB: {acc * 100:.2f}%  ({int(mask.sum()):,} samples)")
+
+    # 3. the classification report, the format the comparison tool parses
+    write_classification_report(
+        save_dir / f"{prefix}_classification_report.txt",
+        prefix, acc_overall, snr_accuracies, labels, preds, list(class_names),
+    )
+
+    # 4. accuracy against every unique SNR
+    snr_acc_pairs: List = []
+    for snr in sorted(np.unique(snrs)):
+        m = snrs == snr
+        if m.sum() > 0:
+            snr_acc_pairs.append((float(snr), float((preds[m] == labels[m]).mean() * 100)))
+    if make_plots and snr_acc_pairs:
+        plot_accuracy_vs_snr(snr_acc_pairs, acc_overall, TARGET_SNRS, prefix,
+                             save_dir / f"{prefix}_accuracy_vs_snr.png")
+
+    results = {
+        "overall_accuracy": acc_overall,
+        "snr_accuracies": snr_accuracies,
+        "confusion_matrix": cm_overall,
+        "predictions": preds,
+        "labels": labels,
+        "snrs": snrs,
+        "accuracy_vs_snr": snr_acc_pairs,
+    }
+    if save_pickle:
+        with open(save_dir / f"{prefix}_results.pkl", "wb") as f:
+            pickle.dump(results, f)
+    return results

@@ -1,5 +1,5 @@
 """A `vitiq` parameter tree as the port's `state_dict` — the exact inverse of
-`vitiq.interop.load_torch_state_dict`.
+`vitiq.interop.load_torch_state_dict` — and back.
 
 Keys are the reference PyTorch checkpoint's (see `vitiq/interop.py`); layout
 conversions go the other way:
@@ -7,6 +7,8 @@ conversions go the other way:
   kernel [(C*p*p), d]       -> Conv2d weight [d, C, p, p]  ((C, kh, kw) rows)
   kernel [(C*k), d]         -> Conv1d weight [d, C, k]     ((C, k) rows)
 The tree's leaves may be numpy arrays or anything `numpy.asarray` accepts.
+`vitiq_tree_from_state_dict` is the inverse, with numpy leaves (the layout
+`vitiq`'s parameter files store, `train/checkpoint.py`).
 """
 
 from __future__ import annotations
@@ -72,3 +74,43 @@ def state_dict_from_vitiq(params: Mapping[str, Any], cfg: ModelConfig) -> "Order
         sd["mlp_head.0.bias"] = _t(params["head_norm"]["beta"])
         _linear(sd, "mlp_head.1", params["mlp_head"])
     return sd
+
+
+def _np(t) -> np.ndarray:
+    return np.array(t.detach().cpu().float().numpy(), dtype=np.float32, copy=True)
+
+
+def _dense(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, np.ndarray]:
+    """Linear weight [out, in] or conv weight [d, C, *k] -> kernel [in, d]."""
+    w = _np(sd[f"{prefix}.weight"])
+    return {"kernel": np.ascontiguousarray(w.reshape(w.shape[0], -1).T),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def vitiq_tree_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's state_dict for `cfg` -> a `vitiq` parameter tree of numpy
+    f32 leaves, the inverse of `state_dict_from_vitiq` (the structure of
+    `vitiq.models.init_amc_params`)."""
+    cfg.validate()
+    layers = []
+    for i in range(cfg.n_layers):
+        p = f"encoder.layers.{i}"
+        layers.append({
+            "attention": {name: _dense(sd, f"{p}.attention.{name}")
+                          for name in ("w_q", "w_k", "w_v", "w_concat")},
+            "norm1": {"gamma": _np(sd[f"{p}.norm1.gamma"]), "beta": _np(sd[f"{p}.norm1.beta"])},
+            "ffn": {"linear1": _dense(sd, f"{p}.ffn.linear1"),
+                    "linear2": _dense(sd, f"{p}.ffn.linear2")},
+            "norm2": {"gamma": _np(sd[f"{p}.norm2.gamma"]), "beta": _np(sd[f"{p}.norm2.beta"])},
+        })
+    embed = ("encoder.patch_embedding.projection" if cfg.arm == "vit"
+             else "encoder.sequence_embedding.projection")
+    encoder: Dict[str, Any] = {"embedding": {"proj": _dense(sd, embed)}, "layers": layers}
+    if cfg.arm == "vit" or cfg.use_cls_token:
+        encoder["cls_token"] = _np(sd["encoder.cls_token"])
+    if cfg.arm == "vit":
+        return {"encoder": encoder, "mlp_head": _dense(sd, "mlp_head")}
+    return {"encoder": encoder,
+            "head_norm": {"gamma": _np(sd["mlp_head.0.weight"]),
+                          "beta": _np(sd["mlp_head.0.bias"])},
+            "mlp_head": _dense(sd, "mlp_head.1")}

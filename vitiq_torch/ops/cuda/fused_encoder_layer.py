@@ -91,21 +91,22 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
-def _layer_norm(v: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+def layer_norm_reference(v: torch.Tensor, gamma: torch.Tensor,
+                         beta: torch.Tensor) -> torch.Tensor:
+    """The kernels' LayerNorm epilogue on f32 rows (biased variance, rsqrt)."""
     mean = v.mean(dim=-1, keepdim=True)
     d = v - mean
     var = d.square().mean(dim=-1, keepdim=True)
     return gamma * (d * torch.rsqrt(var + LN_EPS)) + beta
 
 
-def fused_layer_reference(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
-                          n_q: int) -> torch.Tensor:
-    """One layer for query rows [0, n_q): x [B, L, D] -> [B, n_q, D]."""
-    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = ops
-    dt = x.dtype
-    B, L, D = x.shape
+def attention_reference(qkv: torch.Tensor, n_head: int, n_q: int) -> torch.Tensor:
+    """The kernels' attention core on qkv [B, L, 3D] (q pre-scaled by
+    log2(e)/sqrt(dh)) for query rows [0, n_q): [B, n_q, D] in qkv's dtype."""
+    dt = qkv.dtype
+    B, L, D3 = qkv.shape
+    D = D3 // 3
     dh = D // n_head
-    qkv = (_mm(x, wqkv) + bqkv).to(dt)
 
     def heads(t, rows):  # [B, rows, D] -> [B, H, rows, dh] f32
         return t.float().reshape(B, rows, n_head, dh).transpose(1, 2)
@@ -116,10 +117,19 @@ def fused_layer_reference(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: 
     s = q @ k.transpose(-1, -2)  # log2 units: q carries log2(e)/sqrt(dh)
     p = torch.exp2(s - s.amax(dim=-1, keepdim=True)).to(dt).float()
     attn = ((p @ v) / p.sum(dim=-1, keepdim=True)).to(dt)
-    attn = attn.transpose(1, 2).reshape(B, n_q, D)
-    x1 = _layer_norm(_mm(attn, wo) + bo + x[:, :n_q].float(), g1, be1).to(dt)
+    return attn.transpose(1, 2).reshape(B, n_q, D)
+
+
+def fused_layer_reference(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
+                          n_q: int) -> torch.Tensor:
+    """One layer for query rows [0, n_q): x [B, L, D] -> [B, n_q, D]."""
+    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = ops
+    dt = x.dtype
+    qkv = (_mm(x, wqkv) + bqkv).to(dt)
+    attn = attention_reference(qkv, n_head, n_q)
+    x1 = layer_norm_reference(_mm(attn, wo) + bo + x[:, :n_q].float(), g1, be1).to(dt)
     h = torch.relu(_mm(x1, w1) + b1).to(dt)
-    return _layer_norm(_mm(h, w2) + b2 + x1.float(), g2, be2).to(dt)
+    return layer_norm_reference(_mm(h, w2) + b2 + x1.float(), g2, be2).to(dt)
 
 
 def fused_encoder_layer_stack_reference(x: torch.Tensor, ops_list, n_head: int,

@@ -13,6 +13,8 @@ The entry points run on the card: `build_forward_and_preprocess` and
 (``device="cpu"`` for a run on the host, as the CPU tests do), and
 `build_serving_fn` takes its device as a required argument. Asking for the
 card where CUDA is absent raises; nothing falls back to the CPU.
+`build_int8_serving_fn` serves the int8 W8A8 twin of a model (K6 and K2 on
+the card).
 """
 
 from __future__ import annotations
@@ -85,6 +87,24 @@ def build_serving_fn(cfg: ExperimentConfig, model: AMCModel, stats: Dict[str, fl
     def serve(x) -> torch.Tensor:
         x = torch.as_tensor(x, dtype=torch.float32, device=device)
         return model(pre(x)).float()
+
+    return serve
+
+
+def build_int8_serving_fn(cfg: ExperimentConfig, model: AMCModel, stats: Dict[str, float],
+                          device) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Raw frames -> f32 logits through the int8 W8A8 twin of `model`
+    (`ops.quant.QuantizedAMCModel`, quantized from its current weights):
+    the arm's preprocess (the quantized path is not raw-aware), then on a
+    CUDA device K6 on every full layer and K2 on the CLS row."""
+    from vitiq_torch.ops.quant import QuantizedAMCModel
+
+    device = resolve_device(device)
+    qmodel = QuantizedAMCModel.from_model(model.to(device))
+    pre = build_preprocess(cfg, stats)
+
+    def serve(x) -> torch.Tensor:
+        return qmodel(pre(torch.as_tensor(x, dtype=torch.float32, device=device)))
 
     return serve
 
