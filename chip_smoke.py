@@ -819,7 +819,7 @@ def check_int8_kernels(device, batch: int = 256, conv1d_batch: int = 64) -> floa
                 check_int8(f"{name} 5 K6 layers + K2 CLS tail", stack, want, K6_STACK_TOL)
         w1, s1, b1 = ops[0][8:11]
         a = h.reshape(-1, 128)
-        got = k6.int8_gemm(a, w1, s1, b1, relu=True)
+        got = k6.int8_gemm(a, w1, s1, b1, relu=True, prequant=True)
         want = torch.relu(k6.int8_gemm_reference(a, w1, s1, b1)).to(torch.bfloat16)
         torch.cuda.synchronize()
         same = torch.equal(got, want)
@@ -982,7 +982,8 @@ def time_int8_layers(name: str, L: int, ffn: int, device, card: str, B: int = 40
             "k6_ms": cuda_ms(lambda: k6.fused_encoder_layer_int8(x, ops, 8), 20),
             "k6_plain_ms": cuda_ms(lambda: k6.fused_layer_int8_reference(x, ops, 8), 5, warmup=1),
             "k1_ms": cuda_ms(lambda: fel.fused_encoder_layer(x, ops1, 8), 20),
-            "k6_ffn1_ms": cuda_ms(lambda: k6.int8_gemm(a, w1, s1, b1, relu=True), 20),
+            "k6_ffn1_ms": cuda_ms(lambda: k6.int8_gemm(a, w1, s1, b1, relu=True, prequant=True),
+                                  20),
             "int_mm_ms": cuda_ms(lambda: torch._int_mm(a8, w1.t()), 20),
         }
     b = layer_bounds(B, L, ffn)

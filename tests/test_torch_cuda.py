@@ -503,9 +503,11 @@ def test_int8_stack_and_cls_tail_match_plain_version(cuda, Lx, ffn, cls_only):
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", [(1000, 128, 384), (64, 128, 512), (777, 1024, 128)])
 @pytest.mark.parametrize("relu", [False, True])
-def test_int8_gemm_stage_is_exact(cuda, M, K, N, relu):
-    """A GEMM stage of K6 equals its plain version bit for bit: the same f32
-    row scales and int8 levels, s32 sums that an f32 product of the integer
+@pytest.mark.parametrize("prequant", [False, True])
+def test_int8_gemm_stage_is_exact(cuda, M, K, N, relu, prequant):
+    """A GEMM stage of K6 equals its plain version bit for bit, with its rows
+    quantized inside the GEMM or by the separate pass: the same f32 row
+    scales and int8 levels, s32 sums that an f32 product of the integer
     operands reproduces exactly (K <= 1040), the same f32 epilogue."""
     from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
 
@@ -514,7 +516,7 @@ def test_int8_gemm_stage_is_exact(cuda, M, K, N, relu):
     wq = torch.randint(-127, 128, (N, K), generator=gen, dtype=torch.int8).to(cuda)
     ws = (torch.rand(N, generator=gen) / 127).to(cuda)
     bias = torch.randn(N, generator=gen).to(cuda)
-    got = k6.int8_gemm(a, wq, ws, bias, relu)
+    got = k6.int8_gemm(a, wq, ws, bias, relu, prequant)
     want = k6.int8_gemm_reference(a, wq, ws, bias)
     want = (torch.relu(want) if relu else want).to(torch.bfloat16)
     torch.cuda.synchronize()
@@ -530,7 +532,7 @@ def test_int8_gemm_stage_is_exact(cuda, M, K, N, relu):
     sums = ints.float() @ small_w.float().t()
     assert sums.abs().max() < 256
     got = k6.int8_gemm(ints.to(cuda, torch.bfloat16), small_w.to(cuda), torch.ones(N, device=cuda),
-                       torch.zeros(N, device=cuda), relu)
+                       torch.zeros(N, device=cuda), relu, prequant)
     torch.cuda.synchronize()
     assert torch.equal(got.float().cpu(), torch.relu(sums) if relu else sums)
 

@@ -84,18 +84,21 @@
 //   rowquant(t) = clip(rint(t / s_row), -127, 127), int32 accumulation;
 //   qkv = bf16(int8_gemm(x)); attn as K1; x1 = bf16(LN(int8_gemm(attn) + x));
 //   h = bf16(relu(int8_gemm(x1))); y = bf16(LN(int8_gemm(h) + x1)).
-// Each stage quantizes its own input rows (the FFN2 stage reads the bf16
-// hidden row once for its scale, then quantizes it tile by tile), so no
-// stage needs a whole hidden row in one block. Products are s8 x s8 -> s32
-// mma.sync.m16n8k32 tiles; ldmatrix transposes only 16-bit elements, so the
-// int8 W operand is kept K-contiguous, [N, K]. Bound at the ViT shape
+// Each row is quantized once per stage, by whoever sees it whole: x by a
+// row-quantization pass (rowquant_kernel) before the QKV stage; x1 by the
+// out-projection's LN epilogue, which holds whole rows (N = D) and writes
+// the bf16 row and its int8 levels and scale; attn and the FFN hidden by the
+// prologue of the stage that reads them, a stage with one column tile (the
+// FFN2 stage reads each bf16 hidden row once for its scale, then quantizes
+// it tile by tile), so no stage needs a whole hidden row in one block.
+// Products are s8 x s8 -> s32 mma.sync.m16n8k32 tiles; ldmatrix transposes
+// only 16-bit elements, so the int8 W operand is kept K-contiguous, [N, K].
+// Bound at the ViT shape
 // (L = 129, F = 512): ~51 M int8 ops per frame and layer (~26 us per 1000
 // frames at 1979 TOP/s) against the same ~0.7 MB of bf16 activation traffic
 // as K1 (~0.2 ms per 1000 frames at 3.35 TB/s): with the intermediates'
 // round trips counted, device memory bounds it, more so than K1, since the
-// int8 rate is twice the bf16 one. This first port re-reads each A row for
-// its scale and re-quantizes it in every column tile of a stage, and runs
-// no wgmma.
+// int8 rate is twice the bf16 one. No wgmma or TMA yet.
 // VITIQ_FUSED_VERSION=v1 (fused_encoder_layer_int8 -> _fused_layer_kernel_int8)
 //   -> K6: the same W8A8 layer with the softmax scale applied to f32 scores
 //   of the bf16-rounded q instead of folded into q's dequant scales and
@@ -119,8 +122,11 @@ constexpr int C_LD = BN + 4;
 constexpr int GEMM_THREADS = 256;  // 8 warps: 2 x 4 warp tiles of 32 x 32
 constexpr int ATTN_WARPS = 4;
 constexpr float LN_EPS = 1e-12f;
+constexpr float ROW_SCALE_FLOOR = 1e-8f;  // K6's row scale: max(absmax, 1e-8) / 127
 
-enum Epilogue { kBias = 0, kBiasRelu = 1, kBiasResidualLN = 2 };
+// kBiasResidualLNQuant: kBiasResidualLN that also writes the bf16 output row
+// quantized for the next int8 GEMM (int8 row and its scale), K6 only.
+enum Epilogue { kBias = 0, kBiasRelu = 1, kBiasResidualLN = 2, kBiasResidualLNQuant = 3 };
 
 struct GemmArgs {
   const bf16* a;      // A rows: row r starts at a + r * lda, K contiguous values
@@ -138,7 +144,41 @@ struct GemmArgs {
   long long ldr;
   const float* gamma;
   const float* beta;
+  int8_t* cq;         // kBiasResidualLNQuant: the output rows quantized, [m, BN]
+  float* cscale;      // and their scales [m]
 };
+
+// K6's activation quantization: the row scale from the row's absmax, and a
+// value's level, clip(rint(v / s), -127, 127) with an IEEE divide and round
+// half to even, as the TPU kernel's _row_quant.
+__device__ __forceinline__ float row_scale_of(float amax) {
+  return fmaxf(amax, ROW_SCALE_FLOOR) / 127.0f;
+}
+
+__device__ __forceinline__ uint32_t quantize4(float v0, float v1, float v2, float v3, float s) {
+  const float v[4] = {v0, v1, v2, v3};
+  uint32_t packed = 0u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int q = max(-127, min(127, __float2int_rn(__fdiv_rn(v[b], s))));
+    packed |= (static_cast<uint32_t>(q) & 0xffu) << (8 * b);
+  }
+  return packed;
+}
+
+// 8 bf16 (one 16-byte chunk) -> 8 int8 levels (one 8-byte chunk)
+__device__ __forceinline__ uint2 quantize8(const uint4& chunk, float s) {
+  const bf16* e = reinterpret_cast<const bf16*>(&chunk);
+  auto f = [&](int i) { return __bfloat162float(e[i]); };
+  return make_uint2(quantize4(f(0), f(1), f(2), f(3), s), quantize4(f(4), f(5), f(6), f(7), s));
+}
+
+__device__ __forceinline__ float absmax8(const uint4& chunk, float amax) {
+  const bf16* e = reinterpret_cast<const bf16*>(&chunk);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(e[i])));
+  return amax;
+}
 
 constexpr int A_TILE = BM * A_LD;  // bf16 elements of one stage's A tile
 constexpr int B_TILE = BK * B_LD;  // and of its W tile
@@ -154,7 +194,7 @@ template <int EPI>
 __device__ __forceinline__ void gemm_epilogue(const float* Cs, const GemmArgs& p, long long m0,
                                               int n0, int tid) {
   const int warp = tid >> 5, lane = tid & 31;
-  if constexpr (EPI == kBiasResidualLN) {
+  if constexpr (EPI == kBiasResidualLN || EPI == kBiasResidualLNQuant) {
     // one warp per row, 4 columns per lane; the tile holds the whole row
     for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
       const long long gm = m0 + r;
@@ -175,10 +215,23 @@ __device__ __forceinline__ void gemm_epilogue(const float* Cs, const GemmArgs& p
         q += d * d;
       }
       const float rstd = rsqrtf(warp_sum(q) * (1.0f / BN) + LN_EPS);
+      float amax = 0.f;
 #pragma unroll
       for (int t = 0; t < BN / 32; ++t) {
         const int c = lane + 32 * t;
-        p.c[gm * p.ldc + c] = __float2bfloat16(p.gamma[c] * ((v[t] - mean) * rstd) + p.beta[c]);
+        const bf16 y = __float2bfloat16(p.gamma[c] * ((v[t] - mean) * rstd) + p.beta[c]);
+        p.c[gm * p.ldc + c] = y;
+        v[t] = __bfloat162float(y);
+        amax = fmaxf(amax, fabsf(v[t]));
+      }
+      if constexpr (EPI == kBiasResidualLNQuant) {
+        // the bf16-rounded row, quantized as the next GEMM's input
+        const float sc = row_scale_of(warp_max(amax));
+        const uint32_t packed = quantize4(v[0], v[1], v[2], v[3], sc);
+#pragma unroll
+        for (int t = 0; t < BN / 32; ++t)
+          p.cq[gm * BN + lane + 32 * t] = static_cast<int8_t>((packed >> (8 * t)) & 0xffu);
+        if (lane == 0) p.cscale[gm] = sc;
       }
     }
   } else {
@@ -292,26 +345,58 @@ constexpr int QA_TILE = BM * Q_LD;     // bytes of one stage's quantized A tile
 constexpr int QB_TILE = BN * Q_LD;     // and of its int8 W tile ([n][k])
 constexpr int QPIPE_BYTES = 2 * (QA_TILE + QB_TILE);
 constexpr int QGEMM_SMEM = QPIPE_BYTES > C_BYTES ? QPIPE_BYTES : C_BYTES;
-constexpr float ROW_SCALE_FLOOR = 1e-8f;
+constexpr int MAX_QUANT_K = 1024;      // rowquant_kernel: 4 chunks of 8 per lane
+static_assert(BN / 32 == 4, "the LN epilogue quantizes 4 values per lane");
+
+// One warp per row: q[r, :] = rowquant(a[r, :]) and s[r] for a bf16 [m, k]
+// (k % 8 == 0, k <= MAX_QUANT_K): the row is read once into registers, its
+// absmax reduced across the warp, then each value quantized.
+__global__ void __launch_bounds__(256) rowquant_kernel(const bf16* __restrict__ a,
+                                                      int8_t* __restrict__ q,
+                                                      float* __restrict__ s, long long m, int k) {
+  const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= m) return;  // warp-uniform
+  const bf16* row = a + r * k;
+  uint4 chunks[MAX_QUANT_K / 256];
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAX_QUANT_K / 256; ++j) {
+    const int c = (lane + 32 * j) * 8;
+    chunks[j] = c < k ? *reinterpret_cast<const uint4*>(row + c) : make_uint4(0u, 0u, 0u, 0u);
+    amax = absmax8(chunks[j], amax);
+  }
+  const float sc = row_scale_of(warp_max(amax));
+#pragma unroll
+  for (int j = 0; j < MAX_QUANT_K / 256; ++j) {
+    const int c = (lane + 32 * j) * 8;
+    if (c < k) *reinterpret_cast<uint2*>(q + r * k + c) = quantize8(chunks[j], sc);
+  }
+  if (lane == 0) s[r] = sc;
+}
 
 // C[:, n0 .. n0 + BN) = epilogue(dequant(rowquant(A) @ Wq^T)) for one 64 x
-// 128 tile per block, A bf16 rows of p.k values, Wq int8 [N, p.k] (K
-// contiguous: nn.Linear's [out, in]) with per-column scales wscale [N].
-//   prologue  each row's scale s_r = max(max_k |A[r, k]|, 1e-8) / 127 over
-//             the whole row (one warp per row), before any product;
-//   k loop    A tiles are read as bf16 and quantized on the way to shared
-//             memory, q = clip(rint(a / s_r), -127, 127) (IEEE division,
-//             round half to even); W tiles arrive by cp.async; two stages,
-//             the next tile's loads in flight during this one's products;
-//             s8 x s8 -> s32 products on the tensor cores
-//             (mma.sync.m16n8k32), each warp a 32 x 32 sub-tile;
-//   epilogue  Cs = (f32(acc) * s_r) * wscale[n], then K1's gemm_epilogue.
+// 128 tile per block, A rows of p.k values, Wq int8 [N, p.k] (K contiguous:
+// nn.Linear's [out, in]) with per-column scales wscale [N]. A comes
+//   PREQ = false  as bf16 (p.a): a prologue takes each row's scale over the
+//                 whole row (one warp per row) before any product, and the k
+//                 loop quantizes the A tiles on their way to shared memory
+//                 (stages whose A is read by one column tile: out-projection,
+//                 FFN2);
+//   PREQ = true   already quantized (aq [m, p.k] int8, ascale [m]): from
+//                 rowquant_kernel or a kBiasResidualLNQuant epilogue, so a
+//                 stage with several column tiles (QKV, FFN1) quantizes each
+//                 row once, not once per tile; A tiles arrive by cp.async.
+// W tiles arrive by cp.async; two stages, the next tile's loads in flight
+// during this one's s8 x s8 -> s32 products on the tensor cores
+// (mma.sync.m16n8k32, each warp a 32 x 32 sub-tile). Epilogue:
+// Cs = (f32(acc) * s_r) * wscale[n], then K1's gemm_epilogue.
 // |q_a q_w| summed over K <= 1040 stays below 2^24, so f32(acc) is the exact
 // sum, the same number an f32 product of the integer operands gives.
-template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_int8_kernel(GemmArgs p,
-                                                                 const int8_t* __restrict__ wq,
-                                                                 const float* __restrict__ wscale) {
+template <int EPI, bool PREQ>
+__global__ void __launch_bounds__(GEMM_THREADS) gemm_int8_kernel(
+    GemmArgs p, const int8_t* __restrict__ aq, const float* __restrict__ ascale,
+    const int8_t* __restrict__ wq, const float* __restrict__ wscale) {
   __shared__ __align__(128) unsigned char smem[QGEMM_SMEM];
   __shared__ float row_scale[BM];
   int8_t* stages = reinterpret_cast<int8_t*>(smem);  // [2][A tile | W tile]
@@ -324,26 +409,27 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_int8_kernel(GemmArgs p,
   const int n0 = p.col0 + (int)(blockIdx.x % p.n_tiles) * BN;
   const int wm = warp >> 2, wn = warp & 3;
 
-  for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
-    const long long gm = m0 + r;
-    float amax = 0.f;
-    if (gm < p.m) {
-      const bf16* row = p.a + gm * p.lda;
-      for (int c = lane * 8; c < p.k; c += 32 * 8) {
-        const uint4 v = *reinterpret_cast<const uint4*>(row + c);
-        const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(e[i])));
+  if constexpr (PREQ) {
+    if (tid < BM) row_scale[tid] = m0 + tid < p.m ? ascale[m0 + tid] : 1.f;
+  } else {
+    for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
+      const long long gm = m0 + r;
+      float amax = 0.f;
+      if (gm < p.m) {
+        const bf16* row = p.a + gm * p.lda;
+        for (int c = lane * 8; c < p.k; c += 32 * 8)
+          amax = absmax8(*reinterpret_cast<const uint4*>(row + c), amax);
       }
+      amax = warp_max(amax);
+      if (lane == 0) row_scale[r] = row_scale_of(amax);
     }
-    amax = warp_max(amax);
-    if (lane == 0) row_scale[r] = fmaxf(amax, ROW_SCALE_FLOOR) / 127.0f;
   }
   __syncthreads();
 
-  // each thread moves two 16-byte chunks of A (8 bf16) and of W (16 int8)
+  // each thread moves two 16-byte chunks of bf16 A (8 values) or one of
+  // int8 A (16 values), and two of W (16 int8 each)
   uint4 a_regs[2];
-  auto load_a = [&](int k0) {
+  auto load_a = [&](int k0) {  // bf16 A tile -> registers
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int i = tid + j * GEMM_THREADS;
@@ -353,31 +439,24 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_int8_kernel(GemmArgs p,
                            : make_uint4(0u, 0u, 0u, 0u);
     }
   };
-  auto store_a = [&](int stage) {
+  auto store_a = [&](int stage) {  // registers -> quantized A tile
     int8_t* As = stages + stage * (QA_TILE + QB_TILE);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int i = tid + j * GEMM_THREADS;
       const int r = i >> 3, c = (i & 7) * 8;
-      const float s = row_scale[r];
-      const bf16* e = reinterpret_cast<const bf16*>(&a_regs[j]);
-      uint32_t words[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint32_t packed = 0u;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          int q = __float2int_rn(__fdiv_rn(__bfloat162float(e[4 * h + b]), s));
-          q = max(-127, min(127, q));
-          packed |= (static_cast<uint32_t>(q) & 0xffu) << (8 * b);
-        }
-        words[h] = packed;
-      }
-      *reinterpret_cast<uint2*>(As + r * Q_LD + c) = make_uint2(words[0], words[1]);
+      *reinterpret_cast<uint2*>(As + r * Q_LD + c) = quantize8(a_regs[j], row_scale[r]);
     }
   };
-  auto load_w = [&](int stage, int k0) {
-    int8_t* Bs = stages + stage * (QA_TILE + QB_TILE) + QA_TILE;
+  auto load_stage = [&](int stage, int k0) {  // cp.async: W tile (and int8 A tile)
+    int8_t* As = stages + stage * (QA_TILE + QB_TILE);
+    int8_t* Bs = As + QA_TILE;
+    if constexpr (PREQ) {
+      const int r = tid >> 2, c = (tid & 3) * 16;
+      const long long gm = m0 + r;
+      const bool in = gm < p.m;
+      cp_async16(As + r * Q_LD + c, aq + (in ? gm : 0) * p.k + k0 + c, in ? 16 : 0);
+    }
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int i = tid + j * GEMM_THREADS;
@@ -389,15 +468,17 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_int8_kernel(GemmArgs p,
 
   int acc[2][4][4] = {};
   const int nk = p.k / QBK;
-  load_w(0, 0);
-  load_a(0);
-  store_a(0);
+  load_stage(0, 0);
+  if constexpr (!PREQ) {
+    load_a(0);
+    store_a(0);
+  }
   for (int kt = 0; kt < nk; ++kt) {
     const bool more = kt + 1 < nk;
     if (more) {
-      load_w((kt + 1) & 1, (kt + 1) * QBK);
-      load_a((kt + 1) * QBK);
-      cp_async_wait<1>();  // this k-step's W has landed, the next may not
+      load_stage((kt + 1) & 1, (kt + 1) * QBK);
+      if constexpr (!PREQ) load_a((kt + 1) * QBK);
+      cp_async_wait<1>();  // this k-step's tiles have landed, the next may not
     } else {
       cp_async_wait<0>();
     }
@@ -427,7 +508,9 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_int8_kernel(GemmArgs p,
     }
     // the other stage was last read in the previous k-step, which every warp
     // has left (the barrier below it), so its A tile may be written now
-    if (more) store_a((kt + 1) & 1);
+    if constexpr (!PREQ) {
+      if (more) store_a((kt + 1) & 1);
+    }
     __syncthreads();
   }
 
@@ -701,27 +784,40 @@ int encoder_layer(bool cls_only, const void* x, void* out, void* qkv, void* attn
   return (int)cudaGetLastError();
 }
 
-template <int EPI>
-void launch_gemm_int8(GemmArgs p, const void* wq, const void* wscale, int n_cols,
-                      cudaStream_t stream) {
+template <int EPI, bool PREQ>
+void launch_gemm_int8(GemmArgs p, const void* aq, const void* ascale, const void* wq,
+                      const void* wscale, int n_cols, cudaStream_t stream) {
   p.n_tiles = n_cols / BN;
   const long long blocks = (p.m + BM - 1) / BM * p.n_tiles;
-  gemm_int8_kernel<EPI><<<(unsigned)blocks, GEMM_THREADS, 0, stream>>>(
-      p, static_cast<const int8_t*>(wq), static_cast<const float*>(wscale));
+  gemm_int8_kernel<EPI, PREQ><<<(unsigned)blocks, GEMM_THREADS, 0, stream>>>(
+      p, static_cast<const int8_t*>(aq), static_cast<const float*>(ascale),
+      static_cast<const int8_t*>(wq), static_cast<const float*>(wscale));
+}
+
+void launch_rowquant(const void* a, void* aq, void* ascale, long long m, int k,
+                     cudaStream_t stream) {
+  rowquant_kernel<<<(unsigned)((m + 7) / 8), 256, 0, stream>>>(
+      static_cast<const bf16*>(a), static_cast<int8_t*>(aq), static_cast<float*>(ascale), m, k);
 }
 
 // K6: one full W8A8 layer. x, out: [B, L, D] bf16. Scratch: qkv [B, L, 3D],
-// attn and x1 [B, L, D], hid [B, L, F], bf16. Weights int8 in nn.Linear's
-// [out, in] layout: wqkv [3D, D] (q, k, v rows), wo [D, D], w1 [F, D],
-// w2 [D, F]; per-output-channel scales sqkv [3D], so [D], s1 [F], s2 [D] and
-// biases f32, the q section of sqkv and bqkv multiplied by log2(e)/sqrt(dh);
-// LN parameters f32. Returns cudaGetLastError().
+// attn and x1 [B, L, D], hid [B, L, F], bf16; aq [B, L, D] int8 and ascale
+// [B, L] f32 (the quantized QKV input, then the quantized FFN1 input).
+// Weights int8 in nn.Linear's [out, in] layout: wqkv [3D, D] (q, k, v rows),
+// wo [D, D], w1 [F, D], w2 [D, F]; per-output-channel scales sqkv [3D],
+// so [D], s1 [F], s2 [D] and biases f32, the q section of sqkv and bqkv
+// multiplied by log2(e)/sqrt(dh); LN parameters f32. Returns
+// cudaGetLastError().
+//   rowquant(x) -> aq; QKV (PREQ) -> qkv; attention -> attn;
+//   out-projection (A quantized in-kernel) + LN1 -> x1, and x1 quantized -> aq;
+//   FFN1 (PREQ) + ReLU -> hid; FFN2 (A quantized in-kernel) + LN2 -> out.
 int encoder_layer_int8(const void* x, void* out, void* qkv, void* attn, void* x1, void* hid,
-                       const void* wqkv, const void* sqkv, const void* bqkv, const void* wo,
-                       const void* so, const void* bo, const void* g1, const void* be1,
-                       const void* w1, const void* s1, const void* b1, const void* w2,
-                       const void* s2, const void* b2, const void* g2, const void* be2, int B,
-                       int L, int D, int H, int F, void* stream_ptr) {
+                       void* aq, void* ascale, const void* wqkv, const void* sqkv,
+                       const void* bqkv, const void* wo, const void* so, const void* bo,
+                       const void* g1, const void* be1, const void* w1, const void* s1,
+                       const void* b1, const void* w2, const void* s2, const void* b2,
+                       const void* g2, const void* be2, int B, int L, int D, int H, int F,
+                       void* stream_ptr) {
   if (!shapes_ok(B, L, D, H, F) || F % QBK) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   const bf16* xb = static_cast<const bf16*>(x);
@@ -732,20 +828,22 @@ int encoder_layer_int8(const void* x, void* out, void* qkv, void* attn, void* x1
   auto f32 = [](const void* v) { return static_cast<const float*>(v); };
   const long long M = (long long)B * L;
 
-  launch_gemm_int8<kBias>(gemm_args(xb, D, nullptr, 0, f32(bqkv), qkvb, 3 * D, M, D, 0), wqkv,
-                          sqkv, 3 * D, s);
+  launch_rowquant(x, aq, ascale, M, D, s);
+  launch_gemm_int8<kBias, true>(gemm_args(xb, D, nullptr, 0, f32(bqkv), qkvb, 3 * D, M, D, 0),
+                                aq, ascale, wqkv, sqkv, 3 * D, s);
   const cudaError_t err = attention(qkvb, attnb, B, L, L, D, H, (long long)L * D, s);
   if (err != cudaSuccess) return (int)err;
-  launch_gemm_int8<kBiasResidualLN>(
-      with_ln(gemm_args(attnb, D, nullptr, 0, f32(bo), x1b, D, M, D, 0), xb, D, f32(g1),
-              f32(be1)),
-      wo, so, D, s);
-  launch_gemm_int8<kBiasRelu>(gemm_args(x1b, D, nullptr, 0, f32(b1), hidb, F, M, D, 0), w1, s1,
-                              F, s);
-  launch_gemm_int8<kBiasResidualLN>(
+  GemmArgs proj = with_ln(gemm_args(attnb, D, nullptr, 0, f32(bo), x1b, D, M, D, 0), xb, D,
+                          f32(g1), f32(be1));
+  proj.cq = static_cast<int8_t*>(aq);
+  proj.cscale = static_cast<float*>(ascale);
+  launch_gemm_int8<kBiasResidualLNQuant, false>(proj, nullptr, nullptr, wo, so, D, s);
+  launch_gemm_int8<kBiasRelu, true>(gemm_args(x1b, D, nullptr, 0, f32(b1), hidb, F, M, D, 0),
+                                    aq, ascale, w1, s1, F, s);
+  launch_gemm_int8<kBiasResidualLN, false>(
       with_ln(gemm_args(hidb, F, nullptr, 0, f32(b2), static_cast<bf16*>(out), D, M, F, 0), x1b,
               D, f32(g2), f32(be2)),
-      w2, s2, D, s);
+      nullptr, nullptr, w2, s2, D, s);
   return (int)cudaGetLastError();
 }
 
@@ -779,29 +877,41 @@ extern "C" int vitiq_encoder_layer_cls(
 
 // K6: one full W8A8 layer (see encoder_layer_int8).
 extern "C" int vitiq_encoder_layer_int8_full(
-    const void* x, void* out, void* qkv, void* attn, void* x1, void* hid,
-    const void* wqkv, const void* sqkv, const void* bqkv, const void* wo, const void* so,
-    const void* bo, const void* g1, const void* be1, const void* w1, const void* s1,
-    const void* b1, const void* w2, const void* s2, const void* b2, const void* g2,
-    const void* be2, int B, int L, int D, int H, int F, void* stream_ptr) {
-  return encoder_layer_int8(x, out, qkv, attn, x1, hid, wqkv, sqkv, bqkv, wo, so, bo, g1, be1,
-                            w1, s1, b1, w2, s2, b2, g2, be2, B, L, D, H, F, stream_ptr);
+    const void* x, void* out, void* qkv, void* attn, void* x1, void* hid, void* aq,
+    void* ascale, const void* wqkv, const void* sqkv, const void* bqkv, const void* wo,
+    const void* so, const void* bo, const void* g1, const void* be1, const void* w1,
+    const void* s1, const void* b1, const void* w2, const void* s2, const void* b2,
+    const void* g2, const void* be2, int B, int L, int D, int H, int F, void* stream_ptr) {
+  return encoder_layer_int8(x, out, qkv, attn, x1, hid, aq, ascale, wqkv, sqkv, bqkv, wo, so,
+                            bo, g1, be1, w1, s1, b1, w2, s2, b2, g2, be2, B, L, D, H, F,
+                            stream_ptr);
 }
 
 // One of K6's GEMM stages alone, c [M, N] bf16 = epilogue(int8_gemm(a)) with
 // the bias (relu = 0) or the bias + ReLU (relu = 1) epilogue; a [M, K] bf16,
-// wq [N, K] int8, wscale and bias [N] f32. K % 64 == 0, N % 128 == 0.
+// wq [N, K] int8, wscale and bias [N] f32. With prequant = 1, a is quantized
+// first by rowquant_kernel into the scratch aq [M, K] int8 and ascale [M]
+// (K <= 1024), as the QKV and FFN1 stages take it; else in the GEMM's
+// prologue and k loop. K % 64 == 0, N % 128 == 0.
 extern "C" int vitiq_gemm_int8(const void* a, const void* wq, const void* wscale,
-                               const void* bias, void* c, int M, int K, int N, int relu,
-                               void* stream_ptr) {
-  if (M <= 0 || K <= 0 || K % QBK || N <= 0 || N % BN) return (int)cudaErrorInvalidValue;
+                               const void* bias, void* c, void* aq, void* ascale, int M, int K,
+                               int N, int relu, int prequant, void* stream_ptr) {
+  if (M <= 0 || K <= 0 || K % QBK || N <= 0 || N % BN || (prequant && K > MAX_QUANT_K))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   const GemmArgs p = gemm_args(static_cast<const bf16*>(a), K, nullptr, 0,
                                static_cast<const float*>(bias), static_cast<bf16*>(c), N, M, K,
                                0);
-  if (relu)
-    launch_gemm_int8<kBiasRelu>(p, wq, wscale, N, s);
-  else
-    launch_gemm_int8<kBias>(p, wq, wscale, N, s);
+  if (prequant) {
+    launch_rowquant(a, aq, ascale, M, K, s);
+    if (relu)
+      launch_gemm_int8<kBiasRelu, true>(p, aq, ascale, wq, wscale, N, s);
+    else
+      launch_gemm_int8<kBias, true>(p, aq, ascale, wq, wscale, N, s);
+  } else if (relu) {
+    launch_gemm_int8<kBiasRelu, false>(p, nullptr, nullptr, wq, wscale, N, s);
+  } else {
+    launch_gemm_int8<kBias, false>(p, nullptr, nullptr, wq, wscale, N, s);
+  }
   return (int)cudaGetLastError();
 }

@@ -34,10 +34,10 @@ _DROP_ARGS = [_I] * 5 + [_U, _F, _I, _I, _P]
 SIGNATURES = {
     "vitiq_encoder_layer_full": (_LAYER_ARGS, _I),
     "vitiq_encoder_layer_cls": (_LAYER_ARGS, _I),
-    # x, out, 4 scratch, 16 int8-layer operands; B, L, D, H, F; stream
-    "vitiq_encoder_layer_int8_full": ([_P] * 22 + [_I] * 5 + [_P], _I),
-    # a, wq, wscale, bias, c; M, K, N, relu; stream
-    "vitiq_gemm_int8": ([_P] * 5 + [_I] * 4 + [_P], _I),
+    # x, out, 6 scratch, 16 int8-layer operands; B, L, D, H, F; stream
+    "vitiq_encoder_layer_int8_full": ([_P] * 24 + [_I] * 5 + [_P], _I),
+    # a, wq, wscale, bias, c, aq, ascale; M, K, N, relu, prequant; stream
+    "vitiq_gemm_int8": ([_P] * 7 + [_I] * 5 + [_P], _I),
     "vitiq_train_layer_fwd": ([_P] * 15 + _DROP_ARGS, _I),
     "vitiq_train_layer_bwd": ([_P] * 17 + _DROP_ARGS, _I),
     "vitiq_train_layer_fwd_stash": ([_P] * 21 + _DROP_ARGS, _I),

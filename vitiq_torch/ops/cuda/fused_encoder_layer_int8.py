@@ -225,12 +225,15 @@ def fused_encoder_layer_int8(x: torch.Tensor, ops: Sequence[torch.Tensor],
     attn = torch.empty_like(x)
     x1 = torch.empty_like(x)
     hid = torch.empty((B, L, F), dtype=x.dtype, device=x.device)
+    aq = torch.empty((B, L, D), dtype=torch.int8, device=x.device)
+    ascale = torch.empty((B, L), dtype=torch.float32, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.vitiq_encoder_layer_int8_full(
             x.data_ptr(), out.data_ptr(), qkv.data_ptr(), attn.data_ptr(), x1.data_ptr(),
-            hid.data_ptr(), *(t.data_ptr() for t in ops), B, L, D, n_head, F, stream)
+            hid.data_ptr(), aq.data_ptr(), ascale.data_ptr(), *(t.data_ptr() for t in ops),
+            B, L, D, n_head, F, stream)
     if err != 0:
         raise RuntimeError(f"vitiq_encoder_layer_int8_full failed: CUDA error {err} "
                            f"({lib.vitiq_error_string(err).decode()})")
@@ -239,29 +242,37 @@ def fused_encoder_layer_int8(x: torch.Tensor, ops: Sequence[torch.Tensor],
 
 
 def int8_gemm(a: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor, bias: torch.Tensor,
-              relu: bool = False) -> torch.Tensor:
+              relu: bool = False, prequant: bool = False) -> torch.Tensor:
     """One of K6's GEMM stages alone (row quantization, s8 products,
     dequant + bias [+ ReLU] epilogue): bf16 a [M, K], int8 wq [N, K] ->
-    bf16 [M, N]. Equal bit for bit to its plain version, `int8_gemm_reference`
-    rounded to bf16 (same row scales, levels, exact sums, same f32 epilogue).
-    Not on the serving path: it exposes the stage to tests and timing."""
+    bf16 [M, N]; with `prequant` the rows are quantized by a separate pass
+    first (as K6's QKV and FFN1 stages take them; K <= 1024), else inside the
+    GEMM (as its out-projection and FFN2 stages do). Equal bit for bit to its
+    plain version, `int8_gemm_reference` rounded to bf16 (same row scales,
+    levels, exact sums, same f32 epilogue). Not on the serving path: it
+    exposes the stage to tests and timing."""
     if a.device.type == "cpu":
         y = int8_gemm_reference(a, wq, wscale, bias)
         return (torch.relu(y) if relu else y).to(a.dtype)
     M, K = a.shape
     N = wq.shape[0]
     if (a.dtype != torch.bfloat16 or not a.is_contiguous() or K % 64 or N % 128
+            or (prequant and K > 1024)
             or tuple(wq.shape) != (N, K) or wq.dtype != torch.int8 or not wq.is_contiguous()
             or any(t.dtype != torch.float32 or tuple(t.shape) != (N,) for t in (wscale, bias))
             or any(t.device != a.device for t in (wq, wscale, bias))):
         raise ValueError("int8_gemm takes contiguous bf16 a [M, K], int8 wq [N, K] and f32 "
-                         "wscale, bias [N] on one CUDA device, K % 64 == 0, N % 128 == 0")
+                         "wscale, bias [N] on one CUDA device, K % 64 == 0, N % 128 == 0 "
+                         "(and K <= 1024 with prequant)")
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    aq = torch.empty((M, K) if prequant else (1,), dtype=torch.int8, device=a.device)
+    ascale = torch.empty((M if prequant else 1,), dtype=torch.float32, device=a.device)
     lib = _build.library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.vitiq_gemm_int8(a.data_ptr(), wq.data_ptr(), wscale.data_ptr(),
-                                  bias.data_ptr(), out.data_ptr(), M, K, N, int(relu), stream)
+                                  bias.data_ptr(), out.data_ptr(), aq.data_ptr(),
+                                  ascale.data_ptr(), M, K, N, int(relu), int(prequant), stream)
     if err != 0:
         raise RuntimeError(f"vitiq_gemm_int8 failed: CUDA error {err} "
                            f"({lib.vitiq_error_string(err).decode()})")

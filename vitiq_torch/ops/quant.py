@@ -60,18 +60,18 @@ def quantize_linear_params(weight: torch.Tensor, bias: torch.Tensor) -> Dict[str
     return {"weight_q": weight_q, "scale": scale[:, 0], "bias": bias.detach().float().clone()}
 
 
-def quantize_params_int8(state_dict: Mapping[str, torch.Tensor],
-                         keep_float: tuple = ("mlp_head",)) -> "OrderedDict[str, torch.Tensor]":
+def quantize_params_int8(
+        state_dict: Mapping[str, torch.Tensor]) -> "OrderedDict[str, torch.Tensor]":
     """Quantize every linear-shaped pair (``X.weight`` with two or more dims
     and ``X.bias``) of an `AMCModel` state dict to ``X.weight_q``,
     ``X.scale`` and ``X.bias``; everything else (LayerNorm affines, the CLS
-    token) passes through as an f32 copy. Entries under a top-level name in
-    `keep_float` (default: the classifier head, with the rawIQ head's
-    LayerNorm) stay float. The result loads into `QuantizedAMCModel`."""
+    token) passes through as an f32 copy, and so does the classifier head
+    (``mlp_head``, with the rawIQ head's LayerNorm), which stays float. The
+    result loads into `QuantizedAMCModel`."""
     linears = {key[:-len(".weight")] for key, value in state_dict.items()
                if key.endswith(".weight") and value.dim() >= 2
                and key[:-len(".weight")] + ".bias" in state_dict
-               and key.split(".")[0] not in keep_float}
+               and not key.startswith("mlp_head.")}
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for key, value in state_dict.items():
         prefix, _, leaf = key.rpartition(".")
