@@ -33,6 +33,7 @@ from vitiq.train.checkpoint import save_params as vitiq_save_params
 from vitiq_torch.config import DataConfig
 from vitiq_torch.data import SyntheticAMCDataset, channel_from_config, stats_from_array
 from vitiq_torch.eval import ClassificationReportParser, confusion_artifacts
+from vitiq_torch.eval.plots import plot_training_history
 from vitiq_torch.eval.report import confusion_matrix, write_classification_report
 from vitiq_torch.runner import run_evaluation
 
@@ -120,6 +121,10 @@ def test_confusion_artifacts_plots(tmp_path):
                  "confusion_matrix_snr_0dB", "confusion_matrix_snr_8dB", "accuracy_vs_snr"):
         assert (tmp_path / f"test_{stem}.png").stat().st_size > 0
     assert not (tmp_path / "test_results.pkl").exists()
+    history = {"train_loss": [1.1, 0.9], "val_loss": [1.0, 0.95], "train_acc": [0.4, 0.6],
+               "val_acc": [0.45, 0.55]}
+    plot_training_history(history, tmp_path / "history.png")
+    assert (tmp_path / "history.png").stat().st_size > 0
 
 
 def test_model_comparison_reads_a_port_report_beside_a_vitiq_one(tmp_path):
