@@ -223,13 +223,12 @@ def test_run_evaluation_int8_within_vitiq_bounds(vitiq_experiment, monkeypatch):
 @pytest.mark.parametrize("int8", [False, True])
 def test_cli_evaluate_writes_reports_vitiq_reads(vitiq_experiment, int8):
     args = [sys.executable, "-m", "vitiq_torch.cli", "evaluate", "--checkpoint",
-            str(vitiq_experiment), "--device", "cpu", "--dataset", "valid"]
-    if int8:
-        args += ["--int8", "--no_plots"]
+            str(vitiq_experiment), "--device", "cpu"]
+    args += ["--int8", "--no_plots"] if int8 else ["--dataset", "valid"]
     proc = subprocess.run(args, cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "overall accuracy:" in proc.stdout and "SNR  -8 dB:" in proc.stdout
-    prefix = "valid_int8" if int8 else "valid"
+    prefix = "test_int8" if int8 else "valid"
     out = vitiq_experiment / "evaluation"
     parsed = vreport.ClassificationReportParser(out / f"{prefix}_classification_report.txt")
     assert set(parsed.class_metrics) == {"BPSK", "QPSK", "16QAM"}
