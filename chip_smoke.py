@@ -14,7 +14,10 @@ which raises (exit code 1) on failure:
    F=1024, B=64) shapes, D=128, H=8: each of five K1 layers and the K2 layer
    on the plain version's input to it (|kernel - plain| <= 3e-2 + 1.6e-2 *
    |plain|), and the five K1 layers as one stack (6e-2 + 3.2e-2 * |plain|);
-   see LAYER_TOL and STACK_TOL. Then K5-fwd and K5-bwd (the standalone
+   see LAYER_TOL and STACK_TOL; then the same at the widths past d_model 128
+   / d_head 32 (WIDE_SHAPES: rawiq_best's D=256, H=8, L=65, F=1024;
+   vit_tiny_2016's D=64, H=4, L=17; d_head 64 at D=128, H=2, L=129; B=256).
+   Then K5-fwd and K5-bwd (the standalone
    packed attention) against their plain versions at B=64, L 17 and 1025
    (d_head 16) and L 1025 at d_head 32: out within GRAD_REL in the L2 norm and
    elementwise within K5_OUT_TOL (scaled to the output's rms), the f32
@@ -24,9 +27,10 @@ which raises (exit code 1) on failure:
    three flagship shapes (B=256, B=256, B=64), d_head 16 and 32: each of
    five layers on the plain version's input and the five layers with the K2
    CLS tail (on dequantized weights) as one stack, by relative L2 and a max
-   in quantization steps (K6_LAYER_TOL, K6_STACK_TOL, both printed); and
-   K6's FFN1 GEMM stage alone, which must equal the plain int8 GEMM bit for
-   bit.
+   in quantization steps (K6_LAYER_TOL, K6_STACK_TOL, both printed), and the
+   same at WIDE_SHAPES; K6's FFN1 GEMM stage alone, which must equal the
+   plain int8 GEMM bit for bit, and at rawiq_best's width all four stages
+   (QKV, out-projection and FFN2 on their 256-wide tiles, FFN1).
 4. serve: the ViT flagship (d128/L6/H8, bf16 `tpu` numerics, seeded random
    weights) answers ragged requests of 1, 37, 256 and 1000 raw [B, 1024, 2]
    frames through `Server` with buckets (256, 1024). Every launch counter is
@@ -41,6 +45,10 @@ which raises (exit code 1) on failure:
    The conv1d flagship (1025 tokens) repeats it with requests of 1, 37 and
    256 through buckets (64, 256), and again with VITIQ_NO_FUSED_LAYER=1,
    where each request must launch K5-fwd once per layer and K1/K2 never.
+   serve-wide: rawiq_best (d256/L9/H8, through the fused raw embedding:
+   K1 8 and K2 1 per request), rawiq_best_mp (mean pooling: K1 9, K2 0),
+   vit_tiny_2016 (d64, 128-sample frames) and vit_tpu_production (d_head
+   64) the same way, each within 0.05 of its f32 path.
    int8-serve: each flagship's int8 W8A8 twin (`build_int8_serving_fn`,
    quantized from the same random weights) serves the same ragged requests
    through `Server`; every counter is reset before each request and read
@@ -48,7 +56,7 @@ which raises (exit code 1) on failure:
    held to the f32 path with the JAX package's bound, max |dlogit| < 0.35 *
    max(|ref|, 1), and to the unfused int8 path on the card
    (VITIQ_NO_FUSED_LAYER=1, which must launch nothing); argmax agreement
-   printed.
+   printed; rawiq_best the same way (K6 8, K2 1 per request).
 5. train-kernels: K3-fwd and K3-bwd (the fused training layer, recompute
    regime) on the GPU against their plain PyTorch versions at the ViT
    flagship shape (B=256, L=129, F=512, H=8, dropout 0.1) and the rawIQ one
@@ -57,7 +65,9 @@ which raises (exit code 1) on failure:
    tensors within LAYER_TOL, K4's f32 1/std within 1e-3 relative, each of
    the 12 weight, bias and LN gradients within GRAD_REL of the plain
    gradient in the L2 norm (max |difference| printed). K4-bwd runs on the
-   plain version's stash, so that it alone is under test.
+   plain version's stash, so that it alone is under test. Then K3 at
+   rawiq_best's shape (D=256, L=65, dropout 0.1 and 0) and K4 at
+   rawiq_best_mp's (D=256, L=64).
 6. train: the ViT flagship and the rawIQ flagship (bf16 `tpu` numerics,
    seeded random weights) each take 20 `make_train_step` steps at B=256 on
    one repeated random batch at lr 1e-3, the rawIQ one on raw frames through
@@ -73,13 +83,20 @@ which raises (exit code 1) on failure:
    auto), with K5 as their attention: every step must launch K5-fwd 12
    times (6 forward, 6 recompute) and K5-bwd 6 times, K3 and K4 never; its
    gradient at dropout 0 is held to the f32 path at B=8 (cosine >= 0.995).
+   rawiq_best takes 20 steps at B=256 through K3 (9 forward and 9 backward
+   launches a step), rawiq_best_mp through K4 (9 + 9), each gradient held to
+   the plain bf16 layers and the f32 path at cosine >= 0.995.
    evaluate: the ViT flagship (3 classes) trains with `fit` on the default
    synthetic corpus (3 x 2048 frames, seed 0, EVAL_EPOCHS epochs at B=128,
    lr 3e-4); the experiment is saved as the JAX package lays it out
    (config.json, normalization_stats.json, model_best.npz) in a temporary
    directory and evaluated on its test split by `run_evaluation` on the
    card, in float and int8: both reports parse back, float test accuracy
-   >= EVAL_MIN_ACC and int8 within 2 points of it.
+   >= EVAL_MIN_ACC and int8 within 2 points of it. Every phase counts its
+   launches: K3 6 + 6 per train step, K1 5 (float) or K6 5 (int8) and K2 1
+   per evaluated batch. rawiq_best repeats it with BEST_EVAL_EPOCHS epochs
+   at lr 1e-4 (K3 9 + 9 per step, its validation passes through K1/K2 at
+   d256), gated on launches and report files, not accuracy.
 7. timing (CUDA events after warm-up): per-layer kernel time against the
    plain version (K1 and K2 at the three shapes, B=4096 and, at 1025 tokens,
    B=256; K3 at the ViT and rawIQ shapes and K4 at the rawIQ one, B=4096;
@@ -94,7 +111,11 @@ which raises (exit code 1) on failure:
    its FFN1 stage against torch._int_mm at that shape; serving frames/s and
    p50 latency at B=4096 (ViT, rawIQ) and B=2048 (conv1d), through the
    kernels and through the plain layer loop, and at B=4096 (ViT, rawIQ)
-   through the int8 path;
+   through the int8 path; rawiq_best's layer at B=4096 (K1, K2, K6, K3 at
+   L=65, K4 at rawiq_best_mp's L=64, each beside its plain version and bound,
+   and nn.TransformerEncoderLayer(256, 8, 1024)), its serving (bf16 and
+   int8) and train steps (rawiq_best through K3, with a `torch.profiler`
+   breakdown by kernel, rawiq_best_mp through K4);
    train-step frames/s and peak device memory: the ViT flagship through K3
    and through the plain layers, the rawIQ flagship through K4, through K3
    (VITIQ_TRAIN_STASH=0) and through the plain layers (B=4096), the conv1d
@@ -120,7 +141,14 @@ import time
 import torch
 
 from vitiq_torch.config import DataConfig, ExperimentConfig, TrainConfig
-from vitiq_torch.config import flagship_conv1d_config, flagship_rawiq_config, flagship_vit_config
+from vitiq_torch.config import (
+    flagship_conv1d_config,
+    flagship_rawiq_config,
+    flagship_vit_config,
+    rawiq_best_config,
+    rawiq_best_mp_config,
+    vit_tiny_2016_config,
+)
 from vitiq_torch.eval import ClassificationReportParser
 from vitiq_torch.models import AMCModel
 from vitiq_torch.models.layers import EncoderLayer
@@ -167,6 +195,7 @@ TRAIN_DROP, TRAIN_SEED = 0.1, 1234
 STATS = {"i_mean": 0.0, "i_std": 1.0, "q_mean": 0.0, "q_std": 1.0}
 RAW_STATS = {"i_mean": 0.1, "i_std": 1.3, "q_mean": -0.2, "q_std": 0.9}
 RAW_DROP = 0.2  # the rawIQ flagship's dropout
+BEST_DROP = 0.1  # rawiq_best's
 K3 = ("fused_train_layer_fwd", "fused_train_layer_bwd")
 K4 = ("fused_train_layer_fwd_stash", "fused_train_layer_bwd_stash")
 GRAD_NAMES = ("dWqkv", "dbqkv", "dWo", "dbo", "dg1", "dbe1", "dW1", "db1", "dW2", "db2", "dg2",
@@ -201,7 +230,14 @@ INT8_LOGIT_BOUND, INT8_ACC_POINTS = 0.35, 0.02
 # stopping is off (patience = epochs)
 EVAL_EPOCHS, EVAL_BATCH, EVAL_LR = 40, 128, 3e-4
 EVAL_MIN_ACC = 0.5  # 3 classes: chance is 1/3
+# rawiq_best's evaluate phase: a short fit (its validation passes run K1/K2
+# at d256), then run_evaluation in float and int8; launches and report files
+# are gated, not accuracy
+BEST_EVAL_EPOCHS, BEST_EVAL_LR = 2, 1e-4
 DEVICE = torch.device("cuda", 0)
+# the JAX package's recommended ViT (n_head 2, d_head 64) under `tpu` numerics
+VIT_TPU_PRODUCTION = dataclasses.replace(ExperimentConfig.vit_tpu_production().model,
+                                         numerics="tpu")
 # Published peaks of one H100 SXM:
 # dense bf16 tensor-core FLOP/s, int8 tensor-core OP/s and HBM bytes/s. A
 # kernel's bound is the larger of its operations and its compulsory bytes
@@ -231,15 +267,15 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def random_layers(n_layers: int, ffn: int, seed: int, device):
+def random_layers(n_layers: int, ffn: int, seed: int, device, D: int = 128, H: int = 8):
     gen = torch.Generator().manual_seed(seed)
-    layers = [EncoderLayer(128, ffn, 8, device=device, generator=gen).eval()
+    layers = [EncoderLayer(D, ffn, H, device=device, generator=gen).eval()
               for _ in range(n_layers)]
     with torch.no_grad():  # LayerNorm affine away from (1, 0)
         for layer in layers:
             for norm in (layer.norm1, layer.norm2):
-                norm.gamma.copy_(1.0 + 0.1 * torch.randn(128, generator=gen))
-                norm.beta.copy_(0.1 * torch.randn(128, generator=gen))
+                norm.gamma.copy_(1.0 + 0.1 * torch.randn(D, generator=gen))
+                norm.beta.copy_(0.1 * torch.randn(D, generator=gen))
     return layers
 
 
@@ -260,36 +296,46 @@ def check_close(label: str, got: torch.Tensor, want: torch.Tensor, tol) -> float
     return max_abs
 
 
-def check_kernels(device, conv1d_batch: int = 64) -> dict:
+# The widths past d_model 128 / d_head 32 the serving kernels take, at the
+# shapes of the geometries that need them: (name, L, FFN, D, H).
+WIDE_SHAPES = (("rawiq_best", 65, 1024, 256, 8), ("vit_tiny_2016", 17, 256, 64, 4),
+               ("d_head 64", 129, 512, 128, 2))
+
+
+def check_kernels(device, conv1d_batch: int = 64, batch: int = 256) -> dict:
     """Each K1 layer and the K2 layer on the same input as the plain version
     (the plain output of the layer before), then the 5-layer K1 stack end to
-    end. Returns the largest per-layer difference of each kernel."""
+    end, at the flagship shapes (D=128, H=8) and WIDE_SHAPES. Returns the
+    largest per-layer difference of each kernel."""
     errs = {"k1": 0.0, "k2": 0.0}
     gen = torch.Generator().manual_seed(7)
-    for seed, (name, L, ffn, B) in enumerate((("vit", 129, 512, 256), ("rawiq", 65, 1024, 256),
-                                              ("conv1d", CONV1D_L, 1024, conv1d_batch))):
+    shapes = [("vit", 129, 512, 128, 8), ("rawiq", 65, 1024, 128, 8),
+              ("conv1d", CONV1D_L, 1024, 128, 8), *WIDE_SHAPES]
+    for seed, (name, L, ffn, D, H) in enumerate(shapes):
+        B = conv1d_batch if L == CONV1D_L else batch
+        wide = "" if (D, H) == (128, 8) else f" D={D} H={H}"
         print(f"phase kernels: K1/K2 vs plain version on the GPU, {name} shape B={B} L={L} "
-              f"F={ffn}", flush=True)
-        layers = random_layers(6, ffn, seed=11 + seed, device=device)
-        ops = [fel.layer_operands(layer, 8) for layer in layers]
-        x = torch.randn((B, L, 128), generator=gen).to(device, torch.bfloat16)
+              f"F={ffn}{wide}", flush=True)
+        layers = random_layers(6, ffn, seed=11 + seed, device=device, D=D, H=H)
+        ops = [fel.layer_operands(layer, H) for layer in layers]
+        x = torch.randn((B, L, D), generator=gen).to(device, torch.bfloat16)
         with torch.no_grad():
             h = x
             for i in range(5):
-                got = fel.fused_encoder_layer(h, ops[i], 8)
-                want = fel.fused_layer_reference(h, ops[i], 8, L)
+                got = fel.fused_encoder_layer(h, ops[i], H)
+                want = fel.fused_layer_reference(h, ops[i], H, L)
                 torch.cuda.synchronize()
                 errs["k1"] = max(errs["k1"], check_close(
-                    f"{name} K1 layer {i} (L={L}, F={ffn})", got, want, LAYER_TOL))
+                    f"{name} K1 layer {i} (L={L}, F={ffn}{wide})", got, want, LAYER_TOL))
                 h = want
-            stack = fel.fused_encoder_layer_stack(x, layers[:5], 8)
+            stack = fel.fused_encoder_layer_stack(x, layers[:5], H)
             torch.cuda.synchronize()
             check_close(f"{name} K1 5-layer stack", stack, h, STACK_TOL)
-            got = fel.fused_encoder_layer_cls(h, ops[5], 8)
-            want = fel.fused_layer_reference(h, ops[5], 8, 1)
+            got = fel.fused_encoder_layer_cls(h, ops[5], H)
+            want = fel.fused_layer_reference(h, ops[5], H, 1)
             torch.cuda.synchronize()
             errs["k2"] = max(errs["k2"], check_close(
-                f"{name} K2 CLS layer (L={L}, F={ffn})", got, want, LAYER_TOL))
+                f"{name} K2 CLS layer (L={L}, F={ffn}{wide})", got, want, LAYER_TOL))
     return errs
 
 
@@ -355,24 +401,27 @@ def check_attention_kernels(device, B: int = 64) -> dict:
 
 def serve_check(label: str, model_cfg, stats, device, sizes, buckets, k5_route=False) -> dict:
     """Serve ragged requests through the kernels; compare with the f32 path.
-    By default each request must launch K1 once per full layer and K2 once;
-    with `k5_route` (VITIQ_NO_FUSED_LAYER=1, the plain layer loop) K5-fwd
-    once per layer and K1/K2 never."""
-    n_layers = model_cfg.n_layers
-    exp = ExperimentConfig(model=model_cfg, data=DataConfig(synthetic_frame_len=FRAME_LEN))
+    By default each request must launch K1 once per full layer and K2 once
+    (a model that pools on the CLS row), or K1 once per layer and K2 never
+    (mean pooling); with `k5_route` (VITIQ_NO_FUSED_LAYER=1, the plain layer
+    loop) K5-fwd once per layer and K1/K2 never. Frames are the model's
+    `seq_length` samples long."""
+    n_layers, frame_len = model_cfg.n_layers, model_cfg.seq_length
+    exp = ExperimentConfig(model=model_cfg, data=DataConfig(synthetic_frame_len=frame_len))
     model = AMCModel(model_cfg, generator=torch.Generator().manual_seed(0))
+    cls = model.cls_pooling
     ref_cfg = ExperimentConfig(model=dataclasses.replace(model_cfg, numerics="reference"),
                                data=exp.data)
     ref_model = AMCModel(ref_cfg.model)
     ref_model.load_state_dict(model.state_dict())
-    server = Server(build_serving_fn(exp, model, stats, device), FRAME_LEN, buckets, device)
+    server = Server(build_serving_fn(exp, model, stats, device), frame_len, buckets, device)
     ref_serve = build_serving_fn(ref_cfg, ref_model, stats, device)
     gen = torch.Generator().manual_seed(1)
-    requests = [torch.randn((n, FRAME_LEN, 2), generator=gen).to(device) for n in sizes]
+    requests = [torch.randn((n, frame_len, 2), generator=gen).to(device) for n in sizes]
     want_per_request = ({"fused_encoder_layer": 0, "fused_encoder_layer_cls": 0,
                          K5[0]: n_layers, K5[1]: 0} if k5_route else
-                        {"fused_encoder_layer": n_layers - 1, "fused_encoder_layer_cls": 1,
-                         K5[0]: 0, K5[1]: 0})
+                        {"fused_encoder_layer": n_layers - int(cls),
+                         "fused_encoder_layer_cls": int(cls), K5[0]: 0, K5[1]: 0})
 
     if k5_route:
         os.environ["VITIQ_NO_FUSED_LAYER"] = "1"
@@ -418,8 +467,9 @@ def serve_check(label: str, model_cfg, stats, device, sizes, buckets, k5_route=F
             "raw_embed": model.raw_stats is not None}
 
 
-def time_serving(label: str, serve, batch: int, device, card: str, iters: int = 20) -> None:
-    x = torch.randn((batch, FRAME_LEN, 2), generator=torch.Generator().manual_seed(2)).to(device)
+def time_serving(label: str, serve, batch: int, device, card: str, iters: int = 20,
+                 frame_len: int = FRAME_LEN) -> None:
+    x = torch.randn((batch, frame_len, 2), generator=torch.Generator().manual_seed(2)).to(device)
     for _ in range(3):
         serve(x)
     torch.cuda.synchronize()
@@ -436,8 +486,8 @@ def time_serving(label: str, serve, batch: int, device, card: str, iters: int = 
           flush=True)
 
 
-def train_operands(ffn: int, seed: int, device):
-    layer = random_layers(1, ffn, seed, device)[0]
+def train_operands(ffn: int, seed: int, device, D: int = 128, H: int = 8):
+    layer = random_layers(1, ffn, seed, device, D, H)[0]
     return [t.detach().contiguous() for t in flt.flat_weights(layer, torch.bfloat16)]
 
 
@@ -448,18 +498,29 @@ def check_grads(label: str, grads, want) -> float:
                for name, got, ref in zip(GRAD_NAMES, grads, want))
 
 
-def check_train_kernels(device) -> dict:
+def train_inputs(gen, B: int, L: int, D: int, device):
+    x = torch.randn((B, L, D), generator=gen).to(device, torch.bfloat16)
+    dy = (0.05 * torch.randn((B, L, D), generator=gen)).to(device, torch.bfloat16)
+    return x, dy
+
+
+def check_train_kernels(device, B: int = 256) -> dict:
     """K3-fwd and K3-bwd against their plain versions at both flagship
-    shapes, then K4-fwd and K4-bwd at the rawIQ one, dropout on. Returns the
-    largest difference of each kernel."""
-    errs = {"k3f": 0.0, "k3b": 0.0}
+    shapes (dropout on) and at rawiq_best's (D=256, dropout on and off),
+    then K4-fwd and K4-bwd at the rawIQ flagship's and at rawiq_best_mp's
+    (D=256, L=64), dropout on. Returns the largest difference of each
+    kernel."""
+    errs = {"k3f": 0.0, "k3b": 0.0, "k4f": 0.0, "k4b": 0.0}
     gen = torch.Generator().manual_seed(8)
-    for name, L, ffn, drop in (("vit", 129, 512, TRAIN_DROP), ("rawiq", 65, 1024, RAW_DROP)):
-        print(f"phase train-kernels: K3 vs plain version on the GPU, {name} shape B=256 L={L} "
-              f"F={ffn} H=8, dropout {drop}", flush=True)
-        ops = train_operands(ffn, 21, device)
-        x = torch.randn((256, L, 128), generator=gen).to(device, torch.bfloat16)
-        dy = (0.05 * torch.randn((256, L, 128), generator=gen)).to(device, torch.bfloat16)
+    for name, L, ffn, drop, D in (("vit", 129, 512, TRAIN_DROP, 128),
+                                  ("rawiq", 65, 1024, RAW_DROP, 128),
+                                  ("rawiq_best", 65, 1024, BEST_DROP, 256),
+                                  ("rawiq_best", 65, 1024, 0.0, 256)):
+        wide = "" if D == 128 else f" D={D}"
+        print(f"phase train-kernels: K3 vs plain version on the GPU, {name} shape B={B} L={L} "
+              f"F={ffn} H=8{wide}, dropout {drop}", flush=True)
+        ops = train_operands(ffn, 21, device, D)
+        x, dy = train_inputs(gen, B, L, D, device)
         args = (8, drop, TRAIN_SEED, 3)
         with torch.no_grad():
             y = flt.fused_train_layer_fwd(x, ops, *args)
@@ -472,26 +533,35 @@ def check_train_kernels(device) -> dict:
         errs["k3b"] = max(errs["k3b"], check_close(f"{name} K3-bwd dx", dx, want_dx, LAYER_TOL),
                           check_grads(f"{name} K3-bwd", grads, want_grads))
 
-    print(f"phase train-kernels: K4 vs plain version on the GPU, rawiq shape B=256 L=65 F=1024 "
-          f"H=8, dropout {RAW_DROP}", flush=True)
-    # x, dy, ops and args are the rawiq shape's, the last of the loop above
-    with torch.no_grad():
-        y, stash = flt.fused_train_layer_fwd_stash(x, ops, *args)
-        want, want_stash = flt.fused_train_layer_stash_reference(x, ops, *args)
-        torch.cuda.synchronize()
-        k4f = check_close("K4-fwd y", y, want, LAYER_TOL)
-        for name, got, ref in zip(("attn", "xh1", "xh2", "r1", "r2", "pbar"), stash, want_stash):
-            if got.dtype != ref.dtype:
-                raise AssertionError(f"K4-fwd {name}: dtype {got.dtype} != {ref.dtype}")
-            tol = (0.0, 1e-3) if name in ("r1", "r2") else LAYER_TOL
-            k4f = max(k4f, check_close(f"K4-fwd stash {name}", got, ref, tol))
-        dx, grads = flt.fused_train_layer_bwd_stash(x, dy, want_stash, ops, *args)
-        want_dx, want_grads = flt.fused_train_layer_stash_backward_reference(x, dy, want_stash,
-                                                                             ops, *args)
-        torch.cuda.synchronize()
-    k4b = max(check_close("K4-bwd dx", dx, want_dx, LAYER_TOL),
-              check_grads("K4-bwd", grads, want_grads))
-    return {**errs, "k4f": k4f, "k4b": k4b}
+    for name, L, ffn, drop, D in (("rawiq", 65, 1024, RAW_DROP, 128),
+                                  ("rawiq_best_mp", 64, 1024, BEST_DROP, 256)):
+        wide = "" if D == 128 else f" D={D}"
+        print(f"phase train-kernels: K4 vs plain version on the GPU, {name} shape B={B} L={L} "
+              f"F={ffn} H=8{wide}, dropout {drop}", flush=True)
+        ops = train_operands(ffn, 21, device, D)
+        x, dy = train_inputs(gen, B, L, D, device)
+        args = (8, drop, TRAIN_SEED, 3)
+        label = "K4" if D == 128 else f"{name} K4"
+        with torch.no_grad():
+            y, stash = flt.fused_train_layer_fwd_stash(x, ops, *args)
+            want, want_stash = flt.fused_train_layer_stash_reference(x, ops, *args)
+            torch.cuda.synchronize()
+            k4f = check_close(f"{label}-fwd y", y, want, LAYER_TOL)
+            for part, got, ref in zip(("attn", "xh1", "xh2", "r1", "r2", "pbar"), stash,
+                                      want_stash):
+                if got.dtype != ref.dtype:
+                    raise AssertionError(f"K4-fwd {part}: dtype {got.dtype} != {ref.dtype}")
+                tol = (0.0, 1e-3) if part in ("r1", "r2") else LAYER_TOL
+                k4f = max(k4f, check_close(f"{label}-fwd stash {part}", got, ref, tol))
+            dx, grads = flt.fused_train_layer_bwd_stash(x, dy, want_stash, ops, *args)
+            want_dx, want_grads = flt.fused_train_layer_stash_backward_reference(
+                x, dy, want_stash, ops, *args)
+            torch.cuda.synchronize()
+        errs["k4f"] = max(errs["k4f"], k4f)
+        errs["k4b"] = max(errs["k4b"], check_close(f"{label}-bwd dx", dx, want_dx, LAYER_TOL),
+                          check_grads(f"{label}-bwd", grads, want_grads))
+        del stash, want_stash
+    return errs
 
 
 def flat_grad(model, inputs, labels, seed) -> torch.Tensor:
@@ -535,27 +605,29 @@ def train_steps(label: str, exp, model, pre, frames, labels, want: dict, steps: 
     return counts
 
 
-def train_check(label: str, cfg, stats, kernels, device) -> dict:
-    """20 train steps of a flagship through the training kernels `kernels`
+def train_check(label: str, cfg, stats, kernels, device, cos_plain: float = COSINE_PLAIN,
+                batch: int = 256) -> dict:
+    """20 train steps of a model through the training kernels `kernels`
     (K3 or K4, the other never launching), then the gradient of one
-    dropout-free step against the plain bf16 and the f32 paths. The model
-    and its preprocess come from `build_forward_and_preprocess`, so the
-    rawIQ flagship takes raw frames through the fused raw embedding."""
-    print(f"phase train: {label}, 20 make_train_step steps, B=256, lr 1e-3", flush=True)
-    exp = train_experiment(cfg, 256)
+    dropout-free step against the plain bf16 (cosine >= `cos_plain`) and the
+    f32 paths. The model and its preprocess come from
+    `build_forward_and_preprocess`, so the rawIQ arms take raw frames through
+    the fused raw embedding."""
+    print(f"phase train: {label}, 20 make_train_step steps, B={batch}, lr 1e-3", flush=True)
+    exp = train_experiment(cfg, batch)
     model, pre = build_forward_and_preprocess(
         exp, AMCModel(cfg, generator=torch.Generator().manual_seed(0)), stats, device)
     init = {k: v.clone() for k, v in model.state_dict().items()}
     gen = torch.Generator().manual_seed(5)
-    frames = torch.randn((256, FRAME_LEN, 2), generator=gen).to(device)
-    labels = torch.randint(0, cfg.num_classes, (256,), generator=gen).to(device)
+    frames = torch.randn((batch, FRAME_LEN, 2), generator=gen).to(device)
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen).to(device)
     n = cfg.n_layers
     others = K4 if kernels == K3 else K3
     want = {kernels[0]: n, kernels[1]: n, others[0]: 0, others[1]: 0, K5[0]: 0, K5[1]: 0}
     counts = train_steps(label, exp, model, pre, frames, labels, want, 20)
 
     cfg0 = dataclasses.replace(cfg, drop_prob=0.0)
-    fused, pre0 = build_forward_and_preprocess(train_experiment(cfg0, 256), cfg0, stats, device)
+    fused, pre0 = build_forward_and_preprocess(train_experiment(cfg0, batch), cfg0, stats, device)
     fused.load_state_dict(init)
     inputs = pre0(frames)
     flt.reset_launches()
@@ -568,17 +640,19 @@ def train_check(label: str, cfg, stats, kernels, device) -> dict:
     finally:
         del os.environ["VITIQ_FUSED_TRAIN"]
     ref_cfg = dataclasses.replace(cfg0, numerics="reference")
-    ref, ref_pre = build_forward_and_preprocess(train_experiment(ref_cfg, 256), ref_cfg, stats,
+    ref, ref_pre = build_forward_and_preprocess(train_experiment(ref_cfg, batch), ref_cfg, stats,
                                                 device)
     ref.load_state_dict(init)
     g_ref = flat_grad(ref, ref_pre(frames), labels, TRAIN_SEED)
-    cos_plain = torch.nn.functional.cosine_similarity(g_fused, g_plain, dim=0).item()
+    cos_p = torch.nn.functional.cosine_similarity(g_fused, g_plain, dim=0).item()
     cos_f32 = torch.nn.functional.cosine_similarity(g_fused, g_ref, dim=0).item()
-    print(f"  gradient cosine at dropout 0: vs plain bf16 layers {cos_plain:.6f} (limit "
-          f"{COSINE_PLAIN}), vs f32 reference path {cos_f32:.6f} (limit {COSINE_F32})",
+    print(f"  gradient cosine at dropout 0: vs plain bf16 layers {cos_p:.6f} (limit "
+          f"{cos_plain}), vs f32 reference path {cos_f32:.6f} (limit {COSINE_F32})",
           flush=True)
-    if not cos_plain >= COSINE_PLAIN or not cos_f32 >= COSINE_F32:
+    if not cos_p >= cos_plain or not cos_f32 >= COSINE_F32:
         raise AssertionError(f"{label}: fused training gradients diverge from the plain paths")
+    del model, fused, ref
+    torch.cuda.empty_cache()
     return {"counts": counts, "stats": stats}
 
 
@@ -705,26 +779,30 @@ def profile_train_step(label: str, cfg, stats, batch: int, device, card: str,
 
 
 def time_train_layers(label: str, L: int, ffn: int, drop: float, device, card: str,
-                      stash: bool) -> dict:
-    """K3 (and with `stash` K4) against their plain versions on one layer at
-    B=4096."""
-    ops = train_operands(ffn, 13, device)
+                      stash: bool, D: int = 128, k3: bool = True, B: int = 4096) -> dict:
+    """K3 (unless not `k3`) and with `stash` K4 against their plain versions
+    on one layer at B=4096, with their bounds."""
+    ops = train_operands(ffn, 13, device, D)
     gen = torch.Generator().manual_seed(4)
-    x = torch.randn((4096, L, 128), generator=gen).to(device, torch.bfloat16)
-    dy = (0.05 * torch.randn((4096, L, 128), generator=gen)).to(device, torch.bfloat16)
+    x, dy = train_inputs(gen, B, L, D, device)
     args = (8, drop, TRAIN_SEED, 0)
+    t = layer_bounds(B, L, ffn, D)
+    line = f"  {label} train layer B={B} L={L} F={ffn} D={D} dropout {drop}:"
     with torch.no_grad():
-        t = {
-            "k3f_ms": cuda_ms(lambda: flt.fused_train_layer_fwd(x, ops, *args), 10),
-            "k3f_plain_ms": cuda_ms(lambda: flt.fused_train_layer_reference(x, ops, *args), 3,
-                                    warmup=1),
-            "k3b_ms": cuda_ms(lambda: flt.fused_train_layer_bwd(x, dy, ops, *args), 10),
-            "k3b_plain_ms": cuda_ms(
-                lambda: flt.fused_train_layer_backward_reference(x, dy, ops, *args), 3, warmup=1),
-        }
-        line = (f"  {label} train layer B=4096 L={L} F={ffn} dropout {drop}: K3-fwd "
-                f"{t['k3f_ms']:.4f} ms vs plain {t['k3f_plain_ms']:.4f} ms; K3-bwd "
-                f"{t['k3b_ms']:.4f} ms vs plain {t['k3b_plain_ms']:.4f} ms")
+        if k3:
+            t.update({
+                "k3f_ms": cuda_ms(lambda: flt.fused_train_layer_fwd(x, ops, *args), 10),
+                "k3f_plain_ms": cuda_ms(lambda: flt.fused_train_layer_reference(x, ops, *args), 3,
+                                        warmup=1),
+                "k3b_ms": cuda_ms(lambda: flt.fused_train_layer_bwd(x, dy, ops, *args), 10),
+                "k3b_plain_ms": cuda_ms(
+                    lambda: flt.fused_train_layer_backward_reference(x, dy, ops, *args), 3,
+                    warmup=1),
+            })
+            line += (f" K3-fwd {t['k3f_ms']:.4f} ms vs plain {t['k3f_plain_ms']:.4f} ms (bound "
+                     f"{t['k3f'][0]:.4f} ms by {t['k3f'][1]}); K3-bwd {t['k3b_ms']:.4f} ms vs "
+                     f"plain {t['k3b_plain_ms']:.4f} ms (bound {t['k3b'][0]:.4f} ms by "
+                     f"{t['k3b'][1]});")
         if stash:
             _, st = flt.fused_train_layer_fwd_stash(x, ops, *args)
             t.update({
@@ -736,8 +814,10 @@ def time_train_layers(label: str, L: int, ffn: int, drop: float, device, card: s
                 "k4b_plain_ms": cuda_ms(lambda: flt.fused_train_layer_stash_backward_reference(
                     x, dy, st, ops, *args), 3, warmup=1),
             })
-            line += (f"; K4-fwd {t['k4f_ms']:.4f} ms vs plain {t['k4f_plain_ms']:.4f} ms; K4-bwd "
-                     f"{t['k4b_ms']:.4f} ms vs plain {t['k4b_plain_ms']:.4f} ms")
+            line += (f" K4-fwd {t['k4f_ms']:.4f} ms vs plain {t['k4f_plain_ms']:.4f} ms (bound "
+                     f"{t['k4f'][0]:.4f} ms by {t['k4f'][1]}); K4-bwd {t['k4b_ms']:.4f} ms vs "
+                     f"plain {t['k4b_plain_ms']:.4f} ms (bound {t['k4b'][0]:.4f} ms by "
+                     f"{t['k4b'][1]})")
             del st
     print(line + f"  [{card}]", flush=True)
     del x, dy
@@ -762,7 +842,7 @@ def quantize_layers(layers):
     """`QuantizedEncoderLayer`s quantized from float `EncoderLayer`s."""
     out = []
     for layer in layers:
-        q = QuantizedEncoderLayer(128, layer.ffn.linear1.weight.shape[0],
+        q = QuantizedEncoderLayer(layer.norm1.gamma.shape[0], layer.ffn.linear1.weight.shape[0],
                                   device=layer.norm1.gamma.device)
         q.load_state_dict(quantize_params_int8(layer.state_dict()))
         out.append(q)
@@ -788,20 +868,40 @@ def check_int8(label: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
     return err.max().item()
 
 
+def check_int8_stage(label: str, a, wq, ws, bias, relu: bool, prequant: bool) -> None:
+    """One K6 GEMM stage alone against the plain int8 GEMM, bit for bit."""
+    got = k6.int8_gemm(a, wq, ws, bias, relu=relu, prequant=prequant)
+    want = k6.int8_gemm_reference(a, wq, ws, bias)
+    want = (torch.relu(want) if relu else want).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    print(f"  {label} [{a.shape[0]}, {a.shape[1]}] x [{a.shape[1]}, {wq.shape[0]}] "
+          f"({'rows quantized by the separate pass' if prequant else 'rows quantized in the GEMM'}"
+          f"): bit-identical to the plain int8 GEMM: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"{label}: K6's GEMM stage is not exact")
+
+
 def check_int8_kernels(device, batch: int = 256, conv1d_batch: int = 64) -> float:
     """K6 against its plain version at the three flagship shapes, d_head 16
-    and 32: each of five layers on the plain version's input to it, then the
-    five K6 layers with the K2 CLS tail as one stack; and one GEMM stage
-    (FFN1) bit for bit. Returns the largest per-layer difference."""
+    and 32, and at WIDE_SHAPES: each of five layers on the plain version's
+    input to it, then the five K6 layers with the K2 CLS tail as one stack;
+    one GEMM stage (FFN1) bit for bit, and at rawiq_best's width all four
+    (QKV, out-projection, FFN1, FFN2). Returns the largest per-layer
+    difference."""
     worst = 0.0
     gen = torch.Generator().manual_seed(17)
-    for seed, (name, L, ffn, B) in enumerate((("vit", 129, 512, batch), ("rawiq", 65, 1024, batch),
-                                              ("conv1d", CONV1D_L, 1024, conv1d_batch))):
-        layers = quantize_layers(random_layers(6, ffn, seed=31 + seed, device=device))
-        x = torch.randn((B, L, 128), generator=gen).to(device, torch.bfloat16)
-        for n_head in (8, 4):
+    shapes = [("vit", 129, 512, 128, (8, 4)), ("rawiq", 65, 1024, 128, (8, 4)),
+              ("conv1d", CONV1D_L, 1024, 128, (8, 4)),
+              *((name, L, ffn, D, (H,)) for name, L, ffn, D, H in WIDE_SHAPES)]
+    for seed, (name, L, ffn, D, heads) in enumerate(shapes):
+        B = conv1d_batch if L == CONV1D_L else batch
+        layers = quantize_layers(random_layers(6, ffn, seed=31 + seed, device=device, D=D))
+        x = torch.randn((B, L, D), generator=gen).to(device, torch.bfloat16)
+        for n_head in heads:
+            wide = "" if D == 128 else f" D={D}"
             print(f"phase int8-kernels: K6 vs plain version on the GPU, {name} shape B={B} "
-                  f"L={L} F={ffn} H={n_head} (d_head {128 // n_head})", flush=True)
+                  f"L={L} F={ffn}{wide} H={n_head} (d_head {D // n_head})", flush=True)
             ops = [k6.int8_layer_operands(layer, n_head) for layer in layers[:5]]
             with torch.no_grad():
                 h = x
@@ -817,41 +917,45 @@ def check_int8_kernels(device, batch: int = 256, conv1d_batch: int = 64) -> floa
                     h, k6.dequant_layer_operands(layers[5], n_head), n_head, 1)
                 torch.cuda.synchronize()
                 check_int8(f"{name} 5 K6 layers + K2 CLS tail", stack, want, K6_STACK_TOL)
+        a = h.reshape(-1, D)
         w1, s1, b1 = ops[0][8:11]
-        a = h.reshape(-1, 128)
-        got = k6.int8_gemm(a, w1, s1, b1, relu=True, prequant=True)
-        want = torch.relu(k6.int8_gemm_reference(a, w1, s1, b1)).to(torch.bfloat16)
-        torch.cuda.synchronize()
-        same = torch.equal(got, want)
-        print(f"  {name} K6 FFN1 GEMM stage alone [{a.shape[0]}, 128] x [128, {ffn}]: "
-              f"bit-identical to the plain int8 GEMM: {same}", flush=True)
-        if not same:
-            raise AssertionError(f"{name}: K6's GEMM stage is not exact")
-        del layers, x, h, stack, want, got
+        check_int8_stage(f"{name} K6 FFN1 GEMM stage alone", a, w1, s1, b1, True, True)
+        if D == 256:  # rawiq_best: the other three stages too, on their own tiles
+            wqkv, sqkv, bqkv, wo, so, bo = ops[0][:6]
+            w2, s2, b2 = ops[0][11:14]
+            hid = k6.int8_gemm(a, w1, s1, b1, relu=True, prequant=True)
+            check_int8_stage(f"{name} K6 QKV GEMM stage alone", a, wqkv, sqkv, bqkv, False, True)
+            check_int8_stage(f"{name} K6 out-projection GEMM stage alone", a, wo, so, bo, False,
+                             False)
+            check_int8_stage(f"{name} K6 FFN2 GEMM stage alone", hid, w2, s2, b2, False, False)
+            del hid
+        del layers, x, h, stack, want, a
         torch.cuda.empty_cache()
     return worst
 
 
 def int8_serve_check(label: str, model_cfg, stats, device, sizes, buckets) -> dict:
     """Serve ragged requests through `Server` over the int8 W8A8 twin of a
-    flagship (random weights): every counter is reset just before each
-    request and read just after, and each request must launch K6 once per
-    full layer and K2 once, nothing else. The logits are held to the f32
-    `reference` path of the same float weights (vitiq's bound) and to the
-    port's unfused int8 path on the card (VITIQ_NO_FUSED_LAYER=1)."""
-    n = model_cfg.n_layers
-    exp = ExperimentConfig(model=model_cfg, data=DataConfig(synthetic_frame_len=FRAME_LEN))
+    model (random weights): every counter is reset just before each request
+    and read just after, and each request must launch K6 once per full layer
+    and K2 once (CLS pooling; K6 once per layer under mean pooling), nothing
+    else. The logits are held to the f32 `reference` path of the same float
+    weights (vitiq's bound) and to the port's unfused int8 path on the card
+    (VITIQ_NO_FUSED_LAYER=1)."""
+    n, frame_len = model_cfg.n_layers, model_cfg.seq_length
+    exp = ExperimentConfig(model=model_cfg, data=DataConfig(synthetic_frame_len=frame_len))
     model = AMCModel(model_cfg, generator=torch.Generator().manual_seed(0))
+    cls = model.cls_pooling
     ref_cfg = ExperimentConfig(model=dataclasses.replace(model_cfg, numerics="reference"),
                                data=exp.data)
     ref_model = AMCModel(ref_cfg.model)
     ref_model.load_state_dict(model.state_dict())
     serve_fn = build_int8_serving_fn(exp, model, stats, device)
-    server = Server(serve_fn, FRAME_LEN, buckets, device)
+    server = Server(serve_fn, frame_len, buckets, device)
     gen = torch.Generator().manual_seed(1)
-    requests = [torch.randn((b, FRAME_LEN, 2), generator=gen).to(device) for b in sizes]
+    requests = [torch.randn((b, frame_len, 2), generator=gen).to(device) for b in sizes]
     want_counts = {k: 0 for k in all_launches()}
-    want_counts.update({K6: n - 1, "fused_encoder_layer_cls": 1})
+    want_counts.update({K6: n - int(cls), "fused_encoder_layer_cls": int(cls)})
     outs, counts = [], {k: 0 for k in want_counts}
     for x in requests:
         reset_all_launches()
@@ -894,24 +998,31 @@ def int8_serve_check(label: str, model_cfg, stats, device, sizes, buckets) -> di
     return {"counts": counts, "serve": serve_fn}
 
 
-def evaluate_check(device, epochs: int = EVAL_EPOCHS, frames_per_class: int = 2048) -> dict:
-    """Train the ViT flagship (3 classes) with `fit` on the default synthetic
-    corpus (3 classes x 2048 frames, seed 0), save the experiment as the JAX
-    package lays it out (config.json, normalization_stats.json,
-    model_best.npz) in a temporary directory, and evaluate it on the test
-    split through `run_evaluation` on the card, in float and int8. Both
-    reports must parse; float accuracy >= EVAL_MIN_ACC, int8 within
-    INT8_ACC_POINTS of float."""
+def evaluate_check(device, label: str = "the ViT flagship", model_cfg=None,
+                   epochs: int = EVAL_EPOCHS, lr: float = EVAL_LR, frames_per_class: int = 2048,
+                   train_kernels=K3, gate_accuracy: bool = True) -> dict:
+    """Train a model (3 classes; the ViT flagship unless `model_cfg`) with
+    `fit` on the default synthetic corpus (3 classes x 2048 frames, seed 0),
+    save the experiment as the JAX package lays it out (config.json,
+    normalization_stats.json, model_best.npz) in a temporary directory, and
+    evaluate it on the test split through `run_evaluation` on the card, in
+    float and int8. The launches are counted: every train step runs
+    `train_kernels` once per layer, forward and backward; each evaluated
+    batch K1 (float) or K6 (int8) once per full layer and K2 once, nothing
+    else. Both reports must parse; with `gate_accuracy`, float accuracy >=
+    EVAL_MIN_ACC and int8 within INT8_ACC_POINTS of float."""
     import tempfile
     from pathlib import Path
 
-    cfg = ExperimentConfig(model=dataclasses.replace(flagship_vit_config("tpu"), num_classes=3),
+    model_cfg = dataclasses.replace(model_cfg or flagship_vit_config("tpu"), num_classes=3)
+    n = model_cfg.n_layers
+    cfg = ExperimentConfig(model=model_cfg,
                            data=DataConfig(synthetic_frames_per_class=frames_per_class),
                            train=TrainConfig(batch_size=EVAL_BATCH, num_epochs=epochs,
-                                             learning_rate=EVAL_LR, patience=epochs))
-    print(f"phase evaluate: train the ViT flagship (3 classes) on the synthetic corpus "
+                                             learning_rate=lr, patience=epochs))
+    print(f"phase evaluate: train {label} (3 classes) on the synthetic corpus "
           f"({len(cfg.data.synthetic_classes)} x {cfg.data.synthetic_frames_per_class} frames, "
-          f"seed {cfg.data.synthetic_seed}), {epochs} epochs at B={EVAL_BATCH}, lr {EVAL_LR}",
+          f"seed {cfg.data.synthetic_seed}), {epochs} epochs at B={EVAL_BATCH}, lr {lr}",
           flush=True)
     t0 = time.perf_counter()
     splits, stats, _ = load_experiment_data(cfg)
@@ -919,12 +1030,22 @@ def evaluate_check(device, epochs: int = EVAL_EPOCHS, frames_per_class: int = 20
     model, pre = build_forward_and_preprocess(
         cfg, AMCModel(cfg.model, generator=torch.Generator().manual_seed(0)), stats, device)
     t0 = time.perf_counter()
+    reset_all_launches()
     res = fit(cfg, model, splits["train"][:2], splits["valid"][:2], preprocess_fn=pre,
               verbose=False)
+    torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
+    fit_launches = all_launches()
+    steps = len(splits["train"][0]) // EVAL_BATCH * res.epochs_run
     print(f"  corpus {t_data:.1f} s; fit {res.epochs_run} epochs in {t_fit:.1f} s, val acc "
           f"{res.history['val_acc'][0]:.4f} -> {res.history['val_acc'][-1]:.4f} (best val "
-          f"loss {min(res.history['val_loss']):.4f})", flush=True)
+          f"loss {min(res.history['val_loss']):.4f}); launches "
+          f"{ {k: v for k, v in fit_launches.items() if v} }", flush=True)
+    trained = {k: fit_launches[k] for k in (*K3, *K4, *K5)}
+    want_trained = {k: n * steps if k in train_kernels else 0 for k in trained}
+    if trained != want_trained or not fit_launches["fused_encoder_layer_cls"]:
+        raise AssertionError(f"fit launched {fit_launches}; expected {want_trained} over "
+                             f"{steps} steps and K1/K2 in its validation passes")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         exp_dir = Path(tmp)
@@ -945,6 +1066,12 @@ def evaluate_check(device, epochs: int = EVAL_EPOCHS, frames_per_class: int = 20
             if not (exp_dir / "evaluation" / f"{prefix}_results.pkl").exists():
                 raise AssertionError(f"{prefix}_results.pkl missing")
             launched = {k: v for k, v in all_launches().items() if v}
+            batches = -(-len(r["labels"]) // EVAL_BATCH)
+            want = {(K6 if int8 else "fused_encoder_layer"): (n - 1) * batches,
+                    "fused_encoder_layer_cls": batches}
+            if launched != want:
+                raise AssertionError(f"run_evaluation(int8={int8}) launched {launched}, "
+                                     f"expected {want}")
             snr = ", ".join(f"{k:+d} dB {v * 100:.2f}%" for k, v in r["snr_accuracies"].items())
             print(f"  run_evaluation({'int8' if int8 else 'float'}) on {len(r['labels'])} test "
                   f"frames: accuracy {r['overall_accuracy'] * 100:.2f}% ({snr}); launches "
@@ -953,29 +1080,55 @@ def evaluate_check(device, epochs: int = EVAL_EPOCHS, frames_per_class: int = 20
     acc_f, acc_q = out["float"]["overall_accuracy"], out["int8"]["overall_accuracy"]
     agree = float((out["float"]["predictions"] == out["int8"]["predictions"]).mean())
     print(f"  test accuracy float {acc_f * 100:.2f}%, int8 {acc_q * 100:.2f}% (difference "
-          f"{(acc_q - acc_f) * 100:+.2f} points, limit {INT8_ACC_POINTS * 100:.0f}); prediction "
-          f"agreement {agree:.4f}", flush=True)
-    if acc_f < EVAL_MIN_ACC:
-        raise AssertionError(f"the trained ViT reached only {acc_f:.4f} test accuracy")
-    if abs(acc_q - acc_f) > INT8_ACC_POINTS:
+          f"{(acc_q - acc_f) * 100:+.2f} points, limit {INT8_ACC_POINTS * 100:.0f}"
+          f"{'' if gate_accuracy else ', not gated'}); prediction agreement {agree:.4f}",
+          flush=True)
+    if gate_accuracy and acc_f < EVAL_MIN_ACC:
+        raise AssertionError(f"the trained model reached only {acc_f:.4f} test accuracy")
+    if gate_accuracy and abs(acc_q - acc_f) > INT8_ACC_POINTS:
         raise AssertionError("int8 test accuracy is not within 2 points of float")
     del model
     torch.cuda.empty_cache()
     return {"float_acc": acc_f, "int8_acc": acc_q}
 
 
-def time_int8_layers(name: str, L: int, ffn: int, device, card: str, B: int = 4096) -> dict:
-    """K6 on one layer at [B, L, 128] against its plain version and K1 on the
+def time_serving_layers(name: str, L: int, ffn: int, B: int, D: int, device, card: str) -> dict:
+    """K1 and K2 on one layer at [B, L, D] (H = 8) against their plain
+    versions, with their bounds."""
+    ops = fel.layer_operands(random_layers(1, ffn, seed=13, device=device, D=D)[0], 8)
+    x = torch.randn((B, L, D), generator=torch.Generator().manual_seed(3))
+    x = x.to(device, torch.bfloat16)
+    with torch.no_grad():
+        t = {
+            "k1_ms": cuda_ms(lambda: fel.fused_encoder_layer(x, ops, 8), 20),
+            "k1_plain_ms": cuda_ms(lambda: fel.fused_layer_reference(x, ops, 8, L), 10),
+            "k2_ms": cuda_ms(lambda: fel.fused_encoder_layer_cls(x, ops, 8), 20),
+            "k2_plain_ms": cuda_ms(lambda: fel.fused_layer_reference(x, ops, 8, 1), 10),
+        }
+    t.update(layer_bounds(B, L, ffn, D))
+    wide = "" if D == 128 else f" D={D}"
+    print(f"  {name} layer B={B} L={L} F={ffn}{wide}: K1 {t['k1_ms']:.4f} ms vs plain "
+          f"{t['k1_plain_ms']:.4f} ms (bound {t['k1'][0]:.4f} ms by {t['k1'][1]}); K2 "
+          f"{t['k2_ms']:.4f} ms vs plain {t['k2_plain_ms']:.4f} ms (bound "
+          f"{t['k2'][0]:.4f} ms by {t['k2'][1]})  [{card}]", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    return t
+
+
+def time_int8_layers(name: str, L: int, ffn: int, device, card: str, B: int = 4096,
+                     D: int = 128) -> dict:
+    """K6 on one layer at [B, L, D] against its plain version and K1 on the
     same float weights; its FFN1 stage alone against the yardstick
     torch._int_mm (int8 x int8 -> int32 only: no row quantization, no
     dequant epilogue), which the port never calls."""
-    float_layer = random_layers(1, ffn, seed=13, device=device)[0]
+    float_layer = random_layers(1, ffn, seed=13, device=device, D=D)[0]
     ops = k6.int8_layer_operands(quantize_layers([float_layer])[0], 8)
     ops1 = fel.layer_operands(float_layer, 8)
     gen = torch.Generator().manual_seed(3)
-    x = torch.randn((B, L, 128), generator=gen).to(device, torch.bfloat16)
-    a = torch.randn((B * L, 128), generator=gen).to(device, torch.bfloat16)
-    a8 = torch.randint(-127, 128, (B * L, 128), generator=gen, dtype=torch.int8).to(device)
+    x = torch.randn((B, L, D), generator=gen).to(device, torch.bfloat16)
+    a = torch.randn((B * L, D), generator=gen).to(device, torch.bfloat16)
+    a8 = torch.randint(-127, 128, (B * L, D), generator=gen, dtype=torch.int8).to(device)
     w1, s1, b1 = ops[8:11]
     with torch.no_grad():
         t = {
@@ -986,11 +1139,11 @@ def time_int8_layers(name: str, L: int, ffn: int, device, card: str, B: int = 40
                                   20),
             "int_mm_ms": cuda_ms(lambda: torch._int_mm(a8, w1.t()), 20),
         }
-    b = layer_bounds(B, L, ffn)
+    b = layer_bounds(B, L, ffn, D)
     t.update({"k6": b["k6"], "k6_ffn1": b["k6_ffn1"]})
-    print(f"  {name} int8 layer B={B} L={L} F={ffn}: K6 {t['k6_ms']:.4f} ms vs plain "
+    print(f"  {name} int8 layer B={B} L={L} F={ffn} D={D}: K6 {t['k6_ms']:.4f} ms vs plain "
           f"{t['k6_plain_ms']:.4f} ms vs K1 {t['k1_ms']:.4f} ms (K6 bound {b['k6'][0]:.4f} ms by "
-          f"{b['k6'][1]}); FFN1 stage [{B * L}, 128] x [128, {ffn}]: K6 stage "
+          f"{b['k6'][1]}); FFN1 stage [{B * L}, {D}] x [{D}, {ffn}]: K6 stage "
           f"{t['k6_ffn1_ms']:.4f} ms vs torch._int_mm {t['int_mm_ms']:.4f} ms (stage bound "
           f"{b['k6_ffn1'][0]:.4f} ms by {b['k6_ffn1'][1]})  [{card}]", flush=True)
     del x, a, a8
@@ -1117,14 +1270,15 @@ def time_attention(device, card: str, B: int = 256, L: int = CONV1D_L, H: int = 
     return t
 
 
-def time_k1_library(name: str, L: int, ffn: int, device, card: str, batch: int = 4096) -> float:
+def time_k1_library(name: str, L: int, ffn: int, device, card: str, batch: int = 4096,
+                    D: int = 128) -> float:
     """The yardstick for K1: torch.nn.TransformerEncoderLayer (post-norm,
     ReLU, eps 1e-12, no dropout) in eval and no-grad bf16 on one layer's
     weights, which the port never calls; prints whether PyTorch took its
     fused fast path (the aten::_transformer_encoder_layer_fwd kernel) and its
     largest difference from K1."""
-    layer = random_layers(1, ffn, seed=14, device=device)[0]
-    lib = torch.nn.TransformerEncoderLayer(128, 8, ffn, dropout=0.0, batch_first=True,
+    layer = random_layers(1, ffn, seed=14, device=device, D=D)[0]
+    lib = torch.nn.TransformerEncoderLayer(D, 8, ffn, dropout=0.0, batch_first=True,
                                            norm_first=False, layer_norm_eps=1e-12)
     att = layer.attention
     with torch.no_grad():
@@ -1140,7 +1294,7 @@ def time_k1_library(name: str, L: int, ffn: int, device, card: str, batch: int =
             theirs.weight.copy_(mine.gamma)
             theirs.bias.copy_(mine.beta)
     lib = lib.to(device, torch.bfloat16).eval()
-    x = torch.randn((batch, L, 128), generator=torch.Generator().manual_seed(3))
+    x = torch.randn((batch, L, D), generator=torch.Generator().manual_seed(3))
     x = x.to(device, torch.bfloat16)
     with torch.no_grad():
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
@@ -1148,7 +1302,7 @@ def time_k1_library(name: str, L: int, ffn: int, device, card: str, batch: int =
         fast = any("_transformer_encoder_layer_fwd" in e.key for e in prof.key_averages())
         diff = (y.float() - fel.fused_encoder_layer(x, fel.layer_operands(layer, 8), 8).float())
         ms = cuda_ms(lambda: lib(x), 20)
-    print(f"  {name} layer B={batch} L={L} F={ffn}: nn.TransformerEncoderLayer {ms:.4f} ms "
+    print(f"  {name} layer B={batch} L={L} F={ffn} D={D}: nn.TransformerEncoderLayer {ms:.4f} ms "
           f"(fused fast path taken: {fast}; max |it - K1| {diff.abs().max().item():.6g})  "
           f"[{card}]", flush=True)
     del lib, x, y, diff
@@ -1192,6 +1346,19 @@ def main() -> int:
     if vit["raw_embed"] or not rawiq["raw_embed"] or not conv1d["raw_embed"]:
         raise AssertionError("the fused raw embedding must serve the rawIQ arms only")
 
+    print("phase serve-wide: the geometries past d_model 128 / d_head 32 through Server, bf16 "
+          "kernels vs f32 path", flush=True)
+    best = serve_check("rawiq_best", rawiq_best_config("tpu"), RAW_STATS, device,
+                       (1, 37, 256), (64, 256))
+    serve_check("rawiq_best_mp", rawiq_best_mp_config("tpu"), RAW_STATS, device, (1, 37),
+                (64,))
+    serve_check("vit_tiny_2016", vit_tiny_2016_config("tpu"), STATS, device, (1, 37, 256),
+                (64, 256))
+    serve_check("vit_tpu_production (d_head 64)", VIT_TPU_PRODUCTION, STATS, device,
+                (1, 37, 256), (64, 256))
+    if not best["raw_embed"]:
+        raise AssertionError("rawiq_best must be served through the fused raw embedding")
+
     print("phase int8-serve: ragged requests through Server, int8 W8A8 (K6 + K2) vs the f32 "
           "path and the unfused int8 path", flush=True)
     vit8 = int8_serve_check("vit flagship", flagship_vit_config("tpu"), STATS, device,
@@ -1200,47 +1367,37 @@ def main() -> int:
                             (1, 37, 256, 1000), (256, 1024))
     int8_serve_check("conv1d flagship", flagship_conv1d_config("tpu"), RAW_STATS, device,
                      (1, 37, 256), (64, 256))
+    best8 = int8_serve_check("rawiq_best", rawiq_best_config("tpu"), RAW_STATS, device,
+                             (1, 37, 256), (64, 256))
 
     errs.update(check_train_kernels(device))
     vit_train = train_check("ViT flagship", flagship_vit_config("tpu"), STATS, K3, device)
     raw_train = train_check("rawIQ flagship", flagship_rawiq_config("tpu"), RAW_STATS, K4, device)
     conv_train = conv1d_train_check(device)
+    train_check("rawiq_best", rawiq_best_config("tpu"), RAW_STATS, K3, device, COSINE_F32)
+    train_check("rawiq_best_mp", rawiq_best_mp_config("tpu"), RAW_STATS, K4, device, COSINE_F32)
     evaluate_check(device)
+    evaluate_check(device, "rawiq_best", rawiq_best_config("tpu"), epochs=BEST_EVAL_EPOCHS,
+                   lr=BEST_EVAL_LR, gate_accuracy=False)
 
     print(f"phase timing (CUDA events after warm-up) on {card}:", flush=True)
-    times = {}
-    for name, L, ffn, B in (("vit", 129, 512, 4096), ("rawiq", 65, 1024, 4096),
-                            ("conv1d", CONV1D_L, 1024, 256)):
-        ops = fel.layer_operands(random_layers(1, ffn, seed=13, device=device)[0], 8)
-        x = torch.randn((B, L, 128), generator=torch.Generator().manual_seed(3))
-        x = x.to(device, torch.bfloat16)
-        with torch.no_grad():
-            t = {
-                "k1_ms": cuda_ms(lambda: fel.fused_encoder_layer(x, ops, 8), 20),
-                "k1_plain_ms": cuda_ms(lambda: fel.fused_layer_reference(x, ops, 8, L), 10),
-                "k2_ms": cuda_ms(lambda: fel.fused_encoder_layer_cls(x, ops, 8), 20),
-                "k2_plain_ms": cuda_ms(lambda: fel.fused_layer_reference(x, ops, 8, 1), 10),
-            }
-        t.update(layer_bounds(B, L, ffn))
-        times[name] = t
-        print(f"  {name} layer B={B} L={L} F={ffn}: K1 {t['k1_ms']:.4f} ms vs plain "
-              f"{t['k1_plain_ms']:.4f} ms (bound {t['k1'][0]:.4f} ms by {t['k1'][1]}); K2 "
-              f"{t['k2_ms']:.4f} ms vs plain {t['k2_plain_ms']:.4f} ms (bound "
-              f"{t['k2'][0]:.4f} ms by {t['k2'][1]})  [{card}]", flush=True)
-        del x
-        torch.cuda.empty_cache()
-    for name, L, ffn in (("vit", 129, 512), ("rawiq", 65, 1024)):
-        times[name]["k1_library_ms"] = time_k1_library(name, L, ffn, device, card)
-        times[name].update(time_int8_layers(name, L, ffn, device, card))
+    times = {name: time_serving_layers(name, L, ffn, B, D, device, card)
+             for name, L, ffn, B, D in (("vit", 129, 512, 4096, 128),
+                                        ("rawiq", 65, 1024, 4096, 128),
+                                        ("conv1d", CONV1D_L, 1024, 256, 128),
+                                        ("rawiq_best", 65, 1024, 4096, 256))}
+    for name, L, ffn, D in (("vit", 129, 512, 128), ("rawiq", 65, 1024, 128),
+                            ("rawiq_best", 65, 1024, 256)):
+        times[name]["k1_library_ms"] = time_k1_library(name, L, ffn, device, card, D=D)
+        times[name].update(time_int8_layers(name, L, ffn, device, card, D=D))
     times["conv1d"]["k1_library_ms"] = time_k1_library("conv1d", CONV1D_L, 1024, device, card,
                                                        batch=256)
     times["vit"].update(time_train_layers("vit", 129, 512, TRAIN_DROP, device, card, False))
     times["rawiq"].update(time_train_layers("rawiq", 65, 1024, RAW_DROP, device, card, True))
-    for name, L, ffn in (("vit", 129, 512), ("rawiq", 65, 1024)):
-        b = times[name]
-        print(f"  {name} train layer B=4096 bounds: K3-fwd {b['k3f'][0]:.4f} ms by {b['k3f'][1]}, "
-              f"K3-bwd {b['k3b'][0]:.4f} ms by {b['k3b'][1]}, K4-fwd {b['k4f'][0]:.4f} ms by "
-              f"{b['k4f'][1]}, K4-bwd {b['k4b'][0]:.4f} ms by {b['k4b'][1]}", flush=True)
+    times["rawiq_best"].update(time_train_layers("rawiq_best", 65, 1024, BEST_DROP, device, card,
+                                                 False, D=256))
+    times["rawiq_best_mp"] = time_train_layers("rawiq_best_mp", 64, 1024, BEST_DROP, device,
+                                               card, True, D=256, k3=False)
     times["conv1d"].update(time_attention(device, card))
 
     vit_cfg, raw_cfg = flagship_vit_config("tpu"), flagship_rawiq_config("tpu")
@@ -1258,6 +1415,12 @@ def main() -> int:
     time_train_step("conv1d flagship (K5, VITIQ_TRAIN_REMAT=0)", conv_cfg, RAW_STATS, 256, device,
                     card, 5, {"VITIQ_TRAIN_REMAT": "0"})
     profile_train_step("conv1d flagship (K5, remat auto)", conv_cfg, RAW_STATS, 256, device, card)
+    time_train_step("rawiq_best (K3 kernels)", rawiq_best_config("tpu"), RAW_STATS, 4096, device,
+                    card, 5)
+    profile_train_step("rawiq_best (K3 kernels)", rawiq_best_config("tpu"), RAW_STATS, 4096,
+                       device, card)
+    time_train_step("rawiq_best_mp (K4 kernels)", rawiq_best_mp_config("tpu"), RAW_STATS, 4096,
+                    device, card, 5)
 
     for label, res, batch in (("vit flagship", vit, 4096), ("rawiq flagship", rawiq, 4096),
                               ("conv1d flagship", conv1d, 2048)):
@@ -1271,6 +1434,10 @@ def main() -> int:
             del os.environ["VITIQ_NO_FUSED_LAYER"]
     for label, res in (("vit flagship", vit8), ("rawiq flagship", raw8)):
         time_serving(label + " (int8 W8A8: K6 + K2)", res["serve"], 4096, device, card)
+    time_serving("rawiq_best (kernels)",
+                 build_serving_fn(best["exp"], best["model"], best["stats"], device), 4096,
+                 device, card)
+    time_serving("rawiq_best (int8 W8A8: K6 + K2)", best8["serve"], 4096, device, card)
 
     counts, k3, k4, k5 = vit["counts"], vit_train["counts"], raw_train["counts"], conv_train["counts"]
     vt, rt, ct = times["vit"], times["rawiq"], times["conv1d"]

@@ -75,7 +75,8 @@ def test_validation_errors_match(kwargs):
 
 
 @pytest.mark.parametrize("name", ["flagship_vit_config", "flagship_rawiq_config",
-                                  "flagship_conv1d_config"])
+                                  "flagship_conv1d_config", "rawiq_best_config",
+                                  "rawiq_best_mp_config", "vit_tiny_2016_config"])
 @pytest.mark.parametrize("numerics", ["tpu", "reference"])
 def test_flagships_equal_vitiq_bench(name, numerics):
     got, want = getattr(pcfg, name)(numerics), getattr(jbench, name)(numerics)

@@ -13,7 +13,16 @@ the one-layer tolerance, each weight, bias and LN gradient within 1% of the
 plain version's in the L2 norm (sums over thousands of rows, taken in
 another order and from operands whose bf16 roundings may flip). K4's stash:
 its bf16 tensors at the one-layer tolerance, its f32 1/std within 1e-3
-relative (f32 statistics summed in another order)."""
+relative (f32 statistics summed in another order).
+
+The kernels are held at every width they take: K1, K2 and K6 at d_model 64,
+128 and 256 and d_head 16, 32 and 64; K3 and K4 at d_model 128 and 256. The
+served configurations of the JAX package that need the wider kernels
+(`rawiq_best`, `rawiq_best_mp`, `vit_tiny_2016`, `vit_tpu_production`) are
+served, evaluated in float and int8, and trained for an epoch under `tpu`
+numerics, with the launches of each kernel counted."""
+
+import math
 
 import pytest
 import torch
@@ -31,9 +40,9 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _layers(n, ffn, device, n_head=H):
+def _layers(n, ffn, device, n_head=H, d=D):
     gen = torch.Generator().manual_seed(0)
-    return [EncoderLayer(D, ffn, n_head, device=device, generator=gen).eval()
+    return [EncoderLayer(d, ffn, n_head, device=device, generator=gen).eval()
             for _ in range(n)]
 
 
@@ -49,12 +58,24 @@ def _assert_close(got, want, tol):
     assert torch.all((got - want).abs() <= atol + rtol * want.abs())
 
 
+def _p(*values, d=D):
+    """A case of the parametrized tests; the d_model 128 ones keep their
+    ids, the others name their width."""
+    name = "-".join(map(str, values))
+    return pytest.param(*values, d, id=name if d == D else f"{name}-d{d}")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Lx,ffn,n_head", [(129, 512, 8), (65, 1024, 8), (17, 128, 8),
-                                           (1, 128, 8), (129, 512, 4), (40, 256, 4)])
-def test_each_kernel_matches_plain_version_on_one_layer(cuda, Lx, ffn, n_head):
-    ops = fel.layer_operands(_layers(1, ffn, cuda, n_head)[0], n_head)
-    x = torch.randn((37, Lx, D), generator=torch.Generator().manual_seed(2))
+@pytest.mark.parametrize("Lx,ffn,n_head,d", [
+    _p(129, 512, 8), _p(65, 1024, 8), _p(17, 128, 8), _p(1, 128, 8), _p(129, 512, 4),
+    _p(40, 256, 4),
+    _p(65, 1024, 8, d=256), _p(65, 1024, 16, d=256), _p(1, 1024, 8, d=256),  # rawiq_best
+    _p(17, 256, 4, d=64), _p(40, 256, 2, d=64),  # vit_tiny_2016 (d_head 16), d_head 32
+    _p(129, 512, 2), _p(848, 256, 2)])  # d_head 64 (vit_tpu_production); its longest L
+def test_each_kernel_matches_plain_version_on_one_layer(cuda, Lx, ffn, n_head, d):
+    assert fel.fused_infer_supported(Lx, d, ffn, n_head)
+    ops = fel.layer_operands(_layers(1, ffn, cuda, n_head, d)[0], n_head)
+    x = torch.randn((37 if Lx < 800 else 5, Lx, d), generator=torch.Generator().manual_seed(2))
     x = x.to(cuda, torch.bfloat16)
     full = fel.fused_encoder_layer(x, ops, n_head)
     cls = fel.fused_encoder_layer_cls(x, ops, n_head)
@@ -64,11 +85,14 @@ def test_each_kernel_matches_plain_version_on_one_layer(cuda, Lx, ffn, n_head):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Lx,ffn", [(129, 512), (65, 1024), (17, 128)])
+@pytest.mark.parametrize("Lx,ffn,d", [pytest.param(129, 512, D, id="129-512"),
+                                      pytest.param(65, 1024, D, id="65-1024"),
+                                      pytest.param(17, 128, D, id="17-128"),
+                                      pytest.param(65, 1024, 256, id="65-1024-d256")])
 @pytest.mark.parametrize("cls_only", [False, True])
-def test_kernels_match_plain_version(cuda, Lx, ffn, cls_only):
-    layers = _layers(3, ffn, cuda)
-    x = torch.randn((37, Lx, D), generator=torch.Generator().manual_seed(1))
+def test_kernels_match_plain_version(cuda, Lx, ffn, d, cls_only):
+    layers = _layers(3, ffn, cuda, d=d)
+    x = torch.randn((37, Lx, d), generator=torch.Generator().manual_seed(1))
     x = x.to(cuda, torch.bfloat16)
     got = fel.fused_encoder_layer_stack(x, layers, H, cls_only=cls_only)
     ops = [fel.layer_operands(layer, H) for layer in layers]
@@ -94,7 +118,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="bf16"):
         fel.fused_encoder_layer(x, ops, H)  # f32 activations
     with pytest.raises(ValueError, match="d_head"):
-        fel.fused_encoder_layer(x.bfloat16(), ops, 2)  # d_head 64
+        fel.fused_encoder_layer(x.bfloat16(), ops, 1)  # d_head 128
+    with pytest.raises(ValueError, match="shared-memory"):  # d_head 64 past ~850 tokens
+        fel.fused_encoder_layer(torch.zeros((1, 1025, D), dtype=torch.bfloat16, device=cuda),
+                                ops, 2)
     with pytest.raises(ValueError, match="operand 0"):
         fel.fused_encoder_layer_cls(x.bfloat16(), [ops[0].float()] + ops[1:], H)
 
@@ -106,29 +133,31 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 GRAD_REL = 1e-2  # ||kernel - plain||_2 <= GRAD_REL * ||plain||_2 for each gradient
 
 
-def _train_operands(cuda, ffn, n_head):
+def _train_operands(cuda, ffn, n_head, d=D):
     from vitiq_torch.ops.cuda import fused_layer_train as flt
 
     gen = torch.Generator().manual_seed(3)
-    layer = EncoderLayer(D, ffn, n_head, generator=gen)
+    layer = EncoderLayer(d, ffn, n_head, generator=gen)
     with torch.no_grad():  # LayerNorm affine away from (1, 0)
         for norm in (layer.norm1, layer.norm2):
-            norm.gamma.copy_(1.0 + 0.1 * torch.randn(D, generator=gen))
-            norm.beta.copy_(0.1 * torch.randn(D, generator=gen))
+            norm.gamma.copy_(1.0 + 0.1 * torch.randn(d, generator=gen))
+            norm.beta.copy_(0.1 * torch.randn(d, generator=gen))
     return [t.detach().contiguous() for t in flt.flat_weights(layer.to(cuda), torch.bfloat16)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Lx,ffn", [(1, 256), (17, 256), (129, 256), (65, 1024)])  # + rawIQ
-@pytest.mark.parametrize("n_head", [8, 4])  # d_head 16 and 32
+@pytest.mark.parametrize("Lx,ffn,n_head,d", [  # d_head 16 and 32, + rawIQ, + rawiq_best
+    _p(Lx, ffn, n_head) for Lx, ffn in ((1, 256), (17, 256), (129, 256), (65, 1024))
+    for n_head in (8, 4)] + [_p(65, 1024, 8, d=256), _p(65, 1024, 16, d=256),
+                             _p(17, 256, 8, d=256)])
 @pytest.mark.parametrize("drop", [0.0, 0.1])
-def test_train_kernels_match_plain_versions(cuda, Lx, ffn, n_head, drop):
+def test_train_kernels_match_plain_versions(cuda, Lx, ffn, n_head, d, drop):
     from vitiq_torch.ops.cuda import fused_layer_train as flt
 
-    ops = _train_operands(cuda, ffn, n_head)
+    ops = _train_operands(cuda, ffn, n_head, d)
     gen = torch.Generator().manual_seed(Lx)
-    x = torch.randn((37, Lx, D), generator=gen).to(cuda, torch.bfloat16)
-    dy = (0.1 * torch.randn((37, Lx, D), generator=gen)).to(cuda, torch.bfloat16)
+    x = torch.randn((37, Lx, d), generator=gen).to(cuda, torch.bfloat16)
+    dy = (0.1 * torch.randn((37, Lx, d), generator=gen)).to(cuda, torch.bfloat16)
     y = flt.fused_train_layer_fwd(x, ops, n_head, drop, 99, 2)
     dx, grads = flt.fused_train_layer_bwd(x, dy, ops, n_head, drop, 99, 2)
     torch.cuda.synchronize()
@@ -180,14 +209,16 @@ def test_train_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.cuda
-def test_train_backward_is_the_same_bits_run_to_run(cuda):
+@pytest.mark.parametrize("Lx,ffn,d", [pytest.param(129, 512, D, id="d128"),
+                                      pytest.param(65, 1024, 256, id="d256")])
+def test_train_backward_is_the_same_bits_run_to_run(cuda, Lx, ffn, d):
     """The weight gradients are reduced in a fixed order, without atomics."""
     from vitiq_torch.ops.cuda import fused_layer_train as flt
 
-    ops = _train_operands(cuda, 512, H)
+    ops = _train_operands(cuda, ffn, H, d)
     gen = torch.Generator().manual_seed(9)
-    x = torch.randn((64, 129, D), generator=gen).to(cuda, torch.bfloat16)
-    dy = torch.randn((64, 129, D), generator=gen).to(cuda, torch.bfloat16)
+    x = torch.randn((64, Lx, d), generator=gen).to(cuda, torch.bfloat16)
+    dy = torch.randn((64, Lx, d), generator=gen).to(cuda, torch.bfloat16)
     first = flt.fused_train_layer_bwd(x, dy, ops, H, 0.1, 4, 1)
     second = flt.fused_train_layer_bwd(x, dy, ops, H, 0.1, 4, 1)
     torch.cuda.synchronize()
@@ -203,18 +234,19 @@ STASH_NAMES = ("attn", "xh1", "xh2", "r1", "r2", "pbar")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Lx,ffn", [(17, 256), (65, 1024), (80, 256)])
-@pytest.mark.parametrize("n_head", [8, 4])  # d_head 16 and 32
+@pytest.mark.parametrize("Lx,ffn,n_head,d", [  # d_head 16 and 32, + rawiq_best_mp
+    _p(Lx, ffn, n_head) for Lx, ffn in ((17, 256), (65, 1024), (80, 256))
+    for n_head in (8, 4)] + [_p(64, 1024, 8, d=256), _p(64, 1024, 16, d=256)])
 @pytest.mark.parametrize("drop", [0.0, 0.2])
-def test_stash_kernels_match_plain_versions(cuda, Lx, ffn, n_head, drop):
+def test_stash_kernels_match_plain_versions(cuda, Lx, ffn, n_head, d, drop):
     """y and the bf16 stash tensors at the one-layer tolerance, 1/std (r1,
     r2, f32) at a relative 1e-3; dx and the gradients as K3's."""
     from vitiq_torch.ops.cuda import fused_layer_train as flt
 
-    ops = _train_operands(cuda, ffn, n_head)
+    ops = _train_operands(cuda, ffn, n_head, d)
     gen = torch.Generator().manual_seed(Lx)
-    x = torch.randn((37, Lx, D), generator=gen).to(cuda, torch.bfloat16)
-    dy = (0.1 * torch.randn((37, Lx, D), generator=gen)).to(cuda, torch.bfloat16)
+    x = torch.randn((37, Lx, d), generator=gen).to(cuda, torch.bfloat16)
+    dy = (0.1 * torch.randn((37, Lx, d), generator=gen)).to(cuda, torch.bfloat16)
     y, stash = flt.fused_train_layer_fwd_stash(x, ops, n_head, drop, 99, 2)
     dx, grads = flt.fused_train_layer_bwd_stash(x, dy, stash, ops, n_head, drop, 99, 2)
     torch.cuda.synchronize()
@@ -445,32 +477,36 @@ def _assert_int8_close(got, want, tol):
     assert torch.all((got - want).abs() <= steps * step)
 
 
-def _qlayers(n, ffn, device, n_head=H):
+def _qlayers(n, ffn, device, n_head=H, d=D):
     from vitiq_torch.ops.quant import QuantizedEncoderLayer, quantize_params_int8
 
     gen = torch.Generator().manual_seed(5)
     out = []
     for _ in range(n):
-        layer = EncoderLayer(D, ffn, n_head, generator=gen)
+        layer = EncoderLayer(d, ffn, n_head, generator=gen)
         with torch.no_grad():  # LayerNorm affine away from (1, 0)
             for norm in (layer.norm1, layer.norm2):
-                norm.gamma.copy_(1.0 + 0.1 * torch.randn(D, generator=gen))
-                norm.beta.copy_(0.1 * torch.randn(D, generator=gen))
-        q = QuantizedEncoderLayer(D, ffn)
+                norm.gamma.copy_(1.0 + 0.1 * torch.randn(d, generator=gen))
+                norm.beta.copy_(0.1 * torch.randn(d, generator=gen))
+        q = QuantizedEncoderLayer(d, ffn)
         q.load_state_dict(quantize_params_int8(layer.state_dict()))
         out.append(q.to(device))
     return out
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Lx,ffn,n_head,batch", [
-    (1, 256, 8, 37), (17, 256, 8, 37), (17, 256, 4, 37), (65, 1024, 8, 37), (65, 1024, 4, 37),
-    (129, 512, 8, 37), (129, 512, 4, 37), (1025, 1024, 8, 6), (1025, 1024, 4, 6)])
-def test_int8_layer_matches_plain_version(cuda, Lx, ffn, n_head, batch):
+@pytest.mark.parametrize("Lx,ffn,n_head,batch,d", [
+    _p(1, 256, 8, 37), _p(17, 256, 8, 37), _p(17, 256, 4, 37), _p(65, 1024, 8, 37),
+    _p(65, 1024, 4, 37), _p(129, 512, 8, 37), _p(129, 512, 4, 37), _p(1025, 1024, 8, 6),
+    _p(1025, 1024, 4, 6),
+    _p(65, 1024, 8, 37, d=256), _p(1, 1024, 8, 37, d=256),  # rawiq_best
+    _p(17, 256, 4, 37, d=64),  # vit_tiny_2016
+    _p(129, 512, 2, 37)])  # d_head 64 (vit_tpu_production)
+def test_int8_layer_matches_plain_version(cuda, Lx, ffn, n_head, batch, d):
     from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
 
-    ops = k6.int8_layer_operands(_qlayers(1, ffn, cuda, n_head)[0], n_head)
-    x = torch.randn((batch, Lx, D), generator=torch.Generator().manual_seed(Lx)).to(
+    ops = k6.int8_layer_operands(_qlayers(1, ffn, cuda, n_head, d)[0], n_head)
+    x = torch.randn((batch, Lx, d), generator=torch.Generator().manual_seed(Lx)).to(
         cuda, torch.bfloat16)
     got = k6.fused_encoder_layer_int8(x, ops, n_head)
     torch.cuda.synchronize()
@@ -478,13 +514,16 @@ def test_int8_layer_matches_plain_version(cuda, Lx, ffn, n_head, batch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Lx,ffn", [(129, 512), (65, 1024), (17, 256)])
+@pytest.mark.parametrize("Lx,ffn,d", [pytest.param(129, 512, D, id="129-512"),
+                                      pytest.param(65, 1024, D, id="65-1024"),
+                                      pytest.param(17, 256, D, id="17-256"),
+                                      pytest.param(65, 1024, 256, id="65-1024-d256")])
 @pytest.mark.parametrize("cls_only", [False, True])
-def test_int8_stack_and_cls_tail_match_plain_version(cuda, Lx, ffn, cls_only):
+def test_int8_stack_and_cls_tail_match_plain_version(cuda, Lx, ffn, d, cls_only):
     from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
 
-    layers = _qlayers(3, ffn, cuda)
-    x = torch.randn((37, Lx, D), generator=torch.Generator().manual_seed(1)).to(
+    layers = _qlayers(3, ffn, cuda, d=d)
+    x = torch.randn((37, Lx, d), generator=torch.Generator().manual_seed(1)).to(
         cuda, torch.bfloat16)
     k6.reset_launches()
     fel.reset_launches()
@@ -496,12 +535,16 @@ def test_int8_stack_and_cls_tail_match_plain_version(cuda, Lx, ffn, cls_only):
     want = k6.fused_encoder_layer_int8_stack_reference(
         x, [k6.int8_layer_operands(q, H) for q in full], H,
         k6.dequant_layer_operands(layers[-1], H) if cls_only else None)
-    assert got.shape == ((37, 1, D) if cls_only else (37, Lx, D))
+    assert got.shape == ((37, 1, d) if cls_only else (37, Lx, d))
     _assert_int8_close(got, want, K6_STACK_TOL)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [(1000, 128, 384), (64, 128, 512), (777, 1024, 128)])
+@pytest.mark.parametrize("M,K,N", [(1000, 128, 384), (64, 128, 512), (777, 1024, 128),
+                                   # rawiq_best's stages: QKV, out-projection, FFN1, FFN2
+                                   (1000, 256, 768), (1000, 256, 256), (64, 256, 1024),
+                                   (777, 1024, 256),
+                                   (300, 64, 192), (300, 64, 64)])  # d_model 64: 64-wide tiles
 @pytest.mark.parametrize("relu", [False, True])
 @pytest.mark.parametrize("prequant", [False, True])
 def test_int8_gemm_stage_is_exact(cuda, M, K, N, relu, prequant):
@@ -563,7 +606,7 @@ def test_int8_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="bf16"):
         k6.fused_encoder_layer_int8(x, ops, H)  # f32 activations
     with pytest.raises(ValueError, match="d_head"):
-        k6.fused_encoder_layer_int8(x.bfloat16(), ops, 2)  # d_head 64
+        k6.fused_encoder_layer_int8(x.bfloat16(), ops, 1)  # d_head 128
     with pytest.raises(ValueError, match="operand 0"):
         k6.fused_encoder_layer_int8(x.bfloat16(), [ops[0].float()] + ops[1:], H)
     with pytest.raises(ValueError, match="K % 64"):
@@ -609,3 +652,135 @@ def test_quantized_model_serves_through_k6_and_k2(cuda, arm, monkeypatch):
     bound = 0.35 * max(ref.abs().max().item(), 1.0)
     assert (got - ref).abs().max().item() < bound
     assert (got - unfused).abs().max().item() < bound
+
+
+# --------------------------------------------------------------------------
+# The configurations that need the wider kernels, end to end on the card
+# --------------------------------------------------------------------------
+
+WIDE_CONFIGS = ("rawiq_best", "rawiq_best_mp", "vit_tiny_2016", "vit_tpu_production")
+
+
+def _wide_config(name):
+    """The named geometry under `tpu` numerics with 3 classes (the synthetic
+    corpus's) and its frame length."""
+    import dataclasses
+
+    from vitiq_torch import config as pc
+
+    if name == "vit_tpu_production":
+        cfg = pc.ExperimentConfig.vit_tpu_production().model
+    else:
+        cfg = getattr(pc, f"{name}_config")()
+    cfg = dataclasses.replace(cfg, numerics="tpu", num_classes=3)
+    return cfg, cfg.seq_length
+
+
+def _all_launches():
+    from vitiq_torch.ops.cuda import flash_attention as fa
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    return {**fel.launches, **k6.launches, **fa.launches, **flt.launches}
+
+
+def _reset_all():
+    from vitiq_torch.ops.cuda import flash_attention as fa
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    for module in (fel, k6, fa, flt):
+        module.reset_launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", WIDE_CONFIGS)
+def test_wide_configs_serve_evaluate_and_train_through_the_kernels(cuda, name, tmp_path):
+    """Under `tpu` numerics on the card: `Server` answers a request through
+    K1 (each full layer) and K2 (the CLS row, where the model pools on it),
+    within 0.05 of the f32 path; the int8 twin through K6 and K2; `fit`
+    trains an epoch (K3 for `rawiq_best`, K4 for `rawiq_best_mp`, the plain
+    layers with K5 at d_model 64 and d_head 64) and validates through K1/K2;
+    `run_evaluation` of the saved experiment writes its report in float
+    (K1/K2) and int8 (K6/K2). Each of these raised on shapes past d_model
+    128 / d_head 32 before the kernels were widened."""
+    import dataclasses
+    import json
+
+    from vitiq_torch.config import DataConfig, ExperimentConfig, TrainConfig
+    from vitiq_torch.models import AMCModel
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+    from vitiq_torch.runner import load_experiment_data, run_evaluation
+    from vitiq_torch.serve import (Server, build_forward_and_preprocess,
+                                   build_int8_serving_fn, build_serving_fn)
+    from vitiq_torch.train import fit
+    from vitiq_torch.train.checkpoint import save_params
+
+    mcfg, frame_len = _wide_config(name)
+    n, pools = mcfg.n_layers, mcfg.arm == "vit" or mcfg.use_cls_token
+    exp = ExperimentConfig(model=mcfg,
+                           data=DataConfig(synthetic_frames_per_class=96,
+                                           synthetic_frame_len=frame_len),
+                           train=TrainConfig(batch_size=32, num_epochs=1, learning_rate=3e-4))
+    stats = {"i_mean": 0.1, "i_std": 1.3, "q_mean": -0.2, "q_std": 0.9}
+    model = AMCModel(mcfg, generator=torch.Generator().manual_seed(0))
+    ref_cfg = dataclasses.replace(mcfg, numerics="reference")
+    ref = AMCModel(ref_cfg)
+    ref.load_state_dict(model.state_dict())
+    x = torch.randn((5, frame_len, 2), generator=torch.Generator().manual_seed(1)).to(cuda)
+    want = {k: 0 for k in _all_launches()}
+    want.update({"fused_encoder_layer": n - 1 if pools else n,
+                 "fused_encoder_layer_cls": int(pools)})
+
+    server = Server(build_serving_fn(exp, model, stats, cuda), frame_len, (8,), cuda)
+    _reset_all()
+    got = server.run(x)
+    torch.cuda.synchronize()
+    assert _all_launches() == want
+    f32 = build_serving_fn(ExperimentConfig(model=ref_cfg, data=exp.data), ref, stats, cuda)(x)
+    assert got.shape == (5, 3) and torch.isfinite(got).all()
+    assert (got - f32).abs().max().item() < 0.05
+
+    int8 = Server(build_int8_serving_fn(exp, model, stats, cuda), frame_len, (8,), cuda)
+    _reset_all()
+    got8 = int8.run(x)
+    torch.cuda.synchronize()
+    want8 = {k: 0 for k in want}
+    want8.update({"fused_encoder_layer_int8": want["fused_encoder_layer"],
+                  "fused_encoder_layer_cls": int(pools)})
+    assert _all_launches() == want8
+    assert (got8 - f32).abs().max().item() < 0.35 * max(f32.abs().max().item(), 1.0)
+
+    splits, data_stats, _ = load_experiment_data(exp)
+    model, pre = build_forward_and_preprocess(
+        exp, AMCModel(mcfg, generator=torch.Generator().manual_seed(2)), data_stats, cuda)
+    _reset_all()
+    res = fit(exp, model, splits["train"][:2], splits["valid"][:2], preprocess_fn=pre,
+              verbose=False)
+    torch.cuda.synchronize()
+    launched = _all_launches()
+    fwd, bwd = (("fused_train_layer_fwd", "fused_train_layer_bwd") if name == "rawiq_best" else
+                ("fused_train_layer_fwd_stash", "fused_train_layer_bwd_stash")
+                if name == "rawiq_best_mp" else ("fused_attention_fwd", "fused_attention_bwd"))
+    steps = len(splits["train"][0]) // exp.train.batch_size
+    assert launched[fwd] == launched[bwd] == n * steps, launched
+    assert sum(launched[k] for k in flt.launches) == (2 * n * steps if "rawiq" in name else 0)
+    assert launched["fused_encoder_layer"] > 0  # the validation pass
+    assert res.epochs_run == 1 and all(map(math.isfinite, res.history["val_loss"]))
+
+    save_params(tmp_path / "model_best", res.best_params, mcfg)
+    exp.to_json(str(tmp_path / "config.json"))
+    (tmp_path / "normalization_stats.json").write_text(json.dumps(data_stats))
+    for quantized in (False, True):
+        _reset_all()
+        r = run_evaluation(str(tmp_path), "test", int8=quantized, device=cuda,
+                           make_plots=False, verbose=False)
+        torch.cuda.synchronize()
+        launched = _all_launches()
+        prefix = "test_int8" if quantized else "test"
+        assert (tmp_path / "evaluation" / f"{prefix}_classification_report.txt").exists()
+        assert 0.0 <= r["overall_accuracy"] <= 1.0
+        layer = "fused_encoder_layer_int8" if quantized else "fused_encoder_layer"
+        assert launched[layer] > 0 and launched["fused_encoder_layer_cls"] == (
+            launched[layer] // want["fused_encoder_layer"] if pools else 0), launched
+        assert launched["fused_attention_fwd"] == 0

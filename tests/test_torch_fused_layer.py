@@ -9,7 +9,14 @@ GPU machine without it.
 
 K9 (the key-tiled long-sequence stack) and K10 (the query-tiled one) are TPU
 schedules of K1's function; their interpret-mode runs at 520 tokens are
-held to the port's K1/K2 stack here, which closes them as mappings onto K1."""
+held to the port's K1/K2 stack here, which closes them as mappings onto K1.
+
+The stack is held at the widths the kernels take: d_model 64, 128 and 256,
+d_head 16, 32 and 64. `fused_infer_supported` and `fused_train_supported`,
+the shape gates the model dispatches on, are checked on every geometry the
+JAX package serves."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -18,11 +25,14 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+import vitiq.bench as jbench
+from vitiq.config import ExperimentConfig
 from vitiq.models import layers as L
 from vitiq.ops.pallas.fused_encoder_layer import fused_encoder_layer_v3_stack
 from vitiq_torch.interop import encoder_layer_state_dict
 from vitiq_torch.models.layers import EncoderLayer
 from vitiq_torch.ops.cuda import fused_encoder_layer as fel
+from vitiq_torch.ops.cuda import fused_layer_train as flt
 
 D, F, H = 128, 512, 8
 
@@ -38,22 +48,35 @@ def _layers(seeds, d=D, f=F, n_head=H):
     return trees, port
 
 
-@pytest.mark.parametrize("Lx", [17, 129])
+# (B, L, d_model, FFN, n_head): the ViT flagship's widths at 17 and 129
+# tokens, then rawiq_best (d256/F1024/H8, 65 tokens), vit_tiny_2016
+# (d64/F256/H4, 17 tokens) and d_head 64 (vit_tpu_production's n_head 2)
+GEOMETRIES = [
+    pytest.param((3, 17, D, F, H), id="17"),
+    pytest.param((3, 129, D, F, H), id="129"),
+    pytest.param((2, 65, 256, 1024, 8), id="d256-L65"),
+    pytest.param((2, 17, 64, 256, 4), id="d64-L17"),
+    pytest.param((2, 17, 128, 512, 2), id="dh64-L17"),
+]
+
+
+@pytest.mark.parametrize("geom", GEOMETRIES)
 @pytest.mark.parametrize("cls_only", [False, True])
-def test_plain_stack_matches_pallas_v3_stack(Lx, cls_only, monkeypatch):
+def test_plain_stack_matches_pallas_v3_stack(geom, cls_only, monkeypatch):
     monkeypatch.setenv("VITIQ_V3_ATTN", "xpack")
-    trees, port = _layers([40, 41])
-    x = np.random.default_rng(Lx).standard_normal((3, Lx, D)).astype(np.float32)
+    B, Lx, d, f, n_head = geom
+    trees, port = _layers([40, 41], d, f, n_head)
+    x = np.random.default_rng(Lx).standard_normal((B, Lx, d)).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(fused_encoder_layer_v3_stack(
-            jnp.asarray(x), trees, H, cls_only=cls_only))
-    got = fel.fused_encoder_layer_stack(torch.from_numpy(x), port, H,
+            jnp.asarray(x), trees, n_head, cls_only=cls_only))
+    got = fel.fused_encoder_layer_stack(torch.from_numpy(x), port, n_head,
                                         cls_only=cls_only).numpy()
     if cls_only:
-        assert got.shape == (3, 1, D)
+        assert got.shape == (B, 1, d)
         np.testing.assert_allclose(got[:, 0], want[:, 0], atol=1e-4)
     else:
-        assert got.shape == (3, Lx, D)
+        assert got.shape == (B, Lx, d)
         np.testing.assert_allclose(got, want, atol=1e-4)
 
 
@@ -186,3 +209,47 @@ def test_k10_query_tiled_stack_maps_onto_k1(cls_only, monkeypatch):
                                                           cls_only=cls_only))
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+# Every serving geometry of vitiq's bench at its serving shape, then the
+# d_head-64 ViT (`vit_tpu_production`) and the conv1d arm with n_head 2,
+# whose 1025-token K/V (d_head 64) do not fit the attention block.
+@pytest.mark.parametrize("name", sorted(jbench.ARM_CONFIGS) + ["vit_tpu_production",
+                                                               "conv1d_h2"])
+def test_shape_gates_on_the_served_geometries(name):
+    if name == "vit_tpu_production":
+        cfg = ExperimentConfig.vit_tpu_production().model
+    elif name == "conv1d_h2":
+        cfg = dataclasses.replace(jbench.flagship_conv1d_config(), n_head=2)
+    else:
+        cfg = jbench.ARM_CONFIGS[name]()
+    shape = (cfg.num_tokens, cfg.d_model, cfg.ffn_hidden, cfg.n_head)
+    assert fel.fused_infer_supported(*shape) == (name != "conv1d_h2")
+    train = cfg.d_model in (128, 256) and cfg.d_head in (16, 32) and cfg.num_tokens < 1025
+    assert flt.fused_train_supported(*shape) == train
+
+
+def test_eval_dispatch_turns_unsupported_shapes_to_the_plain_layers(monkeypatch):
+    """conv1d with n_head 2 (1025 tokens, d_head 64): `Encoder.forward`'s
+    eval branch and `QuantizedAMCModel` (forced fused) run the plain layers,
+    never the fused stacks, and still give finite logits."""
+    from vitiq_torch.config import ModelConfig
+    from vitiq_torch.models import AMCModel, encoder
+    from vitiq_torch.ops import quant
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a fused stack was called for a shape its gate turns away")
+
+    monkeypatch.setattr(encoder, "fused_encoder_layer_stack", refuse)
+    monkeypatch.setattr(quant, "fused_encoder_layer_int8_stack", refuse)
+    cfg = ModelConfig(arm="rawiq", num_classes=3, d_model=128, n_head=2, n_layers=1,
+                      ffn_hidden=128, embedding_type="conv1d", numerics="tpu")
+    assert cfg.num_tokens == 1025 and not fel.fused_infer_supported(1025, 128, 128, 2)
+    model = AMCModel(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    src = torch.from_numpy(np.random.default_rng(8).standard_normal((1, 2, 1024))
+                           .astype(np.float32))
+    with torch.no_grad():
+        logits = model(src)
+    qlogits = quant.QuantizedAMCModel.from_model(model, fused=True)(src)
+    assert logits.shape == qlogits.shape == (1, 3)
+    assert torch.isfinite(logits).all() and torch.isfinite(qlogits).all()

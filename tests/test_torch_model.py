@@ -1,7 +1,10 @@
 """The whole serving slice: raw frames -> logits, port against `vitiq`.
 
 * f32 `reference`: the port's `build_serving_fn` against
-  `vitiq.serve.build_serving_fn`, atol 1e-5 on logits.
+  `vitiq.serve.build_serving_fn`, atol 1e-5 on logits, at small widths and
+  at `rawiq_best`'s full width and depth (d256/L9, 65 tokens).
+* The model helpers (`make_feature_extractor`, `count_parameters`,
+  `make_attention_map_fn`) against vitiq's, in f32.
 * bf16 `tpu`: the port (plain version of the fused kernels on the CPU)
   against `vitiq`'s `make_forward(numerics="tpu")` with its preprocess,
   max |dlogit| <= 0.05 (the fused-serving gate of scripts/tpu_check_fused.py).
@@ -15,12 +18,15 @@ import numpy as np
 import pytest
 import torch
 
+import vitiq.models.amc as jamc
 import vitiq.serve as jax_serve
+from vitiq.bench import rawiq_best_config
 from vitiq.config import DataConfig, ExperimentConfig, ModelConfig
 from vitiq.dsp import preprocess_batch_rawiq, preprocess_batch_vit
 from vitiq.models import init_amc_params, make_forward
 from vitiq_torch.interop import state_dict_from_vitiq
 from vitiq_torch.models import AMCModel
+from vitiq_torch.models import amc as pamc
 from vitiq_torch.ops.cuda import fused_encoder_layer as fel
 from vitiq_torch.serve import Server, build_serving_fn
 
@@ -38,10 +44,12 @@ CONFIGS = {
                                n_layers=2, ffn_hidden=128, seq_length=256,
                                segment_size=16, use_cls_token=False), 256),
 }
+# the reference's best published geometry at full width and depth
+BEST = {"rawiq_best": (rawiq_best_config("reference"), 1024)}
 
 
 def _setup(name, numerics, seed=0):
-    mcfg, frame_len = CONFIGS[name]
+    mcfg, frame_len = {**CONFIGS, **BEST}[name]
     mcfg = dataclasses.replace(mcfg, numerics=numerics)
     exp = ExperimentConfig(model=mcfg, data=DataConfig(synthetic_frame_len=frame_len))
     params = init_amc_params(jax.random.PRNGKey(seed), mcfg)
@@ -51,7 +59,7 @@ def _setup(name, numerics, seed=0):
     return exp, params, model, x
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("name", sorted(CONFIGS) + sorted(BEST))
 def test_reference_logits_match_vitiq(name):
     exp, params, model, x = _setup(name, "reference")
     want = np.asarray(jax.jit(jax_serve.build_serving_fn(exp, params, STATS))(jnp.asarray(x)))
@@ -114,3 +122,37 @@ def test_bucket_routing_pads_and_slices(numerics):
         server.run(np.zeros((17, 128, 2), np.float32))
     with pytest.raises(ValueError, match="raw I/Q frames"):
         server.run(np.zeros((2, 64, 2), np.float32))
+
+
+def _preprocessed(exp, x):
+    mcfg = exp.model
+    if mcfg.arm == "vit":
+        return np.array(preprocess_batch_vit(jnp.asarray(x), STATS, H=mcfg.img_size_h,
+                                               W=mcfg.img_size_w))
+    return np.array(preprocess_batch_rawiq(jnp.asarray(x), STATS))
+
+
+@pytest.mark.parametrize("name", ["vit", "rawiq_mean"])
+def test_model_helpers_match_vitiq(name):
+    """The port's helpers on an `AMCModel` against vitiq's on the same
+    weights (f32 `reference`): the encoder's sequence and CLS outputs within
+    1e-5, the parameter count equal, each layer's attention maps within
+    1e-6."""
+    exp, params, model, x = _setup(name, "reference")
+    src = _preprocessed(exp, x)
+    want = jamc.make_feature_extractor(exp.model)(params, jnp.asarray(src))
+    got = pamc.make_feature_extractor(model)(torch.from_numpy(src))
+    np.testing.assert_allclose(got["sequence_output"].numpy(),
+                               np.asarray(want["sequence_output"]), atol=1e-5)
+    if want["cls_output"] is None:
+        assert got["cls_output"] is None
+    else:
+        np.testing.assert_allclose(got["cls_output"].numpy(), np.asarray(want["cls_output"]),
+                                   atol=1e-5)
+    assert pamc.count_parameters(model) == jamc.count_parameters(params)
+    want_maps = jamc.make_attention_map_fn(exp.model)(params, jnp.asarray(src))
+    got_maps = pamc.make_attention_map_fn(model)(torch.from_numpy(src))
+    assert len(got_maps) == len(want_maps) == exp.model.n_layers
+    for g, w in zip(got_maps, want_maps):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6)

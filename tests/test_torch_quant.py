@@ -44,13 +44,13 @@ LAYER_TOL = (1e-2, 2.0)
 STACK_TOL = (2e-2, 4.0)
 
 
-def _layers(seed, n, n_head=8):
+def _layers(seed, n, n_head=8, d=D, ffn=F):
     """vitiq's quantized layer trees and the port's quantized layers, from
     the same float weights."""
-    trees = [VL.encoder_layer_init(jax.random.PRNGKey(seed + i), D, F) for i in range(n)]
+    trees = [VL.encoder_layer_init(jax.random.PRNGKey(seed + i), d, ffn) for i in range(n)]
     layers = []
     for tree in trees:
-        layer = pq.QuantizedEncoderLayer(D, F)
+        layer = pq.QuantizedEncoderLayer(d, ffn)
         layer.load_state_dict(pq.quantize_params_int8(encoder_layer_state_dict(tree)))
         layers.append(layer)
     return [vq.quantize_params_int8(t) for t in trees], layers
@@ -133,17 +133,23 @@ def test_int8_linear_matches_vitiq(shape):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("cls_only,n_head", [(False, 8), (True, 8), (False, 4)])
-def test_plain_int8_stack_matches_pallas_int8_stack(cls_only, n_head):
-    qtrees, layers = _layers(3, 3, n_head)
-    x, xj = _bf16_input((4, 17, D), 0)
+@pytest.mark.parametrize("cls_only,n_head,shape,ffn", [
+    pytest.param(False, 8, (4, 17, D), F, id="False-8"),
+    pytest.param(True, 8, (4, 17, D), F, id="True-8"),
+    pytest.param(False, 4, (4, 17, D), F, id="False-4"),
+    # rawiq_best's widths: d_model 256, FFN 1024, 65 tokens, d_head 32
+    pytest.param(True, 8, (1, 65, 256), 1024, id="True-8-d256"),
+])
+def test_plain_int8_stack_matches_pallas_int8_stack(cls_only, n_head, shape, ffn):
+    qtrees, layers = _layers(3, 3, n_head, shape[-1], ffn)
+    x, xj = _bf16_input(shape, 0)
     with pltpu.force_tpu_interpret_mode():
         want = vfel.fused_encoder_layer_v3_int8_stack(xj, qtrees, n_head, cls_only=cls_only)
     want = np.asarray(want.astype(jnp.float32))
     got = k6.fused_encoder_layer_int8_stack(x, layers, n_head, cls_only=cls_only)
     assert got.dtype == torch.bfloat16
     if cls_only:
-        assert got.shape == (4, 1, D)
+        assert got.shape == (shape[0], 1, shape[-1])
         want = want[:, :1]
     _assert_steps_close(got.float().numpy(), want, STACK_TOL)
 

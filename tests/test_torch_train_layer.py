@@ -29,21 +29,25 @@ from vitiq_torch.models.layers import EncoderLayer
 from vitiq_torch.ops.cuda import fused_layer_train as flt
 
 D = 128
-SHAPES = [(2, 17, 4), (1, 129, 8)]  # (B, L, n_head); FFN 256
+# (B, L, n_head, d_model, FFN): d_model 128 at FFN 256, and rawiq_best's
+# widths (d256, FFN 1024, 65 tokens, d_head 32)
+SHAPES = [pytest.param(2, 17, 4, D, 256, id="2-17-4"),
+          pytest.param(1, 129, 8, D, 256, id="1-129-8"),
+          pytest.param(1, 65, 8, 256, 1024, id="1-65-8-d256")]
 
 
-def _layer(seed, n_head, ffn=256):
-    tree = L.encoder_layer_init(jax.random.PRNGKey(seed), D, ffn)
-    layer = EncoderLayer(D, ffn, n_head)
+def _layer(seed, n_head, ffn=256, d=D):
+    tree = L.encoder_layer_init(jax.random.PRNGKey(seed), d, ffn)
+    layer = EncoderLayer(d, ffn, n_head)
     layer.load_state_dict(encoder_layer_state_dict(tree))
     return tree, layer
 
 
-@pytest.mark.parametrize("B,Lx,n_head", SHAPES)
-def test_plain_forward_matches_pallas_train_stack(B, Lx, n_head, monkeypatch):
+@pytest.mark.parametrize("B,Lx,n_head,d,ffn", SHAPES)
+def test_plain_forward_matches_pallas_train_stack(B, Lx, n_head, d, ffn, monkeypatch):
     monkeypatch.setenv("VITIQ_TRAIN_STASH", "0")
-    tree, layer = _layer(0, n_head)
-    x = np.random.default_rng(Lx).standard_normal((B, Lx, D)).astype(np.float32)
+    tree, layer = _layer(0, n_head, ffn, d)
+    x = np.random.default_rng(Lx).standard_normal((B, Lx, d)).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jax_train_stack(jnp.asarray(x), [tree], n_head, 0.0, 7))
     with torch.no_grad():
@@ -51,16 +55,16 @@ def test_plain_forward_matches_pallas_train_stack(B, Lx, n_head, monkeypatch):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
 
 
-@pytest.mark.parametrize("B,Lx,n_head", SHAPES)
-def test_gradients_match_pallas_train_stack(B, Lx, n_head, monkeypatch):
+@pytest.mark.parametrize("B,Lx,n_head,d,ffn", SHAPES)
+def test_gradients_match_pallas_train_stack(B, Lx, n_head, d, ffn, monkeypatch):
     """dx and all 12 gradients of the port's autograd path (K3's plain
     versions) against jax.grad of the Pallas stack, on a loss against a
     target (the bias of w_k has an exactly zero gradient)."""
     monkeypatch.setenv("VITIQ_TRAIN_STASH", "0")
-    tree, layer = _layer(1, n_head)
+    tree, layer = _layer(1, n_head, ffn, d)
     rng = np.random.default_rng(B + Lx)
-    x = rng.standard_normal((B, Lx, D)).astype(np.float32)
-    tgt = rng.standard_normal((B, Lx, D)).astype(np.float32)
+    x = rng.standard_normal((B, Lx, d)).astype(np.float32)
+    tgt = rng.standard_normal((B, Lx, d)).astype(np.float32)
 
     def loss_jax(params, xx):
         return jnp.sum((jax_train_stack(xx, [params], n_head, 0.0, 7) - tgt) ** 2)
@@ -122,7 +126,10 @@ def test_structural_gate():
     assert flt.fused_train_supported(129, 128, 512, 8)   # ViT flagship
     assert flt.fused_train_supported(65, 128, 1024, 8)   # rawIQ flagship
     assert flt.fused_train_supported(129, 128, 512, 4)   # d_head 32
-    assert not flt.fused_train_supported(129, 256, 1024, 8)   # d_model 256
+    assert flt.fused_train_supported(65, 256, 1024, 8)   # rawiq_best (d_model 256)
+    assert flt.fused_train_supported(64, 256, 1024, 8)   # rawiq_best_mp
+    assert not flt.fused_train_supported(17, 64, 256, 4)      # d_model 64 (vit_tiny_2016)
+    assert not flt.fused_train_supported(65, 512, 1024, 8)    # d_model 512
     assert not flt.fused_train_supported(129, 128, 512, 2)    # d_head 64
     assert not flt.fused_train_supported(129, 128, 200, 8)    # FFN not a multiple of 128
     assert not flt.fused_train_supported(1025, 128, 1024, 8)  # conv1d length: shared memory
@@ -183,3 +190,41 @@ def test_training_dispatch(numerics, env, kw, fused, monkeypatch):
     assert logits.shape == (2, 5)
     assert calls == ([seed] if fused else [])
     assert all(p.grad is not None for p in model.parameters())
+
+
+def test_k8_xpack_train_stack_maps_onto_k3():
+    """K8 (`fused_train_layer_stack_xpack`: the packed attention forward and
+    the hybrid packed-recompute backward, interpret mode) against the port's
+    K3 plain versions, in f32 with dropout on: both draw the position hash's
+    masks (the same bits), so two layers agree as the recompute regime does
+    (forward atol 1e-4; dx and the 12 gradients of each layer atol 2e-3,
+    rtol 1e-3)."""
+    from vitiq.ops.pallas.train_xpack import (
+        fused_train_layer_stack_xpack,
+        xpack_train_supported,
+    )
+
+    n_head, drop, seed = 4, 0.25, 7
+    assert xpack_train_supported(17, D, 256, n_head)
+    (t0, l0), (t1, l1) = _layer(5, n_head), _layer(6, n_head)
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((2, 17, D)).astype(np.float32)
+    tgt = rng.standard_normal((2, 17, D)).astype(np.float32)
+
+    def loss_jax(params, xx):
+        y = fused_train_layer_stack_xpack(xx, params, n_head, drop, seed)
+        return jnp.sum((y - tgt) ** 2), y
+
+    with pltpu.force_tpu_interpret_mode():
+        (_, want_y), (want_gp, want_gx) = jax.value_and_grad(
+            loss_jax, argnums=(0, 1), has_aux=True)([t0, t1], jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = flt.fused_train_layer_stack(xt, [l0, l1], n_head, drop, seed)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y), atol=1e-4)
+    ((y - torch.from_numpy(tgt)) ** 2).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_gx), atol=2e-3, rtol=1e-3)
+    for layer, tree in ((l0, want_gp[0]), (l1, want_gp[1])):
+        got = dict(layer.named_parameters())
+        for name, g in encoder_layer_state_dict(tree).items():
+            np.testing.assert_allclose(got[name].grad.numpy(), g.numpy(), atol=2e-3, rtol=1e-3,
+                                       err_msg=name)

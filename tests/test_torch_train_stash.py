@@ -46,9 +46,9 @@ D = 128
 LAYER_TOL = (3e-2, 1.6e-2)
 
 
-def _layer(seed, n_head, ffn):
-    tree = L.encoder_layer_init(jax.random.PRNGKey(seed), D, ffn)
-    layer = EncoderLayer(D, ffn, n_head)
+def _layer(seed, n_head, ffn, d=D):
+    tree = L.encoder_layer_init(jax.random.PRNGKey(seed), d, ffn)
+    layer = EncoderLayer(d, ffn, n_head)
     layer.load_state_dict(encoder_layer_state_dict(tree))
     return tree, layer
 
@@ -82,6 +82,12 @@ def test_flagship_gates():
     assert flt.fused_train_stash_supported(144, 128, 512, 8)       # H * Lp = 1152
     assert not flt.fused_train_stash_supported(161, 128, 512, 8)   # H * Lp = 1408
     assert not flt.fused_train_stash_supported(65, 128, 1024, 2)   # d_head 64
+    # rawiq_best (d256, 65 tokens, Lp 80): the recompute; rawiq_best_mp (64
+    # tokens, Lp 64): the stash at batch <= 4096, as vitiq gates it
+    assert not flt.stash_enabled(65, 8, 256, 4096)
+    assert flt.stash_enabled(64, 8, 256, 4096) and not flt.stash_enabled(64, 8, 256, 8192)
+    assert flt.fused_train_supported(65, 256, 1024, 8)
+    assert flt.fused_train_stash_supported(64, 256, 1024, 8)
     assert flt.stash_attention_bwd_smem_bytes(80, 32) < flt.attention_bwd_smem_bytes(80, 32)
 
 
@@ -123,13 +129,18 @@ def _cosine(a, b):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("B,Lx,n_head,ffn", [(2, 17, 4, 256), (2, 65, 8, 1024)])
-def test_plain_stash_matches_pallas_stash(dtype, B, Lx, n_head, ffn, monkeypatch):
+@pytest.mark.parametrize("B,Lx,n_head,ffn,d", [
+    pytest.param(2, 17, 4, 256, D, id="2-17-4-256"),
+    pytest.param(2, 65, 8, 1024, D, id="2-65-8-1024"),
+    # rawiq_best_mp's widths: d256, FFN 1024, 64 tokens, d_head 32
+    pytest.param(1, 64, 8, 1024, 256, id="1-64-8-1024-d256"),
+])
+def test_plain_stash_matches_pallas_stash(dtype, B, Lx, n_head, ffn, d, monkeypatch):
     monkeypatch.setenv("VITIQ_TRAIN_STASH", "1")
-    tree, layer = _layer(1, n_head, ffn)
+    tree, layer = _layer(1, n_head, ffn, d)
     rng = np.random.default_rng(B + Lx)
-    x = rng.standard_normal((B, Lx, D)).astype(np.float32)
-    tgt = rng.standard_normal((B, Lx, D)).astype(np.float32)
+    x = rng.standard_normal((B, Lx, d)).astype(np.float32)
+    tgt = rng.standard_normal((B, Lx, d)).astype(np.float32)
     jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
     want_y, want_dx, want_gp = _jax_vjp(tree, jnp.asarray(x, jdt), jnp.asarray(tgt), n_head)
     got_y, got_dx, got = _port_grads(layer, torch.from_numpy(x).to(tdt), torch.from_numpy(tgt),
@@ -154,7 +165,7 @@ def test_plain_stash_matches_pallas_stash(dtype, B, Lx, n_head, ffn, monkeypatch
             continue
         assert _cosine(mine, g) >= 0.999, (name, _cosine(mine, g))
     monkeypatch.setenv("VITIQ_TRAIN_STASH", "0")
-    _, k3_dx, _ = _port_grads(_layer(1, n_head, ffn)[1], torch.from_numpy(x).to(tdt),
+    _, k3_dx, _ = _port_grads(_layer(1, n_head, ffn, d)[1], torch.from_numpy(x).to(tdt),
                               torch.from_numpy(tgt), n_head, stash=False)
     assert np.all(np.abs(got_dx - k3_dx) <= atol + rtol * np.abs(k3_dx))
 
@@ -200,9 +211,11 @@ def test_cpu_tensors_take_plain_stash_versions_without_counting():
 
 
 def _model(arm):
-    if arm == "rawiq":  # seg-16 over 1024 samples: 65 tokens with CLS, Lp 80
-        cfg = ModelConfig(arm="rawiq", num_classes=5, d_model=128, n_head=8, n_layers=1,
-                          ffn_hidden=128, segment_size=16, numerics="tpu")
+    if arm.startswith("rawiq"):  # seg-16 over 1024 samples: 65 tokens with CLS, Lp 80
+        d = 256 if arm.startswith("rawiq_best") else 128
+        cfg = ModelConfig(arm="rawiq", num_classes=5, d_model=d, n_head=8, n_layers=1,
+                          ffn_hidden=128, segment_size=16, numerics="tpu",
+                          use_cls_token=not arm.endswith("_mp"))  # mean-pool: 64, Lp 64
         src = np.random.default_rng(6).standard_normal((2, 2, 1024))
     else:  # patch 4 over [1, 32, 64]: 129 tokens with CLS, Lp 144
         cfg = ModelConfig(arm="vit", num_classes=5, d_model=128, n_head=8, n_layers=1,
@@ -217,6 +230,8 @@ def _model(arm):
     ("vit", None, "K3"),     # Lp 144: the recompute
     ("rawiq", "0", "K3"),    # VITIQ_TRAIN_STASH=0
     ("vit", "1", "K4"),      # VITIQ_TRAIN_STASH=1 (H * Lp = 1152 <= 1280)
+    ("rawiq_best", None, "K3"),     # d256, Lp 80: the recompute, as vitiq trains it
+    ("rawiq_best_mp", None, "K4"),  # d256, Lp 64, batch <= 4096: the stash
 ])
 def test_training_dispatch_picks_the_regime(arm, env, regime, monkeypatch):
     calls = []

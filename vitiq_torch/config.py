@@ -585,3 +585,31 @@ def flagship_conv1d_config(numerics: str = "tpu") -> ModelConfig:
     return ModelConfig(arm="rawiq", num_classes=19, d_model=128, n_head=8,
                        n_layers=6, ffn_hidden=1024, drop_prob=0.2,
                        embedding_type="conv1d", numerics=numerics)
+
+
+def rawiq_best_config(numerics: str = "tpu") -> ModelConfig:
+    """The reference's best published checkpoint geometry (rawIQ
+    exp_L9_H8_F1024_W1e-3, 63.44%): d256/L9/H8, FFN 1024, segment-16 tokens
+    (65 with CLS, d_head 32), dropout 0.1, 19 classes (ref:
+    transformer_rawIQ/result/checkpoints/exp_L9_H8_F1024_W1e-3/config.json)."""
+    return ModelConfig(arm="rawiq", num_classes=19, d_model=256, n_head=8,
+                       n_layers=9, ffn_hidden=1024, drop_prob=0.1,
+                       segment_size=16, numerics=numerics)
+
+
+def rawiq_best_mp_config(numerics: str = "tpu") -> ModelConfig:
+    """`rawiq_best_config` with the mean-pool readout (use_cls_token=False,
+    the reference's own pooling flag): 64 tokens, Lp=64."""
+    return ModelConfig(arm="rawiq", num_classes=19, d_model=256, n_head=8,
+                       n_layers=9, ffn_hidden=1024, drop_prob=0.1,
+                       segment_size=16, use_cls_token=False,
+                       numerics=numerics)
+
+
+def vit_tiny_2016_config(numerics: str = "tpu") -> ModelConfig:
+    """ViT-Tiny on RadioML 2016.10a-style data: 128-sample frames folded to
+    [1, 16, 16] images, 11 classes, d64/L4/H4, FFN 256, 17 tokens."""
+    return ModelConfig(arm="vit", num_classes=11, d_model=64, n_head=4,
+                       n_layers=4, ffn_hidden=256, drop_prob=0.1,
+                       img_size_h=16, img_size_w=16, patch_size=4,
+                       seq_length=128, numerics=numerics)

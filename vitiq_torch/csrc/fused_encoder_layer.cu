@@ -12,7 +12,9 @@
 //          twin fused_encoder_layer_int8 -> _fused_layer_kernel_int8
 //          (VITIQ_FUSED_VERSION=v1, mapped below)
 //
-// Function, per layer, on a bf16 [B, L, D] activation (D = 128):
+// Function, per layer, on a bf16 [B, L, D] activation (D = 64, 128 or 256,
+// d_head = D / H = 16, 32 or 64; shapes_ok says which shapes the kernels take,
+// and fused_encoder_layer.fused_infer_supported is the same predicate):
 //   qkv    = bf16(x @ Wqkv + bqkv)          q pre-scaled by log2(e)/sqrt(dh)
 //   attn_h = bf16( sum_j p_j v_j / sum_j p_j ),  p_j = bf16(exp2(s_j - max s))
 //            s_j = q_h . k_{h,j} over the L valid keys
@@ -38,9 +40,16 @@
 //   4. gemm_kernel<kBiasRelu>        FFN1 + bias + ReLU
 //   5. gemm_kernel<kBiasResidualLN>  FFN2 + bias + residual + LN2
 // The GEMMs run on the tensor cores through WMMA (bf16 16x16x16 fragments,
-// f32 accumulators) over 64x128 output tiles; N = D = 128 is one tile row,
-// so the LayerNorm epilogue sees whole rows. A two-stage cp.async pipeline
-// feeds them; no TMA, no wgmma: a simple, right first port.
+// f32 accumulators) over 64 x BN output tiles, BN a template width: the two
+// LayerNorm stages take BN = D, so one tile holds whole rows for the LN
+// epilogue (its f32 staging tile is 66.5 KB at D = 256, above the 48 KB of
+// static shared memory, so those stages take theirs dynamically; the
+// narrower tiles stay static: dynamic shared memory, and divisions in place
+// of shifts in the tile loops, made the D = 128 stages 2-10% slower on an
+// H100); the QKV and FFN1 stages take 128-wide tiles, several per row
+// (64-wide where N is not a multiple of 128: the QKV stage at D = 64). A
+// two-stage cp.async pipeline feeds them; no TMA, no wgmma: a simple, right
+// first port.
 //
 // What bounds it on the card: per frame and layer at the flagship shape
 // (L = 129, D = 128, F = 512) the GEMMs are ~51 MFLOP and the attention core
@@ -57,8 +66,16 @@
 //       are independent blocks, so neither the block-diagonal packing (xpack,
 //       K13) nor the per-head chain (chain) nor key tiling (kt, K9) has a
 //       counterpart; a frame-head's K/V fit shared memory up to ~2.9K
-//       tokens at d_head 16 (~1.6K at d_head 32); checked against the plain
-//       version on the card at the conv1d arm's 1025 tokens.
+//       tokens at d_head 16 (~1.6K at d_head 32, ~850 at d_head 64, so the
+//       conv1d arm's 1025 tokens with n_head 2 are turned away by shapes_ok
+//       and run the plain layers); checked against the plain version on the
+//       card at the conv1d arm's 1025 tokens.
+//   d_model and d_head (no knob: the TPU kernel takes the whole D as one
+//   VMEM block and packs any d_head into its xpack core)
+//                                                 -> D 64 / 128 / 256: the
+//       LN stages' tile is BN = D wide, the other stages tile N by 128 (64
+//       where 128 does not divide it); d_head 16 / 32 / 64: attention_kernel
+//       instances, one block per frame-head as at every width.
 //   VITIQ_V3_PACK (batch packing), VITIQ_V3_G / _LPC (frames per block,
 //       layers per call)                          -> one block per frame-head;
 //       one host call per layer.
@@ -86,11 +103,14 @@
 //   h = bf16(relu(int8_gemm(x1))); y = bf16(LN(int8_gemm(h) + x1)).
 // Each row is quantized once per stage, by whoever sees it whole: x by a
 // row-quantization pass (rowquant_kernel) before the QKV stage; x1 by the
-// out-projection's LN epilogue, which holds whole rows (N = D) and writes
-// the bf16 row and its int8 levels and scale; attn and the FFN hidden by the
-// prologue of the stage that reads them, a stage with one column tile (the
-// FFN2 stage reads each bf16 hidden row once for its scale, then quantizes
-// it tile by tile), so no stage needs a whole hidden row in one block.
+// out-projection's LN epilogue, which holds whole rows (its tile is BN = D
+// wide) and writes the bf16 row and its int8 levels and scale; attn and the
+// FFN hidden by the prologue of the stage that reads them, a stage with one
+// column tile, D wide (the FFN2 stage reads each bf16 hidden row once for
+// its scale, then quantizes it tile by tile), so no stage needs a whole
+// hidden row in one block. The D = 256 stages hold a 32 x 64 warp tile of
+// int32 sums (64 registers) and run two blocks per SM; the narrower ones run
+// four, capped at 64 registers.
 // Products are s8 x s8 -> s32 mma.sync.m16n8k32 tiles; ldmatrix transposes
 // only 16-bit elements, so the int8 W operand is kept K-contiguous, [N, K].
 // Bound at the ViT shape
@@ -114,15 +134,24 @@ namespace {
 using namespace nvcuda;
 
 constexpr int BM = 64;    // GEMM tile rows
-constexpr int BN = 128;   // GEMM tile columns (== D for the LN epilogue)
 constexpr int BK = 32;    // GEMM tile depth
-constexpr int A_LD = BK + 8;   // shared-memory leading dims (bank-conflict pad,
-constexpr int B_LD = BN + 8;   // multiples of 8 bf16 / 4 f32 as WMMA requires)
-constexpr int C_LD = BN + 4;
-constexpr int GEMM_THREADS = 256;  // 8 warps: 2 x 4 warp tiles of 32 x 32
+constexpr int A_LD = BK + 8;   // shared-memory leading dim of the A tile (bank-conflict
+                               // pad, a multiple of 8 bf16 as WMMA requires)
+constexpr int GEMM_THREADS = 256;  // 8 warps: 2 x 4 warp tiles of 32 x BN/4
 constexpr int ATTN_WARPS = 4;
+constexpr int MAX_SMEM = 232448;  // shared memory a block may use on Hopper
+constexpr int STATIC_SMEM = 48 * 1024;  // static shared memory a block may use
 constexpr float LN_EPS = 1e-12f;
 constexpr float ROW_SCALE_FLOOR = 1e-8f;  // K6's row scale: max(absmax, 1e-8) / 127
+
+// Tile widths BN (columns of one output tile): the W tile's and the f32
+// staging tile's leading dims, padded as A_LD is.
+template <int BN>
+__host__ __device__ constexpr int b_ld() { return BN + 8; }
+template <int BN>
+__host__ __device__ constexpr int c_ld() { return BN + 4; }
+// log2 of a power of two: the tile loops index rows and chunks by shifts
+__host__ __device__ constexpr int log2i(int n) { return n > 1 ? 1 + log2i(n / 2) : 0; }
 
 // kBiasResidualLNQuant: kBiasResidualLN that also writes the bf16 output row
 // quantized for the next int8 GEMM (int8 row and its scale), K6 only.
@@ -155,14 +184,16 @@ __device__ __forceinline__ float row_scale_of(float amax) {
   return fmaxf(amax, ROW_SCALE_FLOOR) / 127.0f;
 }
 
+__device__ __forceinline__ int8_t quantize1(float v, float s) {
+  return static_cast<int8_t>(max(-127, min(127, __float2int_rn(__fdiv_rn(v, s)))));
+}
+
 __device__ __forceinline__ uint32_t quantize4(float v0, float v1, float v2, float v3, float s) {
   const float v[4] = {v0, v1, v2, v3};
   uint32_t packed = 0u;
 #pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int q = max(-127, min(127, __float2int_rn(__fdiv_rn(v[b], s))));
-    packed |= (static_cast<uint32_t>(q) & 0xffu) << (8 * b);
-  }
+  for (int b = 0; b < 4; ++b)
+    packed |= (static_cast<uint32_t>(quantize1(v[b], s)) & 0xffu) << (8 * b);
   return packed;
 }
 
@@ -181,28 +212,38 @@ __device__ __forceinline__ float absmax8(const uint4& chunk, float amax) {
 }
 
 constexpr int A_TILE = BM * A_LD;  // bf16 elements of one stage's A tile
-constexpr int B_TILE = BK * B_LD;  // and of its W tile
-constexpr int PIPE_BYTES = 2 * (A_TILE + B_TILE) * (int)sizeof(bf16);
-constexpr int C_BYTES = BM * C_LD * (int)sizeof(float);
-constexpr int GEMM_SMEM = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
+template <int BN>
+__host__ __device__ constexpr int b_tile() { return BK * b_ld<BN>(); }  // and of its W tile
+template <int BN>
+__host__ __device__ constexpr int c_bytes() { return BM * c_ld<BN>() * (int)sizeof(float); }
+// shared memory of gemm_kernel<., BN>: the pipeline, then the f32 staging
+// tile over the same bytes
+template <int BN>
+__host__ __device__ constexpr int gemm_smem() {
+  return 2 * (A_TILE + b_tile<BN>()) * (int)sizeof(bf16) > c_bytes<BN>()
+             ? 2 * (A_TILE + b_tile<BN>()) * (int)sizeof(bf16)
+             : c_bytes<BN>();
+}
 
-// The GEMM stages' epilogue over the block's f32 product tile Cs [BM][C_LD]
+// The GEMM stages' epilogue over the block's f32 product tile Cs [BM][c_ld]
 // (rows m0.., columns n0..): + bias, + bias then ReLU, or + bias + residual
 // then LayerNorm over the whole row (the tile holds all D = BN columns).
 // Shared by the bf16 (K1/K2) and the int8 (K6) GEMM stages.
-template <int EPI>
+template <int EPI, int BN>
 __device__ __forceinline__ void gemm_epilogue(const float* Cs, const GemmArgs& p, long long m0,
                                               int n0, int tid) {
+  constexpr int C_LD = c_ld<BN>();
   const int warp = tid >> 5, lane = tid & 31;
   if constexpr (EPI == kBiasResidualLN || EPI == kBiasResidualLNQuant) {
-    // one warp per row, 4 columns per lane; the tile holds the whole row
+    // one warp per row, BN / 32 columns per lane; the tile holds the whole row
+    constexpr int PER_LANE = BN / 32;
     for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
       const long long gm = m0 + r;
       if (gm >= p.m) break;  // warp-uniform
-      float v[BN / 32];
+      float v[PER_LANE];
       float s = 0.f;
 #pragma unroll
-      for (int t = 0; t < BN / 32; ++t) {
+      for (int t = 0; t < PER_LANE; ++t) {
         const int c = lane + 32 * t;
         v[t] = Cs[r * C_LD + c] + p.bias[c] + __bfloat162float(p.res[gm * p.ldr + c]);
         s += v[t];
@@ -210,14 +251,14 @@ __device__ __forceinline__ void gemm_epilogue(const float* Cs, const GemmArgs& p
       const float mean = warp_sum(s) * (1.0f / BN);
       float q = 0.f;
 #pragma unroll
-      for (int t = 0; t < BN / 32; ++t) {
+      for (int t = 0; t < PER_LANE; ++t) {
         const float d = v[t] - mean;
         q += d * d;
       }
       const float rstd = rsqrtf(warp_sum(q) * (1.0f / BN) + LN_EPS);
       float amax = 0.f;
 #pragma unroll
-      for (int t = 0; t < BN / 32; ++t) {
+      for (int t = 0; t < PER_LANE; ++t) {
         const int c = lane + 32 * t;
         const bf16 y = __float2bfloat16(p.gamma[c] * ((v[t] - mean) * rstd) + p.beta[c]);
         p.c[gm * p.ldc + c] = y;
@@ -227,10 +268,8 @@ __device__ __forceinline__ void gemm_epilogue(const float* Cs, const GemmArgs& p
       if constexpr (EPI == kBiasResidualLNQuant) {
         // the bf16-rounded row, quantized as the next GEMM's input
         const float sc = row_scale_of(warp_max(amax));
-        const uint32_t packed = quantize4(v[0], v[1], v[2], v[3], sc);
 #pragma unroll
-        for (int t = 0; t < BN / 32; ++t)
-          p.cq[gm * BN + lane + 32 * t] = static_cast<int8_t>((packed >> (8 * t)) & 0xffu);
+        for (int t = 0; t < PER_LANE; ++t) p.cq[gm * BN + lane + 32 * t] = quantize1(v[t], sc);
         if (lane == 0) p.cscale[gm] = sc;
       }
     }
@@ -257,15 +296,22 @@ __device__ __forceinline__ void gemm_epilogue(const float* Cs, const GemmArgs& p
   }
 }
 
-// C[:, n0 .. n0 + BN) = epilogue(A @ W + bias) for one 64 x 128 tile per
+// C[:, n0 .. n0 + BN) = epilogue(A @ W + bias) for one 64 x BN tile per
 // block. Block i takes row tile i / n_tiles and column tile i % n_tiles, so
 // the column tiles of one row tile run together and share its A rows in L2.
 // The k loop is a two-stage cp.async pipeline: the next k-step's tiles load
 // while the tensor cores work on this one. The f32 output tile reuses the
-// pipeline's shared memory once the loop is done.
-template <int EPI>
+// pipeline's shared memory once the loop is done. Each warp owns a 32 x BN/4
+// sub-tile of 16 x 16 WMMA fragments.
+template <int EPI, int BN>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
-  __shared__ __align__(128) unsigned char smem[GEMM_SMEM];
+  constexpr int B_LD = b_ld<BN>(), C_LD = c_ld<BN>(), B_TILE = b_tile<BN>();
+  constexpr int WN = BN / 4, FN = WN / 16;  // warp tile columns, fragments across
+  constexpr int SMEM = gemm_smem<BN>();
+  // static shared memory up to 48 KB, dynamic above (launch_gemm_bn)
+  __shared__ __align__(128) unsigned char static_buf[SMEM <= STATIC_SMEM ? SMEM : 16];
+  extern __shared__ __align__(128) unsigned char gemm_buf[];
+  unsigned char* smem = SMEM <= STATIC_SMEM ? static_buf : gemm_buf;
   bf16* stages = reinterpret_cast<bf16*>(smem);  // [2][A tile | W tile]
   float* Cs = reinterpret_cast<float*>(smem);
 
@@ -285,18 +331,18 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
       cp_async16(As + r * A_LD + c, p.a + (in ? gm : 0) * p.lda + k0 + c, in ? 16 : 0);
     }
 #pragma unroll
-    for (int i = tid; i < BK * BN / 8; i += GEMM_THREADS) {  // W tile: 32 x 128
-      const int r = i >> 4, c = (i & 15) * 8;
+    for (int i = tid; i < BK * BN / 8; i += GEMM_THREADS) {  // W tile: 32 x BN
+      const int r = i >> log2i(BN / 8), c = (i & (BN / 8 - 1)) * 8;
       cp_async16(Bs + r * B_LD + c, p.w + (long long)(k0 + r) * p.ldw + n0 + c, 16);
     }
     cp_async_commit();
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][FN];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   const int nk = p.k / BK;
   load_stage(0, 0);
@@ -313,28 +359,28 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[FN];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * A_LD + kk, A_LD);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * B_LD + wn * 32 + j * 16, B_LD);
+      for (int j = 0; j < FN; ++j)
+        wmma::load_matrix_sync(fb[j], Bs + kk * B_LD + wn * WN + j * 16, B_LD);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * C_LD + wn * 32 + j * 16,
+    for (int j = 0; j < FN; ++j)
+      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * C_LD + wn * WN + j * 16,
                               acc[i][j], C_LD, wmma::mem_row_major);
   __syncthreads();
-  gemm_epilogue<EPI>(Cs, p, m0, n0, tid);
+  gemm_epilogue<EPI, BN>(Cs, p, m0, n0, tid);
 }
 
 // ---- K6: the W8A8 GEMM stage ----------------------------------------------
@@ -342,11 +388,14 @@ constexpr int QBK = 64;                // k-step depth: 64 int8 = 64 bytes of a 
 constexpr int Q_LD = QBK + 16;         // int8 shared-memory row stride (bank-conflict
                                        // pad; 80 bytes keeps rows 16-byte aligned)
 constexpr int QA_TILE = BM * Q_LD;     // bytes of one stage's quantized A tile
-constexpr int QB_TILE = BN * Q_LD;     // and of its int8 W tile ([n][k])
-constexpr int QPIPE_BYTES = 2 * (QA_TILE + QB_TILE);
-constexpr int QGEMM_SMEM = QPIPE_BYTES > C_BYTES ? QPIPE_BYTES : C_BYTES;
+template <int BN>  // bytes of its int8 W tile ([n][k])
+__host__ __device__ constexpr int qb_tile() { return BN * Q_LD; }
+template <int BN>
+__host__ __device__ constexpr int qgemm_smem() {
+  return 2 * (QA_TILE + qb_tile<BN>()) > c_bytes<BN>() ? 2 * (QA_TILE + qb_tile<BN>())
+                                                       : c_bytes<BN>();
+}
 constexpr int MAX_QUANT_K = 1024;      // rowquant_kernel: 4 chunks of 8 per lane
-static_assert(BN / 32 == 4, "the LN epilogue quantizes 4 values per lane");
 
 // One warp per row: q[r, :] = rowquant(a[r, :]) and s[r] for a bf16 [m, k]
 // (k % 8 == 0, k <= MAX_QUANT_K): the row is read once into registers, its
@@ -376,7 +425,7 @@ __global__ void __launch_bounds__(256) rowquant_kernel(const bf16* __restrict__ 
 }
 
 // C[:, n0 .. n0 + BN) = epilogue(dequant(rowquant(A) @ Wq^T)) for one 64 x
-// 128 tile per block, A rows of p.k values, Wq int8 [N, p.k] (K contiguous:
+// BN tile per block, A rows of p.k values, Wq int8 [N, p.k] (K contiguous:
 // nn.Linear's [out, in]) with per-column scales wscale [N]. A comes
 //   PREQ = false  as bf16 (p.a): a prologue takes each row's scale over the
 //                 whole row (one warp per row) before any product, and the k
@@ -389,19 +438,26 @@ __global__ void __launch_bounds__(256) rowquant_kernel(const bf16* __restrict__ 
 //                 row once, not once per tile; A tiles arrive by cp.async.
 // W tiles arrive by cp.async; two stages, the next tile's loads in flight
 // during this one's s8 x s8 -> s32 products on the tensor cores
-// (mma.sync.m16n8k32, each warp a 32 x 32 sub-tile). Epilogue:
+// (mma.sync.m16n8k32, each warp a 32 x BN/4 sub-tile). Epilogue:
 // Cs = (f32(acc) * s_r) * wscale[n], then K1's gemm_epilogue.
 // |q_a q_w| summed over K <= 1040 stays below 2^24, so f32(acc) is the exact
 // sum, the same number an f32 product of the integer operands gives.
-// Four blocks per SM (64 registers, a few bytes spilled in the PREQ = false
-// variants): the blocks are short and latency-bound, and the fourth block
-// made a ViT layer 4.5% faster than three at 78 registers.
-template <int EPI, bool PREQ>
-__global__ void __launch_bounds__(GEMM_THREADS, 4) gemm_int8_kernel(
+// Four blocks per SM up to BN = 128 (64 registers, a few bytes spilled in the
+// PREQ = false variants): the blocks are short and latency-bound, and the
+// fourth block made a ViT layer 4.5% faster than three at 78 registers. At
+// BN = 256 a warp holds 64 int32 sums, so two blocks per SM.
+template <int EPI, bool PREQ, int BN>
+__global__ void __launch_bounds__(GEMM_THREADS, BN >= 256 ? 2 : 4) gemm_int8_kernel(
     GemmArgs p, const int8_t* __restrict__ aq, const float* __restrict__ ascale,
     const int8_t* __restrict__ wq, const float* __restrict__ wscale) {
-  __shared__ __align__(128) unsigned char smem[QGEMM_SMEM];
+  constexpr int C_LD = c_ld<BN>(), QB_TILE = qb_tile<BN>();
+  constexpr int WN = BN / 4, NJ = WN / 8;  // warp tile columns, n8 blocks across
+  constexpr int SMEM = qgemm_smem<BN>();
+  // static shared memory up to 48 KB, dynamic above (launch_gemm_int8_bn)
+  __shared__ __align__(128) unsigned char static_buf[SMEM <= STATIC_SMEM ? SMEM : 16];
+  extern __shared__ __align__(128) unsigned char qgemm_buf[];
   __shared__ float row_scale[BM];
+  unsigned char* smem = SMEM <= STATIC_SMEM ? static_buf : qgemm_buf;
   int8_t* stages = reinterpret_cast<int8_t*>(smem);  // [2][A tile | W tile]
   float* Cs = reinterpret_cast<float*>(smem);
 
@@ -430,7 +486,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 4) gemm_int8_kernel(
   __syncthreads();
 
   // each thread moves two 16-byte chunks of bf16 A (8 values) or one of
-  // int8 A (16 values), and two of W (16 int8 each)
+  // int8 A (16 values), and BN / 64 of W (16 int8 each)
   uint4 a_regs[2];
   auto load_a = [&](int k0) {  // bf16 A tile -> registers
 #pragma unroll
@@ -461,7 +517,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 4) gemm_int8_kernel(
       cp_async16(As + r * Q_LD + c, aq + (in ? gm : 0) * p.k + k0 + c, in ? 16 : 0);
     }
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < BN / 64; ++j) {
       const int i = tid + j * GEMM_THREADS;
       const int n = i >> 2, c = (i & 3) * 16;
       cp_async16(Bs + n * Q_LD + c, wq + (long long)(n0 + n) * p.k + k0 + c, 16);
@@ -469,7 +525,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 4) gemm_int8_kernel(
     cp_async_commit();
   };
 
-  int acc[2][4][4] = {};
+  int acc[2][NJ][4] = {};
   const int nk = p.k / QBK;
   load_stage(0, 0);
   if constexpr (!PREQ) {
@@ -501,8 +557,8 @@ __global__ void __launch_bounds__(GEMM_THREADS, 4) gemm_int8_kernel(
         af[i][3] = *reinterpret_cast<const uint32_t*>(hi + 16);
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* col = Bs + (wn * 32 + j * 8 + g) * Q_LD + kk + 4 * t;
+      for (int j = 0; j < NJ; ++j) {
+        const int8_t* col = Bs + (wn * WN + j * 8 + g) * Q_LD + kk + 4 * t;
         const uint32_t b0 = *reinterpret_cast<const uint32_t*>(col);
         const uint32_t b1 = *reinterpret_cast<const uint32_t*>(col + 16);
 #pragma unroll
@@ -520,10 +576,10 @@ __global__ void __launch_bounds__(GEMM_THREADS, 4) gemm_int8_kernel(
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = wm * 32 + i * 16 + g + 8 * h, c = wn * 32 + j * 8 + 2 * t;
+        const int r = wm * 32 + i * 16 + g + 8 * h, c = wn * WN + j * 8 + 2 * t;
         const float s = row_scale[r];
         Cs[r * C_LD + c] = __fmul_rn(__fmul_rn(static_cast<float>(acc[i][j][2 * h]), s),
                                      wscale[n0 + c]);
@@ -531,7 +587,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 4) gemm_int8_kernel(
             __fmul_rn(static_cast<float>(acc[i][j][2 * h + 1]), s), wscale[n0 + c + 1]);
       }
   __syncthreads();
-  gemm_epilogue<EPI>(Cs, p, m0, n0, tid);
+  gemm_epilogue<EPI, BN>(Cs, p, m0, n0, tid);
 }
 
 // Shared-memory row strides (bf16 elements) of the attention core's k
@@ -673,11 +729,40 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) attention_kernel(
   }
 }
 
-template <int EPI>
-void launch_gemm(GemmArgs p, int n_cols, cudaStream_t stream) {
+// The dynamic shared memory a GEMM stage launches with: its tiles live in
+// static shared memory up to 48 KB (the D <= 128 stages), else dynamically.
+constexpr int dynamic_smem(int bytes) { return bytes <= STATIC_SMEM ? 0 : bytes; }
+
+// Dynamic shared memory above the 48 KB default needs the kernel's opt-in.
+template <class K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int EPI, int BN>
+cudaError_t launch_gemm_bn(GemmArgs p, int n_cols, cudaStream_t stream) {
   p.n_tiles = n_cols / BN;
   const long long blocks = (p.m + BM - 1) / BM * p.n_tiles;
-  gemm_kernel<EPI><<<(unsigned)blocks, GEMM_THREADS, 0, stream>>>(p);
+  constexpr int smem = dynamic_smem(gemm_smem<BN>());
+  const cudaError_t err = allow_smem(gemm_kernel<EPI, BN>, smem);
+  if (err != cudaSuccess) return err;
+  gemm_kernel<EPI, BN><<<(unsigned)blocks, GEMM_THREADS, smem, stream>>>(p);
+  return cudaSuccess;
+}
+
+// The tile width of a stage: BN = D for the LayerNorm stages (pass D), else
+// 128, or 64 where 128 does not divide the stage's columns.
+int tile_width(int n_cols) { return n_cols % 128 == 0 ? 128 : 64; }
+
+template <int EPI>
+cudaError_t launch_gemm(GemmArgs p, int n_cols, int bn, cudaStream_t stream) {
+  switch (bn) {
+    case 64: return launch_gemm_bn<EPI, 64>(p, n_cols, stream);
+    case 128: return launch_gemm_bn<EPI, 128>(p, n_cols, stream);
+    case 256: return launch_gemm_bn<EPI, 256>(p, n_cols, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 GemmArgs gemm_args(const bf16* a, long long lda, const bf16* w, int ldw,
@@ -711,11 +796,8 @@ cudaError_t launch_attention(const bf16* qkv, bf16* out, int B, int L, int n_q,
                              int D, int H, long long out_frame_stride,
                              cudaStream_t stream) {
   const size_t smem = attention_smem_bytes<DH>(L);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = allow_smem(attention_kernel<DH>, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)B, (unsigned)H);
   attention_kernel<DH><<<grid, ATTN_WARPS * 32, smem, stream>>>(qkv, out, L, n_q, D,
                                                                 out_frame_stride);
@@ -724,23 +806,45 @@ cudaError_t launch_attention(const bf16* qkv, bf16* out, int B, int L, int n_q,
 
 cudaError_t attention(const bf16* qkv, bf16* out, int B, int L, int n_q, int D, int H,
                       long long out_frame_stride, cudaStream_t stream) {
-  const int dh = D / H;
-  if (dh == 16) return launch_attention<16>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
-  return launch_attention<32>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
+  switch (D / H) {
+    case 16: return launch_attention<16>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
+    case 32: return launch_attention<32>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
+    case 64: return launch_attention<64>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
-bool shapes_ok(int B, int L, int D, int H, int F) {
-  if (B <= 0 || L <= 0 || H <= 0 || D != BN || D % H) return false;
-  const int dh = D / H;
-  return (dh == 16 || dh == 32) && F > 0 && F % BN == 0 && F % BK == 0;
+size_t attention_smem(int dh, int L) {
+  switch (dh) {
+    case 16: return attention_smem_bytes<16>(L);
+    case 32: return attention_smem_bytes<32>(L);
+    case 64: return attention_smem_bytes<64>(L);
+  }
+  return ~size_t(0);
 }
+
+// The shapes K1, K2 and K6 take (fused_encoder_layer.fused_infer_supported
+// is the same predicate): D 64, 128 or 256; d_head 16, 32 or 64; an FFN width
+// that is a multiple of 128; and an L whose frame-head K/V fit the
+// attention block's shared memory.
+bool shapes_ok(int B, int L, int D, int H, int F) {
+  if (B <= 0 || L <= 0 || H <= 0 || D % H) return false;
+  if (D != 64 && D != 128 && D != 256) return false;
+  const int dh = D / H;
+  if (dh != 16 && dh != 32 && dh != 64) return false;
+  return F > 0 && F % 128 == 0 && attention_smem(dh, L) <= (size_t)MAX_SMEM;
+}
+
+// Returns from the enclosing entry with a launch's error (`err` in scope).
+#define VITIQ_TRY(call) \
+  if ((err = (call)) != cudaSuccess) return (int)err
 
 // One layer, for every query row (K1) or for row 0 of each frame only (K2).
 // x: [B, L, D]; out: [B, L, D] (K1) or [B, 1, D] (K2). Scratch: qkv
 // [B, L, 3D]; attn and x1 [R, D] and hid [R, F] for the R output rows (B*L
 // or B). Weights: wqkv [D, 3D] with its q columns pre-scaled by
 // log2(e)/sqrt(dh), wo [D, D], w1 [D, F], w2 [F, D] in bf16; biases and LN
-// parameters f32. Returns cudaGetLastError().
+// parameters f32. Returns the first launch error or cudaGetLastError().
 int encoder_layer(bool cls_only, const void* x, void* out, void* qkv, void* attn, void* x1,
                   void* hid, const void* wqkv, const void* bqkv, const void* wo,
                   const void* bo, const void* g1, const void* be1, const void* w1,
@@ -758,43 +862,62 @@ int encoder_layer(bool cls_only, const void* x, void* out, void* qkv, void* attn
   const long long M = (long long)B * L, frame = (long long)L * D;
   const long long rows = cls_only ? B : M;      // output rows
   const long long x_ld = cls_only ? frame : D;  // stride of their residual rows in x
-
+  cudaError_t err;
   if (cls_only) {
     // q for row 0 of each frame (A rows stride a whole frame), into qkv row 0
-    launch_gemm<kBias>(gemm_args(xb, frame, w_qkv, 3 * D, b_qkv, qkvb, 3 * frame, B, D, 0), D,
-                       s);
+    VITIQ_TRY(launch_gemm<kBias>(
+        gemm_args(xb, frame, w_qkv, 3 * D, b_qkv, qkvb, 3 * frame, B, D, 0), D, tile_width(D),
+        s));
     // k and v for every row: columns [D, 3D)
-    launch_gemm<kBias>(gemm_args(xb, D, w_qkv, 3 * D, b_qkv, qkvb, 3 * D, M, D, D), 2 * D, s);
+    VITIQ_TRY(launch_gemm<kBias>(gemm_args(xb, D, w_qkv, 3 * D, b_qkv, qkvb, 3 * D, M, D, D),
+                                 2 * D, tile_width(2 * D), s));
   } else {
-    launch_gemm<kBias>(gemm_args(xb, D, w_qkv, 3 * D, b_qkv, qkvb, 3 * D, M, D, 0), 3 * D, s);
+    VITIQ_TRY(launch_gemm<kBias>(gemm_args(xb, D, w_qkv, 3 * D, b_qkv, qkvb, 3 * D, M, D, 0),
+                                 3 * D, tile_width(3 * D), s));
   }
-  const cudaError_t err =
-      attention(qkvb, attnb, B, L, cls_only ? 1 : L, D, H, cls_only ? D : frame, s);
-  if (err != cudaSuccess) return (int)err;
-  launch_gemm<kBiasResidualLN>(
+  VITIQ_TRY(attention(qkvb, attnb, B, L, cls_only ? 1 : L, D, H, cls_only ? D : frame, s));
+  VITIQ_TRY(launch_gemm<kBiasResidualLN>(
       with_ln(gemm_args(attnb, D, static_cast<const bf16*>(wo), D,
                         static_cast<const float*>(bo), x1b, D, rows, D, 0),
               xb, x_ld, static_cast<const float*>(g1), static_cast<const float*>(be1)),
-      D, s);
-  launch_gemm<kBiasRelu>(gemm_args(x1b, D, static_cast<const bf16*>(w1), F,
-                                   static_cast<const float*>(b1), hidb, F, rows, D, 0),
-                         F, s);
-  launch_gemm<kBiasResidualLN>(
+      D, D, s));
+  VITIQ_TRY(launch_gemm<kBiasRelu>(gemm_args(x1b, D, static_cast<const bf16*>(w1), F,
+                                             static_cast<const float*>(b1), hidb, F, rows, D, 0),
+                                   F, tile_width(F), s));
+  VITIQ_TRY(launch_gemm<kBiasResidualLN>(
       with_ln(gemm_args(hidb, F, static_cast<const bf16*>(w2), D,
                         static_cast<const float*>(b2), static_cast<bf16*>(out), D, rows, F, 0),
               x1b, D, static_cast<const float*>(g2), static_cast<const float*>(be2)),
-      D, s);
+      D, D, s));
   return (int)cudaGetLastError();
 }
 
-template <int EPI, bool PREQ>
-void launch_gemm_int8(GemmArgs p, const void* aq, const void* ascale, const void* wq,
-                      const void* wscale, int n_cols, cudaStream_t stream) {
+template <int EPI, bool PREQ, int BN>
+cudaError_t launch_gemm_int8_bn(GemmArgs p, const void* aq, const void* ascale, const void* wq,
+                                const void* wscale, int n_cols, cudaStream_t stream) {
   p.n_tiles = n_cols / BN;
   const long long blocks = (p.m + BM - 1) / BM * p.n_tiles;
-  gemm_int8_kernel<EPI, PREQ><<<(unsigned)blocks, GEMM_THREADS, 0, stream>>>(
+  constexpr int smem = dynamic_smem(qgemm_smem<BN>());
+  const cudaError_t err = allow_smem(gemm_int8_kernel<EPI, PREQ, BN>, smem);
+  if (err != cudaSuccess) return err;
+  gemm_int8_kernel<EPI, PREQ, BN><<<(unsigned)blocks, GEMM_THREADS, smem, stream>>>(
       p, static_cast<const int8_t*>(aq), static_cast<const float*>(ascale),
       static_cast<const int8_t*>(wq), static_cast<const float*>(wscale));
+  return cudaSuccess;
+}
+
+template <int EPI, bool PREQ>
+cudaError_t launch_gemm_int8(GemmArgs p, const void* aq, const void* ascale, const void* wq,
+                             const void* wscale, int n_cols, int bn, cudaStream_t stream) {
+  switch (bn) {
+    case 64:
+      return launch_gemm_int8_bn<EPI, PREQ, 64>(p, aq, ascale, wq, wscale, n_cols, stream);
+    case 128:
+      return launch_gemm_int8_bn<EPI, PREQ, 128>(p, aq, ascale, wq, wscale, n_cols, stream);
+    case 256:
+      return launch_gemm_int8_bn<EPI, PREQ, 256>(p, aq, ascale, wq, wscale, n_cols, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 void launch_rowquant(const void* a, void* aq, void* ascale, long long m, int k,
@@ -809,8 +932,8 @@ void launch_rowquant(const void* a, void* aq, void* ascale, long long m, int k,
 // Weights int8 in nn.Linear's [out, in] layout: wqkv [3D, D] (q, k, v rows),
 // wo [D, D], w1 [F, D], w2 [D, F]; per-output-channel scales sqkv [3D],
 // so [D], s1 [F], s2 [D] and biases f32, the q section of sqkv and bqkv
-// multiplied by log2(e)/sqrt(dh); LN parameters f32. Returns
-// cudaGetLastError().
+// multiplied by log2(e)/sqrt(dh); LN parameters f32. Returns the first
+// launch error or cudaGetLastError().
 //   rowquant(x) -> aq; QKV (PREQ) -> qkv; attention -> attn;
 //   out-projection (A quantized in-kernel) + LN1 -> x1, and x1 quantized -> aq;
 //   FFN1 (PREQ) + ReLU -> hid; FFN2 (A quantized in-kernel) + LN2 -> out.
@@ -821,7 +944,7 @@ int encoder_layer_int8(const void* x, void* out, void* qkv, void* attn, void* x1
                        const void* b1, const void* w2, const void* s2, const void* b2,
                        const void* g2, const void* be2, int B, int L, int D, int H, int F,
                        void* stream_ptr) {
-  if (!shapes_ok(B, L, D, H, F) || F % QBK) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(B, L, D, H, F)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* qkvb = static_cast<bf16*>(qkv);
@@ -830,23 +953,26 @@ int encoder_layer_int8(const void* x, void* out, void* qkv, void* attn, void* x1
   bf16* hidb = static_cast<bf16*>(hid);
   auto f32 = [](const void* v) { return static_cast<const float*>(v); };
   const long long M = (long long)B * L;
+  cudaError_t err;
 
   launch_rowquant(x, aq, ascale, M, D, s);
-  launch_gemm_int8<kBias, true>(gemm_args(xb, D, nullptr, 0, f32(bqkv), qkvb, 3 * D, M, D, 0),
-                                aq, ascale, wqkv, sqkv, 3 * D, s);
-  const cudaError_t err = attention(qkvb, attnb, B, L, L, D, H, (long long)L * D, s);
-  if (err != cudaSuccess) return (int)err;
+  VITIQ_TRY((launch_gemm_int8<kBias, true>(
+      gemm_args(xb, D, nullptr, 0, f32(bqkv), qkvb, 3 * D, M, D, 0), aq, ascale, wqkv, sqkv,
+      3 * D, tile_width(3 * D), s)));
+  VITIQ_TRY(attention(qkvb, attnb, B, L, L, D, H, (long long)L * D, s));
   GemmArgs proj = with_ln(gemm_args(attnb, D, nullptr, 0, f32(bo), x1b, D, M, D, 0), xb, D,
                           f32(g1), f32(be1));
   proj.cq = static_cast<int8_t*>(aq);
   proj.cscale = static_cast<float*>(ascale);
-  launch_gemm_int8<kBiasResidualLNQuant, false>(proj, nullptr, nullptr, wo, so, D, s);
-  launch_gemm_int8<kBiasRelu, true>(gemm_args(x1b, D, nullptr, 0, f32(b1), hidb, F, M, D, 0),
-                                    aq, ascale, w1, s1, F, s);
-  launch_gemm_int8<kBiasResidualLN, false>(
+  VITIQ_TRY((launch_gemm_int8<kBiasResidualLNQuant, false>(proj, nullptr, nullptr, wo, so, D,
+                                                           D, s)));
+  VITIQ_TRY((launch_gemm_int8<kBiasRelu, true>(
+      gemm_args(x1b, D, nullptr, 0, f32(b1), hidb, F, M, D, 0), aq, ascale, w1, s1, F,
+      tile_width(F), s)));
+  VITIQ_TRY((launch_gemm_int8<kBiasResidualLN, false>(
       with_ln(gemm_args(hidb, F, nullptr, 0, f32(b2), static_cast<bf16*>(out), D, M, F, 0), x1b,
               D, f32(g2), f32(be2)),
-      nullptr, nullptr, w2, s2, D, s);
+      nullptr, nullptr, w2, s2, D, D, s)));
   return (int)cudaGetLastError();
 }
 
@@ -894,27 +1020,32 @@ extern "C" int vitiq_encoder_layer_int8_full(
 // the bias (relu = 0) or the bias + ReLU (relu = 1) epilogue; a [M, K] bf16,
 // wq [N, K] int8, wscale and bias [N] f32. With prequant = 1, a is quantized
 // first by rowquant_kernel into the scratch aq [M, K] int8 and ascale [M]
-// (K <= 1024), as the QKV and FFN1 stages take it; else in the GEMM's
-// prologue and k loop. K % 64 == 0, N % 128 == 0.
+// (K <= 1024), as the QKV and FFN1 stages take it, on the tiles those
+// stages take (128 wide where 128 divides N, else 64); else in the GEMM's
+// prologue and k loop, on one N-wide tile where N is 64, 128 or 256, as the
+// out-projection and FFN2 stages take it (N = D). K % 64 == 0, N % 64 == 0.
 extern "C" int vitiq_gemm_int8(const void* a, const void* wq, const void* wscale,
                                const void* bias, void* c, void* aq, void* ascale, int M, int K,
                                int N, int relu, int prequant, void* stream_ptr) {
-  if (M <= 0 || K <= 0 || K % QBK || N <= 0 || N % BN || (prequant && K > MAX_QUANT_K))
+  if (M <= 0 || K <= 0 || K % QBK || N <= 0 || N % 64 || (prequant && K > MAX_QUANT_K))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   const GemmArgs p = gemm_args(static_cast<const bf16*>(a), K, nullptr, 0,
                                static_cast<const float*>(bias), static_cast<bf16*>(c), N, M, K,
                                0);
+  const int bn = !prequant && (N == 64 || N == 128 || N == 256) ? N : tile_width(N);
+  cudaError_t err;
   if (prequant) {
     launch_rowquant(a, aq, ascale, M, K, s);
     if (relu)
-      launch_gemm_int8<kBiasRelu, true>(p, aq, ascale, wq, wscale, N, s);
+      err = launch_gemm_int8<kBiasRelu, true>(p, aq, ascale, wq, wscale, N, bn, s);
     else
-      launch_gemm_int8<kBias, true>(p, aq, ascale, wq, wscale, N, s);
+      err = launch_gemm_int8<kBias, true>(p, aq, ascale, wq, wscale, N, bn, s);
   } else if (relu) {
-    launch_gemm_int8<kBiasRelu, false>(p, nullptr, nullptr, wq, wscale, N, s);
+    err = launch_gemm_int8<kBiasRelu, false>(p, nullptr, nullptr, wq, wscale, N, bn, s);
   } else {
-    launch_gemm_int8<kBias, false>(p, nullptr, nullptr, wq, wscale, N, s);
+    err = launch_gemm_int8<kBias, false>(p, nullptr, nullptr, wq, wscale, N, bn, s);
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

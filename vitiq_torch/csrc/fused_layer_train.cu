@@ -14,7 +14,9 @@
 //   K4-bwd  vitiq/ops/pallas/fused_layer_train.py: _bwd_kernel with stash=True
 //           (and _bwd_kernel_stacked, its layers-per-call schedule)
 //
-// Function, per layer, on a bf16 [B, L, D] activation (D = 128):
+// Function, per layer, on a bf16 [B, L, D] activation (D = 128 or 256, d_head
+// 16 or 32; shapes_ok, and fused_layer_train.fused_train_supported in the
+// wrapper, say which shapes the kernels take):
 //   qkv = bf16(x Wqkv + bqkv)                   Wqkv unscaled
 //   qs  = bf16(q * log2(e)/sqrt(dh))             scaled here, as the TPU kernel
 //   p   = bf16(exp2(qs.k - max)), attn = bf16(sum p v / sum p)  over L keys
@@ -54,12 +56,16 @@
 // the stash in both of its passes instead of recomputing Q K^T and exp2.
 //
 // Design: one __global__ launch per stage, on the caller's stream.
-//   tgemm<AT, BT, EPI>     WMMA GEMM (bf16 16x16x16 fragments, f32 accumulate)
-//                          over 64 x 128 output tiles with a two-stage cp.async
+//   tgemm<AT, BT, EPI, BN> WMMA GEMM (bf16 16x16x16 fragments, f32 accumulate)
+//                          over 64 x BN output tiles with a two-stage cp.async
 //                          pipeline: A or A^T times B or W^T, and a fused
 //                          epilogue per stage (bias, ReLU, dropout, residual,
 //                          LayerNorm forward or backward with f32 or bf16 xh,
-//                          column partial sums)
+//                          column partial sums). The LayerNorm stages take
+//                          BN = D, so a tile holds whole rows (66.5 KB of f32
+//                          staging at D = 256: dynamic shared memory); every
+//                          other stage, the split-K weight gradients included,
+//                          128-wide tiles, several per row at D = 256
 //   train_attention_fwd    one block per (frame, head), K1's register-fragment
 //                          core (mma.sync), q scaled in the kernel, optionally
 //                          writing each row's max and sum for the backward
@@ -72,7 +78,8 @@
 //                          K4's: the same passes, holding v, dO and the
 //                          transposes of q, k, dO, and loading each fragment's
 //                          pbar from the stash
-//   ln_bwd_rows<XH>        LN2 backward, one warp per row, xh f32 or bf16
+//   ln_bwd_rows<XH, DW>    LN2 backward, one warp per row of DW = D columns,
+//                          xh f32 or bf16
 //   rebuild_ln_out         K4's x1 = bf16(f32(xh1) g1 + be1)
 //   reduce_rows            column sums of partials, in a fixed order
 // Weight gradients are sums over the B*L rows. The TPU kernel carries them in
@@ -115,6 +122,13 @@
 //                             k in both of its passes; K4:
 //                             train_attention_bwd_stash reads pbar.
 //   VITIQ_TRAIN_EPI (wide / head divide)    -> one f32 divide per output.
+//   VITIQ_TRAIN_ATTN (xpack / auto: K8, train_xpack.py:
+//       fused_train_layer_stack_xpack, _fwd_kernel_x and _bwd_kernel_x: the
+//       packed attention forward and the hybrid packed-recompute backward)
+//                                           -> K3: train_attention_fwd and
+//       train_attention_bwd, one block per frame-head; K8's dropout hash is
+//       the one these kernels draw (tests/test_torch_train_layer.py holds
+//       K8 in interpret mode to K3's plain versions).
 //   VITIQ_TRAIN_DW (merged / batched dW)    -> one split-K GEMM over all rows.
 //   VITIQ_TRAIN_DWPACK (0 / p1 / full)      -> four separate dW GEMMs, in
 //       both regimes.
@@ -145,24 +159,37 @@ namespace {
 using namespace nvcuda;
 
 constexpr int TBM = 64;    // GEMM tile rows
-constexpr int TBN = 128;   // GEMM tile columns (== D for the LayerNorm epilogues)
+constexpr int TBN = 128;   // GEMM tile columns of the stages without LayerNorm
 constexpr int TBK = 32;    // GEMM tile depth
-constexpr int THREADS = 256;  // 8 warps: 2 x 4 warp tiles of 32 x 32
+constexpr int THREADS = 256;  // 8 warps: 2 x 4 warp tiles of 32 x BN/4
 constexpr int AR_LD = TBK + 8;  // A tile [TBM][AR_LD]
 constexpr int AT_LD = TBM + 8;  // A^T tile [TBK][AT_LD] (depth rows)
-constexpr int BR_LD = TBN + 8;  // B tile [TBK][BR_LD]
-constexpr int BT_LD = TBK + 8;  // W tile [TBN][BT_LD] for B = W^T
-constexpr int C_LD = TBN + 4;
-constexpr int C_BYTES = TBM * C_LD * (int)sizeof(float);
-constexpr int MAX_PIPE_BYTES = 2 * (TBM * AR_LD + TBN * BT_LD) * (int)sizeof(bf16);
-constexpr int GEMM_SMEM = MAX_PIPE_BYTES > C_BYTES ? MAX_PIPE_BYTES : C_BYTES;
+constexpr int BT_LD = TBK + 8;  // W tile [BN][BT_LD] for B = W^T
 constexpr int ATTN_WARPS = 4;
+constexpr int MAX_SMEM = 232448;  // shared memory a block may use on Hopper
+constexpr int STATIC_SMEM = 48 * 1024;  // static shared memory a block may use
 constexpr float LN_EPS = 1e-12f;
 
+// Leading dims of a BN-wide tile: the B tile [TBK][br_ld] and the f32
+// staging tile [TBM][c_ld] (bank-conflict pads)
+template <int BN>
+__host__ __device__ constexpr int br_ld() { return BN + 8; }
+// log2 of a power of two: the tile loops index rows and chunks by shifts
+__host__ __device__ constexpr int log2i(int n) { return n > 1 ? 1 + log2i(n / 2) : 0; }
+template <int BN>
+__host__ __device__ constexpr int c_ld() { return BN + 4; }
 template <bool AT>
 __host__ __device__ constexpr int a_tile() { return AT ? TBK * AT_LD : TBM * AR_LD; }
-template <bool BT>
-__host__ __device__ constexpr int b_tile() { return BT ? TBN * BT_LD : TBK * BR_LD; }
+template <bool BT, int BN>
+__host__ __device__ constexpr int b_tile() { return BT ? BN * BT_LD : TBK * br_ld<BN>(); }
+// dynamic shared memory of tgemm<., ., ., BN>: the widest pipeline (A rows,
+// W^T), then the f32 staging tile over the same bytes
+template <int BN>
+__host__ __device__ constexpr int gemm_smem() {
+  return 2 * (TBM * AR_LD + BN * BT_LD) * (int)sizeof(bf16) > TBM * c_ld<BN>() * (int)sizeof(float)
+             ? 2 * (TBM * AR_LD + BN * BT_LD) * (int)sizeof(bf16)
+             : TBM * c_ld<BN>() * (int)sizeof(float);
+}
 
 // ---------------------------------------------------------------------------
 // dropout: keep/(1-rate) from a stateless hash of the absolute position
@@ -221,7 +248,7 @@ struct TGemm {
   long long m;        // output rows
   long long k;        // depth
   long long k_chunk;  // depth of one split (blockIdx.y), a multiple of TBK
-  int n_tiles;        // TBN-wide column tiles
+  int n_tiles;        // BN-wide column tiles
   long long ldo;      // row stride of every [row][column] operand of the epilogue
   const float* bias;
   bf16* out;
@@ -240,16 +267,22 @@ struct TGemm {
   Drop drop;
 };
 
-// C tile (64 x 128) = A B, one tile per block; blockIdx.x = row tile *
+// C tile (64 x BN) = A B, one tile per block; blockIdx.x = row tile *
 // n_tiles + column tile, blockIdx.y = split of the depth. The k loop is a
 // two-stage cp.async pipeline; the f32 tile then reuses the shared memory for
-// the epilogue.
-template <bool AT, bool BT, int EPI>
+// the epilogue. Each warp owns a 32 x BN/4 sub-tile of WMMA fragments.
+template <bool AT, bool BT, int EPI, int BN>
 __global__ void __launch_bounds__(THREADS) tgemm(TGemm p) {
-  __shared__ __align__(128) unsigned char smem[GEMM_SMEM];
+  constexpr int SMEM = gemm_smem<BN>();
+  // static shared memory up to 48 KB (BN = 128), dynamic above (gemm())
+  __shared__ __align__(128) unsigned char static_buf[SMEM <= STATIC_SMEM ? SMEM : 16];
+  extern __shared__ __align__(128) unsigned char tgemm_buf[];
+  unsigned char* smem = SMEM <= STATIC_SMEM ? static_buf : tgemm_buf;
   bf16* stages = reinterpret_cast<bf16*>(smem);
   float* Cs = reinterpret_cast<float*>(smem);
-  constexpr int A_TILE = a_tile<AT>(), B_TILE = b_tile<BT>();
+  constexpr int A_TILE = a_tile<AT>(), B_TILE = b_tile<BT, BN>();
+  constexpr int BR_LD = br_ld<BN>(), C_LD = c_ld<BN>();
+  constexpr int WN = BN / 4, FN = WN / 16;  // warp tile columns, fragments across
   using LayoutA = typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
   using LayoutB = typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
 
@@ -257,7 +290,7 @@ __global__ void __launch_bounds__(THREADS) tgemm(TGemm p) {
   const int warp = tid >> 5, lane = tid & 31;
   const long long rt = blockIdx.x / p.n_tiles;
   const long long m0 = rt * TBM;
-  const int n0 = (int)(blockIdx.x % p.n_tiles) * TBN;
+  const int n0 = (int)(blockIdx.x % p.n_tiles) * BN;
   const int wm = warp >> 2, wn = warp & 3;
   const long long kb = (long long)blockIdx.y * p.k_chunk;
   const long long ke = min(p.k, kb + p.k_chunk);
@@ -275,16 +308,16 @@ __global__ void __launch_bounds__(THREADS) tgemm(TGemm p) {
       const bool in = gm < p.m;
       cp_async16(As + r * AR_LD + c, p.a + (in ? gm : 0) * p.lda + k0 + c, in ? 16 : 0);
     }
-    if constexpr (BT) {  // W rows n0..n0+127, depth k0..k0+31
+    if constexpr (BT) {  // W rows n0..n0+BN-1, depth k0..k0+31
 #pragma unroll
-      for (int i = tid; i < TBN * TBK / 8; i += THREADS) {
+      for (int i = tid; i < BN * TBK / 8; i += THREADS) {
         const int r = i >> 2, c = (i & 3) * 8;
         cp_async16(Bs + r * BT_LD + c, p.b + (long long)(n0 + r) * p.ldb + k0 + c, 16);
       }
     } else {
 #pragma unroll
-      for (int i = tid; i < TBK * TBN / 8; i += THREADS) {
-        const int r = i >> 4, c = (i & 15) * 8;
+      for (int i = tid; i < TBK * BN / 8; i += THREADS) {
+        const int r = i >> log2i(BN / 8), c = (i & (BN / 8 - 1)) * 8;
         const bool in = k0 + r < ke;
         cp_async16(Bs + r * BR_LD + c, p.b + (in ? k0 + r : 0) * p.ldb + n0 + c, in ? 16 : 0);
       }
@@ -292,11 +325,11 @@ __global__ void __launch_bounds__(THREADS) tgemm(TGemm p) {
     cp_async_commit();
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][FN];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   const int nk = (int)((ke - kb + TBK - 1) / TBK);
   if (nk > 0) load_stage(0, kb);
@@ -313,7 +346,7 @@ __global__ void __launch_bounds__(THREADS) tgemm(TGemm p) {
 #pragma unroll
     for (int kk = 0; kk < TBK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> fb[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> fb[FN];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         if constexpr (AT)
@@ -322,32 +355,32 @@ __global__ void __launch_bounds__(THREADS) tgemm(TGemm p) {
           wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * AR_LD + kk, AR_LD);
       }
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < FN; ++j) {
         if constexpr (BT)
-          wmma::load_matrix_sync(fb[j], Bs + (wn * 32 + j * 16) * BT_LD + kk, BT_LD);
+          wmma::load_matrix_sync(fb[j], Bs + (wn * WN + j * 16) * BT_LD + kk, BT_LD);
         else
-          wmma::load_matrix_sync(fb[j], Bs + kk * BR_LD + wn * 32 + j * 16, BR_LD);
+          wmma::load_matrix_sync(fb[j], Bs + kk * BR_LD + wn * WN + j * 16, BR_LD);
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
     }
     __syncthreads();
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * C_LD + wn * 32 + j * 16, acc[i][j],
+    for (int j = 0; j < FN; ++j)
+      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * C_LD + wn * WN + j * 16, acc[i][j],
                               C_LD, wmma::mem_row_major);
   __syncthreads();
 
   const long long RT = (p.m + TBM - 1) / TBM;
   if constexpr (EPI == kPartial) {
     float* dst = p.out32 + (long long)blockIdx.y * p.m * p.ldo;
-    for (int i = tid; i < TBM * TBN / 4; i += THREADS) {
-      const int r = i / (TBN / 4), c = (i % (TBN / 4)) * 4;
+    for (int i = tid; i < TBM * BN / 4; i += THREADS) {
+      const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
       const long long gm = m0 + r;
       if (gm >= p.m) continue;
       *reinterpret_cast<float4*>(dst + gm * p.ldo + n0 + c) =
@@ -355,32 +388,34 @@ __global__ void __launch_bounds__(THREADS) tgemm(TGemm p) {
                       Cs[r * C_LD + c + 3]);
     }
   } else if constexpr (EPI == kLnFwd || EPI == kLnBwd) {
-    // one warp per row, 4 columns per lane; the tile holds the whole row (D = TBN)
-    float cs[3][TBN / 32] = {};  // kLnBwd column sums: g*xh, g, dz*mask
+    // one warp per row, BN / 32 columns per lane; the tile holds the whole
+    // row (D = BN)
+    constexpr int PER_LANE = BN / 32;
+    float cs[3][PER_LANE] = {};  // kLnBwd column sums: g*xh, g, dz*mask
     for (int r = warp; r < TBM; r += THREADS / 32) {
       const long long gm = m0 + r;
       if (gm >= p.m) break;  // warp-uniform
       const long long row = gm * p.ldo;
-      float v[TBN / 32];
+      float v[PER_LANE];
       if constexpr (EPI == kLnFwd) {
         float s = 0.f;
 #pragma unroll
-        for (int t = 0; t < TBN / 32; ++t) {
+        for (int t = 0; t < PER_LANE; ++t) {
           const int c = lane + 32 * t;
           v[t] = (Cs[r * C_LD + c] + p.bias[c]) * keep_scale(p.drop, gm, c) +
                  __bfloat162float(p.res[row + c]);
           s += v[t];
         }
-        const float mean = warp_sum(s) * (1.0f / TBN);
+        const float mean = warp_sum(s) * (1.0f / BN);
         float q = 0.f;
 #pragma unroll
-        for (int t = 0; t < TBN / 32; ++t) {
+        for (int t = 0; t < PER_LANE; ++t) {
           const float d = v[t] - mean;
           q += d * d;
         }
-        const float rstd = rsqrtf(warp_sum(q) * (1.0f / TBN) + LN_EPS);
+        const float rstd = rsqrtf(warp_sum(q) * (1.0f / BN) + LN_EPS);
 #pragma unroll
-        for (int t = 0; t < TBN / 32; ++t) {
+        for (int t = 0; t < PER_LANE; ++t) {
           const int c = lane + 32 * t;
           const float xh = (v[t] - mean) * rstd;
           if (p.out) p.out[row + c] = __float2bfloat16(p.gamma[c] * xh + p.beta[c]);
@@ -389,9 +424,9 @@ __global__ void __launch_bounds__(THREADS) tgemm(TGemm p) {
         }
         if (p.rstd_out && lane == 0) p.rstd_out[gm] = rstd;
       } else {
-        float xh[TBN / 32], s1 = 0.f, s2 = 0.f;
+        float xh[PER_LANE], s1 = 0.f, s2 = 0.f;
 #pragma unroll
-        for (int t = 0; t < TBN / 32; ++t) {
+        for (int t = 0; t < PER_LANE; ++t) {
           const int c = lane + 32 * t;
           v[t] = Cs[r * C_LD + c] + p.res32[row + c];
           xh[t] = p.xh16 ? __bfloat162float(p.xh16[row + c]) : p.xh[row + c];
@@ -401,10 +436,10 @@ __global__ void __launch_bounds__(THREADS) tgemm(TGemm p) {
           cs[0][t] += v[t] * xh[t];
           cs[1][t] += v[t];
         }
-        const float m1 = warp_sum(s1) * (1.0f / TBN), m2 = warp_sum(s2) * (1.0f / TBN);
+        const float m1 = warp_sum(s1) * (1.0f / BN), m2 = warp_sum(s2) * (1.0f / BN);
         const float rstd = p.rstd[gm];
 #pragma unroll
-        for (int t = 0; t < TBN / 32; ++t) {
+        for (int t = 0; t < PER_LANE; ++t) {
           const int c = lane + 32 * t;
           const float dz = rstd * (v[t] * p.gamma[c] - m1 - xh[t] * m2);
           const float da = dz * keep_scale(p.drop, gm, c);
@@ -416,16 +451,16 @@ __global__ void __launch_bounds__(THREADS) tgemm(TGemm p) {
     }
     if constexpr (EPI == kLnBwd) {
       __syncthreads();  // every warp is done with Cs
-      float* red = Cs;  // [warp][3][TBN]
+      float* red = Cs;  // [warp][3][BN]
 #pragma unroll
       for (int s = 0; s < 3; ++s)
 #pragma unroll
-        for (int t = 0; t < TBN / 32; ++t) red[(warp * 3 + s) * TBN + lane + 32 * t] = cs[s][t];
+        for (int t = 0; t < PER_LANE; ++t) red[(warp * 3 + s) * BN + lane + 32 * t] = cs[s][t];
       __syncthreads();
-      for (int i = tid; i < 3 * TBN; i += THREADS) {
-        const int s = i / TBN, c = i % TBN;
+      for (int i = tid; i < 3 * BN; i += THREADS) {
+        const int s = i / BN, c = i % BN;
         float sum = 0.f;
-        for (int w = 0; w < THREADS / 32; ++w) sum += red[(w * 3 + s) * TBN + c];
+        for (int w = 0; w < THREADS / 32; ++w) sum += red[(w * 3 + s) * BN + c];
         p.part[(s * RT + rt) * p.ldo + c] = sum;
       }
     }
@@ -433,9 +468,9 @@ __global__ void __launch_bounds__(THREADS) tgemm(TGemm p) {
     // 8 consecutive columns per thread, stored as one 16-byte chunk; a
     // thread keeps the same 8 columns for all of its rows
     float colsum[8] = {};
-    const int c = (tid % (TBN / 8)) * 8;
-    for (int i = tid; i < TBM * TBN / 8; i += THREADS) {
-      const int r = i / (TBN / 8);
+    const int c = (tid % (BN / 8)) * 8;
+    for (int i = tid; i < TBM * BN / 8; i += THREADS) {
+      const int r = i / (BN / 8);
       const long long gm = m0 + r;
       if (gm >= p.m) continue;
       const long long at = gm * p.ldo + n0 + c;
@@ -466,14 +501,14 @@ __global__ void __launch_bounds__(THREADS) tgemm(TGemm p) {
     }
     if constexpr (EPI == kDpre) {
       __syncthreads();  // every thread is done with Cs
-      float* red = Cs;  // [row group][TBN]
-      const int grp = tid / (TBN / 8);
+      float* red = Cs;  // [row group][BN]
+      const int grp = tid / (BN / 8);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) red[grp * TBN + c + e] = colsum[e];
+      for (int e = 0; e < 8; ++e) red[grp * BN + c + e] = colsum[e];
       __syncthreads();
-      if (tid < TBN) {
+      if (tid < BN) {
         float sum = 0.f;
-        for (int g = 0; g < THREADS / (TBN / 8); ++g) sum += red[g * TBN + tid];
+        for (int g = 0; g < THREADS / (BN / 8); ++g) sum += red[g * BN + tid];
         p.part[rt * p.ldo + n0 + tid] = sum;
       }
     }
@@ -1063,7 +1098,7 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_bwd_stash(
 // LN2 backward and the fixed-order column reductions
 // ---------------------------------------------------------------------------
 
-// One warp per row (D = 128, 4 columns per lane), 64 rows per block:
+// One warp per row (DW = D columns, DW / 32 per lane), 64 rows per block:
 // dz = rstd * (dy*g - mean(dy*g) - xh * mean(dy*g*xh)), df = dz * mask.
 // Writes df (bf16) and dz (f32, the gradient reaching x1 through the
 // residual) and the block's column sums of dy*xh, dy and df to
@@ -1071,22 +1106,23 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_bwd_stash(
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
-template <class XH>
+template <class XH, int DW>
 __global__ void __launch_bounds__(THREADS) ln_bwd_rows(
     const bf16* __restrict__ dy, const XH* __restrict__ xh, const float* __restrict__ rstd,
     const float* __restrict__ gamma, Drop drop, long long M, bf16* __restrict__ df_out,
     float* __restrict__ dz_out, float* __restrict__ part) {
-  __shared__ float red[THREADS / 32][3][TBN];
+  constexpr int PER_LANE = DW / 32;
+  __shared__ float red[THREADS / 32][3][DW];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long m0 = (long long)blockIdx.x * TBM, RT = gridDim.x;
-  float cs[3][TBN / 32] = {};
+  float cs[3][PER_LANE] = {};
   for (int r = warp; r < TBM; r += THREADS / 32) {
     const long long gm = m0 + r;
     if (gm >= M) break;
-    const long long row = gm * TBN;
-    float d[TBN / 32], x[TBN / 32], s1 = 0.f, s2 = 0.f;
+    const long long row = gm * DW;
+    float d[PER_LANE], x[PER_LANE], s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int t = 0; t < TBN / 32; ++t) {
+    for (int t = 0; t < PER_LANE; ++t) {
       const int c = lane + 32 * t;
       d[t] = __bfloat162float(dy[row + c]);
       x[t] = to_f32(xh[row + c]);
@@ -1096,10 +1132,10 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_rows(
       cs[0][t] += d[t] * x[t];
       cs[1][t] += d[t];
     }
-    const float m1 = warp_sum(s1) * (1.0f / TBN), m2 = warp_sum(s2) * (1.0f / TBN);
+    const float m1 = warp_sum(s1) * (1.0f / DW), m2 = warp_sum(s2) * (1.0f / DW);
     const float rr = rstd[gm];
 #pragma unroll
-    for (int t = 0; t < TBN / 32; ++t) {
+    for (int t = 0; t < PER_LANE; ++t) {
       const int c = lane + 32 * t;
       const float dz = rr * (d[t] * gamma[c] - m1 - x[t] * m2);
       const float df = dz * keep_scale(drop, gm, c);
@@ -1111,25 +1147,26 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_rows(
 #pragma unroll
   for (int s = 0; s < 3; ++s)
 #pragma unroll
-    for (int t = 0; t < TBN / 32; ++t) red[warp][s][lane + 32 * t] = cs[s][t];
+    for (int t = 0; t < PER_LANE; ++t) red[warp][s][lane + 32 * t] = cs[s][t];
   __syncthreads();
-  for (int i = threadIdx.x; i < 3 * TBN; i += THREADS) {
-    const int s = i / TBN, c = i % TBN;
+  for (int i = threadIdx.x; i < 3 * DW; i += THREADS) {
+    const int s = i / DW, c = i % DW;
     float sum = 0.f;
     for (int w = 0; w < THREADS / 32; ++w) sum += red[w][s][c];
-    part[(s * RT + blockIdx.x) * TBN + c] = sum;
+    part[(s * RT + blockIdx.x) * DW + c] = sum;
   }
 }
 
-// K4-bwd's x1 = bf16(f32(xh1) * g1 + be1) from the stashed bf16 xh1 (D =
-// TBN columns), multiply and add rounded separately, as the plain version.
+// K4-bwd's x1 = bf16(f32(xh1) * g1 + be1) from the stashed bf16 xh1 (rows of
+// D columns), multiply and add rounded separately, as the plain version.
 __global__ void __launch_bounds__(THREADS) rebuild_ln_out(const bf16* __restrict__ xh,
                                                          const float* __restrict__ gamma,
                                                          const float* __restrict__ beta,
-                                                         long long n, bf16* __restrict__ out) {
+                                                         long long n, int D,
+                                                         bf16* __restrict__ out) {
   for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
        i += (long long)gridDim.x * THREADS) {
-    const int c = (int)(i % TBN);
+    const int c = (int)(i % D);
     out[i] = __float2bfloat16(__fadd_rn(__fmul_rn(__bfloat162float(xh[i]), gamma[c]), beta[c]));
   }
 }
@@ -1181,11 +1218,26 @@ TGemm tg(const bf16* a, long long lda, const bf16* b, long long ldb, long long m
   return g;
 }
 
-template <bool AT, bool BT, int EPI>
+// A failed opt-in to the larger shared memory fails the launch, which the
+// entry point's cudaGetLastError() reports.
+template <bool AT, bool BT, int EPI, int BN = TBN>
 void gemm(TGemm p, long long n_cols, int splits, cudaStream_t s) {
-  p.n_tiles = (int)(n_cols / TBN);
+  p.n_tiles = (int)(n_cols / BN);
   const long long blocks = (p.m + TBM - 1) / TBM * p.n_tiles;
-  tgemm<AT, BT, EPI><<<dim3((unsigned)blocks, (unsigned)splits), THREADS, 0, s>>>(p);
+  constexpr int smem = gemm_smem<BN>() <= STATIC_SMEM ? 0 : gemm_smem<BN>();  // dynamic bytes
+  if (smem > 0)
+    cudaFuncSetAttribute(tgemm<AT, BT, EPI, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+  tgemm<AT, BT, EPI, BN><<<dim3((unsigned)blocks, (unsigned)splits), THREADS, smem, s>>>(p);
+}
+
+// A LayerNorm stage: one tile holds a whole row of D columns.
+template <bool AT, bool BT, int EPI>
+void gemm_ln(TGemm p, int D, cudaStream_t s) {
+  if (D == 256)
+    gemm<AT, BT, EPI, 256>(p, D, 1, s);
+  else
+    gemm<AT, BT, EPI, TBN>(p, D, 1, s);
 }
 
 // Bump allocator over the caller's workspace; with a null base it only
@@ -1215,12 +1267,16 @@ struct Shape {
   }
 };
 
+// The shapes K3 takes (fused_layer_train.fused_train_supported is the same
+// predicate): D 128 or 256, d_head 16 or 32, an FFN width that is a
+// multiple of 128, and an L whose attention-backward block fits.
 bool shapes_ok(const Shape& s) {
-  if (s.B <= 0 || s.L <= 0 || s.H <= 0 || s.D != TBN || s.D % s.H) return false;
+  if (s.B <= 0 || s.L <= 0 || s.H <= 0 || s.D % s.H) return false;
+  if (s.D != 128 && s.D != 256) return false;
   const int dh = s.dh();
   if (!(dh == 16 || dh == 32) || s.F <= 0 || s.F % TBN) return false;
   const size_t smem = dh == 16 ? attention_bwd_smem_bytes<16>(s.L) : attention_bwd_smem_bytes<32>(s.L);
-  return smem <= 232448;
+  return smem <= (size_t)MAX_SMEM;
 }
 
 // K4 also needs the stash gate of the Python wrapper (stash_supported: H *
@@ -1229,7 +1285,7 @@ bool stash_shapes_ok(const Shape& s) {
   if (!shapes_ok(s) || s.H * round16(s.L) > 1280) return false;
   const size_t smem = s.dh() == 16 ? stash_attention_bwd_smem_bytes<16>(s.L)
                                    : stash_attention_bwd_smem_bytes<32>(s.L);
-  return smem <= 232448;
+  return smem <= (size_t)MAX_SMEM;
 }
 
 Drop make_drop(const Shape& s, uint32_t thresh, float scale, int seed, int layer, int site) {
@@ -1390,7 +1446,7 @@ cudaError_t forward(const Shape& s, const bf16* x, bf16* y, const Weights& w, co
   g.xh_out16 = f.xh1h;
   g.rstd_out = f.r1;
   g.drop = drop[0];
-  gemm<false, false, kLnFwd>(g, D, 1, st);
+  gemm_ln<false, false, kLnFwd>(g, s.D, st);
   ffn1_gemm(s, f.x1, w, f.hid, drop[1], st);
   g = tg(f.hid, F, w.w2, D, M, F, D);
   g.bias = w.b2;
@@ -1402,7 +1458,7 @@ cudaError_t forward(const Shape& s, const bf16* x, bf16* y, const Weights& w, co
   g.xh_out16 = f.xh2h;
   g.rstd_out = f.r2;
   g.drop = drop[2];
-  gemm<false, false, kLnFwd>(g, D, 1, st);
+  gemm_ln<false, false, kLnFwd>(g, s.D, st);
   return cudaSuccess;
 }
 
@@ -1443,6 +1499,18 @@ void weight_grad(const Shape& s, const Bwd& b, const bf16* act, long long k1, co
   reduce(b.part_dw, splits, k1 * n, out, b.scratch, st);
 }
 
+// LN2's backward rows (ln_bwd_rows at the row width D)
+template <class XH>
+void ln_bwd(const Shape& s, const bf16* dy, const XH* xh, const float* rstd, const float* gamma,
+            const Drop& drop, const Bwd& b, cudaStream_t st) {
+  if (s.D == 256)
+    ln_bwd_rows<XH, 256><<<(unsigned)s.RT(), THREADS, 0, st>>>(dy, xh, rstd, gamma, drop, s.M(),
+                                                                b.dfb, b.dz2, b.part_rows);
+  else
+    ln_bwd_rows<XH, TBN><<<(unsigned)s.RT(), THREADS, 0, st>>>(dy, xh, rstd, gamma, drop, s.M(),
+                                                                b.dfb, b.dz2, b.part_rows);
+}
+
 // K3-bwd (stash null): recompute the forward from x, then the gradient
 // stages. K4-bwd: rebuild qkv, x1 = bf16(f32(xh1) g1 + be1) and h, then the
 // same stages on the stash (bf16 LN inputs, stashed attn and pbar).
@@ -1455,7 +1523,7 @@ cudaError_t backward(const Shape& s, const bf16* x, const bf16* dy, bf16* dx, fl
   if (stash) {
     qkv_gemm(s, x, w, f.qkv, st);
     const unsigned blocks = (unsigned)std::min<long long>((M * D + THREADS - 1) / THREADS, 4096);
-    rebuild_ln_out<<<blocks, THREADS, 0, st>>>(stash->xh1, w.g1, w.be1, M * D, f.x1);
+    rebuild_ln_out<<<blocks, THREADS, 0, st>>>(stash->xh1, w.g1, w.be1, M * D, s.D, f.x1);
     ffn1_gemm(s, f.x1, w, f.hid, drop[1], st);
   } else {
     err = forward(s, x, nullptr, w, f, drop, st);
@@ -1479,11 +1547,9 @@ cudaError_t backward(const Shape& s, const bf16* x, const bf16* dy, bf16* dx, fl
 
   // LN2, dropout m3: df, dz2 (-> x1); dg2, dbe2, db2
   if (stash)
-    ln_bwd_rows<bf16><<<(unsigned)RT, THREADS, 0, st>>>(dy, stash->xh2, stash->r2, w.g2, drop[2],
-                                                         M, b.dfb, b.dz2, b.part_rows);
+    ln_bwd(s, dy, stash->xh2, stash->r2, w.g2, drop[2], b, st);
   else
-    ln_bwd_rows<float><<<(unsigned)RT, THREADS, 0, st>>>(dy, f.xh2, f.r2, w.g2, drop[2], M,
-                                                          b.dfb, b.dz2, b.part_rows);
+    ln_bwd(s, dy, f.xh2, f.r2, w.g2, drop[2], b, st);
   reduce(b.part_rows, RT, D, dg2, b.scratch, st);
   reduce(b.part_rows + RT * D, RT, D, dbe2, b.scratch, st);
   reduce(b.part_rows + 2 * RT * D, RT, D, db2, b.scratch, st);
@@ -1508,7 +1574,7 @@ cudaError_t backward(const Shape& s, const bf16* x, const bf16* dy, bf16* dx, fl
   g.out = b.dab;
   g.out32 = b.dz1;
   g.part = b.part_rows;
-  gemm<false, true, kLnBwd>(g, D, 1, st);
+  gemm_ln<false, true, kLnBwd>(g, s.D, st);
   reduce(b.part_rows, RT, D, dg1, b.scratch, st);
   reduce(b.part_rows + RT * D, RT, D, dbe1, b.scratch, st);
   reduce(b.part_rows + 2 * RT * D, RT, D, dbo, b.scratch, st);

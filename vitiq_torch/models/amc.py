@@ -19,11 +19,16 @@ With ``raw_stats`` (the i/q mean and std dict, counterpart of
 the encoder runs preprocess + embedding + CLS + PE as one GEMM
 (`models/raw_embed.py`). The stats are a plain attribute, not parameters or
 buffers: the state_dict keys do not change.
+
+Helpers on a model (counterparts of `vitiq/models/amc.py`'s functions of a
+config and a parameter tree): `make_feature_extractor` (the encoder's
+sequence and CLS outputs), `count_parameters` and `make_attention_map_fn`
+(each layer's post-softmax attention maps).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -91,3 +96,61 @@ class AMCModel(nn.Module):
         else:
             logits = self.mlp_head[1](self.mlp_head[0](feat), self.policy)
         return logits.float()
+
+
+def make_feature_extractor(model: AMCModel, attention_fn: Optional[Callable] = None):
+    """Encoder-output access, parity with the rawIQ encoder's
+    `get_cls_token_output` / `get_sequence_output` (counterpart of vitiq's
+    `make_feature_extractor`). Returns fn(src) -> {"sequence_output":
+    [B, L, d] (the CLS row dropped), "cls_output": [B, d] or None}, the
+    encoder run in eval mode with `attention_fn` (default: the split-head
+    `scaled_dot_product_attention`, as vitiq's, so the plain layers run)."""
+    attention_fn = attention_fn or scaled_dot_product_attention
+
+    @torch.no_grad()
+    def extract(src: torch.Tensor) -> Dict[str, Optional[torch.Tensor]]:
+        was_training = model.training
+        model.eval()
+        try:
+            x = model.encoder(src, model.policy, attention_fn=attention_fn,
+                              raw_stats=model.raw_stats)
+        finally:
+            model.train(was_training)
+        return {"sequence_output": x[:, 1:] if model.cls_pooling else x,
+                "cls_output": x[:, 0] if model.cls_pooling else None}
+
+    return extract
+
+
+def count_parameters(model: nn.Module) -> int:
+    """Total trainable parameter count (counterpart of vitiq's
+    `count_parameters` of a parameter tree)."""
+    return sum(p.numel() for p in model.parameters())
+
+
+def make_attention_map_fn(model: AMCModel):
+    """Per-layer post-softmax attention maps (counterpart of vitiq's
+    `make_attention_map_fn`). Returns fn(src) -> a list of n_layers f32
+    tensors [B, H, L, L], from the plain layers in eval mode under the
+    model's numerics policy."""
+
+    @torch.no_grad()
+    def extract(src: torch.Tensor) -> List[torch.Tensor]:
+        maps: List[torch.Tensor] = []
+
+        def capturing_attention(q, k, v, mask=None, policy=model.policy):
+            out, probs = scaled_dot_product_attention(q, k, v, mask=mask, policy=policy,
+                                                      return_scores=True)
+            maps.append(probs)
+            return out
+
+        was_training = model.training
+        model.eval()
+        try:
+            model.encoder(src, model.policy, attention_fn=capturing_attention,
+                          raw_stats=model.raw_stats)
+        finally:
+            model.train(was_training)
+        return maps
+
+    return extract

@@ -18,14 +18,19 @@ the hand-written kernels, on a CPU tensor their plain PyTorch versions:
   training stack (`vitiq_torch.ops.cuda.fused_layer_train`: K4, the stash
   regime, where `stash_enabled` puts it, K3 elsewhere; dropout drawn from the
   seed inside the kernels);
-* eval: the fused inference stack (`vitiq_torch.ops.cuda.fused_encoder_layer`,
-  K1/K2). With ``cls_only_fused`` the last layer computes the CLS row only
+* eval, with shapes the kernels take (`fused_infer_supported`): the fused
+  inference stack (`vitiq_torch.ops.cuda.fused_encoder_layer`, K1/K2). With
+  ``cls_only_fused`` the last layer computes the CLS row only
   and the encoder returns [B, 1, D]. Opt-outs, as in `vitiq`:
   ``VITIQ_NO_FUSED_LAYER=1`` runs the plain layer loop, ``VITIQ_CLS_ONLY=0``
   computes the full last layer.
-Everything else runs the plain layers with `attention_fn` (under `tpu`, K5
-for every layer's attention: the conv1d arm's 1025 tokens in training, which
-`fused_train_supported` turns down, and ``VITIQ_NO_FUSED_LAYER=1`` in eval),
+Both gates are decided from shapes alone, so a shape a gate admits never
+raises in a kernel and one it turns away never reaches one. Everything else
+runs the plain layers with `attention_fn` (under `tpu`, K5 for every layer's
+attention: in training the conv1d arm's 1025 tokens, d_model 64 and d_head
+64, which `fused_train_supported` turns down; in eval the conv1d arm with
+n_head 2, which `fused_infer_supported` turns down, and
+``VITIQ_NO_FUSED_LAYER=1``),
 their dropout drawn from `generator`. In training above 512 tokens each plain
 layer is rematerialized (`use_remat`, ``VITIQ_TRAIN_REMAT``), as the JAX
 encoder does with `jax.checkpoint`.
@@ -48,7 +53,10 @@ from vitiq_torch.models.embeddings import (
 )
 from vitiq_torch.models.layers import EncoderLayer, dropout
 from vitiq_torch.models.raw_embed import fused_raw_embed_apply
-from vitiq_torch.ops.cuda.fused_encoder_layer import fused_encoder_layer_stack
+from vitiq_torch.ops.cuda.fused_encoder_layer import (
+    fused_encoder_layer_stack,
+    fused_infer_supported,
+)
 from vitiq_torch.ops.cuda.fused_layer_train import fused_train_layer_stack, fused_train_supported
 from vitiq_torch.ops.numerics import Policy
 
@@ -125,7 +133,8 @@ class Encoder(nn.Module):
         if (not self.training
                 and mask is None
                 and fused_family
-                and os.environ.get("VITIQ_NO_FUSED_LAYER") != "1"):
+                and os.environ.get("VITIQ_NO_FUSED_LAYER") != "1"
+                and fused_infer_supported(x.shape[1], cfg.d_model, cfg.ffn_hidden, cfg.n_head)):
             cls_only = (cls_only_fused
                         and os.environ.get("VITIQ_CLS_ONLY", "1") != "0")
             return fused_encoder_layer_stack(policy.cast_compute(x),

@@ -23,13 +23,16 @@ def scaled_dot_product_attention(
     v: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     policy: Policy = REFERENCE,
-) -> torch.Tensor:
+    return_scores: bool = False,
+):
     """Attention over [B, H, L, Dh] tensors; positions where ``mask == 0``
-    are filled with -10000 before the softmax."""
+    are filled with -10000 before the softmax. With ``return_scores``, also
+    the post-softmax probabilities [B, H, L, L] (f32)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = policy.einsum("bhqd,bhkd->bhqk", q, k) * scale
     if mask is not None:
         scores = scores.masked_fill(mask == 0, MASK_FILL_VALUE)
     probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     probs = probs / probs.sum(dim=-1, keepdim=True)
-    return policy.einsum("bhqk,bhkd->bhqd", probs, v)
+    out = policy.einsum("bhqk,bhkd->bhqd", probs, v)
+    return (out, probs) if return_scores else out

@@ -15,6 +15,14 @@ keys, a divide, and rounding to the activation dtype where the kernels round
 to bf16. `fused_encoder_layer_stack` runs a layer stack through the wrappers;
 `fused_encoder_layer_stack_reference` is the plain version of the stack.
 
+The kernels take d_model 64, 128 or 256 with d_head 16, 32 or 64, an FFN
+width that is a multiple of 128, and an L whose frame-head K/V fit the
+attention block's shared memory: `fused_infer_supported`, decided from shapes
+alone and the same predicate as the kernels' `shapes_ok`. K6
+(`fused_encoder_layer_int8`) takes the same shapes. The callers
+(`Encoder.forward`, `QuantizedAMCModel.forward`) dispatch on it, so a shape
+it admits never raises in a kernel and one it turns away never reaches one.
+
 `launches` counts kernel launches, one per call of a C entry point (K1 runs
 one entry call per layer); the plain versions count nothing.
 """
@@ -30,8 +38,9 @@ from vitiq_torch.ops.cuda import _build
 
 LN_EPS = 1e-12
 _LOG2E = 1.4426950408889634
-SUPPORTED_D_MODEL = 128
-SUPPORTED_D_HEAD = (16, 32)
+SUPPORTED_D_MODEL = (64, 128, 256)
+SUPPORTED_D_HEAD = (16, 32, 64)
+MAX_SHARED_MEMORY = 232448  # bytes a block may use on Hopper
 
 launches = {"fused_encoder_layer": 0, "fused_encoder_layer_cls": 0}
 
@@ -39,6 +48,27 @@ launches = {"fused_encoder_layer": 0, "fused_encoder_layer_cls": 0}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def attention_smem_bytes(L: int, d_head: int) -> int:
+    """Shared memory of the attention block at L tokens: the frame-head's k
+    rows and v transposed, bf16, padded (the formula of
+    `attention_smem_bytes` in the .cu)."""
+    lp = (L + 15) // 16 * 16
+    return (lp * (d_head + 8) + d_head * (lp + 8)) * 2
+
+
+def fused_infer_supported(L: int, D: int, ffn_hidden: int, n_head: int) -> bool:
+    """Shapes K1, K2 and K6 take: d_model in SUPPORTED_D_MODEL, d_head in
+    SUPPORTED_D_HEAD, an FFN width that is a multiple of 128, and an L whose
+    attention block fits the card's shared memory (at d_head 64, L up to
+    ~850: the conv1d arm's 1025 tokens with n_head 2 are turned away).
+    Decided from shapes alone, before any launch."""
+    if D not in SUPPORTED_D_MODEL or n_head <= 0 or D % n_head or L <= 0:
+        return False
+    dh = D // n_head
+    return (dh in SUPPORTED_D_HEAD and ffn_hidden > 0 and ffn_hidden % 128 == 0
+            and attention_smem_bytes(L, dh) <= MAX_SHARED_MEMORY)
 
 
 def layer_operands(layer, n_head: int, dtype=torch.bfloat16) -> List[torch.Tensor]:
@@ -156,16 +186,10 @@ def _check_inputs(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int) -> 
         raise ValueError("x must be a contiguous bf16 [B, L, D] tensor, got "
                          f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
     B, L, D = x.shape
-    if B == 0 or L == 0:
-        raise ValueError(f"empty input {tuple(x.shape)}")
-    if D != SUPPORTED_D_MODEL or D % n_head or D // n_head not in SUPPORTED_D_HEAD:
-        raise ValueError(f"kernels take d_model={SUPPORTED_D_MODEL} with d_head in "
-                         f"{SUPPORTED_D_HEAD}; got d_model={D}, n_head={n_head}")
     if len(ops) != 12:
         raise ValueError(f"expected 12 layer operands, got {len(ops)}")
     F = ops[6].shape[-1]
-    if F % 128:
-        raise ValueError(f"FFN width must be a multiple of 128, got {F}")
+    check_shape(B, L, D, F, n_head)
     shapes = [(D, 3 * D), (3 * D,), (D, D), (D,), (D,), (D,),
               (D, F), (F,), (F, D), (D,), (D,), (D,)]
     for i, (t, shape) in enumerate(zip(ops, shapes)):
@@ -175,6 +199,15 @@ def _check_inputs(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int) -> 
             raise ValueError(f"operand {i}: want contiguous {want} {shape} on {x.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     return F
+
+
+def check_shape(B: int, L: int, D: int, F: int, n_head: int) -> None:
+    """Raise unless `fused_infer_supported` admits the shape (K1, K2, K6)."""
+    if B == 0 or not fused_infer_supported(L, D, F, n_head):
+        raise ValueError(f"the kernels take d_model in {SUPPORTED_D_MODEL}, d_head in "
+                         f"{SUPPORTED_D_HEAD}, an FFN width that is a multiple of 128 and L "
+                         f"up to the shared-memory bound; got B={B}, L={L}, d_model={D}, "
+                         f"n_head={n_head}, ffn={F}")
 
 
 def _launch(entry: str, counter: str, x: torch.Tensor, out: torch.Tensor, ops,

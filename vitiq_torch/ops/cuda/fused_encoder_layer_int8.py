@@ -200,17 +200,10 @@ def _check_inputs(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int) -> 
         raise ValueError("x must be a contiguous bf16 [B, L, D] tensor, got "
                          f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
     B, L, D = x.shape
-    if B == 0 or L == 0:
-        raise ValueError(f"empty input {tuple(x.shape)}")
-    if (D != fel.SUPPORTED_D_MODEL or D % n_head
-            or D // n_head not in fel.SUPPORTED_D_HEAD):
-        raise ValueError(f"kernels take d_model={fel.SUPPORTED_D_MODEL} with d_head in "
-                         f"{fel.SUPPORTED_D_HEAD}; got d_model={D}, n_head={n_head}")
     if len(ops) != 16:
         raise ValueError(f"expected 16 int8 layer operands, got {len(ops)}")
     F = ops[8].shape[0]
-    if F % 128:
-        raise ValueError(f"FFN width must be a multiple of 128, got {F}")
+    fel.check_shape(B, L, D, F, n_head)  # K1's shapes (fel.fused_infer_supported)
     shapes = [(3 * D, D), (3 * D,), (3 * D,), (D, D), (D,), (D,), (D,), (D,),
               (F, D), (F,), (F,), (D, F), (D,), (D,), (D,), (D,)]
     for i, (t, shape) in enumerate(zip(ops, shapes)):
@@ -266,13 +259,13 @@ def int8_gemm(a: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor, bias: tor
         return (torch.relu(y) if relu else y).to(a.dtype)
     M, K = a.shape
     N = wq.shape[0]
-    if (a.dtype != torch.bfloat16 or not a.is_contiguous() or K % 64 or N % 128
+    if (a.dtype != torch.bfloat16 or not a.is_contiguous() or K % 64 or N % 64
             or (prequant and K > 1024)
             or tuple(wq.shape) != (N, K) or wq.dtype != torch.int8 or not wq.is_contiguous()
             or any(t.dtype != torch.float32 or tuple(t.shape) != (N,) for t in (wscale, bias))
             or any(t.device != a.device for t in (wq, wscale, bias))):
         raise ValueError("int8_gemm takes contiguous bf16 a [M, K], int8 wq [N, K] and f32 "
-                         "wscale, bias [N] on one CUDA device, K % 64 == 0, N % 128 == 0 "
+                         "wscale, bias [N] on one CUDA device, K % 64 == 0, N % 64 == 0 "
                          "(and K <= 1024 with prequant)")
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     aq = torch.empty((M, K) if prequant else (1,), dtype=torch.int8, device=a.device)

@@ -50,7 +50,7 @@ from vitiq_torch.ops.cuda import _build
 LN_EPS = 1e-12
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
-SUPPORTED_D_MODEL = 128
+SUPPORTED_D_MODEL = (128, 256)
 SUPPORTED_D_HEAD = (16, 32)
 MAX_SHARED_MEMORY = 232448  # bytes a block may use on Hopper
 _M32 = 0xFFFFFFFF
@@ -82,10 +82,12 @@ def stash_attention_bwd_smem_bytes(L: int, d_head: int) -> int:
 
 
 def fused_train_supported(L: int, D: int, ffn_hidden: int, n_head: int) -> bool:
-    """Shapes the K3 kernels take: d_model 128, d_head 16 or 32, an FFN width
-    that is a multiple of 128, and an L whose attention-backward block fits
-    the card's shared memory. Decided from shapes alone, before any launch."""
-    if D != SUPPORTED_D_MODEL or n_head <= 0 or D % n_head or L <= 0:
+    """Shapes the K3 kernels take: d_model 128 or 256, d_head 16 or 32, an
+    FFN width that is a multiple of 128, and an L whose attention-backward
+    block fits the card's shared memory (the kernels' `shapes_ok`). Decided
+    from shapes alone, before any launch. d_model 64 (`vit_tiny_2016`) and
+    d_head 64 (`vit_tpu_production`) train through the plain layers with K5."""
+    if D not in SUPPORTED_D_MODEL or n_head <= 0 or D % n_head or L <= 0:
         return False
     dh = D // n_head
     return (dh in SUPPORTED_D_HEAD and ffn_hidden > 0 and ffn_hidden % 128 == 0
@@ -130,8 +132,8 @@ def stash_enabled(L: int, n_head: int, d: int, batch: Optional[int] = None,
 
 
 def fused_train_stash_supported(L: int, D: int, ffn_hidden: int, n_head: int) -> bool:
-    """Shapes the K4 kernels take: K3's (d_model 128, d_head 16 or 32, an FFN
-    width that is a multiple of 128), an L inside the stash gate
+    """Shapes the K4 kernels take: K3's (d_model 128 or 256, d_head 16 or 32,
+    an FFN width that is a multiple of 128), an L inside the stash gate
     (`stash_supported` at Lp = round_up(L, 16)) and an attention-backward
     block that fits the card's shared memory."""
     if not fused_train_supported(L, D, ffn_hidden, n_head):
@@ -406,7 +408,7 @@ def _check_inputs(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
         raise ValueError(f"expected 12 layer operands, got {len(ops)}")
     F = ops[6].shape[-1]
     if B == 0 or not fused_train_supported(L, D, F, n_head):
-        raise ValueError(f"{'K4' if stash else 'K3'} takes d_model={SUPPORTED_D_MODEL}, "
+        raise ValueError(f"{'K4' if stash else 'K3'} takes d_model in {SUPPORTED_D_MODEL}, "
                          f"d_head in {SUPPORTED_D_HEAD}, "
                          f"an FFN width that is a multiple of 128 and L up to the shared-memory "
                          f"bound; got B={B}, L={L}, d_model={D}, n_head={n_head}, ffn={F}")

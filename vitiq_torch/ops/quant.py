@@ -14,8 +14,9 @@ classifier head stay float.
 `QuantizedAMCModel` is `make_quantized_forward`: preprocessed input (the
 quantized path is not raw-aware), the embedding's `int8_linear` in plain
 PyTorch, CLS and PE, then the encoder -- on a CUDA device (or with
-``fused=True``) the fused int8 stack, K6 on each full layer and K2 on the
-last layer's dequantized weights for the CLS row (`ops/cuda/
+``fused=True``), for shapes the kernels take (`fused_infer_supported`, K1's
+predicate), the fused int8 stack, K6 on each full layer and K2 on the last
+layer's dequantized weights for the CLS row (`ops/cuda/
 fused_encoder_layer_int8.py`); otherwise, or with ``VITIQ_NO_FUSED_LAYER=1``,
 the unfused int8 layers in f32 -- and the float head. Its buffers keep the
 state-dict names of the float model's parameters, with ``weight`` of a
@@ -40,6 +41,7 @@ from vitiq_torch.models.embeddings import (
 )
 from vitiq_torch.models.layers import layer_norm
 from vitiq_torch.ops.attention import scaled_dot_product_attention
+from vitiq_torch.ops.cuda.fused_encoder_layer import fused_infer_supported
 from vitiq_torch.ops.cuda.fused_encoder_layer_int8 import (
     QMAX,
     absmax_scale,
@@ -161,7 +163,8 @@ class QuantizedAMCModel(nn.Module):
     [B, num_classes] f32. ``fused`` picks the encoder: None (default) the
     fused int8 stack on a CUDA device and the unfused layers elsewhere;
     True or False forces it (True on the CPU runs the kernels' plain
-    versions). ``VITIQ_NO_FUSED_LAYER=1`` and ``VITIQ_CLS_ONLY=0`` act as in
+    versions), the fused stack only for shapes `fused_infer_supported`
+    admits. ``VITIQ_NO_FUSED_LAYER=1`` and ``VITIQ_CLS_ONLY=0`` act as in
     `vitiq`."""
 
     def __init__(self, cfg: ModelConfig, device=None, fused: Optional[bool] = None):
@@ -217,7 +220,8 @@ class QuantizedAMCModel(nn.Module):
         x = add_positional_encoding(x, cfg.num_tokens)
         fused = self.fused if self.fused is not None else x.device.type == "cuda"
         layers = list(self.encoder.layers)
-        if fused and os.environ.get("VITIQ_NO_FUSED_LAYER") != "1":
+        if (fused and os.environ.get("VITIQ_NO_FUSED_LAYER") != "1"
+                and fused_infer_supported(x.shape[1], cfg.d_model, cfg.ffn_hidden, cfg.n_head)):
             cls_only = self.cls_pooling and os.environ.get("VITIQ_CLS_ONLY", "1") != "0"
             x = fused_encoder_layer_int8_stack(x.to(torch.bfloat16), layers, cfg.n_head,
                                                cls_only=cls_only)
