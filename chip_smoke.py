@@ -31,6 +31,13 @@ which raises (exit code 1) on failure:
    same at WIDE_SHAPES; K6's FFN1 GEMM stage alone, which must equal the
    plain int8 GEMM bit for bit, and at rawiq_best's width all four stages
    (QKV, out-projection and FFN2 on their 256-wide tiles, FFN1).
+   int8attn-kernels: K7 (the int8-attention layer) against its plain version
+   at the three flagship shapes (B=256, B=256, conv1d L=1025 at B=64, d_head
+   16) and rawiq_best's (D=256, d_head 32, B=256): each of five layers on the
+   plain version's input and the five layers with the K2 CLS tail as one
+   stack, held as K6 is (K7_LAYER_TOL, K7_STACK_TOL); its core alone on one
+   qkv, whose s32 scores and s32 P [v | 1] tile products (on its own int8
+   probabilities) must equal the plain version's bit for bit.
 4. serve: the ViT flagship (d128/L6/H8, bf16 `tpu` numerics, seeded random
    weights) answers ragged requests of 1, 37, 256 and 1000 raw [B, 1024, 2]
    frames through `Server` with buckets (256, 1024). Every launch counter is
@@ -86,17 +93,25 @@ which raises (exit code 1) on failure:
    rawiq_best takes 20 steps at B=256 through K3 (9 forward and 9 backward
    launches a step), rawiq_best_mp through K4 (9 + 9), each gradient held to
    the plain bf16 layers and the f32 path at cosine >= 0.995.
-   evaluate: the ViT flagship (3 classes) trains with `fit` on the default
-   synthetic corpus (3 x 2048 frames, seed 0, EVAL_EPOCHS epochs at B=128,
-   lr 3e-4); the experiment is saved as the JAX package lays it out
-   (config.json, normalization_stats.json, model_best.npz) in a temporary
-   directory and evaluated on its test split by `run_evaluation` on the
-   card, in float and int8: both reports parse back, float test accuracy
-   >= EVAL_MIN_ACC and int8 within 2 points of it. Every phase counts its
-   launches: K3 6 + 6 per train step, K1 5 (float) or K6 5 (int8) and K2 1
-   per evaluated batch. rawiq_best repeats it with BEST_EVAL_EPOCHS epochs
-   at lr 1e-4 (K3 9 + 9 per step, its validation passes through K1/K2 at
-   d256), gated on launches and report files, not accuracy.
+   evaluate: the ViT flagship (3 classes) trains with `run_training` on the
+   default synthetic corpus (3 x 2048 frames, seed 0, EVAL_EPOCHS epochs at
+   B=128, lr 3e-4) into a temporary experiment directory (the JAX package's
+   files: config.json, normalization_stats.json, checkpoints, model_best.npz,
+   its test evaluation, summary.json), which is then evaluated on its test
+   split by `run_evaluation` on the card, in float, int8 and float with
+   VITIQ_ATTN_INT8=1: the reports parse back, float test accuracy >=
+   EVAL_MIN_ACC and int8 and int8 attention within 2 points of it. Every
+   phase counts its launches: K3 6 + 6 per train step, K1 5 (float), K6 5
+   (int8) or K7 5 (int8 attention) and K2 1 per evaluated batch.
+   rawiq_best repeats it with BEST_EVAL_EPOCHS epochs at lr 1e-4 (K3 9 + 9
+   per step, its validation passes through K1/K2 at d256), gated on
+   launches and report files, not accuracy.
+   cli-train: rawiq_best through `python -m vitiq_torch.cli train` (the
+   preset from a --config JSON with save_freq 1, --source synthetic
+   --numerics tpu), 2 epochs, then --resume auto to a third, all with
+   VITIQ_ATTN_INT8=1: K3 9 + 9 per step, K7 8 and K2 1 per evaluated batch,
+   nothing else; the resumed history holds 3 epochs. The resumed call runs
+   under `torch.profiler` (its device busy time and idle share).
 7. timing (CUDA events after warm-up): per-layer kernel time against the
    plain version (K1 and K2 at the three shapes, B=4096 and, at 1025 tokens,
    B=256; K3 at the ViT and rawIQ shapes and K4 at the rawIQ one, B=4096;
@@ -111,11 +126,17 @@ which raises (exit code 1) on failure:
    its FFN1 stage against torch._int_mm at that shape; serving frames/s and
    p50 latency at B=4096 (ViT, rawIQ) and B=2048 (conv1d), through the
    kernels and through the plain layer loop, and at B=4096 (ViT, rawIQ)
-   through the int8 path; rawiq_best's layer at B=4096 (K1, K2, K6, K3 at
+   through the int8 path; K7 per layer at B=4096 (ViT, rawIQ, rawiq_best)
+   and B=256 (conv1d), and its int8 core alone, against its plain version
+   and K1 in the same call, with its bound (K1's
+   GEMM FLOPs at 989 TFLOP/s plus its s8 score and P [v | 1] operations at
+   1979 TOP/s, or its bytes; no PyTorch call computes the layer, so no
+   library time); rawiq_best's layer at B=4096 (K1, K2, K6, K3 at
    L=65, K4 at rawiq_best_mp's L=64, each beside its plain version and bound,
    and nn.TransformerEncoderLayer(256, 8, 1024)), its serving (bf16 and
    int8) and train steps (rawiq_best through K3, with a `torch.profiler`
-   breakdown by kernel, rawiq_best_mp through K4);
+   breakdown by kernel, rawiq_best_mp through K4); ViT (B=4096) and conv1d
+   (B=2048) serving with VITIQ_ATTN_INT8=1 (K7 + K2);
    train-step frames/s and peak device memory: the ViT flagship through K3
    and through the plain layers, the rawIQ flagship through K4, through K3
    (VITIQ_TRAIN_STASH=0) and through the plain layers (B=4096), the conv1d
@@ -129,6 +150,7 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -156,18 +178,19 @@ from vitiq_torch.ops.cuda import _build
 from vitiq_torch.ops.cuda import flash_attention as fa
 from vitiq_torch.ops.cuda import fused_encoder_layer as fel
 from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
+from vitiq_torch.ops.cuda import fused_encoder_layer_int8attn as k7
 from vitiq_torch.ops.cuda import fused_layer_train as flt
 from vitiq_torch.ops.metrics import label_smoothed_cross_entropy
 from vitiq_torch.ops.quant import QuantizedEncoderLayer, quantize_params_int8
-from vitiq_torch.runner import load_experiment_data, run_evaluation
+from vitiq_torch import cli
+from vitiq_torch.runner import run_evaluation, run_training
 from vitiq_torch.serve import (
     Server,
     build_forward_and_preprocess,
     build_int8_serving_fn,
     build_serving_fn,
 )
-from vitiq_torch.train import fit, make_train_step
-from vitiq_torch.train.checkpoint import save_params
+from vitiq_torch.train import make_train_step
 from vitiq_torch.train.optim import create_train_state, make_optimizer
 
 # (atol, rtol) on bf16 outputs, |kernel - plain| <= atol + rtol * |plain|.
@@ -224,16 +247,26 @@ K6_STACK_TOL = (2e-2, 4.0)
 # a trained model: int8 test accuracy within 2 points of float
 # (tests/test_quant.py:131-132).
 INT8_LOGIT_BOUND, INT8_ACC_POINTS = 0.35, 0.02
+K7 = "fused_encoder_layer_int8attn"
+# K7 against its plain version, as K6 is held (K6_LAYER_TOL, K6_STACK_TOL):
+# its int8 core repeats the plain version's roundings, but a one-ulp bf16
+# flip in q or k from its QKV GEMM (summed in another order) can move a
+# quantized level and so a probability by one of 127 steps. Its s32 score
+# and P [v | 1] products on the same quantized operands: bit for bit.
+K7_LAYER_TOL, K7_STACK_TOL = K6_LAYER_TOL, K6_STACK_TOL
 # the evaluate phase's training: the ViT flagship stays at chance for ~15
 # epochs at lr 3e-4, B=128 on this corpus before it learns (lr 1e-3 at B=256
 # or 64 and lr 1e-4 at B=256 did not leave chance in 16-40 epochs), so early
 # stopping is off (patience = epochs)
 EVAL_EPOCHS, EVAL_BATCH, EVAL_LR = 40, 128, 3e-4
 EVAL_MIN_ACC = 0.5  # 3 classes: chance is 1/3
-# rawiq_best's evaluate phase: a short fit (its validation passes run K1/K2
-# at d256), then run_evaluation in float and int8; launches and report files
-# are gated, not accuracy
+# rawiq_best's evaluate phase: a short run_training (its validation passes
+# run K1/K2 at d256), then run_evaluation in float, int8 and int8 attention;
+# launches and report files are gated, not accuracy
 BEST_EVAL_EPOCHS, BEST_EVAL_LR = 2, 1e-4
+# rawiq_best through `cli train`: 2 epochs with a checkpoint after each, then
+# resume="auto" to a third, validation under VITIQ_ATTN_INT8=1
+BEST_CLI_EPOCHS = 2
 DEVICE = torch.device("cuda", 0)
 # the JAX package's recommended ViT (n_head 2, d_head 64) under `tpu` numerics
 VIT_TPU_PRODUCTION = dataclasses.replace(ExperimentConfig.vit_tpu_production().model,
@@ -734,6 +767,18 @@ def time_train_step(label: str, cfg, stats, batch: int, device, card: str, iters
     return ms
 
 
+def device_us(e) -> float:
+    """A profiler event's own device time, us."""
+    return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_kernels(prof) -> list:
+    """The profiled device kernels (one stream: their times add up to the
+    device's busy time)."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+
+
 def profile_train_step(label: str, cfg, stats, batch: int, device, card: str,
                        steps: int = 3, top: int = 12) -> None:
     """Where a train step's time goes: `torch.profiler` over `steps` steps
@@ -762,11 +807,7 @@ def profile_train_step(label: str, cfg, stats, batch: int, device, card: str,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+    kernels = device_kernels(prof)
     busy_ms = sum(device_us(e) for e in kernels) / 1e3 / steps
     print(f"  {label} profile B={batch}, {steps} steps: host wall {wall_ms:.4f} ms/step "
           f"(profiler on), device kernel time {busy_ms:.4f} ms/step, idle share "
@@ -830,12 +871,12 @@ def time_train_layers(label: str, L: int, ffn: int, drop: float, device, card: s
 # --------------------------------------------------------------------------
 
 def reset_all_launches() -> None:
-    for module in (fel, k6, fa, flt):
+    for module in (fel, k6, k7, fa, flt):
         module.reset_launches()
 
 
 def all_launches() -> dict:
-    return {**fel.launches, **k6.launches, **fa.launches, **flt.launches}
+    return {**fel.launches, **k6.launches, **k7.launches, **fa.launches, **flt.launches}
 
 
 def quantize_layers(layers):
@@ -850,7 +891,7 @@ def quantize_layers(layers):
 
 
 def check_int8(label: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
-    """K6 against its plain version: relative L2 and a max counted in
+    """K6 or K7 against its plain version: relative L2 and a max counted in
     quantization steps (see K6_LAYER_TOL); returns the max |difference|."""
     rel, steps = tol
     got, want = got.float(), want.float()
@@ -864,7 +905,7 @@ def check_int8(label: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
           f"max |kernel - plain| = {err.max().item():.6g} = {max_steps:.4g} quantization "
           f"steps (limit {steps})", flush=True)
     if not (rel_l2 <= rel and max_steps <= steps):
-        raise AssertionError(f"{label}: K6 disagrees with its plain version")
+        raise AssertionError(f"{label}: the kernel disagrees with its plain version")
     return err.max().item()
 
 
@@ -1002,62 +1043,72 @@ def evaluate_check(device, label: str = "the ViT flagship", model_cfg=None,
                    epochs: int = EVAL_EPOCHS, lr: float = EVAL_LR, frames_per_class: int = 2048,
                    train_kernels=K3, gate_accuracy: bool = True) -> dict:
     """Train a model (3 classes; the ViT flagship unless `model_cfg`) with
-    `fit` on the default synthetic corpus (3 classes x 2048 frames, seed 0),
-    save the experiment as the JAX package lays it out (config.json,
-    normalization_stats.json, model_best.npz) in a temporary directory, and
-    evaluate it on the test split through `run_evaluation` on the card, in
-    float and int8. The launches are counted: every train step runs
-    `train_kernels` once per layer, forward and backward; each evaluated
-    batch K1 (float) or K6 (int8) once per full layer and K2 once, nothing
-    else. Both reports must parse; with `gate_accuracy`, float accuracy >=
-    EVAL_MIN_ACC and int8 within INT8_ACC_POINTS of float."""
+    `run_training` on the default synthetic corpus (3 classes x 2048 frames,
+    seed 0) into a temporary experiment directory (config.json,
+    normalization_stats.json, checkpoints, model_best.npz, its own test
+    evaluation, summary.json), then evaluate the saved experiment on its test
+    split through `run_evaluation` on the card in float, int8 (K6) and float
+    with VITIQ_ATTN_INT8=1 (K7). The launches are counted: every train step
+    runs `train_kernels` once per layer, forward and backward, K7 never; each
+    batch `run_evaluation` evaluates runs K1 (float), K6 (int8) or K7 (int8
+    attention) once per full layer and K2 once, nothing else. The reports
+    must parse; with `gate_accuracy`, float accuracy >= EVAL_MIN_ACC and int8
+    and int8-attention accuracy within INT8_ACC_POINTS of float."""
     import tempfile
     from pathlib import Path
 
     model_cfg = dataclasses.replace(model_cfg or flagship_vit_config("tpu"), num_classes=3)
     n = model_cfg.n_layers
-    cfg = ExperimentConfig(model=model_cfg,
-                           data=DataConfig(synthetic_frames_per_class=frames_per_class),
-                           train=TrainConfig(batch_size=EVAL_BATCH, num_epochs=epochs,
-                                             learning_rate=lr, patience=epochs))
-    print(f"phase evaluate: train {label} (3 classes) on the synthetic corpus "
-          f"({len(cfg.data.synthetic_classes)} x {cfg.data.synthetic_frames_per_class} frames, "
-          f"seed {cfg.data.synthetic_seed}), {epochs} epochs at B={EVAL_BATCH}, lr {lr}",
-          flush=True)
-    t0 = time.perf_counter()
-    splits, stats, _ = load_experiment_data(cfg)
-    t_data = time.perf_counter() - t0
-    model, pre = build_forward_and_preprocess(
-        cfg, AMCModel(cfg.model, generator=torch.Generator().manual_seed(0)), stats, device)
-    t0 = time.perf_counter()
-    reset_all_launches()
-    res = fit(cfg, model, splits["train"][:2], splits["valid"][:2], preprocess_fn=pre,
-              verbose=False)
-    torch.cuda.synchronize()
-    t_fit = time.perf_counter() - t0
-    fit_launches = all_launches()
-    steps = len(splits["train"][0]) // EVAL_BATCH * res.epochs_run
-    print(f"  corpus {t_data:.1f} s; fit {res.epochs_run} epochs in {t_fit:.1f} s, val acc "
-          f"{res.history['val_acc'][0]:.4f} -> {res.history['val_acc'][-1]:.4f} (best val "
-          f"loss {min(res.history['val_loss']):.4f}); launches "
-          f"{ {k: v for k, v in fit_launches.items() if v} }", flush=True)
-    trained = {k: fit_launches[k] for k in (*K3, *K4, *K5)}
-    want_trained = {k: n * steps if k in train_kernels else 0 for k in trained}
-    if trained != want_trained or not fit_launches["fused_encoder_layer_cls"]:
-        raise AssertionError(f"fit launched {fit_launches}; expected {want_trained} over "
-                             f"{steps} steps and K1/K2 in its validation passes")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        exp_dir = Path(tmp)
-        cfg.to_json(str(exp_dir / "config.json"))
-        (exp_dir / "normalization_stats.json").write_text(json.dumps(stats, indent=2))
-        save_params(exp_dir / "model_best", res.best_params, cfg.model)
-        for int8 in (False, True):
+        cfg = ExperimentConfig(model=model_cfg,
+                               data=DataConfig(synthetic_frames_per_class=frames_per_class),
+                               train=TrainConfig(batch_size=EVAL_BATCH, num_epochs=epochs,
+                                                 learning_rate=lr, patience=epochs,
+                                                 save_freq=epochs),
+                               experiment_name="evaluate", checkpoint_dir=tmp,
+                               log_dir=str(Path(tmp) / "logs"))
+        print(f"phase evaluate: run_training of {label} (3 classes) on the synthetic corpus "
+              f"({len(cfg.data.synthetic_classes)} x {cfg.data.synthetic_frames_per_class} "
+              f"frames, seed {cfg.data.synthetic_seed}), {epochs} epochs at B={EVAL_BATCH}, "
+              f"lr {lr}", flush=True)
+        t0 = time.perf_counter()
+        reset_all_launches()
+        summary = run_training(cfg, verbose=False, device=device, make_plots=False)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        run_launches = all_launches()
+        history = summary["history"]
+        n_train = int(cfg.data.train_size * 3 * frames_per_class)
+        steps = n_train // EVAL_BATCH * summary["epochs_run"]
+        print(f"  run_training {summary['epochs_run']} epochs in {t_run:.1f} s (training "
+              f"{summary['train_wall_seconds']:.1f} s), val acc {history['val_acc'][0]:.4f} -> "
+              f"{history['val_acc'][-1]:.4f} (best val loss {summary['best_val_loss']:.4f}), "
+              f"its test accuracy {summary['test_overall_accuracy'] * 100:.2f}%; launches "
+              f"{ {k: v for k, v in run_launches.items() if v} }", flush=True)
+        trained = {k: run_launches[k] for k in (*K3, *K4, *K5, K7)}
+        want_trained = {k: n * steps if k in train_kernels else 0 for k in trained}
+        if trained != want_trained or not run_launches["fused_encoder_layer_cls"]:
+            raise AssertionError(f"run_training launched {run_launches}; expected {want_trained} "
+                                 f"over {steps} steps and K1/K2 in its evaluation passes")
+        exp_dir = Path(tmp) / "evaluate"
+        for name in ("config.json", "normalization_stats.json", "model_best.npz",
+                     "model_final.npz", "checkpoint_final.npz", "checkpoint_final.json",
+                     f"checkpoint_epoch_{epochs}.npz", "summary.json",
+                     "evaluation/test_classification_report.txt"):
+            if not (exp_dir / name).exists():
+                raise AssertionError(f"run_training did not write {name}")
+        for mode, kernel in (("float", "fused_encoder_layer"), ("int8", K6), ("int8attn", K7)):
             reset_all_launches()
-            r = run_evaluation(str(exp_dir), "test", int8=int8, device=device,
-                               make_plots=False, verbose=False)
+            if mode == "int8attn":
+                os.environ["VITIQ_ATTN_INT8"] = "1"
+            try:
+                r = run_evaluation(str(exp_dir), "test", int8=mode == "int8", device=device,
+                                   make_plots=False, verbose=False)
+            finally:
+                os.environ.pop("VITIQ_ATTN_INT8", None)
             torch.cuda.synchronize()
-            prefix = "test_int8" if int8 else "test"
+            prefix = "test_int8" if mode == "int8" else "test"
             parsed = ClassificationReportParser(
                 exp_dir / "evaluation" / f"{prefix}_classification_report.txt")
             if parsed.overall_accuracy != round(r["overall_accuracy"] * 100, 2) or len(
@@ -1067,29 +1118,170 @@ def evaluate_check(device, label: str = "the ViT flagship", model_cfg=None,
                 raise AssertionError(f"{prefix}_results.pkl missing")
             launched = {k: v for k, v in all_launches().items() if v}
             batches = -(-len(r["labels"]) // EVAL_BATCH)
-            want = {(K6 if int8 else "fused_encoder_layer"): (n - 1) * batches,
-                    "fused_encoder_layer_cls": batches}
+            want = {kernel: (n - 1) * batches, "fused_encoder_layer_cls": batches}
             if launched != want:
-                raise AssertionError(f"run_evaluation(int8={int8}) launched {launched}, "
+                raise AssertionError(f"run_evaluation({mode}) launched {launched}, "
                                      f"expected {want}")
             snr = ", ".join(f"{k:+d} dB {v * 100:.2f}%" for k, v in r["snr_accuracies"].items())
-            print(f"  run_evaluation({'int8' if int8 else 'float'}) on {len(r['labels'])} test "
-                  f"frames: accuracy {r['overall_accuracy'] * 100:.2f}% ({snr}); launches "
-                  f"{launched}", flush=True)
-            out["int8" if int8 else "float"] = r
-    acc_f, acc_q = out["float"]["overall_accuracy"], out["int8"]["overall_accuracy"]
-    agree = float((out["float"]["predictions"] == out["int8"]["predictions"]).mean())
-    print(f"  test accuracy float {acc_f * 100:.2f}%, int8 {acc_q * 100:.2f}% (difference "
-          f"{(acc_q - acc_f) * 100:+.2f} points, limit {INT8_ACC_POINTS * 100:.0f}"
-          f"{'' if gate_accuracy else ', not gated'}); prediction agreement {agree:.4f}",
-          flush=True)
+            print(f"  run_evaluation({mode}) on {len(r['labels'])} test frames: accuracy "
+                  f"{r['overall_accuracy'] * 100:.2f}% ({snr}); launches {launched}", flush=True)
+            out[mode] = r
+            out[mode + "_launches"] = launched
+    acc_f = out["float"]["overall_accuracy"]
+    for mode in ("int8", "int8attn"):
+        acc = out[mode]["overall_accuracy"]
+        agree = float((out["float"]["predictions"] == out[mode]["predictions"]).mean())
+        print(f"  test accuracy float {acc_f * 100:.2f}%, {mode} {acc * 100:.2f}% (difference "
+              f"{(acc - acc_f) * 100:+.2f} points, limit {INT8_ACC_POINTS * 100:.0f}"
+              f"{'' if gate_accuracy else ', not gated'}); prediction agreement {agree:.4f}",
+              flush=True)
+        if gate_accuracy and abs(acc - acc_f) > INT8_ACC_POINTS:
+            raise AssertionError(f"{mode} test accuracy is not within 2 points of float")
     if gate_accuracy and acc_f < EVAL_MIN_ACC:
         raise AssertionError(f"the trained model reached only {acc_f:.4f} test accuracy")
-    if gate_accuracy and abs(acc_q - acc_f) > INT8_ACC_POINTS:
-        raise AssertionError("int8 test accuracy is not within 2 points of float")
-    del model
     torch.cuda.empty_cache()
-    return {"float_acc": acc_f, "int8_acc": acc_q}
+    return {"float_acc": acc_f, "int8_acc": out["int8"]["overall_accuracy"],
+            "int8attn_acc": out["int8attn"]["overall_accuracy"],
+            "k7_launches": out["int8attn_launches"][K7]}
+
+
+def best_cli_train_check(device, card: str,
+                         frames_per_class: int = DataConfig.synthetic_frames_per_class) -> dict:
+    """`python -m vitiq_torch.cli train` of rawiq_best (d256/L9/H8, the
+    preset, with --source synthetic --numerics tpu and a --config JSON that
+    sets save_freq 1 and a temporary checkpoint directory) for BEST_CLI_EPOCHS
+    epochs, then again with --resume auto and one epoch more, in this
+    process, with VITIQ_ATTN_INT8=1 set: every train step must launch K3
+    9 + 9 times, every evaluated batch (validation and the final test pass)
+    K7 8 times and K2 once, and nothing else; the history must hold
+    BEST_CLI_EPOCHS + 1 epochs."""
+    import tempfile
+    from pathlib import Path
+
+    total = BEST_CLI_EPOCHS + 1
+    print(f"phase cli-train: rawiq_best through `cli train` ({BEST_CLI_EPOCHS} epochs, then "
+          f"--resume auto to {total}), VITIQ_ATTN_INT8=1", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = ExperimentConfig.rawiq_best(**{"train.save_freq": 1, "checkpoint_dir": tmp,
+                                             "log_dir": str(Path(tmp) / "logs"),
+                                             "experiment_name": "rawiq_best"})
+        cfg_path = Path(tmp) / "rawiq_best.json"
+        cfg.to_json(str(cfg_path))
+        args = ["train", "--config", str(cfg_path), "--source", "synthetic", "--numerics", "tpu",
+                "--frames_per_class", str(frames_per_class), "--device", str(device),
+                "--no_plots"]
+        data = DataConfig()
+        n = int(data.train_size * 3 * frames_per_class)
+        n_valid = int(data.valid_size * 3 * frames_per_class)
+        n_test = 3 * frames_per_class - n - n_valid
+        B = cfg.train.batch_size
+        spe, valid_b, test_b = n // B, -(-n_valid // B), -(-n_test // B)
+        counts = {}
+        os.environ["VITIQ_ATTN_INT8"] = "1"
+        try:
+            for epochs, extra in ((BEST_CLI_EPOCHS, []), (total, ["--resume", "auto"])):
+                run_epochs = epochs - (0 if not extra else BEST_CLI_EPOCHS)
+                reset_all_launches()
+                activities = [torch.profiler.ProfilerActivity.CPU,
+                              torch.profiler.ProfilerActivity.CUDA]
+                # the resumed epoch runs under the profiler: device busy time
+                # and idle share of a whole cli train call
+                profiling = (torch.profiler.profile(activities=activities) if extra
+                             else contextlib.nullcontext())
+                with profiling as prof:
+                    t0 = time.perf_counter()
+                    cli.main(args + ["--num_epochs", str(epochs), *extra])
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                got = all_launches()
+                if extra:
+                    busy = sum(device_us(e) for e in device_kernels(prof)) / 1e6
+                    print(f"  profile of the resumed call (profiler on): host wall {wall:.4f} s, "
+                          f"device kernel time {busy:.4f} s, idle share {1 - busy / wall:.4f}  "
+                          f"[{card}]", flush=True)
+                batches = run_epochs * valid_b + test_b
+                want = {k: 0 for k in got}
+                want.update({K3[0]: 9 * spe * run_epochs, K3[1]: 9 * spe * run_epochs,
+                             K7: 8 * batches, "fused_encoder_layer_cls": batches})
+                print(f"  cli train --num_epochs {epochs} {' '.join(extra)}: {run_epochs} "
+                      f"epoch(s) in {wall:.1f} s; launches "
+                      f"{ {k: v for k, v in got.items() if v} }", flush=True)
+                if got != want:
+                    raise AssertionError(f"cli train launched {got}, expected {want}")
+                for k, v in got.items():
+                    counts[k] = counts.get(k, 0) + v
+        finally:
+            del os.environ["VITIQ_ATTN_INT8"]
+        exp_dir = Path(tmp) / "rawiq_best"
+        summary = json.loads((exp_dir / "summary.json").read_text())
+        manifest = json.loads((exp_dir / "checkpoint_final.json").read_text())
+        history = manifest["history"]
+        print(f"  resumed run: epochs_run {summary['epochs_run']}, history of "
+              f"{len(history['val_loss'])} epochs, val loss "
+              f"{[round(v, 4) for v in history['val_loss']]}, test accuracy "
+              f"{summary['test_overall_accuracy'] * 100:.2f}%; checkpoints "
+              f"{sorted(p.name for p in exp_dir.glob('checkpoint_epoch_*.json'))}", flush=True)
+        if summary["epochs_run"] != total or len(history["val_loss"]) != total or not all(
+                math.isfinite(v) for v in history["val_loss"]):
+            raise AssertionError(f"the resumed rawiq_best run has a history of "
+                                 f"{len(history['val_loss'])} epochs, expected {total}")
+    return counts
+
+
+def check_int8attn_kernels(device, batch: int = 256, conv1d_batch: int = 64,
+                           core_batch: int = 2) -> float:
+    """K7 against its plain version at the three flagship shapes (d_head 16)
+    and rawiq_best's (D=256, d_head 32): each of five layers on the plain
+    version's input to it, then the five K7 layers with the K2 CLS tail as
+    one stack, held as K6 is (K7_LAYER_TOL, K7_STACK_TOL); and K7's core
+    alone on one qkv (`core_batch` frames), whose s32 scores and s32 tile
+    products P [v | 1] (taken with the kernel's own int8 probabilities) must
+    equal the plain version's bit for bit, with the probabilities and outputs
+    that differ counted. Returns the largest per-layer difference."""
+    worst = 0.0
+    gen = torch.Generator().manual_seed(23)
+    shapes = [("vit", 129, 512, 128), ("rawiq", 65, 1024, 128), ("conv1d", CONV1D_L, 1024, 128),
+              ("rawiq_best", 65, 1024, 256)]
+    for seed, (name, L, ffn, D) in enumerate(shapes):
+        B = conv1d_batch if L == CONV1D_L else batch
+        wide = "" if D == 128 else f" D={D}"
+        print(f"phase int8attn-kernels: K7 vs plain version on the GPU, {name} shape B={B} "
+              f"L={L} F={ffn}{wide} H=8 (d_head {D // 8})", flush=True)
+        layers = random_layers(6, ffn, seed=41 + seed, device=device, D=D)
+        ops = [fel.layer_operands(layer, 8) for layer in layers]
+        x = torch.randn((B, L, D), generator=gen).to(device, torch.bfloat16)
+        with torch.no_grad():
+            h = x
+            for i in range(5):
+                got = k7.fused_encoder_layer_int8attn(h, ops[i], 8)
+                want = k7.fused_layer_int8attn_reference(h, ops[i], 8)
+                torch.cuda.synchronize()
+                worst = max(worst, check_int8(f"{name} K7 layer {i}", got, want, K7_LAYER_TOL))
+                h = want
+            stack = k7.fused_encoder_layer_int8attn_stack(x, layers, 8, cls_only=True)
+            want = fel.fused_layer_reference(h, ops[5], 8, 1)
+            torch.cuda.synchronize()
+            check_int8(f"{name} 5 K7 layers + K2 CLS tail", stack, want, K7_STACK_TOL)
+            qkv = (fel._mm(h[:core_batch], ops[0][0]) + ops[0][1]).to(torch.bfloat16)
+            core, dump = k7.attention_int8(qkv, 8, dump=True)
+            torch.cuda.synchronize()
+            plain = k7.attention_int8_products(qkv, 8, probs=dump["probs"])
+            own = k7.attention_int8_products(qkv, 8)
+            ref = k7.attention_int8_reference(qkv, 8)
+        same_s = torch.equal(dump["scores"], plain["scores"])
+        same_pv = torch.equal(dump["pv"], plain["pv"])
+        n_probs = int((dump["probs"] != own["probs"]).sum())
+        n_out = int((core != ref).sum())
+        print(f"  {name} K7 core alone B={core_batch}: s32 scores equal to the plain version's: "
+              f"{same_s}; s32 P [v | 1] tile products on the kernel's probabilities equal: "
+              f"{same_pv}; int8 probabilities that differ {n_probs} of "
+              f"{dump['probs'].numel()}, outputs that differ {n_out} of {core.numel()}",
+              flush=True)
+        if not (same_s and same_pv):
+            raise AssertionError(f"{name}: K7's int8 products are not the plain version's")
+        del layers, x, h, stack, want, qkv, core, dump, plain, own, ref
+        torch.cuda.empty_cache()
+    return worst
 
 
 def time_serving_layers(name: str, L: int, ffn: int, B: int, D: int, device, card: str) -> dict:
@@ -1151,6 +1343,34 @@ def time_int8_layers(name: str, L: int, ffn: int, device, card: str, B: int = 40
     return t
 
 
+def time_int8attn_layers(name: str, L: int, ffn: int, device, card: str, B: int = 4096,
+                         D: int = 128) -> dict:
+    """K7 on one layer at [B, L, D] (H = 8) against its plain version and K1
+    on the same weights, with its bound; no PyTorch call computes an
+    int8-attention layer, so it has no library time."""
+    ops = fel.layer_operands(random_layers(1, ffn, seed=13, device=device, D=D)[0], 8)
+    x = torch.randn((B, L, D), generator=torch.Generator().manual_seed(3)).to(device,
+                                                                             torch.bfloat16)
+    qkv = (fel._mm(x, ops[0]) + ops[1]).to(torch.bfloat16)
+    with torch.no_grad():
+        t = {
+            "k7_ms": cuda_ms(lambda: k7.fused_encoder_layer_int8attn(x, ops, 8), 20),
+            "k7_plain_ms": cuda_ms(lambda: k7.fused_layer_int8attn_reference(x, ops, 8), 5,
+                                   warmup=1),
+            "k7_k1_ms": cuda_ms(lambda: fel.fused_encoder_layer(x, ops, 8), 20),
+            "k7_core_ms": cuda_ms(lambda: k7.attention_int8(qkv, 8), 20),
+        }
+    t["k7"] = layer_bounds(B, L, ffn, D)["k7"]
+    print(f"  {name} int8-attention layer B={B} L={L} F={ffn} D={D}: K7 {t['k7_ms']:.4f} ms vs "
+          f"plain {t['k7_plain_ms']:.4f} ms vs K1 {t['k7_k1_ms']:.4f} ms (K7 bound "
+          f"{t['k7'][0]:.4f} ms by {t['k7'][1]}; library none: no PyTorch call computes an "
+          f"int8-attention layer); its int8 core alone {t['k7_core_ms']:.4f} ms  [{card}]",
+          flush=True)
+    del x, qkv
+    torch.cuda.empty_cache()
+    return t
+
+
 # --------------------------------------------------------------------------
 # bounds: the least time the card could take for a kernel's work
 # --------------------------------------------------------------------------
@@ -1183,7 +1403,9 @@ def layer_bounds(B: int, L: int, F: int, D: int = 128, H: int = 8) -> dict:
     its attention 8 L^2 dh per frame-head (dP, dV, dQ, dK). K6: its GEMMs
     as int8 operations, its attention as bf16 FLOPs; its weights int8 with
     f32 scales, biases and LN parameters. `k6_ffn1` is K6's FFN1 stage
-    alone (bf16 rows in, bf16 hidden out)."""
+    alone (bf16 rows in, bf16 hidden out). K7: K1's GEMMs as bf16 FLOPs, its
+    attention as int8 operations, the scores 2 L^2 dh and P [v | 1] 2 L^2
+    (2 dh) per frame-head (the TPU kernel's [v | ones] is 2 dh wide)."""
     M, dh = B * L, D // H
     act = M * D * 2.0
     attn = 4.0 * B * H * L * L * dh
@@ -1196,6 +1418,8 @@ def layer_bounds(B: int, L: int, F: int, D: int = 128, H: int = 8) -> dict:
         "k6": bound(attn, 2 * act + int8_weights, int8_ops=gemm_flops(M, D, F)),
         "k6_ffn1": bound(0.0, act + M * F * 2.0 + D * F + 2 * F * 4.0,
                          int8_ops=2.0 * M * D * F),
+        "k7": bound(gemm_flops(M, D, F), 2 * act + weight_bytes(D, F),
+                    int8_ops=6.0 * B * H * L * L * dh),
         "k1": bound(fwd, 2 * act + weight_bytes(D, F)),
         "k2": bound(gemm_flops(B, D, F, kv_rows=M) + 4.0 * B * H * L * dh,
                     act + B * D * 2.0 + weight_bytes(D, F)),
@@ -1332,6 +1556,7 @@ def main() -> int:
     errs = check_kernels(device)
     errs.update(check_attention_kernels(device))
     errs["k6"] = check_int8_kernels(device)
+    errs["k7"] = check_int8attn_kernels(device)
 
     print("phase serve: ragged requests through Server, bf16 kernels vs f32 path", flush=True)
     vit = serve_check("vit flagship", flagship_vit_config("tpu"), STATS, device,
@@ -1376,9 +1601,10 @@ def main() -> int:
     conv_train = conv1d_train_check(device)
     train_check("rawiq_best", rawiq_best_config("tpu"), RAW_STATS, K3, device, COSINE_F32)
     train_check("rawiq_best_mp", rawiq_best_mp_config("tpu"), RAW_STATS, K4, device, COSINE_F32)
-    evaluate_check(device)
+    vit_eval = evaluate_check(device)
     evaluate_check(device, "rawiq_best", rawiq_best_config("tpu"), epochs=BEST_EVAL_EPOCHS,
                    lr=BEST_EVAL_LR, gate_accuracy=False)
+    best_cli_train_check(device, card)
 
     print(f"phase timing (CUDA events after warm-up) on {card}:", flush=True)
     times = {name: time_serving_layers(name, L, ffn, B, D, device, card)
@@ -1392,6 +1618,10 @@ def main() -> int:
         times[name].update(time_int8_layers(name, L, ffn, device, card, D=D))
     times["conv1d"]["k1_library_ms"] = time_k1_library("conv1d", CONV1D_L, 1024, device, card,
                                                        batch=256)
+    for name, L, ffn, B, D in (("vit", 129, 512, 4096, 128), ("rawiq", 65, 1024, 4096, 128),
+                               ("conv1d", CONV1D_L, 1024, 256, 128),
+                               ("rawiq_best", 65, 1024, 4096, 256)):
+        times[name].update(time_int8attn_layers(name, L, ffn, device, card, B=B, D=D))
     times["vit"].update(time_train_layers("vit", 129, 512, TRAIN_DROP, device, card, False))
     times["rawiq"].update(time_train_layers("rawiq", 65, 1024, RAW_DROP, device, card, True))
     times["rawiq_best"].update(time_train_layers("rawiq_best", 65, 1024, BEST_DROP, device, card,
@@ -1438,6 +1668,14 @@ def main() -> int:
                  build_serving_fn(best["exp"], best["model"], best["stats"], device), 4096,
                  device, card)
     time_serving("rawiq_best (int8 W8A8: K6 + K2)", best8["serve"], 4096, device, card)
+    os.environ["VITIQ_ATTN_INT8"] = "1"
+    try:
+        for label, res, batch in (("vit flagship", vit, 4096), ("conv1d flagship", conv1d, 2048)):
+            serve = build_serving_fn(res["exp"], res["model"], res["stats"], device)
+            time_serving(label + " (int8 attention, VITIQ_ATTN_INT8=1: K7 + K2)", serve, batch,
+                         device, card)
+    finally:
+        del os.environ["VITIQ_ATTN_INT8"]
 
     counts, k3, k4, k5 = vit["counts"], vit_train["counts"], raw_train["counts"], conv_train["counts"]
     vt, rt, ct = times["vit"], times["rawiq"], times["conv1d"]
@@ -1456,6 +1694,9 @@ def main() -> int:
               vt["k2"], None),
         entry("fused_encoder_layer_int8 (K6, W8A8 full layers)", SOURCE, f"{TPU_SOURCE}:1695",
               vit8["counts"][K6], errs["k6"], vt["k6_ms"], vt["k6_plain_ms"], vt["k6"], None),
+        entry("fused_encoder_layer_int8attn (K7, int8-attention full layers)", SOURCE,
+              f"{TPU_SOURCE}:812", vit_eval["k7_launches"], errs["k7"], vt["k7_ms"],
+              vt["k7_plain_ms"], vt["k7"], None),
         entry("fused_train_layer_fwd (K3-fwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:417",
               k3["fused_train_layer_fwd"], errs["k3f"], vt["k3f_ms"], vt["k3f_plain_ms"],
               vt["k3f"], None),

@@ -20,7 +20,15 @@ The kernels are held at every width they take: K1, K2 and K6 at d_model 64,
 served configurations of the JAX package that need the wider kernels
 (`rawiq_best`, `rawiq_best_mp`, `vit_tiny_2016`, `vit_tpu_production`) are
 served, evaluated in float and int8, and trained for an epoch under `tpu`
-numerics, with the launches of each kernel counted."""
+numerics, with the launches of each kernel counted.
+
+K7 (the int8-attention layer) is held as K6 is, by relative L2 and a max in
+quantization steps (one layer 1e-2 and 2 steps, a stack with the K2 tail
+2e-2 and 4 steps: its core repeats the plain version's roundings, but a
+bf16 flip in q or k from the QKV GEMM can move a level); its core's s32
+score and P [v | 1] products equal the plain version's bit for bit on the
+same quantized operands. `run_training` trains on the card through K3,
+validates through K7 under VITIQ_ATTN_INT8=1, and resumes."""
 
 import math
 
@@ -679,17 +687,19 @@ def _wide_config(name):
 def _all_launches():
     from vitiq_torch.ops.cuda import flash_attention as fa
     from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8attn as k7
     from vitiq_torch.ops.cuda import fused_layer_train as flt
 
-    return {**fel.launches, **k6.launches, **fa.launches, **flt.launches}
+    return {**fel.launches, **k6.launches, **k7.launches, **fa.launches, **flt.launches}
 
 
 def _reset_all():
     from vitiq_torch.ops.cuda import flash_attention as fa
     from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8attn as k7
     from vitiq_torch.ops.cuda import fused_layer_train as flt
 
-    for module in (fel, k6, fa, flt):
+    for module in (fel, k6, k7, fa, flt):
         module.reset_launches()
 
 
@@ -784,3 +794,125 @@ def test_wide_configs_serve_evaluate_and_train_through_the_kernels(cuda, name, t
         assert launched[layer] > 0 and launched["fused_encoder_layer_cls"] == (
             launched[layer] // want["fused_encoder_layer"] if pools else 0), launched
         assert launched["fused_attention_fwd"] == 0
+
+
+K7_LAYER_TOL, K7_STACK_TOL = K6_LAYER_TOL, K6_STACK_TOL
+
+
+def _k7_layers(n, ffn, device, n_head=H, d=D):
+    """Float layers with LayerNorm affine away from (1, 0)."""
+    layers = _layers(n, ffn, device, n_head, d)
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for layer in layers:
+            for norm in (layer.norm1, layer.norm2):
+                norm.gamma.copy_(1.0 + 0.1 * torch.randn(d, generator=gen))
+                norm.beta.copy_(0.1 * torch.randn(d, generator=gen))
+    return layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx,ffn,n_head,batch,d", [
+    _p(129, 512, 8, 256), _p(65, 1024, 8, 256), _p(1025, 1024, 8, 64),  # the flagships
+    _p(65, 1024, 8, 256, d=256),  # rawiq_best
+    _p(129, 512, 4, 37), _p(129, 512, 2, 37), _p(17, 256, 4, 37, d=64), _p(1, 128, 8, 37),
+    _p(848, 256, 2, 4)])  # d_head 32, 64, d_model 64, one token, d_head 64's longest L
+def test_int8attn_layer_matches_plain_version(cuda, Lx, ffn, n_head, batch, d):
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8attn as k7
+
+    layers = _k7_layers(3, ffn, cuda, n_head, d)
+    ops = [fel.layer_operands(layer, n_head) for layer in layers]
+    x = torch.randn((batch, Lx, d), generator=torch.Generator().manual_seed(Lx)).to(
+        cuda, torch.bfloat16)
+    k7.reset_launches()
+    fel.reset_launches()
+    got = k7.fused_encoder_layer_int8attn(x, ops[0], n_head)
+    stack = k7.fused_encoder_layer_int8attn_stack(x, layers, n_head, cls_only=True)
+    torch.cuda.synchronize()
+    assert k7.launches == {"fused_encoder_layer_int8attn": 3, "attention_int8": 0}
+    assert fel.launches == {"fused_encoder_layer": 0, "fused_encoder_layer_cls": 1}
+    _assert_int8_close(got, k7.fused_layer_int8attn_reference(x, ops[0], n_head), K7_LAYER_TOL)
+    want = k7.fused_encoder_layer_int8attn_stack_reference(x, ops, n_head, cls_only=True)
+    assert stack.shape == (batch, 1, d)
+    _assert_int8_close(stack, want, K7_STACK_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx,n_head,d", [(129, 8, D), (65, 8, 256), (1025, 8, D), (200, 2, D),
+                                         (17, 4, 64), (1, 8, D)])
+def test_int8attn_core_products_are_exact(cuda, Lx, n_head, d):
+    """K7's core alone on one qkv: its s32 scores and its s32 P [v | 1] tile
+    products (on its own int8 probabilities) equal the plain version's bit
+    for bit; the probabilities and outputs differ in at most a few elements
+    (an exp2 rounding to the other side of a half)."""
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8attn as k7
+
+    qkv = torch.randn((3, Lx, 3 * d), generator=torch.Generator().manual_seed(4)).to(
+        cuda, torch.bfloat16)
+    out, dump = k7.attention_int8(qkv, n_head, dump=True)
+    torch.cuda.synchronize()
+    plain = k7.attention_int8_products(qkv, n_head, probs=dump["probs"])
+    assert torch.equal(dump["scores"], plain["scores"])
+    assert torch.equal(dump["pv"], plain["pv"])
+    own = k7.attention_int8_products(qkv, n_head)
+    assert (dump["probs"] != own["probs"]).float().mean().item() < 1e-3
+    ref = k7.attention_int8_reference(qkv, n_head)
+    assert (out != ref).float().mean().item() < 1e-2
+    assert torch.equal(out, k7.attention_int8(qkv, n_head))  # the same bits without the dump
+
+
+@pytest.mark.cuda
+def test_int8attn_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8attn as k7
+
+    ops = fel.layer_operands(_layers(1, 256, cuda)[0], H)
+    x = torch.randn((2, 17, D), device=cuda).bfloat16()
+    with pytest.raises(ValueError):
+        k7.fused_encoder_layer_int8attn(x.float(), ops, H)
+    with pytest.raises(ValueError):
+        k7.fused_encoder_layer_int8attn(x, ops, 5)  # d_head 128 / 5
+    with pytest.raises(ValueError):
+        k7.attention_int8(torch.randn((2, 17, 3 * 96), device=cuda).bfloat16(), 6)
+    k7.reset_launches()
+    k7.attention_int8(torch.randn((2, 17, 3 * D), device=cuda).bfloat16(), H)
+    assert k7.launches == {"fused_encoder_layer_int8attn": 0, "attention_int8": 1}
+
+
+@pytest.mark.cuda
+def test_run_training_resumes_on_the_card_through_k3_and_k7(cuda, tmp_path, monkeypatch):
+    """`run_training` of a small rawIQ model (d128/L2/H8, 17 tokens; K3 by
+    VITIQ_TRAIN_STASH=0) for two epochs, then resumed to a third, with
+    VITIQ_ATTN_INT8=1: every step launches K3 twice forward and twice
+    backward, every evaluated batch (validation and test) K7 once and K2
+    once, nothing else; the resumed run's history holds three epochs."""
+    from vitiq_torch.config import DataConfig, ExperimentConfig, ModelConfig, TrainConfig
+    from vitiq_torch.runner import run_training
+
+    monkeypatch.setenv("VITIQ_TRAIN_STASH", "0")
+    monkeypatch.setenv("VITIQ_ATTN_INT8", "1")
+
+    def cfg(epochs):
+        return ExperimentConfig(
+            model=ModelConfig(arm="rawiq", num_classes=3, d_model=128, n_head=8, n_layers=2,
+                              ffn_hidden=256, seq_length=256, segment_size=16, numerics="tpu"),
+            data=DataConfig(synthetic_frames_per_class=64, synthetic_frame_len=256),
+            train=TrainConfig(batch_size=32, num_epochs=epochs, save_freq=1,
+                              learning_rate=1e-3),
+            experiment_name="exp", checkpoint_dir=str(tmp_path), log_dir=str(tmp_path / "logs"))
+
+    steps, valid_b, test_b = 134 // 32, -(-28 // 32), -(-30 // 32)  # 70/15/15% of 192
+    for epochs, resume in ((2, None), (3, "auto")):
+        _reset_all()
+        summary = run_training(cfg(epochs), resume=resume, verbose=False, device=cuda,
+                               make_plots=False)
+        torch.cuda.synchronize()
+        run = epochs - (2 if resume else 0)
+        want = {k: 0 for k in _all_launches()}
+        want.update({"fused_train_layer_fwd": 2 * steps * run,
+                     "fused_train_layer_bwd": 2 * steps * run,
+                     "fused_encoder_layer_int8attn": run * valid_b + test_b,
+                     "fused_encoder_layer_cls": run * valid_b + test_b})
+        assert _all_launches() == want
+    assert summary["epochs_run"] == 3 and len(summary["history"]["val_loss"]) == 3
+    assert all(map(math.isfinite, summary["history"]["val_loss"]))
+    assert 0.0 <= summary["test_overall_accuracy"] <= 1.0

@@ -14,7 +14,17 @@ held to the port's K1/K2 stack here, which closes them as mappings onto K1.
 The stack is held at the widths the kernels take: d_model 64, 128 and 256,
 d_head 16, 32 and 64. `fused_infer_supported` and `fused_train_supported`,
 the shape gates the model dispatches on, are checked on every geometry the
-JAX package serves."""
+JAX package serves.
+
+K7, the layer with an int8 attention core (``VITIQ_ATTN_INT8=1``): its plain
+version against vitiq's `fused_encoder_layer_v3_stack(..., attn_int8=True,
+g_override=1)` in interpret mode (one frame per block, as the port's
+kernel). Where L = Lp (16, 64 tokens) the two quantize the same values and
+differ only where an exp2 of one library rounds a probability to the other
+side of a half: relative L2 within 1e-3 (measured ~1e-7 in f32 on the CPU).
+Where L is padded (17, 129 tokens), vitiq's padded rows enter its k scale
+and tile maxima: both are held to vitiq's own bound against the f32 layers,
+0.15 absolute (`tests/test_fused_layer.py`)."""
 
 import dataclasses
 
@@ -28,10 +38,12 @@ from jax.experimental.pallas import tpu as pltpu
 import vitiq.bench as jbench
 from vitiq.config import ExperimentConfig
 from vitiq.models import layers as L
+from vitiq.ops.numerics import REFERENCE
 from vitiq.ops.pallas.fused_encoder_layer import fused_encoder_layer_v3_stack
 from vitiq_torch.interop import encoder_layer_state_dict
 from vitiq_torch.models.layers import EncoderLayer
 from vitiq_torch.ops.cuda import fused_encoder_layer as fel
+from vitiq_torch.ops.cuda import fused_encoder_layer_int8attn as k7
 from vitiq_torch.ops.cuda import fused_layer_train as flt
 
 D, F, H = 128, 512, 8
@@ -253,3 +265,114 @@ def test_eval_dispatch_turns_unsupported_shapes_to_the_plain_layers(monkeypatch)
     qlogits = quant.QuantizedAMCModel.from_model(model, fused=True)(src)
     assert logits.shape == qlogits.shape == (1, 3)
     assert torch.isfinite(logits).all() and torch.isfinite(qlogits).all()
+
+
+# K7: (B, L, d_model, FFN, n_head, dtype, n_layers, cls_only)
+K7_PADDED_FREE = [
+    pytest.param((2, 16, D, 256, H, "f32", 1, False), id="L16"),
+    pytest.param((2, 64, D, 256, H, "f32", 1, False), id="L64"),
+    pytest.param((2, 64, 256, 512, 8, "f32", 1, False), id="d256-L64"),
+    pytest.param((2, 64, 64, 128, 4, "bf16", 1, False), id="d64-L64-bf16"),
+    pytest.param((2, 64, D, 256, 4, "f32", 2, True), id="stack-K2-tail"),
+]
+
+
+def _k7_case(B, Lx, d, f, n_head, dtype, n_layers, cls_only):
+    trees, port = _layers(list(range(50, 50 + n_layers)), d, f, n_head)
+    x = np.random.default_rng(Lx).standard_normal((B, Lx, d)).astype(np.float32)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32, torch.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(fused_encoder_layer_v3_stack(
+            jnp.asarray(x, jdt), trees, n_head, g_override=1, attn_int8=True,
+            cls_only=cls_only).astype(jnp.float32))
+    got = k7.fused_encoder_layer_int8attn_stack(torch.from_numpy(x).to(tdt), port, n_head,
+                                                cls_only=cls_only).float().numpy()
+    return trees, x, got, want
+
+
+@pytest.mark.parametrize("case", K7_PADDED_FREE)
+def test_k7_plain_version_matches_pallas_where_l_needs_no_padding(case):
+    B, Lx, d, f, n_head, dtype, n_layers, cls_only = case
+    _, _, got, want = _k7_case(*case)
+    assert got.shape == ((B, 1, d) if cls_only else (B, Lx, d))
+    if cls_only:
+        want = want[:, :1]
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-3
+
+
+@pytest.mark.parametrize("Lx", [17, 129])
+def test_k7_plain_version_within_vitiqs_bound_where_l_is_padded(Lx):
+    trees, x, got, want = _k7_case(2, Lx, D, 256, H, "f32", 1, False)
+    ref = np.asarray(L.encoder_layer_apply(trees[0], jnp.asarray(x), H, 0.0, None, False,
+                                           policy=REFERENCE))
+    np.testing.assert_allclose(got, ref, atol=0.15)
+    np.testing.assert_allclose(want, ref, atol=0.15)
+
+
+def test_k7_wrappers_take_plain_version_on_cpu_only():
+    _, (layer,) = _layers([49])
+    ops = fel.layer_operands(layer, H)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal((2, 40, D)).astype(np.float32))
+    x = x.bfloat16()
+    k7.reset_launches()
+    assert torch.equal(k7.fused_encoder_layer_int8attn(x, ops, H),
+                       k7.fused_layer_int8attn_reference(x, ops, H))
+    qkv = (fel._mm(x, ops[0]) + ops[1]).bfloat16()
+    out, products = k7.attention_int8(qkv, H, dump=True)
+    assert torch.equal(out, k7.attention_int8_reference(qkv, H))
+    assert products["scores"].shape == (2, H, 40, 40) and products["scores"].dtype == torch.int32
+    assert products["pv"].shape == (2, H, 1, 40, D // H + 1)
+    # the denominator column is the ones level times the row's probability sum
+    one = k7.quantize_heads(qkv, H)[3].to(torch.int32)
+    assert torch.equal(products["pv"][:, :, 0, :, -1],
+                       products["probs"].int().sum(-1) * one[..., 0])
+    assert k7.launches == {"fused_encoder_layer_int8attn": 0, "attention_int8": 0}
+    meta = torch.empty((1, 5, D), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        k7.fused_encoder_layer_int8attn(meta, ops, H)
+
+
+@pytest.mark.parametrize("d_head", [16, 32, 64])
+def test_k7_takes_every_length_k1_takes(d_head):
+    """K7 shares K1's gate: its attention block fits shared memory at every
+    L that `fused_infer_supported` admits."""
+    n_head = 128 // d_head
+    longest = max(Lx for Lx in range(1, 4096) if fel.fused_infer_supported(Lx, 128, 512, n_head))
+    assert k7.attention_int8_smem_bytes(longest, d_head) < fel.attention_smem_bytes(longest,
+                                                                                    d_head)
+    assert k7.attention_int8_smem_bytes(longest, d_head) <= fel.MAX_SHARED_MEMORY
+
+
+def test_eval_dispatch_takes_k7_under_vitiq_attn_int8(monkeypatch):
+    """`Encoder.forward` in eval under `tpu` numerics: VITIQ_ATTN_INT8=1 runs
+    the K7 stack (its plain version on the CPU, K2 on the CLS row), unset it
+    runs K1's, and VITIQ_NO_FUSED_LAYER=1 runs neither."""
+    from vitiq_torch.config import ModelConfig
+    from vitiq_torch.models import AMCModel, encoder
+
+    calls = []
+    for name in ("fused_encoder_layer_stack", "fused_encoder_layer_int8attn_stack"):
+        real = getattr(encoder, name)
+        monkeypatch.setattr(encoder, name, lambda *a, _n=name, _r=real, **k:
+                            calls.append(_n) or _r(*a, **k))
+    cfg = ModelConfig(arm="vit", num_classes=5, d_model=64, n_head=4, n_layers=2,
+                      ffn_hidden=128, img_size_h=16, img_size_w=16, numerics="tpu")
+    model = AMCModel(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    src = torch.from_numpy(
+        np.random.default_rng(6).standard_normal((3, 1, 16, 16)).astype(np.float32))
+    with torch.no_grad():
+        monkeypatch.setenv("VITIQ_ATTN_INT8", "1")
+        logits = model(src)
+        x = model.encoder.embed(src, model.policy).bfloat16()
+        ops = [fel.layer_operands(layer, 4) for layer in model.encoder.layers]
+        want = k7.fused_encoder_layer_int8attn_stack_reference(x, ops, 4, cls_only=True)
+        assert torch.equal(model.encoder(src, model.policy, model.attention_fn,
+                                         cls_only_fused=True), want)
+        monkeypatch.delenv("VITIQ_ATTN_INT8")
+        float_logits = model(src)
+        monkeypatch.setenv("VITIQ_NO_FUSED_LAYER", "1")
+        monkeypatch.setenv("VITIQ_ATTN_INT8", "1")
+        model(src)
+    assert calls == ["fused_encoder_layer_int8attn_stack"] * 2 + ["fused_encoder_layer_stack"]
+    assert logits.shape == (3, 5) and torch.isfinite(logits).all()
+    assert not torch.equal(logits, float_logits)

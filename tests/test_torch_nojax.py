@@ -6,8 +6,10 @@ rawIQ model on raw frames through `build_forward_and_preprocess` (the fused
 raw embedding and the stash regime), and a conv1d model through the plain
 layers with K5 as their attention; then it evaluates a saved experiment
 (`run_evaluation`, float and int8, plots off) with scikit-learn, matplotlib,
-seaborn and h5py blocked too, as the card's machine lacks them. The port's sources, and `chip_smoke.py`,
-import neither."""
+seaborn and h5py blocked too, as the card's machine lacks them, and trains an
+experiment with ``cli train`` and resumes it, its evaluation passes through
+K7's plain version (``VITIQ_ATTN_INT8=1``). The port's sources, and
+`chip_smoke.py`, import neither."""
 
 import re
 import subprocess
@@ -121,6 +123,27 @@ with tempfile.TemporaryDirectory() as exp:
         prefix = "test_int8" if int8 else "test"
         assert (exp / "evaluation" / f"{prefix}_classification_report.txt").exists()
         assert (exp / "evaluation" / f"{prefix}_results.pkl").exists()
+# train an experiment with `cli train` (plots off), then resume it; under
+# VITIQ_ATTN_INT8=1 its evaluation passes run K7's plain version
+import os
+from vitiq_torch import cli
+from vitiq_torch.ops.cuda import fused_encoder_layer_int8attn
+k7_calls = []
+real_k7 = fused_encoder_layer_int8attn.fused_encoder_layer_int8attn
+fused_encoder_layer_int8attn.fused_encoder_layer_int8attn = (
+    lambda *a: k7_calls.append(1) or real_k7(*a))
+os.environ["VITIQ_ATTN_INT8"] = "1"
+with tempfile.TemporaryDirectory() as tmp:
+    run_cfg = ExperimentConfig(model=eval_cfg.model, data=eval_cfg.data,
+                               train=TrainConfig(batch_size=16, num_epochs=1, save_freq=1),
+                               experiment_name="run", checkpoint_dir=tmp, log_dir=tmp + "/logs")
+    run_cfg.to_json(tmp + "/run.json")
+    for argv in (["--num_epochs", "1"], ["--num_epochs", "2", "--resume", "auto"]):
+        assert cli.main(["train", "--config", tmp + "/run.json", "--device", "cpu",
+                         "--no_plots", *argv]) == 0
+    assert json.loads(Path(tmp, "run", "summary.json").read_text())["epochs_run"] == 2
+del os.environ["VITIQ_ATTN_INT8"]
+assert len(k7_calls) == 4, k7_calls  # 1 full layer, 1 batch: each run validates, tests
 leaked = sorted(m for m in sys.modules if m.startswith(("jax", "vitiq."))
                 and sys.modules[m] is not None)
 assert not leaked, leaked

@@ -36,7 +36,14 @@ rematerialized above 512 tokens); the evaluation of a saved experiment
 corpus and its stats, `vitiq`'s parameter files, the confusion artifacts and
 the byte-compatible report), in float and through int8 W8A8 serving
 (`ops/quant.py`) with the CUDA port of the int8 fused layer (K6, in
-`csrc/fused_encoder_layer.cu`).
+`csrc/fused_encoder_layer.cu`); the training runner (`runner.run_training`,
+`python -m vitiq_torch.cli train`: config.json, rolling and periodic
+checkpoints, the interrupt rescue, ``resume="auto"``, the test evaluation
+and summary.json) with full TrainState checkpoints in `vitiq`'s leaf layout
+(`train/checkpoint.py`, AdamW's moments included), which either package
+resumes; and the CUDA port of the int8-attention layer (K7, in
+`csrc/fused_encoder_layer.cu`), which every float evaluation pass runs under
+``VITIQ_ATTN_INT8=1``.
 """
 
 from vitiq_torch.config import (  # noqa: F401

@@ -1,19 +1,187 @@
-"""Command-line interface (counterpart of `vitiq/cli.py`): ``evaluate`` so
-far, with the JAX package's argument names and printed lines.
+"""Command-line interface (counterpart of `vitiq/cli.py`): ``train`` and
+``evaluate``, with the JAX package's argument names, presets, overrides and
+printed lines.
 
+    python -m vitiq_torch.cli train [--preset NAME | --config PATH | --arm vit|rawiq]
+        [--source synthetic] [--num_epochs N] [--numerics tpu] [...overrides]
+        [--resume PATH|auto] [--device cuda] [--no_plots]
     python -m vitiq_torch.cli evaluate --checkpoint DIR [--dataset test]
         [--batch_size N] [--config PATH] [--int8] [--device cuda] [--no_plots]
 
 ``--device`` (default ``cuda``) picks where the model runs; ``--device cpu``
 runs on the host. ``--no_plots`` skips the plots, which need matplotlib and
-seaborn. The other subcommands (train, compare, bench, ...) and
-``--torch-checkpoint`` are not ported yet.
+seaborn. A configuration the port cannot run yet raises instead of being
+dropped: the HDF5 source (``--source hdf5``, and the presets that default to
+it unless ``--source synthetic`` is given), ``--sps`` above 1, features
+other than ``iq``, ``--data_parallel`` / ``--model_parallel`` above 1 and
+``--profile_steps``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
+
+from vitiq_torch.config import ExperimentConfig, _apply_overrides
+
+PRESETS = ("vit_reference", "vit_tpu_production", "vit_synthetic19",
+           "rawiq_synthetic19", "vit_tiny_2016", "rawiq_reference",
+           "rawiq_best")
+
+
+def _add_train_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--arm", choices=["vit", "rawiq"], default=None)
+    p.add_argument("--config", type=str, help="Path to experiment config JSON")
+    p.add_argument("--preset", choices=PRESETS,
+                   help="start from a named ExperimentConfig preset (e.g. rawiq_best = the "
+                        "reference's best published checkpoint config); individual flags "
+                        "still override")
+    # data
+    p.add_argument("--source", choices=["synthetic", "hdf5"], default=None)
+    p.add_argument("--features", choices=["iq", "amp_phase", "spectrogram"], default=None,
+                   help="input features (the port runs iq)")
+    p.add_argument("--file_path", type=str, help="Path to HDF5 data file")
+    p.add_argument("--json_path", type=str, help="Path to classes JSON file")
+    p.add_argument("--sps", type=int, default=None,
+                   help="samples per symbol: 1 = RadioML bypass (the port runs 1)")
+    p.add_argument("--timing_method",
+                   choices=["simple_energy", "simple_correlation", "gardner", "mueller_muller"],
+                   default=None, help="timing recovery for --sps >= 2")
+    p.add_argument("--timing_hybrid_window", type=int, default=None,
+                   help="gardner/mueller_muller: hybrid tracking-window length")
+    p.add_argument("--streaming", action="store_true", default=None,
+                   help="stream splits from the HDF5 file")
+    p.add_argument("--stream_window_rows", type=int,
+                   help="shuffle-window size (rows) for --streaming")
+    p.add_argument("--profile_steps", action="store_true", default=None,
+                   help="record per-step wall times (not ported yet)")
+    # training
+    p.add_argument("--batch_size", type=int)
+    p.add_argument("--num_epochs", type=int)
+    p.add_argument("--learning_rate", type=float)
+    p.add_argument("--weight_decay", type=float)
+    p.add_argument("--grad_clip_max_norm", type=float)
+    p.add_argument("--data_parallel", type=int)
+    p.add_argument("--model_parallel", type=int)
+    # model
+    p.add_argument("--d_model", type=int)
+    p.add_argument("--n_head", type=int)
+    p.add_argument("--n_layers", type=int)
+    p.add_argument("--ffn_hidden", type=int)
+    p.add_argument("--drop_prob", type=float)
+    p.add_argument("--patch_size", type=int)
+    p.add_argument("--segment_size", type=int)
+    p.add_argument("--seq_length", type=int,
+                   help="rawiq arm: token-stream length the model consumes (= frame_len / sps)")
+    p.add_argument("--frame_len", type=int, help="synthetic source: samples per generated frame")
+    p.add_argument("--frames_per_class", type=int,
+                   help="synthetic source: frames generated per class")
+    p.add_argument("--shaping_sps", type=int,
+                   help="synthetic source: RRC-shape constellation frames at this oversampling")
+    p.add_argument("--embedding_type", choices=["conv1d", "segment"])
+    p.add_argument("--pooling", choices=["cls", "mean"],
+                   help="rawiq arm readout: the CLS token or the mean over tokens")
+    p.add_argument("--numerics", choices=["reference", "tpu"])
+    # other
+    p.add_argument("--resume", type=str,
+                   help="Checkpoint to resume from, or 'auto' for the newest in the experiment "
+                        "directory")
+    p.add_argument("--experiment_name", type=str)
+    p.add_argument("--no_validate_config", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="Device to train on (default cuda; cpu runs on the host)")
+    p.add_argument("--no_plots", action="store_true",
+                   help="Skip the plots (they need matplotlib and seaborn)")
+
+
+def _unsupported(cfg: ExperimentConfig) -> list:
+    """What of `cfg` the port cannot run yet."""
+    out = []
+    if cfg.data.source != "synthetic":
+        out.append(f"data.source={cfg.data.source!r} (the HDF5 source needs h5py; pass "
+                   "--source synthetic)")
+    if cfg.data.sps != 1:
+        out.append(f"data.sps={cfg.data.sps} (the SPS front-end)")
+    if cfg.data.features != "iq":
+        out.append(f"data.features={cfg.data.features!r} (only iq)")
+    if cfg.train.data_parallel > 1 or cfg.train.model_parallel > 1:
+        out.append(f"data_parallel={cfg.train.data_parallel}, model_parallel="
+                   f"{cfg.train.model_parallel} (one device only)")
+    if cfg.train.profile_steps:
+        out.append("profile_steps (per-step profiling)")
+    return out
+
+
+def _config_from_args(args) -> ExperimentConfig:
+    if args.config:
+        cfg = ExperimentConfig.from_json(args.config)
+    elif getattr(args, "preset", None):
+        cfg = getattr(ExperimentConfig, args.preset)()
+    elif args.arm == "rawiq":
+        cfg = ExperimentConfig.rawiq_reference()
+    else:
+        cfg = ExperimentConfig.vit_reference()
+    if args.arm and args.arm != cfg.model.arm:
+        cfg.model.arm = args.arm
+        cfg.model.in_channels = 0
+        cfg.model.__post_init__()  # re-derive in_channels for the arm
+    overrides = {
+        "data.source": args.source,
+        "data.features": args.features,
+        "data.file_path": args.file_path,
+        "data.json_path": args.json_path,
+        "data.streaming": args.streaming,
+        "data.stream_window_rows": args.stream_window_rows,
+        "data.sps": args.sps,
+        "data.timing_method": args.timing_method,
+        "data.timing_hybrid_window": args.timing_hybrid_window,
+        "train.profile_steps": args.profile_steps,
+        "train.batch_size": args.batch_size,
+        "train.num_epochs": args.num_epochs,
+        "train.learning_rate": args.learning_rate,
+        "train.weight_decay": args.weight_decay,
+        "train.grad_clip_max_norm": args.grad_clip_max_norm,
+        "train.data_parallel": args.data_parallel,
+        "train.model_parallel": args.model_parallel,
+        "model.d_model": args.d_model,
+        "model.n_head": args.n_head,
+        "model.n_layers": args.n_layers,
+        "model.ffn_hidden": args.ffn_hidden,
+        "model.drop_prob": args.drop_prob,
+        "model.patch_size": args.patch_size,
+        "model.segment_size": args.segment_size,
+        "model.seq_length": args.seq_length,
+        "data.synthetic_frame_len": args.frame_len,
+        "data.synthetic_frames_per_class": args.frames_per_class,
+        "data.synthetic_shaping_sps": args.shaping_sps,
+        "model.embedding_type": args.embedding_type,
+        "model.use_cls_token": None if args.pooling is None else args.pooling == "cls",
+        "model.numerics": args.numerics,
+        "experiment_name": args.experiment_name,
+    }
+    cfg = _apply_overrides(cfg, overrides)
+    if cfg.data.source == "synthetic":
+        # synthetic class count drives the head size
+        cfg.model.num_classes = len(cfg.data.synthetic_classes)
+    unsupported = _unsupported(cfg)
+    if unsupported:
+        raise NotImplementedError("the port cannot run this configuration yet: "
+                                  + "; ".join(unsupported))
+    if not args.no_validate_config:
+        cfg.validate(check_paths=cfg.data.source == "hdf5")
+    return cfg
+
+
+def cmd_train(args) -> int:
+    from vitiq_torch.runner import run_training
+
+    cfg = _config_from_args(args)
+    summary = run_training(cfg, resume=args.resume, device=args.device,
+                           make_plots=not args.no_plots)
+    print(json.dumps({k: v for k, v in summary.items() if k != "history"}, indent=2,
+                     default=float))
+    return 0
 
 
 def cmd_evaluate(args) -> int:
@@ -32,6 +200,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="vitiq_torch", description="PyTorch/CUDA port of vitiq (ViT vs raw-IQ AMC)")
     sub = parser.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("train", help="Train an AMC transformer")
+    _add_train_args(p)
+    p.set_defaults(fn=cmd_train)
+
     p = sub.add_parser("evaluate", help="Evaluate a trained experiment")
     p.add_argument("--checkpoint", required=True,
                    help="Experiment directory (containing config.json + model_best)")

@@ -11,6 +11,9 @@
 //          stack; its CLS tail is K2 on dequantized weights), and the v1
 //          twin fused_encoder_layer_int8 -> _fused_layer_kernel_int8
 //          (VITIQ_FUSED_VERSION=v1, mapped below)
+//   K7  vitiq/ops/pallas/fused_encoder_layer.py: fused_encoder_layer_v3_stack
+//       with attn_int8=True (VITIQ_ATTN_INT8=1) -> _fused_layer_kernel_v3_attn_int8
+//       (every full layer; its CLS tail is K2, bf16)
 //
 // Function, per layer, on a bf16 [B, L, D] activation (D = 64, 128 or 256,
 // d_head = D / H = 16, 32 or 64; shapes_ok says which shapes the kernels take,
@@ -124,6 +127,31 @@
 //   of the bf16-rounded q instead of folded into q's dequant scales and
 //   bias, exp2 with no row max, and denominators over the f32 (unrounded)
 //   probabilities; one layer per call.
+//
+// K7 (vitiq_encoder_layer_attn_int8_full) is K1 with its attention stage
+// replaced by attention_int8_kernel, an int8 core (its formulas are at
+// the kernel): q levels per row, k and [v | 1] levels per frame-head, scores
+// and P [v | 1] as s8 x s8 -> s32 mma.sync.m16n8k32 products, probabilities
+// rint(exp2(s - tile max) * 127) in 128-key tiles merged on a running max in
+// f32, one f32 divide per output. The ones column of [v | 1] shares v's scale
+// (so av >= 1); its s32 product is rint(127 / av) times the row's sum of
+// int8 probabilities, the same integer the TPU kernel's ones-column product
+// gives. k and [v | 1] are quantized into shared memory once per block, v
+// transposed (ldmatrix transposes only 16-bit elements), its keys permuted
+// in 32s so that the s32 score fragments repack into P's s8 A fragment in
+// registers.
+// The TPU kernel's block of G frames (VITIQ_V3_G, _pick_batch_block_v3) ->
+// one frame per block: ak and av are per frame-head, which is the TPU
+// kernel at G = 1 (its parity test pins g_override=1). Its Lp padding to 16
+// rows -> none: the TPU kernel's padded rows carry nonzero k (at least the
+// k bias), which enters its ak and each tile's row max; here keys stop at L,
+// so at L != Lp the two differ by quantization noise and match closely where
+// L = Lp. What bounds K7: its four bf16 GEMM stages are K1's (the bound
+// counts their FLOPs at 989 TFLOP/s plus the s8 score and P [v | 1] products,
+// 2 L^2 dh + 4 L^2 dh operations a frame-head, at 1979 TOP/s); the int8
+// core holds half K1's bytes of k and v per key in shared memory, so it
+// takes every shape K1 takes. A simple first port: two passes over each
+// tile (the row max, then the probabilities), the scores recomputed.
 
 #include <mma.h>
 
@@ -729,6 +757,324 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) attention_kernel(
   }
 }
 
+// ---- K7: the int8 attention core ------------------------------------------
+// Shared memory of attention_int8_kernel at L tokens: the head's int8 k rows
+// [key][DH + 16] and [v | 1]'s v part transposed [dim][round32(L) + 16],
+// keys rounded up to the 32 of an s8 k-step (the pads keep the eight rows a
+// fragment load touches on distinct banks).
+template <int DH>
+__host__ __device__ constexpr int k8_ld() { return DH + 16; }
+__host__ __device__ __forceinline__ int round32(int n) { return (n + 31) & ~31; }
+__host__ __device__ __forceinline__ int v8_ld(int L) { return round32(L) + 16; }
+
+template <int DH>
+__host__ __device__ __forceinline__ size_t attention_int8_smem_bytes(int L) {
+  return (size_t)round32(L) * k8_ld<DH>() + (size_t)DH * v8_ld(L);
+}
+
+constexpr int K7_TILE = 128;               // keys per tile, as the TPU kernel's
+constexpr float K7_SCALE_FLOOR = 1e-8f;    // aq, ak floor
+constexpr float K7_DEQ = 127.0f * 127.0f;  // scores = s32 * aq * (ak / 127^2)
+
+// round(v * m) as an int8 level (|v * m| <= 127 by construction: m = 127 /
+// absmax of the values v comes from)
+__device__ __forceinline__ int level(float v, float m) { return __float2int_rn(__fmul_rn(v, m)); }
+
+// The column of key j in the transposed v: within each 32 keys, key
+// 16h + 8a + 2t + e sits at 16h + 4t + 2a + e, so that the probabilities a
+// thread holds in the s32 score fragments (keys 2t, 2t+1 of each 8) form the
+// s8 A fragment of the P V product as they are (k = 4t.. | 16 + 4t..).
+__device__ __forceinline__ int v8_col(int j) {
+  const int r = j & 31;
+  return (j & ~31) + (r & 16) + ((r >> 1) & 3) * 4 + ((r >> 3) & 1) * 2 + (r & 1);
+}
+
+// s32 scores of the warp's 16 query rows (qa: their int8 levels, DH / 32
+// k-steps; DH = 16 pads the k-step with zeros) against keys [j0, j0 + 32):
+// four 16 x 8 blocks, dequantized to f32 (float(s) * deq of the row) and -inf
+// past L; `raw` keeps the integer sums.
+template <int DH>
+__device__ __forceinline__ void score_block_int8(float sc[4][4], int raw[4][4],
+                                                 const uint32_t qa[][4], const int8_t* ks,
+                                                 int j0, int L, float deq_lo, float deq_hi,
+                                                 int g, int t) {
+  constexpr int KC = DH < 32 ? 1 : DH / 32;
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb) {
+    int c[4] = {0, 0, 0, 0};
+    const int8_t* krow = ks + (j0 + nb * 8 + g) * k8_ld<DH>() + 4 * t;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kc * 32);
+      const uint32_t b1 = DH < 32 ? 0u : *reinterpret_cast<const uint32_t*>(krow + kc * 32 + 16);
+      mma_s8_16832(c, qa[kc], b0, b1);
+    }
+    const int key = j0 + nb * 8 + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      raw[nb][i] = c[i];
+      sc[nb][i] = (key + (i & 1) < L) ? __fmul_rn(static_cast<float>(c[i]), i < 2 ? deq_lo : deq_hi)
+                                      : -INFINITY;
+    }
+  }
+}
+
+__device__ __forceinline__ int quad_sum_int(int v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// One block per (frame b, head h), K7's attention core on qkv [B, L, 3D]
+// (q pre-scaled by log2(e)/sqrt(dh)), all L query rows, out [B, L, D]:
+//   aq_i = max(max_d |q_id|, 1e-8)            per query row
+//   ak   = max(max_jd |k_jd|, 1e-8)           per frame-head
+//   av   = max(max_jd |v_jd|, 1)              per frame-head: [v | 1]'s scale,
+//                                             the ones column in v's scale
+//   qq = rint(q * (127 / aq)), kq = rint(k * (127 / ak)), vq = rint(v * (127 / av)),
+//   one = rint(127 / av)
+//   per 128-key tile: s = float(qq . kq) * (aq * (ak / 127^2)), m = tile row max,
+//     p = rint(exp2(s - m) * 127) (int8), part = [p . vq | one * sum p] (s32)
+//   tiles merged in f32: acc = acc * exp2(acc_m - new_m) + part * exp2(m - new_m)
+//   out = bf16(acc[:dh] / acc[dh])
+// Every rounding is the one the plain version (and the TPU kernel) takes:
+// IEEE quotients, products and sums (__fdiv_rn, __fmul_rn, __fadd_rn: no
+// contraction into FMAs), round half to even, so on the same qkv the s32
+// products are the plain version's bit for bit.
+// The block quantizes k into shared memory [key][dim] (the B operand of
+// Q K^T) and v transposed [dim][key'] (keys permuted in 32s, v8_col) for
+// P V; each warp takes 16 query rows at a time, quantizes them in registers
+// (a quad holds a row), and makes two passes over each tile's keys in 32s
+// on the s8 tensor cores (mma.sync.m16n8k32): the row max, then the
+// probabilities, whose s32 score fragments are repacked as P's A fragment
+// in registers. With DUMP, the s32 scores, the int8 probabilities and each
+// tile's s32 [P V | den] go to device memory for the check against the
+// plain version: s_dump [B, H, L, L], p_dump [B, H, L, L], pv_dump
+// [B, H, ceil(L / 128), L, DH + 1].
+template <int DH, bool DUMP>
+__global__ void __launch_bounds__(ATTN_WARPS * 32) attention_int8_kernel(
+    const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, int D,
+    int* __restrict__ s_dump, int8_t* __restrict__ p_dump, int* __restrict__ pv_dump) {
+  static_assert(DH % 16 == 0, "head width must be a multiple of 16");
+  constexpr int KC = DH < 32 ? 1 : DH / 32, KLD = k8_ld<DH>(), CH = DH / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[2][ATTN_WARPS];
+  const int lp = round32(L), vld = v8_ld(L);
+  int8_t* ks = reinterpret_cast<int8_t*>(smem);  // [lp][KLD]
+  int8_t* vt = ks + (size_t)lp * KLD;            // [DH][vld]
+
+  const int b = blockIdx.x, h = blockIdx.y, H = gridDim.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row3 = 3LL * D;
+  const bf16* base = qkv + (long long)b * L * row3 + (long long)h * DH;
+
+  // the frame-head's k and v absmax
+  float ka = 0.f, va = 0.f;
+  for (int i = threadIdx.x; i < L * CH; i += blockDim.x) {
+    const int j = i / CH, c = (i % CH) * 8;
+    ka = absmax8(*reinterpret_cast<const uint4*>(base + j * row3 + D + c), ka);
+    va = absmax8(*reinterpret_cast<const uint4*>(base + j * row3 + 2 * D + c), va);
+  }
+  ka = warp_max(ka);
+  va = warp_max(va);
+  if (lane == 0) {
+    red[0][warp] = ka;
+    red[1][warp] = va;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < ATTN_WARPS; ++w) {
+    ka = fmaxf(ka, red[0][w]);
+    va = fmaxf(va, red[1][w]);
+  }
+  const float ak = fmaxf(ka, K7_SCALE_FLOOR), av = fmaxf(va, 1.0f);
+  const float kmul = __fdiv_rn(127.f, ak), vmul = __fdiv_rn(127.f, av);
+  const int one = __float2int_rn(vmul);
+  const float ak_deq = __fdiv_rn(ak, K7_DEQ);
+
+  // quantized k [key][dim] and v^T [dim][key'] in shared memory, zero past L
+  for (int i = threadIdx.x; i < lp * CH; i += blockDim.x) {
+    const int j = i / CH, c = (i % CH) * 8;
+    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+    if (j < L) {
+      kv = *reinterpret_cast<const uint4*>(base + j * row3 + D + c);
+      vv = *reinterpret_cast<const uint4*>(base + j * row3 + 2 * D + c);
+    }
+    const bf16* k8 = reinterpret_cast<const bf16*>(&kv);
+    const bf16* v8 = reinterpret_cast<const bf16*>(&vv);
+    uint32_t lo = 0u, hi = 0u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      lo |= (static_cast<uint32_t>(level(__bfloat162float(k8[e]), kmul)) & 0xffu) << (8 * e);
+      hi |= (static_cast<uint32_t>(level(__bfloat162float(k8[e + 4]), kmul)) & 0xffu) << (8 * e);
+    }
+    *reinterpret_cast<uint2*>(ks + j * KLD + c) = make_uint2(lo, hi);
+    const int col = v8_col(j);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      vt[(c + e) * vld + col] = static_cast<int8_t>(level(__bfloat162float(v8[e]), vmul));
+  }
+  __syncthreads();
+
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (L + K7_TILE - 1) / K7_TILE;
+  for (int r0 = warp * 16; r0 < L; r0 += ATTN_WARPS * 16) {
+    const int r_lo = r0 + g, r_hi = r0 + g + 8;
+    // this thread's q values: rows r_lo / r_hi, dims 32kc + 4t.. and 32kc + 16 + 4t..
+    float qf[KC][4][4];
+    float amax_lo = 0.f, amax_hi = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int r = (a & 1) ? r_hi : r_lo, d0 = kc * 32 + (a >> 1) * 16 + 4 * t;
+        uint2 raw = make_uint2(0u, 0u);
+        if (r < L && d0 < DH) raw = *reinterpret_cast<const uint2*>(base + r * row3 + d0);
+        const bf16* q4 = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qf[kc][a][e] = __bfloat162float(q4[e]);
+          if (a & 1)
+            amax_hi = fmaxf(amax_hi, fabsf(qf[kc][a][e]));
+          else
+            amax_lo = fmaxf(amax_lo, fabsf(qf[kc][a][e]));
+        }
+      }
+    const float aq_lo = fmaxf(quad_max(amax_lo), K7_SCALE_FLOOR);
+    const float aq_hi = fmaxf(quad_max(amax_hi), K7_SCALE_FLOOR);
+    const float qmul_lo = __fdiv_rn(127.f, aq_lo), qmul_hi = __fdiv_rn(127.f, aq_hi);
+    const float deq_lo = __fmul_rn(aq_lo, ak_deq), deq_hi = __fmul_rn(aq_hi, ak_deq);
+    uint32_t qa[KC][4];
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        uint32_t packed = 0u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          packed |= (static_cast<uint32_t>(level(qf[kc][a][e], (a & 1) ? qmul_hi : qmul_lo)) &
+                     0xffu) << (8 * e);
+        qa[kc][a] = packed;
+      }
+
+    float acc[DH / 8][4], den_lo = 0.f, den_hi = 0.f;
+    float m_lo = -INFINITY, m_hi = -INFINITY;
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int c0 = tile * K7_TILE, c1 = min(c0 + K7_TILE, L);
+      float sc[4][4];
+      int raw[4][4];
+      // pass 1: the tile's row max
+      float tm_lo = -INFINITY, tm_hi = -INFINITY;
+      for (int j0 = c0; j0 < c1; j0 += 32) {
+        score_block_int8<DH>(sc, raw, qa, ks, j0, L, deq_lo, deq_hi, g, t);
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+          tm_lo = fmaxf(tm_lo, fmaxf(sc[nb][0], sc[nb][1]));
+          tm_hi = fmaxf(tm_hi, fmaxf(sc[nb][2], sc[nb][3]));
+        }
+      }
+      tm_lo = quad_max(tm_lo);
+      tm_hi = quad_max(tm_hi);
+      // pass 2: int8 probabilities and the s32 P [v | 1]
+      int part[DH / 8][4] = {};
+      int psum_lo = 0, psum_hi = 0;
+      for (int j0 = c0; j0 < c1; j0 += 32) {
+        score_block_int8<DH>(sc, raw, qa, ks, j0, L, deq_lo, deq_hi, g, t);
+        int p[4][4];
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            p[nb][i] = __float2int_rn(
+                __fmul_rn(exp2f(__fsub_rn(sc[nb][i], i < 2 ? tm_lo : tm_hi)), 127.f));
+            if (i < 2)
+              psum_lo += p[nb][i];
+            else
+              psum_hi += p[nb][i];
+          }
+        // A fragment: [row g | g+8][k' = 4t.. | 16 + 4t..] = keys 2t, 2t+1, 8+2t, 9+2t
+        // of the first / second 16
+        uint32_t pa[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int nb = (a >> 1) * 2, i = (a & 1) * 2;
+          pa[a] = (uint32_t)p[nb][i] | ((uint32_t)p[nb][i + 1] << 8) |
+                  ((uint32_t)p[nb + 1][i] << 16) | ((uint32_t)p[nb + 1][i + 1] << 24);
+        }
+#pragma unroll
+        for (int nd = 0; nd < DH / 8; ++nd) {
+          const int8_t* vrow = vt + (nd * 8 + g) * vld + j0 + 4 * t;
+          mma_s8_16832(part[nd], pa, *reinterpret_cast<const uint32_t*>(vrow),
+                       *reinterpret_cast<const uint32_t*>(vrow + 16));
+        }
+        if constexpr (DUMP) {
+          const long long head = (long long)b * H + h;
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int r = i < 2 ? r_lo : r_hi, key = j0 + nb * 8 + 2 * t + (i & 1);
+              if (r < L && key < L) {
+                s_dump[(head * L + r) * L + key] = raw[nb][i];
+                p_dump[(head * L + r) * L + key] = static_cast<int8_t>(p[nb][i]);
+              }
+            }
+        }
+      }
+      const int den_int_lo = one * quad_sum_int(psum_lo), den_int_hi = one * quad_sum_int(psum_hi);
+      if constexpr (DUMP) {
+        int* pv = pv_dump + (((long long)b * H + h) * n_tiles + tile) * L * (DH + 1);
+#pragma unroll
+        for (int nd = 0; nd < DH / 8; ++nd)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = i < 2 ? r_lo : r_hi;
+            if (r < L) pv[r * (DH + 1) + nd * 8 + 2 * t + (i & 1)] = part[nd][i];
+          }
+        if (t == 0) {
+          if (r_lo < L) pv[r_lo * (DH + 1) + DH] = den_int_lo;
+          if (r_hi < L) pv[r_hi * (DH + 1) + DH] = den_int_hi;
+        }
+      }
+      // merge the tile onto the running max
+      if (tile == 0) {
+#pragma unroll
+        for (int nd = 0; nd < DH / 8; ++nd)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[nd][i] = static_cast<float>(part[nd][i]);
+        den_lo = static_cast<float>(den_int_lo);
+        den_hi = static_cast<float>(den_int_hi);
+        m_lo = tm_lo;
+        m_hi = tm_hi;
+      } else {
+        const float new_lo = fmaxf(m_lo, tm_lo), new_hi = fmaxf(m_hi, tm_hi);
+        const float old_lo = exp2f(__fsub_rn(m_lo, new_lo)), cur_lo = exp2f(__fsub_rn(tm_lo, new_lo));
+        const float old_hi = exp2f(__fsub_rn(m_hi, new_hi)), cur_hi = exp2f(__fsub_rn(tm_hi, new_hi));
+#pragma unroll
+        for (int nd = 0; nd < DH / 8; ++nd)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[nd][i] = __fadd_rn(__fmul_rn(acc[nd][i], i < 2 ? old_lo : old_hi),
+                                   __fmul_rn(static_cast<float>(part[nd][i]), i < 2 ? cur_lo : cur_hi));
+        den_lo = __fadd_rn(__fmul_rn(den_lo, old_lo), __fmul_rn(static_cast<float>(den_int_lo), cur_lo));
+        den_hi = __fadd_rn(__fmul_rn(den_hi, old_hi), __fmul_rn(static_cast<float>(den_int_hi), cur_hi));
+        m_lo = new_lo;
+        m_hi = new_hi;
+      }
+    }
+
+    bf16* o_base = out + (long long)b * L * D + h * DH + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd) {
+      if (r_lo < L)
+        *reinterpret_cast<uint32_t*>(o_base + (long long)r_lo * D + nd * 8) =
+            pack_bf16x2(__fdiv_rn(acc[nd][0], den_lo), __fdiv_rn(acc[nd][1], den_lo));
+      if (r_hi < L)
+        *reinterpret_cast<uint32_t*>(o_base + (long long)r_hi * D + nd * 8) =
+            pack_bf16x2(__fdiv_rn(acc[nd][2], den_hi), __fdiv_rn(acc[nd][3], den_hi));
+    }
+  }
+}
+
 // The dynamic shared memory a GEMM stage launches with: its tiles live in
 // static shared memory up to 48 KB (the D <= 128 stages), else dynamically.
 constexpr int dynamic_smem(int bytes) { return bytes <= STATIC_SMEM ? 0 : bytes; }
@@ -823,6 +1169,48 @@ size_t attention_smem(int dh, int L) {
   return ~size_t(0);
 }
 
+template <int DH, bool DUMP>
+cudaError_t launch_attention_int8(const bf16* qkv, bf16* out, int B, int L, int D, int H,
+                                  int* s_dump, int8_t* p_dump, int* pv_dump,
+                                  cudaStream_t stream) {
+  const size_t smem = attention_int8_smem_bytes<DH>(L);
+  const cudaError_t err = allow_smem(attention_int8_kernel<DH, DUMP>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)B, (unsigned)H);
+  attention_int8_kernel<DH, DUMP><<<grid, ATTN_WARPS * 32, smem, stream>>>(
+      qkv, out, L, D, s_dump, p_dump, pv_dump);
+  return cudaSuccess;
+}
+
+// K7's attention core (attention_int8_kernel); with the dump pointers set,
+// the variant that also writes its s32 scores, int8 probabilities and s32
+// tile products.
+cudaError_t attention_int8(const bf16* qkv, bf16* out, int B, int L, int D, int H,
+                           int* s_dump, int8_t* p_dump, int* pv_dump, cudaStream_t stream) {
+  const bool dump = s_dump != nullptr;
+  switch (D / H) {
+    case 16:
+      return dump ? launch_attention_int8<16, true>(qkv, out, B, L, D, H, s_dump, p_dump, pv_dump, stream)
+                  : launch_attention_int8<16, false>(qkv, out, B, L, D, H, nullptr, nullptr, nullptr, stream);
+    case 32:
+      return dump ? launch_attention_int8<32, true>(qkv, out, B, L, D, H, s_dump, p_dump, pv_dump, stream)
+                  : launch_attention_int8<32, false>(qkv, out, B, L, D, H, nullptr, nullptr, nullptr, stream);
+    case 64:
+      return dump ? launch_attention_int8<64, true>(qkv, out, B, L, D, H, s_dump, p_dump, pv_dump, stream)
+                  : launch_attention_int8<64, false>(qkv, out, B, L, D, H, nullptr, nullptr, nullptr, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+size_t attention_int8_smem(int dh, int L) {
+  switch (dh) {
+    case 16: return attention_int8_smem_bytes<16>(L);
+    case 32: return attention_int8_smem_bytes<32>(L);
+    case 64: return attention_int8_smem_bytes<64>(L);
+  }
+  return ~size_t(0);
+}
+
 // The shapes K1, K2 and K6 take (fused_encoder_layer.fused_infer_supported
 // is the same predicate): D 64, 128 or 256; d_head 16, 32 or 64; an FFN width
 // that is a multiple of 128; and an L whose frame-head K/V fit the
@@ -835,22 +1223,32 @@ bool shapes_ok(int B, int L, int D, int H, int F) {
   return F > 0 && F % 128 == 0 && attention_smem(dh, L) <= (size_t)MAX_SMEM;
 }
 
+// K7 takes K1's shapes: its int8 attention block holds half K1's bytes per
+// key, so at every L that shapes_ok admits it fits too (checked here all the
+// same).
+bool int8_attention_shapes_ok(int B, int L, int D, int H, int F) {
+  return shapes_ok(B, L, D, H, F) && attention_int8_smem(D / H, L) <= (size_t)MAX_SMEM;
+}
+
 // Returns from the enclosing entry with a launch's error (`err` in scope).
 #define VITIQ_TRY(call) \
   if ((err = (call)) != cudaSuccess) return (int)err
 
-// One layer, for every query row (K1) or for row 0 of each frame only (K2).
-// x: [B, L, D]; out: [B, L, D] (K1) or [B, 1, D] (K2). Scratch: qkv
-// [B, L, 3D]; attn and x1 [R, D] and hid [R, F] for the R output rows (B*L
-// or B). Weights: wqkv [D, 3D] with its q columns pre-scaled by
-// log2(e)/sqrt(dh), wo [D, D], w1 [D, F], w2 [F, D] in bf16; biases and LN
-// parameters f32. Returns the first launch error or cudaGetLastError().
-int encoder_layer(bool cls_only, const void* x, void* out, void* qkv, void* attn, void* x1,
-                  void* hid, const void* wqkv, const void* bqkv, const void* wo,
-                  const void* bo, const void* g1, const void* be1, const void* w1,
-                  const void* b1, const void* w2, const void* b2, const void* g2,
-                  const void* be2, int B, int L, int D, int H, int F, void* stream_ptr) {
-  if (!shapes_ok(B, L, D, H, F)) return (int)cudaErrorInvalidValue;
+// One layer, for every query row (K1, or K7 with `int8_attn`) or for row 0
+// of each frame only (K2). x: [B, L, D]; out: [B, L, D] (K1, K7) or
+// [B, 1, D] (K2). Scratch: qkv [B, L, 3D]; attn and x1 [R, D] and hid [R, F]
+// for the R output rows (B*L or B). Weights: wqkv [D, 3D] with its q columns
+// pre-scaled by log2(e)/sqrt(dh), wo [D, D], w1 [D, F], w2 [F, D] in bf16;
+// biases and LN parameters f32. Returns the first launch error or
+// cudaGetLastError().
+int encoder_layer(bool cls_only, bool int8_attn, const void* x, void* out, void* qkv,
+                  void* attn, void* x1, void* hid, const void* wqkv, const void* bqkv,
+                  const void* wo, const void* bo, const void* g1, const void* be1,
+                  const void* w1, const void* b1, const void* w2, const void* b2,
+                  const void* g2, const void* be2, int B, int L, int D, int H, int F,
+                  void* stream_ptr) {
+  if (int8_attn ? cls_only || !int8_attention_shapes_ok(B, L, D, H, F) : !shapes_ok(B, L, D, H, F))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* qkvb = static_cast<bf16*>(qkv);
@@ -875,7 +1273,11 @@ int encoder_layer(bool cls_only, const void* x, void* out, void* qkv, void* attn
     VITIQ_TRY(launch_gemm<kBias>(gemm_args(xb, D, w_qkv, 3 * D, b_qkv, qkvb, 3 * D, M, D, 0),
                                  3 * D, tile_width(3 * D), s));
   }
-  VITIQ_TRY(attention(qkvb, attnb, B, L, cls_only ? 1 : L, D, H, cls_only ? D : frame, s));
+  if (int8_attn) {
+    VITIQ_TRY(attention_int8(qkvb, attnb, B, L, D, H, nullptr, nullptr, nullptr, s));
+  } else {
+    VITIQ_TRY(attention(qkvb, attnb, B, L, cls_only ? 1 : L, D, H, cls_only ? D : frame, s));
+  }
   VITIQ_TRY(launch_gemm<kBiasResidualLN>(
       with_ln(gemm_args(attnb, D, static_cast<const bf16*>(wo), D,
                         static_cast<const float*>(bo), x1b, D, rows, D, 0),
@@ -989,8 +1391,8 @@ extern "C" int vitiq_encoder_layer_full(
     const void* g1, const void* be1, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* g2, const void* be2,
     int B, int L, int D, int H, int F, void* stream_ptr) {
-  return encoder_layer(false, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1, w1, b1,
-                       w2, b2, g2, be2, B, L, D, H, F, stream_ptr);
+  return encoder_layer(false, false, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1,
+                       w1, b1, w2, b2, g2, be2, B, L, D, H, F, stream_ptr);
 }
 
 // K2: the layer for query row 0 only (see encoder_layer).
@@ -1000,8 +1402,37 @@ extern "C" int vitiq_encoder_layer_cls(
     const void* g1, const void* be1, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* g2, const void* be2,
     int B, int L, int D, int H, int F, void* stream_ptr) {
-  return encoder_layer(true, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1, w1, b1,
-                       w2, b2, g2, be2, B, L, D, H, F, stream_ptr);
+  return encoder_layer(true, false, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1,
+                       w1, b1, w2, b2, g2, be2, B, L, D, H, F, stream_ptr);
+}
+
+// K7: one full layer with the int8 attention core (see encoder_layer and
+// attention_int8_kernel).
+extern "C" int vitiq_encoder_layer_attn_int8_full(
+    const void* x, void* out, void* qkv, void* attn, void* x1, void* hid,
+    const void* wqkv, const void* bqkv, const void* wo, const void* bo,
+    const void* g1, const void* be1, const void* w1, const void* b1,
+    const void* w2, const void* b2, const void* g2, const void* be2,
+    int B, int L, int D, int H, int F, void* stream_ptr) {
+  return encoder_layer(false, true, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1,
+                       w1, b1, w2, b2, g2, be2, B, L, D, H, F, stream_ptr);
+}
+
+// K7's attention core alone on qkv [B, L, 3D] bf16 -> out [B, L, D] bf16;
+// with s_dump non-null, also its s32 scores s_dump [B, H, L, L], int8
+// probabilities p_dump [B, H, L, L] and s32 tile products pv_dump
+// [B, H, ceil(L / 128), L, D / H + 1] (for the bit-for-bit check of its
+// products against the plain version). Takes K7's shapes (F is not read).
+extern "C" int vitiq_attention_int8(const void* qkv, void* out, void* s_dump, void* p_dump,
+                                    void* pv_dump, int B, int L, int D, int H,
+                                    void* stream_ptr) {
+  if (!int8_attention_shapes_ok(B, L, D, H, 128)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = attention_int8(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), B, L, D, H,
+      static_cast<int*>(s_dump), static_cast<int8_t*>(p_dump), static_cast<int*>(pv_dump),
+      static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // K6: one full W8A8 layer (see encoder_layer_int8).

@@ -8,18 +8,38 @@ conversions go the other way:
   kernel [(C*k), d]         -> Conv1d weight [d, C, k]     ((C, k) rows)
 The tree's leaves may be numpy arrays or anything `numpy.asarray` accepts.
 `vitiq_tree_from_state_dict` is the inverse, with numpy leaves (the layout
-`vitiq`'s parameter files store, `train/checkpoint.py`).
+`vitiq`'s parameter files store, `train/checkpoint.py`); `tree_leaves` and
+`tree_unflatten` walk a tree in `jax.tree_util`'s order.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterator, List, Mapping
 
 import numpy as np
 import torch
 
 from vitiq_torch.config import ModelConfig
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a nested dict / list tree in `jax.tree_util` order:
+    dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    return [tree]
+
+
+def tree_unflatten(template: Any, leaves: Iterator[Any]) -> Any:
+    """`template`'s structure with its leaves taken in order from `leaves`."""
+    if isinstance(template, dict):
+        return {key: tree_unflatten(template[key], leaves) for key in sorted(template)}
+    if isinstance(template, (list, tuple)):
+        return [tree_unflatten(item, leaves) for item in template]
+    return next(leaves)
 
 
 def _t(a) -> torch.Tensor:

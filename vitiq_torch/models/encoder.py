@@ -19,9 +19,11 @@ the hand-written kernels, on a CPU tensor their plain PyTorch versions:
   regime, where `stash_enabled` puts it, K3 elsewhere; dropout drawn from the
   seed inside the kernels);
 * eval, with shapes the kernels take (`fused_infer_supported`): the fused
-  inference stack (`vitiq_torch.ops.cuda.fused_encoder_layer`, K1/K2). With
-  ``cls_only_fused`` the last layer computes the CLS row only
-  and the encoder returns [B, 1, D]. Opt-outs, as in `vitiq`:
+  inference stack (`vitiq_torch.ops.cuda.fused_encoder_layer`, K1/K2), or
+  with ``VITIQ_ATTN_INT8=1`` its int8-attention twin
+  (`vitiq_torch.ops.cuda.fused_encoder_layer_int8attn`, K7 on the full
+  layers, K2 on the CLS row). With ``cls_only_fused`` the last layer computes
+  the CLS row only and the encoder returns [B, 1, D]. Opt-outs, as in `vitiq`:
   ``VITIQ_NO_FUSED_LAYER=1`` runs the plain layer loop, ``VITIQ_CLS_ONLY=0``
   computes the full last layer.
 Both gates are decided from shapes alone, so a shape a gate admits never
@@ -57,6 +59,7 @@ from vitiq_torch.ops.cuda.fused_encoder_layer import (
     fused_encoder_layer_stack,
     fused_infer_supported,
 )
+from vitiq_torch.ops.cuda.fused_encoder_layer_int8attn import fused_encoder_layer_int8attn_stack
 from vitiq_torch.ops.cuda.fused_layer_train import fused_train_layer_stack, fused_train_supported
 from vitiq_torch.ops.numerics import Policy
 
@@ -137,9 +140,10 @@ class Encoder(nn.Module):
                 and fused_infer_supported(x.shape[1], cfg.d_model, cfg.ffn_hidden, cfg.n_head)):
             cls_only = (cls_only_fused
                         and os.environ.get("VITIQ_CLS_ONLY", "1") != "0")
-            return fused_encoder_layer_stack(policy.cast_compute(x),
-                                             list(self.layers), cfg.n_head,
-                                             cls_only=cls_only)
+            stack = (fused_encoder_layer_int8attn_stack
+                     if os.environ.get("VITIQ_ATTN_INT8") == "1" else fused_encoder_layer_stack)
+            return stack(policy.cast_compute(x), list(self.layers), cfg.n_head,
+                         cls_only=cls_only)
         kwargs = dict(mask=mask, policy=policy, attention_fn=attention_fn)
         if use_remat(self.training, x.shape[1]):
             for layer in self.layers:

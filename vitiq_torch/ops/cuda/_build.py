@@ -34,6 +34,9 @@ _DROP_ARGS = [_I] * 5 + [_U, _F, _I, _I, _P]
 SIGNATURES = {
     "vitiq_encoder_layer_full": (_LAYER_ARGS, _I),
     "vitiq_encoder_layer_cls": (_LAYER_ARGS, _I),
+    "vitiq_encoder_layer_attn_int8_full": (_LAYER_ARGS, _I),
+    # qkv, out, s_dump, p_dump, pv_dump; B, L, D, H; stream
+    "vitiq_attention_int8": ([_P] * 5 + [_I] * 4 + [_P], _I),
     # x, out, 6 scratch, 16 int8-layer operands; B, L, D, H, F; stream
     "vitiq_encoder_layer_int8_full": ([_P] * 24 + [_I] * 5 + [_P], _I),
     # a, wq, wscale, bias, c, aq, ascale; M, K, N, relu, prequant; stream

@@ -19,7 +19,8 @@ The kernels take d_model 64, 128 or 256 with d_head 16, 32 or 64, an FFN
 width that is a multiple of 128, and an L whose frame-head K/V fit the
 attention block's shared memory: `fused_infer_supported`, decided from shapes
 alone and the same predicate as the kernels' `shapes_ok`. K6
-(`fused_encoder_layer_int8`) takes the same shapes. The callers
+(`fused_encoder_layer_int8`) and K7 (`fused_encoder_layer_int8attn`) take the
+same shapes. The callers
 (`Encoder.forward`, `QuantizedAMCModel.forward`) dispatch on it, so a shape
 it admits never raises in a kernel and one it turns away never reaches one.
 
@@ -151,12 +152,14 @@ def attention_reference(qkv: torch.Tensor, n_head: int, n_q: int) -> torch.Tenso
 
 
 def fused_layer_reference(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
-                          n_q: int) -> torch.Tensor:
-    """One layer for query rows [0, n_q): x [B, L, D] -> [B, n_q, D]."""
+                          n_q: int, attention=attention_reference) -> torch.Tensor:
+    """One layer for query rows [0, n_q): x [B, L, D] -> [B, n_q, D], with
+    `attention(qkv, n_head, n_q)` as its core (K7's plain version passes its
+    int8 core)."""
     wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = ops
     dt = x.dtype
     qkv = (_mm(x, wqkv) + bqkv).to(dt)
-    attn = attention_reference(qkv, n_head, n_q)
+    attn = attention(qkv, n_head, n_q)
     x1 = layer_norm_reference(_mm(attn, wo) + bo + x[:, :n_q].float(), g1, be1).to(dt)
     h = torch.relu(_mm(x1, w1) + b1).to(dt)
     return layer_norm_reference(_mm(h, w2) + b2 + x1.float(), g2, be2).to(dt)
@@ -211,9 +214,9 @@ def check_shape(B: int, L: int, D: int, F: int, n_head: int) -> None:
 
 
 def _launch(entry: str, counter: str, x: torch.Tensor, out: torch.Tensor, ops,
-            n_head: int, F: int, rows: int) -> None:
+            n_head: int, F: int, rows: int, counts=None) -> None:
     """Allocate the scratch, launch one C entry point, raise on its error,
-    count the launch."""
+    count the launch in `counts` (this module's `launches` by default)."""
     B, L, D = x.shape
     qkv = torch.empty((B, L, 3 * D), dtype=x.dtype, device=x.device)
     attn = torch.empty((B, rows, D), dtype=x.dtype, device=x.device)
@@ -229,7 +232,7 @@ def _launch(entry: str, counter: str, x: torch.Tensor, out: torch.Tensor, ops,
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err} "
                            f"({lib.vitiq_error_string(err).decode()})")
-    launches[counter] += 1
+    (launches if counts is None else counts)[counter] += 1
 
 
 def fused_encoder_layer(x: torch.Tensor, ops: Sequence[torch.Tensor],

@@ -1,26 +1,36 @@
 """Experiment orchestration (counterpart of `vitiq/runner.py`): the data of
-an experiment and the standalone evaluation of a saved one.
+an experiment, a training run and the standalone evaluation of a saved one.
+
+`run_training` is the reference's per-arm `main()`: config.json and the
+normalization stats, `fit` with plateau LR and early stopping, a rolling
+``model_best`` and ``checkpoint_epoch_{n}`` every ``save_freq`` epochs, a
+``checkpoint_interrupted`` rescue on KeyboardInterrupt, resuming from a
+checkpoint (``resume="auto"`` picks the newest in the experiment directory),
+``checkpoint_final`` / ``model_final``, the history plot and the test
+evaluation with ``summary.json``. Its files are `vitiq`'s, so either package
+resumes or evaluates the other's experiment.
 
 `run_evaluation` re-derives the split and the normalization stats from the
-config, rebuilds the model, loads its parameter file (`vitiq`'s layout, so
-an experiment directory written by either package evaluates) and writes the
+config, rebuilds the model, loads its parameter file and writes the
 evaluation artifacts, in float through the serving path or, with ``int8``,
 through the W8A8 quantized model (`ops/quant.py`: K6 and K2 on the card).
-It runs on the card unless the caller asks for another device, and raises
-where CUDA is absent.
 
-Only the synthetic source is ported: the HDF5 source needs h5py. Training
-runs (`run_training`), the reference-checkpoint import and the head-to-head
+Both run on the card unless the caller asks for another device, and raise
+where CUDA is absent; under ``VITIQ_ATTN_INT8=1`` their float evaluation
+passes run K7 (`Encoder.forward`). Only the synthetic source is ported: the
+HDF5 source needs h5py. The reference-checkpoint import and the head-to-head
 comparison are not ported yet.
 """
 
 from __future__ import annotations
 
 import json
+import time
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from vitiq_torch.config import ExperimentConfig
 from vitiq_torch.data import ArrayFeed, SyntheticAMCDataset, channel_from_config, stats_from_array
@@ -139,3 +149,148 @@ def run_evaluation(
         forward, feeds[dataset], class_names, exp_dir / "evaluation", device, prefix=prefix,
         batch_size=cfg.train.batch_size, preprocess_fn=preprocess, make_plots=make_plots,
         verbose=verbose)
+
+
+def _newest_checkpoint(exp_dir: Path) -> Optional[str]:
+    """``resume="auto"``: the newest of the epoch-numbered checkpoints and the
+    interrupt rescue (which counts as the epoch after its own)."""
+    candidates = []
+    for p in exp_dir.glob("checkpoint_epoch_*.json"):
+        try:
+            candidates.append((int(p.stem.rsplit("_", 1)[1]), p))
+        except ValueError:
+            continue
+    p_int = exp_dir / "checkpoint_interrupted.json"
+    if p_int.exists():
+        try:
+            candidates.append((json.loads(p_int.read_text())["epoch"] + 1, p_int))
+        except (OSError, ValueError, KeyError, TypeError):
+            pass  # an unreadable rescue is skipped, as an unparsable epoch name is
+    return str(max(candidates)[1].with_suffix("")) if candidates else None
+
+
+def run_training(cfg: ExperimentConfig, resume: Optional[str] = None, evaluate_test: bool = True,
+                 verbose: bool = True, device="cuda", make_plots: bool = True) -> Dict:
+    """Train and evaluate an experiment in ``<checkpoint_dir>/<experiment_name>``
+    (the reference's flow, with the rawIQ arm's fixes: model_best preferred
+    for the test evaluation); returns the summary dict. `resume`: a
+    checkpoint path, or "auto" for the newest in the experiment directory; a
+    missing or corrupt one starts the run fresh. ``make_plots=False`` skips
+    the plots (they need matplotlib and seaborn); a failing history plot
+    only warns."""
+    from vitiq_torch.eval import evaluate_feed_with_confusion
+    from vitiq_torch.models.amc import AMCModel, count_parameters
+    from vitiq_torch.serve import build_forward_and_preprocess, resolve_device
+    from vitiq_torch.train import fit
+    from vitiq_torch.train.checkpoint import (
+        load_checkpoint,
+        load_params,
+        save_checkpoint,
+        save_params,
+    )
+    from vitiq_torch.train.optim import create_train_state
+
+    device = resolve_device(device)
+    cfg.validate(check_paths=cfg.data.source == "hdf5")
+    _check_source(cfg)
+    exp_dir = Path(cfg.checkpoint_dir) / cfg.experiment_name
+    log_dir = Path(cfg.log_dir)
+    exp_dir.mkdir(parents=True, exist_ok=True)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    cfg.to_json(str(exp_dir / "config.json"))
+
+    feeds, stats, class_names = load_experiment_feeds(cfg)
+    (exp_dir / "normalization_stats.json").write_text(json.dumps(stats, indent=2))
+    model = AMCModel(cfg.model, generator=torch.Generator().manual_seed(cfg.train.init_seed))
+    model, preprocess = build_forward_and_preprocess(cfg, model, stats, device)
+    if verbose:
+        print(f"model: {cfg.model.arm}, {count_parameters(model):,} parameters")
+
+    resume_state = resume_history = None
+    start_epoch = 0
+    if resume == "auto":
+        resume = _newest_checkpoint(exp_dir)
+    if resume:
+        try:
+            resume_state, manifest = load_checkpoint(resume, create_train_state(model, cfg.train))
+            resume_history = manifest["history"]
+            start_epoch = manifest["epoch"] + 1
+            if verbose:
+                print(f"resumed from {resume} at epoch {start_epoch}")
+        except (FileNotFoundError, ValueError) as e:
+            # corrupt/missing resume -> start fresh, like the rawIQ arm
+            print(f"warning: could not resume from {resume} ({e}); starting fresh")
+
+    def checkpoint_callback(epoch: int, state, history):
+        if (epoch + 1) % cfg.train.save_freq == 0:
+            save_checkpoint(exp_dir / f"checkpoint_epoch_{epoch + 1}", state, epoch,
+                            history["val_loss"][-1], history, cfg)
+        if history["val_loss"][-1] <= min(history["val_loss"]):  # rolling best
+            save_params(exp_dir / "model_best", state.model.state_dict(), cfg.model)
+
+    # rescue state for Ctrl-C (the reference saves checkpoint_interrupted)
+    last = {"state": None, "epoch": -1, "history": None}
+
+    def tracking_callback(epoch, state, history):
+        last.update(state=state, epoch=epoch, history=history)
+        checkpoint_callback(epoch, state, history)
+
+    t0 = time.perf_counter()
+    try:
+        result = fit(cfg, model, feeds["train"], feeds["valid"], preprocess_fn=preprocess,
+                     epoch_callback=tracking_callback, resume_state=resume_state,
+                     resume_history=resume_history, start_epoch=start_epoch, verbose=verbose)
+    except KeyboardInterrupt:
+        if last["state"] is not None:
+            save_checkpoint(exp_dir / "checkpoint_interrupted", last["state"], last["epoch"],
+                            last["history"]["val_loss"][-1], last["history"], cfg)
+            print(f"interrupted — rescue checkpoint written to "
+                  f"{exp_dir / 'checkpoint_interrupted.npz'} (epoch {last['epoch'] + 1})")
+        else:
+            print("interrupted before the first epoch completed — nothing to rescue")
+        raise
+    train_wall = time.perf_counter() - t0
+
+    history = result.history
+    save_checkpoint(exp_dir / "checkpoint_final", result.state, result.epochs_run - 1,
+                    history["val_loss"][-1] if history["val_loss"] else float("inf"),
+                    history, cfg)
+    save_params(exp_dir / "model_final", model.state_dict(), cfg.model)
+    best_params = result.best_params
+    best_path = exp_dir / "model_best.npz"
+    if result.best_tracked or not best_path.exists():
+        save_params(best_path, best_params, cfg.model)
+    else:
+        # a resumed run whose epochs never beat the historical best: the
+        # rolling model_best of the original run holds the best weights
+        best_params = load_params(best_path, cfg.model)
+
+    if make_plots:
+        try:
+            from vitiq_torch.eval.plots import plot_training_history
+
+            plot_training_history(history, log_dir / f"{cfg.experiment_name}_training_history.png")
+        except Exception as e:  # plotting must never kill a finished run
+            print(f"warning: history plot failed: {e}")
+
+    summary: Dict = {
+        "experiment_dir": str(exp_dir),
+        "epochs_run": result.epochs_run,
+        "stopped_early": result.stopped_early,
+        "train_wall_seconds": train_wall,
+        "best_val_loss": min(history["val_loss"]) if history["val_loss"] else None,
+        "history": history,
+        "normalization_stats": stats,
+    }
+    if evaluate_test:
+        model.load_state_dict(best_params)
+        model.eval()
+        res = evaluate_feed_with_confusion(
+            model, feeds["test"], class_names, exp_dir / "evaluation", device, prefix="test",
+            batch_size=cfg.train.batch_size, preprocess_fn=preprocess, make_plots=make_plots,
+            verbose=verbose)
+        summary["test_overall_accuracy"] = res["overall_accuracy"]
+        summary["test_snr_accuracies"] = res["snr_accuracies"]
+    (exp_dir / "summary.json").write_text(json.dumps(
+        {k: v for k, v in summary.items() if k != "history"}, indent=2, default=float))
+    return summary

@@ -1,5 +1,6 @@
-"""Training (counterpart of `vitiq/train`; `checkpoint.py` holds the parameter
-files, full train-state checkpoints and resuming are not ported yet)."""
+"""Training (counterpart of `vitiq/train`): the steps and `fit` (with
+resuming), clip + AdamW, the schedulers, and `checkpoint.py`'s parameter files
+and full TrainState checkpoints in `vitiq`'s layout."""
 
 from vitiq_torch.train.optim import TrainState, create_train_state, get_learning_rate, set_learning_rate  # noqa: F401
 from vitiq_torch.train.schedule import EarlyStopping, ReduceLROnPlateau  # noqa: F401

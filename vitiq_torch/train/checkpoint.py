@@ -1,50 +1,88 @@
-"""Parameter files in `vitiq`'s layout (counterpart of
-`vitiq/train/checkpoint.py: save_params, load_params`).
+"""Checkpoints and parameter files in `vitiq`'s layout (counterpart of
+`vitiq/train/checkpoint.py`).
 
 A parameter file is an ``.npz`` of ``leaf_{i}`` f32 arrays, the leaves of the
 `vitiq` parameter tree (`interop.vitiq_tree_from_state_dict`) in
-`jax.tree_util.tree_flatten` order: dict keys sorted, lists in order. Each
-package therefore reads the other's ``model_best.npz``. Loading checks the
-leaf count and every leaf's shape against the tree a model of the config
-has, and raises on a mismatch instead of loading garbage.
-
-Full `TrainState` checkpoints (the optimizer moments in `vitiq`'s leaf order)
-and resuming from them are not ported yet.
+`jax.tree_util.tree_flatten` order: dict keys sorted, lists in order. A
+checkpoint is ``<path>.npz`` of the TrainState's leaves in the same order
+(`optim.train_state_leaves`: the parameters, the learning rate and step
+counts, AdamW's moments in vitiq's leaf order) plus ``<path>.json``, the
+manifest (``format_version``, ``num_leaves``, ``epoch``, ``val_loss``,
+``history``, ``config``, ``extra``). Each package therefore reads the
+other's ``model_best.npz`` and resumes from the other's checkpoints. Loading
+checks the leaf count and every leaf's shape against what a model of the
+config has, and raises ValueError on a mismatch instead of loading garbage.
 """
 
 from __future__ import annotations
 
+import json
 from collections import OrderedDict
 from pathlib import Path
-from typing import Any, List
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from vitiq_torch.config import ModelConfig
-from vitiq_torch.interop import state_dict_from_vitiq, vitiq_tree_from_state_dict
+from vitiq_torch.config import ExperimentConfig, ModelConfig
+from vitiq_torch.interop import (
+    state_dict_from_vitiq,
+    tree_leaves,
+    tree_unflatten,
+    vitiq_tree_from_state_dict,
+)
+from vitiq_torch.train.optim import TrainState, train_state_from_leaves, train_state_leaves
 
-
-def tree_leaves(tree: Any) -> List[np.ndarray]:
-    """The leaves of a nested dict / list tree in `jax.tree_util` order."""
-    if isinstance(tree, dict):
-        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for item in tree for leaf in tree_leaves(item)]
-    return [tree]
-
-
-def _unflatten(template: Any, leaves) -> Any:
-    if isinstance(template, dict):
-        return {key: _unflatten(template[key], leaves) for key in sorted(template)}
-    if isinstance(template, (list, tuple)):
-        return [_unflatten(item, leaves) for item in template]
-    return next(leaves)
+FORMAT_VERSION = 1
 
 
 def _npz(path) -> Path:
     path = Path(path)
     return path if path.suffix == ".npz" else path.with_suffix(".npz")
+
+
+def save_checkpoint(path, state: TrainState, epoch: int, val_loss: float, history: Dict,
+                    config: Optional[ExperimentConfig] = None,
+                    extra: Optional[Dict] = None) -> Path:
+    """Write ``<path>.npz`` (the TrainState's leaves) and ``<path>.json`` (the
+    manifest); returns the npz path."""
+    npz = _npz(path)
+    npz.parent.mkdir(parents=True, exist_ok=True)
+    leaves = train_state_leaves(state)
+    np.savez(npz, **{f"leaf_{i}": leaf for i, leaf in enumerate(leaves)})
+    manifest = {
+        "format_version": FORMAT_VERSION,
+        "num_leaves": len(leaves),
+        "epoch": epoch,
+        "val_loss": float(val_loss),
+        "history": history,
+        "config": config.to_dict() if config is not None else None,
+        "extra": extra or {},
+    }
+    npz.with_suffix(".json").write_text(json.dumps(manifest, indent=2))
+    return npz
+
+
+def load_checkpoint(path, template_state: TrainState) -> Tuple[TrainState, Dict]:
+    """Restore a checkpoint written by either package into the structure of
+    `template_state` (built for the same config): the parameters are loaded
+    into its model in place. Returns (state, manifest). Raises ValueError on
+    a leaf count or a leaf shape the template does not have (nothing is
+    loaded then), FileNotFoundError on a missing file."""
+    npz = _npz(path)
+    manifest = json.loads(npz.with_suffix(".json").read_text())
+    want = [np.shape(leaf) for leaf in train_state_leaves(template_state)]
+    if manifest["num_leaves"] != len(want):
+        raise ValueError(f"checkpoint has {manifest['num_leaves']} leaves but the model/optimizer "
+                         f"built from the current config has {len(want)} — config mismatch?")
+    with np.load(npz) as data:
+        leaves = []
+        for i, shape in enumerate(want):
+            arr = data[f"leaf_{i}"]
+            if tuple(arr.shape) != shape:
+                raise ValueError(f"leaf {i}: checkpoint shape {arr.shape} != expected {shape}")
+            leaves.append(np.asarray(arr))
+    return train_state_from_leaves(template_state, leaves), manifest
 
 
 def save_params(path, state_dict, cfg: ModelConfig) -> Path:
@@ -77,4 +115,4 @@ def load_params(path, cfg: ModelConfig) -> "OrderedDict[str, torch.Tensor]":
                 raise ValueError(f"{path}: leaf {i} has shape {arr.shape}, the model of this "
                                  f"config expects {shape}")
             leaves.append(arr)
-    return state_dict_from_vitiq(_unflatten(template, iter(leaves)), cfg)
+    return state_dict_from_vitiq(tree_unflatten(template, iter(leaves)), cfg)

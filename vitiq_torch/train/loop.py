@@ -8,12 +8,16 @@ updated in place, the step counter advanced. Dropout is a pure function of
 which the fused training kernels hash, and seeds the `torch.Generator` of
 the plain dropout sites (the embedding, and the plain layers where the
 fused stack does not run). Plateau LR, early stopping, best-parameter
-tracking and the history stay on the host between epochs.
+tracking and the history stay on the host between epochs. `fit` resumes from
+a checkpoint's state and history (`train/checkpoint.py`) at `start_epoch`:
+the feed's per-epoch shuffle and the step's dropout seed continue where the
+saved run stopped, so a resumed run takes the steps an uninterrupted one
+takes.
 
 Not ported yet (later work): the device mesh and data parallelism, device-
 scan superbatching (`TrainConfig.device_scan_steps`, one device call per K
-steps), the prefetching host-to-device feed (`device_prefetch`), per-step
-profiling (`fit(profile=True)`), and checkpoints with resuming from them.
+steps), the prefetching host-to-device feed (`device_prefetch`) and, with
+it, per-step profiling (`fit(profile=True)`, `TrainConfig.profile_steps`).
 """
 
 from __future__ import annotations
@@ -138,24 +142,45 @@ def fit(
     valid_data,
     preprocess_fn: Optional[Callable] = None,
     epoch_callback: Optional[Callable] = None,
+    resume_state: Optional[TrainState] = None,
+    resume_history: Optional[Dict] = None,
+    start_epoch: int = 0,
     verbose: bool = True,
 ) -> FitResult:
     """Train `model` in place with the reference's control semantics:
     plateau LR, early stop, best-parameter tracking, full history.
 
     train_data / valid_data: (x, y) arrays of raw frames, or DataFeeds.
-    `epoch_callback(epoch, state, history)` runs after each epoch."""
+    `epoch_callback(epoch, state, history)` runs after each epoch. To resume,
+    pass the loaded state (its model must be `model`), the saved history
+    (extended in place) and the first epoch to run: the plateau scheduler
+    and early stopping are re-primed from the history's validation losses."""
     tcfg = cfg.train
+    if tcfg.profile_steps:
+        raise NotImplementedError(
+            "TrainConfig.profile_steps: per-step profiling (vitiq's fit(profile=True) with its "
+            "StepTimer) is not ported yet; it comes with the prefetching host-to-device feed")
     tx = make_optimizer(tcfg)
-    state = create_train_state(model, tcfg)
+    if resume_state is not None:
+        if resume_state.model is not model:
+            raise ValueError("resume_state must hold the model being trained")
+        state = resume_state
+    else:
+        state = create_train_state(model, tcfg)
     train_step = make_train_step(tx, tcfg.label_smoothing, preprocess_fn)
     eval_step = make_eval_step(tcfg.label_smoothing, preprocess_fn)
 
     scheduler = ReduceLROnPlateau(factor=tcfg.lr_plateau_factor,
                                   patience=tcfg.lr_plateau_patience, min_lr=tcfg.min_lr)
     early_stopping = EarlyStopping(patience=tcfg.patience)
-    history = {"train_loss": [], "train_acc": [], "val_loss": [], "val_acc": [], "lr": [],
-               "epoch_time": []}
+    history = resume_history or {"train_loss": [], "train_acc": [], "val_loss": [],
+                                 "val_acc": [], "lr": [], "epoch_time": []}
+    # re-prime the scheduler and early stopping from the history on resume
+    # (the reference restores the history but resets both controllers)
+    for past_loss in history["val_loss"]:
+        scheduler.step(past_loss, get_learning_rate(state))
+        early_stopping(past_loss)
+    early_stopping.early_stop = False
 
     train_feed = as_feed(train_data, shuffle_seed=tcfg.shuffle_seed)
     valid_feed = as_feed(valid_data, shuffle_seed=tcfg.shuffle_seed)
@@ -169,7 +194,7 @@ def fit(
                          "need a validation metric")
 
     result = FitResult(state=state, best_params=None, history=history)
-    for epoch in range(tcfg.num_epochs):
+    for epoch in range(start_epoch, tcfg.num_epochs):
         t0 = time.perf_counter()
         losses, accs = [], []
         for bx, by in train_feed.train_batches(epoch, tcfg.batch_size):

@@ -11,16 +11,36 @@ plateau scheduler changes it between epochs.
 
 The parameters live in the model (`TrainState.model`), and a step updates
 them in place.
+
+Checkpoint layout (`train_state_leaves`, `train_state_from_leaves`): the
+leaves of `vitiq`'s TrainState under its default fused optimizer, in
+`jax.tree_util` order -- the parameter tree's leaves (dict keys sorted,
+kernels [in, out]), then `optax.inject_hyperparams`' step count (int32) and
+learning rate (f32), then `FusedAdamWState`'s count (int32), mu [P] and nu
+[P] (f32), then the step (int32). vitiq's mu and nu are `ravel_pytree` over
+its parameter tree, in its leaf order and layouts; the port's are flat over
+`model.parameters()` in torch layouts, so each is split per parameter and
+taken through the same layout transform as the weights
+(`interop.vitiq_tree_from_state_dict` / `state_dict_from_vitiq`), both ways.
+`VITIQ_FUSED_OPT=0`, vitiq's per-leaf optax chain, has another structure and
+is not ported: its checkpoints have another leaf count.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, List, NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from vitiq_torch.config import TrainConfig
+from vitiq_torch.interop import (
+    state_dict_from_vitiq,
+    tree_leaves,
+    tree_unflatten,
+    vitiq_tree_from_state_dict,
+)
 
 
 class TrainState(NamedTuple):
@@ -89,3 +109,54 @@ def get_learning_rate(state: TrainState) -> float:
 def set_learning_rate(state: TrainState, lr: float) -> TrainState:
     """Host-side LR change between epochs."""
     return state._replace(opt_state=state.opt_state._replace(learning_rate=float(lr)))
+
+
+# --------------------------------------------------------------------------
+# vitiq's checkpoint layout
+# --------------------------------------------------------------------------
+
+def _vitiq_flat(flat: torch.Tensor, model: nn.Module) -> np.ndarray:
+    """A vector flat over `model.parameters()` (torch layouts) -> the same
+    values raveled over vitiq's parameter tree (its leaf order, its layouts)."""
+    named = list(model.named_parameters())
+    pieces = flat.detach().cpu().float().split([p.numel() for _, p in named])
+    sd = {name: piece.view(p.shape) for (name, p), piece in zip(named, pieces)}
+    leaves = tree_leaves(vitiq_tree_from_state_dict(sd, model.cfg))
+    return np.concatenate([leaf.reshape(-1) for leaf in leaves])
+
+
+def _torch_flat(vec: np.ndarray, model: nn.Module) -> torch.Tensor:
+    """The inverse of `_vitiq_flat`, on the model's device."""
+    template = vitiq_tree_from_state_dict(model.state_dict(), model.cfg)
+    shapes = [leaf.shape for leaf in tree_leaves(template)]
+    parts = np.split(np.asarray(vec, np.float32), np.cumsum([int(np.prod(s)) for s in shapes])[:-1])
+    sd = state_dict_from_vitiq(tree_unflatten(template, (p.reshape(s) for p, s in
+                                                         zip(parts, shapes))), model.cfg)
+    device = next(model.parameters()).device
+    return torch.cat([sd[name].reshape(-1) for name, _ in model.named_parameters()]).to(device)
+
+
+def train_state_leaves(state: TrainState) -> List[np.ndarray]:
+    """The state as vitiq's TrainState leaves (see the module docstring);
+    `state.model` is an `AMCModel` (its `cfg` gives the tree)."""
+    model, opt = state.model, state.opt_state
+    params = tree_leaves(vitiq_tree_from_state_dict(model.state_dict(), model.cfg))
+    return params + [np.asarray(opt.count, np.int32), np.asarray(opt.learning_rate, np.float32),
+                     np.asarray(opt.count, np.int32), _vitiq_flat(opt.mu, model),
+                     _vitiq_flat(opt.nu, model), np.asarray(state.step, np.int32)]
+
+
+def train_state_from_leaves(template: TrainState, leaves: Sequence[np.ndarray]) -> TrainState:
+    """The inverse of `train_state_leaves`: loads the parameters into
+    `template.model` in place and returns the state; the leaves' count and
+    shapes must be `train_state_leaves(template)`'s (`load_checkpoint`
+    checks them first)."""
+    model = template.model
+    tree = vitiq_tree_from_state_dict(model.state_dict(), model.cfg)
+    n = len(tree_leaves(tree))
+    _, lr, count, mu, nu, step = leaves[n:]
+    model.load_state_dict(state_dict_from_vitiq(tree_unflatten(tree, iter(leaves[:n])),
+                                                model.cfg))
+    opt = FusedAdamWState(learning_rate=float(lr), count=int(count), mu=_torch_flat(mu, model),
+                          nu=_torch_flat(nu, model))
+    return TrainState(model=model, opt_state=opt, step=int(step))
