@@ -23,8 +23,9 @@ served, evaluated in float and int8, and trained for an epoch under `tpu`
 numerics, with the launches of each kernel counted.
 
 K7 (the int8-attention layer) is held as K6 is, by relative L2 and a max in
-quantization steps (one layer 1e-2 and 2 steps, a stack with the K2 tail
-2e-2 and 4 steps: its core repeats the plain version's roundings, but a
+quantization steps (one layer 1e-3 and 2 steps, which K1's bf16 core in
+its place does not pass; a stack with the K2 tail 2e-2 and 4 steps: its
+core repeats the plain version's roundings, but a
 bf16 flip in q or k from the QKV GEMM can move a level); its core's s32
 score and P [v | 1] products equal the plain version's bit for bit on the
 same quantized operands. `run_training` trains on the card through K3,
@@ -796,7 +797,10 @@ def test_wide_configs_serve_evaluate_and_train_through_the_kernels(cuda, name, t
         assert launched["fused_attention_fwd"] == 0
 
 
-K7_LAYER_TOL, K7_STACK_TOL = K6_LAYER_TOL, K6_STACK_TOL
+# K7: one layer within 1e-3 relative L2 and 2 steps, below what K1's bf16
+# core in K7's place reads (tests/test_torch_fused_layer.py); a stack with
+# the K2 tail as K6's.
+K7_LAYER_TOL, K7_STACK_TOL = (1e-3, 2.0), K6_STACK_TOL
 
 
 def _k7_layers(n, ffn, device, n_head=H, d=D):

@@ -19,7 +19,8 @@ JAX package serves.
 K7, the layer with an int8 attention core (``VITIQ_ATTN_INT8=1``): its plain
 version against vitiq's `fused_encoder_layer_v3_stack(..., attn_int8=True,
 g_override=1)` in interpret mode (one frame per block, as the port's
-kernel). Where L = Lp (16, 64 tokens) the two quantize the same values and
+kernel). Where L = Lp (16, 64 tokens, and 144 and 256 for two and three
+128-key tiles merged on a running max) the two quantize the same values and
 differ only where an exp2 of one library rounds a probability to the other
 side of a half: relative L2 within 1e-3 (measured ~1e-7 in f32 on the CPU).
 Where L is padded (17, 129 tokens), vitiq's padded rows enter its k scale
@@ -271,6 +272,9 @@ def test_eval_dispatch_turns_unsupported_shapes_to_the_plain_layers(monkeypatch)
 K7_PADDED_FREE = [
     pytest.param((2, 16, D, 256, H, "f32", 1, False), id="L16"),
     pytest.param((2, 64, D, 256, H, "f32", 1, False), id="L64"),
+    # two and three 128-key tiles: the tile max and the f32 merge on a running max
+    pytest.param((2, 144, D, 256, H, "f32", 1, False), id="L144-two-tiles"),
+    pytest.param((2, 256, D, 256, H, "f32", 2, False), id="L256-two-tiles-2-layers"),
     pytest.param((2, 64, 256, 512, 8, "f32", 1, False), id="d256-L64"),
     pytest.param((2, 64, 64, 128, 4, "bf16", 1, False), id="d64-L64-bf16"),
     pytest.param((2, 64, D, 256, 4, "f32", 2, True), id="stack-K2-tail"),
@@ -330,6 +334,28 @@ def test_k7_wrappers_take_plain_version_on_cpu_only():
     meta = torch.empty((1, 5, D), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         k7.fused_encoder_layer_int8attn(meta, ops, H)
+
+
+@pytest.mark.parametrize("Lx,f,d", [(129, 512, 128), (65, 1024, 128), (65, 1024, 256)],
+                         ids=["vit", "rawiq", "rawiq_best"])
+def test_k7_layer_tolerance_rejects_k1s_core(Lx, f, d):
+    """The card holds one K7 layer to its plain version within 1e-3 relative
+    L2 (chip_smoke.py's K7_LAYER_TOL): K1's bf16 core in K7's place, on bf16
+    inputs at the flagship widths, reads above that, so the check tells the
+    two cores apart."""
+    gen = torch.Generator().manual_seed(41)
+    layer = EncoderLayer(d, f, 8, generator=gen).eval()
+    with torch.no_grad():
+        for norm in (layer.norm1, layer.norm2):  # LayerNorm affine away from (1, 0)
+            norm.gamma.copy_(1.0 + 0.1 * torch.randn(d, generator=gen))
+            norm.beta.copy_(0.1 * torch.randn(d, generator=gen))
+        ops = fel.layer_operands(layer, 8)
+        x = torch.randn((4, Lx, d), generator=gen).bfloat16()
+        want = k7.fused_layer_int8attn_reference(x, ops, 8).float()
+        k1 = fel.fused_encoder_layer(x, ops, 8).float()
+    rel_l2 = ((k1 - want).norm() / want.norm()).item()
+    print(f"K1's core in K7's place: relative L2 {rel_l2:.6g}")
+    assert rel_l2 > 1e-3
 
 
 @pytest.mark.parametrize("d_head", [16, 32, 64])

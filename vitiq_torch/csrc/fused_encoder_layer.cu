@@ -148,7 +148,7 @@
 // so at L != Lp the two differ by quantization noise and match closely where
 // L = Lp. What bounds K7: its four bf16 GEMM stages are K1's (the bound
 // counts their FLOPs at 989 TFLOP/s plus the s8 score and P [v | 1] products,
-// 2 L^2 dh + 4 L^2 dh operations a frame-head, at 1979 TOP/s); the int8
+// 2 L^2 dh + 2 L^2 (dh + 1) operations a frame-head, at 1979 TOP/s); the int8
 // core holds half K1's bytes of k and v per key in shared memory, so it
 // takes every shape K1 takes. A simple first port: two passes over each
 // tile (the row max, then the probabilities), the scores recomputed.
@@ -1202,15 +1202,6 @@ cudaError_t attention_int8(const bf16* qkv, bf16* out, int B, int L, int D, int 
   return cudaErrorInvalidValue;
 }
 
-size_t attention_int8_smem(int dh, int L) {
-  switch (dh) {
-    case 16: return attention_int8_smem_bytes<16>(L);
-    case 32: return attention_int8_smem_bytes<32>(L);
-    case 64: return attention_int8_smem_bytes<64>(L);
-  }
-  return ~size_t(0);
-}
-
 // The shapes K1, K2 and K6 take (fused_encoder_layer.fused_infer_supported
 // is the same predicate): D 64, 128 or 256; d_head 16, 32 or 64; an FFN width
 // that is a multiple of 128; and an L whose frame-head K/V fit the
@@ -1221,13 +1212,6 @@ bool shapes_ok(int B, int L, int D, int H, int F) {
   const int dh = D / H;
   if (dh != 16 && dh != 32 && dh != 64) return false;
   return F > 0 && F % 128 == 0 && attention_smem(dh, L) <= (size_t)MAX_SMEM;
-}
-
-// K7 takes K1's shapes: its int8 attention block holds half K1's bytes per
-// key, so at every L that shapes_ok admits it fits too (checked here all the
-// same).
-bool int8_attention_shapes_ok(int B, int L, int D, int H, int F) {
-  return shapes_ok(B, L, D, H, F) && attention_int8_smem(D / H, L) <= (size_t)MAX_SMEM;
 }
 
 // Returns from the enclosing entry with a launch's error (`err` in scope).
@@ -1247,8 +1231,7 @@ int encoder_layer(bool cls_only, bool int8_attn, const void* x, void* out, void*
                   const void* w1, const void* b1, const void* w2, const void* b2,
                   const void* g2, const void* be2, int B, int L, int D, int H, int F,
                   void* stream_ptr) {
-  if (int8_attn ? cls_only || !int8_attention_shapes_ok(B, L, D, H, F) : !shapes_ok(B, L, D, H, F))
-    return (int)cudaErrorInvalidValue;
+  if ((int8_attn && cls_only) || !shapes_ok(B, L, D, H, F)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* qkvb = static_cast<bf16*>(qkv);
@@ -1426,7 +1409,7 @@ extern "C" int vitiq_encoder_layer_attn_int8_full(
 extern "C" int vitiq_attention_int8(const void* qkv, void* out, void* s_dump, void* p_dump,
                                     void* pv_dump, int B, int L, int D, int H,
                                     void* stream_ptr) {
-  if (!int8_attention_shapes_ok(B, L, D, H, 128)) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(B, L, D, H, 128)) return (int)cudaErrorInvalidValue;
   const cudaError_t err = attention_int8(
       static_cast<const bf16*>(qkv), static_cast<bf16*>(out), B, L, D, H,
       static_cast<int*>(s_dump), static_cast<int8_t*>(p_dump), static_cast<int*>(pv_dump),
