@@ -76,7 +76,11 @@ which raises (exit code 1) on failure:
    gradient in the L2 norm (max |difference| printed). K4-bwd runs on the
    plain version's stash, so that it alone is under test. Then K3 at
    rawiq_best's shape (D=256, L=65, dropout 0.1 and 0) and K4 at
-   rawiq_best_mp's (D=256, L=64).
+   rawiq_best_mp's (D=256, L=64). Then both at the widths added past
+   d_model 128 / d_head 32 (WIDE_TRAIN_K3, WIDE_TRAIN_K4): d_head 64 (D=128,
+   H=2: L=129 through K3, L=65 through K4), d_model 64 (H=4, L=17, both)
+   and an FFN width of 320 (64-wide GEMM tiles, both), dropout on, where the
+   forward output and dx are also held within GRAD_REL in the L2 norm.
 6. train: the ViT flagship and the rawIQ flagship (bf16 `tpu` numerics,
    seeded random weights) each take 20 `make_train_step` steps at B=256 on
    one repeated random batch at lr 1e-3, the rawIQ one on raw frames through
@@ -114,6 +118,21 @@ which raises (exit code 1) on failure:
    VITIQ_ATTN_INT8=1: K3 9 + 9 per step, K7 8 and K2 1 per evaluated batch,
    nothing else; the resumed history holds 3 epochs. The resumed call runs
    under `torch.profiler` (its device busy time and idle share).
+   train-wide: vit_tiny_2016 (d64/L4/H4, 17 tokens) through K4 (4 + 4
+   launches a step) and vit_tpu_production (d128/L6/H2, d_head 64) through
+   K3 (6 + 6), 20 steps each at B=4096, loss falling, one dropout-free
+   step's gradient at B=256 held to the plain bf16 layers and the f32 path
+   at cosine >= 0.995.
+   head-to-head: `python -m vitiq_torch.cli head-to-head --source synthetic
+   --numerics tpu --no_plots --num_epochs H2H_EPOCHS`, then the same with
+   --n_head 2 (d_head 64 in both arms), each in a temporary working
+   directory: the ViT arm trains through K3 only, the rawIQ arm through K4
+   only (n_layers + n_layers a step), both evaluate through K1/K2 (n_layers
+   - 1 and 1 per batch), nothing else launches; both summary.json files and
+   both CSVs exist; the printed insights' overall_improvement is the
+   difference of the two test accuracies (x 100, within 0.01). Each arm's
+   accuracy and the wall time are printed; the first call runs under
+   `torch.profiler` (device busy time and idle share).
 7. timing (CUDA events after warm-up): per-layer kernel time against the
    plain version (K1 and K2 at the three shapes, B=4096 and, at 1025 tokens,
    B=256; K3 at the ViT and rawIQ shapes and K4 at the rawIQ one, B=4096;
@@ -144,7 +163,13 @@ which raises (exit code 1) on failure:
    (VITIQ_TRAIN_STASH=0) and through the plain layers (B=4096), the conv1d
    flagship with remat (auto) and without (VITIQ_TRAIN_REMAT=0) (B=256),
    and a `torch.profiler` breakdown of the conv1d step (device kernel time
-   by kernel, idle share); beside the card's name and power limit.
+   by kernel, idle share); K3 and K4 at the added widths per layer at B=4096
+   (vit_tpu_production: K3 at L=129, H=2; the rawIQ flagship at n_head 2: K4
+   at L=65; vit_tiny_2016: K3 and K4 at D=64, L=17) with their bounds, and
+   the vit_tpu_production and vit_tiny_2016 train steps at B=4096 through
+   K3 / K4 and through the plain layers with K5 (VITIQ_FUSED_TRAIN=0, the
+   path they took before K3/K4 took their widths); beside the card's name
+   and power limit.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -278,6 +303,9 @@ BEST_EVAL_EPOCHS, BEST_EVAL_LR = 2, 1e-4
 # rawiq_best through `cli train`: 2 epochs with a checkpoint after each, then
 # resume="auto" to a third, validation under VITIQ_ATTN_INT8=1
 BEST_CLI_EPOCHS = 2
+# the head-to-head phase: both arms for a few epochs on the default corpus
+# (launch- and file-gated, not accuracy-gated)
+H2H_EPOCHS = 3
 DEVICE = torch.device("cuda", 0)
 # the JAX package's recommended ViT (n_head 2, d_head 64) under `tpu` numerics
 VIT_TPU_PRODUCTION = dataclasses.replace(ExperimentConfig.vit_tpu_production().model,
@@ -288,6 +316,23 @@ VIT_TPU_PRODUCTION = dataclasses.replace(ExperimentConfig.vit_tpu_production().m
 # (inputs read once, outputs written once) over these.
 PEAK_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 SFU_EXP2_PER_CLOCK_SM, N_SM = 16, 132  # Hopper's special-function units
+
+
+def check_train_spills() -> None:
+    """The build's `ptxas -v` report of csrc/fused_layer_train.cu: print the
+    registers of each attention block, and fail if any function of the file
+    spills (the d_head-64 backward parks its column sums in shared memory so
+    that it need not)."""
+    import re
+
+    report = _build.ptxas_report("fused_layer_train")
+    for name, dh, regs in re.findall(r"entry function '[^']*?(train_attention\w*?)ILi(\d+)E.*?"
+                                     r"Used (\d+) registers", report, re.S):
+        print(f"  ptxas {name}<{dh}>: {regs} registers", flush=True)
+    spilled = sum(map(int, re.findall(r"(\d+) bytes spill", report)))
+    print(f"  ptxas fused_layer_train.cu: {spilled} bytes spilled in all", flush=True)
+    if spilled:
+        raise AssertionError(f"fused_layer_train.cu spills {spilled} bytes")
 
 
 def card_line() -> str:
@@ -548,49 +593,72 @@ def train_inputs(gen, B: int, L: int, D: int, device):
     return x, dy
 
 
+# K3 and K4 at the widths past d_model 128 / d_head 32 the training kernels
+# take since they were widened: (name, L, FFN, dropout, D, H). d_head 64:
+# vit_tpu_production's 129 tokens (K3) and the rawIQ flagship at n_head 2
+# (65 tokens, Lp 80: K4); d_model 64: vit_tiny_2016's 17 tokens (K4, and K3
+# where VITIQ_TRAIN_STASH=0 sends it); an FFN width that 64 divides and 128
+# does not (64-wide GEMM tiles), both kernels.
+WIDE_TRAIN_K3 = (("vit_tpu_production (d_head 64)", 129, 512, TRAIN_DROP, 128, 2),
+                 ("vit_tiny_2016 (d_model 64)", 17, 256, TRAIN_DROP, 64, 4),
+                 ("FFN 320", 65, 320, RAW_DROP, 128, 8))
+WIDE_TRAIN_K4 = (("rawIQ flagship at n_head 2 (d_head 64)", 65, 1024, RAW_DROP, 128, 2),
+                 ("vit_tiny_2016 (d_model 64)", 17, 256, TRAIN_DROP, 64, 4),
+                 ("FFN 320", 65, 320, RAW_DROP, 128, 8))
+
+
 def check_train_kernels(device, B: int = 256) -> dict:
     """K3-fwd and K3-bwd against their plain versions at both flagship
     shapes (dropout on) and at rawiq_best's (D=256, dropout on and off),
     then K4-fwd and K4-bwd at the rawIQ flagship's and at rawiq_best_mp's
-    (D=256, L=64), dropout on. Returns the largest difference of each
+    (D=256, L=64), dropout on; then both at WIDE_TRAIN_K3 / WIDE_TRAIN_K4,
+    dropout on, where the forward output and dx are also held within
+    GRAD_REL in the L2 norm. Returns the largest difference of each
     kernel."""
     errs = {"k3f": 0.0, "k3b": 0.0, "k4f": 0.0, "k4b": 0.0}
     gen = torch.Generator().manual_seed(8)
-    for name, L, ffn, drop, D in (("vit", 129, 512, TRAIN_DROP, 128),
-                                  ("rawiq", 65, 1024, RAW_DROP, 128),
-                                  ("rawiq_best", 65, 1024, BEST_DROP, 256),
-                                  ("rawiq_best", 65, 1024, 0.0, 256)):
-        wide = "" if D == 128 else f" D={D}"
+    for name, L, ffn, drop, D, H in (("vit", 129, 512, TRAIN_DROP, 128, 8),
+                                     ("rawiq", 65, 1024, RAW_DROP, 128, 8),
+                                     ("rawiq_best", 65, 1024, BEST_DROP, 256, 8),
+                                     ("rawiq_best", 65, 1024, 0.0, 256, 8), *WIDE_TRAIN_K3):
+        wide = (D, H) != (128, 8) or ffn % 128
         print(f"phase train-kernels: K3 vs plain version on the GPU, {name} shape B={B} L={L} "
-              f"F={ffn} H=8{wide}, dropout {drop}", flush=True)
-        ops = train_operands(ffn, 21, device, D)
+              f"F={ffn} D={D} H={H}, dropout {drop}", flush=True)
+        ops = train_operands(ffn, 21, device, D, H)
         x, dy = train_inputs(gen, B, L, D, device)
-        args = (8, drop, TRAIN_SEED, 3)
+        args = (H, drop, TRAIN_SEED, 3)
         with torch.no_grad():
             y = flt.fused_train_layer_fwd(x, ops, *args)
             want = flt.fused_train_layer_reference(x, ops, *args)
             torch.cuda.synchronize()
             errs["k3f"] = max(errs["k3f"], check_close(f"{name} K3-fwd", y, want, LAYER_TOL))
+            if wide:
+                check_rel(f"{name} K3-fwd", y, want)
             dx, grads = flt.fused_train_layer_bwd(x, dy, ops, *args)
             want_dx, want_grads = flt.fused_train_layer_backward_reference(x, dy, ops, *args)
             torch.cuda.synchronize()
         errs["k3b"] = max(errs["k3b"], check_close(f"{name} K3-bwd dx", dx, want_dx, LAYER_TOL),
                           check_grads(f"{name} K3-bwd", grads, want_grads))
+        if wide:
+            check_rel(f"{name} K3-bwd dx", dx, want_dx)
 
-    for name, L, ffn, drop, D in (("rawiq", 65, 1024, RAW_DROP, 128),
-                                  ("rawiq_best_mp", 64, 1024, BEST_DROP, 256)):
-        wide = "" if D == 128 else f" D={D}"
+    for name, L, ffn, drop, D, H in (("rawiq", 65, 1024, RAW_DROP, 128, 8),
+                                     ("rawiq_best_mp", 64, 1024, BEST_DROP, 256, 8),
+                                     *WIDE_TRAIN_K4):
+        wide = (D, H) != (128, 8) or ffn % 128
         print(f"phase train-kernels: K4 vs plain version on the GPU, {name} shape B={B} L={L} "
-              f"F={ffn} H=8{wide}, dropout {drop}", flush=True)
-        ops = train_operands(ffn, 21, device, D)
+              f"F={ffn} D={D} H={H}, dropout {drop}", flush=True)
+        ops = train_operands(ffn, 21, device, D, H)
         x, dy = train_inputs(gen, B, L, D, device)
-        args = (8, drop, TRAIN_SEED, 3)
-        label = "K4" if D == 128 else f"{name} K4"
+        args = (H, drop, TRAIN_SEED, 3)
+        label = "K4" if name == "rawiq" else f"{name} K4"
         with torch.no_grad():
             y, stash = flt.fused_train_layer_fwd_stash(x, ops, *args)
             want, want_stash = flt.fused_train_layer_stash_reference(x, ops, *args)
             torch.cuda.synchronize()
             k4f = check_close(f"{label}-fwd y", y, want, LAYER_TOL)
+            if wide:
+                check_rel(f"{label}-fwd y", y, want)
             for part, got, ref in zip(("attn", "xh1", "xh2", "r1", "r2", "pbar"), stash,
                                       want_stash):
                 if got.dtype != ref.dtype:
@@ -604,6 +672,8 @@ def check_train_kernels(device, B: int = 256) -> dict:
         errs["k4f"] = max(errs["k4f"], k4f)
         errs["k4b"] = max(errs["k4b"], check_close(f"{label}-bwd dx", dx, want_dx, LAYER_TOL),
                           check_grads(f"{label}-bwd", grads, want_grads))
+        if wide:
+            check_rel(f"{label}-bwd dx", dx, want_dx)
         del stash, want_stash
     return errs
 
@@ -618,7 +688,7 @@ def flat_grad(model, inputs, labels, seed) -> torch.Tensor:
 
 
 def train_experiment(cfg, batch: int) -> ExperimentConfig:
-    return ExperimentConfig(model=cfg, data=DataConfig(synthetic_frame_len=FRAME_LEN),
+    return ExperimentConfig(model=cfg, data=DataConfig(synthetic_frame_len=cfg.seq_length),
                             train=TrainConfig(batch_size=batch, learning_rate=1e-3))
 
 
@@ -650,20 +720,20 @@ def train_steps(label: str, exp, model, pre, frames, labels, want: dict, steps: 
 
 
 def train_check(label: str, cfg, stats, kernels, device, cos_plain: float = COSINE_PLAIN,
-                batch: int = 256) -> dict:
-    """20 train steps of a model through the training kernels `kernels`
-    (K3 or K4, the other never launching), then the gradient of one
-    dropout-free step against the plain bf16 (cosine >= `cos_plain`) and the
-    f32 paths. The model and its preprocess come from
-    `build_forward_and_preprocess`, so the rawIQ arms take raw frames through
-    the fused raw embedding."""
+                batch: int = 256, grad_batch: int = 0) -> dict:
+    """20 train steps of a model at `batch` through the training kernels
+    `kernels` (K3 or K4, the other never launching), then the gradient of
+    one dropout-free step at `grad_batch` (default `batch`) against the
+    plain bf16 (cosine >= `cos_plain`) and the f32 paths. The model and its
+    preprocess come from `build_forward_and_preprocess`, so the rawIQ arms
+    take raw frames through the fused raw embedding."""
     print(f"phase train: {label}, 20 make_train_step steps, B={batch}, lr 1e-3", flush=True)
     exp = train_experiment(cfg, batch)
     model, pre = build_forward_and_preprocess(
         exp, AMCModel(cfg, generator=torch.Generator().manual_seed(0)), stats, device)
     init = {k: v.clone() for k, v in model.state_dict().items()}
     gen = torch.Generator().manual_seed(5)
-    frames = torch.randn((batch, FRAME_LEN, 2), generator=gen).to(device)
+    frames = torch.randn((batch, cfg.seq_length, 2), generator=gen).to(device)
     labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen).to(device)
     n = cfg.n_layers
     others = K4 if kernels == K3 else K3
@@ -671,7 +741,10 @@ def train_check(label: str, cfg, stats, kernels, device, cos_plain: float = COSI
     counts = train_steps(label, exp, model, pre, frames, labels, want, 20)
 
     cfg0 = dataclasses.replace(cfg, drop_prob=0.0)
-    fused, pre0 = build_forward_and_preprocess(train_experiment(cfg0, batch), cfg0, stats, device)
+    grad_batch = grad_batch or batch
+    frames, labels = frames[:grad_batch], labels[:grad_batch]
+    fused, pre0 = build_forward_and_preprocess(train_experiment(cfg0, grad_batch), cfg0, stats,
+                                               device)
     fused.load_state_dict(init)
     inputs = pre0(frames)
     flt.reset_launches()
@@ -684,13 +757,13 @@ def train_check(label: str, cfg, stats, kernels, device, cos_plain: float = COSI
     finally:
         del os.environ["VITIQ_FUSED_TRAIN"]
     ref_cfg = dataclasses.replace(cfg0, numerics="reference")
-    ref, ref_pre = build_forward_and_preprocess(train_experiment(ref_cfg, batch), ref_cfg, stats,
-                                                device)
+    ref, ref_pre = build_forward_and_preprocess(train_experiment(ref_cfg, grad_batch), ref_cfg,
+                                                stats, device)
     ref.load_state_dict(init)
     g_ref = flat_grad(ref, ref_pre(frames), labels, TRAIN_SEED)
     cos_p = torch.nn.functional.cosine_similarity(g_fused, g_plain, dim=0).item()
     cos_f32 = torch.nn.functional.cosine_similarity(g_fused, g_ref, dim=0).item()
-    print(f"  gradient cosine at dropout 0: vs plain bf16 layers {cos_p:.6f} (limit "
+    print(f"  gradient cosine at dropout 0, B={grad_batch}: vs plain bf16 layers {cos_p:.6f} (limit "
           f"{cos_plain}), vs f32 reference path {cos_f32:.6f} (limit {COSINE_F32})",
           flush=True)
     if not cos_p >= cos_plain or not cos_f32 >= COSINE_F32:
@@ -719,7 +792,7 @@ def conv1d_train_check(device, batch: int = 64, steps: int = 20, grad_batch: int
         raise AssertionError("the conv1d flagship must train through the fused raw embedding")
     init = {k: v.clone() for k, v in model.state_dict().items()}
     gen = torch.Generator().manual_seed(5)
-    frames = torch.randn((batch, FRAME_LEN, 2), generator=gen).to(device)
+    frames = torch.randn((batch, cfg.seq_length, 2), generator=gen).to(device)
     labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen).to(device)
     want = {K5[0]: 2 * n, K5[1]: n, **{k: 0 for k in flt.launches}}
     counts = train_steps("conv1d flagship", exp, model, pre, frames, labels, want, steps)
@@ -756,7 +829,7 @@ def time_train_step(label: str, cfg, stats, batch: int, device, card: str, iters
         exp = train_experiment(cfg, batch)
         model, pre = build_forward_and_preprocess(exp, cfg, stats, device)
         gen = torch.Generator().manual_seed(6)
-        frames = torch.randn((batch, FRAME_LEN, 2), generator=gen).to(device)
+        frames = torch.randn((batch, cfg.seq_length, 2), generator=gen).to(device)
         labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen).to(device)
         step = make_train_step(make_optimizer(exp.train), exp.train.label_smoothing, pre)
         box = [create_train_state(model, exp.train)]
@@ -799,7 +872,7 @@ def profile_train_step(label: str, cfg, stats, batch: int, device, card: str,
     exp = train_experiment(cfg, batch)
     model, pre = build_forward_and_preprocess(exp, cfg, stats, device)
     gen = torch.Generator().manual_seed(6)
-    frames = torch.randn((batch, FRAME_LEN, 2), generator=gen).to(device)
+    frames = torch.randn((batch, cfg.seq_length, 2), generator=gen).to(device)
     labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen).to(device)
     step = make_train_step(make_optimizer(exp.train), exp.train.label_smoothing, pre)
     box = [create_train_state(model, exp.train)]
@@ -831,15 +904,16 @@ def profile_train_step(label: str, cfg, stats, batch: int, device, card: str,
 
 
 def time_train_layers(label: str, L: int, ffn: int, drop: float, device, card: str,
-                      stash: bool, D: int = 128, k3: bool = True, B: int = 4096) -> dict:
+                      stash: bool, D: int = 128, k3: bool = True, B: int = 4096,
+                      H: int = 8) -> dict:
     """K3 (unless not `k3`) and with `stash` K4 against their plain versions
     on one layer at B=4096, with their bounds."""
-    ops = train_operands(ffn, 13, device, D)
+    ops = train_operands(ffn, 13, device, D, H)
     gen = torch.Generator().manual_seed(4)
     x, dy = train_inputs(gen, B, L, D, device)
-    args = (8, drop, TRAIN_SEED, 0)
-    t = layer_bounds(B, L, ffn, D)
-    line = f"  {label} train layer B={B} L={L} F={ffn} D={D} dropout {drop}:"
+    args = (H, drop, TRAIN_SEED, 0)
+    t = layer_bounds(B, L, ffn, D, H)
+    line = f"  {label} train layer B={B} L={L} F={ffn} D={D} H={H} dropout {drop}:"
     with torch.no_grad():
         if k3:
             t.update({
@@ -1239,6 +1313,116 @@ def best_cli_train_check(device, card: str,
     return counts
 
 
+def head_to_head_check(device, card: str, n_head: int = 0, profile: bool = False) -> dict:
+    """`python -m vitiq_torch.cli head-to-head --source synthetic --numerics
+    tpu --no_plots --num_epochs H2H_EPOCHS [--n_head N]`, in this process, in
+    a temporary working directory: the ViT flagship's geometry (vit_reference)
+    and the rawIQ flagship's (rawiq_reference) trained on the same default
+    corpus (3 x 2048 frames), each evaluated on its test split, then
+    compared. The counters, reset just before, must show K3 only for the
+    ViT arm's steps (n_layers + n_layers each), K4 only for the rawIQ arm's
+    (at n_head 2, d_head 64: K3 at Lp 144 and K4 at Lp 80 as the stash gate
+    picks), K1 n_layers - 1 and K2 once per evaluated batch of either arm
+    (validation each epoch, then the test pass) and nothing else. Both
+    summary.json files and both CSVs must exist, and the printed insights'
+    overall_improvement must equal the difference of the two test
+    accuracies times 100 within 0.01 (the reports hold percentages to two
+    decimals). With `profile`, the call runs under `torch.profiler`: its
+    device busy time and idle share."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    args = ["head-to-head", "--source", "synthetic", "--numerics", "tpu", "--num_epochs",
+            str(H2H_EPOCHS), "--device", str(device), "--no_plots"]
+    if n_head:
+        args += ["--n_head", str(n_head)]
+    vit_cfg, raw_cfg = cli.head_to_head_configs(cli.build_parser().parse_args(args))
+    print(f"phase head-to-head: python -m vitiq_torch.cli {' '.join(args)} (ViT d{vit_cfg.model.d_model}"
+          f"/L{vit_cfg.model.n_layers}/H{vit_cfg.model.n_head}, rawIQ d{raw_cfg.model.d_model}/"
+          f"L{raw_cfg.model.n_layers}/H{raw_cfg.model.n_head})", flush=True)
+    want = {k: 0 for k in all_launches()}
+    kernels = {}
+    for arm, cfg in (("vit", vit_cfg), ("rawiq", raw_cfg)):
+        m, data, B = cfg.model, cfg.data, cfg.train.batch_size
+        L = m.num_tokens
+        k = K4 if flt.stash_enabled(L, m.n_head, m.d_model, B) else K3
+        if not flt.fused_train_supported(L, m.d_model, m.ffn_hidden, m.n_head):
+            raise AssertionError(f"the {arm} arm's shape must train through K3/K4")
+        kernels[arm] = k
+        n = len(data.synthetic_classes) * data.synthetic_frames_per_class
+        n_train, n_valid = int(data.train_size * n), int(data.valid_size * n)
+        steps = H2H_EPOCHS * (n_train // B)
+        batches = H2H_EPOCHS * -(-n_valid // B) + -(-(n - n_train - n_valid) // B)
+        for name in k:
+            want[name] += m.n_layers * steps
+        want["fused_encoder_layer"] += (m.n_layers - 1) * batches
+        want["fused_encoder_layer_cls"] += batches
+    if kernels != {"vit": K3, "rawiq": K4}:
+        raise AssertionError(f"the arms train through {kernels}, expected K3 (ViT) and K4 (rawIQ)")
+    cwd = os.getcwd()
+    out = io.StringIO()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            reset_all_launches()
+            with (torch.profiler.profile(activities=activities) if profile
+                  else contextlib.nullcontext()) as prof:
+                with contextlib.redirect_stdout(out):
+                    t0 = time.perf_counter()
+                    cli.main(args)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            got = all_launches()
+            text = out.getvalue()
+            result = json.loads(text[text.rindex("\n{\n") + 1:])
+            files = [Path(result[arm]["experiment_dir"]) / "summary.json"
+                     for arm in ("vit", "rawiq")]
+            files += [Path(result["comparison_dir"]) / name
+                      for name in ("summary_comparison.csv", "detailed_comparison.csv")]
+            missing = [str(f) for f in files if not f.exists()]
+            epochs = {arm: json.loads((Path(result[arm]["experiment_dir"])
+                                       / "checkpoint_final.json").read_text())["history"]
+                      ["epoch_time"] for arm in ("vit", "rawiq")}
+        finally:
+            os.chdir(cwd)
+    print(f"  launches {{ {', '.join(f'{k}: {v}' for k, v in got.items() if v)} }}", flush=True)
+    if got != want:
+        raise AssertionError(f"head-to-head launched {got}, expected {want}")
+    if missing:
+        raise AssertionError(f"head-to-head did not write {missing}")
+    vit_acc = result["vit"]["test_overall_accuracy"]
+    raw_acc = result["rawiq"]["test_overall_accuracy"]
+    improvement = result["insights"]["overall_improvement"]
+    print(f"  {H2H_EPOCHS} epochs each: ViT test accuracy {vit_acc * 100:.2f}% (epochs_run "
+          f"{result['vit']['epochs_run']}), rawIQ {raw_acc * 100:.2f}% (epochs_run "
+          f"{result['rawiq']['epochs_run']}); insights overall_improvement {improvement:+.2f} "
+          f"points, top improved {result['insights'].get('top_improved')}; wall "
+          f"{wall:.4f} s{' (profiler on)' if profile else ''}  [{card}]", flush=True)
+    # the wall split: each arm's fit (its epochs: train steps + validation) and
+    # the rest (corpus, model build, checkpoint writes, test pass, comparison)
+    fits = {arm: result[arm]["train_wall_seconds"] for arm in ("vit", "rawiq")}
+    for arm in ("vit", "rawiq"):
+        later = epochs[arm][1:]
+        print(f"  {arm} arm: fit {fits[arm]:.4f} s, epochs "
+              f"{', '.join(f'{e:.4f}' for e in epochs[arm])} s (train steps + validation); "
+              f"after the first, {n_train * len(later) / sum(later):.1f} training frames/s "
+              f"with validation  [{card}]", flush=True)
+    print(f"  wall {wall:.4f} s = fits {sum(fits.values()):.4f} s + the rest "
+          f"{wall - sum(fits.values()):.4f} s (corpus, model build, checkpoint writes, test "
+          f"pass, comparison)  [{card}]", flush=True)
+    if not abs(improvement - 100 * (raw_acc - vit_acc)) <= 0.01 + 1e-9:
+        raise AssertionError(f"insights overall_improvement {improvement} != 100 * "
+                             f"({raw_acc} - {vit_acc})")
+    if profile:
+        busy = sum(device_us(e) for e in device_kernels(prof)) / 1e6
+        print(f"  profile of the head-to-head call: host wall {wall:.4f} s (profiler on), "
+              f"device kernel time {busy:.4f} s, idle share {1 - busy / wall:.4f}  [{card}]",
+              flush=True)
+    return {"counts": got, "wall_s": wall}
+
+
 def check_rejects_k1(name: str, k1_out: torch.Tensor, want: torch.Tensor) -> None:
     """The K7 layer check must turn away K1's output (K1's bf16 core in
     K7's place) on the same input: its relative L2 exceeds K7_LAYER_TOL's."""
@@ -1585,6 +1769,7 @@ def main() -> int:
     print(f"  nvcc {' '.join(_build.NVCC_FLAGS)} {[s.name for s in _build.sources()]} -> "
           f"{lib.relative_to(_build.BUILD_DIR.parents[1])} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    check_train_spills()
 
     errs = check_kernels(device)
     errs.update(check_attention_kernels(device))
@@ -1638,6 +1823,12 @@ def main() -> int:
     evaluate_check(device, "rawiq_best", rawiq_best_config("tpu"), epochs=BEST_EVAL_EPOCHS,
                    lr=BEST_EVAL_LR, gate_accuracy=False)
     best_cli_train_check(device, card)
+    train_check("vit_tiny_2016 (d_model 64)", vit_tiny_2016_config("tpu"), STATS, K4, device,
+                COSINE_F32, batch=4096, grad_batch=256)
+    train_check("vit_tpu_production (d_head 64)", VIT_TPU_PRODUCTION, STATS, K3, device,
+                COSINE_F32, batch=4096, grad_batch=256)
+    head_to_head_check(device, card, profile=True)
+    head_to_head_check(device, card, n_head=2)
 
     print(f"phase timing (CUDA events after warm-up) on {card}:", flush=True)
     times = {name: time_serving_layers(name, L, ffn, B, D, device, card)
@@ -1659,8 +1850,12 @@ def main() -> int:
     times["rawiq"].update(time_train_layers("rawiq", 65, 1024, RAW_DROP, device, card, True))
     times["rawiq_best"].update(time_train_layers("rawiq_best", 65, 1024, BEST_DROP, device, card,
                                                  False, D=256))
-    times["rawiq_best_mp"] = time_train_layers("rawiq_best_mp", 64, 1024, BEST_DROP, device,
-                                               card, True, D=256, k3=False)
+    # the other widths' layers: printed with their bounds, not in the kernels line
+    time_train_layers("rawiq_best_mp", 64, 1024, BEST_DROP, device, card, True, D=256, k3=False)
+    time_train_layers("vit_tpu_production", 129, 512, TRAIN_DROP, device, card, False, H=2)
+    time_train_layers("rawIQ flagship at n_head 2", 65, 1024, RAW_DROP, device, card, True,
+                      k3=False, H=2)
+    time_train_layers("vit_tiny_2016", 17, 256, TRAIN_DROP, device, card, True, D=64, H=4)
     times["conv1d"].update(time_attention(device, card))
 
     vit_cfg, raw_cfg = flagship_vit_config("tpu"), flagship_rawiq_config("tpu")
@@ -1684,6 +1879,11 @@ def main() -> int:
                        device, card)
     time_train_step("rawiq_best_mp (K4 kernels)", rawiq_best_mp_config("tpu"), RAW_STATS, 4096,
                     device, card, 5)
+    for label, cfg, kernels in (("vit_tpu_production", VIT_TPU_PRODUCTION, "K3"),
+                                ("vit_tiny_2016", vit_tiny_2016_config("tpu"), "K4")):
+        time_train_step(f"{label} ({kernels} kernels)", cfg, STATS, 4096, device, card, 5)
+        time_train_step(f"{label} (plain layers with K5, VITIQ_FUSED_TRAIN=0)", cfg, STATS, 4096,
+                        device, card, 3, {"VITIQ_FUSED_TRAIN": "0"})
 
     for label, res, batch in (("vit flagship", vit, 4096), ("rawiq flagship", rawiq, 4096),
                               ("conv1d flagship", conv1d, 2048)):

@@ -1,11 +1,13 @@
 """The conv1d arm (one token per sample: the reference's long-sequence mode)
 through the port against `vitiq`, on a d64/L2/H4 model whose weights come
 from `vitiq` through `interop.state_dict_from_vitiq`: seq_length 128 (129
-tokens) and 600 (601 tokens, where `VITIQ_TRAIN_REMAT=auto` rematerializes
-each layer in training, in both packages). Under `tpu` numerics the fused
-training stack turns the shape down (d_model 64 here, 1025 tokens at the
-flagship), so training runs the plain layers with K5 (`fused_attention`) as
-their attention: its plain versions on the CPU.
+tokens) and 600 (601 tokens). Under `tpu` numerics the port trains this
+d64 model through the fused training stack (K3's plain versions on the
+CPU), which has no remat; the stack turns the conv1d flagship's 1025 tokens
+down, and those train through the plain layers with K5 (`fused_attention`)
+as their attention, each layer rematerialized above 512 tokens
+(`VITIQ_TRAIN_REMAT=auto`, as in vitiq): a route driven here at an FFN
+width of 96, which the stack turns down.
 
 Tolerances: f32 `reference` logits and one train step at 1e-5 (losses
 relative, parameters absolute). bf16 `tpu`: logits within 0.05 of vitiq's
@@ -170,15 +172,19 @@ def test_gradient_matches_vitiq(seq, numerics):
 
 
 @pytest.mark.parametrize("numerics", ["reference", "tpu"])
-def test_remat_with_dropout_gives_the_gradient_without_remat(numerics, monkeypatch):
-    """Dropout 0.2 at 601 tokens: the rematerialized layers (auto) replay
-    the forward's dropout masks from the step's generator, so the gradient
-    equals the one without remat (VITIQ_TRAIN_REMAT=0) at 1e-6, and the
-    generator ends where it ends without remat."""
-    cfg = _cfg(600, numerics, drop=0.2)
+def test_remat_with_dropout_gives_the_gradient_without_remat(numerics, monkeypatch, k5_calls):
+    """Dropout 0.2 at 601 tokens and an FFN width of 96, which the fused
+    training stack turns down, so the plain layers run (with K5 under
+    `tpu`, once more per layer in the recompute): the rematerialized layers
+    (auto) replay the forward's dropout masks from the step's generator, so
+    the gradient equals the one without remat (VITIQ_TRAIN_REMAT=0) at
+    1e-6, and the generator ends where it ends without remat."""
+    cfg = dataclasses.replace(_cfg(600, numerics, drop=0.2), ffn_hidden=96)
     _, model, x, y = _setup(cfg, seed=4, batch=2)
     assert port_encoder.use_remat(True, cfg.num_tokens)
     loss, remat, gen_state = _port_grad(model, x, y)
+    n = cfg.n_layers if numerics == "tpu" else 0
+    assert k5_calls == {"fwd": 2 * n, "bwd": n}
     monkeypatch.setenv("VITIQ_TRAIN_REMAT", "0")
     assert not port_encoder.use_remat(True, cfg.num_tokens)
     loss0, plain, gen_state0 = _port_grad(model, x, y)
@@ -192,12 +198,13 @@ def test_remat_with_dropout_gives_the_gradient_without_remat(numerics, monkeypat
 
 @pytest.mark.parametrize("seq,fwd_per_layer", [(128, 1), (600, 2)])
 def test_tpu_train_step_routes_every_layer_through_k5(seq, fwd_per_layer, k5_calls):
-    """A `tpu` train step runs K5-fwd once per layer, and once more per
-    layer where remat recomputes it (601 tokens), and K5-bwd once per
-    layer; a `reference` step never calls K5."""
+    """A `tpu` train step through the plain layers (an FFN width of 96,
+    which the fused training stack turns down) runs K5-fwd once per layer,
+    and once more per layer where remat recomputes it (601 tokens), and
+    K5-bwd once per layer; a `reference` step never calls K5."""
     tcfg = TrainConfig(learning_rate=1e-3)
     for numerics in ("tpu", "reference"):
-        cfg = _cfg(seq, numerics, drop=0.1)
+        cfg = dataclasses.replace(_cfg(seq, numerics, drop=0.1), ffn_hidden=96)
         _, model, x, y = _setup(cfg, seed=5)
         step = ptrain.make_train_step(poptim.make_optimizer(tcfg), tcfg.label_smoothing)
         before = dict(k5_calls)

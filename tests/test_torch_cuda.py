@@ -15,12 +15,13 @@ another order and from operands whose bf16 roundings may flip). K4's stash:
 its bf16 tensors at the one-layer tolerance, its f32 1/std within 1e-3
 relative (f32 statistics summed in another order).
 
-The kernels are held at every width they take: K1, K2 and K6 at d_model 64,
-128 and 256 and d_head 16, 32 and 64; K3 and K4 at d_model 128 and 256. The
-served configurations of the JAX package that need the wider kernels
+The kernels are held at every width they take: K1, K2, K6, K3 and K4 at
+d_model 64, 128 and 256 and d_head 16, 32 and 64 (K3 and K4 also at FFN
+widths that 64 divides and 128 does not, where their GEMMs take 64-wide
+tiles). The configurations of the JAX package that need the wider kernels
 (`rawiq_best`, `rawiq_best_mp`, `vit_tiny_2016`, `vit_tpu_production`) are
 served, evaluated in float and int8, and trained for an epoch under `tpu`
-numerics, with the launches of each kernel counted.
+numerics through K3 or K4, with the launches of each kernel counted.
 
 K7 (the int8-attention layer) is held as K6 is, by relative L2 and a max in
 quantization steps (one layer 1e-3 and 2 steps, which K1's bf16 core in
@@ -158,7 +159,11 @@ def _train_operands(cuda, ffn, n_head, d=D):
 @pytest.mark.parametrize("Lx,ffn,n_head,d", [  # d_head 16 and 32, + rawIQ, + rawiq_best
     _p(Lx, ffn, n_head) for Lx, ffn in ((1, 256), (17, 256), (129, 256), (65, 1024))
     for n_head in (8, 4)] + [_p(65, 1024, 8, d=256), _p(65, 1024, 16, d=256),
-                             _p(17, 256, 8, d=256)])
+                             _p(17, 256, 8, d=256)]
+    # d_head 64 (vit_tpu_production: L 129, Lp 144; its longest L 224), d_model 64
+    # (vit_tiny_2016: d_head 16; d_head 64 at n_head 1), FFN widths 64 mod 128
+    + [_p(129, 512, 2), _p(224, 256, 2), _p(17, 256, 4, d=64), _p(40, 192, 1, d=64),
+       _p(65, 320, 8), _p(33, 192, 4, d=256)])
 @pytest.mark.parametrize("drop", [0.0, 0.1])
 def test_train_kernels_match_plain_versions(cuda, Lx, ffn, n_head, d, drop):
     from vitiq_torch.ops.cuda import fused_layer_train as flt
@@ -208,7 +213,10 @@ def test_train_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="bf16"):
         flt.fused_train_layer_fwd(x, ops, H, 0.1, 1, 0)  # f32 activations
     with pytest.raises(ValueError, match="d_head"):
-        flt.fused_train_layer_fwd(x.bfloat16(), ops, 2, 0.1, 1, 0)  # d_head 64
+        flt.fused_train_layer_fwd(x.bfloat16(), ops, 16, 0.1, 1, 0)  # d_head 8
+    wide = torch.zeros((1, 225, D), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="shared-memory"):
+        flt.fused_train_layer_fwd(wide, ops, 2, 0.1, 1, 0)  # d_head 64 past L 224
     long = torch.zeros((1, 1025, D), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="shared-memory"):
         flt.fused_train_layer_bwd(long, long, ops, H, 0.1, 1, 0)  # conv1d length
@@ -245,7 +253,10 @@ STASH_NAMES = ("attn", "xh1", "xh2", "r1", "r2", "pbar")
 @pytest.mark.cuda
 @pytest.mark.parametrize("Lx,ffn,n_head,d", [  # d_head 16 and 32, + rawiq_best_mp
     _p(Lx, ffn, n_head) for Lx, ffn in ((17, 256), (65, 1024), (80, 256))
-    for n_head in (8, 4)] + [_p(64, 1024, 8, d=256), _p(64, 1024, 16, d=256)])
+    for n_head in (8, 4)] + [_p(64, 1024, 8, d=256), _p(64, 1024, 16, d=256)]
+    # d_head 64 (the rawIQ flagship at n_head 2: Lp 80), d_model 64
+    # (vit_tiny_2016: L 17, d_head 16), FFN widths 64 mod 128
+    + [_p(65, 1024, 2), _p(17, 256, 4, d=64), _p(33, 192, 1, d=64), _p(65, 320, 8)])
 @pytest.mark.parametrize("drop", [0.0, 0.2])
 def test_stash_kernels_match_plain_versions(cuda, Lx, ffn, n_head, d, drop):
     """y and the bf16 stash tensors at the one-layer tolerance, 1/std (r1,
@@ -427,18 +438,21 @@ def test_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("numerics", ["reference", "tpu"])
 def test_remat_replays_the_dropout_masks_of_a_cuda_generator(cuda, numerics, monkeypatch):
-    """A conv1d model at 601 tokens, dropout 0.2, one step's gradient with
-    the generator `make_train_step` uses on the card (a CUDA Philox
-    `torch.Generator`): the rematerialized layers (VITIQ_TRAIN_REMAT auto)
-    give the gradient without remat (0) at 1e-6 and leave the generator in
-    the same state; another generator seed gives another gradient."""
+    """A conv1d model at 601 tokens, dropout 0.2 and an FFN width of 96
+    (which the fused training stack turns down, so the plain layers run,
+    with K5 under `tpu`), one step's gradient with the generator
+    `make_train_step` uses on the card (a CUDA Philox `torch.Generator`):
+    the rematerialized layers (VITIQ_TRAIN_REMAT auto) give the gradient
+    without remat (0) at 1e-6 and leave the generator in the same state;
+    another generator seed gives another gradient."""
     from vitiq_torch.config import ModelConfig
     from vitiq_torch.models import AMCModel
     from vitiq_torch.models import encoder as port_encoder
+    from vitiq_torch.ops.cuda import flash_attention as fa
     from vitiq_torch.ops.metrics import label_smoothed_cross_entropy
 
     cfg = ModelConfig(arm="rawiq", num_classes=5, d_model=64, n_head=4, n_layers=2,
-                      ffn_hidden=128, drop_prob=0.2, seq_length=600, embedding_type="conv1d",
+                      ffn_hidden=96, drop_prob=0.2, seq_length=600, embedding_type="conv1d",
                       numerics=numerics)
     model = AMCModel(cfg, device=cuda, generator=torch.Generator().manual_seed(0)).train()
     gen = torch.Generator().manual_seed(1)
@@ -452,7 +466,10 @@ def test_remat_replays_the_dropout_masks_of_a_cuda_generator(cuda, numerics, mon
         return loss.item(), torch.autograd.grad(loss, list(model.parameters())), g.get_state()
 
     assert port_encoder.use_remat(True, cfg.num_tokens)
+    fa.reset_launches()
     loss, remat, state = grad()
+    n = cfg.n_layers if numerics == "tpu" else 0
+    assert fa.launches == {"fused_attention_fwd": 2 * n, "fused_attention_bwd": n}
     monkeypatch.setenv("VITIQ_TRAIN_REMAT", "0")
     loss0, plain, state0 = grad()
     assert loss == loss0 and torch.equal(state, state0)
@@ -710,8 +727,8 @@ def test_wide_configs_serve_evaluate_and_train_through_the_kernels(cuda, name, t
     """Under `tpu` numerics on the card: `Server` answers a request through
     K1 (each full layer) and K2 (the CLS row, where the model pools on it),
     within 0.05 of the f32 path; the int8 twin through K6 and K2; `fit`
-    trains an epoch (K3 for `rawiq_best`, K4 for `rawiq_best_mp`, the plain
-    layers with K5 at d_model 64 and d_head 64) and validates through K1/K2;
+    trains an epoch (K3 for `rawiq_best` and `vit_tpu_production`, K4 for
+    `rawiq_best_mp` and `vit_tiny_2016`) and validates through K1/K2;
     `run_evaluation` of the saved experiment writes its report in float
     (K1/K2) and int8 (K6/K2). Each of these raised on shapes past d_model
     128 / d_head 32 before the kernels were widened."""
@@ -770,12 +787,13 @@ def test_wide_configs_serve_evaluate_and_train_through_the_kernels(cuda, name, t
               verbose=False)
     torch.cuda.synchronize()
     launched = _all_launches()
-    fwd, bwd = (("fused_train_layer_fwd", "fused_train_layer_bwd") if name == "rawiq_best" else
-                ("fused_train_layer_fwd_stash", "fused_train_layer_bwd_stash")
-                if name == "rawiq_best_mp" else ("fused_attention_fwd", "fused_attention_bwd"))
+    fwd, bwd = (("fused_train_layer_fwd", "fused_train_layer_bwd")
+                if name in ("rawiq_best", "vit_tpu_production") else
+                ("fused_train_layer_fwd_stash", "fused_train_layer_bwd_stash"))
     steps = len(splits["train"][0]) // exp.train.batch_size
     assert launched[fwd] == launched[bwd] == n * steps, launched
-    assert sum(launched[k] for k in flt.launches) == (2 * n * steps if "rawiq" in name else 0)
+    assert sum(launched[k] for k in flt.launches) == 2 * n * steps
+    assert launched["fused_attention_fwd"] == launched["fused_attention_bwd"] == 0
     assert launched["fused_encoder_layer"] > 0  # the validation pass
     assert res.epochs_run == 1 and all(map(math.isfinite, res.history["val_loss"]))
 

@@ -10,6 +10,11 @@ GPU machine without it.
 K9 (the key-tiled long-sequence stack) and K10 (the query-tiled one) are TPU
 schedules of K1's function; their interpret-mode runs at 520 tokens are
 held to the port's K1/K2 stack here, which closes them as mappings onto K1.
+So are K11 (`fused_encoder_layer_v2_stack`, the augmented-score layer that
+``VITIQ_FUSED_VERSION=v2`` selects), K12 (`fused_encoder_layer`, the v1
+layer, one per call) and K13 (the v3 stack's other schedules: the chained
+core, its CLS tail, the fused CLS tail of ``VITIQ_V3_FUSECLS=1`` on both
+cores, an epilogue and a head grouping), in f32 at atol 1e-4.
 
 The stack is held at the widths the kernels take: d_model 64, 128 and 256,
 d_head 16, 32 and 64. `fused_infer_supported` and `fused_train_supported`,
@@ -224,6 +229,51 @@ def test_k10_query_tiled_stack_maps_onto_k1(cls_only, monkeypatch):
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
+# K11-K13, TPU schedules of K1/K2's function: (variant, environment, cls_only)
+MAPPED_SCHEDULES = [
+    pytest.param("v2", {}, False, id="K11-v2"),
+    pytest.param("v1", {}, False, id="K12-v1"),
+    pytest.param("v3", {"VITIQ_V3_ATTN": "chain"}, False, id="K13-chain"),
+    pytest.param("v3", {"VITIQ_V3_ATTN": "chain"}, True, id="K13-chain-cls"),
+    pytest.param("v3", {"VITIQ_V3_ATTN": "chain", "VITIQ_V3_FUSECLS": "1"}, True,
+                 id="K13-fusecls-combo"),
+    pytest.param("v3", {"VITIQ_V3_ATTN": "xpack", "VITIQ_V3_FUSECLS": "1"}, True,
+                 id="K13-fusecls-mono"),
+    pytest.param("v3", {"VITIQ_V3_EPI": "div3"}, False, id="K13-epi-div3"),
+    pytest.param("v3", {"VITIQ_V3_HG": "2"}, True, id="K13-hg2-cls"),
+]
+
+
+@pytest.mark.parametrize("variant,env,cls_only", MAPPED_SCHEDULES)
+def test_tpu_schedules_map_onto_k1_k2(variant, env, cls_only, monkeypatch):
+    """K11, K12 and K13 in interpret mode against the port's plain K1 stack
+    (K2 on the CLS row with `cls_only`), two layers of d128/H8/F256 over 33
+    tokens, f32 at atol 1e-4."""
+    from vitiq.ops.pallas.fused_encoder_layer import (
+        fused_encoder_layer,
+        fused_encoder_layer_v2_stack,
+    )
+
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    trees, port = _layers([70, 71], f=256)
+    x = np.random.default_rng(33).standard_normal((3, 33, D)).astype(np.float32)
+    want = fel.fused_encoder_layer_stack(torch.from_numpy(x), port, H,
+                                         cls_only=cls_only).numpy()
+    with pltpu.force_tpu_interpret_mode():
+        if variant == "v2":
+            got = fused_encoder_layer_v2_stack(jnp.asarray(x), trees, H)
+        elif variant == "v1":
+            got = jnp.asarray(x)
+            for tree in trees:
+                got = fused_encoder_layer(got, tree, H)
+        else:
+            got = fused_encoder_layer_v3_stack(jnp.asarray(x), trees, H, cls_only=cls_only)
+    got = np.asarray(got)
+    assert got.shape == want.shape == ((3, 1, D) if cls_only else (3, 33, D))
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
 # Every serving geometry of vitiq's bench at its serving shape, then the
 # d_head-64 ViT (`vit_tpu_production`) and the conv1d arm with n_head 2,
 # whose 1025-token K/V (d_head 64) do not fit the attention block.
@@ -238,7 +288,7 @@ def test_shape_gates_on_the_served_geometries(name):
         cfg = jbench.ARM_CONFIGS[name]()
     shape = (cfg.num_tokens, cfg.d_model, cfg.ffn_hidden, cfg.n_head)
     assert fel.fused_infer_supported(*shape) == (name != "conv1d_h2")
-    train = cfg.d_model in (128, 256) and cfg.d_head in (16, 32) and cfg.num_tokens < 1025
+    train = cfg.d_model in (64, 128, 256) and cfg.d_head in (16, 32, 64) and cfg.num_tokens < 1025
     assert flt.fused_train_supported(*shape) == train
 
 

@@ -84,22 +84,23 @@ res = fit(raw_cfg, model, (frames[:8], labels[:8]), ArrayFeed(frames[8:], labels
 assert res.state.step == 2 and np.isfinite(res.history["train_loss"]).all()
 assert len(stash_calls) == 2, stash_calls
 
-# conv1d (129 tokens): the plain layers, K5's plain versions as attention
+# conv1d (1025 tokens, which the fused training stack turns down, as at the
+# flagship): the plain layers, rematerialized, K5's plain versions as attention
 from vitiq_torch.ops.cuda import flash_attention
 conv_cfg = ExperimentConfig(
     model=ModelConfig(arm="rawiq", num_classes=4, d_model=64, n_head=4, n_layers=1,
-                      ffn_hidden=128, seq_length=128, embedding_type="conv1d",
+                      ffn_hidden=128, seq_length=1024, embedding_type="conv1d",
                       numerics="tpu"),
-    data=DataConfig(synthetic_frame_len=128), train=TrainConfig(batch_size=4, num_epochs=1))
+    data=DataConfig(synthetic_frame_len=1024), train=TrainConfig(batch_size=4, num_epochs=1))
 model, pre = build_forward_and_preprocess(conv_cfg, conv_cfg.model, raw_stats, device="cpu")
 k5_calls = []
 real_k5 = flash_attention.fused_attention_fwd
 flash_attention.fused_attention_fwd = lambda *a: k5_calls.append(1) or real_k5(*a)
-frames = rng.standard_normal((12, 128, 2)).astype(np.float32)
+frames = rng.standard_normal((12, 1024, 2)).astype(np.float32)
 res = fit(conv_cfg, model, (frames[:8], labels[:8]), ArrayFeed(frames[8:], labels[8:]),
           preprocess_fn=pre, verbose=False)
 assert res.state.step == 2 and np.isfinite(res.history["train_loss"]).all()
-assert len(k5_calls) == 2, k5_calls  # one layer, two train steps; eval runs K1/K2
+assert len(k5_calls) == 4, k5_calls  # one layer, two steps, each recomputed; eval runs K1/K2
 # evaluate a saved experiment on the CPU, in float and through the int8 path
 import json, tempfile
 from pathlib import Path

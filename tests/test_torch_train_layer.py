@@ -29,11 +29,15 @@ from vitiq_torch.models.layers import EncoderLayer
 from vitiq_torch.ops.cuda import fused_layer_train as flt
 
 D = 128
-# (B, L, n_head, d_model, FFN): d_model 128 at FFN 256, and rawiq_best's
-# widths (d256, FFN 1024, 65 tokens, d_head 32)
+# (B, L, n_head, d_model, FFN): d_model 128 at FFN 256, rawiq_best's widths
+# (d256, FFN 1024, 65 tokens, d_head 32), vit_tiny_2016's (d64, FFN 256,
+# 17 tokens, d_head 16) and d_head 64 (vit_tpu_production's n_head 2) at an
+# FFN width that 64 divides and 128 does not
 SHAPES = [pytest.param(2, 17, 4, D, 256, id="2-17-4"),
           pytest.param(1, 129, 8, D, 256, id="1-129-8"),
-          pytest.param(1, 65, 8, 256, 1024, id="1-65-8-d256")]
+          pytest.param(1, 65, 8, 256, 1024, id="1-65-8-d256"),
+          pytest.param(2, 17, 4, 64, 256, id="2-17-4-d64"),
+          pytest.param(1, 33, 2, D, 192, id="1-33-2-f192")]
 
 
 def _layer(seed, n_head, ffn=256, d=D):
@@ -128,13 +132,55 @@ def test_structural_gate():
     assert flt.fused_train_supported(129, 128, 512, 4)   # d_head 32
     assert flt.fused_train_supported(65, 256, 1024, 8)   # rawiq_best (d_model 256)
     assert flt.fused_train_supported(64, 256, 1024, 8)   # rawiq_best_mp
-    assert not flt.fused_train_supported(17, 64, 256, 4)      # d_model 64 (vit_tiny_2016)
+    assert flt.fused_train_supported(17, 64, 256, 4)     # d_model 64 (vit_tiny_2016)
+    assert flt.fused_train_supported(129, 128, 512, 2)   # d_head 64 (vit_tpu_production)
+    assert flt.fused_train_supported(65, 128, 192, 8)    # FFN 64 mod 128
     assert not flt.fused_train_supported(65, 512, 1024, 8)    # d_model 512
-    assert not flt.fused_train_supported(129, 128, 512, 2)    # d_head 64
-    assert not flt.fused_train_supported(129, 128, 200, 8)    # FFN not a multiple of 128
+    assert not flt.fused_train_supported(65, 32, 128, 2)      # d_model 32
+    assert not flt.fused_train_supported(129, 128, 512, 16)   # d_head 8
+    assert not flt.fused_train_supported(129, 128, 200, 8)    # FFN not a multiple of 64
     assert not flt.fused_train_supported(1025, 128, 1024, 8)  # conv1d length: shared memory
     assert flt.fused_train_supported(768, 128, 512, 8)
     assert not flt.fused_train_supported(769, 128, 512, 8)
+    assert flt.fused_train_supported(224, 128, 512, 2)        # d_head 64: 223,872 bytes
+    assert not flt.fused_train_supported(225, 128, 512, 2)
+    assert flt.attention_bwd_smem_bytes(129, 64) == 146112    # one block per SM
+
+
+def _presets():
+    """(name, model config) of the JAX package's presets and the geometries
+    the port trains, each with its token count."""
+    from vitiq_torch import config as pc
+
+    for name in ("vit_reference", "vit_tpu_production", "vit_synthetic19", "rawiq_synthetic19",
+                 "vit_tiny_2016", "rawiq_reference", "rawiq_best"):
+        yield name, getattr(pc.ExperimentConfig, name)().model
+    for name in ("flagship_vit", "flagship_rawiq", "flagship_conv1d", "rawiq_best",
+                 "rawiq_best_mp", "vit_tiny_2016"):
+        yield f"{name}_config", getattr(pc, f"{name}_config")()
+
+
+def test_gates_agree_with_vitiq_on_the_presets():
+    """Where vitiq's budget gate (`fused_train_supported`, the one
+    `vitiq/models/encoder.py` checks) trains a preset through its Pallas
+    training kernels, the port's gate trains it through K3/K4, in the same
+    regime (`stash_enabled` = `_stash_enabled` at the preset's batch), and
+    where vitiq's turns it away (the conv1d arm's 1025 tokens), the port's
+    does too."""
+    from vitiq.ops.pallas import fused_layer_train as jflt
+
+    seen = set()
+    for name, cfg in _presets():
+        L = cfg.num_tokens
+        want = jflt.fused_train_supported(L, cfg.d_model, cfg.ffn_hidden)
+        assert flt.fused_train_supported(L, cfg.d_model, cfg.ffn_hidden, cfg.n_head) == want, name
+        lp = -(-L // 16) * 16
+        for batch in (128, 256, 4096):
+            assert (flt.stash_enabled(L, cfg.n_head, cfg.d_model, batch)
+                    == jflt._stash_enabled(lp, L, cfg.n_head, cfg.d_model, batch)), (name, batch)
+        seen.add((cfg.d_model, cfg.d_head, want))
+    assert {(64, 16, True), (128, 64, True), (128, 16, True), (256, 32, True),
+            (128, 16, False)} <= seen
 
 
 def test_cpu_tensors_take_plain_versions_without_counting():

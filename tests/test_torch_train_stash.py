@@ -81,7 +81,12 @@ def test_flagship_gates():
     assert flt.fused_train_stash_supported(65, 128, 1024, 8)
     assert flt.fused_train_stash_supported(144, 128, 512, 8)       # H * Lp = 1152
     assert not flt.fused_train_stash_supported(161, 128, 512, 8)   # H * Lp = 1408
-    assert not flt.fused_train_stash_supported(65, 128, 1024, 2)   # d_head 64
+    assert flt.fused_train_stash_supported(65, 128, 1024, 2)       # d_head 64
+    assert flt.stash_enabled(65, 2, 128, 4096)     # the rawIQ flagship at n_head 2: K4
+    assert not flt.stash_enabled(129, 2, 128, 4096)  # vit_tpu_production: K3
+    assert flt.stash_enabled(17, 4, 64, 4096)      # vit_tiny_2016 (d64, Lp 32): K4
+    assert flt.fused_train_stash_supported(17, 64, 256, 4)
+    assert flt.stash_attention_bwd_smem_bytes(65, 64) == 60224
     # rawiq_best (d256, 65 tokens, Lp 80): the recompute; rawiq_best_mp (64
     # tokens, Lp 64): the stash at batch <= 4096, as vitiq gates it
     assert not flt.stash_enabled(65, 8, 256, 4096)
@@ -134,6 +139,10 @@ def _cosine(a, b):
     pytest.param(2, 65, 8, 1024, D, id="2-65-8-1024"),
     # rawiq_best_mp's widths: d256, FFN 1024, 64 tokens, d_head 32
     pytest.param(1, 64, 8, 1024, 256, id="1-64-8-1024-d256"),
+    # vit_tiny_2016's (d64, FFN 256, 17 tokens), and d_head 64 at an FFN
+    # width that 64 divides and 128 does not
+    pytest.param(2, 17, 4, 256, 64, id="2-17-4-256-d64"),
+    pytest.param(1, 33, 2, 192, D, id="1-33-2-192"),
 ])
 def test_plain_stash_matches_pallas_stash(dtype, B, Lx, n_head, ffn, d, monkeypatch):
     monkeypatch.setenv("VITIQ_TRAIN_STASH", "1")

@@ -41,9 +41,11 @@ the byte-compatible report), in float and through int8 W8A8 serving
 checkpoints, the interrupt rescue, ``resume="auto"``, the test evaluation
 and summary.json) with full TrainState checkpoints in `vitiq`'s leaf layout
 (`train/checkpoint.py`, AdamW's moments included), which either package
-resumes; and the CUDA port of the int8-attention layer (K7, in
+resumes; the CUDA port of the int8-attention layer (K7, in
 `csrc/fused_encoder_layer.cu`), which every float evaluation pass runs under
-``VITIQ_ATTN_INT8=1``.
+``VITIQ_ATTN_INT8=1``; and the thesis's head-to-head (`runner.run_head_to_head`,
+`python -m vitiq_torch.cli head-to-head` and `compare`: both arms trained and
+evaluated, then the cross-arm comparison of `eval/compare.py`).
 """
 
 from vitiq_torch.config import (  # noqa: F401

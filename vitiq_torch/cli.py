@@ -1,16 +1,22 @@
-"""Command-line interface (counterpart of `vitiq/cli.py`): ``train`` and
-``evaluate``, with the JAX package's argument names, presets, overrides and
-printed lines.
+"""Command-line interface (counterpart of `vitiq/cli.py`): ``train``,
+``evaluate``, ``compare`` and ``head-to-head``, with the JAX package's
+argument names, presets, overrides and printed lines.
 
     python -m vitiq_torch.cli train [--preset NAME | --config PATH | --arm vit|rawiq]
         [--source synthetic] [--num_epochs N] [--numerics tpu] [...overrides]
         [--resume PATH|auto] [--device cuda] [--no_plots]
     python -m vitiq_torch.cli evaluate --checkpoint DIR [--dataset test]
         [--batch_size N] [--config PATH] [--int8] [--device cuda] [--no_plots]
+    python -m vitiq_torch.cli compare --vit_report PATH --transformer_report PATH
+        [--output_dir DIR] [--no_plots]
+    python -m vitiq_torch.cli head-to-head [train's flags] [--output_dir DIR]
 
 ``--device`` (default ``cuda``) picks where the model runs; ``--device cpu``
 runs on the host. ``--no_plots`` skips the plots, which need matplotlib and
-seaborn. A configuration the port cannot run yet raises instead of being
+seaborn. ``head-to-head`` trains the ViT arm from train's flags, then the
+rawIQ arm from the same flags on a deep copy of the ViT arm's data (iq
+features), as ``<experiment_name>_vit`` and ``<experiment_name>_rawiq``
+(base name ``h2h``), and compares their test reports. A configuration the port cannot run yet raises instead of being
 dropped: the HDF5 source (``--source hdf5``, and the presets that default to
 it unless ``--source synthetic`` is given), ``--sps`` above 1, features
 other than ``iq``, ``--data_parallel`` / ``--model_parallel`` above 1 and
@@ -164,13 +170,17 @@ def _config_from_args(args) -> ExperimentConfig:
     if cfg.data.source == "synthetic":
         # synthetic class count drives the head size
         cfg.model.num_classes = len(cfg.data.synthetic_classes)
+    _check_supported(cfg)
+    if not args.no_validate_config:
+        cfg.validate(check_paths=cfg.data.source == "hdf5")
+    return cfg
+
+
+def _check_supported(cfg: ExperimentConfig) -> None:
     unsupported = _unsupported(cfg)
     if unsupported:
         raise NotImplementedError("the port cannot run this configuration yet: "
                                   + "; ".join(unsupported))
-    if not args.no_validate_config:
-        cfg.validate(check_paths=cfg.data.source == "hdf5")
-    return cfg
 
 
 def cmd_train(args) -> int:
@@ -196,6 +206,44 @@ def cmd_evaluate(args) -> int:
     return 0
 
 
+def cmd_compare(args) -> int:
+    from vitiq_torch.eval.compare import ModelComparison
+
+    mc = ModelComparison(args.vit_report, args.transformer_report, output_dir=args.output_dir)
+    mc.run_comparison(make_plots=not args.no_plots)
+    return 0
+
+
+def head_to_head_configs(args):
+    """(vit_cfg, rawiq_cfg) of `cmd_head_to_head`: the ViT arm from the
+    flags, the rawIQ arm from the same flags (its arm's preset defaults where
+    no flag overrides them) on a deep copy of the ViT arm's data."""
+    import copy
+
+    base_name = args.experiment_name or "h2h"
+    args.arm = "vit"
+    vit_cfg = _config_from_args(args)
+    vit_cfg.experiment_name = f"{base_name}_vit"
+    rawiq_args = copy.copy(args)
+    rawiq_args.arm = "rawiq"
+    rawiq_cfg = _config_from_args(rawiq_args)
+    rawiq_cfg.data = copy.deepcopy(vit_cfg.data)  # identical data for both arms
+    rawiq_cfg.data.features = "iq"
+    rawiq_cfg.experiment_name = f"{base_name}_rawiq"
+    _check_supported(rawiq_cfg)
+    return vit_cfg, rawiq_cfg
+
+
+def cmd_head_to_head(args) -> int:
+    from vitiq_torch.runner import run_head_to_head
+
+    vit_cfg, rawiq_cfg = head_to_head_configs(args)
+    result = run_head_to_head(vit_cfg, rawiq_cfg, comparison_dir=args.output_dir,
+                              device=args.device, make_plots=not args.no_plots)
+    print(json.dumps(result, indent=2, default=float))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="vitiq_torch", description="PyTorch/CUDA port of vitiq (ViT vs raw-IQ AMC)")
@@ -217,6 +265,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_plots", action="store_true",
                    help="Skip the plots (they need matplotlib and seaborn)")
     p.set_defaults(fn=cmd_evaluate)
+
+    p = sub.add_parser("compare", help="Compare two classification reports")
+    p.add_argument("--vit_report", required=True)
+    p.add_argument("--transformer_report", required=True)
+    p.add_argument("--output_dir", default="comparison_results")
+    p.add_argument("--no_plots", action="store_true",
+                   help="Skip the plots (they need matplotlib and seaborn)")
+    p.set_defaults(fn=cmd_compare)
+
+    p = sub.add_parser("head-to-head", help="Train both arms on the same data and compare")
+    _add_train_args(p)
+    p.add_argument("--output_dir", default="comparison_results")
+    p.set_defaults(fn=cmd_head_to_head)
     return parser
 
 

@@ -14,9 +14,10 @@
 //   K4-bwd  vitiq/ops/pallas/fused_layer_train.py: _bwd_kernel with stash=True
 //           (and _bwd_kernel_stacked, its layers-per-call schedule)
 //
-// Function, per layer, on a bf16 [B, L, D] activation (D = 128 or 256, d_head
-// 16 or 32; shapes_ok, and fused_layer_train.fused_train_supported in the
-// wrapper, say which shapes the kernels take):
+// Function, per layer, on a bf16 [B, L, D] activation (D = 64, 128 or 256,
+// d_head 16, 32 or 64, an FFN width that is a multiple of 64; shapes_ok, and
+// fused_layer_train.fused_train_supported in the wrapper, say which shapes the
+// kernels take):
 //   qkv = bf16(x Wqkv + bqkv)                   Wqkv unscaled
 //   qs  = bf16(q * log2(e)/sqrt(dh))             scaled here, as the TPU kernel
 //   p   = bf16(exp2(qs.k - max)), attn = bf16(sum p v / sum p)  over L keys
@@ -65,7 +66,11 @@
 //                          BN = D, so a tile holds whole rows (66.5 KB of f32
 //                          staging at D = 256: dynamic shared memory); every
 //                          other stage, the split-K weight gradients included,
-//                          128-wide tiles, several per row at D = 256
+//                          128-wide tiles, several per row at D = 256, and
+//                          64-wide where 128 does not divide N (QKV at D = 64,
+//                          N = 192; the out-projection, FFN2 and their weight
+//                          gradients at D = 64; an FFN width of 64 mod 128),
+//                          as the serving kernels tile
 //   train_attention_fwd    one block per (frame, head), K1's register-fragment
 //                          core (mma.sync), q scaled in the kernel, optionally
 //                          writing each row's max and sum for the backward
@@ -74,12 +79,17 @@
 //                          (dQ) and a key-major pass (dK, dV), holding q, k,
 //                          v, dO and their transposes in shared memory and
 //                          recomputing P in mma.sync fragments in both passes
+//                          (146,112 bytes at d_head 64, L = 129: one block
+//                          per SM); each pass parks its column sums in shared
+//                          memory when it ends, so only one pass's sums live
+//                          in registers (a d_head-64 warp holds 16 x 64 f32
+//                          accumulators of dK and of dV)
 //   train_attention_bwd_stash
 //                          K4's: the same passes, holding v, dO and the
 //                          transposes of q, k, dO, and loading each fragment's
 //                          pbar from the stash
-//   ln_bwd_rows<XH, DW>    LN2 backward, one warp per row of DW = D columns,
-//                          xh f32 or bf16
+//   ln_bwd_rows<XH, DW>    LN2 backward, one warp per row of DW = D columns
+//                          (64, 128 or 256), xh f32 or bf16
 //   rebuild_ln_out         K4's x1 = bf16(f32(xh1) g1 + be1)
 //   reduce_rows            column sums of partials, in a fixed order
 // Weight gradients are sums over the B*L rows. The TPU kernel carries them in
@@ -160,6 +170,7 @@ using namespace nvcuda;
 
 constexpr int TBM = 64;    // GEMM tile rows
 constexpr int TBN = 128;   // GEMM tile columns of the stages without LayerNorm
+constexpr int NARROW_BN = 64;  // ... where TBN does not divide N
 constexpr int TBK = 32;    // GEMM tile depth
 constexpr int THREADS = 256;  // 8 warps: 2 x 4 warp tiles of 32 x BN/4
 constexpr int AR_LD = TBK + 8;  // A tile [TBM][AR_LD]
@@ -769,26 +780,30 @@ __device__ __forceinline__ void store_rows(float acc[DH / 8][4], float scale, bf
   }
 }
 
-// The block's column sums of dq, dk and dv: over the 8 row groups of each
-// warp, then over the warps in a fixed order, into part[s * D + c] (section
-// s, the head's column c). `red` is [warp][3][DH] of shared memory.
+// A warp's column sums of section s (0 dq, 1 dk, 2 dv) over its 8 row groups,
+// parked in red[warp][s][DH] (shared memory) when the pass that formed them
+// ends, so that they leave the registers.
 template <int DH>
-__device__ __forceinline__ void store_column_sums(float cs[3][DH / 8][2], float* red,
-                                                  float* part, int D) {
+__device__ __forceinline__ void park_column_sums(const float cs[DH / 8][2], float* red, int s) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int s = 0; s < 3; ++s)
+  for (int nd = 0; nd < DH / 8; ++nd)
 #pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        float v = cs[s][nd][u];
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if (g == 0) red[(warp * 3 + s) * DH + nd * 8 + 2 * t + u] = v;
-      }
+    for (int u = 0; u < 2; ++u) {
+      float v = cs[nd][u];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0) red[(warp * 3 + s) * DH + nd * 8 + 2 * t + u] = v;
+    }
+}
+
+// The block's column sums of dq, dk and dv: the parked warp sums added over
+// the warps in a fixed order, into part[s * D + c] (section s, the head's
+// column c).
+template <int DH>
+__device__ __forceinline__ void store_column_sums(const float* red, float* part, int D) {
   __syncthreads();
   for (int i = threadIdx.x; i < 3 * DH; i += blockDim.x) {
     const int s = i / DH, c = i % DH;
@@ -878,10 +893,10 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_bwd(
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  float cs[3][DH / 8][2] = {};  // column sums of dq, dk, dv over this thread's rows
   bf16* out_base = dqkv + (long long)b * L * row3 + (long long)h * DH + 2 * t;
 
   // pass 1: dQ for 16 query rows per warp
+  float cs_q[DH / 8][2] = {};  // column sums of dq over this thread's rows
   for (int r0 = warp * 16; r0 < L; r0 += ATTN_WARPS * 16) {
     const int r_lo = r0 + g, r_hi = r0 + g + 8;
     uint32_t qa[DH / 16][4], da[DH / 16][4];
@@ -910,10 +925,12 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_bwd(
         mma_bf16_16816(dq[nd], dsa, ld_b32(kt), ld_b32(kt + 8));
       }
     }
-    store_rows<DH>(dq, dq_scale, out_base, r_lo, r_hi, L, row3, 0, cs[0]);
+    store_rows<DH>(dq, dq_scale, out_base, r_lo, r_hi, L, row3, 0, cs_q);
   }
+  park_column_sums<DH>(cs_q, red, 0);
 
   // pass 2: dK and dV for 16 key rows per warp
+  float cs_k[DH / 8][2] = {}, cs_v[DH / 8][2] = {};
   for (int c0 = warp * 16; c0 < L; c0 += ATTN_WARPS * 16) {
     const int k_lo = c0 + g, k_hi = c0 + g + 8;
     uint32_t ka[DH / 16][4], va[DH / 16][4];
@@ -948,11 +965,13 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_bwd(
         mma_bf16_16816(dk[nd], dsa, ld_b32(qt), ld_b32(qt + 8));
       }
     }
-    store_rows<DH>(dk, dk_scale, out_base, k_lo, k_hi, L, row3, D, cs[1]);
-    store_rows<DH>(dv, 1.f, out_base, k_lo, k_hi, L, row3, 2 * D, cs[2]);
+    store_rows<DH>(dk, dk_scale, out_base, k_lo, k_hi, L, row3, D, cs_k);
+    store_rows<DH>(dv, 1.f, out_base, k_lo, k_hi, L, row3, 2 * D, cs_v);
   }
+  park_column_sums<DH>(cs_k, red, 1);
+  park_column_sums<DH>(cs_v, red, 2);
 
-  store_column_sums<DH>(cs, red, part + (long long)b * row3 + h * DH, D);
+  store_column_sums<DH>(red, part + (long long)b * row3 + h * DH, D);
 }
 
 // The stash variant of train_attention_bwd (K4-bwd): the same outputs, with
@@ -1024,10 +1043,10 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_bwd_stash(
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  float cs[3][DH / 8][2] = {};  // column sums of dq, dk, dv over this thread's rows
   bf16* out_base = dqkv + (long long)b * L * row3 + (long long)h * DH + 2 * t;
 
   // pass 1: dQ for 16 query rows per warp
+  float cs_q[DH / 8][2] = {};  // column sums of dq over this thread's rows
   for (int r0 = warp * 16; r0 < L; r0 += ATTN_WARPS * 16) {
     const int r_lo = r0 + g, r_hi = r0 + g + 8;
     uint32_t da[DH / 16][4];
@@ -1052,10 +1071,12 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_bwd_stash(
         mma_bf16_16816(dq[nd], dsa, ld_b32(kt), ld_b32(kt + 8));
       }
     }
-    store_rows<DH>(dq, dq_scale, out_base, r_lo, r_hi, L, row3, 0, cs[0]);
+    store_rows<DH>(dq, dq_scale, out_base, r_lo, r_hi, L, row3, 0, cs_q);
   }
+  park_column_sums<DH>(cs_q, red, 0);
 
   // pass 2: dK and dV for 16 key rows per warp
+  float cs_k[DH / 8][2] = {}, cs_v[DH / 8][2] = {};
   for (int c0 = warp * 16; c0 < L; c0 += ATTN_WARPS * 16) {
     const int k_lo = c0 + g, k_hi = c0 + g + 8;
     uint32_t va[DH / 16][4];
@@ -1087,11 +1108,13 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_bwd_stash(
         mma_bf16_16816(dk[nd], dsa, ld_b32(qt), ld_b32(qt + 8));
       }
     }
-    store_rows<DH>(dk, dk_scale, out_base, k_lo, k_hi, L, row3, D, cs[1]);
-    store_rows<DH>(dv, 1.f, out_base, k_lo, k_hi, L, row3, 2 * D, cs[2]);
+    store_rows<DH>(dk, dk_scale, out_base, k_lo, k_hi, L, row3, D, cs_k);
+    store_rows<DH>(dv, 1.f, out_base, k_lo, k_hi, L, row3, 2 * D, cs_v);
   }
+  park_column_sums<DH>(cs_k, red, 1);
+  park_column_sums<DH>(cs_v, red, 2);
 
-  store_column_sums<DH>(cs, red, part + (long long)b * row3 + h * DH, D);
+  store_column_sums<DH>(red, part + (long long)b * row3 + h * DH, D);
 }
 
 // ---------------------------------------------------------------------------
@@ -1218,10 +1241,11 @@ TGemm tg(const bf16* a, long long lda, const bf16* b, long long ldb, long long m
   return g;
 }
 
-// A failed opt-in to the larger shared memory fails the launch, which the
+// n_cols / BN tiles of BN columns (BN divides n_cols: gemm and gemm_ln pick
+// it). A failed opt-in to the larger shared memory fails the launch, which the
 // entry point's cudaGetLastError() reports.
-template <bool AT, bool BT, int EPI, int BN = TBN>
-void gemm(TGemm p, long long n_cols, int splits, cudaStream_t s) {
+template <bool AT, bool BT, int EPI, int BN>
+void gemm_tiles(TGemm p, long long n_cols, int splits, cudaStream_t s) {
   p.n_tiles = (int)(n_cols / BN);
   const long long blocks = (p.m + TBM - 1) / TBM * p.n_tiles;
   constexpr int smem = gemm_smem<BN>() <= STATIC_SMEM ? 0 : gemm_smem<BN>();  // dynamic bytes
@@ -1231,13 +1255,38 @@ void gemm(TGemm p, long long n_cols, int splits, cudaStream_t s) {
   tgemm<AT, BT, EPI, BN><<<dim3((unsigned)blocks, (unsigned)splits), THREADS, smem, s>>>(p);
 }
 
+// A stage without LayerNorm: 128-wide tiles, 64-wide where 128 does not
+// divide n_cols (shapes_ok keeps every N a multiple of 64).
+template <bool AT, bool BT, int EPI>
+void gemm(TGemm p, long long n_cols, int splits, cudaStream_t s) {
+  if (n_cols % TBN == 0)
+    gemm_tiles<AT, BT, EPI, TBN>(p, n_cols, splits, s);
+  else
+    gemm_tiles<AT, BT, EPI, NARROW_BN>(p, n_cols, splits, s);
+}
+
+// f(std::integral_constant<int, W>{}) at d_model W = D (64, 128 or 256; what
+// shapes_ok admits)
+template <class F>
+auto with_d(int D, F f) -> decltype(f(std::integral_constant<int, 256>{})) {
+  if (D == 256) return f(std::integral_constant<int, 256>{});
+  if (D == TBN) return f(std::integral_constant<int, TBN>{});
+  return f(std::integral_constant<int, NARROW_BN>{});
+}
+
+// f(std::integral_constant<int, DH>{}) at d_head DH = dh (16, 32 or 64; what
+// shapes_ok admits)
+template <class F>
+auto with_dh(int dh, F f) -> decltype(f(std::integral_constant<int, 16>{})) {
+  if (dh == 16) return f(std::integral_constant<int, 16>{});
+  if (dh == 32) return f(std::integral_constant<int, 32>{});
+  return f(std::integral_constant<int, 64>{});
+}
+
 // A LayerNorm stage: one tile holds a whole row of D columns.
 template <bool AT, bool BT, int EPI>
 void gemm_ln(TGemm p, int D, cudaStream_t s) {
-  if (D == 256)
-    gemm<AT, BT, EPI, 256>(p, D, 1, s);
-  else
-    gemm<AT, BT, EPI, TBN>(p, D, 1, s);
+  with_d(D, [&](auto w) { gemm_tiles<AT, BT, EPI, decltype(w)::value>(p, D, 1, s); });
 }
 
 // Bump allocator over the caller's workspace; with a null base it only
@@ -1268,14 +1317,15 @@ struct Shape {
 };
 
 // The shapes K3 takes (fused_layer_train.fused_train_supported is the same
-// predicate): D 128 or 256, d_head 16 or 32, an FFN width that is a
-// multiple of 128, and an L whose attention-backward block fits.
+// predicate): D 64, 128 or 256, d_head 16, 32 or 64, an FFN width that is a
+// multiple of 64, and an L whose attention-backward block fits.
 bool shapes_ok(const Shape& s) {
   if (s.B <= 0 || s.L <= 0 || s.H <= 0 || s.D % s.H) return false;
-  if (s.D != 128 && s.D != 256) return false;
+  if (s.D != 64 && s.D != 128 && s.D != 256) return false;
   const int dh = s.dh();
-  if (!(dh == 16 || dh == 32) || s.F <= 0 || s.F % TBN) return false;
-  const size_t smem = dh == 16 ? attention_bwd_smem_bytes<16>(s.L) : attention_bwd_smem_bytes<32>(s.L);
+  if (!(dh == 16 || dh == 32 || dh == 64) || s.F <= 0 || s.F % NARROW_BN) return false;
+  const size_t smem =
+      with_dh(dh, [&](auto c) { return attention_bwd_smem_bytes<decltype(c)::value>(s.L); });
   return smem <= (size_t)MAX_SMEM;
 }
 
@@ -1283,8 +1333,8 @@ bool shapes_ok(const Shape& s) {
 // round16(L) <= 1280) and its own attention-backward block to fit.
 bool stash_shapes_ok(const Shape& s) {
   if (!shapes_ok(s) || s.H * round16(s.L) > 1280) return false;
-  const size_t smem = s.dh() == 16 ? stash_attention_bwd_smem_bytes<16>(s.L)
-                                   : stash_attention_bwd_smem_bytes<32>(s.L);
+  const size_t smem = with_dh(
+      s.dh(), [&](auto c) { return stash_attention_bwd_smem_bytes<decltype(c)::value>(s.L); });
   return smem <= (size_t)MAX_SMEM;
 }
 
@@ -1299,7 +1349,7 @@ Drop make_drop(const Shape& s, uint32_t thresh, float scale, int seed, int layer
   return d;
 }
 
-template <int DH, class K, class... Args>
+template <class K, class... Args>
 cudaError_t launch_attention(K kernel, size_t smem, const Shape& s, cudaStream_t stream,
                              Args... args) {
   if (smem > 48 * 1024) {
@@ -1317,11 +1367,11 @@ cudaError_t attention_fwd(const Shape& s, const bf16* qkv, bf16* out, float* sta
                           cudaStream_t st) {
   const float sc = scale2_of(s);
   const bool stash = pbar != nullptr;
-  if (s.dh() == 16)
-    return launch_attention<16>(train_attention_fwd<16>, attention_fwd_smem_bytes<16>(s.L, stash),
-                                s, st, qkv, out, stats, pbar, s.L, s.D, sc);
-  return launch_attention<32>(train_attention_fwd<32>, attention_fwd_smem_bytes<32>(s.L, stash), s,
-                              st, qkv, out, stats, pbar, s.L, s.D, sc);
+  return with_dh(s.dh(), [&](auto c) {
+    constexpr int DH = decltype(c)::value;
+    return launch_attention(train_attention_fwd<DH>, attention_fwd_smem_bytes<DH>(s.L, stash), s,
+                            st, qkv, out, stats, pbar, s.L, s.D, sc);
+  });
 }
 
 // K3's attention backward (row stats from the recompute) or, given `pbar`,
@@ -1332,20 +1382,14 @@ cudaError_t attention_bwd(const Shape& s, const bf16* qkv, const bf16* attn, con
   const double scale2 = 1.4426950408889634 / sqrt((double)s.dh());
   const double ln2 = 0.6931471805599453;
   const float sc = (float)scale2, dq = (float)(ln2 * scale2), dk = (float)ln2;
-  if (pbar) {
-    if (s.dh() == 16)
-      return launch_attention<16>(train_attention_bwd_stash<16>,
-                                  stash_attention_bwd_smem_bytes<16>(s.L), s, st, qkv, attn,
-                                  dattn, pbar, dqkv, part, s.L, s.D, sc, dq, dk);
-    return launch_attention<32>(train_attention_bwd_stash<32>,
-                                stash_attention_bwd_smem_bytes<32>(s.L), s, st, qkv, attn, dattn,
-                                pbar, dqkv, part, s.L, s.D, sc, dq, dk);
-  }
-  if (s.dh() == 16)
-    return launch_attention<16>(train_attention_bwd<16>, attention_bwd_smem_bytes<16>(s.L), s,
-                                st, qkv, attn, dattn, stats, dqkv, part, s.L, s.D, sc, dq, dk);
-  return launch_attention<32>(train_attention_bwd<32>, attention_bwd_smem_bytes<32>(s.L), s, st,
-                              qkv, attn, dattn, stats, dqkv, part, s.L, s.D, sc, dq, dk);
+  return with_dh(s.dh(), [&](auto c) {
+    constexpr int DH = decltype(c)::value;
+    if (pbar)
+      return launch_attention(train_attention_bwd_stash<DH>, stash_attention_bwd_smem_bytes<DH>(s.L),
+                              s, st, qkv, attn, dattn, pbar, dqkv, part, s.L, s.D, sc, dq, dk);
+    return launch_attention(train_attention_bwd<DH>, attention_bwd_smem_bytes<DH>(s.L), s, st,
+                            qkv, attn, dattn, stats, dqkv, part, s.L, s.D, sc, dq, dk);
+  });
 }
 
 struct Weights {
@@ -1503,12 +1547,11 @@ void weight_grad(const Shape& s, const Bwd& b, const bf16* act, long long k1, co
 template <class XH>
 void ln_bwd(const Shape& s, const bf16* dy, const XH* xh, const float* rstd, const float* gamma,
             const Drop& drop, const Bwd& b, cudaStream_t st) {
-  if (s.D == 256)
-    ln_bwd_rows<XH, 256><<<(unsigned)s.RT(), THREADS, 0, st>>>(dy, xh, rstd, gamma, drop, s.M(),
-                                                                b.dfb, b.dz2, b.part_rows);
-  else
-    ln_bwd_rows<XH, TBN><<<(unsigned)s.RT(), THREADS, 0, st>>>(dy, xh, rstd, gamma, drop, s.M(),
-                                                                b.dfb, b.dz2, b.part_rows);
+  const unsigned blocks = (unsigned)s.RT();
+  with_d(s.D, [&](auto w) {
+    ln_bwd_rows<XH, decltype(w)::value><<<blocks, THREADS, 0, st>>>(
+        dy, xh, rstd, gamma, drop, s.M(), b.dfb, b.dz2, b.part_rows);
+  });
 }
 
 // K3-bwd (stash null): recompute the forward from x, then the gradient

@@ -1,6 +1,6 @@
 """Evaluation: predictions, confusion matrices, the classification report and
-its parser, plots (counterpart of `vitiq/eval`; the cross-arm comparison is
-not ported yet)."""
+its parser, plots and the cross-arm comparison (counterpart of
+`vitiq/eval`)."""
 
 from vitiq_torch.eval.evaluate import (  # noqa: F401
     TARGET_SNRS,
@@ -13,3 +13,4 @@ from vitiq_torch.eval.report import (  # noqa: F401
     confusion_matrix,
     write_classification_report,
 )
+from vitiq_torch.eval.compare import ModelComparison  # noqa: F401

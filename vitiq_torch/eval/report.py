@@ -57,6 +57,10 @@ def classification_report_text(labels: np.ndarray, preds: np.ndarray,
     cm = confusion_matrix(labels, preds, n)
     tp = np.diag(cm)
     pred_sum, true_sum = cm.sum(axis=0), cm.sum(axis=1)
+    if not np.any(labels == preds):
+        # scikit-learn's counts are float zeros when no prediction is right
+        # (multilabel_confusion_matrix), so every support prints as a float
+        true_sum = true_sum.astype(np.float64)
     p, r, f1 = _scores(tp, pred_sum, true_sum)
 
     width = max(max(len(c) for c in class_names), len("weighted avg"), DIGITS)
@@ -67,7 +71,7 @@ def classification_report_text(labels: np.ndarray, preds: np.ndarray,
         report += row_fmt.format(*row, width=width, digits=DIGITS)
     report += "\n"
 
-    support = int(true_sum.sum())
+    support = true_sum.sum()
     # micro average: "accuracy" when no label or prediction lies outside the classes
     mp, mr, mf = (float(v[0]) for v in _scores(tp.sum(keepdims=True),
                                                 pred_sum.sum(keepdims=True),

@@ -29,10 +29,9 @@ the hand-written kernels, on a CPU tensor their plain PyTorch versions:
 Both gates are decided from shapes alone, so a shape a gate admits never
 raises in a kernel and one it turns away never reaches one. Everything else
 runs the plain layers with `attention_fn` (under `tpu`, K5 for every layer's
-attention: in training the conv1d arm's 1025 tokens, d_model 64 and d_head
-64, which `fused_train_supported` turns down; in eval the conv1d arm with
-n_head 2, which `fused_infer_supported` turns down, and
-``VITIQ_NO_FUSED_LAYER=1``),
+attention: in training the conv1d arm's 1025 tokens, which
+`fused_train_supported` turns down; in eval the conv1d arm with n_head 2,
+which `fused_infer_supported` turns down, and ``VITIQ_NO_FUSED_LAYER=1``),
 their dropout drawn from `generator`. In training above 512 tokens each plain
 layer is rematerialized (`use_remat`, ``VITIQ_TRAIN_REMAT``), as the JAX
 encoder does with `jax.checkpoint`.

@@ -5,8 +5,10 @@ Every `vitiq_torch/csrc/*.cu` is compiled by its own `nvcc` for Hopper
 library with a plain C interface, under `build/vitiq_torch_kernels/` beside
 the package, and loaded with `ctypes`. The library's file name carries a hash
 of the sources, the shared headers (`*.cuh`) and the flags, so an edited
-source is rebuilt and an unchanged one is reused. Nothing is built when this
-module is imported: machines without `nvcc` (the CPU test runs) never build.
+source is rebuilt and an unchanged one is reused. Each source's `ptxas -v`
+report (registers, shared memory and spills of every kernel) is kept beside
+the library (`ptxas_report`). Nothing is built when this module is imported:
+machines without `nvcc` (the CPU test runs) never build.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "vitiq_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # C entry points: name -> (argtypes, restype)
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
@@ -75,17 +77,20 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _run(cmds) -> None:
-    """Run the commands side by side; raise with the output of any that failed."""
+def _run(cmds) -> list:
+    """Run the commands side by side; raise with the output of any that
+    failed; return the output of each."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                     text=True)) for cmd in cmds]
-    failed = []
+    failed, outs = [], []
     for cmd, proc in procs:
         out, _ = proc.communicate()
+        outs.append(out)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build() -> Path:
@@ -103,13 +108,25 @@ def build() -> Path:
     tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
     objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
     nvcc = _nvcc()
-    _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(srcs, objs)])
+    outs = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                 for src, obj in zip(srcs, objs)])
+    for src, out in zip(srcs, outs):
+        _report_path(lib, src.stem).write_text(out)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
     os.replace(tmp, lib)
     for obj in objs:
         obj.unlink()
     return lib
+
+
+def _report_path(lib: Path, stem: str) -> Path:
+    return lib.with_name(f"{lib.stem}.{stem}.ptxas.txt")
+
+
+def ptxas_report(stem: str) -> str:
+    """The `ptxas -v` output of `csrc/<stem>.cu` in the current build."""
+    return _report_path(build(), stem).read_text()
 
 
 def library() -> ctypes.CDLL:

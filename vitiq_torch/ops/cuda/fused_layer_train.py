@@ -50,8 +50,9 @@ from vitiq_torch.ops.cuda import _build
 LN_EPS = 1e-12
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
-SUPPORTED_D_MODEL = (128, 256)
-SUPPORTED_D_HEAD = (16, 32)
+SUPPORTED_D_MODEL = (64, 128, 256)
+SUPPORTED_D_HEAD = (16, 32, 64)
+FFN_MULTIPLE = 64  # the narrowest GEMM tile
 MAX_SHARED_MEMORY = 232448  # bytes a block may use on Hopper
 _M32 = 0xFFFFFFFF
 
@@ -82,15 +83,16 @@ def stash_attention_bwd_smem_bytes(L: int, d_head: int) -> int:
 
 
 def fused_train_supported(L: int, D: int, ffn_hidden: int, n_head: int) -> bool:
-    """Shapes the K3 kernels take: d_model 128 or 256, d_head 16 or 32, an
-    FFN width that is a multiple of 128, and an L whose attention-backward
-    block fits the card's shared memory (the kernels' `shapes_ok`). Decided
-    from shapes alone, before any launch. d_model 64 (`vit_tiny_2016`) and
-    d_head 64 (`vit_tpu_production`) train through the plain layers with K5."""
+    """Shapes the K3 kernels take: d_model 64, 128 or 256, d_head 16, 32 or
+    64, an FFN width that is a multiple of 64, and an L whose
+    attention-backward block fits the card's shared memory (the kernels'
+    `shapes_ok`; up to L = 224 at d_head 64, so `vit_tpu_production`'s 129
+    tokens train through K3, and the conv1d arm's 1025 at any d_head through
+    the plain layers with K5). Decided from shapes alone, before any launch."""
     if D not in SUPPORTED_D_MODEL or n_head <= 0 or D % n_head or L <= 0:
         return False
     dh = D // n_head
-    return (dh in SUPPORTED_D_HEAD and ffn_hidden > 0 and ffn_hidden % 128 == 0
+    return (dh in SUPPORTED_D_HEAD and ffn_hidden > 0 and ffn_hidden % FFN_MULTIPLE == 0
             and attention_bwd_smem_bytes(L, dh) <= MAX_SHARED_MEMORY)
 
 
@@ -132,8 +134,8 @@ def stash_enabled(L: int, n_head: int, d: int, batch: Optional[int] = None,
 
 
 def fused_train_stash_supported(L: int, D: int, ffn_hidden: int, n_head: int) -> bool:
-    """Shapes the K4 kernels take: K3's (d_model 128 or 256, d_head 16 or 32,
-    an FFN width that is a multiple of 128), an L inside the stash gate
+    """Shapes the K4 kernels take: K3's (d_model 64, 128 or 256, d_head 16, 32
+    or 64, an FFN width that is a multiple of 64), an L inside the stash gate
     (`stash_supported` at Lp = round_up(L, 16)) and an attention-backward
     block that fits the card's shared memory."""
     if not fused_train_supported(L, D, ffn_hidden, n_head):
@@ -409,9 +411,9 @@ def _check_inputs(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
     F = ops[6].shape[-1]
     if B == 0 or not fused_train_supported(L, D, F, n_head):
         raise ValueError(f"{'K4' if stash else 'K3'} takes d_model in {SUPPORTED_D_MODEL}, "
-                         f"d_head in {SUPPORTED_D_HEAD}, "
-                         f"an FFN width that is a multiple of 128 and L up to the shared-memory "
-                         f"bound; got B={B}, L={L}, d_model={D}, n_head={n_head}, ffn={F}")
+                         f"d_head in {SUPPORTED_D_HEAD}, an FFN width that is a multiple of "
+                         f"{FFN_MULTIPLE} and L up to the shared-memory bound; got B={B}, L={L}, "
+                         f"d_model={D}, n_head={n_head}, ffn={F}")
     if stash and not fused_train_stash_supported(L, D, F, n_head):
         raise ValueError(f"K4 takes L inside the stash gate (H * round_up(L, 16) <= "
                          f"{STASH_MAX_HEAD_LANES}, no tail keys); got L={L}, n_head={n_head}")

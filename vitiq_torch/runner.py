@@ -15,11 +15,15 @@ config, rebuilds the model, loads its parameter file and writes the
 evaluation artifacts, in float through the serving path or, with ``int8``,
 through the W8A8 quantized model (`ops/quant.py`: K6 and K2 on the card).
 
-Both run on the card unless the caller asks for another device, and raise
-where CUDA is absent; under ``VITIQ_ATTN_INT8=1`` their float evaluation
-passes run K7 (`Encoder.forward`). Only the synthetic source is ported: the
-HDF5 source needs h5py. The reference-checkpoint import and the head-to-head
-comparison are not ported yet.
+`run_head_to_head` is the thesis's experiment: both arms trained by
+`run_training` on the same data, each evaluated on its test split, then the
+cross-arm comparison of their reports (`eval/compare.py`).
+
+All three run on the card unless the caller asks for another device, and
+raise where CUDA is absent; under ``VITIQ_ATTN_INT8=1`` their float
+evaluation passes run K7 (`Encoder.forward`). Only the synthetic source is
+ported: the HDF5 source needs h5py. The reference-checkpoint import is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -294,3 +298,25 @@ def run_training(cfg: ExperimentConfig, resume: Optional[str] = None, evaluate_t
     (exp_dir / "summary.json").write_text(json.dumps(
         {k: v for k, v in summary.items() if k != "history"}, indent=2, default=float))
     return summary
+
+
+def run_head_to_head(vit_cfg: ExperimentConfig, rawiq_cfg: ExperimentConfig,
+                     comparison_dir: str = "comparison_results", verbose: bool = True,
+                     resume: Optional[str] = None, device="cuda", make_plots: bool = True) -> Dict:
+    """Train both arms on identical data (the ViT arm first), evaluate each,
+    and compare their test reports into `comparison_dir`; returns each
+    arm's summary (without its history), the comparison directory and the
+    insights. `resume="auto"` resumes each arm from the newest checkpoint
+    in its experiment directory. ``make_plots=False`` skips every plot."""
+    from vitiq_torch.eval.compare import ModelComparison
+
+    summaries = [run_training(cfg, resume=resume, verbose=verbose, device=device,
+                              make_plots=make_plots) for cfg in (vit_cfg, rawiq_cfg)]
+    vit_report, rawiq_report = (Path(s["experiment_dir"]) / "evaluation"
+                                / "test_classification_report.txt" for s in summaries)
+    mc = ModelComparison(vit_report, rawiq_report, output_dir=comparison_dir)
+    insights = mc.run_comparison(verbose=verbose, make_plots=make_plots)
+    vit_summary, rawiq_summary = ({k: v for k, v in s.items() if k != "history"}
+                                  for s in summaries)
+    return {"vit": vit_summary, "rawiq": rawiq_summary, "comparison_dir": str(comparison_dir),
+            "insights": insights}
