@@ -170,6 +170,29 @@ which raises (exit code 1) on failure:
    K3 / K4 and through the plain layers with K5 (VITIQ_FUSED_TRAIN=0, the
    path they took before K3/K4 took their widths); beside the card's name
    and power limit.
+8. probes: the counterparts of the TPU probes under scripts/
+   (`vitiq_torch/probes/`, `csrc/probes.cu`). The `ptxas -v` lines of the
+   probe kernels (none may spill) and of K1's attention kernel with and
+   without P3's NOEXP flag (K1's registers must be those before the flag,
+   fel.K1_ATTENTION_REGISTERS), and their SASS (cuobjdump): P3 keeps every
+   FMNMX of K1's row max and has no MUFU.EX2. The probes' main path, every
+   probe counter reset just before and read just after: P1
+   (`mask_ops.report`, as `python -m vitiq_torch.probes.mask_ops`) builds, launches
+   and holds each of its 11 variants to its plain version (elementwise bit
+   for bit, exp2 within 2 ulp, mm_* within 1e-5 of the sum of |products|);
+   P2 (`refcost.measure` at REFCOST_ARGS) times its three arms and prints
+   the per-operand price; P3 (`exp.time_stacks`) times the no-exp 6-layer
+   stack against K1's at P3_SHAPES. Then each probe kernel against its plain
+   version with its time, bound and PyTorch yardstick (P1: torch.add or
+   torch.exp2 on the same input; P2: each arm bit for bit against in + 1,
+   beside torch._foreach_add and x + 1; P3 at each P3 shape, its layer within
+   1e-2 relative L2 over the rows whose sums of scores are not small beside
+   their magnitudes (over all rows too at the ViT and conv1d shapes) and its
+   attention core alone within 1e-2 in each such row on the same qkv), and
+   K1's and P3's time
+   by stage (`torch.profiler`: QKV, attention, out-proj + LN1, FFN1, FFN2 +
+   LN2) at the ViT (B=4096), conv1d (B=256) and rawiq_best (B=4096) shapes,
+   with the exp's share of K1's attention stage and layer.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -186,6 +209,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -209,6 +233,9 @@ from vitiq_torch.ops.cuda import fused_encoder_layer_int8attn as k7
 from vitiq_torch.ops.cuda import fused_layer_train as flt
 from vitiq_torch.ops.metrics import label_smoothed_cross_entropy
 from vitiq_torch.ops.quant import QuantizedEncoderLayer, quantize_params_int8
+from vitiq_torch.probes import exp as p3
+from vitiq_torch.probes import mask_ops, refcost
+from vitiq_torch.probes._timing import time_amortized
 from vitiq_torch import cli
 from vitiq_torch.runner import run_evaluation, run_training
 from vitiq_torch.serve import (
@@ -1751,6 +1778,258 @@ def time_k1_library(name: str, L: int, ffn: int, device, card: str, batch: int =
     return ms
 
 
+# --------------------------------------------------------------------------
+# the probes (P1-P3): the TPU lowering and cost probes' counterparts
+# --------------------------------------------------------------------------
+
+PROBES_SOURCE = "vitiq_torch/csrc/probes.cu"
+# the TPU probes' kernels (file:line of each kernel function)
+P1_TPU_LINES = dict(zip(mask_ops.VARIANTS + mask_ops.MM_VARIANTS,
+                        (26, 30, 35, 40, 46, 51, 56, 97, 101, 105, 110)))
+P1_TPU_SOURCE = "scripts/tpu_probe_mask_ops.py"
+P2_TPU = "scripts/tpu_probe_refcost.py:38"
+P3_TPU = "scripts/tpu_probe_exp.py:26"
+# P2 at 205 grid steps of G = 40: the reference's defaults (8192, 40) fail
+# its own check that G divide the batch.
+REFCOST_ARGS = (8200, 40, 16)
+# P3 against its plain version (`p3.check_layer`, `p3.check_core`): at every
+# P3 shape its layer over the rows whose sums of scores are not small beside
+# their magnitudes, its attention core alone on the same qkv row by row; and
+# its layer over all rows here. At rawiq_best's seeded batch the layer's
+# all-rows relative L2 rests on one frame row whose denominator's sign the
+# bf16 rounding of qkv decides: it is printed there, with that row.
+P3_ALL_ROWS = ("vit", "conv1d")
+# P3's stacks (6 layers) beside K1's: the TPU probe's own shape, and where K1
+# loses to nn.TransformerEncoderLayer (conv1d, rawiq_best):
+# (name, B, L, D, F, H)
+P3_SHAPES = (("vit", 8192, 129, 128, 512, 8), ("conv1d", 256, CONV1D_L, 128, 1024, 8),
+             ("rawiq_best", 4096, 65, 256, 1024, 8))
+K1_STAGES = ("QKV", "attention", "out-proj + LN1", "FFN1", "FFN2 + LN2")
+
+
+def check_probe_builds() -> None:
+    """The `ptxas -v` lines of the probes' kernels and of K1's attention
+    kernel with and without the NOEXP flag; fails if a probe kernel spills
+    or K1's attention kernels' registers moved."""
+    for name in mask_ops.VARIANTS + mask_ops.MM_VARIANTS:
+        regs, stores, loads = mask_ops.kernel_resources(name)
+        print(f"  ptxas {name}: {regs} registers, {stores + loads} bytes spilled", flush=True)
+        if stores or loads:
+            raise AssertionError(f"probe kernel {name} spills")
+    regs, stores, loads = _build.kernel_resources("probes", "refcost_kernel")
+    print(f"  ptxas refcost_kernel: {regs} registers, {stores + loads} bytes spilled", flush=True)
+    if stores or loads:
+        raise AssertionError("refcost_kernel spills")
+    for dh, regs in fel.K1_ATTENTION_REGISTERS.items():
+        k1 = _build.kernel_resources("fused_encoder_layer", fel.attention_kernel_tag(dh))
+        noexp = _build.kernel_resources("fused_encoder_layer", fel.attention_kernel_tag(dh, True))
+        print(f"  ptxas attention_kernel<{dh}, false> (K1): {k1}; <{dh}, true> (P3): {noexp} "
+              f"(registers, spill stores, spill loads; K1 before the flag: {regs})", flush=True)
+        if k1 != (regs, 0, 0):
+            raise AssertionError(f"K1's attention_kernel<{dh}> changed: {k1}")
+
+
+def check_noexp_sass() -> None:
+    """P3's max pass is live: in the built library's SASS (cuobjdump, beside
+    nvcc) attention_kernel<DH, true> keeps every FMNMX (the row max) of K1's
+    attention_kernel<DH, false> and has no MUFU.EX2 (the exp2) where K1's
+    has some."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    bodies = dict(block.split("\n", 1) for block in sass.split("Function : ")[1:])
+    for dh in fel.K1_ATTENTION_REGISTERS:
+        k1 = [b for n, b in bodies.items() if fel.attention_kernel_tag(dh) in n]
+        noexp = [b for n, b in bodies.items() if fel.attention_kernel_tag(dh, True) in n]
+        if len(k1) != 1 or len(noexp) != 1:
+            raise AssertionError(f"attention_kernel<{dh}>: {len(k1)} and {len(noexp)} SASS bodies")
+        fmnmx, ex2 = ((k1[0].count(op), noexp[0].count(op)) for op in ("FMNMX", "MUFU.EX2"))
+        print(f"  SASS attention_kernel<{dh}>: FMNMX {fmnmx[0]} (K1) / {fmnmx[1]} (P3), MUFU.EX2 "
+              f"{ex2[0]} / {ex2[1]}", flush=True)
+        if fmnmx[1] != fmnmx[0] or ex2[1] != 0 or ex2[0] == 0:
+            raise AssertionError(f"P3's attention_kernel<{dh}> lost its max pass or kept its exp")
+
+
+def drive_probes(device, card: str) -> dict:
+    """The probes' main path: each probe's entry point as its command line
+    runs it (`mask_ops.main` on all 11 variants, `refcost.measure` at
+    REFCOST_ARGS, `exp.time_stacks` at P3_SHAPES), every probe launch counter
+    reset just before and read just after."""
+    for module in (mask_ops, refcost, p3):
+        module.reset_launches()
+    print("  python -m vitiq_torch.probes.mask_ops (the seven elementwise variants and the "
+          "mm_* ones):", flush=True)
+    p1_err = mask_ops.report(mask_ops.VARIANTS + mask_ops.MM_VARIANTS, device)
+    if None in p1_err.values():
+        raise AssertionError("a P1 variant failed")
+    print(f"  python -m vitiq_torch.probes.refcost {' '.join(map(str, REFCOST_ARGS))}:",
+          flush=True)
+    refcost_rows = refcost.measure(*REFCOST_ARGS, device=device)
+    stacks = {}
+    for name, B, L, D, F, H in P3_SHAPES:
+        t = p3.time_stacks(B, L, D, F, H, device)
+        stacks[name] = t
+        print(f"  python -m vitiq_torch.probes.exp {B} {L} {D} {F} {H} ({name}): no-exp "
+              f"{p3.N_LAYERS}-layer stack {t['noexp_ms']:.4f} ms/batch, K1's "
+              f"{t['k1_ms']:.4f} ms/batch: the exp is {t['exp_share']:.4f} of K1's time  "
+              f"[{card}]", flush=True)
+    return {"p1": dict(mask_ops.launches), "p2": dict(refcost.launches),
+            "p3": p3.launches["fused_encoder_layer_noexp"], "p1_err": p1_err,
+            "refcost": refcost_rows, "stacks": stacks}
+
+
+def check_probes(device, card: str, probes: dict) -> dict:
+    """Each probe kernel against its plain version beside the main path's
+    readings in `probes` (P1's errors as `mask_ops.report` took them; P2
+    each arm bit for bit against ``in + 1``; P3 by `p3.check_layer` and
+    `p3.check_core` at each P3 shape), and each one's time per launch beside
+    its plain version, its bound and a PyTorch call that computes the same
+    function where there is one (P2's kernel time is `refcost.measure`'s)."""
+    out = {}
+    args = mask_ops.inputs(device)
+    for name in mask_ops.VARIANTS + mask_ops.MM_VARIANTS:
+        err = probes["p1_err"][name]
+        mm = name.startswith("mm_")
+        fn = (lambda: mask_ops.mm_mask(name, args["xm"], args["w"])) if mm else (
+            lambda: mask_ops.mask_op(name, args["x"]))
+        x, n = args["x"], args["x"].numel()
+        if mm:
+            nbytes = (args["xm"].numel() + args["w"].numel()) * 2.0 + n * 4.0
+            bnd = bound(2.0 * n * mask_ops.K, nbytes)
+            library_ms = None  # no one call takes bf16 operands to an f32 product plus a mask
+        else:
+            bnd = bound(0.0, 2 * n * 4.0)
+            row = None if name == "exp2" else mask_ops.mask_row(name, device)
+            library_ms = cuda_ms((lambda: torch.exp2(x)) if row is None else
+                                 (lambda: torch.add(x, row)), 200)
+        out[name] = {"err": err, "ms": cuda_ms(fn, 200),
+                     "plain_ms": cuda_ms(lambda: mask_ops.reference(name, args), 200),
+                     "bound": bnd, "library_ms": library_ms}
+        print(f"  P1 {name}: max |kernel - plain| = {err:.6g}; {out[name]['ms']:.4f} ms a "
+              f"launch vs plain {out[name]['plain_ms']:.4f} ms"
+              + ("" if library_ms is None else f" vs one PyTorch call {library_ms:.4f} ms")
+              + f" (bound {bnd[0]:.6f} ms by {bnd[1]})  [{card}]", flush=True)
+
+    batch, g, nr = REFCOST_ARGS
+    for (tag, nrefs, width), row in zip(refcost.arms(nr), probes["refcost"], strict=True):
+        xs = refcost.arm_inputs(nrefs, width, batch, device)
+        got, want = refcost.refcost(xs, g), refcost.refcost_reference(xs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"P2 {tag}: the kernel's in + 1 differs from the plain version's")
+        del got, want
+        library = "torch._foreach_add" if nrefs > 1 else "x + 1"
+        # the plain version and the PyTorch call timed as `measure` timed the kernel alone
+        t = {"err": 0.0, "ms": row["kernel_ms"],
+             "plain_ms": time_amortized(lambda seed, *xs: refcost.refcost_reference(xs), xs) * 1e3,
+             "library_ms": time_amortized((lambda seed, *xs: torch._foreach_add(xs, 1))
+                                          if nrefs > 1 else (lambda seed, x: x + 1), xs) * 1e3,
+             "bound": bound(0.0, 2.0 * sum(x.numel() for x in xs) * 2)}
+        print(f"  P2 {tag} ({2 * nrefs} operands of width {width}): bit for bit; kernel "
+              f"{t['ms']:.4f} ms vs plain {t['plain_ms']:.4f} ms vs {library} "
+              f"{t['library_ms']:.4f} ms (bound {t['bound'][0]:.4f} ms by {t['bound'][1]}); "
+              f"{t['ms'] / (batch // g) * 1e3:.4f} us a block  [{card}]", flush=True)
+        out[tag] = t
+        del xs
+        torch.cuda.empty_cache()
+
+    for name, _, L, D, F, H in P3_SHAPES:
+        B = 32 if L == CONV1D_L else 256
+        ops = p3.stack_operands(1, D, F, H, device, seed=3)[0]
+        x = torch.randn((B, L, D), generator=torch.Generator().manual_seed(1))
+        x = x.to(device, torch.bfloat16)
+        layer = p3.check_layer(x, ops, H, all_rows=name in P3_ALL_ROWS)
+        with torch.no_grad():
+            core = p3.check_core((fel._mm(x, ops[0]) + ops[1]).to(torch.bfloat16), H)
+        print(f"  P3 {name} layer B={B} L={L} D={D} H={H}: ||kernel - plain|| / ||plain|| "
+              f"{layer['rel_held']:.6g} over the {layer['held']:.4f} of rows held in every head "
+              f"(limit {p3.LAYER_REL}), {layer['rel']:.6g} over all rows ("
+              + (f"limit {p3.LAYER_REL}" if name in P3_ALL_ROWS else "printed, not gated")
+              + f"); max |kernel - plain| {layer['max_abs']:.6g}; worst row "
+              f"{layer['worst_row_rel']:.6g} at conditioning {layer['worst_row_cond']:.3g}. Its "
+              f"core on the same qkv: worst held row {core['row_rel_held']:.6g} (limit "
+              f"{p3.CORE_ROW_REL}; {core['held']:.4f} of rows held, conditioning >= "
+              f"{p3.COND_FLOOR}), {core['rel']:.6g} over all rows", flush=True)
+        if name == "vit":
+            out["p3_err"] = layer["max_abs"]
+        del x
+        torch.cuda.empty_cache()
+
+    ops = p3.stack_operands(1, 128, 512, 8, device, seed=13)[0]
+    x = torch.randn((4096, 129, 128), generator=torch.Generator().manual_seed(3))
+    x = x.to(device, torch.bfloat16)
+    with torch.no_grad():
+        out["p3"] = {"ms": cuda_ms(lambda: p3.fused_encoder_layer_noexp(x, ops, 8), 20),
+                     "plain_ms": cuda_ms(lambda: p3.fused_layer_noexp_reference(x, ops, 8), 5,
+                                         warmup=1),
+                     "k1_ms": cuda_ms(lambda: fel.fused_encoder_layer(x, ops, 8), 20),
+                     "bound": layer_bounds(4096, 129, 512)["k1"]}
+    print(f"  P3 vit layer B=4096 L=129: no-exp {out['p3']['ms']:.4f} ms vs plain "
+          f"{out['p3']['plain_ms']:.4f} ms vs K1 {out['p3']['k1_ms']:.4f} ms (bound K1's, "
+          f"{out['p3']['bound'][0]:.4f} ms by {out['p3']['bound'][1]}; library none: no "
+          f"PyTorch call computes it)  [{card}]", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_k1_stages(name: str, B: int, L: int, D: int, F: int, H: int, device, card: str,
+                      calls: int = 20) -> dict:
+    """K1's time by stage: `torch.profiler` over `calls` layer calls of K1
+    and of P3 (K1 without its exp) at [B, L, D], the five stage kernels of
+    each call in launch order (QKV, attention, out-proj + LN1, FFN1, FFN2 +
+    LN2). Prints each stage's ms and share, and the exp's share of the
+    attention stage and of the layer."""
+    ops = p3.stack_operands(1, D, F, H, device, seed=13)[0]
+    x = torch.randn((B, L, D), generator=torch.Generator().manual_seed(3)).to(device,
+                                                                             torch.bfloat16)
+    split = {}
+    with torch.no_grad():
+        for label, layer in (("K1", fel.fused_encoder_layer),
+                             ("no-exp", p3.fused_encoder_layer_noexp)):
+            for _ in range(2):
+                layer(x, ops, H)
+            torch.cuda.synchronize()
+            activities = [torch.profiler.ProfilerActivity.CPU,
+                          torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=activities) as prof:
+                for _ in range(calls):
+                    layer(x, ops, H)
+                torch.cuda.synchronize()
+            kernels = sorted((e for e in prof.events()
+                              if e.device_type == torch.autograd.DeviceType.CUDA
+                              and device_us(e) > 0), key=lambda e: e.time_range.start)
+            # a call's five kernels, each told by its template: the QKV GEMM
+            # (bias epilogue), attention, out-proj + LN1 (LN epilogue), FFN1
+            # (ReLU epilogue), FFN2 + LN2. The profiler can miss kernels of
+            # a window (a full smoke run kept 6 of 10 calls whole), so the
+            # split averages the calls it holds whole, at least half of them.
+            kinds = ["attention" if "attention_kernel" in e.name else
+                     next((k for t, k in (("gemm_kernel<0,", "qkv"), ("gemm_kernel<1,", "relu"),
+                                          ("gemm_kernel<2,", "ln")) if t in e.name), e.name)
+                     for e in kernels]
+            whole = [kernels[i - 1:i + 4] for i, k in enumerate(kinds) if k == "attention"
+                     and kinds[i - 1:i + 4] == ["qkv", "attention", "ln", "relu", "ln"]]
+            if len(whole) < calls // 2:
+                raise AssertionError(f"{name}: {len(whole)} whole layer calls in {label}'s "
+                                     f"profile of {calls}: {kinds[:12]}")
+            stages = [sum(device_us(c[i]) for c in whole) / len(whole) / 1e3 for i in range(5)]
+            split[label] = stages
+            total = sum(stages)
+            print(f"  {name} {label} layer B={B} L={L} D={D} F={F} by stage (torch.profiler, "
+                  f"{len(whole)} of {calls} calls whole): " + ", ".join(
+                      f"{s} {t:.4f} ms ({t / total:.3f})" for s, t in zip(K1_STAGES, stages))
+                  + f"; sum {total:.4f} ms  [{card}]", flush=True)
+    k1, ne = split["K1"], split["no-exp"]
+    split["exp_share_attention"] = (k1[1] - ne[1]) / k1[1]
+    split["exp_share_layer"] = (sum(k1) - sum(ne)) / sum(k1)
+    print(f"  {name}: the exp is {split['exp_share_attention']:.4f} of K1's attention stage and "
+          f"{split['exp_share_layer']:.4f} of its layer  [{card}]", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    return split
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a GPU",
@@ -1910,6 +2189,16 @@ def main() -> int:
     finally:
         del os.environ["VITIQ_ATTN_INT8"]
 
+    print(f"phase probes: P1-P3 (vitiq_torch/probes/, csrc/probes.cu, K1's NOEXP flag) on "
+          f"{card}:", flush=True)
+    check_probe_builds()
+    check_noexp_sass()
+    probes = drive_probes(device, card)
+    probe_times = check_probes(device, card, probes)
+    for name, B, L, D, F in (("vit", 4096, 129, 128, 512), ("conv1d", 256, CONV1D_L, 128, 1024),
+                             ("rawiq_best", 4096, 65, 256, 1024)):
+        profile_k1_stages(name, B, L, D, F, 8, device, card)
+
     counts, k3, k4, k5 = vit["counts"], vit_train["counts"], raw_train["counts"], conv_train["counts"]
     vt, rt, ct = times["vit"], times["rawiq"], times["conv1d"]
 
@@ -1949,6 +2238,21 @@ def main() -> int:
               k5[K5[1]], errs["k5b"], ct["k5b_ms"], ct["k5b_plain_ms"], ct["k5b"],
               ct["sdpa_bwd_ms"]),
     ]
+    for name in mask_ops.VARIANTS + mask_ops.MM_VARIANTS:
+        t = probe_times[name]
+        kernel = "mm_mask_kernel" if name.startswith("mm_") else "mask_op_kernel"
+        kernels.append(entry(f"{kernel} {name} (P1)", PROBES_SOURCE,
+                             f"{P1_TPU_SOURCE}:{P1_TPU_LINES[name]}", probes["p1"][name],
+                             t["err"], t["ms"], t["plain_ms"], t["bound"], t["library_ms"]))
+    for tag, nrefs, width in refcost.arms(REFCOST_ARGS[2]):
+        t = probe_times[tag]
+        kernels.append(entry(f"refcost_kernel {tag}: {2 * nrefs} operands (P2)", PROBES_SOURCE,
+                             P2_TPU, probes["p2"].get(refcost.arm_key(nrefs, width), 0),
+                             t["err"], t["ms"], t["plain_ms"], t["bound"], t["library_ms"]))
+    t = probe_times["p3"]
+    kernels.append(entry("fused_encoder_layer_noexp (P3, K1 without its exp)", SOURCE, P3_TPU,
+                         probes["p3"], probe_times["p3_err"], t["ms"], t["plain_ms"],
+                         t["bound"], None))
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on the main path")

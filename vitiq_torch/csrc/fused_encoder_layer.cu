@@ -14,6 +14,10 @@
 //   K7  vitiq/ops/pallas/fused_encoder_layer.py: fused_encoder_layer_v3_stack
 //       with attn_int8=True (VITIQ_ATTN_INT8=1) -> _fused_layer_kernel_v3_attn_int8
 //       (every full layer; its CLS tail is K2, bf16)
+//   P3  scripts/tpu_probe_exp.py: kernel_noexp, the fused layer with its
+//       softmax exp removed (a timing probe outside the package)
+//       -> vitiq_encoder_layer_full_noexp: K1 with attention_kernel<DH, true>
+//          (vitiq_attention_noexp: that core alone)
 //
 // Function, per layer, on a bf16 [B, L, D] activation (D = 64, 128 or 256,
 // d_head = D / H = 16, 32 or 64; shapes_ok says which shapes the kernels take,
@@ -650,6 +654,12 @@ __device__ __forceinline__ void score_block(float sc[2][4], const uint32_t qa[DH
   }
 }
 
+// P3's probability without the exp: (s - m) + m, IEEE-rounded twice, and 0
+// for a key past L (s = -inf there).
+__device__ __forceinline__ float noexp_prob(float s, float m) {
+  return s == -INFINITY ? 0.f : __fadd_rn(__fsub_rn(s, m), m);
+}
+
 // One block per (frame b, head h). qkv: [B, L, 3D] bf16 with q in columns
 // [0, D) (only rows < n_q are read), k in [D, 2D), v in [2D, 3D). Writes
 // query rows 0..n_q-1 of head h to out + b*out_frame_stride + i*D + h*DH.
@@ -661,7 +671,19 @@ __device__ __forceinline__ void score_block(float sc[2][4], const uint32_t qa[DH
 // row max; pass 2 forms p = bf16(exp2(s - max)), sums the rounded p in f32,
 // and accumulates P V in f32, the score fragment reused as the A operand.
 // Scores and probabilities live in registers only.
-template <int DH>
+//
+// NOEXP (P3, scripts/tpu_probe_exp.py: kernel_noexp, a timing probe and not
+// a softmax): the same two passes with the exp removed and nothing else,
+// p = (s - max) + max in f32 (0 past L), the denominator the sum of the
+// unrounded f32 p (the probe's), P V on bf16(p). The max stays live: each p
+// is computed from it by two IEEE-rounded operations (__fsub_rn, __fadd_rn),
+// which the compiler may neither reassociate into s nor contract, so the
+// first pass is not dead code and the probe times K1's structure without
+// its exp2. The function divides by the sum of the scores, which can sit
+// near zero for a row: no element-wise tolerance holds it to its plain
+// version, only a relative L2 over the layer. K1's instantiation
+// (NOEXP = false) is the code it was before the flag.
+template <int DH, bool NOEXP>
 __global__ void __launch_bounds__(ATTN_WARPS * 32) attention_kernel(
     const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, int n_q, int D,
     long long out_frame_stride) {
@@ -725,15 +747,24 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) attention_kernel(
       uint32_t pa[4];  // P as the A operand: [g | g+8][j0 + 2t.. | j0 + 8 + 2t..]
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb) {
-        const __nv_bfloat162 p_lo =
-            __floats2bfloat162_rn(exp2f(sc[nb][0] - m_lo), exp2f(sc[nb][1] - m_lo));
-        const __nv_bfloat162 p_hi =
-            __floats2bfloat162_rn(exp2f(sc[nb][2] - m_hi), exp2f(sc[nb][3] - m_hi));
-        const float2 f_lo = __bfloat1622float2(p_lo), f_hi = __bfloat1622float2(p_hi);
-        l_lo += f_lo.x + f_lo.y;
-        l_hi += f_hi.x + f_hi.y;
-        pa[2 * nb] = *reinterpret_cast<const uint32_t*>(&p_lo);
-        pa[2 * nb + 1] = *reinterpret_cast<const uint32_t*>(&p_hi);
+        if constexpr (NOEXP) {
+          const float p[4] = {noexp_prob(sc[nb][0], m_lo), noexp_prob(sc[nb][1], m_lo),
+                              noexp_prob(sc[nb][2], m_hi), noexp_prob(sc[nb][3], m_hi)};
+          l_lo += p[0] + p[1];
+          l_hi += p[2] + p[3];
+          pa[2 * nb] = pack_bf16x2(p[0], p[1]);
+          pa[2 * nb + 1] = pack_bf16x2(p[2], p[3]);
+        } else {
+          const __nv_bfloat162 p_lo =
+              __floats2bfloat162_rn(exp2f(sc[nb][0] - m_lo), exp2f(sc[nb][1] - m_lo));
+          const __nv_bfloat162 p_hi =
+              __floats2bfloat162_rn(exp2f(sc[nb][2] - m_hi), exp2f(sc[nb][3] - m_hi));
+          const float2 f_lo = __bfloat1622float2(p_lo), f_hi = __bfloat1622float2(p_hi);
+          l_lo += f_lo.x + f_lo.y;
+          l_hi += f_hi.x + f_hi.y;
+          pa[2 * nb] = *reinterpret_cast<const uint32_t*>(&p_lo);
+          pa[2 * nb + 1] = *reinterpret_cast<const uint32_t*>(&p_hi);
+        }
       }
 #pragma unroll
       for (int nd = 0; nd < DH / 8; ++nd) {
@@ -1137,25 +1168,29 @@ GemmArgs with_ln(GemmArgs g, const bf16* res, long long ldr, const float* gamma,
   return g;
 }
 
-template <int DH>
+template <int DH, bool NOEXP>
 cudaError_t launch_attention(const bf16* qkv, bf16* out, int B, int L, int n_q,
                              int D, int H, long long out_frame_stride,
                              cudaStream_t stream) {
   const size_t smem = attention_smem_bytes<DH>(L);
-  const cudaError_t err = allow_smem(attention_kernel<DH>, smem);
+  const cudaError_t err = allow_smem(attention_kernel<DH, NOEXP>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)B, (unsigned)H);
-  attention_kernel<DH><<<grid, ATTN_WARPS * 32, smem, stream>>>(qkv, out, L, n_q, D,
-                                                                out_frame_stride);
+  attention_kernel<DH, NOEXP><<<grid, ATTN_WARPS * 32, smem, stream>>>(qkv, out, L, n_q, D,
+                                                                       out_frame_stride);
   return cudaSuccess;
 }
 
+template <bool NOEXP>
 cudaError_t attention(const bf16* qkv, bf16* out, int B, int L, int n_q, int D, int H,
                       long long out_frame_stride, cudaStream_t stream) {
   switch (D / H) {
-    case 16: return launch_attention<16>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
-    case 32: return launch_attention<32>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
-    case 64: return launch_attention<64>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
+    case 16:
+      return launch_attention<16, NOEXP>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
+    case 32:
+      return launch_attention<32, NOEXP>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
+    case 64:
+      return launch_attention<64, NOEXP>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -1218,20 +1253,26 @@ bool shapes_ok(int B, int L, int D, int H, int F) {
 #define VITIQ_TRY(call) \
   if ((err = (call)) != cudaSuccess) return (int)err
 
-// One layer, for every query row (K1, or K7 with `int8_attn`) or for row 0
-// of each frame only (K2). x: [B, L, D]; out: [B, L, D] (K1, K7) or
+// The attention core of a layer: K1's (exp2 softmax), P3's (K1's without the
+// exp) or K7's (int8).
+enum class Core { kExp2, kNoExp, kInt8 };
+
+// One layer, for every query row (K1, P3 with Core::kNoExp, K7 with
+// Core::kInt8) or for row 0 of each frame only (K2, Core::kExp2). x:
+// [B, L, D]; out: [B, L, D] (K1, P3, K7) or
 // [B, 1, D] (K2). Scratch: qkv [B, L, 3D]; attn and x1 [R, D] and hid [R, F]
 // for the R output rows (B*L or B). Weights: wqkv [D, 3D] with its q columns
 // pre-scaled by log2(e)/sqrt(dh), wo [D, D], w1 [D, F], w2 [F, D] in bf16;
 // biases and LN parameters f32. Returns the first launch error or
 // cudaGetLastError().
-int encoder_layer(bool cls_only, bool int8_attn, const void* x, void* out, void* qkv,
+int encoder_layer(bool cls_only, Core core, const void* x, void* out, void* qkv,
                   void* attn, void* x1, void* hid, const void* wqkv, const void* bqkv,
                   const void* wo, const void* bo, const void* g1, const void* be1,
                   const void* w1, const void* b1, const void* w2, const void* b2,
                   const void* g2, const void* be2, int B, int L, int D, int H, int F,
                   void* stream_ptr) {
-  if ((int8_attn && cls_only) || !shapes_ok(B, L, D, H, F)) return (int)cudaErrorInvalidValue;
+  if ((core != Core::kExp2 && cls_only) || !shapes_ok(B, L, D, H, F))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* qkvb = static_cast<bf16*>(qkv);
@@ -1256,10 +1297,13 @@ int encoder_layer(bool cls_only, bool int8_attn, const void* x, void* out, void*
     VITIQ_TRY(launch_gemm<kBias>(gemm_args(xb, D, w_qkv, 3 * D, b_qkv, qkvb, 3 * D, M, D, 0),
                                  3 * D, tile_width(3 * D), s));
   }
-  if (int8_attn) {
+  if (core == Core::kInt8) {
     VITIQ_TRY(attention_int8(qkvb, attnb, B, L, D, H, nullptr, nullptr, nullptr, s));
+  } else if (core == Core::kNoExp) {
+    VITIQ_TRY(attention<true>(qkvb, attnb, B, L, L, D, H, frame, s));
   } else {
-    VITIQ_TRY(attention(qkvb, attnb, B, L, cls_only ? 1 : L, D, H, cls_only ? D : frame, s));
+    VITIQ_TRY(attention<false>(qkvb, attnb, B, L, cls_only ? 1 : L, D, H,
+                               cls_only ? D : frame, s));
   }
   VITIQ_TRY(launch_gemm<kBiasResidualLN>(
       with_ln(gemm_args(attnb, D, static_cast<const bf16*>(wo), D,
@@ -1344,7 +1388,7 @@ int encoder_layer_int8(const void* x, void* out, void* qkv, void* attn, void* x1
   VITIQ_TRY((launch_gemm_int8<kBias, true>(
       gemm_args(xb, D, nullptr, 0, f32(bqkv), qkvb, 3 * D, M, D, 0), aq, ascale, wqkv, sqkv,
       3 * D, tile_width(3 * D), s)));
-  VITIQ_TRY(attention(qkvb, attnb, B, L, L, D, H, (long long)L * D, s));
+  VITIQ_TRY(attention<false>(qkvb, attnb, B, L, L, D, H, (long long)L * D, s));
   GemmArgs proj = with_ln(gemm_args(attnb, D, nullptr, 0, f32(bo), x1b, D, M, D, 0), xb, D,
                           f32(g1), f32(be1));
   proj.cq = static_cast<int8_t*>(aq);
@@ -1374,7 +1418,7 @@ extern "C" int vitiq_encoder_layer_full(
     const void* g1, const void* be1, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* g2, const void* be2,
     int B, int L, int D, int H, int F, void* stream_ptr) {
-  return encoder_layer(false, false, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1,
+  return encoder_layer(false, Core::kExp2, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1,
                        w1, b1, w2, b2, g2, be2, B, L, D, H, F, stream_ptr);
 }
 
@@ -1385,7 +1429,7 @@ extern "C" int vitiq_encoder_layer_cls(
     const void* g1, const void* be1, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* g2, const void* be2,
     int B, int L, int D, int H, int F, void* stream_ptr) {
-  return encoder_layer(true, false, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1,
+  return encoder_layer(true, Core::kExp2, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1,
                        w1, b1, w2, b2, g2, be2, B, L, D, H, F, stream_ptr);
 }
 
@@ -1397,8 +1441,33 @@ extern "C" int vitiq_encoder_layer_attn_int8_full(
     const void* g1, const void* be1, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* g2, const void* be2,
     int B, int L, int D, int H, int F, void* stream_ptr) {
-  return encoder_layer(false, true, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1,
+  return encoder_layer(false, Core::kInt8, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1,
                        w1, b1, w2, b2, g2, be2, B, L, D, H, F, stream_ptr);
+}
+
+// P3: K1's full layer with its softmax exp removed (attention_kernel<DH,
+// true>; see encoder_layer). A timing probe, not a layer of the model.
+extern "C" int vitiq_encoder_layer_full_noexp(
+    const void* x, void* out, void* qkv, void* attn, void* x1, void* hid,
+    const void* wqkv, const void* bqkv, const void* wo, const void* bo,
+    const void* g1, const void* be1, const void* w1, const void* b1,
+    const void* w2, const void* b2, const void* g2, const void* be2,
+    int B, int L, int D, int H, int F, void* stream_ptr) {
+  return encoder_layer(false, Core::kNoExp, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1,
+                       be1, w1, b1, w2, b2, g2, be2, B, L, D, H, F, stream_ptr);
+}
+
+// P3's attention core alone (attention_kernel<DH, true>) on qkv [B, L, 3D]
+// bf16 -> out [B, L, D] bf16, to hold it to its plain version on the same
+// qkv. Takes K1's shapes (F is not read).
+extern "C" int vitiq_attention_noexp(const void* qkv, void* out, int B, int L, int D, int H,
+                                     void* stream_ptr) {
+  if (!shapes_ok(B, L, D, H, 128)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = attention<true>(static_cast<const bf16*>(qkv), static_cast<bf16*>(out),
+                                          B, L, L, D, H, (long long)L * D,
+                                          static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // K7's attention core alone on qkv [B, L, 3D] bf16 -> out [B, L, D] bf16;

@@ -16,9 +16,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
@@ -37,6 +40,9 @@ SIGNATURES = {
     "vitiq_encoder_layer_full": (_LAYER_ARGS, _I),
     "vitiq_encoder_layer_cls": (_LAYER_ARGS, _I),
     "vitiq_encoder_layer_attn_int8_full": (_LAYER_ARGS, _I),
+    "vitiq_encoder_layer_full_noexp": (_LAYER_ARGS, _I),
+    # qkv, out; B, L, D, H; stream
+    "vitiq_attention_noexp": ([_P] * 2 + [_I] * 4 + [_P], _I),
     # qkv, out, s_dump, p_dump, pv_dump; B, L, D, H; stream
     "vitiq_attention_int8": ([_P] * 5 + [_I] * 4 + [_P], _I),
     # x, out, 6 scratch, 16 int8-layer operands; B, L, D, H, F; stream
@@ -55,6 +61,12 @@ SIGNATURES = {
     "vitiq_attention_fwd": ([_P] * 5 + [_I] * 7 + [_P], _I),
     # q, k, v, out, dout, lse, delta, dq, dk, dv; ldq, ldk, ldv; B, L, H, D; stream
     "vitiq_attention_bwd": ([_P] * 10 + [_I] * 7 + [_P], _I),
+    # probes.cu. op, x, out, n; stream
+    "vitiq_probe_mask_op": ([_I, _P, _P, _I, _P], _I),
+    # op, x, w, out; stream
+    "vitiq_probe_mm_mask": ([_I, _P, _P, _P, _P], _I),
+    # ins, outs (pointer arrays), n_ops, block_elems, grid; stream
+    "vitiq_probe_refcost": ([_P, _P, _I, ctypes.c_longlong, _I, _P], _I),
     "vitiq_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -129,6 +141,29 @@ def ptxas_report(stem: str) -> str:
     return _report_path(build(), stem).read_text()
 
 
+def ptxas_entries(report: str) -> dict:
+    """Each kernel of a `ptxas -v` report: mangled name -> (registers, spill
+    store bytes, spill load bytes)."""
+    entries = {}
+    for chunk in report.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        entries[name] = (int(regs.group(1)) if regs else 0,
+                         *(map(int, spills.groups()) if spills else (0, 0)))
+    return entries
+
+
+def kernel_resources(stem: str, tag: str):
+    """(registers, spill store bytes, spill load bytes) of the one kernel of
+    `csrc/<stem>.cu` whose mangled name holds `tag`, from the build's `ptxas
+    -v` report; raises unless exactly one kernel matches."""
+    found = [v for k, v in ptxas_entries(ptxas_report(stem)).items() if tag in k]
+    if len(found) != 1:
+        raise RuntimeError(f"{tag}: {len(found)} entries in the ptxas report of {stem}.cu")
+    return found[0]
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _library
@@ -140,3 +175,15 @@ def library() -> ctypes.CDLL:
             fn.restype = restype
         _library = lib
     return _library
+
+
+def call(entry: str, device, *args) -> None:
+    """Call the C entry point `entry` with `args` and the current stream of
+    the CUDA `device`; raise on the CUDA error it returns."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {err} "
+                           f"({lib.vitiq_error_string(err).decode()})")

@@ -45,6 +45,12 @@ MAX_SHARED_MEMORY = 232448  # bytes a block may use on Hopper
 
 launches = {"fused_encoder_layer": 0, "fused_encoder_layer_cls": 0}
 
+# `ptxas -v` registers of K1's attention_kernel<DH, false> at d_head 16, 32
+# and 64 (nvcc for sm_90a), as they were before the no-exp instantiation
+# (the P3 probe, `vitiq_torch/probes/exp.py`) was added beside it: K1's build
+# is held to them.
+K1_ATTENTION_REGISTERS = {16: 40, 32: 56, 64: 96}
+
 
 def reset_launches() -> None:
     for name in launches:
@@ -70,6 +76,12 @@ def fused_infer_supported(L: int, D: int, ffn_hidden: int, n_head: int) -> bool:
     dh = D // n_head
     return (dh in SUPPORTED_D_HEAD and ffn_hidden > 0 and ffn_hidden % 128 == 0
             and attention_smem_bytes(L, dh) <= MAX_SHARED_MEMORY)
+
+
+def attention_kernel_tag(d_head: int, noexp: bool = False) -> str:
+    """The part of attention_kernel<d_head, noexp>'s mangled name that tells
+    it from the other instantiations (in a `ptxas -v` report or SASS)."""
+    return f"attention_kernelILi{d_head}ELb{int(noexp)}EE"
 
 
 def layer_operands(layer, n_head: int, dtype=torch.bfloat16) -> List[torch.Tensor]:
