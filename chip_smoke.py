@@ -23,6 +23,13 @@ which raises (exit code 1) on failure:
    elementwise within K5_OUT_TOL (scaled to the output's rms), the f32
    log-sum-exp within K5_LSE_ATOL, dq, dk, dv each within GRAD_REL in the L2
    norm (max |difference| printed).
+   k1-parts: K1's kernels one by one at the same shapes (B=256, conv1d
+   B=64): its four wgmma GEMM stages (QKV, out-projection + LN1, FFN1 +
+   ReLU, FFN2 + LN2), each on the plain version's input to it, within one
+   bf16 ulp of an f32 product of the same operands (`check_ulp`), and its
+   one-pass attention core on the QKV stage's qkv against
+   `fel.attention_onepass_reference` (1% in the L2 norm, elementwise within
+   K5_OUT_TOL scaled to the output's rms).
    int8-kernels: K6 (the int8 W8A8 layer) against its plain version at the
    three flagship shapes (B=256, B=256, B=64), d_head 16 and 32: each of
    five layers on the plain version's input and the five layers with the K2
@@ -157,7 +164,9 @@ which raises (exit code 1) on failure:
    and nn.TransformerEncoderLayer(256, 8, 1024)), its serving (bf16 and
    int8) and train steps (rawiq_best through K3, with a `torch.profiler`
    breakdown by kernel, rawiq_best_mp through K4); ViT (B=4096) and conv1d
-   (B=2048) serving with VITIQ_ATTN_INT8=1 (K7 + K2);
+   (B=2048) serving with VITIQ_ATTN_INT8=1 (K7 + K2); serving p50 latency
+   at the small batches SMALL_BATCHES (ViT flagship and rawiq_best through
+   K1 + K2) and the host time of one K1 call at B=1 (`time_small_batches`);
    train-step frames/s and peak device memory: the ViT flagship through K3
    and through the plain layers, the rawIQ flagship through K4, through K3
    (VITIQ_TRAIN_STASH=0) and through the plain layers (B=4096), the conv1d
@@ -172,10 +181,12 @@ which raises (exit code 1) on failure:
    and power limit.
 8. probes: the counterparts of the TPU probes under scripts/
    (`vitiq_torch/probes/`, `csrc/probes.cu`). The `ptxas -v` lines of the
-   probe kernels (none may spill) and of K1's attention kernel with and
-   without P3's NOEXP flag (K1's registers must be those before the flag,
-   fel.K1_ATTENTION_REGISTERS), and their SASS (cuobjdump): P3 keeps every
-   FMNMX of K1's row max and has no MUFU.EX2. The probes' main path, every
+   probe kernels (none may spill), of K1's one-pass core with and without
+   P3's NOEXP flag (K1's registers must be fel.K1_ATTENTION_REGISTERS) and
+   of every instance of K1's wgmma GEMM stage and core (none may spill),
+   and their SASS (cuobjdump): HGMMA in K1's GEMM stages and core, MUFU.EX2
+   in K1's core, P3 keeping every FMNMX of K1's running max with no
+   MUFU.EX2. The probes' main path, every
    probe counter reset just before and read just after: P1
    (`mask_ops.report`, as `python -m vitiq_torch.probes.mask_ops`) builds, launches
    and holds each of its 11 variants to its plain version (elementwise bit
@@ -196,6 +207,11 @@ which raises (exit code 1) on failure:
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
+
+``python3 chip_smoke.py --latency`` runs only the device and build phases
+and `time_small_batches`, and prints its numbers as one JSON line (to
+compare two trees of the port in one call: copy this script into each tree's
+root and run it there).
 """
 
 from __future__ import annotations
@@ -455,6 +471,78 @@ def check_kernels(device, conv1d_batch: int = 64, batch: int = 256) -> dict:
     return errs
 
 
+def check_ulp(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """A GEMM stage against an f32 product of the same bf16 operands: every
+    element within one bf16 ulp of max(|plain|, rms(plain) / 64) (the two f32
+    sums run in other orders, so an output near zero may move by more than
+    its own ulp). Returns the max |difference|."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: bad kernel output {tuple(got.shape)}")
+    floor = want.square().mean().sqrt() / 64
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(want.abs(), floor))) - 7)
+    err = (got - want).abs()
+    worst = (err / ulp).max().item()
+    print(f"  {label}: max |kernel - plain| = {err.max().item():.6g}, at most {worst:.3g} bf16 "
+          f"ulp (limit 1)", flush=True)
+    if worst > 1:
+        raise AssertionError(f"{label}: kernel disagrees with the plain version")
+    return err.max().item()
+
+
+def check_k1_parts(device, conv1d_batch: int = 64, batch: int = 256) -> float:
+    """K1's kernels one by one on the card at the main path's shapes (the
+    three flagships and WIDE_SHAPES, D=128 H=8 unless stated): its four wgmma
+    GEMM stages (QKV; out-projection + LN1; FFN1 + ReLU; FFN2 + LN2), each on
+    the plain version's input to it, within one bf16 ulp of an f32 product
+    of the same operands (`check_ulp`), and its one-pass attention core on
+    the QKV stage's qkv against `fel.attention_onepass_reference`: within 1%
+    in the L2 norm and elementwise within K5_OUT_TOL (scaled to the output's
+    rms). Returns the largest difference."""
+    worst = 0.0
+    gen = torch.Generator().manual_seed(17)
+    shapes = [("vit", 129, 512, 128, 8), ("rawiq", 65, 1024, 128, 8),
+              ("conv1d", CONV1D_L, 1024, 128, 8), *WIDE_SHAPES]
+    for seed, (name, L, ffn, D, H) in enumerate(shapes):
+        B = conv1d_batch if L == CONV1D_L else batch
+        print(f"phase k1-parts: K1's GEMM stages and attention core vs their plain versions, "
+              f"{name} shape B={B} L={L} F={ffn} D={D} H={H}", flush=True)
+        ops = fel.layer_operands(random_layers(1, ffn, seed=31 + seed, device=device, D=D, H=H)[0],
+                                 H)
+        wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = ops
+        x = torch.randn((B * L, D), generator=gen).to(device, torch.bfloat16)
+        with torch.no_grad():
+            qkv = fel.gemm_stage(x, wqkv, bqkv)
+            want_qkv = fel.gemm_stage_reference(x, wqkv, bqkv)
+            torch.cuda.synchronize()
+            worst = max(worst, check_ulp(f"{name} QKV stage [{B * L}, {D}] x [{D}, {3 * D}]",
+                                         qkv, want_qkv))
+            attn = fel.attention_core(qkv.view(B, L, 3 * D), H)
+            want = fel.attention_onepass_reference(qkv.view(B, L, 3 * D), H)
+            torch.cuda.synchronize()
+            rms = want.float().square().mean().sqrt().item()
+            label = f"{name} attention core (L={L}, d_head {D // H})"
+            worst = max(worst, check_close(label, attn, want, (K5_OUT_TOL[0] * rms, K5_OUT_TOL[1])),
+                        check_rel(label, attn, want))
+            attn = want.view(B * L, D)
+            x1 = fel.gemm_stage_reference(attn, wo, bo, res=x, gamma=g1, beta=be1)
+            hid = fel.gemm_stage_reference(x1, w1, b1, relu=True)
+            for label, args, kw in (("out-projection + LN1", (attn, wo, bo),
+                                     {"res": x, "gamma": g1, "beta": be1}),
+                                    ("FFN1 + ReLU", (x1, w1, b1), {"relu": True}),
+                                    ("FFN2 + LN2", (hid, w2, b2),
+                                     {"res": x1, "gamma": g2, "beta": be2})):
+                got = fel.gemm_stage(*args, **kw)
+                want = fel.gemm_stage_reference(*args, **kw)
+                torch.cuda.synchronize()
+                a, w = args[0], args[1]
+                worst = max(worst, check_ulp(f"{name} {label} stage [{a.shape[0]}, {a.shape[1]}] x "
+                                             f"[{w.shape[0]}, {w.shape[1]}]", got, want))
+        del x, qkv, attn, x1, hid
+        torch.cuda.empty_cache()
+    return worst
+
+
 def check_rel(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """||got - want|| / ||want|| <= GRAD_REL (printed with max |difference|);
     returns the max |difference|."""
@@ -600,6 +688,75 @@ def time_serving(label: str, serve, batch: int, device, card: str, iters: int = 
     print(f"  {label} serving B={batch}: p50 latency {p50:.4f} ms (host clock, synced), "
           f"{batch / (ms / 1e3):.1f} frames/s (CUDA events, {ms:.4f} ms/batch)  [{card}]",
           flush=True)
+
+
+# the small batches a live-decision user sends: serving p50 there is the
+# host's launch path more than the card's work
+SMALL_BATCHES = (1, 8, 32)
+
+
+def time_small_batches(device, card: str, iters: int = 100) -> dict:
+    """Serving p50 latency (host clock, synced per request, `iters` requests)
+    at SMALL_BATCHES for the ViT flagship and rawiq_best through K1 + K2
+    (random weights) beside the device's busy time a request (the kernels'
+    time under `torch.profiler`, over 10 requests), and the host time of one
+    K1 call at B=1 on the ViT shape: the mean over `iters` calls issued
+    without a sync, and the p50 of synced calls. Only the port's public
+    entry points are used, so the function runs on an earlier tree of the
+    port too (`--latency`)."""
+    out = {}
+    for label, model_cfg, stats in (("vit", flagship_vit_config("tpu"), STATS),
+                                    ("rawiq_best", rawiq_best_config("tpu"), RAW_STATS)):
+        exp = ExperimentConfig(model=model_cfg,
+                               data=DataConfig(synthetic_frame_len=model_cfg.seq_length))
+        model = AMCModel(model_cfg, generator=torch.Generator().manual_seed(0))
+        serve = build_serving_fn(exp, model, stats, device)
+        for batch in SMALL_BATCHES:
+            x = torch.randn((batch, model_cfg.seq_length, 2),
+                            generator=torch.Generator().manual_seed(batch)).to(device)
+            for _ in range(5):
+                serve(x)
+            torch.cuda.synchronize()
+            lat = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                serve(x)
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t0)
+            out[f"{label}_p50_ms_b{batch}"] = statistics.median(lat) * 1e3
+            activities = [torch.profiler.ProfilerActivity.CPU,
+                          torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=activities) as prof:
+                for _ in range(10):
+                    serve(x)
+                torch.cuda.synchronize()
+            busy = sum(device_us(e) for e in device_kernels(prof)) / 10
+            out[f"{label}_device_ms_b{batch}"] = busy / 1e3
+        del model, serve
+    ops = fel.layer_operands(random_layers(1, 512, seed=5, device=device)[0], 8)
+    x = torch.randn((1, 129, 128), generator=torch.Generator().manual_seed(6))
+    x = x.to(device, torch.bfloat16)
+    with torch.no_grad():
+        for _ in range(5):
+            fel.fused_encoder_layer(x, ops, 8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fel.fused_encoder_layer(x, ops, 8)
+        host = (time.perf_counter() - t0) / iters
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fel.fused_encoder_layer(x, ops, 8)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+    out["k1_host_us_b1"] = host * 1e6
+    out["k1_p50_us_b1"] = statistics.median(lat) * 1e6
+    print("  small batches: " + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+          + f" (serving p50: host clock, synced, {iters} requests; K1 at B=1, L=129: host time "
+          f"a call unsynced, p50 synced)  [{card}]", flush=True)
+    return out
 
 
 def train_operands(ffn: int, seed: int, device, D: int = 128, H: int = 8):
@@ -1823,17 +1980,36 @@ def check_probe_builds() -> None:
     for dh, regs in fel.K1_ATTENTION_REGISTERS.items():
         k1 = _build.kernel_resources("fused_encoder_layer", fel.attention_kernel_tag(dh))
         noexp = _build.kernel_resources("fused_encoder_layer", fel.attention_kernel_tag(dh, True))
-        print(f"  ptxas attention_kernel<{dh}, false> (K1): {k1}; <{dh}, true> (P3): {noexp} "
-              f"(registers, spill stores, spill loads; K1 before the flag: {regs})", flush=True)
-        if k1 != (regs, 0, 0):
-            raise AssertionError(f"K1's attention_kernel<{dh}> changed: {k1}")
+        print(f"  ptxas attention_core_kernel<{dh}, false> (K1): {k1}; <{dh}, true> (P3): {noexp} "
+              f"(registers, spill stores, spill loads; K1's stated: {regs})", flush=True)
+        if k1 != (regs, 0, 0) or noexp[1:] != (0, 0):
+            raise AssertionError(f"K1's attention core <{dh}> changed or spills: {k1}, P3 {noexp}")
+    check_k1_spills()
+
+
+def check_k1_spills() -> None:
+    """Every instance of K1's wgmma GEMM stage and one-pass attention core in
+    the build's `ptxas -v` report: printed, and none may spill."""
+    entries = _build.ptxas_entries(_build.ptxas_report("fused_encoder_layer"))
+    mine = {n: v for n, v in entries.items()
+            if "gemm_wgmma_kernel" in n or "attention_core_kernel" in n}
+    if len(mine) < 10:
+        raise AssertionError(f"{len(mine)} of K1's kernels in the ptxas report")
+    for name, (regs, stores, loads) in sorted(mine.items()):
+        short = name[name.index("gemm_wgmma" if "gemm_wgmma" in name else "attention_core"):]
+        print(f"  ptxas {short.split('EEEv')[0]}: {regs} registers, {stores + loads} bytes spilled",
+              flush=True)
+    spilled = [n for n, (_, stores, loads) in mine.items() if stores or loads]
+    if spilled:
+        raise AssertionError(f"K1's kernels spill: {spilled}")
 
 
 def check_noexp_sass() -> None:
-    """P3's max pass is live: in the built library's SASS (cuobjdump, beside
-    nvcc) attention_kernel<DH, true> keeps every FMNMX (the row max) of K1's
-    attention_kernel<DH, false> and has no MUFU.EX2 (the exp2) where K1's
-    has some."""
+    """In the built library's SASS (cuobjdump, beside nvcc): K1's one-pass
+    core (attention_core_kernel<DH, false>) runs its products on HGMMA and
+    its exp2 on MUFU.EX2; P3's instance (NOEXP) keeps every FMNMX (the
+    running max) of K1's and has no MUFU.EX2; every instance of K1's GEMM
+    stage (gemm_wgmma_kernel) runs HGMMA."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())], capture_output=True,
                           text=True, timeout=600, check=True).stdout
@@ -1842,12 +2018,21 @@ def check_noexp_sass() -> None:
         k1 = [b for n, b in bodies.items() if fel.attention_kernel_tag(dh) in n]
         noexp = [b for n, b in bodies.items() if fel.attention_kernel_tag(dh, True) in n]
         if len(k1) != 1 or len(noexp) != 1:
-            raise AssertionError(f"attention_kernel<{dh}>: {len(k1)} and {len(noexp)} SASS bodies")
-        fmnmx, ex2 = ((k1[0].count(op), noexp[0].count(op)) for op in ("FMNMX", "MUFU.EX2"))
-        print(f"  SASS attention_kernel<{dh}>: FMNMX {fmnmx[0]} (K1) / {fmnmx[1]} (P3), MUFU.EX2 "
-              f"{ex2[0]} / {ex2[1]}", flush=True)
-        if fmnmx[1] != fmnmx[0] or ex2[1] != 0 or ex2[0] == 0:
-            raise AssertionError(f"P3's attention_kernel<{dh}> lost its max pass or kept its exp")
+            raise AssertionError(f"attention core <{dh}>: {len(k1)} and {len(noexp)} SASS bodies")
+        fmnmx, ex2, hgmma = ((k1[0].count(op), noexp[0].count(op))
+                             for op in ("FMNMX", "MUFU.EX2", "HGMMA"))
+        print(f"  SASS attention_core_kernel<{dh}>: FMNMX {fmnmx[0]} (K1) / {fmnmx[1]} (P3), "
+              f"MUFU.EX2 {ex2[0]} / {ex2[1]}, HGMMA {hgmma[0]} / {hgmma[1]}", flush=True)
+        if fmnmx[1] != fmnmx[0] or ex2[1] or not ex2[0]:
+            raise AssertionError(f"P3's core <{dh}> lost its max or kept an exp2, or K1's core "
+                                 f"has no MUFU.EX2")
+        if not hgmma[0] or not hgmma[1]:
+            raise AssertionError(f"the attention core <{dh}> runs no HGMMA")
+    gemms = {n: b.count("HGMMA") for n, b in bodies.items() if "gemm_wgmma_kernel" in n}
+    print(f"  SASS gemm_wgmma_kernel: {len(gemms)} instances, HGMMA in each: "
+          f"{sorted(set(gemms.values()))}", flush=True)
+    if len(gemms) < 6 or not all(gemms.values()):
+        raise AssertionError("a GEMM stage of K1 runs no HGMMA")
 
 
 def drive_probes(device, card: str) -> dict:
@@ -1999,17 +2184,18 @@ def profile_k1_stages(name: str, B: int, L: int, D: int, F: int, H: int, device,
             kernels = sorted((e for e in prof.events()
                               if e.device_type == torch.autograd.DeviceType.CUDA
                               and device_us(e) > 0), key=lambda e: e.time_range.start)
-            # a call's five kernels, each told by its template: the QKV GEMM
-            # (bias epilogue), attention, out-proj + LN1 (LN epilogue), FFN1
-            # (ReLU epilogue), FFN2 + LN2. The profiler can miss kernels of
-            # a window (a full smoke run kept 6 of 10 calls whole), so the
-            # split averages the calls it holds whole, at least half of them.
-            kinds = ["attention" if "attention_kernel" in e.name else
-                     next((k for t, k in (("gemm_kernel<0,", "qkv"), ("gemm_kernel<1,", "relu"),
-                                          ("gemm_kernel<2,", "ln")) if t in e.name), e.name)
+            # a call's five kernels, told by template and order: the QKV GEMM
+            # (bias epilogue), the attention core, out-proj + LN1 (LN
+            # epilogue), FFN1 (bias epilogue with ReLU), FFN2 + LN2. The
+            # profiler can miss kernels of a window (a full smoke run kept 6
+            # of 10 calls whole), so the split averages the calls it holds
+            # whole, at least half of them.
+            kinds = ["attention" if "attention_core_kernel" in e.name else
+                     next((k for t, k in (("gemm_wgmma_kernel<0,", "bias"),
+                                          ("gemm_wgmma_kernel<2,", "ln")) if t in e.name), e.name)
                      for e in kernels]
             whole = [kernels[i - 1:i + 4] for i, k in enumerate(kinds) if k == "attention"
-                     and kinds[i - 1:i + 4] == ["qkv", "attention", "ln", "relu", "ln"]]
+                     and kinds[i - 1:i + 4] == ["bias", "attention", "ln", "bias", "ln"]]
             if len(whole) < calls // 2:
                 raise AssertionError(f"{name}: {len(whole)} whole layer calls in {label}'s "
                                      f"profile of {calls}: {kinds[:12]}")
@@ -2048,9 +2234,14 @@ def main() -> int:
     print(f"  nvcc {' '.join(_build.NVCC_FLAGS)} {[s.name for s in _build.sources()]} -> "
           f"{lib.relative_to(_build.BUILD_DIR.parents[1])} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if sys.argv[1:] == ["--latency"]:
+        print(f"phase latency: small serving batches on {card}:", flush=True)
+        print(json.dumps({"latency": time_small_batches(device, card)}), flush=True)
+        return 0
     check_train_spills()
 
     errs = check_kernels(device)
+    errs["k1_parts"] = check_k1_parts(device)
     errs.update(check_attention_kernels(device))
     errs["k6"] = check_int8_kernels(device)
     errs["k7"] = check_int8attn_kernels(device)
@@ -2180,6 +2371,7 @@ def main() -> int:
                  build_serving_fn(best["exp"], best["model"], best["stats"], device), 4096,
                  device, card)
     time_serving("rawiq_best (int8 W8A8: K6 + K2)", best8["serve"], 4096, device, card)
+    time_small_batches(device, card)
     os.environ["VITIQ_ATTN_INT8"] = "1"
     try:
         for label, res, batch in (("vit flagship", vit, 4096), ("conv1d flagship", conv1d, 2048)):

@@ -151,6 +151,95 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         fel.fused_encoder_layer_cls(x.bfloat16(), [ops[0].float()] + ops[1:], H)
 
 
+def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The bf16 ulp at |v| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs())) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1000, 77])  # not multiples of the 64-row tile
+@pytest.mark.parametrize("K", [64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("N,epi", [(64, "bias"), (128, "relu"), (192, "bias"), (256, "relu"),
+                                   (384, "bias"), (768, "relu"), (1024, "bias"), (64, "ln"),
+                                   (128, "ln"), (256, "ln")])
+def test_gemm_stage_is_within_one_ulp_of_an_f32_product(cuda, M, K, N, epi):
+    """One of K1's wgmma GEMM stages (W resident for K <= 256, streamed
+    above) against an f32 product of the same bf16 operands with the same
+    epilogue: within one bf16 ulp of the output (the ulp of max(|out|,
+    rms(out) / 64): the two f32 sums run in other orders, so an output near
+    zero may differ by more than its own ulp)."""
+    gen = torch.Generator().manual_seed(M + K + N)
+    a = torch.randn((M, K), generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen) / math.sqrt(K)).to(cuda, torch.bfloat16)
+    bias = (0.1 * torch.randn(N, generator=gen)).to(cuda)
+    ln = {}
+    if epi == "ln":
+        ln = {"res": torch.randn((M, N), generator=gen).to(cuda, torch.bfloat16),
+              "gamma": (1 + 0.1 * torch.randn(N, generator=gen)).to(cuda),
+              "beta": (0.1 * torch.randn(N, generator=gen)).to(cuda)}
+    fel.reset_launches()
+    got = fel.gemm_stage(a, w, bias, relu=epi == "relu", **ln)
+    want = fel.gemm_stage_reference(a, w, bias, relu=epi == "relu", **ln).float()
+    torch.cuda.synchronize()
+    assert fel.stage_launches["gemm_stage"] == 1
+    floor = want.square().mean().sqrt() / 64
+    assert torch.all((got.float() - want).abs() <= _bf16_ulp(torch.maximum(want.abs(), floor)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,epi", [(128, 384, "bias"), (256, 1024, "relu"), (128, 128, "ln"),
+                                     (256, 64, "ln")])
+def test_gemm_stage_gives_the_same_bits_over_repeated_launches(cuda, K, N, epi):
+    """Stages with W resident (K <= 256) over ~100K rows, so each warpgroup
+    of a block refills its ring of A tiles many times: 30 launches on the
+    same operands give the same bits as the first and stay within one ulp of
+    the f32 product (a slot refilled before every warp of its warpgroup had
+    read it would move some rows)."""
+    M = 100_003
+    gen = torch.Generator().manual_seed(K + N)
+    a = torch.randn((M, K), generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen) / math.sqrt(K)).to(cuda, torch.bfloat16)
+    bias = (0.1 * torch.randn(N, generator=gen)).to(cuda)
+    kw = {"relu": epi == "relu"}
+    if epi == "ln":
+        kw = {"res": torch.randn((M, N), generator=gen).to(cuda, torch.bfloat16),
+              "gamma": (1 + 0.1 * torch.randn(N, generator=gen)).to(cuda),
+              "beta": (0.1 * torch.randn(N, generator=gen)).to(cuda)}
+    first = fel.gemm_stage(a, w, bias, **kw)
+    want = fel.gemm_stage_reference(a, w, bias, **kw).float()
+    floor = want.square().mean().sqrt() / 64
+    assert torch.all((first.float() - want).abs() <= _bf16_ulp(torch.maximum(want.abs(), floor)))
+    for _ in range(30):
+        assert torch.equal(fel.gemm_stage(a, w, bias, **kw), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx,n_head,d", [
+    (1, 8, 128), (17, 8, 128), (65, 8, 128), (129, 8, 128), (1025, 8, 128), (64, 8, 128),
+    (200, 4, 128), (65, 8, 256), (129, 4, 64), (129, 2, 128), (848, 2, 128), (1600, 4, 128),
+    (2896, 8, 128)])
+def test_attention_core_matches_its_one_pass_plain_version(cuda, Lx, n_head, d):
+    """K1's wgmma core alone against `attention_onepass_reference` on the same
+    qkv, at d_head 16, 32, 64, ragged L (one key in the last tile at 65, 129
+    and 1025) and the longest L each d_head takes: within 1% in the L2 norm
+    and elementwise within 0.08 rms + 1.6e-2 |plain| (K5's forward gate: the
+    output's rms falls as 1/sqrt(L))."""
+    assert fel.fused_infer_supported(Lx, d, 128, n_head)
+    B = 3 if Lx > 800 else 17
+    qkv = torch.randn((B, Lx, 3 * d), generator=torch.Generator().manual_seed(Lx))
+    qkv = qkv.to(cuda, torch.bfloat16)
+    fel.reset_launches()
+    got = fel.attention_core(qkv, n_head)
+    want = fel.attention_onepass_reference(qkv, n_head).float()
+    torch.cuda.synchronize()
+    assert fel.stage_launches["attention_core"] == 1
+    got = got.float()
+    assert torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() <= 1e-2
+    rms = want.square().mean().sqrt()
+    assert torch.all((got - want).abs() <= 0.08 * rms + 1.6e-2 * want.abs())
+
+
 # --------------------------------------------------------------------------
 # K3: the fused training layer, forward and backward
 # --------------------------------------------------------------------------
@@ -1052,6 +1141,8 @@ def test_probe_noexp_core_matches_plain_version_on_the_same_qkv(cuda, Lx, n_head
 
 @pytest.mark.cuda
 def test_k1_attention_registers_unchanged_by_the_noexp_flag(cuda):
+    """K1's one-pass core keeps the registers stated for it, spills nothing,
+    and P3's NOEXP instance of the same core spills nothing."""
     for dh, regs in fel.K1_ATTENTION_REGISTERS.items():
         k1 = _build.kernel_resources("fused_encoder_layer", fel.attention_kernel_tag(dh))
         noexp = _build.kernel_resources("fused_encoder_layer", fel.attention_kernel_tag(dh, True))

@@ -16,62 +16,80 @@
 //       (every full layer; its CLS tail is K2, bf16)
 //   P3  scripts/tpu_probe_exp.py: kernel_noexp, the fused layer with its
 //       softmax exp removed (a timing probe outside the package)
-//       -> vitiq_encoder_layer_full_noexp: K1 with attention_kernel<DH, true>
+//       -> vitiq_encoder_layer_full_noexp: K1 with the NOEXP instance of its
+//          one-pass core, attention_core_kernel<DH, true>
 //          (vitiq_attention_noexp: that core alone)
 //
 // Function, per layer, on a bf16 [B, L, D] activation (D = 64, 128 or 256,
 // d_head = D / H = 16, 32 or 64; shapes_ok says which shapes the kernels take,
 // and fused_encoder_layer.fused_infer_supported is the same predicate):
 //   qkv    = bf16(x @ Wqkv + bqkv)          q pre-scaled by log2(e)/sqrt(dh)
-//   attn_h = bf16( sum_j p_j v_j / sum_j p_j ),  p_j = bf16(exp2(s_j - max s))
-//            s_j = q_h . k_{h,j} over the L valid keys
+//   attn_h = bf16( sum_j p_j v_j / sum_j p_j ),  p_j = bf16(exp2(s_j - m_j))
+//            s_j = q_h . k_{h,j} over the L valid keys, m_j the running max:
+//            the max over the 64-key tiles up to key j's (full layers, the
+//            one-pass core), or over all L keys (K2's two-pass core); the
+//            sums in f32 over the rounded p, rescaled by exp2(m_old - m_new)
+//            with the numerators when a tile raises the max
 //   x1     = bf16(LN(attn @ Wo + bo + x))    LN: biased variance, eps 1e-12,
 //   y      = bf16(LN(relu(x1 @ W1 + b1) @ W2 + b2 + x1))   f32 stats, rsqrt
-// All four GEMMs accumulate bf16 products in f32. K2 computes the same layer
-// for query row 0 only: K and V cover every token, the output is [B, 1, D].
+// All four GEMMs accumulate bf16 products in f32 (onto the bias, and the
+// residual in the LN stages). K2 computes the same layer for query row 0
+// only: K and V cover every token, the output is [B, 1, D].
+// Tolerance against the plain version (fused_layer_reference, whose core
+// rounds p at the final max): 3e-2 + 1.6e-2 |plain| a layer; rounding p at
+// the running max moves a p by a bf16 rounding where its tile's max is not
+// the row's, well inside it (`attention_onepass_reference` is the one-pass
+// core's own plain version, held to the kernel on the same qkv).
 //
-// Softmax: the row max IS subtracted (two passes over the keys, the scores
-// recomputed in the second). The TPU kernel's exp2 subtracts none and relies on
-// |score| < 88; subtracting the max is the same function, safe for any score,
-// and rounds the bf16 probabilities at a different scale.
+// Softmax: the row max IS subtracted. The TPU kernel's exp2 subtracts none
+// and relies on |score| < 88; subtracting the max is the same function,
+// safe for any score, and rounds the bf16 probabilities at another scale.
 //
-// Design: four __global__ stages per layer, launched on the caller's stream.
-//   1. gemm_kernel<kBias>            QKV GEMM (K2: q for row 0, k/v for all rows)
-//   2. attention_kernel<DH>          one block per (frame, head): the head's
-//                                    k/v rows in shared memory, one warp per
-//                                    16 query rows, Q K^T and P V on the tensor
-//                                    cores (mma.sync); scores and
-//                                    probabilities live in registers only and
-//                                    never reach device memory
-//   3. gemm_kernel<kBiasResidualLN>  out-projection + bias + residual + LN1
-//   4. gemm_kernel<kBiasRelu>        FFN1 + bias + ReLU
-//   5. gemm_kernel<kBiasResidualLN>  FFN2 + bias + residual + LN2
-// The GEMMs run on the tensor cores through WMMA (bf16 16x16x16 fragments,
-// f32 accumulators) over 64 x BN output tiles, BN a template width: the two
-// LayerNorm stages take BN = D, so one tile holds whole rows for the LN
-// epilogue (its f32 staging tile is 66.5 KB at D = 256, above the 48 KB of
-// static shared memory, so those stages take theirs dynamically; the
-// narrower tiles stay static: dynamic shared memory, and divisions in place
-// of shifts in the tile loops, made the D = 128 stages 2-10% slower on an
-// H100); the QKV and FFN1 stages take 128-wide tiles, several per row
-// (64-wide where N is not a multiple of 128: the QKV stage at D = 64). A
-// two-stage cp.async pipeline feeds them; no TMA, no wgmma: a simple, right
-// first port.
+// Design (for Hopper: wgmma, TMA, mbarriers): five launches per layer on the
+// caller's stream.
+//   1. gemm_wgmma_kernel<kBias>            QKV (K2: q for row 0, k/v for all rows)
+//   2. attention_core_kernel<DH>           the one-pass core, every query row
+//      (K2: attention_kernel<DH>, the two-pass mma.sync core for row 0)
+//   3. gemm_wgmma_kernel<kBiasResidualLN>  out-projection + bias + residual + LN1
+//   4. gemm_wgmma_kernel<kBias>, ReLU      FFN1 + bias + ReLU
+//   5. gemm_wgmma_kernel<kBiasResidualLN>  FFN2 + bias + residual + LN2
+// The GEMM stages are persistent blocks, one an SM, two warpgroups each, on
+// m64nBNk16 wgmma with BN the slab width (the whole N up to 256, else 256 or
+// 128; BN = D for the LN stages). W's slab stays resident where K = D (fed
+// once by TMA; the warpgroups take row tiles in ping-pong, each refilling
+// its own ring of A tiles), else streams beside A through a ring of 64-deep
+// steps shared by both warpgroups over 128-row tiles (FFN2, and the
+// out-projection at D = 256). Operands arrive by TMA, 128-byte swizzled; the
+// accumulators start from the bias (+ residual) and the epilogue works in
+// registers: each row of an m64 tile lies in one quad, so the LN statistics
+// take two quad shuffles each, and a quad transpose lets each thread store
+// 16 bytes of one row. Ragged M: TMA zero-fills rows past M, stores are
+// masked. (See the kernel for why there is no producer warp.)
+// The attention core: one block per (frame, head), one or two warpgroups on
+// 64-row query tiles; k and v arrive by TMA from a 3-D map over qkv (one
+// mbarrier per 64-key tile, a box past L zero-filled), Q K^T is m64n64k16
+// from q in registers, P V takes P from the accumulators as its register A
+// operand and v as an MN-major B operand from its [key][dh] rows, one pass
+// with an online softmax, exp2 on MUFU.EX2 (a split of the exp2 with an
+// FMA-pipe polynomial was measured slower at every share: PERF.md).
 //
 // What bounds it on the card: per frame and layer at the flagship shape
 // (L = 129, D = 128, F = 512) the GEMMs are ~51 MFLOP and the attention core
 // ~8.5 MFLOP, against ~0.7 MB of activation traffic through device memory
 // (qkv, attn, x1 and the FFN hidden each written once and read once or
 // twice). At ~85 FLOP/byte that is under the bf16 ridge (~295 FLOP/byte), so
-// on the roofline the intermediate round trips (the FFN hidden most of all)
-// bound it; the TPU kernel kept them in VMEM. In this first port the WMMA
-// GEMM stages, which hold most of the time, sit well below either roof.
+// the intermediate round trips (the FFN hidden most of all) bound the GEMM
+// stages, which now run near the HBM rate at D = 128 and at ~40% of the
+// bf16 peak at D = 256; the attention core is bound by the latency of its
+// per-tile chain (Q K^T, softmax, P V in turn) and its softmax issue, not
+// by the tensor cores or MUFU (PERF.md).
 //
 // TPU schedule variants (selected by env knobs in the reference) and what
 // computes each here — all are the same function as K1/K2:
-//   VITIQ_V3_ATTN=xpack (default), =chain, =kt   -> attention_kernel: heads
-//       are independent blocks, so neither the block-diagonal packing (xpack,
-//       K13) nor the per-head chain (chain) nor key tiling (kt, K9) has a
+//   VITIQ_V3_ATTN=xpack (default), =chain, =kt   -> attention_core_kernel
+//       (K2: attention_kernel): heads are independent blocks, so neither the
+//       block-diagonal packing (xpack, K13) nor the per-head chain (chain)
+//       nor key tiling (kt, K9) has a
 //       counterpart; a frame-head's K/V fit shared memory up to ~2.9K
 //       tokens at d_head 16 (~1.6K at d_head 32, ~850 at d_head 64, so the
 //       conv1d arm's 1025 tokens with n_head 2 are turned away by shapes_ok
@@ -80,8 +98,8 @@
 //   d_model and d_head (no knob: the TPU kernel takes the whole D as one
 //   VMEM block and packs any d_head into its xpack core)
 //                                                 -> D 64 / 128 / 256: the
-//       LN stages' tile is BN = D wide, the other stages tile N by 128 (64
-//       where 128 does not divide it); d_head 16 / 32 / 64: attention_kernel
+//       LN stages' slab is BN = D wide, the other stages' the whole N up to
+//       256, else 256 or 128; d_head 16 / 32 / 64: attention_core_kernel
 //       instances, one block per frame-head as at every width.
 //   VITIQ_V3_PACK (batch packing), VITIQ_V3_G / _LPC (frames per block,
 //       layers per call)                          -> one block per frame-head;
@@ -89,20 +107,21 @@
 //   VITIQ_V3_TAIL (VPU tail keys), Lp padding to 16 rows and batch padding to
 //       a multiple of G                           -> activations stay
 //       [B, L, D] unpadded; GEMM loops are bounded by B*L rows, the softmax
-//       by L keys. Only the attention core's shared-memory copies of k/v
-//       are zero-filled up to the 16-row MMA tile.
+//       by L keys. Only the attention cores' shared-memory copies of k/v
+//       are zero-filled up to the 64-key tile (TMA) or 16-row MMA tile (K2).
 //   VITIQ_V3_HG (head grouping)                   -> heads run in parallel blocks.
 //   VITIQ_V3_EPI (div / mul / div2 / div3 / mul2) -> one f32 divide per output
 //       element of the head.
 //   VITIQ_V3_FUSECLS=1 (mono / combo kernels)     -> the full layers, then K2,
 //       as separate launches; the activation between them is in device memory.
 //   VITIQ_FUSED_VERSION=v2 (K11), v1 fused_encoder_layer (K12),
-//   VITIQ_LONGSEQ=1 v4long (K10, query tiling)    -> K1 (the warp loop over
-//       16-row query tiles is the query tiling).
+//   VITIQ_LONGSEQ=1 v4long (K10, query tiling)    -> K1 (the warpgroups' loop
+//       over 64-row query tiles is the query tiling).
 //   VITIQ_V3_PROBE                                -> timing-only surgery; none.
 //
 // K6 (vitiq_encoder_layer_int8_full) is K1 with its four GEMM stages made
-// W8A8 (gemm_int8_kernel), the attention stage K1's own attention_kernel:
+// W8A8 (gemm_int8_kernel), the attention stage K1's one-pass core
+// (attention_core_kernel):
 //   int8_gemm(t) = (f32(rowquant(t) @ Wq^T) * s_row) * s_col + b, with
 //   s_row = max(max |t_row|, 1e-8) / 127 over the whole bf16 row and
 //   rowquant(t) = clip(rint(t / s_row), -127, 127), int32 accumulation;
@@ -157,33 +176,23 @@
 // takes every shape K1 takes. A simple first port: two passes over each
 // tile (the row max, then the probabilities), the scores recomputed.
 
-#include <mma.h>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int BM = 64;    // GEMM tile rows
-constexpr int BK = 32;    // GEMM tile depth
-constexpr int A_LD = BK + 8;   // shared-memory leading dim of the A tile (bank-conflict
-                               // pad, a multiple of 8 bf16 as WMMA requires)
-constexpr int GEMM_THREADS = 256;  // 8 warps: 2 x 4 warp tiles of 32 x BN/4
+constexpr int GEMM_THREADS = 256;  // K6's s8 GEMM: 8 warps, 2 x 4 warp tiles of 32 x BN/4
 constexpr int ATTN_WARPS = 4;
 constexpr int MAX_SMEM = 232448;  // shared memory a block may use on Hopper
 constexpr int STATIC_SMEM = 48 * 1024;  // static shared memory a block may use
 constexpr float LN_EPS = 1e-12f;
 constexpr float ROW_SCALE_FLOOR = 1e-8f;  // K6's row scale: max(absmax, 1e-8) / 127
 
-// Tile widths BN (columns of one output tile): the W tile's and the f32
-// staging tile's leading dims, padded as A_LD is.
-template <int BN>
-__host__ __device__ constexpr int b_ld() { return BN + 8; }
+// The f32 staging tile of K6's GEMM stages, [BM][c_ld]: BN columns padded
+// against bank conflicts.
 template <int BN>
 __host__ __device__ constexpr int c_ld() { return BN + 4; }
-// log2 of a power of two: the tile loops index rows and chunks by shifts
-__host__ __device__ constexpr int log2i(int n) { return n > 1 ? 1 + log2i(n / 2) : 0; }
 
 // kBiasResidualLNQuant: kBiasResidualLN that also writes the bf16 output row
 // quantized for the next int8 GEMM (int8 row and its scale), K6 only.
@@ -198,7 +207,7 @@ struct GemmArgs {
   bf16* c;            // C row r, column n at c + r * ldc + n
   long long ldc;
   long long m;        // rows
-  int k;              // depth (multiple of BK)
+  int k;              // depth (multiple of 64)
   int col0;           // first column of W / C this launch computes
   int n_tiles;        // BN-wide column tiles this launch computes
   const bf16* res;    // residual rows (LN epilogue), row r at res + r * ldr
@@ -207,6 +216,11 @@ struct GemmArgs {
   const float* beta;
   int8_t* cq;         // kBiasResidualLNQuant: the output rows quantized, [m, BN]
   float* cscale;      // and their scales [m]
+  // the bf16 wgmma stages' kBias epilogue: then ReLU. A runtime flag there
+  // (K6's s8 stages take kBiasRelu as a template argument): FFN1 then shares
+  // the QKV stage's instances instead of adding one wgmma instance per slab
+  // width and W layout to every build, for one warp-uniform branch a tile.
+  int relu;
 };
 
 // K6's activation quantization: the row scale from the row's absmax, and a
@@ -243,24 +257,14 @@ __device__ __forceinline__ float absmax8(const uint4& chunk, float amax) {
   return amax;
 }
 
-constexpr int A_TILE = BM * A_LD;  // bf16 elements of one stage's A tile
-template <int BN>
-__host__ __device__ constexpr int b_tile() { return BK * b_ld<BN>(); }  // and of its W tile
 template <int BN>
 __host__ __device__ constexpr int c_bytes() { return BM * c_ld<BN>() * (int)sizeof(float); }
-// shared memory of gemm_kernel<., BN>: the pipeline, then the f32 staging
-// tile over the same bytes
-template <int BN>
-__host__ __device__ constexpr int gemm_smem() {
-  return 2 * (A_TILE + b_tile<BN>()) * (int)sizeof(bf16) > c_bytes<BN>()
-             ? 2 * (A_TILE + b_tile<BN>()) * (int)sizeof(bf16)
-             : c_bytes<BN>();
-}
 
-// The GEMM stages' epilogue over the block's f32 product tile Cs [BM][c_ld]
-// (rows m0.., columns n0..): + bias, + bias then ReLU, or + bias + residual
-// then LayerNorm over the whole row (the tile holds all D = BN columns).
-// Shared by the bf16 (K1/K2) and the int8 (K6) GEMM stages.
+// K6's GEMM epilogue over the block's f32 product tile Cs [BM][c_ld] (rows
+// m0.., columns n0..): + bias, + bias then ReLU, or + bias + residual then
+// LayerNorm over the whole row (the tile holds all D = BN columns), the same
+// arithmetic as the bf16 stages' (gemm_wgmma_epilogue), whose accumulators start
+// from the bias and the residual: the same sums in another order.
 template <int EPI, int BN>
 __device__ __forceinline__ void gemm_epilogue(const float* Cs, const GemmArgs& p, long long m0,
                                               int n0, int tid) {
@@ -328,93 +332,6 @@ __device__ __forceinline__ void gemm_epilogue(const float* Cs, const GemmArgs& p
   }
 }
 
-// C[:, n0 .. n0 + BN) = epilogue(A @ W + bias) for one 64 x BN tile per
-// block. Block i takes row tile i / n_tiles and column tile i % n_tiles, so
-// the column tiles of one row tile run together and share its A rows in L2.
-// The k loop is a two-stage cp.async pipeline: the next k-step's tiles load
-// while the tensor cores work on this one. The f32 output tile reuses the
-// pipeline's shared memory once the loop is done. Each warp owns a 32 x BN/4
-// sub-tile of 16 x 16 WMMA fragments.
-template <int EPI, int BN>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
-  constexpr int B_LD = b_ld<BN>(), C_LD = c_ld<BN>(), B_TILE = b_tile<BN>();
-  constexpr int WN = BN / 4, FN = WN / 16;  // warp tile columns, fragments across
-  constexpr int SMEM = gemm_smem<BN>();
-  // static shared memory up to 48 KB, dynamic above (launch_gemm_bn)
-  __shared__ __align__(128) unsigned char static_buf[SMEM <= STATIC_SMEM ? SMEM : 16];
-  extern __shared__ __align__(128) unsigned char gemm_buf[];
-  unsigned char* smem = SMEM <= STATIC_SMEM ? static_buf : gemm_buf;
-  bf16* stages = reinterpret_cast<bf16*>(smem);  // [2][A tile | W tile]
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const long long m0 = (long long)(blockIdx.x / p.n_tiles) * BM;
-  const int n0 = p.col0 + (int)(blockIdx.x % p.n_tiles) * BN;
-  const int wm = warp >> 2, wn = warp & 3;
-
-  auto load_stage = [&](int stage, int k0) {
-    bf16* As = stages + stage * (A_TILE + B_TILE);
-    bf16* Bs = As + A_TILE;
-    {  // A tile: 64 x 32 = 256 chunks of 8 bf16, one per thread
-      const int r = tid >> 2, c = (tid & 3) * 8;
-      const long long gm = m0 + r;
-      const bool in = gm < p.m;
-      cp_async16(As + r * A_LD + c, p.a + (in ? gm : 0) * p.lda + k0 + c, in ? 16 : 0);
-    }
-#pragma unroll
-    for (int i = tid; i < BK * BN / 8; i += GEMM_THREADS) {  // W tile: 32 x BN
-      const int r = i >> log2i(BN / 8), c = (i & (BN / 8 - 1)) * 8;
-      cp_async16(Bs + r * B_LD + c, p.w + (long long)(k0 + r) * p.ldw + n0 + c, 16);
-    }
-    cp_async_commit();
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][FN];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int nk = p.k / BK;
-  load_stage(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load_stage((kt + 1) & 1, (kt + 1) * BK);
-      cp_async_wait<1>();  // this k-step's group has landed, the next may not
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* As = stages + (kt & 1) * (A_TILE + B_TILE);
-    const bf16* Bs = As + A_TILE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[FN];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * A_LD + kk, A_LD);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * B_LD + wn * WN + j * 16, B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * C_LD + wn * WN + j * 16,
-                              acc[i][j], C_LD, wmma::mem_row_major);
-  __syncthreads();
-  gemm_epilogue<EPI, BN>(Cs, p, m0, n0, tid);
-}
-
 // ---- K6: the W8A8 GEMM stage ----------------------------------------------
 constexpr int QBK = 64;                // k-step depth: 64 int8 = 64 bytes of a row
 constexpr int Q_LD = QBK + 16;         // int8 shared-memory row stride (bank-conflict
@@ -471,7 +388,7 @@ __global__ void __launch_bounds__(256) rowquant_kernel(const bf16* __restrict__ 
 // W tiles arrive by cp.async; two stages, the next tile's loads in flight
 // during this one's s8 x s8 -> s32 products on the tensor cores
 // (mma.sync.m16n8k32, each warp a 32 x BN/4 sub-tile). Epilogue:
-// Cs = (f32(acc) * s_r) * wscale[n], then K1's gemm_epilogue.
+// Cs = (f32(acc) * s_r) * wscale[n], then gemm_epilogue.
 // |q_a q_w| summed over K <= 1040 stays below 2^24, so f32(acc) is the exact
 // sum, the same number an f32 product of the integer operands gives.
 // Four blocks per SM up to BN = 128 (64 registers, a few bytes spilled in the
@@ -660,9 +577,11 @@ __device__ __forceinline__ float noexp_prob(float s, float m) {
   return s == -INFINITY ? 0.f : __fadd_rn(__fsub_rn(s, m), m);
 }
 
-// One block per (frame b, head h). qkv: [B, L, 3D] bf16 with q in columns
-// [0, D) (only rows < n_q are read), k in [D, 2D), v in [2D, 3D). Writes
-// query rows 0..n_q-1 of head h to out + b*out_frame_stride + i*D + h*DH.
+// K2's attention core: one block per (frame b, head h), query rows 0..n_q-1
+// (K2 takes n_q = 1, where a 64-row wgmma tile would waste 63 rows). qkv:
+// [B, L, 3D] bf16 with q in columns [0, D) (only rows < n_q are read), k in
+// [D, 2D), v in [2D, 3D). Writes query rows 0..n_q-1 of head h to out +
+// b*out_frame_stride + i*D + h*DH.
 //
 // The block copies the head's k and v^T into shared memory (zero past L).
 // Each warp then takes 16 query rows at a time, its q fragments read from
@@ -671,19 +590,7 @@ __device__ __forceinline__ float noexp_prob(float s, float m) {
 // row max; pass 2 forms p = bf16(exp2(s - max)), sums the rounded p in f32,
 // and accumulates P V in f32, the score fragment reused as the A operand.
 // Scores and probabilities live in registers only.
-//
-// NOEXP (P3, scripts/tpu_probe_exp.py: kernel_noexp, a timing probe and not
-// a softmax): the same two passes with the exp removed and nothing else,
-// p = (s - max) + max in f32 (0 past L), the denominator the sum of the
-// unrounded f32 p (the probe's), P V on bf16(p). The max stays live: each p
-// is computed from it by two IEEE-rounded operations (__fsub_rn, __fadd_rn),
-// which the compiler may neither reassociate into s nor contract, so the
-// first pass is not dead code and the probe times K1's structure without
-// its exp2. The function divides by the sum of the scores, which can sit
-// near zero for a row: no element-wise tolerance holds it to its plain
-// version, only a relative L2 over the layer. K1's instantiation
-// (NOEXP = false) is the code it was before the flag.
-template <int DH, bool NOEXP>
+template <int DH>
 __global__ void __launch_bounds__(ATTN_WARPS * 32) attention_kernel(
     const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, int n_q, int D,
     long long out_frame_stride) {
@@ -747,24 +654,15 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) attention_kernel(
       uint32_t pa[4];  // P as the A operand: [g | g+8][j0 + 2t.. | j0 + 8 + 2t..]
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb) {
-        if constexpr (NOEXP) {
-          const float p[4] = {noexp_prob(sc[nb][0], m_lo), noexp_prob(sc[nb][1], m_lo),
-                              noexp_prob(sc[nb][2], m_hi), noexp_prob(sc[nb][3], m_hi)};
-          l_lo += p[0] + p[1];
-          l_hi += p[2] + p[3];
-          pa[2 * nb] = pack_bf16x2(p[0], p[1]);
-          pa[2 * nb + 1] = pack_bf16x2(p[2], p[3]);
-        } else {
-          const __nv_bfloat162 p_lo =
-              __floats2bfloat162_rn(exp2f(sc[nb][0] - m_lo), exp2f(sc[nb][1] - m_lo));
-          const __nv_bfloat162 p_hi =
-              __floats2bfloat162_rn(exp2f(sc[nb][2] - m_hi), exp2f(sc[nb][3] - m_hi));
-          const float2 f_lo = __bfloat1622float2(p_lo), f_hi = __bfloat1622float2(p_hi);
-          l_lo += f_lo.x + f_lo.y;
-          l_hi += f_hi.x + f_hi.y;
-          pa[2 * nb] = *reinterpret_cast<const uint32_t*>(&p_lo);
-          pa[2 * nb + 1] = *reinterpret_cast<const uint32_t*>(&p_hi);
-        }
+        const __nv_bfloat162 p_lo =
+            __floats2bfloat162_rn(exp2f(sc[nb][0] - m_lo), exp2f(sc[nb][1] - m_lo));
+        const __nv_bfloat162 p_hi =
+            __floats2bfloat162_rn(exp2f(sc[nb][2] - m_hi), exp2f(sc[nb][3] - m_hi));
+        const float2 f_lo = __bfloat1622float2(p_lo), f_hi = __bfloat1622float2(p_hi);
+        l_lo += f_lo.x + f_lo.y;
+        l_hi += f_hi.x + f_hi.y;
+        pa[2 * nb] = *reinterpret_cast<const uint32_t*>(&p_lo);
+        pa[2 * nb + 1] = *reinterpret_cast<const uint32_t*>(&p_hi);
       }
 #pragma unroll
       for (int nd = 0; nd < DH / 8; ++nd) {
@@ -784,6 +682,517 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) attention_kernel(
       if (r_hi < n_q)
         *reinterpret_cast<uint32_t*>(o_base + (long long)r_hi * D + nd * 8) =
             pack_bf16x2(o[nd][2] / l_hi, o[nd][3] / l_hi);
+    }
+  }
+}
+
+// ---- K1's attention core on Hopper: one pass, wgmma, TMA -------------------
+// exp2 on the special-function unit (MUFU.EX2)
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int CORE_WG = 2;   // the most warpgroups of the core's block
+constexpr int CORE_KT = 64;  // keys per tile (the wgmma's N), query rows per warpgroup tile
+
+// Shared memory of the core at L tokens: the frame-head's k and v rows in
+// 64-key tiles (zero past L), one mbarrier per tile, and 1 KB to align the
+// tiles to the swizzle's 1024-byte repeat. fused_encoder_layer.core_smem_bytes
+// repeats it for the host-side tests, which run without this library.
+__host__ __device__ __forceinline__ size_t core_smem_bytes(int L, int dh) {
+  const size_t n_kt = (L + CORE_KT - 1) / CORE_KT;
+  return n_kt * CORE_KT * dh * 2 * 2 + n_kt * 8 + 1024;
+}
+
+// One key tile of the core for one warpgroup's 64 query rows: NT = 64
+// columns, or 16 for a last tile of at most 16 keys. s: scratch for the
+// scores; o: the P V accumulators; lsum: the thread's f32 partial sums of p
+// for its two rows (the quad holds a row's sum).
+template <int DH, bool NOEXP, int NT>
+__device__ __forceinline__ void core_tile(float* s, float* o, float* lsum, float& m_lo,
+                                          float& m_hi, const uint32_t (*qa)[4], uint32_t k_tile,
+                                          uint32_t v_tile, int valid,
+                                          bool live, int t) {
+  constexpr int SPAN = DH * 2;
+  constexpr uint32_t SBO = 8 * SPAN;
+  constexpr int NG = NT / 16;  // 16-key groups
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    Wgmma<NT>::template rs<0>(s, qa[kk], smem_desc(k_tile + kk * 32, SPAN, SBO, SBO), kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<NT / 2>(s);
+  // P is packed into the first NT / 4 score registers (each 16-key group's
+  // eight scores become its four bf16 pairs, in order, so no score is
+  // overwritten before it is read): the score and P registers are the same
+  if (live) {
+    const int groups = valid < NT ? (valid + 15) >> 4 : NG;  // live 16-key groups, uniform
+    if (valid < NT) {
+#pragma unroll
+      for (int e = 0; e < NT / 2; ++e)
+        if ((e >> 2) * 8 + 2 * t + (e & 1) >= valid) s[e] = -INFINITY;
+    }
+    float tm_lo = -INFINITY, tm_hi = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      if (j / 2 < groups) {
+        tm_lo = fmaxf(tm_lo, fmaxf(s[4 * j], s[4 * j + 1]));
+        tm_hi = fmaxf(tm_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+    }
+    const float mn_lo = fmaxf(m_lo, quad_max(tm_lo)), mn_hi = fmaxf(m_hi, quad_max(tm_hi));
+    float a_lo, a_hi;
+    if constexpr (NOEXP) {
+      const float d_lo = __fsub_rn(m_lo, mn_lo), d_hi = __fsub_rn(m_hi, mn_hi);
+      a_lo = d_lo == -INFINITY ? 1.f : __fadd_rn(__fmul_rn(d_lo, 0.f), 1.f);
+      a_hi = d_hi == -INFINITY ? 1.f : __fadd_rn(__fmul_rn(d_hi, 0.f), 1.f);
+    } else {
+      a_lo = exp2_sfu(m_lo - mn_lo);
+      a_hi = exp2_sfu(m_hi - mn_hi);
+    }
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    // the rescale, skipped where no row of the warp raised its max (most
+    // tiles past the first few): a warp-uniform branch
+    if (__any_sync(0xffffffffu, a_lo != 1.f || a_hi != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        o[4 * j] = __fmul_rn(o[4 * j], a_lo);
+        o[4 * j + 1] = __fmul_rn(o[4 * j + 1], a_lo);
+        o[4 * j + 2] = __fmul_rn(o[4 * j + 2], a_hi);
+        o[4 * j + 3] = __fmul_rn(o[4 * j + 3], a_hi);
+      }
+      lsum[0] = __fmul_rn(lsum[0], a_lo);
+      lsum[1] = __fmul_rn(lsum[1], a_hi);
+    }
+#pragma unroll
+    for (int q = 0; q < NG; ++q) {
+      float p[8];
+      if (q < groups) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float si = s[8 * q + i], mi = (i & 2) ? mn_hi : mn_lo;
+          if constexpr (NOEXP)
+            p[i] = noexp_prob(si, mi);
+          else
+            p[i] = exp2_sfu(si - mi);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) p[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 pb = __floats2bfloat162_rn(p[2 * i], p[2 * i + 1]);
+        s[4 * q + i] = __uint_as_float(*reinterpret_cast<const uint32_t*>(&pb));
+        // K1: the sum of the rounded p; NOEXP: of the unrounded ones
+        const float2 pf = __bfloat1622float2(pb);
+        lsum[i & 1] += NOEXP ? p[2 * i] + p[2 * i + 1] : pf.x + pf.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NT / 4; ++i) s[i] = 0.f;
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int q = 0; q < NG; ++q) {
+    const uint32_t pa[4] = {__float_as_uint(s[4 * q]), __float_as_uint(s[4 * q + 1]),
+                            __float_as_uint(s[4 * q + 2]), __float_as_uint(s[4 * q + 3])};
+    Wgmma<DH>::template rs<1>(o, pa, smem_desc(v_tile + q * 16 * SPAN, SPAN, SBO, SBO), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<DH / 2>(o);
+}
+
+// One block per (frame b, head h), all L query rows, out [B, L, D] (row i of
+// frame b at out + b * out_frame_stride + i * D):
+//   per 64-key tile: s = q k^T (log2 units), m' = max(m, max s),
+//     a = exp2(m - m'), l = l a + sum_j bf16(exp2(s_j - m')),
+//     o = o a + bf16(p) v;   out = bf16(o / l)
+// i.e. each p is rounded at the running max, the denominator is the f32 sum
+// of the rounded p, rescaled with o.
+// Thread 0 loads the head's k and v tiles by TMA from the 3-D map over qkv
+// [B, L, 3D] (a box past L arrives as zeros), each tile completing on its
+// own mbarrier, so the first query tile starts while later keys load. The
+// block's one or two warpgroups (launch_core picks the count that keeps more
+// on an SM) then take 64-row query tiles in turn: q in registers as the A
+// operand of Q K^T (m64n64k16, B = the k tile, K-major, swizzled by the row
+// width), the online softmax on the accumulators, and P V with P packed from
+// the accumulators straight into the A fragment and v read as an MN-major B
+// operand from its [key][dh] rows. Ragged edges
+// (L = 65, 129, 1025 leave one key and one query row): a last key tile of
+// at most 16 keys runs 16 wide (m64n16k16), a wider one skips the exp2 of
+// its dead 16-key groups (their p are zeros, their v rows arrived as zeros),
+// and a warp whose 16 query rows all lie past L does no softmax work (its P
+// is zero). Every wgmma is issued by the whole warpgroup on every path: one
+// under a branch makes ptxas serialize them.
+// NOEXP (P3, scripts/tpu_probe_exp.py: kernel_noexp, a timing probe): every
+// exp2 removed, the running max kept: p = (s - m') + m' by IEEE-rounded ops
+// (0 past L), the rescale's factor 1 computed from m - m' by IEEE ops (so the
+// rescale stays live), the denominator the f32 sum of the unrounded p.
+template <int DH, bool NOEXP>
+__global__ void __launch_bounds__(CORE_WG * 128, DH == 64 ? 1 : 2) attention_core_kernel(
+    const __grid_constant__ CUtensorMap kv_map, const bf16* __restrict__ qkv,
+    bf16* __restrict__ out, int L, int D, long long out_frame_stride) {
+  constexpr int TILE = CORE_KT * DH * 2;  // bytes of a k or v tile
+  extern __shared__ unsigned char core_raw[];
+  unsigned char* smem = core_raw + ((1024 - (smem_u32(core_raw) & 1023)) & 1023);
+  const int n_kt = (L + CORE_KT - 1) / CORE_KT;
+  unsigned char* ks = smem;
+  unsigned char* vs = smem + (size_t)n_kt * TILE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (size_t)2 * n_kt * TILE);
+  const int b = blockIdx.x, h = blockIdx.y;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < n_kt; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < n_kt; ++i) {
+      mbar_expect_tx(&bars[i], 2 * TILE);
+      tma_load_3d(ks + (size_t)i * TILE, &kv_map, &bars[i], D + h * DH, i * CORE_KT, b);
+      tma_load_3d(vs + (size_t)i * TILE, &kv_map, &bars[i], 2 * D + h * DH, i * CORE_KT, b);
+    }
+  }
+
+  // warpgroup and warp indices broadcast from lane 0, so that ptxas sees
+  // them warp-uniform: wgmma under control flow it takes for divergent is
+  // serialized
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  const int warp = __shfl_sync(0xffffffffu, (threadIdx.x >> 5) & 3, 0), lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long row3 = 3LL * D;
+  const bf16* base = qkv + (long long)b * L * row3 + (long long)h * DH;
+  const uint32_t ks_addr = smem_u32(ks), vs_addr = smem_u32(vs);
+  float s[32] = {};
+  const int n_wg = blockDim.x >> 7;
+  for (int q0 = wg * 64; q0 < L; q0 += n_wg * 64) {
+    const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
+    const bool live = q0 + warp * 16 < L;  // warp-uniform
+    uint32_t qa[DH / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const bf16* q_lo = base + r_lo * row3 + kk * 16 + 2 * t;
+      const bf16* q_hi = base + r_hi * row3 + kk * 16 + 2 * t;
+      qa[kk][0] = r_lo < L ? ld_b32(q_lo) : 0u;
+      qa[kk][1] = r_hi < L ? ld_b32(q_hi) : 0u;
+      qa[kk][2] = r_lo < L ? ld_b32(q_lo + 8) : 0u;
+      qa[kk][3] = r_hi < L ? ld_b32(q_hi + 8) : 0u;
+    }
+    float o[DH / 2] = {};
+    float lsum[2] = {0.f, 0.f};
+    float m_lo = -INFINITY, m_hi = -INFINITY;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      mbar_wait(&bars[kt], 0);
+      const int valid = L - kt * CORE_KT;  // keys of this tile, uniform
+      const uint32_t k_tile = ks_addr + kt * TILE, v_tile = vs_addr + kt * TILE;
+      if (valid <= 16)
+        core_tile<DH, NOEXP, 16>(s, o, lsum, m_lo, m_hi, qa, k_tile, v_tile, valid, live, t);
+      else
+        core_tile<DH, NOEXP, CORE_KT>(s, o, lsum, m_lo, m_hi, qa, k_tile, v_tile, valid, live,
+                                      t);
+    }
+    const float l_lo = quad_sum(lsum[0]), l_hi = quad_sum(lsum[1]);
+    bf16* o_base = out + (long long)b * out_frame_stride + h * DH + 2 * t;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      if (r_lo < L)
+        *reinterpret_cast<uint32_t*>(o_base + (long long)r_lo * D + j * 8) =
+            pack_bf16x2(o[4 * j] / l_lo, o[4 * j + 1] / l_lo);
+      if (r_hi < L)
+        *reinterpret_cast<uint32_t*>(o_base + (long long)r_hi * D + j * 8) =
+            pack_bf16x2(o[4 * j + 2] / l_hi, o[4 * j + 3] / l_hi);
+    }
+  }
+}
+
+// ---- K1's GEMM stages on Hopper: persistent wgmma blocks fed by TMA ------
+// C[:, n0 .. n0 + BN) = epilogue(A @ W + bias) over 64-row tiles.
+// A block (two warpgroups, one block an SM) holds one BN-wide column slab of
+// W and walks row tiles. Operands arrive by TMA, swizzled by 128 bytes: A
+// in 64-column chunks (K-major), W in 64-column chunks of its [K, N] rows
+// (the MN-major B operand).
+//   RESIDENT (K = D <= 256: QKV, FFN1, out-projection below D = 256): W's
+//     slab [K, BN] is loaded once and kept; the warpgroups take the block's
+//     row tiles in ping-pong (warpgroup w its tiles w, w + 2, ...), each
+//     from its own ring of A tiles [64, K] that its first thread refills as
+//     soon as a tile's products are done, so one tile's epilogue runs beside
+//     the other warpgroup's products and the next tile's load.
+//   streamed (K = F: FFN2; the out-projection at D = 256): both warpgroups
+//     share 128-row tiles (64 rows each) and a ring of 64-deep steps, each
+//     [128, 64] of A and [64, BN] of W, so each W step serves 128 rows; warp
+//     0 refills a step's slot once both warpgroups have released it (an
+//     mbarrier of 8 warps).
+// The accumulators start from the bias (and the residual row, for the
+// LayerNorm stages), so the wgmma adds the products onto them; the epilogue
+// then works in registers (each row of the m64 tile lies in one quad of four
+// threads): ReLU, or LayerNorm over the whole row (BN = N = D: the mean and
+// the variance by two quad shuffles each). Each quad then transposes its bf16 words so that every
+// thread stores 16 contiguous bytes of one row. Rows past M arrive as zeros
+// and are not stored.
+// Registers: an SM's four schedulers each hold a quarter of its 64K
+// registers, so 8 warps a block leave a thread up to 255 where 9 or 12 warps
+// (a producer warp or warpgroup beside the two) left 168, and the m64n256
+// LayerNorm stage (128 f32 accumulators) spilled: there is no producer warp
+// and no setmaxnreg.
+constexpr int GW_THREADS = 256;  // two warpgroups
+constexpr int GW_MAX_RING = 6;
+
+// Shared memory of a GEMM stage with `ring` ring entries: 1 KB of
+// alignment, bias / gamma / beta (f32), the mbarriers, W's slab (resident),
+// and the entries (an A tile [64, K], or a 64-deep step of A [128, 64] and W
+// [64, BN]).
+__host__ __device__ inline int gemm_smem_bytes(bool resident, int bn, int k, int ring) {
+  return 1024 + 3 * bn * 4 + 8 * (1 + 2 * GW_MAX_RING) + (resident ? bn * k * 2 : 0) +
+         ring * (resident ? 64 * k * 2 : 128 * 128 + bn * 128);
+}
+// the ring's depth in what is left; 0 where two entries do not fit
+__host__ __device__ inline int gemm_ring(bool resident, int bn, int k) {
+  const int fixed = gemm_smem_bytes(resident, bn, k, 0);
+  const int entry = gemm_smem_bytes(resident, bn, k, 1) - fixed;
+  const int ring = (MAX_SMEM - fixed) / entry;
+  return ring < 2 ? 0 : ring > GW_MAX_RING ? GW_MAX_RING : ring;
+}
+
+// The four 32-bit words a thread holds at one row for four 8-column blocks
+// (columns 2t, 2t + 1 of each) -> the four words of block t (16 bytes).
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t w[4], int t) {
+  auto pick = [&](int k) { return k == 0 ? w[0] : k == 1 ? w[1] : k == 2 ? w[2] : w[3]; };
+  const uint32_t self = pick(t);
+  const uint32_t y1 = __shfl_xor_sync(0xffffffffu, pick(t ^ 1), 1);
+  const uint32_t y2 = __shfl_xor_sync(0xffffffffu, pick(t ^ 2), 2);
+  const uint32_t y3 = __shfl_xor_sync(0xffffffffu, pick(t ^ 3), 3);
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = i ^ t;
+    o[i] = k == 0 ? self : k == 1 ? y1 : k == 2 ? y2 : y3;
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// The epilogue of one warpgroup's 64 x BN tile: rows row0 + 16 warp + g
+// (+ 8), accumulator e at column 8 (e / 4) + 2t + (e & 1), row half
+// (e >> 1) & 1. vec: bias, gamma, beta of the slab's columns in shared memory.
+// The accumulators of a warpgroup's 64 x BN tile before its first wgmma:
+// the bias, plus (LayerNorm stages) the residual row (zeros past M), so that
+// the products accumulate onto them: C = (bias + res) + A W. Accumulator e
+// is row row0 + 16 warp + g (+ 8 where (e >> 1) & 1), column 8 (e / 4) + 2t
+// + (e & 1). vec: bias, gamma, beta of the slab's columns (shared memory).
+template <int EPI, int BN>
+__device__ __forceinline__ void init_accumulators(float* acc, const GemmArgs& p, long long row0,
+                                                  const float* vec, int warp, int g, int t) {
+#pragma unroll
+  for (int e = 0; e < BN / 2; e += 2) {
+    const int c = (e >> 2) * 8 + 2 * t;
+    const float2 b = *reinterpret_cast<const float2*>(vec + c);
+    float2 r = make_float2(0.f, 0.f);
+    if constexpr (EPI == kBiasResidualLN) {
+      const long long row = row0 + warp * 16 + g + 8 * ((e >> 1) & 1);
+      if (row < p.m) {
+        const uint32_t word = ld_b32(p.res + row * p.ldr + c);
+        r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&word));
+      }
+    }
+    acc[e] = b.x + r.x;
+    acc[e + 1] = b.y + r.y;
+  }
+}
+
+// The epilogue of a warpgroup's 64 x BN tile from its accumulators (bias
+// and residual already in them): ReLU where p.relu, or LayerNorm over the
+// whole row (BN = N = D); then bf16, stored 16 bytes a thread.
+template <int EPI, int BN>
+__device__ __forceinline__ void gemm_wgmma_epilogue(float* acc, const GemmArgs& p, long long row0,
+                                                    int n0, const float* vec, int warp, int g,
+                                                    int t) {
+  const long long rows[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
+  if constexpr (EPI == kBiasResidualLN) {
+    // centred in place (acc - mean computed once: kept for both the variance
+    // and the normalization, the centred values doubled the registers)
+    float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f}, rstd[2];
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) sum[(e >> 1) & 1] += acc[e];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) sum[hh] = quad_sum(sum[hh]) * (1.0f / BN);  // the mean
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) {
+      acc[e] -= sum[(e >> 1) & 1];
+      sq[(e >> 1) & 1] += acc[e] * acc[e];
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) rstd[hh] = rsqrtf(quad_sum(sq[hh]) * (1.0f / BN) + LN_EPS);
+#pragma unroll
+    for (int e = 0; e < BN / 2; e += 2) {
+      const int c = (e >> 2) * 8 + 2 * t;
+      const float2 gm = *reinterpret_cast<const float2*>(vec + BN + c);
+      const float2 bt = *reinterpret_cast<const float2*>(vec + 2 * BN + c);
+      const float r = rstd[(e >> 1) & 1];
+      acc[e] = gm.x * (acc[e] * r) + bt.x;
+      acc[e + 1] = gm.y * (acc[e + 1] * r) + bt.y;
+    }
+  } else if (p.relu) {
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) acc[e] = fmaxf(acc[e], 0.f);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+    for (int q = 0; q < BN / 32; ++q) {
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = (4 * q + i) * 4 + 2 * hh;
+        w[i] = pack_bf16x2(acc[e], acc[e + 1]);
+      }
+      const uint4 chunk = quad_transpose(w, t);
+      if (rows[hh] < p.m)
+        *reinterpret_cast<uint4*>(p.c + rows[hh] * p.ldc + n0 + (4 * q + t) * 8) = chunk;
+    }
+  }
+}
+
+template <int EPI, int BN, bool RESIDENT>
+__global__ void __launch_bounds__(GW_THREADS, 1) gemm_wgmma_kernel(
+    const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap w_map,
+    GemmArgs p, int ring) {
+  constexpr int NCH = BN / 64;  // 64-column chunks of the slab
+  extern __shared__ unsigned char gw_raw[];
+  // aligned to 1024 by an offset (not through an integer, which would leave
+  // `vec` a generic pointer: its reads would be generic loads, hoisted en masse)
+  unsigned char* smem = gw_raw + ((1024 - (smem_u32(gw_raw) & 1023)) & 1023);
+  const int K = p.k, nk = K / 64;
+  const int w_bytes = RESIDENT ? BN * K * 2 : 0;
+  const int entry = RESIDENT ? 64 * K * 2 : 128 * 128 + BN * 128;
+  unsigned char* wslab = smem;
+  unsigned char* ring_buf = smem + w_bytes;
+  float* vec = reinterpret_cast<float*>(ring_buf + ring * entry);
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(vec + 3 * BN);
+  uint64_t* full = wbar + 1;
+  uint64_t* empty = full + GW_MAX_RING;
+
+  const int slab = blockIdx.x % p.n_tiles, stride = gridDim.x / p.n_tiles;
+  const int first = blockIdx.x / p.n_tiles;
+  const int n0 = p.col0 + slab * BN;
+  const long long tm = RESIDENT ? 64 : 128;
+  const int n_rt = (int)((p.m + tm - 1) / tm);
+  // warpgroup and warp indices broadcast from lane 0 (warp-uniform to ptxas)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  const int warp = __shfl_sync(0xffffffffu, (threadIdx.x >> 5) & 3, 0), lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  for (int i = threadIdx.x; i < BN; i += GW_THREADS) {
+    vec[i] = p.bias[n0 + i];
+    if (EPI == kBiasResidualLN) {
+      vec[BN + i] = p.gamma[i];
+      vec[2 * BN + i] = p.beta[i];
+    }
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(wbar, 1);
+    for (int i = 0; i < ring; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);  // lane 0 of each warp (streamed)
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  float acc[BN / 2];
+  const uint32_t ring_addr = smem_u32(ring_buf);
+
+  if constexpr (RESIDENT) {
+    // warpgroup w's tiles: first + (w + 2u) * stride, u = 0, 1, ...; its own
+    // ring slots w * r .. w * r + r - 1, refilled by its first thread once the
+    // tile's products are done in all four of its warps (wgmma.wait_group
+    // waits only for the calling thread's wgmma): after a named barrier over
+    // the warpgroup's 128 threads (id 1 + w)
+    const int r = ring / 2;
+    const bool leader = (threadIdx.x & 127) == 0;
+    auto load_tile = [&](int u) {
+      const int tile = first + (wg + 2 * u) * stride;
+      if (tile >= n_rt) return;
+      const int slot = wg * r + u % r;
+      unsigned char* dst = ring_buf + slot * entry;
+      mbar_expect_tx(&full[slot], entry);
+      for (int c = 0; c < nk; ++c)
+        tma_load_2d(dst + c * 8192, &a_map, &full[slot], c * 64, tile * 64);
+    };
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(wbar, w_bytes);
+      for (int c = 0; c < NCH; ++c) tma_load_2d(wslab + c * K * 128, &w_map, wbar, n0 + c * 64, 0);
+    }
+    if (leader)
+      for (int u = 0; u < r; ++u) load_tile(u);
+    const uint32_t w_addr = smem_u32(wslab);
+    mbar_wait(wbar, 0);
+    int u = 0;
+    for (int tile = first + wg * stride; tile < n_rt; tile += 2 * stride, ++u) {
+      const int slot = wg * r + u % r;
+      init_accumulators<EPI, BN>(acc, p, (long long)tile * 64, vec, warp, g, t);
+      mbar_wait(&full[slot], (u / r) & 1);
+      const uint32_t a_addr = ring_addr + slot * entry;
+      wgmma_fence();
+      for (int c = 0; c < nk; ++c) {  // 64-deep chunks of A, four k-steps each
+#pragma unroll
+        for (int k4 = 0; k4 < 4; ++k4)
+          Wgmma<BN>::template ss<1>(acc, smem_desc(a_addr + c * 8192 + k4 * 32, 128, 1024, 1024),
+                                    smem_desc(w_addr + (4 * c + k4) * 2048, 128, K * 128, 1024), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<BN / 2>(acc);
+      named_bar_sync(1 + wg, 128);
+      if (leader) load_tile(u + r);
+      gemm_wgmma_epilogue<EPI, BN>(acc, p, (long long)tile * 64, n0, vec, warp, g, t);
+    }
+  } else {
+    // both warpgroups share each 64-deep step of a 128-row tile; warp 0
+    // refills a step's slot once both warpgroups have released it
+    const int n_my = n_rt > first ? (n_rt - first + stride - 1) / stride : 0;
+    const int total = n_my * nk;  // steps of this block
+    auto load_step = [&](int n) {  // step n: tile first + (n / nk) * stride, depth (n % nk) * 64
+      const int slot = n % ring, tile = first + (n / nk) * stride, kc = n % nk;
+      unsigned char* dst = ring_buf + slot * entry;
+      mbar_expect_tx(&full[slot], entry);
+      tma_load_2d(dst, &a_map, &full[slot], kc * 64, tile * 128);
+      for (int c = 0; c < NCH; ++c)
+        tma_load_2d(dst + 16384 + c * 8192, &w_map, &full[slot], n0 + c * 64, kc * 64);
+    };
+    if (threadIdx.x == 0)
+      for (int n = 0; n < ring && n < total; ++n) load_step(n);
+    int n = 0;
+    for (int tile = first; tile < n_rt; tile += stride) {
+      init_accumulators<EPI, BN>(acc, p, (long long)tile * 128 + wg * 64, vec, warp, g, t);
+      for (int kc = 0; kc < nk; ++kc, ++n) {
+        const int slot = n % ring;
+        mbar_wait(&full[slot], (n / ring) & 1);
+        const uint32_t a_addr = ring_addr + slot * entry + wg * 8192,
+                       w_addr = ring_addr + slot * entry + 16384;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<BN>::template ss<1>(acc, smem_desc(a_addr + kk * 32, 128, 1024, 1024),
+                                    smem_desc(w_addr + kk * 2048, 128, 8192, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (n > 0) {  // step n - 1 is done: release it, and refill its slot with step n - 1 + ring
+          if (lane == 0) mbar_arrive(&empty[(n - 1) % ring]);
+          if (threadIdx.x < 32 && n - 1 + ring < total) {
+            mbar_wait(&empty[(n - 1) % ring], ((n - 1) / ring) & 1);
+            if (lane == 0) load_step(n - 1 + ring);
+          }
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs<BN / 2>(acc);
+      gemm_wgmma_epilogue<EPI, BN>(acc, p, (long long)tile * 128 + wg * 64, n0, vec, warp, g, t);
     }
   }
 }
@@ -1117,30 +1526,80 @@ cudaError_t allow_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int EPI, int BN>
-cudaError_t launch_gemm_bn(GemmArgs p, int n_cols, cudaStream_t stream) {
+// SMs of the current device (the persistent GEMM stages' grid)
+int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// One bf16 GEMM stage (gemm_wgmma_kernel) over the n_cols columns from
+// p.col0, in BN-wide slabs: TMA maps of A [m, k] (rows lda apart) and W
+// [k, ldw], and up to one block per SM, the SMs split evenly between the
+// slabs.
+template <int EPI, int BN, bool RESIDENT>
+cudaError_t launch_gemm_wgmma(GemmArgs p, int n_cols, cudaStream_t stream) {
   p.n_tiles = n_cols / BN;
-  const long long blocks = (p.m + BM - 1) / BM * p.n_tiles;
-  constexpr int smem = dynamic_smem(gemm_smem<BN>());
-  const cudaError_t err = allow_smem(gemm_kernel<EPI, BN>, smem);
+  const int ring = gemm_ring(RESIDENT, BN, p.k);
+  if (n_cols % BN || p.k % 64 || !ring) return cudaErrorInvalidValue;
+  const long long tm = RESIDENT ? 64 : 128;
+  const uint64_t a_dims[2] = {(uint64_t)p.k, (uint64_t)p.m}, a_str[1] = {(uint64_t)p.lda};
+  const uint64_t w_dims[2] = {(uint64_t)p.ldw, (uint64_t)p.k}, w_str[1] = {(uint64_t)p.ldw};
+  const uint32_t a_box[2] = {64, (uint32_t)tm}, w_box[2] = {64, RESIDENT ? (uint32_t)p.k : 64u};
+  CUtensorMap a_map, w_map;
+  if (!make_map(&a_map, p.a, 2, a_dims, a_str, a_box, 128) ||
+      !make_map(&w_map, p.w, 2, w_dims, w_str, w_box, 128))
+    return cudaErrorInvalidValue;
+  const int smem = gemm_smem_bytes(RESIDENT, BN, p.k, ring);
+  const cudaError_t err = allow_smem(gemm_wgmma_kernel<EPI, BN, RESIDENT>, smem);
   if (err != cudaSuccess) return err;
-  gemm_kernel<EPI, BN><<<(unsigned)blocks, GEMM_THREADS, smem, stream>>>(p);
+  const long long n_rt = (p.m + tm - 1) / tm;
+  long long per_slab = sm_count() / p.n_tiles;
+  per_slab = per_slab < 1 ? 1 : per_slab > n_rt ? n_rt : per_slab;
+  gemm_wgmma_kernel<EPI, BN, RESIDENT>
+      <<<(unsigned)(per_slab * p.n_tiles), GW_THREADS, smem, stream>>>(a_map, w_map, p, ring);
   return cudaSuccess;
 }
 
-// The tile width of a stage: BN = D for the LayerNorm stages (pass D), else
-// 128, or 64 where 128 does not divide the stage's columns.
-int tile_width(int n_cols) { return n_cols % 128 == 0 ? 128 : 64; }
+// W resident where K <= 256, except for the 256-wide LayerNorm stage (the
+// out-projection at D = 256), whose resident instance spilled beside its 128
+// accumulators: it streams W as FFN2 does.
+template <int EPI, int BN>
+cudaError_t launch_gemm_bn(GemmArgs p, int n_cols, cudaStream_t stream) {
+  if constexpr (EPI == kBiasResidualLN && BN == 256)
+    return launch_gemm_wgmma<EPI, BN, false>(p, n_cols, stream);
+  else
+    return p.k <= 256 ? launch_gemm_wgmma<EPI, BN, true>(p, n_cols, stream)
+                      : launch_gemm_wgmma<EPI, BN, false>(p, n_cols, stream);
+}
 
+// The slab width of a stage: the whole width up to 256 columns, else 256, or
+// 128 where 256 does not divide it (F a multiple of 128).
+int slab_width(int n_cols) { return n_cols <= 256 ? n_cols : n_cols % 256 == 0 ? 256 : 128; }
+
+// A bf16 GEMM stage: + bias (+ ReLU where p.relu) over n_cols columns, or
+// (kBiasResidualLN) + bias + residual and LayerNorm over rows of n_cols = D.
 template <int EPI>
-cudaError_t launch_gemm(GemmArgs p, int n_cols, int bn, cudaStream_t stream) {
+cudaError_t launch_gemm(GemmArgs p, int n_cols, cudaStream_t stream) {
+  const int bn = slab_width(n_cols);
+  if (EPI == kBiasResidualLN && bn != n_cols) return cudaErrorInvalidValue;
   switch (bn) {
     case 64: return launch_gemm_bn<EPI, 64>(p, n_cols, stream);
     case 128: return launch_gemm_bn<EPI, 128>(p, n_cols, stream);
     case 256: return launch_gemm_bn<EPI, 256>(p, n_cols, stream);
+    case 192:
+      if constexpr (EPI == kBias) return launch_gemm_bn<EPI, 192>(p, n_cols, stream);
   }
   return cudaErrorInvalidValue;
 }
+
+// K6's s8 stages: the tile width 128, or 64 where 128 does not divide the
+// stage's columns (BN = D for the LayerNorm stages).
+int tile_width(int n_cols) { return n_cols % 128 == 0 ? 128 : 64; }
 
 GemmArgs gemm_args(const bf16* a, long long lda, const bf16* w, int ldw,
                    const float* bias, bf16* c, long long ldc, long long m, int k,
@@ -1168,29 +1627,73 @@ GemmArgs with_ln(GemmArgs g, const bf16* res, long long ldr, const float* gamma,
   return g;
 }
 
-template <int DH, bool NOEXP>
-cudaError_t launch_attention(const bf16* qkv, bf16* out, int B, int L, int n_q,
-                             int D, int H, long long out_frame_stride,
-                             cudaStream_t stream) {
+template <int DH>
+cudaError_t launch_attention(const bf16* qkv, bf16* out, int B, int L, int n_q, int D, int H,
+                             long long out_frame_stride, cudaStream_t stream) {
   const size_t smem = attention_smem_bytes<DH>(L);
-  const cudaError_t err = allow_smem(attention_kernel<DH, NOEXP>, smem);
+  const cudaError_t err = allow_smem(attention_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)B, (unsigned)H);
-  attention_kernel<DH, NOEXP><<<grid, ATTN_WARPS * 32, smem, stream>>>(qkv, out, L, n_q, D,
-                                                                       out_frame_stride);
+  attention_kernel<DH><<<grid, ATTN_WARPS * 32, smem, stream>>>(qkv, out, L, n_q, D,
+                                                               out_frame_stride);
   return cudaSuccess;
 }
 
-template <bool NOEXP>
-cudaError_t attention(const bf16* qkv, bf16* out, int B, int L, int n_q, int D, int H,
-                      long long out_frame_stride, cudaStream_t stream) {
+// K2's attention stage: the two-pass core for query rows [0, n_q).
+cudaError_t attention_cls(const bf16* qkv, bf16* out, int B, int L, int n_q, int D, int H,
+                          long long out_frame_stride, cudaStream_t stream) {
   switch (D / H) {
-    case 16:
-      return launch_attention<16, NOEXP>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
-    case 32:
-      return launch_attention<32, NOEXP>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
-    case 64:
-      return launch_attention<64, NOEXP>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
+    case 16: return launch_attention<16>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
+    case 32: return launch_attention<32>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
+    case 64: return launch_attention<64>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int DH, bool NOEXP>
+cudaError_t launch_core(const bf16* qkv, bf16* out, int B, int L, int D, int H,
+                        long long out_frame_stride, cudaStream_t stream) {
+  const size_t smem = core_smem_bytes(L, DH);
+  if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
+  const uint64_t dims[3] = {(uint64_t)3 * D, (uint64_t)L, (uint64_t)B};
+  const uint64_t strides[2] = {(uint64_t)3 * D, (uint64_t)3 * D * L};
+  const uint32_t box[3] = {DH, CORE_KT, 1};
+  CUtensorMap map;
+  if (!make_map(&map, qkv, 3, dims, strides, box, DH * 2)) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(attention_core_kernel<DH, NOEXP>, smem);
+  if (err != cudaSuccess) return err;
+  // One warpgroup a block, or two where that keeps more warpgroups on an SM
+  // (long L, where the frame-head's k and v bound the blocks by shared
+  // memory): a block of two whose query tiles do not split evenly holds an
+  // idle warpgroup's registers while the other finishes. The choice depends
+  // on the tile count alone (it sets the shared memory), so the occupancy
+  // queries run once per count; 0 = not yet asked.
+  const int n_qt = (L + CORE_KT - 1) / CORE_KT;
+  static int n_wg_of_tiles[MAX_SMEM / (CORE_KT * 16 * 4) + 1] = {};
+  int& n_wg = n_wg_of_tiles[n_qt];
+  if (!n_wg) {
+    int one = 0, two = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&one, attention_core_kernel<DH, NOEXP>, 128,
+                                                  smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&two, attention_core_kernel<DH, NOEXP>, 2 * 128,
+                                                  smem);
+    n_wg = n_qt >= CORE_WG && CORE_WG * two > one ? CORE_WG : 1;
+  }
+  attention_core_kernel<DH, NOEXP><<<dim3((unsigned)B, (unsigned)H), 128 * n_wg, smem, stream>>>(
+      map, qkv, out, L, D, out_frame_stride);
+  return cudaSuccess;
+}
+
+// The full layers' attention stage (K1, K6, and P3 with NOEXP): the one-pass
+// wgmma core over every query row, out rows D apart, frames
+// out_frame_stride apart.
+template <bool NOEXP>
+cudaError_t attention_core(const bf16* qkv, bf16* out, int B, int L, int D, int H,
+                           long long out_frame_stride, cudaStream_t stream) {
+  switch (D / H) {
+    case 16: return launch_core<16, NOEXP>(qkv, out, B, L, D, H, out_frame_stride, stream);
+    case 32: return launch_core<32, NOEXP>(qkv, out, B, L, D, H, out_frame_stride, stream);
+    case 64: return launch_core<64, NOEXP>(qkv, out, B, L, D, H, out_frame_stride, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -1288,36 +1791,37 @@ int encoder_layer(bool cls_only, Core core, const void* x, void* out, void* qkv,
   if (cls_only) {
     // q for row 0 of each frame (A rows stride a whole frame), into qkv row 0
     VITIQ_TRY(launch_gemm<kBias>(
-        gemm_args(xb, frame, w_qkv, 3 * D, b_qkv, qkvb, 3 * frame, B, D, 0), D, tile_width(D),
-        s));
+        gemm_args(xb, frame, w_qkv, 3 * D, b_qkv, qkvb, 3 * frame, B, D, 0), D, s));
     // k and v for every row: columns [D, 3D)
     VITIQ_TRY(launch_gemm<kBias>(gemm_args(xb, D, w_qkv, 3 * D, b_qkv, qkvb, 3 * D, M, D, D),
-                                 2 * D, tile_width(2 * D), s));
+                                 2 * D, s));
   } else {
     VITIQ_TRY(launch_gemm<kBias>(gemm_args(xb, D, w_qkv, 3 * D, b_qkv, qkvb, 3 * D, M, D, 0),
-                                 3 * D, tile_width(3 * D), s));
+                                 3 * D, s));
   }
   if (core == Core::kInt8) {
     VITIQ_TRY(attention_int8(qkvb, attnb, B, L, D, H, nullptr, nullptr, nullptr, s));
   } else if (core == Core::kNoExp) {
-    VITIQ_TRY(attention<true>(qkvb, attnb, B, L, L, D, H, frame, s));
+    VITIQ_TRY(attention_core<true>(qkvb, attnb, B, L, D, H, frame, s));
+  } else if (cls_only) {
+    VITIQ_TRY(attention_cls(qkvb, attnb, B, L, 1, D, H, D, s));
   } else {
-    VITIQ_TRY(attention<false>(qkvb, attnb, B, L, cls_only ? 1 : L, D, H,
-                               cls_only ? D : frame, s));
+    VITIQ_TRY(attention_core<false>(qkvb, attnb, B, L, D, H, frame, s));
   }
   VITIQ_TRY(launch_gemm<kBiasResidualLN>(
       with_ln(gemm_args(attnb, D, static_cast<const bf16*>(wo), D,
                         static_cast<const float*>(bo), x1b, D, rows, D, 0),
               xb, x_ld, static_cast<const float*>(g1), static_cast<const float*>(be1)),
-      D, D, s));
-  VITIQ_TRY(launch_gemm<kBiasRelu>(gemm_args(x1b, D, static_cast<const bf16*>(w1), F,
-                                             static_cast<const float*>(b1), hidb, F, rows, D, 0),
-                                   F, tile_width(F), s));
+      D, s));
+  GemmArgs ffn1 = gemm_args(x1b, D, static_cast<const bf16*>(w1), F,
+                            static_cast<const float*>(b1), hidb, F, rows, D, 0);
+  ffn1.relu = 1;
+  VITIQ_TRY(launch_gemm<kBias>(ffn1, F, s));
   VITIQ_TRY(launch_gemm<kBiasResidualLN>(
       with_ln(gemm_args(hidb, F, static_cast<const bf16*>(w2), D,
                         static_cast<const float*>(b2), static_cast<bf16*>(out), D, rows, F, 0),
               x1b, D, static_cast<const float*>(g2), static_cast<const float*>(be2)),
-      D, D, s));
+      D, s));
   return (int)cudaGetLastError();
 }
 
@@ -1388,7 +1892,7 @@ int encoder_layer_int8(const void* x, void* out, void* qkv, void* attn, void* x1
   VITIQ_TRY((launch_gemm_int8<kBias, true>(
       gemm_args(xb, D, nullptr, 0, f32(bqkv), qkvb, 3 * D, M, D, 0), aq, ascale, wqkv, sqkv,
       3 * D, tile_width(3 * D), s)));
-  VITIQ_TRY(attention<false>(qkvb, attnb, B, L, L, D, H, (long long)L * D, s));
+  VITIQ_TRY(attention_core<false>(qkvb, attnb, B, L, D, H, (long long)L * D, s));
   GemmArgs proj = with_ln(gemm_args(attnb, D, nullptr, 0, f32(bo), x1b, D, M, D, 0), xb, D,
                           f32(g1), f32(be1));
   proj.cq = static_cast<int8_t*>(aq);
@@ -1445,7 +1949,7 @@ extern "C" int vitiq_encoder_layer_attn_int8_full(
                        w1, b1, w2, b2, g2, be2, B, L, D, H, F, stream_ptr);
 }
 
-// P3: K1's full layer with its softmax exp removed (attention_kernel<DH,
+// P3: K1's full layer with its softmax exp removed (attention_core_kernel<DH,
 // true>; see encoder_layer). A timing probe, not a layer of the model.
 extern "C" int vitiq_encoder_layer_full_noexp(
     const void* x, void* out, void* qkv, void* attn, void* x1, void* hid,
@@ -1457,15 +1961,16 @@ extern "C" int vitiq_encoder_layer_full_noexp(
                        be1, w1, b1, w2, b2, g2, be2, B, L, D, H, F, stream_ptr);
 }
 
-// P3's attention core alone (attention_kernel<DH, true>) on qkv [B, L, 3D]
-// bf16 -> out [B, L, D] bf16, to hold it to its plain version on the same
+// P3's attention core alone (attention_core_kernel<DH, true>) on
+// qkv [B, L, 3D] bf16 -> out [B, L, D] bf16, to hold it to its plain version on the same
 // qkv. Takes K1's shapes (F is not read).
 extern "C" int vitiq_attention_noexp(const void* qkv, void* out, int B, int L, int D, int H,
                                      void* stream_ptr) {
   if (!shapes_ok(B, L, D, H, 128)) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = attention<true>(static_cast<const bf16*>(qkv), static_cast<bf16*>(out),
-                                          B, L, L, D, H, (long long)L * D,
-                                          static_cast<cudaStream_t>(stream_ptr));
+  const cudaError_t err = attention_core<true>(static_cast<const bf16*>(qkv),
+                                               static_cast<bf16*>(out), B, L, D, H,
+                                               (long long)L * D,
+                                               static_cast<cudaStream_t>(stream_ptr));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1529,6 +2034,46 @@ extern "C" int vitiq_gemm_int8(const void* a, const void* wq, const void* wscale
   } else {
     err = launch_gemm_int8<kBias, false>(p, nullptr, nullptr, wq, wscale, N, bn, s);
   }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// One of K1's bf16 GEMM stages alone (gemm_wgmma_kernel): c [M, N] bf16 =
+// a [M, K] @ w [K, N] + bias, then ReLU (epi = 1), or (epi = 2, N = 64, 128
+// or 256) + res [M, N] and LayerNorm with gamma, beta; bias, gamma, beta f32.
+// K % 64 == 0; W stays resident for K <= 256 and streams above.
+extern "C" int vitiq_gemm_bf16(const void* a, const void* w, const void* bias, const void* res,
+                               const void* gamma, const void* beta, void* c, int M, int K, int N,
+                               int epi, void* stream_ptr) {
+  if (M <= 0 || K <= 0 || K % 64 || N <= 0 || N % 64 || epi < 0 || epi > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  GemmArgs p = gemm_args(static_cast<const bf16*>(a), K, static_cast<const bf16*>(w), N,
+                         static_cast<const float*>(bias), static_cast<bf16*>(c), N, M, K, 0);
+  cudaError_t err;
+  if (epi == 2) {
+    err = launch_gemm<kBiasResidualLN>(
+        with_ln(p, static_cast<const bf16*>(res), N, static_cast<const float*>(gamma),
+                static_cast<const float*>(beta)),
+        N, s);
+  } else {
+    p.relu = epi;
+    err = launch_gemm<kBias>(p, N, s);
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// K1's attention core alone (attention_core_kernel) on qkv [B, L, 3D] bf16
+// -> out [B, L, D] bf16, to hold it to its plain version on the same qkv.
+// Takes K1's shapes (F is not read).
+extern "C" int vitiq_attention_core(const void* qkv, void* out, int B, int L, int D, int H,
+                                    void* stream_ptr) {
+  if (!shapes_ok(B, L, D, H, 128)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = attention_core<false>(static_cast<const bf16*>(qkv),
+                                                static_cast<bf16*>(out), B, L, D, H,
+                                                (long long)L * D,
+                                                static_cast<cudaStream_t>(stream_ptr));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -49,6 +49,10 @@ SIGNATURES = {
     "vitiq_encoder_layer_int8_full": ([_P] * 24 + [_I] * 5 + [_P], _I),
     # a, wq, wscale, bias, c, aq, ascale; M, K, N, relu, prequant; stream
     "vitiq_gemm_int8": ([_P] * 7 + [_I] * 5 + [_P], _I),
+    # a, w, bias, res, gamma, beta, c; M, K, N, epi; stream
+    "vitiq_gemm_bf16": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    # qkv, out; B, L, D, H; stream
+    "vitiq_attention_core": ([_P] * 2 + [_I] * 4 + [_P], _I),
     "vitiq_train_layer_fwd": ([_P] * 15 + _DROP_ARGS, _I),
     "vitiq_train_layer_bwd": ([_P] * 17 + _DROP_ARGS, _I),
     "vitiq_train_layer_fwd_stash": ([_P] * 21 + _DROP_ARGS, _I),

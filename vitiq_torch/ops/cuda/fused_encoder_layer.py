@@ -24,8 +24,14 @@ same shapes. The callers
 (`Encoder.forward`, `QuantizedAMCModel.forward`) dispatch on it, so a shape
 it admits never raises in a kernel and one it turns away never reaches one.
 
+K1's parts run alone for the checks (`chip_smoke.py`, the CUDA tests):
+`attention_core`, its one-pass attention core (plain version
+`attention_onepass_reference`: p rounded at the running max of 64-key
+tiles), and `gemm_stage`, one of its GEMM stages (`gemm_stage_reference`).
+
 `launches` counts kernel launches, one per call of a C entry point (K1 runs
-one entry call per layer); the plain versions count nothing.
+one entry call per layer), `stage_launches` those of the parts alone; the
+plain versions count nothing.
 """
 
 from __future__ import annotations
@@ -44,17 +50,22 @@ SUPPORTED_D_HEAD = (16, 32, 64)
 MAX_SHARED_MEMORY = 232448  # bytes a block may use on Hopper
 
 launches = {"fused_encoder_layer": 0, "fused_encoder_layer_cls": 0}
+# K1's attention core and one of its GEMM stages called alone (`attention_core`,
+# `gemm_stage`): the checks' entries, not the serving path's
+stage_launches = {"attention_core": 0, "gemm_stage": 0}
 
-# `ptxas -v` registers of K1's attention_kernel<DH, false> at d_head 16, 32
-# and 64 (nvcc for sm_90a), as they were before the no-exp instantiation
-# (the P3 probe, `vitiq_torch/probes/exp.py`) was added beside it: K1's build
-# is held to them.
-K1_ATTENTION_REGISTERS = {16: 40, 32: 56, 64: 96}
+# `ptxas -v` registers of K1's attention core, attention_core_kernel<DH,
+# false>, at d_head 16, 32 and 64 (nvcc for sm_90a); the build is held to
+# them, and P3's instance of the same core (NOEXP) must not spill.
+K1_ATTENTION_REGISTERS = {16: 86, 32: 98, 64: 122}
+# the core's key tile (the wgmma's N) and query tile (its M)
+CORE_TILE = 64
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, stage_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def attention_smem_bytes(L: int, d_head: int) -> int:
@@ -63,6 +74,17 @@ def attention_smem_bytes(L: int, d_head: int) -> int:
     `attention_smem_bytes` in the .cu)."""
     lp = (L + 15) // 16 * 16
     return (lp * (d_head + 8) + d_head * (lp + 8)) * 2
+
+
+def core_smem_bytes(L: int, d_head: int) -> int:
+    """Shared memory of K1's one-pass core at L tokens (`core_smem_bytes` in
+    the .cu, repeated here for the tests that hold it to the shape predicate
+    without the library): the frame-head's k and v rows in 64-key tiles, an
+    mbarrier a tile, and 1 KB of alignment. At every L that `fused_infer_supported`
+    admits it is no more than MAX_SHARED_MEMORY (the two-pass layout
+    `attention_smem_bytes`, which K2 keeps, sets the bound)."""
+    n_kt = (L + CORE_TILE - 1) // CORE_TILE
+    return n_kt * CORE_TILE * d_head * 2 * 2 + n_kt * 8 + 1024
 
 
 def fused_infer_supported(L: int, D: int, ffn_hidden: int, n_head: int) -> bool:
@@ -79,9 +101,10 @@ def fused_infer_supported(L: int, D: int, ffn_hidden: int, n_head: int) -> bool:
 
 
 def attention_kernel_tag(d_head: int, noexp: bool = False) -> str:
-    """The part of attention_kernel<d_head, noexp>'s mangled name that tells
+    """The part of the mangled name of K1's attention core at `d_head`
+    (attention_core_kernel<d_head, false>), or of P3's (NOEXP), that tells
     it from the other instantiations (in a `ptxas -v` report or SASS)."""
-    return f"attention_kernelILi{d_head}ELb{int(noexp)}EE"
+    return f"attention_core_kernelILi{d_head}ELb{int(noexp)}EE"
 
 
 def layer_operands(layer, n_head: int, dtype=torch.bfloat16) -> List[torch.Tensor]:
@@ -161,6 +184,53 @@ def attention_reference(qkv: torch.Tensor, n_head: int, n_q: int) -> torch.Tenso
     p = torch.exp2(s - s.amax(dim=-1, keepdim=True)).to(dt).float()
     attn = ((p @ v) / p.sum(dim=-1, keepdim=True)).to(dt)
     return attn.transpose(1, 2).reshape(B, n_q, D)
+
+
+def attention_onepass_reference(qkv: torch.Tensor, n_head: int,
+                                tile: int = CORE_TILE) -> torch.Tensor:
+    """The plain version of K1's attention core (`attention_core_kernel`) on
+    qkv [B, L, 3D], every query row: one pass over `tile`-key tiles with a
+    running max m, each p = exp2(s - m) rounded to qkv's dtype at the running
+    max, the f32 sum l of the rounded p and the f32 output o both rescaled by
+    exp2(m_old - m_new) when a tile raises the max; out = (o / l) in qkv's
+    dtype. In f32 it is the softmax itself; in bf16 it differs from
+    `attention_reference` (p rounded at the final max) by bf16 roundings of
+    p, within K1's tolerance. Tests and `chip_smoke.py` use it; the serving
+    path does not."""
+    dt = qkv.dtype
+    B, L, D3 = qkv.shape
+    D = D3 // 3
+    dh = D // n_head
+
+    def heads(t):  # [B, L, D] -> [B, H, L, dh] f32
+        return t.float().reshape(B, L, n_head, dh).transpose(1, 2)
+
+    q, k, v = heads(qkv[..., :D]), heads(qkv[..., D:2 * D]), heads(qkv[..., 2 * D:])
+    m = torch.full((B, n_head, L, 1), -math.inf, device=qkv.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(q)
+    for j0 in range(0, L, tile):
+        s = q @ k[:, :, j0:j0 + tile].transpose(-1, -2)  # log2 units
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        a = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new).to(dt).float()
+        l = l * a + p.sum(dim=-1, keepdim=True)
+        o = o * a + p @ v[:, :, j0:j0 + tile]
+        m = m_new
+    return (o / l).to(dt).transpose(1, 2).reshape(B, L, D)
+
+
+def gemm_stage_reference(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                         relu: bool = False, res=None, gamma=None, beta=None) -> torch.Tensor:
+    """The plain version of one of K1's GEMM stages: bf16(a @ w + bias), then
+    ReLU, or bf16(LN(a @ w + bias + res)) with gamma, beta (f32 products of
+    the bf16 operands, the kernels' LayerNorm)."""
+    v = _mm(a, w) + bias
+    if res is not None:
+        v = layer_norm_reference(v + res.float(), gamma, beta)
+    elif relu:
+        v = torch.relu(v)
+    return v.to(a.dtype)
 
 
 def fused_layer_reference(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
@@ -283,3 +353,52 @@ def fused_encoder_layer_stack(x: torch.Tensor, layers, n_head: int,
     if cls_only:
         x = fused_encoder_layer_cls(x, ops_list[-1], n_head)
     return x
+
+
+def attention_core(qkv: torch.Tensor, n_head: int) -> torch.Tensor:
+    """K1's attention core alone (C entry `vitiq_attention_core`) on qkv
+    [B, L, 3D] bf16 (q pre-scaled by log2(e)/sqrt(dh)) -> [B, L, D] bf16;
+    `attention_onepass_reference` for a CPU tensor."""
+    if qkv.device.type == "cpu":
+        return attention_onepass_reference(qkv, n_head)
+    if (qkv.dim() != 3 or qkv.dtype != torch.bfloat16 or not qkv.is_contiguous()
+            or qkv.shape[2] % 3):
+        raise ValueError(f"qkv must be a contiguous bf16 [B, L, 3D] tensor, got {qkv.dtype} "
+                         f"{tuple(qkv.shape)}")
+    B, L, D3 = qkv.shape
+    check_shape(B, L, D3 // 3, 128, n_head)
+    out = torch.empty((B, L, D3 // 3), dtype=qkv.dtype, device=qkv.device)
+    _build.call("vitiq_attention_core", qkv.device, qkv.data_ptr(), out.data_ptr(), B, L,
+                D3 // 3, n_head)
+    stage_launches["attention_core"] += 1
+    return out
+
+
+def gemm_stage(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, relu: bool = False,
+               res=None, gamma=None, beta=None) -> torch.Tensor:
+    """One of K1's GEMM stages alone (C entry `vitiq_gemm_bf16`): a [M, K] @
+    w [K, N] + bias, then ReLU, or with `res` [M, N] (N = 64, 128 or 256)
+    + res and LayerNorm; bf16 a, w, res, f32 bias, gamma, beta; K and N
+    multiples of 64. `gemm_stage_reference` for a CPU tensor."""
+    if a.device.type == "cpu":
+        return gemm_stage_reference(a, w, bias, relu, res, gamma, beta)
+    M, K = a.shape
+    N = w.shape[1]
+    mats = [a, w] + ([res] if res is not None else [])
+    vecs = [bias] + ([gamma, beta] if res is not None else [])
+    if (w.shape[0] != K or K % 64 or N % 64
+            or any(t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != a.device
+                   for t in mats)
+            or any(t.dtype != torch.float32 or tuple(t.shape) != (N,) or t.device != a.device
+                   for t in vecs)
+            or (res is not None and (tuple(res.shape) != (M, N) or N not in SUPPORTED_D_MODEL))):
+        raise ValueError(f"gemm_stage takes bf16 a [M, K], w [K, N] (K, N multiples of 64), f32 "
+                         f"bias [N] and for LN res [M, N], N in {SUPPORTED_D_MODEL}; got "
+                         f"{tuple(a.shape)} {tuple(w.shape)}")
+    c = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    ptr = (lambda t: t.data_ptr() if t is not None else None)
+    _build.call("vitiq_gemm_bf16", a.device, a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                ptr(res), ptr(gamma), ptr(beta), c.data_ptr(), M, K, N,
+                2 if res is not None else int(relu))
+    stage_launches["gemm_stage"] += 1
+    return c

@@ -4,15 +4,18 @@ A timing probe, not a layer of the model. The TPU probe timed the fused
 serving layer with the exp of its softmax removed -- mathematically wrong,
 structurally identical -- to split the layer's cost between the exp and the
 matmul and memory structure. Here the ablation is K1 itself with its
-attention stage's exp removed (`attention_kernel<DH, true>` in
-`csrc/fused_encoder_layer.cu`, C entry `vitiq_encoder_layer_full_noexp`),
+attention stage's exp removed (the NOEXP instance of K1's one-pass core,
+`attention_core_kernel<DH, true>` in `csrc/fused_encoder_layer.cu`,
+C entry `vitiq_encoder_layer_full_noexp`),
 timed back to back with K1 in one process.
 
 Function (the TPU probe's `kernel_noexp`), per frame and head: the scores s
 (q carries log2(e)/sqrt(dh) where the TPU probe scales by 0.25: the factor
 cancels in the ratio), p = (s - max s) + max s in f32 (the max pass kept,
 so only the exp is gone), out = (bf16(p) @ v) / sum(p), the sum of the
-unrounded f32 p; then K1's out-projection + LN1, FFN and LN2. The TPU probe
+unrounded f32 p (the kernel's one-pass core takes each p at the running
+max of the keys so far; (s - m) + m is s up to rounding at either); then
+K1's out-projection + LN1, FFN and LN2. The TPU probe
 adds -1e30 to padded keys' probabilities, so its padded rows' v dominate its
 output; the port has no padded rows (keys past L add nothing), and the two
 are the same function only where L is a multiple of 16. The output divides
@@ -135,7 +138,7 @@ def fused_encoder_layer_noexp(x: torch.Tensor, ops: Sequence[torch.Tensor],
 
 def attention_noexp(qkv: torch.Tensor, n_head: int) -> torch.Tensor:
     """P3's attention core alone, bf16 qkv [B, L, 3D] (q pre-scaled) -> bf16
-    [B, L, D]: `attention_kernel<DH, true>` on a CUDA tensor, the plain
+    [B, L, D]: `attention_core_kernel<DH, true>` on a CUDA tensor, the plain
     version on a CPU tensor. Not on the probe's path: it holds the core to
     its plain version on the same qkv."""
     if qkv.device.type == "cpu":
