@@ -6,7 +6,11 @@ which raises (exit code 1) on failure:
 
 1. device: a CUDA GPU must be present; the card's name and power limit.
 2. build: the kernels of `vitiq_torch/csrc/*.cu` are compiled with nvcc for
-   sm_90a (one nvcc per source, all started together) and loaded.
+   sm_90a (one nvcc per source, all started together) and loaded. K5's three
+   kernels (attention_fwd, attention_bwd_dq, attention_bwd_dkdv at d_head
+   16/32/64) must not spill (`ptxas -v`) and must run HGMMA (their SASS);
+   their registers and each one's blocks an SM at one and two warpgroups
+   (`fa.ring_info`) are printed.
 3. kernels: K1 (full fused layers) and K2 (the CLS-row layer) on the GPU
    against their plain PyTorch version on the GPU, on the same bf16 inputs
    and seeded random weights, at the ViT flagship (L=129, F=512, B=256),
@@ -18,11 +22,17 @@ which raises (exit code 1) on failure:
    / d_head 32 (WIDE_SHAPES: rawiq_best's D=256, H=8, L=65, F=1024;
    vit_tiny_2016's D=64, H=4, L=17; d_head 64 at D=128, H=2, L=129; B=256).
    Then K5-fwd and K5-bwd (the standalone
-   packed attention) against their plain versions at B=64, L 17 and 1025
-   (d_head 16) and L 1025 at d_head 32: out within GRAD_REL in the L2 norm and
+   packed attention) against their plain versions at L 1, 17, 1025, 1040
+   and 4097 (past what K1's core holds in shared memory), d_head 16, 32 and
+   64, B=64 (B=4 at 4097): out within GRAD_REL in the L2 norm and
    elementwise within K5_OUT_TOL (scaled to the output's rms), the f32
    log-sum-exp within K5_LSE_ATOL, dq, dk, dv each within GRAD_REL in the L2
-   norm (max |difference| printed).
+   norm (max |difference| printed; at L=1, where dq and dk are zero, within
+   GRAD_REL of the plain norm plus 1e-6, as tests/test_torch_cuda.py holds
+   them); out and lse also against the kernel's own one-pass function
+   (`fa.attention_onepass_plain`: GRAD_REL, K5_LSE_ATOL); q, k, v as column
+   slices of qkv and as contiguous copies give the same bits, and so do 30
+   repeated launches of each.
    k1-parts: K1's kernels one by one at the same shapes (B=256, conv1d
    B=64): its four wgmma GEMM stages (QKV, out-projection + LN1, FFN1 +
    ReLU, FFN2 + LN2), each on the plain version's input to it, within one
@@ -147,8 +157,10 @@ which raises (exit code 1) on failure:
    its FLOPs over 989 TFLOP/s and its compulsory bytes over 3.35 TB/s) and,
    as yardsticks the port never calls, nn.TransformerEncoderLayer's time
    beside K1 (ViT and rawIQ shapes, B=4096, conv1d B=256, with whether its
-   fused fast path ran) and scaled_dot_product_attention's beside K5
-   (forward; backward on a kept graph); K6 per layer at B=4096 (ViT, rawIQ)
+   fused fast path ran), scaled_dot_product_attention's beside K5
+   (forward; backward on a kept graph), and nn.TransformerEncoderLayer's
+   training forward + backward (bf16, dropout 0) beside K3's and K4's at
+   the ViT, rawIQ and rawiq_best shapes (B=4096); K6 per layer at B=4096 (ViT, rawIQ)
    against its plain version and K1, its bound (int8 GEMM operations over
    1979 TOP/s plus bf16 attention FLOPs over 989 TFLOP/s, or its bytes), and
    its FFN1 stage against torch._int_mm at that shape; serving frames/s and
@@ -172,7 +184,8 @@ which raises (exit code 1) on failure:
    (VITIQ_TRAIN_STASH=0) and through the plain layers (B=4096), the conv1d
    flagship with remat (auto) and without (VITIQ_TRAIN_REMAT=0) (B=256),
    and a `torch.profiler` breakdown of the conv1d step (device kernel time
-   by kernel, idle share); K3 and K4 at the added widths per layer at B=4096
+   by kernel, idle share; K5's three kernels a launch, K5-bwd by pass); K3
+   and K4 at the added widths per layer at B=4096
    (vit_tpu_production: K3 at L=129, H=2; the rawIQ flagship at n_head 2: K4
    at L=65; vit_tiny_2016: K3 and K4 at D=64, L=17) with their bounds, and
    the vit_tpu_production and vit_tiny_2016 train steps at B=4096 through
@@ -378,6 +391,28 @@ def check_train_spills() -> None:
         raise AssertionError(f"fused_layer_train.cu spills {spilled} bytes")
 
 
+def check_k5_build() -> None:
+    """K5's three kernels at d_head 16/32/64 in the build: their `ptxas -v`
+    registers and spills (none may spill), HGMMA in each one's SASS
+    (cuobjdump, beside nvcc), and their launch shape (`fa.ring_info`: the
+    ring's shared memory, blocks an SM at one and two warpgroups, the
+    warpgroups a block takes)."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    bodies = dict(block.split("\n", 1) for block in sass.split("Function : ")[1:])
+    for name in fa.KERNELS:
+        for dh in fa.SUPPORTED_D_HEAD:
+            tag = fa.kernel_tag(name, dh)
+            regs, stores, loads = _build.kernel_resources("flash_attention", tag)
+            body = [b for n, b in bodies.items() if tag in n]
+            hgmma = body[0].count("HGMMA") if len(body) == 1 else 0
+            print(f"  K5 {name}<{dh}>: {regs} registers, {stores + loads} bytes spilled, "
+                  f"{hgmma} HGMMA in its SASS; {fa.ring_info(name, dh)}", flush=True)
+            if stores or loads or not hgmma:
+                raise AssertionError(f"K5 {name}<{dh}> spills or runs no HGMMA")
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
@@ -543,18 +578,20 @@ def check_k1_parts(device, conv1d_batch: int = 64, batch: int = 256) -> float:
     return worst
 
 
-def check_rel(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """||got - want|| / ||want|| <= GRAD_REL (printed with max |difference|);
-    returns the max |difference|."""
+def check_rel(label: str, got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
+    """||got - want|| <= GRAD_REL ||want|| + floor (printed with max
+    |difference|); returns the max |difference|. `floor` is for gradients
+    that are zero in exact arithmetic (K5's dq and dk at one token)."""
     got, want = got.float(), want.float()
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{label}: bad kernel output {tuple(got.shape)}")
-    rel = ((got - want).norm() / want.norm()).item()
+    err, norm = (got - want).norm().item(), want.norm().item()
     max_abs = (got - want).abs().max().item()
-    print(f"  {label}: ||kernel - plain|| / ||plain|| = {rel:.6g} (limit {GRAD_REL}), "
+    print(f"  {label}: ||kernel - plain|| / ||plain|| = {err / max(norm, 1e-30):.6g} (limit "
+          f"{GRAD_REL}{f' + {floor} / ||plain||' if floor else ''}; ||plain|| {norm:.6g}), "
           f"max |kernel - plain| = {max_abs:.6g}, max |plain| = {want.abs().max().item():.6g}",
           flush=True)
-    if not rel <= GRAD_REL:
+    if not err <= GRAD_REL * norm + floor:
         raise AssertionError(f"{label}: kernel disagrees with the plain version")
     return max_abs
 
@@ -562,44 +599,72 @@ def check_rel(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
 def check_attention_kernels(device, B: int = 64) -> dict:
     """K5-fwd and K5-bwd against their plain versions on the same bf16
     inputs (q, k, v the column slices of one [B, L, 3D] qkv, as the model
-    passes them). K5-fwd: out within GRAD_REL of the plain output in the L2
+    passes them), at L 1, 17, 1025, 1040 and 4097 (B=4 there) and d_head 16,
+    32 and 64. K5-fwd: out within GRAD_REL of the plain output in the L2
     norm and elementwise within K5_OUT_TOL (its atol a share of the plain
     output's rms, which falls as 1/sqrt(L): a tolerance fixed at LAYER_TOL's
     3e-2 would pass a kernel that drops a key or mis-sums the denominator at
-    L=1025), and the f32 lse within K5_LSE_ATOL of the plain one. K5-bwd: dq,
-    dk, dv each within GRAD_REL of the plain gradient in the L2 norm. Returns
-    the largest difference of each kernel."""
+    L=1025), and the f32 lse within K5_LSE_ATOL of the plain one; out and
+    lse also against the kernel's own function, `fa.attention_onepass_plain`
+    (GRAD_REL, K5_LSE_ATOL). K5-bwd: dq, dk, dv each within GRAD_REL of the
+    plain gradient in the L2 norm (at L=1, where dq and dk are zero in exact
+    arithmetic, plus 1e-6). Contiguous copies of q, k, v and 30 repeated
+    launches of both must give the same bits. Returns the largest
+    difference of each kernel."""
     errs = {"k5f": 0.0, "k5b": 0.0}
     gen = torch.Generator().manual_seed(9)
-    for L, n_head in ((17, 8), (CONV1D_L, 8), (CONV1D_L, 4)):
-        dh = 128 // n_head
-        print(f"phase attention-kernels: K5 vs plain version on the GPU, B={B} L={L} "
-              f"H={n_head} d_head={dh}", flush=True)
-        qkv = torch.randn((B, L, 384), generator=gen).to(device, torch.bfloat16)
-        dout = (0.1 * torch.randn((B, L, 128), generator=gen)).to(device, torch.bfloat16)
-        q, k, v = qkv.split(128, dim=-1)
-        with torch.no_grad():
-            out, lse = fa.fused_attention_fwd(q, k, v, n_head)
-            grads = fa.fused_attention_bwd(q, k, v, out, lse, dout, n_head)
-            torch.cuda.synchronize()
-            want, want_lse = fa.attention_plain(q, k, v, n_head)
-            want_grads = fa.attention_bwd_reference(q, k, v, out, dout, n_head)
-        label = f"(L={L}, d_head {dh})"
-        rms = want.float().square().mean().sqrt().item()
-        tol = (K5_OUT_TOL[0] * rms, K5_OUT_TOL[1])
-        print(f"  K5-fwd out {label}: rms of the plain output {rms:.6g}, atol {tol[0]:.6g}",
-              flush=True)
-        errs["k5f"] = max(errs["k5f"], check_close(f"K5-fwd out {label}", out, want, tol),
-                          check_rel(f"K5-fwd out {label}", out, want))
-        if lse.shape != want_lse.shape or not torch.isfinite(lse).all():
-            raise AssertionError(f"K5-fwd lse {label}: bad shape or values")
-        lse_err = (lse - want_lse).abs().max().item()
-        print(f"  K5-fwd lse {label}: max |kernel - plain| = {lse_err:.6g} (limit {K5_LSE_ATOL})",
-              flush=True)
-        if not lse_err <= K5_LSE_ATOL:
-            raise AssertionError(f"K5-fwd lse {label}: kernel disagrees with the plain version")
-        for name, grad, want_grad in zip(("dq", "dk", "dv"), grads, want_grads):
-            errs["k5b"] = max(errs["k5b"], check_rel(f"K5-bwd {name} {label}", grad, want_grad))
+    for L in (1, 17, CONV1D_L, 1040, 4097):
+        for n_head in (8, 4, 2):
+            dh, b = 128 // n_head, 4 if L > 2048 else B
+            print(f"phase attention-kernels: K5 vs plain version on the GPU, B={b} L={L} "
+                  f"H={n_head} d_head={dh}", flush=True)
+            qkv = torch.randn((b, L, 384), generator=gen).to(device, torch.bfloat16)
+            dout = (0.1 * torch.randn((b, L, 128), generator=gen)).to(device, torch.bfloat16)
+            q, k, v = qkv.split(128, dim=-1)
+            with torch.no_grad():
+                out, lse = fa.fused_attention_fwd(q, k, v, n_head)
+                grads = fa.fused_attention_bwd(q, k, v, out, lse, dout, n_head)
+                torch.cuda.synchronize()
+                want, want_lse = fa.attention_plain(q, k, v, n_head)
+                one, one_lse = fa.attention_onepass_plain(q, k, v, n_head)
+                want_grads = fa.attention_bwd_reference(q, k, v, out, dout, n_head)
+            label = f"(L={L}, d_head {dh})"
+            rms = want.float().square().mean().sqrt().item()
+            tol = (K5_OUT_TOL[0] * rms, K5_OUT_TOL[1])
+            print(f"  K5-fwd out {label}: rms of the plain output {rms:.6g}, atol {tol[0]:.6g}",
+                  flush=True)
+            errs["k5f"] = max(errs["k5f"], check_close(f"K5-fwd out {label}", out, want, tol),
+                              check_rel(f"K5-fwd out {label}", out, want))
+            check_rel(f"K5-fwd out vs its one-pass function {label}", out, one)
+            for name, ref in (("plain", want_lse), ("one-pass", one_lse)):
+                if lse.shape != ref.shape or not torch.isfinite(lse).all():
+                    raise AssertionError(f"K5-fwd lse {label}: bad shape or values")
+                lse_err = (lse - ref).abs().max().item()
+                print(f"  K5-fwd lse {label} vs the {name} version: max |kernel - plain| = "
+                      f"{lse_err:.6g} (limit {K5_LSE_ATOL})", flush=True)
+                if not lse_err <= K5_LSE_ATOL:
+                    raise AssertionError(f"K5-fwd lse {label}: kernel disagrees with the "
+                                         f"{name} version")
+            for name, grad, want_grad in zip(("dq", "dk", "dv"), grads, want_grads):
+                floor = 1e-6 if L == 1 and name != "dv" else 0.0
+                errs["k5b"] = max(errs["k5b"], check_rel(f"K5-bwd {name} {label}", grad,
+                                                         want_grad, floor))
+            with torch.no_grad():
+                dense = [t.contiguous() for t in (q, k, v)]
+                got = [*fa.fused_attention_fwd(*dense, n_head)]
+                got += fa.fused_attention_bwd(*dense, got[0], got[1], dout, n_head)
+                same = all(torch.equal(x, y) for x, y in zip(got, (out, lse, *grads)))
+                for _ in range(30):
+                    got = [*fa.fused_attention_fwd(q, k, v, n_head)]
+                    got += fa.fused_attention_bwd(q, k, v, out, lse, dout, n_head)
+                    same = same and all(torch.equal(x, y) for x, y in
+                                        zip(got, (out, lse, *grads)))
+            print(f"  K5 {label}: contiguous inputs and 30 repeated launches give the same "
+                  f"bits: {same}", flush=True)
+            if not same:
+                raise AssertionError(f"K5 {label}: the bits moved between launches or layouts")
+            del qkv, dout, q, k, v, out, lse, grads, want, one, want_grads, dense, got
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -1048,11 +1113,12 @@ def device_kernels(prof) -> list:
 
 
 def profile_train_step(label: str, cfg, stats, batch: int, device, card: str,
-                       steps: int = 3, top: int = 12) -> None:
+                       steps: int = 3, top: int = 12, watch=()) -> None:
     """Where a train step's time goes: `torch.profiler` over `steps` steps
     after two warm-up steps; the device's busy time (the sum of its kernels'
     times: one stream) against the host clock gives the idle share, and the
-    kernels with the most device time are printed with their counts."""
+    kernels with the most device time are printed with their counts, and
+    every kernel whose name holds one of `watch` with its time a launch."""
     exp = train_experiment(cfg, batch)
     model, pre = build_forward_and_preprocess(exp, cfg, stats, device)
     gen = torch.Generator().manual_seed(6)
@@ -1083,6 +1149,14 @@ def profile_train_step(label: str, cfg, stats, batch: int, device, card: str,
     for e in sorted(kernels, key=device_us, reverse=True)[:top]:
         print(f"    {device_us(e) / 1e3 / steps:9.4f} ms/step  {e.count // steps:4d}x  "
               f"{e.key[:100]}", flush=True)
+    for e in kernels:
+        for name in watch:
+            if f"{name}<" not in e.key:
+                continue
+            kernel = e.key[e.key.index(f"{name}<"):].split("(")[0]
+            print(f"  {label}: {kernel} {device_us(e) / 1e3 / steps:.4f} ms/step, "
+                  f"{e.count // steps}x, {device_us(e) / 1e3 / e.count:.4f} ms a launch  "
+                  f"[{card}]", flush=True)
     del box, model
     torch.cuda.empty_cache()
 
@@ -1935,6 +2009,39 @@ def time_k1_library(name: str, L: int, ffn: int, device, card: str, batch: int =
     return ms
 
 
+def time_train_library(name: str, L: int, ffn: int, device, card: str, t: dict,
+                       batch: int = 4096, D: int = 128) -> float:
+    """The yardstick for K3's and K4's forward + backward (in `t`, from
+    `time_train_layers`): torch.nn.TransformerEncoderLayer (post-norm, ReLU,
+    eps 1e-12, dropout 0) in training mode and bf16, its forward and then
+    the gradients of x and of its weights from one output gradient, which
+    the port never calls. Its dropout (none) is not vitiq's training layer's,
+    so it is a yardstick of speed, not a parity check."""
+    lib = torch.nn.TransformerEncoderLayer(D, 8, ffn, dropout=0.0, batch_first=True,
+                                           norm_first=False, layer_norm_eps=1e-12)
+    lib = lib.to(device, torch.bfloat16).train()
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((batch, L, D), generator=gen).to(device, torch.bfloat16).requires_grad_(True)
+    dy = (0.1 * torch.randn((batch, L, D), generator=gen)).to(device, torch.bfloat16)
+
+    def one():
+        lib.zero_grad(set_to_none=True)
+        x.grad = None
+        lib(x).backward(dy)
+
+    ms = cuda_ms(one, 10)
+    line = f"  {name} train layer B={batch} L={L} F={ffn} D={D}: nn.TransformerEncoderLayer " \
+           f"training forward + backward {ms:.4f} ms"
+    for kernel in ("k3", "k4"):
+        if f"{kernel}f_ms" in t:
+            line += (f"; {kernel.upper()}-fwd + {kernel.upper()}-bwd "
+                     f"{t[f'{kernel}f_ms'] + t[f'{kernel}b_ms']:.4f} ms")
+    print(line + f"  [{card}]", flush=True)
+    del lib, x, dy
+    torch.cuda.empty_cache()
+    return ms
+
+
 # --------------------------------------------------------------------------
 # the probes (P1-P3): the TPU lowering and cost probes' counterparts
 # --------------------------------------------------------------------------
@@ -2239,6 +2346,7 @@ def main() -> int:
         print(json.dumps({"latency": time_small_batches(device, card)}), flush=True)
         return 0
     check_train_spills()
+    check_k5_build()
 
     errs = check_kernels(device)
     errs["k1_parts"] = check_k1_parts(device)
@@ -2326,6 +2434,10 @@ def main() -> int:
     time_train_layers("rawIQ flagship at n_head 2", 65, 1024, RAW_DROP, device, card, True,
                       k3=False, H=2)
     time_train_layers("vit_tiny_2016", 17, 256, TRAIN_DROP, device, card, True, D=64, H=4)
+    for name, L, ffn, D in (("vit", 129, 512, 128), ("rawiq", 65, 1024, 128),
+                            ("rawiq_best", 65, 1024, 256)):
+        times[name]["train_library_ms"] = time_train_library(name, L, ffn, device, card,
+                                                             times[name], D=D)
     times["conv1d"].update(time_attention(device, card))
 
     vit_cfg, raw_cfg = flagship_vit_config("tpu"), flagship_rawiq_config("tpu")
@@ -2342,7 +2454,8 @@ def main() -> int:
                     5)
     time_train_step("conv1d flagship (K5, VITIQ_TRAIN_REMAT=0)", conv_cfg, RAW_STATS, 256, device,
                     card, 5, {"VITIQ_TRAIN_REMAT": "0"})
-    profile_train_step("conv1d flagship (K5, remat auto)", conv_cfg, RAW_STATS, 256, device, card)
+    profile_train_step("conv1d flagship (K5, remat auto)", conv_cfg, RAW_STATS, 256, device, card,
+                       watch=fa.KERNELS)
     time_train_step("rawiq_best (K3 kernels)", rawiq_best_config("tpu"), RAW_STATS, 4096, device,
                     card, 5)
     profile_train_step("rawiq_best (K3 kernels)", rawiq_best_config("tpu"), RAW_STATS, 4096,

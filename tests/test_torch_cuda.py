@@ -42,9 +42,18 @@ within 1e-2 relative L2 over the rows whose sums of scores are not small
 beside their magnitudes (`exp.check_layer`; over all rows too at d_model
 64/128 and 129 tokens or fewer), its attention core alone within 1e-2 in
 each such row on the same qkv (`exp.check_core`). K1's attention kernels
-keep the registers they had before P3's flag was added beside them."""
+keep the registers they had before P3's flag was added beside them.
+
+K5 (the standalone attention) is held at L 1 to 4097 (past the k and v
+that K1's core keeps resident) and d_head 16/32/64 to both its plain
+versions: the two-pass `attention_plain` and the kernel's exact function,
+`attention_onepass_plain` (out within 1% L2, lse within 1e-3); its three
+kernels run wgmma (HGMMA in their SASS) without a spill, and their TMA rings
+give the same bits over 30 launches."""
 
 import math
+import subprocess
+from pathlib import Path
 
 import pytest
 import torch
@@ -463,17 +472,19 @@ def _qkv(cuda, B, L, seed, d=D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Lx", [1, 17, 1025, 1040])
+@pytest.mark.parametrize("Lx", [1, 17, 1025, 1040, 4097])
 @pytest.mark.parametrize("n_head", [8, 4, 2])  # d_head 16, 32, 64
 def test_attention_kernels_match_plain_versions(cuda, Lx, n_head):
     """out at the one-layer tolerance, the lse within 1e-3 (f32 sums in
     another order), dq, dk, dv [B, L, D] each within GRAD_REL of the plain
     gradient in the L2 norm. At 1025 and 1040 tokens the key tiles run past
     L: a padded key that leaked into the denominator would move the lse by
-    far more than 1e-3."""
+    far more than 1e-3. 4097 tokens run past what K1's core holds in shared
+    memory at d_head 64. out and lse are held to the kernel's own one-pass
+    function too (out within GRAD_REL in the L2 norm)."""
     from vitiq_torch.ops.cuda import flash_attention as fa
 
-    qkv, dout = _qkv(cuda, 3, Lx, Lx + n_head)
+    qkv, dout = _qkv(cuda, 2 if Lx > 2048 else 3, Lx, Lx + n_head)
     q, k, v = qkv.split(D, dim=-1)  # column slices of qkv, as the model passes them
     out, lse = fa.fused_attention_fwd(q, k, v, n_head)
     grads = fa.fused_attention_bwd(q, k, v, out, lse, dout, n_head)
@@ -481,6 +492,9 @@ def test_attention_kernels_match_plain_versions(cuda, Lx, n_head):
     want, want_lse = fa.attention_plain(q, k, v, n_head)
     _assert_close(out, want, LAYER_TOL)
     assert lse.shape == want_lse.shape and (lse - want_lse).abs().max() <= 1e-3
+    one, one_lse = fa.attention_onepass_plain(q, k, v, n_head)
+    assert (out.float() - one.float()).norm() <= GRAD_REL * one.float().norm()
+    assert (lse - one_lse).abs().max() <= 1e-3
     for got, ref in zip(grads, fa.attention_bwd_reference(q, k, v, out, dout, n_head)):
         assert got.dtype == ref.dtype and got.shape == ref.shape
         assert torch.isfinite(got.float()).all()
@@ -501,6 +515,71 @@ def test_attention_kernels_read_strided_and_contiguous_inputs_alike(cuda):
     gb = fa.fused_attention_bwd(*dense, b[0], b[1], dout, 8)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a + ga, b + gb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_head", [8, 4, 2])
+def test_attention_kernels_give_the_same_bits_over_repeated_launches(cuda, n_head):
+    """30 launches of each pass at 1040 tokens (17 tiles: each ring of four
+    stages wraps four times) give the same bits: a stage refilled before
+    every warpgroup had released it would change some of them."""
+    from vitiq_torch.ops.cuda import flash_attention as fa
+
+    qkv, dout = _qkv(cuda, 8, 1040, 6 + n_head)
+    q, k, v = qkv.split(D, dim=-1)
+    out, lse = fa.fused_attention_fwd(q, k, v, n_head)
+    grads = fa.fused_attention_bwd(q, k, v, out, lse, dout, n_head)
+    for _ in range(30):
+        o, l = fa.fused_attention_fwd(q, k, v, n_head)
+        g = fa.fused_attention_bwd(q, k, v, out, lse, dout, n_head)
+        torch.cuda.synchronize()
+        assert torch.equal(o, out) and torch.equal(l, lse)
+        assert all(torch.equal(a, b) for a, b in zip(g, grads))
+
+
+@pytest.mark.cuda
+def test_attention_backward_runs_on_a_fresh_host_thread(cuda):
+    """K5-bwd encodes its TMA maps on the calling thread; autograd calls it
+    from its own backward thread, whose first CUDA work it may be. A fresh
+    host thread's call gives the main thread's bits."""
+    import threading
+
+    from vitiq_torch.ops.cuda import flash_attention as fa
+
+    qkv, dout = _qkv(cuda, 2, 65, 7)
+    q, k, v = qkv.split(D, dim=-1)
+    out, lse = fa.fused_attention_fwd(q, k, v, 8)
+    want = fa.fused_attention_bwd(q, k, v, out, lse, dout, 8)
+    got = []
+    thread = threading.Thread(
+        target=lambda: got.append(fa.fused_attention_bwd(q, k, v, out, lse, dout, 8)))
+    thread.start()
+    thread.join()
+    torch.cuda.synchronize()
+    assert len(got) == 1 and all(torch.equal(a, b) for a, b in zip(got[0], want))
+
+
+@pytest.mark.cuda
+def test_attention_kernels_run_wgmma_and_do_not_spill(cuda):
+    """K5's three kernels at d_head 16, 32 and 64: no spill in the build's
+    `ptxas -v` report, HGMMA in each one's SASS (cuobjdump, beside nvcc),
+    and the ring's shared memory the one the host-side repeat gives."""
+    from vitiq_torch.ops.cuda import flash_attention as fa
+
+    sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
+                           str(_build.build())], capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    bodies = dict(block.split("\n", 1) for block in sass.split("Function : ")[1:])
+    for name in fa.KERNELS:
+        for dh in fa.SUPPORTED_D_HEAD:
+            tag = fa.kernel_tag(name, dh)
+            regs, stores, loads = _build.kernel_resources("flash_attention", tag)
+            assert regs > 0 and stores == loads == 0, (name, dh, regs, stores, loads)
+            body = [b for n, b in bodies.items() if tag in n]
+            assert len(body) == 1 and "HGMMA" in body[0], (name, dh, len(body))
+            info = fa.ring_info(name, dh)
+            assert info["smem"] == fa.ring_smem_bytes(dh), (name, dh, info)
+            assert info["warpgroups"] in (1, 2) and info["blocks_one"] >= 1, (name, dh, info)
 
 
 @pytest.mark.cuda

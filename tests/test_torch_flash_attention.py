@@ -1,7 +1,8 @@
 """K5, the standalone packed attention: the port's plain versions and its
 autograd function against vitiq's Pallas kernel (`_pallas_attention`) and
 its custom VJP (`_fused_attention_tpu`), both run in Pallas interpret mode on
-numpy-seeded inputs, B <= 4, L 1/17/130, d_head 16 and 32.
+numpy-seeded inputs, B <= 4, L 1/17/130, d_head 16 and 32; and the kernel's
+exact forward function (`attention_onepass_plain`) against the same kernel.
 
 Tolerances: f32 at 1e-5 (one algorithm, f32 roundings apart). bf16 forward
 at |port - vitiq| <= 3e-2 + 1.6e-2 |vitiq|: the TPU kernel rounds bf16(exp2(s))
@@ -22,6 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from vitiq.ops.pallas import flash_attention as jfa
 from vitiq_torch.ops.cuda import flash_attention as fa
+from vitiq_torch.ops.cuda import fused_encoder_layer as fel
 from vitiq_torch.ops.numerics import REFERENCE, TPU
 
 D = 64
@@ -50,6 +52,53 @@ def test_plain_forward_matches_pallas_kernel(L, n_head):
     got16 = fa.attention_reference(*(_torch(a, torch.bfloat16) for a in (q, k, v)), n_head)
     assert got16.dtype == torch.bfloat16
     np.testing.assert_allclose(got16.float().numpy(), want16, **BF16_TOL)
+
+
+@pytest.mark.parametrize("L", [17, 130])
+@pytest.mark.parametrize("n_head", [4, 2])  # d_head 16 and 32
+def test_onepass_plain_forward_matches_pallas_kernel(L, n_head):
+    """K5-fwd's kernel function, one pass over 64-key tiles with p rounded
+    at the running max and the f32 denominator summed from the unrounded p
+    (at 130 tokens the last tile holds 2 keys): f32 within 1e-5 of vitiq's
+    kernel, bf16 within BF16_TOL (vitiq rounds bf16(exp2(s)) with no max)."""
+    q, k, v, _ = _inputs(3, L, 40 + L + n_head)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jfa._pallas_attention(*map(jnp.asarray, (q, k, v)), n_head))
+        want16 = np.asarray(jfa._pallas_attention(
+            *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), n_head).astype(jnp.float32))
+    got, _ = fa.attention_onepass_plain(_torch(q), _torch(k), _torch(v), n_head)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    got16, lse16 = fa.attention_onepass_plain(*(_torch(a, torch.bfloat16) for a in (q, k, v)),
+                                              n_head)
+    assert got16.dtype == torch.bfloat16 and lse16.dtype == torch.float32
+    np.testing.assert_allclose(got16.float().numpy(), want16, **BF16_TOL)
+
+
+@pytest.mark.parametrize("L", [1, 17, 130])
+def test_onepass_plain_is_the_plain_forward_in_f32(L):
+    """In f32 every rounding of the one-pass version is the identity: its out
+    and lse are `attention_plain`'s within 1e-5, at d_head 16 and 32."""
+    q, k, v, _ = _inputs(2, L, 50 + L)
+    for n_head in (4, 2):
+        out, lse = fa.attention_onepass_plain(_torch(q), _torch(k), _torch(v), n_head)
+        want, want_lse = fa.attention_plain(_torch(q), _torch(k), _torch(v), n_head)
+        torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+        torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0)
+
+
+def test_ring_shared_memory_fits_at_any_length():
+    """The kernels stream k and v (or q and dout) through a ring of
+    RING_STAGES 64-row tiles, so their shared memory does not grow with L:
+    at d_head 16, 32 and 64 it fits Hopper's budget, where K1's core, which
+    holds a frame-head's whole k and v, does not at 4097 tokens. The .cu's
+    `ring_smem_bytes` is held to this repeat on the card
+    (tests/test_torch_cuda.py)."""
+    for dh in fa.SUPPORTED_D_HEAD:
+        ring = fa.ring_smem_bytes(dh)
+        assert ring == 1024 + fa.RING_STAGES * (2 * fa.TILE * dh * 2 + 16)
+        assert ring <= fel.MAX_SHARED_MEMORY
+        assert fel.core_smem_bytes(4097, dh) > ring
+    assert fel.core_smem_bytes(4097, 64) > fel.MAX_SHARED_MEMORY
 
 
 def _vitiq_grads(q, k, v, g, n_head, dtype):

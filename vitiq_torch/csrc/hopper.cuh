@@ -205,7 +205,14 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// ---- host: tensor maps --------------------------------------------------------
+// ---- host: launches and tensor maps -------------------------------------------
+// Dynamic shared memory above the 48 KB default needs the kernel's opt-in.
+template <class K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 // cuTensorMapEncodeTiled is a driver function: it is reached through the
 // runtime's driver entry point, so the library links no libcuda.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -242,6 +249,12 @@ inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_
                      const uint64_t* strides, const uint32_t* box, int span) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
+  // cuTensorMapEncodeTiled encodes for the context current on this thread,
+  // which the runtime binds lazily: on a host thread whose first CUDA work
+  // this is (autograd's backward thread, for one) it is refused until
+  // cudaSetDevice binds the device's primary context.
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return false;
   cuuint64_t gdim[3], gstride[2];
   cuuint32_t bdim[3], estride[3] = {1, 1, 1};
   for (int i = 0; i < rank; ++i) {

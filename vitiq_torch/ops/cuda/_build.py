@@ -65,6 +65,8 @@ SIGNATURES = {
     "vitiq_attention_fwd": ([_P] * 5 + [_I] * 7 + [_P], _I),
     # q, k, v, out, dout, lse, delta, dq, dk, dv; ldq, ldk, ldv; B, L, H, D; stream
     "vitiq_attention_bwd": ([_P] * 10 + [_I] * 7 + [_P], _I),
+    # kernel (0 fwd, 1 dQ pass, 2 dK/dV pass), d_head, int[4] out
+    "vitiq_attention_ring": ([_I, _I, _P], _I),
     # probes.cu. op, x, out, n; stream
     "vitiq_probe_mask_op": ([_I, _P, _P, _I, _P], _I),
     # op, x, w, out; stream

@@ -22,6 +22,11 @@ dV = P^T dO, dS = P (dO V^T - rowsum(dO * O)) rounded to bf16 into dQ = dS K
 and dK = dS^T Q (both / sqrt(dh)). In f32 every rounding is the identity, and
 the plain backward is autograd of the plain forward.
 
+`attention_onepass_plain` is K5-fwd's kernel function exactly: one pass over
+64-key tiles with a running max, each p rounded to bf16 at the running max
+for the P V product and the f32 denominator summed from the unrounded p; in
+f32 it is `attention_plain`. `chip_smoke.py` holds the kernel to both.
+
 The plain versions run per batch chunk of `attention_chunk` frames, under
 the JAX backward's budget ``VITIQ_ATTN_BWD_BUDGET`` (bytes, default 2 GiB at
 ~7 bytes per score element), so that no [B, H, L, L] tensor is held whole.
@@ -35,6 +40,7 @@ plain versions count nothing.
 
 from __future__ import annotations
 
+import ctypes
 import math
 import os
 from typing import Optional, Tuple
@@ -47,6 +53,11 @@ from vitiq_torch.ops.numerics import REFERENCE, Policy
 
 _LOG2E = 1.4426950408889634
 SUPPORTED_D_HEAD = (16, 32, 64)
+# the kernels' tiles (query rows, keys) and ring depth, as in the .cu
+TILE = 64
+RING_STAGES = 4
+# K5's three kernels, in the order `ring_info` numbers them
+KERNELS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv")
 
 launches = {"fused_attention_fwd": 0, "fused_attention_bwd": 0}
 
@@ -102,6 +113,48 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat([o for o, _ in parts]), torch.cat([e for _, e in parts])
 
 
+def attention_onepass_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            n_head: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of K5-fwd's kernel (`attention_fwd` in the .cu):
+    (out [B, L, D] in q's dtype, lse [B, H, L] f32, log2 units) by one pass
+    over `TILE`-key tiles with a running max m of the log2-unit scores, each
+    p = exp2(s - m) rounded to q's dtype at the running max for the P V
+    product, the f32 denominator l summed from the unrounded p, l and the f32
+    output rescaled by exp2(m_old - m_new) when a tile raises the max; out =
+    o / l, lse = m + log2(l). In f32 it is `attention_plain`."""
+    dt = q.dtype
+    B, L, D = q.shape
+    qh, kh, vh = _heads(q, n_head), _heads(k, n_head), _heads(v, n_head)
+    scale2 = _LOG2E / math.sqrt(D // n_head)
+    m = torch.full((B, n_head, L, 1), -math.inf, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qh)
+    for j0 in range(0, L, TILE):
+        s = (qh @ kh[:, :, j0:j0 + TILE].transpose(-1, -2)) * scale2
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        a = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * a + p.sum(dim=-1, keepdim=True)
+        o = o * a + p.to(dt).float() @ vh[:, :, j0:j0 + TILE]
+        m = m_new
+    return _merge(o / l, dt), (m + torch.log2(l))[..., 0]
+
+
+def ring_smem_bytes(d_head: int) -> int:
+    """Shared memory of the kernels' rings (`ring_smem_bytes` in the .cu,
+    repeated for the host-side tests): 1 KB of alignment, then per stage two
+    bf16 tiles [TILE, d_head] (k and v, or q and dout) and two mbarriers. It
+    does not depend on L."""
+    return 1024 + RING_STAGES * (2 * TILE * d_head * 2 + 2 * 8)
+
+
+def kernel_tag(name: str, d_head: int) -> str:
+    """The part of the mangled name of K5's kernel `name` (one of KERNELS)
+    at `d_head` that tells it from every other kernel (in a `ptxas -v`
+    report or SASS)."""
+    return f"{len(name)}{name}ILi{d_head}E"
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         n_head: int) -> torch.Tensor:
     """The TPU kernel's function in plain PyTorch: packed [B, L, D] -> [B, L,
@@ -153,6 +206,19 @@ def _rows(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
         t = t.contiguous()
         ld = D
     return t, ld
+
+
+def ring_info(kernel: str, d_head: int) -> dict:
+    """The launch shape of K5's `kernel` (one of KERNELS) at `d_head` on the
+    current CUDA device: its ring's shared memory (bytes), the blocks an SM
+    holds at one and at two warpgroups a block
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the warpgroups a
+    block takes. Needs CUDA."""
+    lib = _build.library()
+    info = (ctypes.c_int * 4)()
+    _raise_on(lib.vitiq_attention_ring(KERNELS.index(kernel), d_head, ctypes.addressof(info)),
+              "vitiq_attention_ring", lib)
+    return dict(zip(("smem", "blocks_one", "blocks_two", "warpgroups"), info))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int) -> None:
