@@ -374,11 +374,17 @@ PEAK_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 SFU_EXP2_PER_CLOCK_SM, N_SM = 16, 132  # Hopper's special-function units
 
 
+# train_gemm_kernel<EPI, BN, RESIDENT, XH16> instances the layers reach
+TRAIN_GEMM_INSTANCES = 33
+
+
 def check_train_spills() -> None:
     """The build's `ptxas -v` report of csrc/fused_layer_train.cu: print the
-    registers of each attention block, and fail if any function of the file
-    spills (the d_head-64 backward parks its column sums in shared memory so
-    that it need not)."""
+    registers of each attention block and of each GEMM stage instance
+    (train_gemm_kernel), and fail if any function of the file spills (the
+    d_head-64 backward parks its column sums in shared memory so that it need
+    not) or a stage instance has no HGMMA in its SASS (cuobjdump, beside
+    nvcc)."""
     import re
 
     report = _build.ptxas_report("fused_layer_train")
@@ -386,6 +392,24 @@ def check_train_spills() -> None:
                                      r"Used (\d+) registers", report, re.S):
         print(f"  ptxas {name}<{dh}>: {regs} registers", flush=True)
     spilled = sum(map(int, re.findall(r"(\d+) bytes spill", report)))
+    sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
+                           str(_build.build())], capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    bodies = [block.split("\n", 1) for block in sass.split("Function : ")[1:]]
+    stages = {n: v for n, v in _build.ptxas_entries(report).items() if "train_gemm_kernel" in n}
+    if len(stages) != TRAIN_GEMM_INSTANCES:
+        raise AssertionError(f"{len(stages)} train_gemm_kernel instances in the build, want "
+                             f"{TRAIN_GEMM_INSTANCES}")
+    for name, (regs, stores, loads) in sorted(stages.items()):
+        epi, bn, resident, xh16 = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E", name).groups()
+        tag = f"train_gemm_kernelILi{epi}ELi{bn}ELb{resident}ELb{xh16}E"
+        body = [b for n, b in bodies if tag in n]
+        hgmma = body[0].count("HGMMA") if len(body) == 1 else 0
+        kind = f"{epi}, {bn}, {'resident' if resident == '1' else 'streamed'}"
+        print(f"  ptxas train_gemm_kernel<{kind}{', bf16 xh' if xh16 == '1' else ''}>: {regs} "
+              f"registers, {stores + loads} bytes spilled, {hgmma} HGMMA in its SASS", flush=True)
+        if not hgmma:
+            raise AssertionError(f"train_gemm_kernel<{kind}, {xh16}> runs no HGMMA")
     print(f"  ptxas fused_layer_train.cu: {spilled} bytes spilled in all", flush=True)
     if spilled:
         raise AssertionError(f"fused_layer_train.cu spills {spilled} bytes")
@@ -927,6 +951,90 @@ def check_train_kernels(device, B: int = 256) -> dict:
     return errs
 
 
+def check_stage_rel(label: str, got: torch.Tensor, want: torch.Tensor, rel: float = 1e-5) -> float:
+    """f32 sums (column sums, split-K partials) within `rel` of the plain
+    version's in the L2 norm; returns the max |difference|."""
+    err, norm = (got - want).norm().item(), want.norm().item()
+    print(f"  {label}: ||kernel - plain|| / ||plain|| = {err / max(norm, 1e-30):.6g} (limit {rel})",
+          flush=True)
+    if not (torch.isfinite(got).all() and err <= rel * norm):
+        raise AssertionError(f"{label}: kernel disagrees with the plain version")
+    return (got - want).abs().max().item()
+
+
+def check_train_stages(device, batch: int = 256) -> float:
+    """K3/K4's GEMM stages one by one at the main path's shapes (the ViT
+    flagship's and rawiq_best's layers, `batch` frames; every instance those
+    layers launch): each stage of `flt.stage_plan` on random operands
+    against `flt.train_gemm_plain`, its bf16 and f32 rows within one bf16 ulp
+    (`check_ulp`), its column sums and split-K partials within 1e-5 in the
+    L2 norm. Returns the largest difference."""
+    worst = 0.0
+    gen = torch.Generator().manual_seed(23)
+    for name, L, D, F in (("vit", 129, 128, 512), ("rawiq_best", 65, 256, 1024)):
+        M = batch * L
+        print(f"phase train-kernels: K3/K4's GEMM stages alone vs their plain versions, {name} "
+              f"shape M={M} D={D} F={F}", flush=True)
+        for stage, epi, K, N in flt.stage_plan(D, F):
+            if epi == "partial":  # act [M, K] and the gradient [M, N], split as a layer splits
+                a, b, kw = flt.random_stage_operands(epi, K, M, N, L, gen, device, TRAIN_SEED)
+                kw["splits"] = flt.weight_grad_splits(M)
+            else:
+                a, b, kw = flt.random_stage_operands(epi, M, K, N, L, gen, device, TRAIN_SEED)
+            with torch.no_grad():
+                got = flt.train_gemm(a, b, epi, **kw)
+                want = flt.train_gemm_plain(a, b, epi, **kw)
+                torch.cuda.synchronize()
+            label = f"{name} {stage} ({epi}, K={K}, N={N})"
+            if epi == "partial":
+                worst = max(worst, check_stage_rel(label, got, want))
+            elif epi in ("dpre", "ln_bwd", "ln_fwd"):
+                for i in range({"dpre": 1, "ln_bwd": 2, "ln_fwd": 3}[epi]):
+                    worst = max(worst, check_ulp(f"{label} out {i}", got[i], want[i]))
+                if epi != "ln_fwd":
+                    for i, (g, w) in enumerate(zip(got[-1].reshape(-1, N), want[-1].reshape(-1, N))):
+                        worst = max(worst, check_stage_rel(f"{label} column sums {i}", g, w))
+            else:
+                worst = max(worst, check_ulp(label, got, want))
+            del a, b, kw, got, want
+        torch.cuda.empty_cache()
+    return worst
+
+
+def check_train_bits(device, launches: int = 30) -> None:
+    """K3-fwd, K3-bwd (rawiq_best) and K4-bwd (the rawIQ flagship) over ~100K
+    rows, so that each warpgroup of a persistent GEMM stage refills its ring
+    many times: `launches` launches give the first launch's bits (a ring
+    slot refilled before every warp had released it would move some)."""
+    gen = torch.Generator().manual_seed(29)
+    B = 1600
+    for label, ffn, D, drop in (("rawiq_best K3", 1024, 256, BEST_DROP),
+                                ("rawIQ flagship K4", 1024, 128, RAW_DROP)):
+        ops = train_operands(ffn, 19, device, D, 8)
+        x, dy = train_inputs(gen, B, 65, D, device)
+        args = (8, drop, TRAIN_SEED, 1)
+        with torch.no_grad():
+            if label.endswith("K3"):
+                runs = {"K3-fwd": lambda: (flt.fused_train_layer_fwd(x, ops, *args),),
+                        "K3-bwd": lambda: flt.fused_train_layer_bwd(x, dy, ops, *args)}
+            else:
+                _, st = flt.fused_train_layer_fwd_stash(x, ops, *args)
+                runs = {"K4-bwd": lambda: flt.fused_train_layer_bwd_stash(x, dy, st, ops, *args)}
+            for kernel, run in runs.items():
+                first = run()
+                flat = [first[0], *first[1]] if len(first) == 2 else list(first)
+                for _ in range(launches):
+                    again = run()
+                    again = [again[0], *again[1]] if len(again) == 2 else list(again)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(flat, again)):
+                        raise AssertionError(f"{label} {kernel}: launches differ")
+                print(f"  {label} {kernel} B={B} L=65 D={D}: {launches} launches give the same "
+                      f"bits", flush=True)
+        del x, dy, ops, runs
+        torch.cuda.empty_cache()
+
+
 def flat_grad(model, inputs, labels, seed) -> torch.Tensor:
     """The gradient of one training step's loss, flat in f32."""
     model.train()
@@ -1171,6 +1279,7 @@ def time_train_layers(label: str, L: int, ffn: int, drop: float, device, card: s
     x, dy = train_inputs(gen, B, L, D, device)
     args = (H, drop, TRAIN_SEED, 0)
     t = layer_bounds(B, L, ffn, D, H)
+    t.update(staged_floors(B, L, ffn, D, H))
     line = f"  {label} train layer B={B} L={L} F={ffn} D={D} H={H} dropout {drop}:"
     with torch.no_grad():
         if k3:
@@ -1184,9 +1293,10 @@ def time_train_layers(label: str, L: int, ffn: int, drop: float, device, card: s
                     warmup=1),
             })
             line += (f" K3-fwd {t['k3f_ms']:.4f} ms vs plain {t['k3f_plain_ms']:.4f} ms (bound "
-                     f"{t['k3f'][0]:.4f} ms by {t['k3f'][1]}); K3-bwd {t['k3b_ms']:.4f} ms vs "
-                     f"plain {t['k3b_plain_ms']:.4f} ms (bound {t['k3b'][0]:.4f} ms by "
-                     f"{t['k3b'][1]});")
+                     f"{t['k3f'][0]:.4f} ms by {t['k3f'][1]}, staged byte floor "
+                     f"{t['k3f_floor']:.4f} ms); K3-bwd {t['k3b_ms']:.4f} ms vs plain "
+                     f"{t['k3b_plain_ms']:.4f} ms (bound {t['k3b'][0]:.4f} ms by {t['k3b'][1]}, "
+                     f"staged byte floor {t['k3b_floor']:.4f} ms);")
         if stash:
             _, st = flt.fused_train_layer_fwd_stash(x, ops, *args)
             t.update({
@@ -1199,9 +1309,10 @@ def time_train_layers(label: str, L: int, ffn: int, drop: float, device, card: s
                     x, dy, st, ops, *args), 3, warmup=1),
             })
             line += (f" K4-fwd {t['k4f_ms']:.4f} ms vs plain {t['k4f_plain_ms']:.4f} ms (bound "
-                     f"{t['k4f'][0]:.4f} ms by {t['k4f'][1]}); K4-bwd {t['k4b_ms']:.4f} ms vs "
-                     f"plain {t['k4b_plain_ms']:.4f} ms (bound {t['k4b'][0]:.4f} ms by "
-                     f"{t['k4b'][1]})")
+                     f"{t['k4f'][0]:.4f} ms by {t['k4f'][1]}, staged byte floor "
+                     f"{t['k4f_floor']:.4f} ms); K4-bwd {t['k4b_ms']:.4f} ms vs plain "
+                     f"{t['k4b_plain_ms']:.4f} ms (bound {t['k4b'][0]:.4f} ms by {t['k4b'][1]}, "
+                     f"staged byte floor {t['k4b_floor']:.4f} ms)")
             del st
     print(line + f"  [{card}]", flush=True)
     del x, dy
@@ -1909,6 +2020,48 @@ def layer_bounds(B: int, L: int, F: int, D: int = 128, H: int = 8) -> dict:
     }
 
 
+def staged_floors(B: int, L: int, F: int, D: int = 128, H: int = 8) -> dict:
+    """The staged byte floor of K3 and K4 (ms at the HBM rate): the bytes
+    their stages move through device memory when each stage reads each of
+    its inputs once and writes each of its outputs once (the intermediates
+    the staged design keeps in device memory included: qkv, attn, x1, the FFN
+    hidden, the f32 LN inputs and residual gradients, the row stats, the
+    split-K partials and column-sum partials and their reductions, K4's
+    stash). It sits above `layer_bounds`, which counts the layer's inputs and
+    outputs only."""
+    M = B * L
+    b16, b32, hid, row = M * D * 2.0, M * D * 4.0, M * F * 2.0, M * 4.0
+    stats, pbar = B * H * L * 2 * 4.0, B * H * L * L * 2.0
+    splits = min(64, max(1, M // 2048))
+    rt = (M + 63) // 64
+
+    def wgrad(k1, n):  # act and grad read, partials written and read, the sum written
+        return 2 * splits * k1 * n * 4.0 + k1 * n * 4.0
+
+    def sums(n, s):  # column-sum partials written and read, the sums written
+        return 2 * s * rt * n * 4.0 + s * n * 4.0
+
+    w = weight_bytes(D, F)
+    fwd = (4 * b16) + (4 * b16) + (3 * b16) + (b16 + hid) + (hid + 2 * b16)
+    recompute = fwd - b16 + stats + 2 * (b32 + row)  # no y; the row stats, xh and 1/std
+    grads = ((b16 + b32 + row) + (b16 + b32) + sums(D, 3)   # ln_bwd_rows
+             + (hid + b16) + wgrad(F, D)                    # dW2
+             + (b16 + 2 * hid) + sums(F, 1)                 # FFN2 input gradient
+             + (b16 + hid) + wgrad(D, F)                    # dW1
+             + (hid + 2 * b32 + row + b32 + b16) + sums(D, 3)  # FFN1 input gradient + LN1
+             + (2 * b16) + wgrad(D, D)                      # dWo
+             + (2 * b16)                                    # out-projection input gradient
+             + (5 * b16 + stats + 3 * b16) + (2 * B + 1) * 3 * D * 4.0  # attention backward
+             + (4 * b16) + wgrad(D, 3 * D)                  # dWqkv
+             + (3 * b16 + b32 + b16))                       # QKV input gradient + dx
+    stash = 2 * b16 + 2 * row + pbar
+    k4_grads = grads - 2 * (b32 - b16) + pbar - stats        # bf16 xh; pbar for the row stats
+    rebuild = 4 * b16 + 2 * b16 + (b16 + hid)                # qkv, x1, the FFN hidden
+    floor = {"k3f": fwd + w, "k3b": recompute + grads + 2 * w, "k4f": fwd + stash + w,
+             "k4b": rebuild + k4_grads + 2 * w}
+    return {f"{k}_floor": v / PEAK_BYTES * 1e3 for k, v in floor.items()}
+
+
 def attention_bounds(B: int, L: int, D: int = 128, H: int = 8) -> dict:
     """K5: forward 4 L^2 dh FLOPs per frame-head (Q K^T, P V), reading q, k, v
     and writing out and the f32 lse; backward 10 L^2 dh (S recomputed, dP,
@@ -2010,14 +2163,14 @@ def time_k1_library(name: str, L: int, ffn: int, device, card: str, batch: int =
 
 
 def time_train_library(name: str, L: int, ffn: int, device, card: str, t: dict,
-                       batch: int = 4096, D: int = 128) -> float:
+                       batch: int = 4096, D: int = 128, H: int = 8) -> float:
     """The yardstick for K3's and K4's forward + backward (in `t`, from
     `time_train_layers`): torch.nn.TransformerEncoderLayer (post-norm, ReLU,
     eps 1e-12, dropout 0) in training mode and bf16, its forward and then
     the gradients of x and of its weights from one output gradient, which
     the port never calls. Its dropout (none) is not vitiq's training layer's,
     so it is a yardstick of speed, not a parity check."""
-    lib = torch.nn.TransformerEncoderLayer(D, 8, ffn, dropout=0.0, batch_first=True,
+    lib = torch.nn.TransformerEncoderLayer(D, H, ffn, dropout=0.0, batch_first=True,
                                            norm_first=False, layer_norm_eps=1e-12)
     lib = lib.to(device, torch.bfloat16).train()
     gen = torch.Generator().manual_seed(3)
@@ -2030,8 +2183,8 @@ def time_train_library(name: str, L: int, ffn: int, device, card: str, t: dict,
         lib(x).backward(dy)
 
     ms = cuda_ms(one, 10)
-    line = f"  {name} train layer B={batch} L={L} F={ffn} D={D}: nn.TransformerEncoderLayer " \
-           f"training forward + backward {ms:.4f} ms"
+    line = f"  {name} train layer B={batch} L={L} F={ffn} D={D} H={H}: " \
+           f"nn.TransformerEncoderLayer training forward + backward {ms:.4f} ms"
     for kernel in ("k3", "k4"):
         if f"{kernel}f_ms" in t:
             line += (f"; {kernel.upper()}-fwd + {kernel.upper()}-bwd "
@@ -2323,6 +2476,95 @@ def profile_k1_stages(name: str, B: int, L: int, D: int, F: int, H: int, device,
     return split
 
 
+# K3-bwd's kernels in launch order, by stage: the GEMM stages by epilogue
+# (the weight gradients, all `partial`, by their order), then the others.
+K3_GEMM_STAGES = [stage for stage, _, _, _ in flt.stage_plan(128, 512)]
+K3_OTHER_KERNELS = ("train_attention_fwd", "train_attention_bwd", "ln_bwd_rows", "reduce_rows")
+
+
+def profile_k3_stages(name: str, B: int, L: int, D: int, F: int, H: int, drop: float, device,
+                      card: str, calls: int = 10) -> dict:
+    """K3-bwd's time by stage: `torch.profiler` over `calls` calls at [B, L,
+    D], each call's kernels told apart by kernel and order (its twelve GEMM
+    stages in `flt.stage_plan`'s order, the recompute's four first, then
+    each weight gradient before its input gradient; the attention passes,
+    LN2's backward rows and the fixed-order reductions). The profiler can
+    miss kernels of a window, so the split averages the calls it holds whole
+    (a call starts at its QKV stage), at least half of them. Prints each
+    stage's ms and share of the call."""
+    ops = train_operands(F, 13, device, D, H)
+    x, dy = train_inputs(torch.Generator().manual_seed(4), B, L, D, device)
+    args = (H, drop, TRAIN_SEED, 0)
+    with torch.no_grad():
+        for _ in range(2):
+            flt.fused_train_layer_bwd(x, dy, ops, *args)
+        torch.cuda.synchronize()
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(calls):
+                flt.fused_train_layer_bwd(x, dy, ops, *args)
+            torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                      and device_us(e) > 0), key=lambda e: e.time_range.start)
+    starts = [i for i, e in enumerate(kernels) if "train_gemm_kernel<0," in e.name]
+    split, whole = {}, 0
+    for i, j in zip(starts, starts[1:] + [len(kernels)]):
+        call = kernels[i:j]
+        gemms = [e for e in call if "train_gemm_kernel<" in e.name]
+        if len(gemms) != len(K3_GEMM_STAGES):
+            continue
+        whole += 1
+        for stage, e in zip(K3_GEMM_STAGES, gemms):
+            split[stage] = split.get(stage, 0.0) + device_us(e)
+        for e in call:
+            kind = next((k for k in K3_OTHER_KERNELS if k + "<" in e.name or k + "(" in e.name),
+                        None)
+            if kind:
+                split[kind] = split.get(kind, 0.0) + device_us(e)
+    if whole < calls // 2:
+        raise AssertionError(f"{name}: {whole} whole K3-bwd calls in the profile of {calls}")
+    split = {k: v / whole / 1e3 for k, v in split.items()}
+    total = sum(split.values())
+    print(f"  {name} K3-bwd B={B} L={L} D={D} F={F} H={H} by stage (torch.profiler, {whole} of "
+          f"{calls} calls whole): " + ", ".join(f"{k} {v:.4f} ms ({v / total:.3f})"
+                                                for k, v in split.items())
+          + f"; sum {total:.4f} ms  [{card}]", flush=True)
+    del x, dy, ops
+    torch.cuda.empty_cache()
+    return split
+
+
+def time_k3_host(device, card: str, B: int = 128, calls: int = 50) -> dict:
+    """The host's time of one K3-bwd call at rawiq_best's shape and `cli
+    train`'s batch (B=128, L=65, D=256): the mean host clock of a call
+    without a synchronize (the wrapper's checks, the workspace, the C entry's
+    tensor maps and launches), and the synced p50 of a call beside its
+    device time."""
+    ops = train_operands(1024, 13, device, 256, 8)
+    x, dy = train_inputs(torch.Generator().manual_seed(4), B, 65, 256, device)
+    args = (8, BEST_DROP, TRAIN_SEED, 0)
+    with torch.no_grad():
+        for _ in range(3):
+            flt.fused_train_layer_bwd(x, dy, ops, *args)
+        torch.cuda.synchronize()
+        host, synced = [], []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            flt.fused_train_layer_bwd(x, dy, ops, *args)
+            host.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            synced.append(time.perf_counter() - t0)
+        device_ms = cuda_ms(lambda: flt.fused_train_layer_bwd(x, dy, ops, *args), calls)
+    out = {"host_us": statistics.mean(host) * 1e6, "p50_us": statistics.median(synced) * 1e6,
+           "device_us": device_ms * 1e3}
+    print(f"  K3-bwd host time at B={B} L=65 D=256 (rawiq_best, cli train's batch): "
+          f"{out['host_us']:.1f} us a call unsynced, p50 {out['p50_us']:.1f} us synced, device "
+          f"{out['device_us']:.1f} us a call (CUDA events, back to back)  [{card}]", flush=True)
+    del x, dy, ops
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a GPU",
@@ -2392,6 +2634,8 @@ def main() -> int:
                              (1, 37, 256), (64, 256))
 
     errs.update(check_train_kernels(device))
+    errs["k3_stages"] = check_train_stages(device)
+    check_train_bits(device)
     vit_train = train_check("ViT flagship", flagship_vit_config("tpu"), STATS, K3, device)
     raw_train = train_check("rawIQ flagship", flagship_rawiq_config("tpu"), RAW_STATS, K4, device)
     conv_train = conv1d_train_check(device)
@@ -2430,22 +2674,32 @@ def main() -> int:
                                                  False, D=256))
     # the other widths' layers: printed with their bounds, not in the kernels line
     time_train_layers("rawiq_best_mp", 64, 1024, BEST_DROP, device, card, True, D=256, k3=False)
-    time_train_layers("vit_tpu_production", 129, 512, TRAIN_DROP, device, card, False, H=2)
     time_train_layers("rawIQ flagship at n_head 2", 65, 1024, RAW_DROP, device, card, True,
                       k3=False, H=2)
-    time_train_layers("vit_tiny_2016", 17, 256, TRAIN_DROP, device, card, True, D=64, H=4)
-    for name, L, ffn, D in (("vit", 129, 512, 128), ("rawiq", 65, 1024, 128),
-                            ("rawiq_best", 65, 1024, 256)):
+    times["vit_tpu_production"] = time_train_layers("vit_tpu_production", 129, 512, TRAIN_DROP,
+                                                    device, card, False, H=2)
+    times["vit_tiny_2016"] = time_train_layers("vit_tiny_2016", 17, 256, TRAIN_DROP, device, card,
+                                               True, D=64, H=4)
+    for name, L, ffn, D, H in (("vit", 129, 512, 128, 8), ("rawiq", 65, 1024, 128, 8),
+                               ("rawiq_best", 65, 1024, 256, 8),
+                               ("vit_tpu_production", 129, 512, 128, 2),
+                               ("vit_tiny_2016", 17, 256, 64, 4)):
         times[name]["train_library_ms"] = time_train_library(name, L, ffn, device, card,
-                                                             times[name], D=D)
+                                                             times[name], D=D, H=H)
+    for name, L, D, F, H, drop in (("rawiq_best", 65, 256, 1024, 8, BEST_DROP),
+                                   ("vit", 129, 128, 512, 8, TRAIN_DROP)):
+        profile_k3_stages(name, 4096, L, D, F, H, drop, device, card)
+    time_k3_host(device, card)
     times["conv1d"].update(time_attention(device, card))
 
     vit_cfg, raw_cfg = flagship_vit_config("tpu"), flagship_rawiq_config("tpu")
     conv_cfg = flagship_conv1d_config("tpu")
     time_train_step("vit flagship (K3 kernels)", vit_cfg, STATS, 4096, device, card, 5)
+    profile_train_step("vit flagship (K3 kernels)", vit_cfg, STATS, 4096, device, card)
     time_train_step("vit flagship (plain layers, VITIQ_FUSED_TRAIN=0)", vit_cfg, STATS, 4096,
                     device, card, 3, {"VITIQ_FUSED_TRAIN": "0"})
     time_train_step("rawiq flagship (K4 kernels)", raw_cfg, RAW_STATS, 4096, device, card, 5)
+    profile_train_step("rawiq flagship (K4 kernels)", raw_cfg, RAW_STATS, 4096, device, card)
     time_train_step("rawiq flagship (K3 kernels, VITIQ_TRAIN_STASH=0)", raw_cfg, RAW_STATS, 4096,
                     device, card, 5, {"VITIQ_TRAIN_STASH": "0"})
     time_train_step("rawiq flagship (plain layers, VITIQ_FUSED_TRAIN=0)", raw_cfg, RAW_STATS,
@@ -2462,6 +2716,8 @@ def main() -> int:
                        device, card)
     time_train_step("rawiq_best_mp (K4 kernels)", rawiq_best_mp_config("tpu"), RAW_STATS, 4096,
                     device, card, 5)
+    profile_train_step("rawiq_best_mp (K4 kernels)", rawiq_best_mp_config("tpu"), RAW_STATS, 4096,
+                       device, card)
     for label, cfg, kernels in (("vit_tpu_production", VIT_TPU_PRODUCTION, "K3"),
                                 ("vit_tiny_2016", vit_tiny_2016_config("tpu"), "K4")):
         time_train_step(f"{label} ({kernels} kernels)", cfg, STATS, 4096, device, card, 5)

@@ -338,22 +338,164 @@ def test_train_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                                   + ops[7:], H, 0.1, 1, 0)
 
 
+# frames of the 30-launch bit tests: ~100K rows, so that each warpgroup of a
+# persistent GEMM stage refills its ring many times
+RING_FRAMES = {129: 800, 65: 1600}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Lx,ffn,d", [pytest.param(129, 512, D, id="d128"),
                                       pytest.param(65, 1024, 256, id="d256")])
 def test_train_backward_is_the_same_bits_run_to_run(cuda, Lx, ffn, d):
-    """The weight gradients are reduced in a fixed order, without atomics."""
+    """The weight gradients are reduced in a fixed order, without atomics,
+    and the GEMM stages' rings release a slot before TMA refills it: 30
+    launches give the same bits."""
     from vitiq_torch.ops.cuda import fused_layer_train as flt
 
     ops = _train_operands(cuda, ffn, H, d)
     gen = torch.Generator().manual_seed(9)
-    x = torch.randn((64, Lx, d), generator=gen).to(cuda, torch.bfloat16)
-    dy = torch.randn((64, Lx, d), generator=gen).to(cuda, torch.bfloat16)
+    x = torch.randn((RING_FRAMES[Lx], Lx, d), generator=gen).to(cuda, torch.bfloat16)
+    dy = torch.randn((RING_FRAMES[Lx], Lx, d), generator=gen).to(cuda, torch.bfloat16)
     first = flt.fused_train_layer_bwd(x, dy, ops, H, 0.1, 4, 1)
-    second = flt.fused_train_layer_bwd(x, dy, ops, H, 0.1, 4, 1)
+    for _ in range(30):
+        again = flt.fused_train_layer_bwd(x, dy, ops, H, 0.1, 4, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], again[0])
+        assert all(torch.equal(a, b) for a, b in zip(first[1], again[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx,ffn,d", [pytest.param(129, 512, D, id="d128"),
+                                      pytest.param(65, 1024, 256, id="d256")])
+def test_train_forward_is_the_same_bits_run_to_run(cuda, Lx, ffn, d):
+    """K3-fwd's GEMM stages (resident and streamed rings): 30 launches give
+    the same bits."""
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    ops = _train_operands(cuda, ffn, H, d)
+    x = torch.randn((RING_FRAMES[Lx], Lx, d), generator=torch.Generator().manual_seed(10))
+    x = x.to(cuda, torch.bfloat16)
+    first = flt.fused_train_layer_fwd(x, ops, H, 0.1, 4, 1)
+    for _ in range(30):
+        again = flt.fused_train_layer_fwd(x, ops, H, 0.1, 4, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+
+
+def _within_one_ulp(got, want):
+    """Within one bf16 ulp of max(|plain|, rms(plain) / 64), as K1's stage."""
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    floor = want.square().mean().sqrt() / 64
+    assert torch.all((got - want).abs() <= _bf16_ulp(torch.maximum(want.abs(), floor)))
+
+
+def _within_rel(got, want, rel=1e-5):
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).norm() <= rel * want.norm(), float((got - want).norm() / want.norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi,M,K,N", [
+    ("bias", 1000, 64, 192), ("bias", 77, 128, 384), ("bias", 1000, 256, 768),
+    ("relu_drop", 1000, 128, 1024), ("relu_drop", 77, 64, 320), ("relu_drop", 1000, 256, 256),
+    ("ln_fwd", 1000, 128, 128), ("ln_fwd", 77, 64, 64), ("ln_fwd", 1000, 1024, 128),
+    ("ln_fwd", 1000, 256, 256), ("ln_fwd", 77, 1024, 256), ("ln_fwd", 1000, 320, 64),
+    ("store", 1000, 64, 64), ("store", 77, 128, 128), ("store", 1000, 256, 256),
+    ("dpre", 1000, 128, 1024), ("dpre", 77, 64, 192), ("dpre", 1000, 256, 1024),
+    ("ln_bwd", 1000, 1024, 256), ("ln_bwd", 77, 512, 128), ("ln_bwd", 1000, 192, 64),
+    ("ln_bwd", 1000, 256, 128), ("ln_bwd", 77, 320, 256),
+    # M = 64 mod 128: a streamed stage's last tile leaves one warpgroup no row
+    ("ln_bwd", 1088, 1024, 256), ("ln_bwd", 1088, 512, 128), ("ln_fwd", 1088, 512, 64),
+    ("res_out", 1000, 192, 64), ("res_out", 77, 384, 128), ("res_out", 1000, 768, 256),
+    ("partial", 64, 1000, 192), ("partial", 256, 4133, 1024), ("partial", 1024, 2000, 256),
+    ("partial", 128, 777, 128)])
+def test_train_stage_is_within_one_ulp_of_its_plain_version(cuda, epi, M, K, N):
+    """Each of K3/K4's GEMM stages alone (each epilogue; the input
+    gradients' B = W^T and the weight gradients' A = act^T; ragged M; W
+    resident and streamed) against `train_gemm_plain` on the same operands:
+    its bf16 and f32 rows within one bf16 ulp (LN's 1/std too), its column
+    sums and split-K partials within 1e-5 in the L2 norm (f32 sums in
+    another order)."""
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    a, b, kw = flt.random_stage_operands(epi, M, K, N, 65, torch.Generator().manual_seed(M + K + N),
+                                         cuda)
+    splits = 3 if epi == "partial" else 1
+    flt.reset_launches()
+    got = flt.train_gemm(a, b, epi, splits=splits, **kw)
+    want = flt.train_gemm_plain(a, b, epi, splits=splits, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(first[0], second[0])
-    assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+    assert flt.stage_launches["train_gemm"] == 1
+    if epi == "partial":
+        _within_rel(got, want)
+    elif epi == "ln_fwd":
+        for g, w in zip(got, want):
+            _within_one_ulp(g, w)
+    elif epi == "dpre":
+        _within_one_ulp(got[0], want[0])
+        _within_rel(got[1], want[1])
+    elif epi == "ln_bwd":
+        _within_one_ulp(got[0], want[0])
+        _within_one_ulp(got[1], want[1])
+        for g, w in zip(got[2], want[2]):
+            _within_rel(g, w)
+    else:
+        _within_one_ulp(got, want)
+
+
+@pytest.mark.cuda
+def test_train_stage_writes_xh_in_bf16_for_the_stash(cuda):
+    """K4-fwd's LN stages write xh in bf16 (the stash) from the same
+    epilogue: within one bf16 ulp of the plain f32 xh."""
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    a, b, kw = flt.random_stage_operands("ln_fwd", 1000, 512, 128, 65,
+                                         torch.Generator().manual_seed(3), cuda)
+    got = flt.train_gemm(a, b, "ln_fwd", xh_bf16=True, **kw)
+    want = flt.train_gemm_plain(a, b, "ln_fwd", **kw)
+    torch.cuda.synchronize()
+    assert got[1].dtype == torch.bfloat16
+    for g, w in zip(got, want):
+        _within_one_ulp(g, w)
+
+
+@pytest.mark.cuda
+def test_train_stage_wrapper_raises_on_what_the_library_does_not_take(cuda):
+    """A stage the library has no instance for (the QKV stage streams W only
+    past K = 256, which no layer asks of it) fails in the C entry, and the
+    wrapper raises; shapes it cannot tile raise before any launch."""
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    gen = torch.Generator().manual_seed(1)
+    a, b, kw = flt.random_stage_operands("bias", 128, 512, 128, 65, gen, cuda)
+    with pytest.raises(RuntimeError, match="vitiq_train_gemm_bf16 failed"):
+        flt.train_gemm(a, b, "bias", **kw)
+    a, b, kw = flt.random_stage_operands("ln_fwd", 128, 128, 192, 65, gen, cuda)
+    with pytest.raises(ValueError, match="LayerNorm rows"):
+        flt.train_gemm(a, b, "ln_fwd", **kw)
+
+
+@pytest.mark.cuda
+def test_train_stages_run_wgmma_and_do_not_spill(cuda):
+    """Every instance of K3/K4's GEMM stage (train_gemm_kernel) and of K1's
+    (gemm_wgmma_kernel): no spill in the build's `ptxas -v` report, HGMMA in
+    its SASS (cuobjdump, beside nvcc)."""
+    sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
+                           str(_build.build())], capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    bodies = dict(block.split("\n", 1) for block in sass.split("Function : ")[1:])
+    for stem, kernel, least in (("fused_layer_train", "train_gemm_kernel", 33),
+                                ("fused_encoder_layer", "gemm_wgmma_kernel", 13)):
+        entries = {n: v for n, v in _build.ptxas_entries(_build.ptxas_report(stem)).items()
+                   if kernel in n}
+        assert len(entries) >= least, (kernel, len(entries))
+        for name, (regs, stores, loads) in entries.items():
+            assert regs > 0 and stores == loads == 0, (name, regs, stores, loads)
+            # the template arguments <int, int, bool> name the instance
+            tag = kernel + name.split(kernel, 1)[1].split("EE", 1)[0]
+            body = [b for n, b in bodies.items() if tag + "E" in n]
+            assert len(body) == 1 and "HGMMA" in body[0], (name, len(body))
 
 
 # --------------------------------------------------------------------------
@@ -404,18 +546,20 @@ def test_stash_kernels_match_plain_versions(cuda, Lx, ffn, n_head, d, drop):
 
 @pytest.mark.cuda
 def test_stash_backward_is_the_same_bits_run_to_run(cuda):
+    """As K3-bwd's: 30 launches of K4-bwd give the same bits."""
     from vitiq_torch.ops.cuda import fused_layer_train as flt
 
     ops = _train_operands(cuda, 1024, H)
     gen = torch.Generator().manual_seed(9)
-    x = torch.randn((64, 65, D), generator=gen).to(cuda, torch.bfloat16)
-    dy = torch.randn((64, 65, D), generator=gen).to(cuda, torch.bfloat16)
+    x = torch.randn((RING_FRAMES[65], 65, D), generator=gen).to(cuda, torch.bfloat16)
+    dy = torch.randn((RING_FRAMES[65], 65, D), generator=gen).to(cuda, torch.bfloat16)
     _, stash = flt.fused_train_layer_fwd_stash(x, ops, H, 0.2, 4, 1)
     first = flt.fused_train_layer_bwd_stash(x, dy, stash, ops, H, 0.2, 4, 1)
-    second = flt.fused_train_layer_bwd_stash(x, dy, stash, ops, H, 0.2, 4, 1)
-    torch.cuda.synchronize()
-    assert torch.equal(first[0], second[0])
-    assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+    for _ in range(30):
+        again = flt.fused_train_layer_bwd_stash(x, dy, stash, ops, H, 0.2, 4, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], again[0])
+        assert all(torch.equal(a, b) for a, b in zip(first[1], again[1]))
 
 
 @pytest.mark.cuda

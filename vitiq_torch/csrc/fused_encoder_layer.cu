@@ -179,6 +179,7 @@
 #include "common.cuh"
 #include "hopper.cuh"
 #include "attention_core.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace {
 
@@ -798,73 +799,18 @@ __global__ void __launch_bounds__(CORE_WG * 128, DH == 64 ? 1 : 2) attention_cor
 }
 
 // ---- K1's GEMM stages on Hopper: persistent wgmma blocks fed by TMA ------
-// C[:, n0 .. n0 + BN) = epilogue(A @ W + bias) over 64-row tiles.
-// A block (two warpgroups, one block an SM) holds one BN-wide column slab of
-// W and walks row tiles. Operands arrive by TMA, swizzled by 128 bytes: A
-// in 64-column chunks (K-major), W in 64-column chunks of its [K, N] rows
-// (the MN-major B operand).
-//   RESIDENT (K = D <= 256: QKV, FFN1, out-projection below D = 256): W's
-//     slab [K, BN] is loaded once and kept; the warpgroups take the block's
-//     row tiles in ping-pong (warpgroup w its tiles w, w + 2, ...), each
-//     from its own ring of A tiles [64, K] that its first thread refills as
-//     soon as a tile's products are done, so one tile's epilogue runs beside
-//     the other warpgroup's products and the next tile's load.
-//   streamed (K = F: FFN2; the out-projection at D = 256): both warpgroups
-//     share 128-row tiles (64 rows each) and a ring of 64-deep steps, each
-//     [128, 64] of A and [64, BN] of W, so each W step serves 128 rows; warp
-//     0 refills a step's slot once both warpgroups have released it (an
-//     mbarrier of 8 warps).
+// C[:, n0 .. n0 + BN) = epilogue(A @ W + bias) over 64-row tiles: the shared
+// main loop of gemm_wgmma.cuh with A K-major and W [K, N] an MN-major B,
+// resident where K = D <= 256 (QKV, FFN1, the out-projection below D = 256),
+// streamed otherwise (FFN2; the out-projection at D = 256).
 // The accumulators start from the bias (and the residual row, for the
 // LayerNorm stages), so the wgmma adds the products onto them; the epilogue
 // then works in registers (each row of the m64 tile lies in one quad of four
 // threads): ReLU, or LayerNorm over the whole row (BN = N = D: the mean and
-// the variance by two quad shuffles each). Each quad then transposes its bf16 words so that every
-// thread stores 16 contiguous bytes of one row. Rows past M arrive as zeros
-// and are not stored.
-// Registers: an SM's four schedulers each hold a quarter of its 64K
-// registers, so 8 warps a block leave a thread up to 255 where 9 or 12 warps
-// (a producer warp or warpgroup beside the two) left 168, and the m64n256
-// LayerNorm stage (128 f32 accumulators) spilled: there is no producer warp
-// and no setmaxnreg.
-constexpr int GW_THREADS = 256;  // two warpgroups
-constexpr int GW_MAX_RING = 6;
+// the variance by two quad shuffles each), then bf16 stored 16 bytes a
+// thread. Rows past M arrive as zeros and are not stored. Registers: there
+// is no producer warp and no setmaxnreg (see gemm_wgmma.cuh).
 
-// Shared memory of a GEMM stage with `ring` ring entries: 1 KB of
-// alignment, bias / gamma / beta (f32), the mbarriers, W's slab (resident),
-// and the entries (an A tile [64, K], or a 64-deep step of A [128, 64] and W
-// [64, BN]).
-__host__ __device__ inline int gemm_smem_bytes(bool resident, int bn, int k, int ring) {
-  return 1024 + 3 * bn * 4 + 8 * (1 + 2 * GW_MAX_RING) + (resident ? bn * k * 2 : 0) +
-         ring * (resident ? 64 * k * 2 : 128 * 128 + bn * 128);
-}
-// the ring's depth in what is left; 0 where two entries do not fit
-__host__ __device__ inline int gemm_ring(bool resident, int bn, int k) {
-  const int fixed = gemm_smem_bytes(resident, bn, k, 0);
-  const int entry = gemm_smem_bytes(resident, bn, k, 1) - fixed;
-  const int ring = (MAX_SMEM - fixed) / entry;
-  return ring < 2 ? 0 : ring > GW_MAX_RING ? GW_MAX_RING : ring;
-}
-
-// The four 32-bit words a thread holds at one row for four 8-column blocks
-// (columns 2t, 2t + 1 of each) -> the four words of block t (16 bytes).
-__device__ __forceinline__ uint4 quad_transpose(const uint32_t w[4], int t) {
-  auto pick = [&](int k) { return k == 0 ? w[0] : k == 1 ? w[1] : k == 2 ? w[2] : w[3]; };
-  const uint32_t self = pick(t);
-  const uint32_t y1 = __shfl_xor_sync(0xffffffffu, pick(t ^ 1), 1);
-  const uint32_t y2 = __shfl_xor_sync(0xffffffffu, pick(t ^ 2), 2);
-  const uint32_t y3 = __shfl_xor_sync(0xffffffffu, pick(t ^ 3), 3);
-  uint32_t o[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = i ^ t;
-    o[i] = k == 0 ? self : k == 1 ? y1 : k == 2 ? y2 : y3;
-  }
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
-// The epilogue of one warpgroup's 64 x BN tile: rows row0 + 16 warp + g
-// (+ 8), accumulator e at column 8 (e / 4) + 2t + (e & 1), row half
-// (e >> 1) & 1. vec: bias, gamma, beta of the slab's columns in shared memory.
 // The accumulators of a warpgroup's 64 x BN tile before its first wgmma:
 // the bias, plus (LayerNorm stages) the residual row (zeros past M), so that
 // the products accumulate onto them: C = (bias + res) + A W. Accumulator e
@@ -926,51 +872,22 @@ __device__ __forceinline__ void gemm_wgmma_epilogue(float* acc, const GemmArgs& 
 #pragma unroll
     for (int e = 0; e < BN / 2; ++e) acc[e] = fmaxf(acc[e], 0.f);
   }
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-#pragma unroll
-    for (int q = 0; q < BN / 32; ++q) {
-      uint32_t w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int e = (4 * q + i) * 4 + 2 * hh;
-        w[i] = pack_bf16x2(acc[e], acc[e + 1]);
-      }
-      const uint4 chunk = quad_transpose(w, t);
-      if (rows[hh] < p.m)
-        *reinterpret_cast<uint4*>(p.c + rows[hh] * p.ldc + n0 + (4 * q + t) * 8) = chunk;
-    }
-  }
+  store_tile_bf16<BN>(acc, p.c, p.ldc, rows, p.m, n0, t);
 }
 
 template <int EPI, int BN, bool RESIDENT>
 __global__ void __launch_bounds__(GW_THREADS, 1) gemm_wgmma_kernel(
     const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap w_map,
     GemmArgs p, int ring) {
-  constexpr int NCH = BN / 64;  // 64-column chunks of the slab
   extern __shared__ unsigned char gw_raw[];
-  // aligned to 1024 by an offset (not through an integer, which would leave
-  // `vec` a generic pointer: its reads would be generic loads, hoisted en masse)
-  unsigned char* smem = gw_raw + ((1024 - (smem_u32(gw_raw) & 1023)) & 1023);
-  const int K = p.k, nk = K / 64;
-  const int w_bytes = RESIDENT ? BN * K * 2 : 0;
-  const int entry = RESIDENT ? 64 * K * 2 : 128 * 128 + BN * 128;
-  unsigned char* wslab = smem;
-  unsigned char* ring_buf = smem + w_bytes;
-  float* vec = reinterpret_cast<float*>(ring_buf + ring * entry);
-  uint64_t* wbar = reinterpret_cast<uint64_t*>(vec + 3 * BN);
-  uint64_t* full = wbar + 1;
-  uint64_t* empty = full + GW_MAX_RING;
-
+  const GwLayout s = gw_layout<BN, RESIDENT>(gw_raw, p.k, ring, 3 * BN * 4);
+  float* vec = reinterpret_cast<float*>(s.extra);
   const int slab = blockIdx.x % p.n_tiles, stride = gridDim.x / p.n_tiles;
   const int first = blockIdx.x / p.n_tiles;
   const int n0 = p.col0 + slab * BN;
   const long long tm = RESIDENT ? 64 : 128;
   const int n_rt = (int)((p.m + tm - 1) / tm);
-  // warpgroup and warp indices broadcast from lane 0 (warp-uniform to ptxas)
-  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
-  const int warp = __shfl_sync(0xffffffffu, (threadIdx.x >> 5) & 3, 0), lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const GwThread th = gw_thread();
 
   for (int i = threadIdx.x; i < BN; i += GW_THREADS) {
     vec[i] = p.bias[n0 + i];
@@ -979,107 +896,14 @@ __global__ void __launch_bounds__(GW_THREADS, 1) gemm_wgmma_kernel(
       vec[2 * BN + i] = p.beta[i];
     }
   }
-  if (threadIdx.x == 0) {
-    mbar_init(wbar, 1);
-    for (int i = 0; i < ring; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 8);  // lane 0 of each warp (streamed)
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  float acc[BN / 2];
-  const uint32_t ring_addr = smem_u32(ring_buf);
-
-  if constexpr (RESIDENT) {
-    // warpgroup w's tiles: first + (w + 2u) * stride, u = 0, 1, ...; its own
-    // ring slots w * r .. w * r + r - 1, refilled by its first thread once the
-    // tile's products are done in all four of its warps (wgmma.wait_group
-    // waits only for the calling thread's wgmma): after a named barrier over
-    // the warpgroup's 128 threads (id 1 + w)
-    const int r = ring / 2;
-    const bool leader = (threadIdx.x & 127) == 0;
-    auto load_tile = [&](int u) {
-      const int tile = first + (wg + 2 * u) * stride;
-      if (tile >= n_rt) return;
-      const int slot = wg * r + u % r;
-      unsigned char* dst = ring_buf + slot * entry;
-      mbar_expect_tx(&full[slot], entry);
-      for (int c = 0; c < nk; ++c)
-        tma_load_2d(dst + c * 8192, &a_map, &full[slot], c * 64, tile * 64);
-    };
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(wbar, w_bytes);
-      for (int c = 0; c < NCH; ++c) tma_load_2d(wslab + c * K * 128, &w_map, wbar, n0 + c * 64, 0);
-    }
-    if (leader)
-      for (int u = 0; u < r; ++u) load_tile(u);
-    const uint32_t w_addr = smem_u32(wslab);
-    mbar_wait(wbar, 0);
-    int u = 0;
-    for (int tile = first + wg * stride; tile < n_rt; tile += 2 * stride, ++u) {
-      const int slot = wg * r + u % r;
-      init_accumulators<EPI, BN>(acc, p, (long long)tile * 64, vec, warp, g, t);
-      mbar_wait(&full[slot], (u / r) & 1);
-      const uint32_t a_addr = ring_addr + slot * entry;
-      wgmma_fence();
-      for (int c = 0; c < nk; ++c) {  // 64-deep chunks of A, four k-steps each
-#pragma unroll
-        for (int k4 = 0; k4 < 4; ++k4)
-          Wgmma<BN>::template ss<1>(acc, smem_desc(a_addr + c * 8192 + k4 * 32, 128, 1024, 1024),
-                                    smem_desc(w_addr + (4 * c + k4) * 2048, 128, K * 128, 1024), 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs<BN / 2>(acc);
-      named_bar_sync(1 + wg, 128);
-      if (leader) load_tile(u + r);
-      gemm_wgmma_epilogue<EPI, BN>(acc, p, (long long)tile * 64, n0, vec, warp, g, t);
-    }
-  } else {
-    // both warpgroups share each 64-deep step of a 128-row tile; warp 0
-    // refills a step's slot once both warpgroups have released it
-    const int n_my = n_rt > first ? (n_rt - first + stride - 1) / stride : 0;
-    const int total = n_my * nk;  // steps of this block
-    auto load_step = [&](int n) {  // step n: tile first + (n / nk) * stride, depth (n % nk) * 64
-      const int slot = n % ring, tile = first + (n / nk) * stride, kc = n % nk;
-      unsigned char* dst = ring_buf + slot * entry;
-      mbar_expect_tx(&full[slot], entry);
-      tma_load_2d(dst, &a_map, &full[slot], kc * 64, tile * 128);
-      for (int c = 0; c < NCH; ++c)
-        tma_load_2d(dst + 16384 + c * 8192, &w_map, &full[slot], n0 + c * 64, kc * 64);
-    };
-    if (threadIdx.x == 0)
-      for (int n = 0; n < ring && n < total; ++n) load_step(n);
-    int n = 0;
-    for (int tile = first; tile < n_rt; tile += stride) {
-      init_accumulators<EPI, BN>(acc, p, (long long)tile * 128 + wg * 64, vec, warp, g, t);
-      for (int kc = 0; kc < nk; ++kc, ++n) {
-        const int slot = n % ring;
-        mbar_wait(&full[slot], (n / ring) & 1);
-        const uint32_t a_addr = ring_addr + slot * entry + wg * 8192,
-                       w_addr = ring_addr + slot * entry + 16384;
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          Wgmma<BN>::template ss<1>(acc, smem_desc(a_addr + kk * 32, 128, 1024, 1024),
-                                    smem_desc(w_addr + kk * 2048, 128, 8192, 1024), 1);
-        wgmma_commit();
-        wgmma_wait<1>();
-        if (n > 0) {  // step n - 1 is done: release it, and refill its slot with step n - 1 + ring
-          if (lane == 0) mbar_arrive(&empty[(n - 1) % ring]);
-          if (threadIdx.x < 32 && n - 1 + ring < total) {
-            mbar_wait(&empty[(n - 1) % ring], ((n - 1) / ring) & 1);
-            if (lane == 0) load_step(n - 1 + ring);
-          }
-        }
-      }
-      wgmma_wait<0>();
-      fence_regs<BN / 2>(acc);
-      gemm_wgmma_epilogue<EPI, BN>(acc, p, (long long)tile * 128 + wg * 64, n0, vec, warp, g, t);
-    }
-  }
+  gemm_wgmma_loop<BN, RESIDENT, 0, 1, false>(
+      a_map, w_map, s, p.k, n0, first, stride, n_rt, n_rt, ring, th,
+      [&](float* acc, long long row0) {
+        init_accumulators<EPI, BN>(acc, p, row0, vec, th.warp, th.g, th.t);
+      },
+      [&](float* acc, long long row0, int) {
+        gemm_wgmma_epilogue<EPI, BN>(acc, p, row0, n0, vec, th.warp, th.g, th.t);
+      });
 }
 
 // ---- K7: the int8 attention core ------------------------------------------
@@ -1404,17 +1228,6 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) attention_int8_kernel(
 // static shared memory up to 48 KB (the D <= 128 stages), else dynamically.
 constexpr int dynamic_smem(int bytes) { return bytes <= STATIC_SMEM ? 0 : bytes; }
 
-// SMs of the current device (the persistent GEMM stages' grid)
-int sm_count() {
-  static int n = 0;
-  if (!n) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
 // One bf16 GEMM stage (gemm_wgmma_kernel) over the n_cols columns from
 // p.col0, in BN-wide slabs: TMA maps of A [m, k] (rows lda apart) and W
 // [k, ldw], and up to one block per SM, the SMs split evenly between the
@@ -1422,7 +1235,7 @@ int sm_count() {
 template <int EPI, int BN, bool RESIDENT>
 cudaError_t launch_gemm_wgmma(GemmArgs p, int n_cols, cudaStream_t stream) {
   p.n_tiles = n_cols / BN;
-  const int ring = gemm_ring(RESIDENT, BN, p.k);
+  const int ring = gemm_ring(RESIDENT, BN, p.k, 3 * BN * 4);
   if (n_cols % BN || p.k % 64 || !ring) return cudaErrorInvalidValue;
   const long long tm = RESIDENT ? 64 : 128;
   const uint64_t a_dims[2] = {(uint64_t)p.k, (uint64_t)p.m}, a_str[1] = {(uint64_t)p.lda};
@@ -1432,14 +1245,12 @@ cudaError_t launch_gemm_wgmma(GemmArgs p, int n_cols, cudaStream_t stream) {
   if (!make_map(&a_map, p.a, 2, a_dims, a_str, a_box, 128) ||
       !make_map(&w_map, p.w, 2, w_dims, w_str, w_box, 128))
     return cudaErrorInvalidValue;
-  const int smem = gemm_smem_bytes(RESIDENT, BN, p.k, ring);
+  const int smem = gemm_smem_bytes(RESIDENT, BN, p.k, ring, 3 * BN * 4);
   const cudaError_t err = allow_smem(gemm_wgmma_kernel<EPI, BN, RESIDENT>, smem);
   if (err != cudaSuccess) return err;
-  const long long n_rt = (p.m + tm - 1) / tm;
-  long long per_slab = sm_count() / p.n_tiles;
-  per_slab = per_slab < 1 ? 1 : per_slab > n_rt ? n_rt : per_slab;
   gemm_wgmma_kernel<EPI, BN, RESIDENT>
-      <<<(unsigned)(per_slab * p.n_tiles), GW_THREADS, smem, stream>>>(a_map, w_map, p, ring);
+      <<<gw_blocks((p.m + tm - 1) / tm, p.n_tiles), GW_THREADS, smem, stream>>>(a_map, w_map, p,
+                                                                                ring);
   return cudaSuccess;
 }
 

@@ -57,20 +57,38 @@
 // the stash in both of its passes instead of recomputing Q K^T and exp2.
 //
 // Design: one __global__ launch per stage, on the caller's stream.
-//   tgemm<AT, BT, EPI, BN> WMMA GEMM (bf16 16x16x16 fragments, f32 accumulate)
-//                          over 64 x BN output tiles with a two-stage cp.async
-//                          pipeline: A or A^T times B or W^T, and a fused
-//                          epilogue per stage (bias, ReLU, dropout, residual,
-//                          LayerNorm forward or backward with f32 or bf16 xh,
-//                          column partial sums). The LayerNorm stages take
-//                          BN = D, so a tile holds whole rows (66.5 KB of f32
-//                          staging at D = 256: dynamic shared memory); every
-//                          other stage, the split-K weight gradients included,
-//                          128-wide tiles, several per row at D = 256, and
-//                          64-wide where 128 does not divide N (QKV at D = 64,
-//                          N = 192; the out-projection, FFN2 and their weight
-//                          gradients at D = 64; an FFN width of 64 mod 128),
-//                          as the serving kernels tile
+//   train_gemm_kernel<EPI, BN, RESIDENT>
+//                          the GEMM stages: persistent wgmma blocks fed by TMA,
+//                          the main loop K1's stages share (gemm_wgmma.cuh),
+//                          with K3's epilogues in registers on the wgmma
+//                          accumulator layout. The forward stages take W [K,
+//                          N] as an MN-major B; the input-gradient stages B =
+//                          W^T, K-major, read from W [N, K] as stored; the
+//                          weight gradients A = act^T, MN-major, read from act
+//                          [B*L, K1], split over the rows into f32 partials
+//                          (the persistent grid walks (output tile, split)
+//                          items). W stays resident where K <= 256 (not for
+//                          the 256-wide LayerNorm stages: K1's resident
+//                          instance of that width spilled beside its 128
+//                          accumulators), else streams through the ring.
+//                          The accumulators start from what is added before
+//                          the product (bias; the f32 residual of the LN1
+//                          backward and of dx). Epilogues (Epi): bias, ReLU
+//                          and the dropout mask, LayerNorm forward (BN = D: the
+//                          row lies in one quad; xh f32 or bf16 and 1/std
+//                          out) or backward (dz f32 and bf16(dz m) out), and
+//                          the column sums of the bias and LN gradients, per
+//                          64-row tile: shuffles over a warp's row groups,
+//                          then the four warps in shared memory, in a fixed
+//                          order. The mask's (frame, token) is found once per
+//                          accumulator row, each column hashed as the plain
+//                          version hashes it (FFN2's input gradient needs no
+//                          hash: where h > 0 its mask is the keep scale).
+//                          The bf16 row operands of the LN forward and FFN2
+//                          input-gradient epilogues (residual, h) are asked
+//                          into L2 when a tile starts, and the epilogues'
+//                          loads carry no branch, so that they go out
+//                          together.
 //   train_attention_fwd    one block per (frame, head), K1's register-fragment
 //                          core (mma.sync), q scaled in the kernel, optionally
 //                          writing each row's max and sum for the backward
@@ -105,8 +123,9 @@
 // (backward, f32 LN inputs and residual gradients included) of activation
 // traffic per frame through device memory: about 40 FLOP per byte, far under
 // the bf16 ridge (~295), so bytes bound it, and the f32 intermediates of the
-// backward most of all. This first port keeps them in device memory and runs
-// unpipelined WMMA tiles; wgmma, TMA and fusing the FFN hidden are later work.
+// backward most of all. The stages keep them in device memory (each stage
+// reads its inputs once and writes its outputs once: PERF.md's staged byte
+// floor); fusing the FFN hidden is later work.
 // K4 trades the recompute for stash bytes. At the rawIQ flagship shape (L =
 // 65, F = 1024, H = 8) the stash is ~118 KB per frame and layer (pbar 68 KB
 // of it): K4-fwd writes it once; K4-bwd reads it, pbar twice (once per
@@ -157,50 +176,21 @@
 //       GEMMs tile B*L rows, attention is one block per frame and head.
 //   VITIQ_TRAIN_PROBE                       -> timing-only surgery; none.
 
-#include <mma.h>
-
 #include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
+#include "gemm_wgmma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int TBM = 64;    // GEMM tile rows
-constexpr int TBN = 128;   // GEMM tile columns of the stages without LayerNorm
-constexpr int NARROW_BN = 64;  // ... where TBN does not divide N
-constexpr int TBK = 32;    // GEMM tile depth
-constexpr int THREADS = 256;  // 8 warps: 2 x 4 warp tiles of 32 x BN/4
-constexpr int AR_LD = TBK + 8;  // A tile [TBM][AR_LD]
-constexpr int AT_LD = TBM + 8;  // A^T tile [TBK][AT_LD] (depth rows)
-constexpr int BT_LD = TBK + 8;  // W tile [BN][BT_LD] for B = W^T
+constexpr int ROW_TILE = 64;  // rows of a column-sum partial (a warpgroup's tile)
+constexpr int THREADS = 256;  // the row kernels' blocks (ln_bwd_rows, reduce_rows)
+constexpr int FFN_MULTIPLE = 64;  // the narrowest GEMM slab
 constexpr int ATTN_WARPS = 4;
 constexpr int MAX_SMEM = 232448;  // shared memory a block may use on Hopper
-constexpr int STATIC_SMEM = 48 * 1024;  // static shared memory a block may use
 constexpr float LN_EPS = 1e-12f;
-
-// Leading dims of a BN-wide tile: the B tile [TBK][br_ld] and the f32
-// staging tile [TBM][c_ld] (bank-conflict pads)
-template <int BN>
-__host__ __device__ constexpr int br_ld() { return BN + 8; }
-// log2 of a power of two: the tile loops index rows and chunks by shifts
-__host__ __device__ constexpr int log2i(int n) { return n > 1 ? 1 + log2i(n / 2) : 0; }
-template <int BN>
-__host__ __device__ constexpr int c_ld() { return BN + 4; }
-template <bool AT>
-__host__ __device__ constexpr int a_tile() { return AT ? TBK * AT_LD : TBM * AR_LD; }
-template <bool BT, int BN>
-__host__ __device__ constexpr int b_tile() { return BT ? BN * BT_LD : TBK * br_ld<BN>(); }
-// dynamic shared memory of tgemm<., ., ., BN>: the widest pipeline (A rows,
-// W^T), then the f32 staging tile over the same bytes
-template <int BN>
-__host__ __device__ constexpr int gemm_smem() {
-  return 2 * (TBM * AR_LD + BN * BT_LD) * (int)sizeof(bf16) > TBM * c_ld<BN>() * (int)sizeof(float)
-             ? 2 * (TBM * AR_LD + BN * BT_LD) * (int)sizeof(bf16)
-             : TBM * c_ld<BN>() * (int)sizeof(float);
-}
 
 // ---------------------------------------------------------------------------
 // dropout: keep/(1-rate) from a stateless hash of the absolute position
@@ -214,28 +204,27 @@ struct Drop {
   int on;
 };
 
-// _hash_mask of train_xpack.py: murmur3's fmix32 over the mixed position.
-__device__ __forceinline__ uint32_t position_hash(uint32_t b, uint32_t l, uint32_t w,
-                                                  uint32_t seed_salt) {
-  uint32_t h = (b * 0x9E3779B1u) ^ (l * 0x85EBCA77u) ^ (w * 0xC2B2AE3Du);
-  h += seed_salt;
+// _hash_mask of train_xpack.py is murmur3's fmix32 over (b C1) ^ (l C2) ^
+// (w C3) + seed_salt for frame b, token l, lane w. row_mix is a row's part
+// (b C1) ^ (l C2), found once per row; keep_of finishes the hash of one lane.
+__device__ __forceinline__ uint32_t row_mix(const Drop& d, long long row) {
+  const long long b = row / d.L;
+  const uint32_t l = (uint32_t)(row - b * d.L);
+  return ((uint32_t)b * 0x9E3779B1u) ^ (l * 0x85EBCA77u);
+}
+
+__device__ __forceinline__ float keep_of(const Drop& d, uint32_t mix, int col) {
+  uint32_t h = (mix ^ ((uint32_t)col * 0xC2B2AE3Du)) + d.seed_salt;
   h ^= h >> 16;
   h *= 0x85EBCA6Bu;
   h ^= h >> 13;
   h *= 0xC2B2AE35u;
   h ^= h >> 16;
-  return h;
-}
-
-__device__ __forceinline__ float keep_scale(const Drop& d, long long row, int col) {
-  if (!d.on) return 1.f;
-  const uint32_t h = position_hash((uint32_t)(row / d.L), (uint32_t)(row % d.L),
-                                   (uint32_t)col, d.seed_salt);
   return (h & 0x7fffffffu) >= d.thresh ? d.scale : 0.f;
 }
 
 // ---------------------------------------------------------------------------
-// GEMM with fused epilogues
+// GEMM stages: the shared wgmma main loop with K3's epilogues
 // ---------------------------------------------------------------------------
 
 enum Epi {
@@ -251,16 +240,34 @@ enum Epi {
   kPartial = 7,    // out32[split] = acc (split-K partial of a weight gradient)
 };
 
-struct TGemm {
-  const bf16* a;  // A row r at a + r*lda; with AT, depth row k of A^T at a + k*lda
-  long long lda;
-  const bf16* b;  // B depth row k at b + k*ldb; with BT, W row n at b + n*ldb
-  long long ldb;
-  long long m;        // output rows
-  long long k;        // depth
-  long long k_chunk;  // depth of one split (blockIdx.y), a multiple of TBK
-  int n_tiles;        // BN-wide column tiles
-  long long ldo;      // row stride of every [row][column] operand of the epilogue
+// The operand forms of each epilogue's stage: A = act^T (MN-major) for the
+// weight gradients, B = W^T (K-major, W [N, K] as stored) for the input
+// gradients, else A rows and W [K, N].
+__host__ __device__ constexpr int a_transposed(int epi) { return epi == kPartial; }
+__host__ __device__ constexpr int b_mn_major(int epi) {
+  return epi == kBias || epi == kReluDrop || epi == kLnFwd || epi == kPartial;
+}
+__host__ __device__ constexpr bool is_ln(int epi) { return epi == kLnFwd || epi == kLnBwd; }
+// shared memory an epilogue adds to the main loop's: bias, gamma, beta of the
+// slab (f32), and the column sums' scratch [warpgroup][sum][warp][BN]
+__host__ __device__ constexpr int col_sums(int epi) {
+  return epi == kLnBwd ? 3 : epi == kDpre ? 1 : 0;
+}
+__host__ __device__ constexpr int stage_extra(int epi, int bn) {
+  return 3 * bn * 4 + 2 * col_sums(epi) * 4 * bn * 4;
+}
+
+struct Stage {
+  const bf16* a;  // A rows: row r at a + r*lda (K-major); with a_transposed, act
+  long long lda;  //   [depth][lda], whose columns are the output rows
+  const bf16* b;  // W [K, N] or the gradient [depth][N] (MN-major); W [N, K]
+  long long ldb;  //   (K-major); rows ldb apart
+  long long m;      // output rows
+  int k;            // depth of one work item (a multiple of 64)
+  long long depth;  // the weight gradients' whole depth (rows of act and of
+  int splits;       //   the gradient) and its splits of k rows; 1 elsewhere
+  int n_tiles;      // BN-wide slabs (the launcher sets it)
+  long long ldo;    // row stride of every [row][column] operand of the epilogue
   const float* bias;
   bf16* out;
   float* out32;
@@ -274,256 +281,359 @@ struct TGemm {
   float* rstd_out;     // kLnFwd (may be null)
   const float* gamma;
   const float* beta;
-  float* part;         // column partial sums [sum][row tile][ldo]
+  float* part;         // column partial sums [sum][64-row tile][ldo]
   Drop drop;
 };
 
-// C tile (64 x BN) = A B, one tile per block; blockIdx.x = row tile *
-// n_tiles + column tile, blockIdx.y = split of the depth. The k loop is a
-// two-stage cp.async pipeline; the f32 tile then reuses the shared memory for
-// the epilogue. Each warp owns a 32 x BN/4 sub-tile of WMMA fragments.
-template <bool AT, bool BT, int EPI, int BN>
-__global__ void __launch_bounds__(THREADS) tgemm(TGemm p) {
-  constexpr int SMEM = gemm_smem<BN>();
-  // static shared memory up to 48 KB (BN = 128), dynamic above (gemm())
-  __shared__ __align__(128) unsigned char static_buf[SMEM <= STATIC_SMEM ? SMEM : 16];
-  extern __shared__ __align__(128) unsigned char tgemm_buf[];
-  unsigned char* smem = SMEM <= STATIC_SMEM ? static_buf : tgemm_buf;
-  bf16* stages = reinterpret_cast<bf16*>(smem);
-  float* Cs = reinterpret_cast<float*>(smem);
-  constexpr int A_TILE = a_tile<AT>(), B_TILE = b_tile<BT, BN>();
-  constexpr int BR_LD = br_ld<BN>(), C_LD = c_ld<BN>();
-  constexpr int WN = BN / 4, FN = WN / 16;  // warp tile columns, fragments across
-  using LayoutA = typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
-  using LayoutB = typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
+// A pair of a row operand (f32 or bf16) at offset `at`, widened to f32:
+// read unconditionally (a row past m reads row 0, and its pair is zero) so
+// that the compiler can issue an epilogue's loads together instead of one
+// branch, and one wait, at a time.
+__device__ __forceinline__ float2 ld_pair(const float* base, long long at, bool in) {
+  const float2 v = *reinterpret_cast<const float2*>(base + at);
+  return in ? v : make_float2(0.f, 0.f);
+}
+__device__ __forceinline__ float2 ld_pair(const bf16* base, long long at, bool in) {
+  const uint32_t word = ld_b32(base + at);
+  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&word));
+  return in ? v : make_float2(0.f, 0.f);
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const long long rt = blockIdx.x / p.n_tiles;
-  const long long m0 = rt * TBM;
-  const int n0 = (int)(blockIdx.x % p.n_tiles) * BN;
-  const int wm = warp >> 2, wn = warp & 3;
-  const long long kb = (long long)blockIdx.y * p.k_chunk;
-  const long long ke = min(p.k, kb + p.k_chunk);
+__device__ __forceinline__ void prefetch_l2(const void* ptr) {
+  asm volatile("prefetch.global.L2::evict_last [%0];\n" ::"l"(ptr));
+}
 
-  auto load_stage = [&](int stage, long long k0) {
-    bf16* As = stages + stage * (A_TILE + B_TILE);
-    bf16* Bs = As + A_TILE;
-    if constexpr (AT) {  // depth rows k0..k0+31, output rows m0..m0+63
-      const int r = tid >> 3, c = (tid & 7) * 8;
-      const bool in = k0 + r < ke;
-      cp_async16(As + r * AT_LD + c, p.a + (in ? k0 + r : 0) * p.lda + m0 + c, in ? 16 : 0);
-    } else {
-      const int r = tid >> 2, c = (tid & 3) * 8;
-      const long long gm = m0 + r;
-      const bool in = gm < p.m;
-      cp_async16(As + r * AR_LD + c, p.a + (in ? gm : 0) * p.lda + k0 + c, in ? 16 : 0);
-    }
-    if constexpr (BT) {  // W rows n0..n0+BN-1, depth k0..k0+31
+// A thread's share of the 128-byte lines of its two rows of an epilogue
+// operand ([row][ldo] from column n0, BN wide), asked into L2 before the
+// tile's products so that the epilogue, which waits on its loads, finds
+// them there; the quad's four threads split each row's lines. For the bf16
+// rows of kLnFwd and kDpre: on an H100 at rawiq_best's shape kDpre took 0.51
+// ms with it against 0.65 without, while LN1's backward read its f32 xh
+// slower with it (1.07 against 0.96 ms).
+template <int BN, class T>
+__device__ __forceinline__ void prefetch_rows(const T* base, const Stage& p, long long row0,
+                                              int n0, const GwThread& th) {
+  constexpr int LINES = BN * (int)sizeof(T) / 128;
 #pragma unroll
-      for (int i = tid; i < BN * TBK / 8; i += THREADS) {
-        const int r = i >> 2, c = (i & 3) * 8;
-        cp_async16(Bs + r * BT_LD + c, p.b + (long long)(n0 + r) * p.ldb + k0 + c, 16);
-      }
-    } else {
-#pragma unroll
-      for (int i = tid; i < TBK * BN / 8; i += THREADS) {
-        const int r = i >> log2i(BN / 8), c = (i & (BN / 8 - 1)) * 8;
-        const bool in = k0 + r < ke;
-        cp_async16(Bs + r * BR_LD + c, p.b + (in ? k0 + r : 0) * p.ldb + n0 + c, in ? 16 : 0);
-      }
-    }
-    cp_async_commit();
-  };
+  for (int hh = 0; hh < 2; ++hh) {
+    const long long row = row0 + th.warp * 16 + th.g + 8 * hh;
+    if (row >= p.m) continue;
+    const char* line = reinterpret_cast<const char*>(base + row * p.ldo + n0);
+    for (int l = th.t; l < LINES; l += 4) prefetch_l2(line + l * 128);
+  }
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][FN];
+// A warpgroup's accumulators before its first wgmma: the bias, the f32
+// residual rows (zeros past m), or zeros; and the epilogue's row operands
+// asked into L2. Accumulator e is row row0 + 16 warp + g (+ 8 where (e >>
+// 1) & 1), column n0 + 8 (e / 4) + 2t + (e & 1).
+template <int EPI, int BN>
+__device__ __forceinline__ void stage_init(float* acc, const Stage& p, long long row0, int n0,
+                                           const float* vec, const GwThread& th) {
+  if constexpr (EPI == kLnFwd || EPI == kDpre) prefetch_rows<BN>(p.res, p, row0, n0, th);
+#pragma unroll
+  for (int e = 0; e < BN / 2; e += 2) {
+    const int c = (e >> 2) * 8 + 2 * th.t;
+    float2 v = make_float2(0.f, 0.f);
+    if constexpr (EPI == kBias || EPI == kReluDrop || EPI == kLnFwd) {
+      v = *reinterpret_cast<const float2*>(vec + c);
+    } else if constexpr (EPI == kLnBwd || EPI == kResOut) {
+      const long long row = row0 + th.warp * 16 + th.g + 8 * ((e >> 1) & 1);
+      v = ld_pair(p.res32, (row < p.m ? row * p.ldo : 0) + n0 + c, row < p.m);
+    }
+    acc[e] = v.x;
+    acc[e + 1] = v.y;
+  }
+}
+
+// x[2j + u]: a thread's sums over its two rows of column 2t + u of the four
+// 8-column blocks 4G + j of a 32-column group. Adds them over the warp's
+// eight row groups by halving (lanes 16, 8, 4 apart) and returns the warp's
+// sum of column 8 (2 ((g >> 2) & 1) + ((g >> 1) & 1)) + 2t + (g & 1) of the
+// group: each lane ends with a distinct one of the 32, in a fixed order.
+__device__ __forceinline__ float reduce_scatter8(const float x[8], int g) {
+  float y[4], z[2];
+  const bool h4 = g & 4, h2 = g & 2, h1 = g & 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    y[i] = (h4 ? x[4 + i] : x[i]) + __shfl_xor_sync(0xffffffffu, h4 ? x[i] : x[4 + i], 16);
 #pragma unroll
   for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+    z[i] = (h2 ? y[2 + i] : y[i]) + __shfl_xor_sync(0xffffffffu, h2 ? y[i] : y[2 + i], 8);
+  return (h1 ? z[1] : z[0]) + __shfl_xor_sync(0xffffffffu, h1 ? z[0] : z[1], 4);
+}
 
-  const int nk = (int)((ke - kb + TBK - 1) / TBK);
-  if (nk > 0) load_stage(0, kb);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load_stage((kt + 1) & 1, kb + (long long)(kt + 1) * TBK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* As = stages + (kt & 1) * (A_TILE + B_TILE);
-    const bf16* Bs = As + A_TILE;
+// The column (in the slab) that reduce_scatter8 leaves with lane (g, t) for
+// group G
+__device__ __forceinline__ int scatter_col(int G, int g, int t) {
+  return 32 * G + 8 * (2 * ((g >> 2) & 1) + ((g >> 1) & 1)) + 2 * t + (g & 1);
+}
+
+// 64-row tiles between two column sums in part: ceil(m / 64) rounded up to
+// even. A streamed stage's last 128-row tile leaves one warpgroup no row
+// where m = 64 mod 128; its (zero) sums land in the spare tile, which no
+// reduction reads.
+__host__ __device__ inline long long sum_stride(long long m) { return (m + 127) / 128 * 2; }
+
+// The tile's column sums: red[s][warp][BN] holds each warp's sums of sum s;
+// the warpgroup adds its four warps in order into part[(s * sum_stride(m) +
+// rt) * ldo + n0 + c] (rt the 64-row tile), between two named barriers (id
+// 3 + wg) so that no warp refills red before every sum is read.
+template <int BN, int S>
+__device__ __forceinline__ void store_col_sums(const float* red, const Stage& p, long long row0,
+                                               int n0, const GwThread& th) {
+  const long long RT = sum_stride(p.m), rt = row0 / ROW_TILE;
+  named_bar_sync(3 + th.wg, 128);
+  for (int i = threadIdx.x & 127; i < S * BN; i += 128) {
+    const int s = i / BN, c = i % BN;
+    const float* r = red + s * 4 * BN + c;
+    p.part[(s * RT + rt) * p.ldo + n0 + c] = ((r[0] + r[BN]) + r[2 * BN]) + r[3 * BN];
+  }
+  named_bar_sync(3 + th.wg, 128);
+}
+
+// kLnBwd's epilogue on LN's normalized input xh in f32 (K3) or bf16 (K4):
+// g = acc; per row s1 = sum g gamma, s2 = sum g gamma xh; dz = rstd (g
+// gamma - s1 / D - xh s2 / D) to out32, acc = dz mask; the warps' column
+// sums of g xh, g and dz mask into red. rows, at, in: the thread's rows,
+// their offsets and bounds (ld_pair); mix their dropout hash parts. Three
+// passes over the accumulators (the sums that need no xh first, then those
+// that do, then dz), so that few values besides the 128 accumulators of a
+// 256-wide tile live at once.
+template <int BN, class XH>
+__device__ __forceinline__ void ln_bwd_epilogue(float* acc, const Stage& p, const XH* xh,
+                                                const long long rows[2], const long long at[2],
+                                                const bool in[2], const uint32_t mix[2],
+                                                const float* vec, float* red,
+                                                const GwThread& th) {
+  const int warp = th.warp, g = th.g, t = th.t;
+  float rr[2], s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
 #pragma unroll
-    for (int kk = 0; kk < TBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> fb[FN];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if constexpr (AT)
-          wmma::load_matrix_sync(fa[i], As + kk * AT_LD + wm * 32 + i * 16, AT_LD);
-        else
-          wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * AR_LD + kk, AR_LD);
-      }
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        if constexpr (BT)
-          wmma::load_matrix_sync(fb[j], Bs + (wn * WN + j * 16) * BT_LD + kk, BT_LD);
-        else
-          wmma::load_matrix_sync(fb[j], Bs + kk * BR_LD + wn * WN + j * 16, BR_LD);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int hh = 0; hh < 2; ++hh) {
+    const float r = p.rstd[in[hh] ? rows[hh] : 0];
+    rr[hh] = in[hh] ? r : 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int G = 0; G < BN / 32; ++G) {  // s1 and the column sums of g
+    float cb[8];
 #pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * C_LD + wn * WN + j * 16, acc[i][j],
-                              C_LD, wmma::mem_row_major);
-  __syncthreads();
+    for (int j = 0; j < 4; ++j) {
+      const int c = (4 * G + j) * 8 + 2 * t;
+      const float2 gm = *reinterpret_cast<const float2*>(vec + BN + c);
+      cb[2 * j] = cb[2 * j + 1] = 0.f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int e = (4 * G + j) * 4 + 2 * hh;
+        s1[hh] += acc[e] * gm.x;
+        s1[hh] += acc[e + 1] * gm.y;
+        cb[2 * j] += acc[e];
+        cb[2 * j + 1] += acc[e + 1];
+      }
+    }
+    red[(4 + warp) * BN + scatter_col(G, g, t)] = reduce_scatter8(cb, g);
+  }
+#pragma unroll
+  for (int G = 0; G < BN / 32; ++G) {  // s2 and the column sums of g xh
+    float ca[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = (4 * G + j) * 8 + 2 * t;
+      const float2 gm = *reinterpret_cast<const float2*>(vec + BN + c);
+      ca[2 * j] = ca[2 * j + 1] = 0.f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int e = (4 * G + j) * 4 + 2 * hh;
+        const float2 x = ld_pair(xh, at[hh] + c, in[hh]);
+        s2[hh] += (acc[e] * gm.x) * x.x;
+        s2[hh] += (acc[e + 1] * gm.y) * x.y;
+        ca[2 * j] += acc[e] * x.x;
+        ca[2 * j + 1] += acc[e + 1] * x.y;
+      }
+    }
+    red[warp * BN + scatter_col(G, g, t)] = reduce_scatter8(ca, g);
+  }
+  float m1[2], m2[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    m1[hh] = quad_sum(s1[hh]) * (1.0f / BN);
+    m2[hh] = quad_sum(s2[hh]) * (1.0f / BN);
+  }
+#pragma unroll
+  for (int G = 0; G < BN / 32; ++G) {  // dz, dz mask and its column sums
+    float cc[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = (4 * G + j) * 8 + 2 * t;
+      const float2 gm = *reinterpret_cast<const float2*>(vec + BN + c);
+      cc[2 * j] = cc[2 * j + 1] = 0.f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int e = (4 * G + j) * 4 + 2 * hh;
+        const float2 x = ld_pair(xh, at[hh] + c, in[hh]);
+        const float dz0 = rr[hh] * (acc[e] * gm.x - m1[hh] - x.x * m2[hh]);
+        const float dz1 = rr[hh] * (acc[e + 1] * gm.y - m1[hh] - x.y * m2[hh]);
+        if (in[hh]) *reinterpret_cast<float2*>(p.out32 + at[hh] + c) = make_float2(dz0, dz1);
+        float k0 = 1.f, k1 = 1.f;
+        if (p.drop.on) {
+          k0 = keep_of(p.drop, mix[hh], c);
+          k1 = keep_of(p.drop, mix[hh], c + 1);
+        }
+        acc[e] = dz0 * k0;
+        acc[e + 1] = dz1 * k1;
+        cc[2 * j] += acc[e];
+        cc[2 * j + 1] += acc[e + 1];
+      }
+    }
+    red[(8 + warp) * BN + scatter_col(G, g, t)] = reduce_scatter8(cc, g);
+  }
+}
 
-  const long long RT = (p.m + TBM - 1) / TBM;
+// The epilogue of a warpgroup's tile (see Epi), from its accumulators;
+// `split` is the weight gradient's depth split, red the warpgroup's column
+// sum scratch; XH16: kLnBwd reads xh in bf16 (K4's stash).
+template <int EPI, int BN, bool XH16>
+__device__ __forceinline__ void stage_store(float* acc, const Stage& p, long long row0, int n0,
+                                            int split, const float* vec, float* red,
+                                            const GwThread& th) {
+  const int warp = th.warp, g = th.g, t = th.t;
+  const long long rows[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
+  const bool in[2] = {rows[0] < p.m, rows[1] < p.m};
+  // the rows' offsets in the [row][ldo] operands, row 0's past m (see ld_pair)
+  const long long at[2] = {in[0] ? rows[0] * p.ldo : 0, in[1] ? rows[1] * p.ldo : 0};
+  uint32_t mix[2] = {0u, 0u};
+  if (EPI != kDpre && p.drop.on) {
+    mix[0] = row_mix(p.drop, rows[0]);
+    mix[1] = row_mix(p.drop, rows[1]);
+  }
   if constexpr (EPI == kPartial) {
-    float* dst = p.out32 + (long long)blockIdx.y * p.m * p.ldo;
-    for (int i = tid; i < TBM * BN / 4; i += THREADS) {
-      const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
-      const long long gm = m0 + r;
-      if (gm >= p.m) continue;
-      *reinterpret_cast<float4*>(dst + gm * p.ldo + n0 + c) =
-          make_float4(Cs[r * C_LD + c], Cs[r * C_LD + c + 1], Cs[r * C_LD + c + 2],
-                      Cs[r * C_LD + c + 3]);
+    float* dst = p.out32 + (long long)split * p.m * p.ldo + n0;
+#pragma unroll
+    for (int e = 0; e < BN / 2; e += 2) {
+      const int hh = (e >> 1) & 1;
+      if (in[hh])
+        *reinterpret_cast<float2*>(dst + rows[hh] * p.ldo + (e >> 2) * 8 + 2 * t) =
+            make_float2(acc[e], acc[e + 1]);
     }
-  } else if constexpr (EPI == kLnFwd || EPI == kLnBwd) {
-    // one warp per row, BN / 32 columns per lane; the tile holds the whole
-    // row (D = BN)
-    constexpr int PER_LANE = BN / 32;
-    float cs[3][PER_LANE] = {};  // kLnBwd column sums: g*xh, g, dz*mask
-    for (int r = warp; r < TBM; r += THREADS / 32) {
-      const long long gm = m0 + r;
-      if (gm >= p.m) break;  // warp-uniform
-      const long long row = gm * p.ldo;
-      float v[PER_LANE];
-      if constexpr (EPI == kLnFwd) {
-        float s = 0.f;
+    return;
+  } else if constexpr (EPI == kReluDrop) {
 #pragma unroll
-        for (int t = 0; t < PER_LANE; ++t) {
-          const int c = lane + 32 * t;
-          v[t] = (Cs[r * C_LD + c] + p.bias[c]) * keep_scale(p.drop, gm, c) +
-                 __bfloat162float(p.res[row + c]);
-          s += v[t];
-        }
-        const float mean = warp_sum(s) * (1.0f / BN);
-        float q = 0.f;
+    for (int e = 0; e < BN / 2; ++e) {
+      float v = fmaxf(acc[e], 0.f);
+      if (p.drop.on) v *= keep_of(p.drop, mix[(e >> 1) & 1], n0 + (e >> 2) * 8 + 2 * t + (e & 1));
+      acc[e] = v;
+    }
+  } else if constexpr (EPI == kLnFwd) {
+    // z = (acc + bias) * mask + res, then LayerNorm over the row (BN = D),
+    // centred in place as K1's epilogue
+    float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f}, rstd[2];
 #pragma unroll
-        for (int t = 0; t < PER_LANE; ++t) {
-          const float d = v[t] - mean;
-          q += d * d;
-        }
-        const float rstd = rsqrtf(warp_sum(q) * (1.0f / BN) + LN_EPS);
+    for (int e = 0; e < BN / 2; e += 2) {
+      const int hh = (e >> 1) & 1, c = (e >> 2) * 8 + 2 * t;
+      const float2 r = ld_pair(p.res, at[hh] + c, in[hh]);
+      if (p.drop.on) {
+        acc[e] *= keep_of(p.drop, mix[hh], c);
+        acc[e + 1] *= keep_of(p.drop, mix[hh], c + 1);
+      }
+      acc[e] += r.x;
+      acc[e + 1] += r.y;
+      sum[hh] += acc[e] + acc[e + 1];
+    }
 #pragma unroll
-        for (int t = 0; t < PER_LANE; ++t) {
-          const int c = lane + 32 * t;
-          const float xh = (v[t] - mean) * rstd;
-          if (p.out) p.out[row + c] = __float2bfloat16(p.gamma[c] * xh + p.beta[c]);
-          if (p.xh_out) p.xh_out[row + c] = xh;
-          if (p.xh_out16) p.xh_out16[row + c] = __float2bfloat16(xh);
-        }
-        if (p.rstd_out && lane == 0) p.rstd_out[gm] = rstd;
-      } else {
-        float xh[PER_LANE], s1 = 0.f, s2 = 0.f;
+    for (int hh = 0; hh < 2; ++hh) sum[hh] = quad_sum(sum[hh]) * (1.0f / BN);  // the mean
 #pragma unroll
-        for (int t = 0; t < PER_LANE; ++t) {
-          const int c = lane + 32 * t;
-          v[t] = Cs[r * C_LD + c] + p.res32[row + c];
-          xh[t] = p.xh16 ? __bfloat162float(p.xh16[row + c]) : p.xh[row + c];
-          const float dyg = v[t] * p.gamma[c];
-          s1 += dyg;
-          s2 += dyg * xh[t];
-          cs[0][t] += v[t] * xh[t];
-          cs[1][t] += v[t];
-        }
-        const float m1 = warp_sum(s1) * (1.0f / BN), m2 = warp_sum(s2) * (1.0f / BN);
-        const float rstd = p.rstd[gm];
+    for (int e = 0; e < BN / 2; ++e) {
+      acc[e] -= sum[(e >> 1) & 1];
+      sq[(e >> 1) & 1] += acc[e] * acc[e];
+    }
 #pragma unroll
-        for (int t = 0; t < PER_LANE; ++t) {
-          const int c = lane + 32 * t;
-          const float dz = rstd * (v[t] * p.gamma[c] - m1 - xh[t] * m2);
-          const float da = dz * keep_scale(p.drop, gm, c);
-          cs[2][t] += da;
-          p.out32[row + c] = dz;
-          p.out[row + c] = __float2bfloat16(da);
+    for (int hh = 0; hh < 2; ++hh) {
+      rstd[hh] = rsqrtf(quad_sum(sq[hh]) * (1.0f / BN) + LN_EPS);
+      if (p.rstd_out && t == 0 && in[hh]) p.rstd_out[rows[hh]] = rstd[hh];
+    }
+#pragma unroll
+    for (int e = 0; e < BN / 2; e += 2) {  // xh
+      const int hh = (e >> 1) & 1;
+      acc[e] *= rstd[hh];
+      acc[e + 1] *= rstd[hh];
+      if (p.xh_out && in[hh])
+        *reinterpret_cast<float2*>(p.xh_out + rows[hh] * p.ldo + (e >> 2) * 8 + 2 * t) =
+            make_float2(acc[e], acc[e + 1]);
+    }
+    if (p.xh_out16) store_tile_bf16<BN>(acc, p.xh_out16, p.ldo, rows, p.m, 0, t);
+    if (!p.out) return;  // the recompute's LN2: only xh and 1/std
+#pragma unroll
+    for (int e = 0; e < BN / 2; e += 2) {
+      const int c = (e >> 2) * 8 + 2 * t;
+      const float2 gm = *reinterpret_cast<const float2*>(vec + BN + c);
+      const float2 bt = *reinterpret_cast<const float2*>(vec + 2 * BN + c);
+      acc[e] = gm.x * acc[e] + bt.x;
+      acc[e + 1] = gm.y * acc[e + 1] + bt.y;
+    }
+  } else if constexpr (EPI == kDpre) {
+    // d = h > 0 ? acc * mask : 0, its column sums by 32-column group. Where
+    // h > 0 the FFN1 mask kept the lane (h = bf16(relu(.) mask)), so the mask
+    // there is its scale: no hash.
+    const float keep = p.drop.on ? p.drop.scale : 1.f;
+    float* mine = red + warp * BN;
+#pragma unroll
+    for (int G = 0; G < BN / 32; ++G) {
+      float cs[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = (4 * G + j) * 8 + 2 * t;
+        cs[2 * j] = cs[2 * j + 1] = 0.f;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int e = (4 * G + j) * 4 + 2 * hh;
+          const float2 h = ld_pair(p.res, at[hh] + n0 + c, in[hh]);
+          acc[e] = h.x > 0.f ? acc[e] * keep : 0.f;
+          acc[e + 1] = h.y > 0.f ? acc[e + 1] * keep : 0.f;
+          cs[2 * j] += acc[e];
+          cs[2 * j + 1] += acc[e + 1];
         }
       }
+      mine[scatter_col(G, g, t)] = reduce_scatter8(cs, g);
     }
-    if constexpr (EPI == kLnBwd) {
-      __syncthreads();  // every warp is done with Cs
-      float* red = Cs;  // [warp][3][BN]
-#pragma unroll
-      for (int s = 0; s < 3; ++s)
-#pragma unroll
-        for (int t = 0; t < PER_LANE; ++t) red[(warp * 3 + s) * BN + lane + 32 * t] = cs[s][t];
-      __syncthreads();
-      for (int i = tid; i < 3 * BN; i += THREADS) {
-        const int s = i / BN, c = i % BN;
-        float sum = 0.f;
-        for (int w = 0; w < THREADS / 32; ++w) sum += red[(w * 3 + s) * BN + c];
-        p.part[(s * RT + rt) * p.ldo + c] = sum;
-      }
-    }
-  } else {
-    // 8 consecutive columns per thread, stored as one 16-byte chunk; a
-    // thread keeps the same 8 columns for all of its rows
-    float colsum[8] = {};
-    const int c = (tid % (BN / 8)) * 8;
-    for (int i = tid; i < TBM * BN / 8; i += THREADS) {
-      const int r = i / (BN / 8);
-      const long long gm = m0 + r;
-      if (gm >= p.m) continue;
-      const long long at = gm * p.ldo + n0 + c;
-      uint4 hv = make_uint4(0u, 0u, 0u, 0u);
-      if constexpr (EPI == kDpre) hv = *reinterpret_cast<const uint4*>(p.res + at);
-      const bf16* h8 = reinterpret_cast<const bf16*>(&hv);
-      uint4 packed;
-      uint32_t* words = reinterpret_cast<uint32_t*>(&packed);
-#pragma unroll
-      for (int e = 0; e < 8; e += 2) {
-        float v[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int col = n0 + c + e + u;
-          float x = Cs[r * C_LD + c + e + u];
-          if constexpr (EPI == kBias || EPI == kReluDrop) x += p.bias[col];
-          if constexpr (EPI == kReluDrop) x = fmaxf(x, 0.f) * keep_scale(p.drop, gm, col);
-          if constexpr (EPI == kDpre) {
-            x = __bfloat162float(h8[e + u]) > 0.f ? x * keep_scale(p.drop, gm, col) : 0.f;
-            colsum[e + u] += x;
-          }
-          if constexpr (EPI == kResOut) x += p.res32[at + e + u];
-          v[u] = x;
-        }
-        words[e / 2] = pack_bf16x2(v[0], v[1]);
-      }
-      *reinterpret_cast<uint4*>(p.out + at) = packed;
-    }
-    if constexpr (EPI == kDpre) {
-      __syncthreads();  // every thread is done with Cs
-      float* red = Cs;  // [row group][BN]
-      const int grp = tid / (BN / 8);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) red[grp * BN + c + e] = colsum[e];
-      __syncthreads();
-      if (tid < BN) {
-        float sum = 0.f;
-        for (int g = 0; g < THREADS / (BN / 8); ++g) sum += red[g * BN + tid];
-        p.part[rt * p.ldo + n0 + tid] = sum;
-      }
-    }
+  } else if constexpr (EPI == kLnBwd) {
+    if constexpr (XH16)
+      ln_bwd_epilogue<BN>(acc, p, p.xh16, rows, at, in, mix, vec, red, th);
+    else
+      ln_bwd_epilogue<BN>(acc, p, p.xh, rows, at, in, mix, vec, red, th);
   }
+  store_tile_bf16<BN>(acc, p.out, p.ldo, rows, p.m, n0, t);
+  if constexpr (col_sums(EPI) > 0) store_col_sums<BN, col_sums(EPI)>(red, p, row0, n0, th);
+}
+
+// One GEMM stage (see the header): TA, TB from the epilogue; the slab
+// blockIdx.x % n_tiles, its items walked from blockIdx.x / n_tiles. XH16
+// (kLnBwd only): xh in bf16, an instance of its own, so that neither
+// instance carries the other's loads in its 256-wide tile's registers.
+template <int EPI, int BN, bool RESIDENT, bool XH16>
+__global__ void __launch_bounds__(GW_THREADS, 1) train_gemm_kernel(
+    const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap b_map,
+    Stage p, int ring) {
+  extern __shared__ unsigned char gw_raw[];
+  const GwLayout s = gw_layout<BN, RESIDENT>(gw_raw, p.k, ring, stage_extra(EPI, BN));
+  float* vec = reinterpret_cast<float*>(s.extra);  // bias, gamma, beta
+  const int slab = blockIdx.x % p.n_tiles, stride = gridDim.x / p.n_tiles;
+  const int first = blockIdx.x / p.n_tiles;
+  const int n0 = slab * BN;
+  const long long tm = RESIDENT ? 64 : 128;
+  const int n_rt = (int)((p.m + tm - 1) / tm);
+  const GwThread th = gw_thread();
+  float* red = vec + 3 * BN + th.wg * col_sums(EPI) * 4 * BN;
+
+  for (int i = threadIdx.x; i < BN; i += GW_THREADS) {
+    if (EPI == kBias || EPI == kReluDrop || EPI == kLnFwd) vec[i] = p.bias[n0 + i];
+    if (is_ln(EPI)) vec[BN + i] = p.gamma[i];
+    if (EPI == kLnFwd) vec[2 * BN + i] = p.beta[i];
+  }
+  gemm_wgmma_loop<BN, RESIDENT, a_transposed(EPI), b_mn_major(EPI), EPI == kPartial>(
+      a_map, b_map, s, p.k, n0, first, stride, n_rt, n_rt * p.splits, ring, th,
+      [&](float* acc, long long row0) { stage_init<EPI, BN>(acc, p, row0, n0, vec, th); },
+      [&](float* acc, long long row0, int split) {
+        stage_store<EPI, BN, XH16>(acc, p, row0, n0, split, vec, red, th);
+      });
 }
 
 // ---------------------------------------------------------------------------
@@ -1137,9 +1247,9 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_rows(
   constexpr int PER_LANE = DW / 32;
   __shared__ float red[THREADS / 32][3][DW];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long m0 = (long long)blockIdx.x * TBM, RT = gridDim.x;
+  const long long m0 = (long long)blockIdx.x * ROW_TILE, RT = gridDim.x;
   float cs[3][PER_LANE] = {};
-  for (int r = warp; r < TBM; r += THREADS / 32) {
+  for (int r = warp; r < ROW_TILE; r += THREADS / 32) {
     const long long gm = m0 + r;
     if (gm >= M) break;
     const long long row = gm * DW;
@@ -1157,11 +1267,12 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_rows(
     }
     const float m1 = warp_sum(s1) * (1.0f / DW), m2 = warp_sum(s2) * (1.0f / DW);
     const float rr = rstd[gm];
+    const uint32_t mix = drop.on ? row_mix(drop, gm) : 0u;
 #pragma unroll
     for (int t = 0; t < PER_LANE; ++t) {
       const int c = lane + 32 * t;
       const float dz = rr * (d[t] * gamma[c] - m1 - x[t] * m2);
-      const float df = dz * keep_scale(drop, gm, c);
+      const float df = drop.on ? dz * keep_of(drop, mix, c) : dz;
       cs[2][t] += df;
       dz_out[row + c] = dz;
       df_out[row + c] = __float2bfloat16(df);
@@ -1227,51 +1338,122 @@ void reduce(const float* part, long long P, long long N, float* out, float* scra
 // host side
 // ---------------------------------------------------------------------------
 
-TGemm tg(const bf16* a, long long lda, const bf16* b, long long ldb, long long m, long long k,
-         long long ldo) {
-  TGemm g{};
-  g.a = a;
-  g.lda = lda;
-  g.b = b;
-  g.ldb = ldb;
-  g.m = m;
-  g.k = k;
-  g.k_chunk = k;
-  g.ldo = ldo;
-  return g;
-}
-
-// n_cols / BN tiles of BN columns (BN divides n_cols: gemm and gemm_ln pick
-// it). A failed opt-in to the larger shared memory fails the launch, which the
-// entry point's cudaGetLastError() reports.
-template <bool AT, bool BT, int EPI, int BN>
-void gemm_tiles(TGemm p, long long n_cols, int splits, cudaStream_t s) {
-  p.n_tiles = (int)(n_cols / BN);
-  const long long blocks = (p.m + TBM - 1) / TBM * p.n_tiles;
-  constexpr int smem = gemm_smem<BN>() <= STATIC_SMEM ? 0 : gemm_smem<BN>();  // dynamic bytes
-  if (smem > 0)
-    cudaFuncSetAttribute(tgemm<AT, BT, EPI, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem);
-  tgemm<AT, BT, EPI, BN><<<dim3((unsigned)blocks, (unsigned)splits), THREADS, smem, s>>>(p);
-}
-
-// A stage without LayerNorm: 128-wide tiles, 64-wide where 128 does not
-// divide n_cols (shapes_ok keeps every N a multiple of 64).
-template <bool AT, bool BT, int EPI>
-void gemm(TGemm p, long long n_cols, int splits, cudaStream_t s) {
-  if (n_cols % TBN == 0)
-    gemm_tiles<AT, BT, EPI, TBN>(p, n_cols, splits, s);
-  else
-    gemm_tiles<AT, BT, EPI, NARROW_BN>(p, n_cols, splits, s);
-}
-
 // f(std::integral_constant<int, W>{}) at d_model W = D (64, 128 or 256; what
 // shapes_ok admits)
 template <class F>
 auto with_d(int D, F f) -> decltype(f(std::integral_constant<int, 256>{})) {
   if (D == 256) return f(std::integral_constant<int, 256>{});
-  if (D == TBN) return f(std::integral_constant<int, TBN>{});
-  return f(std::integral_constant<int, NARROW_BN>{});
+  if (D == 128) return f(std::integral_constant<int, 128>{});
+  return f(std::integral_constant<int, 64>{});
+}
+
+#define VITIQ_TRY(expr)                      \
+  do {                                       \
+    const cudaError_t err_ = (expr);         \
+    if (err_ != cudaSuccess) return err_;    \
+  } while (0)
+
+// The stage instances the layers reach at the shapes shapes_ok admits: W
+// resident where K <= 256 (K = D: QKV, FFN1, the out-projection and its
+// input gradient, FFN2's input gradient; K = F or 3D at F <= 256 or D = 64),
+// except the 256-wide LayerNorm stages; streamed where K > 256 (FFN2, FFN1's
+// input gradient with LN1's backward, the QKV input gradient at D >= 128)
+// and for every weight gradient; LN1's backward once for K3's f32 xh and
+// once for K4's bf16 xh.
+__host__ __device__ constexpr bool stage_built(int epi, int bn, bool resident) {
+  if (epi == kPartial) return !resident;
+  if (is_ln(epi)) return resident ? bn != 256 : true;
+  if (epi == kResOut) return resident ? bn == 64 : bn != 64;
+  return resident;
+}
+
+// One stage over n_cols columns in BN-wide slabs: TMA maps of A and B (128-
+// byte swizzle, 64-element boxes; see gemm_wgmma.cuh) and up to one block an
+// SM. Returns the error of a map cuTensorMapEncodeTiled refuses, of the
+// shared-memory opt-in or of the launch.
+template <int EPI, int BN, bool RESIDENT, bool XH16>
+cudaError_t launch_stage(Stage p, long long n_cols, cudaStream_t st) {
+  constexpr int extra = stage_extra(EPI, BN);
+  p.n_tiles = (int)(n_cols / BN);
+  const int ring = gemm_ring(RESIDENT, BN, p.k, extra);
+  if (n_cols % BN || p.k % 64 || !ring) return cudaErrorInvalidValue;
+  const uint32_t tm = RESIDENT ? 64 : 128;
+  uint64_t a_dims[2], b_dims[2];
+  uint32_t a_box[2] = {64, a_transposed(EPI) ? 64u : tm}, b_box[2];
+  if (a_transposed(EPI)) {  // act [depth][m]
+    a_dims[0] = (uint64_t)p.m;
+    a_dims[1] = (uint64_t)p.depth;
+  } else {  // A [m][k]
+    a_dims[0] = (uint64_t)p.k;
+    a_dims[1] = (uint64_t)p.m;
+  }
+  if (b_mn_major(EPI)) {  // W [k][n_cols] or the gradient [depth][n_cols]
+    b_dims[0] = (uint64_t)n_cols;
+    b_dims[1] = (uint64_t)(a_transposed(EPI) ? p.depth : p.k);
+    b_box[0] = 64;
+    b_box[1] = RESIDENT ? (uint32_t)p.k : 64u;
+  } else {  // W [n_cols][k]
+    b_dims[0] = (uint64_t)p.k;
+    b_dims[1] = (uint64_t)n_cols;
+    b_box[0] = 64;
+    b_box[1] = BN;
+  }
+  const uint64_t a_str[1] = {(uint64_t)p.lda}, b_str[1] = {(uint64_t)p.ldb};
+  CUtensorMap a_map, b_map;
+  if (!make_map(&a_map, p.a, 2, a_dims, a_str, a_box, 128) ||
+      !make_map(&b_map, p.b, 2, b_dims, b_str, b_box, 128))
+    return cudaErrorInvalidValue;
+  const int smem = gemm_smem_bytes(RESIDENT, BN, p.k, ring, extra);
+  VITIQ_TRY(allow_smem(train_gemm_kernel<EPI, BN, RESIDENT, XH16>, smem));
+  const long long n_work = (p.m + tm - 1) / tm * p.splits;
+  train_gemm_kernel<EPI, BN, RESIDENT, XH16>
+      <<<gw_blocks(n_work, p.n_tiles), GW_THREADS, smem, st>>>(a_map, b_map, p, ring);
+  return cudaGetLastError();
+}
+
+template <int EPI, int BN, bool XH16>
+cudaError_t launch_stage_xh(const Stage& p, long long n_cols, cudaStream_t st) {
+  const bool resident = p.k <= 256 && stage_built(EPI, BN, true);
+  if constexpr (stage_built(EPI, BN, true))
+    if (resident) return launch_stage<EPI, BN, true, XH16>(p, n_cols, st);
+  if constexpr (stage_built(EPI, BN, false))
+    if (!resident) return launch_stage<EPI, BN, false, XH16>(p, n_cols, st);
+  return cudaErrorInvalidValue;
+}
+
+template <int EPI, int BN>
+cudaError_t launch_stage_bn(const Stage& p, long long n_cols, cudaStream_t st) {
+  if constexpr (EPI == kLnBwd)
+    if (p.xh16) return launch_stage_xh<EPI, BN, true>(p, n_cols, st);
+  return launch_stage_xh<EPI, BN, false>(p, n_cols, st);
+}
+
+// A GEMM stage over n_cols columns: slabs of BN = D for the LayerNorm
+// stages, else the widest of 256, 128 and 64 that divides n_cols.
+template <int EPI>
+cudaError_t stage(const Stage& p, long long n_cols, cudaStream_t st) {
+  const long long bn = is_ln(EPI) ? n_cols : n_cols % 256 == 0 ? 256 : n_cols % 128 == 0 ? 128 : 64;
+  switch (bn) {
+    case 64: return launch_stage_bn<EPI, 64>(p, n_cols, st);
+    case 128: return launch_stage_bn<EPI, 128>(p, n_cols, st);
+    case 256: return launch_stage_bn<EPI, 256>(p, n_cols, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+Stage stage_args(const bf16* a, long long lda, const bf16* b, long long ldb, long long m, long long k,
+                 long long ldo) {
+  Stage g{};
+  g.a = a;
+  g.lda = lda;
+  g.b = b;
+  g.ldb = ldb;
+  g.m = m;
+  g.k = (int)k;
+  g.depth = k;
+  g.splits = 1;
+  g.ldo = ldo;
+  return g;
 }
 
 // f(std::integral_constant<int, DH>{}) at d_head DH = dh (16, 32 or 64; what
@@ -1281,12 +1463,6 @@ auto with_dh(int dh, F f) -> decltype(f(std::integral_constant<int, 16>{})) {
   if (dh == 16) return f(std::integral_constant<int, 16>{});
   if (dh == 32) return f(std::integral_constant<int, 32>{});
   return f(std::integral_constant<int, 64>{});
-}
-
-// A LayerNorm stage: one tile holds a whole row of D columns.
-template <bool AT, bool BT, int EPI>
-void gemm_ln(TGemm p, int D, cudaStream_t s) {
-  with_d(D, [&](auto w) { gemm_tiles<AT, BT, EPI, decltype(w)::value>(p, D, 1, s); });
 }
 
 // Bump allocator over the caller's workspace; with a null base it only
@@ -1306,13 +1482,14 @@ struct Carve {
 struct Shape {
   int B, L, D, H, F;
   long long M() const { return (long long)B * L; }
-  long long RT() const { return (M() + TBM - 1) / TBM; }
+  long long RT() const { return (M() + ROW_TILE - 1) / ROW_TILE; }
   int dh() const { return D / H; }
   // depth splits of the weight-gradient GEMMs: ~2K rows each, at most 64
   int splits() const { return (int)std::min<long long>(64, std::max<long long>(1, M() / 2048)); }
+  // rows of one split, a multiple of the 64-deep step
   long long k_chunk() const {
     const long long c = (M() + splits() - 1) / splits();
-    return (c + TBK - 1) / TBK * TBK;
+    return (c + 63) / 64 * 64;
   }
 };
 
@@ -1323,7 +1500,7 @@ bool shapes_ok(const Shape& s) {
   if (s.B <= 0 || s.L <= 0 || s.H <= 0 || s.D % s.H) return false;
   if (s.D != 64 && s.D != 128 && s.D != 256) return false;
   const int dh = s.dh();
-  if (!(dh == 16 || dh == 32 || dh == 64) || s.F <= 0 || s.F % NARROW_BN) return false;
+  if (!(dh == 16 || dh == 32 || dh == 64) || s.F <= 0 || s.F % FFN_MULTIPLE) return false;
   const size_t smem =
       with_dh(dh, [&](auto c) { return attention_bwd_smem_bytes<decltype(c)::value>(s.L); });
   return smem <= (size_t)MAX_SMEM;
@@ -1455,32 +1632,31 @@ Fwd carve_fwd(Carve& c, const Shape& s, bool own_attn, bool residuals) {
 }
 
 // qkv = bf16(x Wqkv + bqkv)
-void qkv_gemm(const Shape& s, const bf16* x, const Weights& w, bf16* qkv, cudaStream_t st) {
+cudaError_t qkv_gemm(const Shape& s, const bf16* x, const Weights& w, bf16* qkv, cudaStream_t st) {
   const long long D = s.D;
-  TGemm g = tg(x, D, w.wqkv, 3 * D, s.M(), D, 3 * D);
+  Stage g = stage_args(x, D, w.wqkv, 3 * D, s.M(), D, 3 * D);
   g.bias = w.bqkv;
   g.out = qkv;
-  gemm<false, false, kBias>(g, 3 * D, 1, st);
+  return stage<kBias>(g, 3 * D, st);
 }
 
 // h = bf16(relu(x1 W1 + b1) * m2)
-void ffn1_gemm(const Shape& s, const bf16* x1, const Weights& w, bf16* hid, const Drop& drop,
-               cudaStream_t st) {
-  TGemm g = tg(x1, s.D, w.w1, s.F, s.M(), s.D, s.F);
+cudaError_t ffn1_gemm(const Shape& s, const bf16* x1, const Weights& w, bf16* hid,
+                      const Drop& drop, cudaStream_t st) {
+  Stage g = stage_args(x1, s.D, w.w1, s.F, s.M(), s.D, s.F);
   g.bias = w.b1;
   g.out = hid;
   g.drop = drop;
-  gemm<false, false, kReluDrop>(g, s.F, 1, st);
+  return stage<kReluDrop>(g, s.F, st);
 }
 
 // The forward's five stages; y may be null (the backward's recompute).
 cudaError_t forward(const Shape& s, const bf16* x, bf16* y, const Weights& w, const Fwd& f,
                     const Drop* drop, cudaStream_t st) {
   const long long M = s.M(), D = s.D, F = s.F;
-  qkv_gemm(s, x, w, f.qkv, st);
-  const cudaError_t err = attention_fwd(s, f.qkv, f.attn, f.stats, f.pbar, st);
-  if (err != cudaSuccess) return err;
-  TGemm g = tg(f.attn, D, w.wo, D, M, D, D);
+  VITIQ_TRY(qkv_gemm(s, x, w, f.qkv, st));
+  VITIQ_TRY(attention_fwd(s, f.qkv, f.attn, f.stats, f.pbar, st));
+  Stage g = stage_args(f.attn, D, w.wo, D, M, D, D);
   g.bias = w.bo;
   g.res = x;
   g.gamma = w.g1;
@@ -1490,9 +1666,9 @@ cudaError_t forward(const Shape& s, const bf16* x, bf16* y, const Weights& w, co
   g.xh_out16 = f.xh1h;
   g.rstd_out = f.r1;
   g.drop = drop[0];
-  gemm_ln<false, false, kLnFwd>(g, s.D, st);
-  ffn1_gemm(s, f.x1, w, f.hid, drop[1], st);
-  g = tg(f.hid, F, w.w2, D, M, F, D);
+  VITIQ_TRY(stage<kLnFwd>(g, D, st));
+  VITIQ_TRY(ffn1_gemm(s, f.x1, w, f.hid, drop[1], st));
+  g = stage_args(f.hid, F, w.w2, D, M, F, D);
   g.bias = w.b2;
   g.res = f.x1;
   g.gamma = w.g2;
@@ -1502,8 +1678,7 @@ cudaError_t forward(const Shape& s, const bf16* x, bf16* y, const Weights& w, co
   g.xh_out16 = f.xh2h;
   g.rstd_out = f.r2;
   g.drop = drop[2];
-  gemm_ln<false, false, kLnFwd>(g, s.D, st);
-  return cudaSuccess;
+  return stage<kLnFwd>(g, D, st);
 }
 
 struct Bwd {
@@ -1524,23 +1699,24 @@ Bwd carve_bwd(Carve& c, const Shape& s, bool stash) {
   b.dz1 = c.take<float>(M * D);
   b.dattn = c.take<bf16>(M * D);
   b.dqkv = c.take<bf16>(M * 3 * D);
-  b.part_rows = c.take<float>(3 * s.RT() * std::max(D, F));
+  b.part_rows = c.take<float>(3 * sum_stride(s.M()) * std::max(D, F));
   b.part_frames = c.take<float>((size_t)s.B * 3 * D);
   b.part_dw = c.take<float>((size_t)s.splits() * D * std::max(3 * D, F));
   b.scratch = c.take<float>((size_t)REDUCE_CHUNKS * std::max(3 * D, F));
   return b;
 }
 
-// act^T grad over all rows into out [K1, N] (f32): split-K partials, then
-// their fixed-order sum.
-void weight_grad(const Shape& s, const Bwd& b, const bf16* act, long long k1, const bf16* grad,
-                 long long n, float* out, cudaStream_t st) {
-  TGemm g = tg(act, k1, grad, n, k1, s.M(), n);
-  g.k_chunk = s.k_chunk();
+// act^T grad over all rows into out [K1, N] (f32): split-K partials (A =
+// act^T read from act [M, K1]), then their fixed-order sum.
+cudaError_t weight_grad(const Shape& s, const Bwd& b, const bf16* act, long long k1,
+                        const bf16* grad, long long n, float* out, cudaStream_t st) {
+  Stage g = stage_args(act, k1, grad, n, k1, s.k_chunk(), n);
+  g.depth = s.M();
+  g.splits = (int)((s.M() + g.k - 1) / g.k);
   g.out32 = b.part_dw;
-  const int splits = (int)((s.M() + g.k_chunk - 1) / g.k_chunk);
-  gemm<true, false, kPartial>(g, n, splits, st);
-  reduce(b.part_dw, splits, k1 * n, out, b.scratch, st);
+  VITIQ_TRY(stage<kPartial>(g, n, st));
+  reduce(b.part_dw, g.splits, k1 * n, out, b.scratch, st);
+  return cudaSuccess;
 }
 
 // LN2's backward rows (ln_bwd_rows at the row width D)
@@ -1562,15 +1738,13 @@ cudaError_t backward(const Shape& s, const bf16* x, const bf16* dy, bf16* dx, fl
                      cudaStream_t st) {
   const long long M = s.M(), D = s.D, F = s.F, RT = s.RT();
   const Fwd& f = b.f;
-  cudaError_t err = cudaSuccess;
   if (stash) {
-    qkv_gemm(s, x, w, f.qkv, st);
+    VITIQ_TRY(qkv_gemm(s, x, w, f.qkv, st));
     const unsigned blocks = (unsigned)std::min<long long>((M * D + THREADS - 1) / THREADS, 4096);
     rebuild_ln_out<<<blocks, THREADS, 0, st>>>(stash->xh1, w.g1, w.be1, M * D, s.D, f.x1);
-    ffn1_gemm(s, f.x1, w, f.hid, drop[1], st);
+    VITIQ_TRY(ffn1_gemm(s, f.x1, w, f.hid, drop[1], st));
   } else {
-    err = forward(s, x, nullptr, w, f, drop, st);
-    if (err != cudaSuccess) return err;
+    VITIQ_TRY(forward(s, x, nullptr, w, f, drop, st));
   }
   const bf16* attn = stash ? stash->attn : f.attn;
   const float* r1 = stash ? stash->r1 : f.r1;
@@ -1597,17 +1771,17 @@ cudaError_t backward(const Shape& s, const bf16* x, const bf16* dy, bf16* dx, fl
   reduce(b.part_rows + RT * D, RT, D, dbe2, b.scratch, st);
   reduce(b.part_rows + 2 * RT * D, RT, D, db2, b.scratch, st);
   // FFN2: dW2 = h^T df; dpre = (h > 0) * (df W2^T) * m2; db1
-  weight_grad(s, b, f.hid, F, b.dfb, D, dw2, st);
-  TGemm g = tg(b.dfb, D, w.w2, D, M, D, F);
+  VITIQ_TRY(weight_grad(s, b, f.hid, F, b.dfb, D, dw2, st));
+  Stage g = stage_args(b.dfb, D, w.w2, D, M, D, F);
   g.res = f.hid;
   g.drop = drop[1];
   g.out = b.dpreb;
   g.part = b.part_rows;
-  gemm<false, true, kDpre>(g, F, 1, st);
+  VITIQ_TRY(stage<kDpre>(g, F, st));
   reduce(b.part_rows, RT, F, db1, b.scratch, st);
   // FFN1: dW1 = x1^T dpre; dx1 = dz2 + dpre W1^T; LN1 backward, dropout m1
-  weight_grad(s, b, f.x1, D, b.dpreb, F, dw1, st);
-  g = tg(b.dpreb, F, w.w1, F, M, F, D);
+  VITIQ_TRY(weight_grad(s, b, f.x1, D, b.dpreb, F, dw1, st));
+  g = stage_args(b.dpreb, F, w.w1, F, M, F, D);
   g.res32 = b.dz2;
   g.xh = f.xh1;
   g.xh16 = stash ? stash->xh1 : nullptr;
@@ -1617,27 +1791,26 @@ cudaError_t backward(const Shape& s, const bf16* x, const bf16* dy, bf16* dx, fl
   g.out = b.dab;
   g.out32 = b.dz1;
   g.part = b.part_rows;
-  gemm_ln<false, true, kLnBwd>(g, s.D, st);
+  VITIQ_TRY(stage<kLnBwd>(g, D, st));
+  const long long SS = sum_stride(M);
   reduce(b.part_rows, RT, D, dg1, b.scratch, st);
-  reduce(b.part_rows + RT * D, RT, D, dbe1, b.scratch, st);
-  reduce(b.part_rows + 2 * RT * D, RT, D, dbo, b.scratch, st);
+  reduce(b.part_rows + SS * D, RT, D, dbe1, b.scratch, st);
+  reduce(b.part_rows + 2 * SS * D, RT, D, dbo, b.scratch, st);
   // out-projection: dWo = attn^T da; dattn = bf16(da Wo^T)
-  weight_grad(s, b, attn, D, b.dab, D, dwo, st);
-  g = tg(b.dab, D, w.wo, D, M, D, D);
+  VITIQ_TRY(weight_grad(s, b, attn, D, b.dab, D, dwo, st));
+  g = stage_args(b.dab, D, w.wo, D, M, D, D);
   g.out = b.dattn;
-  gemm<false, true, kStore>(g, D, 1, st);
+  VITIQ_TRY(stage<kStore>(g, D, st));
   // attention backward: dqkv; dbqkv
-  err = attention_bwd(s, f.qkv, attn, b.dattn, f.stats, stash ? stash->pbar : nullptr, b.dqkv,
-                      b.part_frames, st);
-  if (err != cudaSuccess) return err;
+  VITIQ_TRY(attention_bwd(s, f.qkv, attn, b.dattn, f.stats, stash ? stash->pbar : nullptr,
+                          b.dqkv, b.part_frames, st));
   reduce(b.part_frames, s.B, 3 * D, dbqkv, b.scratch, st);
   // QKV projection: dWqkv = x^T dqkv; dx = bf16(dz1 + dqkv Wqkv^T)
-  weight_grad(s, b, x, D, b.dqkv, 3 * D, dwqkv, st);
-  g = tg(b.dqkv, 3 * D, w.wqkv, 3 * D, M, 3 * D, D);
+  VITIQ_TRY(weight_grad(s, b, x, D, b.dqkv, 3 * D, dwqkv, st));
+  g = stage_args(b.dqkv, 3 * D, w.wqkv, 3 * D, M, 3 * D, D);
   g.res32 = b.dz1;
   g.out = dx;
-  gemm<false, true, kResOut>(g, D, 1, st);
-  return cudaSuccess;
+  return stage<kResOut>(g, D, st);
 }
 
 struct Drops {
@@ -1785,4 +1958,66 @@ extern "C" int vitiq_train_layer_bwd_stash(
                &sh, static_cast<cudaStream_t>(stream_ptr));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// One GEMM stage of K3/K4 alone (train_gemm_kernel), to hold it to its plain
+// version (fused_layer_train.train_gemm_plain). epi as Epi. a: A rows [M, K],
+// or (kPartial) act [K, M] with the depth K split into chunks of
+// ceil(ceil(K / splits) / 64) 64-row steps; b: W [K, N] (kBias, kReluDrop,
+// kLnFwd), W [N, K] (kStore, kDpre, kLnBwd, kResOut) or the gradient [K, N]
+// (kPartial). The epilogue's operands as the Stage fields (null where
+// unused; rows of N, f32 vectors of N); LayerNorm stages take N = 64, 128
+// or 256. Dropout (kReluDrop, kLnFwd, kDpre, kLnBwd) at site `site` of layer
+// `layer` and `seed`, row r being token r % L of frame r / L (thresh 0 and
+// scale 1: none). kPartial writes out32 [chunks, M, N]; kDpre and kLnBwd
+// their column sums to part [sums][sum_stride(M)][N], of which the first
+// ceil(M / 64) tiles are the sums'. Returns the error of the launch or of
+// its tensor maps.
+extern "C" int vitiq_train_gemm_bf16(
+    const void* a, const void* b, const void* bias, const void* res, const void* res32,
+    const void* xh, const void* xh16, const void* rstd, const void* gamma, const void* beta,
+    void* out, void* out32, void* xh_out, void* xh_out16, void* rstd_out, void* part, int M,
+    int K, int N, int epi, int splits, int L, uint32_t thresh, float scale, int seed, int layer,
+    int site, void* stream_ptr) {
+  if (M <= 0 || K <= 0 || N <= 0 || N % 64 || epi < kBias || epi > kPartial || splits <= 0 ||
+      L <= 0 || (epi != kPartial && K % 64) || (is_ln(epi) && N != 64 && N != 128 && N != 256))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+  Stage g;
+  if (epi == kPartial) {
+    const long long chunk = ((K + splits - 1) / splits + 63) / 64 * 64;
+    g = stage_args(static_cast<const bf16*>(a), M, static_cast<const bf16*>(b), N, M, chunk, N);
+    g.depth = K;
+    g.splits = (int)((K + chunk - 1) / chunk);
+  } else {
+    g = stage_args(static_cast<const bf16*>(a), K, static_cast<const bf16*>(b),
+                   b_mn_major(epi) ? N : K, M, K, N);
+  }
+  g.bias = static_cast<const float*>(bias);
+  g.res = static_cast<const bf16*>(res);
+  g.res32 = static_cast<const float*>(res32);
+  g.xh = static_cast<const float*>(xh);
+  g.xh16 = static_cast<const bf16*>(xh16);
+  g.rstd = static_cast<const float*>(rstd);
+  g.gamma = static_cast<const float*>(gamma);
+  g.beta = static_cast<const float*>(beta);
+  g.out = static_cast<bf16*>(out);
+  g.out32 = static_cast<float*>(out32);
+  g.xh_out = static_cast<float*>(xh_out);
+  g.xh_out16 = static_cast<bf16*>(xh_out16);
+  g.rstd_out = static_cast<float*>(rstd_out);
+  g.part = static_cast<float*>(part);
+  g.drop = make_drop(Shape{1, L, 64, 1, 64}, thresh, scale, seed, layer, site);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (epi) {
+    case kBias: err = stage<kBias>(g, N, st); break;
+    case kReluDrop: err = stage<kReluDrop>(g, N, st); break;
+    case kLnFwd: err = stage<kLnFwd>(g, N, st); break;
+    case kStore: err = stage<kStore>(g, N, st); break;
+    case kDpre: err = stage<kDpre>(g, N, st); break;
+    case kLnBwd: err = stage<kLnBwd>(g, N, st); break;
+    case kResOut: err = stage<kResOut>(g, N, st); break;
+    case kPartial: err = stage<kPartial>(g, N, st); break;
+  }
+  return (int)err;
 }

@@ -57,6 +57,10 @@ SIGNATURES = {
     "vitiq_train_layer_bwd": ([_P] * 17 + _DROP_ARGS, _I),
     "vitiq_train_layer_fwd_stash": ([_P] * 21 + _DROP_ARGS, _I),
     "vitiq_train_layer_bwd_stash": ([_P] * 23 + _DROP_ARGS, _I),
+    # a, b, bias, res, res32, xh, xh16, rstd, gamma, beta, out, out32, xh_out,
+    # xh_out16, rstd_out, part; M, K, N, epi, splits, L; dropout threshold and
+    # scale, seed, layer index, site; stream
+    "vitiq_train_gemm_bf16": ([_P] * 16 + [_I] * 6 + [_U, _F, _I, _I, _I, _P], _I),
     "vitiq_train_layer_fwd_workspace": ([_I] * 5, ctypes.c_size_t),
     "vitiq_train_layer_bwd_workspace": ([_I] * 5, ctypes.c_size_t),
     "vitiq_train_layer_fwd_stash_workspace": ([_I] * 5, ctypes.c_size_t),

@@ -31,10 +31,18 @@ Dropout is K8's counter-based hash (`vitiq/ops/pallas/train_xpack.py`:
 so the forward and the backward, and the kernels and their plain versions,
 draw the same masks. This stream differs from K3's TPU PRNG stream by design.
 
+The kernels run a chain of stages per layer (the .cu's `forward` and
+`backward`): persistent wgmma GEMM stages fed by TMA (the main loop K1
+shares, `csrc/gemm_wgmma.cuh`) with K3's epilogues, the attention passes,
+LN2's backward rows and fixed-order reductions. One GEMM stage runs alone
+through `train_gemm` (plain version `train_gemm_plain`, one per epilogue of
+`EPILOGUES`); `stage_plan`, `stage_ring` and their helpers mirror which
+instance each stage of a shape takes and its shared-memory ring.
+
 Each wrapper launches its kernel on a CUDA tensor (raising on any build,
 launch or shape error) and runs its plain version on a CPU tensor.
-`launches` counts kernel launches, one per call of a C entry point; the
-plain versions count nothing.
+`launches` counts kernel launches, one per call of a C entry point, and
+`stage_launches` those of `train_gemm`; the plain versions count nothing.
 """
 
 from __future__ import annotations
@@ -60,11 +68,15 @@ STASH_MAX_HEAD_LANES = 1280  # H * Lp bound of the stash (`_stash_supported`)
 
 launches = {"fused_train_layer_fwd": 0, "fused_train_layer_bwd": 0,
             "fused_train_layer_fwd_stash": 0, "fused_train_layer_bwd_stash": 0}
+# one GEMM stage called alone (`train_gemm`): the checks' entry, not the
+# training path's
+stage_launches = {"train_gemm": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, stage_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def attention_bwd_smem_bytes(L: int, d_head: int) -> int:
@@ -261,23 +273,32 @@ def _forward(x, ops, n_head, drop, seed, layer_idx):
     where the kernels round to bf16."""
     wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = ops
     dt = x.dtype
-    B, L, D = x.shape
-    dh = D // n_head
     m1, m2, m3 = _masks(x, w1.shape[1], drop, seed, layer_idx)
     qkv = (_mm(x, wqkv) + bqkv).to(dt)
+    a = _attention_plain(qkv, n_head)
+    attn_flat = a["attn_flat"]
+    x1f, xh1, r1 = _ln((_mm(attn_flat, wo) + bo) * m1 + x.float(), g1, be1)
+    x1 = x1f.to(dt)
+    h = (torch.relu(_mm(x1, w1) + b1) * m2).to(dt)
+    y, xh2, r2 = _ln((_mm(h, w2) + b2) * m3 + x1.float(), g2, be2)
+    return y.to(dt), dict(a, x1=x1, xh1=xh1, r1=r1, h=h, xh2=xh2, r2=r2, masks=(m1, m2, m3))
+
+
+def _attention_plain(qkv: torch.Tensor, n_head: int) -> dict:
+    """The attention forward of the layer (`train_attention_fwd`) on qkv [B,
+    L, 3D] in the activation dtype: the scaled q, k, v per head, the rounded
+    probabilities p and their f32 row sums den, attn per head and flat."""
+    dt = qkv.dtype
+    B, L, D3 = qkv.shape
+    D = D3 // 3
     q, k, v = (_heads(t, n_head) for t in qkv.split(D, dim=-1))
-    qs = (q * (_LOG2E / math.sqrt(dh))).to(dt).float()
+    qs = (q * (_LOG2E / math.sqrt(D // n_head))).to(dt).float()
     s = qs @ k.transpose(-1, -2)  # log2 units
     p = torch.exp2(s - s.amax(dim=-1, keepdim=True)).to(dt).float()
     den = p.sum(dim=-1, keepdim=True)
     attn = ((p @ v) / den).to(dt)
     attn_flat = attn.transpose(1, 2).reshape(B, L, D)
-    x1f, xh1, r1 = _ln((_mm(attn_flat, wo) + bo) * m1 + x.float(), g1, be1)
-    x1 = x1f.to(dt)
-    h = (torch.relu(_mm(x1, w1) + b1) * m2).to(dt)
-    y, xh2, r2 = _ln((_mm(h, w2) + b2) * m3 + x1.float(), g2, be2)
-    return y.to(dt), dict(qs=qs, k=k, v=v, p=p, den=den, attn=attn, attn_flat=attn_flat,
-                          x1=x1, xh1=xh1, r1=r1, h=h, xh2=xh2, r2=r2, masks=(m1, m2, m3))
+    return dict(qs=qs, k=k, v=v, p=p, den=den, attn=attn, attn_flat=attn_flat)
 
 
 def _gradients(x, dy, r, ops, n_head):
@@ -287,9 +308,6 @@ def _gradients(x, dy, r, ops, n_head):
     the gradient stages shared by K3-bwd and K4-bwd."""
     wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = ops
     dt = x.dtype
-    B, L, D = x.shape
-    dh = D // n_head
-    scale2 = _LOG2E / math.sqrt(dh)
     m1, m2, m3 = r["masks"]
     h, x1, attn_flat = r["h"], r["x1"], r["attn_flat"]
 
@@ -316,7 +334,22 @@ def _gradients(x, dy, r, ops, n_head):
     dbo, dwo = colsum(da), wgrad(attn_flat, dab)
     dattn = _mm(dab, wo.t()).to(dt)
 
-    # attention, per head: the flash identity gives the row term
+    dqkv = _attention_bwd_plain(dattn, r, n_head)
+    dqkvb = dqkv.to(dt)
+    dbqkv, dwqkv = colsum(dqkv), wgrad(x, dqkvb)
+    dx = (dz1 + _mm(dqkvb, wqkv.t())).to(dt)
+    grads = [dwqkv, dbqkv, dwo, dbo, dg1, dbe1, dw1, db1, dw2, db2, dg2, dbe2]
+    return dx, [g.to(w.dtype) for g, w in zip(grads, ops)]
+
+
+def _attention_bwd_plain(dattn: torch.Tensor, r: dict, n_head: int) -> torch.Tensor:
+    """The attention backward (`train_attention_bwd`): dqkv [B, L, 3D] in f32
+    from dattn [B, L, D] and the forward's qs, k, v, attn per head and the
+    rounded normalized probabilities pbar; per head, the flash identity gives
+    the row term."""
+    dt = dattn.dtype
+    B, L, D = dattn.shape
+    scale2 = _LOG2E / math.sqrt(D // n_head)
     do = _heads(dattn, n_head)
     pbar = r["pbar"]
     row = (do * r["attn"].float()).sum(dim=-1, keepdim=True)
@@ -324,12 +357,7 @@ def _gradients(x, dy, r, ops, n_head):
     dq = (ds @ r["k"]) * (_LN2 * scale2)
     dk = (ds.transpose(-1, -2) @ r["qs"]) * _LN2
     dv = pbar.transpose(-1, -2) @ do
-    dqkv = torch.cat([t.transpose(1, 2).reshape(B, L, D) for t in (dq, dk, dv)], dim=-1)
-    dqkvb = dqkv.to(dt)
-    dbqkv, dwqkv = colsum(dqkv), wgrad(x, dqkvb)
-    dx = (dz1 + _mm(dqkvb, wqkv.t())).to(dt)
-    grads = [dwqkv, dbqkv, dwo, dbo, dg1, dbe1, dw1, db1, dw2, db2, dg2, dbe2]
-    return dx, [g.to(w.dtype) for g, w in zip(grads, ops)]
+    return torch.cat([t.transpose(1, 2).reshape(B, L, D) for t in (dq, dk, dv)], dim=-1)
 
 
 def fused_train_layer_reference(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
@@ -390,6 +418,199 @@ def fused_train_layer_stash_backward_reference(
                  attn_flat=attn, x1=x1, h=h, xh1=xh1.float(), r1=r1[..., None],
                  xh2=xh2.float(), r2=r2[..., None], masks=masks)
         return _gradients(x, dy, r, ops, n_head)
+
+
+# --------------------------------------------------------------------------
+# the GEMM stages one at a time: plain versions and shared-memory sizing
+# --------------------------------------------------------------------------
+
+# The kernels' GEMM epilogues, in the order of `Epi` in the .cu. The forward
+# stages (bias, relu_drop, ln_fwd) take A [M, K] rows and W [K, N]; the input
+# gradients (B_TRANSPOSED) B = W^T from W [N, K] as stored; the weight
+# gradients (partial) A = act^T from act [depth, K1], in depth splits.
+EPILOGUES = ("bias", "relu_drop", "ln_fwd", "store", "dpre", "ln_bwd", "res_out", "partial")
+B_TRANSPOSED = ("store", "dpre", "ln_bwd", "res_out")
+_COL_SUMS = {"dpre": 1, "ln_bwd": 3}  # column sums an epilogue writes
+GW_MAX_RING = 6
+ROW_TILE = 64  # rows of a column-sum partial
+
+
+def _site_mask(shape, drop, device=None) -> torch.Tensor:
+    """The f32 mask of an activation of `shape` [..., N] whose rows are
+    frames of L tokens: drop = (rate, seed, layer_idx, site, L)."""
+    rate, seed, layer_idx, site, L = drop
+    N, rows = shape[-1], math.prod(shape[:-1])
+    mask = dropout_mask((-(-rows // L), L, N), rate, seed, layer_idx, site, device)
+    return mask.reshape(-1, N)[:rows].reshape(shape)
+
+
+def weight_grad_splits(rows: int) -> int:
+    """Depth splits of a weight gradient over `rows` rows (`Shape::splits`):
+    ~2K rows each, at most 64."""
+    return min(64, max(1, rows // 2048))
+
+
+def depth_chunk(depth: int, splits: int) -> int:
+    """Rows of one depth split: ceil(depth / splits) rounded up to the 64-deep
+    step (`Shape::k_chunk`)."""
+    return _round_up(-(-depth // splits), 64)
+
+
+def _colsum(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, t.shape[-1]).sum(dim=0)
+
+
+def train_gemm_plain(a: torch.Tensor, b: torch.Tensor, epi: str, *, bias=None, res=None,
+                     res32=None, xh=None, rstd=None, gamma=None, beta=None, drop=None,
+                     splits: int = 1):
+    """The plain version of one of K3/K4's GEMM stages (`train_gemm`), at the
+    kernels' rounding points, on activations [..., K] (the plain layer's
+    operations, so that the stages compose to it bit for bit). `drop`:
+    (rate, seed, layer_idx, site, L); None is rate 0. Returns, by `epi`:
+    bias: bf16(a W + bias); relu_drop: bf16(relu(a W + bias) mask);
+    ln_fwd: (bf16(LN(z)), xh f32, 1/std f32 [...]) for z = (a W + bias) mask +
+    res; store: bf16(a W^T); res_out: bf16(res32 + a W^T); dpre: (bf16(d), the
+    column sums of d) for d = (res > 0) (a W^T) mask (res the FFN hidden h
+    as FFN1 leaves it, bf16(relu(.) mask): the kernel takes the mask where h
+    > 0 to be its keep scale);
+    ln_bwd: (bf16(dz mask), dz f32, the column sums of g xh, g and dz mask
+    [3, N]) for g = res32 + a W^T and dz its LN backward; partial: [chunks,
+    K1, N] f32, a^T b over each depth chunk of `depth_chunk(depth, splits)`
+    rows (a = act [depth, K1], b the gradient [depth, N])."""
+    dt = a.dtype
+    if epi == "partial":
+        act, grad = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+        chunk = depth_chunk(act.shape[0], splits)
+        return torch.stack([_mm(act[c:c + chunk].t(), grad[c:c + chunk])
+                            for c in range(0, act.shape[0], chunk)])
+    prod = _mm(a, b.t() if epi in B_TRANSPOSED else b)
+    mask = _site_mask(prod.shape, drop or (0.0, 0, 0, 0, 1), prod.device)
+    if epi == "bias":
+        return (prod + bias).to(dt)
+    if epi == "relu_drop":
+        return (torch.relu(prod + bias) * mask).to(dt)
+    if epi == "ln_fwd":
+        y, xh_, rstd_ = _ln((prod + bias) * mask + res.float(), gamma, beta)
+        return y.to(dt), xh_, rstd_[..., 0]
+    if epi == "store":
+        return prod.to(dt)
+    if epi == "res_out":
+        return (res32 + prod).to(dt)
+    if epi == "dpre":
+        d = torch.where(res.float() > 0, prod * mask, torch.zeros_like(mask))
+        return d.to(dt), _colsum(d)
+    if epi == "ln_bwd":
+        g = res32 + prod
+        sums = [_colsum(g * xh), _colsum(g)]
+        dz = _ln_bwd(g, xh, rstd[..., None], gamma)
+        da = dz * mask
+        return da.to(dt), dz, torch.stack(sums + [_colsum(da)])
+    raise ValueError(f"epi must be one of {EPILOGUES}, got {epi!r}")
+
+
+def random_stage_operands(epi: str, M: int, K: int, N: int, L: int, gen: torch.Generator,
+                          device, seed: int = 1234):
+    """Random operands of one GEMM stage (for `train_gemm` against
+    `train_gemm_plain`) at the shapes it has in a layer of M rows of L
+    tokens: (a, b, keywords). a: A [M, K] (partial: act [K, M], with the
+    gradient [K, N] as b); b: W [K, N] or W [N, K] (B_TRANSPOSED); the
+    epilogue's rows and vectors; dropout 0.1 at `seed` where the epilogue
+    draws a mask, and dpre's h drawn under that mask, as FFN1 leaves it."""
+    def rnd(*shape, scale=1.0, dt=torch.bfloat16):
+        return (scale * torch.randn(shape, generator=gen)).to(device, dt)
+
+    if epi == "partial":
+        return rnd(K, M), rnd(K, N, scale=0.1), {}
+    a = rnd(M, K)
+    b = rnd(N, K, scale=K ** -0.5) if epi in B_TRANSPOSED else rnd(K, N, scale=K ** -0.5)
+    kw = {}
+    if epi in ("bias", "relu_drop", "ln_fwd"):
+        kw["bias"] = rnd(N, scale=0.1, dt=torch.float32)
+    if epi in ("ln_fwd", "ln_bwd"):
+        kw["gamma"] = 1.0 + rnd(N, scale=0.1, dt=torch.float32)
+    if epi == "ln_fwd":
+        kw.update(beta=rnd(N, scale=0.1, dt=torch.float32), res=rnd(M, N))
+    if epi in ("ln_bwd", "res_out"):
+        kw["res32"] = rnd(M, N, dt=torch.float32)
+    if epi == "ln_bwd":
+        kw.update(xh=rnd(M, N, dt=torch.float32),
+                  rstd=(1.0 + 0.1 * torch.rand(M, generator=gen)).to(device))
+    if epi in ("relu_drop", "ln_fwd", "dpre", "ln_bwd"):
+        kw["drop"] = (0.1, seed, 3, 1, L)
+    if epi == "dpre":
+        mask = _site_mask((M, N), kw["drop"], device)
+        kw["res"] = (torch.relu(rnd(M, N, dt=torch.float32)) * mask).bfloat16()
+    return a, b, kw
+
+
+def ln_bwd_rows_plain(dy: torch.Tensor, xh: torch.Tensor, rstd: torch.Tensor,
+                      gamma: torch.Tensor, mask: torch.Tensor):
+    """LN2's backward (`ln_bwd_rows`): (bf16 df = dz mask, dz f32, the column
+    sums of dy xh, dy and df [3, D]) for dy in the activation dtype, xh and
+    rstd [..., 1] as the forward left them."""
+    dt = dy.dtype
+    dy = dy.float()
+    sums = [_colsum(dy * xh), _colsum(dy)]
+    dz = _ln_bwd(dy, xh, rstd, gamma)
+    df = dz * mask
+    return df.to(dt), dz, torch.stack(sums + [_colsum(df)])
+
+
+def stage_slab(epi: str, n: int) -> int:
+    """A stage's slab width BN: D for the LayerNorm stages, else the widest
+    of 256, 128 and 64 that divides its N (`stage<EPI>` in the .cu)."""
+    if epi in ("ln_fwd", "ln_bwd"):
+        return n
+    return 256 if n % 256 == 0 else 128 if n % 128 == 0 else 64
+
+
+def stage_built(epi: str, bn: int, resident: bool) -> bool:
+    """Whether the library holds that instance (`stage_built` in the .cu)."""
+    if epi == "partial":
+        return not resident
+    if epi in ("ln_fwd", "ln_bwd"):
+        return bn != 256 if resident else True
+    if epi == "res_out":
+        return bn == 64 if resident else bn != 64
+    return resident
+
+
+def stage_resident(epi: str, bn: int, k: int) -> bool:
+    """W resident (K <= 256, where that instance is built) or streamed."""
+    return k <= 256 and stage_built(epi, bn, True)
+
+
+def stage_smem_bytes(epi: str, bn: int, k: int, resident: bool, ring: int) -> int:
+    """Shared memory of a stage with `ring` entries (`gemm_smem_bytes` in
+    gemm_wgmma.cuh plus the epilogue's `stage_extra`): alignment, the
+    epilogue's bias / gamma / beta and column-sum scratch, the mbarriers,
+    W's slab (resident) and the ring's entries (an A tile [64, K], or a
+    64-deep step of A [128, 64] and B [64, BN])."""
+    extra = 3 * bn * 4 + 2 * _COL_SUMS.get(epi, 0) * 4 * bn * 4
+    entry = 64 * k * 2 if resident else 128 * 128 + bn * 128
+    return (1024 + extra + 8 * (1 + 2 * GW_MAX_RING) + (bn * k * 2 if resident else 0)
+            + ring * entry)
+
+
+def stage_ring(epi: str, bn: int, k: int, resident: bool) -> int:
+    """The ring's depth in what MAX_SHARED_MEMORY leaves (`gemm_ring`): 0
+    where two entries do not fit, at most GW_MAX_RING."""
+    fixed = stage_smem_bytes(epi, bn, k, resident, 0)
+    ring = (MAX_SHARED_MEMORY - fixed) // (stage_smem_bytes(epi, bn, k, resident, 1) - fixed)
+    return 0 if ring < 2 else min(ring, GW_MAX_RING)
+
+
+def stage_plan(D: int, F: int) -> List[Tuple[str, str, int, int]]:
+    """The GEMM stages K3 and K4 launch at d_model D and FFN width F, as
+    (stage, epilogue, K, N) in launch order: the forward's four (the
+    backward's recompute or rebuild too), then each weight's gradient (K
+    the width of act, the rows of the output) before its input gradient."""
+    return [("qkv", "bias", D, 3 * D), ("out-proj + LN1", "ln_fwd", D, D),
+            ("ffn1", "relu_drop", D, F), ("ffn2 + LN2", "ln_fwd", F, D),
+            ("dW2", "partial", F, D), ("ffn2 dgrad", "dpre", D, F),
+            ("dW1", "partial", D, F), ("ffn1 dgrad + LN1 bwd", "ln_bwd", F, D),
+            ("dWo", "partial", D, D), ("out-proj dgrad", "store", D, D),
+            ("dWqkv", "partial", D, 3 * D), ("qkv dgrad", "res_out", 3 * D, D)]
 
 
 # --------------------------------------------------------------------------
@@ -481,6 +702,74 @@ def fused_train_layer_bwd(x: torch.Tensor, dy: torch.Tensor, ops: Sequence[torch
             ops, n_head, F, drop, seed, layer_idx)
     parts = grads.split([t.numel() for t in ops])
     return dx, [g.view(t.shape).to(t.dtype) for g, t in zip(parts, ops)]
+
+
+def train_gemm(a: torch.Tensor, b: torch.Tensor, epi: str, *, bias=None, res=None, res32=None,
+               xh=None, rstd=None, gamma=None, beta=None, drop=None, splits: int = 1,
+               xh_bf16: bool = False):
+    """One of K3/K4's GEMM stages alone (C entry `vitiq_train_gemm_bf16`) on
+    2-D operands, returning what `train_gemm_plain` returns (the column sums
+    added over the kernel's 64-row tiles in f32; with `xh_bf16` ln_fwd's xh
+    in bf16, as K4-fwd stashes it; ln_bwd reads xh in its dtype). a: [M, K]
+    (partial: act [depth, K1]); b: W [K, N] (bias, relu_drop, ln_fwd), W [N,
+    K] (B_TRANSPOSED) or the gradient [depth, N] (partial); bf16. The plain
+    version for a CPU tensor."""
+    if a.device.type == "cpu":
+        return train_gemm_plain(a, b, epi, bias=bias, res=res, res32=res32, xh=xh, rstd=rstd,
+                                gamma=gamma, beta=beta, drop=drop, splits=splits)
+    if epi not in EPILOGUES:
+        raise ValueError(f"epi must be one of {EPILOGUES}, got {epi!r}")
+    if (a.dim() != 2 or b.dim() != 2 or any(t.dtype != torch.bfloat16 or not t.is_contiguous()
+                                              or t.device != a.device for t in (a, b))):
+        raise ValueError(f"train_gemm takes contiguous bf16 2-D a and b on one device, got "
+                         f"{a.dtype} {tuple(a.shape)}, {b.dtype} {tuple(b.shape)}")
+    dev = a.device
+    if epi == "partial":
+        K, M = a.shape
+        N = b.shape[1]
+        ok = b.shape[0] == K
+    else:
+        M, K = a.shape
+        N, kb = (b.shape[0], b.shape[1]) if epi in B_TRANSPOSED else (b.shape[1], b.shape[0])
+        ok = kb == K and K % 64 == 0
+    if not ok or N % 64 or (epi in ("ln_fwd", "ln_bwd") and N not in SUPPORTED_D_MODEL):
+        raise ValueError(f"train_gemm {epi}: shapes {tuple(a.shape)}, {tuple(b.shape)} do not "
+                         "fit (K and N multiples of 64, LayerNorm rows of 64, 128 or 256)")
+    empty = (lambda shape, dt: torch.empty(shape, dtype=dt, device=dev))
+    out = out32 = xh_out = xh_out16 = rstd_out = part = None
+    if epi == "partial":
+        out32 = empty((-(-K // depth_chunk(K, splits)), M, N), torch.float32)
+    else:
+        out = empty((M, N), torch.bfloat16)
+    if epi == "ln_fwd":
+        xh_out16 = empty((M, N), torch.bfloat16) if xh_bf16 else None
+        xh_out = None if xh_bf16 else empty((M, N), torch.float32)
+        rstd_out = empty((M,), torch.float32)
+    if epi == "ln_bwd":
+        out32 = empty((M, N), torch.float32)
+    if epi in _COL_SUMS:  # [sums][sum_stride(M)][N]: ceil(M / 64) tiles and a spare
+        part = empty((_COL_SUMS[epi], -(-M // 128) * 2, N), torch.float32)
+    xh16 = xh if xh is not None and xh.dtype == torch.bfloat16 else None
+    xh32 = xh if xh is not None and xh16 is None else None
+    rate, seed, layer_idx, site, L = drop if drop is not None else (0.0, 0, 0, 0, 1)
+    thresh, scale = drop_threshold(rate)
+    ptr = (lambda t: None if t is None else t.contiguous().data_ptr())
+    _build.call("vitiq_train_gemm_bf16", dev, a.data_ptr(), b.data_ptr(), ptr(bias), ptr(res),
+                ptr(res32), ptr(xh32), ptr(xh16), ptr(rstd), ptr(gamma), ptr(beta), ptr(out),
+                ptr(out32), ptr(xh_out), ptr(xh_out16), ptr(rstd_out), ptr(part), M, K, N,
+                EPILOGUES.index(epi), splits, L, thresh, scale,
+                (int(seed) + 2 ** 31) % 2 ** 32 - 2 ** 31, layer_idx, site)
+    stage_launches["train_gemm"] += 1
+    if epi == "partial":
+        return out32
+    if epi == "ln_fwd":
+        return out, (xh_out16 if xh_bf16 else xh_out), rstd_out
+    sums = None if part is None else part[:, :-(-M // ROW_TILE)].sum(dim=1)
+    if epi == "dpre":
+        return out, sums[0]
+    if epi == "ln_bwd":
+        return out, out32, sums
+    return out
 
 
 def stash_shapes(x: torch.Tensor, n_head: int):
