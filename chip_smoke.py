@@ -10,7 +10,10 @@ which raises (exit code 1) on failure:
    kernels (attention_fwd, attention_bwd_dq, attention_bwd_dkdv at d_head
    16/32/64) must not spill (`ptxas -v`) and must run HGMMA (their SASS);
    their registers and each one's blocks an SM at one and two warpgroups
-   (`fa.ring_info`) are printed.
+   (`fa.ring_info`) are printed. Every instance of K6's s8 GEMM stage
+   (gemm_s8_kernel, `k6.S8_INSTANCES`) must be in the build, must not spill
+   and must run IGMMA (the integer warpgroup MMA; HGMMA is the bf16 one) and
+   no HGMMA.
 3. kernels: K1 (full fused layers) and K2 (the CLS-row layer) on the GPU
    against their plain PyTorch version on the GPU, on the same bf16 inputs
    and seeded random weights, at the ViT flagship (L=129, F=512, B=256),
@@ -45,9 +48,18 @@ which raises (exit code 1) on failure:
    five layers on the plain version's input and the five layers with the K2
    CLS tail (on dequantized weights) as one stack, by relative L2 and a max
    in quantization steps (K6_LAYER_TOL, K6_STACK_TOL, both printed), and the
-   same at WIDE_SHAPES; K6's FFN1 GEMM stage alone, which must equal the
-   plain int8 GEMM bit for bit, and at rawiq_best's width all four stages
-   (QKV, out-projection and FFN2 on their 256-wide tiles, FFN1).
+   same at WIDE_SHAPES (the stack carries each layer's levels to the next);
+   K6's FFN1 GEMM stage alone, which must equal the plain int8 GEMM bit for
+   bit, and at rawiq_best's width all four (QKV, out-projection and FFN2 on
+   their 256-wide tiles, FFN1). int8-stages: K6's four s8 stage forms alone,
+   as the layer launches them (`k6.qkv_stage`, `out_proj_stage`,
+   `ffn1_stage`, `ffn2_stage`), at the ViT, rawIQ, rawiq_best and
+   vit_tiny_2016 (D, F) and M = 256 L, 1088 (64 mod 128) and 1000 rows,
+   against `k6.s8_stage_reference`: QKV and FFN1 (and FFN1's merged row max)
+   bit for bit, the LayerNorm stages within K6_LAYER_TOL with their levels
+   and scales bit for bit `levels_of` their own bf16 output; 30 launches of
+   each stage and of the layer give the same bits, and the layer given x's
+   levels equals the layer quantizing x.
    int8attn-kernels: K7 (the int8-attention layer) against its plain version
    at the three flagship shapes (B=256, B=256, conv1d L=1025 at B=64, d_head
    16) and rawiq_best's (D=256, d_head 32, B=256): each of five layers on the
@@ -162,8 +174,11 @@ which raises (exit code 1) on failure:
    training forward + backward (bf16, dropout 0) beside K3's and K4's at
    the ViT, rawIQ and rawiq_best shapes (B=4096); K6 per layer at B=4096 (ViT, rawIQ)
    against its plain version and K1, its bound (int8 GEMM operations over
-   1979 TOP/s plus bf16 attention FLOPs over 989 TFLOP/s, or its bytes), and
-   its FFN1 stage against torch._int_mm at that shape; serving frames/s and
+   1979 TOP/s plus bf16 attention FLOPs over 989 TFLOP/s, or its bytes), its
+   time by stage (`torch.profiler`: the row-quantization pass, QKV,
+   attention, out-proj + LN1, FFN1, FFN2 + LN2) beside K1's by stage on the
+   same shape, and its FFN1 stage (levels in, as the layer runs it) against
+   torch._int_mm at that shape (also at rawiq_best's); serving frames/s and
    p50 latency at B=4096 (ViT, rawIQ) and B=2048 (conv1d), through the
    kernels and through the plain layer loop, and at B=4096 (ViT, rawIQ)
    through the int8 path; K7 per layer at B=4096 (ViT, rawIQ, rawiq_best)
@@ -435,6 +450,34 @@ def check_k5_build() -> None:
                   f"{hgmma} HGMMA in its SASS; {fa.ring_info(name, dh)}", flush=True)
             if stores or loads or not hgmma:
                 raise AssertionError(f"K5 {name}<{dh}> spills or runs no HGMMA")
+
+
+def check_k6_build() -> None:
+    """K6's s8 GEMM stage instances (gemm_s8_kernel) in the build: their
+    `ptxas -v` registers and spills (none may spill), and their SASS
+    (cuobjdump, beside nvcc) must run IGMMA, the integer warpgroup MMA (an
+    HGMMA there is the empty `HGMMA.64x8x16.F16 RZ` that ptxas adds beside
+    registers it fences, as in K1's stages); every instance of
+    `k6.S8_INSTANCES` must be there."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    bodies = [block.split("\n", 1) for block in sass.split("Function : ")[1:]]
+    entries = {k6.s8_instance_of(n): v for n, v in
+               _build.ptxas_entries(_build.ptxas_report("fused_encoder_layer")).items()
+               if k6.s8_instance_of(n)}
+    if sorted(entries) != sorted(k6.S8_INSTANCES):
+        raise AssertionError(f"gemm_s8_kernel instances {sorted(entries)}, want "
+                             f"{sorted(k6.S8_INSTANCES)}")
+    for inst, (regs, stores, loads) in sorted(entries.items()):
+        body = [b for n, b in bodies if k6.s8_instance_of(n) == inst]
+        igmma = body[0].count("IGMMA.64x") if len(body) == 1 else 0
+        op, bn, resident = inst
+        print(f"  K6 gemm_s8_kernel<{op}, {bn}, {'resident' if resident else 'streamed'}>: "
+              f"{regs} registers, {stores + loads} bytes spilled, {igmma} IGMMA in its SASS",
+              flush=True)
+        if stores or loads or not igmma:
+            raise AssertionError(f"K6 gemm_s8_kernel {inst} spills or runs no IGMMA")
 
 
 def card_line() -> str:
@@ -1429,6 +1472,88 @@ def check_int8_kernels(device, batch: int = 256, conv1d_batch: int = 64) -> floa
     return worst
 
 
+def check_int8_stages(device, batch: int = 256, launches: int = 30) -> None:
+    """K6's four s8 stage forms alone, as the layer launches them, against
+    `k6.s8_stage_reference` on the same inputs, at the ViT, rawIQ,
+    rawiq_best and vit_tiny_2016 (D, F) and M = batch * L, 1088 (64 mod 128:
+    a streamed stage's last tile half empty) and 1000 (ragged) rows: QKV and
+    FFN1 bit for bit (FFN1's row max too, merged by atomicMax over its
+    slabs), the out-projection and FFN2 (bf16 rows quantized in the stage,
+    LayerNorm epilogue) within K6_LAYER_TOL, their levels and scales bit for
+    bit `k6.levels_of` their own bf16 output; `launches` launches of each
+    stage and of the layer give the same bits, and the layer given x's levels
+    equals the layer quantizing x, its own output levels `levels_of` its
+    output."""
+    gen = torch.Generator().manual_seed(29)
+    for name, L, ffn, D, H in (("vit", 129, 512, 128, 8), ("rawiq", 65, 1024, 128, 8),
+                               ("rawiq_best", 65, 1024, 256, 8),
+                               ("vit_tiny_2016", 17, 256, 64, 4)):
+        layer = quantize_layers(random_layers(1, ffn, seed=41, device=device, D=D))[0]
+        ops = k6.int8_layer_operands(layer, H)
+        wqkv, sqkv, bqkv, wo, so, bo, g1, be1, w1, s1, b1, w2, s2, b2, g2, be2 = ops
+        for M in (batch * L, 1088, 1000):
+            x, attn, res = ((2 * torch.randn((M, D), generator=gen)).to(device, torch.bfloat16)
+                            for _ in range(3))
+            x_levels = k6.levels_of(x)
+            qkv = k6.qkv_stage(x_levels, wqkv, sqkv, bqkv)
+            x1, x1_levels = k6.out_proj_stage(attn, wo, so, bo, res, g1, be1)
+            hid, hmax = k6.ffn1_stage(x1_levels, w1, s1, b1)
+            y, y_levels = k6.ffn2_stage(hid, hmax, w2, s2, b2, x1, g2, be2)
+            torch.cuda.synchronize()
+            same = {
+                "QKV": torch.equal(qkv, k6.s8_stage_reference(wqkv, sqkv, bqkv,
+                                                              levels=x_levels)[0]),
+                "FFN1": all(torch.equal(g, w) for g, w in zip(
+                    (hid, hmax), k6.s8_stage_reference(w1, s1, b1, levels=x1_levels, relu=True,
+                                                       slab=k6.s8_slab_width(ffn))[:2])),
+                "out-proj levels": all(torch.equal(g, w) for g, w in
+                                       zip(x1_levels, k6.levels_of(x1))),
+                "FFN2 levels": all(torch.equal(g, w) for g, w in zip(y_levels, k6.levels_of(y))),
+            }
+            print(f"  {name} K6 s8 stages D={D} F={ffn} M={M}: bit for bit "
+                  + ", ".join(f"{k} {v}" for k, v in same.items()), flush=True)
+            check_int8(f"{name} K6 out-proj + LN1 stage M={M}", x1,
+                       k6.s8_stage_reference(wo, so, bo, a=attn, ln=(res, g1, be1))[0],
+                       K6_LAYER_TOL)
+            check_int8(f"{name} K6 FFN2 + LN2 stage M={M}", y,
+                       k6.s8_stage_reference(w2, s2, b2, a=hid, amax=hmax, ln=(x1, g2, be2))[0],
+                       K6_LAYER_TOL)
+            if not all(same.values()):
+                raise AssertionError(f"{name} M={M}: a K6 s8 stage is not its plain version")
+            if M != batch * L:
+                continue
+            runs = {"QKV": lambda: (k6.qkv_stage(x_levels, wqkv, sqkv, bqkv),),
+                    "out-proj": lambda: k6.out_proj_stage(attn, wo, so, bo, res, g1, be1),
+                    "FFN1": lambda: k6.ffn1_stage(x1_levels, w1, s1, b1),
+                    "FFN2": lambda: k6.ffn2_stage(hid, hmax, w2, s2, b2, x1, g2, be2)}
+            xb = x.reshape(batch, L, D)
+            layer_plain = k6.fused_encoder_layer_int8(xb, ops, H)
+            runs["layer"] = lambda: k6.fused_encoder_layer_int8(xb, ops, H, out_levels=True)
+            first = {k: [t for part in run() for t in (part if isinstance(part, tuple)
+                                                       else (part,))]
+                     for k, run in runs.items()}
+            if not torch.equal(first["layer"][0], layer_plain):
+                raise AssertionError(f"{name}: K6 with out_levels differs from K6 without")
+            if not all(torch.equal(g, w) for g, w in zip(first["layer"][1:],
+                                                          k6.levels_of(layer_plain))):
+                raise AssertionError(f"{name}: K6's output levels are not levels_of its output")
+            carried = k6.fused_encoder_layer_int8(xb, ops, H,
+                                                  x_levels=k6.levels_of(xb))
+            if not torch.equal(carried, layer_plain):
+                raise AssertionError(f"{name}: K6 given x's levels differs from K6 quantizing x")
+            for k, run in runs.items():
+                for _ in range(launches - 1):
+                    again = [t for part in run() for t in (part if isinstance(part, tuple)
+                                                           else (part,))]
+                    if not all(torch.equal(a, b) for a, b in zip(first[k], again)):
+                        raise AssertionError(f"{name}: K6's {k} changed its bits over "
+                                             f"{launches} launches")
+            print(f"  {name} K6 s8 stages and layer: {launches} launches each give the same bits; "
+                  f"the layer given x's levels equals the layer quantizing x", flush=True)
+        del layer, ops, x, attn, res, qkv, x1, hid, y
+        torch.cuda.empty_cache()
+
+
 def int8_serve_check(label: str, model_cfg, stats, device, sizes, buckets) -> dict:
     """Serve ragged requests through `Server` over the int8 W8A8 twin of a
     model (random weights): every counter is reset just before each request
@@ -1892,37 +2017,94 @@ def time_serving_layers(name: str, L: int, ffn: int, B: int, D: int, device, car
     return t
 
 
+# K6's kernels a layer call, in launch order
+K6_STAGES = ("row quantization", "QKV", "attention", "out-proj + LN1", "FFN1", "FFN2 + LN2")
+
+
+def profile_stages(layer, labels, kind, calls: int = 20) -> list:
+    """A layer's time by stage: `torch.profiler` over `calls` calls of
+    layer(), each call's kernels told apart by kind(name) in launch order
+    (`labels`, as kinds). The profiler can miss kernels of a window (a full
+    smoke run kept 6 of 10 calls whole), so the split averages the calls it
+    holds whole, at least half of them. Returns each stage's ms."""
+    for _ in range(2):
+        layer()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(calls):
+            layer()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0),
+                     key=lambda e: e.time_range.start)
+    kinds = [kind(e.name) for e in kernels]
+    n = len(labels)
+    whole = [kernels[i:i + n] for i in range(len(kernels) - n + 1) if kinds[i:i + n] == labels]
+    if len(whole) < calls // 2:
+        raise AssertionError(f"{len(whole)} whole layer calls in the profile of {calls}: "
+                             f"{kinds[:12]}")
+    return [sum(device_us(c[i]) for c in whole) / len(whole) / 1e3 for i in range(n)]
+
+
+def k6_kind(name: str) -> str:
+    """A K6 call's kernel by name: the row-quantization pass, the attention
+    core, an s8 stage reading levels or quantizing bf16 rows."""
+    if "rowquant_kernel" in name:
+        return "rowquant"
+    if "attention_core_kernel" in name:
+        return "attention"
+    if "gemm_s8_kernel" in name:
+        return "quant_a" if "MmaS8QuantA" in name else "levels"
+    return name
+
+
 def time_int8_layers(name: str, L: int, ffn: int, device, card: str, B: int = 4096,
                      D: int = 128) -> dict:
     """K6 on one layer at [B, L, D] against its plain version and K1 on the
-    same float weights; its FFN1 stage alone against the yardstick
-    torch._int_mm (int8 x int8 -> int32 only: no row quantization, no
-    dequant epilogue), which the port never calls."""
+    same float weights, both by stage (`torch.profiler`); its FFN1 stage alone
+    as the layer runs it (x1's levels in: `k6.ffn1_stage`) against the
+    yardstick torch._int_mm (int8 x int8 -> int32 only: no dequant
+    epilogue, no row max), which the port never calls, and with its rows
+    quantized by the separate pass (`int8_gemm`, prequant)."""
     float_layer = random_layers(1, ffn, seed=13, device=device, D=D)[0]
     ops = k6.int8_layer_operands(quantize_layers([float_layer])[0], 8)
     ops1 = fel.layer_operands(float_layer, 8)
     gen = torch.Generator().manual_seed(3)
     x = torch.randn((B, L, D), generator=gen).to(device, torch.bfloat16)
     a = torch.randn((B * L, D), generator=gen).to(device, torch.bfloat16)
-    a8 = torch.randint(-127, 128, (B * L, D), generator=gen, dtype=torch.int8).to(device)
+    a_levels = k6.levels_of(a)
+    a8 = a_levels.q
     w1, s1, b1 = ops[8:11]
     with torch.no_grad():
         t = {
             "k6_ms": cuda_ms(lambda: k6.fused_encoder_layer_int8(x, ops, 8), 20),
             "k6_plain_ms": cuda_ms(lambda: k6.fused_layer_int8_reference(x, ops, 8), 5, warmup=1),
             "k1_ms": cuda_ms(lambda: fel.fused_encoder_layer(x, ops1, 8), 20),
-            "k6_ffn1_ms": cuda_ms(lambda: k6.int8_gemm(a, w1, s1, b1, relu=True, prequant=True),
-                                  20),
+            "k6_ffn1_ms": cuda_ms(lambda: k6.ffn1_stage(a_levels, w1, s1, b1), 20),
+            "k6_ffn1_prequant_ms": cuda_ms(
+                lambda: k6.int8_gemm(a, w1, s1, b1, relu=True, prequant=True), 20),
             "int_mm_ms": cuda_ms(lambda: torch._int_mm(a8, w1.t()), 20),
         }
+        t["k6_stages"] = profile_stages(
+            lambda: k6.fused_encoder_layer_int8(x, ops, 8),
+            ["rowquant", "levels", "attention", "quant_a", "levels", "quant_a"], k6_kind)
+        t["k1_stages"] = profile_stages(lambda: fel.fused_encoder_layer(x, ops1, 8), K1_KINDS,
+                                        k1_kind)
     b = layer_bounds(B, L, ffn, D)
     t.update({"k6": b["k6"], "k6_ffn1": b["k6_ffn1"]})
     print(f"  {name} int8 layer B={B} L={L} F={ffn} D={D}: K6 {t['k6_ms']:.4f} ms vs plain "
           f"{t['k6_plain_ms']:.4f} ms vs K1 {t['k1_ms']:.4f} ms (K6 bound {b['k6'][0]:.4f} ms by "
-          f"{b['k6'][1]}); FFN1 stage [{B * L}, {D}] x [{D}, {ffn}]: K6 stage "
+          f"{b['k6'][1]}); FFN1 stage [{B * L}, {D}] x [{D}, {ffn}] from levels: K6 stage "
           f"{t['k6_ffn1_ms']:.4f} ms vs torch._int_mm {t['int_mm_ms']:.4f} ms (stage bound "
-          f"{b['k6_ffn1'][0]:.4f} ms by {b['k6_ffn1'][1]})  [{card}]", flush=True)
-    del x, a, a8
+          f"{b['k6_ffn1'][0]:.4f} ms by {b['k6_ffn1'][1]}); with the row-quantization pass "
+          f"(int8_gemm, prequant) {t['k6_ffn1_prequant_ms']:.4f} ms  [{card}]", flush=True)
+    print(f"  {name} K6 layer by stage (torch.profiler): " + ", ".join(
+        f"{s} {v:.4f} ms" for s, v in zip(K6_STAGES, t["k6_stages"]))
+        + f"; sum {sum(t['k6_stages']):.4f} ms. K1 by stage: " + ", ".join(
+        f"{s} {v:.4f} ms" for s, v in zip(K1_STAGES, t["k1_stages"]))
+        + f"; sum {sum(t['k1_stages']):.4f} ms  [{card}]", flush=True)
+    del x, a, a8, a_levels
     torch.cuda.empty_cache()
     return t
 
@@ -1987,7 +2169,8 @@ def layer_bounds(B: int, L: int, F: int, D: int = 128, H: int = 8) -> dict:
     its attention 8 L^2 dh per frame-head (dP, dV, dQ, dK). K6: its GEMMs
     as int8 operations, its attention as bf16 FLOPs; its weights int8 with
     f32 scales, biases and LN parameters. `k6_ffn1` is K6's FFN1 stage
-    alone (bf16 rows in, bf16 hidden out). K7: K1's GEMMs as bf16 FLOPs, its
+    alone (int8 levels and their scales in, bf16 hidden and each row's max
+    out). K7: K1's GEMMs as bf16 FLOPs, its
     attention as int8 operations, the scores 2 L^2 dh and P [v | 1] 2 L^2
     (dh + 1) per frame-head (the function's one ones column; the TPU
     kernel pads [v | ones] to 2 dh for its MXU, which the function does not
@@ -2002,7 +2185,7 @@ def layer_bounds(B: int, L: int, F: int, D: int = 128, H: int = 8) -> dict:
     int8_weights = (4 * D * D + 2 * D * F) * 1.0 + (14 * D + 2 * F) * 4.0
     return {
         "k6": bound(attn, 2 * act + int8_weights, int8_ops=gemm_flops(M, D, F)),
-        "k6_ffn1": bound(0.0, act + M * F * 2.0 + D * F + 2 * F * 4.0,
+        "k6_ffn1": bound(0.0, M * D + M * 4.0 + M * F * 2.0 + M * 4.0 + D * F + 2 * F * 4.0,
                          int8_ops=2.0 * M * D * F),
         "k7": bound(gemm_flops(M, D, F), 2 * act + weight_bytes(D, F),
                     int8_ops=2.0 * B * H * L * L * (2 * dh + 1)),
@@ -2222,6 +2405,18 @@ P3_ALL_ROWS = ("vit", "conv1d")
 P3_SHAPES = (("vit", 8192, 129, 128, 512, 8), ("conv1d", 256, CONV1D_L, 128, 1024, 8),
              ("rawiq_best", 4096, 65, 256, 1024, 8))
 K1_STAGES = ("QKV", "attention", "out-proj + LN1", "FFN1", "FFN2 + LN2")
+# a K1 call's five kernels, told by template and order: the QKV GEMM (bias
+# epilogue), the attention core, out-proj + LN1 (LN epilogue), FFN1 (bias
+# epilogue with ReLU), FFN2 + LN2
+K1_KINDS = ["bias", "attention", "ln", "bias", "ln"]
+
+
+def k1_kind(name: str) -> str:
+    if "attention_core_kernel" in name:
+        return "attention"
+    if "gemm_wgmma_kernel<0," in name:
+        return "bias"
+    return "ln" if "gemm_wgmma_kernel<2," in name else name
 
 
 def check_probe_builds() -> None:
@@ -2432,39 +2627,12 @@ def profile_k1_stages(name: str, B: int, L: int, D: int, F: int, H: int, device,
     with torch.no_grad():
         for label, layer in (("K1", fel.fused_encoder_layer),
                              ("no-exp", p3.fused_encoder_layer_noexp)):
-            for _ in range(2):
-                layer(x, ops, H)
-            torch.cuda.synchronize()
-            activities = [torch.profiler.ProfilerActivity.CPU,
-                          torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=activities) as prof:
-                for _ in range(calls):
-                    layer(x, ops, H)
-                torch.cuda.synchronize()
-            kernels = sorted((e for e in prof.events()
-                              if e.device_type == torch.autograd.DeviceType.CUDA
-                              and device_us(e) > 0), key=lambda e: e.time_range.start)
-            # a call's five kernels, told by template and order: the QKV GEMM
-            # (bias epilogue), the attention core, out-proj + LN1 (LN
-            # epilogue), FFN1 (bias epilogue with ReLU), FFN2 + LN2. The
-            # profiler can miss kernels of a window (a full smoke run kept 6
-            # of 10 calls whole), so the split averages the calls it holds
-            # whole, at least half of them.
-            kinds = ["attention" if "attention_core_kernel" in e.name else
-                     next((k for t, k in (("gemm_wgmma_kernel<0,", "bias"),
-                                          ("gemm_wgmma_kernel<2,", "ln")) if t in e.name), e.name)
-                     for e in kernels]
-            whole = [kernels[i - 1:i + 4] for i, k in enumerate(kinds) if k == "attention"
-                     and kinds[i - 1:i + 4] == ["bias", "attention", "ln", "bias", "ln"]]
-            if len(whole) < calls // 2:
-                raise AssertionError(f"{name}: {len(whole)} whole layer calls in {label}'s "
-                                     f"profile of {calls}: {kinds[:12]}")
-            stages = [sum(device_us(c[i]) for c in whole) / len(whole) / 1e3 for i in range(5)]
+            stages = profile_stages(lambda: layer(x, ops, H), K1_KINDS, k1_kind, calls)
             split[label] = stages
             total = sum(stages)
-            print(f"  {name} {label} layer B={B} L={L} D={D} F={F} by stage (torch.profiler, "
-                  f"{len(whole)} of {calls} calls whole): " + ", ".join(
-                      f"{s} {t:.4f} ms ({t / total:.3f})" for s, t in zip(K1_STAGES, stages))
+            print(f"  {name} {label} layer B={B} L={L} D={D} F={F} by stage (torch.profiler): "
+                  + ", ".join(f"{s} {t:.4f} ms ({t / total:.3f})"
+                              for s, t in zip(K1_STAGES, stages))
                   + f"; sum {total:.4f} ms  [{card}]", flush=True)
     k1, ne = split["K1"], split["no-exp"]
     split["exp_share_attention"] = (k1[1] - ne[1]) / k1[1]
@@ -2589,11 +2757,15 @@ def main() -> int:
         return 0
     check_train_spills()
     check_k5_build()
+    check_k6_build()
 
     errs = check_kernels(device)
     errs["k1_parts"] = check_k1_parts(device)
     errs.update(check_attention_kernels(device))
     errs["k6"] = check_int8_kernels(device)
+    print("phase int8-stages: K6's s8 stages alone vs their plain versions on the GPU",
+          flush=True)
+    check_int8_stages(device)
     errs["k7"] = check_int8attn_kernels(device)
 
     print("phase serve: ragged requests through Server, bf16 kernels vs f32 path", flush=True)

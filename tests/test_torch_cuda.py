@@ -23,6 +23,13 @@ tiles). The configurations of the JAX package that need the wider kernels
 served, evaluated in float and int8, and trained for an epoch under `tpu`
 numerics through K3 or K4, with the launches of each kernel counted.
 
+K6's four s8 GEMM stages (s8 wgmma) are held alone, each in the form the
+layer launches it, to `s8_stage_reference`: the bias and ReLU stages bit
+for bit, the LayerNorm stages by K6's layer tolerance with their int8
+levels and scales bit for bit `levels_of` their own bf16 output; 30
+launches of each stage and of the layer give the same bits, and every s8
+instance runs IGMMA without a spill.
+
 K7 (the int8-attention layer) is held as K6 is, by relative L2 and a max in
 quantization steps (one layer 1e-3 and 2 steps, which K1's bf16 core in
 its place does not pass; a stack with the K2 tail 2e-2 and 4 steps: its
@@ -931,6 +938,112 @@ def test_int8_gemm_stage_is_exact(cuda, M, K, N, relu, prequant):
                        torch.zeros(N, device=cuda), relu, prequant)
     torch.cuda.synchronize()
     assert torch.equal(got.float().cpu(), torch.relu(sums) if relu else sums)
+
+
+def _stage_operands(d, ffn, M, cuda):
+    """A quantized layer's 16 operands (n_head 4) and a maker of seeded bf16
+    rows [M, n] for K6's stages alone."""
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
+
+    ops = k6.int8_layer_operands(_qlayers(1, ffn, cuda, 4, d)[0], 4)
+    gen = torch.Generator().manual_seed(M + d)
+    return ops, lambda n: (2 * torch.randn((M, n), generator=gen)).to(cuda, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,ffn", [(128, 512), (128, 1024), (256, 1024), (64, 256), (64, 512),
+                                   (128, 384)])
+@pytest.mark.parametrize("M", [1088, 1000])  # 64 mod 128 (a streamed stage's half tile), ragged
+def test_int8_s8_stages_match_their_plain_versions(cuda, d, ffn, M):
+    """Each of K6's four s8 stage forms alone, as the layer launches it,
+    against `s8_stage_reference` on the same inputs: QKV and FFN1 (levels in,
+    bias / ReLU epilogue, FFN1's row max merged by atomicMax) bit for bit;
+    the out-projection and FFN2 (bf16 rows quantized in the stage, LayerNorm
+    epilogue) within K6's layer tolerance, their levels and scales bit for
+    bit `levels_of` their own bf16 output. 30 launches of each give the same
+    bits (the TMA rings)."""
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
+
+    ops, rows = _stage_operands(d, ffn, M, cuda)
+    wqkv, sqkv, bqkv, wo, so, bo, g1, be1, w1, s1, b1, w2, s2, b2, g2, be2 = ops
+    x, attn, res = rows(d), rows(d), rows(d)
+    x_levels = k6.levels_of(x)
+    runs = {
+        "qkv": lambda: (k6.qkv_stage(x_levels, wqkv, sqkv, bqkv),),
+        "out_proj": lambda: k6.out_proj_stage(attn, wo, so, bo, res, g1, be1),
+    }
+    qkv = runs["qkv"]()[0]
+    want = k6.s8_stage_reference(wqkv, sqkv, bqkv, levels=x_levels)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(qkv, want)
+    x1, x1_levels = runs["out_proj"]()
+    want, _, _ = k6.s8_stage_reference(wo, so, bo, a=attn, ln=(res, g1, be1))
+    torch.cuda.synchronize()
+    _assert_int8_close(x1, want, K6_LAYER_TOL)
+    assert all(torch.equal(g, w) for g, w in zip(x1_levels, k6.levels_of(x1)))
+    runs["ffn1"] = lambda: k6.ffn1_stage(x1_levels, w1, s1, b1)
+    hid, hmax = runs["ffn1"]()
+    want, want_max, _ = k6.s8_stage_reference(w1, s1, b1, levels=x1_levels, relu=True,
+                                              slab=k6.s8_slab_width(ffn))
+    torch.cuda.synchronize()
+    assert torch.equal(hid, want) and torch.equal(hmax, want_max)
+    assert torch.equal(hmax.view(torch.float32), hid.float().amax(dim=-1))
+    runs["ffn2"] = lambda: k6.ffn2_stage(hid, hmax, w2, s2, b2, x1, g2, be2)
+    y, y_levels = runs["ffn2"]()
+    want, _, _ = k6.s8_stage_reference(w2, s2, b2, a=hid, amax=hmax, ln=(x1, g2, be2))
+    torch.cuda.synchronize()
+    _assert_int8_close(y, want, K6_LAYER_TOL)
+    assert all(torch.equal(g, w) for g, w in zip(y_levels, k6.levels_of(y)))
+    def flat(out):
+        return [t for part in out for t in (part if isinstance(part, tuple) else (part,))]
+
+    for name, run in runs.items():
+        first = flat(run())
+        for _ in range(29):
+            assert all(torch.equal(a, b) for a, b in zip(first, flat(run()))), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,ffn,n_head", [(128, 512, 8), (256, 1024, 8), (64, 256, 4)])
+def test_int8_layer_carries_levels_and_repeats_its_bits(cuda, d, ffn, n_head):
+    """K6 given x's levels equals K6 quantizing x itself, bit for bit; the
+    levels it writes for the next layer are `levels_of` its output; 30
+    launches give the same bits (M = 37 * 17 = 629, ragged)."""
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
+
+    ops = k6.int8_layer_operands(_qlayers(1, ffn, cuda, n_head, d)[0], n_head)
+    x = torch.randn((37, 17, d), generator=torch.Generator().manual_seed(2)).to(
+        cuda, torch.bfloat16)
+    plain = k6.fused_encoder_layer_int8(x, ops, n_head)
+    y, levels = k6.fused_encoder_layer_int8(x, ops, n_head, x_levels=k6.levels_of(x),
+                                            out_levels=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, plain)
+    assert all(torch.equal(g, w) for g, w in zip(levels, k6.levels_of(y)))
+    for _ in range(29):
+        assert torch.equal(k6.fused_encoder_layer_int8(x, ops, n_head), plain)
+
+
+@pytest.mark.cuda
+def test_int8_stages_run_s8_wgmma_and_do_not_spill(cuda):
+    """Every instance of K6's s8 stage (gemm_s8_kernel): no spill in the
+    build's `ptxas -v` report, IGMMA (the integer warpgroup MMA) in its
+    SASS. (ptxas may add an empty `HGMMA.64x8x16.F16 RZ` beside the
+    registers it fences, as it does in K1's stages.)"""
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
+
+    sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
+                           str(_build.build())], capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    bodies = dict(block.split("\n", 1) for block in sass.split("Function : ")[1:])
+    entries = {k6.s8_instance_of(n): v
+               for n, v in _build.ptxas_entries(_build.ptxas_report("fused_encoder_layer")).items()
+               if k6.s8_instance_of(n)}
+    assert sorted(entries) == sorted(k6.S8_INSTANCES)
+    for inst, (regs, stores, loads) in entries.items():
+        assert regs > 0 and stores == loads == 0, (inst, regs, stores, loads)
+        body = [b for n, b in bodies.items() if k6.s8_instance_of(n) == inst]
+        assert len(body) == 1 and "IGMMA.64x" in body[0], inst
 
 
 @pytest.mark.cuda

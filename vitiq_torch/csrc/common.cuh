@@ -1,5 +1,5 @@
 // Device helpers shared by the port's kernels (sm_90a): bf16 packing, warp
-// and quad reductions, cp.async, the bf16 mma.sync.m16n8k16 tile and the s8
+// and quad reductions, the bf16 mma.sync.m16n8k16 tile and the s8
 // mma.sync.m16n8k32 tile.
 #pragma once
 
@@ -28,21 +28,6 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Copy 16 bytes from device to shared memory without staging in registers;
-// src_bytes = 0 writes zeros (rows past the end of an operand).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __host__ __device__ __forceinline__ int round16(int n) { return (n + 15) & ~15; }

@@ -120,31 +120,48 @@
 //   VITIQ_V3_PROBE                                -> timing-only surgery; none.
 //
 // K6 (vitiq_encoder_layer_int8_full) is K1 with its four GEMM stages made
-// W8A8 (gemm_int8_kernel), the attention stage K1's one-pass core
-// (attention_core_kernel):
+// W8A8, the attention stage K1's one-pass core (attention_core_kernel):
 //   int8_gemm(t) = (f32(rowquant(t) @ Wq^T) * s_row) * s_col + b, with
 //   s_row = max(max |t_row|, 1e-8) / 127 over the whole bf16 row and
-//   rowquant(t) = clip(rint(t / s_row), -127, 127), int32 accumulation;
+//   rowquant(t) = clip(rint(t / s_row), -127, 127), s32 accumulation;
 //   qkv = bf16(int8_gemm(x)); attn as K1; x1 = bf16(LN(int8_gemm(attn) + x));
 //   h = bf16(relu(int8_gemm(x1))); y = bf16(LN(int8_gemm(h) + x1)).
-// Each row is quantized once per stage, by whoever sees it whole: x by a
-// row-quantization pass (rowquant_kernel) before the QKV stage; x1 by the
-// out-projection's LN epilogue, which holds whole rows (its tile is BN = D
-// wide) and writes the bf16 row and its int8 levels and scale; attn and the
-// FFN hidden by the prologue of the stage that reads them, a stage with one
-// column tile, D wide (the FFN2 stage reads each bf16 hidden row once for
-// its scale, then quantizes it tile by tile), so no stage needs a whole
-// hidden row in one block. The D = 256 stages hold a 32 x 64 warp tile of
-// int32 sums (64 registers) and run two blocks per SM; the narrower ones run
-// four, capped at 64 registers.
-// Products are s8 x s8 -> s32 mma.sync.m16n8k32 tiles; ldmatrix transposes
-// only 16-bit elements, so the int8 W operand is kept K-contiguous, [N, K].
-// Bound at the ViT shape
-// (L = 129, F = 512): ~51 M int8 ops per frame and layer (~26 us per 1000
-// frames at 1979 TOP/s) against the same ~0.7 MB of bf16 activation traffic
-// as K1 (~0.2 ms per 1000 frames at 3.35 TB/s): with the intermediates'
-// round trips counted, device memory bounds it, more so than K1, since the
-// int8 rate is twice the bf16 one. No wgmma or TMA yet.
+// Its four stages (gemm_s8_kernel) run K1's persistent main loop
+// (gemm_wgmma.cuh) on Hopper's s8 warpgroup MMA, wgmma m64nNk32 s32.s8.s8,
+// s32 accumulators in registers, the int8 W [N, K] (nn.Linear's layout) a
+// K-major B fed by TMA: resident where K = D <= 256 (QKV, out-projection,
+// FFN1: the warpgroups in ping-pong, each on its own ring of A tiles),
+// streamed in 128-deep steps for FFN2. The epilogues work in registers:
+// dequant with each product rounded as the plain version's, then bias,
+// ReLU, or residual + LayerNorm (each row of an m64 tile lies in one quad),
+// bf16 stored 16 bytes a thread. A stage equals its plain version bit for
+// bit: the same f32 row scales, the same levels (IEEE quotients without a
+// divide, gemm_wgmma.cuh: quant_div), exact s32 sums, the same f32 dequant.
+// Each operand is quantized where whole rows already are (bytes at the ViT
+// shape, B = 4096: M = 528,384 rows, D = 128, F = 512):
+//   x -> QKV     a row-quantization pass (rowquant_kernel: x read, 135.3 MB;
+//                levels and scales written, 69.7 MB) for a stack's first
+//                layer; the previous layer's FFN2 epilogue writes the next
+//                one's levels and scales (69.7 MB), so QKV reads 69.7 MB of
+//                levels, not 135.3 MB of bf16, and the stack quantizes once;
+//   x1 -> FFN1   the out-projection's LN epilogue (BN = D: whole rows)
+//                writes x1's levels and scales beside x1 (69.7 MB);
+//   attn -> out-projection   quantized in registers (MmaS8QuantA): the
+//                stage's resident A tile [64, D] holds whole bf16 rows, so
+//                their absmax comes from shared memory (no bytes beyond the
+//                tile) and each warp's fragments are quantized from it into
+//                the register-A operand of the wgmma;
+//   hid -> FFN2  FFN1's epilogue takes each row's max over its slab (ReLU:
+//                the values are >= 0) and merges the slabs with atomicMax on
+//                the f32 bits into a [M] scratch (2.1 MB; the out-projection
+//                zeroes it), which FFN2 reads (2.1 MB) to quantize its
+//                streamed bf16 tiles in registers: no pass over hid (541.1
+//                MB) for its scales.
+// Bound at the ViT shape: ~208 G int8 operations a layer (0.105 ms at 1979
+// TOP/s) and the attention core's bf16 FLOPs (0.035 ms at 989 TFLOP/s)
+// against ~3 GB of activation traffic between the stages (qkv, attn, x1 and
+// hid each written and read, hid alone 1.08 GB; ~0.9 ms at 3.35 TB/s): the
+// intermediates' round trips through device memory bound it, as K1's.
 // VITIQ_FUSED_VERSION=v1 (fused_encoder_layer_int8 -> _fused_layer_kernel_int8)
 //   -> K6: the same W8A8 layer with the softmax scale applied to f32 scores
 //   of the bf16-rounded q instead of folded into q's dequant scales and
@@ -183,22 +200,11 @@
 
 namespace {
 
-constexpr int BM = 64;    // GEMM tile rows
-constexpr int GEMM_THREADS = 256;  // K6's s8 GEMM: 8 warps, 2 x 4 warp tiles of 32 x BN/4
 constexpr int ATTN_WARPS = 4;
 constexpr int MAX_SMEM = 232448;  // shared memory a block may use on Hopper
-constexpr int STATIC_SMEM = 48 * 1024;  // static shared memory a block may use
 constexpr float LN_EPS = 1e-12f;
-constexpr float ROW_SCALE_FLOOR = 1e-8f;  // K6's row scale: max(absmax, 1e-8) / 127
 
-// The f32 staging tile of K6's GEMM stages, [BM][c_ld]: BN columns padded
-// against bank conflicts.
-template <int BN>
-__host__ __device__ constexpr int c_ld() { return BN + 4; }
-
-// kBiasResidualLNQuant: kBiasResidualLN that also writes the bf16 output row
-// quantized for the next int8 GEMM (int8 row and its scale), K6 only.
-enum Epilogue { kBias = 0, kBiasRelu = 1, kBiasResidualLN = 2, kBiasResidualLNQuant = 3 };
+enum Epilogue { kBias = 0, kBiasResidualLN = 2 };
 
 struct GemmArgs {
   const bf16* a;      // A rows: row r starts at a + r * lda, K contiguous values
@@ -216,40 +222,17 @@ struct GemmArgs {
   long long ldr;
   const float* gamma;
   const float* beta;
-  int8_t* cq;         // kBiasResidualLNQuant: the output rows quantized, [m, BN]
-  float* cscale;      // and their scales [m]
-  // the bf16 wgmma stages' kBias epilogue: then ReLU. A runtime flag there
-  // (K6's s8 stages take kBiasRelu as a template argument): FFN1 then shares
-  // the QKV stage's instances instead of adding one wgmma instance per slab
-  // width and W layout to every build, for one warp-uniform branch a tile.
+  // the kBias epilogue: then ReLU. A runtime flag: FFN1 then shares the QKV
+  // stage's instances instead of adding one wgmma instance per slab width
+  // and W layout to every build, for one warp-uniform branch a tile.
   int relu;
 };
 
-// K6's activation quantization: the row scale from the row's absmax, and a
-// value's level, clip(rint(v / s), -127, 127) with an IEEE divide and round
-// half to even, as the TPU kernel's _row_quant.
-__device__ __forceinline__ float row_scale_of(float amax) {
-  return fmaxf(amax, ROW_SCALE_FLOOR) / 127.0f;
-}
-
-__device__ __forceinline__ int8_t quantize1(float v, float s) {
-  return static_cast<int8_t>(max(-127, min(127, __float2int_rn(__fdiv_rn(v, s)))));
-}
-
-__device__ __forceinline__ uint32_t quantize4(float v0, float v1, float v2, float v3, float s) {
-  const float v[4] = {v0, v1, v2, v3};
-  uint32_t packed = 0u;
-#pragma unroll
-  for (int b = 0; b < 4; ++b)
-    packed |= (static_cast<uint32_t>(quantize1(v[b], s)) & 0xffu) << (8 * b);
-  return packed;
-}
-
-// 8 bf16 (one 16-byte chunk) -> 8 int8 levels (one 8-byte chunk)
-__device__ __forceinline__ uint2 quantize8(const uint4& chunk, float s) {
-  const bf16* e = reinterpret_cast<const bf16*>(&chunk);
-  auto f = [&](int i) { return __bfloat162float(e[i]); };
-  return make_uint2(quantize4(f(0), f(1), f(2), f(3), s), quantize4(f(4), f(5), f(6), f(7), s));
+// 8 bf16 (one 16-byte chunk) -> 8 int8 levels (one 8-byte chunk) with the
+// row's scale s and y = RN(1 / s)
+__device__ __forceinline__ uint2 quantize8(const uint4& chunk, float s, float y) {
+  return make_uint2(quant4(make_uint2(chunk.x, chunk.y), s, y),
+                    quant4(make_uint2(chunk.z, chunk.w), s, y));
 }
 
 __device__ __forceinline__ float absmax8(const uint4& chunk, float amax) {
@@ -259,286 +242,365 @@ __device__ __forceinline__ float absmax8(const uint4& chunk, float amax) {
   return amax;
 }
 
-template <int BN>
-__host__ __device__ constexpr int c_bytes() { return BM * c_ld<BN>() * (int)sizeof(float); }
+// ---- K6: the row-quantization pass and the s8 GEMM stages -----------------
+constexpr int MAX_QUANT_K = 1024;  // rowquant_kernel: 4 chunks of 8 per lane
 
-// K6's GEMM epilogue over the block's f32 product tile Cs [BM][c_ld] (rows
-// m0.., columns n0..): + bias, + bias then ReLU, or + bias + residual then
-// LayerNorm over the whole row (the tile holds all D = BN columns), the same
-// arithmetic as the bf16 stages' (gemm_wgmma_epilogue), whose accumulators start
-// from the bias and the residual: the same sums in another order.
-template <int EPI, int BN>
-__device__ __forceinline__ void gemm_epilogue(const float* Cs, const GemmArgs& p, long long m0,
-                                              int n0, int tid) {
-  constexpr int C_LD = c_ld<BN>();
-  const int warp = tid >> 5, lane = tid & 31;
-  if constexpr (EPI == kBiasResidualLN || EPI == kBiasResidualLNQuant) {
-    // one warp per row, BN / 32 columns per lane; the tile holds the whole row
-    constexpr int PER_LANE = BN / 32;
-    for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
-      const long long gm = m0 + r;
-      if (gm >= p.m) break;  // warp-uniform
-      float v[PER_LANE];
-      float s = 0.f;
-#pragma unroll
-      for (int t = 0; t < PER_LANE; ++t) {
-        const int c = lane + 32 * t;
-        v[t] = Cs[r * C_LD + c] + p.bias[c] + __bfloat162float(p.res[gm * p.ldr + c]);
-        s += v[t];
-      }
-      const float mean = warp_sum(s) * (1.0f / BN);
-      float q = 0.f;
-#pragma unroll
-      for (int t = 0; t < PER_LANE; ++t) {
-        const float d = v[t] - mean;
-        q += d * d;
-      }
-      const float rstd = rsqrtf(warp_sum(q) * (1.0f / BN) + LN_EPS);
-      float amax = 0.f;
-#pragma unroll
-      for (int t = 0; t < PER_LANE; ++t) {
-        const int c = lane + 32 * t;
-        const bf16 y = __float2bfloat16(p.gamma[c] * ((v[t] - mean) * rstd) + p.beta[c]);
-        p.c[gm * p.ldc + c] = y;
-        v[t] = __bfloat162float(y);
-        amax = fmaxf(amax, fabsf(v[t]));
-      }
-      if constexpr (EPI == kBiasResidualLNQuant) {
-        // the bf16-rounded row, quantized as the next GEMM's input
-        const float sc = row_scale_of(warp_max(amax));
-#pragma unroll
-        for (int t = 0; t < PER_LANE; ++t) p.cq[gm * BN + lane + 32 * t] = quantize1(v[t], sc);
-        if (lane == 0) p.cscale[gm] = sc;
-      }
-    }
-  } else {
-    // 8 consecutive columns per thread, stored as one 16-byte chunk
-    for (int i = tid; i < BM * BN / 8; i += GEMM_THREADS) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      const long long gm = m0 + r;
-      if (gm >= p.m) continue;
-      uint4 packed;
-      uint32_t* words = reinterpret_cast<uint32_t*>(&packed);
-#pragma unroll
-      for (int e = 0; e < 8; e += 2) {
-        float v0 = Cs[r * C_LD + c + e] + p.bias[n0 + c + e];
-        float v1 = Cs[r * C_LD + c + e + 1] + p.bias[n0 + c + e + 1];
-        if (EPI == kBiasRelu) {
-          v0 = fmaxf(v0, 0.f);
-          v1 = fmaxf(v1, 0.f);
-        }
-        words[e / 2] = pack_bf16x2(v0, v1);
-      }
-      *reinterpret_cast<uint4*>(p.c + gm * p.ldc + n0 + c) = packed;
-    }
-  }
+// Row quantization of a bf16 [m, k] (k % 64 == 0, k <= MAX_QUANT_K), each
+// row read once into registers by a group of G = k / 8 lanes (8, 16 or 32)
+// up to k = 256, each lane one 16-byte chunk of four rows (four loads in
+// flight a lane), else by 32 lanes, four chunks a lane: with LEVELS, q[r,
+// :] = rowquant(a[r, :]) and s[r] its scale (the first layer's QKV input);
+// else s[r] = the row's absmax, whose f32 bits an s8 stage that quantizes in
+// registers reads (vitiq_gemm_int8 at K > 256).
+__host__ __device__ inline int rowquant_group(int k) { return k >= 256 ? 32 : k >= 128 ? 16 : 8; }
+__host__ __device__ inline int rowquant_rows(int k) {  // rows a block
+  return 256 / rowquant_group(k) * (k <= 256 ? 4 : 1);
 }
 
-// ---- K6: the W8A8 GEMM stage ----------------------------------------------
-constexpr int QBK = 64;                // k-step depth: 64 int8 = 64 bytes of a row
-constexpr int Q_LD = QBK + 16;         // int8 shared-memory row stride (bank-conflict
-                                       // pad; 80 bytes keeps rows 16-byte aligned)
-constexpr int QA_TILE = BM * Q_LD;     // bytes of one stage's quantized A tile
-template <int BN>  // bytes of its int8 W tile ([n][k])
-__host__ __device__ constexpr int qb_tile() { return BN * Q_LD; }
-template <int BN>
-__host__ __device__ constexpr int qgemm_smem() {
-  return 2 * (QA_TILE + qb_tile<BN>()) > c_bytes<BN>() ? 2 * (QA_TILE + qb_tile<BN>())
-                                                       : c_bytes<BN>();
-}
-constexpr int MAX_QUANT_K = 1024;      // rowquant_kernel: 4 chunks of 8 per lane
-
-// One warp per row: q[r, :] = rowquant(a[r, :]) and s[r] for a bf16 [m, k]
-// (k % 8 == 0, k <= MAX_QUANT_K): the row is read once into registers, its
-// absmax reduced across the warp, then each value quantized.
+template <bool LEVELS>
 __global__ void __launch_bounds__(256) rowquant_kernel(const bf16* __restrict__ a,
                                                       int8_t* __restrict__ q,
                                                       float* __restrict__ s, long long m, int k) {
-  const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= m) return;  // warp-uniform
-  const bf16* row = a + r * k;
-  uint4 chunks[MAX_QUANT_K / 256];
-  float amax = 0.f;
+  const int G = rowquant_group(k), groups = 256 / G, sub = threadIdx.x % G;
+  const bool four_rows = k <= 256;
+  const long long r0 = (long long)blockIdx.x * rowquant_rows(k) + threadIdx.x / G;
+  uint4 chunks[4];
+  float amax[4];
+  long long rows[4];
+  int cols[4];
 #pragma unroll
-  for (int j = 0; j < MAX_QUANT_K / 256; ++j) {
-    const int c = (lane + 32 * j) * 8;
-    chunks[j] = c < k ? *reinterpret_cast<const uint4*>(row + c) : make_uint4(0u, 0u, 0u, 0u);
-    amax = absmax8(chunks[j], amax);
+  for (int j = 0; j < 4; ++j) {
+    rows[j] = four_rows ? r0 + j * groups : r0;
+    cols[j] = (four_rows ? sub : sub + 32 * j) * 8;
+    chunks[j] = rows[j] < m && cols[j] < k
+                    ? *reinterpret_cast<const uint4*>(a + rows[j] * k + cols[j])
+                    : make_uint4(0u, 0u, 0u, 0u);
+    amax[j] = absmax8(chunks[j], 0.f);
   }
-  const float sc = row_scale_of(warp_max(amax));
+  if (!four_rows) amax[0] = amax[1] = amax[2] = amax[3] =
+      fmaxf(fmaxf(amax[0], amax[1]), fmaxf(amax[2], amax[3]));
+  for (int o = G / 2; o > 0; o >>= 1) {
 #pragma unroll
-  for (int j = 0; j < MAX_QUANT_K / 256; ++j) {
-    const int c = (lane + 32 * j) * 8;
-    if (c < k) *reinterpret_cast<uint2*>(q + r * k + c) = quantize8(chunks[j], sc);
+    for (int j = 0; j < 4; ++j) amax[j] = fmaxf(amax[j], __shfl_xor_sync(0xffffffffu, amax[j], o));
   }
-  if (lane == 0) s[r] = sc;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const long long r = rows[j];
+    const bool owner = sub == 0 && (four_rows || j == 0);  // writes the row's scale
+    if (r >= m) continue;
+    if constexpr (!LEVELS) {
+      if (owner) s[r] = amax[j];
+    } else {
+      const float sc = row_scale_of(amax[j]), y = rcp_rn(sc);
+      if (cols[j] < k) *reinterpret_cast<uint2*>(q + r * k + cols[j]) = quantize8(chunks[j], sc, y);
+      if (owner) s[r] = sc;
+    }
+  }
 }
 
-// C[:, n0 .. n0 + BN) = epilogue(dequant(rowquant(A) @ Wq^T)) for one 64 x
-// BN tile per block, A rows of p.k values, Wq int8 [N, p.k] (K contiguous:
-// nn.Linear's [out, in]) with per-column scales wscale [N]. A comes
-//   PREQ = false  as bf16 (p.a): a prologue takes each row's scale over the
-//                 whole row (one warp per row) before any product, and the k
-//                 loop quantizes the A tiles on their way to shared memory
-//                 (stages whose A is read by one column tile: out-projection,
-//                 FFN2);
-//   PREQ = true   already quantized (aq [m, p.k] int8, ascale [m]): from
-//                 rowquant_kernel or a kBiasResidualLNQuant epilogue, so a
-//                 stage with several column tiles (QKV, FFN1) quantizes each
-//                 row once, not once per tile; A tiles arrive by cp.async.
-// W tiles arrive by cp.async; two stages, the next tile's loads in flight
-// during this one's s8 x s8 -> s32 products on the tensor cores
-// (mma.sync.m16n8k32, each warp a 32 x BN/4 sub-tile). Epilogue:
-// Cs = (f32(acc) * s_r) * wscale[n], then gemm_epilogue.
-// |q_a q_w| summed over K <= 1040 stays below 2^24, so f32(acc) is the exact
-// sum, the same number an f32 product of the integer operands gives.
-// Four blocks per SM up to BN = 128 (64 registers, a few bytes spilled in the
-// PREQ = false variants): the blocks are short and latency-bound, and the
-// fourth block made a ViT layer 4.5% faster than three at 78 registers. At
-// BN = 256 a warp holds 64 int32 sums, so two blocks per SM.
-template <int EPI, bool PREQ, int BN>
-__global__ void __launch_bounds__(GEMM_THREADS, BN >= 256 ? 2 : 4) gemm_int8_kernel(
-    GemmArgs p, const int8_t* __restrict__ aq, const float* __restrict__ ascale,
-    const int8_t* __restrict__ wq, const float* __restrict__ wscale) {
-  constexpr int C_LD = c_ld<BN>(), QB_TILE = qb_tile<BN>();
-  constexpr int WN = BN / 4, NJ = WN / 8;  // warp tile columns, n8 blocks across
-  constexpr int SMEM = qgemm_smem<BN>();
-  // static shared memory up to 48 KB, dynamic above (launch_gemm_int8_bn)
-  __shared__ __align__(128) unsigned char static_buf[SMEM <= STATIC_SMEM ? SMEM : 16];
-  extern __shared__ __align__(128) unsigned char qgemm_buf[];
-  __shared__ float row_scale[BM];
-  unsigned char* smem = SMEM <= STATIC_SMEM ? static_buf : qgemm_buf;
-  int8_t* stages = reinterpret_cast<int8_t*>(smem);  // [2][A tile | W tile]
-  float* Cs = reinterpret_cast<float*>(smem);
+// One of K6's s8 GEMM stages: C[:, n0 .. n0 + BN) = epilogue((f32(A_q Wq^T)
+// * s_row) * s_col + bias) on gemm_wgmma.cuh's persistent main loop, W int8
+// [N, K] (nn.Linear's layout: a K-major B), resident where K <= 256, else
+// streamed in 128-deep steps. A arrives
+//   MmaS8        as int8 levels [m, K] (TMA) with their row scales `ascale`:
+//                the QKV input (rowquant_kernel, or the previous layer's
+//                FFN2 epilogue) and FFN1's (the out-projection's epilogue);
+//   MmaS8QuantA  as bf16 rows (TMA), quantized in registers into wgmma's
+//                register-A fragments: resident, with the scales of the whole
+//                rows in the tile (the out-projection: attn); streamed, with
+//                those of `amax_in`, the rows' absmax (FFN2: hid, whose max
+//                FFN1's epilogue merged).
+// Epilogue in registers (each row of a warpgroup's m64 tile lies in one
+// quad): dequant with each product rounded as the plain version's, then
+//   + ReLU (relu), with row_max (MmaS8: FFN1): each row's max over the
+//     slab, bf16-rounded, merged into row_max by atomicMax on its f32 bits
+//     (non-negative floats order as unsigned integers: the max is exact and
+//     order-free);
+//   ln (MmaS8QuantA, BN = N = D): + residual, LayerNorm (two quad shuffles a
+//     statistic), with cq: the bf16-rounded rows' levels and scales (their
+//     absmax by quad shuffles), with clear: those rows of `clear` zeroed;
+// then bf16, 16 bytes a thread.
+struct S8Args {
+  const float* ascale;      // MmaS8: A's row scales [m]
+  const uint32_t* amax_in;  // MmaS8QuantA, streamed: the rows' absmax, f32 bits [m]
+  const float* wscale;      // [N]
+  const float* bias;        // [N]
+  bf16* c;                  // C row r, column n at c + r * ldc + n
+  long long ldc;
+  const bf16* res;          // ln: residual rows, row r at res + r * ldr
+  long long ldr;
+  const float* gamma;
+  const float* beta;
+  int8_t* cq;               // ln: the output rows' levels [m, N] and scales [m],
+  float* cscale;            //   or null
+  uint32_t* row_max;        // relu: the rows' max (f32 bits) merged here, or null
+  uint32_t* clear;          // ln: its rows zeroed (the next FFN1's row_max), or null
+  long long m;              // rows
+  int k;                    // depth (multiple of 64; of 128 above 256)
+  int col0;                 // first column of W / C this launch computes
+  int n_tiles;              // BN-wide column slabs this launch computes
+  int relu, ln;
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long m0 = (long long)(blockIdx.x / p.n_tiles) * BM;
-  const int n0 = p.col0 + (int)(blockIdx.x % p.n_tiles) * BN;
-  const int wm = warp >> 2, wn = warp & 3;
+// Shared memory past the ring: bias, column scales, gamma, beta [4][BN]
+__host__ __device__ constexpr int s8_extra(int bn) { return 16 * bn; }
 
-  if constexpr (PREQ) {
-    if (tid < BM) row_scale[tid] = m0 + tid < p.m ? ascale[m0 + tid] : 1.f;
-  } else {
-    for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
-      const long long gm = m0 + r;
-      float amax = 0.f;
-      if (gm < p.m) {
-        const bf16* row = p.a + gm * p.lda;
-        for (int c = lane * 8; c < p.k; c += 32 * 8)
-          amax = absmax8(*reinterpret_cast<const uint4*>(row + c), amax);
-      }
-      amax = warp_max(amax);
-      if (lane == 0) row_scale[r] = row_scale_of(amax);
-    }
-  }
-  __syncthreads();
+// s32 -> f32, exact either way: the magic-number add where |v| < 2^22 (the
+// resident stages: K <= 256, |v| <= 127 * 127 * 256), which stays on the FMA
+// and integer pipes, else a conversion (16 a clock per SM)
+template <bool SMALL>
+__device__ __forceinline__ float s32_to_f32(int v) {
+  if constexpr (SMALL)
+    return __fsub_rn(__int_as_float(v + 0x4B400000), 12582912.0f);
+  else
+    return static_cast<float>(v);
+}
 
-  // each thread moves two 16-byte chunks of bf16 A (8 values) or one of
-  // int8 A (16 values), and BN / 64 of W (16 int8 each)
-  uint4 a_regs[2];
-  auto load_a = [&](int k0) {  // bf16 A tile -> registers
+// The levels of a warpgroup's 64 x BN tile (the low byte of lev(e) for
+// accumulator e) stored as int8 rows ldq apart: per 64 columns each quad
+// packs its bytes and transposes its words so that every thread stores 16
+// contiguous bytes of one row; rows >= m are not stored.
+template <int BN, class Lev>
+__device__ __forceinline__ void store_levels(Lev lev, int8_t* q, long long ldq,
+                                             const long long rows[2], long long m, int t) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int i = tid + j * GEMM_THREADS;
-      const int r = i >> 3, c = (i & 7) * 8;
-      const long long gm = m0 + r;
-      a_regs[j] = gm < p.m ? *reinterpret_cast<const uint4*>(p.a + gm * p.lda + k0 + c)
-                           : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-  auto store_a = [&](int stage) {  // registers -> quantized A tile
-    int8_t* As = stages + stage * (QA_TILE + QB_TILE);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int i = tid + j * GEMM_THREADS;
-      const int r = i >> 3, c = (i & 7) * 8;
-      *reinterpret_cast<uint2*>(As + r * Q_LD + c) = quantize8(a_regs[j], row_scale[r]);
-    }
-  };
-  auto load_stage = [&](int stage, int k0) {  // cp.async: W tile (and int8 A tile)
-    int8_t* As = stages + stage * (QA_TILE + QB_TILE);
-    int8_t* Bs = As + QA_TILE;
-    if constexpr (PREQ) {
-      const int r = tid >> 2, c = (tid & 3) * 16;
-      const long long gm = m0 + r;
-      const bool in = gm < p.m;
-      cp_async16(As + r * Q_LD + c, aq + (in ? gm : 0) * p.k + k0 + c, in ? 16 : 0);
-    }
+  for (int hh = 0; hh < 2; ++hh) {
 #pragma unroll
     for (int j = 0; j < BN / 64; ++j) {
-      const int i = tid + j * GEMM_THREADS;
-      const int n = i >> 2, c = (i & 3) * 16;
-      cp_async16(Bs + n * Q_LD + c, wq + (long long)(n0 + n) * p.k + k0 + c, 16);
+      uint32_t w[4];  // word i: this thread's bytes of the 8-column blocks 8j + 2i, 8j + 2i + 1
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e0 = 4 * (8 * j + 2 * i) + 2 * hh, e1 = e0 + 4;
+        w[i] = __byte_perm(__byte_perm(lev(e0), lev(e0 + 1), 0x0040),
+                           __byte_perm(lev(e1), lev(e1 + 1), 0x0040), 0x5410);
+      }
+      const uint4 o = quad_transpose(w, t);
+      if (rows[hh] < m)
+        *reinterpret_cast<uint4*>(q + rows[hh] * ldq + 64 * j + 16 * t) =
+            make_uint4(__byte_perm(o.x, o.y, 0x5410), __byte_perm(o.z, o.w, 0x5410),
+                       __byte_perm(o.x, o.y, 0x7632), __byte_perm(o.z, o.w, 0x7632));
     }
-    cp_async_commit();
-  };
-
-  int acc[2][NJ][4] = {};
-  const int nk = p.k / QBK;
-  load_stage(0, 0);
-  if constexpr (!PREQ) {
-    load_a(0);
-    store_a(0);
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    const bool more = kt + 1 < nk;
-    if (more) {
-      load_stage((kt + 1) & 1, (kt + 1) * QBK);
-      if constexpr (!PREQ) load_a((kt + 1) * QBK);
-      cp_async_wait<1>();  // this k-step's tiles have landed, the next may not
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int8_t* As = stages + (kt & 1) * (QA_TILE + QB_TILE);
-    const int8_t* Bs = As + QA_TILE;
-#pragma unroll
-    for (int kk = 0; kk < QBK; kk += 32) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int8_t* lo = As + (wm * 32 + i * 16 + g) * Q_LD + kk + 4 * t;
-        const int8_t* hi = lo + 8 * Q_LD;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(lo);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(hi);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(lo + 16);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(hi + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int8_t* col = Bs + (wn * WN + j * 8 + g) * Q_LD + kk + 4 * t;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(col);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(col + 16);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_s8_16832(acc[i][j], af[i], b0, b1);
-      }
-    }
-    // the other stage was last read in the previous k-step, which every warp
-    // has left (the barrier below it), so its A tile may be written now
-    if constexpr (!PREQ) {
-      if (more) store_a((kt + 1) & 1);
-    }
-    __syncthreads();
-  }
+}
 
+// The residual words (bf16 pairs) of a thread's accumulators, loaded when
+// its tile starts so that they land during the tile's products (the ln
+// epilogue up to BN = 128): word e / 2 for accumulators e, e + 1. A row past
+// m reads row 0 (zeroed in the epilogue), so the loads carry no branch and
+// go out together.
+template <int BN>
+__device__ __forceinline__ void s8_residual(uint32_t* resw, const S8Args& p, long long row0,
+                                            const GwThread& th) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int e = 0; e < BN / 2; e += 2) {
+    const long long row = row0 + 16 * th.warp + th.g + 8 * ((e >> 1) & 1);
+    resw[e / 2] = ld_b32(p.res + (row < p.m ? row * p.ldr : 0) + (e >> 2) * 8 + 2 * th.t);
+  }
+}
+
+// The 128-byte lines of a thread's two residual rows (BN bf16 each), asked
+// into L2 when its tile starts (BN = 256, whose epilogue loads them), the
+// quad's four threads splitting each row's lines.
+template <int BN>
+__device__ __forceinline__ void s8_prefetch_res(const S8Args& p, long long row0,
+                                                const GwThread& th) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+  for (int hh = 0; hh < 2; ++hh) {
+    const long long row = row0 + 16 * th.warp + th.g + 8 * hh;
+    if (row >= p.m) continue;
+    const char* line = reinterpret_cast<const char*>(p.res + row * p.ldr);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * 32 + i * 16 + g + 8 * h, c = wn * WN + j * 8 + 2 * t;
-        const float s = row_scale[r];
-        Cs[r * C_LD + c] = __fmul_rn(__fmul_rn(static_cast<float>(acc[i][j][2 * h]), s),
-                                     wscale[n0 + c]);
-        Cs[r * C_LD + c + 1] = __fmul_rn(
-            __fmul_rn(static_cast<float>(acc[i][j][2 * h + 1]), s), wscale[n0 + c + 1]);
-      }
-  __syncthreads();
-  gemm_epilogue<EPI, BN>(Cs, p, m0, n0, tid);
+    for (int l = th.t; l < BN * 2 / 128; l += 4)
+      asm volatile("prefetch.global.L2::evict_last [%0];\n" ::"l"(line + l * 128));
+  }
+}
+
+// The ln epilogue of a dequantized tile (the values' f32 bits in acc): +
+// residual and LayerNorm over the whole row, as K1's; bf16 out; with p.cq
+// the rows' levels and scales, with p.clear those rows of it zeroed.
+template <int BN>
+__device__ __forceinline__ void s8_ln_epilogue(int* acc, const S8Args& p, const long long rows[2],
+                                               const float* vec, const uint32_t* resw, int t) {
+  auto F = [&](int e) { return __int_as_float(acc[e]); };
+  auto set = [&](int e, float v) { acc[e] = __float_as_int(v); };
+  float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f}, rstd[2], amax[2] = {0.f, 0.f};
+  // up to BN = 128 the residual words were loaded when the tile started
+  // (s8_residual); at 256 their registers would spill beside the 128
+  // accumulators, so they load here, 16 words at a time with no branch (a
+  // row past m reads row 0, then zeros): one at a time behind a branch, they
+  // left a 256-wide stage waiting on 64 round trips a tile.
+  constexpr int GROUP = BN < 256 ? BN / 2 : 32;  // accumulators whose words load together
+#pragma unroll
+  for (int e0 = 0; e0 < BN / 2; e0 += GROUP) {
+    uint32_t words[GROUP / 2];
+#pragma unroll
+    for (int i = 0; i < GROUP / 2; ++i) {
+      const int e = e0 + 2 * i, hh = (e >> 1) & 1;
+      words[i] = BN < 256 ? resw[e / 2]
+                          : ld_b32(p.res + (rows[hh] < p.m ? rows[hh] * p.ldr : 0) +
+                                   (e >> 2) * 8 + 2 * t);
+    }
+#pragma unroll
+    for (int i = 0; i < GROUP / 2; ++i) {
+      const int e = e0 + 2 * i, hh = (e >> 1) & 1;
+      float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[i]));
+      if (rows[hh] >= p.m) r = make_float2(0.f, 0.f);
+      set(e, __fadd_rn(F(e), r.x));
+      set(e + 1, __fadd_rn(F(e + 1), r.y));
+      sum[hh] += F(e) + F(e + 1);
+    }
+    asm volatile("" ::: "memory");  // the next group's loads stay below
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) sum[hh] = quad_sum(sum[hh]) * (1.0f / BN);  // the mean
+#pragma unroll
+  for (int e = 0; e < BN / 2; ++e) {
+    const float d = F(e) - sum[(e >> 1) & 1];
+    set(e, d);
+    sq[(e >> 1) & 1] += d * d;
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) rstd[hh] = rsqrtf(quad_sum(sq[hh]) * (1.0f / BN) + LN_EPS);
+#pragma unroll
+  for (int e = 0; e < BN / 2; e += 2) {
+    const int hh = (e >> 1) & 1, c = (e >> 2) * 8 + 2 * t;
+    const float2 gm = *reinterpret_cast<const float2*>(vec + 2 * BN + c);
+    const float2 bt = *reinterpret_cast<const float2*>(vec + 3 * BN + c);
+    // the bf16 output, kept as the value its levels are taken from
+    const float y0 = __bfloat162float(__float2bfloat16(gm.x * (F(e) * rstd[hh]) + bt.x));
+    const float y1 = __bfloat162float(__float2bfloat16(gm.y * (F(e + 1) * rstd[hh]) + bt.y));
+    set(e, y0);
+    set(e + 1, y1);
+    amax[hh] = fmaxf(amax[hh], fmaxf(fabsf(y0), fabsf(y1)));
+  }
+  store_rows_bf16<BN>(F, p.c, p.ldc, rows, p.m, 0, t);
+  if (p.cq) {
+    RowQuant oq;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) set_row_quant(oq, hh, quad_max(amax[hh]));
+    store_levels<BN>(
+        [&](int e) { return level_bits(F(e), oq.s[(e >> 1) & 1], oq.y[(e >> 1) & 1]); }, p.cq, BN,
+        rows, p.m, t);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      if (t == 0 && rows[hh] < p.m) p.cscale[rows[hh]] = oq.s[hh];
+  }
+  if (p.clear) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      if (t == 0 && rows[hh] < p.m) p.clear[rows[hh]] = 0u;
+  }
+}
+
+// The epilogue of a warpgroup's 64 x BN s32 tile: (f32(acc) * s_row) * s_col
+// + bias (each product and the sum rounded, as the plain version's), then
+// ln, or ReLU (relu) with the rows' max merged into row_max, and bf16 out.
+template <bool QUANT_A, bool SMALL, int BN>
+__device__ __forceinline__ void s8_epilogue(int* acc, const S8Args& p, long long row0, int n0,
+                                            const float* vec, const RowQuant& rq,
+                                            const uint32_t* resw, const GwThread& th) {
+  const int t = th.t;
+  const long long rows[2] = {row0 + 16 * th.warp + th.g, row0 + 16 * th.warp + th.g + 8};
+  float srow[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    srow[hh] = QUANT_A ? rq.s[hh] : rows[hh] < p.m ? p.ascale[rows[hh]] : 0.f;
+  auto F = [&](int e) { return __int_as_float(acc[e]); };
+  auto set = [&](int e, float v) { acc[e] = __float_as_int(v); };
+#pragma unroll
+  for (int e = 0; e < BN / 2; e += 2) {
+    const int c = (e >> 2) * 8 + 2 * t;
+    const float2 b = *reinterpret_cast<const float2*>(vec + c);
+    const float2 sc = *reinterpret_cast<const float2*>(vec + BN + c);
+    const float sr = srow[(e >> 1) & 1];
+    set(e, __fadd_rn(__fmul_rn(__fmul_rn(s32_to_f32<SMALL>(acc[e]), sr), sc.x), b.x));
+    set(e + 1, __fadd_rn(__fmul_rn(__fmul_rn(s32_to_f32<SMALL>(acc[e + 1]), sr), sc.y), b.y));
+  }
+  if constexpr (QUANT_A) {
+    if (p.ln) {
+      s8_ln_epilogue<BN>(acc, p, rows, vec, resw, t);
+      return;
+    }
+  }
+  if (!p.relu) {
+    store_rows_bf16<BN>(F, p.c, p.ldc, rows, p.m, n0, t);
+    return;
+  }
+  if constexpr (QUANT_A) {  // the standalone stage's ReLU: no row max there
+    store_rows_bf16<BN>([&](int e) { return fmaxf(F(e), 0.f); }, p.c, p.ldc, rows, p.m, n0, t);
+    return;
+  }
+  // ReLU on the bf16 pairs (relu(bf16(v)) = bf16(relu(v))) as a signed
+  // 16-bit max with 0, and the row max as an unsigned one (bf16 >= 0 orders
+  // as its bits), two integer ops a pair on the packed words
+  uint32_t mx[2] = {0u, 0u};
+  store_words_bf16<BN>(
+      [&](int e) {
+        const uint32_t w = __vmaxs2(pack_bf16x2(F(e), F(e + 1)), 0u);
+        mx[(e >> 1) & 1] = __vmaxu2(mx[(e >> 1) & 1], w);
+        return w;
+      },
+      p.c, p.ldc, rows, p.m, n0, t);
+  if (p.row_max) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const uint32_t w = max(mx[hh] & 0xffffu, mx[hh] >> 16) << 16;  // the bf16 max as f32 bits
+      const uint32_t m = __float_as_uint(quad_max(__uint_as_float(w)));
+      if (t == 0 && rows[hh] < p.m) atomicMax(p.row_max + rows[hh], m);
+    }
+  }
+}
+
+template <class Op, int BN, bool RESIDENT>
+__global__ void __launch_bounds__(GW_THREADS, 1) gemm_s8_kernel(
+    const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap w_map,
+    S8Args p, int ring) {
+  extern __shared__ unsigned char s8_raw[];
+  const GwLayout s =
+      gw_layout<BN, RESIDENT, Op::A_BYTES, Op::B_BYTES>(s8_raw, p.k, ring, s8_extra(BN));
+  float* vec = reinterpret_cast<float*>(s.extra);
+  const int slab = blockIdx.x % p.n_tiles, stride = gridDim.x / p.n_tiles;
+  const int first = blockIdx.x / p.n_tiles;
+  const int n0 = p.col0 + slab * BN;
+  const long long tm = RESIDENT ? 64 : 128;
+  const int n_rt = (int)((p.m + tm - 1) / tm);
+  const GwThread th = gw_thread();
+
+  for (int i = threadIdx.x; i < BN; i += GW_THREADS) {
+    vec[i] = p.bias[n0 + i];
+    vec[BN + i] = p.wscale[n0 + i];
+    if (Op::QUANT_A && p.ln) {
+      vec[2 * BN + i] = p.gamma[i];
+      vec[3 * BN + i] = p.beta[i];
+    }
+  }
+  RowQuant rq;
+  constexpr bool PRELOAD = Op::QUANT_A && BN < 256;  // the ln epilogue's residual words
+  uint32_t resw[PRELOAD ? BN / 4 : 1];
+  gemm_wgmma_loop<BN, RESIDENT, 0, 0, false, Op>(
+      a_map, w_map, s, p.k, n0, first, stride, n_rt, n_rt, ring, th,
+      [&](int* acc, long long row0) {
+        if constexpr (!Op::ZERO_FIRST) {  // else the first k-step starts them
+#pragma unroll
+          for (int e = 0; e < BN / 2; ++e) acc[e] = 0;
+        }
+        if constexpr (PRELOAD) {
+          if (p.ln) s8_residual<BN>(resw, p, row0, th);
+        } else if constexpr (Op::QUANT_A) {
+          if (p.ln) s8_prefetch_res<BN>(p, row0, th);
+        }
+        if constexpr (Op::QUANT_A && !RESIDENT) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const long long row = row0 + 16 * th.warp + th.g + 8 * hh;
+            set_row_quant(rq, hh, row < p.m ? __uint_as_float(p.amax_in[row]) : 0.f);
+          }
+        }
+      },
+      [&](int* acc, long long row0, int) {
+        s8_epilogue<Op::QUANT_A, RESIDENT, BN>(acc, p, row0, n0, vec, rq, resw, th);
+      },
+      &rq);
 }
 
 // Shared-memory row strides (bf16 elements) of the attention core's k
@@ -1224,10 +1286,6 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) attention_int8_kernel(
   }
 }
 
-// The dynamic shared memory a GEMM stage launches with: its tiles live in
-// static shared memory up to 48 KB (the D <= 128 stages), else dynamically.
-constexpr int dynamic_smem(int bytes) { return bytes <= STATIC_SMEM ? 0 : bytes; }
-
 // One bf16 GEMM stage (gemm_wgmma_kernel) over the n_cols columns from
 // p.col0, in BN-wide slabs: TMA maps of A [m, k] (rows lda apart) and W
 // [k, ldw], and up to one block per SM, the SMs split evenly between the
@@ -1285,10 +1343,6 @@ cudaError_t launch_gemm(GemmArgs p, int n_cols, cudaStream_t stream) {
   }
   return cudaErrorInvalidValue;
 }
-
-// K6's s8 stages: the tile width 128, or 64 where 128 does not divide the
-// stage's columns (BN = D for the LayerNorm stages).
-int tile_width(int n_cols) { return n_cols % 128 == 0 ? 128 : 64; }
 
 GemmArgs gemm_args(const bf16* a, long long lda, const bf16* w, int ldw,
                    const float* bias, bf16* c, long long ldc, long long m, int k,
@@ -1514,87 +1568,154 @@ int encoder_layer(bool cls_only, Core core, const void* x, void* out, void* qkv,
   return (int)cudaGetLastError();
 }
 
-template <int EPI, bool PREQ, int BN>
-cudaError_t launch_gemm_int8_bn(GemmArgs p, const void* aq, const void* ascale, const void* wq,
-                                const void* wscale, int n_cols, cudaStream_t stream) {
+// One s8 stage instance (gemm_s8_kernel) over the n_cols columns from
+// p.col0 in BN-wide slabs: TMA maps of A [m, k] (int8 levels or bf16 rows)
+// and W [w_rows, k] int8, up to one block per SM, the SMs split evenly
+// between the slabs.
+template <class Op, int BN, bool RESIDENT>
+cudaError_t launch_s8_bn(const void* a, S8Args p, const void* wq, int w_rows, int n_cols,
+                         cudaStream_t stream) {
+  constexpr int AB = Op::A_BYTES, BB = Op::B_BYTES;
   p.n_tiles = n_cols / BN;
-  const long long blocks = (p.m + BM - 1) / BM * p.n_tiles;
-  constexpr int smem = dynamic_smem(qgemm_smem<BN>());
-  const cudaError_t err = allow_smem(gemm_int8_kernel<EPI, PREQ, BN>, smem);
+  const int ring = gemm_ring(RESIDENT, BN, p.k, s8_extra(BN), AB, BB);
+  if (n_cols % BN || !ring) return cudaErrorInvalidValue;
+  const long long tm = RESIDENT ? 64 : 128;
+  const uint64_t a_dims[2] = {(uint64_t)p.k, (uint64_t)p.m}, w_dims[2] = {(uint64_t)p.k,
+                                                                        (uint64_t)w_rows};
+  const uint64_t k_str[1] = {(uint64_t)p.k};
+  const uint32_t a_box[2] = {128u / AB, (uint32_t)tm}, w_box[2] = {128u, (uint32_t)BN};
+  CUtensorMap a_map, w_map;
+  if (!make_map(&a_map, a, 2, a_dims, k_str, a_box, 128, AB) ||
+      !make_map(&w_map, wq, 2, w_dims, k_str, w_box, 128, 1))
+    return cudaErrorInvalidValue;
+  const int smem = gemm_smem_bytes(RESIDENT, BN, p.k, ring, s8_extra(BN), AB, BB);
+  const cudaError_t err = allow_smem(gemm_s8_kernel<Op, BN, RESIDENT>, smem);
   if (err != cudaSuccess) return err;
-  gemm_int8_kernel<EPI, PREQ, BN><<<(unsigned)blocks, GEMM_THREADS, smem, stream>>>(
-      p, static_cast<const int8_t*>(aq), static_cast<const float*>(ascale),
-      static_cast<const int8_t*>(wq), static_cast<const float*>(wscale));
+  gemm_s8_kernel<Op, BN, RESIDENT>
+      <<<gw_blocks((p.m + tm - 1) / tm, p.n_tiles), GW_THREADS, smem, stream>>>(a_map, w_map, p,
+                                                                                ring);
   return cudaSuccess;
 }
 
-template <int EPI, bool PREQ>
-cudaError_t launch_gemm_int8(GemmArgs p, const void* aq, const void* ascale, const void* wq,
-                             const void* wscale, int n_cols, int bn, cudaStream_t stream) {
-  switch (bn) {
-    case 64:
-      return launch_gemm_int8_bn<EPI, PREQ, 64>(p, aq, ascale, wq, wscale, n_cols, stream);
-    case 128:
-      return launch_gemm_int8_bn<EPI, PREQ, 128>(p, aq, ascale, wq, wscale, n_cols, stream);
-    case 256:
-      return launch_gemm_int8_bn<EPI, PREQ, 256>(p, aq, ascale, wq, wscale, n_cols, stream);
+// The slab width of an s8 stage: the whole width where it is 64, 128 or 256
+// (the LN stages: BN = D), else the widest of 256, 128, 64 that divides it.
+int s8_slab_width(int n_cols) {
+  if (n_cols == 64 || n_cols == 128 || n_cols == 256) return n_cols;
+  return n_cols % 256 == 0 ? 256 : n_cols % 128 == 0 ? 128 : 64;
+}
+
+template <class Op, bool RESIDENT>
+cudaError_t launch_s8_width(const void* a, const S8Args& p, const void* wq, int n_cols,
+                            cudaStream_t stream) {
+  const int w_rows = p.col0 + n_cols;
+  switch (s8_slab_width(n_cols)) {
+    case 64: return launch_s8_bn<Op, 64, RESIDENT>(a, p, wq, w_rows, n_cols, stream);
+    case 128: return launch_s8_bn<Op, 128, RESIDENT>(a, p, wq, w_rows, n_cols, stream);
+    case 256: return launch_s8_bn<Op, 256, RESIDENT>(a, p, wq, w_rows, n_cols, stream);
   }
   return cudaErrorInvalidValue;
 }
 
+// One of K6's s8 stages (see gemm_s8_kernel) over n_cols columns: A as int8
+// levels (quant_a false: MmaS8, p.ascale their scales) or as bf16 rows
+// quantized in the stage (MmaS8QuantA; streamed, p.amax_in the rows'
+// absmax); W resident where K <= 256, else streamed (K % 128 == 0).
+cudaError_t launch_s8(const void* a, bool quant_a, const S8Args& p, const void* wq, int n_cols,
+                      cudaStream_t stream) {
+  if (p.m <= 0 || p.k <= 0 || p.k % 64 || (p.k > 256 && p.k % 128) || n_cols <= 0 ||
+      n_cols % 64 || (p.ln && (!quant_a || p.relu || s8_slab_width(n_cols) != n_cols)) ||
+      (quant_a && p.k > 256 && !p.amax_in) || (!quant_a && !p.ascale) ||
+      (quant_a && p.row_max))
+    return cudaErrorInvalidValue;
+  if (quant_a)
+    return p.k <= 256 ? launch_s8_width<MmaS8QuantA, true>(a, p, wq, n_cols, stream)
+                      : launch_s8_width<MmaS8QuantA, false>(a, p, wq, n_cols, stream);
+  return p.k <= 256 ? launch_s8_width<MmaS8, true>(a, p, wq, n_cols, stream)
+                    : launch_s8_width<MmaS8, false>(a, p, wq, n_cols, stream);
+}
+
+S8Args s8_args(const void* bias, const void* wscale, void* c, long long ldc, long long m, int k) {
+  S8Args p{};
+  p.bias = static_cast<const float*>(bias);
+  p.wscale = static_cast<const float*>(wscale);
+  p.c = static_cast<bf16*>(c);
+  p.ldc = ldc;
+  p.m = m;
+  p.k = k;
+  return p;
+}
+
+S8Args with_ln(S8Args p, const void* res, long long ldr, const void* gamma, const void* beta) {
+  p.ln = 1;
+  p.res = static_cast<const bf16*>(res);
+  p.ldr = ldr;
+  p.gamma = static_cast<const float*>(gamma);
+  p.beta = static_cast<const float*>(beta);
+  return p;
+}
+
+template <bool LEVELS>
 void launch_rowquant(const void* a, void* aq, void* ascale, long long m, int k,
                      cudaStream_t stream) {
-  rowquant_kernel<<<(unsigned)((m + 7) / 8), 256, 0, stream>>>(
+  const long long rows_a_block = rowquant_rows(k);
+  rowquant_kernel<LEVELS><<<(unsigned)((m + rows_a_block - 1) / rows_a_block), 256, 0, stream>>>(
       static_cast<const bf16*>(a), static_cast<int8_t*>(aq), static_cast<float*>(ascale), m, k);
 }
 
 // K6: one full W8A8 layer. x, out: [B, L, D] bf16. Scratch: qkv [B, L, 3D],
 // attn and x1 [B, L, D], hid [B, L, F], bf16; aq [B, L, D] int8 and ascale
-// [B, L] f32 (the quantized QKV input, then the quantized FFN1 input).
-// Weights int8 in nn.Linear's [out, in] layout: wqkv [3D, D] (q, k, v rows),
-// wo [D, D], w1 [F, D], w2 [D, F]; per-output-channel scales sqkv [3D],
-// so [D], s1 [F], s2 [D] and biases f32, the q section of sqkv and bqkv
-// multiplied by log2(e)/sqrt(dh); LN parameters f32. Returns the first
+// [B, L] f32 (x's levels where the caller gives none, then x1's); hmax
+// [B, L] (hid's row max, f32 bits). xq, xscale: x's levels and scales as
+// row_quant gives them (the previous layer's oq, oscale), or null; oq,
+// oscale: where out's levels and scales go (the next layer's xq, xscale), or
+// null. Weights int8 in nn.Linear's [out, in] layout: wqkv [3D, D] (q, k, v
+// rows), wo [D, D], w1 [F, D], w2 [D, F]; per-output-channel scales sqkv
+// [3D], so [D], s1 [F], s2 [D] and biases f32, the q section of sqkv and
+// bqkv multiplied by log2(e)/sqrt(dh); LN parameters f32. Returns the first
 // launch error or cudaGetLastError().
-//   rowquant(x) -> aq; QKV (PREQ) -> qkv; attention -> attn;
-//   out-projection (A quantized in-kernel) + LN1 -> x1, and x1 quantized -> aq;
-//   FFN1 (PREQ) + ReLU -> hid; FFN2 (A quantized in-kernel) + LN2 -> out.
+//   [rowquant(x) -> aq]; QKV (levels) -> qkv; attention -> attn;
+//   out-projection (attn quantized in registers) + LN1 -> x1, its levels ->
+//   aq, hmax zeroed; FFN1 (levels) + ReLU -> hid, its row max -> hmax;
+//   FFN2 (hid quantized in registers by hmax) + LN2 -> out [, its levels ->
+//   oq].
 int encoder_layer_int8(const void* x, void* out, void* qkv, void* attn, void* x1, void* hid,
-                       void* aq, void* ascale, const void* wqkv, const void* sqkv,
+                       void* aq, void* ascale, void* hmax, const void* xq, const void* xscale,
+                       void* oq, void* oscale, const void* wqkv, const void* sqkv,
                        const void* bqkv, const void* wo, const void* so, const void* bo,
                        const void* g1, const void* be1, const void* w1, const void* s1,
                        const void* b1, const void* w2, const void* s2, const void* b2,
                        const void* g2, const void* be2, int B, int L, int D, int H, int F,
                        void* stream_ptr) {
-  if (!shapes_ok(B, L, D, H, F)) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(B, L, D, H, F) || !xq != !xscale || !oq != !oscale)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-  const bf16* xb = static_cast<const bf16*>(x);
-  bf16* qkvb = static_cast<bf16*>(qkv);
-  bf16* attnb = static_cast<bf16*>(attn);
-  bf16* x1b = static_cast<bf16*>(x1);
-  bf16* hidb = static_cast<bf16*>(hid);
-  auto f32 = [](const void* v) { return static_cast<const float*>(v); };
   const long long M = (long long)B * L;
   cudaError_t err;
-
-  launch_rowquant(x, aq, ascale, M, D, s);
-  VITIQ_TRY((launch_gemm_int8<kBias, true>(
-      gemm_args(xb, D, nullptr, 0, f32(bqkv), qkvb, 3 * D, M, D, 0), aq, ascale, wqkv, sqkv,
-      3 * D, tile_width(3 * D), s)));
-  VITIQ_TRY(attention_core<false>(qkvb, attnb, B, L, D, H, (long long)L * D, s));
-  GemmArgs proj = with_ln(gemm_args(attnb, D, nullptr, 0, f32(bo), x1b, D, M, D, 0), xb, D,
-                          f32(g1), f32(be1));
+  if (!xq) {
+    launch_rowquant<true>(x, aq, ascale, M, D, s);
+    xq = aq;
+    xscale = ascale;
+  }
+  S8Args qkv_p = s8_args(bqkv, sqkv, qkv, 3 * D, M, D);
+  qkv_p.ascale = static_cast<const float*>(xscale);
+  VITIQ_TRY(launch_s8(xq, false, qkv_p, wqkv, 3 * D, s));
+  VITIQ_TRY(attention_core<false>(static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), B, L,
+                                  D, H, (long long)L * D, s));
+  S8Args proj = with_ln(s8_args(bo, so, x1, D, M, D), x, D, g1, be1);
   proj.cq = static_cast<int8_t*>(aq);
   proj.cscale = static_cast<float*>(ascale);
-  VITIQ_TRY((launch_gemm_int8<kBiasResidualLNQuant, false>(proj, nullptr, nullptr, wo, so, D,
-                                                           D, s)));
-  VITIQ_TRY((launch_gemm_int8<kBiasRelu, true>(
-      gemm_args(x1b, D, nullptr, 0, f32(b1), hidb, F, M, D, 0), aq, ascale, w1, s1, F,
-      tile_width(F), s)));
-  VITIQ_TRY((launch_gemm_int8<kBiasResidualLN, false>(
-      with_ln(gemm_args(hidb, F, nullptr, 0, f32(b2), static_cast<bf16*>(out), D, M, F, 0), x1b,
-              D, f32(g2), f32(be2)),
-      nullptr, nullptr, w2, s2, D, D, s)));
+  proj.clear = static_cast<uint32_t*>(hmax);
+  VITIQ_TRY(launch_s8(attn, true, proj, wo, D, s));
+  S8Args ffn1 = s8_args(b1, s1, hid, F, M, D);
+  ffn1.ascale = static_cast<const float*>(ascale);
+  ffn1.relu = 1;
+  ffn1.row_max = static_cast<uint32_t*>(hmax);
+  VITIQ_TRY(launch_s8(aq, false, ffn1, w1, F, s));
+  S8Args ffn2 = with_ln(s8_args(b2, s2, out, D, M, F), x1, D, g2, be2);
+  ffn2.amax_in = static_cast<const uint32_t*>(hmax);
+  ffn2.cq = static_cast<int8_t*>(oq);
+  ffn2.cscale = static_cast<float*>(oscale);
+  VITIQ_TRY(launch_s8(hid, true, ffn2, w2, D, s));
   return (int)cudaGetLastError();
 }
 
@@ -1684,44 +1805,78 @@ extern "C" int vitiq_attention_int8(const void* qkv, void* out, void* s_dump, vo
 // K6: one full W8A8 layer (see encoder_layer_int8).
 extern "C" int vitiq_encoder_layer_int8_full(
     const void* x, void* out, void* qkv, void* attn, void* x1, void* hid, void* aq,
-    void* ascale, const void* wqkv, const void* sqkv, const void* bqkv, const void* wo,
-    const void* so, const void* bo, const void* g1, const void* be1, const void* w1,
-    const void* s1, const void* b1, const void* w2, const void* s2, const void* b2,
-    const void* g2, const void* be2, int B, int L, int D, int H, int F, void* stream_ptr) {
-  return encoder_layer_int8(x, out, qkv, attn, x1, hid, aq, ascale, wqkv, sqkv, bqkv, wo, so,
-                            bo, g1, be1, w1, s1, b1, w2, s2, b2, g2, be2, B, L, D, H, F,
-                            stream_ptr);
+    void* ascale, void* hmax, const void* xq, const void* xscale, void* oq, void* oscale,
+    const void* wqkv, const void* sqkv, const void* bqkv, const void* wo, const void* so,
+    const void* bo, const void* g1, const void* be1, const void* w1, const void* s1,
+    const void* b1, const void* w2, const void* s2, const void* b2, const void* g2,
+    const void* be2, int B, int L, int D, int H, int F, void* stream_ptr) {
+  return encoder_layer_int8(x, out, qkv, attn, x1, hid, aq, ascale, hmax, xq, xscale, oq, oscale,
+                            wqkv, sqkv, bqkv, wo, so, bo, g1, be1, w1, s1, b1, w2, s2, b2, g2,
+                            be2, B, L, D, H, F, stream_ptr);
+}
+
+// One of K6's s8 stages alone, as the layer launches it: c [M, N] bf16 from
+// A [M, K] and wq [N, K] int8 with wscale, bias [N] f32. A is int8 levels aq
+// with row scales ascale [M] (the QKV and FFN1 stages), or (aq null) bf16 a
+// quantized in the stage: with the scales of its whole rows where K <= 256
+// (the out-projection), else of amax_in [M], the rows' absmax as f32 bits
+// (FFN2). Epilogue: + bias, then ReLU (relu = 1) with, for A as levels,
+// each row's max merged into row_max (if not null; zero it first); or, with
+// res non-null (A bf16,
+// N = 64, 128 or 256), + res [M, N] and LayerNorm with gamma, beta, the
+// rows' levels into cq [M, N] and scales into cscale [M] (if not null), and
+// clear [M] zeroed (if not null). K % 64 == 0, and K % 128 == 0 above 256;
+// N % 64 == 0.
+extern "C" int vitiq_gemm_s8_stage(const void* a, const void* aq, const void* ascale,
+                                   const void* amax_in, const void* wq, const void* wscale,
+                                   const void* bias, const void* res, const void* gamma,
+                                   const void* beta, void* c, void* cq, void* cscale,
+                                   void* row_max, void* clear, int M, int K, int N, int relu,
+                                   void* stream_ptr) {
+  S8Args p = s8_args(bias, wscale, c, N, M, K);
+  if (res) p = with_ln(p, res, N, gamma, beta);
+  p.ascale = static_cast<const float*>(ascale);
+  p.amax_in = static_cast<const uint32_t*>(amax_in);
+  p.cq = static_cast<int8_t*>(cq);
+  p.cscale = static_cast<float*>(cscale);
+  p.row_max = static_cast<uint32_t*>(row_max);
+  p.clear = static_cast<uint32_t*>(clear);
+  p.relu = relu;
+  if (!cq != !cscale) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      launch_s8(aq ? aq : a, aq == nullptr, p, wq, N, static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // One of K6's GEMM stages alone, c [M, N] bf16 = epilogue(int8_gemm(a)) with
 // the bias (relu = 0) or the bias + ReLU (relu = 1) epilogue; a [M, K] bf16,
 // wq [N, K] int8, wscale and bias [N] f32. With prequant = 1, a is quantized
-// first by rowquant_kernel into the scratch aq [M, K] int8 and ascale [M]
-// (K <= 1024), as the QKV and FFN1 stages take it, on the tiles those
-// stages take (128 wide where 128 divides N, else 64); else in the GEMM's
-// prologue and k loop, on one N-wide tile where N is 64, 128 or 256, as the
-// out-projection and FFN2 stages take it (N = D). K % 64 == 0, N % 64 == 0.
+// first by rowquant_kernel into the scratch aq [M, K] int8 and ascale [M],
+// and the stage reads the levels, as the QKV and FFN1 stages take them;
+// else the stage quantizes a in registers, as the out-projection and FFN2
+// stages do (above K = 256 from the rows' absmax, which rowquant_kernel
+// writes into ascale first). K % 64 == 0 (K % 128 == 0 and K <= 1024 above
+// 256; K <= 1024 with prequant), N % 64 == 0.
 extern "C" int vitiq_gemm_int8(const void* a, const void* wq, const void* wscale,
                                const void* bias, void* c, void* aq, void* ascale, int M, int K,
                                int N, int relu, int prequant, void* stream_ptr) {
-  if (M <= 0 || K <= 0 || K % QBK || N <= 0 || N % 64 || (prequant && K > MAX_QUANT_K))
+  if (M <= 0 || K <= 0 || ((prequant || K > 256) && K > MAX_QUANT_K))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-  const GemmArgs p = gemm_args(static_cast<const bf16*>(a), K, nullptr, 0,
-                               static_cast<const float*>(bias), static_cast<bf16*>(c), N, M, K,
-                               0);
-  const int bn = !prequant && (N == 64 || N == 128 || N == 256) ? N : tile_width(N);
+  S8Args p = s8_args(bias, wscale, c, N, M, K);
+  p.relu = relu;
   cudaError_t err;
   if (prequant) {
-    launch_rowquant(a, aq, ascale, M, K, s);
-    if (relu)
-      err = launch_gemm_int8<kBiasRelu, true>(p, aq, ascale, wq, wscale, N, bn, s);
-    else
-      err = launch_gemm_int8<kBias, true>(p, aq, ascale, wq, wscale, N, bn, s);
-  } else if (relu) {
-    err = launch_gemm_int8<kBiasRelu, false>(p, nullptr, nullptr, wq, wscale, N, bn, s);
+    launch_rowquant<true>(a, aq, ascale, M, K, s);
+    p.ascale = static_cast<const float*>(ascale);
+    err = launch_s8(aq, false, p, wq, N, s);
   } else {
-    err = launch_gemm_int8<kBias, false>(p, nullptr, nullptr, wq, wscale, N, bn, s);
+    if (K > 256) {
+      launch_rowquant<false>(a, nullptr, ascale, M, K, s);
+      p.amax_in = static_cast<const uint32_t*>(ascale);
+    }
+    err = launch_s8(a, true, p, wq, N, s);
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -45,8 +45,12 @@ SIGNATURES = {
     "vitiq_attention_noexp": ([_P] * 2 + [_I] * 4 + [_P], _I),
     # qkv, out, s_dump, p_dump, pv_dump; B, L, D, H; stream
     "vitiq_attention_int8": ([_P] * 5 + [_I] * 4 + [_P], _I),
-    # x, out, 6 scratch, 16 int8-layer operands; B, L, D, H, F; stream
-    "vitiq_encoder_layer_int8_full": ([_P] * 24 + [_I] * 5 + [_P], _I),
+    # x, out, 7 scratch, x's and out's levels and scales, 16 int8-layer
+    # operands; B, L, D, H, F; stream
+    "vitiq_encoder_layer_int8_full": ([_P] * 29 + [_I] * 5 + [_P], _I),
+    # a, aq, ascale, amax_in, wq, wscale, bias, res, gamma, beta, c, cq, cscale,
+    # row_max, clear; M, K, N, relu; stream
+    "vitiq_gemm_s8_stage": ([_P] * 15 + [_I] * 4 + [_P], _I),
     # a, wq, wscale, bias, c, aq, ascale; M, K, N, relu, prequant; stream
     "vitiq_gemm_int8": ([_P] * 7 + [_I] * 5 + [_P], _I),
     # a, w, bias, res, gamma, beta, c; M, K, N, epi; stream
