@@ -100,7 +100,8 @@ which raises (exit code 1) on failure:
    flagship shape (B=256, L=129, F=512, H=8, dropout 0.1) and the rawIQ one
    (B=256, L=65, F=1024, H=8, dropout 0.2), then K4-fwd and K4-bwd (the
    stash regime) at the rawIQ shape: the forward, dx and K4's bf16 stash
-   tensors within LAYER_TOL, K4's f32 1/std within 1e-3 relative, each of
+   tensors within LAYER_TOL (attn and pbar also within GRAD_REL in the L2
+   norm), K4's f32 1/std within 1e-3 relative, each of
    the 12 weight, bias and LN gradients within GRAD_REL of the plain
    gradient in the L2 norm (max |difference| printed). K4-bwd runs on the
    plain version's stash, so that it alone is under test. Then K3 at
@@ -109,7 +110,17 @@ which raises (exit code 1) on failure:
    d_model 128 / d_head 32 (WIDE_TRAIN_K3, WIDE_TRAIN_K4): d_head 64 (D=128,
    H=2: L=129 through K3, L=65 through K4), d_model 64 (H=4, L=17, both)
    and an FFN width of 320 (64-wide GEMM tiles, both), dropout on, where the
-   forward output and dx are also held within GRAD_REL in the L2 norm.
+   forward output and dx are also held within GRAD_REL in the L2 norm. Then
+   K4's two attention passes alone (`flt.stash_attention_fwd` / `_bwd`, the
+   wgmma kernels wg_attention_fwd and wg_attention_bwd_stash) at the four
+   shapes K4 trains (K4_PASS_SHAPES, B=256) against their plain versions on
+   the same inputs: attn and dqkv within LAYER_TOL, pbar within PBAR_ULPS
+   bf16 ulps (its padding exactly 0), attn, pbar, dqkv and each frame's
+   column sums within GRAD_REL in the L2 norm, the backward also on the
+   forward kernel's own attn and pbar against the plain chain (GRAD_REL), and
+   30 launches of each pass giving the first launch's bits. The
+   build phase fails unless every instance of those passes
+   (K4_ATTENTION_INSTANCES) is in the build, spills nothing and runs HGMMA.
 6. train: the ViT flagship and the rawIQ flagship (bf16 `tpu` numerics,
    seeded random weights) each take 20 `make_train_step` steps at B=256 on
    one repeated random batch at lr 1e-3, the rawIQ one on raw frames through
@@ -205,8 +216,11 @@ which raises (exit code 1) on failure:
    at L=65; vit_tiny_2016: K3 and K4 at D=64, L=17) with their bounds, and
    the vit_tpu_production and vit_tiny_2016 train steps at B=4096 through
    K3 / K4 and through the plain layers with K5 (VITIQ_FUSED_TRAIN=0, the
-   path they took before K3/K4 took their widths); beside the card's name
-   and power limit.
+   path they took before K3/K4 took their widths); K3-bwd (rawiq_best, ViT)
+   and K4-fwd and K4-bwd (rawIQ, rawiq_best_mp) by stage with
+   `torch.profiler`; K4's attention passes alone at B=4096 beside their
+   plain versions and their byte floors (`attention_pass_bounds`), with the
+   stash's bytes a frame and layer; beside the card's name and power limit.
 8. probes: the counterparts of the TPU probes under scripts/
    (`vitiq_torch/probes/`, `csrc/probes.cu`). The `ptxas -v` lines of the
    probe kernels (none may spill), of K1's one-pass core with and without
@@ -239,7 +253,8 @@ line is {"ok": true, "device": {...}}.
 ``python3 chip_smoke.py --latency`` runs only the device and build phases
 and `time_small_batches`, and prints its numbers as one JSON line (to
 compare two trees of the port in one call: copy this script into each tree's
-root and run it there).
+root and run it there). ``--k4`` does the same with `time_k4`: K4's layers
+by stage and the train steps that go through it.
 """
 
 from __future__ import annotations
@@ -311,6 +326,14 @@ GRAD_REL = 1e-2
 # a few tenths of a percent off moves it more).
 K5_OUT_TOL = (0.08, 1.6e-2)
 K5_LSE_ATOL = 1e-3
+# K4's forward pass alone, pbar = bf16(bf16(exp2(s - max)) / l) on the same
+# qkv as the plain version: s sums the same bf16 products in another order and
+# the quotients are IEEE's, so only a bf16 rounding of p or of p / l may flip.
+# A flipped p moves p / l by under 2 ulps of the quotient's binade (p at the
+# foot of its binade, p / l near the top of its own); rounding the quotient,
+# across a binade edge, adds one more. Each element within PBAR_ULPS bf16
+# ulps of |plain| (LAYER_TOL's absolute part is twice a typical entry, 1 / L).
+PBAR_ULPS = 3
 COSINE_PLAIN, COSINE_F32 = 0.999, 0.995
 TRAIN_DROP, TRAIN_SEED = 0.1, 1234
 STATS = {"i_mean": 0.0, "i_std": 1.0, "q_mean": 0.0, "q_std": 1.0}
@@ -393,13 +416,18 @@ SFU_EXP2_PER_CLOCK_SM, N_SM = 16, 132  # Hopper's special-function units
 TRAIN_GEMM_INSTANCES = 33
 
 
+# wg_attention_fwd<DH, NG> (NG 2, 4, 5) and wg_attention_bwd_stash<DH, NG,
+# RESIDENT> (2, 4, 5 resident; 4 streamed) at d_head 16, 32, 64: K4's passes
+K4_ATTENTION_INSTANCES = 21
+
+
 def check_train_spills() -> None:
     """The build's `ptxas -v` report of csrc/fused_layer_train.cu: print the
     registers of each attention block and of each GEMM stage instance
     (train_gemm_kernel), and fail if any function of the file spills (the
     d_head-64 backward parks its column sums in shared memory so that it need
-    not) or a stage instance has no HGMMA in its SASS (cuobjdump, beside
-    nvcc)."""
+    not) or a stage instance or an instance of K4's wgmma attention passes
+    (wg_attention_*) has no HGMMA in its SASS (cuobjdump, beside nvcc)."""
     import re
 
     report = _build.ptxas_report("fused_layer_train")
@@ -411,7 +439,22 @@ def check_train_spills() -> None:
                            str(_build.build())], capture_output=True, text=True, timeout=600,
                           check=True).stdout
     bodies = [block.split("\n", 1) for block in sass.split("Function : ")[1:]]
-    stages = {n: v for n, v in _build.ptxas_entries(report).items() if "train_gemm_kernel" in n}
+    entries = _build.ptxas_entries(report)
+    passes = {n: v for n, v in entries.items() if "wg_attention" in n}
+    if len(passes) != K4_ATTENTION_INSTANCES:
+        raise AssertionError(f"{len(passes)} instances of K4's attention passes in the build, "
+                             f"want {K4_ATTENTION_INSTANCES}")
+    for name, (regs, stores, loads) in sorted(passes.items()):
+        kind = re.search(r"(wg_attention_\w+?)ILi(\d+)ELi(\d+)E(?:Lb(\d)E)?", name).groups()
+        body = [b for n, b in bodies if n.strip() == name]
+        hgmma = body[0].count("HGMMA") if len(body) == 1 else 0
+        regime = "" if kind[3] is None else ", resident" if kind[3] == "1" else ", streamed"
+        label = f"{kind[0]}<{kind[1]}, {kind[2]}{regime}>"
+        print(f"  ptxas {label}: {regs} registers, {stores + loads} bytes spilled, {hgmma} HGMMA "
+              f"in its SASS", flush=True)
+        if not hgmma:
+            raise AssertionError(f"{label} runs no HGMMA")
+    stages = {n: v for n, v in entries.items() if "train_gemm_kernel" in n}
     if len(stages) != TRAIN_GEMM_INSTANCES:
         raise AssertionError(f"{len(stages)} train_gemm_kernel instances in the build, want "
                              f"{TRAIN_GEMM_INSTANCES}")
@@ -661,6 +704,23 @@ def check_rel(label: str, got: torch.Tensor, want: torch.Tensor, floor: float = 
     if not err <= GRAD_REL * norm + floor:
         raise AssertionError(f"{label}: kernel disagrees with the plain version")
     return max_abs
+
+
+def check_pbar(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """pbar against the plain pbar on the same qkv: every element within
+    PBAR_ULPS bf16 ulps of |plain| (the ulp floored at the smallest normal),
+    its padding included; returns the max |difference|."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: bad kernel output {tuple(got.shape)}")
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+    err = (got - want).abs()
+    worst = (err / ulp).max().item()
+    print(f"  {label}: max |kernel - plain| = {err.max().item():.6g}, at most {worst:.3g} bf16 "
+          f"ulp (limit {PBAR_ULPS})", flush=True)
+    if worst > PBAR_ULPS:
+        raise AssertionError(f"{label}: kernel disagrees with the plain version")
+    return err.max().item()
 
 
 def check_attention_kernels(device, B: int = 64) -> dict:
@@ -981,6 +1041,8 @@ def check_train_kernels(device, B: int = 256) -> dict:
                     raise AssertionError(f"K4-fwd {part}: dtype {got.dtype} != {ref.dtype}")
                 tol = (0.0, 1e-3) if part in ("r1", "r2") else LAYER_TOL
                 k4f = max(k4f, check_close(f"{label}-fwd stash {part}", got, ref, tol))
+                if part in ("attn", "pbar"):
+                    check_rel(f"{label}-fwd stash {part}", got, ref)
             dx, grads = flt.fused_train_layer_bwd_stash(x, dy, want_stash, ops, *args)
             want_dx, want_grads = flt.fused_train_layer_stash_backward_reference(
                 x, dy, want_stash, ops, *args)
@@ -1076,6 +1138,113 @@ def check_train_bits(device, launches: int = 30) -> None:
                       f"bits", flush=True)
         del x, dy, ops, runs
         torch.cuda.empty_cache()
+
+
+# K4's attention passes alone at the shapes K4 trains: (name, L, D, H) at
+# B=256 in the checks, B=4096 in the timings
+K4_PASS_SHAPES = (("rawiq", 65, 128, 8), ("rawiq_best_mp", 64, 256, 8),
+                  ("rawIQ flagship at n_head 2", 65, 128, 2), ("vit_tiny_2016", 17, 64, 4))
+
+
+def stash_pass_inputs(gen, B: int, L: int, D: int, H: int, device):
+    """qkv [B, L, 3D] and dattn [B, L, D] (bf16, seeded), and the plain
+    forward pass's attn and pbar on that qkv."""
+    qkv = torch.randn((B, L, 3 * D), generator=gen).to(device, torch.bfloat16)
+    dattn = (0.1 * torch.randn((B, L, D), generator=gen)).to(device, torch.bfloat16)
+    with torch.no_grad():
+        attn, pbar = flt.stash_attention_fwd_plain(qkv, H)
+    return qkv, dattn, attn, pbar
+
+
+def check_stash_passes(device, B: int = 256, shapes=K4_PASS_SHAPES, launches: int = 30) -> dict:
+    """K4's two attention passes alone against their plain versions on the
+    same inputs (`flt.stash_attention_fwd` / `_bwd` against
+    `stash_attention_fwd_plain` / `_bwd_plain`): attn and dqkv within
+    LAYER_TOL, pbar within PBAR_ULPS bf16 ulps (its padding exactly 0), attn,
+    pbar, dqkv and each frame's column sums within GRAD_REL in the L2 norm;
+    the backward on the plain attn and pbar, so that it alone is under test.
+    Then the backward on the forward kernel's attn and pbar, its dqkv and
+    column sums within GRAD_REL of the plain chain's. Then `launches`
+    launches of each pass give the first launch's bits. Returns the largest
+    difference of each pass."""
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    gen = torch.Generator().manual_seed(31)
+    for name, L, D, H in shapes:
+        print(f"phase train-kernels: K4's attention passes alone vs their plain versions, {name} "
+              f"shape B={B} L={L} D={D} H={H} (d_head {D // H}; tiles "
+              f"{flt.stash_tile_plan(L)})", flush=True)
+        qkv, dattn, attn_p, pbar_p = stash_pass_inputs(gen, B, L, D, H, device)
+        with torch.no_grad():
+            attn, pbar = flt.stash_attention_fwd(qkv, H)
+            dqkv, part = flt.stash_attention_bwd(qkv, attn_p, dattn, pbar_p, H)
+            want_dqkv, want_part = flt.stash_attention_bwd_plain(qkv, attn_p, dattn, pbar_p, H)
+            torch.cuda.synchronize()
+        if pbar.shape != pbar_p.shape or torch.count_nonzero(pbar[..., L:]).item():
+            raise AssertionError(f"{name}: pbar's shape {tuple(pbar.shape)} or its padding is off")
+        errs["fwd"] = max(errs["fwd"], check_close(f"{name} K4 attention fwd attn", attn, attn_p,
+                                                   LAYER_TOL),
+                          check_rel(f"{name} K4 attention fwd attn", attn, attn_p),
+                          check_pbar(f"{name} K4 attention fwd pbar", pbar, pbar_p),
+                          check_rel(f"{name} K4 attention fwd pbar", pbar, pbar_p))
+        errs["bwd"] = max(errs["bwd"], check_close(f"{name} K4 attention bwd dqkv", dqkv,
+                                                   want_dqkv, LAYER_TOL),
+                          check_rel(f"{name} K4 attention bwd dqkv", dqkv, want_dqkv),
+                          check_rel(f"{name} K4 attention bwd column sums", part, want_part))
+        with torch.no_grad():
+            dqkv_k, part_k = flt.stash_attention_bwd(qkv, attn, dattn, pbar, H)
+            torch.cuda.synchronize()
+        check_rel(f"{name} K4 attention fwd -> bwd dqkv (the kernels' chain)", dqkv_k, want_dqkv)
+        check_rel(f"{name} K4 attention fwd -> bwd column sums (the kernels' chain)", part_k,
+                  want_part)
+        del dqkv_k, part_k
+        with torch.no_grad():
+            for label, run, first in (("fwd", lambda: flt.stash_attention_fwd(qkv, H),
+                                       (attn, pbar)),
+                                      ("bwd", lambda: flt.stash_attention_bwd(qkv, attn_p, dattn,
+                                                                              pbar_p, H),
+                                       (dqkv, part))):
+                for _ in range(launches):
+                    again = run()
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                        raise AssertionError(f"{name} K4 attention {label}: launches differ")
+            print(f"  {name} K4 attention fwd and bwd: {launches} launches each give the same "
+                  f"bits", flush=True)
+        del qkv, dattn, attn_p, pbar_p, attn, pbar, dqkv, part, want_dqkv, want_part
+        torch.cuda.empty_cache()
+    return errs
+
+
+def time_stash_passes(device, card: str, B: int = 4096, shapes=K4_PASS_SHAPES) -> dict:
+    """K4's attention passes alone at B=4096 (CUDA events, 20 launches)
+    against their plain versions and their bounds (`attention_pass_bounds`:
+    the byte floor of the function's inputs and outputs, pbar L x L, beside
+    its FLOPs), and the stash's bytes a frame and layer."""
+    out = {}
+    gen = torch.Generator().manual_seed(32)
+    for name, L, D, H in shapes:
+        qkv, dattn, attn, pbar = stash_pass_inputs(gen, B, L, D, H, device)
+        with torch.no_grad():
+            t = {"fwd_ms": cuda_ms(lambda: flt.stash_attention_fwd(qkv, H), 20),
+                 "fwd_plain_ms": cuda_ms(lambda: flt.stash_attention_fwd_plain(qkv, H), 3,
+                                         warmup=1),
+                 "bwd_ms": cuda_ms(lambda: flt.stash_attention_bwd(qkv, attn, dattn, pbar, H), 20),
+                 "bwd_plain_ms": cuda_ms(
+                     lambda: flt.stash_attention_bwd_plain(qkv, attn, dattn, pbar, H), 3,
+                     warmup=1)}
+        t.update(attention_pass_bounds(B, L, D, H))
+        rest = 3 * L * D * 2 + 2 * L * 4  # attn, xh1, xh2 (bf16), r1, r2 (f32)
+        print(f"  {name} K4 attention passes B={B} L={L} D={D} H={H}: fwd {t['fwd_ms']:.4f} ms vs "
+              f"plain {t['fwd_plain_ms']:.4f} ms (bound {t['fwd'][0]:.4f} ms by {t['fwd'][1]}, "
+              f"{t['fwd'][0] / t['fwd_ms']:.3f} of it); bwd {t['bwd_ms']:.4f} ms vs plain "
+              f"{t['bwd_plain_ms']:.4f} ms (bound {t['bwd'][0]:.4f} ms by {t['bwd'][1]}, "
+              f"{t['bwd'][0] / t['bwd_ms']:.3f} of it); the stash "
+              f"{rest + H * L * flt.stash_cols(L) * 2} bytes a frame and layer (pbar's rows padded "
+              f"to {flt.stash_cols(L)}; {rest + H * L * L * 2} unpadded)  [{card}]", flush=True)
+        out[name] = t
+        del qkv, dattn, attn, pbar
+        torch.cuda.empty_cache()
+    return out
 
 
 def flat_grad(model, inputs, labels, seed) -> torch.Tensor:
@@ -2254,6 +2423,18 @@ def attention_bounds(B: int, L: int, D: int = 128, H: int = 8) -> dict:
             "k5b": bound(10.0 * B * H * L * L * dh, 8 * act + lse)}
 
 
+def attention_pass_bounds(B: int, L: int, D: int = 128, H: int = 8) -> dict:
+    """K4's attention passes alone: the forward reads qkv and writes attn and
+    pbar (B H L^2 bf16: the function's, without the stash's padding), 4 L^2
+    dh FLOPs a frame-head (Q K^T, P V); the backward reads qkv, attn, dattn
+    and pbar and writes dqkv (and a frame's column sums, 3D f32), 8 L^2 dh
+    (dP, dQ, dK, dV)."""
+    dh, act, pbar = D // H, B * L * D * 2.0, B * H * L * L * 2.0
+    return {"fwd": bound(4.0 * B * H * L * L * dh, 3 * act + act + pbar),
+            "bwd": bound(8.0 * B * H * L * L * dh,
+                         3 * act + 2 * act + pbar + 3 * act + B * 3 * D * 4.0)}
+
+
 def max_sm_clock_hz() -> float:
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                           "--format=csv,noheader,nounits"],
@@ -2644,91 +2825,198 @@ def profile_k1_stages(name: str, B: int, L: int, D: int, F: int, H: int, device,
     return split
 
 
-# K3-bwd's kernels in launch order, by stage: the GEMM stages by epilogue
-# (the weight gradients, all `partial`, by their order), then the others.
+# K3-bwd's GEMM stages in launch order, by epilogue (the weight gradients,
+# all `partial`, by their order).
 K3_GEMM_STAGES = [stage for stage, _, _, _ in flt.stage_plan(128, 512)]
-K3_OTHER_KERNELS = ("train_attention_fwd", "train_attention_bwd", "ln_bwd_rows", "reduce_rows")
+# K4-fwd's GEMM stages (the forward's four) and K4-bwd's (the rebuilt QKV and
+# FFN1, then the gradient stages), in launch order
+K4_FWD_GEMM_STAGES = K3_GEMM_STAGES[:4]
+K4_BWD_GEMM_STAGES = [K3_GEMM_STAGES[0], K3_GEMM_STAGES[2], *K3_GEMM_STAGES[4:]]
 
 
-def profile_k3_stages(name: str, B: int, L: int, D: int, F: int, H: int, drop: float, device,
-                      card: str, calls: int = 10) -> dict:
-    """K3-bwd's time by stage: `torch.profiler` over `calls` calls at [B, L,
-    D], each call's kernels told apart by kernel and order (its twelve GEMM
-    stages in `flt.stage_plan`'s order, the recompute's four first, then
-    each weight gradient before its input gradient; the attention passes,
-    LN2's backward rows and the fixed-order reductions). The profiler can
-    miss kernels of a window, so the split averages the calls it holds whole
-    (a call starts at its QKV stage), at least half of them. Prints each
-    stage's ms and share of the call."""
-    ops = train_operands(F, 13, device, D, H)
-    x, dy = train_inputs(torch.Generator().manual_seed(4), B, L, D, device)
-    args = (H, drop, TRAIN_SEED, 0)
+def kernel_name(name: str) -> str:
+    """A kernel's function name, from the profiler's demangled signature."""
+    base = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+    return (base.split() or [name])[-1].split("::")[-1]
+
+
+def profile_layer_stages(label: str, call, gemm_stages, calls: int) -> dict:
+    """One layer call's time by stage: `torch.profiler` over `calls` calls of
+    `call`, each call's kernels told apart by kernel and order (its GEMM
+    stages, `train_gemm_kernel`, in the order of `gemm_stages`; every other
+    kernel by its function name). The profiler can miss kernels of a window, so
+    the split averages the calls it holds whole (a call starts at its QKV
+    stage), at least half of them. Returns ms a call by stage."""
     with torch.no_grad():
         for _ in range(2):
-            flt.fused_train_layer_bwd(x, dy, ops, *args)
+            call()
         torch.cuda.synchronize()
         activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=activities) as prof:
             for _ in range(calls):
-                flt.fused_train_layer_bwd(x, dy, ops, *args)
+                call()
             torch.cuda.synchronize()
     kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                       and device_us(e) > 0), key=lambda e: e.time_range.start)
     starts = [i for i, e in enumerate(kernels) if "train_gemm_kernel<0," in e.name]
     split, whole = {}, 0
     for i, j in zip(starts, starts[1:] + [len(kernels)]):
-        call = kernels[i:j]
-        gemms = [e for e in call if "train_gemm_kernel<" in e.name]
-        if len(gemms) != len(K3_GEMM_STAGES):
+        call_kernels = kernels[i:j]
+        gemms = [e for e in call_kernels if "train_gemm_kernel<" in e.name]
+        if len(gemms) != len(gemm_stages):
             continue
         whole += 1
-        for stage, e in zip(K3_GEMM_STAGES, gemms):
+        for stage, e in zip(gemm_stages, gemms):
             split[stage] = split.get(stage, 0.0) + device_us(e)
-        for e in call:
-            kind = next((k for k in K3_OTHER_KERNELS if k + "<" in e.name or k + "(" in e.name),
-                        None)
-            if kind:
+        for e in call_kernels:
+            if "train_gemm_kernel<" not in e.name:
+                kind = kernel_name(e.name)
                 split[kind] = split.get(kind, 0.0) + device_us(e)
     if whole < calls // 2:
-        raise AssertionError(f"{name}: {whole} whole K3-bwd calls in the profile of {calls}")
-    split = {k: v / whole / 1e3 for k, v in split.items()}
+        raise AssertionError(f"{label}: {whole} whole calls in the profile of {calls}")
+    return {k: v / whole / 1e3 for k, v in split.items()}
+
+
+def print_split(label: str, split: dict, card: str) -> None:
     total = sum(split.values())
-    print(f"  {name} K3-bwd B={B} L={L} D={D} F={F} H={H} by stage (torch.profiler, {whole} of "
-          f"{calls} calls whole): " + ", ".join(f"{k} {v:.4f} ms ({v / total:.3f})"
-                                                for k, v in split.items())
+    print(f"  {label} by stage (torch.profiler): "
+          + ", ".join(f"{k} {v:.4f} ms ({v / total:.3f})" for k, v in split.items())
           + f"; sum {total:.4f} ms  [{card}]", flush=True)
+
+
+def profile_k3_stages(name: str, B: int, L: int, D: int, F: int, H: int, drop: float, device,
+                      card: str, calls: int = 10) -> dict:
+    """K3-bwd's time by stage (`profile_layer_stages`): its twelve GEMM stages
+    in `flt.stage_plan`'s order, the recompute's four first, then each
+    weight gradient before its input gradient; then every other kernel of
+    the call by name (the attention passes, LN2's backward rows, the
+    fixed-order reductions)."""
+    ops = train_operands(F, 13, device, D, H)
+    x, dy = train_inputs(torch.Generator().manual_seed(4), B, L, D, device)
+    args = (H, drop, TRAIN_SEED, 0)
+    label = f"{name} K3-bwd B={B} L={L} D={D} F={F} H={H}"
+    split = profile_layer_stages(label, lambda: flt.fused_train_layer_bwd(x, dy, ops, *args),
+                                 K3_GEMM_STAGES, calls)
+    print_split(label, split, card)
     del x, dy, ops
     torch.cuda.empty_cache()
     return split
 
 
-def time_k3_host(device, card: str, B: int = 128, calls: int = 50) -> dict:
-    """The host's time of one K3-bwd call at rawiq_best's shape and `cli
-    train`'s batch (B=128, L=65, D=256): the mean host clock of a call
+def profile_k4_stages(name: str, B: int, L: int, D: int, F: int, H: int, drop: float, device,
+                      card: str, calls: int = 10) -> dict:
+    """K4-fwd's and K4-bwd's time by stage (`profile_layer_stages`): K4-fwd's
+    four GEMM stages; K4-bwd's ten GEMM stages (the rebuilt QKV and FFN1,
+    then each weight gradient before its input gradient); then every other
+    kernel of a call by name (K4-fwd's attention pass, which writes pbar;
+    K4-bwd's attention backward on the stashed pbar, the rebuild of x1,
+    LN2's backward rows, the fixed-order reductions)."""
+    ops = train_operands(F, 13, device, D, H)
+    x, dy = train_inputs(torch.Generator().manual_seed(4), B, L, D, device)
+    args = (H, drop, TRAIN_SEED, 0)
+    out = {}
+    with torch.no_grad():
+        _, st = flt.fused_train_layer_fwd_stash(x, ops, *args)
+    for kind, call, stages in (
+            ("fwd", lambda: flt.fused_train_layer_fwd_stash(x, ops, *args), K4_FWD_GEMM_STAGES),
+            ("bwd", lambda: flt.fused_train_layer_bwd_stash(x, dy, st, ops, *args),
+             K4_BWD_GEMM_STAGES)):
+        label = f"{name} K4-{kind} B={B} L={L} D={D} F={F} H={H}"
+        out[kind] = profile_layer_stages(label, call, stages, calls)
+        print_split(label, out[kind], card)
+    del x, dy, ops, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_k4(device, card: str) -> dict:
+    """`--k4`: K4-fwd and K4-bwd a layer at the four shapes K4 trains (K3 too
+    at the rawIQ flagship's and vit_tiny_2016's), K3 at the other training
+    shapes, K4 by stage at rawIQ and rawiq_best_mp, K4's host time at
+    vit_tiny_2016's shape (`time_k4_host`), and the train steps
+    through K4 (vit_tiny_2016, the rawIQ flagship, rawiq_best_mp) and the
+    rawIQ flagship's through K3, all at B=4096. Uses no wrapper of K4's
+    passes alone, so that it runs in a tree of the port from before them
+    too."""
+    out = {"layers": {}}
+    for name, L, ffn, drop, D, H, stash, k3 in (
+            ("rawiq", 65, 1024, RAW_DROP, 128, 8, True, True),
+            ("rawiq_best_mp", 64, 1024, BEST_DROP, 256, 8, True, False),
+            ("rawIQ flagship at n_head 2", 65, 1024, RAW_DROP, 128, 2, True, False),
+            ("vit_tiny_2016", 17, 256, TRAIN_DROP, 64, 4, True, True),
+            ("vit", 129, 512, TRAIN_DROP, 128, 8, False, True),
+            ("rawiq_best", 65, 1024, BEST_DROP, 256, 8, False, True),
+            ("vit_tpu_production", 129, 512, TRAIN_DROP, 128, 2, False, True)):
+        t = time_train_layers(name, L, ffn, drop, device, card, stash, D=D, k3=k3, H=H)
+        out["layers"][name] = {k: v for k, v in t.items() if k.endswith("_ms")}
+    out["k4_stages"] = {name: profile_k4_stages(name, 4096, L, D, F, H, drop, device, card)
+                        for name, L, D, F, H, drop in (
+                            ("rawiq", 65, 128, 1024, 8, RAW_DROP),
+                            ("rawiq_best_mp", 64, 256, 1024, 8, BEST_DROP))}
+    out["k4_host"] = time_k4_host(device, card)
+    raw = flagship_rawiq_config("tpu")
+    out["steps"] = {label: time_train_step(label, cfg, stats, 4096, device, card, 20, env)
+                    for label, cfg, stats, env in (
+                        ("vit_tiny_2016 (K4 kernels)", vit_tiny_2016_config("tpu"), STATS, None),
+                        ("rawiq flagship (K4 kernels)", raw, RAW_STATS, None),
+                        ("rawiq_best_mp (K4 kernels)", rawiq_best_mp_config("tpu"), RAW_STATS,
+                         None),
+                        ("rawiq flagship (K3 kernels, VITIQ_TRAIN_STASH=0)", raw, RAW_STATS,
+                         {"VITIQ_TRAIN_STASH": "0"}))}
+    return out
+
+
+def time_host(label: str, call, card: str, calls: int = 50) -> dict:
+    """The host's time of one layer call: the mean host clock of a call
     without a synchronize (the wrapper's checks, the workspace, the C entry's
-    tensor maps and launches), and the synced p50 of a call beside its
-    device time."""
-    ops = train_operands(1024, 13, device, 256, 8)
-    x, dy = train_inputs(torch.Generator().manual_seed(4), B, 65, 256, device)
-    args = (8, BEST_DROP, TRAIN_SEED, 0)
+    tensor maps and launches), the synced p50 of a call, and the time a call
+    back to back (CUDA events: the larger of the host's and the device's)."""
     with torch.no_grad():
         for _ in range(3):
-            flt.fused_train_layer_bwd(x, dy, ops, *args)
+            call()
         torch.cuda.synchronize()
         host, synced = [], []
         for _ in range(calls):
             t0 = time.perf_counter()
-            flt.fused_train_layer_bwd(x, dy, ops, *args)
+            call()
             host.append(time.perf_counter() - t0)
             torch.cuda.synchronize()
             synced.append(time.perf_counter() - t0)
-        device_ms = cuda_ms(lambda: flt.fused_train_layer_bwd(x, dy, ops, *args), calls)
+        device_ms = cuda_ms(call, calls)
     out = {"host_us": statistics.mean(host) * 1e6, "p50_us": statistics.median(synced) * 1e6,
            "device_us": device_ms * 1e3}
-    print(f"  K3-bwd host time at B={B} L=65 D=256 (rawiq_best, cli train's batch): "
-          f"{out['host_us']:.1f} us a call unsynced, p50 {out['p50_us']:.1f} us synced, device "
-          f"{out['device_us']:.1f} us a call (CUDA events, back to back)  [{card}]", flush=True)
+    print(f"  {label}: {out['host_us']:.1f} us a call unsynced, p50 {out['p50_us']:.1f} us "
+          f"synced, device {out['device_us']:.1f} us a call (CUDA events, back to back)  "
+          f"[{card}]", flush=True)
+    return out
+
+
+def time_k3_host(device, card: str, B: int = 128, calls: int = 50) -> dict:
+    """`time_host` of one K3-bwd call at rawiq_best's shape and `cli train`'s
+    batch (B=128, L=65, D=256)."""
+    ops = train_operands(1024, 13, device, 256, 8)
+    x, dy = train_inputs(torch.Generator().manual_seed(4), B, 65, 256, device)
+    args = (8, BEST_DROP, TRAIN_SEED, 0)
+    out = time_host(f"K3-bwd host time at B={B} L=65 D=256 (rawiq_best, cli train's batch)",
+                    lambda: flt.fused_train_layer_bwd(x, dy, ops, *args), card, calls)
     del x, dy, ops
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_k4_host(device, card: str, B: int = 4096) -> dict:
+    """`time_host` of K4-fwd and K4-bwd at vit_tiny_2016's shape (L=17,
+    D=64, H=4, F=256), whose train step waits on the host."""
+    ops = train_operands(256, 13, device, 64, 4)
+    x, dy = train_inputs(torch.Generator().manual_seed(4), B, 17, 64, device)
+    args = (4, TRAIN_DROP, TRAIN_SEED, 0)
+    with torch.no_grad():
+        _, st = flt.fused_train_layer_fwd_stash(x, ops, *args)
+    out = {kind: time_host(f"K4-{kind} host time at vit_tiny_2016's shape B={B}", call, card)
+           for kind, call in (("fwd", lambda: flt.fused_train_layer_fwd_stash(x, ops, *args)),
+                              ("bwd", lambda: flt.fused_train_layer_bwd_stash(x, dy, st, ops,
+                                                                              *args)))}
+    del x, dy, ops, st
     torch.cuda.empty_cache()
     return out
 
@@ -2754,6 +3042,10 @@ def main() -> int:
     if sys.argv[1:] == ["--latency"]:
         print(f"phase latency: small serving batches on {card}:", flush=True)
         print(json.dumps({"latency": time_small_batches(device, card)}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--k4"]:
+        print(f"phase k4: K4's layers, stages and train steps on {card}:", flush=True)
+        print(json.dumps({"k4": time_k4(device, card)}), flush=True)
         return 0
     check_train_spills()
     check_k5_build()
@@ -2806,6 +3098,7 @@ def main() -> int:
                              (1, 37, 256), (64, 256))
 
     errs.update(check_train_kernels(device))
+    errs.update({f"k4_{k}_pass": v for k, v in check_stash_passes(device).items()})
     errs["k3_stages"] = check_train_stages(device)
     check_train_bits(device)
     vit_train = train_check("ViT flagship", flagship_vit_config("tpu"), STATS, K3, device)
@@ -2861,6 +3154,10 @@ def main() -> int:
     for name, L, D, F, H, drop in (("rawiq_best", 65, 256, 1024, 8, BEST_DROP),
                                    ("vit", 129, 128, 512, 8, TRAIN_DROP)):
         profile_k3_stages(name, 4096, L, D, F, H, drop, device, card)
+    times["k4_passes"] = time_stash_passes(device, card)
+    for name, L, D, F, H, drop in (("rawiq", 65, 128, 1024, 8, RAW_DROP),
+                                   ("rawiq_best_mp", 64, 256, 1024, 8, BEST_DROP)):
+        profile_k4_stages(name, 4096, L, D, F, H, drop, device, card)
     time_k3_host(device, card)
     times["conv1d"].update(time_attention(device, card))
 

@@ -611,6 +611,150 @@ def test_stash_launch_counts_and_autograd(cuda):
             assert p.grad is not None and p.grad.dtype == torch.float32
 
 
+# K4's two attention passes alone (wg_attention_fwd, wg_attention_bwd_stash):
+# the four shapes K4 trains (rawIQ, rawiq_best_mp, the rawIQ flagship at
+# n_head 2, vit_tiny_2016), then the rest of what the stash gate admits:
+# a dead key group (L 33), one token, Lp 80, and both passes' 64-key tiles
+# past 80 keys (L 129 to the longest K4 takes at each d_head: 320, 432, 224)
+STASH_PASS_SHAPES = [pytest.param(65, 128, 8, id="rawiq"),
+                     pytest.param(64, 256, 8, id="rawiq_best_mp"),
+                     pytest.param(65, 128, 2, id="rawiq-n_head2"),
+                     pytest.param(17, 64, 4, id="vit_tiny_2016"),
+                     pytest.param(33, 128, 4, id="L33"), pytest.param(1, 128, 8, id="L1"),
+                     pytest.param(80, 128, 8, id="L80"), pytest.param(129, 64, 4, id="L129"),
+                     pytest.param(200, 64, 2, id="L200-dh32"), pytest.param(224, 64, 1, id="L224"),
+                     pytest.param(320, 64, 4, id="L320"), pytest.param(432, 64, 2, id="L432")]
+
+
+def _stash_pass_inputs(cuda, B, Lx, d, n_head, seed):
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((B, Lx, 3 * d), generator=gen).to(cuda, torch.bfloat16)
+    dattn = (0.1 * torch.randn((B, Lx, d), generator=gen)).to(cuda, torch.bfloat16)
+    attn, pbar = flt.stash_attention_fwd_plain(qkv, n_head)
+    return qkv, dattn, attn, pbar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx,d,n_head", STASH_PASS_SHAPES)
+def test_stash_attention_passes_match_plain_versions(cuda, Lx, d, n_head):
+    """Each pass alone on the same inputs as its plain version: attn and
+    dqkv at the one-layer tolerance, pbar within three bf16 ulps of |plain|
+    (only a rounding of p or of p / l may flip: a flipped p moves p / l by
+    under two ulps, its own rounding one more; its padding exactly 0),
+    attn, pbar, dqkv and each frame's column sums within 1% in the L2 norm
+    (the backward on the plain attn and pbar, so that it alone is under
+    test). Then the backward on the forward kernel's attn and pbar: dqkv and
+    the column sums within 1% of the plain chain's in the L2 norm."""
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    B = 37 if Lx <= 80 else 5
+    qkv, dattn, attn_p, pbar_p = _stash_pass_inputs(cuda, B, Lx, d, n_head, Lx)
+    flt.reset_launches()
+    attn, pbar = flt.stash_attention_fwd(qkv, n_head)
+    dqkv, part = flt.stash_attention_bwd(qkv, attn_p, dattn, pbar_p, n_head)
+    torch.cuda.synchronize()
+    assert flt.pass_launches == {"stash_attention_fwd": 1, "stash_attention_bwd": 1}
+    assert pbar.shape == pbar_p.shape == (B, n_head, Lx, flt.stash_cols(Lx))
+    assert not torch.count_nonzero(pbar[..., Lx:])
+    _assert_close(attn, attn_p, LAYER_TOL)
+    _assert_close(pbar, pbar_p, LAYER_TOL)
+    ulps = ((pbar.float() - pbar_p.float()).abs()
+            / _bf16_ulp(pbar_p.float().abs().clamp_min(2.0 ** -126))).max().item()
+    assert ulps <= 3, ulps
+    want_dqkv, want_part = flt.stash_attention_bwd_plain(qkv, attn_p, dattn, pbar_p, n_head)
+    _assert_close(dqkv, want_dqkv, LAYER_TOL)
+    dqkv_k, part_k = flt.stash_attention_bwd(qkv, attn, dattn, pbar, n_head)
+    for got, want in ((attn, attn_p), (pbar, pbar_p), (dqkv, want_dqkv), (part, want_part),
+                      (dqkv_k, want_dqkv), (part_k, want_part)):
+        err = (got.float() - want.float()).norm()
+        assert err <= GRAD_REL * want.float().norm() + 1e-6, float(err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx,d,n_head", [pytest.param(65, 128, 8, id="resident"),
+                                         pytest.param(200, 64, 2, id="streamed")])
+def test_stash_attention_passes_give_the_same_bits_over_repeated_launches(cuda, Lx, d, n_head):
+    """30 launches of each pass give the first launch's bits (the TMA
+    store of pbar, the in-place dS plane, the streamed pbar tiles)."""
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    qkv, dattn, attn_p, pbar_p = _stash_pass_inputs(cuda, 1600 if Lx <= 80 else 64, Lx, d,
+                                                    n_head, 7)
+    first = (*flt.stash_attention_fwd(qkv, n_head),
+             *flt.stash_attention_bwd(qkv, attn_p, dattn, pbar_p, n_head))
+    for _ in range(30):
+        again = (*flt.stash_attention_fwd(qkv, n_head),
+                 *flt.stash_attention_bwd(qkv, attn_p, dattn, pbar_p, n_head))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx,ffn,n_head,d", [_p(129, 256, 4, d=64), _p(200, 192, 2, d=64),
+                                             _p(224, 256, 1, d=64)])
+def test_stash_kernels_at_long_L_match_plain_versions(cuda, Lx, ffn, n_head, d):
+    """K4 where the stash gate admits L past 80 (VITIQ_TRAIN_STASH=1 routes
+    such layers to it): both passes in 64-key tiles, held as
+    test_stash_kernels_match_plain_versions holds K4."""
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    ops = _train_operands(cuda, ffn, n_head, d)
+    gen = torch.Generator().manual_seed(Lx)
+    x = torch.randn((6, Lx, d), generator=gen).to(cuda, torch.bfloat16)
+    dy = (0.1 * torch.randn((6, Lx, d), generator=gen)).to(cuda, torch.bfloat16)
+    y, stash = flt.fused_train_layer_fwd_stash(x, ops, n_head, 0.2, 99, 2)
+    want_y, want_stash = flt.fused_train_layer_stash_reference(x, ops, n_head, 0.2, 99, 2)
+    dx, grads = flt.fused_train_layer_bwd_stash(x, dy, want_stash, ops, n_head, 0.2, 99, 2)
+    torch.cuda.synchronize()
+    _assert_close(y, want_y, LAYER_TOL)
+    for name, got, ref in zip(STASH_NAMES, stash, want_stash):
+        _assert_close(got, ref, (0.0, 1e-3) if name in ("r1", "r2") else LAYER_TOL)
+    want_dx, want = flt.fused_train_layer_stash_backward_reference(x, dy, want_stash, ops, n_head,
+                                                                   0.2, 99, 2)
+    _assert_close(dx, want_dx, LAYER_TOL)
+    for i, (got, ref) in enumerate(zip(grads, want)):
+        err = (got.float() - ref.float()).norm()
+        assert err <= GRAD_REL * ref.float().norm() + 1e-6, (i, float(err))
+
+
+@pytest.mark.cuda
+def test_stash_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    qkv, dattn, attn, pbar = _stash_pass_inputs(cuda, 2, 65, D, H, 1)
+    with pytest.raises(ValueError, match="bf16"):
+        flt.stash_attention_fwd(qkv.float(), H)
+    with pytest.raises(ValueError, match="stash gate"):  # H * Lp = 8 * 176 > 1280
+        flt.stash_attention_fwd(torch.zeros((1, 161, 3 * D), dtype=torch.bfloat16,
+                                            device=cuda), H)
+    with pytest.raises(ValueError, match="pbar"):  # unpadded pbar
+        flt.stash_attention_bwd(qkv, attn, dattn, pbar[..., :65].contiguous(), H)
+    with pytest.raises(ValueError, match=r"\[B, L, D\]"):
+        flt.stash_attention_bwd(qkv, attn[:, :64].contiguous(), dattn, pbar, H)
+
+
+@pytest.mark.cuda
+def test_stash_attention_kernels_run_wgmma_and_do_not_spill(cuda):
+    """Every instance of K4's attention passes (wg_attention_fwd<DH, NG>,
+    wg_attention_bwd_stash<DH, NG, RESIDENT>): no spill in the build's
+    `ptxas -v` report, HGMMA in its SASS; the mma.sync stash backward
+    (train_attention_bwd_stash) is gone."""
+    sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
+                           str(_build.build())], capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    bodies = dict(block.split("\n", 1) for block in sass.split("Function : ")[1:])
+    report = _build.ptxas_report("fused_layer_train")
+    entries = {n: v for n, v in _build.ptxas_entries(report).items() if "wg_attention" in n}
+    assert len(entries) == 9 + 12, sorted(entries)  # fwd NG 2/4/5, bwd 2/4/5 + streamed
+    for name, (regs, stores, loads) in entries.items():
+        assert regs > 0 and stores == loads == 0, (name, regs, stores, loads)
+        body = [b for n, b in bodies.items() if n.strip() == name]
+        assert len(body) == 1 and "HGMMA" in body[0], (name, len(body))
+    assert not any("train_attention_bwd_stash" in n for n in bodies)
+
+
 # --------------------------------------------------------------------------
 # K5: the standalone packed attention, forward and backward
 # --------------------------------------------------------------------------

@@ -133,7 +133,7 @@ def test_stash_backward_stages_compose_to_the_plain_layer(D, H, F, L):
     r = flt._attention_plain(qkv, H)
     x1 = (xh1.float() * g1 + be1).to(x.dtype)  # rebuild_ln_out
     h = flt.train_gemm_plain(x1, w1, "relu_drop", bias=b1, drop=_drop(1, x.shape[1]))
-    r.update(pbar=pbar.float(), attn=flt._heads(attn, H), attn_flat=attn, x1=x1, h=h,
+    r.update(pbar=pbar[..., :L].float(), attn=flt._heads(attn, H), attn_flat=attn, x1=x1, h=h,
              xh1=xh1.float(), r1=r1[..., None], xh2=xh2.float(), r2=r2[..., None])
     dx, grads = _stages_backward(x, dy, r, ops, H)
     want_dx, want = flt.fused_train_layer_stash_backward_reference(x, dy, stash, ops, H, DROP,

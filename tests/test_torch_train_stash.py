@@ -86,7 +86,9 @@ def test_flagship_gates():
     assert not flt.stash_enabled(129, 2, 128, 4096)  # vit_tpu_production: K3
     assert flt.stash_enabled(17, 4, 64, 4096)      # vit_tiny_2016 (d64, Lp 32): K4
     assert flt.fused_train_stash_supported(17, 64, 256, 4)
-    assert flt.stash_attention_bwd_smem_bytes(65, 64) == 60224
+    # K4-bwd's resident attention block at d_head 64: q, k, v, dO [80][64] and
+    # the pbar plane of two key chunks [80][64]
+    assert flt.stash_attention_bwd_smem_bytes(65, 64) == 65552
     # rawiq_best (d256, 65 tokens, Lp 80): the recompute; rawiq_best_mp (64
     # tokens, Lp 64): the stash at batch <= 4096, as vitiq gates it
     assert not flt.stash_enabled(65, 8, 256, 4096)

@@ -47,14 +47,15 @@
 // K4 (stash regime). K4-fwd is K3-fwd (the same y) that also writes the
 // stash: attn [B, L, D], LN1's and LN2's normalized inputs xh1, xh2 [B, L, D]
 // in bf16 (the TPU kernel stores them in x's dtype), their 1/std r1, r2
-// [B, L] f32, and pbar = bf16(bf16(exp2(s - max)) / l) [B, H, L, L] (the
-// port's layout; the TPU kernel packs [B, Lp, H*Lp]). K4-bwd runs no
+// [B, L] f32, and pbar = bf16(bf16(exp2(s - max)) / l) [B, H, L,
+// stash_cols(L)] (the port's layout, rows padded with zeros to 8 elements;
+// the TPU kernel packs [B, Lp, H*Lp]). K4-bwd runs no
 // attention, out-projection+LN1 or FFN2+LN2 recompute; it rebuilds what the
 // TPU stash backward rebuilds, at the same rounding points: qkv =
 // bf16(x Wqkv + bqkv), x1 = bf16(f32(xh1) g1 + be1), h = bf16(relu(x1 W1 + b1)
 // m2). The LN backwards read the stashed bf16 xh widened to f32; then come
 // K3's gradient stages, except that the attention backward reads pbar from
-// the stash in both of its passes instead of recomputing Q K^T and exp2.
+// the stash instead of recomputing Q K^T and exp2.
 //
 // Design: one __global__ launch per stage, on the caller's stream.
 //   train_gemm_kernel<EPI, BN, RESIDENT>
@@ -89,10 +90,10 @@
 //                          into L2 when a tile starts, and the epilogues'
 //                          loads carry no branch, so that they go out
 //                          together.
-//   train_attention_fwd    one block per (frame, head), K1's register-fragment
-//                          core (mma.sync), q scaled in the kernel, optionally
-//                          writing each row's max and sum for the backward
-//                          (K3) or, in a third pass over the keys, pbar (K4)
+//   train_attention_fwd    K3's: one block per (frame, head), K1's register-
+//                          fragment core (mma.sync), q scaled in the kernel,
+//                          optionally writing each row's max and sum for the
+//                          backward's recompute
 //   train_attention_bwd    one block per (frame, head): a query-major pass
 //                          (dQ) and a key-major pass (dK, dV), holding q, k,
 //                          v, dO and their transposes in shared memory and
@@ -102,10 +103,8 @@
 //                          memory when it ends, so only one pass's sums live
 //                          in registers (a d_head-64 warp holds 16 x 64 f32
 //                          accumulators of dK and of dV)
-//   train_attention_bwd_stash
-//                          K4's: the same passes, holding v, dO and the
-//                          transposes of q, k, dO, and loading each fragment's
-//                          pbar from the stash
+//   wg_attention_fwd<DH, NG>, wg_attention_bwd_stash<DH, NG, RESIDENT>
+//                          K4's two attention passes on wgmma (below)
 //   ln_bwd_rows<XH, DW>    LN2 backward, one warp per row of DW = D columns
 //                          (64, 128 or 256), xh f32 or bf16
 //   rebuild_ln_out         K4's x1 = bf16(f32(xh1) g1 + be1)
@@ -127,29 +126,87 @@
 // reads its inputs once and writes its outputs once: PERF.md's staged byte
 // floor); fusing the FFN hidden is later work.
 // K4 trades the recompute for stash bytes. At the rawIQ flagship shape (L =
-// 65, F = 1024, H = 8) the stash is ~118 KB per frame and layer (pbar 68 KB
-// of it): K4-fwd writes it once; K4-bwd reads it, pbar twice (once per
-// attention pass, the second mostly from L2). The recompute it saves is the
-// attention forward (score and PV products), the out-projection and FFN2
-// GEMMs with their LN epilogues: ~21 MFLOP and ~0.34 MB of device-memory
-// traffic per frame (the FFN hidden read back is most of it), plus the
-// forward's third attention pass that writes pbar. K4-bwd keeps the QKV and
-// FFN1 GEMMs. So K4 moves about as many bytes as K3 and saves its FLOPs and
-// launches; the stash is ~0.5 GB a layer at B = 4096, held from the forward
-// to the backward.
+// 65, F = 1024, H = 8) the stash is 125,320 bytes per frame and layer (pbar
+// 74,880 of it, its rows padded from 65 to 72 elements; 118,040 unpadded):
+// K4-fwd writes it once; K4-bwd reads it, pbar once. The recompute it saves
+// is the attention forward (score and PV products), the out-projection and
+// FFN2 GEMMs with their LN epilogues: ~21 MFLOP and ~0.34 MB of device-
+// memory traffic per frame (the FFN hidden read back is most of it). K4-bwd
+// keeps the QKV and FFN1 GEMMs. So K4 moves about as many bytes as K3 and
+// saves its FLOPs and launches; the stash is ~0.5 GB a layer at B = 4096,
+// held from the forward to the backward.
+//
+// K4's attention passes (in place of mma.sync passes, one block and four
+// independent warps a frame-head, that formed pbar in a third pass). Both
+// are bound by bytes: at the rawIQ shape, B = 4096, the forward reads qkv
+// and writes attn and pbar (549.5 MB, 0.164 ms at 3.35 TB/s), the backward
+// reads qkv, attn, dattn and pbar and writes dqkv (822 MB, 0.247 ms),
+// against under a tenth of that in tensor FLOPs; so each moves every byte
+// once, as tiles, and keeps everything else on chip. Blocks of one warpgroup (128 threads);
+// every product is a wgmma on a 64-row tile whose B operand (and, for dV and
+// dK, A operand) TMA has put in shared memory, swizzled by its row width.
+//   wg_attention_fwd<DH, NG> (K4-fwd): persistent blocks, the SMs' worth,
+//     each walking frame-heads with q, k and v arriving by TMA into one of
+//     two buffers while the other is computed. Per 64-query tile the scores
+//     of all keys stay in registers as NG groups of 16 keys (m64n16, NG = 2,
+//     4 or 5: round16(L) <= 80), so the row max, p = bf16(exp2(s - m))
+//     (MUFU.EX2) and l come from one product and pbar = bf16(p / l) from the
+//     kept p: two passes over the scores in registers, not three over the
+//     keys. P is packed from the accumulators into the A fragments of P V.
+//     pbar goes to a staging tile in shared memory, [rows][64 keys] chunks
+//     in TMA's 128-byte swizzle (a warp's 4-byte writes fall on 32 distinct
+//     banks), and leaves by one TMA store per chunk when the frame-head
+//     ends. Quotients are IEEE's without a divide (quant_div,
+//     gemm_wgmma.cuh, from y = RN(1 / l)); pbar takes the product p y, which
+//     rounds to the same bf16 unless it lies within 3 ulps of a bf16
+//     midpoint (about one product in 10^4), where its warp takes the
+//     quotients instead. Past 80 keys
+//     (only where VITIQ_TRAIN_STASH=1 admits such an L) the scores are formed
+//     twice in 64-key tiles, p staged per query tile and divided by l in
+//     place once l is whole. K3 keeps train_attention_fwd: with its row
+//     stats in place of pbar this forward measured slower at K3's shapes (ViT,
+//     129 tokens: three 64-row query tiles, the last with one live row).
+//   wg_attention_bwd_stash<DH, NG, RESIDENT> (K4-bwd): one block a
+//     frame-head. q (scaled in place), k, v and dO rows and, resident
+//     (round16(L) <= 80: NG = 2, 4 or 5, every shape K4 trains), the whole
+//     pbar plane arrive by TMA. dV = pbar^T dO per 64-key chunk, pbar^T read
+//     straight from the plane as an MN-major A (the transpose bit); then per
+//     64-query tile dP = dO V^T (dO's A fragments from shared memory, the row
+//     term dO . O from them and O's), dS = bf16(pbar (dP - row)) written over
+//     pbar in the plane, dQ = dS K with dS packed into the A fragments; then
+//     dK = dS^T Qs from the plane, MN-major A again. pbar is read once, as
+//     tiles. Streamed (L > 80), one [64][64] pbar tile at a time: dQ per
+//     query tile, then per key tile dP and dS again into a dS tile for dV and
+//     dK. (Persistent double-buffered blocks, as the forward's, measured
+//     slower here: twice the shared memory a block, half the blocks an SM.)
+//   Idle rows: M = 64, so at L = 65 the second query tile holds one live row
+//   (its other three warps skip the softmax and dS work but issue the
+//   wgmma): the passes form 128 query rows for 65 (49% idle in the
+//   products, 19% of the elementwise work, whose unit is a warp's 16 rows);
+//   the 80 key columns of NG = 5 hold 65 keys (19% idle). pbar's layout is
+//   the port's: [B, H, L, stash_cols(L)], rows padded with zeros to a
+//   multiple of 8 elements, so that every row starts 16-byte aligned for TMA
+//   (the TPU kernel packs [B, Lp, H Lp]); the backward's map spans L
+//   columns, so the padding is never read.
+//   Registers (ptxas, NVIDIA H100 80GB HBM3 build): the forward at d_head
+//   16 / 32 / 64, NG 2: 75 / 92 / 120, NG 4: 101 / 128 / 134, NG 5: 128 / 140
+//   / 168, so 4 blocks an SM at the rawIQ shape (d_head 16, NG 5); the
+//   resident backward NG 2: 48 / 52 / 72, NG 4: 62 / 66 / 90, NG 5: 72 / 76
+//   / 119 (6 blocks an SM at the rawIQ shape, by its 32.5 KB of shared
+//   memory), streamed 98 / 124 / 179. None spills.
 //
 // TPU schedule knobs of K3 and K4 and what computes each here (all are the
 // same function):
 //   VITIQ_TRAIN_STASH (K4 on / off / auto)  -> the wrapper's stash_enabled
 //       routes each layer to K4 or K3, with the TPU gate unchanged.
 //   VITIQ_TRAIN_FWD (xpack / chain stash forward)
-//                                           -> train_attention_fwd; the
-//       packed [B, Lp, H*Lp] probability layout has no counterpart, pbar is
-//       [B, H, L, L].
+//                                           -> wg_attention_fwd; the packed
+//       [B, Lp, H*Lp] probability layout has no counterpart, pbar is [B, H,
+//       L, stash_cols(L)].
 //   VITIQ_TRAIN_PB (recompute / reuse the probability tiles)
 //                          -> K3: train_attention_bwd recomputes P from q and
 //                             k in both of its passes; K4:
-//                             train_attention_bwd_stash reads pbar.
+//                             wg_attention_bwd_stash reads pbar.
 //   VITIQ_TRAIN_EPI (wide / head divide)    -> one f32 divide per output.
 //   VITIQ_TRAIN_ATTN (xpack / auto: K8, train_xpack.py:
 //       fused_train_layer_stack_xpack, _fwd_kernel_x and _bwd_kernel_x: the
@@ -179,6 +236,7 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "attention_core.cuh"
 #include "common.cuh"
 #include "gemm_wgmma.cuh"
 #include "hopper.cuh"
@@ -647,12 +705,10 @@ template <int DH>
 __host__ __device__ constexpr int row_ld() { return DH + 8; }
 __host__ __device__ __forceinline__ int col_ld(int L) { return round16(L) + 8; }
 
-// k as rows and v transposed; with `stash` (K4-fwd), 16 pbar rows per warp
-// (at most ~88 KB inside the stash gate, H * round16(L) <= 1280)
+// K3's attention forward: k as rows and v transposed
 template <int DH>
-__host__ __device__ __forceinline__ size_t attention_fwd_smem_bytes(int L, bool stash) {
-  return ((size_t)round16(L) * row_ld<DH>() + (size_t)DH * col_ld(L) +
-          (stash ? (size_t)ATTN_WARPS * 16 * L : 0)) * sizeof(bf16);
+__host__ __device__ __forceinline__ size_t attention_fwd_smem_bytes(int L) {
+  return ((size_t)round16(L) * row_ld<DH>() + (size_t)DH * col_ld(L)) * sizeof(bf16);
 }
 
 // q, k, v, dO as rows, q, k, dO transposed (bf16); row max, row sum and row
@@ -663,16 +719,6 @@ __host__ __device__ __forceinline__ size_t attention_bwd_smem_bytes(int L) {
   const size_t lp = round16(L);
   return (4 * lp * row_ld<DH>() + 3 * (size_t)DH * col_ld(L)) * sizeof(bf16) +
          (3 * lp + ATTN_WARPS * 3 * DH) * sizeof(float);
-}
-
-// K4's: v and dO as rows, q, k and dO transposed (bf16); the row term, then
-// the column-sum scratch (f32). pbar stays in device memory. The Python gate
-// (fused_layer_train.stash_attention_bwd_smem_bytes) uses the same formula.
-template <int DH>
-__host__ __device__ __forceinline__ size_t stash_attention_bwd_smem_bytes(int L) {
-  const size_t lp = round16(L);
-  return (2 * lp * row_ld<DH>() + 3 * (size_t)DH * col_ld(L)) * sizeof(bf16) +
-         (lp + ATTN_WARPS * 3 * DH) * sizeof(float);
 }
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -727,18 +773,15 @@ __device__ __forceinline__ float pbar(float s, float m, float l) {
   return bf16_round(bf16_round(exp2f(s - m)) / l);
 }
 
-// The attention forward of K3 and K4, one block per (frame b, head h): K1's
+// K3's attention forward, one block per (frame b, head h): K1's
 // register-fragment core with the q columns of qkv unscaled, scaled here as
 // bf16(q * scale2). With `stats` (K3's recompute), writes each query row's
 // max (log2 units) and sum of bf16 probabilities to
-// stats[((b*H + h)*L + i)*2 + {0, 1}]. With `pbar_out` (K4-fwd), a third
-// pass over the keys recomputes the scores and writes pbar of query i and key
-// j to pbar_out[((b*H + h)*L + i)*L + j], through a per-warp staging tile
-// (attention_fwd_smem_bytes with `stash`).
+// stats[((b*H + h)*L + i)*2 + {0, 1}].
 template <int DH>
 __global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_fwd(
-    const bf16* __restrict__ qkv, bf16* __restrict__ out, float* __restrict__ stats,
-    bf16* __restrict__ pbar_out, int L, int D, float scale2) {
+    const bf16* __restrict__ qkv, bf16* __restrict__ out, float* __restrict__ stats, int L,
+    int D, float scale2) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lp = round16(L), vld = col_ld(L);
   bf16* ks = reinterpret_cast<bf16*>(smem);   // [lp][row_ld]
@@ -836,30 +879,6 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_fwd(
         st[2 * r_hi] = m_hi;
         st[2 * r_hi + 1] = l_hi;
       }
-    }
-    if (pbar_out) {
-      // The warp's rows r0..r0+15 of pbar are one contiguous run of the
-      // (b, h) block: stage them in shared memory (row stride L), then store
-      // the run with neighbouring lanes on neighbouring elements.
-      bf16* stage = vt + (size_t)DH * vld + (size_t)warp * 16 * L;
-      for (int j0 = 0; j0 < lp; j0 += 16) {
-        float sc[2][4];
-        product_block<DH>(sc, qa, ks, j0, L, g, t, true);
-#pragma unroll
-        for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = e < 2 ? g : g + 8, col = j0 + nb * 8 + 2 * t + (e & 1);
-            if (r0 + row < L && col < L)
-              stage[row * L + col] =
-                  __float2bfloat16(pbar(sc[nb][e], e < 2 ? m_lo : m_hi, e < 2 ? l_lo : l_hi));
-          }
-      }
-      __syncwarp();
-      bf16* dst = pbar_out + ((long long)(b * H + h) * L + r0) * L;
-      const int n = min(16, L - r0) * L;
-      for (int i = lane; i < n; i += 32) dst[i] = stage[i];
-      __syncwarp();
     }
   }
 }
@@ -1084,146 +1103,692 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_bwd(
   store_column_sums<DH>(red, part + (long long)b * row3 + h * DH, D);
 }
 
-// The stash variant of train_attention_bwd (K4-bwd): the same outputs, with
-// pbar read from K4-fwd's stash ([B, H, L, L], bf16) in both passes instead
-// of recomputed, so neither q nor k rows are staged and no row stats are
-// read. Pass 1 forms dP = dO V^T and dS = bf16(pbar * (dP - row)), then dQ;
-// pass 2 forms dP^T = V dO^T, dV = pbar^T dO and dK = dS^T Qs.
-template <int DH>
-__global__ void __launch_bounds__(ATTN_WARPS * 32) train_attention_bwd_stash(
-    const bf16* __restrict__ qkv, const bf16* __restrict__ attn, const bf16* __restrict__ dattn,
-    const bf16* __restrict__ pbar_in, bf16* __restrict__ dqkv, float* __restrict__ part, int L,
-    int D, float scale2, float dq_scale, float dk_scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int RLD = row_ld<DH>();
-  const int lp = round16(L), tld = col_ld(L);
-  bf16* v_r = reinterpret_cast<bf16*>(smem);  // [lp][RLD] each
-  bf16* do_r = v_r + (size_t)lp * RLD;
-  bf16* qs_t = do_r + (size_t)lp * RLD;  // [DH][tld] each
-  bf16* k_t = qs_t + (size_t)DH * tld;
-  bf16* do_t = k_t + (size_t)DH * tld;
-  float* row_s = reinterpret_cast<float*>(do_t + (size_t)DH * tld);
-  float* red = row_s + lp;  // [warp][3][DH]
+// ---------------------------------------------------------------------------
+// K4's attention passes on wgmma: the forward that writes pbar, the backward
+// that reads it (see the header)
+// ---------------------------------------------------------------------------
 
-  const int b = blockIdx.x, h = blockIdx.y, H = gridDim.y;
-  const long long row3 = 3LL * D;
-  const bf16* base = qkv + (long long)b * L * row3 + (long long)h * DH;
-  const bf16* dob = dattn + (long long)b * L * D + (long long)h * DH;
-  const bf16* ob = attn + (long long)b * L * D + (long long)h * DH;
-  const bf16* pb = pbar_in + (long long)(b * H + h) * L * L;
-  // pbar of query i and key j; 0 outside the L x L block
-  auto pbar_at = [&](int i, int j) {
-    return i < L && j < L ? __bfloat162float(pb[(long long)i * L + j]) : 0.f;
-  };
-  constexpr int CH = DH / 8;
-  for (int i = threadIdx.x; i < lp * CH; i += blockDim.x) {
-    const int j = i / CH, c = (i % CH) * 8;
-    uint4 qv = make_uint4(0u, 0u, 0u, 0u), kv = qv, vv = qv, dv = qv;
-    if (j < L) {
-      qv = *reinterpret_cast<const uint4*>(base + j * row3 + c);
-      kv = *reinterpret_cast<const uint4*>(base + j * row3 + D + c);
-      vv = *reinterpret_cast<const uint4*>(base + j * row3 + 2 * D + c);
-      dv = *reinterpret_cast<const uint4*>(dob + (long long)j * D + c);
-      uint32_t* qw = reinterpret_cast<uint32_t*>(&qv);
+constexpr int WG_T = 64;             // rows of a wgmma tile: 64 queries, or 64 keys
+constexpr int RESIDENT_ROWS = 80;    // the backward holds a frame-head whole up to round16(L) = 80
+constexpr int PLANE_CHUNK = 8192;    // a [64][64] bf16 tile, 128-byte swizzled
+
+// 16-key groups of the forward's score tile: the scores of a 64-query tile
+// over all keys, in registers, where round16(L) <= 80 (NG 2, 4 or 5, the
+// least that covers L); else 64-key tiles (NG 4), the scores formed twice.
+__host__ __device__ inline int fwd_groups(int L) {
+  const int ng = round16(L) / 16;
+  return ng <= 2 ? 2 : ng <= 4 ? 4 : ng <= 5 ? 5 : 4;
+}
+// rows of k and v the forward loads: its one tile's, or whole 64-key tiles
+__host__ __device__ inline int fwd_key_rows(int L) {
+  const int ng = fwd_groups(L);
+  return L <= 16 * ng ? 16 * ng : (L + WG_T - 1) / WG_T * WG_T;
+}
+// The backward holds q, k, v, dO and all of pbar at once where round16(L) <=
+// 80 (resident: keys in NG = 2, 4 or 5 groups, rows 16 NG), else streams pbar
+// in [64][64] tiles (NG 4, rows round64(L)).
+__host__ __device__ inline bool bwd_resident(int L) { return round16(L) <= RESIDENT_ROWS; }
+__host__ __device__ inline int bwd_groups(int L) {
+  const int r = round16(L);
+  return r <= 32 ? 2 : r <= 64 ? 4 : r <= RESIDENT_ROWS ? 5 : 4;
+}
+__host__ __device__ inline int bwd_rows(int L) {
+  return bwd_resident(L) ? 16 * bwd_groups(L) : (L + WG_T - 1) / WG_T * WG_T;
+}
+// TMA box rows over an operand region of `rows` rows: one box up to 256
+// (TMA's most), else 64-row boxes
+__host__ __device__ inline int box_rows_of(int rows) { return rows <= 256 ? rows : WG_T; }
+// pbar's row stride in the stash: L rounded up to 8 elements (16 bytes)
+__host__ __device__ inline int stash_cols(int L) { return (L + 7) & ~7; }
+
+// Shared memory, the 1 KB of alignment included. Forward: two buffers of q,
+// k and v rows [fwd_key_rows][DH], each rounded up to 1 KB (the 128-byte
+// swizzle's repeat); the pbar staging chunks [rows][64 keys] (all
+// queries, fwd_key_rows, where the scores are one tile; else one 64-query
+// tile's); two mbarriers. Backward: q (scaled in place), k, v and dO
+// rows [bwd_rows][DH]; then resident, the pbar plane of
+// ceil(rows / 64) key chunks [rows][64], which dS overwrites; streamed, one
+// pbar tile and one dS tile [64][64]; the column-sum scratch [4 warps][3][DH]
+// (f32) and two mbarriers. fused_layer_train.stash_attention_fwd_smem_bytes
+// and stash_attention_bwd_smem_bytes repeat these formulas.
+__host__ __device__ inline size_t wg_fwd_smem_bytes(int L, int dh) {
+  const int kr = fwd_key_rows(L);
+  const bool single = L <= 16 * fwd_groups(L);  // fwd_single
+  const size_t staging = (size_t)(kr + 63) / 64 * (single ? kr : WG_T) * 128;
+  return 1024 + 2 * (((size_t)6 * kr * dh + 1023) / 1024 * 1024) + staging + 16;
+}
+__host__ __device__ inline size_t wg_bwd_smem_bytes(int L, int dh) {
+  const int r = bwd_rows(L);
+  const size_t plane = bwd_resident(L) ? (size_t)(r + 63) / 64 * r * 128 : 2 * PLANE_CHUNK;
+  return 1024 + (size_t)8 * r * dh + plane + (size_t)ATTN_WARPS * 3 * dh * 4 + 16;
+}
+
+// Byte offset of (row, col) in a plane of key chunks [rows][64 columns],
+// chunk_bytes apart, each as a TMA box with the 128-byte swizzle lays it out
+// (the chunk 1024-byte aligned): row r's 16-byte unit u at unit u ^ (r % 8).
+__device__ __forceinline__ uint32_t plane_off(int row, int col, uint32_t chunk_bytes) {
+  const int c = col & 63;
+  return (uint32_t)(col >> 6) * chunk_bytes + row * 128 + ((((c >> 3) ^ row) & 7) << 4) +
+         (c & 7) * 2;
+}
+
+// A fragments (warp rows r_lo, r_lo + 8, DH columns) from rows [row][DH] in
+// shared memory as TMA writes them, swizzled by the row width: the 16-byte
+// unit of byte offset o moves by (o >> 7) % (DH / 8) units.
+template <int DH>
+__device__ __forceinline__ void smem_frags(uint32_t a[DH / 16][4], const unsigned char* rows,
+                                           int r_lo, int t) {
+  constexpr uint32_t SPAN = DH * 2;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) qw[e] = scale_pair(qw[e], scale2);
+  for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t off = (uint32_t)(r_lo + 8 * (i & 1)) * SPAN + (kk * 16 + 8 * (i >> 1) + 2 * t) * 2;
+      off ^= ((off >> 7) & (SPAN / 16 - 1)) << 4;
+      a[kk][i] = *reinterpret_cast<const uint32_t*>(rows + off);
     }
-    *reinterpret_cast<uint4*>(v_r + j * RLD + c) = vv;
-    *reinterpret_cast<uint4*>(do_r + j * RLD + c) = dv;
-    const bf16* q8 = reinterpret_cast<const bf16*>(&qv);
-    const bf16* k8 = reinterpret_cast<const bf16*>(&kv);
-    const bf16* d8 = reinterpret_cast<const bf16*>(&dv);
+}
+
+// c[grp] = A Rows^T for NG groups of 16 rows: A a 64-row tile in registers
+// (DH deep), Rows [rows][DH] in shared memory from `rows` (K-major B, m64n16
+// per group and k-step): the scores against k, dP against v.
+template <int DH, int NG>
+__device__ __forceinline__ void times_rows_t(float (*c)[8], const uint32_t (*a)[4], uint32_t rows) {
+  constexpr int SPAN = DH * 2;
+  constexpr uint32_t SBO = 8 * SPAN;
+  wgmma_fence();
+#pragma unroll
+  for (int grp = 0; grp < NG; ++grp)
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      Wgmma<16>::template rs<0>(c[grp], a[kk],
+                                smem_desc(rows + grp * 16 * SPAN + kk * 32, SPAN, SBO, SBO), kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<8 * NG>(&c[0][0]);
+}
+
+// acc += sum over the NG groups of A[grp] Rows[grp]: A the A fragments of a
+// 64-row tile over 16 rows of Rows each (P, dS), Rows [rows][DH] from `rows`
+// (MN-major B): P V, dS K.
+template <int DH, int NG>
+__device__ __forceinline__ void times_rows(float* acc, const uint32_t (*a)[4], uint32_t rows) {
+  constexpr int SPAN = DH * 2;
+  constexpr uint32_t SBO = 8 * SPAN;
+  wgmma_fence();
+#pragma unroll
+  for (int grp = 0; grp < NG; ++grp)
+    Wgmma<DH>::template rs<1>(acc, a[grp], smem_desc(rows + grp * 16 * SPAN, SPAN, SBO, SBO), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<DH / 2>(acc);
+}
+
+// acc += Tile^T Rows over n_k steps of 16 queries, issued (the caller fences,
+// commits and waits): Tile a key chunk [queries][64 keys] of a plane read as
+// the MN-major A (the 64 keys are the product's rows: pbar^T, dS^T), Rows
+// [queries][DH] the MN-major B (dO, q scaled): dV and dK.
+template <int DH>
+__device__ __forceinline__ void issue_tile_t_rows(float* acc, uint32_t tile, uint32_t rows,
+                                                  int n_k) {
+  constexpr int SPAN = DH * 2;
+  constexpr uint32_t SBO = 8 * SPAN;
+  for (int kq = 0; kq < n_k; ++kq)
+    Wgmma<DH>::template ss<1, 1>(acc, smem_desc(tile + kq * 2048, 128, 8192, 1024),
+                                 smem_desc(rows + kq * 16 * SPAN, SPAN, SBO, SBO), 1);
+}
+
+// Whether accumulator e of a 16-key group (column 8 (e / 4) + 2t + (e & 1))
+// holds one of the group's `left` keys below L
+__device__ __forceinline__ bool key_in(int e, int t, int left) {
+  return 8 * (e >> 2) + 2 * t + (e & 1) < left;
+}
+
+// The row maxima of a score tile over its keys < L (key0 the tile's first
+// key): whole groups unmasked, the group that L cuts masked, groups past L
+// skipped (each test uniform)
+template <int NG>
+__device__ __forceinline__ void tile_max(const float (*s)[8], int key0, int L, int t, float& m_lo,
+                                         float& m_hi) {
+#pragma unroll
+  for (int grp = 0; grp < NG; ++grp) {
+    const int left = L - key0 - 16 * grp;  // keys of the group below L
+    if (left <= 0) continue;
+    const bool whole = left >= 16;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      qs_t[(c + e) * tld + j] = q8[e];
-      k_t[(c + e) * tld + j] = k8[e];
-      do_t[(c + e) * tld + j] = d8[e];
+      const float v = whole || key_in(e, t, left) ? s[grp][e] : -INFINITY;
+      if (e & 2)
+        m_hi = fmaxf(m_hi, v);
+      else
+        m_lo = fmaxf(m_lo, v);
     }
   }
-  for (int j = threadIdx.x; j < lp; j += blockDim.x) {
-    float row = 0.f;
-    if (j < L) {
-      for (int d = 0; d < DH; ++d)
-        row += __bfloat162float(dob[(long long)j * D + d]) *
-               __bfloat162float(ob[(long long)j * D + d]);
+}
+
+// p = bf16(exp2(s - m)) of a score tile (MUFU.EX2), 0 for keys >= L, packed
+// into the A fragments of P V (pair i of a group: row hi where i is odd,
+// columns 8 (i / 2) + 2t and + 1), and the f32 sums of the rounded p of the
+// thread's rows
+template <int NG>
+__device__ __forceinline__ void tile_probs(const float (*s)[8], uint32_t (*pa)[4], int key0, int L,
+                                           int t, float m_lo, float m_hi, float& l_lo,
+                                           float& l_hi) {
+#pragma unroll
+  for (int grp = 0; grp < NG; ++grp) {
+    const int left = L - key0 - 16 * grp;
+    float p[8];
+    if (left >= 16) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) p[e] = exp2_sfu(s[grp][e] - ((e & 2) ? m_hi : m_lo));
+    } else if (left > 0) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        p[e] = key_in(e, t, left) ? exp2_sfu(s[grp][e] - ((e & 2) ? m_hi : m_lo)) : 0.f;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) p[e] = 0.f;
     }
-    row_s[j] = row;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 pb = __floats2bfloat162_rn(p[2 * i], p[2 * i + 1]);
+      const float2 pf = __bfloat1622float2(pb);
+      if (i & 1)
+        l_hi += pf.x + pf.y;
+      else
+        l_lo += pf.x + pf.y;
+      pa[grp][i] = *reinterpret_cast<const uint32_t*>(&pb);
+    }
+  }
+}
+
+// A bf16 pair divided by l, each quotient IEEE-rounded without a divide
+// (quant_div, gemm_wgmma.cuh, from y = RN(1 / l)), then rounded to bf16:
+// pbar = bf16(p / l) as the plain version rounds it.
+__device__ __forceinline__ uint32_t div_pair(uint32_t w, float l, float y) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  return pack_bf16x2(quant_div(f.x, l, y), quant_div(f.y, l, y));
+}
+
+// The same from x y alone (y = RN(1 / l)), which lies within 2 ulps of x /
+// l and so rounds to the bf16 that the IEEE quotient rounds to unless it
+// lies within 3 ulps of a bf16 rounding midpoint (low 16 bits 0x8000): `near`
+// is then set, and the caller takes div_pair.
+__device__ __forceinline__ uint32_t mul_pair(uint32_t w, float y, bool& near) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  const float q0 = f.x * y, q1 = f.y * y;
+  near |= (__float_as_uint(q0) & 0xffffu) - 0x7ffdu <= 6u;
+  near |= (__float_as_uint(q1) & 0xffffu) - 0x7ffdu <= 6u;
+  return pack_bf16x2(q0, q1);
+}
+
+// Whether the forward keeps the scores of all keys in one tile (round16(L)
+// <= 80): its pbar is staged for all queries and stored once; else per
+// 64-query tile.
+__host__ __device__ inline bool fwd_single(int L) { return L <= 16 * fwd_groups(L); }
+
+// K4-fwd's attention: persistent blocks of one warpgroup, each taking the
+// frame-heads (frame b, head h) = item b H + h, items blockIdx.x,
+// blockIdx.x + gridDim.x, ... (n_items = B H). qkv_map: 3-D map over qkv [B,
+// L, 3D], boxes of DH columns and box_rows_of(fwd_key_rows(L)) rows; an
+// item's q, k and v arrive by TMA in one of two buffers, the next item's
+// while this one is computed. q's A fragments are bf16(q scale2). Per
+// 64-query tile: the scores of all keys (one tile of 16 NG keys held in
+// registers, or 64-key tiles formed twice), the row max m, p = bf16(exp2(s -
+// m)) (MUFU.EX2), l = the f32 sum of the rounded p, attn = bf16(P V / l);
+// pbar = bf16(p / l) is staged in shared memory in 64-key chunks [rows][64]
+// (in one tile from the kept p, by a product where it rounds as the
+// quotient does; else p itself per tile, divided by l in place once l is
+// whole), then stored by TMA (pbar_map:
+// [B H, L, stash_cols(L)], boxes of 64 columns and `rows` rows; rows past L
+// are not stored, columns in [L, stash_cols) are 0): in one tile, every
+// query's rows at once when the item ends; else per query tile.
+template <int DH, int NG>
+__global__ void __launch_bounds__(128) wg_attention_fwd(
+    const __grid_constant__ CUtensorMap qkv_map, const __grid_constant__ CUtensorMap pbar_map,
+    bf16* __restrict__ out, int L, int D, int H, int n_items, float scale2) {
+  constexpr int SPAN = DH * 2;
+  constexpr int KT = 16 * NG;  // keys of a tile
+  extern __shared__ unsigned char wa_raw[];
+  unsigned char* smem = wa_raw + ((1024 - (smem_u32(wa_raw) & 1023)) & 1023);
+  const int kr = fwd_key_rows(L), box = box_rows_of(kr), n_kc = (kr + 63) / 64;
+  const int n_t = (L + KT - 1) / KT;  // key tiles (uniform)
+  const uint32_t chunk = (n_t == 1 ? kr : WG_T) * 128;  // a staging chunk: [rows][64 keys]
+  const uint32_t buf_bytes = (3 * kr * SPAN + 1023) & ~1023;  // q, k, v; the swizzle's 1 KB repeat
+  unsigned char* stage = smem + 2 * buf_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage + n_kc * chunk);
+  auto load = [&](int item, int buf) {  // one thread
+    unsigned char* q = smem + buf * buf_bytes;
+    const int b = item / H, h = item % H;
+    mbar_expect_tx(&full[buf], 3 * kr * SPAN);
+    for (int r = 0; r < kr; r += box)
+      for (int sec = 0; sec < 3; ++sec)  // q, k, v
+        tma_load_3d(q + (sec * kr + r) * SPAN, &qkv_map, &full[buf], sec * D + h * DH, r, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_init_fence();
+    for (int u = 0; u < 2 && blockIdx.x + u * gridDim.x < n_items; ++u)
+      load(blockIdx.x + u * gridDim.x, u);
   }
   __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  bf16* out_base = dqkv + (long long)b * L * row3 + (long long)h * DH + 2 * t;
-
-  // pass 1: dQ for 16 query rows per warp
-  float cs_q[DH / 8][2] = {};  // column sums of dq over this thread's rows
-  for (int r0 = warp * 16; r0 < L; r0 += ATTN_WARPS * 16) {
-    const int r_lo = r0 + g, r_hi = r0 + g + 8;
-    uint32_t da[DH / 16][4];
-    load_a<DH>(da, do_r, r0, g, t);
-    const float row_lo = row_s[r_lo], row_hi = row_s[r_hi];
-    float dq[DH / 8][4] = {};
-    for (int j0 = 0; j0 < lp; j0 += 16) {
-      float dp[2][4];
-      product_block<DH>(dp, da, v_r, j0, L, g, t, false);
-      uint32_t dsa[4];
+  int u = 0;
+  for (int bh = blockIdx.x; bh < n_items; bh += gridDim.x, ++u) {
+    const int b = bh / H, h = bh % H;
+    const unsigned char* qs = smem + (u & 1) * buf_bytes;
+    const uint32_t k_addr = smem_u32(qs + kr * SPAN), v_addr = smem_u32(qs + 2 * kr * SPAN);
+    if (threadIdx.x == 0) tma_store_wait_read();  // the previous item's pbar has left
+    __syncthreads();
+    mbar_wait(&full[u & 1], (u >> 1) & 1);
+    for (int q0 = 0; q0 < L; q0 += WG_T) {
+      const int r_lo = q0 + 16 * warp + g, r_hi = r_lo + 8;
+      const bool live = q0 + 16 * warp < L;  // the warp holds a row < L (warp-uniform)
+      // staging row of the thread's lo row: the query in one tile, else in its query tile
+      const int srow = n_t == 1 ? r_lo : 16 * warp + g;
+      uint32_t qa[DH / 16][4];
+      if (live) {
+        smem_frags<DH>(qa, qs, r_lo, t);
 #pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {
-        const int col = j0 + nb * 8 + 2 * t;
-        dsa[2 * nb] = pack_bf16x2(pbar_at(r_lo, col) * (dp[nb][0] - row_lo),
-                                  pbar_at(r_lo, col + 1) * (dp[nb][1] - row_lo));
-        dsa[2 * nb + 1] = pack_bf16x2(pbar_at(r_hi, col) * (dp[nb][2] - row_hi),
-                                      pbar_at(r_hi, col + 1) * (dp[nb][3] - row_hi));
+        for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[kk][i] = scale_pair(qa[kk][i], scale2);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[kk][i] = 0u;
       }
-#pragma unroll
-      for (int nd = 0; nd < DH / 8; ++nd) {
-        const bf16* kt = k_t + (nd * 8 + g) * tld + j0 + 2 * t;
-        mma_bf16_16816(dq[nd], dsa, ld_b32(kt), ld_b32(kt + 8));
+      float s[NG][8];
+      float m_lo = -INFINITY, m_hi = -INFINITY;
+      for (int kt = 0; kt < n_t; ++kt) {
+        times_rows_t<DH, NG>(s, qa, k_addr + kt * KT * SPAN);
+        if (live) tile_max<NG>(s, kt * KT, L, t, m_lo, m_hi);
       }
-    }
-    store_rows<DH>(dq, dq_scale, out_base, r_lo, r_hi, L, row3, 0, cs_q);
-  }
-  park_column_sums<DH>(cs_q, red, 0);
-
-  // pass 2: dK and dV for 16 key rows per warp
-  float cs_k[DH / 8][2] = {}, cs_v[DH / 8][2] = {};
-  for (int c0 = warp * 16; c0 < L; c0 += ATTN_WARPS * 16) {
-    const int k_lo = c0 + g, k_hi = c0 + g + 8;
-    uint32_t va[DH / 16][4];
-    load_a<DH>(va, v_r, c0, g, t);
-    float dk[DH / 8][4] = {}, dv[DH / 8][4] = {};
-    for (int i0 = 0; i0 < lp; i0 += 16) {
-      float dpT[2][4];  // [key][query]
-      product_block<DH>(dpT, va, do_r, i0, L, g, t, false);
-      uint32_t pa[4], dsa[4];
+      m_lo = quad_max(m_lo);
+      m_hi = quad_max(m_hi);
+      float o[DH / 2];
 #pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {
-        float pv[4], dsv[4];
+      for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+      float l_lo = 0.f, l_hi = 0.f;
+      uint32_t pa[NG][4];
+      for (int kt = 0; kt < n_t; ++kt) {
+        if (n_t > 1) times_rows_t<DH, NG>(s, qa, k_addr + kt * KT * SPAN);
+        if (live) {
+          tile_probs<NG>(s, pa, kt * KT, L, t, m_lo, m_hi, l_lo, l_hi);
+          if (n_t > 1)  // p itself, divided by l once l is whole
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int q = i0 + nb * 8 + 2 * t + (e & 1);
-          pv[e] = pbar_at(q, e < 2 ? k_lo : k_hi);
-          dsv[e] = pv[e] * (dpT[nb][e] - row_s[q]);
+            for (int grp = 0; grp < NG; ++grp)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                *reinterpret_cast<uint32_t*>(stage + plane_off(srow + 8 * (i & 1),
+                                                               kt * KT + 16 * grp + 8 * (i >> 1) +
+                                                                   2 * t,
+                                                               chunk)) = pa[grp][i];
+        } else {
+#pragma unroll
+          for (int grp = 0; grp < NG; ++grp)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) pa[grp][i] = 0u;
         }
-        pa[2 * nb] = pack_bf16x2(pv[0], pv[1]);
-        pa[2 * nb + 1] = pack_bf16x2(pv[2], pv[3]);
-        dsa[2 * nb] = pack_bf16x2(dsv[0], dsv[1]);
-        dsa[2 * nb + 1] = pack_bf16x2(dsv[2], dsv[3]);
+        times_rows<DH, NG>(o, pa, v_addr + kt * KT * SPAN);
       }
+      l_lo = quad_sum(l_lo);
+      l_hi = quad_sum(l_hi);
+      const float y_lo = live ? rcp_rn(l_lo) : 1.f, y_hi = live ? rcp_rn(l_hi) : 1.f;
+
+      bf16* o_base = out + (long long)b * L * D + h * DH + 2 * t;
 #pragma unroll
-      for (int nd = 0; nd < DH / 8; ++nd) {
-        const bf16* dt = do_t + (nd * 8 + g) * tld + i0 + 2 * t;
-        mma_bf16_16816(dv[nd], pa, ld_b32(dt), ld_b32(dt + 8));
-        const bf16* qt = qs_t + (nd * 8 + g) * tld + i0 + 2 * t;
-        mma_bf16_16816(dk[nd], dsa, ld_b32(qt), ld_b32(qt + 8));
+      for (int j = 0; j < DH / 8; ++j) {
+        if (r_lo < L)
+          *reinterpret_cast<uint32_t*>(o_base + (long long)r_lo * D + j * 8) =
+              pack_bf16x2(quant_div(o[4 * j], l_lo, y_lo),
+                          quant_div(o[4 * j + 1], l_lo, y_lo));
+        if (r_hi < L)
+          *reinterpret_cast<uint32_t*>(o_base + (long long)r_hi * D + j * 8) =
+              pack_bf16x2(quant_div(o[4 * j + 2], l_hi, y_hi),
+                          quant_div(o[4 * j + 3], l_hi, y_hi));
+      }
+      // pbar = bf16(p / l): in one tile from the kept p by a product, the
+      // warp dividing only where a lane's product lies near a bf16 midpoint;
+      // else in place, divided
+      auto pbar_at = [&](int kt, int grp, int i) {
+        const int col = kt * KT + 16 * grp + 8 * (i >> 1) + 2 * t;
+        return reinterpret_cast<uint32_t*>(stage + plane_off(srow + 8 * (i & 1), col, chunk));
+      };
+      if (live && n_t == 1) {
+        bool near = false;
+#pragma unroll
+        for (int grp = 0; grp < NG; ++grp)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            *pbar_at(0, grp, i) = mul_pair(pa[grp][i], (i & 1) ? y_hi : y_lo, near);
+        if (__any_sync(0xffffffffu, near))
+#pragma unroll
+          for (int grp = 0; grp < NG; ++grp)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              *pbar_at(0, grp, i) =
+                  div_pair(pa[grp][i], (i & 1) ? l_hi : l_lo, (i & 1) ? y_hi : y_lo);
+      } else if (live) {
+        for (int kt = 0; kt < n_t; ++kt)
+#pragma unroll
+          for (int grp = 0; grp < NG; ++grp)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              uint32_t* w = pbar_at(kt, grp, i);
+              *w = div_pair(*w, (i & 1) ? l_hi : l_lo, (i & 1) ? y_hi : y_lo);
+            }
+      }
+      if (n_t > 1) {  // this query tile's pbar
+        fence_proxy_async();
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          for (int c = 0; c < n_kc; ++c)
+            tma_store_3d(&pbar_map, stage + c * chunk, 64 * c, q0, bh);
+          tma_store_commit();
+          tma_store_wait_read();
+        }
+        __syncthreads();
       }
     }
-    store_rows<DH>(dk, dk_scale, out_base, k_lo, k_hi, L, row3, D, cs_k);
-    store_rows<DH>(dv, 1.f, out_base, k_lo, k_hi, L, row3, 2 * D, cs_v);
+    // the item is done with its buffer (which takes the item after next); in
+    // one tile, its pbar leaves
+    if (n_t == 1) fence_proxy_async();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (n_t == 1) {
+        for (int c = 0; c < n_kc; ++c) tma_store_3d(&pbar_map, stage + c * chunk, 64 * c, 0, bh);
+        tma_store_commit();
+      }
+      if (bh + 2 * gridDim.x < n_items) load(bh + 2 * gridDim.x, u & 1);
+    }
   }
-  park_column_sums<DH>(cs_k, red, 1);
-  park_column_sums<DH>(cs_v, red, 2);
+  if (threadIdx.x == 0) tma_store_wait_read();
+}
 
+// dS = bf16(pbar (dP - row)) of a warp's 16 query rows over NG groups of 16
+// keys: dp the dP accumulators, pbar read from the plane at `pb` (key chunks
+// chunk_bytes apart; the thread's lo row at `prow`, group 0 at column col0),
+// packed into the A fragments dsa and, with ds_out, written there at the
+// same offsets. Groups wholly past L (key0 the absolute key of group 0) and a
+// warp that is not live give zeros; `clear`: such a warp writes its zeros
+// to ds_out (a streamed dS tile, whose queries past L must add nothing).
+template <int NG>
+__device__ __forceinline__ void tile_ds(const float (*dp)[8], uint32_t (*dsa)[4],
+                                        const unsigned char* pb, unsigned char* ds_out,
+                                        uint32_t chunk_bytes, int prow, int col0, int key0, int L,
+                                        float d_lo, float d_hi, int t, bool live, bool clear) {
+#pragma unroll
+  for (int grp = 0; grp < NG; ++grp) {
+    const bool on = live && key0 + 16 * grp < L;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t off =
+          plane_off(prow + 8 * (i & 1), col0 + 16 * grp + 8 * (i >> 1) + 2 * t, chunk_bytes);
+      uint32_t w = 0u;
+      if (on) {
+        const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(pb + off));
+        const float d = (i & 1) ? d_hi : d_lo;
+        w = pack_bf16x2(p.x * (dp[grp][2 * i] - d), p.y * (dp[grp][2 * i + 1] - d));
+      }
+      dsa[grp][i] = w;
+      if (ds_out && (on || (clear && !live))) *reinterpret_cast<uint32_t*>(ds_out + off) = w;
+    }
+  }
+}
+
+// The row terms dO_i . O_i (f32) of the thread's rows, from their dO and O A
+// fragments; the quad sums them.
+template <int DH>
+__device__ __forceinline__ void row_terms(const uint32_t (*da)[4], const uint32_t (*oa)[4],
+                                          float& d_lo, float& d_hi) {
+  d_lo = d_hi = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&da[kk][e]));
+      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&oa[kk][e]));
+      if (e & 1)
+        d_hi += x.x * y.x + x.y * y.y;
+      else
+        d_lo += x.x * y.x + x.y * y.y;
+    }
+  d_lo = quad_sum(d_lo);
+  d_hi = quad_sum(d_hi);
+}
+
+// A query tile's dO A fragments, from the dO rows in shared memory, and O's,
+// from device memory (zeros for a warp that is not live); the caller forms
+// the row terms once dP has been issued, so that O's loads overlap it.
+template <int DH>
+__device__ __forceinline__ void tile_frags(uint32_t (*da)[4], uint32_t (*oa)[4],
+                                           const unsigned char* dos, const bf16* o_head, int D,
+                                           int r_lo, int L, int t, bool live) {
+  if (live) {
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const bf16* lo = o_head + (long long)r_lo * D + kk * 16 + 2 * t;
+      const bf16* hi = lo + 8LL * D;
+      oa[kk][0] = r_lo < L ? ld_b32(lo) : 0u;
+      oa[kk][1] = r_lo + 8 < L ? ld_b32(hi) : 0u;
+      oa[kk][2] = r_lo < L ? ld_b32(lo + 8) : 0u;
+      oa[kk][3] = r_lo + 8 < L ? ld_b32(hi + 8) : 0u;
+    }
+    smem_frags<DH>(da, dos, r_lo, t);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) da[kk][i] = oa[kk][i] = 0u;
+  }
+}
+
+// K4-bwd's attention, one block of one warpgroup per (frame b, head h) =
+// blockIdx.x: the outputs of train_attention_bwd from the stashed pbar. q,
+// k, v (qkv_map) and dO (do_map, over dattn [B, L, D]) arrive by TMA in
+// boxes of DH columns and box_rows_of(bwd_rows(L)) rows; q is scaled in
+// place; a query tile's dO A fragments come from there, its row terms dO . O
+// with O read from attn [B, L, D].
+// Resident (NG 2, 4 or 5): the whole pbar plane arrives with them (pbar_map:
+// [B H, L, L] over the stash's row stride, so its padding is never read;
+// boxes [bwd_rows][64]); dV = pbar^T dO per 64-key chunk; then per 64-query
+// tile dP = dO V^T, dS = bf16(pbar (dP - row)) written over pbar in the
+// plane, dQ = dS K; then dK = dS^T Qs per key chunk. Streamed (NG 4, L > 80):
+// per query tile, over 64-key tiles of pbar (boxes [64][64], one at a time),
+// dP, dS and dQ; then per key tile, over query tiles, dP and dS again into a
+// dS tile, and dV, dK. Writes the head's dq, dk, dv columns of dqkv [B, L,
+// 3D] and the frame's column sums of the f32 gradients to part[b][3D].
+template <int DH, int NG, bool RES>
+__global__ void __launch_bounds__(128) wg_attention_bwd_stash(
+    const __grid_constant__ CUtensorMap qkv_map, const __grid_constant__ CUtensorMap do_map,
+    const __grid_constant__ CUtensorMap pbar_map, const bf16* __restrict__ attn,
+    bf16* __restrict__ dqkv, float* __restrict__ part, int L, int D, int H, float scale2,
+    float dq_scale, float dk_scale) {
+  constexpr int SPAN = DH * 2;
+  extern __shared__ unsigned char wa_raw[];
+  unsigned char* smem = wa_raw + ((1024 - (smem_u32(wa_raw) & 1023)) & 1023);
+  const int R = bwd_rows(L), box = box_rows_of(R), n_kc = (R + 63) / 64;
+  const uint32_t chunk = RES ? R * 128 : PLANE_CHUNK;
+  unsigned char* qs = smem;
+  unsigned char* ks = qs + R * SPAN;
+  unsigned char* vs = ks + R * SPAN;
+  unsigned char* dos = vs + R * SPAN;
+  unsigned char* pl = dos + R * SPAN;
+  float* red = reinterpret_cast<float*>(pl + (RES ? n_kc * chunk : 2 * PLANE_CHUNK));
+  uint64_t* bar = reinterpret_cast<uint64_t*>(red + ATTN_WARPS * 3 * DH);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    mbar_init_fence();
+    mbar_expect_tx(&bar[0], 4 * R * SPAN + (RES ? n_kc * chunk : 0));
+    for (int r = 0; r < R; r += box) {
+      tma_load_3d(qs + r * SPAN, &qkv_map, &bar[0], h * DH, r, b);
+      tma_load_3d(ks + r * SPAN, &qkv_map, &bar[0], D + h * DH, r, b);
+      tma_load_3d(vs + r * SPAN, &qkv_map, &bar[0], 2 * D + h * DH, r, b);
+      tma_load_3d(dos + r * SPAN, &do_map, &bar[0], h * DH, r, b);
+    }
+    if (RES)
+      for (int c = 0; c < n_kc; ++c) tma_load_3d(pl + c * chunk, &pbar_map, &bar[0], 64 * c, 0, bh);
+  }
+  __syncthreads();
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long row3 = 3LL * D;
+  const bf16* o_head = attn + (long long)b * L * D + h * DH;
+  bf16* out_base = dqkv + (long long)b * L * row3 + h * DH + 2 * t;
+  const uint32_t qs_a = smem_u32(qs), ks_a = smem_u32(ks), vs_a = smem_u32(vs);
+  const uint32_t dos_a = smem_u32(dos), pl_a = smem_u32(pl);
+  mbar_wait(&bar[0], 0);
+  for (int i = threadIdx.x; i < R * DH / 8; i += 128) {  // q -> bf16(q scale2)
+    uint4* p = reinterpret_cast<uint4*>(qs) + i;
+    uint4 v = *p;
+    v.x = scale_pair(v.x, scale2);
+    v.y = scale_pair(v.y, scale2);
+    v.z = scale_pair(v.z, scale2);
+    v.w = scale_pair(v.w, scale2);
+    *p = v;
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  if constexpr (RES) {
+    const int n_k = R / 16;  // 16-query steps of the dV and dK products
+    {  // dV = pbar^T dO, per key chunk
+      float cs[DH / 8][2] = {};
+      for (int c = 0; c < n_kc; ++c) {
+        float acc[DH / 2] = {};
+        wgmma_fence();
+        issue_tile_t_rows<DH>(acc, pl_a + c * chunk, dos_a, n_k);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<DH / 2>(acc);
+        const int k_lo = 64 * c + 16 * warp + g;
+        store_rows<DH>(reinterpret_cast<float(*)[4]>(acc), 1.f, out_base, k_lo, k_lo + 8, L, row3,
+                       2 * D, cs);
+      }
+      park_column_sums<DH>(cs, red, 2);
+    }
+    __syncthreads();  // every warp's dV products have read pbar: dS may replace it
+    {  // per query tile: dP, dS over pbar, dQ
+      float cs[DH / 8][2] = {};
+      for (int q0 = 0; q0 < L; q0 += WG_T) {
+        const int r_lo = q0 + 16 * warp + g, r_hi = r_lo + 8;
+        const bool live = q0 + 16 * warp < L;
+        uint32_t da[DH / 16][4], oa[DH / 16][4];
+        tile_frags<DH>(da, oa, dos, o_head, D, r_lo, L, t, live);
+        float dp[NG][8];
+        times_rows_t<DH, NG>(dp, da, vs_a);
+        float d_lo, d_hi;
+        row_terms<DH>(da, oa, d_lo, d_hi);
+        uint32_t dsa[NG][4];
+        tile_ds<NG>(dp, dsa, pl, pl, chunk, r_lo, 0, 0, L, d_lo, d_hi, t, live, false);
+        float acc[DH / 2] = {};
+        times_rows<DH, NG>(acc, dsa, ks_a);
+        store_rows<DH>(reinterpret_cast<float(*)[4]>(acc), dq_scale, out_base, r_lo, r_hi, L,
+                       row3, 0, cs);
+      }
+      park_column_sums<DH>(cs, red, 0);
+    }
+    fence_proxy_async();
+    __syncthreads();  // dS is whole in the plane
+    {  // dK = dS^T Qs, per key chunk
+      float cs[DH / 8][2] = {};
+      for (int c = 0; c < n_kc; ++c) {
+        float acc[DH / 2] = {};
+        wgmma_fence();
+        issue_tile_t_rows<DH>(acc, pl_a + c * chunk, qs_a, n_k);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<DH / 2>(acc);
+        const int k_lo = 64 * c + 16 * warp + g;
+        store_rows<DH>(reinterpret_cast<float(*)[4]>(acc), dk_scale, out_base, k_lo, k_lo + 8, L,
+                       row3, D, cs);
+      }
+      park_column_sums<DH>(cs, red, 1);
+    }
+  } else {
+    unsigned char* pt = pl;                  // the pbar tile (i, c)
+    unsigned char* dt = pl + PLANE_CHUNK;    // its dS
+    const uint32_t pt_a = pl_a, dt_a = pl_a + PLANE_CHUNK;
+    const int n_qt = (L + WG_T - 1) / WG_T;
+    uint32_t phase = 0;
+    // pbar of query tile i and key tile c into pt, once every thread is done
+    // with what it held
+    auto load_pbar = [&](int i, int c) {
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(&bar[1], PLANE_CHUNK);
+        tma_load_3d(pt, &pbar_map, &bar[1], 64 * c, 64 * i, bh);
+      }
+      mbar_wait(&bar[1], phase);
+      phase ^= 1;
+    };
+    {  // dQ, per query tile over the key tiles
+      float cs[DH / 8][2] = {};
+      for (int i = 0; i < n_qt; ++i) {
+        const int r_lo = 64 * i + 16 * warp + g, r_hi = r_lo + 8;
+        const bool live = 64 * i + 16 * warp < L;
+        uint32_t da[DH / 16][4], oa[DH / 16][4];
+        tile_frags<DH>(da, oa, dos, o_head, D, r_lo, L, t, live);
+        float d_lo, d_hi;
+        row_terms<DH>(da, oa, d_lo, d_hi);
+        float acc[DH / 2] = {};
+        for (int c = 0; c < n_kc; ++c) {
+          load_pbar(i, c);
+          float dp[NG][8];
+          times_rows_t<DH, NG>(dp, da, vs_a + 64 * c * SPAN);
+          uint32_t dsa[NG][4];
+          tile_ds<NG>(dp, dsa, pt, nullptr, PLANE_CHUNK, 16 * warp + g, 0, 64 * c, L, d_lo, d_hi,
+                      t, live, false);
+          times_rows<DH, NG>(acc, dsa, ks_a + 64 * c * SPAN);
+        }
+        store_rows<DH>(reinterpret_cast<float(*)[4]>(acc), dq_scale, out_base, r_lo, r_hi, L,
+                       row3, 0, cs);
+      }
+      park_column_sums<DH>(cs, red, 0);
+    }
+    {  // dK and dV, per key tile over the query tiles
+      float cs_k[DH / 8][2] = {}, cs_v[DH / 8][2] = {};
+      for (int c = 0; c < n_kc; ++c) {
+        float dk[DH / 2] = {}, dv[DH / 2] = {};
+        for (int i = 0; i < n_qt; ++i) {
+          const int r_lo = 64 * i + 16 * warp + g;
+          const bool live = 64 * i + 16 * warp < L;
+          uint32_t da[DH / 16][4], oa[DH / 16][4];
+          tile_frags<DH>(da, oa, dos, o_head, D, r_lo, L, t, live);
+          float d_lo, d_hi;
+          row_terms<DH>(da, oa, d_lo, d_hi);
+          load_pbar(i, c);
+          float dp[NG][8];
+          times_rows_t<DH, NG>(dp, da, vs_a + 64 * c * SPAN);
+          uint32_t dsa[NG][4];
+          tile_ds<NG>(dp, dsa, pt, dt, PLANE_CHUNK, 16 * warp + g, 0, 64 * c, L, d_lo, d_hi, t,
+                      live, true);
+          fence_proxy_async();
+          __syncthreads();  // the dS tile is whole
+          wgmma_fence();
+          issue_tile_t_rows<DH>(dv, pt_a, dos_a + 64 * i * SPAN, 4);
+          issue_tile_t_rows<DH>(dk, dt_a, qs_a + 64 * i * SPAN, 4);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs<DH / 2>(dk);
+          fence_regs<DH / 2>(dv);
+        }
+        const int k_lo = 64 * c + 16 * warp + g;
+        store_rows<DH>(reinterpret_cast<float(*)[4]>(dk), dk_scale, out_base, k_lo, k_lo + 8, L,
+                       row3, D, cs_k);
+        store_rows<DH>(reinterpret_cast<float(*)[4]>(dv), 1.f, out_base, k_lo, k_lo + 8, L, row3,
+                       2 * D, cs_v);
+      }
+      park_column_sums<DH>(cs_k, red, 1);
+      park_column_sums<DH>(cs_v, red, 2);
+    }
+  }
   store_column_sums<DH>(red, part + (long long)b * row3 + h * DH, D);
 }
 
@@ -1507,12 +2072,12 @@ bool shapes_ok(const Shape& s) {
 }
 
 // K4 also needs the stash gate of the Python wrapper (stash_supported: H *
-// round16(L) <= 1280) and its own attention-backward block to fit.
+// round16(L) <= 1280) and its attention passes' shared memory to fit (it
+// always does where shapes_ok holds: the gate binds first).
 bool stash_shapes_ok(const Shape& s) {
   if (!shapes_ok(s) || s.H * round16(s.L) > 1280) return false;
-  const size_t smem = with_dh(
-      s.dh(), [&](auto c) { return stash_attention_bwd_smem_bytes<decltype(c)::value>(s.L); });
-  return smem <= (size_t)MAX_SMEM;
+  return wg_fwd_smem_bytes(s.L, s.dh()) <= (size_t)MAX_SMEM &&
+         wg_bwd_smem_bytes(s.L, s.dh()) <= (size_t)MAX_SMEM;
 }
 
 Drop make_drop(const Shape& s, uint32_t thresh, float scale, int seed, int layer, int site) {
@@ -1540,14 +2105,111 @@ cudaError_t launch_attention(K kernel, size_t smem, const Shape& s, cudaStream_t
 
 float scale2_of(const Shape& s) { return (float)(1.4426950408889634 / sqrt((double)s.dh())); }
 
-cudaError_t attention_fwd(const Shape& s, const bf16* qkv, bf16* out, float* stats, bf16* pbar,
+// The 3-D TMA map of one head of a [B, L, W] bf16 activation (W = 3D: qkv;
+// D: dattn): rows of W elements, frames L W apart, boxes of dh columns and
+// `rows` rows, swizzled by the box's width.
+bool head_map(CUtensorMap* map, const void* base, int W, int L, int B, int dh, int rows) {
+  const uint64_t dims[3] = {(uint64_t)W, (uint64_t)L, (uint64_t)B};
+  const uint64_t strides[2] = {(uint64_t)W, (uint64_t)W * L};
+  const uint32_t box[3] = {(uint32_t)dh, (uint32_t)rows, 1};
+  return make_map(map, base, 3, dims, strides, box, dh * 2);
+}
+
+// The TMA map of the stash's pbar [B H, L, stash_cols(L)] over its first
+// `cols` columns (stash_cols(L) to store, the padding written; L to load,
+// the padding never read), boxes [rows][64 columns], 128-byte swizzle.
+bool pbar_map(CUtensorMap* map, const void* base, int cols, int L, int BH, int rows) {
+  const uint64_t lc = (uint64_t)stash_cols(L);
+  const uint64_t dims[3] = {(uint64_t)cols, (uint64_t)L, (uint64_t)BH};
+  const uint64_t strides[2] = {lc, lc * L};
+  const uint32_t box[3] = {64, (uint32_t)rows, 1};
+  return make_map(map, base, 3, dims, strides, box, 128);
+}
+
+template <int DH, int NG>
+cudaError_t launch_wg_fwd(const Shape& s, const CUtensorMap& qm, const CUtensorMap& pm, bf16* out,
                           cudaStream_t st) {
-  const float sc = scale2_of(s);
-  const bool stash = pbar != nullptr;
+  const size_t smem = wg_fwd_smem_bytes(s.L, DH);
+  VITIQ_TRY(allow_smem(wg_attention_fwd<DH, NG>, smem));
+  // The blocks an SM holds (the persistent grid), asked once for each count
+  // of key rows, which sets the shared memory, as K1's core keeps its choice.
+  static int per_sm_of_rows[64];
+  const int slot = fwd_key_rows(s.L) / 16;
+  int per_sm = slot < 64 ? per_sm_of_rows[slot] : 0;
+  if (!per_sm) {
+    VITIQ_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wg_attention_fwd<DH, NG>,
+                                                            128, smem));
+    if (slot < 64) per_sm_of_rows[slot] = per_sm;
+  }
+  const int n_items = s.B * s.H;
+  const int grid = std::max(1, std::min(n_items, per_sm * sm_count()));
+  wg_attention_fwd<DH, NG><<<grid, 128, smem, st>>>(qm, pm, out, s.L, s.D, s.H, n_items,
+                                                    scale2_of(s));
+  return cudaGetLastError();
+}
+
+// K4-fwd's attention pass (wg_attention_fwd): attn and pbar [B, H, L,
+// stash_cols(L)].
+cudaError_t wg_fwd(const Shape& s, const bf16* qkv, bf16* out, bf16* pbar, cudaStream_t st) {
+  CUtensorMap qm, pm;
+  if (!head_map(&qm, qkv, 3 * s.D, s.L, s.B, s.dh(), box_rows_of(fwd_key_rows(s.L))) ||
+      !pbar_map(&pm, pbar, stash_cols(s.L), s.L, s.B * s.H,
+                fwd_single(s.L) ? fwd_key_rows(s.L) : WG_T))
+    return cudaErrorInvalidValue;
   return with_dh(s.dh(), [&](auto c) {
     constexpr int DH = decltype(c)::value;
-    return launch_attention(train_attention_fwd<DH>, attention_fwd_smem_bytes<DH>(s.L, stash), s,
-                            st, qkv, out, stats, pbar, s.L, s.D, sc);
+    switch (fwd_groups(s.L)) {
+      case 2: return launch_wg_fwd<DH, 2>(s, qm, pm, out, st);
+      case 5: return launch_wg_fwd<DH, 5>(s, qm, pm, out, st);
+      default: return launch_wg_fwd<DH, 4>(s, qm, pm, out, st);
+    }
+  });
+}
+
+template <int DH, int NG, bool RES>
+cudaError_t launch_wg_bwd(const Shape& s, const CUtensorMap& qm, const CUtensorMap& dm,
+                          const CUtensorMap& pm, const bf16* attn, bf16* dqkv, float* part,
+                          cudaStream_t st) {
+  const double scale2 = 1.4426950408889634 / sqrt((double)s.dh()), ln2 = 0.6931471805599453;
+  const size_t smem = wg_bwd_smem_bytes(s.L, DH);
+  VITIQ_TRY(allow_smem(wg_attention_bwd_stash<DH, NG, RES>, smem));
+  wg_attention_bwd_stash<DH, NG, RES><<<(unsigned)(s.B * s.H), 128, smem, st>>>(
+      qm, dm, pm, attn, dqkv, part, s.L, s.D, s.H, (float)scale2, (float)(ln2 * scale2),
+      (float)ln2);
+  return cudaGetLastError();
+}
+
+// K4-bwd's attention pass (wg_attention_bwd_stash): dqkv and the per-frame
+// column sums part [B, 3D] from qkv, attn, dattn and the stashed pbar.
+cudaError_t wg_bwd(const Shape& s, const bf16* qkv, const bf16* attn, const bf16* dattn,
+                   const bf16* pbar, bf16* dqkv, float* part, cudaStream_t st) {
+  const int rows = bwd_rows(s.L), box = box_rows_of(rows);
+  CUtensorMap qm, dm, pm;
+  if (!head_map(&qm, qkv, 3 * s.D, s.L, s.B, s.dh(), box) ||
+      !head_map(&dm, dattn, s.D, s.L, s.B, s.dh(), box) ||
+      !pbar_map(&pm, pbar, s.L, s.L, s.B * s.H, bwd_resident(s.L) ? rows : WG_T))
+    return cudaErrorInvalidValue;
+  return with_dh(s.dh(), [&](auto c) {
+    constexpr int DH = decltype(c)::value;
+    if (!bwd_resident(s.L))
+      return launch_wg_bwd<DH, 4, false>(s, qm, dm, pm, attn, dqkv, part, st);
+    switch (bwd_groups(s.L)) {
+      case 2: return launch_wg_bwd<DH, 2, true>(s, qm, dm, pm, attn, dqkv, part, st);
+      case 4: return launch_wg_bwd<DH, 4, true>(s, qm, dm, pm, attn, dqkv, part, st);
+      default: return launch_wg_bwd<DH, 5, true>(s, qm, dm, pm, attn, dqkv, part, st);
+    }
+  });
+}
+
+// The attention forward: K4's (given `pbar`) or K3's (train_attention_fwd).
+cudaError_t attention_fwd(const Shape& s, const bf16* qkv, bf16* out, float* stats, bf16* pbar,
+                          cudaStream_t st) {
+  if (pbar) return wg_fwd(s, qkv, out, pbar, st);
+  const float sc = scale2_of(s);
+  return with_dh(s.dh(), [&](auto c) {
+    constexpr int DH = decltype(c)::value;
+    return launch_attention(train_attention_fwd<DH>, attention_fwd_smem_bytes<DH>(s.L), s, st,
+                            qkv, out, stats, s.L, s.D, sc);
   });
 }
 
@@ -1556,14 +2218,12 @@ cudaError_t attention_fwd(const Shape& s, const bf16* qkv, bf16* out, float* sta
 cudaError_t attention_bwd(const Shape& s, const bf16* qkv, const bf16* attn, const bf16* dattn,
                           const float* stats, const bf16* pbar, bf16* dqkv, float* part,
                           cudaStream_t st) {
+  if (pbar) return wg_bwd(s, qkv, attn, dattn, pbar, dqkv, part, st);
   const double scale2 = 1.4426950408889634 / sqrt((double)s.dh());
   const double ln2 = 0.6931471805599453;
   const float sc = (float)scale2, dq = (float)(ln2 * scale2), dk = (float)ln2;
   return with_dh(s.dh(), [&](auto c) {
     constexpr int DH = decltype(c)::value;
-    if (pbar)
-      return launch_attention(train_attention_bwd_stash<DH>, stash_attention_bwd_smem_bytes<DH>(s.L),
-                              s, st, qkv, attn, dattn, pbar, dqkv, part, s.L, s.D, sc, dq, dk);
     return launch_attention(train_attention_bwd<DH>, attention_bwd_smem_bytes<DH>(s.L), s, st,
                             qkv, attn, dattn, stats, dqkv, part, s.L, s.D, sc, dq, dk);
   });
@@ -1958,6 +2618,33 @@ extern "C" int vitiq_train_layer_bwd_stash(
                &sh, static_cast<cudaStream_t>(stream_ptr));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// K4-fwd's attention pass alone (wg_attention_fwd): qkv [B, L, 3D] bf16 (q
+// unscaled) -> attn [B, L, D] bf16 and pbar [B, H, L, stash_cols(L)] bf16
+// (its padding columns 0), as K4-fwd writes them. Returns the launch's error,
+// or cudaErrorInvalidValue at a shape K4 does not take.
+extern "C" int vitiq_train_attention_fwd_stash(const void* qkv, void* attn, void* pbar, int B,
+                                               int L, int D, int H, void* stream_ptr) {
+  const Shape s{B, L, D, H, FFN_MULTIPLE};
+  if (!stash_shapes_ok(s)) return (int)cudaErrorInvalidValue;
+  return (int)wg_fwd(s, static_cast<const bf16*>(qkv), static_cast<bf16*>(attn),
+                     static_cast<bf16*>(pbar), static_cast<cudaStream_t>(stream_ptr));
+}
+
+// K4-bwd's attention pass alone (wg_attention_bwd_stash): from qkv, attn,
+// dattn [B, L, D] bf16 and pbar as K4-fwd stashes it, dqkv [B, L, 3D] bf16
+// and part [B, 3D] f32, each frame's column sums of the f32 dq, dk, dv.
+extern "C" int vitiq_train_attention_bwd_stash(const void* qkv, const void* attn,
+                                               const void* dattn, const void* pbar, void* dqkv,
+                                               void* part, int B, int L, int D, int H,
+                                               void* stream_ptr) {
+  const Shape s{B, L, D, H, FFN_MULTIPLE};
+  if (!stash_shapes_ok(s)) return (int)cudaErrorInvalidValue;
+  return (int)wg_bwd(s, static_cast<const bf16*>(qkv), static_cast<const bf16*>(attn),
+                     static_cast<const bf16*>(dattn), static_cast<const bf16*>(pbar),
+                     static_cast<bf16*>(dqkv), static_cast<float*>(part),
+                     static_cast<cudaStream_t>(stream_ptr));
 }
 
 // One GEMM stage of K3/K4 alone (train_gemm_kernel), to hold it to its plain

@@ -32,7 +32,8 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // ---- wgmma ------------------------------------------------------------------
 // D[64 x N] with A and B from shared memory (ss: the GEMM stages, N = 64 to
-// 256) or A from registers (rs: the attention core, N = 16, 32, 64). TB, TA:
+// 256; the training attention's dK and dV products, N = 16 to 64) or A from
+// registers (rs: the attention cores, N = 16, 32, 64). TB, TA:
 // the transpose bits of B and A, 1 for an MN-major operand (B as W [K, N]
 // rows, A as act^T read from act [K][M] rows), 0 for a K-major one.
 template <int N>
@@ -40,6 +41,16 @@ struct Wgmma;
 
 template <>
 struct Wgmma<16> {
+  // D[64 x 16] (+)= A B, A and B from shared memory (descriptors)
+  template <int TB, int TA = 0>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %12, %11;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(acc), "n"(TB), "n"(TA));
+  }
   // D[64 x 16] (+)= A B, A from registers (the m16n8k16 A fragment of each
   // warp's 16 rows), B from shared memory
   template <int TB>
@@ -55,6 +66,16 @@ struct Wgmma<16> {
 
 template <>
 struct Wgmma<32> {
+  // D[64 x 32] (+)= A B, A and B from shared memory (descriptors)
+  template <int TB, int TA = 0>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %20, %19;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(acc), "n"(TB), "n"(TA));
+  }
   // D[64 x 32] (+)= A B, A from registers (the m16n8k16 A fragment of each
   // warp's 16 rows), B from shared memory
   template <int TB>
@@ -287,6 +308,31 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// Stores one box of shared memory to a 3-D tensor map (coordinates
+// innermost first); elements outside the tensor are not written. The
+// stores of a thread form bulk groups: tma_store_commit closes one, and
+// tma_store_wait_read waits until every group's reads of shared memory are
+// done, after which the source may be overwritten or the block may exit.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Makes this thread's ordinary writes to shared memory visible to the async
+// proxy (wgmma operands, TMA stores), before the barrier that lets them read.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- host: launches and tensor maps -------------------------------------------

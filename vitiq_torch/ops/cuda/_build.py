@@ -65,6 +65,10 @@ SIGNATURES = {
     # xh_out16, rstd_out, part; M, K, N, epi, splits, L; dropout threshold and
     # scale, seed, layer index, site; stream
     "vitiq_train_gemm_bf16": ([_P] * 16 + [_I] * 6 + [_U, _F, _I, _I, _I, _P], _I),
+    # K4's attention passes alone. qkv, attn, pbar; B, L, D, H; stream
+    "vitiq_train_attention_fwd_stash": ([_P] * 3 + [_I] * 4 + [_P], _I),
+    # qkv, attn, dattn, pbar, dqkv, part; B, L, D, H; stream
+    "vitiq_train_attention_bwd_stash": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "vitiq_train_layer_fwd_workspace": ([_I] * 5, ctypes.c_size_t),
     "vitiq_train_layer_bwd_workspace": ([_I] * 5, ctypes.c_size_t),
     "vitiq_train_layer_fwd_stash_workspace": ([_I] * 5, ctypes.c_size_t),

@@ -11,7 +11,9 @@ of its residual regimes).
 * K4-fwd (`fused_train_layer_fwd_stash`): K3-fwd's y plus the stash the
   backward reads instead of recomputing: attn [B, L, D], LN1's and LN2's
   normalized inputs xh1, xh2 [B, L, D] in x's dtype, their 1/std r1, r2
-  [B, L] f32, and the normalized probabilities pbar [B, H, L, L] in x's dtype.
+  [B, L] f32, and the normalized probabilities pbar [B, H, L, stash_cols(L)]
+  in x's dtype (rows padded with zeros to a multiple of 8 elements, 16
+  bytes, so that the kernels move them as tiles).
 * K4-bwd (`fused_train_layer_bwd_stash`): dx and the 12 gradients from x, dy
   and the stash; it rebuilds only qkv, x1 = g1 * xh1 + be1 and the FFN
   hidden, as the JAX stash backward does.
@@ -37,12 +39,17 @@ shares, `csrc/gemm_wgmma.cuh`) with K3's epilogues, the attention passes,
 LN2's backward rows and fixed-order reductions. One GEMM stage runs alone
 through `train_gemm` (plain version `train_gemm_plain`, one per epilogue of
 `EPILOGUES`); `stage_plan`, `stage_ring` and their helpers mirror which
-instance each stage of a shape takes and its shared-memory ring.
+instance each stage of a shape takes and its shared-memory ring. K4's two
+attention passes run alone through `stash_attention_fwd` and
+`stash_attention_bwd` (plain versions `stash_attention_fwd_plain`,
+`stash_attention_bwd_plain`); `stash_tile_plan` and the `*_smem_bytes`
+functions mirror their tiles and shared memory.
 
 Each wrapper launches its kernel on a CUDA tensor (raising on any build,
 launch or shape error) and runs its plain version on a CPU tensor.
-`launches` counts kernel launches, one per call of a C entry point, and
-`stage_launches` those of `train_gemm`; the plain versions count nothing.
+`launches` counts kernel launches, one per call of a C entry point,
+`stage_launches` those of `train_gemm` and `pass_launches` those of the
+attention passes alone; the plain versions count nothing.
 """
 
 from __future__ import annotations
@@ -68,13 +75,14 @@ STASH_MAX_HEAD_LANES = 1280  # H * Lp bound of the stash (`_stash_supported`)
 
 launches = {"fused_train_layer_fwd": 0, "fused_train_layer_bwd": 0,
             "fused_train_layer_fwd_stash": 0, "fused_train_layer_bwd_stash": 0}
-# one GEMM stage called alone (`train_gemm`): the checks' entry, not the
-# training path's
+# one GEMM stage called alone (`train_gemm`) and K4's attention passes
+# called alone: the checks' entries, not the training path's
 stage_launches = {"train_gemm": 0}
+pass_launches = {"stash_attention_fwd": 0, "stash_attention_bwd": 0}
 
 
 def reset_launches() -> None:
-    for counts in (launches, stage_launches):
+    for counts in (launches, stage_launches, pass_launches):
         for name in counts:
             counts[name] = 0
 
@@ -86,12 +94,61 @@ def attention_bwd_smem_bytes(L: int, d_head: int) -> int:
     return (4 * lp * (d_head + 8) + 3 * d_head * (lp + 8)) * 2 + (3 * lp + 4 * 3 * d_head) * 4
 
 
+# K4's attention passes (the .cu's wg_attention_fwd, wg_attention_bwd_stash):
+# their tiles and shared memory, as the .cu's header and helpers state them
+WG_TILE = 64  # rows of a wgmma tile: queries, or keys
+RESIDENT_ROWS = 80  # the backward holds a frame-head whole up to round16(L)
+PLANE_CHUNK = 8192  # a [64][64] bf16 tile
+
+
+def stash_cols(L: int) -> int:
+    """pbar's row length in the stash: L rounded up to 8 elements (16 bytes)."""
+    return _round_up(L, 8)
+
+
+def stash_tile_plan(L: int) -> dict:
+    """The tiles of K4's attention passes at L tokens (`fwd_groups`,
+    `fwd_key_rows`, `bwd_resident`, `bwd_groups`, `bwd_rows` in the .cu):
+    fwd_groups, the 16-key groups of the forward's score tile (the smallest
+    of 2, 4, 5 that covers round16(L), its scores kept in registers; else
+    64-key tiles, 4, formed twice); fwd_key_rows, the q, k and v rows the
+    forward loads (16 groups, or L rounded up to 64); bwd_resident, whether
+    the backward holds q, k, v, dO and all of pbar at once (round16(L) <=
+    80); bwd_groups (2, 4 or 5 resident, else 4) and bwd_rows (16 groups,
+    or L rounded up to 64)."""
+    r16 = _round_up(L, 16)
+    ng = r16 // 16
+    fg = 2 if ng <= 2 else 4 if ng <= 4 else 5 if ng <= 5 else 4
+    kr = 16 * fg if L <= 16 * fg else _round_up(L, WG_TILE)
+    resident = r16 <= RESIDENT_ROWS
+    bg = 2 if r16 <= 32 else 4 if r16 <= 64 else 5 if resident else 4
+    rows = 16 * bg if resident else _round_up(L, WG_TILE)
+    return dict(fwd_groups=fg, fwd_key_rows=kr, bwd_resident=resident, bwd_groups=bg,
+                bwd_rows=rows)
+
+
+def stash_attention_fwd_smem_bytes(L: int, d_head: int) -> int:
+    """Shared memory of K4-fwd's attention block (`wg_fwd_smem_bytes`): 1 KB
+    of alignment, two buffers of q, k and v rows [fwd_key_rows][d_head] bf16
+    (each rounded up to 1 KB), the pbar staging chunks [rows][64 keys] over
+    those keys (rows: every query, fwd_key_rows, where the scores are one
+    tile of fwd_groups; else one 64-query tile), two mbarriers."""
+    plan = stash_tile_plan(L)
+    kr = plan["fwd_key_rows"]
+    rows = kr if L <= 16 * plan["fwd_groups"] else WG_TILE
+    return 1024 + 2 * _round_up(3 * kr * d_head * 2, 1024) + -(-kr // 64) * rows * 128 + 16
+
+
 def stash_attention_bwd_smem_bytes(L: int, d_head: int) -> int:
-    """Shared memory of K4's attention-backward block at L tokens (the
-    formula of `stash_attention_bwd_smem_bytes` in the .cu): v, dO as rows,
-    q, k, dO transposed; pbar is read from the stash, not staged."""
-    lp = (L + 15) // 16 * 16
-    return (2 * lp * (d_head + 8) + 3 * d_head * (lp + 8)) * 2 + (lp + 4 * 3 * d_head) * 4
+    """Shared memory of K4-bwd's attention block (`wg_bwd_smem_bytes`): 1 KB
+    of alignment, q, k, v and dO rows [bwd_rows][d_head] bf16; resident, the
+    pbar plane (ceil(rows / 64) key chunks [rows][64] bf16, overwritten by
+    dS), else one pbar tile and one dS tile [64][64]; the column-sum scratch
+    [4 warps][3][d_head] f32 and two mbarriers."""
+    plan = stash_tile_plan(L)
+    r = plan["bwd_rows"]
+    plane = -(-r // 64) * r * 128 if plan["bwd_resident"] else 2 * PLANE_CHUNK
+    return 1024 + 4 * r * d_head * 2 + plane + 4 * 3 * d_head * 4 + 16
 
 
 def fused_train_supported(L: int, D: int, ffn_hidden: int, n_head: int) -> bool:
@@ -148,12 +205,14 @@ def stash_enabled(L: int, n_head: int, d: int, batch: Optional[int] = None,
 def fused_train_stash_supported(L: int, D: int, ffn_hidden: int, n_head: int) -> bool:
     """Shapes the K4 kernels take: K3's (d_model 64, 128 or 256, d_head 16, 32
     or 64, an FFN width that is a multiple of 64), an L inside the stash gate
-    (`stash_supported` at Lp = round_up(L, 16)) and an attention-backward
-    block that fits the card's shared memory."""
+    (`stash_supported` at Lp = round_up(L, 16)) and attention blocks that fit
+    the card's shared memory (where K3's gate holds they always do)."""
     if not fused_train_supported(L, D, ffn_hidden, n_head):
         return False
+    dh = D // n_head
     return (stash_supported(_round_up(L, 16), L, n_head)
-            and stash_attention_bwd_smem_bytes(L, D // n_head) <= MAX_SHARED_MEMORY)
+            and stash_attention_fwd_smem_bytes(L, dh) <= MAX_SHARED_MEMORY
+            and stash_attention_bwd_smem_bytes(L, dh) <= MAX_SHARED_MEMORY)
 
 
 def flat_weights(layer, dtype) -> List[torch.Tensor]:
@@ -379,19 +438,59 @@ def fused_train_layer_backward_reference(
         return _gradients(x, dy, r, ops, n_head)
 
 
+def _pbar_of(a: dict, dt: torch.dtype) -> torch.Tensor:
+    """The stash's pbar from the attention forward's pieces: bf16(bf16(exp2(s
+    - max)) / l) [B, H, L, L], its rows padded with zeros to stash_cols(L)."""
+    pbar = (a["p"] / a["den"]).to(dt)
+    L = pbar.shape[-1]
+    return torch.nn.functional.pad(pbar, (0, stash_cols(L) - L))
+
+
+def stash_attention_fwd_plain(qkv: torch.Tensor, n_head: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K4-fwd's attention pass (`stash_attention_fwd`): qkv
+    [B, L, 3D] (q unscaled) -> (attn [B, L, D], pbar [B, H, L, stash_cols(L)]),
+    both in qkv's dtype; the pieces of `fused_train_layer_stash_reference`."""
+    a = _attention_plain(qkv, n_head)
+    return a["attn_flat"], _pbar_of(a, qkv.dtype)
+
+
+def _stash_attention_inputs(qkv: torch.Tensor, attn: torch.Tensor, pbar: torch.Tensor,
+                            n_head: int) -> dict:
+    """What the stash's attention backward reads, per head and in f32: the
+    scaled q, k, v from qkv, pbar without its padding, attn."""
+    dt = qkv.dtype
+    D = qkv.shape[-1] // 3
+    q, k, v = (_heads(t, n_head) for t in qkv.split(D, dim=-1))
+    qs = (q * (_LOG2E / math.sqrt(D // n_head))).to(dt).float()
+    return dict(qs=qs, k=k, v=v, pbar=pbar[..., :qkv.shape[1]].float(),
+                attn=_heads(attn, n_head))
+
+
+def stash_attention_bwd_plain(qkv: torch.Tensor, attn: torch.Tensor, dattn: torch.Tensor,
+                              pbar: torch.Tensor, n_head: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K4-bwd's attention pass (`stash_attention_bwd`): from
+    qkv [B, L, 3D], attn and dattn [B, L, D] and the stashed pbar, (dqkv [B,
+    L, 3D] in dattn's dtype, each frame's column sums of the f32 dqkv [B,
+    3D]); the attention backward of `fused_train_layer_stash_backward_reference`."""
+    with torch.no_grad():
+        dqkv = _attention_bwd_plain(dattn, _stash_attention_inputs(qkv, attn, pbar, n_head),
+                                    n_head)
+        return dqkv.to(dattn.dtype), dqkv.sum(dim=1)
+
+
 def fused_train_layer_stash_reference(
         x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int, drop: float, seed: int,
         layer_idx: int) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Plain version of K4-fwd: (y, stash). y is K3's plain y, bit for bit;
     the stash is (attn [B, L, D], xh1, xh2 [B, L, D] in x's dtype, r1, r2
-    [B, L] f32, pbar [B, H, L, L] in x's dtype, pbar = bf16(bf16(exp2(s -
-    max)) / l))."""
+    [B, L] f32, pbar [B, H, L, stash_cols(L)] in x's dtype, pbar =
+    bf16(bf16(exp2(s - max)) / l), its padding 0)."""
     with torch.no_grad():
         y, r = _forward(x, ops, n_head, drop, seed, layer_idx)
         dt = x.dtype
-        pbar = (r["p"] / r["den"]).to(dt)
         stash = (r["attn_flat"], r["xh1"].to(dt), r["xh2"].to(dt), r["r1"][..., 0],
-                 r["r2"][..., 0], pbar)
+                 r["r2"][..., 0], _pbar_of(r, dt))
     return y, stash
 
 
@@ -406,17 +505,14 @@ def fused_train_layer_stash_backward_reference(
     wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = ops
     attn, xh1, xh2, r1, r2, pbar = stash
     dt = x.dtype
-    D = x.shape[-1]
     with torch.no_grad():
         masks = _masks(x, w1.shape[1], drop, seed, layer_idx)
         qkv = (_mm(x, wqkv) + bqkv).to(dt)
-        q, k, v = (_heads(t, n_head) for t in qkv.split(D, dim=-1))
-        qs = (q * (_LOG2E / math.sqrt(D // n_head))).to(dt).float()
         x1 = (xh1.float() * g1 + be1).to(dt)
         h = (torch.relu(_mm(x1, w1) + b1) * masks[1]).to(dt)
-        r = dict(qs=qs, k=k, v=v, pbar=pbar.float(), attn=_heads(attn, n_head),
-                 attn_flat=attn, x1=x1, h=h, xh1=xh1.float(), r1=r1[..., None],
-                 xh2=xh2.float(), r2=r2[..., None], masks=masks)
+        r = dict(_stash_attention_inputs(qkv, attn, pbar, n_head), attn_flat=attn, x1=x1, h=h,
+                 xh1=xh1.float(), r1=r1[..., None], xh2=xh2.float(), r2=r2[..., None],
+                 masks=masks)
         return _gradients(x, dy, r, ops, n_head)
 
 
@@ -774,11 +870,71 @@ def train_gemm(a: torch.Tensor, b: torch.Tensor, epi: str, *, bias=None, res=Non
 
 def stash_shapes(x: torch.Tensor, n_head: int):
     """(shape, dtype) of each stash tensor for activations x [B, L, D]:
-    attn, xh1, xh2, r1, r2, pbar."""
+    attn, xh1, xh2, r1, r2, pbar (rows of stash_cols(L))."""
     B, L, D = x.shape
     dt = x.dtype
     return [((B, L, D), dt), ((B, L, D), dt), ((B, L, D), dt), ((B, L), torch.float32),
-            ((B, L), torch.float32), ((B, n_head, L, L), dt)]
+            ((B, L), torch.float32), ((B, n_head, L, stash_cols(L)), dt)]
+
+
+def _check_pass(qkv: torch.Tensor, n_head: int, *acts: torch.Tensor) -> Tuple[int, int, int]:
+    """Validate what K4's attention passes take: contiguous bf16 qkv [B, L,
+    3D] on a CUDA device at a shape K4 takes, and activations [B, L, D] like
+    it; returns (B, L, D)."""
+    if qkv.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels need a CUDA tensor, got {qkv.device}")
+    if qkv.dim() != 3 or qkv.shape[-1] % 3 or qkv.dtype != torch.bfloat16:
+        raise ValueError(f"qkv must be a bf16 [B, L, 3D] tensor, got {qkv.dtype} "
+                         f"{tuple(qkv.shape)}")
+    B, L, D3 = qkv.shape
+    D = D3 // 3
+    if B == 0 or not fused_train_stash_supported(L, D, FFN_MULTIPLE, n_head):
+        raise ValueError(f"K4's attention takes the shapes of K4 (d_model in {SUPPORTED_D_MODEL}, "
+                         f"d_head in {SUPPORTED_D_HEAD}, L inside the stash gate); got B={B}, "
+                         f"L={L}, d_model={D}, n_head={n_head}")
+    for t in (qkv, *acts):
+        if not t.is_contiguous() or t.dtype != torch.bfloat16 or t.device != qkv.device:
+            raise ValueError("K4's attention takes contiguous bf16 tensors on one device")
+    for t in acts:
+        if tuple(t.shape) != (B, L, D):
+            raise ValueError(f"want [B, L, D] = {(B, L, D)}, got {tuple(t.shape)}")
+    return B, L, D
+
+
+def stash_attention_fwd(qkv: torch.Tensor, n_head: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4-fwd's attention pass alone (C entry `vitiq_train_attention_fwd_stash`):
+    qkv [B, L, 3D] bf16 -> (attn [B, L, D], pbar [B, H, L, stash_cols(L)]), as
+    `stash_attention_fwd_plain`; the plain version for a CPU tensor."""
+    if qkv.device.type == "cpu":
+        return stash_attention_fwd_plain(qkv, n_head)
+    B, L, D = _check_pass(qkv, n_head)
+    attn = torch.empty((B, L, D), dtype=qkv.dtype, device=qkv.device)
+    pbar = torch.empty((B, n_head, L, stash_cols(L)), dtype=qkv.dtype, device=qkv.device)
+    _build.call("vitiq_train_attention_fwd_stash", qkv.device, qkv.data_ptr(), attn.data_ptr(),
+                pbar.data_ptr(), B, L, D, n_head)
+    pass_launches["stash_attention_fwd"] += 1
+    return attn, pbar
+
+
+def stash_attention_bwd(qkv: torch.Tensor, attn: torch.Tensor, dattn: torch.Tensor,
+                        pbar: torch.Tensor, n_head: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4-bwd's attention pass alone (C entry `vitiq_train_attention_bwd_stash`):
+    (dqkv [B, L, 3D] bf16, each frame's column sums of the f32 dqkv [B, 3D]),
+    as `stash_attention_bwd_plain`; the plain version for a CPU tensor."""
+    if qkv.device.type == "cpu":
+        return stash_attention_bwd_plain(qkv, attn, dattn, pbar, n_head)
+    B, L, D = _check_pass(qkv, n_head, attn, dattn)
+    if (tuple(pbar.shape) != (B, n_head, L, stash_cols(L)) or pbar.dtype != torch.bfloat16
+            or pbar.device != qkv.device or not pbar.is_contiguous()):
+        raise ValueError(f"pbar: want contiguous bf16 {(B, n_head, L, stash_cols(L))}, got "
+                         f"{pbar.dtype} {tuple(pbar.shape)}")
+    dqkv = torch.empty_like(qkv)
+    part = torch.empty((B, 3 * D), dtype=torch.float32, device=qkv.device)
+    _build.call("vitiq_train_attention_bwd_stash", qkv.device, qkv.data_ptr(), attn.data_ptr(),
+                dattn.data_ptr(), pbar.data_ptr(), dqkv.data_ptr(), part.data_ptr(), B, L, D,
+                n_head)
+    pass_launches["stash_attention_bwd"] += 1
+    return dqkv, part
 
 
 def fused_train_layer_fwd_stash(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
