@@ -118,9 +118,20 @@ which raises (exit code 1) on failure:
    bf16 ulps (its padding exactly 0), attn, pbar, dqkv and each frame's
    column sums within GRAD_REL in the L2 norm, the backward also on the
    forward kernel's own attn and pbar against the plain chain (GRAD_REL), and
-   30 launches of each pass giving the first launch's bits. The
-   build phase fails unless every instance of those passes
-   (K4_ATTENTION_INSTANCES) is in the build, spills nothing and runs HGMMA.
+   30 launches of each pass giving the first launch's bits. Then K3's two
+   attention passes alone (`flt.recompute_attention_fwd` / `_bwd`, routed
+   by shape as K3 routes them: the wgmma kernels wg_recompute_attention_fwd
+   and wg_recompute_attention_bwd up to 144 keys, but the mma.sync forward at
+   d_head 16 past 80 keys; the mma.sync passes past 144) at every shape K3
+   trains, L 17 and one routed L past 144 (K3_PASS_SHAPES, B=256), held the
+   same way: attn and dqkv within LAYER_TOL and GRAD_REL, the forward's row
+   stats within STATS_TOL (m within 1e-5 of max(|m|, 1), l within 1e-3
+   relative), the column sums within GRAD_REL, the backward on the forward
+   kernel's own attn and stats against the plain chain, 30 launches of each
+   giving the same bits; each shape's route and the wgmma passes' blocks an
+   SM printed. The build phase fails unless every instance of K4's passes
+   (K4_ATTENTION_INSTANCES) and of K3's (K3_ATTENTION_INSTANCES) is in the
+   build, spills nothing and runs HGMMA.
 6. train: the ViT flagship and the rawIQ flagship (bf16 `tpu` numerics,
    seeded random weights) each take 20 `make_train_step` steps at B=256 on
    one repeated random batch at lr 1e-3, the rawIQ one on raw frames through
@@ -216,11 +227,15 @@ which raises (exit code 1) on failure:
    at L=65; vit_tiny_2016: K3 and K4 at D=64, L=17) with their bounds, and
    the vit_tpu_production and vit_tiny_2016 train steps at B=4096 through
    K3 / K4 and through the plain layers with K5 (VITIQ_FUSED_TRAIN=0, the
-   path they took before K3/K4 took their widths); K3-bwd (rawiq_best, ViT)
-   and K4-fwd and K4-bwd (rawIQ, rawiq_best_mp) by stage with
-   `torch.profiler`; K4's attention passes alone at B=4096 beside their
+   path they took before K3/K4 took their widths); K3-fwd and K3-bwd
+   (rawiq_best, ViT) and K4-fwd and K4-bwd (rawIQ, rawiq_best_mp) by stage
+   with `torch.profiler`; K4's attention passes alone at B=4096 beside their
    plain versions and their byte floors (`attention_pass_bounds`), with the
-   stash's bytes a frame and layer; beside the card's name and power limit.
+   stash's bytes a frame and layer; K3's attention passes alone at B=4096 at
+   the shapes K3 trains (K3_PASS_TIMED) beside their plain versions, their
+   bounds (`recompute_pass_bounds`) and scaled_dot_product_attention's
+   forward and backward on [B, H, L, dh] bf16 (a yardstick the port never
+   calls); beside the card's name and power limit.
 8. probes: the counterparts of the TPU probes under scripts/
    (`vitiq_torch/probes/`, `csrc/probes.cu`). The `ptxas -v` lines of the
    probe kernels (none may spill), of K1's one-pass core with and without
@@ -254,7 +269,9 @@ line is {"ok": true, "device": {...}}.
 and `time_small_batches`, and prints its numbers as one JSON line (to
 compare two trees of the port in one call: copy this script into each tree's
 root and run it there). ``--k4`` does the same with `time_k4`: K4's layers
-by stage and the train steps that go through it.
+by stage and the train steps that go through it; ``--k3`` with `time_k3`:
+K3's layers at the shapes it trains, each by stage, and the train steps
+through K3.
 """
 
 from __future__ import annotations
@@ -419,6 +436,10 @@ TRAIN_GEMM_INSTANCES = 33
 # wg_attention_fwd<DH, NG> (NG 2, 4, 5) and wg_attention_bwd_stash<DH, NG,
 # RESIDENT> (2, 4, 5 resident; 4 streamed) at d_head 16, 32, 64: K4's passes
 K4_ATTENTION_INSTANCES = 21
+# wg_recompute_attention_bwd<DH, NG> (NG 2, 4, 5, 9) and
+# wg_recompute_attention_fwd<DH, NG> (the same but <16, 9>, whose shapes the
+# routing sends to the mma.sync forward) at d_head 16, 32, 64: K3's passes
+K3_ATTENTION_INSTANCES = 12 + 11
 
 
 def check_train_spills() -> None:
@@ -426,8 +447,9 @@ def check_train_spills() -> None:
     registers of each attention block and of each GEMM stage instance
     (train_gemm_kernel), and fail if any function of the file spills (the
     d_head-64 backward parks its column sums in shared memory so that it need
-    not) or a stage instance or an instance of K4's wgmma attention passes
-    (wg_attention_*) has no HGMMA in its SASS (cuobjdump, beside nvcc)."""
+    not) or a stage instance or an instance of K4's or K3's wgmma attention
+    passes (wg_attention_*, wg_recompute_attention_*) has no HGMMA in its
+    SASS (cuobjdump, beside nvcc)."""
     import re
 
     report = _build.ptxas_report("fused_layer_train")
@@ -450,6 +472,19 @@ def check_train_spills() -> None:
         hgmma = body[0].count("HGMMA") if len(body) == 1 else 0
         regime = "" if kind[3] is None else ", resident" if kind[3] == "1" else ", streamed"
         label = f"{kind[0]}<{kind[1]}, {kind[2]}{regime}>"
+        print(f"  ptxas {label}: {regs} registers, {stores + loads} bytes spilled, {hgmma} HGMMA "
+              f"in its SASS", flush=True)
+        if not hgmma:
+            raise AssertionError(f"{label} runs no HGMMA")
+    k3_passes = {n: v for n, v in entries.items() if "wg_recompute_attention" in n}
+    if len(k3_passes) != K3_ATTENTION_INSTANCES:
+        raise AssertionError(f"{len(k3_passes)} instances of K3's wgmma attention passes in the "
+                             f"build, want {K3_ATTENTION_INSTANCES}")
+    for name, (regs, stores, loads) in sorted(k3_passes.items()):
+        kind = re.search(r"(wg_recompute_attention_\w+?)ILi(\d+)ELi(\d+)E", name).groups()
+        body = [b for n, b in bodies if n.strip() == name]
+        hgmma = body[0].count("HGMMA") if len(body) == 1 else 0
+        label = f"{kind[0]}<{kind[1]}, {kind[2]}>"
         print(f"  ptxas {label}: {regs} registers, {stores + loads} bytes spilled, {hgmma} HGMMA "
               f"in its SASS", flush=True)
         if not hgmma:
@@ -1243,6 +1278,166 @@ def time_stash_passes(device, card: str, B: int = 4096, shapes=K4_PASS_SHAPES) -
               f"to {flt.stash_cols(L)}; {rest + H * L * L * 2} unpadded)  [{card}]", flush=True)
         out[name] = t
         del qkv, dattn, attn, pbar
+        torch.cuda.empty_cache()
+    return out
+
+
+# K3's attention passes alone: (name, L, D, H) at B=256 in the checks (every
+# shape K3 trains, L 17 at vit_tiny_2016's width and one L past 144, which
+# the routing sends to the mma.sync passes), B=4096 in the timings (the
+# shapes K3 trains)
+K3_PASS_SHAPES = (("vit", 129, 128, 8), ("rawiq_best", 65, 256, 8),
+                  ("vit_tpu_production", 129, 128, 2),
+                  ("rawIQ flagship (VITIQ_TRAIN_STASH=0)", 65, 128, 8),
+                  ("vit_tiny_2016 (VITIQ_TRAIN_STASH=0)", 17, 64, 4),
+                  ("L 160 (routed to mma.sync)", 160, 128, 8))
+K3_PASS_TIMED = K3_PASS_SHAPES[:5]
+# K3's forward pass alone against its plain version: m sums the same bf16
+# products as the plain version's scores in another order (f32), so within
+# 1e-5 of max(|m|, 1) (the rounding of a sum of d_head products of order 1
+# scales with the products, not with a max near 0); l within 1e-3 relative,
+# since one p whose bf16 rounding flips moves l by one ulp of that p.
+STATS_TOL = (1e-5, 1e-3)
+
+
+def check_stats(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """The forward pass's stats [B, H, L, 2] against the plain ones: m within
+    STATS_TOL[0] of max(|m|, 1), l within STATS_TOL[1] relative; returns the
+    largest |difference|."""
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: bad stats {tuple(got.shape)}")
+    dm = ((got[..., 0] - want[..., 0]).abs() / want[..., 0].abs().clamp_min(1.0)).max().item()
+    dl = ((got[..., 1] - want[..., 1]).abs() / want[..., 1]).max().item()
+    print(f"  {label}: m within {dm:.3g} of max(|m|, 1) (limit {STATS_TOL[0]}), l within "
+          f"{dl:.3g} relative (limit {STATS_TOL[1]})", flush=True)
+    if not (dm <= STATS_TOL[0] and dl <= STATS_TOL[1]):
+        raise AssertionError(f"{label}: kernel disagrees with the plain version")
+    return (got - want).abs().max().item()
+
+
+def recompute_pass_inputs(gen, B: int, L: int, D: int, H: int, device):
+    """qkv [B, L, 3D] and dattn [B, L, D] (bf16, seeded), and the plain
+    forward pass's attn and stats on that qkv."""
+    qkv = torch.randn((B, L, 3 * D), generator=gen).to(device, torch.bfloat16)
+    dattn = (0.1 * torch.randn((B, L, D), generator=gen)).to(device, torch.bfloat16)
+    with torch.no_grad():
+        attn, stats = flt.recompute_attention_fwd_plain(qkv, H)
+    return qkv, dattn, attn, stats
+
+
+def check_recompute_passes(device, B: int = 256, shapes=K3_PASS_SHAPES,
+                           launches: int = 30) -> dict:
+    """K3's two attention passes alone against their plain versions on the
+    same inputs (`flt.recompute_attention_fwd` / `_bwd`, routed by shape as
+    K3 routes them, against `recompute_attention_fwd_plain` / `_bwd_plain`):
+    attn and dqkv within LAYER_TOL and GRAD_REL in the L2 norm, the stats
+    within STATS_TOL, each frame's column sums within GRAD_REL; the backward
+    on the plain attn and stats, so that it alone is under test. Then the
+    backward on the forward kernel's attn and stats, its dqkv and column
+    sums within GRAD_REL of the plain chain's. Then `launches` launches of
+    each pass give the first launch's bits. Prints each shape's route and
+    the wgmma passes' blocks an SM. Returns the largest difference of each
+    pass."""
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    gen = torch.Generator().manual_seed(33)
+    for name, L, D, H in shapes:
+        plan = flt.recompute_tile_plan(L, D // H)
+        blocks = flt.recompute_blocks_per_sm(L, D, H)
+        route = {k: "wgmma" if plan[f"{k}_wgmma"] else "mma.sync" for k in ("fwd", "bwd")}
+        print(f"phase train-kernels: K3's attention passes alone vs their plain versions, {name} "
+              f"shape B={B} L={L} D={D} H={H} (d_head {D // H}; forward {route['fwd']}, backward "
+              f"{route['bwd']}; {plan['groups']} 16-key groups; blocks an SM of the wgmma "
+              f"passes: forward {blocks[0]}, backward {blocks[1]})", flush=True)
+        qkv, dattn, attn_p, stats_p = recompute_pass_inputs(gen, B, L, D, H, device)
+        with torch.no_grad():
+            attn, stats = flt.recompute_attention_fwd(qkv, H)
+            dqkv, part = flt.recompute_attention_bwd(qkv, attn_p, dattn, stats_p, H)
+            want_dqkv, want_part = flt.recompute_attention_bwd_plain(qkv, attn_p, dattn, stats_p,
+                                                                     H)
+            torch.cuda.synchronize()
+        errs["fwd"] = max(errs["fwd"], check_close(f"{name} K3 attention fwd attn", attn, attn_p,
+                                                   LAYER_TOL),
+                          check_rel(f"{name} K3 attention fwd attn", attn, attn_p),
+                          check_stats(f"{name} K3 attention fwd stats", stats, stats_p))
+        errs["bwd"] = max(errs["bwd"], check_close(f"{name} K3 attention bwd dqkv", dqkv,
+                                                   want_dqkv, LAYER_TOL),
+                          check_rel(f"{name} K3 attention bwd dqkv", dqkv, want_dqkv),
+                          check_rel(f"{name} K3 attention bwd column sums", part, want_part))
+        with torch.no_grad():
+            dqkv_k, part_k = flt.recompute_attention_bwd(qkv, attn, dattn, stats, H)
+            torch.cuda.synchronize()
+        check_rel(f"{name} K3 attention fwd -> bwd dqkv (the kernels' chain)", dqkv_k, want_dqkv)
+        check_rel(f"{name} K3 attention fwd -> bwd column sums (the kernels' chain)", part_k,
+                  want_part)
+        del dqkv_k, part_k
+        with torch.no_grad():
+            for label, run, first in (("fwd", lambda: flt.recompute_attention_fwd(qkv, H),
+                                       (attn, stats)),
+                                      ("bwd", lambda: flt.recompute_attention_bwd(
+                                          qkv, attn_p, dattn, stats_p, H), (dqkv, part))):
+                for _ in range(launches):
+                    again = run()
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                        raise AssertionError(f"{name} K3 attention {label}: launches differ")
+            print(f"  {name} K3 attention fwd and bwd: {launches} launches each give the same "
+                  f"bits", flush=True)
+        del qkv, dattn, attn_p, stats_p, attn, stats, dqkv, part, want_dqkv, want_part
+        torch.cuda.empty_cache()
+    return errs
+
+
+def recompute_pass_bounds(B: int, L: int, D: int = 128, H: int = 8) -> dict:
+    """K3's attention passes alone (`attention_bounds`' byte model): the
+    forward reads qkv and writes attn and the f32 (m, l) of each row, 4 L^2
+    dh FLOPs a frame-head (Q K^T, P V); the backward reads qkv, attn, dattn
+    and the stats and writes dqkv and a frame's column sums (3D f32), 10 L^2
+    dh (S formed again, dP, dV, dQ, dK)."""
+    dh, act, stats = D // H, B * L * D * 2.0, B * H * L * 8.0
+    return {"fwd": bound(4.0 * B * H * L * L * dh, 3 * act + act + stats),
+            "bwd": bound(10.0 * B * H * L * L * dh,
+                         3 * act + 2 * act + stats + 3 * act + B * 3 * D * 4.0)}
+
+
+def time_recompute_passes(device, card: str, B: int = 4096, shapes=K3_PASS_TIMED) -> dict:
+    """K3's attention passes alone at B=4096 (CUDA events, 20 launches)
+    against their plain versions, their bounds (`recompute_pass_bounds`) and
+    the yardstick torch.nn.functional.scaled_dot_product_attention on [B, H,
+    L, dh] bf16 (forward, and backward alone on a kept graph; the same
+    function without K3's roundings), which the port never calls."""
+    out = {}
+    gen = torch.Generator().manual_seed(34)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, L, D, H in shapes:
+        qkv, dattn, attn, stats = recompute_pass_inputs(gen, B, L, D, H, device)
+        with torch.no_grad():
+            t = {"fwd_ms": cuda_ms(lambda: flt.recompute_attention_fwd(qkv, H), 20),
+                 "fwd_plain_ms": cuda_ms(lambda: flt.recompute_attention_fwd_plain(qkv, H), 3,
+                                         warmup=1),
+                 "bwd_ms": cuda_ms(lambda: flt.recompute_attention_bwd(qkv, attn, dattn, stats,
+                                                                       H), 20),
+                 "bwd_plain_ms": cuda_ms(lambda: flt.recompute_attention_bwd_plain(
+                     qkv, attn, dattn, stats, H), 3, warmup=1)}
+        heads = [x.reshape(B, L, H, D // H).transpose(1, 2).contiguous().requires_grad_(True)
+                 for x in qkv.split(D, dim=-1)]
+        dheads = dattn.reshape(B, L, H, D // H).transpose(1, 2).contiguous()
+        with torch.no_grad():
+            t["sdpa_fwd_ms"] = cuda_ms(lambda: sdpa(*heads), 20)
+        o = sdpa(*heads)
+        t["sdpa_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(o, heads, dheads,
+                                                               retain_graph=True), 20)
+        t.update(recompute_pass_bounds(B, L, D, H))
+        plan = flt.recompute_tile_plan(L, D // H)
+        print(f"  {name} K3 attention passes B={B} L={L} D={D} H={H}: fwd "
+              f"({'wgmma' if plan['fwd_wgmma'] else 'mma.sync'}) {t['fwd_ms']:.4f} ms vs plain "
+              f"{t['fwd_plain_ms']:.4f} ms vs SDPA {t['sdpa_fwd_ms']:.4f} ms (bound "
+              f"{t['fwd'][0]:.4f} ms by {t['fwd'][1]}, {t['fwd_ms'] / t['fwd'][0]:.2f}x it); bwd "
+              f"({'wgmma' if plan['bwd_wgmma'] else 'mma.sync'}) {t['bwd_ms']:.4f} ms vs plain "
+              f"{t['bwd_plain_ms']:.4f} ms vs SDPA backward {t['sdpa_bwd_ms']:.4f} ms (bound "
+              f"{t['bwd'][0]:.4f} ms by {t['bwd'][1]}, {t['bwd_ms'] / t['bwd'][0]:.2f}x it)  "
+              f"[{card}]", flush=True)
+        out[name] = t
+        del qkv, dattn, attn, stats, heads, dheads, o
         torch.cuda.empty_cache()
     return out
 
@@ -2828,9 +3023,9 @@ def profile_k1_stages(name: str, B: int, L: int, D: int, F: int, H: int, device,
 # K3-bwd's GEMM stages in launch order, by epilogue (the weight gradients,
 # all `partial`, by their order).
 K3_GEMM_STAGES = [stage for stage, _, _, _ in flt.stage_plan(128, 512)]
-# K4-fwd's GEMM stages (the forward's four) and K4-bwd's (the rebuilt QKV and
-# FFN1, then the gradient stages), in launch order
-K4_FWD_GEMM_STAGES = K3_GEMM_STAGES[:4]
+# K3-fwd's and K4-fwd's GEMM stages (the forward's four) and K4-bwd's (the
+# rebuilt QKV and FFN1, then the gradient stages), in launch order
+K3_FWD_GEMM_STAGES = K4_FWD_GEMM_STAGES = K3_GEMM_STAGES[:4]
 K4_BWD_GEMM_STAGES = [K3_GEMM_STAGES[0], K3_GEMM_STAGES[2], *K3_GEMM_STAGES[4:]]
 
 
@@ -2886,21 +3081,24 @@ def print_split(label: str, split: dict, card: str) -> None:
 
 def profile_k3_stages(name: str, B: int, L: int, D: int, F: int, H: int, drop: float, device,
                       card: str, calls: int = 10) -> dict:
-    """K3-bwd's time by stage (`profile_layer_stages`): its twelve GEMM stages
-    in `flt.stage_plan`'s order, the recompute's four first, then each
-    weight gradient before its input gradient; then every other kernel of
-    the call by name (the attention passes, LN2's backward rows, the
-    fixed-order reductions)."""
+    """K3-fwd's and K3-bwd's time by stage (`profile_layer_stages`): K3-fwd's
+    four GEMM stages, K3-bwd's twelve in `flt.stage_plan`'s order (the
+    recompute's four first, then each weight gradient before its input
+    gradient); then every other kernel of a call by name (the attention
+    passes, LN2's backward rows, the fixed-order reductions)."""
     ops = train_operands(F, 13, device, D, H)
     x, dy = train_inputs(torch.Generator().manual_seed(4), B, L, D, device)
     args = (H, drop, TRAIN_SEED, 0)
-    label = f"{name} K3-bwd B={B} L={L} D={D} F={F} H={H}"
-    split = profile_layer_stages(label, lambda: flt.fused_train_layer_bwd(x, dy, ops, *args),
-                                 K3_GEMM_STAGES, calls)
-    print_split(label, split, card)
+    out = {}
+    for kind, call, stages in (
+            ("fwd", lambda: flt.fused_train_layer_fwd(x, ops, *args), K3_FWD_GEMM_STAGES),
+            ("bwd", lambda: flt.fused_train_layer_bwd(x, dy, ops, *args), K3_GEMM_STAGES)):
+        label = f"{name} K3-{kind} B={B} L={L} D={D} F={F} H={H}"
+        out[kind] = profile_layer_stages(label, call, stages, calls)
+        print_split(label, out[kind], card)
     del x, dy, ops
     torch.cuda.empty_cache()
-    return split
+    return out
 
 
 def profile_k4_stages(name: str, B: int, L: int, D: int, F: int, H: int, drop: float, device,
@@ -2961,6 +3159,36 @@ def time_k4(device, card: str) -> dict:
                         ("rawiq flagship (K4 kernels)", raw, RAW_STATS, None),
                         ("rawiq_best_mp (K4 kernels)", rawiq_best_mp_config("tpu"), RAW_STATS,
                          None),
+                        ("rawiq flagship (K3 kernels, VITIQ_TRAIN_STASH=0)", raw, RAW_STATS,
+                         {"VITIQ_TRAIN_STASH": "0"}))}
+    return out
+
+
+# K3's training shapes for `--k3`: (name, L, FFN, dropout, D, H)
+K3_TRAIN_SHAPES = (("vit", 129, 512, TRAIN_DROP, 128, 8),
+                   ("rawiq_best", 65, 1024, BEST_DROP, 256, 8),
+                   ("vit_tpu_production", 129, 512, TRAIN_DROP, 128, 2),
+                   ("rawiq (VITIQ_TRAIN_STASH=0)", 65, 1024, RAW_DROP, 128, 8))
+
+
+def time_k3(device, card: str) -> dict:
+    """`--k3`: K3-fwd and K3-bwd a layer at the shapes K3 trains
+    (K3_TRAIN_SHAPES: the ViT flagship, rawiq_best, vit_tpu_production, the
+    rawIQ flagship's under VITIQ_TRAIN_STASH=0) beside their plain versions,
+    each by stage (`profile_k3_stages`), and the train steps through K3 at
+    those configurations, all at B=4096. Uses no wrapper of K3's passes
+    alone, so that it runs in a tree of the port from before them too."""
+    out = {"layers": {}, "stages": {}}
+    for name, L, ffn, drop, D, H in K3_TRAIN_SHAPES:
+        t = time_train_layers(name, L, ffn, drop, device, card, False, D=D, H=H)
+        out["layers"][name] = {k: v for k, v in t.items() if k.endswith("_ms")}
+        out["stages"][name] = profile_k3_stages(name, 4096, L, D, ffn, H, drop, device, card)
+    raw = flagship_rawiq_config("tpu")
+    out["steps"] = {label: time_train_step(label, cfg, stats, 4096, device, card, 20, env)
+                    for label, cfg, stats, env in (
+                        ("vit flagship (K3 kernels)", flagship_vit_config("tpu"), STATS, None),
+                        ("rawiq_best (K3 kernels)", rawiq_best_config("tpu"), RAW_STATS, None),
+                        ("vit_tpu_production (K3 kernels)", VIT_TPU_PRODUCTION, STATS, None),
                         ("rawiq flagship (K3 kernels, VITIQ_TRAIN_STASH=0)", raw, RAW_STATS,
                          {"VITIQ_TRAIN_STASH": "0"}))}
     return out
@@ -3047,6 +3275,10 @@ def main() -> int:
         print(f"phase k4: K4's layers, stages and train steps on {card}:", flush=True)
         print(json.dumps({"k4": time_k4(device, card)}), flush=True)
         return 0
+    if sys.argv[1:] == ["--k3"]:
+        print(f"phase k3: K3's layers, stages and train steps on {card}:", flush=True)
+        print(json.dumps({"k3": time_k3(device, card)}), flush=True)
+        return 0
     check_train_spills()
     check_k5_build()
     check_k6_build()
@@ -3099,12 +3331,14 @@ def main() -> int:
 
     errs.update(check_train_kernels(device))
     errs.update({f"k4_{k}_pass": v for k, v in check_stash_passes(device).items()})
+    errs.update({f"k3_{k}_pass": v for k, v in check_recompute_passes(device).items()})
     errs["k3_stages"] = check_train_stages(device)
     check_train_bits(device)
     vit_train = train_check("ViT flagship", flagship_vit_config("tpu"), STATS, K3, device)
     raw_train = train_check("rawIQ flagship", flagship_rawiq_config("tpu"), RAW_STATS, K4, device)
     conv_train = conv1d_train_check(device)
-    train_check("rawiq_best", rawiq_best_config("tpu"), RAW_STATS, K3, device, COSINE_F32)
+    best_train = train_check("rawiq_best", rawiq_best_config("tpu"), RAW_STATS, K3, device,
+                             COSINE_F32)
     train_check("rawiq_best_mp", rawiq_best_mp_config("tpu"), RAW_STATS, K4, device, COSINE_F32)
     vit_eval = evaluate_check(device)
     evaluate_check(device, "rawiq_best", rawiq_best_config("tpu"), epochs=BEST_EVAL_EPOCHS,
@@ -3155,6 +3389,7 @@ def main() -> int:
                                    ("vit", 129, 128, 512, 8, TRAIN_DROP)):
         profile_k3_stages(name, 4096, L, D, F, H, drop, device, card)
     times["k4_passes"] = time_stash_passes(device, card)
+    times["k3_passes"] = time_recompute_passes(device, card)
     for name, L, D, F, H, drop in (("rawiq", 65, 128, 1024, 8, RAW_DROP),
                                    ("rawiq_best_mp", 64, 256, 1024, 8, BEST_DROP)):
         profile_k4_stages(name, 4096, L, D, F, H, drop, device, card)
@@ -3231,6 +3466,14 @@ def main() -> int:
 
     counts, k3, k4, k5 = vit["counts"], vit_train["counts"], raw_train["counts"], conv_train["counts"]
     vt, rt, ct = times["vit"], times["rawiq"], times["conv1d"]
+    # K3's passes run inside K3-fwd (the forward) and K3-bwd (the forward in
+    # its recompute, then the backward): their launches are K3's at shapes
+    # the routing sends to them (rawiq_best's forward, the ViT flagship's
+    # backward; `flt.recompute_tile_plan`)
+    kp, bk3 = times["k3_passes"], best_train["counts"]
+    if not (flt.recompute_tile_plan(65, 32)["fwd_wgmma"]
+            and flt.recompute_tile_plan(129, 16)["bwd_wgmma"]):
+        raise AssertionError("K3's wgmma passes are not on the main path's route")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3255,6 +3498,13 @@ def main() -> int:
         entry("fused_train_layer_bwd (K3-bwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:674",
               k3["fused_train_layer_bwd"], errs["k3b"], vt["k3b_ms"], vt["k3b_plain_ms"],
               vt["k3b"], None),
+        entry("wg_recompute_attention_fwd (K3's attention forward pass, rawiq_best)",
+              TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:202", bk3[K3[0]] + bk3[K3[1]],
+              errs["k3_fwd_pass"], kp["rawiq_best"]["fwd_ms"], kp["rawiq_best"]["fwd_plain_ms"],
+              kp["rawiq_best"]["fwd"], kp["rawiq_best"]["sdpa_fwd_ms"]),
+        entry("wg_recompute_attention_bwd (K3's attention backward pass, ViT)", TRAIN_SOURCE,
+              f"{TRAIN_TPU_SOURCE}:1195", k3[K3[1]], errs["k3_bwd_pass"], kp["vit"]["bwd_ms"],
+              kp["vit"]["bwd_plain_ms"], kp["vit"]["bwd"], kp["vit"]["sdpa_bwd_ms"]),
         entry("fused_train_layer_fwd_stash (K4-fwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:478",
               k4["fused_train_layer_fwd_stash"], errs["k4f"], rt["k4f_ms"], rt["k4f_plain_ms"],
               rt["k4f"], None),

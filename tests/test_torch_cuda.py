@@ -655,7 +655,8 @@ def test_stash_attention_passes_match_plain_versions(cuda, Lx, d, n_head):
     attn, pbar = flt.stash_attention_fwd(qkv, n_head)
     dqkv, part = flt.stash_attention_bwd(qkv, attn_p, dattn, pbar_p, n_head)
     torch.cuda.synchronize()
-    assert flt.pass_launches == {"stash_attention_fwd": 1, "stash_attention_bwd": 1}
+    assert flt.pass_launches == {"stash_attention_fwd": 1, "stash_attention_bwd": 1,
+                                 "recompute_attention_fwd": 0, "recompute_attention_bwd": 0}
     assert pbar.shape == pbar_p.shape == (B, n_head, Lx, flt.stash_cols(Lx))
     assert not torch.count_nonzero(pbar[..., Lx:])
     _assert_close(attn, attn_p, LAYER_TOL)
@@ -753,6 +754,130 @@ def test_stash_attention_kernels_run_wgmma_and_do_not_spill(cuda):
         body = [b for n, b in bodies.items() if n.strip() == name]
         assert len(body) == 1 and "HGMMA" in body[0], (name, len(body))
     assert not any("train_attention_bwd_stash" in n for n in bodies)
+
+
+# K3's two attention passes alone (wg_recompute_attention_fwd and
+# wg_recompute_attention_bwd up to 144 keys, but the mma.sync forward at
+# d_head 16 past 80 keys; the mma.sync passes past 144): the shapes K3 trains
+# (ViT, rawiq_best, vit_tpu_production, the rawIQ flagship and
+# vit_tiny_2016 under VITIQ_TRAIN_STASH=0), one token, a partly dead key
+# group (L 33), each group count at d_head 32 (L 17, 65, 81, 129), and L
+# past 144 at each d_head (the mma.sync passes)
+RECOMPUTE_PASS_SHAPES = [pytest.param(129, 128, 8, id="vit"),
+                         pytest.param(65, 256, 8, id="rawiq_best"),
+                         pytest.param(129, 128, 2, id="vit_tpu_production"),
+                         pytest.param(65, 128, 8, id="rawiq"),
+                         pytest.param(17, 64, 4, id="vit_tiny_2016"),
+                         pytest.param(1, 128, 8, id="L1"), pytest.param(33, 128, 4, id="L33"),
+                         pytest.param(17, 128, 4, id="L17-dh32"),
+                         pytest.param(65, 128, 4, id="L65-dh32"),
+                         pytest.param(81, 128, 4, id="L81-dh32"),
+                         pytest.param(144, 128, 4, id="L144-dh32"),
+                         pytest.param(160, 128, 8, id="L160-mma.sync"),
+                         pytest.param(200, 64, 2, id="L200-dh32-mma.sync"),
+                         pytest.param(224, 64, 1, id="L224-dh64-mma.sync")]
+
+
+def _recompute_pass_inputs(cuda, B, Lx, d, n_head, seed):
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((B, Lx, 3 * d), generator=gen).to(cuda, torch.bfloat16)
+    dattn = (0.1 * torch.randn((B, Lx, d), generator=gen)).to(cuda, torch.bfloat16)
+    attn, stats = flt.recompute_attention_fwd_plain(qkv, n_head)
+    return qkv, dattn, attn, stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx,d,n_head", RECOMPUTE_PASS_SHAPES)
+def test_recompute_attention_passes_match_plain_versions(cuda, Lx, d, n_head):
+    """Each pass alone on the same inputs as its plain version: attn and
+    dqkv at the one-layer tolerance and within 1% in the L2 norm; the
+    forward's row max m within 1e-5 of max(|m|, 1) (the scores sum the same
+    bf16 products in another order) and its sum l within 1e-3 relative (one
+    flipped p moves l by an ulp of that p); each frame's column sums within
+    1% in the L2 norm (the backward on the plain attn and stats, so that it
+    alone is under test). Then the backward on the forward kernel's attn and
+    stats: dqkv and the column sums within 1% of the plain chain's."""
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    B = 37 if Lx <= 144 else 5
+    qkv, dattn, attn_p, stats_p = _recompute_pass_inputs(cuda, B, Lx, d, n_head, Lx)
+    flt.reset_launches()
+    attn, stats = flt.recompute_attention_fwd(qkv, n_head)
+    dqkv, part = flt.recompute_attention_bwd(qkv, attn_p, dattn, stats_p, n_head)
+    torch.cuda.synchronize()
+    assert flt.pass_launches == {"stash_attention_fwd": 0, "stash_attention_bwd": 0,
+                                 "recompute_attention_fwd": 1, "recompute_attention_bwd": 1}
+    assert stats.shape == stats_p.shape == (B, n_head, Lx, 2) and torch.isfinite(stats).all()
+    _assert_close(attn, attn_p, LAYER_TOL)
+    m, m_p = stats[..., 0], stats_p[..., 0]
+    assert ((m - m_p).abs() <= 1e-5 * m_p.abs().clamp_min(1.0)).all()
+    assert ((stats[..., 1] - stats_p[..., 1]).abs() <= 1e-3 * stats_p[..., 1]).all()
+    want_dqkv, want_part = flt.recompute_attention_bwd_plain(qkv, attn_p, dattn, stats_p, n_head)
+    _assert_close(dqkv, want_dqkv, LAYER_TOL)
+    dqkv_k, part_k = flt.recompute_attention_bwd(qkv, attn, dattn, stats, n_head)
+    for got, want in ((attn, attn_p), (dqkv, want_dqkv), (part, want_part), (dqkv_k, want_dqkv),
+                      (part_k, want_part)):
+        err = (got.float() - want.float()).norm()
+        assert err <= GRAD_REL * want.float().norm() + 1e-6, float(err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx,d,n_head", [pytest.param(129, 128, 8, id="vit"),
+                                         pytest.param(65, 256, 8, id="rawiq_best"),
+                                         pytest.param(129, 128, 2, id="vit_tpu_production")])
+def test_recompute_attention_passes_give_the_same_bits_over_repeated_launches(cuda, Lx, d,
+                                                                            n_head):
+    """30 launches of each pass give the first launch's bits (the persistent
+    forward's double-buffered TMA loads, the backward's pbar plane written
+    in the kernel and overwritten by dS, the column sums in a fixed order)."""
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    qkv, dattn, attn_p, stats_p = _recompute_pass_inputs(cuda, 600, Lx, d, n_head, 7)
+    first = (*flt.recompute_attention_fwd(qkv, n_head),
+             *flt.recompute_attention_bwd(qkv, attn_p, dattn, stats_p, n_head))
+    for _ in range(30):
+        again = (*flt.recompute_attention_fwd(qkv, n_head),
+                 *flt.recompute_attention_bwd(qkv, attn_p, dattn, stats_p, n_head))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_recompute_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    qkv, dattn, attn, stats = _recompute_pass_inputs(cuda, 2, 65, D, H, 1)
+    with pytest.raises(ValueError, match="bf16"):
+        flt.recompute_attention_fwd(qkv.float(), H)
+    with pytest.raises(ValueError, match="shapes of K3"):  # d_head 8
+        flt.recompute_attention_fwd(qkv, 16)
+    with pytest.raises(ValueError, match="stats"):  # bf16 stats
+        flt.recompute_attention_bwd(qkv, attn, dattn, stats.bfloat16(), H)
+    with pytest.raises(ValueError, match=r"\[B, L, D\]"):
+        flt.recompute_attention_bwd(qkv, attn[:, :64].contiguous(), dattn, stats, H)
+
+
+@pytest.mark.cuda
+def test_recompute_attention_kernels_run_wgmma_and_do_not_spill(cuda):
+    """Every instance of K3's wgmma attention passes
+    (wg_recompute_attention_fwd<DH, NG>, wg_recompute_attention_bwd<DH,
+    NG>): no spill in the build's `ptxas -v` report, HGMMA in its SASS; the
+    forward's <16, 9> is not built (its shapes take the mma.sync forward)."""
+    sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
+                           str(_build.build())], capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    bodies = dict(block.split("\n", 1) for block in sass.split("Function : ")[1:])
+    report = _build.ptxas_report("fused_layer_train")
+    entries = {n: v for n, v in _build.ptxas_entries(report).items()
+               if "wg_recompute_attention" in n}
+    assert len(entries) == 12 + 11, sorted(entries)  # bwd NG 2/4/5/9, fwd the same but <16, 9>
+    assert not any("wg_recompute_attention_fwdILi16ELi9E" in n for n in entries)
+    for name, (regs, stores, loads) in entries.items():
+        assert regs > 0 and stores == loads == 0, (name, regs, stores, loads)
+        body = [b for n, b in bodies.items() if n.strip() == name]
+        assert len(body) == 1 and "HGMMA" in body[0], (name, len(body))
 
 
 # --------------------------------------------------------------------------

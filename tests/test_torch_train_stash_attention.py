@@ -264,7 +264,8 @@ def test_pass_wrappers_count_nothing_on_the_cpu():
     qkv = torch.randn((1, 17, 3 * 64)).bfloat16()
     attn, pbar = flt.stash_attention_fwd(qkv, 4)
     flt.stash_attention_bwd(qkv, attn, attn, pbar, 4)
-    assert flt.pass_launches == {"stash_attention_fwd": 0, "stash_attention_bwd": 0}
+    assert flt.pass_launches == {"stash_attention_fwd": 0, "stash_attention_bwd": 0,
+                                 "recompute_attention_fwd": 0, "recompute_attention_bwd": 0}
 
 
 def test_one_flipped_p_moves_pbar_by_up_to_three_ulps():

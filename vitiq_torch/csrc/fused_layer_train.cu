@@ -90,19 +90,24 @@
 //                          into L2 when a tile starts, and the epilogues'
 //                          loads carry no branch, so that they go out
 //                          together.
-//   train_attention_fwd    K3's: one block per (frame, head), K1's register-
-//                          fragment core (mma.sync), q scaled in the kernel,
-//                          optionally writing each row's max and sum for the
-//                          backward's recompute
-//   train_attention_bwd    one block per (frame, head): a query-major pass
-//                          (dQ) and a key-major pass (dK, dV), holding q, k,
-//                          v, dO and their transposes in shared memory and
-//                          recomputing P in mma.sync fragments in both passes
-//                          (146,112 bytes at d_head 64, L = 129: one block
-//                          per SM); each pass parks its column sums in shared
-//                          memory when it ends, so only one pass's sums live
-//                          in registers (a d_head-64 warp holds 16 x 64 f32
-//                          accumulators of dK and of dV)
+//   wg_recompute_attention_fwd<DH, NG>, wg_recompute_attention_bwd<DH, NG>
+//                          K3's two attention passes on wgmma (below), where
+//                          round16(L) <= 144: every shape K3 trains, but the
+//                          ViT flagship's forward (d_head 16, 129 tokens)
+//   train_attention_fwd    K3's forward past that (round16(L) > 144, and d_head
+//                          16 past 80 keys): one block per (frame, head), K1's
+//                          register-fragment core (mma.sync), q scaled in the
+//                          kernel, optionally writing each row's max and sum
+//                          for the backward's recompute
+//   train_attention_bwd    K3's backward past 144 keys: one block per (frame,
+//                          head), a query-major pass (dQ) and a key-major pass
+//                          (dK, dV), holding q, k, v, dO and their transposes
+//                          in shared memory and recomputing P in mma.sync
+//                          fragments in both passes (146,112 bytes at d_head
+//                          64, L = 129); each pass parks its column sums in
+//                          shared memory when it ends. Its shared memory is
+//                          still K3's shape gate (shapes_ok: L up to 224 at
+//                          d_head 64)
 //   wg_attention_fwd<DH, NG>, wg_attention_bwd_stash<DH, NG, RESIDENT>
 //                          K4's two attention passes on wgmma (below)
 //   ln_bwd_rows<XH, DW>    LN2 backward, one warp per row of DW = D columns
@@ -163,7 +168,7 @@
 //     quotients instead. Past 80 keys
 //     (only where VITIQ_TRAIN_STASH=1 admits such an L) the scores are formed
 //     twice in 64-key tiles, p staged per query tile and divided by l in
-//     place once l is whole. K3 keeps train_attention_fwd: with its row
+//     place once l is whole. K3 has its own passes (below): with its row
 //     stats in place of pbar this forward measured slower at K3's shapes (ViT,
 //     129 tokens: three 64-row query tiles, the last with one live row).
 //   wg_attention_bwd_stash<DH, NG, RESIDENT> (K4-bwd): one block a
@@ -195,6 +200,46 @@
 //   / 119 (6 blocks an SM at the rawIQ shape, by its 32.5 KB of shared
 //   memory), streamed 98 / 124 / 179. None spills.
 //
+// K3's attention passes (in place of the mma.sync passes, which formed each
+// score and exp2 twice in the backward, and twice in the forward). Both are
+// bound by bytes: at the ViT flagship's shape, B = 4096, the forward reads
+// qkv and writes attn and each row's f32 (m, l) (575 MB, 0.172 ms at 3.35
+// TB/s), the backward reads qkv, attn, dattn and the stats and writes dqkv
+// and the frames' column sums (1.12 GB, 0.335 ms); the tensor FLOPs are a
+// tenth of that. They are latency-bound on the card: one warpgroup's chain
+// of products, exp2 and quotients a tile, so what a pass gains comes from
+// the warps an SM holds. The routing is by shape alone (recompute_wgmma,
+// recompute_fwd_wgmma), in attention_fwd and attention_bwd:
+//   wg_recompute_attention_fwd<DH, NG> (K3-fwd, K3-bwd's recompute):
+//     wg_attention_fwd's persistent blocks with q, k, v by TMA in two
+//     buffers; the scores of a 64-query tile over all 16 NG keys (NG = 2,
+//     4, 5 or 9, the least that covers round16(L) <= 144) in registers, the
+//     row max, p (MUFU.EX2) into P V's A fragments, l; attn = bf16(O / l)
+//     without a divide; (m, l) to the stats. At d_head 16 and NG 9 (the ViT
+//     flagship) train_attention_fwd measured faster (rc_fwd_built), so that
+//     shape keeps it and <16, 9> is not built.
+//   wg_recompute_attention_bwd<DH, NG> (K3-bwd): K4's resident backward with
+//     its pbar plane formed in the kernel, not loaded: per 64-query tile S =
+//     Qs K^T (one wgmma a group) and pbar = bf16(bf16(exp2(s - m)) / l) from
+//     the forward's stats (MUFU.EX2, IEEE quotients from div_pair) into the
+//     128-byte-swizzled plane [16 NG queries][64-key chunks], rows and keys
+//     >= L 0; then K4's sequence (dV = pbar^T dO with the plane as MN-major
+//     A; dP, dS over pbar, dQ per query tile; dK = dS^T Qs). Each score
+//     costs one product and one exp2, where it cost two of each (the TPU's
+//     VITIQ_TRAIN_PB=reuse). The row terms dO . O are formed once from
+//     16-byte loads of O. Scores and dP of up to 4 groups are one wgmma a
+//     k-step (times_rows_t_wide: m64n32 to m64n64, m64n48 at NG 9). One
+//     block a frame-head; at NG 9 past d_head 16 three warpgroups (384
+//     threads), each taking 3 of a query tile's 9 key groups and a key
+//     chunk of dV and dK, the dQ partials added through shared memory in
+//     warpgroup order: one warpgroup held vit_tpu_production's block (133
+//     KB) to 4 warps an SM. Column sums in a fixed order, no atomics. Shared
+//     memory at 129 tokens: 76,112 bytes at d_head 16 (one warpgroup, 3
+//     blocks an SM), 172,624 at 64 (1); at rawiq_best's 65 tokens (d_head
+//     32) 43,856 (5).
+//   Registers (ptxas, NVIDIA H100 80GB HBM3 build; none spills): see
+//   PERF.md §6, printed by chip_smoke.py's build phase.
+//
 // TPU schedule knobs of K3 and K4 and what computes each here (all are the
 // same function):
 //   VITIQ_TRAIN_STASH (K4 on / off / auto)  -> the wrapper's stash_enabled
@@ -204,26 +249,31 @@
 //       [B, Lp, H*Lp] probability layout has no counterpart, pbar is [B, H,
 //       L, stash_cols(L)].
 //   VITIQ_TRAIN_PB (recompute / reuse the probability tiles)
-//                          -> K3: train_attention_bwd recomputes P from q and
-//                             k in both of its passes; K4:
-//                             wg_attention_bwd_stash reads pbar.
+//                          -> K3: wg_recompute_attention_bwd forms pbar once
+//                             into its plane and reuses it for dV and dS
+//                             (the TPU's reuse; past 144 keys
+//                             train_attention_bwd recomputes P in both of its
+//                             passes); K4: wg_attention_bwd_stash reads pbar.
 //   VITIQ_TRAIN_EPI (wide / head divide)    -> one f32 divide per output.
 //   VITIQ_TRAIN_ATTN (xpack / auto: K8, train_xpack.py:
 //       fused_train_layer_stack_xpack, _fwd_kernel_x and _bwd_kernel_x: the
 //       packed attention forward and the hybrid packed-recompute backward)
-//                                           -> K3: train_attention_fwd and
-//       train_attention_bwd, one block per frame-head; K8's dropout hash is
-//       the one these kernels draw (tests/test_torch_train_layer.py holds
-//       K8 in interpret mode to K3's plain versions).
+//                                           -> K3's attention passes, routed
+//       by shape (wg_recompute_attention_fwd / _bwd, else train_attention_fwd
+//       / _bwd); K8's dropout hash is the one these kernels draw
+//       (tests/test_torch_train_layer.py holds K8 in interpret mode to K3's
+//       plain versions).
 //   VITIQ_TRAIN_DW (merged / batched dW)    -> one split-K GEMM over all rows.
 //   VITIQ_TRAIN_DWPACK (0 / p1 / full)      -> four separate dW GEMMs, in
 //       both regimes.
-//   VITIQ_TRAIN_FPA, _FPG, _FPV, _ATTNBWD   -> train_attention_bwd, in both
-//       regimes: heads are independent blocks, so neither the full-product
+//   VITIQ_TRAIN_FPA, _FPG, _FPV, _ATTNBWD   -> wg_recompute_attention_bwd
+//       (K3; train_attention_bwd past 144 keys) and wg_attention_bwd_stash
+//       (K4): heads are independent blocks, so neither the full-product
 //       packing of heads nor the block-diagonal scratch nor the per-head
-//       chain has a counterpart; the softmax backward is one fragment per
-//       16 x 16 tile.
-//   VITIQ_TRAIN_RFWD, _RBWD (xpack cores)   -> train_attention_fwd.
+//       chain has a counterpart; pbar is formed once (or read) per 64-query
+//       tile into a plane that dS overwrites.
+//   VITIQ_TRAIN_RFWD, _RBWD (xpack cores)   -> K3's attention passes, routed
+//       by shape as VITIQ_TRAIN_ATTN's.
 //   VITIQ_TRAIN_TAIL (VPU tail keys)        -> keys are masked per 8-key
 //       fragment column; activations stay [B, L, D] unpadded. The stash gate
 //       still turns K4 off where the TPU's tail mode would be on.
@@ -931,13 +981,13 @@ __device__ __forceinline__ void park_column_sums(const float cs[DH / 8][2], floa
 // The block's column sums of dq, dk and dv: the parked warp sums added over
 // the warps in a fixed order, into part[s * D + c] (section s, the head's
 // column c).
-template <int DH>
+template <int DH, int NW = ATTN_WARPS>
 __device__ __forceinline__ void store_column_sums(const float* red, float* part, int D) {
   __syncthreads();
   for (int i = threadIdx.x; i < 3 * DH; i += blockDim.x) {
     const int s = i / DH, c = i % DH;
     float sum = 0.f;
-    for (int w = 0; w < ATTN_WARPS; ++w) sum += red[(w * 3 + s) * DH + c];
+    for (int w = 0; w < NW; ++w) sum += red[(w * 3 + s) * DH + c];
     part[s * D + c] = sum;
   }
 }
@@ -1206,6 +1256,29 @@ __device__ __forceinline__ void times_rows_t(float (*c)[8], const uint32_t (*a)[
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs<8 * NG>(&c[0][0]);
+}
+
+// times_rows_t with the NG groups as one product of N = 16 NG a k-step
+// where wgmma has that width from registers (NG 2 to 4), so that a
+// warpgroup issues one wgmma where it issued NG; the accumulators of an
+// m64nN tile are the NG m64n16 tiles' in order.
+template <int DH, int NG>
+__device__ __forceinline__ void times_rows_t_wide(float (*c)[8], const uint32_t (*a)[4],
+                                                  uint32_t rows) {
+  if constexpr (NG >= 2 && NG <= 4) {
+    constexpr int SPAN = DH * 2;
+    constexpr uint32_t SBO = 8 * SPAN;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      Wgmma<16 * NG>::template rs<0>(&c[0][0], a[kk], smem_desc(rows + kk * 32, SPAN, SBO, SBO),
+                                     kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<8 * NG>(&c[0][0]);
+  } else {
+    times_rows_t<DH, NG>(c, a, rows);
+  }
 }
 
 // acc += sum over the NG groups of A[grp] Rows[grp]: A the A fragments of a
@@ -1793,6 +1866,425 @@ __global__ void __launch_bounds__(128) wg_attention_bwd_stash(
 }
 
 // ---------------------------------------------------------------------------
+// K3's attention passes on wgmma: the forward that writes the row stats, the
+// backward that forms pbar from them once (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int RECOMPUTE_ROWS = 144;  // the wgmma passes hold round16(L) <= 144 keys
+
+// Whether K3's passes run on wgmma at L tokens (round16(L) <= 144; past it
+// the mma.sync passes), and their 16-key groups: the least of 2, 4, 5 and 9
+// that covers round16(L). A 64-query tile's scores over all 16 NG keys stay
+// in registers; the backward holds q, k, v, dO and a pbar plane of 16 NG
+// rows.
+__host__ __device__ inline bool recompute_wgmma(int L) { return round16(L) <= RECOMPUTE_ROWS; }
+__host__ __device__ inline int recompute_groups(int L) {
+  const int r = round16(L);
+  return r <= 32 ? 2 : r <= 64 ? 4 : r <= 80 ? 5 : 9;
+}
+// The forward takes the wgmma pass too, but at d_head 16 past 80 keys (NG
+// 9: the ViT flagship's 129 tokens), where train_attention_fwd measured
+// faster (0.5837-0.5881 against 0.6506-0.6524 ms at B = 4096, H = 8: the
+// routing experiment of ops/cuda/variants.py, PERF.md): its many small
+// blocks hide more latency than the wgmma pass's 3 an SM, which the NG 9
+// score tile's 72 f32 registers a thread (138 in all) keep there.
+__host__ __device__ constexpr bool rc_fwd_built(int dh, int ng) { return !(dh == 16 && ng == 9); }
+__host__ __device__ inline bool recompute_fwd_wgmma(int L, int dh) {
+  return recompute_wgmma(L) && rc_fwd_built(dh, recompute_groups(L));
+}
+
+// The backward's warpgroups a block: at NG 9 past d_head 16 three, each
+// taking 3 of a query tile's 9 key groups (one warpgroup a block held
+// vit_tpu_production's 133 KB block to 4 warps an SM, too few to hide the
+// pass's latency), else one (at the ViT flagship's shape one warpgroup, 3
+// blocks an SM, measured faster than three in 2: the warpgroups experiment
+// of ops/cuda/variants.py, PERF.md).
+__host__ __device__ constexpr int rc_bwd_warpgroups(int dh, int ng) {
+  return ng == 9 && dh > 16 ? 3 : 1;
+}
+// ... and the blocks an SM its registers must allow, as many as its shared
+// memory allows where the unbounded registers held fewer: at d_head 16
+// three of one warpgroup at NG 9 (170 registers held 2) and six at NG up
+// to 5 (79-87 held 5); two of three warpgroups at d_head 32 (registers then
+// at most 84 a thread); else what the shared memory and registers give.
+__host__ __device__ constexpr int rc_bwd_min_blocks(int dh, int ng) {
+  return ng == 9 ? (dh == 16 ? 3 : dh == 32 ? 2 : 1) : dh == 16 ? 6 : 1;
+}
+// Shared memory, the 1 KB of alignment included. Forward: two buffers of q,
+// k and v rows [16 NG][DH], each rounded up to 1 KB, two mbarriers.
+// Backward: q (scaled in place), k, v and dO rows [16 NG][DH], the pbar
+// plane of ceil(16 NG / 64) key chunks [16 NG][64] (overwritten by dS), the
+// column-sum scratch [4 WGS warps][3][DH], the row terms [16 NG] and the dQ
+// partials of warpgroups 1.. [WGS - 1][64][DH] (f32), and an mbarrier.
+// fused_layer_train.recompute_attention_fwd_smem_bytes and
+// recompute_attention_bwd_smem_bytes repeat these formulas.
+__host__ __device__ inline size_t rc_fwd_smem_bytes(int L, int dh) {
+  const int kr = 16 * recompute_groups(L);
+  return 1024 + 2 * (((size_t)6 * kr * dh + 1023) / 1024 * 1024) + 16;
+}
+__host__ __device__ inline size_t rc_bwd_smem_bytes(int L, int dh) {
+  const int ng = recompute_groups(L), r = 16 * ng, wgs = rc_bwd_warpgroups(dh, ng);
+  return 1024 + (size_t)8 * r * dh + (size_t)(r + 63) / 64 * r * 128 +
+         (size_t)4 * wgs * 3 * dh * 4 + (size_t)r * 4 + (size_t)(wgs - 1) * WG_T * dh * 4 + 16;
+}
+
+// K3's attention forward (K3-fwd's, and the recompute's in K3-bwd): the
+// function of train_attention_fwd on wgmma. Persistent blocks of one
+// warpgroup take the frame-heads (frame b, head h) = item b H + h, items
+// blockIdx.x, blockIdx.x + gridDim.x, ... (n_items = B H); an item's q, k
+// and v (qkv_map: boxes of DH columns and 16 NG rows; rows past L read as 0)
+// arrive by TMA in one of two buffers, the next item's while this one is
+// computed. Per 64-query tile: q's A fragments bf16(q scale2), the scores of
+// all keys in registers (NG m64n16 groups), the row max m over the keys <
+// L, p = bf16(exp2(s - m)) (MUFU.EX2) packed into the A fragments of P V,
+// l = the f32 sum of the rounded p, attn = bf16(P V / l) (quant_div, no
+// divide). Warps with no row < L skip the softmax work (they issue the
+// wgmma). With `stats`, each row's (m, l) to stats[((b H + h) L + i) 2 + {0,
+// 1}].
+template <int DH, int NG>
+__global__ void __launch_bounds__(128) wg_recompute_attention_fwd(
+    const __grid_constant__ CUtensorMap qkv_map, bf16* __restrict__ out, float* __restrict__ stats,
+    int L, int D, int H, int n_items, float scale2) {
+  constexpr int SPAN = DH * 2;
+  constexpr uint32_t SEC = 16 * NG * SPAN;         // one section's rows: q, k or v
+  constexpr uint32_t BUF = (3 * SEC + 1023) & ~1023u;  // the swizzle's 1 KB repeat
+  extern __shared__ unsigned char wa_raw[];
+  unsigned char* smem = wa_raw + ((1024 - (smem_u32(wa_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * BUF);
+  auto load = [&](int item, int buf) {  // one thread
+    const int b = item / H, h = item % H;
+    mbar_expect_tx(&full[buf], 3 * SEC);
+    for (int sec = 0; sec < 3; ++sec)  // q, k, v
+      tma_load_3d(smem + buf * BUF + sec * SEC, &qkv_map, &full[buf], sec * D + h * DH, 0, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_init_fence();
+    for (int u = 0; u < 2 && blockIdx.x + u * gridDim.x < n_items; ++u)
+      load(blockIdx.x + u * gridDim.x, u);
+  }
+  __syncthreads();
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  int u = 0;
+  for (int bh = blockIdx.x; bh < n_items; bh += gridDim.x, ++u) {
+    const int b = bh / H, h = bh % H;
+    const unsigned char* qs = smem + (u & 1) * BUF;
+    const uint32_t k_addr = smem_u32(qs + SEC), v_addr = smem_u32(qs + 2 * SEC);
+    bf16* o_base = out + (long long)b * L * D + h * DH + 2 * t;
+    float* st = stats ? stats + (long long)bh * L * 2 : nullptr;
+    mbar_wait(&full[u & 1], (u >> 1) & 1);
+    for (int q0 = 0; q0 < L; q0 += WG_T) {
+      const int r_lo = q0 + 16 * warp + g, r_hi = r_lo + 8;
+      const bool live = q0 + 16 * warp < L;  // the warp holds a row < L (warp-uniform)
+      uint32_t qa[DH / 16][4];
+      if (live) {
+        smem_frags<DH>(qa, qs, r_lo, t);
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[kk][i] = scale_pair(qa[kk][i], scale2);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[kk][i] = 0u;
+      }
+      float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+      float o[DH / 2];
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+      float s[NG][8];
+      times_rows_t<DH, NG>(s, qa, k_addr);
+      uint32_t pa[NG][4];
+      if (live) {
+        tile_max<NG>(s, 0, L, t, m_lo, m_hi);
+        m_lo = quad_max(m_lo);
+        m_hi = quad_max(m_hi);
+        tile_probs<NG>(s, pa, 0, L, t, m_lo, m_hi, l_lo, l_hi);
+      } else {
+#pragma unroll
+        for (int grp = 0; grp < NG; ++grp)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pa[grp][i] = 0u;
+      }
+      times_rows<DH, NG>(o, pa, v_addr);
+      if (live) {
+        l_lo = quad_sum(l_lo);
+        l_hi = quad_sum(l_hi);
+        const float y_lo = rcp_rn(l_lo), y_hi = rcp_rn(l_hi);
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j) {
+          if (r_lo < L)
+            *reinterpret_cast<uint32_t*>(o_base + (long long)r_lo * D + j * 8) =
+                pack_bf16x2(quant_div(o[4 * j], l_lo, y_lo), quant_div(o[4 * j + 1], l_lo, y_lo));
+          if (r_hi < L)
+            *reinterpret_cast<uint32_t*>(o_base + (long long)r_hi * D + j * 8) =
+                pack_bf16x2(quant_div(o[4 * j + 2], l_hi, y_hi),
+                            quant_div(o[4 * j + 3], l_hi, y_hi));
+        }
+        if (st && t == 0) {
+          if (r_lo < L) *reinterpret_cast<float2*>(st + 2 * r_lo) = make_float2(m_lo, l_lo);
+          if (r_hi < L) *reinterpret_cast<float2*>(st + 2 * r_hi) = make_float2(m_hi, l_hi);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with the buffer, which takes the item after next
+    if (threadIdx.x == 0 && bh + 2 * gridDim.x < n_items) load(bh + 2 * gridDim.x, u & 1);
+  }
+}
+
+// The f32 dot product of eight bf16 pairs in two 16-byte units
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const uint32_t* x = reinterpret_cast<const uint32_t*>(&a);
+  const uint32_t* y = reinterpret_cast<const uint32_t*>(&b);
+  float d = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x[i]));
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y[i]));
+    d += u.x * v.x + u.y * v.y;
+  }
+  return d;
+}
+
+// pbar = bf16(bf16(exp2(s - m)) / l) of a warp's 16 query rows over NG
+// groups of 16 keys from key0 on, from their scores (MUFU.EX2; the quotient IEEE's without
+// a divide, div_pair: cheaper here than mul_pair's product and its midpoint
+// test), 0 for keys >= L and rows >= L, written into the plane at its rows
+// r_lo, r_lo + 8 (key chunks chunk_bytes apart).
+template <int NG>
+__device__ __forceinline__ void tile_pbar(const float (*s)[8], unsigned char* pl,
+                                          uint32_t chunk_bytes, int r_lo, int key0, int L, int t,
+                                          float m_lo, float m_hi, float l_lo, float l_hi) {
+  const float y_lo = rcp_rn(l_lo), y_hi = rcp_rn(l_hi);
+  const bool in_lo = r_lo < L, in_hi = r_lo + 8 < L;
+#pragma unroll
+  for (int grp = 0; grp < NG; ++grp) {
+    const int left = L - key0 - 16 * grp;  // keys of the group below L
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool hi = i & 1, row_in = hi ? in_hi : in_lo;
+      const float m = hi ? m_hi : m_lo;
+      const int e = 2 * i;  // accumulators e, e + 1: keys 16 grp + 8 (i / 2) + 2t, + 1
+      const float p0 = row_in && (left >= 16 || key_in(e, t, left)) ? exp2_sfu(s[grp][e] - m) : 0.f;
+      const float p1 =
+          row_in && (left >= 16 || key_in(e + 1, t, left)) ? exp2_sfu(s[grp][e + 1] - m) : 0.f;
+      *reinterpret_cast<uint32_t*>(
+          pl + plane_off(r_lo + 8 * hi, key0 + 16 * grp + 8 * (i >> 1) + 2 * t, chunk_bytes)) =
+          div_pair(pack_bf16x2(p0, p1), hi ? l_hi : l_lo, hi ? y_hi : y_lo);
+    }
+  }
+}
+
+// The rows (keys) of Plane^T Rows for key chunks c0, c0 + step, ... < n_kc of
+// the plane (chunk_bytes apart from `plane`), one chunk at a time, read as
+// the MN-major A over N_K 16-query steps, Rows [queries][DH] the MN-major B:
+// dV (Rows dO) and dK (Rows Qs), scaled and stored at column offset `col` of
+// dqkv with their column sums (k_lo the thread's lo row in a chunk).
+template <int DH, int N_K>
+__device__ __forceinline__ void tile_t_rows_chunks(uint32_t plane, uint32_t chunk_bytes, int c0,
+                                                   int n_kc, int step, uint32_t rows,
+                                                   bf16* out_base, int k_lo, int L,
+                                                   long long row3, int col, float scale,
+                                                   float cs[DH / 8][2]) {
+  for (int c = c0; c < n_kc; c += step) {
+    float acc[DH / 2] = {};
+    wgmma_fence();
+    issue_tile_t_rows<DH>(acc, plane + c * chunk_bytes, rows, N_K);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<DH / 2>(acc);
+    const int r = 64 * c + k_lo;
+    store_rows<DH>(reinterpret_cast<float(*)[4]>(acc), scale, out_base, r, r + 8, L, row3, col,
+                   cs);
+  }
+}
+
+// K3-bwd's attention, one block of WGS warpgroups (rc_bwd_warpgroups) per
+// (frame b, head h) = blockIdx.x: the outputs of train_attention_bwd, with
+// pbar formed once in the kernel from the forward's row stats. q, k, v
+// (qkv_map) and dO (do_map, over dattn [B, L, D]) arrive by TMA in boxes of
+// DH columns and R = 16 NG rows (rows past L read as 0); q is scaled in
+// place, and the row terms dO_i . O_i are formed once (O read from attn [B,
+// L, D] in 16-byte units) and kept in shared memory. Then per 64-query tile
+// S = Qs K^T (one wgmma a 16-key group) and pbar = bf16(bf16(exp2(s - m)) /
+// l) into the plane [R queries][64-key chunks] (rows and keys >= L 0), and
+// K4's resident sequence on it: dV = pbar^T dO per key chunk (the plane as
+// an MN-major A); per query tile dP = dO V^T, dS = bf16(pbar (dP - row))
+// over pbar in the plane, dQ = dS K; dK = dS^T Qs per key chunk. Warpgroup
+// w takes key groups [w NG / WGS, (w + 1) NG / WGS) of every query tile, and
+// key chunks w, w + WGS, ... of dV and dK; the dQ partials of warpgroups 1..
+// meet warpgroup 0's through shared memory, added in that order. Writes the
+// head's dq, dk, dv columns of dqkv [B, L, 3D] and the frame's column sums
+// of the f32 gradients to part[b][3D].
+template <int DH, int NG>
+__global__ void __launch_bounds__(128 * rc_bwd_warpgroups(DH, NG), rc_bwd_min_blocks(DH, NG))
+    wg_recompute_attention_bwd(const __grid_constant__ CUtensorMap qkv_map,
+                               const __grid_constant__ CUtensorMap do_map,
+                               const bf16* __restrict__ attn, const float* __restrict__ stats,
+                               bf16* __restrict__ dqkv, float* __restrict__ part, int L, int D,
+                               int H, float scale2, float dq_scale, float dk_scale) {
+  constexpr int SPAN = DH * 2;
+  constexpr int R = 16 * NG;           // rows of q, k, v, dO and the plane
+  constexpr int N_KC = (R + 63) / 64;  // key chunks of the plane
+  constexpr uint32_t CHUNK = R * 128;  // a key chunk [R queries][64 keys]
+  constexpr int WGS = rc_bwd_warpgroups(DH, NG), NGW = NG / WGS, THREADS_ = 128 * WGS;
+  static_assert(NG % WGS == 0, "the key groups split evenly over the warpgroups");
+  extern __shared__ unsigned char wa_raw[];
+  unsigned char* smem = wa_raw + ((1024 - (smem_u32(wa_raw) & 1023)) & 1023);
+  unsigned char* qs = smem;
+  unsigned char* ks = qs + R * SPAN;
+  unsigned char* vs = ks + R * SPAN;
+  unsigned char* dos = vs + R * SPAN;
+  unsigned char* pl = dos + R * SPAN;
+  float* red = reinterpret_cast<float*>(pl + N_KC * CHUNK);  // [4 WGS warps][3][DH]
+  float* row_s = red + 4 * WGS * 3 * DH;                     // dO_i . O_i
+  float* dq_part = row_s + R;  // [WGS - 1][DH / 2][128]: a thread's accumulators, i-major
+  uint64_t* bar = reinterpret_cast<uint64_t*>(dq_part + (WGS - 1) * WG_T * DH);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init_fence();
+    mbar_expect_tx(&bar[0], 4 * R * SPAN);
+    tma_load_3d(qs, &qkv_map, &bar[0], h * DH, 0, b);
+    tma_load_3d(ks, &qkv_map, &bar[0], D + h * DH, 0, b);
+    tma_load_3d(vs, &qkv_map, &bar[0], 2 * D + h * DH, 0, b);
+    tma_load_3d(dos, &do_map, &bar[0], h * DH, 0, b);
+  }
+  __syncthreads();
+  const int wid = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+  const int wg = WGS > 1 ? wid >> 2 : 0, warp = wid & 3;  // the warpgroup, the warp in it
+  const int g = lane >> 2, t = lane & 3, tid = threadIdx.x & 127;
+  const int key0 = 16 * NGW * wg;  // the warpgroup's first key
+  const long long row3 = 3LL * D;
+  const bf16* o_head = attn + (long long)b * L * D + h * DH;
+  const float* st = stats + (long long)bh * L * 2;
+  bf16* out_base = dqkv + (long long)b * L * row3 + h * DH + 2 * t;
+  const uint32_t qs_a = smem_u32(qs), ks_a = smem_u32(ks), vs_a = smem_u32(vs);
+  const uint32_t dos_a = smem_u32(dos), pl_a = smem_u32(pl);
+  mbar_wait(&bar[0], 0);
+  for (int i = threadIdx.x; i < R * DH / 8; i += THREADS_) {  // q -> bf16(q scale2)
+    uint4* p = reinterpret_cast<uint4*>(qs) + i;
+    uint4 v = *p;
+    v.x = scale_pair(v.x, scale2);
+    v.y = scale_pair(v.y, scale2);
+    v.z = scale_pair(v.z, scale2);
+    v.w = scale_pair(v.w, scale2);
+    *p = v;
+  }
+  for (int r = threadIdx.x; r < R; r += THREADS_) {  // the row terms, O in 16-byte units
+    float d = 0.f;
+    if (r < L)
+#pragma unroll
+      for (int u = 0; u < DH / 8; ++u) {
+        uint32_t off = (uint32_t)(r * SPAN + 16 * u);
+        off ^= ((off >> 7) & (SPAN / 16 - 1)) << 4;  // dO's unit, swizzled as TMA wrote it
+        d += dot8(*reinterpret_cast<const uint4*>(dos + off),
+                  *reinterpret_cast<const uint4*>(o_head + (long long)r * D + 8 * u));
+      }
+    row_s[r] = d;
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  // pbar into the plane, per query tile over the plane's R rows: warps with
+  // a row < L from the scores of the warpgroup's keys, the plane's other rows
+  // 0
+  for (int q0 = 0; q0 < R; q0 += WG_T) {
+    const int r_lo = q0 + 16 * warp + g;
+    const bool live = q0 + 16 * warp < L;
+    // the rows' (m, l), loaded while the scores are formed
+    const float2 lo = live && r_lo < L ? *reinterpret_cast<const float2*>(st + 2 * r_lo)
+                                       : make_float2(0.f, 1.f);
+    const float2 hi = live && r_lo + 8 < L ? *reinterpret_cast<const float2*>(st + 2 * (r_lo + 8))
+                                           : make_float2(0.f, 1.f);
+    float s[NGW][8];
+    if (q0 < L) {  // block-uniform
+      uint32_t qa[DH / 16][4];
+      if (live) {
+        smem_frags<DH>(qa, qs, r_lo, t);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[kk][i] = 0u;
+      }
+      times_rows_t_wide<DH, NGW>(s, qa, ks_a + key0 * SPAN);
+    }
+    if (live) {
+      tile_pbar<NGW>(s, pl, CHUNK, r_lo, key0, L, t, lo.x, hi.x, lo.y, hi.y);
+    } else if (q0 + 16 * warp < R) {
+#pragma unroll
+      for (int c = 0; c < 16 * NGW; c += 8)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<uint32_t*>(pl + plane_off(r_lo + 8 * i, key0 + c + 2 * t, CHUNK)) = 0u;
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();  // the pbar plane is whole
+
+  constexpr int N_K = R / 16;  // 16-query steps of the dV and dK products
+  {  // dV = pbar^T dO
+    float cs[DH / 8][2] = {};
+    tile_t_rows_chunks<DH, N_K>(pl_a, CHUNK, wg, N_KC, WGS, dos_a, out_base, 16 * warp + g, L,
+                                row3, 2 * D, 1.f, cs);
+    park_column_sums<DH>(cs, red, 2);
+  }
+  __syncthreads();  // every warp's dV products have read pbar: dS may replace it
+  {  // per query tile: dP, dS over pbar, dQ
+    float cs[DH / 8][2] = {};
+    for (int q0 = 0; q0 < L; q0 += WG_T) {
+      const int r_lo = q0 + 16 * warp + g, r_hi = r_lo + 8;
+      const bool live = q0 + 16 * warp < L;
+      uint32_t da[DH / 16][4];
+      if (live) {
+        smem_frags<DH>(da, dos, r_lo, t);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) da[kk][i] = 0u;
+      }
+      const float d_lo = live ? row_s[r_lo] : 0.f, d_hi = live ? row_s[r_hi] : 0.f;
+      float dp[NGW][8];
+      times_rows_t_wide<DH, NGW>(dp, da, vs_a + key0 * SPAN);
+      uint32_t dsa[NGW][4];
+      tile_ds<NGW>(dp, dsa, pl, pl, CHUNK, r_lo, key0, key0, L, d_lo, d_hi, t, live, false);
+      float acc[DH / 2] = {};
+      times_rows<DH, NGW>(acc, dsa, ks_a + key0 * SPAN);
+      if constexpr (WGS > 1) {  // the partials meet warpgroup 0's, added in order
+        if (wg > 0)
+#pragma unroll
+          for (int i = 0; i < DH / 2; ++i) dq_part[((wg - 1) * (DH / 2) + i) * 128 + tid] = acc[i];
+        named_bar_sync(1, THREADS_);
+        if (wg == 0)
+#pragma unroll
+          for (int w = 0; w < WGS - 1; ++w)
+#pragma unroll
+            for (int i = 0; i < DH / 2; ++i) acc[i] += dq_part[(w * (DH / 2) + i) * 128 + tid];
+        named_bar_sync(2, THREADS_);  // the partials are read: the next tile's may follow
+      }
+      if (wg == 0)
+        store_rows<DH>(reinterpret_cast<float(*)[4]>(acc), dq_scale, out_base, r_lo, r_hi, L,
+                       row3, 0, cs);
+    }
+    park_column_sums<DH>(cs, red, 0);
+  }
+  fence_proxy_async();
+  __syncthreads();  // dS is whole in the plane
+  {  // dK = dS^T Qs
+    float cs[DH / 8][2] = {};
+    tile_t_rows_chunks<DH, N_K>(pl_a, CHUNK, wg, N_KC, WGS, qs_a, out_base, 16 * warp + g, L,
+                                row3, D, dk_scale, cs);
+    park_column_sums<DH>(cs, red, 1);
+  }
+  store_column_sums<DH, 4 * WGS>(red, part + (long long)b * row3 + h * DH, D);
+}
+
+// ---------------------------------------------------------------------------
 // LN2 backward and the fixed-order column reductions
 // ---------------------------------------------------------------------------
 
@@ -2201,10 +2693,82 @@ cudaError_t wg_bwd(const Shape& s, const bf16* qkv, const bf16* attn, const bf16
   });
 }
 
-// The attention forward: K4's (given `pbar`) or K3's (train_attention_fwd).
+// f(std::integral_constant<int, NG>{}) at K3's wgmma passes' groups for L
+template <class F>
+cudaError_t with_rc_groups(int L, F f) {
+  switch (recompute_groups(L)) {
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    default: return f(std::integral_constant<int, 9>{});
+  }
+}
+
+template <int DH, int NG>
+cudaError_t launch_rc_fwd(const Shape& s, const CUtensorMap& qm, bf16* out, float* stats,
+                          cudaStream_t st) {
+  const size_t smem = rc_fwd_smem_bytes(s.L, DH);
+  VITIQ_TRY(allow_smem(wg_recompute_attention_fwd<DH, NG>, smem));
+  static int per_sm = 0;  // the blocks an SM holds (the persistent grid), asked once
+  if (!per_sm)
+    VITIQ_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, wg_recompute_attention_fwd<DH, NG>, 128, smem));
+  const int n_items = s.B * s.H;
+  const int grid = std::max(1, std::min(n_items, per_sm * sm_count()));
+  wg_recompute_attention_fwd<DH, NG><<<grid, 128, smem, st>>>(qm, out, stats, s.L, s.D, s.H,
+                                                              n_items, scale2_of(s));
+  return cudaGetLastError();
+}
+
+// K3's attention forward on wgmma (wg_recompute_attention_fwd): attn and,
+// given `stats`, the row stats [B, H, L, 2].
+cudaError_t rc_fwd(const Shape& s, const bf16* qkv, bf16* out, float* stats, cudaStream_t st) {
+  CUtensorMap qm;
+  if (!head_map(&qm, qkv, 3 * s.D, s.L, s.B, s.dh(), 16 * recompute_groups(s.L)))
+    return cudaErrorInvalidValue;
+  return with_dh(s.dh(), [&](auto c) {
+    return with_rc_groups(s.L, [&](auto n) {
+      constexpr int DH = decltype(c)::value, NG = decltype(n)::value;
+      if constexpr (rc_fwd_built(DH, NG))
+        return launch_rc_fwd<DH, NG>(s, qm, out, stats, st);
+      else
+        return cudaErrorInvalidValue;  // routed to train_attention_fwd
+    });
+  });
+}
+
+// K3's attention backward on wgmma (wg_recompute_attention_bwd): dqkv and
+// the per-frame column sums part [B, 3D] from qkv, attn, dattn and the row
+// stats.
+cudaError_t rc_bwd(const Shape& s, const bf16* qkv, const bf16* attn, const bf16* dattn,
+                   const float* stats, bf16* dqkv, float* part, cudaStream_t st) {
+  const int rows = 16 * recompute_groups(s.L);
+  CUtensorMap qm, dm;
+  if (!head_map(&qm, qkv, 3 * s.D, s.L, s.B, s.dh(), rows) ||
+      !head_map(&dm, dattn, s.D, s.L, s.B, s.dh(), rows))
+    return cudaErrorInvalidValue;
+  const double scale2 = 1.4426950408889634 / sqrt((double)s.dh()), ln2 = 0.6931471805599453;
+  return with_dh(s.dh(), [&](auto c) {
+    return with_rc_groups(s.L, [&](auto n) {
+      constexpr int DH = decltype(c)::value, NG = decltype(n)::value;
+      const size_t smem = rc_bwd_smem_bytes(s.L, DH);
+      VITIQ_TRY(allow_smem(wg_recompute_attention_bwd<DH, NG>, smem));
+      wg_recompute_attention_bwd<DH, NG>
+          <<<(unsigned)(s.B * s.H), 128 * rc_bwd_warpgroups(DH, NG), smem, st>>>(
+          qm, dm, attn, stats, dqkv, part, s.L, s.D, s.H, (float)scale2, (float)(ln2 * scale2),
+          (float)ln2);
+      return cudaGetLastError();
+    });
+  });
+}
+
+// The attention forward, routed by shape: K4's (given `pbar`); K3's on
+// wgmma where recompute_fwd_wgmma holds; else K3's mma.sync pass
+// (train_attention_fwd: round16(L) > 144, or d_head 16 past 80 keys).
 cudaError_t attention_fwd(const Shape& s, const bf16* qkv, bf16* out, float* stats, bf16* pbar,
                           cudaStream_t st) {
   if (pbar) return wg_fwd(s, qkv, out, pbar, st);
+  if (recompute_fwd_wgmma(s.L, s.dh())) return rc_fwd(s, qkv, out, stats, st);
   const float sc = scale2_of(s);
   return with_dh(s.dh(), [&](auto c) {
     constexpr int DH = decltype(c)::value;
@@ -2213,12 +2777,14 @@ cudaError_t attention_fwd(const Shape& s, const bf16* qkv, bf16* out, float* sta
   });
 }
 
-// K3's attention backward (row stats from the recompute) or, given `pbar`,
-// K4's (the stashed probabilities).
+// The attention backward, routed by shape: K4's, given `pbar` (the stashed
+// probabilities); else K3's (row stats from the recompute), on wgmma where
+// round16(L) <= 144, else the mma.sync pass (train_attention_bwd).
 cudaError_t attention_bwd(const Shape& s, const bf16* qkv, const bf16* attn, const bf16* dattn,
                           const float* stats, const bf16* pbar, bf16* dqkv, float* part,
                           cudaStream_t st) {
   if (pbar) return wg_bwd(s, qkv, attn, dattn, pbar, dqkv, part, st);
+  if (recompute_wgmma(s.L)) return rc_bwd(s, qkv, attn, dattn, stats, dqkv, part, st);
   const double scale2 = 1.4426950408889634 / sqrt((double)s.dh());
   const double ln2 = 0.6931471805599453;
   const float sc = (float)scale2, dq = (float)(ln2 * scale2), dk = (float)ln2;
@@ -2645,6 +3211,65 @@ extern "C" int vitiq_train_attention_bwd_stash(const void* qkv, const void* attn
                      static_cast<const bf16*>(dattn), static_cast<const bf16*>(pbar),
                      static_cast<bf16*>(dqkv), static_cast<float*>(part),
                      static_cast<cudaStream_t>(stream_ptr));
+}
+
+// K3's attention forward pass alone, routed by shape as K3-fwd routes it
+// (wg_recompute_attention_fwd where round16(L) <= 144, else
+// train_attention_fwd): qkv [B, L, 3D] bf16 (q unscaled) -> attn [B, L, D]
+// bf16 and stats [B, H, L, 2] f32, each query row's max score (log2 units)
+// and sum of its bf16 probabilities. Returns the launch's error, or
+// cudaErrorInvalidValue at a shape K3 does not take.
+extern "C" int vitiq_train_attention_fwd_recompute(const void* qkv, void* attn, void* stats, int B,
+                                                   int L, int D, int H, void* stream_ptr) {
+  const Shape s{B, L, D, H, FFN_MULTIPLE};
+  if (!shapes_ok(s)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = attention_fwd(s, static_cast<const bf16*>(qkv), static_cast<bf16*>(attn),
+                                        static_cast<float*>(stats), nullptr,
+                                        static_cast<cudaStream_t>(stream_ptr));
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// K3's attention backward pass alone, routed as K3-bwd routes it
+// (wg_recompute_attention_bwd, else train_attention_bwd): from qkv, attn,
+// dattn [B, L, D] bf16 and the forward's stats, dqkv [B, L, 3D] bf16 and
+// part [B, 3D] f32, each frame's column sums of the f32 dq, dk, dv.
+extern "C" int vitiq_train_attention_bwd_recompute(const void* qkv, const void* attn,
+                                                   const void* dattn, const void* stats,
+                                                   void* dqkv, void* part, int B, int L, int D,
+                                                   int H, void* stream_ptr) {
+  const Shape s{B, L, D, H, FFN_MULTIPLE};
+  if (!shapes_ok(s)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      attention_bwd(s, static_cast<const bf16*>(qkv), static_cast<const bf16*>(attn),
+                    static_cast<const bf16*>(dattn), static_cast<const float*>(stats), nullptr,
+                    static_cast<bf16*>(dqkv), static_cast<float*>(part),
+                    static_cast<cudaStream_t>(stream_ptr));
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// Blocks an SM of K3's wgmma attention passes at this shape (the occupancy
+// calculator, with their shared memory): blocks[0] the forward's, blocks[1]
+// the backward's; 0 for a pass the shape routes to mma.sync.
+extern "C" int vitiq_train_attention_recompute_blocks(int L, int D, int H, int* blocks) {
+  const Shape s{1, L, D, H, FFN_MULTIPLE};
+  if (!shapes_ok(s)) return (int)cudaErrorInvalidValue;
+  blocks[0] = blocks[1] = 0;
+  if (!recompute_wgmma(L)) return (int)cudaSuccess;
+  return (int)with_dh(s.dh(), [&](auto c) {
+    return with_rc_groups(L, [&](auto n) {
+      constexpr int DH = decltype(c)::value, NG = decltype(n)::value;
+      if constexpr (rc_fwd_built(DH, NG)) {
+        const size_t fs = rc_fwd_smem_bytes(L, DH);
+        VITIQ_TRY(allow_smem(wg_recompute_attention_fwd<DH, NG>, fs));
+        VITIQ_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks[0], wg_recompute_attention_fwd<DH, NG>, 128, fs));
+      }
+      const size_t bs = rc_bwd_smem_bytes(L, DH);
+      VITIQ_TRY(allow_smem(wg_recompute_attention_bwd<DH, NG>, bs));
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks[1], wg_recompute_attention_bwd<DH, NG>, 128 * rc_bwd_warpgroups(DH, NG), bs);
+    });
+  });
 }
 
 // One GEMM stage of K3/K4 alone (train_gemm_kernel), to hold it to its plain

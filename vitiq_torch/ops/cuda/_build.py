@@ -69,6 +69,12 @@ SIGNATURES = {
     "vitiq_train_attention_fwd_stash": ([_P] * 3 + [_I] * 4 + [_P], _I),
     # qkv, attn, dattn, pbar, dqkv, part; B, L, D, H; stream
     "vitiq_train_attention_bwd_stash": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    # K3's attention passes alone. qkv, attn, stats; B, L, D, H; stream
+    "vitiq_train_attention_fwd_recompute": ([_P] * 3 + [_I] * 4 + [_P], _I),
+    # qkv, attn, dattn, stats, dqkv, part; B, L, D, H; stream
+    "vitiq_train_attention_bwd_recompute": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    # L, D, H, int[2] out (blocks an SM of the forward and the backward)
+    "vitiq_train_attention_recompute_blocks": ([_I] * 3 + [_P], _I),
     "vitiq_train_layer_fwd_workspace": ([_I] * 5, ctypes.c_size_t),
     "vitiq_train_layer_bwd_workspace": ([_I] * 5, ctypes.c_size_t),
     "vitiq_train_layer_fwd_stash_workspace": ([_I] * 5, ctypes.c_size_t),

@@ -43,7 +43,13 @@ instance each stage of a shape takes and its shared-memory ring. K4's two
 attention passes run alone through `stash_attention_fwd` and
 `stash_attention_bwd` (plain versions `stash_attention_fwd_plain`,
 `stash_attention_bwd_plain`); `stash_tile_plan` and the `*_smem_bytes`
-functions mirror their tiles and shared memory.
+functions mirror their tiles and shared memory. K3's two attention passes
+run alone through `recompute_attention_fwd` (attn and each query row's
+max and sum, the stats K3-bwd's recompute keeps) and
+`recompute_attention_bwd` (plain versions `recompute_attention_fwd_plain`,
+`recompute_attention_bwd_plain`), routed by shape as K3 routes them
+(`recompute_tile_plan`: the wgmma passes where round16(L) <= 144, but the
+mma.sync forward at d_head 16 past 80 keys; the mma.sync passes past 144).
 
 Each wrapper launches its kernel on a CUDA tensor (raising on any build,
 launch or shape error) and runs its plain version on a CPU tensor.
@@ -78,7 +84,8 @@ launches = {"fused_train_layer_fwd": 0, "fused_train_layer_bwd": 0,
 # one GEMM stage called alone (`train_gemm`) and K4's attention passes
 # called alone: the checks' entries, not the training path's
 stage_launches = {"train_gemm": 0}
-pass_launches = {"stash_attention_fwd": 0, "stash_attention_bwd": 0}
+pass_launches = {"stash_attention_fwd": 0, "stash_attention_bwd": 0,
+                 "recompute_attention_fwd": 0, "recompute_attention_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -149,6 +156,52 @@ def stash_attention_bwd_smem_bytes(L: int, d_head: int) -> int:
     r = plan["bwd_rows"]
     plane = -(-r // 64) * r * 128 if plan["bwd_resident"] else 2 * PLANE_CHUNK
     return 1024 + 4 * r * d_head * 2 + plane + 4 * 3 * d_head * 4 + 16
+
+
+# K3's attention passes on wgmma (the .cu's wg_recompute_attention_fwd,
+# wg_recompute_attention_bwd) and the shapes they take
+RECOMPUTE_ROWS = 144  # they hold round16(L) <= 144 keys; longer L keeps mma.sync
+
+
+def recompute_tile_plan(L: int, d_head: int) -> dict:
+    """The tiles and route of K3's attention passes at L tokens and d_head
+    (`recompute_wgmma`, `recompute_groups`, `recompute_fwd_wgmma` in the
+    .cu): bwd_wgmma, whether the backward runs on wgmma (round16(L) <= 144;
+    else the mma.sync pass train_attention_bwd); fwd_wgmma, whether the
+    forward does (the same, but at d_head 16 past 80 keys, where the mma.sync
+    train_attention_fwd measured faster); groups, the 16-key groups of a
+    64-query tile's scores, all kept in registers (the least of 2, 4, 5, 9
+    that covers round16(L)); rows, 16 groups: the q, k, v (and dO) rows each
+    pass loads and the backward's pbar plane rows; bwd_warpgroups, the
+    backward's warpgroups a block (`rc_bwd_warpgroups`: 3 at 9 groups past
+    d_head 16, each taking 3 of a query tile's key groups, else 1)."""
+    r16 = _round_up(L, 16)
+    wgmma = r16 <= RECOMPUTE_ROWS
+    groups = next(g for g in (2, 4, 5, 9) if r16 <= 16 * g) if wgmma else 0
+    return dict(bwd_wgmma=wgmma, fwd_wgmma=wgmma and not (d_head == 16 and groups == 9),
+                groups=groups, rows=16 * groups,
+                bwd_warpgroups=3 if groups == 9 and d_head > 16 else 1)
+
+
+def recompute_attention_fwd_smem_bytes(L: int, d_head: int) -> int:
+    """Shared memory of K3's wgmma forward block (`rc_fwd_smem_bytes`): 1 KB
+    of alignment, two buffers of q, k and v rows [rows][d_head] bf16 (each
+    rounded up to 1 KB), two mbarriers."""
+    rows = recompute_tile_plan(L, d_head)["rows"]
+    return 1024 + 2 * _round_up(3 * rows * d_head * 2, 1024) + 16
+
+
+def recompute_attention_bwd_smem_bytes(L: int, d_head: int) -> int:
+    """Shared memory of K3's wgmma backward block (`rc_bwd_smem_bytes`): 1 KB
+    of alignment, q, k, v and dO rows [rows][d_head] bf16, the pbar plane
+    (ceil(rows / 64) key chunks [rows][64] bf16, overwritten by dS), the
+    column-sum scratch [4 warpgroups' warps][3][d_head], the row terms [rows]
+    and the dQ partials of the warpgroups past the first [64][d_head] (f32),
+    an mbarrier."""
+    plan = recompute_tile_plan(L, d_head)
+    rows, wgs = plan["rows"], plan["bwd_warpgroups"]
+    return (1024 + 4 * rows * d_head * 2 + -(-rows // 64) * rows * 128
+            + 4 * wgs * 3 * d_head * 4 + rows * 4 + (wgs - 1) * WG_TILE * d_head * 4 + 16)
 
 
 def fused_train_supported(L: int, D: int, ffn_hidden: int, n_head: int) -> bool:
@@ -476,6 +529,46 @@ def stash_attention_bwd_plain(qkv: torch.Tensor, attn: torch.Tensor, dattn: torc
     with torch.no_grad():
         dqkv = _attention_bwd_plain(dattn, _stash_attention_inputs(qkv, attn, pbar, n_head),
                                     n_head)
+        return dqkv.to(dattn.dtype), dqkv.sum(dim=1)
+
+
+def recompute_attention_fwd_plain(qkv: torch.Tensor, n_head: int
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3's attention forward pass (`recompute_attention_fwd`):
+    qkv [B, L, 3D] (q unscaled) -> (attn [B, L, D] in qkv's dtype, stats [B,
+    H, L, 2] f32: each query row's max score m, log2 units, and l, the f32
+    sum of its rounded probabilities); the pieces of
+    `fused_train_layer_reference`, m the max it subtracts."""
+    a = _attention_plain(qkv, n_head)
+    m = (a["qs"] @ a["k"].transpose(-1, -2)).amax(dim=-1)
+    return a["attn_flat"], torch.stack([m, a["den"][..., 0]], dim=-1)
+
+
+def _recompute_attention_inputs(qkv: torch.Tensor, attn: torch.Tensor, stats: torch.Tensor,
+                                n_head: int) -> dict:
+    """What K3's attention backward reads, per head and in f32: the scaled q,
+    k, v from qkv, attn, and pbar = bf16(bf16(exp2(s - m)) / l) formed again
+    from the scores and the forward's stats (m, l)."""
+    dt = qkv.dtype
+    D = qkv.shape[-1] // 3
+    q, k, v = (_heads(t, n_head) for t in qkv.split(D, dim=-1))
+    qs = (q * (_LOG2E / math.sqrt(D // n_head))).to(dt).float()
+    p = torch.exp2(qs @ k.transpose(-1, -2) - stats[..., :1]).to(dt).float()
+    return dict(qs=qs, k=k, v=v, pbar=(p / stats[..., 1:]).to(dt).float(),
+                attn=_heads(attn, n_head))
+
+
+def recompute_attention_bwd_plain(qkv: torch.Tensor, attn: torch.Tensor, dattn: torch.Tensor,
+                                  stats: torch.Tensor, n_head: int
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3's attention backward pass (`recompute_attention_bwd`):
+    from qkv [B, L, 3D], attn and dattn [B, L, D] and the forward's stats [B,
+    H, L, 2], (dqkv [B, L, 3D] in dattn's dtype, each frame's column sums of
+    the f32 dqkv [B, 3D]); the attention backward of
+    `fused_train_layer_backward_reference`."""
+    with torch.no_grad():
+        dqkv = _attention_bwd_plain(
+            dattn, _recompute_attention_inputs(qkv, attn, stats, n_head), n_head)
         return dqkv.to(dattn.dtype), dqkv.sum(dim=1)
 
 
@@ -877,10 +970,11 @@ def stash_shapes(x: torch.Tensor, n_head: int):
             ((B, L), torch.float32), ((B, n_head, L, stash_cols(L)), dt)]
 
 
-def _check_pass(qkv: torch.Tensor, n_head: int, *acts: torch.Tensor) -> Tuple[int, int, int]:
-    """Validate what K4's attention passes take: contiguous bf16 qkv [B, L,
-    3D] on a CUDA device at a shape K4 takes, and activations [B, L, D] like
-    it; returns (B, L, D)."""
+def _check_pass(qkv: torch.Tensor, n_head: int, *acts: torch.Tensor,
+                kernel: str = "K4") -> Tuple[int, int, int]:
+    """Validate what K4's (or K3's) attention passes take: contiguous bf16
+    qkv [B, L, 3D] on a CUDA device at a shape that kernel takes, and
+    activations [B, L, D] like it; returns (B, L, D)."""
     if qkv.device.type != "cuda":
         raise ValueError(f"the CUDA kernels need a CUDA tensor, got {qkv.device}")
     if qkv.dim() != 3 or qkv.shape[-1] % 3 or qkv.dtype != torch.bfloat16:
@@ -888,13 +982,17 @@ def _check_pass(qkv: torch.Tensor, n_head: int, *acts: torch.Tensor) -> Tuple[in
                          f"{tuple(qkv.shape)}")
     B, L, D3 = qkv.shape
     D = D3 // 3
-    if B == 0 or not fused_train_stash_supported(L, D, FFN_MULTIPLE, n_head):
+    if kernel == "K4" and (B == 0 or not fused_train_stash_supported(L, D, FFN_MULTIPLE, n_head)):
         raise ValueError(f"K4's attention takes the shapes of K4 (d_model in {SUPPORTED_D_MODEL}, "
                          f"d_head in {SUPPORTED_D_HEAD}, L inside the stash gate); got B={B}, "
                          f"L={L}, d_model={D}, n_head={n_head}")
+    if kernel == "K3" and (B == 0 or not fused_train_supported(L, D, FFN_MULTIPLE, n_head)):
+        raise ValueError(f"K3's attention takes the shapes of K3 (d_model in {SUPPORTED_D_MODEL}, "
+                         f"d_head in {SUPPORTED_D_HEAD}, L within shared memory); got B={B}, "
+                         f"L={L}, d_model={D}, n_head={n_head}")
     for t in (qkv, *acts):
         if not t.is_contiguous() or t.dtype != torch.bfloat16 or t.device != qkv.device:
-            raise ValueError("K4's attention takes contiguous bf16 tensors on one device")
+            raise ValueError(f"{kernel}'s attention takes contiguous bf16 tensors on one device")
     for t in acts:
         if tuple(t.shape) != (B, L, D):
             raise ValueError(f"want [B, L, D] = {(B, L, D)}, got {tuple(t.shape)}")
@@ -935,6 +1033,60 @@ def stash_attention_bwd(qkv: torch.Tensor, attn: torch.Tensor, dattn: torch.Tens
                 n_head)
     pass_launches["stash_attention_bwd"] += 1
     return dqkv, part
+
+
+def recompute_attention_fwd(qkv: torch.Tensor, n_head: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's attention forward pass alone (C entry
+    `vitiq_train_attention_fwd_recompute`, routed by shape as K3 routes it:
+    `recompute_tile_plan`): qkv [B, L, 3D] bf16 -> (attn [B, L, D], stats [B,
+    H, L, 2] f32), as `recompute_attention_fwd_plain`; the plain version for a
+    CPU tensor."""
+    if qkv.device.type == "cpu":
+        return recompute_attention_fwd_plain(qkv, n_head)
+    B, L, D = _check_pass(qkv, n_head, kernel="K3")
+    attn = torch.empty((B, L, D), dtype=qkv.dtype, device=qkv.device)
+    stats = torch.empty((B, n_head, L, 2), dtype=torch.float32, device=qkv.device)
+    _build.call("vitiq_train_attention_fwd_recompute", qkv.device, qkv.data_ptr(),
+                attn.data_ptr(), stats.data_ptr(), B, L, D, n_head)
+    pass_launches["recompute_attention_fwd"] += 1
+    return attn, stats
+
+
+def recompute_attention_bwd(qkv: torch.Tensor, attn: torch.Tensor, dattn: torch.Tensor,
+                            stats: torch.Tensor, n_head: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's attention backward pass alone (C entry
+    `vitiq_train_attention_bwd_recompute`, routed as K3 routes it): (dqkv [B,
+    L, 3D] bf16, each frame's column sums of the f32 dqkv [B, 3D]), as
+    `recompute_attention_bwd_plain`; the plain version for a CPU tensor."""
+    if qkv.device.type == "cpu":
+        return recompute_attention_bwd_plain(qkv, attn, dattn, stats, n_head)
+    B, L, D = _check_pass(qkv, n_head, attn, dattn, kernel="K3")
+    if (tuple(stats.shape) != (B, n_head, L, 2) or stats.dtype != torch.float32
+            or stats.device != qkv.device or not stats.is_contiguous()):
+        raise ValueError(f"stats: want contiguous f32 {(B, n_head, L, 2)}, got {stats.dtype} "
+                         f"{tuple(stats.shape)}")
+    dqkv = torch.empty_like(qkv)
+    part = torch.empty((B, 3 * D), dtype=torch.float32, device=qkv.device)
+    _build.call("vitiq_train_attention_bwd_recompute", qkv.device, qkv.data_ptr(),
+                attn.data_ptr(), dattn.data_ptr(), stats.data_ptr(), dqkv.data_ptr(),
+                part.data_ptr(), B, L, D, n_head)
+    pass_launches["recompute_attention_bwd"] += 1
+    return dqkv, part
+
+
+def recompute_blocks_per_sm(L: int, D: int, n_head: int) -> Tuple[int, int]:
+    """Blocks an SM of K3's wgmma forward and backward passes at this shape
+    (the CUDA occupancy calculator; 0 for a pass the shape routes to
+    mma.sync). Needs CUDA."""
+    import ctypes
+
+    lib = _build.library()
+    out = (ctypes.c_int * 2)()
+    err = lib.vitiq_train_attention_recompute_blocks(L, D, n_head, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"vitiq_train_attention_recompute_blocks failed: CUDA error {err} "
+                           f"({lib.vitiq_error_string(err).decode()})")
+    return out[0], out[1]
 
 
 def fused_train_layer_fwd_stash(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
