@@ -13,14 +13,20 @@ which raises (exit code 1) on failure:
    (`fa.ring_info`) are printed. Every instance of K6's s8 GEMM stage
    (gemm_s8_kernel, `k6.S8_INSTANCES`) must be in the build, must not spill
    and must run IGMMA (the integer warpgroup MMA; HGMMA is the bf16 one) and
-   no HGMMA.
+   no HGMMA. Every instance of K7's int8 attention core
+   (attention_int8_kernel, d_head 16/32/64 with and without its DUMP
+   variant) must run IGMMA and not spill, and every instance of K2's pooling
+   kernel (cls_pool_kernel, d_model 64/128/256) HMMA (mma.sync) without a
+   spill (`check_k2k7_build`).
 3. kernels: K1 (full fused layers) and K2 (the CLS-row layer) on the GPU
    against their plain PyTorch version on the GPU, on the same bf16 inputs
    and seeded random weights, at the ViT flagship (L=129, F=512, B=256),
    rawIQ flagship (L=65, F=1024, B=256) and conv1d flagship (L=1025,
    F=1024, B=64) shapes, D=128, H=8: each of five K1 layers and the K2 layer
    on the plain version's input to it (|kernel - plain| <= 3e-2 + 1.6e-2 *
-   |plain|), and the five K1 layers as one stack (6e-2 + 3.2e-2 * |plain|);
+   |plain|; K2 also against its own plain version, which rounds qt and the
+   pooled tokens where the kernel does), and the five K1 layers as one stack
+   (6e-2 + 3.2e-2 * |plain|);
    see LAYER_TOL and STACK_TOL; then the same at the widths past d_model 128
    / d_head 32 (WIDE_SHAPES: rawiq_best's D=256, H=8, L=65, F=1024;
    vit_tiny_2016's D=64, H=4, L=17; d_head 64 at D=128, H=2, L=129; B=256).
@@ -36,6 +42,10 @@ which raises (exit code 1) on failure:
    (`fa.attention_onepass_plain`: GRAD_REL, K5_LSE_ATOL); q, k, v as column
    slices of qkv and as contiguous copies give the same bits, and so do 30
    repeated launches of each.
+   cls-pool: K2's pooling kernel alone (`fel.cls_pool`) on the qt K2's
+   stages give, at the flagship and wide shapes and d_model 256 at d_head
+   16 (B=256, conv1d B=64), against `fel.cls_pool_reference`: GRAD_REL in
+   the L2 norm and LAYER_TOL, 30 launches the same bits.
    k1-parts: K1's kernels one by one at the same shapes (B=256, conv1d
    B=64): its four wgmma GEMM stages (QKV, out-projection + LN1, FFN1 +
    ReLU, FFN2 + LN2), each on the plain version's input to it, within one
@@ -68,7 +78,8 @@ which raises (exit code 1) on failure:
    input, which the layer check must turn away; its core alone on one qkv,
    whose s32 scores and s32 P [v | 1] tile products (on its own int8
    probabilities) must equal the plain version's bit for bit, its
-   probabilities and outputs differing in fewer than K7_CORE_DIFFER of them.
+   probabilities and outputs differing in fewer than K7_CORE_DIFFER of them,
+   and 30 launches without the dump giving its outputs' bits.
 4. serve: the ViT flagship (d128/L6/H8, bf16 `tpu` numerics, seeded random
    weights) answers ragged requests of 1, 37, 256 and 1000 raw [B, 1024, 2]
    frames through `Server` with buckets (256, 1024). Every launch counter is
@@ -205,10 +216,15 @@ which raises (exit code 1) on failure:
    kernels and through the plain layer loop, and at B=4096 (ViT, rawIQ)
    through the int8 path; K7 per layer at B=4096 (ViT, rawIQ, rawiq_best)
    and B=256 (conv1d), and its int8 core alone, against its plain version
-   and K1 in the same call, with its bound (K1's
+   and K1 (and K1's core) in the same call, with its bound (K1's
    GEMM FLOPs at 989 TFLOP/s plus its s8 score and P [v | 1] operations at
    1979 TOP/s, or its bytes; no PyTorch call computes the layer, so no
-   library time); rawiq_best's layer at B=4096 (K1, K2, K6, K3 at
+   library time; the core alone by its s8 operations or its bytes); K2
+   beside both its bounds (`k2`, the layer's function with K and V formed,
+   and `k2_cls`, the reassociated work it does) and its pooling kernel alone
+   beside its plain version, its bound and scaled_dot_product_attention on
+   the same qt and x (one query a head, x as keys and values, scale ln 2: a
+   yardstick the port never calls); rawiq_best's layer at B=4096 (K1, K2, K6, K3 at
    L=65, K4 at rawiq_best_mp's L=64, each beside its plain version and bound,
    and nn.TransformerEncoderLayer(256, 8, 1024)), its serving (bf16 and
    int8) and train steps (rawiq_best through K3, with a `torch.profiler`
@@ -260,7 +276,10 @@ which raises (exit code 1) on failure:
    K1's and P3's time
    by stage (`torch.profiler`: QKV, attention, out-proj + LN1, FFN1, FFN2 +
    LN2) at the ViT (B=4096), conv1d (B=256) and rawiq_best (B=4096) shapes,
-   with the exp's share of K1's attention stage and layer.
+   with the exp's share of K1's attention stage and layer. k2k7-stages: K2
+   (q, qt, pool, V, out-proj + LN1, FFN1, FFN2 + LN2) and K7 (QKV, its int8
+   core, out-proj + LN1, FFN1, FFN2 + LN2) by stage (`torch.profiler`) at
+   the ViT, rawIQ, conv1d and rawiq_best shapes (K2K7_SHAPES).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -271,7 +290,8 @@ compare two trees of the port in one call: copy this script into each tree's
 root and run it there). ``--k4`` does the same with `time_k4`: K4's layers
 by stage and the train steps that go through it; ``--k3`` with `time_k3`:
 K3's layers at the shapes it trains, each by stage, and the train steps
-through K3.
+through K3; ``--k2k7`` with `time_k2k7`: K2, K7 and K1 a layer, K7's and
+K1's cores alone, K2 and K7 by stage, at K2K7_SHAPES.
 """
 
 from __future__ import annotations
@@ -558,6 +578,32 @@ def check_k6_build() -> None:
             raise AssertionError(f"K6 gemm_s8_kernel {inst} spills or runs no IGMMA")
 
 
+def check_k2k7_build() -> None:
+    """K7's core (attention_int8_kernel at d_head 16/32/64, with and without
+    its DUMP variant) and K2's pooling kernel (cls_pool_kernel at d_model 64,
+    128 and 256, and 256 with two head blocks) in the build: their `ptxas
+    -v` registers and spills (none may spill), and their SASS (cuobjdump,
+    beside nvcc): IGMMA (the integer warpgroup MMA) in every K7 core, HMMA
+    (mma.sync) in every pooling kernel."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    bodies = dict(block.split("\n", 1) for block in sass.split("Function : ")[1:])
+    entries = _build.ptxas_entries(_build.ptxas_report("fused_encoder_layer"))
+    for tag, op, want in (("attention_int8_kernel", "IGMMA.64x", 6), ("cls_pool_kernel", "HMMA", 4)):
+        mine = {n: v for n, v in entries.items() if tag in n}
+        if len(mine) != want:
+            raise AssertionError(f"{len(mine)} instances of {tag} in the build, want {want}")
+        for name, (regs, stores, loads) in sorted(mine.items()):
+            short = name[name.index(tag):]
+            body = [b for n, b in bodies.items() if short in n]
+            count = body[0].count(op) if len(body) == 1 else 0
+            print(f"  {short.split('EEv')[0]}: {regs} registers, {stores + loads} bytes spilled, "
+                  f"{count} {op.split('.')[0]} in its SASS", flush=True)
+            if stores or loads or not count:
+                raise AssertionError(f"{short} spills or runs no {op}")
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
@@ -645,10 +691,50 @@ def check_kernels(device, conv1d_batch: int = 64, batch: int = 256) -> dict:
             check_close(f"{name} K1 5-layer stack", stack, h, STACK_TOL)
             got = fel.fused_encoder_layer_cls(h, ops[5], H)
             want = fel.fused_layer_reference(h, ops[5], H, 1)
+            own = fel.fused_layer_cls_reference(h, ops[5], H)
             torch.cuda.synchronize()
             errs["k2"] = max(errs["k2"], check_close(
                 f"{name} K2 CLS layer (L={L}, F={ffn}{wide})", got, want, LAYER_TOL))
+            check_close(f"{name} K2 CLS layer against its own plain version (qt and xbar "
+                        f"rounded as the kernel rounds them)", got, own, LAYER_TOL)
     return errs
+
+
+def check_cls_pool(device, batch: int = 256, conv1d_batch: int = 64,
+                   launches: int = 30) -> float:
+    """K2's pooling kernel alone (`fel.cls_pool`) against its plain version
+    (`fel.cls_pool_reference`) on the qt that K2's q and qt stages give (in
+    plain PyTorch, from seeded random layers) at the flagship shapes, the
+    wide ones and d_model 256 at d_head 16 (two head blocks), B=256 (conv1d
+    B=64): within GRAD_REL in the L2 norm and elementwise within LAYER_TOL
+    (the two sum the same bf16 products in other orders, so a p may round
+    the other way), `launches` launches giving the first launch's bits.
+    Returns the max |difference|."""
+    worst = 0.0
+    shapes = [("vit", 129, 128, 8), ("rawiq", 65, 128, 8), ("conv1d", CONV1D_L, 128, 8),
+              ("rawiq_best", 65, 256, 8), ("vit_tiny_2016", 17, 64, 4), ("d_head 64", 129, 128, 2),
+              ("d_model 256 at d_head 16", 33, 256, 16)]
+    gen = torch.Generator().manual_seed(17)
+    print(f"phase cls-pool: K2's pooling kernel vs its plain version on the GPU, {launches} "
+          f"launches the same bits", flush=True)
+    for seed, (name, L, D, H) in enumerate(shapes):
+        B = conv1d_batch if L == CONV1D_L else batch
+        layer = random_layers(1, 256, seed=71 + seed, device=device, D=D, H=H)[0]
+        ops = fel.cls_operands(fel.layer_operands(layer, H), H)
+        x = torch.randn((B, L, D), generator=gen).to(device, torch.bfloat16)
+        with torch.no_grad():
+            q = (fel._mm(x[:, 0], ops[0][:, :D]) + ops[1][:D]).to(torch.bfloat16)
+            qt = (fel._mm(q, ops[12]) + ops[14]).to(torch.bfloat16).reshape(B, H, D).contiguous()
+            got = fel.cls_pool(x, qt)
+            same = all(torch.equal(got, fel.cls_pool(x, qt)) for _ in range(launches - 1))
+            want = fel.cls_pool_reference(x, qt)
+            torch.cuda.synchronize()
+        label = f"{name} cls_pool B={B} L={L} D={D} H={H}"
+        check_rel(label, got, want)
+        worst = max(worst, check_close(label, got, want, LAYER_TOL))
+        if not same:
+            raise AssertionError(f"{label}: {launches} launches do not give the same bits")
+    return worst
 
 
 def check_ulp(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2302,9 +2388,10 @@ def check_int8attn_kernels(device, batch: int = 256, conv1d_batch: int = 64,
     s32 tile products P [v | 1] (taken with the kernel's own int8
     probabilities) must equal the plain version's bit for bit, with the
     probabilities and outputs that differ held by K7_CORE_DIFFER and the
-    outputs equal to a launch without the dump. Returns the largest
-    per-layer difference."""
-    worst = 0.0
+    outputs equal to 30 launches without the dump. Returns the largest
+    per-layer difference and the core's largest |difference| from its plain
+    output."""
+    worst = core_err = 0.0
     gen = torch.Generator().manual_seed(23)
     shapes = [("vit", 129, 512, 128), ("rawiq", 65, 1024, 128), ("conv1d", CONV1D_L, 1024, 128),
               ("rawiq_best", 65, 1024, 256)]
@@ -2332,7 +2419,7 @@ def check_int8attn_kernels(device, batch: int = 256, conv1d_batch: int = 64,
             check_int8(f"{name} 5 K7 layers + K2 CLS tail", stack, want, K7_STACK_TOL)
             qkv = (fel._mm(h[:core_batch], ops[0][0]) + ops[0][1]).to(torch.bfloat16)
             core, dump = k7.attention_int8(qkv, 8, dump=True)
-            same_bits = torch.equal(core, k7.attention_int8(qkv, 8))
+            same_bits = all(torch.equal(core, k7.attention_int8(qkv, 8)) for _ in range(30))
             torch.cuda.synchronize()
             plain = k7.attention_int8_products(qkv, 8, probs=dump["probs"])
             own = k7.attention_int8_products(qkv, 8)
@@ -2341,12 +2428,13 @@ def check_int8attn_kernels(device, batch: int = 256, conv1d_batch: int = 64,
         same_pv = torch.equal(dump["pv"], plain["pv"])
         n_probs = int((dump["probs"] != own["probs"]).sum())
         n_out = int((core != ref).sum())
+        core_err = max(core_err, (core.float() - ref.float()).abs().max().item())
         print(f"  {name} K7 core alone B={core_batch}: s32 scores equal to the plain version's: "
               f"{same_s}; s32 P [v | 1] tile products on the kernel's probabilities equal: "
               f"{same_pv}; int8 probabilities that differ {n_probs} of "
               f"{dump['probs'].numel()}, outputs that differ {n_out} of {core.numel()} (limits "
               f"{K7_CORE_DIFFER[0]:g} and {K7_CORE_DIFFER[1]:g} of them); the same outputs "
-              f"without the dump: {same_bits}", flush=True)
+              f"without the dump, 30 launches: {same_bits}", flush=True)
         if not (same_s and same_pv):
             raise AssertionError(f"{name}: K7's int8 products are not the plain version's")
         if not (n_probs < K7_CORE_DIFFER[0] * dump["probs"].numel()
@@ -2354,29 +2442,46 @@ def check_int8attn_kernels(device, batch: int = 256, conv1d_batch: int = 64,
             raise AssertionError(f"{name}: K7's core disagrees with its plain version")
         del layers, x, h, stack, want, qkv, core, dump, plain, own, ref
         torch.cuda.empty_cache()
-    return worst
+    return worst, core_err
 
 
 def time_serving_layers(name: str, L: int, ffn: int, B: int, D: int, device, card: str) -> dict:
     """K1 and K2 on one layer at [B, L, D] (H = 8) against their plain
-    versions, with their bounds."""
+    versions, with their bounds (K2's two: `k2`, the layer's function with
+    K and V formed, and `k2_cls`, the reassociated work it does); K2's
+    pooling kernel alone on the qt its stages give, against its plain
+    version and the yardstick scaled_dot_product_attention (one query a
+    head over x as keys and values, log2 units: scale ln 2), which the port
+    never calls."""
     ops = fel.layer_operands(random_layers(1, ffn, seed=13, device=device, D=D)[0], 8)
+    cls_ops = fel.cls_operands(ops, 8)
     x = torch.randn((B, L, D), generator=torch.Generator().manual_seed(3))
     x = x.to(device, torch.bfloat16)
     with torch.no_grad():
+        q = (fel._mm(x[:, 0], ops[0][:, :D]) + ops[1][:D]).to(torch.bfloat16)
+        qt = (fel._mm(q, cls_ops[12]) + cls_ops[14]).to(torch.bfloat16).reshape(B, 8, D)
+        kv = x[:, None].expand(B, 8, L, D)
         t = {
             "k1_ms": cuda_ms(lambda: fel.fused_encoder_layer(x, ops, 8), 20),
             "k1_plain_ms": cuda_ms(lambda: fel.fused_layer_reference(x, ops, 8, L), 10),
-            "k2_ms": cuda_ms(lambda: fel.fused_encoder_layer_cls(x, ops, 8), 20),
-            "k2_plain_ms": cuda_ms(lambda: fel.fused_layer_reference(x, ops, 8, 1), 10),
+            "k2_ms": cuda_ms(lambda: fel.fused_encoder_layer_cls(x, cls_ops, 8), 20),
+            "k2_plain_ms": cuda_ms(lambda: fel.fused_layer_cls_reference(x, cls_ops, 8), 10),
+            "pool_ms": cuda_ms(lambda: fel.cls_pool(x, qt), 20),
+            "pool_plain_ms": cuda_ms(lambda: fel.cls_pool_reference(x, qt), 10),
+            "pool_sdpa_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt[:, :, None], kv, kv, scale=math.log(2.0)), 20),
         }
     t.update(layer_bounds(B, L, ffn, D))
     wide = "" if D == 128 else f" D={D}"
     print(f"  {name} layer B={B} L={L} F={ffn}{wide}: K1 {t['k1_ms']:.4f} ms vs plain "
           f"{t['k1_plain_ms']:.4f} ms (bound {t['k1'][0]:.4f} ms by {t['k1'][1]}); K2 "
           f"{t['k2_ms']:.4f} ms vs plain {t['k2_plain_ms']:.4f} ms (bound "
-          f"{t['k2'][0]:.4f} ms by {t['k2'][1]})  [{card}]", flush=True)
-    del x
+          f"{t['k2'][0]:.4f} ms by {t['k2'][1]}; of the reassociated work "
+          f"{t['k2_cls'][0]:.4f} ms by {t['k2_cls'][1]}); its pooling kernel "
+          f"{t['pool_ms']:.4f} ms vs plain {t['pool_plain_ms']:.4f} ms vs "
+          f"scaled_dot_product_attention {t['pool_sdpa_ms']:.4f} ms (bound {t['pool'][0]:.4f} ms "
+          f"by {t['pool'][1]})  [{card}]", flush=True)
+    del x, kv, qt
     torch.cuda.empty_cache()
     return t
 
@@ -2489,13 +2594,18 @@ def time_int8attn_layers(name: str, L: int, ffn: int, device, card: str, B: int 
                                    warmup=1),
             "k7_k1_ms": cuda_ms(lambda: fel.fused_encoder_layer(x, ops, 8), 20),
             "k7_core_ms": cuda_ms(lambda: k7.attention_int8(qkv, 8), 20),
+            "k7_core_plain_ms": cuda_ms(lambda: k7.attention_int8_reference(qkv, 8), 3,
+                                        warmup=1),
+            "k1_core_ms": cuda_ms(lambda: fel.attention_core(qkv, 8), 20),
         }
-    t["k7"] = layer_bounds(B, L, ffn, D)["k7"]
+    b = layer_bounds(B, L, ffn, D)
+    t["k7"], t["k7_core"] = b["k7"], b["k7_core"]
     print(f"  {name} int8-attention layer B={B} L={L} F={ffn} D={D}: K7 {t['k7_ms']:.4f} ms vs "
           f"plain {t['k7_plain_ms']:.4f} ms vs K1 {t['k7_k1_ms']:.4f} ms (K7 bound "
           f"{t['k7'][0]:.4f} ms by {t['k7'][1]}; library none: no PyTorch call computes an "
-          f"int8-attention layer); its int8 core alone {t['k7_core_ms']:.4f} ms  [{card}]",
-          flush=True)
+          f"int8-attention layer); its int8 core alone {t['k7_core_ms']:.4f} ms vs plain "
+          f"{t['k7_core_plain_ms']:.4f} ms vs K1's core {t['k1_core_ms']:.4f} ms (bound "
+          f"{t['k7_core'][0]:.4f} ms by {t['k7_core'][1]})  [{card}]", flush=True)
     del x, qkv
     torch.cuda.empty_cache()
     return t
@@ -2556,6 +2666,14 @@ def layer_bounds(B: int, L: int, F: int, D: int = 128, H: int = 8) -> dict:
         "k1": bound(fwd, 2 * act + weight_bytes(D, F)),
         "k2": bound(gemm_flops(B, D, F, kv_rows=M) + 4.0 * B * H * L * dh,
                     act + B * D * 2.0 + weight_bytes(D, F)),
+        # K2 as it computes the layer, no K or V formed: q, qt (D^2 a frame),
+        # the pooling's scores and mean (4 L H D), the V stage (D^2), the tail
+        "k2_cls": bound(8.0 * B * D * D + 4.0 * B * H * L * D + 4.0 * B * D * F,
+                        act + B * D * 2.0 + weight_bytes(D, F)),
+        # K2's pooling kernel: x and qt read, xbar written
+        "pool": bound(4.0 * B * H * L * D, act + 2 * B * H * D * 2.0),
+        # K7's core alone: qkv read, out written, its s8 products
+        "k7_core": bound(0.0, 4 * act, int8_ops=2.0 * B * H * L * L * (2 * dh + 1)),
         "k3f": bound(fwd, 2 * act + weight_bytes(D, F)),
         # the recompute regime: the forward again, then the gradients
         "k3b": bound(fwd + 2 * gemm_flops(M, D, F) + attn_bwd,
@@ -3194,6 +3312,87 @@ def time_k3(device, card: str) -> dict:
     return out
 
 
+# K2's kernels a call, in launch order: its stages, and their kinds
+# (`stage_kind`); in a tree where K2 still formed K and V (an earlier tree
+# under --k2k7): q, K and V for every row, its two-pass core, the tail
+K2_STAGES = ("q", "qt", "pool", "V", "out-proj + LN1", "FFN1", "FFN2 + LN2")
+K2_KINDS = ["bias", "bias", "attention", "bias", "ln", "bias", "ln"]
+K2_STAGES_KV = ("q", "K and V", "attention", "out-proj + LN1", "FFN1", "FFN2 + LN2")
+K2_KINDS_KV = ["bias", "bias", "attention", "ln", "bias", "ln"]
+
+
+def stage_kind(name: str) -> str:
+    """A layer's kernel by kind: a bf16 GEMM stage by its epilogue, any
+    attention core or the pooling kernel as "attention"."""
+    if "gemm_wgmma_kernel<0," in name:
+        return "bias"
+    if "gemm_wgmma_kernel<2," in name:
+        return "ln"
+    return "attention" if "attention" in name or "cls_pool" in name else name
+
+
+def profile_k2_k7_stages(name: str, B: int, L: int, D: int, F: int, H: int, device,
+                         card: str, calls: int = 20) -> dict:
+    """K2's and K7's time by stage at [B, L, D] (`profile_stages`): K2's
+    seven kernels (q, qt, pool, V, out-proj + LN1, FFN1, FFN2 + LN2; six
+    with K and V in a tree from before it pooled x), K7's five (QKV, its int8
+    core, out-proj + LN1, FFN1, FFN2 + LN2)."""
+    ops = fel.layer_operands(random_layers(1, F, seed=13, device=device, D=D, H=H)[0], H)
+    pooled = hasattr(fel, "cls_operands")
+    cls_ops = fel.cls_operands(ops, H) if pooled else ops
+    stages, kinds = (K2_STAGES, K2_KINDS) if pooled else (K2_STAGES_KV, K2_KINDS_KV)
+    x = torch.randn((B, L, D), generator=torch.Generator().manual_seed(3)).to(device,
+                                                                             torch.bfloat16)
+    with torch.no_grad():
+        k2 = profile_stages(lambda: fel.fused_encoder_layer_cls(x, cls_ops, H), kinds, stage_kind,
+                            calls)
+        k7s = profile_stages(lambda: k7.fused_encoder_layer_int8attn(x, ops, H), K1_KINDS,
+                             stage_kind, calls)
+    for label, names, split in (("K2", stages, k2), ("K7", K1_STAGES, k7s)):
+        total = sum(split)
+        print(f"  {name} {label} layer B={B} L={L} D={D} F={F} H={H} by stage (torch.profiler): "
+              + ", ".join(f"{s} {v:.4f} ms ({v / total:.3f})" for s, v in zip(names, split))
+              + f"; sum {total:.4f} ms  [{card}]", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    return {"k2_stages": dict(zip(stages, k2)), "k7_stages": dict(zip(K1_STAGES, k7s))}
+
+
+# K2's and K7's timed shapes: (name, L, FFN, D, H, B)
+K2K7_SHAPES = (("vit", 129, 512, 128, 8, 4096), ("rawiq", 65, 1024, 128, 8, 4096),
+               ("conv1d", CONV1D_L, 1024, 128, 8, 256), ("rawiq_best", 65, 1024, 256, 8, 4096))
+
+
+def time_k2k7(device, card: str) -> dict:
+    """`--k2k7`: K2, K7 and K1 a layer and K7's and K1's attention cores
+    alone (CUDA events), and K2 and K7 by stage, at K2K7_SHAPES. Uses only
+    wrappers an earlier tree of the port has too (K2 with its 15 operands
+    where this tree takes them), so that it also runs copied into a tree in
+    which K2 still formed K and V: parent, this, this, parent in one
+    call."""
+    out = {}
+    for name, L, F, D, H, B in K2K7_SHAPES:
+        ops = fel.layer_operands(random_layers(1, F, seed=13, device=device, D=D, H=H)[0], H)
+        cls_ops = fel.cls_operands(ops, H) if hasattr(fel, "cls_operands") else ops
+        x = torch.randn((B, L, D), generator=torch.Generator().manual_seed(3)).to(
+            device, torch.bfloat16)
+        with torch.no_grad():
+            qkv = (fel._mm(x, ops[0]) + ops[1]).to(torch.bfloat16)
+            t = {"k2_ms": cuda_ms(lambda: fel.fused_encoder_layer_cls(x, cls_ops, H), 20),
+                 "k7_ms": cuda_ms(lambda: k7.fused_encoder_layer_int8attn(x, ops, H), 20),
+                 "k1_ms": cuda_ms(lambda: fel.fused_encoder_layer(x, ops, H), 20),
+                 "k7_core_ms": cuda_ms(lambda: k7.attention_int8(qkv, H), 20),
+                 "k1_core_ms": cuda_ms(lambda: fel.attention_core(qkv, H), 20)}
+        print(f"  {name} B={B} L={L} D={D} F={F} H={H}: K2 {t['k2_ms']:.4f} ms, K7 "
+              f"{t['k7_ms']:.4f} ms (its core {t['k7_core_ms']:.4f} ms), K1 {t['k1_ms']:.4f} ms "
+              f"(its core {t['k1_core_ms']:.4f} ms)  [{card}]", flush=True)
+        del x, qkv
+        torch.cuda.empty_cache()
+        t.update(profile_k2_k7_stages(name, B, L, D, F, H, device, card))
+        out[name] = t
+    return out
+
+
 def time_host(label: str, call, card: str, calls: int = 50) -> dict:
     """The host's time of one layer call: the mean host clock of a call
     without a synchronize (the wrapper's checks, the workspace, the C entry's
@@ -3279,18 +3478,25 @@ def main() -> int:
         print(f"phase k3: K3's layers, stages and train steps on {card}:", flush=True)
         print(json.dumps({"k3": time_k3(device, card)}), flush=True)
         return 0
+    if sys.argv[1:] == ["--k2k7"]:
+        print(f"phase k2k7: K2's and K7's layers, K7's core and their stages on {card}:",
+              flush=True)
+        print(json.dumps({"k2k7": time_k2k7(device, card)}), flush=True)
+        return 0
     check_train_spills()
     check_k5_build()
     check_k6_build()
+    check_k2k7_build()
 
     errs = check_kernels(device)
+    errs["cls_pool"] = check_cls_pool(device)
     errs["k1_parts"] = check_k1_parts(device)
     errs.update(check_attention_kernels(device))
     errs["k6"] = check_int8_kernels(device)
     print("phase int8-stages: K6's s8 stages alone vs their plain versions on the GPU",
           flush=True)
     check_int8_stages(device)
-    errs["k7"] = check_int8attn_kernels(device)
+    errs["k7"], errs["k7_core"] = check_int8attn_kernels(device)
 
     print("phase serve: ragged requests through Server, bf16 kernels vs f32 path", flush=True)
     vit = serve_check("vit flagship", flagship_vit_config("tpu"), STATS, device,
@@ -3463,6 +3669,9 @@ def main() -> int:
     for name, B, L, D, F in (("vit", 4096, 129, 128, 512), ("conv1d", 256, CONV1D_L, 128, 1024),
                              ("rawiq_best", 4096, 65, 256, 1024)):
         profile_k1_stages(name, B, L, D, F, 8, device, card)
+    print(f"phase k2k7-stages: K2 and K7 by stage on {card}:", flush=True)
+    for name, L, F, D, H, B in K2K7_SHAPES:
+        profile_k2_k7_stages(name, B, L, D, F, H, device, card)
 
     counts, k3, k4, k5 = vit["counts"], vit_train["counts"], raw_train["counts"], conv_train["counts"]
     vt, rt, ct = times["vit"], times["rawiq"], times["conv1d"]
@@ -3489,9 +3698,16 @@ def main() -> int:
               vt["k2"], None),
         entry("fused_encoder_layer_int8 (K6, W8A8 full layers)", SOURCE, f"{TPU_SOURCE}:1695",
               vit8["counts"][K6], errs["k6"], vt["k6_ms"], vt["k6_plain_ms"], vt["k6"], None),
+        entry("cls_pool_kernel (K2's pooling: the CLS query's attention as one read of x; "
+              "one a K2 call)", SOURCE, f"{TPU_SOURCE}:371", counts["fused_encoder_layer_cls"],
+              errs["cls_pool"], vt["pool_ms"], vt["pool_plain_ms"], vt["pool"],
+              vt["pool_sdpa_ms"]),
         entry("fused_encoder_layer_int8attn (K7, int8-attention full layers)", SOURCE,
               f"{TPU_SOURCE}:812", vit_eval["k7_launches"], errs["k7"], vt["k7_ms"],
               vt["k7_plain_ms"], vt["k7"], None),
+        entry("attention_int8_kernel (K7's int8 attention core on s8 wgmma; one a K7 layer)",
+              SOURCE, f"{TPU_SOURCE}:812", vit_eval["k7_launches"], errs["k7_core"],
+              vt["k7_core_ms"], vt["k7_core_plain_ms"], vt["k7_core"], None),
         entry("fused_train_layer_fwd (K3-fwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:417",
               k3["fused_train_layer_fwd"], errs["k3f"], vt["k3f_ms"], vt["k3f_plain_ms"],
               vt["k3f"], None),

@@ -36,8 +36,14 @@ its place does not pass; a stack with the K2 tail 2e-2 and 4 steps: its
 core repeats the plain version's roundings, but a
 bf16 flip in q or k from the QKV GEMM can move a level); its core's s32
 score and P [v | 1] products equal the plain version's bit for bit on the
-same quantized operands. `run_training` trains on the card through K3,
-validates through K7 under VITIQ_ATTN_INT8=1, and resumes.
+same quantized operands, over 30 launches with the same bits, and its s8
+wgmma kernel runs IGMMA without a spill. `run_training` trains on the card
+through K3, validates through K7 under VITIQ_ATTN_INT8=1, and resumes.
+
+K2 forms no K or V: its pooling kernel (cls_pool_kernel) is held to its
+plain version (1% L2 and the one-layer tolerance, 30 launches the same
+bits, mma.sync without a spill), and the layer to its own plain version and
+to the plain layer for the CLS row (the one-layer tolerance).
 
 The probes (`vitiq_torch/probes/`, `csrc/probes.cu`): each P1 mask-op
 variant against its plain version (elementwise bit for bit, exp2 within 2
@@ -1590,6 +1596,113 @@ def test_int8attn_core_products_are_exact(cuda, Lx, n_head, d):
     ref = k7.attention_int8_reference(qkv, n_head)
     assert (out != ref).float().mean().item() < 1e-2
     assert torch.equal(out, k7.attention_int8(qkv, n_head))  # the same bits without the dump
+
+
+def _sass_bodies():
+    sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
+                           str(_build.build())], capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    return dict(block.split("\n", 1) for block in sass.split("Function : ")[1:])
+
+
+def _instances(kernel):
+    """(name, registers, spill stores, spill loads) of each instance of
+    `kernel` in fused_encoder_layer.cu's ptxas report, and its SASS body."""
+    bodies = _sass_bodies()
+    out = []
+    for name, (regs, stores, loads) in _build.ptxas_entries(
+            _build.ptxas_report("fused_encoder_layer")).items():
+        if kernel in name:
+            short = name[name.index(kernel):]
+            body = [b for n, b in bodies.items() if short in n]
+            out.append((short, regs, stores, loads, body[0] if len(body) == 1 else ""))
+    return out
+
+
+@pytest.mark.cuda
+def test_int8attn_core_runs_igmma_and_does_not_spill(cuda):
+    """K7's core (attention_int8_kernel at d_head 16/32/64, with and without
+    its DUMP variant) runs the integer warpgroup MMA (IGMMA) and spills
+    nothing."""
+    found = _instances("attention_int8_kernel")
+    assert len(found) == 6
+    for name, regs, stores, loads, body in found:
+        assert stores == loads == 0 and "IGMMA.64x" in body, (name, regs, stores, loads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx,n_head,d", [(129, 8, D), (65, 8, 256), (1025, 8, D), (129, 2, D),
+                                         (80, 4, D), (17, 4, 64)])
+def test_int8attn_core_gives_the_same_bits_over_repeated_launches(cuda, Lx, n_head, d):
+    """30 launches of K7's core (persistent blocks, two buffers of k and v
+    where they fit) give the first launch's bits, and so does its DUMP
+    variant's output."""
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8attn as k7
+
+    qkv = torch.randn((64 if Lx < 1000 else 8, Lx, 3 * d),
+                      generator=torch.Generator().manual_seed(5)).to(cuda, torch.bfloat16)
+    first = k7.attention_int8(qkv, n_head)
+    again = [k7.attention_int8(qkv, n_head) for _ in range(29)]
+    out, _ = k7.attention_int8(qkv, n_head, dump=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, o) for o in again) and torch.equal(first, out)
+
+
+@pytest.mark.cuda
+def test_cls_pool_runs_mma_and_does_not_spill(cuda):
+    """K2's pooling kernel (cls_pool_kernel at d_model 64, 128 and 256, and
+    256 with two head blocks) runs mma.sync (HMMA) and spills nothing."""
+    found = _instances("cls_pool_kernel")
+    assert len(found) == 4
+    for name, regs, stores, loads, body in found:
+        assert stores == loads == 0 and "HMMA" in body, (name, regs, stores, loads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx,n_head,d", [(129, 8, D), (65, 8, D), (1025, 8, D), (65, 8, 256),
+                                         (17, 4, 64), (129, 2, D), (33, 16, 256), (1, 8, D),
+                                         (16, 1, 64)])
+def test_cls_pool_matches_its_plain_version(cuda, Lx, n_head, d):
+    """K2's pooling kernel against `fel.cls_pool_reference` on the qt its
+    stages give: within 1% in the L2 norm and the one-layer tolerance (the
+    two sum the same bf16 products in other orders, so a bf16 p may round
+    the other way); 30 launches give the same bits."""
+    ops = fel.cls_operands(fel.layer_operands(_layers(1, 256, cuda, n_head, d)[0], n_head),
+                           n_head)
+    B = 64 if Lx < 1000 else 8
+    x = torch.randn((B, Lx, d), generator=torch.Generator().manual_seed(Lx)).to(cuda,
+                                                                               torch.bfloat16)
+    q = (fel._mm(x[:, 0], ops[0][:, :d]) + ops[1][:d]).to(torch.bfloat16)
+    qt = (fel._mm(q, ops[12]) + ops[14]).to(torch.bfloat16).reshape(B, n_head, d).contiguous()
+    fel.reset_launches()
+    got = fel.cls_pool(x, qt)
+    again = [fel.cls_pool(x, qt) for _ in range(29)]
+    want = fel.cls_pool_reference(x, qt)
+    torch.cuda.synchronize()
+    assert fel.stage_launches["cls_pool"] == 30
+    assert ((got.float() - want.float()).norm() / want.float().norm()).item() <= 1e-2
+    _assert_close(got, want, LAYER_TOL)
+    assert all(torch.equal(got, o) for o in again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx,ffn,n_head,d", [_p(129, 512, 8), _p(1025, 1024, 8),
+                                              _p(65, 1024, 8, d=256), _p(17, 256, 4, d=64),
+                                              _p(129, 512, 2), _p(33, 256, 16, d=256)])
+def test_cls_layer_matches_its_plain_version(cuda, Lx, ffn, n_head, d):
+    """K2 (no K or V formed) against its own plain version, which rounds qt
+    and xbar as it does, and against the plain layer for the CLS row, which
+    rounds k and v: both within the one-layer tolerance; with the 12 layer
+    operands or its 15 the same bits."""
+    ops = fel.layer_operands(_layers(1, ffn, cuda, n_head, d)[0], n_head)
+    x = torch.randn((37 if Lx < 1000 else 6, Lx, d),
+                    generator=torch.Generator().manual_seed(6)).to(cuda, torch.bfloat16)
+    got = fel.fused_encoder_layer_cls(x, fel.cls_operands(ops, n_head), n_head)
+    same = fel.fused_encoder_layer_cls(x, ops, n_head)
+    torch.cuda.synchronize()
+    assert torch.equal(got, same)
+    _assert_close(got, fel.fused_layer_cls_reference(x, ops, n_head), LAYER_TOL)
+    _assert_close(got, fel.fused_layer_reference(x, ops, n_head, 1), LAYER_TOL)
 
 
 @pytest.mark.cuda

@@ -175,7 +175,7 @@ def test_kernel_wrappers_take_plain_version_on_cpu_only():
     fel.reset_launches()
     assert torch.equal(fel.fused_encoder_layer(x, ops, H), fel.fused_layer_reference(x, ops, H, 5))
     assert torch.equal(fel.fused_encoder_layer_cls(x, ops, H),
-                       fel.fused_layer_reference(x, ops, H, 1))
+                       fel.fused_layer_cls_reference(x, ops, H))
     assert fel.launches == {"fused_encoder_layer": 0, "fused_encoder_layer_cls": 0}
     meta = torch.empty((1, 5, D), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):

@@ -100,8 +100,9 @@ def test_onepass_core_rounds_p_at_the_running_max():
 @pytest.mark.parametrize("d,n_head", [(64, 4), (128, 4), (128, 2)])
 def test_core_launches_at_every_length_the_shape_gate_admits(d, n_head):
     """K1's core takes every L that `fused_infer_supported` admits (the
-    predicate is unchanged: the two-pass layout K2 keeps bounds it), the
-    longest ~2.9K tokens at d_head 16, ~1.6K at 32 and ~850 at 64."""
+    predicate is unchanged: the gate's formula, the layout of K2's former
+    two-pass core, bounds it), the longest ~2.9K tokens at d_head 16, ~1.6K
+    at 32 and ~850 at 64."""
     dh = d // n_head
     admitted = [Lx for Lx in range(1, 4000) if fel.fused_infer_supported(Lx, d, 128, n_head)]
     assert admitted == list(range(1, admitted[-1] + 1))

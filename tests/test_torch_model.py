@@ -87,11 +87,18 @@ def test_tpu_serving_takes_fused_path_with_cls_tail(monkeypatch):
     calls = []
     real = fel.fused_layer_reference
 
+    real_cls = fel.fused_layer_cls_reference
+
     def spy(xx, ops, n_head, n_q):
         calls.append((tuple(xx.shape), xx.dtype, n_q))
         return real(xx, ops, n_head, n_q)
 
+    def spy_cls(xx, ops, n_head):  # K2's plain version: the CLS row only
+        calls.append((tuple(xx.shape), xx.dtype, 1))
+        return real_cls(xx, ops, n_head)
+
     monkeypatch.setattr(fel, "fused_layer_reference", spy)
+    monkeypatch.setattr(fel, "fused_layer_cls_reference", spy_cls)
     build_serving_fn(exp, model, STATS, "cpu")(x)
     # one full layer, then the last layer for the CLS row only
     assert calls == [((6, 17, 64), torch.bfloat16, 17), ((6, 17, 64), torch.bfloat16, 1)]

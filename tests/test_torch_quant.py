@@ -283,8 +283,9 @@ def test_quantized_model_routes_by_device_and_env(monkeypatch):
     real = k6.fused_layer_int8_reference
     monkeypatch.setattr(k6, "fused_layer_int8_reference",
                         lambda *a: calls.append("k6") or real(*a))
-    real_cls = fel.fused_layer_reference
-    monkeypatch.setattr(fel, "fused_layer_reference", lambda *a: calls.append("k2") or real_cls(*a))
+    real_cls = fel.fused_layer_cls_reference
+    monkeypatch.setattr(fel, "fused_layer_cls_reference",
+                        lambda *a: calls.append("k2") or real_cls(*a))
     unfused = pq.QuantizedAMCModel.from_model(model)(x)
     assert calls == []
     fused_model = pq.QuantizedAMCModel.from_model(model, fused=True)

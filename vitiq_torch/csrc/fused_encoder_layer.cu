@@ -6,6 +6,8 @@
 //          _v3_attention_core_xpack (every full layer of the stack)
 //   K2  vitiq/ops/pallas/fused_encoder_layer.py: _fused_layer_kernel_v3_cls
 //       with the chained core _v3_attention_core (last layer, CLS row only)
+//       -> encoder_layer_cls: the layer reassociated so that no K or V is
+//          formed, its attention a pooling of x (cls_pool_kernel)
 //   K6  vitiq/ops/pallas/fused_encoder_layer.py: fused_encoder_layer_v3_int8_stack
 //       -> _fused_layer_kernel_v3_w8 (every full layer of the int8 W8A8
 //          stack; its CLS tail is K2 on dequantized weights), and the v1
@@ -27,14 +29,16 @@
 //   attn_h = bf16( sum_j p_j v_j / sum_j p_j ),  p_j = bf16(exp2(s_j - m_j))
 //            s_j = q_h . k_{h,j} over the L valid keys, m_j the running max:
 //            the max over the 64-key tiles up to key j's (full layers, the
-//            one-pass core), or over all L keys (K2's two-pass core); the
-//            sums in f32 over the rounded p, rescaled by exp2(m_old - m_new)
-//            with the numerators when a tile raises the max
+//            one-pass core; K2's over its 16-token steps); the sums in f32
+//            over the rounded p, rescaled by exp2(m_old - m_new) with the
+//            numerators when a tile raises the max
 //   x1     = bf16(LN(attn @ Wo + bo + x))    LN: biased variance, eps 1e-12,
 //   y      = bf16(LN(relu(x1 @ W1 + b1) @ W2 + b2 + x1))   f32 stats, rsqrt
 // All four GEMMs accumulate bf16 products in f32 (onto the bias, and the
 // residual in the LN stages). K2 computes the same layer for query row 0
-// only: K and V cover every token, the output is [B, 1, D].
+// only, attending over every token, out [B, 1, D]; it forms no K or V and
+// rounds qt = W_k^T q and the pooled tokens xbar to bf16 where this rounds k
+// and v (see encoder_layer_cls), an error of the same size.
 // Tolerance against the plain version (fused_layer_reference, whose core
 // rounds p at the final max): 3e-2 + 1.6e-2 |plain| a layer; rounding p at
 // the running max moves a p by a bf16 rounding where its tile's max is not
@@ -47,12 +51,13 @@
 //
 // Design (for Hopper: wgmma, TMA, mbarriers): five launches per layer on the
 // caller's stream.
-//   1. gemm_wgmma_kernel<kBias>            QKV (K2: q for row 0, k/v for all rows)
+//   1. gemm_wgmma_kernel<kBias>            QKV
 //   2. attention_core_kernel<DH>           the one-pass core, every query row
-//      (K2: attention_kernel<DH>, the two-pass mma.sync core for row 0)
 //   3. gemm_wgmma_kernel<kBiasResidualLN>  out-projection + bias + residual + LN1
 //   4. gemm_wgmma_kernel<kBias>, ReLU      FFN1 + bias + ReLU
 //   5. gemm_wgmma_kernel<kBiasResidualLN>  FFN2 + bias + residual + LN2
+// K2 launches seven: the q stage (row 0), the qt stage, cls_pool_kernel,
+// the V stage, then 3-5 on its B rows (encoder_layer_cls).
 // The GEMM stages are persistent blocks, one an SM, two warpgroups each, on
 // m64nBNk16 wgmma with BN the slab width (the whole N up to 256, else 256 or
 // 128; BN = D for the LN stages). W's slab stays resident where K = D (fed
@@ -87,14 +92,15 @@
 // TPU schedule variants (selected by env knobs in the reference) and what
 // computes each here — all are the same function as K1/K2:
 //   VITIQ_V3_ATTN=xpack (default), =chain, =kt   -> attention_core_kernel
-//       (K2: attention_kernel): heads are independent blocks, so neither the
+//       (K2: cls_pool_kernel): heads are independent blocks, so neither the
 //       block-diagonal packing (xpack, K13) nor the per-head chain (chain)
 //       nor key tiling (kt, K9) has a
 //       counterpart; a frame-head's K/V fit shared memory up to ~2.9K
 //       tokens at d_head 16 (~1.6K at d_head 32, ~850 at d_head 64, so the
 //       conv1d arm's 1025 tokens with n_head 2 are turned away by shapes_ok
-//       and run the plain layers); checked against the plain version on the
-//       card at the conv1d arm's 1025 tokens.
+//       and run the plain layers; K2's pooling streams x and has no bound of
+//       its own); checked against the plain version on the card at the
+//       conv1d arm's 1025 tokens.
 //   d_model and d_head (no knob: the TPU kernel takes the whole D as one
 //   VMEM block and packs any d_head into its xpack core)
 //                                                 -> D 64 / 128 / 256: the
@@ -108,7 +114,8 @@
 //       a multiple of G                           -> activations stay
 //       [B, L, D] unpadded; GEMM loops are bounded by B*L rows, the softmax
 //       by L keys. Only the attention cores' shared-memory copies of k/v
-//       are zero-filled up to the 64-key tile (TMA) or 16-row MMA tile (K2).
+//       are zero-filled up to the 64-key tile (TMA), and K2's x stages up to
+//       16 tokens.
 //   VITIQ_V3_HG (head grouping)                   -> heads run in parallel blocks.
 //   VITIQ_V3_EPI (div / mul / div2 / div3 / mul2) -> one f32 divide per output
 //       element of the head.
@@ -171,27 +178,30 @@
 // K7 (vitiq_encoder_layer_attn_int8_full) is K1 with its attention stage
 // replaced by attention_int8_kernel, an int8 core (its formulas are at
 // the kernel): q levels per row, k and [v | 1] levels per frame-head, scores
-// and P [v | 1] as s8 x s8 -> s32 mma.sync.m16n8k32 products, probabilities
-// rint(exp2(s - tile max) * 127) in 128-key tiles merged on a running max in
-// f32, one f32 divide per output. The ones column of [v | 1] shares v's scale
+// and P [v | 1] as s8 x s8 -> s32 products on Hopper's s8 warpgroup MMA
+// (wgmma m64nNk32: q's levels in registers against the int8 k rows, then
+// P packed from the s32 accumulators straight into the register A fragment
+// against v^T), probabilities rint(exp2(s - tile max) * 127) in 128-key
+// tiles, each tile's scores computed once, merged on a running max in f32,
+// one f32 divide per output. The ones column of [v | 1] shares v's scale
 // (so av >= 1); its s32 product is rint(127 / av) times the row's sum of
 // int8 probabilities, the same integer the TPU kernel's ones-column product
-// gives. k and [v | 1] are quantized into shared memory once per block, v
-// transposed (ldmatrix transposes only 16-bit elements), its keys permuted
-// in 32s so that the s32 score fragments repack into P's s8 A fragment in
-// registers.
+// gives. The frame-head's bf16 k and v are read once, by TMA, and quantized
+// in place in shared memory (k K-major, v transposed with its keys
+// permuted in 32s so that the s32 score fragments are P's s8 A fragment).
 // The TPU kernel's block of G frames (VITIQ_V3_G, _pick_batch_block_v3) ->
-// one frame per block: ak and av are per frame-head, which is the TPU
+// one frame-head an item: ak and av are per frame-head, which is the TPU
 // kernel at G = 1 (its parity test pins g_override=1). Its Lp padding to 16
 // rows -> none: the TPU kernel's padded rows carry nonzero k (at least the
 // k bias), which enters its ak and each tile's row max; here keys stop at L,
 // so at L != Lp the two differ by quantization noise and match closely where
 // L = Lp. What bounds K7: its four bf16 GEMM stages are K1's (the bound
 // counts their FLOPs at 989 TFLOP/s plus the s8 score and P [v | 1] products,
-// 2 L^2 dh + 2 L^2 (dh + 1) operations a frame-head, at 1979 TOP/s); the int8
-// core holds half K1's bytes of k and v per key in shared memory, so it
-// takes every shape K1 takes. A simple first port: two passes over each
-// tile (the row max, then the probabilities), the scores recomputed.
+// 2 L^2 dh + 2 L^2 (dh + 1) operations a frame-head, at 1979 TOP/s); its core
+// takes K1's core's shared memory, so it takes every shape K1 takes. The
+// core is bound by latency: its per-tile chain (Q K^T, the softmax's IEEE
+// arithmetic on 64 scores a thread, P V), a frame-head's load and
+// quantization, and the blocks an SM its registers allow (PERF.md).
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -200,7 +210,6 @@
 
 namespace {
 
-constexpr int ATTN_WARPS = 4;
 constexpr int MAX_SMEM = 232448;  // shared memory a block may use on Hopper
 constexpr float LN_EPS = 1e-12f;
 
@@ -603,144 +612,273 @@ __global__ void __launch_bounds__(GW_THREADS, 1) gemm_s8_kernel(
       &rq);
 }
 
-// Shared-memory row strides (bf16 elements) of the attention core's k
-// [key][K_LD] and v^T [dim][vt_ld(L)] copies: padded so that the eight
-// rows a warp's fragment loads touch fall on distinct banks.
-template <int DH>
-__host__ __device__ constexpr int k_ld() { return DH + 8; }
-__host__ __device__ __forceinline__ int vt_ld(int L) { return round16(L) + 8; }
-
-template <int DH>
-__host__ __device__ __forceinline__ size_t attention_smem_bytes(int L) {
-  return ((size_t)round16(L) * k_ld<DH>() + (size_t)DH * vt_ld(L)) * sizeof(bf16);
+// The byte at offset `off` of a tile of `span`-byte rows (32, 64 or 128) as
+// a TMA load (or wgmma's descriptor) with the swizzle of that width lays it
+// out, from a base on the swizzle's repeat
+__device__ __forceinline__ uint32_t swizzled(uint32_t off, int span) {
+  return off ^ (((off >> 7) & (span / 16 - 1)) << 4);
 }
 
-// Scores of the warp's 16 query rows against keys [j0, j0 + 16): two 16 x 8
-// blocks, in log2 units (q carries log2(e)/sqrt(dh)); keys >= L are -inf.
-template <int DH>
-__device__ __forceinline__ void score_block(float sc[2][4], const uint32_t qa[DH / 16][4],
-                                            const bf16* ks, int j0, int L, int g, int t) {
-#pragma unroll
-  for (int nb = 0; nb < 2; ++nb) {
-    sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
-    const bf16* krow = ks + (j0 + nb * 8 + g) * k_ld<DH>() + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-      mma_bf16_16816(sc[nb], qa[kk], ld_b32(krow + kk * 16), ld_b32(krow + kk * 16 + 8));
-    if (j0 + 16 > L) {
-      const int key = j0 + nb * 8 + 2 * t;
-      if (key >= L) sc[nb][0] = sc[nb][2] = -INFINITY;
-      if (key + 1 >= L) sc[nb][1] = sc[nb][3] = -INFINITY;
-    }
-  }
+// The shared-memory formula of the shape gate (shapes_ok): a frame-head's k
+// rows and v^T in bf16, padded, the layout of K2's former two-pass core,
+// which set the bound the gate has kept since (at d_head 64, L up to 848).
+// K1's and K7's cores (core_smem_bytes) fit within it at every L it admits.
+// fused_encoder_layer.attention_smem_bytes repeats it.
+__host__ __device__ inline size_t gate_smem_bytes(int L, int dh) {
+  const size_t lp = round16(L);
+  return (lp * (dh + 8) + (size_t)dh * (lp + 8)) * sizeof(bf16);
 }
 
-// K2's attention core: one block per (frame b, head h), query rows 0..n_q-1
-// (K2 takes n_q = 1, where a 64-row wgmma tile would waste 63 rows). qkv:
-// [B, L, 3D] bf16 with q in columns [0, D) (only rows < n_q are read), k in
-// [D, 2D), v in [2D, 3D). Writes query rows 0..n_q-1 of head h to out +
-// b*out_frame_stride + i*D + h*DH.
-//
-// The block copies the head's k and v^T into shared memory (zero past L).
-// Each warp then takes 16 query rows at a time, its q fragments read from
-// device memory, and makes two passes over the keys in blocks of 16, the
-// scores recomputed by the tensor cores (mma.sync) in each: pass 1 takes the
-// row max; pass 2 forms p = bf16(exp2(s - max)), sums the rounded p in f32,
-// and accumulates P V in f32, the score fragment reused as the A operand.
-// Scores and probabilities live in registers only.
-template <int DH>
-__global__ void __launch_bounds__(ATTN_WARPS * 32) attention_kernel(
-    const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, int n_q, int D,
-    long long out_frame_stride) {
-  static_assert(DH % 16 == 0, "head width must be a multiple of 16");
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lp = round16(L), vld = vt_ld(L);
-  bf16* ks = reinterpret_cast<bf16*>(smem);  // [lp][k_ld]
-  bf16* vt = ks + (size_t)lp * k_ld<DH>();   // [DH][vld]
+// ---- K2: the CLS query's attention as one read of x (cls_pool_kernel) ------
+// K2 forms no K or V. For the CLS row's q (pre-scaled by log2(e)/sqrt(dh)),
+// head h and tokens x_j: s_hj = q_h . (W_k,h x_j + b_k,h) = x_j . qt_h +
+// const_h with qt_h = W_k,h^T q_h (the constant cancels in the softmax), and
+// o_h = sum_j p_hj (W_v,h x_j + b_v,h) = W_v,h xbar_h + b_v,h with xbar_h =
+// sum_j p_hj x_j / sum_j p_hj. So qt [B, H, D] comes from a GEMM stage on a
+// block operand (Kblk [D, H D]), this kernel pools each frame's tokens into
+// xbar [B, H, D], and the V stage is a GEMM stage on Vblk [H D, D] + b_v.
+constexpr int POOL_WARPS = 4;     // warps a block, each on frames of its own
+constexpr int POOL_STEP = 16;     // tokens a ring stage holds: the mma's M
+constexpr int POOL_RING = 20480;  // bytes of a warp's ring below D = 256
 
-  const int b = blockIdx.x, h = blockIdx.y;
-  const long long row3 = 3LL * D;
-  const bf16* base = qkv + (long long)b * L * row3 + (long long)h * DH;
-  constexpr int CH = DH / 8;  // 16-byte chunks per head row
-  for (int i = threadIdx.x; i < lp * CH; i += blockDim.x) {
-    const int j = i / CH, c = (i % CH) * 8;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-    if (j < L) {
-      kv = *reinterpret_cast<const uint4*>(base + j * row3 + D + c);
-      vv = *reinterpret_cast<const uint4*>(base + j * row3 + 2 * D + c);
-    }
-    *reinterpret_cast<uint4*>(ks + j * k_ld<DH>() + c) = kv;
-    const bf16* v8 = reinterpret_cast<const bf16*>(&vv);
+// Stages of a warp's ring: 20 KB below D = 256 (at most 8), 2 at D = 256,
+// so that two blocks fit an SM at every width but d_model 256 with d_head 16
+__host__ __device__ constexpr int pool_stages(int D) {
+  return D >= 256 ? 2 : POOL_RING / (POOL_STEP * 2 * D) > 8 ? 8 : POOL_RING / (POOL_STEP * 2 * D);
+}
+// qt's rows in shared memory (bf16): padded so that the 32-bit loads of a
+// warp's B fragments (8 heads x 4) fall on distinct banks
+__host__ __device__ constexpr int pool_qld(int D) { return D + 8; }
+
+// Shared memory of cls_pool_kernel (fused_encoder_layer.pool_smem_bytes
+// repeats it): 1 KB to align the rings to the swizzle's repeat, then per
+// warp its ring, two buffers of qt rows (8 heads a head block) and an
+// mbarrier a stage.
+__host__ __device__ inline size_t pool_smem_bytes(int D, int nhb) {
+  const int ns = pool_stages(D);
+  return 1024 + (size_t)POOL_WARPS * ((size_t)ns * POOL_STEP * D * 2 +
+                                      (size_t)2 * nhb * 8 * pool_qld(D) * 2 + ns * 8);
+}
+
+// 16 bytes global -> shared, asynchronously (cp.async, L2 only); a thread's
+// copies form groups (cp_async_commit), cp_async_wait<N> waits until at most
+// N of its latest groups are pending
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Byte offset of token r (0-15), column col (a multiple of 8) in a stage:
+// D / 64 boxes [16 tokens][64 columns], 128-byte swizzled as TMA wrote them
+__device__ __forceinline__ uint32_t pool_x_off(int r, int col) {
+  return (col >> 6) * (POOL_STEP * 128) + swizzled(r * 128 + (col & 63) * 2, 128);
+}
+
+// Ring item it of a warp (its lane 0): step it % n_steps of its frame
+// first + (it / n_steps) stride, into stage it % NS, D / 64 boxes on the
+// stage's mbarrier
+template <int D, int NS>
+__device__ __forceinline__ void pool_issue(const CUtensorMap* x_map, unsigned char* ring,
+                                           uint64_t* full, int it, int n_steps, int first,
+                                           int stride) {
+  const int f = first + (it / n_steps) * stride, step = it % n_steps, s = it % NS;
+  mbar_expect_tx(&full[s], POOL_STEP * D * 2);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) vt[(c + e) * vld + j] = v8[e];
+  for (int c = 0; c < D / 64; ++c)
+    tma_load_3d(ring + s * (POOL_STEP * D * 2) + c * (POOL_STEP * 128), x_map, &full[s], 64 * c,
+                step * POOL_STEP, f);
+}
+
+// xbar [B, H, D] bf16 from x [B, L, D] and qt [B, H, D] (bf16):
+//   s_hj = x_j . qt_h (log2 units), p_hj = exp2(s_hj - m_h) rounded to bf16
+//   at the running max m_h of 16-token steps, l_h = the f32 sum of the
+//   rounded p (both rescaled by exp2(m_old - m_new) when a step raises the
+//   max), xbar_h = bf16(sum_j p_hj x_j / l_h).
+// Each warp takes frames of its own (frame blockIdx.x * POOL_WARPS + warp,
+// then every gridDim.x * POOL_WARPS; the grid fills the SMs once) and
+// streams each frame's x once through its ring of 16-token stages (TMA, a
+// 3-D map over x, boxes past L zero-filled; lane 0 refills a stage once the
+// warp is past it), the stages running on across frames. Per step, with
+// the heads as the mma's N (8 a head block; H <= 8 but at d_model 256,
+// d_head 16):
+//   S [16 tokens, 8 heads] = X qt^T: mma.sync m16n8k16, X's A fragments by
+//   ldmatrix from the stage, qt's B fragments from the warp's copy of the
+//   frame's qt rows (heads past H zero; the next frame's rows arrive by
+//   cp.async meanwhile); tokens past L -> -inf;
+//   each head's column max by three shuffles (the tokens lie across the
+//   quads), the online softmax in registers; P packed to bf16 and moved
+//   into the B fragment of the next product by movmatrix (a transpose in
+//   registers);
+//   xbar^T [D, 8 heads] += X^T P: mma.sync with X^T's A fragments by
+//   ldmatrix .trans from the same stage, the accumulators in registers (D /
+//   16 tiles of 4 a head block).
+// What bounds it: reading x once (B L D bf16); its MMAs are 4 B L D 8 FLOPs
+// per head block on the tensor cores, and ldmatrix reads each stage twice.
+template <int D, int NHB>
+__global__ void __launch_bounds__(POOL_WARPS * 32, 1) cls_pool_kernel(
+    const __grid_constant__ CUtensorMap x_map, const bf16* __restrict__ qt,
+    bf16* __restrict__ xbar, int B, int L, int H) {
+  constexpr int NS = pool_stages(D), STAGE = POOL_STEP * D * 2, QLD = pool_qld(D), MT = D / 16;
+  extern __shared__ unsigned char pool_raw[];
+  unsigned char* smem = pool_raw + ((1024 - (smem_u32(pool_raw) & 1023)) & 1023);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  unsigned char* ring = smem + (size_t)warp * NS * STAGE;
+  unsigned char* rest = smem + (size_t)POOL_WARPS * NS * STAGE;
+  bf16* qs2 = reinterpret_cast<bf16*>(rest) + warp * 2 * NHB * 8 * QLD;  // [2][NHB 8][QLD]
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(rest + (size_t)POOL_WARPS * 2 * NHB * 8 * QLD * 2) + warp * NS;
+  const int n_steps = (L + POOL_STEP - 1) / POOL_STEP;
+  const int first = blockIdx.x * POOL_WARPS + warp, stride = gridDim.x * POOL_WARPS;
+  const int n_frames = first < B ? (B - 1 - first) / stride + 1 : 0;
+  const int n_items = n_frames * n_steps;
+
+  if (lane == 0) {
+    for (int s = 0; s < NS; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
   }
-  __syncthreads();
+  __syncwarp();
+  if (lane == 0)
+    for (int it = 0; it < NS && it < n_items; ++it)
+      pool_issue<D, NS>(&x_map, ring, full, it, n_steps, first, stride);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  for (int r0 = warp * 16; r0 < n_q; r0 += ATTN_WARPS * 16) {
-    const int r_lo = r0 + g, r_hi = r0 + g + 8;
-    uint32_t qa[DH / 16][4];
+  // the frames' qt rows in two buffers: the next frame's copied (cp.async)
+  // while this one runs; rows of heads past H are zero in both
+  for (int i = lane; i < 2 * NHB * 8 * (D / 8); i += 32) {
+    const int hh = i / (D / 8) % (NHB * 8), c = 8 * (i % (D / 8));
+    if (hh >= H)
+      *reinterpret_cast<uint4*>(qs2 + (i / (D / 8)) * QLD + c) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  auto copy_qt = [&](int k) {  // frame k's qt rows into buffer k & 1
+    const bf16* src = qt + (long long)(first + k * stride) * H * D;
+    bf16* dst = qs2 + (k & 1) * NHB * 8 * QLD;
+    for (int i = lane; i < H * (D / 8); i += 32)
+      cp_async16(dst + (i / (D / 8)) * QLD + 8 * (i % (D / 8)), src + 8 * i);
+  };
+  if (n_frames > 0) copy_qt(0);
+  cp_async_commit();
+
+  const uint32_t ring_addr = smem_u32(ring);
+  int it = 0;
+  for (int k = 0; k < n_frames; ++k) {
+    const int f = first + k * stride;
+    if (k + 1 < n_frames) copy_qt(k + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this frame's copy is done
+    __syncwarp();
+    const bf16* qs = qs2 + (k & 1) * NHB * 8 * QLD;
+    float acc[NHB][MT][4];
+    float m[NHB][2], l[NHB][2];
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      const bf16* q_lo = base + r_lo * row3 + kk * 16 + 2 * t;
-      const bf16* q_hi = base + r_hi * row3 + kk * 16 + 2 * t;
-      qa[kk][0] = r_lo < n_q ? ld_b32(q_lo) : 0u;
-      qa[kk][1] = r_hi < n_q ? ld_b32(q_hi) : 0u;
-      qa[kk][2] = r_lo < n_q ? ld_b32(q_lo + 8) : 0u;
-      qa[kk][3] = r_hi < n_q ? ld_b32(q_hi + 8) : 0u;
+    for (int hb = 0; hb < NHB; ++hb) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[hb][mt][i] = 0.f;
+      m[hb][0] = m[hb][1] = -INFINITY;
+      l[hb][0] = l[hb][1] = 0.f;
     }
-
-    float m_lo = -INFINITY, m_hi = -INFINITY;
-    for (int j0 = 0; j0 < lp; j0 += 16) {
-      float sc[2][4];
-      score_block<DH>(sc, qa, ks, j0, L, g, t);
+    for (int step = 0; step < n_steps; ++step, ++it) {
+      const int s = it % NS;
+      mbar_wait(&full[s], (uint32_t)((it / NS) & 1));
+      const uint32_t tile = ring_addr + s * STAGE;
+      // two chains of products (even and odd 16-deep steps), then summed
+      float sc[NHB][4], sc2[NHB][4];
 #pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {
-        m_lo = fmaxf(m_lo, fmaxf(sc[nb][0], sc[nb][1]));
-        m_hi = fmaxf(m_hi, fmaxf(sc[nb][2], sc[nb][3]));
+      for (int hb = 0; hb < NHB; ++hb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[hb][i] = sc2[hb][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < MT; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, tile + pool_x_off(lane & 15, 16 * kk + 8 * (lane >> 4)));
+#pragma unroll
+        for (int hb = 0; hb < NHB; ++hb) {
+          const bf16* qrow = qs + (8 * hb + g) * QLD + 16 * kk + 2 * t;
+          mma_bf16_16816((kk & 1) ? sc2[hb] : sc[hb], a, ld_b32(qrow), ld_b32(qrow + 8));
+        }
       }
-    }
-    m_lo = quad_max(m_lo);
-    m_hi = quad_max(m_hi);
-
-    float o[DH / 8][4] = {};
-    float l_lo = 0.f, l_hi = 0.f;
-    for (int j0 = 0; j0 < lp; j0 += 16) {
-      float sc[2][4];
-      score_block<DH>(sc, qa, ks, j0, L, g, t);
-      uint32_t pa[4];  // P as the A operand: [g | g+8][j0 + 2t.. | j0 + 8 + 2t..]
 #pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {
-        const __nv_bfloat162 p_lo =
-            __floats2bfloat162_rn(exp2f(sc[nb][0] - m_lo), exp2f(sc[nb][1] - m_lo));
-        const __nv_bfloat162 p_hi =
-            __floats2bfloat162_rn(exp2f(sc[nb][2] - m_hi), exp2f(sc[nb][3] - m_hi));
-        const float2 f_lo = __bfloat1622float2(p_lo), f_hi = __bfloat1622float2(p_hi);
-        l_lo += f_lo.x + f_lo.y;
-        l_hi += f_hi.x + f_hi.y;
-        pa[2 * nb] = *reinterpret_cast<const uint32_t*>(&p_lo);
-        pa[2 * nb + 1] = *reinterpret_cast<const uint32_t*>(&p_hi);
+      for (int hb = 0; hb < NHB; ++hb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[hb][i] += sc2[hb][i];
+      const int tok0 = step * POOL_STEP;
+      uint32_t pb[NHB][2];
+#pragma unroll
+      for (int hb = 0; hb < NHB; ++hb) {
+        if (tok0 + POOL_STEP > L) {  // warp-uniform
+          if (tok0 + g >= L) sc[hb][0] = sc[hb][1] = -INFINITY;
+          if (tok0 + g + 8 >= L) sc[hb][2] = sc[hb][3] = -INFINITY;
+        }
+        float mn[2], a[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {  // head 8 hb + 2t + c: its column of the step
+          float cm = fmaxf(sc[hb][c], sc[hb][c + 2]);
+          cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 4));
+          cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 8));
+          cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 16));
+          mn[c] = fmaxf(m[hb][c], cm);
+          a[c] = exp2_sfu(m[hb][c] - mn[c]);
+          m[hb][c] = mn[c];
+        }
+        const __nv_bfloat162 lo =
+            __floats2bfloat162_rn(exp2_sfu(sc[hb][0] - mn[0]), exp2_sfu(sc[hb][1] - mn[1]));
+        const __nv_bfloat162 hi =
+            __floats2bfloat162_rn(exp2_sfu(sc[hb][2] - mn[0]), exp2_sfu(sc[hb][3] - mn[1]));
+        const float2 flo = __bfloat1622float2(lo), fhi = __bfloat1622float2(hi);
+        l[hb][0] = l[hb][0] * a[0] + (flo.x + fhi.x);
+        l[hb][1] = l[hb][1] * a[1] + (flo.y + fhi.y);
+        if (__any_sync(0xffffffffu, a[0] != 1.f || a[1] != 1.f)) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            acc[hb][mt][0] *= a[0];
+            acc[hb][mt][1] *= a[1];
+            acc[hb][mt][2] *= a[0];
+            acc[hb][mt][3] *= a[1];
+          }
+        }
+        // P [16 tokens, 8 heads] as two 8 x 8 bf16 matrices (tokens g, g + 8),
+        // transposed into the B fragment [tokens 2t.., 8 + 2t..][head g]
+        pb[hb][0] = movmatrix_trans(*reinterpret_cast<const uint32_t*>(&lo));
+        pb[hb][1] = movmatrix_trans(*reinterpret_cast<const uint32_t*>(&hi));
       }
 #pragma unroll
-      for (int nd = 0; nd < DH / 8; ++nd) {
-        const bf16* vrow = vt + (nd * 8 + g) * vld + j0 + 2 * t;
-        mma_bf16_16816(o[nd], pa, ld_b32(vrow), ld_b32(vrow + 8));
-      }
-    }
-    l_lo = quad_sum(l_lo);
-    l_hi = quad_sum(l_hi);
-
-    bf16* o_base = out + (long long)b * out_frame_stride + h * DH + 2 * t;
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, tile + pool_x_off((lane & 7) + 8 * (lane >> 4),
+                                               16 * mt + 8 * ((lane >> 3) & 1)));
 #pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) {
-      if (r_lo < n_q)
-        *reinterpret_cast<uint32_t*>(o_base + (long long)r_lo * D + nd * 8) =
-            pack_bf16x2(o[nd][0] / l_lo, o[nd][1] / l_lo);
-      if (r_hi < n_q)
-        *reinterpret_cast<uint32_t*>(o_base + (long long)r_hi * D + nd * 8) =
-            pack_bf16x2(o[nd][2] / l_hi, o[nd][3] / l_hi);
+        for (int hb = 0; hb < NHB; ++hb) mma_bf16_16816(acc[hb][mt], a, pb[hb][0], pb[hb][1]);
+      }
+      __syncwarp();  // the warp is past the stage: lane 0 refills it
+      if (lane == 0 && it + NS < n_items)
+        pool_issue<D, NS>(&x_map, ring, full, it + NS, n_steps, first, stride);
     }
+    // each head's sum over the quads (lanes of one t hold one head's tokens)
+    bf16* o = xbar + (long long)f * H * D;
+#pragma unroll
+    for (int hb = 0; hb < NHB; ++hb) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        l[hb][c] += __shfl_xor_sync(0xffffffffu, l[hb][c], 4);
+        l[hb][c] += __shfl_xor_sync(0xffffffffu, l[hb][c], 8);
+        l[hb][c] += __shfl_xor_sync(0xffffffffu, l[hb][c], 16);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int head = 8 * hb + 2 * t + (i & 1), dim = 16 * mt + g + 8 * (i >> 1);
+          if (head < H) o[head * D + dim] = __float2bfloat16(acc[hb][mt][i] / l[hb][i & 1]);
+        }
+    }
+    __syncwarp();  // every lane is past qs before the copy after next lands in it
   }
 }
 
@@ -968,74 +1106,232 @@ __global__ void __launch_bounds__(GW_THREADS, 1) gemm_wgmma_kernel(
       });
 }
 
-// ---- K7: the int8 attention core ------------------------------------------
-// Shared memory of attention_int8_kernel at L tokens: the head's int8 k rows
-// [key][DH + 16] and [v | 1]'s v part transposed [dim][round32(L) + 16],
-// keys rounded up to the 32 of an s8 k-step (the pads keep the eight rows a
-// fragment load touches on distinct banks).
-template <int DH>
-__host__ __device__ constexpr int k8_ld() { return DH + 16; }
-__host__ __device__ __forceinline__ int round32(int n) { return (n + 31) & ~31; }
-__host__ __device__ __forceinline__ int v8_ld(int L) { return round32(L) + 16; }
-
-template <int DH>
-__host__ __device__ __forceinline__ size_t attention_int8_smem_bytes(int L) {
-  return (size_t)round32(L) * k8_ld<DH>() + (size_t)DH * v8_ld(L);
-}
-
+// ---- K7: the int8 attention core on s8 wgmma --------------------------------
 constexpr int K7_TILE = 128;               // keys per tile, as the TPU kernel's
 constexpr float K7_SCALE_FLOOR = 1e-8f;    // aq, ak floor
 constexpr float K7_DEQ = 127.0f * 127.0f;  // scores = s32 * aq * (ak / 127^2)
-
-// round(v * m) as an int8 level (|v * m| <= 127 by construction: m = 127 /
-// absmax of the values v comes from)
-__device__ __forceinline__ int level(float v, float m) { return __float2int_rn(__fmul_rn(v, m)); }
-
-// The column of key j in the transposed v: within each 32 keys, key
-// 16h + 8a + 2t + e sits at 16h + 4t + 2a + e, so that the probabilities a
-// thread holds in the s32 score fragments (keys 2t, 2t+1 of each 8) form the
-// s8 A fragment of the P V product as they are (k = 4t.. | 16 + 4t..).
-__device__ __forceinline__ int v8_col(int j) {
-  const int r = j & 31;
-  return (j & ~31) + (r & 16) + ((r >> 1) & 3) * 4 + ((r >> 3) & 1) * 2 + (r & 1);
-}
-
-// s32 scores of the warp's 16 query rows (qa: their int8 levels, DH / 32
-// k-steps; DH = 16 pads the k-step with zeros) against keys [j0, j0 + 32):
-// four 16 x 8 blocks, dequantized to f32 (float(s) * deq of the row) and -inf
-// past L; `raw` keeps the integer sums.
-template <int DH>
-__device__ __forceinline__ void score_block_int8(float sc[4][4], int raw[4][4],
-                                                 const uint32_t qa[][4], const int8_t* ks,
-                                                 int j0, int L, float deq_lo, float deq_hi,
-                                                 int g, int t) {
-  constexpr int KC = DH < 32 ? 1 : DH / 32;
-#pragma unroll
-  for (int nb = 0; nb < 4; ++nb) {
-    int c[4] = {0, 0, 0, 0};
-    const int8_t* krow = ks + (j0 + nb * 8 + g) * k8_ld<DH>() + 4 * t;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kc * 32);
-      const uint32_t b1 = DH < 32 ? 0u : *reinterpret_cast<const uint32_t*>(krow + kc * 32 + 16);
-      mma_s8_16832(c, qa[kc], b0, b1);
-    }
-    const int key = j0 + nb * 8 + 2 * t;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      raw[nb][i] = c[i];
-      sc[nb][i] = (key + (i & 1) < L) ? __fmul_rn(static_cast<float>(c[i]), i < 2 ? deq_lo : deq_hi)
-                                      : -INFINITY;
-    }
-  }
-}
 
 __device__ __forceinline__ int quad_sum_int(int v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// One block per (frame b, head h), K7's attention core on qkv [B, L, 3D]
+// round(v * m) as an int8 level (|v * m| <= 127 by construction: m = 127 /
+// absmax of the values v comes from), in the low byte: the bits of rn(v m)
+// + 1.5 * 2^23 are 0x4B400000 + rint(v m) (RN-even, as __float2int_rn;
+// a negative level borrows from the zero low byte, its two's complement),
+// on the FMA pipe where a conversion would take the one MUFU uses
+__device__ __forceinline__ uint32_t level_byte(float v, float m) {
+  return __float_as_uint(__fadd_rn(__fmul_rn(v, m), 12582912.0f));
+}
+// four levels' low bytes as one word, the first in the low byte
+__device__ __forceinline__ uint32_t pack4(uint32_t b0, uint32_t b1, uint32_t b2, uint32_t b3) {
+  return __byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040), 0x5410);
+}
+
+// The bf16 pair in a word as f32: the low element, the high one
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// 8 bf16 values (one 16-byte chunk) -> their 8 int8 levels at the multiplier m
+__device__ __forceinline__ uint2 levels8(const uint4& chunk, float m) {
+  const uint32_t w[4] = {chunk.x, chunk.y, chunk.z, chunk.w};
+  uint32_t b[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    b[2 * i] = level_byte(bf16_lo(w[i]), m);
+    b[2 * i + 1] = level_byte(bf16_hi(w[i]), m);
+  }
+  return make_uint2(pack4(b[0], b[1], b[2], b[3]), pack4(b[4], b[5], b[6], b[7]));
+}
+
+// The max of |x| over the bf16 values of a chunk and `amax` (bf16 magnitude
+// bits, both halves of each word): finite bf16 magnitudes order as their
+// 15-bit integers, so the max is taken on the packed pairs
+__device__ __forceinline__ uint32_t absmax_bits8(const uint4& chunk, uint32_t amax) {
+  amax = __vmaxu2(amax, chunk.x & 0x7fff7fffu);
+  amax = __vmaxu2(amax, chunk.y & 0x7fff7fffu);
+  amax = __vmaxu2(amax, chunk.z & 0x7fff7fffu);
+  return __vmaxu2(amax, chunk.w & 0x7fff7fffu);
+}
+// the f32 value of absmax_bits8's result (the larger half)
+__device__ __forceinline__ float absmax_of_bits(uint32_t amax) {
+  return __uint_as_float(max(amax & 0xffffu, amax >> 16) << 16);
+}
+
+// The int8 k rows' width: one s8 k-step (32 bytes) at d_head 16 and 32, the
+// head's 64 bytes at d_head 64
+template <int DH>
+__host__ __device__ constexpr int k8_span() { return DH < 32 ? 32 : DH; }
+
+// Shared memory of attention_int8_kernel at L tokens: the frame-head's bf16
+// k and v in 64-key tiles (K1's core's), an mbarrier and 1 KB of alignment
+// (fused_encoder_layer_int8attn.attention_int8_smem_bytes repeats it); it
+// fits every L the shape gate admits.
+__host__ __device__ inline size_t k7_smem_bytes(int L, int dh) {
+  const size_t n_kt = (L + CORE_KT - 1) / CORE_KT;
+  return 1024 + n_kt * CORE_KT * dh * 2 * 2 + 8;
+}
+
+// Where the int8 v^T tiles start: at the bf16 v tiles' start (n_kt 64-key
+// tiles of k before them), a multiple of the swizzle's 1 KB repeat
+template <int DH>
+__host__ __device__ __forceinline__ uint32_t v8_base(int n_kt) {
+  return (uint32_t)n_kt * CORE_KT * DH * 2;
+}
+
+// One 128-key tile of K7's core for one warpgroup's 64 query rows, NT keys
+// wide (128, or the narrowest of 64, 32, 16 that covers a ragged last tile):
+//   s = qq kq^T (s32, m64nNTk32 from q's levels in registers against the
+//   int8 k rows, K-major), dequantized, the tile's row max tm, p =
+//   rint(exp2(s - tm) * 127) packed from the accumulators straight into the
+//   s8 A fragment of P [v | 1] (m64nDHk32 against v^T, its keys permuted as
+//   v8_col), the ones column's product one * sum p; merged onto the running
+//   max in f32. Keys past L are -inf (p = 0); a warp whose rows all lie past
+//   L skips the softmax (its P is zero). Every wgmma is issued by the whole
+//   warpgroup on every path.
+struct K7Rows {  // a thread's two query rows: the running state of the merge
+  float m_lo, m_hi, den_lo, den_hi;
+};
+
+struct K7Dump {  // the DUMP variant's outputs and where this tile's go
+  int* s;
+  int8_t* p;
+  int* pv;
+  long long head;  // frame * H + head
+  int n_tiles, kt;
+};
+
+template <int DH, bool DUMP, int NT>
+__device__ __forceinline__ void k7_tile(float* acc, K7Rows& st, const uint32_t (*qa)[4],
+                                        uint32_t k_tile, uint32_t v_tile, int key0, int L,
+                                        float deq_lo, float deq_hi, int one, bool first,
+                                        bool live, int r_lo, int t, const K7Dump& dump) {
+  constexpr int KSPAN = k8_span<DH>(), KC = KSPAN / 32;
+  constexpr int KS = (NT + 31) / 32;  // s8 k-steps of P [v | 1]
+  int s[NT / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+    WgmmaS8<NT>::rs(s, qa[kc], smem_desc(k_tile + kc * 32, KSPAN, 8 * KSPAN, 8 * KSPAN), kc);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<NT / 2>(s);
+  const int r_hi = r_lo + 8;
+  // DUMP: this thread's two rows of the scores and probabilities at the
+  // tile's key 2t, rows lp = 128 n_tiles apart (the keys past L in them are
+  // not read; rows past L are not written)
+  const long long lp = 128LL * dump.n_tiles;
+  const long long row_lo = (dump.head * L + r_lo) * lp + key0 + 2 * t, row_hi = row_lo + 8 * lp;
+  if constexpr (DUMP) {
+#pragma unroll
+    for (int e = 0; e < NT / 2; ++e)
+      if (((e & 2) ? r_hi : r_lo) < L)
+        dump.s[((e & 2) ? row_hi : row_lo) + 8 * (e >> 2) + (e & 1)] = s[e];
+  }
+  uint32_t pa[KS][4];
+  int psum_lo = 0, psum_hi = 0;
+  float tm_lo = -INFINITY, tm_hi = -INFINITY;
+  if (live) {
+    const bool ragged = key0 + NT > L;  // uniform: keys past L in the tile
+    float f[NT / 2];
+#pragma unroll
+    for (int e = 0; e < NT / 2; ++e) {
+      f[e] = __fmul_rn(s32_to_f32<true>(s[e]), (e & 2) ? deq_hi : deq_lo);
+      if (ragged && key0 + 8 * (e >> 2) + 2 * t + (e & 1) >= L) f[e] = -INFINITY;
+      if (e & 2)
+        tm_hi = fmaxf(tm_hi, f[e]);
+      else
+        tm_lo = fmaxf(tm_lo, f[e]);
+    }
+    tm_lo = quad_max(tm_lo);
+    tm_hi = quad_max(tm_hi);
+    // p as the bits of x + 1.5 * 2^23, x = exp2(s - tm) * 127: the low byte is
+    // rint(x) (RN-even, exact for 0 <= x <= 127), and the bits summed less
+    // 0x4B400000 each (modulo 2^32) are the sum of p. exp2 on MUFU.EX2 (the
+    // plain version's exp2f takes the same instruction where the result is
+    // normal; below, both p are 0). Each k-step's 16 p are packed as they are
+    // formed: its A fragment [row g | g+8][k' = 4t.. | 16 + 4t..] holds keys
+    // 2t, 2t+1, 8+2t, 9+2t of the step's first / second 16 (v8_col).
+    uint32_t bsum_lo = 0u, bsum_hi = 0u;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int j = 4 * ks + 2 * (a >> 1), i = (a & 1) * 2;  // key groups j, j + 1; row i / 2
+        if (j >= NT / 8) {
+          pa[ks][a] = 0u;
+          continue;
+        }
+        uint32_t b4[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = 4 * (j + (u >> 1)) + i + (u & 1);
+          const float x = __fmul_rn(exp2_sfu(__fsub_rn(f[e], i ? tm_hi : tm_lo)), 127.f);
+          b4[u] = __float_as_uint(__fadd_rn(x, 12582912.0f));
+          if (i)
+            bsum_hi += b4[u];
+          else
+            bsum_lo += b4[u];
+          if constexpr (DUMP) {
+            if ((i ? r_hi : r_lo) < L)
+              dump.p[(i ? row_hi : row_lo) + 8 * (j + (u >> 1)) + (u & 1)] =
+                  static_cast<int8_t>(b4[u] & 0xffu);
+          }
+        }
+        pa[ks][a] = pack4(b4[0], b4[1], b4[2], b4[3]);
+      }
+    psum_lo = (int)(bsum_lo - (uint32_t)(NT / 4) * 0x4B400000u);
+    psum_hi = (int)(bsum_hi - (uint32_t)(NT / 4) * 0x4B400000u);
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) pa[ks][0] = pa[ks][1] = pa[ks][2] = pa[ks][3] = 0u;
+  }
+  int part[DH / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    WgmmaS8<DH>::rs(part, pa[ks], smem_desc(v_tile + ks * 32, 128, 1024, 1024), ks);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<DH / 2>(part);
+  const int den_int_lo = one * quad_sum_int(psum_lo), den_int_hi = one * quad_sum_int(psum_hi);
+  if constexpr (DUMP) {
+    int* pv = dump.pv + ((dump.head * dump.n_tiles) + dump.kt) * L * (DH + 1);
+#pragma unroll
+    for (int e = 0; e < DH / 2; ++e) {
+      const int r = (e & 2) ? r_hi : r_lo;
+      if (r < L) pv[r * (DH + 1) + 8 * (e >> 2) + 2 * t + (e & 1)] = part[e];
+    }
+    if (t == 0) {
+      if (r_lo < L) pv[r_lo * (DH + 1) + DH] = den_int_lo;
+      if (r_hi < L) pv[r_hi * (DH + 1) + DH] = den_int_hi;
+    }
+  }
+  // merge the tile onto the running max
+  if (first) {
+#pragma unroll
+    for (int e = 0; e < DH / 2; ++e) acc[e] = static_cast<float>(part[e]);
+    st.den_lo = static_cast<float>(den_int_lo);
+    st.den_hi = static_cast<float>(den_int_hi);
+    st.m_lo = tm_lo;
+    st.m_hi = tm_hi;
+  } else {
+    const float new_lo = fmaxf(st.m_lo, tm_lo), new_hi = fmaxf(st.m_hi, tm_hi);
+    const float old_lo = exp2f(__fsub_rn(st.m_lo, new_lo)), cur_lo = exp2f(__fsub_rn(tm_lo, new_lo));
+    const float old_hi = exp2f(__fsub_rn(st.m_hi, new_hi)), cur_hi = exp2f(__fsub_rn(tm_hi, new_hi));
+#pragma unroll
+    for (int e = 0; e < DH / 2; ++e)
+      acc[e] = __fadd_rn(__fmul_rn(acc[e], (e & 2) ? old_hi : old_lo),
+                         __fmul_rn(static_cast<float>(part[e]), (e & 2) ? cur_hi : cur_lo));
+    st.den_lo = __fadd_rn(__fmul_rn(st.den_lo, old_lo), __fmul_rn(static_cast<float>(den_int_lo), cur_lo));
+    st.den_hi = __fadd_rn(__fmul_rn(st.den_hi, old_hi), __fmul_rn(static_cast<float>(den_int_hi), cur_hi));
+    st.m_lo = new_lo;
+    st.m_hi = new_hi;
+  }
+}
+
+// K7's attention core on qkv [B, L, 3D]
 // (q pre-scaled by log2(e)/sqrt(dh)), all L query rows, out [B, L, D]:
 //   aq_i = max(max_d |q_id|, 1e-8)            per query row
 //   ak   = max(max_jd |k_jd|, 1e-8)           per frame-head
@@ -1051,49 +1347,101 @@ __device__ __forceinline__ int quad_sum_int(int v) {
 // IEEE quotients, products and sums (__fdiv_rn, __fmul_rn, __fadd_rn: no
 // contraction into FMAs), round half to even, so on the same qkv the s32
 // products are the plain version's bit for bit.
-// The block quantizes k into shared memory [key][dim] (the B operand of
-// Q K^T) and v transposed [dim][key'] (keys permuted in 32s, v8_col) for
-// P V; each warp takes 16 query rows at a time, quantizes them in registers
-// (a quad holds a row), and makes two passes over each tile's keys in 32s
-// on the s8 tensor cores (mma.sync.m16n8k32): the row max, then the
-// probabilities, whose s32 score fragments are repacked as P's A fragment
-// in registers. With DUMP, the s32 scores, the int8 probabilities and each
-// tile's s32 [P V | den] go to device memory for the check against the
-// plain version: s_dump [B, H, L, L], p_dump [B, H, L, L], pv_dump
-// [B, H, ceil(L / 128), L, DH + 1].
+// One block of one warpgroup a frame-head (blockIdx.x = b H + h). Its bf16
+// k and v arrive once, by TMA (K1's 3-D map over qkv, 64-key tiles, zeros
+// past L), on one mbarrier, while the first query tile's q loads. Both
+// absmaxes come from shared memory (on the bf16 magnitude bits, two a
+// word); then the block quantizes in place, 128
+// keys a round (each round reads its two tiles of k and of v into
+// registers, passes a barrier, writes): k into int8 rows [key][k8_span]
+// from the start (a K-major B operand, swizzled by its width), v into v^T
+// tiles [128-key tile][dim][128 keys'] from v8_base, the v tiles' start
+// (K-major, 128-byte swizzle), each thread four keys' levels a word (a
+// warp's stores one v^T row each), keys permuted in 32s (v8_col: key 16h +
+// 8a + 2t + e at 16h + 4t + 2a + e) so
+// that the probabilities a thread holds in the s32 score accumulators form
+// P's s8 A fragment as they are. A round's writes land only on the bytes it
+// read: the int8 k rows of its 128 keys end by 128 k8_span <= its two k
+// tiles' end (k8_span <= 2 DH), and its v^T tile takes its two v tiles'
+// place. The warpgroup then takes the 64-row query tiles in turn: q's
+// levels in registers (a quad holds a row), then each 128-key tile once
+// (k7_tile). bf16 values are unpacked by shifts of their words and the
+// absmaxes taken on their magnitude bits (with bf16 pointers to register
+// words and f32 maxima, the prologue measured twice as long).
+// Registers are held to 128 a thread at d_head 16 and 170 at 32 and 64, so
+// that four and three blocks fit an SM without a spill: the core is
+// latency-bound (PERF.md). (Persistent blocks walking the frame-heads with
+// the next one's tiles loading took 30-80 registers more a thread.)
+// With DUMP, the s32 scores, the int8 probabilities and each tile's s32
+// [P V | den] go to device memory for the check against the plain version:
+// s_dump [B, H, L, Lp], p_dump [B, H, L, Lp] (Lp = 128 ceil(L / 128); the
+// keys past L hold what the tile computed there), pv_dump [B, H, ceil(L /
+// 128), L, DH + 1].
 template <int DH, bool DUMP>
-__global__ void __launch_bounds__(ATTN_WARPS * 32) attention_int8_kernel(
-    const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, int D,
-    int* __restrict__ s_dump, int8_t* __restrict__ p_dump, int* __restrict__ pv_dump) {
-  static_assert(DH % 16 == 0, "head width must be a multiple of 16");
-  constexpr int KC = DH < 32 ? 1 : DH / 32, KLD = k8_ld<DH>(), CH = DH / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[2][ATTN_WARPS];
-  const int lp = round32(L), vld = v8_ld(L);
-  int8_t* ks = reinterpret_cast<int8_t*>(smem);  // [lp][KLD]
-  int8_t* vt = ks + (size_t)lp * KLD;            // [DH][vld]
-
-  const int b = blockIdx.x, h = blockIdx.y, H = gridDim.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(128, DUMP ? 1 : DH == 16 ? 4 : 3) attention_int8_kernel(
+    const __grid_constant__ CUtensorMap kv_map, const bf16* __restrict__ qkv,
+    bf16* __restrict__ out, int L, int D, int H, int* __restrict__ s_dump,
+    int8_t* __restrict__ p_dump, int* __restrict__ pv_dump) {
+  static_assert(DH == 16 || DH == 32 || DH == 64, "d_head 16, 32 or 64");
+  constexpr int TK = CORE_KT * DH * 2;  // bytes of a bf16 k or v tile
+  constexpr int SPAN = DH * 2;          // its rows, and TMA's swizzle
+  constexpr int KSPAN = k8_span<DH>(), KC = KSPAN / 32;
+  extern __shared__ unsigned char k7_raw[];
+  __shared__ float red[2][4];
+  unsigned char* smem = k7_raw + ((1024 - (smem_u32(k7_raw) & 1023)) & 1023);
+  const int n_kt = (L + CORE_KT - 1) / CORE_KT;
+  unsigned char* vs = smem + (size_t)n_kt * TK;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + (size_t)2 * n_kt * TK);
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int nthr = 128, lane = threadIdx.x & 31;
+  // the warp index broadcast from lane 0, so that ptxas sees it warp-uniform
+  // (wgmma under control flow it takes for divergent is serialized)
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), warp_id = warp;
+  const int g = lane >> 2, t = lane & 3;
   const long long row3 = 3LL * D;
+  const int n_tiles = (L + K7_TILE - 1) / K7_TILE;
   const bf16* base = qkv + (long long)b * L * row3 + (long long)h * DH;
 
-  // the frame-head's k and v absmax
-  float ka = 0.f, va = 0.f;
-  for (int i = threadIdx.x; i < L * CH; i += blockDim.x) {
-    const int j = i / CH, c = (i % CH) * 8;
-    ka = absmax8(*reinterpret_cast<const uint4*>(base + j * row3 + D + c), ka);
-    va = absmax8(*reinterpret_cast<const uint4*>(base + j * row3 + 2 * D + c), va);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bar, 2 * n_kt * TK);
+    for (int i = 0; i < n_kt; ++i) {
+      tma_load_3d(smem + (size_t)i * TK, &kv_map, bar, D + h * DH, i * CORE_KT, b);
+      tma_load_3d(vs + (size_t)i * TK, &kv_map, bar, 2 * D + h * DH, i * CORE_KT, b);
+    }
   }
-  ka = warp_max(ka);
-  va = warp_max(va);
+  // this thread's q words for a query tile: rows q0 + 16 warp + g (+ 8 where
+  // a & 1), dims 32kc + 4t.. and 32kc + 16 + 4t.. (a >> 1); the first tile's
+  // load is in flight while the k and v tiles arrive
+  auto load_q = [&](uint2 (&raw)[KC][4], int q0) {
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int r = q0 + warp * 16 + g + 8 * (a & 1), d0 = kc * 32 + (a >> 1) * 16 + 4 * t;
+        raw[kc][a] = r < L && d0 < DH ? *reinterpret_cast<const uint2*>(base + r * row3 + d0)
+                                      : make_uint2(0u, 0u);
+      }
+  };
+  uint2 qraw[KC][4];
+  load_q(qraw, 0);
+  __syncthreads();  // the mbarrier is initialized
+  mbar_wait(bar, 0);
+  // the frame-head's k and v absmax (rows past L arrived as zeros)
+  uint32_t kbits = 0u, vbits = 0u;
+  for (int i = threadIdx.x; i < n_kt * TK / 16; i += nthr) {
+    kbits = absmax_bits8(*reinterpret_cast<const uint4*>(smem + 16 * i), kbits);
+    vbits = absmax_bits8(*reinterpret_cast<const uint4*>(vs + 16 * i), vbits);
+  }
+  float ka = warp_max(absmax_of_bits(kbits)), va = warp_max(absmax_of_bits(vbits));
   if (lane == 0) {
-    red[0][warp] = ka;
-    red[1][warp] = va;
+    red[0][warp_id] = ka;
+    red[1][warp_id] = va;
   }
   __syncthreads();
 #pragma unroll
-  for (int w = 0; w < ATTN_WARPS; ++w) {
+  for (int w = 0; w < 4; ++w) {
     ka = fmaxf(ka, red[0][w]);
     va = fmaxf(va, red[1][w]);
   }
@@ -1101,49 +1449,91 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) attention_int8_kernel(
   const float kmul = __fdiv_rn(127.f, ak), vmul = __fdiv_rn(127.f, av);
   const int one = __float2int_rn(vmul);
   const float ak_deq = __fdiv_rn(ak, K7_DEQ);
+  const uint32_t v8 = v8_base<DH>(n_kt);
 
-  // quantized k [key][dim] and v^T [dim][key'] in shared memory, zero past L
-  for (int i = threadIdx.x; i < lp * CH; i += blockDim.x) {
-    const int j = i / CH, c = (i % CH) * 8;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-    if (j < L) {
-      kv = *reinterpret_cast<const uint4*>(base + j * row3 + D + c);
-      vv = *reinterpret_cast<const uint4*>(base + j * row3 + 2 * D + c);
-    }
-    const bf16* k8 = reinterpret_cast<const bf16*>(&kv);
-    const bf16* v8 = reinterpret_cast<const bf16*>(&vv);
-    uint32_t lo = 0u, hi = 0u;
+  // In place, 128 keys (two bf16 tiles of k and of v) a round: a k unit is
+  // one key's 8 dims (16 bytes -> 8), a v unit keys 16h + 2t, +1, +8, +9 at
+  // 8 dims (each dim's four levels one word of its v^T row); every read of a
+  // round precedes its barrier, every write follows it
+  constexpr int K_UNITS = 2 * CORE_KT * DH / 8, V_UNITS = 2 * CORE_KT / 16 * 4 * (DH / 8);
+  constexpr int K_PER = K_UNITS / 128, V_PER = (V_UNITS + 127) / 128;  // at 128 threads
+  for (int i = 0; i < n_kt; i += 2) {
+    const int keys = min(2 * CORE_KT, (n_kt - i) * CORE_KT);  // the round's tile keys
+    uint2 lev[K_PER];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      lo |= (static_cast<uint32_t>(level(__bfloat162float(k8[e]), kmul)) & 0xffu) << (8 * e);
-      hi |= (static_cast<uint32_t>(level(__bfloat162float(k8[e + 4]), kmul)) & 0xffu) << (8 * e);
+    for (int u = 0; u < K_PER; ++u) {
+      const int idx = threadIdx.x + u * nthr, key = idx / (DH / 8), c = idx % (DH / 8);
+      if (idx < K_UNITS && key < keys)
+        lev[u] = levels8(*reinterpret_cast<const uint4*>(
+                             smem + (size_t)i * TK + (key >= CORE_KT ? TK : 0) +
+                             swizzled((key % CORE_KT) * SPAN + 16 * c, SPAN)),
+                         kmul);
     }
-    *reinterpret_cast<uint2*>(ks + j * KLD + c) = make_uint2(lo, hi);
-    const int col = v8_col(j);
+    uint32_t w[V_PER][8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      vt[(c + e) * vld + col] = static_cast<int8_t>(level(__bfloat162float(v8[e]), vmul));
+    for (int u = 0; u < V_PER; ++u) {
+      // a warp's units share their 8 dims (c), so that each of its stores
+      // writes one v^T row's 32 words
+      const int idx = threadIdx.x + u * nthr, c = idx / 32, tt = idx % 4;
+      const int grp = idx / 4 % 8;  // 16-key group of the round's 128
+      if (idx < V_UNITS && 16 * grp < keys) {
+        uint2 lv[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int key = 16 * grp + 2 * tt + (k & 1) + 8 * (k >> 1);
+          lv[k] = levels8(*reinterpret_cast<const uint4*>(
+                              vs + (size_t)i * TK + (key >= CORE_KT ? TK : 0) +
+                              swizzled((key % CORE_KT) * SPAN + 16 * c, SPAN)),
+                          vmul);
+        }
+#pragma unroll
+        for (int d = 0; d < 8; ++d) {
+          const int sh = 8 * (d & 3);
+          auto byte = [&](int k) { return ((d < 4) ? lv[k].x : lv[k].y) >> sh; };
+          w[u][d] = pack4(byte(0), byte(1), byte(2), byte(3));
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < K_PER; ++u) {
+      const int idx = threadIdx.x + u * nthr, key = idx / (DH / 8), c = idx % (DH / 8);
+      if (idx < K_UNITS && key < keys)
+        *reinterpret_cast<uint2*>(
+            smem + swizzled((i * CORE_KT + key) * KSPAN + 8 * c, KSPAN)) = lev[u];
+    }
+    const uint32_t tile = v8 + (uint32_t)(i >> 1) * DH * 128;
+#pragma unroll
+    for (int u = 0; u < V_PER; ++u) {
+      const int idx = threadIdx.x + u * nthr, c = idx / 32, tt = idx % 4, grp = idx / 4 % 8;
+      if (idx < V_UNITS && 16 * grp < keys) {
+#pragma unroll
+        for (int d = 0; d < 8; ++d)
+          *reinterpret_cast<uint32_t*>(
+              smem + tile + swizzled((8 * c + d) * 128 + 16 * grp + 4 * tt, 128)) = w[u][d];
+      }
+    }
   }
+  fence_proxy_async();  // the levels, written by threads, are read by wgmma
   __syncthreads();
 
-  const int g = lane >> 2, t = lane & 3;
-  const int n_tiles = (L + K7_TILE - 1) / K7_TILE;
-  for (int r0 = warp * 16; r0 < L; r0 += ATTN_WARPS * 16) {
-    const int r_lo = r0 + g, r_hi = r0 + g + 8;
-    // this thread's q values: rows r_lo / r_hi, dims 32kc + 4t.. and 32kc + 16 + 4t..
+  const uint32_t k8_addr = smem_u32(smem), v8_addr = smem_u32(smem) + v8;
+  K7Dump dump{s_dump, p_dump, pv_dump, (long long)blockIdx.x, n_tiles, 0};
+  for (int q0 = 0; q0 < L; q0 += 64) {
+    const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
+    const bool live = q0 + warp * 16 < L;  // warp-uniform
+    if (q0 > 0) load_q(qraw, q0);
     float qf[KC][4][4];
     float amax_lo = 0.f, amax_hi = 0.f;
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc)
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
-        const int r = (a & 1) ? r_hi : r_lo, d0 = kc * 32 + (a >> 1) * 16 + 4 * t;
-        uint2 raw = make_uint2(0u, 0u);
-        if (r < L && d0 < DH) raw = *reinterpret_cast<const uint2*>(base + r * row3 + d0);
-        const bf16* q4 = reinterpret_cast<const bf16*>(&raw);
+        const uint2 q4 = qraw[kc][a];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          qf[kc][a][e] = __bfloat162float(q4[e]);
+          const uint32_t w = e < 2 ? q4.x : q4.y;
+          qf[kc][a][e] = (e & 1) ? bf16_hi(w) : bf16_lo(w);
           if (a & 1)
             amax_hi = fmaxf(amax_hi, fabsf(qf[kc][a][e]));
           else
@@ -1154,134 +1544,46 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32) attention_int8_kernel(
     const float aq_hi = fmaxf(quad_max(amax_hi), K7_SCALE_FLOOR);
     const float qmul_lo = __fdiv_rn(127.f, aq_lo), qmul_hi = __fdiv_rn(127.f, aq_hi);
     const float deq_lo = __fmul_rn(aq_lo, ak_deq), deq_hi = __fmul_rn(aq_hi, ak_deq);
-    uint32_t qa[KC][4];
+      uint32_t qa[KC][4];
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc)
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        uint32_t packed = 0u;
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          packed |= (static_cast<uint32_t>(level(qf[kc][a][e], (a & 1) ? qmul_hi : qmul_lo)) &
-                     0xffu) << (8 * e);
-        qa[kc][a] = packed;
-      }
-
-    float acc[DH / 8][4], den_lo = 0.f, den_hi = 0.f;
-    float m_lo = -INFINITY, m_hi = -INFINITY;
-    for (int tile = 0; tile < n_tiles; ++tile) {
-      const int c0 = tile * K7_TILE, c1 = min(c0 + K7_TILE, L);
-      float sc[4][4];
-      int raw[4][4];
-      // pass 1: the tile's row max
-      float tm_lo = -INFINITY, tm_hi = -INFINITY;
-      for (int j0 = c0; j0 < c1; j0 += 32) {
-        score_block_int8<DH>(sc, raw, qa, ks, j0, L, deq_lo, deq_hi, g, t);
-#pragma unroll
-        for (int nb = 0; nb < 4; ++nb) {
-          tm_lo = fmaxf(tm_lo, fmaxf(sc[nb][0], sc[nb][1]));
-          tm_hi = fmaxf(tm_hi, fmaxf(sc[nb][2], sc[nb][3]));
-        }
-      }
-      tm_lo = quad_max(tm_lo);
-      tm_hi = quad_max(tm_hi);
-      // pass 2: int8 probabilities and the s32 P [v | 1]
-      int part[DH / 8][4] = {};
-      int psum_lo = 0, psum_hi = 0;
-      for (int j0 = c0; j0 < c1; j0 += 32) {
-        score_block_int8<DH>(sc, raw, qa, ks, j0, L, deq_lo, deq_hi, g, t);
-        int p[4][4];
-#pragma unroll
-        for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            p[nb][i] = __float2int_rn(
-                __fmul_rn(exp2f(__fsub_rn(sc[nb][i], i < 2 ? tm_lo : tm_hi)), 127.f));
-            if (i < 2)
-              psum_lo += p[nb][i];
-            else
-              psum_hi += p[nb][i];
-          }
-        // A fragment: [row g | g+8][k' = 4t.. | 16 + 4t..] = keys 2t, 2t+1, 8+2t, 9+2t
-        // of the first / second 16
-        uint32_t pa[4];
+      for (int kc = 0; kc < KC; ++kc)
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
-          const int nb = (a >> 1) * 2, i = (a & 1) * 2;
-          pa[a] = (uint32_t)p[nb][i] | ((uint32_t)p[nb][i + 1] << 8) |
-                  ((uint32_t)p[nb + 1][i] << 16) | ((uint32_t)p[nb + 1][i + 1] << 24);
+          const float m = (a & 1) ? qmul_hi : qmul_lo;
+          qa[kc][a] = pack4(level_byte(qf[kc][a][0], m), level_byte(qf[kc][a][1], m),
+                            level_byte(qf[kc][a][2], m), level_byte(qf[kc][a][3], m));
         }
-#pragma unroll
-        for (int nd = 0; nd < DH / 8; ++nd) {
-          const int8_t* vrow = vt + (nd * 8 + g) * vld + j0 + 4 * t;
-          mma_s8_16832(part[nd], pa, *reinterpret_cast<const uint32_t*>(vrow),
-                       *reinterpret_cast<const uint32_t*>(vrow + 16));
-        }
-        if constexpr (DUMP) {
-          const long long head = (long long)b * H + h;
-#pragma unroll
-          for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int r = i < 2 ? r_lo : r_hi, key = j0 + nb * 8 + 2 * t + (i & 1);
-              if (r < L && key < L) {
-                s_dump[(head * L + r) * L + key] = raw[nb][i];
-                p_dump[(head * L + r) * L + key] = static_cast<int8_t>(p[nb][i]);
-              }
-            }
-        }
-      }
-      const int den_int_lo = one * quad_sum_int(psum_lo), den_int_hi = one * quad_sum_int(psum_hi);
-      if constexpr (DUMP) {
-        int* pv = pv_dump + (((long long)b * H + h) * n_tiles + tile) * L * (DH + 1);
-#pragma unroll
-        for (int nd = 0; nd < DH / 8; ++nd)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = i < 2 ? r_lo : r_hi;
-            if (r < L) pv[r * (DH + 1) + nd * 8 + 2 * t + (i & 1)] = part[nd][i];
-          }
-        if (t == 0) {
-          if (r_lo < L) pv[r_lo * (DH + 1) + DH] = den_int_lo;
-          if (r_hi < L) pv[r_hi * (DH + 1) + DH] = den_int_hi;
-        }
-      }
-      // merge the tile onto the running max
-      if (tile == 0) {
-#pragma unroll
-        for (int nd = 0; nd < DH / 8; ++nd)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[nd][i] = static_cast<float>(part[nd][i]);
-        den_lo = static_cast<float>(den_int_lo);
-        den_hi = static_cast<float>(den_int_hi);
-        m_lo = tm_lo;
-        m_hi = tm_hi;
-      } else {
-        const float new_lo = fmaxf(m_lo, tm_lo), new_hi = fmaxf(m_hi, tm_hi);
-        const float old_lo = exp2f(__fsub_rn(m_lo, new_lo)), cur_lo = exp2f(__fsub_rn(tm_lo, new_lo));
-        const float old_hi = exp2f(__fsub_rn(m_hi, new_hi)), cur_hi = exp2f(__fsub_rn(tm_hi, new_hi));
-#pragma unroll
-        for (int nd = 0; nd < DH / 8; ++nd)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc[nd][i] = __fadd_rn(__fmul_rn(acc[nd][i], i < 2 ? old_lo : old_hi),
-                                   __fmul_rn(static_cast<float>(part[nd][i]), i < 2 ? cur_lo : cur_hi));
-        den_lo = __fadd_rn(__fmul_rn(den_lo, old_lo), __fmul_rn(static_cast<float>(den_int_lo), cur_lo));
-        den_hi = __fadd_rn(__fmul_rn(den_hi, old_hi), __fmul_rn(static_cast<float>(den_int_hi), cur_hi));
-        m_lo = new_lo;
-        m_hi = new_hi;
-      }
+
+    float acc[DH / 2];
+    K7Rows st{};
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int key0 = kt * K7_TILE, valid = L - key0;  // uniform
+      const uint32_t k_tile = k8_addr + key0 * KSPAN, v_tile = v8_addr + kt * DH * 128;
+      dump.kt = kt;
+      if (valid > 64)
+        k7_tile<DH, DUMP, 128>(acc, st, qa, k_tile, v_tile, key0, L, deq_lo, deq_hi, one,
+                               kt == 0, live, r_lo, t, dump);
+      else if (valid > 32)
+        k7_tile<DH, DUMP, 64>(acc, st, qa, k_tile, v_tile, key0, L, deq_lo, deq_hi, one,
+                              kt == 0, live, r_lo, t, dump);
+      else if (valid > 16)
+        k7_tile<DH, DUMP, 32>(acc, st, qa, k_tile, v_tile, key0, L, deq_lo, deq_hi, one,
+                              kt == 0, live, r_lo, t, dump);
+      else
+        k7_tile<DH, DUMP, 16>(acc, st, qa, k_tile, v_tile, key0, L, deq_lo, deq_hi, one,
+                              kt == 0, live, r_lo, t, dump);
     }
 
     bf16* o_base = out + (long long)b * L * D + h * DH + 2 * t;
 #pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) {
+    for (int j = 0; j < DH / 8; ++j) {
       if (r_lo < L)
-        *reinterpret_cast<uint32_t*>(o_base + (long long)r_lo * D + nd * 8) =
-            pack_bf16x2(__fdiv_rn(acc[nd][0], den_lo), __fdiv_rn(acc[nd][1], den_lo));
+        *reinterpret_cast<uint32_t*>(o_base + (long long)r_lo * D + j * 8) =
+            pack_bf16x2(__fdiv_rn(acc[4 * j], st.den_lo), __fdiv_rn(acc[4 * j + 1], st.den_lo));
       if (r_hi < L)
-        *reinterpret_cast<uint32_t*>(o_base + (long long)r_hi * D + nd * 8) =
-            pack_bf16x2(__fdiv_rn(acc[nd][2], den_hi), __fdiv_rn(acc[nd][3], den_hi));
+        *reinterpret_cast<uint32_t*>(o_base + (long long)r_hi * D + j * 8) =
+            pack_bf16x2(__fdiv_rn(acc[4 * j + 2], st.den_hi),
+                        __fdiv_rn(acc[4 * j + 3], st.den_hi));
     }
   }
 }
@@ -1370,27 +1672,13 @@ GemmArgs with_ln(GemmArgs g, const bf16* res, long long ldr, const float* gamma,
   return g;
 }
 
-template <int DH>
-cudaError_t launch_attention(const bf16* qkv, bf16* out, int B, int L, int n_q, int D, int H,
-                             long long out_frame_stride, cudaStream_t stream) {
-  const size_t smem = attention_smem_bytes<DH>(L);
-  const cudaError_t err = allow_smem(attention_kernel<DH>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)B, (unsigned)H);
-  attention_kernel<DH><<<grid, ATTN_WARPS * 32, smem, stream>>>(qkv, out, L, n_q, D,
-                                                               out_frame_stride);
-  return cudaSuccess;
-}
-
-// K2's attention stage: the two-pass core for query rows [0, n_q).
-cudaError_t attention_cls(const bf16* qkv, bf16* out, int B, int L, int n_q, int D, int H,
-                          long long out_frame_stride, cudaStream_t stream) {
-  switch (D / H) {
-    case 16: return launch_attention<16>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
-    case 32: return launch_attention<32>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
-    case 64: return launch_attention<64>(qkv, out, B, L, n_q, D, H, out_frame_stride, stream);
-  }
-  return cudaErrorInvalidValue;
+// K1's 3-D tensor map over qkv [B, L, 3D] in [DH][64-key] boxes, swizzled by
+// the row width: a frame-head's k or v tile (K1's and K7's cores)
+bool kv_tensor_map(CUtensorMap* map, const bf16* qkv, int B, int L, int D, int dh) {
+  const uint64_t dims[3] = {(uint64_t)3 * D, (uint64_t)L, (uint64_t)B};
+  const uint64_t strides[2] = {(uint64_t)3 * D, (uint64_t)3 * D * L};
+  const uint32_t box[3] = {(uint32_t)dh, CORE_KT, 1};
+  return make_map(map, qkv, 3, dims, strides, box, dh * 2);
 }
 
 template <int DH, bool NOEXP>
@@ -1398,11 +1686,8 @@ cudaError_t launch_core(const bf16* qkv, bf16* out, int B, int L, int D, int H,
                         long long out_frame_stride, cudaStream_t stream) {
   const size_t smem = core_smem_bytes(L, DH);
   if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
-  const uint64_t dims[3] = {(uint64_t)3 * D, (uint64_t)L, (uint64_t)B};
-  const uint64_t strides[2] = {(uint64_t)3 * D, (uint64_t)3 * D * L};
-  const uint32_t box[3] = {DH, CORE_KT, 1};
   CUtensorMap map;
-  if (!make_map(&map, qkv, 3, dims, strides, box, DH * 2)) return cudaErrorInvalidValue;
+  if (!kv_tensor_map(&map, qkv, B, L, D, DH)) return cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(attention_core_kernel<DH, NOEXP>, smem);
   if (err != cudaSuccess) return err;
   // One warpgroup a block, or two where that keeps more warpgroups on an SM
@@ -1441,25 +1726,20 @@ cudaError_t attention_core(const bf16* qkv, bf16* out, int B, int L, int D, int 
   return cudaErrorInvalidValue;
 }
 
-size_t attention_smem(int dh, int L) {
-  switch (dh) {
-    case 16: return attention_smem_bytes<16>(L);
-    case 32: return attention_smem_bytes<32>(L);
-    case 64: return attention_smem_bytes<64>(L);
-  }
-  return ~size_t(0);
-}
-
+// K7's core: one block of one warpgroup a frame-head (blockIdx.x = b H + h),
+// K1's map and K1's core's shared memory
 template <int DH, bool DUMP>
 cudaError_t launch_attention_int8(const bf16* qkv, bf16* out, int B, int L, int D, int H,
                                   int* s_dump, int8_t* p_dump, int* pv_dump,
                                   cudaStream_t stream) {
-  const size_t smem = attention_int8_smem_bytes<DH>(L);
+  const size_t smem = k7_smem_bytes(L, DH);
+  if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
+  CUtensorMap map;
+  if (!kv_tensor_map(&map, qkv, B, L, D, DH)) return cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(attention_int8_kernel<DH, DUMP>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)B, (unsigned)H);
-  attention_int8_kernel<DH, DUMP><<<grid, ATTN_WARPS * 32, smem, stream>>>(
-      qkv, out, L, D, s_dump, p_dump, pv_dump);
+  attention_int8_kernel<DH, DUMP><<<(unsigned)(B * H), 128, smem, stream>>>(
+      map, qkv, out, L, D, H, s_dump, p_dump, pv_dump);
   return cudaSuccess;
 }
 
@@ -1483,16 +1763,54 @@ cudaError_t attention_int8(const bf16* qkv, bf16* out, int B, int L, int D, int 
   return cudaErrorInvalidValue;
 }
 
-// The shapes K1, K2 and K6 take (fused_encoder_layer.fused_infer_supported
+// K2's pooling stage: one block of POOL_WARPS warps a frame group, as many
+// blocks as fill the SMs once (each warp then walks its frames)
+template <int D, int NHB>
+cudaError_t launch_cls_pool(const bf16* x, const bf16* qt, bf16* xbar, int B, int L, int H,
+                            cudaStream_t stream) {
+  const size_t smem = pool_smem_bytes(D, NHB);
+  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)L, (uint64_t)B};
+  const uint64_t strides[2] = {(uint64_t)D, (uint64_t)D * L};
+  const uint32_t box[3] = {64, POOL_STEP, 1};
+  CUtensorMap map;
+  if (!make_map(&map, x, 3, dims, strides, box, 128)) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(cls_pool_kernel<D, NHB>, smem);
+  if (err != cudaSuccess) return err;
+  static int per_sm = 0;
+  if (!per_sm)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cls_pool_kernel<D, NHB>,
+                                                  POOL_WARPS * 32, smem);
+  const long long want = ((long long)B + POOL_WARPS - 1) / POOL_WARPS;
+  const long long fill = (long long)(per_sm < 1 ? 1 : per_sm) * sm_count();
+  cls_pool_kernel<D, NHB><<<(unsigned)(want < fill ? want : fill), POOL_WARPS * 32, smem,
+                            stream>>>(map, qt, xbar, B, L, H);
+  return cudaSuccess;
+}
+
+// xbar [B, H, D] from x [B, L, D] and qt [B, H, D] (cls_pool_kernel): one
+// head block of 8 up to H = 8, two at d_model 256 with d_head 16
+cudaError_t cls_pool(const bf16* x, const bf16* qt, bf16* xbar, int B, int L, int D, int H,
+                     cudaStream_t stream) {
+  switch (D) {
+    case 64: return launch_cls_pool<64, 1>(x, qt, xbar, B, L, H, stream);
+    case 128: return launch_cls_pool<128, 1>(x, qt, xbar, B, L, H, stream);
+    case 256:
+      return H > 8 ? launch_cls_pool<256, 2>(x, qt, xbar, B, L, H, stream)
+                   : launch_cls_pool<256, 1>(x, qt, xbar, B, L, H, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The shapes K1, K2, K6 and K7 take (fused_encoder_layer.fused_infer_supported
 // is the same predicate): D 64, 128 or 256; d_head 16, 32 or 64; an FFN width
-// that is a multiple of 128; and an L whose frame-head K/V fit the
-// attention block's shared memory.
+// that is a multiple of 128; and an L within the gate's shared-memory bound
+// (gate_smem_bytes).
 bool shapes_ok(int B, int L, int D, int H, int F) {
   if (B <= 0 || L <= 0 || H <= 0 || D % H) return false;
   if (D != 64 && D != 128 && D != 256) return false;
   const int dh = D / H;
   if (dh != 16 && dh != 32 && dh != 64) return false;
-  return F > 0 && F % 128 == 0 && attention_smem(dh, L) <= (size_t)MAX_SMEM;
+  return F > 0 && F % 128 == 0 && gate_smem_bytes(L, dh) <= (size_t)MAX_SMEM;
 }
 
 // Returns from the enclosing entry with a launch's error (`err` in scope).
@@ -1503,68 +1821,103 @@ bool shapes_ok(int B, int L, int D, int H, int F) {
 // exp) or K7's (int8).
 enum class Core { kExp2, kNoExp, kInt8 };
 
-// One layer, for every query row (K1, P3 with Core::kNoExp, K7 with
-// Core::kInt8) or for row 0 of each frame only (K2, Core::kExp2). x:
-// [B, L, D]; out: [B, L, D] (K1, P3, K7) or
-// [B, 1, D] (K2). Scratch: qkv [B, L, 3D]; attn and x1 [R, D] and hid [R, F]
-// for the R output rows (B*L or B). Weights: wqkv [D, 3D] with its q columns
+// The layer's tail for R rows (attn [R, D]): out-projection + bias +
+// residual (rows x_ld apart in x) + LN1 -> x1; FFN1 + ReLU -> hid; FFN2 +
+// bias + residual + LN2 -> out.
+cudaError_t layer_tail(const bf16* attn, const bf16* x, long long x_ld, bf16* x1, bf16* hid,
+                       void* out, const void* wo, const void* bo, const void* g1,
+                       const void* be1, const void* w1, const void* b1, const void* w2,
+                       const void* b2, const void* g2, const void* be2, long long rows, int D,
+                       int F, cudaStream_t s) {
+  cudaError_t err = launch_gemm<kBiasResidualLN>(
+      with_ln(gemm_args(attn, D, static_cast<const bf16*>(wo), D, static_cast<const float*>(bo),
+                        x1, D, rows, D, 0),
+              x, x_ld, static_cast<const float*>(g1), static_cast<const float*>(be1)),
+      D, s);
+  if (err != cudaSuccess) return err;
+  GemmArgs ffn1 = gemm_args(x1, D, static_cast<const bf16*>(w1), F,
+                            static_cast<const float*>(b1), hid, F, rows, D, 0);
+  ffn1.relu = 1;
+  if ((err = launch_gemm<kBias>(ffn1, F, s)) != cudaSuccess) return err;
+  return launch_gemm<kBiasResidualLN>(
+      with_ln(gemm_args(hid, F, static_cast<const bf16*>(w2), D, static_cast<const float*>(b2),
+                        static_cast<bf16*>(out), D, rows, F, 0),
+              x1, D, static_cast<const float*>(g2), static_cast<const float*>(be2)),
+      D, s);
+}
+
+// One full layer, every query row (K1, P3 with Core::kNoExp, K7 with
+// Core::kInt8). x, out: [B, L, D]. Scratch: qkv [B, L, 3D]; attn and x1
+// [B, L, D] and hid [B, L, F]. Weights: wqkv [D, 3D] with its q columns
 // pre-scaled by log2(e)/sqrt(dh), wo [D, D], w1 [D, F], w2 [F, D] in bf16;
 // biases and LN parameters f32. Returns the first launch error or
 // cudaGetLastError().
-int encoder_layer(bool cls_only, Core core, const void* x, void* out, void* qkv,
-                  void* attn, void* x1, void* hid, const void* wqkv, const void* bqkv,
-                  const void* wo, const void* bo, const void* g1, const void* be1,
-                  const void* w1, const void* b1, const void* w2, const void* b2,
-                  const void* g2, const void* be2, int B, int L, int D, int H, int F,
-                  void* stream_ptr) {
-  if ((core != Core::kExp2 && cls_only) || !shapes_ok(B, L, D, H, F))
-    return (int)cudaErrorInvalidValue;
+int encoder_layer(Core core, const void* x, void* out, void* qkv, void* attn, void* x1,
+                  void* hid, const void* wqkv, const void* bqkv, const void* wo, const void* bo,
+                  const void* g1, const void* be1, const void* w1, const void* b1,
+                  const void* w2, const void* b2, const void* g2, const void* be2, int B, int L,
+                  int D, int H, int F, void* stream_ptr) {
+  if (!shapes_ok(B, L, D, H, F)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* qkvb = static_cast<bf16*>(qkv);
   bf16* attnb = static_cast<bf16*>(attn);
-  bf16* x1b = static_cast<bf16*>(x1);
-  bf16* hidb = static_cast<bf16*>(hid);
-  const bf16* w_qkv = static_cast<const bf16*>(wqkv);
-  const float* b_qkv = static_cast<const float*>(bqkv);
   const long long M = (long long)B * L, frame = (long long)L * D;
-  const long long rows = cls_only ? B : M;      // output rows
-  const long long x_ld = cls_only ? frame : D;  // stride of their residual rows in x
   cudaError_t err;
-  if (cls_only) {
-    // q for row 0 of each frame (A rows stride a whole frame), into qkv row 0
-    VITIQ_TRY(launch_gemm<kBias>(
-        gemm_args(xb, frame, w_qkv, 3 * D, b_qkv, qkvb, 3 * frame, B, D, 0), D, s));
-    // k and v for every row: columns [D, 3D)
-    VITIQ_TRY(launch_gemm<kBias>(gemm_args(xb, D, w_qkv, 3 * D, b_qkv, qkvb, 3 * D, M, D, D),
-                                 2 * D, s));
-  } else {
-    VITIQ_TRY(launch_gemm<kBias>(gemm_args(xb, D, w_qkv, 3 * D, b_qkv, qkvb, 3 * D, M, D, 0),
-                                 3 * D, s));
-  }
+  VITIQ_TRY(launch_gemm<kBias>(gemm_args(xb, D, static_cast<const bf16*>(wqkv), 3 * D,
+                                         static_cast<const float*>(bqkv), qkvb, 3 * D, M, D, 0),
+                               3 * D, s));
   if (core == Core::kInt8) {
     VITIQ_TRY(attention_int8(qkvb, attnb, B, L, D, H, nullptr, nullptr, nullptr, s));
   } else if (core == Core::kNoExp) {
     VITIQ_TRY(attention_core<true>(qkvb, attnb, B, L, D, H, frame, s));
-  } else if (cls_only) {
-    VITIQ_TRY(attention_cls(qkvb, attnb, B, L, 1, D, H, D, s));
   } else {
     VITIQ_TRY(attention_core<false>(qkvb, attnb, B, L, D, H, frame, s));
   }
-  VITIQ_TRY(launch_gemm<kBiasResidualLN>(
-      with_ln(gemm_args(attnb, D, static_cast<const bf16*>(wo), D,
-                        static_cast<const float*>(bo), x1b, D, rows, D, 0),
-              xb, x_ld, static_cast<const float*>(g1), static_cast<const float*>(be1)),
+  VITIQ_TRY(layer_tail(attnb, xb, D, static_cast<bf16*>(x1), static_cast<bf16*>(hid), out, wo,
+                       bo, g1, be1, w1, b1, w2, b2, g2, be2, M, D, F, s));
+  return (int)cudaGetLastError();
+}
+
+// K2: the layer for row 0 (the CLS token) of each frame, x [B, L, D] ->
+// out [B, 1, D], with no K or V formed (see cls_pool_kernel):
+//   q = bf16(x_0 Wq + b_q)                 q stage: A rows a frame apart
+//   qt = bf16(q Kblk)                      [B, H D]: Kblk [D, H D] holds
+//                                          W_k,h^T in block (h, h), zeros
+//                                          elsewhere (kzero: its zero bias)
+//   xbar = cls_pool(x, qt)                 [B, H, D]
+//   attn = bf16(xbar Vblk + b_v)           Vblk [H D, D] holds W_v,h in
+//                                          block (h, h)
+//   then the tail (layer_tail) on the B rows, residual x_0.
+// Seven launches. Scratch: q, attn, x1 [B, D]; qt, xbar [B, H D]; hid
+// [B, F]. Rounding: qt and xbar are rounded to bf16 where the TPU kernel
+// rounds k and v (an error of the same size).
+int encoder_layer_cls(const void* x, void* out, void* q, void* qt, void* xbar, void* attn,
+                      void* x1, void* hid, const void* wqkv, const void* bqkv, const void* wo,
+                      const void* bo, const void* g1, const void* be1, const void* w1,
+                      const void* b1, const void* w2, const void* b2, const void* g2,
+                      const void* be2, const void* kblk, const void* vblk, const void* kzero,
+                      int B, int L, int D, int H, int F, void* stream_ptr) {
+  if (!shapes_ok(B, L, D, H, F)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const float* b_qkv = static_cast<const float*>(bqkv);
+  bf16 *qb = static_cast<bf16*>(q), *qtb = static_cast<bf16*>(qt);
+  bf16 *xbarb = static_cast<bf16*>(xbar), *attnb = static_cast<bf16*>(attn);
+  const long long frame = (long long)L * D;
+  const int HD = H * D;
+  cudaError_t err;
+  VITIQ_TRY(launch_gemm<kBias>(
+      gemm_args(xb, frame, static_cast<const bf16*>(wqkv), 3 * D, b_qkv, qb, D, B, D, 0), D, s));
+  VITIQ_TRY(launch_gemm<kBias>(gemm_args(qb, D, static_cast<const bf16*>(kblk), HD,
+                                         static_cast<const float*>(kzero), qtb, HD, B, D, 0),
+                               HD, s));
+  VITIQ_TRY(cls_pool(xb, qtb, xbarb, B, L, D, H, s));
+  VITIQ_TRY(launch_gemm<kBias>(
+      gemm_args(xbarb, HD, static_cast<const bf16*>(vblk), D, b_qkv + 2 * D, attnb, D, B, HD, 0),
       D, s));
-  GemmArgs ffn1 = gemm_args(x1b, D, static_cast<const bf16*>(w1), F,
-                            static_cast<const float*>(b1), hidb, F, rows, D, 0);
-  ffn1.relu = 1;
-  VITIQ_TRY(launch_gemm<kBias>(ffn1, F, s));
-  VITIQ_TRY(launch_gemm<kBiasResidualLN>(
-      with_ln(gemm_args(hidb, F, static_cast<const bf16*>(w2), D,
-                        static_cast<const float*>(b2), static_cast<bf16*>(out), D, rows, F, 0),
-              x1b, D, static_cast<const float*>(g2), static_cast<const float*>(be2)),
-      D, s));
+  VITIQ_TRY(layer_tail(attnb, xb, frame, static_cast<bf16*>(x1), static_cast<bf16*>(hid), out, wo,
+                       bo, g1, be1, w1, b1, w2, b2, g2, be2, B, D, F, s));
   return (int)cudaGetLastError();
 }
 
@@ -1732,19 +2085,33 @@ extern "C" int vitiq_encoder_layer_full(
     const void* g1, const void* be1, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* g2, const void* be2,
     int B, int L, int D, int H, int F, void* stream_ptr) {
-  return encoder_layer(false, Core::kExp2, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1,
+  return encoder_layer(Core::kExp2, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1,
                        w1, b1, w2, b2, g2, be2, B, L, D, H, F, stream_ptr);
 }
 
-// K2: the layer for query row 0 only (see encoder_layer).
+// K2: the layer for query row 0 only (see encoder_layer_cls).
 extern "C" int vitiq_encoder_layer_cls(
-    const void* x, void* out, void* qkv, void* attn, void* x1, void* hid,
+    const void* x, void* out, void* q, void* qt, void* xbar, void* attn, void* x1, void* hid,
     const void* wqkv, const void* bqkv, const void* wo, const void* bo,
     const void* g1, const void* be1, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* g2, const void* be2,
+    const void* kblk, const void* vblk, const void* kzero,
     int B, int L, int D, int H, int F, void* stream_ptr) {
-  return encoder_layer(true, Core::kExp2, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1,
-                       w1, b1, w2, b2, g2, be2, B, L, D, H, F, stream_ptr);
+  return encoder_layer_cls(x, out, q, qt, xbar, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1, w1,
+                           b1, w2, b2, g2, be2, kblk, vblk, kzero, B, L, D, H, F, stream_ptr);
+}
+
+// K2's pooling stage alone (cls_pool_kernel): x [B, L, D] and qt [B, H, D]
+// bf16 -> xbar [B, H, D] bf16, to hold it to its plain version. Takes K2's
+// shapes (F is not read).
+extern "C" int vitiq_cls_pool(const void* x, const void* qt, void* xbar, int B, int L, int D,
+                              int H, void* stream_ptr) {
+  if (!shapes_ok(B, L, D, H, 128)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cls_pool(static_cast<const bf16*>(x), static_cast<const bf16*>(qt),
+                                   static_cast<bf16*>(xbar), B, L, D, H,
+                                   static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // K7: one full layer with the int8 attention core (see encoder_layer and
@@ -1755,7 +2122,7 @@ extern "C" int vitiq_encoder_layer_attn_int8_full(
     const void* g1, const void* be1, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* g2, const void* be2,
     int B, int L, int D, int H, int F, void* stream_ptr) {
-  return encoder_layer(false, Core::kInt8, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1,
+  return encoder_layer(Core::kInt8, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1, be1,
                        w1, b1, w2, b2, g2, be2, B, L, D, H, F, stream_ptr);
 }
 
@@ -1767,7 +2134,7 @@ extern "C" int vitiq_encoder_layer_full_noexp(
     const void* g1, const void* be1, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* g2, const void* be2,
     int B, int L, int D, int H, int F, void* stream_ptr) {
-  return encoder_layer(false, Core::kNoExp, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1,
+  return encoder_layer(Core::kNoExp, x, out, qkv, attn, x1, hid, wqkv, bqkv, wo, bo, g1,
                        be1, w1, b1, w2, b2, g2, be2, B, L, D, H, F, stream_ptr);
 }
 
@@ -1786,8 +2153,9 @@ extern "C" int vitiq_attention_noexp(const void* qkv, void* out, int B, int L, i
 }
 
 // K7's attention core alone on qkv [B, L, 3D] bf16 -> out [B, L, D] bf16;
-// with s_dump non-null, also its s32 scores s_dump [B, H, L, L], int8
-// probabilities p_dump [B, H, L, L] and s32 tile products pv_dump
+// with s_dump non-null, also its s32 scores s_dump [B, H, L, Lp], int8
+// probabilities p_dump [B, H, L, Lp] (Lp = 128 ceil(L / 128): the keys
+// past L are not the function's) and s32 tile products pv_dump
 // [B, H, ceil(L / 128), L, D / H + 1] (for the bit-for-bit check of its
 // products against the plain version). Takes K7's shapes (F is not read).
 extern "C" int vitiq_attention_int8(const void* qkv, void* out, void* s_dump, void* p_dump,

@@ -182,6 +182,34 @@ struct Wgmma<256> {
 template <int N>
 struct WgmmaS8;
 
+// The narrow forms, A from registers only (K7's attention core: its ragged
+// last key tile's scores, and P [v | 1] at d_head 16 and 32)
+template <>
+struct WgmmaS8<16> {
+  static __device__ __forceinline__ void rs(int* d, const uint32_t* a, uint64_t db,
+                                                int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<32> {
+  static __device__ __forceinline__ void rs(int* d, const uint32_t* a, uint64_t db,
+                                                int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
 template <>
 struct WgmmaS8<64> {
   // D[64 x 64] += A B: A from shared memory (a descriptor) or registers
@@ -276,6 +304,32 @@ __device__ __forceinline__ void fence_regs(int* d) {
 // 0 is __syncthreads')
 __device__ __forceinline__ void named_bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ---- warp-level 8 x 8 b16 matrix loads and moves ----------------------------------
+// ldmatrix .x4: lane l gives the shared-memory address of row l % 8 of
+// matrix l / 8; of each matrix i, thread (g = lane / 4, t = lane % 4)
+// receives r[i] = the pair at row g, columns 2t, 2t + 1 (with .trans, of the
+// transposed matrix: rows 2t, 2t + 1 of column g).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+// The 8 x 8 b16 matrix the warp holds one pair a thread (row g, columns 2t,
+// 2t + 1), transposed in registers: thread (g, t) gets rows 2t, 2t + 1 of
+// column g.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
 }
 
 // ---- mbarriers ----------------------------------------------------------------

@@ -38,7 +38,11 @@ _LAYER_ARGS = [_P] * 18 + [_I] * 5 + [_P]
 _DROP_ARGS = [_I] * 5 + [_U, _F, _I, _I, _P]
 SIGNATURES = {
     "vitiq_encoder_layer_full": (_LAYER_ARGS, _I),
-    "vitiq_encoder_layer_cls": (_LAYER_ARGS, _I),
+    # x, out, q, qt, xbar, attn, x1, hid, the 12 weights, Kblk, Vblk, qt's
+    # zero bias; B, L, D, H, F; stream
+    "vitiq_encoder_layer_cls": ([_P] * 23 + [_I] * 5 + [_P], _I),
+    # x, qt, xbar; B, L, D, H; stream
+    "vitiq_cls_pool": ([_P] * 3 + [_I] * 4 + [_P], _I),
     "vitiq_encoder_layer_attn_int8_full": (_LAYER_ARGS, _I),
     "vitiq_encoder_layer_full_noexp": (_LAYER_ARGS, _I),
     # qkv, out; B, L, D, H; stream

@@ -5,14 +5,24 @@ version (counterpart of `vitiq/ops/pallas/fused_encoder_layer.py`,
 
 * K1 (`fused_encoder_layer`): one full layer, [B, L, D] -> [B, L, D].
 * K2 (`fused_encoder_layer_cls`): the layer for query row 0 (the CLS token)
-  only, with K and V over every token: [B, L, D] -> [B, 1, D].
+  only, attending over every token: [B, L, D] -> [B, 1, D]. It forms no K
+  or V: the CLS query's scores are x_j . qt_h with qt_h = W_k,h^T q_h (the
+  key bias adds a constant a head, which the softmax cancels), and its
+  output is W_v,h xbar_h + b_v,h with xbar_h the softmax-weighted mean of
+  the tokens. `cls_operands` adds the two block operands this takes (Kblk
+  [D, H D], Vblk [H D, D]) and a zero bias to the 12; `cls_pool` runs its
+  pooling kernel alone.
 
 Each wrapper launches its kernel on a CUDA tensor (raising on any build,
-launch or shape error) and runs its plain version, `fused_layer_reference`,
-on a CPU tensor: q pre-scaled by log2(e)/sqrt(dh) in the weights, exp2 after
-the row max is subtracted, f32 numerators and denominators over the valid
-keys, a divide, and rounding to the activation dtype where the kernels round
-to bf16. `fused_encoder_layer_stack` runs a layer stack through the wrappers;
+launch or shape error) and runs its plain version on a CPU tensor. K1's,
+`fused_layer_reference`: q pre-scaled by log2(e)/sqrt(dh) in the weights,
+exp2 after the row max is subtracted, f32 numerators and denominators over
+the valid keys, a divide, and rounding to the activation dtype where the
+kernels round to bf16; it is also the TPU kernels' function for the CLS row
+(n_q = 1). K2's, `fused_layer_cls_reference`: the same layer reassociated
+as the kernel computes it, qt and xbar rounded where the TPU kernel rounds k
+and v (`cls_pool_reference` is its pooling step). `fused_encoder_layer_stack`
+runs a layer stack through the wrappers;
 `fused_encoder_layer_stack_reference` is the plain version of the stack.
 
 The kernels take d_model 64, 128 or 256 with d_head 16, 32 or 64, an FFN
@@ -29,9 +39,10 @@ K1's parts run alone for the checks (`chip_smoke.py`, the CUDA tests):
 `attention_onepass_reference`: p rounded at the running max of 64-key
 tiles), and `gemm_stage`, one of its GEMM stages (`gemm_stage_reference`).
 
-`launches` counts kernel launches, one per call of a C entry point (K1 runs
-one entry call per layer), `stage_launches` those of the parts alone; the
-plain versions count nothing.
+`launches` counts C entry calls, one per layer (a K1 call launches its five
+stage kernels, a K2 call its seven, among them one `cls_pool_kernel`),
+`stage_launches` those of the parts alone; the plain versions count
+nothing.
 """
 
 from __future__ import annotations
@@ -50,9 +61,15 @@ SUPPORTED_D_HEAD = (16, 32, 64)
 MAX_SHARED_MEMORY = 232448  # bytes a block may use on Hopper
 
 launches = {"fused_encoder_layer": 0, "fused_encoder_layer_cls": 0}
-# K1's attention core and one of its GEMM stages called alone (`attention_core`,
-# `gemm_stage`): the checks' entries, not the serving path's
-stage_launches = {"attention_core": 0, "gemm_stage": 0}
+# K1's attention core, one of its GEMM stages and K2's pooling kernel called
+# alone (`attention_core`, `gemm_stage`, `cls_pool`): the checks' entries, not
+# the serving path's
+stage_launches = {"attention_core": 0, "gemm_stage": 0, "cls_pool": 0}
+
+# K2's pooling kernel (cls_pool_kernel): warps a block, tokens a ring stage
+POOL_WARPS = 4
+POOL_STEP = 16
+POOL_RING = 20480  # bytes of a warp's ring below d_model 256
 
 # `ptxas -v` registers of K1's attention core, attention_core_kernel<DH,
 # false>, at d_head 16, 32 and 64 (nvcc for sm_90a); the build is held to
@@ -69,9 +86,10 @@ def reset_launches() -> None:
 
 
 def attention_smem_bytes(L: int, d_head: int) -> int:
-    """Shared memory of the attention block at L tokens: the frame-head's k
-    rows and v transposed, bf16, padded (the formula of
-    `attention_smem_bytes` in the .cu)."""
+    """The shape gate's shared-memory formula (`gate_smem_bytes` in the .cu):
+    a frame-head's k rows and v transposed, bf16, padded, the layout of K2's
+    former two-pass core, which set the bound every kernel of the gate keeps
+    (K1's and K7's cores, `core_smem_bytes`, fit within it)."""
     lp = (L + 15) // 16 * 16
     return (lp * (d_head + 8) + d_head * (lp + 8)) * 2
 
@@ -81,14 +99,28 @@ def core_smem_bytes(L: int, d_head: int) -> int:
     the .cu, repeated here for the tests that hold it to the shape predicate
     without the library): the frame-head's k and v rows in 64-key tiles, an
     mbarrier a tile, and 1 KB of alignment. At every L that `fused_infer_supported`
-    admits it is no more than MAX_SHARED_MEMORY (the two-pass layout
-    `attention_smem_bytes`, which K2 keeps, sets the bound)."""
+    admits it is no more than MAX_SHARED_MEMORY (the gate's formula
+    `attention_smem_bytes` sets the bound). K7's core takes the same."""
     n_kt = (L + CORE_TILE - 1) // CORE_TILE
     return n_kt * CORE_TILE * d_head * 2 * 2 + n_kt * 8 + 1024
 
 
+def pool_stages(D: int) -> int:
+    """Stages of a warp's ring in K2's pooling kernel (`pool_stages`)."""
+    return 2 if D >= 256 else min(8, POOL_RING // (POOL_STEP * 2 * D))
+
+
+def pool_smem_bytes(D: int, n_head: int) -> int:
+    """Shared memory of K2's pooling kernel (`pool_smem_bytes` in the .cu):
+    per warp its ring of 16-token stages, two buffers of qt rows (8 heads a
+    head block, padded by 8) and an mbarrier a stage, and 1 KB of alignment.
+    It does not depend on L."""
+    ns, nhb = pool_stages(D), -(-n_head // 8)
+    return 1024 + POOL_WARPS * (ns * POOL_STEP * D * 2 + 2 * nhb * 8 * (D + 8) * 2 + ns * 8)
+
+
 def fused_infer_supported(L: int, D: int, ffn_hidden: int, n_head: int) -> bool:
-    """Shapes K1, K2 and K6 take: d_model in SUPPORTED_D_MODEL, d_head in
+    """Shapes K1, K2, K6 and K7 take: d_model in SUPPORTED_D_MODEL, d_head in
     SUPPORTED_D_HEAD, an FFN width that is a multiple of 128, and an L whose
     attention block fits the card's shared memory (at d_head 64, L up to
     ~850: the conv1d arm's 1025 tokens with n_head 2 are turned away).
@@ -146,6 +178,52 @@ def layer_operands(layer, n_head: int, dtype=torch.bfloat16) -> List[torch.Tenso
         ]
     layer.kernel_operands[key] = (stamp, ops)
     return ops
+
+
+def cls_block_operands(wqkv: torch.Tensor, n_head: int):
+    """K2's block operands from Wqkv [D, 3D] (its k columns W_k, v columns
+    W_v, [in, out]): Kblk [D, H D] with Kblk[h dh + e, h D + c] = W_k[c, h dh
+    + e], so that qt = q Kblk is [B, H, D] with qt_h = W_k,h^T q_h; Vblk
+    [H D, D] with Vblk[h D + c, h dh + e] = W_v[c, h dh + e], so that
+    xbar Vblk + b_v is the attention output; zeros off the diagonal blocks.
+    Rearranged copies of Wqkv's entries in its dtype (no new rounding)."""
+    D = wqkv.shape[0]
+    dh = D // n_head
+    wk, wv = wqkv[:, D:2 * D], wqkv[:, 2 * D:]
+    kblk = wqkv.new_zeros((D, n_head * D))
+    vblk = wqkv.new_zeros((n_head * D, D))
+    for h in range(n_head):
+        cols = slice(h * dh, (h + 1) * dh)
+        kblk[cols, h * D:(h + 1) * D] = wk[:, cols].t()
+        vblk[h * D:(h + 1) * D, cols] = wv[:, cols]
+    return kblk.contiguous(), vblk.contiguous()
+
+
+def cls_operands(ops: Sequence[torch.Tensor], n_head: int) -> List[torch.Tensor]:
+    """K2's 15 operands: the layer's 12 (`layer_operands`' layout), then Kblk
+    [D, H D] and Vblk [H D, D] in Wqkv's dtype (`cls_block_operands`) and qt's
+    zero bias [H D] f32. Given 15, returns them as they are."""
+    if len(ops) == 15:
+        return list(ops)
+    if len(ops) != 12:
+        raise ValueError(f"expected 12 layer operands, got {len(ops)}")
+    with torch.no_grad():
+        kblk, vblk = cls_block_operands(ops[0], n_head)
+        zero = torch.zeros(kblk.shape[1], dtype=torch.float32, device=ops[0].device)
+    return list(ops) + [kblk, vblk, zero]
+
+
+def layer_cls_operands(layer, n_head: int, dtype=torch.bfloat16) -> List[torch.Tensor]:
+    """K2's 15 operands of one layer (`cls_operands` of `layer_operands`),
+    cached on the layer beside them and rebuilt with them."""
+    ops = layer_operands(layer, n_head, dtype)
+    key = ("cls", n_head, dtype, layer.attention.w_q.weight.device)
+    cached = layer.kernel_operands.get(key)
+    if cached is not None and cached[0] is ops:
+        return cached[1]
+    full = cls_operands(ops, n_head)
+    layer.kernel_operands[key] = (ops, full)
+    return full
 
 
 # --------------------------------------------------------------------------
@@ -237,8 +315,8 @@ def fused_layer_reference(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: 
                           n_q: int, attention=attention_reference) -> torch.Tensor:
     """One layer for query rows [0, n_q): x [B, L, D] -> [B, n_q, D], with
     `attention(qkv, n_head, n_q)` as its core (K7's plain version passes its
-    int8 core)."""
-    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = ops
+    int8 core); of K2's 15 operands it reads the layer's 12."""
+    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = ops[:12]
     dt = x.dtype
     qkv = (_mm(x, wqkv) + bqkv).to(dt)
     attn = attention(qkv, n_head, n_q)
@@ -247,15 +325,65 @@ def fused_layer_reference(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: 
     return layer_norm_reference(_mm(h, w2) + b2 + x1.float(), g2, be2).to(dt)
 
 
+def cls_pool_reference(x: torch.Tensor, qt: torch.Tensor,
+                       step: int = POOL_STEP) -> torch.Tensor:
+    """The plain version of K2's pooling kernel (`cls_pool_kernel`): x [B,
+    L, D] and qt [B, H, D] (one dtype) -> xbar [B, H, D] in that dtype. s_hj =
+    x_j . qt_h (log2 units), p = exp2(s - m) rounded to the dtype at the
+    running max m of `step`-token steps, l the f32 sum of the rounded p (both
+    rescaled by exp2(m_old - m_new) when a step raises the max), xbar_h =
+    sum_j p_hj x_j / l_h. In f32 it is the softmax-weighted mean itself."""
+    dt = x.dtype
+    B, L, D = x.shape
+    xf, qf = x.float(), qt.float()
+    m = torch.full((B, qt.shape[1], 1), -math.inf, device=x.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for j0 in range(0, L, step):
+        xs = xf[:, j0:j0 + step]
+        s = qf @ xs.transpose(-1, -2)  # [B, H, step]
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        a = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new).to(dt).float()
+        l = l * a + p.sum(dim=-1, keepdim=True)
+        acc = acc * a + p @ xs
+        m = m_new
+    return (acc / l).to(dt)
+
+
+def fused_layer_cls_reference(x: torch.Tensor, ops: Sequence[torch.Tensor],
+                              n_head: int) -> torch.Tensor:
+    """K2's plain version: the layer for the CLS row as the kernel computes
+    it, x [B, L, D] -> [B, 1, D] in x's dtype, from the 12 layer operands or
+    K2's 15 (`cls_operands`):
+      q = (x_0 Wq + b_q), qt = (q Kblk), xbar = cls_pool_reference(x, qt),
+      attn = (xbar Vblk + b_v), then the out-projection + LN1, FFN1 and FFN2 +
+      LN2 of `fused_layer_reference` on the B rows,
+    each rounded to the dtype as the kernel rounds to bf16. The same
+    function as `fused_layer_reference(x, ops, n_head, 1)` with qt and xbar
+    rounded where that rounds k and v (equal in f32 up to f32 sums)."""
+    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2, kblk, vblk, kzero = \
+        cls_operands(ops, n_head)
+    dt = x.dtype
+    B, _, D = x.shape
+    q = (_mm(x[:, 0], wqkv[:, :D]) + bqkv[:D]).to(dt)
+    qt = (_mm(q, kblk) + kzero).to(dt).reshape(B, n_head, D)
+    xbar = cls_pool_reference(x, qt)
+    attn = (_mm(xbar.reshape(B, n_head * D), vblk) + bqkv[2 * D:]).to(dt)
+    x1 = layer_norm_reference(_mm(attn, wo) + bo + x[:, 0].float(), g1, be1).to(dt)
+    h = torch.relu(_mm(x1, w1) + b1).to(dt)
+    return layer_norm_reference(_mm(h, w2) + b2 + x1.float(), g2, be2).to(dt)[:, None]
+
+
 def fused_encoder_layer_stack_reference(x: torch.Tensor, ops_list, n_head: int,
                                         cls_only: bool = False) -> torch.Tensor:
-    """Plain version of the stack: full layers, then (with ``cls_only``) the
-    last layer for the CLS row only, returning [B, 1, D]."""
+    """Plain version of the stack: full layers, then (with ``cls_only``) K2's
+    plain version on the last layer for the CLS row, returning [B, 1, D]."""
     full = ops_list[:-1] if cls_only else ops_list
     for ops in full:
         x = fused_layer_reference(x, ops, n_head, x.shape[1])
     if cls_only:
-        x = fused_layer_reference(x, ops_list[-1], n_head, 1)
+        x = fused_layer_cls_reference(x, ops_list[-1], n_head)
     return x
 
 
@@ -264,19 +392,21 @@ def fused_encoder_layer_stack_reference(x: torch.Tensor, ops_list, n_head: int,
 # --------------------------------------------------------------------------
 
 def _check_inputs(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int) -> int:
-    """Validate what the kernels take; returns the FFN width."""
+    """Validate what the kernels take: 12 layer operands, or K2's 15
+    (`cls_operands`); returns the FFN width."""
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernels need a CUDA tensor, got {x.device}")
     if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError("x must be a contiguous bf16 [B, L, D] tensor, got "
                          f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
     B, L, D = x.shape
-    if len(ops) != 12:
-        raise ValueError(f"expected 12 layer operands, got {len(ops)}")
+    if len(ops) not in (12, 15):
+        raise ValueError(f"expected 12 layer operands (15 for K2), got {len(ops)}")
     F = ops[6].shape[-1]
     check_shape(B, L, D, F, n_head)
     shapes = [(D, 3 * D), (3 * D,), (D, D), (D,), (D,), (D,),
-              (D, F), (F,), (F, D), (D,), (D,), (D,)]
+              (D, F), (F,), (F, D), (D,), (D,), (D,),
+              (D, n_head * D), (n_head * D, D), (n_head * D,)]
     for i, (t, shape) in enumerate(zip(ops, shapes)):
         want = torch.bfloat16 if len(shape) == 2 else torch.float32
         if (tuple(t.shape) != shape or t.dtype != want or t.device != x.device
@@ -287,7 +417,7 @@ def _check_inputs(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int) -> 
 
 
 def check_shape(B: int, L: int, D: int, F: int, n_head: int) -> None:
-    """Raise unless `fused_infer_supported` admits the shape (K1, K2, K6)."""
+    """Raise unless `fused_infer_supported` admits the shape (K1, K2, K6, K7)."""
     if B == 0 or not fused_infer_supported(L, D, F, n_head):
         raise ValueError(f"the kernels take d_model in {SUPPORTED_D_MODEL}, d_head in "
                          f"{SUPPORTED_D_HEAD}, an FFN width that is a multiple of 128 and L "
@@ -295,24 +425,30 @@ def check_shape(B: int, L: int, D: int, F: int, n_head: int) -> None:
                          f"n_head={n_head}, ffn={F}")
 
 
-def _launch(entry: str, x: torch.Tensor, out: torch.Tensor, ops, n_head: int, F: int,
-            rows: int) -> None:
-    """Allocate the scratch, launch one C entry point, raise on its error."""
+def _call_layer(entry: str, x: torch.Tensor, out: torch.Tensor, scratch, ops, n_head: int,
+                F: int) -> None:
+    """Launch one layer's C entry point on the scratch tensors; raise on its
+    error."""
     B, L, D = x.shape
-    qkv = torch.empty((B, L, 3 * D), dtype=x.dtype, device=x.device)
-    attn = torch.empty((B, rows, D), dtype=x.dtype, device=x.device)
-    x1 = torch.empty((B, rows, D), dtype=x.dtype, device=x.device)
-    hid = torch.empty((B, rows, F), dtype=x.dtype, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, entry)(
-            x.data_ptr(), out.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
-            x1.data_ptr(), hid.data_ptr(), *(t.data_ptr() for t in ops),
-            B, L, D, n_head, F, stream)
+            x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in scratch),
+            *(t.data_ptr() for t in ops), B, L, D, n_head, F, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err} "
                            f"({lib.vitiq_error_string(err).decode()})")
+
+
+def _launch(entry: str, x: torch.Tensor, out: torch.Tensor, ops, n_head: int, F: int,
+            rows: int) -> None:
+    """A full layer (K1, K7, P3; rows = L): allocate its scratch, qkv [B, L,
+    3D], attn and x1 [B, rows, D], hid [B, rows, F], and launch."""
+    B, L, D = x.shape
+    scratch = [torch.empty((B, L, 3 * D), dtype=x.dtype, device=x.device)]
+    scratch += [torch.empty((B, rows, w), dtype=x.dtype, device=x.device) for w in (D, D, F)]
+    _call_layer(entry, x, out, scratch, ops, n_head, F)
 
 
 def fused_encoder_layer(x: torch.Tensor, ops: Sequence[torch.Tensor],
@@ -322,6 +458,8 @@ def fused_encoder_layer(x: torch.Tensor, ops: Sequence[torch.Tensor],
     if x.device.type == "cpu":
         return fused_layer_reference(x, ops, n_head, x.shape[1])
     F = _check_inputs(x, ops, n_head)
+    if len(ops) != 12:
+        raise ValueError(f"K1 takes the 12 layer operands, got {len(ops)}")
     out = torch.empty_like(x)
     _launch("vitiq_encoder_layer_full", x, out, ops, n_head, F, x.shape[1])
     launches["fused_encoder_layer"] += 1
@@ -330,13 +468,21 @@ def fused_encoder_layer(x: torch.Tensor, ops: Sequence[torch.Tensor],
 
 def fused_encoder_layer_cls(x: torch.Tensor, ops: Sequence[torch.Tensor],
                             n_head: int) -> torch.Tensor:
-    """K2: the layer for the CLS row only, bf16 [B, L, D] -> bf16 [B, 1, D];
-    the plain version for a CPU tensor."""
+    """K2: the layer for the CLS row only, bf16 [B, L, D] -> bf16 [B, 1, D],
+    from the 12 layer operands or K2's 15 (`cls_operands`, which the stacks
+    cache: given 12, the block operands are built each call); the plain
+    version, `fused_layer_cls_reference`, for a CPU tensor."""
     if x.device.type == "cpu":
-        return fused_layer_reference(x, ops, n_head, 1)
+        return fused_layer_cls_reference(x, ops, n_head)
+    if x.device.type == "cuda":
+        ops = cls_operands(ops, n_head)
     F = _check_inputs(x, ops, n_head)
-    out = torch.empty((x.shape[0], 1, x.shape[2]), dtype=x.dtype, device=x.device)
-    _launch("vitiq_encoder_layer_cls", x, out, ops, n_head, F, 1)
+    B, _, D = x.shape
+    out = torch.empty((B, 1, D), dtype=x.dtype, device=x.device)
+    # q, qt, xbar, attn, x1, hid
+    scratch = [torch.empty((B, w), dtype=x.dtype, device=x.device)
+               for w in (D, n_head * D, n_head * D, D, D, F)]
+    _call_layer("vitiq_encoder_layer_cls", x, out, scratch, ops, n_head, F)
     launches["fused_encoder_layer_cls"] += 1
     return out
 
@@ -346,13 +492,34 @@ def fused_encoder_layer_stack(x: torch.Tensor, layers, n_head: int,
     """Run `EncoderLayer` modules as the fused inference stack on x [B, L, D]
     (the compute dtype) through the K1/K2 wrappers; returns [B, L, D], or
     [B, 1, D] with ``cls_only``."""
-    ops_list = [layer_operands(layer, n_head, x.dtype) for layer in layers]
-    full = ops_list[:-1] if cls_only else ops_list
-    for ops in full:
-        x = fused_encoder_layer(x, ops, n_head)
+    full = layers[:-1] if cls_only else layers
+    for layer in full:
+        x = fused_encoder_layer(x, layer_operands(layer, n_head, x.dtype), n_head)
     if cls_only:
-        x = fused_encoder_layer_cls(x, ops_list[-1], n_head)
+        x = fused_encoder_layer_cls(x, layer_cls_operands(layers[-1], n_head, x.dtype), n_head)
     return x
+
+
+def cls_pool(x: torch.Tensor, qt: torch.Tensor) -> torch.Tensor:
+    """K2's pooling kernel alone (C entry `vitiq_cls_pool`): bf16 x [B, L, D]
+    and qt [B, H, D] -> xbar [B, H, D] bf16; `cls_pool_reference` for a CPU
+    tensor. Not on the serving path: it exposes the kernel to tests and
+    timing."""
+    if x.device.type == "cpu":
+        return cls_pool_reference(x, qt)
+    B, L, D = x.shape
+    if (x.dim() != 3 or qt.dim() != 3 or qt.shape[0] != B or qt.shape[2] != D
+            or any(t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != x.device
+                   for t in (x, qt))):
+        raise ValueError(f"cls_pool takes contiguous bf16 x [B, L, D] and qt [B, H, D] on one "
+                         f"device; got {x.dtype} {tuple(x.shape)}, {qt.dtype} {tuple(qt.shape)}")
+    H = qt.shape[1]
+    check_shape(B, L, D, 128, H)
+    xbar = torch.empty((B, H, D), dtype=x.dtype, device=x.device)
+    _build.call("vitiq_cls_pool", x.device, x.data_ptr(), qt.data_ptr(), xbar.data_ptr(), B, L,
+                D, H)
+    stage_launches["cls_pool"] += 1
+    return xbar
 
 
 def attention_core(qkv: torch.Tensor, n_head: int) -> torch.Tensor:

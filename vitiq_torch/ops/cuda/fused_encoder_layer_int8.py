@@ -129,9 +129,10 @@ def int8_layer_operands(layer, n_head: int) -> List[torch.Tensor]:
 
 
 def dequant_layer_operands(layer, n_head: int, dtype=torch.bfloat16) -> List[torch.Tensor]:
-    """K2's 12 operands (`fel.layer_operands`' layout) from a quantized
-    layer's dequantized weights, ``W_q * s_col`` in f32 (the TPU stack's
-    `_dequant_layer`, then `xpack_layer_operands`). Copies, cached."""
+    """K2's 15 operands (`fel.cls_operands`: `fel.layer_operands`' 12, then
+    its block operands) from a quantized layer's dequantized weights, ``W_q *
+    s_col`` in f32 (the TPU stack's `_dequant_layer`, then
+    `xpack_layer_operands`). Copies, cached."""
     att, ffn = layer.attention, layer.ffn
     scale = _q_scale(layer, n_head)
 
@@ -143,7 +144,7 @@ def dequant_layer_operands(layer, n_head: int, dtype=torch.bfloat16) -> List[tor
 
     def build():
         wqkv = torch.cat([kernel(att.w_q) * scale, kernel(att.w_k), kernel(att.w_v)], dim=1)
-        return [
+        return fel.cls_operands([
             wqkv.to(dtype).contiguous(),
             torch.cat([vec(att.w_q.bias) * scale, vec(att.w_k.bias), vec(att.w_v.bias)]),
             kernel(att.w_concat).to(dtype).contiguous(), vec(att.w_concat.bias),
@@ -151,7 +152,7 @@ def dequant_layer_operands(layer, n_head: int, dtype=torch.bfloat16) -> List[tor
             kernel(ffn.linear1).to(dtype).contiguous(), vec(ffn.linear1.bias),
             kernel(ffn.linear2).to(dtype).contiguous(), vec(ffn.linear2.bias),
             vec(layer.norm2.gamma), vec(layer.norm2.beta),
-        ]
+        ], n_head)
 
     return _cached(layer, ("dequant", n_head, dtype, att.w_q.weight_q.device), build)
 
@@ -299,7 +300,7 @@ def fused_encoder_layer_int8_stack_reference(x: torch.Tensor, ops_list, n_head: 
     for ops in ops_list:
         x = fused_layer_int8_reference(x, ops, n_head)
     if cls_ops is not None:
-        x = fel.fused_layer_reference(x, cls_ops, n_head, 1)
+        x = fel.fused_layer_cls_reference(x, cls_ops, n_head)
     return x
 
 

@@ -30,8 +30,9 @@ elsewhere (`tests/test_torch_fused_layer.py` holds both regimes).
 
 `fused_encoder_layer_int8attn` launches the kernel on a CUDA tensor (raising
 on any build, launch or shape error) and runs `fused_layer_int8attn_reference`
-on a CPU tensor. It takes K1's shapes (`fel.fused_infer_supported`: its
-int8 core holds half K1's bytes of k and v per key in shared memory).
+on a CPU tensor. It takes K1's shapes (`fel.fused_infer_supported`): its int8
+core loads the frame-head's bf16 k and v as K1's core does and quantizes them
+in place, so it needs K1's core's shared memory (`attention_int8_smem_bytes`).
 `fused_encoder_layer_int8attn_stack` runs K7 on every full layer and, with
 ``cls_only``, K2 (bf16) on the last layer's CLS row, as the TPU stack does.
 `attention_int8` runs K7's attention core alone (for tests and timing); with
@@ -75,11 +76,24 @@ def reset_launches() -> None:
 
 
 def attention_int8_smem_bytes(L: int, d_head: int) -> int:
-    """Shared memory of K7's attention block at L tokens: int8 k rows
-    [round32(L)][d_head + 16] and v transposed [d_head][round32(L) + 16] (the
-    formula of `attention_int8_smem_bytes` in the .cu)."""
-    l32 = (L + 31) // 32 * 32
-    return l32 * (d_head + 16) + d_head * (l32 + 16)
+    """Shared memory of K7's attention block at L tokens (`k7_smem_bytes` in
+    the .cu): the frame-head's bf16 k and v in 64-key tiles (K1's core's),
+    an mbarrier and 1 KB of alignment. The int8 k rows [key][max(32,
+    d_head)] and v^T tiles [128 keys][d_head][128] then overwrite the tiles
+    in place (`k7_int8_layout_bytes`)."""
+    n_kt = -(-L // 64)
+    return 1024 + n_kt * 64 * d_head * 4 + 8
+
+
+def k7_int8_layout_bytes(L: int, d_head: int) -> int:
+    """Where the int8 layout the kernel writes in place ends, from the tiles'
+    start: int8 k rows of the 64-key tiles' keys, max(32, d_head) bytes
+    each, then (from the bf16 v tiles' start, 128 L_64 d_head bytes in,
+    `v8_base`) the v^T tiles, d_head x 128 bytes a 128-key tile. It stays
+    within the tiles' 4 L_64 d_head bytes (L_64: L rounded up to 64)."""
+    n_kt = -(-L // 64)
+    assert n_kt * 64 * max(32, d_head) <= n_kt * 64 * d_head * 2
+    return n_kt * 64 * d_head * 2 + -(-L // TILE) * d_head * 128
 
 
 # --------------------------------------------------------------------------
@@ -192,7 +206,7 @@ def fused_encoder_layer_int8attn_stack_reference(x: torch.Tensor, ops_list, n_he
     for ops in full:
         x = fused_layer_int8attn_reference(x, ops, n_head)
     if cls_only:
-        x = fel.fused_layer_reference(x, ops_list[-1], n_head, 1)
+        x = fel.fused_layer_cls_reference(x, ops_list[-1], n_head)
     return x
 
 
@@ -230,10 +244,12 @@ def attention_int8(qkv: torch.Tensor, n_head: int, dump: bool = False):
     fel.check_shape(B, L, D, 128, n_head)
     out = torch.empty((B, L, D), dtype=qkv.dtype, device=qkv.device)
     dumps = {}
-    if dump:
+    if dump:  # the kernel's score and probability rows hold whole 128-key tiles
         dh, n_tiles = D // n_head, -(-L // TILE)
-        dumps = {"scores": torch.empty((B, n_head, L, L), dtype=torch.int32, device=qkv.device),
-                 "probs": torch.empty((B, n_head, L, L), dtype=torch.int8, device=qkv.device),
+        dumps = {"scores": torch.empty((B, n_head, L, n_tiles * TILE), dtype=torch.int32,
+                                       device=qkv.device),
+                 "probs": torch.empty((B, n_head, L, n_tiles * TILE), dtype=torch.int8,
+                                      device=qkv.device),
                  "pv": torch.empty((B, n_head, n_tiles, L, dh + 1), dtype=torch.int32,
                                    device=qkv.device)}
     ptrs = [dumps[k].data_ptr() if dump else None for k in ("scores", "probs", "pv")]
@@ -246,7 +262,11 @@ def attention_int8(qkv: torch.Tensor, n_head: int, dump: bool = False):
         raise RuntimeError(f"vitiq_attention_int8 failed: CUDA error {err} "
                            f"({lib.vitiq_error_string(err).decode()})")
     launches["attention_int8"] += 1
-    return (out, dumps) if dump else out
+    if dump:
+        dumps = {"scores": dumps["scores"][..., :L], "probs": dumps["probs"][..., :L],
+                 "pv": dumps["pv"]}
+        return out, dumps
+    return out
 
 
 def fused_encoder_layer_int8attn_stack(x: torch.Tensor, layers, n_head: int,
@@ -255,10 +275,10 @@ def fused_encoder_layer_int8attn_stack(x: torch.Tensor, layers, n_head: int,
     bf16 x [B, L, D]: K7 on every full layer, then with ``cls_only`` K2 on
     the last layer for the CLS row; returns [B, L, D], or [B, 1, D] with
     ``cls_only``."""
-    ops_list = [fel.layer_operands(layer, n_head, x.dtype) for layer in layers]
-    full = ops_list[:-1] if cls_only else ops_list
-    for ops in full:
-        x = fused_encoder_layer_int8attn(x, ops, n_head)
+    full = layers[:-1] if cls_only else layers
+    for layer in full:
+        x = fused_encoder_layer_int8attn(x, fel.layer_operands(layer, n_head, x.dtype), n_head)
     if cls_only:
-        x = fel.fused_encoder_layer_cls(x, ops_list[-1], n_head)
+        x = fel.fused_encoder_layer_cls(x, fel.layer_cls_operands(layers[-1], n_head, x.dtype),
+                                        n_head)
     return x
