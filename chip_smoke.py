@@ -13,9 +13,10 @@ which raises (exit code 1) on failure:
    (`fa.ring_info`) are printed. Every instance of K6's s8 GEMM stage
    (gemm_s8_kernel, `k6.S8_INSTANCES`) must be in the build, must not spill
    and must run IGMMA (the integer warpgroup MMA; HGMMA is the bf16 one) and
-   no HGMMA. Every instance of K7's int8 attention core
-   (attention_int8_kernel, d_head 16/32/64 with and without its DUMP
-   variant) must run IGMMA and not spill, and every instance of K2's pooling
+   no HGMMA. Every instance of K7's two int8 attention cores (d_head
+   16/32/64 with and without their DUMP variants) must not spill: the wgmma
+   core (attention_int8_kernel) must run IGMMA, the one-tile core
+   (attention_int8_sync_kernel) IMMA; and every instance of K2's pooling
    kernel (cls_pool_kernel, d_model 64/128/256) HMMA (mma.sync) without a
    spill (`check_k2k7_build`).
 3. kernels: K1 (full fused layers) and K2 (the CLS-row layer) on the GPU
@@ -76,6 +77,8 @@ which raises (exit code 1) on failure:
    plain version's input and the five layers with the K2 CLS tail as one
    stack, held as K6 is (K7_LAYER_TOL, K7_STACK_TOL), with K1 on the same
    input, which the layer check must turn away; its core alone on one qkv,
+   in each of its two forms at every shape (a layer takes the mma.sync
+   core up to 96 tokens, the wgmma core past them: `k7.core_route`),
    whose s32 scores and s32 P [v | 1] tile products (on its own int8
    probabilities) must equal the plain version's bit for bit, its
    probabilities and outputs differing in fewer than K7_CORE_DIFFER of them,
@@ -215,7 +218,8 @@ which raises (exit code 1) on failure:
    p50 latency at B=4096 (ViT, rawIQ) and B=2048 (conv1d), through the
    kernels and through the plain layer loop, and at B=4096 (ViT, rawIQ)
    through the int8 path; K7 per layer at B=4096 (ViT, rawIQ, rawiq_best)
-   and B=256 (conv1d), and its int8 core alone, against its plain version
+   and B=256 (conv1d), and its int8 core alone (the routed form, and each
+   form), against its plain version
    and K1 (and K1's core) in the same call, with its bound (K1's
    GEMM FLOPs at 989 TFLOP/s plus its s8 score and P [v | 1] operations at
    1979 TOP/s, or its bytes; no PyTorch call computes the layer, so no
@@ -291,7 +295,14 @@ root and run it there). ``--k4`` does the same with `time_k4`: K4's layers
 by stage and the train steps that go through it; ``--k3`` with `time_k3`:
 K3's layers at the shapes it trains, each by stage, and the train steps
 through K3; ``--k2k7`` with `time_k2k7`: K2, K7 and K1 a layer, K7's and
-K1's cores alone, K2 and K7 by stage, at K2K7_SHAPES.
+K1's cores alone, K2 and K7 by stage, at K2K7_SHAPES, serving in bf16 and
+under VITIQ_ATTN_INT8=1 at the four arms, and K7's two core forms over L
+(K7_SWEEP_L). ``--latency`` also times K2's host time a call at B=1.
+
+The launches of K2's pooling kernel and K7's two cores are counted by the C
+code where it launches each (`fel.kernel_launches`); the kernels line gives
+those counts from the main path's runs (the ViT flagship's serve phase, and
+the ViT flagship's and rawiq_best's evaluations under VITIQ_ATTN_INT8=1).
 """
 
 from __future__ import annotations
@@ -579,18 +590,20 @@ def check_k6_build() -> None:
 
 
 def check_k2k7_build() -> None:
-    """K7's core (attention_int8_kernel at d_head 16/32/64, with and without
-    its DUMP variant) and K2's pooling kernel (cls_pool_kernel at d_model 64,
-    128 and 256, and 256 with two head blocks) in the build: their `ptxas
-    -v` registers and spills (none may spill), and their SASS (cuobjdump,
-    beside nvcc): IGMMA (the integer warpgroup MMA) in every K7 core, HMMA
-    (mma.sync) in every pooling kernel."""
+    """K7's cores (attention_int8_kernel and attention_int8_sync_kernel at
+    d_head 16/32/64, with and without their DUMP variants) and K2's pooling
+    kernel (cls_pool_kernel at d_model 64, 128 and 256, and 256 with two
+    head blocks) in the build: their `ptxas -v` registers and spills (none
+    may spill), and their SASS (cuobjdump, beside nvcc): IGMMA (the integer
+    warpgroup MMA) in every wgmma core, IMMA (s8 mma.sync) in every
+    one-tile core, HMMA (mma.sync) in every pooling kernel."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())], capture_output=True,
                           text=True, timeout=600, check=True).stdout
     bodies = dict(block.split("\n", 1) for block in sass.split("Function : ")[1:])
     entries = _build.ptxas_entries(_build.ptxas_report("fused_encoder_layer"))
-    for tag, op, want in (("attention_int8_kernel", "IGMMA.64x", 6), ("cls_pool_kernel", "HMMA", 4)):
+    for tag, op, want in (("attention_int8_kernel", "IGMMA.64x", 6),
+                          ("attention_int8_sync_kernel", "IMMA", 6), ("cls_pool_kernel", "HMMA", 4)):
         mine = {n: v for n, v in entries.items() if tag in n}
         if len(mine) != want:
             raise AssertionError(f"{len(mine)} instances of {tag} in the build, want {want}")
@@ -689,9 +702,10 @@ def check_kernels(device, conv1d_batch: int = 64, batch: int = 256) -> dict:
             stack = fel.fused_encoder_layer_stack(x, layers[:5], H)
             torch.cuda.synchronize()
             check_close(f"{name} K1 5-layer stack", stack, h, STACK_TOL)
-            got = fel.fused_encoder_layer_cls(h, ops[5], H)
+            cls_ops = fel.cls_operands(ops[5], H)
+            got = fel.fused_encoder_layer_cls(h, cls_ops, H)
             want = fel.fused_layer_reference(h, ops[5], H, 1)
-            own = fel.fused_layer_cls_reference(h, ops[5], H)
+            own = fel.fused_layer_cls_reference(h, cls_ops, H)
             torch.cuda.synchronize()
             errs["k2"] = max(errs["k2"], check_close(
                 f"{name} K2 CLS layer (L={L}, F={ffn}{wide})", got, want, LAYER_TOL))
@@ -955,8 +969,12 @@ def serve_check(label: str, model_cfg, stats, device, sizes, buckets, k5_route=F
                 raise AssertionError(f"{label}: request of {x.shape[0]} launched {got}, "
                                      f"expected {want_per_request}")
         counts = {**fel.launches, **fa.launches}
+        kernel_counts = fel.kernel_launches()
     finally:
         os.environ.pop("VITIQ_NO_FUSED_LAYER", None)
+    if kernel_counts["cls_pool_kernel"] != counts["fused_encoder_layer_cls"]:
+        raise AssertionError(f"{label}: {kernel_counts['cls_pool_kernel']} pooling kernels "
+                             f"launched by {counts['fused_encoder_layer_cls']} K2 calls")
 
     got = torch.cat(outs)
     want = torch.cat([ref_serve(x) for x in requests])
@@ -980,8 +998,8 @@ def serve_check(label: str, model_cfg, stats, device, sizes, buckets, k5_route=F
         raise AssertionError(f"{label}: argmax diverges on confident rows")
     del ref_model, ref_serve
     torch.cuda.empty_cache()
-    return {"counts": counts, "max_abs": max_abs, "model": model, "exp": exp, "stats": stats,
-            "raw_embed": model.raw_stats is not None}
+    return {"counts": counts, "kernel_counts": kernel_counts, "max_abs": max_abs, "model": model,
+            "exp": exp, "stats": stats, "raw_embed": model.raw_stats is not None}
 
 
 def time_serving(label: str, serve, batch: int, device, card: str, iters: int = 20,
@@ -1001,6 +1019,7 @@ def time_serving(label: str, serve, batch: int, device, card: str, iters: int = 
     print(f"  {label} serving B={batch}: p50 latency {p50:.4f} ms (host clock, synced), "
           f"{batch / (ms / 1e3):.1f} frames/s (CUDA events, {ms:.4f} ms/batch)  [{card}]",
           flush=True)
+    return {"p50_ms": p50, "frames_per_s": batch / (ms / 1e3), "ms": ms}
 
 
 # the small batches a live-decision user sends: serving p50 there is the
@@ -1066,9 +1085,14 @@ def time_small_batches(device, card: str, iters: int = 100) -> dict:
             lat.append(time.perf_counter() - t0)
     out["k1_host_us_b1"] = host * 1e6
     out["k1_p50_us_b1"] = statistics.median(lat) * 1e6
+    # K2 at B=1 on the same shape: its 15 operands where the tree takes them
+    cls_ops = fel.cls_operands(ops, 8) if hasattr(fel, "cls_operands") else ops
+    k2 = time_host("K2 at B=1, L=129", lambda: fel.fused_encoder_layer_cls(x, cls_ops, 8), card,
+                   iters)
+    out["k2_host_us_b1"], out["k2_p50_us_b1"] = k2["host_us"], k2["p50_us"]
     print("  small batches: " + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
-          + f" (serving p50: host clock, synced, {iters} requests; K1 at B=1, L=129: host time "
-          f"a call unsynced, p50 synced)  [{card}]", flush=True)
+          + f" (serving p50: host clock, synced, {iters} requests; K1 and K2 at B=1, L=129: "
+          f"host time a call unsynced, p50 synced)  [{card}]", flush=True)
     return out
 
 
@@ -1901,8 +1925,8 @@ def check_int8_kernels(device, batch: int = 256, conv1d_batch: int = 64) -> floa
                                                   K6_LAYER_TOL))
                     h = want
                 stack = k6.fused_encoder_layer_int8_stack(x, layers, n_head, cls_only=True)
-                want = fel.fused_layer_reference(
-                    h, k6.dequant_layer_operands(layers[5], n_head), n_head, 1)
+                want = fel.fused_layer_reference(  # the layer's 12 of K2's 15
+                    h, k6.dequant_layer_operands(layers[5], n_head)[:12], n_head, 1)
                 torch.cuda.synchronize()
                 check_int8(f"{name} 5 K6 layers + K2 CLS tail", stack, want, K6_STACK_TOL)
         a = h.reshape(-1, D)
@@ -2146,16 +2170,26 @@ def evaluate_check(device, label: str = "the ViT flagship", model_cfg=None,
             if not (exp_dir / "evaluation" / f"{prefix}_results.pkl").exists():
                 raise AssertionError(f"{prefix}_results.pkl missing")
             launched = {k: v for k, v in all_launches().items() if v}
+            counted = fel.kernel_launches()
             batches = -(-len(r["labels"]) // EVAL_BATCH)
             want = {kernel: (n - 1) * batches, "fused_encoder_layer_cls": batches}
             if launched != want:
                 raise AssertionError(f"run_evaluation({mode}) launched {launched}, "
                                      f"expected {want}")
+            # where the C code launches them: K2's pooling kernel once a K2
+            # call, one of K7's two cores once a K7 layer
+            cores = counted["attention_int8_kernel"] + counted["attention_int8_sync_kernel"]
+            if (counted["cls_pool_kernel"] != batches
+                    or cores != (want[K7] if mode == "int8attn" else 0)):
+                raise AssertionError(f"run_evaluation({mode}) launched the counted kernels "
+                                     f"{counted}; expected {batches} pooling kernels and a K7 "
+                                     f"core a K7 layer")
             snr = ", ".join(f"{k:+d} dB {v * 100:.2f}%" for k, v in r["snr_accuracies"].items())
             print(f"  run_evaluation({mode}) on {len(r['labels'])} test frames: accuracy "
                   f"{r['overall_accuracy'] * 100:.2f}% ({snr}); launches {launched}", flush=True)
             out[mode] = r
             out[mode + "_launches"] = launched
+            out[mode + "_kernels"] = counted
     acc_f = out["float"]["overall_accuracy"]
     for mode in ("int8", "int8attn"):
         acc = out[mode]["overall_accuracy"]
@@ -2171,7 +2205,8 @@ def evaluate_check(device, label: str = "the ViT flagship", model_cfg=None,
     torch.cuda.empty_cache()
     return {"float_acc": acc_f, "int8_acc": out["int8"]["overall_accuracy"],
             "int8attn_acc": out["int8attn"]["overall_accuracy"],
-            "k7_launches": out["int8attn_launches"][K7]}
+            "k7_launches": out["int8attn_launches"][K7],
+            "kernel_launches": out["int8attn_kernels"]}
 
 
 def best_cli_train_check(device, card: str,
@@ -2384,14 +2419,17 @@ def check_int8attn_kernels(device, batch: int = 256, conv1d_batch: int = 64,
     version's input to it, then the five K7 layers with the K2 CLS tail as
     one stack, held as K6 is (K7_LAYER_TOL, K7_STACK_TOL), with K1 on the
     first layer's input read by the same check, which must turn it away; and
-    K7's core alone on one qkv (`core_batch` frames), whose s32 scores and
-    s32 tile products P [v | 1] (taken with the kernel's own int8
+    K7's core alone on one qkv (`core_batch` frames), in each of its two
+    forms (the wgmma core and the one-tile mma.sync core, each at every
+    shape; a layer takes the form `k7.core_route` gives), whose s32 scores
+    and s32 tile products P [v | 1] (taken with the kernel's own int8
     probabilities) must equal the plain version's bit for bit, with the
     probabilities and outputs that differ held by K7_CORE_DIFFER and the
     outputs equal to 30 launches without the dump. Returns the largest
-    per-layer difference and the core's largest |difference| from its plain
-    output."""
-    worst = core_err = 0.0
+    per-layer difference and each form's largest |difference| from the
+    core's plain output."""
+    worst = 0.0
+    core_err = {"wgmma": 0.0, "sync": 0.0}
     gen = torch.Generator().manual_seed(23)
     shapes = [("vit", 129, 512, 128), ("rawiq", 65, 1024, 128), ("conv1d", CONV1D_L, 1024, 128),
               ("rawiq_best", 65, 1024, 256)]
@@ -2418,29 +2456,35 @@ def check_int8attn_kernels(device, batch: int = 256, conv1d_batch: int = 64,
             torch.cuda.synchronize()
             check_int8(f"{name} 5 K7 layers + K2 CLS tail", stack, want, K7_STACK_TOL)
             qkv = (fel._mm(h[:core_batch], ops[0][0]) + ops[0][1]).to(torch.bfloat16)
-            core, dump = k7.attention_int8(qkv, 8, dump=True)
-            same_bits = all(torch.equal(core, k7.attention_int8(qkv, 8)) for _ in range(30))
-            torch.cuda.synchronize()
-            plain = k7.attention_int8_products(qkv, 8, probs=dump["probs"])
             own = k7.attention_int8_products(qkv, 8)
             ref = k7.attention_int8_reference(qkv, 8)
-        same_s = torch.equal(dump["scores"], plain["scores"])
-        same_pv = torch.equal(dump["pv"], plain["pv"])
-        n_probs = int((dump["probs"] != own["probs"]).sum())
-        n_out = int((core != ref).sum())
-        core_err = max(core_err, (core.float() - ref.float()).abs().max().item())
-        print(f"  {name} K7 core alone B={core_batch}: s32 scores equal to the plain version's: "
-              f"{same_s}; s32 P [v | 1] tile products on the kernel's probabilities equal: "
-              f"{same_pv}; int8 probabilities that differ {n_probs} of "
-              f"{dump['probs'].numel()}, outputs that differ {n_out} of {core.numel()} (limits "
-              f"{K7_CORE_DIFFER[0]:g} and {K7_CORE_DIFFER[1]:g} of them); the same outputs "
-              f"without the dump, 30 launches: {same_bits}", flush=True)
-        if not (same_s and same_pv):
-            raise AssertionError(f"{name}: K7's int8 products are not the plain version's")
-        if not (n_probs < K7_CORE_DIFFER[0] * dump["probs"].numel()
-                and n_out < K7_CORE_DIFFER[1] * core.numel() and same_bits):
-            raise AssertionError(f"{name}: K7's core disagrees with its plain version")
-        del layers, x, h, stack, want, qkv, core, dump, plain, own, ref
+        for form in ("wgmma", "sync"):
+            with torch.no_grad():
+                core, dump = k7.attention_int8(qkv, 8, dump=True, core=form)
+                same_bits = all(torch.equal(core, k7.attention_int8(qkv, 8, core=form))
+                                for _ in range(30))
+                torch.cuda.synchronize()
+                plain = k7.attention_int8_products(qkv, 8, probs=dump["probs"])
+            same_s = torch.equal(dump["scores"], plain["scores"])
+            same_pv = torch.equal(dump["pv"], plain["pv"])
+            n_probs = int((dump["probs"] != own["probs"]).sum())
+            n_out = int((core != ref).sum())
+            core_err[form] = max(core_err[form], (core.float() - ref.float()).abs().max().item())
+            routed = " (the layer's route)" if k7.core_route(L) == form else ""
+            print(f"  {name} K7 {form} core{routed} alone B={core_batch}: s32 scores equal to the "
+                  f"plain version's: {same_s}; s32 P [v | 1] tile products on the kernel's "
+                  f"probabilities equal: {same_pv}; int8 probabilities that differ {n_probs} of "
+                  f"{dump['probs'].numel()}, outputs that differ {n_out} of {core.numel()} "
+                  f"(limits {K7_CORE_DIFFER[0]:g} and {K7_CORE_DIFFER[1]:g} of them); the same "
+                  f"outputs without the dump, 30 launches: {same_bits}", flush=True)
+            if not (same_s and same_pv):
+                raise AssertionError(f"{name}: K7's {form} int8 products are not the plain "
+                                     f"version's")
+            if not (n_probs < K7_CORE_DIFFER[0] * dump["probs"].numel()
+                    and n_out < K7_CORE_DIFFER[1] * core.numel() and same_bits):
+                raise AssertionError(f"{name}: K7's {form} core disagrees with its plain version")
+            del core, dump, plain
+        del layers, x, h, stack, want, qkv, own, ref
         torch.cuda.empty_cache()
     return worst, core_err
 
@@ -2594,6 +2638,8 @@ def time_int8attn_layers(name: str, L: int, ffn: int, device, card: str, B: int 
                                    warmup=1),
             "k7_k1_ms": cuda_ms(lambda: fel.fused_encoder_layer(x, ops, 8), 20),
             "k7_core_ms": cuda_ms(lambda: k7.attention_int8(qkv, 8), 20),
+            "k7_wgmma_ms": cuda_ms(lambda: k7.attention_int8(qkv, 8, core="wgmma"), 20),
+            "k7_sync_ms": cuda_ms(lambda: k7.attention_int8(qkv, 8, core="sync"), 20),
             "k7_core_plain_ms": cuda_ms(lambda: k7.attention_int8_reference(qkv, 8), 3,
                                         warmup=1),
             "k1_core_ms": cuda_ms(lambda: fel.attention_core(qkv, 8), 20),
@@ -2603,9 +2649,11 @@ def time_int8attn_layers(name: str, L: int, ffn: int, device, card: str, B: int 
     print(f"  {name} int8-attention layer B={B} L={L} F={ffn} D={D}: K7 {t['k7_ms']:.4f} ms vs "
           f"plain {t['k7_plain_ms']:.4f} ms vs K1 {t['k7_k1_ms']:.4f} ms (K7 bound "
           f"{t['k7'][0]:.4f} ms by {t['k7'][1]}; library none: no PyTorch call computes an "
-          f"int8-attention layer); its int8 core alone {t['k7_core_ms']:.4f} ms vs plain "
-          f"{t['k7_core_plain_ms']:.4f} ms vs K1's core {t['k1_core_ms']:.4f} ms (bound "
-          f"{t['k7_core'][0]:.4f} ms by {t['k7_core'][1]})  [{card}]", flush=True)
+          f"int8-attention layer); its int8 core alone ({k7.core_route(L)}, the layer's route) "
+          f"{t['k7_core_ms']:.4f} ms (wgmma {t['k7_wgmma_ms']:.4f} ms, mma.sync "
+          f"{t['k7_sync_ms']:.4f} ms) vs plain {t['k7_core_plain_ms']:.4f} ms vs K1's core "
+          f"{t['k1_core_ms']:.4f} ms (bound {t['k7_core'][0]:.4f} ms by {t['k7_core'][1]})  "
+          f"[{card}]", flush=True)
     del x, qkv
     torch.cuda.empty_cache()
     return t
@@ -3363,14 +3411,71 @@ K2K7_SHAPES = (("vit", 129, 512, 128, 8, 4096), ("rawiq", 65, 1024, 128, 8, 4096
                ("conv1d", CONV1D_L, 1024, 128, 8, 256), ("rawiq_best", 65, 1024, 256, 8, 4096))
 
 
+# K7's core in each form over L (--k2k7, where the tree has both): the
+# lengths about the route's edge (96 tokens), at d_head 16 and 32
+K7_SWEEP_L = (17, 33, 49, 65, 81, 96, 97, 113, 128, 129, 145, 161, 193, 257)
+
+
+def time_k7_forms(device, card: str, B: int = 4096) -> dict:
+    """K7's two core forms alone (CUDA events) at each L of K7_SWEEP_L,
+    d_model 128 and 256 with 8 heads (d_head 16 and 32): the times the
+    route by L (`k7.core_route`) rests on."""
+    out = {}
+    for D in (128, 256):
+        for L in K7_SWEEP_L:
+            qkv = torch.randn((B, L, 3 * D), generator=torch.Generator().manual_seed(L)).to(
+                device, torch.bfloat16)
+            with torch.no_grad():
+                t = {form: cuda_ms(lambda: k7.attention_int8(qkv, 8, core=form), 20)
+                     for form in ("wgmma", "sync")}
+            out[f"d{D}_L{L}"] = t
+            print(f"  K7 core forms B={B} L={L} D={D} H=8: wgmma {t['wgmma']:.4f} ms, mma.sync "
+                  f"{t['sync']:.4f} ms (route: {k7.core_route(L)})  [{card}]", flush=True)
+            del qkv
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_int8attn_serving(device, card: str) -> dict:
+    """Serving under VITIQ_ATTN_INT8=1 (K7 on the full layers, K2 on the
+    CLS row) and in bf16 (K1 + K2), frames/s by CUDA events, at the four
+    arms (B=4096, conv1d 2048), random weights: only public entry points,
+    so it runs in an earlier tree too (--k2k7)."""
+    out = {}
+    for label, model_cfg, stats, batch in (
+            ("vit", flagship_vit_config("tpu"), STATS, 4096),
+            ("rawiq", flagship_rawiq_config("tpu"), RAW_STATS, 4096),
+            ("conv1d", flagship_conv1d_config("tpu"), RAW_STATS, 2048),
+            ("rawiq_best", rawiq_best_config("tpu"), RAW_STATS, 4096)):
+        exp = ExperimentConfig(model=model_cfg,
+                               data=DataConfig(synthetic_frame_len=model_cfg.seq_length))
+        model = AMCModel(model_cfg, generator=torch.Generator().manual_seed(0))
+        serve = build_serving_fn(exp, model, stats, device)
+        out[label] = {"bf16": time_serving(f"{label} (bf16: K1 + K2)", serve, batch, device, card,
+                                           frame_len=model_cfg.seq_length)}
+        os.environ["VITIQ_ATTN_INT8"] = "1"
+        try:
+            out[label]["int8attn"] = time_serving(
+                f"{label} (int8 attention, VITIQ_ATTN_INT8=1: K7 + K2)", serve, batch, device,
+                card, frame_len=model_cfg.seq_length)
+        finally:
+            del os.environ["VITIQ_ATTN_INT8"]
+        del model, serve
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_k2k7(device, card: str) -> dict:
     """`--k2k7`: K2, K7 and K1 a layer and K7's and K1's attention cores
-    alone (CUDA events), and K2 and K7 by stage, at K2K7_SHAPES. Uses only
+    alone (CUDA events), and K2 and K7 by stage, at K2K7_SHAPES; serving
+    under VITIQ_ATTN_INT8=1 and in bf16 at the four arms; and, where the
+    tree has K7's two core forms, each alone over K7_SWEEP_L. Uses only
     wrappers an earlier tree of the port has too (K2 with its 15 operands
     where this tree takes them), so that it also runs copied into a tree in
     which K2 still formed K and V: parent, this, this, parent in one
     call."""
     out = {}
+    forms = hasattr(k7, "core_route")
     for name, L, F, D, H, B in K2K7_SHAPES:
         ops = fel.layer_operands(random_layers(1, F, seed=13, device=device, D=D, H=H)[0], H)
         cls_ops = fel.cls_operands(ops, H) if hasattr(fel, "cls_operands") else ops
@@ -3383,13 +3488,21 @@ def time_k2k7(device, card: str) -> dict:
                  "k1_ms": cuda_ms(lambda: fel.fused_encoder_layer(x, ops, H), 20),
                  "k7_core_ms": cuda_ms(lambda: k7.attention_int8(qkv, H), 20),
                  "k1_core_ms": cuda_ms(lambda: fel.attention_core(qkv, H), 20)}
+            if forms:
+                for form in ("wgmma", "sync"):
+                    t[f"k7_{form}_ms"] = cuda_ms(lambda: k7.attention_int8(qkv, H, core=form), 20)
+        each = (f"; wgmma {t['k7_wgmma_ms']:.4f} ms, mma.sync {t['k7_sync_ms']:.4f} ms"
+                if forms else "")
         print(f"  {name} B={B} L={L} D={D} F={F} H={H}: K2 {t['k2_ms']:.4f} ms, K7 "
-              f"{t['k7_ms']:.4f} ms (its core {t['k7_core_ms']:.4f} ms), K1 {t['k1_ms']:.4f} ms "
-              f"(its core {t['k1_core_ms']:.4f} ms)  [{card}]", flush=True)
+              f"{t['k7_ms']:.4f} ms (its core {t['k7_core_ms']:.4f} ms{each}), K1 "
+              f"{t['k1_ms']:.4f} ms (its core {t['k1_core_ms']:.4f} ms)  [{card}]", flush=True)
         del x, qkv
         torch.cuda.empty_cache()
         t.update(profile_k2_k7_stages(name, B, L, D, F, H, device, card))
         out[name] = t
+    out["serving"] = time_int8attn_serving(device, card)
+    if forms:
+        out["k7_forms"] = time_k7_forms(device, card)
     return out
 
 
@@ -3496,7 +3609,8 @@ def main() -> int:
     print("phase int8-stages: K6's s8 stages alone vs their plain versions on the GPU",
           flush=True)
     check_int8_stages(device)
-    errs["k7"], errs["k7_core"] = check_int8attn_kernels(device)
+    errs["k7"], core_errs = check_int8attn_kernels(device)
+    errs["k7_core"], errs["k7_sync_core"] = core_errs["wgmma"], core_errs["sync"]
 
     print("phase serve: ragged requests through Server, bf16 kernels vs f32 path", flush=True)
     vit = serve_check("vit flagship", flagship_vit_config("tpu"), STATS, device,
@@ -3547,8 +3661,8 @@ def main() -> int:
                              COSINE_F32)
     train_check("rawiq_best_mp", rawiq_best_mp_config("tpu"), RAW_STATS, K4, device, COSINE_F32)
     vit_eval = evaluate_check(device)
-    evaluate_check(device, "rawiq_best", rawiq_best_config("tpu"), epochs=BEST_EVAL_EPOCHS,
-                   lr=BEST_EVAL_LR, gate_accuracy=False)
+    best_eval = evaluate_check(device, "rawiq_best", rawiq_best_config("tpu"),
+                               epochs=BEST_EVAL_EPOCHS, lr=BEST_EVAL_LR, gate_accuracy=False)
     best_cli_train_check(device, card)
     train_check("vit_tiny_2016 (d_model 64)", vit_tiny_2016_config("tpu"), STATS, K4, device,
                 COSINE_F32, batch=4096, grad_batch=256)
@@ -3674,7 +3788,7 @@ def main() -> int:
         profile_k2_k7_stages(name, B, L, D, F, H, device, card)
 
     counts, k3, k4, k5 = vit["counts"], vit_train["counts"], raw_train["counts"], conv_train["counts"]
-    vt, rt, ct = times["vit"], times["rawiq"], times["conv1d"]
+    vt, rt, ct, bt = times["vit"], times["rawiq"], times["conv1d"], times["rawiq_best"]
     # K3's passes run inside K3-fwd (the forward) and K3-bwd (the forward in
     # its recompute, then the backward): their launches are K3's at shapes
     # the routing sends to them (rawiq_best's forward, the ViT flagship's
@@ -3698,16 +3812,21 @@ def main() -> int:
               vt["k2"], None),
         entry("fused_encoder_layer_int8 (K6, W8A8 full layers)", SOURCE, f"{TPU_SOURCE}:1695",
               vit8["counts"][K6], errs["k6"], vt["k6_ms"], vt["k6_plain_ms"], vt["k6"], None),
-        entry("cls_pool_kernel (K2's pooling: the CLS query's attention as one read of x; "
-              "one a K2 call)", SOURCE, f"{TPU_SOURCE}:371", counts["fused_encoder_layer_cls"],
+        entry("cls_pool_kernel (K2's pooling: the CLS query's attention as one read of x)",
+              SOURCE, f"{TPU_SOURCE}:371", vit["kernel_counts"]["cls_pool_kernel"],
               errs["cls_pool"], vt["pool_ms"], vt["pool_plain_ms"], vt["pool"],
               vt["pool_sdpa_ms"]),
         entry("fused_encoder_layer_int8attn (K7, int8-attention full layers)", SOURCE,
               f"{TPU_SOURCE}:812", vit_eval["k7_launches"], errs["k7"], vt["k7_ms"],
               vt["k7_plain_ms"], vt["k7"], None),
-        entry("attention_int8_kernel (K7's int8 attention core on s8 wgmma; one a K7 layer)",
-              SOURCE, f"{TPU_SOURCE}:812", vit_eval["k7_launches"], errs["k7_core"],
+        entry("attention_int8_kernel (K7's int8 attention core on s8 wgmma, past 96 tokens: "
+              "the ViT flagship)", SOURCE, f"{TPU_SOURCE}:812",
+              vit_eval["kernel_launches"]["attention_int8_kernel"], errs["k7_core"],
               vt["k7_core_ms"], vt["k7_core_plain_ms"], vt["k7_core"], None),
+        entry("attention_int8_sync_kernel (K7's int8 attention core on mma.sync, up to 96 "
+              "tokens: rawiq_best)", SOURCE, f"{TPU_SOURCE}:812",
+              best_eval["kernel_launches"]["attention_int8_sync_kernel"], errs["k7_sync_core"],
+              bt["k7_core_ms"], bt["k7_core_plain_ms"], bt["k7_core"], None),
         entry("fused_train_layer_fwd (K3-fwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:417",
               k3["fused_train_layer_fwd"], errs["k3f"], vt["k3f_ms"], vt["k3f_plain_ms"],
               vt["k3f"], None),

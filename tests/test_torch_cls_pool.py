@@ -64,7 +64,8 @@ def test_k2_plain_version_matches_pallas_cls_layer(geom, monkeypatch):
         want = np.asarray(fused_encoder_layer_v3_stack(jnp.asarray(x), [tree], n_head,
                                                        cls_only=True))
     ops = fel.layer_operands(layer, n_head, torch.float32)
-    got = fel.fused_layer_cls_reference(torch.from_numpy(x), ops, n_head).numpy()
+    got = fel.fused_layer_cls_reference(torch.from_numpy(x), fel.cls_operands(ops, n_head),
+                                        n_head).numpy()
     assert got.shape == (B, 1, d)
     np.testing.assert_allclose(got[:, 0], want[:, 0], atol=1e-4)
 
@@ -78,12 +79,13 @@ def test_k2_plain_version_is_the_tpu_function(geom):
     _, layer = _layer(80 + Lx, d, f, n_head)
     x = torch.from_numpy(_x((B, Lx, d), Lx + 1))
     ops = fel.layer_operands(layer, n_head, torch.float32)
-    torch.testing.assert_close(fel.fused_layer_cls_reference(x, ops, n_head),
+    torch.testing.assert_close(fel.fused_layer_cls_reference(x, fel.cls_operands(ops, n_head),
+                                                             n_head),
                                fel.fused_layer_reference(x, ops, n_head, 1), atol=2e-5,
                                rtol=1e-5)
     ops = fel.layer_operands(layer, n_head)
     xb = x.bfloat16()
-    got = fel.fused_layer_cls_reference(xb, ops, n_head).float()
+    got = fel.fused_layer_cls_reference(xb, fel.cls_operands(ops, n_head), n_head).float()
     want = fel.fused_layer_reference(xb, ops, n_head, 1).float()
     assert torch.all((got - want).abs() <= K2_ATOL + K2_RTOL * want.abs())
 
@@ -144,8 +146,12 @@ def test_k2_wrapper_takes_its_plain_version_on_cpu_and_caches_its_operands():
     assert fel.layer_cls_operands(layer, 8) is full and full[:12] == ops
     fel.reset_launches()
     got = fel.fused_encoder_layer_cls(x, full, 8)
-    assert torch.equal(got, fel.fused_encoder_layer_cls(x, ops, 8))
-    assert torch.equal(got, fel.fused_layer_cls_reference(x, ops, 8))
+    assert torch.equal(got, fel.fused_layer_cls_reference(x, full, 8))
+    for wrong in (lambda: fel.fused_encoder_layer_cls(x, ops, 8),  # K2 takes its 15 only
+                  lambda: fel.fused_layer_reference(x, full, 8, 1),  # the layer its 12 only
+                  lambda: fel.cls_operands(full, 8)):
+        with pytest.raises(ValueError):
+            wrong()
     assert torch.equal(fel.cls_pool(x, x[:, :3].contiguous()),
                        fel.cls_pool_reference(x, x[:, :3].contiguous()))
     assert fel.launches["fused_encoder_layer_cls"] == 0 and fel.stage_launches["cls_pool"] == 0
@@ -162,15 +168,23 @@ def _admitted(d, d_head):
 
 @pytest.mark.parametrize("d_head", [16, 32, 64])
 def test_k7_core_fits_at_every_admitted_length(d_head):
-    """K7's core takes K1's core's shared memory (bf16 k and v tiles) and
-    quantizes in place: at every L the gate admits it fits the card beside
-    the block's 32 static bytes (its warps' partial maxima), and the int8
-    layout ends within the tiles."""
+    """K7's wgmma core takes K1's core's shared memory (bf16 k and v tiles)
+    and quantizes in place: at every L the gate admits it fits the card
+    beside the block's 32 static bytes (its warps' partial maxima), and the
+    int8 layout ends within the tiles. Its mma.sync core fits too; a layer
+    takes that one up to SYNC_MAX_L tokens (within one key tile), and the
+    block the route gives."""
     for Lx in _admitted(128, d_head):
-        smem = k7.attention_int8_smem_bytes(Lx, d_head)
+        smem = k7.attention_int8_smem_bytes(Lx, d_head, "wgmma")
         assert smem <= fel.core_smem_bytes(Lx, d_head)
         assert smem + 32 <= fel.MAX_SHARED_MEMORY
         assert k7.k7_int8_layout_bytes(Lx, d_head) <= 4 * (-(-Lx // 64) * 64) * d_head
+        assert k7.attention_int8_smem_bytes(Lx, d_head, "sync") + 32 <= fel.MAX_SHARED_MEMORY
+        route = k7.core_route(Lx)
+        assert route == ("sync" if Lx <= k7.SYNC_MAX_L else "wgmma")
+        assert k7.attention_int8_smem_bytes(Lx, d_head) == k7.attention_int8_smem_bytes(
+            Lx, d_head, route)
+    assert 64 < k7.SYNC_MAX_L <= k7.TILE  # the rawIQ arms' 65 tokens, one key tile
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])

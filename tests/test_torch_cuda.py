@@ -37,7 +37,8 @@ core repeats the plain version's roundings, but a
 bf16 flip in q or k from the QKV GEMM can move a level); its core's s32
 score and P [v | 1] products equal the plain version's bit for bit on the
 same quantized operands, over 30 launches with the same bits, and its s8
-wgmma kernel runs IGMMA without a spill. `run_training` trains on the card
+wgmma kernel runs IGMMA and its one-tile mma.sync kernel IMMA, neither with
+a spill. `run_training` trains on the card
 through K3, validates through K7 under VITIQ_ATTN_INT8=1, and resumes.
 
 K2 forms no K or V: its pooling kernel (cls_pool_kernel) is held to its
@@ -125,7 +126,7 @@ def test_each_kernel_matches_plain_version_on_one_layer(cuda, Lx, ffn, n_head, d
     x = torch.randn((37 if Lx < 800 else 5, Lx, d), generator=torch.Generator().manual_seed(2))
     x = x.to(cuda, torch.bfloat16)
     full = fel.fused_encoder_layer(x, ops, n_head)
-    cls = fel.fused_encoder_layer_cls(x, ops, n_head)
+    cls = fel.fused_encoder_layer_cls(x, fel.cls_operands(ops, n_head), n_head)
     torch.cuda.synchronize()
     _assert_close(full, fel.fused_layer_reference(x, ops, n_head, Lx), LAYER_TOL)
     _assert_close(cls, fel.fused_layer_reference(x, ops, n_head, 1), LAYER_TOL)
@@ -156,6 +157,8 @@ def test_each_launch_counts_once(cuda):
     fel.fused_encoder_layer_stack(x, layers, H, cls_only=True)
     torch.cuda.synchronize()
     assert fel.launches == {"fused_encoder_layer": 2, "fused_encoder_layer_cls": 1}
+    assert fel.kernel_launches() == {"cls_pool_kernel": 1, "attention_int8_kernel": 0,
+                                     "attention_int8_sync_kernel": 0}
 
 
 @pytest.mark.cuda
@@ -169,8 +172,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="shared-memory"):  # d_head 64 past ~850 tokens
         fel.fused_encoder_layer(torch.zeros((1, 1025, D), dtype=torch.bfloat16, device=cuda),
                                 ops, 2)
+    cls = fel.cls_operands(ops, H)
     with pytest.raises(ValueError, match="operand 0"):
-        fel.fused_encoder_layer_cls(x.bfloat16(), [ops[0].float()] + ops[1:], H)
+        fel.fused_encoder_layer_cls(x.bfloat16(), [cls[0].float()] + cls[1:], H)
+    with pytest.raises(ValueError, match="15"):  # K2 takes its 15 operands only
+        fel.fused_encoder_layer_cls(x.bfloat16(), ops, H)
 
 
 def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -1575,18 +1581,20 @@ def test_int8attn_layer_matches_plain_version(cuda, Lx, ffn, n_head, batch, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("core", ["wgmma", "sync"])
 @pytest.mark.parametrize("Lx,n_head,d", [(129, 8, D), (65, 8, 256), (1025, 8, D), (200, 2, D),
                                          (17, 4, 64), (1, 8, D)])
-def test_int8attn_core_products_are_exact(cuda, Lx, n_head, d):
-    """K7's core alone on one qkv: its s32 scores and its s32 P [v | 1] tile
-    products (on its own int8 probabilities) equal the plain version's bit
-    for bit; the probabilities and outputs differ in at most a few elements
-    (an exp2 rounding to the other side of a half)."""
+def test_int8attn_core_products_are_exact(cuda, Lx, n_head, d, core):
+    """K7's core alone on one qkv, in each of its two forms at every L: its
+    s32 scores and its s32 P [v | 1] tile products (on its own int8
+    probabilities) equal the plain version's bit for bit; the probabilities
+    and outputs differ in at most a few elements (an exp2 rounding to the
+    other side of a half)."""
     from vitiq_torch.ops.cuda import fused_encoder_layer_int8attn as k7
 
     qkv = torch.randn((3, Lx, 3 * d), generator=torch.Generator().manual_seed(4)).to(
         cuda, torch.bfloat16)
-    out, dump = k7.attention_int8(qkv, n_head, dump=True)
+    out, dump = k7.attention_int8(qkv, n_head, dump=True, core=core)
     torch.cuda.synchronize()
     plain = k7.attention_int8_products(qkv, n_head, probs=dump["probs"])
     assert torch.equal(dump["scores"], plain["scores"])
@@ -1595,7 +1603,8 @@ def test_int8attn_core_products_are_exact(cuda, Lx, n_head, d):
     assert (dump["probs"] != own["probs"]).float().mean().item() < 1e-3
     ref = k7.attention_int8_reference(qkv, n_head)
     assert (out != ref).float().mean().item() < 1e-2
-    assert torch.equal(out, k7.attention_int8(qkv, n_head))  # the same bits without the dump
+    # the same bits without the dump
+    assert torch.equal(out, k7.attention_int8(qkv, n_head, core=core))
 
 
 def _sass_bodies():
@@ -1620,30 +1629,57 @@ def _instances(kernel):
 
 
 @pytest.mark.cuda
-def test_int8attn_core_runs_igmma_and_does_not_spill(cuda):
-    """K7's core (attention_int8_kernel at d_head 16/32/64, with and without
-    its DUMP variant) runs the integer warpgroup MMA (IGMMA) and spills
-    nothing."""
-    found = _instances("attention_int8_kernel")
+@pytest.mark.parametrize("kernel,op", [("attention_int8_kernel", "IGMMA.64x"),
+                                       ("attention_int8_sync_kernel", "IMMA")])
+def test_int8attn_core_runs_igmma_and_does_not_spill(cuda, kernel, op):
+    """K7's cores (at d_head 16/32/64, with and without their DUMP
+    variants): the wgmma core runs the integer warpgroup MMA (IGMMA), the
+    one-tile core mma.sync's (IMMA); neither spills."""
+    found = _instances(kernel)
     assert len(found) == 6
     for name, regs, stores, loads, body in found:
-        assert stores == loads == 0 and "IGMMA.64x" in body, (name, regs, stores, loads)
+        assert stores == loads == 0 and op in body, (name, regs, stores, loads)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Lx,core", [(65, "sync"), (96, "sync"), (97, "wgmma"), (129, "wgmma"),
+                                     (17, "sync"), (1025, "wgmma")])
+def test_int8attn_layer_routes_its_core_by_length(cuda, Lx, core):
+    """A K7 layer takes its mma.sync core up to 96 tokens and its wgmma core
+    past them (`core_route`), each launch counted where the C code makes
+    it."""
+    from vitiq_torch.ops.cuda import fused_encoder_layer_int8attn as k7
+
+    assert k7.core_route(Lx) == core
+    ops = fel.layer_operands(_layers(1, 256, cuda)[0], H)
+    x = torch.randn((4, Lx, D), generator=torch.Generator().manual_seed(8)).to(cuda,
+                                                                              torch.bfloat16)
+    k7.reset_launches()
+    fel.reset_launches()
+    k7.fused_encoder_layer_int8attn(x, ops, H)
+    torch.cuda.synchronize()
+    counted = fel.kernel_launches()
+    assert counted["attention_int8_kernel"] == int(core == "wgmma")
+    assert counted["attention_int8_sync_kernel"] == int(core == "sync")
+    assert counted["cls_pool_kernel"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("core", ["wgmma", "sync"])
 @pytest.mark.parametrize("Lx,n_head,d", [(129, 8, D), (65, 8, 256), (1025, 8, D), (129, 2, D),
                                          (80, 4, D), (17, 4, 64)])
-def test_int8attn_core_gives_the_same_bits_over_repeated_launches(cuda, Lx, n_head, d):
-    """30 launches of K7's core (persistent blocks, two buffers of k and v
-    where they fit) give the first launch's bits, and so does its DUMP
-    variant's output."""
+def test_int8attn_core_gives_the_same_bits_over_repeated_launches(cuda, Lx, n_head, d, core):
+    """30 launches of K7's core in each form (the wgmma core: one block of
+    one warpgroup a frame-head, its k and v loaded once by TMA; the mma.sync
+    core: one block of four warps a frame-head) give the first launch's
+    bits, and so does its DUMP variant's output."""
     from vitiq_torch.ops.cuda import fused_encoder_layer_int8attn as k7
 
     qkv = torch.randn((64 if Lx < 1000 else 8, Lx, 3 * d),
                       generator=torch.Generator().manual_seed(5)).to(cuda, torch.bfloat16)
-    first = k7.attention_int8(qkv, n_head)
-    again = [k7.attention_int8(qkv, n_head) for _ in range(29)]
-    out, _ = k7.attention_int8(qkv, n_head, dump=True)
+    first = k7.attention_int8(qkv, n_head, core=core)
+    again = [k7.attention_int8(qkv, n_head, core=core) for _ in range(29)]
+    out, _ = k7.attention_int8(qkv, n_head, dump=True, core=core)
     torch.cuda.synchronize()
     assert all(torch.equal(first, o) for o in again) and torch.equal(first, out)
 
@@ -1692,16 +1728,17 @@ def test_cls_pool_matches_its_plain_version(cuda, Lx, n_head, d):
 def test_cls_layer_matches_its_plain_version(cuda, Lx, ffn, n_head, d):
     """K2 (no K or V formed) against its own plain version, which rounds qt
     and xbar as it does, and against the plain layer for the CLS row, which
-    rounds k and v: both within the one-layer tolerance; with the 12 layer
-    operands or its 15 the same bits."""
+    rounds k and v: both within the one-layer tolerance; 30 launches give
+    the same bits."""
     ops = fel.layer_operands(_layers(1, ffn, cuda, n_head, d)[0], n_head)
+    cls_ops = fel.cls_operands(ops, n_head)
     x = torch.randn((37 if Lx < 1000 else 6, Lx, d),
                     generator=torch.Generator().manual_seed(6)).to(cuda, torch.bfloat16)
-    got = fel.fused_encoder_layer_cls(x, fel.cls_operands(ops, n_head), n_head)
-    same = fel.fused_encoder_layer_cls(x, ops, n_head)
+    got = fel.fused_encoder_layer_cls(x, cls_ops, n_head)
+    again = [fel.fused_encoder_layer_cls(x, cls_ops, n_head) for _ in range(29)]
     torch.cuda.synchronize()
-    assert torch.equal(got, same)
-    _assert_close(got, fel.fused_layer_cls_reference(x, ops, n_head), LAYER_TOL)
+    assert all(torch.equal(got, o) for o in again)
+    _assert_close(got, fel.fused_layer_cls_reference(x, cls_ops, n_head), LAYER_TOL)
     _assert_close(got, fel.fused_layer_reference(x, ops, n_head, 1), LAYER_TOL)
 
 

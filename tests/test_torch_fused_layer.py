@@ -174,14 +174,15 @@ def test_kernel_wrappers_take_plain_version_on_cpu_only():
     x = x.bfloat16()
     fel.reset_launches()
     assert torch.equal(fel.fused_encoder_layer(x, ops, H), fel.fused_layer_reference(x, ops, H, 5))
-    assert torch.equal(fel.fused_encoder_layer_cls(x, ops, H),
-                       fel.fused_layer_cls_reference(x, ops, H))
+    cls_ops = fel.cls_operands(ops, H)
+    assert torch.equal(fel.fused_encoder_layer_cls(x, cls_ops, H),
+                       fel.fused_layer_cls_reference(x, cls_ops, H))
     assert fel.launches == {"fused_encoder_layer": 0, "fused_encoder_layer_cls": 0}
     meta = torch.empty((1, 5, D), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         fel.fused_encoder_layer(meta, ops, H)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        fel.fused_encoder_layer_cls(meta, ops, H)
+        fel.fused_encoder_layer_cls(meta, cls_ops, H)
 
 
 # K9 and K10 are TPU schedules of K1's function at long L (key tiling and

@@ -189,6 +189,9 @@
 // gives. The frame-head's bf16 k and v are read once, by TMA, and quantized
 // in place in shared memory (k K-major, v transposed with its keys
 // permuted in 32s so that the s32 score fragments are P's s8 A fragment).
+// At L <= 96 (the rawIQ arms' 65 tokens) the layer takes the earlier
+// two-pass mma.sync core instead (attention_int8_sync_kernel, the same
+// function), which measured faster there.
 // The TPU kernel's block of G frames (VITIQ_V3_G, _pick_batch_block_v3) ->
 // one frame-head an item: ak and av are per frame-head, which is the TPU
 // kernel at G = 1 (its parity test pins g_override=1). Its Lp padding to 16
@@ -211,6 +214,12 @@
 namespace {
 
 constexpr int MAX_SMEM = 232448;  // shared memory a block may use on Hopper
+
+// Launches of the kernels a layer's C entry launches one of among its
+// stages, counted where each is launched (vitiq_kernel_launches): K2's
+// pooling kernel and K7's two cores
+enum CountedKernel { kCountClsPool = 0, kCountInt8Wgmma = 1, kCountInt8Sync = 2, kCounted = 3 };
+unsigned long long launch_counts[kCounted] = {};
 constexpr float LN_EPS = 1e-12f;
 
 enum Epilogue { kBias = 0, kBiasResidualLN = 2 };
@@ -1588,6 +1597,315 @@ __global__ void __launch_bounds__(128, DUMP ? 1 : DH == 16 ? 4 : 3) attention_in
   }
 }
 
+// ---- K7's core at short L: two passes on mma.sync ---------------------------
+// At short L the wgmma core's 64-row query tiles and 128-wide key tile
+// compute mostly padding (at 65 tokens two query tiles, the second with one
+// live row, against 128 keys: 3.9x the scores), and the warpgroup waits on
+// every wgmma; there the two-pass core below, whose 16-row tiles and
+// 32-key blocks follow L, measured faster. Over L the two cross between 81
+// and 97 tokens at d_head 16 and 32 (the sync core's cost is flat from 81
+// to 96: the same six row tiles and three key blocks), so it takes
+// L <= K7_SYNC_MAX_L (PERF.md). It computes the same function: the same
+// 128-key tiles, levels, IEEE roundings and scale floors, so its s32
+// products are the plain version's bit for bit too. The route depends on L
+// alone (k7_sync_core).
+constexpr int K7_SYNC_WARPS = 4;
+constexpr int K7_SYNC_MAX_L = 96;
+
+__host__ __device__ inline bool k7_sync_core(int L) { return L <= K7_SYNC_MAX_L; }
+
+// Its shared memory at L tokens: the head's int8 k rows [key][DH + 16] and
+// [v | 1]'s v part transposed [dim][round32(L) + 16], keys rounded up to the
+// 32 of an s8 k-step (the pads keep the eight rows a fragment load touches
+// on distinct banks).
+template <int DH>
+__host__ __device__ constexpr int k8_ld() { return DH + 16; }
+__host__ __device__ __forceinline__ int round32(int n) { return (n + 31) & ~31; }
+__host__ __device__ __forceinline__ int v8_ld(int L) { return round32(L) + 16; }
+
+template <int DH>
+__host__ __device__ __forceinline__ size_t k7_sync_smem_bytes(int L) {
+  return (size_t)round32(L) * k8_ld<DH>() + (size_t)DH * v8_ld(L);
+}
+
+// round(v * m) as an int8 level (|v * m| <= 127 by construction)
+__device__ __forceinline__ int level(float v, float m) { return __float2int_rn(__fmul_rn(v, m)); }
+
+// The column of key j in the transposed v: within each 32 keys, key
+// 16h + 8a + 2t + e sits at 16h + 4t + 2a + e, so that the probabilities a
+// thread holds in the s32 score fragments (keys 2t, 2t+1 of each 8) form the
+// s8 A fragment of the P V product as they are (k = 4t.. | 16 + 4t..).
+__device__ __forceinline__ int v8_col(int j) {
+  const int r = j & 31;
+  return (j & ~31) + (r & 16) + ((r >> 1) & 3) * 4 + ((r >> 3) & 1) * 2 + (r & 1);
+}
+
+// s32 scores of the warp's 16 query rows (qa: their int8 levels, DH / 32
+// k-steps; DH = 16 pads the k-step with zeros) against keys [j0, j0 + 32):
+// four 16 x 8 blocks, dequantized to f32 (float(s) * deq of the row) and -inf
+// past L; `raw` keeps the integer sums.
+template <int DH>
+__device__ __forceinline__ void score_block_int8(float sc[4][4], int raw[4][4],
+                                                 const uint32_t qa[][4], const int8_t* ks,
+                                                 int j0, int L, float deq_lo, float deq_hi,
+                                                 int g, int t) {
+  constexpr int KC = DH < 32 ? 1 : DH / 32;
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb) {
+    int c[4] = {0, 0, 0, 0};
+    const int8_t* krow = ks + (j0 + nb * 8 + g) * k8_ld<DH>() + 4 * t;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kc * 32);
+      const uint32_t b1 = DH < 32 ? 0u : *reinterpret_cast<const uint32_t*>(krow + kc * 32 + 16);
+      mma_s8_16832(c, qa[kc], b0, b1);
+    }
+    const int key = j0 + nb * 8 + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      raw[nb][i] = c[i];
+      sc[nb][i] = (key + (i & 1) < L) ? __fmul_rn(static_cast<float>(c[i]), i < 2 ? deq_lo : deq_hi)
+                                      : -INFINITY;
+    }
+  }
+}
+
+// One block per (frame b, head h), the function of attention_int8_kernel
+// (below). The block quantizes k into shared memory [key][dim] (the B
+// operand of Q K^T) and v transposed [dim][key'] (keys permuted in 32s,
+// v8_col) for P V; each warp takes 16 query rows at a time, quantizes them
+// in registers (a quad holds a row), and makes two passes over each tile's
+// keys in 32s on the s8 tensor cores (mma.sync.m16n8k32): the row max, then
+// the probabilities, whose s32 score fragments are repacked as P's A
+// fragment in registers. With DUMP, its s32 scores, int8 probabilities and
+// each tile's s32 [P V | den] go to device memory in attention_int8_kernel's
+// layout.
+template <int DH, bool DUMP>
+__global__ void __launch_bounds__(K7_SYNC_WARPS * 32) attention_int8_sync_kernel(
+    const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, int D,
+    int* __restrict__ s_dump, int8_t* __restrict__ p_dump, int* __restrict__ pv_dump) {
+  static_assert(DH % 16 == 0, "head width must be a multiple of 16");
+  constexpr int KC = DH < 32 ? 1 : DH / 32, KLD = k8_ld<DH>(), CH = DH / 8;
+  extern __shared__ __align__(16) unsigned char k7s_raw[];
+  __shared__ float red[2][K7_SYNC_WARPS];
+  const int lp = round32(L), vld = v8_ld(L);
+  int8_t* ks = reinterpret_cast<int8_t*>(k7s_raw);  // [lp][KLD]
+  int8_t* vt = ks + (size_t)lp * KLD;               // [DH][vld]
+
+  const int b = blockIdx.x, h = blockIdx.y, H = gridDim.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row3 = 3LL * D;
+  const bf16* base = qkv + (long long)b * L * row3 + (long long)h * DH;
+
+  // the frame-head's k and v absmax
+  float ka = 0.f, va = 0.f;
+  for (int i = threadIdx.x; i < L * CH; i += blockDim.x) {
+    const int j = i / CH, c = (i % CH) * 8;
+    ka = absmax8(*reinterpret_cast<const uint4*>(base + j * row3 + D + c), ka);
+    va = absmax8(*reinterpret_cast<const uint4*>(base + j * row3 + 2 * D + c), va);
+  }
+  ka = warp_max(ka);
+  va = warp_max(va);
+  if (lane == 0) {
+    red[0][warp] = ka;
+    red[1][warp] = va;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < K7_SYNC_WARPS; ++w) {
+    ka = fmaxf(ka, red[0][w]);
+    va = fmaxf(va, red[1][w]);
+  }
+  const float ak = fmaxf(ka, K7_SCALE_FLOOR), av = fmaxf(va, 1.0f);
+  const float kmul = __fdiv_rn(127.f, ak), vmul = __fdiv_rn(127.f, av);
+  const int one = __float2int_rn(vmul);
+  const float ak_deq = __fdiv_rn(ak, K7_DEQ);
+
+  // quantized k [key][dim] and v^T [dim][key'] in shared memory, zero past L
+  for (int i = threadIdx.x; i < lp * CH; i += blockDim.x) {
+    const int j = i / CH, c = (i % CH) * 8;
+    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+    if (j < L) {
+      kv = *reinterpret_cast<const uint4*>(base + j * row3 + D + c);
+      vv = *reinterpret_cast<const uint4*>(base + j * row3 + 2 * D + c);
+    }
+    const bf16* k8 = reinterpret_cast<const bf16*>(&kv);
+    const bf16* v8 = reinterpret_cast<const bf16*>(&vv);
+    uint32_t lo = 0u, hi = 0u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      lo |= (static_cast<uint32_t>(level(__bfloat162float(k8[e]), kmul)) & 0xffu) << (8 * e);
+      hi |= (static_cast<uint32_t>(level(__bfloat162float(k8[e + 4]), kmul)) & 0xffu) << (8 * e);
+    }
+    *reinterpret_cast<uint2*>(ks + j * KLD + c) = make_uint2(lo, hi);
+    const int col = v8_col(j);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      vt[(c + e) * vld + col] = static_cast<int8_t>(level(__bfloat162float(v8[e]), vmul));
+  }
+  __syncthreads();
+
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (L + K7_TILE - 1) / K7_TILE;
+  const long long ld_dump = (long long)K7_TILE * n_tiles;  // the dump's rows
+  for (int r0 = warp * 16; r0 < L; r0 += K7_SYNC_WARPS * 16) {
+    const int r_lo = r0 + g, r_hi = r0 + g + 8;
+    // this thread's q values: rows r_lo / r_hi, dims 32kc + 4t.. and 32kc + 16 + 4t..
+    float qf[KC][4][4];
+    float amax_lo = 0.f, amax_hi = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int r = (a & 1) ? r_hi : r_lo, d0 = kc * 32 + (a >> 1) * 16 + 4 * t;
+        uint2 raw = make_uint2(0u, 0u);
+        if (r < L && d0 < DH) raw = *reinterpret_cast<const uint2*>(base + r * row3 + d0);
+        const bf16* q4 = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qf[kc][a][e] = __bfloat162float(q4[e]);
+          if (a & 1)
+            amax_hi = fmaxf(amax_hi, fabsf(qf[kc][a][e]));
+          else
+            amax_lo = fmaxf(amax_lo, fabsf(qf[kc][a][e]));
+        }
+      }
+    const float aq_lo = fmaxf(quad_max(amax_lo), K7_SCALE_FLOOR);
+    const float aq_hi = fmaxf(quad_max(amax_hi), K7_SCALE_FLOOR);
+    const float qmul_lo = __fdiv_rn(127.f, aq_lo), qmul_hi = __fdiv_rn(127.f, aq_hi);
+    const float deq_lo = __fmul_rn(aq_lo, ak_deq), deq_hi = __fmul_rn(aq_hi, ak_deq);
+    uint32_t qa[KC][4];
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        uint32_t packed = 0u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          packed |= (static_cast<uint32_t>(level(qf[kc][a][e], (a & 1) ? qmul_hi : qmul_lo)) &
+                     0xffu) << (8 * e);
+        qa[kc][a] = packed;
+      }
+
+    float acc[DH / 8][4], den_lo = 0.f, den_hi = 0.f;
+    float m_lo = -INFINITY, m_hi = -INFINITY;
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int c0 = tile * K7_TILE, c1 = min(c0 + K7_TILE, L);
+      float sc[4][4];
+      int raw[4][4];
+      // pass 1: the tile's row max
+      float tm_lo = -INFINITY, tm_hi = -INFINITY;
+      for (int j0 = c0; j0 < c1; j0 += 32) {
+        score_block_int8<DH>(sc, raw, qa, ks, j0, L, deq_lo, deq_hi, g, t);
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+          tm_lo = fmaxf(tm_lo, fmaxf(sc[nb][0], sc[nb][1]));
+          tm_hi = fmaxf(tm_hi, fmaxf(sc[nb][2], sc[nb][3]));
+        }
+      }
+      tm_lo = quad_max(tm_lo);
+      tm_hi = quad_max(tm_hi);
+      // pass 2: int8 probabilities and the s32 P [v | 1]
+      int part[DH / 8][4] = {};
+      int psum_lo = 0, psum_hi = 0;
+      for (int j0 = c0; j0 < c1; j0 += 32) {
+        score_block_int8<DH>(sc, raw, qa, ks, j0, L, deq_lo, deq_hi, g, t);
+        int p[4][4];
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            p[nb][i] = __float2int_rn(
+                __fmul_rn(exp2f(__fsub_rn(sc[nb][i], i < 2 ? tm_lo : tm_hi)), 127.f));
+            if (i < 2)
+              psum_lo += p[nb][i];
+            else
+              psum_hi += p[nb][i];
+          }
+        // A fragment: [row g | g+8][k' = 4t.. | 16 + 4t..] = keys 2t, 2t+1, 8+2t, 9+2t
+        // of the first / second 16
+        uint32_t pa[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int nb = (a >> 1) * 2, i = (a & 1) * 2;
+          pa[a] = (uint32_t)p[nb][i] | ((uint32_t)p[nb][i + 1] << 8) |
+                  ((uint32_t)p[nb + 1][i] << 16) | ((uint32_t)p[nb + 1][i + 1] << 24);
+        }
+#pragma unroll
+        for (int nd = 0; nd < DH / 8; ++nd) {
+          const int8_t* vrow = vt + (nd * 8 + g) * vld + j0 + 4 * t;
+          mma_s8_16832(part[nd], pa, *reinterpret_cast<const uint32_t*>(vrow),
+                       *reinterpret_cast<const uint32_t*>(vrow + 16));
+        }
+        if constexpr (DUMP) {
+          const long long head = (long long)b * H + h;
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int r = i < 2 ? r_lo : r_hi, key = j0 + nb * 8 + 2 * t + (i & 1);
+              if (r < L && key < L) {
+                s_dump[(head * L + r) * ld_dump + key] = raw[nb][i];
+                p_dump[(head * L + r) * ld_dump + key] = static_cast<int8_t>(p[nb][i]);
+              }
+            }
+        }
+      }
+      const int den_int_lo = one * quad_sum_int(psum_lo), den_int_hi = one * quad_sum_int(psum_hi);
+      if constexpr (DUMP) {
+        int* pv = pv_dump + (((long long)b * H + h) * n_tiles + tile) * L * (DH + 1);
+#pragma unroll
+        for (int nd = 0; nd < DH / 8; ++nd)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = i < 2 ? r_lo : r_hi;
+            if (r < L) pv[r * (DH + 1) + nd * 8 + 2 * t + (i & 1)] = part[nd][i];
+          }
+        if (t == 0) {
+          if (r_lo < L) pv[r_lo * (DH + 1) + DH] = den_int_lo;
+          if (r_hi < L) pv[r_hi * (DH + 1) + DH] = den_int_hi;
+        }
+      }
+      // merge the tile onto the running max
+      if (tile == 0) {
+#pragma unroll
+        for (int nd = 0; nd < DH / 8; ++nd)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[nd][i] = static_cast<float>(part[nd][i]);
+        den_lo = static_cast<float>(den_int_lo);
+        den_hi = static_cast<float>(den_int_hi);
+        m_lo = tm_lo;
+        m_hi = tm_hi;
+      } else {
+        const float new_lo = fmaxf(m_lo, tm_lo), new_hi = fmaxf(m_hi, tm_hi);
+        const float old_lo = exp2f(__fsub_rn(m_lo, new_lo)), cur_lo = exp2f(__fsub_rn(tm_lo, new_lo));
+        const float old_hi = exp2f(__fsub_rn(m_hi, new_hi)), cur_hi = exp2f(__fsub_rn(tm_hi, new_hi));
+#pragma unroll
+        for (int nd = 0; nd < DH / 8; ++nd)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[nd][i] = __fadd_rn(__fmul_rn(acc[nd][i], i < 2 ? old_lo : old_hi),
+                                   __fmul_rn(static_cast<float>(part[nd][i]), i < 2 ? cur_lo : cur_hi));
+        den_lo = __fadd_rn(__fmul_rn(den_lo, old_lo), __fmul_rn(static_cast<float>(den_int_lo), cur_lo));
+        den_hi = __fadd_rn(__fmul_rn(den_hi, old_hi), __fmul_rn(static_cast<float>(den_int_hi), cur_hi));
+        m_lo = new_lo;
+        m_hi = new_hi;
+      }
+    }
+
+    bf16* o_base = out + (long long)b * L * D + h * DH + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd) {
+      if (r_lo < L)
+        *reinterpret_cast<uint32_t*>(o_base + (long long)r_lo * D + nd * 8) =
+            pack_bf16x2(__fdiv_rn(acc[nd][0], den_lo), __fdiv_rn(acc[nd][1], den_lo));
+      if (r_hi < L)
+        *reinterpret_cast<uint32_t*>(o_base + (long long)r_hi * D + nd * 8) =
+            pack_bf16x2(__fdiv_rn(acc[nd][2], den_hi), __fdiv_rn(acc[nd][3], den_hi));
+    }
+  }
+}
+
 // One bf16 GEMM stage (gemm_wgmma_kernel) over the n_cols columns from
 // p.col0, in BN-wide slabs: TMA maps of A [m, k] (rows lda apart) and W
 // [k, ldw], and up to one block per SM, the SMs split evenly between the
@@ -1740,25 +2058,53 @@ cudaError_t launch_attention_int8(const bf16* qkv, bf16* out, int B, int L, int 
   if (err != cudaSuccess) return err;
   attention_int8_kernel<DH, DUMP><<<(unsigned)(B * H), 128, smem, stream>>>(
       map, qkv, out, L, D, H, s_dump, p_dump, pv_dump);
+  ++launch_counts[kCountInt8Wgmma];
   return cudaSuccess;
 }
 
-// K7's attention core (attention_int8_kernel); with the dump pointers set,
-// the variant that also writes its s32 scores, int8 probabilities and s32
-// tile products.
-cudaError_t attention_int8(const bf16* qkv, bf16* out, int B, int L, int D, int H,
+// K7's core at short L: one block of four warps a frame-head (grid B x H)
+template <int DH, bool DUMP>
+cudaError_t launch_attention_int8_sync(const bf16* qkv, bf16* out, int B, int L, int D, int H,
+                                       int* s_dump, int8_t* p_dump, int* pv_dump,
+                                       cudaStream_t stream) {
+  const size_t smem = k7_sync_smem_bytes<DH>(L);
+  if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(attention_int8_sync_kernel<DH, DUMP>, smem);
+  if (err != cudaSuccess) return err;
+  attention_int8_sync_kernel<DH, DUMP><<<dim3((unsigned)B, (unsigned)H), K7_SYNC_WARPS * 32,
+                                         smem, stream>>>(qkv, out, L, D, s_dump, p_dump, pv_dump);
+  ++launch_counts[kCountInt8Sync];
+  return cudaSuccess;
+}
+
+template <int DH, bool DUMP>
+cudaError_t launch_k7_core(bool sync, const bf16* qkv, bf16* out, int B, int L, int D, int H,
                            int* s_dump, int8_t* p_dump, int* pv_dump, cudaStream_t stream) {
-  const bool dump = s_dump != nullptr;
+  return sync ? launch_attention_int8_sync<DH, DUMP>(qkv, out, B, L, D, H, s_dump, p_dump,
+                                                     pv_dump, stream)
+              : launch_attention_int8<DH, DUMP>(qkv, out, B, L, D, H, s_dump, p_dump, pv_dump,
+                                                stream);
+}
+
+// K7's attention core: attention_int8_sync_kernel where k7_sync_core(L)
+// holds, else attention_int8_kernel (`core` 1 or 2 takes the wgmma or the
+// mma.sync core at any L, for the checks and timings of the two); with the
+// dump pointers set, the variant that also writes its s32 scores, int8
+// probabilities and s32 tile products.
+cudaError_t attention_int8(const bf16* qkv, bf16* out, int B, int L, int D, int H,
+                           int* s_dump, int8_t* p_dump, int* pv_dump, cudaStream_t stream,
+                           int core = 0) {
+  const bool dump = s_dump != nullptr, sync = core == 0 ? k7_sync_core(L) : core == 2;
   switch (D / H) {
     case 16:
-      return dump ? launch_attention_int8<16, true>(qkv, out, B, L, D, H, s_dump, p_dump, pv_dump, stream)
-                  : launch_attention_int8<16, false>(qkv, out, B, L, D, H, nullptr, nullptr, nullptr, stream);
+      return dump ? launch_k7_core<16, true>(sync, qkv, out, B, L, D, H, s_dump, p_dump, pv_dump, stream)
+                  : launch_k7_core<16, false>(sync, qkv, out, B, L, D, H, nullptr, nullptr, nullptr, stream);
     case 32:
-      return dump ? launch_attention_int8<32, true>(qkv, out, B, L, D, H, s_dump, p_dump, pv_dump, stream)
-                  : launch_attention_int8<32, false>(qkv, out, B, L, D, H, nullptr, nullptr, nullptr, stream);
+      return dump ? launch_k7_core<32, true>(sync, qkv, out, B, L, D, H, s_dump, p_dump, pv_dump, stream)
+                  : launch_k7_core<32, false>(sync, qkv, out, B, L, D, H, nullptr, nullptr, nullptr, stream);
     case 64:
-      return dump ? launch_attention_int8<64, true>(qkv, out, B, L, D, H, s_dump, p_dump, pv_dump, stream)
-                  : launch_attention_int8<64, false>(qkv, out, B, L, D, H, nullptr, nullptr, nullptr, stream);
+      return dump ? launch_k7_core<64, true>(sync, qkv, out, B, L, D, H, s_dump, p_dump, pv_dump, stream)
+                  : launch_k7_core<64, false>(sync, qkv, out, B, L, D, H, nullptr, nullptr, nullptr, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -1784,6 +2130,7 @@ cudaError_t launch_cls_pool(const bf16* x, const bf16* qt, bf16* xbar, int B, in
   const long long fill = (long long)(per_sm < 1 ? 1 : per_sm) * sm_count();
   cls_pool_kernel<D, NHB><<<(unsigned)(want < fill ? want : fill), POOL_WARPS * 32, smem,
                             stream>>>(map, qt, xbar, B, L, H);
+  ++launch_counts[kCountClsPool];
   return cudaSuccess;
 }
 
@@ -2157,17 +2504,30 @@ extern "C" int vitiq_attention_noexp(const void* qkv, void* out, int B, int L, i
 // probabilities p_dump [B, H, L, Lp] (Lp = 128 ceil(L / 128): the keys
 // past L are not the function's) and s32 tile products pv_dump
 // [B, H, ceil(L / 128), L, D / H + 1] (for the bit-for-bit check of its
-// products against the plain version). Takes K7's shapes (F is not read).
+// products against the plain version). `core` 0 takes the layer's route
+// (k7_sync_core), 1 the wgmma core, 2 the mma.sync core. Takes K7's shapes
+// (F is not read).
 extern "C" int vitiq_attention_int8(const void* qkv, void* out, void* s_dump, void* p_dump,
-                                    void* pv_dump, int B, int L, int D, int H,
+                                    void* pv_dump, int B, int L, int D, int H, int core,
                                     void* stream_ptr) {
-  if (!shapes_ok(B, L, D, H, 128)) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(B, L, D, H, 128) || core < 0 || core > 2) return (int)cudaErrorInvalidValue;
   const cudaError_t err = attention_int8(
       static_cast<const bf16*>(qkv), static_cast<bf16*>(out), B, L, D, H,
       static_cast<int*>(s_dump), static_cast<int8_t*>(p_dump), static_cast<int*>(pv_dump),
-      static_cast<cudaStream_t>(stream_ptr));
+      static_cast<cudaStream_t>(stream_ptr), core);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The launches of cls_pool_kernel, attention_int8_kernel and
+// attention_int8_sync_kernel since the last reset, into out[3]; with
+// `reset`, the counts then start again from 0.
+extern "C" int vitiq_kernel_launches(unsigned long long* out, int reset) {
+  for (int i = 0; i < kCounted; ++i) {
+    if (out) out[i] = launch_counts[i];
+    if (reset) launch_counts[i] = 0;
+  }
+  return 0;
 }
 
 // K6: one full W8A8 layer (see encoder_layer_int8).

@@ -47,8 +47,10 @@ SIGNATURES = {
     "vitiq_encoder_layer_full_noexp": (_LAYER_ARGS, _I),
     # qkv, out; B, L, D, H; stream
     "vitiq_attention_noexp": ([_P] * 2 + [_I] * 4 + [_P], _I),
-    # qkv, out, s_dump, p_dump, pv_dump; B, L, D, H; stream
-    "vitiq_attention_int8": ([_P] * 5 + [_I] * 4 + [_P], _I),
+    # qkv, out, s_dump, p_dump, pv_dump; B, L, D, H, core; stream
+    "vitiq_attention_int8": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    # unsigned long long[3] out, reset
+    "vitiq_kernel_launches": ([_P, _I], _I),
     # x, out, 7 scratch, x's and out's levels and scales, 16 int8-layer
     # operands; B, L, D, H, F; stream
     "vitiq_encoder_layer_int8_full": ([_P] * 29 + [_I] * 5 + [_P], _I),

@@ -42,13 +42,16 @@ tiles), and `gemm_stage`, one of its GEMM stages (`gemm_stage_reference`).
 `launches` counts C entry calls, one per layer (a K1 call launches its five
 stage kernels, a K2 call its seven, among them one `cls_pool_kernel`),
 `stage_launches` those of the parts alone; the plain versions count
-nothing.
+nothing. `kernel_launches` reads the counts the C code keeps of the
+kernels a layer launches one of (K2's pooling kernel, K7's two cores),
+each counted where it is launched.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -79,10 +82,27 @@ K1_ATTENTION_REGISTERS = {16: 86, 32: 98, 64: 122}
 CORE_TILE = 64
 
 
+# the kernels whose launches the C code counts (`vitiq_kernel_launches`), in
+# its order
+COUNTED_KERNELS = ("cls_pool_kernel", "attention_int8_kernel", "attention_int8_sync_kernel")
+
+
+def kernel_launches(reset: bool = False) -> Dict[str, int]:
+    """The launches of COUNTED_KERNELS since the last reset, counted by the
+    C code where it launches each (all zero while the library is not loaded:
+    a CPU run loads it never); with `reset`, they then start again from 0."""
+    if _build._library is None:
+        return dict.fromkeys(COUNTED_KERNELS, 0)
+    counts = (ctypes.c_ulonglong * len(COUNTED_KERNELS))()
+    _build.library().vitiq_kernel_launches(counts, int(reset))
+    return dict(zip(COUNTED_KERNELS, (int(c) for c in counts)))
+
+
 def reset_launches() -> None:
     for counts in (launches, stage_launches):
         for name in counts:
             counts[name] = 0
+    kernel_launches(reset=True)
 
 
 def attention_smem_bytes(L: int, d_head: int) -> int:
@@ -200,13 +220,11 @@ def cls_block_operands(wqkv: torch.Tensor, n_head: int):
 
 
 def cls_operands(ops: Sequence[torch.Tensor], n_head: int) -> List[torch.Tensor]:
-    """K2's 15 operands: the layer's 12 (`layer_operands`' layout), then Kblk
-    [D, H D] and Vblk [H D, D] in Wqkv's dtype (`cls_block_operands`) and qt's
-    zero bias [H D] f32. Given 15, returns them as they are."""
-    if len(ops) == 15:
-        return list(ops)
+    """K2's 15 operands from the layer's 12 (`layer_operands`' layout): the
+    12, then Kblk [D, H D] and Vblk [H D, D] in Wqkv's dtype
+    (`cls_block_operands`) and qt's zero bias [H D] f32."""
     if len(ops) != 12:
-        raise ValueError(f"expected 12 layer operands, got {len(ops)}")
+        raise ValueError(f"cls_operands takes the 12 layer operands, got {len(ops)}")
     with torch.no_grad():
         kblk, vblk = cls_block_operands(ops[0], n_head)
         zero = torch.zeros(kblk.shape[1], dtype=torch.float32, device=ops[0].device)
@@ -313,10 +331,13 @@ def gemm_stage_reference(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 def fused_layer_reference(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
                           n_q: int, attention=attention_reference) -> torch.Tensor:
-    """One layer for query rows [0, n_q): x [B, L, D] -> [B, n_q, D], with
-    `attention(qkv, n_head, n_q)` as its core (K7's plain version passes its
-    int8 core); of K2's 15 operands it reads the layer's 12."""
-    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = ops[:12]
+    """One layer for query rows [0, n_q): x [B, L, D] -> [B, n_q, D], from
+    the 12 layer operands, with `attention(qkv, n_head, n_q)` as its core
+    (K7's plain version passes its int8 core)."""
+    if len(ops) != 12:
+        raise ValueError(f"the layer takes its 12 operands, got {len(ops)} (K2's 15 go to "
+                         "fused_layer_cls_reference)")
+    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = ops
     dt = x.dtype
     qkv = (_mm(x, wqkv) + bqkv).to(dt)
     attn = attention(qkv, n_head, n_q)
@@ -354,16 +375,17 @@ def cls_pool_reference(x: torch.Tensor, qt: torch.Tensor,
 def fused_layer_cls_reference(x: torch.Tensor, ops: Sequence[torch.Tensor],
                               n_head: int) -> torch.Tensor:
     """K2's plain version: the layer for the CLS row as the kernel computes
-    it, x [B, L, D] -> [B, 1, D] in x's dtype, from the 12 layer operands or
-    K2's 15 (`cls_operands`):
+    it, x [B, L, D] -> [B, 1, D] in x's dtype, from K2's 15 operands
+    (`cls_operands`):
       q = (x_0 Wq + b_q), qt = (q Kblk), xbar = cls_pool_reference(x, qt),
       attn = (xbar Vblk + b_v), then the out-projection + LN1, FFN1 and FFN2 +
       LN2 of `fused_layer_reference` on the B rows,
     each rounded to the dtype as the kernel rounds to bf16. The same
     function as `fused_layer_reference(x, ops, n_head, 1)` with qt and xbar
     rounded where that rounds k and v (equal in f32 up to f32 sums)."""
-    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2, kblk, vblk, kzero = \
-        cls_operands(ops, n_head)
+    if len(ops) != 15:
+        raise ValueError(f"K2 takes its 15 operands (cls_operands), got {len(ops)}")
+    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2, kblk, vblk, kzero = ops
     dt = x.dtype
     B, _, D = x.shape
     q = (_mm(x[:, 0], wqkv[:, :D]) + bqkv[:D]).to(dt)
@@ -383,7 +405,7 @@ def fused_encoder_layer_stack_reference(x: torch.Tensor, ops_list, n_head: int,
     for ops in full:
         x = fused_layer_reference(x, ops, n_head, x.shape[1])
     if cls_only:
-        x = fused_layer_cls_reference(x, ops_list[-1], n_head)
+        x = fused_layer_cls_reference(x, cls_operands(ops_list[-1], n_head), n_head)
     return x
 
 
@@ -391,17 +413,19 @@ def fused_encoder_layer_stack_reference(x: torch.Tensor, ops_list, n_head: int,
 # CUDA kernels
 # --------------------------------------------------------------------------
 
-def _check_inputs(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int) -> int:
-    """Validate what the kernels take: 12 layer operands, or K2's 15
-    (`cls_operands`); returns the FFN width."""
+def _check_inputs(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
+                  n_ops: int = 12) -> int:
+    """Validate what the kernels take: the 12 layer operands, or K2's 15
+    (`cls_operands`) where `n_ops` is 15; returns the FFN width."""
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernels need a CUDA tensor, got {x.device}")
     if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError("x must be a contiguous bf16 [B, L, D] tensor, got "
                          f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
     B, L, D = x.shape
-    if len(ops) not in (12, 15):
-        raise ValueError(f"expected 12 layer operands (15 for K2), got {len(ops)}")
+    if len(ops) != n_ops:
+        raise ValueError(f"expected {n_ops} operands, got {len(ops)}"
+                         + (" (K2's 15: cls_operands)" if n_ops == 15 else ""))
     F = ops[6].shape[-1]
     check_shape(B, L, D, F, n_head)
     shapes = [(D, 3 * D), (3 * D,), (D, D), (D,), (D,), (D,),
@@ -427,14 +451,14 @@ def check_shape(B: int, L: int, D: int, F: int, n_head: int) -> None:
 
 def _call_layer(entry: str, x: torch.Tensor, out: torch.Tensor, scratch, ops, n_head: int,
                 F: int) -> None:
-    """Launch one layer's C entry point on the scratch tensors; raise on its
-    error."""
+    """Launch one layer's C entry point on the scratch buffers (their
+    addresses); raise on its error."""
     B, L, D = x.shape
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, entry)(
-            x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in scratch),
+            x.data_ptr(), out.data_ptr(), *scratch,
             *(t.data_ptr() for t in ops), B, L, D, n_head, F, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err} "
@@ -448,7 +472,7 @@ def _launch(entry: str, x: torch.Tensor, out: torch.Tensor, ops, n_head: int, F:
     B, L, D = x.shape
     scratch = [torch.empty((B, L, 3 * D), dtype=x.dtype, device=x.device)]
     scratch += [torch.empty((B, rows, w), dtype=x.dtype, device=x.device) for w in (D, D, F)]
-    _call_layer(entry, x, out, scratch, ops, n_head, F)
+    _call_layer(entry, x, out, [t.data_ptr() for t in scratch], ops, n_head, F)
 
 
 def fused_encoder_layer(x: torch.Tensor, ops: Sequence[torch.Tensor],
@@ -458,8 +482,6 @@ def fused_encoder_layer(x: torch.Tensor, ops: Sequence[torch.Tensor],
     if x.device.type == "cpu":
         return fused_layer_reference(x, ops, n_head, x.shape[1])
     F = _check_inputs(x, ops, n_head)
-    if len(ops) != 12:
-        raise ValueError(f"K1 takes the 12 layer operands, got {len(ops)}")
     out = torch.empty_like(x)
     _launch("vitiq_encoder_layer_full", x, out, ops, n_head, F, x.shape[1])
     launches["fused_encoder_layer"] += 1
@@ -469,19 +491,23 @@ def fused_encoder_layer(x: torch.Tensor, ops: Sequence[torch.Tensor],
 def fused_encoder_layer_cls(x: torch.Tensor, ops: Sequence[torch.Tensor],
                             n_head: int) -> torch.Tensor:
     """K2: the layer for the CLS row only, bf16 [B, L, D] -> bf16 [B, 1, D],
-    from the 12 layer operands or K2's 15 (`cls_operands`, which the stacks
-    cache: given 12, the block operands are built each call); the plain
-    version, `fused_layer_cls_reference`, for a CPU tensor."""
+    from its 15 operands (`cls_operands`; the stacks cache them,
+    `layer_cls_operands`); the plain version, `fused_layer_cls_reference`,
+    for a CPU tensor."""
     if x.device.type == "cpu":
         return fused_layer_cls_reference(x, ops, n_head)
-    if x.device.type == "cuda":
-        ops = cls_operands(ops, n_head)
-    F = _check_inputs(x, ops, n_head)
+    F = _check_inputs(x, ops, n_head, 15)
     B, _, D = x.shape
     out = torch.empty((B, 1, D), dtype=x.dtype, device=x.device)
-    # q, qt, xbar, attn, x1, hid
-    scratch = [torch.empty((B, w), dtype=x.dtype, device=x.device)
-               for w in (D, n_head * D, n_head * D, D, D, F)]
+    # q, qt, xbar, attn, x1, hid: [B, width] each, one after another in one
+    # buffer (each starts a multiple of 128 bytes in: the widths are
+    # multiples of 64)
+    widths = (D, n_head * D, n_head * D, D, D, F)
+    buf = torch.empty(B * sum(widths), dtype=x.dtype, device=x.device)
+    base, scratch = buf.data_ptr(), []
+    for w in widths:
+        scratch.append(base)
+        base += B * w * buf.element_size()
     _call_layer("vitiq_encoder_layer_cls", x, out, scratch, ops, n_head, F)
     launches["fused_encoder_layer_cls"] += 1
     return out

@@ -30,9 +30,15 @@ elsewhere (`tests/test_torch_fused_layer.py` holds both regimes).
 
 `fused_encoder_layer_int8attn` launches the kernel on a CUDA tensor (raising
 on any build, launch or shape error) and runs `fused_layer_int8attn_reference`
-on a CPU tensor. It takes K1's shapes (`fel.fused_infer_supported`): its int8
-core loads the frame-head's bf16 k and v as K1's core does and quantizes them
-in place, so it needs K1's core's shared memory (`attention_int8_smem_bytes`).
+on a CPU tensor. It takes K1's shapes (`fel.fused_infer_supported`). Its int8
+core has two forms of one function, chosen by L alone (`core_route`): past
+one 128-key tile the s8 wgmma core (`attention_int8_kernel`), which loads
+the frame-head's bf16 k and v as K1's core does and quantizes them in place,
+so it needs K1's core's shared memory (`attention_int8_smem_bytes`); at L <=
+SYNC_MAX_L the two-pass mma.sync core (`attention_int8_sync_kernel`), which
+measured faster there (at 65 tokens the wgmma core's 64-row query tiles and
+128-key tile are three quarters padding; the two cross between 81 and 97
+tokens at d_head 16 and 32).
 `fused_encoder_layer_int8attn_stack` runs K7 on every full layer and, with
 ``cls_only``, K2 (bf16) on the last layer's CLS row, as the TPU stack does.
 `attention_int8` runs K7's attention core alone (for tests and timing); with
@@ -50,8 +56,9 @@ relative L2 and a max counted in quantization steps (a row's absmax / 127 of
 the plain output), one layer within 1e-3 (below what K1's bf16 core in its
 place reads) and 2 steps, a stack with the K2 tail within 2e-2 and 4 steps;
 the core alone differs from the plain version in under 1e-3 of its
-probabilities and 1e-2 of its outputs. `launches` counts kernel launches,
-one per layer or per call of the core alone.
+probabilities and 1e-2 of its outputs. `launches` counts C entry calls,
+one per layer or per call of the core alone; `fel.kernel_launches` counts
+each core's launches where the C code launches it.
 """
 
 from __future__ import annotations
@@ -68,6 +75,10 @@ SCALE_FLOOR = 1e-8  # aq, ak floor
 QMAX = 127.0
 
 launches = {"fused_encoder_layer_int8attn": 0, "attention_int8": 0}
+# the longest L the layer's core takes on mma.sync (`k7_sync_core` in the .cu)
+SYNC_MAX_L = 96
+# `attention_int8`'s `core` -> the C entry's: the layer's route, or one form
+CORES = {None: 0, "wgmma": 1, "sync": 2}
 
 
 def reset_launches() -> None:
@@ -75,12 +86,24 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def attention_int8_smem_bytes(L: int, d_head: int) -> int:
-    """Shared memory of K7's attention block at L tokens (`k7_smem_bytes` in
-    the .cu): the frame-head's bf16 k and v in 64-key tiles (K1's core's),
-    an mbarrier and 1 KB of alignment. The int8 k rows [key][max(32,
+def core_route(L: int) -> str:
+    """The form of K7's core a layer of L tokens takes (`k7_sync_core`):
+    "sync" up to SYNC_MAX_L tokens, "wgmma" past them."""
+    return "sync" if L <= SYNC_MAX_L else "wgmma"
+
+
+def attention_int8_smem_bytes(L: int, d_head: int, core: Optional[str] = None) -> int:
+    """Shared memory of K7's attention block at L tokens, of the form `core`
+    takes (the layer's route where None). The wgmma core's (`k7_smem_bytes`
+    in the .cu): the frame-head's bf16 k and v in 64-key tiles (K1's
+    core's), an mbarrier and 1 KB of alignment; the int8 k rows [key][max(32,
     d_head)] and v^T tiles [128 keys][d_head][128] then overwrite the tiles
-    in place (`k7_int8_layout_bytes`)."""
+    in place (`k7_int8_layout_bytes`). The mma.sync core's
+    (`k7_sync_smem_bytes`): int8 k rows [key][d_head + 16] and v^T [d_head]
+    [round32(L) + 16], keys rounded up to 32."""
+    if (core or core_route(L)) == "sync":
+        l32 = -(-L // 32) * 32
+        return l32 * (d_head + 16) + d_head * (l32 + 16)
     n_kt = -(-L // 64)
     return 1024 + n_kt * 64 * d_head * 4 + 8
 
@@ -206,7 +229,7 @@ def fused_encoder_layer_int8attn_stack_reference(x: torch.Tensor, ops_list, n_he
     for ops in full:
         x = fused_layer_int8attn_reference(x, ops, n_head)
     if cls_only:
-        x = fel.fused_layer_cls_reference(x, ops_list[-1], n_head)
+        x = fel.fused_layer_cls_reference(x, fel.cls_operands(ops_list[-1], n_head), n_head)
     return x
 
 
@@ -227,18 +250,22 @@ def fused_encoder_layer_int8attn(x: torch.Tensor, ops: Sequence[torch.Tensor],
     return out
 
 
-def attention_int8(qkv: torch.Tensor, n_head: int, dump: bool = False):
+def attention_int8(qkv: torch.Tensor, n_head: int, dump: bool = False,
+                   core: Optional[str] = None):
     """K7's attention core alone: bf16 qkv [B, L, 3D] (q pre-scaled) ->
     bf16 [B, L, D]; with `dump`, (out, {"scores", "probs", "pv"}) as
-    `attention_int8_products` lays them out, from the kernel. The plain
-    version for a CPU tensor. Not on the serving path: it exposes the core
-    to tests and timing."""
+    `attention_int8_products` lays them out, from the kernel. `core`
+    "wgmma" or "sync" takes that form at any L, None the layer's route
+    (`core_route`). The plain version for a CPU tensor. Not on the serving
+    path: it exposes the core to tests and timing."""
     if qkv.device.type == "cpu":
         out = attention_int8_reference(qkv, n_head)
         return (out, attention_int8_products(qkv, n_head)) if dump else out
     if qkv.dim() != 3 or qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
         raise ValueError("qkv must be a contiguous bf16 [B, L, 3D] tensor, got "
                          f"{qkv.dtype} {tuple(qkv.shape)}")
+    if core not in CORES:
+        raise ValueError(f"core must be one of {list(CORES)}, got {core!r}")
     B, L, D3 = qkv.shape
     D = D3 // 3
     fel.check_shape(B, L, D, 128, n_head)
@@ -257,7 +284,7 @@ def attention_int8(qkv: torch.Tensor, n_head: int, dump: bool = False):
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.vitiq_attention_int8(qkv.data_ptr(), out.data_ptr(), *ptrs, B, L, D, n_head,
-                                       stream)
+                                       CORES[core], stream)
     if err != 0:
         raise RuntimeError(f"vitiq_attention_int8 failed: CUDA error {err} "
                            f"({lib.vitiq_error_string(err).decode()})")
