@@ -198,6 +198,29 @@ which raises (exit code 1) on failure:
    difference of the two test accuracies (x 100, within 0.01). Each arm's
    accuracy and the wall time are printed; the first call runs under
    `torch.profiler` (device busy time and idle share).
+   stream-train: the data path from file to card. A synthetic 3-class
+   split (STREAM_TRAIN_FRAMES train and STREAM_VALID_FRAMES valid frames of
+   [1024, 2] f32, made from a seed) is packed with `pack_split_to_npy`
+   (STREAM_SHARD_ROWS rows a shard) into a temporary directory and read
+   back with `PackedDataSource` (whether the native gather ran is printed;
+   its rows must equal the source's). One epoch of `StreamFeed` batches
+   through `device_prefetch` must arrive on the card byte for byte. The ViT
+   flagship (3 classes, dropout 0.1) trains STREAM_EPOCHS epochs at
+   B=STREAM_BATCH through `fit(profile=True)` on that feed, four times from
+   the same weights in turns (each batch copied to the card in turn, through
+   the prefetcher, through the prefetcher, copied in turn): the four
+   parameter sets must be equal bit for bit, each run must launch K3 6 + 6
+   a step and K1 5 and K2 1 a validation batch, nothing else, and the
+   history must carry step_p50 / step_p90. Each run's epoch wall times and
+   step percentiles are printed, and its second epoch runs under
+   `torch.profiler` (device kernel time, copy time, idle share).
+   `evaluate_feed` and `predict_feed` on the trained model over the train
+   split must equal their per-batch-sync versions (each batch's sums and
+   argmax read to the host), each timed. The trained weights, saved as a
+   reference `.pth`, are evaluated by `python -m vitiq_torch.cli evaluate
+   --torch-checkpoint` with a synthetic config on the card: K1 5 and K2 1
+   a batch, and its predictions equal `run_evaluation`'s on the same
+   weights.
 7. timing (CUDA events after warm-up): per-layer kernel time against the
    plain version (K1 and K2 at the three shapes, B=4096 and, at 1025 tokens,
    B=256; K3 at the ViT and rawIQ shapes and K4 at the rawIQ one, B=4096;
@@ -318,6 +341,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from vitiq_torch.config import DataConfig, ExperimentConfig, TrainConfig
@@ -458,6 +482,12 @@ VIT_TPU_PRODUCTION = dataclasses.replace(ExperimentConfig.vit_tpu_production().m
 # (inputs read once, outputs written once) over these.
 PEAK_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 SFU_EXP2_PER_CLOCK_SM, N_SM = 16, 132  # Hopper's special-function units
+
+
+# the stream-train phase: a synthetic 3-class split packed to shards (about
+# 220 MiB of [1024, 2] f32 frames), streamed to the card and trained on
+STREAM_TRAIN_FRAMES, STREAM_VALID_FRAMES, STREAM_SHARD_ROWS = 24_576, 4_096, 8_192
+STREAM_BATCH, STREAM_EPOCHS, STREAM_SEED = 4096, 2, 17
 
 
 # train_gemm_kernel<EPI, BN, RESIDENT, XH16> instances the layers reach
@@ -2402,6 +2432,262 @@ def head_to_head_check(device, card: str, n_head: int = 0, profile: bool = False
     return {"counts": got, "wall_s": wall}
 
 
+class SyntheticRows:
+    """A packing source over `n` frames made from `seed`: 3 classes, each a
+    tone of its own frequency in unit noise, and an SNR label; `read_rows`,
+    `labels_for` and `snrs_for` as `pack_split_to_npy` reads them."""
+
+    def __init__(self, n: int, seed: int):
+        rng = np.random.default_rng(seed)
+        self.y = rng.integers(0, 3, n).astype(np.int32)
+        self.z = rng.choice(np.array([-8.0, 0.0, 8.0, 20.0], np.float32), n)
+        phase = 2 * np.pi * np.outer(np.arange(1, 4) / 32, np.arange(FRAME_LEN))
+        tones = np.stack([np.cos(phase), np.sin(phase)], axis=-1).astype(np.float32)
+        self.x = rng.standard_normal((n, FRAME_LEN, 2), dtype=np.float32)
+        self.x += tones[self.y]
+
+    def read_rows(self, rows):
+        return self.x[rows]
+
+    def labels_for(self, rows, label_map):
+        return self.y[rows]
+
+    def snrs_for(self, rows):
+        return self.z[rows]
+
+
+def copied_in_turn(batch_iter, device, prefetch_depth: int = 3):
+    """`fit`'s feed without the prefetcher: each batch's arrays copied to the
+    card in the consumer, the host waiting for each copy."""
+    for item in batch_iter:
+        yield tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                    if isinstance(a, np.ndarray) else a for a in item)
+
+
+def same_bytes(got: torch.Tensor, want: np.ndarray) -> bool:
+    return (got.dtype == torch.from_numpy(want[:0]).dtype and tuple(got.shape) == want.shape
+            and torch.equal(got.cpu().view(torch.uint8), torch.from_numpy(want).view(torch.uint8)))
+
+
+def evaluate_feed_per_batch(eval_step, model, feed, batch_size: int, device) -> dict:
+    """`evaluate_feed` with each batch copied in turn and its three sums read
+    to the host (the loop before its sums moved to the device)."""
+    loss_sum = correct_sum = count = 0.0
+    for bx, by, mask in copied_in_turn(feed.eval_batches(batch_size), device):
+        m = eval_step(model, bx, by, mask)
+        loss_sum += float(m["loss_sum"])
+        correct_sum += float(m["correct_sum"])
+        count += float(m["count"])
+    return {"loss": loss_sum / count, "accuracy": correct_sum / count}
+
+
+@torch.no_grad()
+def predict_feed_per_batch(forward_fn, feed, batch_size: int, preprocess_fn,
+                           device) -> np.ndarray:
+    """`predict_feed` with each batch copied in turn and its argmax read to
+    the host before the next batch."""
+    preds = []
+    for bx, _, _ in feed.raw_batches(batch_size):
+        x = torch.from_numpy(np.asarray(bx, np.float32)).to(device)
+        if len(bx) < batch_size:
+            x = torch.cat([x, x.new_zeros((batch_size - len(bx),) + tuple(x.shape[1:]))])
+        preds.append(forward_fn(preprocess_fn(x)).argmax(dim=-1)[:len(bx)].cpu().numpy())
+    return np.concatenate(preds)
+
+
+def stream_train_check(device, card: str, batch: int = STREAM_BATCH,
+                       n_train: int = STREAM_TRAIN_FRAMES, n_valid: int = STREAM_VALID_FRAMES,
+                       shard_rows: int = STREAM_SHARD_ROWS) -> dict:
+    """The stream-train phase (see the module docstring): pack, stream,
+    train with and without the prefetcher, evaluate, and evaluate the saved
+    weights as a reference checkpoint through `cli evaluate
+    --torch-checkpoint`."""
+    import pickle
+    import tempfile
+
+    from vitiq_torch.data import PackedDataSource, StreamFeed, native, pack_split_to_npy
+    from vitiq_torch.data.pipeline import device_prefetch
+    from vitiq_torch.eval import predict_feed
+    from vitiq_torch.train import loop
+    from vitiq_torch.train.checkpoint import save_params
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        rows = SyntheticRows(n_train + n_valid, STREAM_SEED)
+        label_map = {"BPSK": 0, "QPSK": 1, "16QAM": 2}
+        pack_split_to_npy(rows, np.arange(n_train), label_map, tmp / "train", shard_rows)
+        pack_split_to_npy(rows, np.arange(n_train, n_train + n_valid), label_map, tmp / "valid",
+                          shard_rows)
+        mib = sum(f.stat().st_size for f in tmp.rglob("*") if f.is_file()) / 2 ** 20
+        train_src, valid_src = PackedDataSource(tmp / "train"), PackedDataSource(tmp / "valid")
+        sample = np.random.default_rng(0).integers(0, n_train, 2 * batch)
+        if not np.array_equal(train_src.read_rows(sample), rows.x[sample]):
+            raise AssertionError("PackedDataSource.read_rows does not return the packed rows")
+        print(f"phase stream-train: {n_train} train + {n_valid} valid frames packed in "
+              f"{time.perf_counter() - t0:.2f} s ({mib:.1f} MiB, {shard_rows} rows a shard); "
+              f"native gather {'ran' if native.available() else 'unavailable: numpy ran'}",
+              flush=True)
+        train_feed = StreamFeed(train_src.batch_stream, train_src.num_rows, shuffle_seed=2,
+                                source=train_src)
+        valid_feed = StreamFeed(valid_src.batch_stream, valid_src.num_rows, source=valid_src)
+
+        host = list(train_feed.train_batches(0, batch))
+        got = 0
+        for (hx, hy), (dx, dy) in zip(host, device_prefetch(train_feed.train_batches(0, batch),
+                                                            device, 3)):
+            on_card = all(isinstance(t, torch.Tensor) and t.device == device for t in (dx, dy))
+            if (device.type == "cuda" and not on_card) or not (
+                    same_bytes(torch.as_tensor(dx), hx) and same_bytes(torch.as_tensor(dy), hy)):
+                raise AssertionError(f"prefetched batch {got} differs from its host batch")
+            got += 1
+        if got != len(host) or got != n_train // batch:
+            raise AssertionError(f"{got} batches reached the card, expected {len(host)}")
+        print(f"  bytes: {got} streamed batches of [{batch}, {FRAME_LEN}, 2] f32 reached the "
+              "card through device_prefetch byte for byte", flush=True)
+        del host
+
+        model_cfg = dataclasses.replace(flagship_vit_config("tpu"), num_classes=3)
+        exp = ExperimentConfig(model=model_cfg,
+                               train=TrainConfig(batch_size=batch, num_epochs=STREAM_EPOCHS,
+                                                 learning_rate=3e-4))
+        steps = n_train // batch * STREAM_EPOCHS
+        n = model_cfg.n_layers
+        valid_batches = -(-n_valid // batch) * STREAM_EPOCHS
+        want = {k: 0 for k in all_launches()}
+        want.update({K3[0]: n * steps, K3[1]: n * steps,
+                     "fused_encoder_layer": (n - 1) * valid_batches,
+                     "fused_encoder_layer_cls": valid_batches})
+        runs = []
+        real = loop.device_prefetch
+        # in turns, so that neither feed alone carries the first run's warm-up
+        for label, feed in (("copied in turn", copied_in_turn), ("prefetch", real),
+                            ("prefetch", real), ("copied in turn", copied_in_turn)):
+            model = AMCModel(model_cfg, generator=torch.Generator().manual_seed(STREAM_SEED))
+            model, pre = build_forward_and_preprocess(exp, model, STATS, device)
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                      torch.profiler.ProfilerActivity.CUDA])
+            marks = {}
+
+            def profile_last_epoch(epoch, state, history):
+                torch.cuda.synchronize()
+                if epoch == STREAM_EPOCHS - 2:
+                    prof.start()
+                    marks["t0"] = time.perf_counter()
+                elif epoch == STREAM_EPOCHS - 1:
+                    marks["wall"] = time.perf_counter() - marks["t0"]
+                    prof.stop()
+
+            loop.device_prefetch = feed
+            reset_all_launches()
+            try:
+                res = loop.fit(exp, model, train_feed, valid_feed, preprocess_fn=pre,
+                               epoch_callback=profile_last_epoch, verbose=False, profile=True)
+            finally:
+                loop.device_prefetch = real
+            torch.cuda.synchronize()
+            launched = all_launches()
+            if launched != want:
+                raise AssertionError(f"fit ({label}) launched {launched}, expected {want}")
+            h = res.history
+            if len(h.get("step_p50", [])) != STREAM_EPOCHS or len(h["step_p90"]) != STREAM_EPOCHS:
+                raise AssertionError(f"fit ({label}) history lacks step_p50/step_p90: {h}")
+            events = device_kernels(prof)
+            copies = sum(device_us(e) for e in events if e.key.startswith("Memcpy")) / 1e6
+            busy = sum(device_us(e) for e in events if not e.key.startswith(("Memcpy",
+                                                                              "Memset"))) / 1e6
+            print(f"  fit ({label}), {STREAM_EPOCHS} epochs of {n_train // batch} steps at "
+                  f"B={batch}: epoch wall {[round(t, 4) for t in h['epoch_time']]} s, step "
+                  f"p50 {[round(t * 1e3, 4) for t in h['step_p50']]} ms, p90 "
+                  f"{[round(t * 1e3, 4) for t in h['step_p90']]} ms, train loss "
+                  f"{[round(v, 4) for v in h['train_loss']]}; last epoch under the profiler: "
+                  f"host wall {marks['wall']:.4f} s, device kernel time {busy:.4f} s, copies "
+                  f"{copies:.4f} s, idle share {1 - busy / marks['wall']:.4f}  [{card}]",
+                  flush=True)
+            runs.append({"label": label, "model": model, "pre": pre, "history": h,
+                         "params": [p.detach().clone() for p in model.parameters()],
+                         "idle": 1 - busy / marks["wall"]})
+        first = runs[0]
+        for r in runs[1:]:
+            if not all(torch.equal(p, q) for p, q in zip(first["params"], r["params"])):
+                raise AssertionError("the parameters trained through the prefetcher differ from "
+                                     "those trained with each batch copied in turn")
+            if r["history"]["train_loss"] != first["history"]["train_loss"]:
+                raise AssertionError("the runs' train losses differ")
+        print(f"  the {len(first['params'])} parameter tensors of the {len(runs)} runs, with and "
+              "without the prefetcher, are equal bit for bit", flush=True)
+        out["fit"] = [{"feed": r["label"], "epoch_time": r["history"]["epoch_time"],
+                       "step_p50": r["history"]["step_p50"],
+                       "step_p90": r["history"]["step_p90"], "idle": r["idle"]} for r in runs]
+
+        model, pre = runs[1]["model"], runs[1]["pre"]
+        model.eval()
+        eval_step = loop.make_eval_step(exp.train.label_smoothing, pre)
+        times = {}
+        for name, call in (("evaluate_feed", lambda: loop.evaluate_feed(eval_step, model,
+                                                                        train_feed, batch)),
+                           ("evaluate_feed per batch", lambda: evaluate_feed_per_batch(
+                               eval_step, model, train_feed, batch, device)),
+                           ("predict_feed", lambda: predict_feed(model, train_feed, batch, device,
+                                                                 pre)[0]),
+                           ("predict_feed per batch", lambda: predict_feed_per_batch(
+                               model, train_feed, batch, pre, device))):
+            results = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                results.append(call())
+                torch.cuda.synchronize()
+                times.setdefault(name, []).append(time.perf_counter() - t0)
+            out[name] = results[-1]
+        if out["evaluate_feed"] != out["evaluate_feed per batch"]:
+            raise AssertionError(f"evaluate_feed {out['evaluate_feed']} != its per-batch "
+                                 f"version {out['evaluate_feed per batch']}")
+        if not np.array_equal(out["predict_feed"], out["predict_feed per batch"]):
+            raise AssertionError("predict_feed's predictions differ from its per-batch version")
+        print(f"  evaluate_feed {out['evaluate_feed']} equals its per-batch version; "
+              f"predict_feed's {len(out['predict_feed'])} predictions equal theirs; seconds a "
+              f"pass over {n_train} frames: "
+              + ", ".join(f"{k} {[round(t, 4) for t in v]}" for k, v in times.items())
+              + f"  [{card}]", flush=True)
+        out["eval_times"] = times
+        train_feed.close()
+        valid_feed.close()
+
+        ref_exp = ExperimentConfig(model=model_cfg, data=DataConfig(synthetic_frames_per_class=512),
+                                   train=TrainConfig(batch_size=128))
+        ref_exp.to_json(str(tmp / "synthetic.json"))
+        torch.save({"model_state_dict": model.state_dict()}, tmp / "vit_flagship.pth")
+        reset_all_launches()
+        cli.main(["evaluate", "--torch-checkpoint", str(tmp / "vit_flagship.pth"), "--config",
+                  str(tmp / "synthetic.json"), "--output", str(tmp / "reference"), "--device",
+                  str(device), "--no_plots"])
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in all_launches().items() if v}
+        with open(tmp / "reference" / "test_results.pkl", "rb") as f:
+            ref = pickle.load(f)
+        batches = -(-len(ref["predictions"]) // 128)
+        if launched != {"fused_encoder_layer": (n - 1) * batches,
+                        "fused_encoder_layer_cls": batches}:
+            raise AssertionError(f"cli evaluate --torch-checkpoint launched {launched}")
+        exp_dir = tmp / "experiment"
+        exp_dir.mkdir()
+        ref_exp.to_json(str(exp_dir / "config.json"))
+        save_params(exp_dir / "model_best", model.state_dict(), model_cfg)
+        r = run_evaluation(str(exp_dir), device=device, make_plots=False, verbose=False)
+        if not np.array_equal(r["predictions"], ref["predictions"]):
+            raise AssertionError("cli evaluate --torch-checkpoint and run_evaluation predict "
+                                 "differently on the same weights")
+        print(f"  cli evaluate --torch-checkpoint on {len(ref['predictions'])} test frames: "
+              f"accuracy {ref['overall_accuracy'] * 100:.2f}%, launches {launched}; its "
+              "predictions equal run_evaluation's on the same weights", flush=True)
+        out["reference_launches"] = launched
+    del runs, model
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_rejects_k1(name: str, k1_out: torch.Tensor, want: torch.Tensor) -> None:
     """The K7 layer check must turn away K1's output (K1's bf16 core in
     K7's place) on the same input: its relative L2 exceeds K7_LAYER_TOL's."""
@@ -3562,6 +3848,7 @@ def time_k4_host(device, card: str, B: int = 4096) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a GPU",
               file=sys.stderr)
@@ -3670,6 +3957,9 @@ def main() -> int:
                 COSINE_F32, batch=4096, grad_batch=256)
     head_to_head_check(device, card, profile=True)
     head_to_head_check(device, card, n_head=2)
+    t0 = time.perf_counter()
+    stream_train_check(device, card)
+    print(f"  stream-train phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(f"phase timing (CUDA events after warm-up) on {card}:", flush=True)
     times = {name: time_serving_layers(name, L, ffn, B, D, device, card)
@@ -3871,6 +4161,8 @@ def main() -> int:
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on the main path")
+    print(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -197,6 +197,9 @@ def test_parsers_and_head_to_head_configs_match_vitiq(argv):
 
 
 def test_head_to_head_refuses_hdf5():
-    args = cli.build_parser().parse_args(["head-to-head", "--numerics", "tpu"])
-    with pytest.raises(NotImplementedError, match="HDF5"):
+    """The presets read the HDF5 file: where it is missing the head-to-head
+    stops before training either arm."""
+    args = cli.build_parser().parse_args(["head-to-head", "--numerics", "tpu", "--file_path",
+                                          "/nonexistent/corpus.hdf5"])
+    with pytest.raises(ValueError, match="HDF5 file not found"):
         cli.head_to_head_configs(args)

@@ -63,15 +63,27 @@ that K1's core keeps resident) and d_head 16/32/64 to both its plain
 versions: the two-pass `attention_plain` and the kernel's exact function,
 `attention_onepass_plain` (out within 1% L2, lse within 1e-3); its three
 kernels run wgmma (HGMMA in their SASS) without a spill, and their TMA rings
-give the same bits over 30 launches."""
+give the same bits over 30 launches.
+
+The prefetching feed (`vitiq_torch/data/pipeline.py`): 30 batches copied to
+the card through pinned buffers on a side stream arrive byte for byte, and
+keep their bits while the consumer sleeps between batches on the host (the
+worker fills the queue and waits for each pinned buffer's copy before it
+refills it) and lags on the device (each batch read after a sleep queued on
+the consumer's stream, after the consumer has let go of it: `record_stream`
+keeps its memory from the next copies)."""
 
 import math
 import subprocess
 from pathlib import Path
 
+import time
+
+import numpy as np
 import pytest
 import torch
 
+from vitiq_torch.data.pipeline import device_prefetch
 from vitiq_torch.models.layers import EncoderLayer
 from vitiq_torch.ops.cuda import _build
 from vitiq_torch.ops.cuda import fused_encoder_layer as fel
@@ -1903,3 +1915,39 @@ def test_k1_attention_registers_unchanged_by_the_noexp_flag(cuda):
         noexp = _build.kernel_resources("fused_encoder_layer", fel.attention_kernel_tag(dh, True))
         assert k1 == (regs, 0, 0), (dh, k1)
         assert noexp[1:] == (0, 0), (dh, noexp)
+
+
+def _host_batches(n, B=512, seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((B, 1024, 2)).astype(np.float32),
+             rng.integers(0, 19, B).astype(np.int32), i) for i in range(n)]
+
+
+def _same_bytes(got: torch.Tensor, want: np.ndarray) -> bool:
+    return torch.equal(got.cpu().view(torch.int32), torch.from_numpy(want).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_prefetcher_copies_batches_to_the_card_byte_for_byte(cuda):
+    batches = _host_batches(30)
+    got = 0
+    for (x, y, i), (dx, dy, di) in zip(batches, device_prefetch(iter(batches), cuda, 3)):
+        assert dx.device == cuda and dy.device == cuda and di == i
+        assert _same_bytes(dx, x) and _same_bytes(dy, y)
+        got += 1
+    assert got == 30
+
+
+@pytest.mark.cuda
+def test_prefetcher_keeps_the_bits_while_the_consumer_sleeps(cuda):
+    batches = _host_batches(30, seed=1)
+    sums = []
+    for dx, dy, i in device_prefetch(iter(batches), cuda, 2):
+        time.sleep(0.01)  # the worker runs ahead and waits on its pinned buffers
+        torch.cuda._sleep(2_000_000)  # the consumer's stream lags behind the copies
+        sums.append((dx.view(torch.int32).sum(dtype=torch.int64), i))
+        del dx, dy  # let go before the stream has read it
+    torch.cuda.synchronize()
+    for (x, _, i), (s, j) in zip(batches, sums):
+        assert j == i
+        assert int(s) == int(torch.from_numpy(x).view(torch.int32).sum(dtype=torch.int64))

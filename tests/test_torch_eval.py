@@ -247,10 +247,36 @@ def test_run_evaluation_defaults_to_the_card(vitiq_experiment):
         run_evaluation(str(vitiq_experiment), make_plots=False, verbose=False)
 
 
-def test_hdf5_source_is_not_ported(vitiq_experiment, tmp_path):
+def test_run_evaluation_of_an_hdf5_experiment_equals_vitiq(vitiq_experiment, tmp_path,
+                                                          monkeypatch):
+    """The same saved experiment with its data in a RadioML-layout HDF5 file
+    (the reference split of its test rows): the port's predictions and
+    labels equal vitiq's."""
+    import shutil
+
+    import h5py
+
+    mods = ["BPSK", "QPSK", "16QAM"]
+    rng = np.random.default_rng(9)
+    n = 180
+    labels = rng.integers(0, 3, n)
+    y = np.zeros((n, 3), np.int64)
+    y[np.arange(n), labels] = 1
+    with h5py.File(tmp_path / "corpus.hdf5", "w") as f:
+        f.create_dataset("X", data=rng.standard_normal((n, 128, 2)).astype(np.float32))
+        f.create_dataset("Y", data=y)
+        f.create_dataset("Z", data=rng.choice([-8.0, 0.0, 8.0], (n, 1)).astype(np.float32))
+    (tmp_path / "classes.json").write_text(json.dumps(mods))
+    exp = tmp_path / "exp"
+    exp.mkdir()
+    for name in ("normalization_stats.json", "model_best.npz"):
+        shutil.copy(vitiq_experiment / name, exp / name)
     cfg = json.loads((vitiq_experiment / "config.json").read_text())
-    cfg["data"]["source"] = "hdf5"
-    (tmp_path / "config.json").write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="h5py"):
-        run_evaluation(str(vitiq_experiment), config_path=str(tmp_path / "config.json"),
-                       device="cpu", make_plots=False, verbose=False)
+    cfg["data"].update(source="hdf5", file_path=str(tmp_path / "corpus.hdf5"),
+                       json_path=str(tmp_path / "classes.json"), target_modulations=mods)
+    (exp / "config.json").write_text(json.dumps(cfg))
+    want = _vitiq_eval(exp, monkeypatch, int8=False)
+    got = run_evaluation(str(exp), device="cpu", make_plots=False, verbose=False)
+    np.testing.assert_array_equal(got["predictions"], want["predictions"])
+    np.testing.assert_array_equal(got["labels"], want["labels"])
+    np.testing.assert_array_equal(got["snrs"], want["snrs"])

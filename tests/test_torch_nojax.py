@@ -8,8 +8,12 @@ layers with K5 as their attention; then it evaluates a saved experiment
 (`run_evaluation`, float and int8, plots off) with scikit-learn, matplotlib,
 seaborn and h5py blocked too, as the card's machine lacks them, and trains an
 experiment with ``cli train`` and resumes it, its evaluation passes through
-K7's plain version (``VITIQ_ATTN_INT8=1``). The port's sources, and
-`chip_smoke.py`, import neither."""
+K7's plain version (``VITIQ_ATTN_INT8=1``). With h5py and scikit-learn still
+blocked it imports the split and HDF5 modules (neither imports either at
+load), trains an epoch with step profiling on a `StreamFeed` over packed
+shards and evaluates a reference ``.pth`` with ``cli evaluate
+--torch-checkpoint``. The port's sources, and `chip_smoke.py`, import
+neither jax nor vitiq."""
 
 import re
 import subprocess
@@ -145,6 +149,50 @@ with tempfile.TemporaryDirectory() as tmp:
     assert json.loads(Path(tmp, "run", "summary.json").read_text())["epochs_run"] == 2
 del os.environ["VITIQ_ATTN_INT8"]
 assert len(k7_calls) == 4, k7_calls  # 1 full layer, 1 batch: each run validates, tests
+# the data path from file to model without h5py or scikit-learn: the split
+# and HDF5 modules import, a packed split streams through `fit` with step
+# profiling, and `cli evaluate --torch-checkpoint` evaluates a reference .pth
+import vitiq_torch.data.hdf5
+import vitiq_torch.data.splits
+from vitiq_torch.data import PackedDataSource, StreamFeed, pack_split_to_npy
+
+
+class Rows:
+    def __init__(self, x, y):
+        self.x, self.y = x, y
+
+    def read_rows(self, rows):
+        return self.x[rows]
+
+    def labels_for(self, rows, label_map):
+        return self.y[rows].astype(np.int32)
+
+    def snrs_for(self, rows):
+        return np.zeros(len(rows), np.float32)
+
+
+frames = rng.standard_normal((40, 128, 2)).astype(np.float32)
+labels = rng.integers(0, 3, 40)
+with tempfile.TemporaryDirectory() as tmp:
+    pack_split_to_npy(Rows(frames[:32], labels[:32]), np.arange(32), {"a": 0, "b": 1, "c": 2},
+                      tmp + "/train", shard_rows=12)
+    src = PackedDataSource(tmp + "/train")
+    stream_cfg = ExperimentConfig(model=eval_cfg.model,
+                                  train=TrainConfig(batch_size=8, num_epochs=1,
+                                                    profile_steps=True))
+    model, pre = build_forward_and_preprocess(stream_cfg, stream_cfg.model, raw_stats, "cpu")
+    res = fit(stream_cfg, model, StreamFeed(src.batch_stream, src.num_rows, source=src),
+              ArrayFeed(frames[32:], labels[32:]), preprocess_fn=pre, verbose=False,
+              profile=stream_cfg.train.profile_steps)
+    src.close()
+    assert res.state.step == 4 and len(res.history["step_p50"]) == 1, res.history
+    torch.save({"model_state_dict": model.state_dict()}, tmp + "/ref.pth")
+    eval_cfg.to_json(tmp + "/synthetic.json")
+    assert cli.main(["evaluate", "--torch-checkpoint", tmp + "/ref.pth", "--config",
+                     tmp + "/synthetic.json", "--output", tmp + "/out", "--device", "cpu",
+                     "--no_plots"]) == 0
+    assert Path(tmp, "out", "test_classification_report.txt").exists()
+assert sys.modules["h5py"] is None and sys.modules["sklearn"] is None
 leaked = sorted(m for m in sys.modules if m.startswith(("jax", "vitiq."))
                 and sys.modules[m] is not None)
 assert not leaked, leaked
@@ -181,4 +229,17 @@ def test_port_sources_never_import_vitiq():
     """Nothing of the JAX package, not even a module that needs no JAX: the
     port keeps its own copy (vitiq_torch/config.py)."""
     offenders = _offending_imports(r"\s*(from|import)\s+vitiq(\.|\s|$)")
+    assert not offenders, offenders
+
+
+def test_port_sources_import_h5py_only_inside_functions():
+    """h5py is imported where an HDF5 file is read (so the port loads where
+    it is absent, as on the card's machine), never at a module's top level."""
+    offenders = _offending_imports(r"(from|import)\s+h5py(\.|\s|$)")
+    assert not offenders, offenders
+
+
+def test_port_sources_never_import_sklearn():
+    """The reference split is reproduced with numpy (`data/splits.py`)."""
+    offenders = _offending_imports(r"\s*(from|import)\s+sklearn(\.|\s|$)")
     assert not offenders, offenders

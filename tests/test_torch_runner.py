@@ -143,19 +143,21 @@ def test_a_missing_resume_starts_fresh(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("args", [
-    ["--source", "hdf5"], ["--preset", "rawiq_best"], ["--sps", "2"],
-    ["--features", "amp_phase"], ["--data_parallel", "2"], ["--model_parallel", "2"],
-    ["--profile_steps"]], ids=lambda a: "".join(a).strip("-"))
+    ["--sps", "2"], ["--features", "amp_phase"], ["--data_parallel", "2"],
+    ["--model_parallel", "2"]], ids=lambda a: "".join(a).strip("-"))
 def test_cli_train_refuses_what_the_port_cannot_run(args):
-    base = [] if "--preset" in args else ["--arm", "rawiq", "--source", "synthetic"]
+    base = ["--arm", "rawiq", "--source", "synthetic"]
     with pytest.raises(NotImplementedError, match="cannot run"):
         cli.main(["train", "--device", "cpu", *base, *args])
 
 
-def test_fit_refuses_step_profiling():
-    cfg = ExperimentConfig(model=ModelConfig(**MODEL), train=TrainConfig(profile_steps=True))
-    with pytest.raises(NotImplementedError, match="profil"):
-        ptrain.fit(cfg, None, None, None)
+@pytest.mark.parametrize("args", [["--source", "hdf5"], ["--preset", "rawiq_best"]],
+                         ids=lambda a: "".join(a).strip("-"))
+def test_cli_train_takes_hdf5_configs_and_checks_their_file(args, tmp_path):
+    base = [] if "--preset" in args else ["--arm", "rawiq"]
+    with pytest.raises(ValueError, match="HDF5 file not found"):
+        cli.main(["train", "--device", "cpu", "--file_path", str(tmp_path / "missing.hdf5"),
+                  *base, *args])
 
 
 def test_run_training_needs_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):

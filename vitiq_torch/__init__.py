@@ -45,7 +45,12 @@ resumes; the CUDA port of the int8-attention layer (K7, in
 `csrc/fused_encoder_layer.cu`), which every float evaluation pass runs under
 ``VITIQ_ATTN_INT8=1``; and the thesis's head-to-head (`runner.run_head_to_head`,
 `python -m vitiq_torch.cli head-to-head` and `compare`: both arms trained and
-evaluated, then the cross-arm comparison of `eval/compare.py`).
+evaluated, then the cross-arm comparison of `eval/compare.py`); and the data
+path from file to card: the HDF5 source and the reference split (numpy, no
+scikit-learn), packed shards, the streaming feed, the prefetching
+host-to-device feed (`data/`), per-step profiling (`utils/profiling.py`) and
+the evaluation of a reference `.pth` (`runner.run_reference_evaluation`,
+`python -m vitiq_torch.cli evaluate --torch-checkpoint`).
 """
 
 from vitiq_torch.config import (  # noqa: F401

@@ -3,10 +3,14 @@
 argument names, presets, overrides and printed lines.
 
     python -m vitiq_torch.cli train [--preset NAME | --config PATH | --arm vit|rawiq]
-        [--source synthetic] [--num_epochs N] [--numerics tpu] [...overrides]
+        [--source synthetic|hdf5 --file_path H5 --json_path JSON [--streaming]]
+        [--num_epochs N] [--numerics tpu] [--profile_steps] [...overrides]
         [--resume PATH|auto] [--device cuda] [--no_plots]
     python -m vitiq_torch.cli evaluate --checkpoint DIR [--dataset test]
         [--batch_size N] [--config PATH] [--int8] [--device cuda] [--no_plots]
+    python -m vitiq_torch.cli evaluate --torch-checkpoint PTH [--config PATH]
+        [--data-path H5] [--json-path JSON] [--output DIR] [--dataset test]
+        [--batch_size N] [--device cuda] [--no_plots]
     python -m vitiq_torch.cli compare --vit_report PATH --transformer_report PATH
         [--output_dir DIR] [--no_plots]
     python -m vitiq_torch.cli head-to-head [train's flags] [--output_dir DIR]
@@ -16,11 +20,12 @@ runs on the host. ``--no_plots`` skips the plots, which need matplotlib and
 seaborn. ``head-to-head`` trains the ViT arm from train's flags, then the
 rawIQ arm from the same flags on a deep copy of the ViT arm's data (iq
 features), as ``<experiment_name>_vit`` and ``<experiment_name>_rawiq``
-(base name ``h2h``), and compares their test reports. A configuration the port cannot run yet raises instead of being
-dropped: the HDF5 source (``--source hdf5``, and the presets that default to
-it unless ``--source synthetic`` is given), ``--sps`` above 1, features
-other than ``iq``, ``--data_parallel`` / ``--model_parallel`` above 1 and
-``--profile_steps``.
+(base name ``h2h``), and compares their test reports. ``evaluate
+--torch-checkpoint`` evaluates a reference PyTorch ``.pth``
+(`runner.run_reference_evaluation`). The presets read the HDF5 source
+unless ``--source synthetic`` is given. A configuration the port cannot run
+yet raises instead of being dropped: ``--sps`` above 1, features other than
+``iq`` and ``--data_parallel`` / ``--model_parallel`` above 1.
 """
 
 from __future__ import annotations
@@ -61,7 +66,7 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--stream_window_rows", type=int,
                    help="shuffle-window size (rows) for --streaming")
     p.add_argument("--profile_steps", action="store_true", default=None,
-                   help="record per-step wall times (not ported yet)")
+                   help="record per-step wall times (step_p50/step_p90 in the history)")
     # training
     p.add_argument("--batch_size", type=int)
     p.add_argument("--num_epochs", type=int)
@@ -104,9 +109,6 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
 def _unsupported(cfg: ExperimentConfig) -> list:
     """What of `cfg` the port cannot run yet."""
     out = []
-    if cfg.data.source != "synthetic":
-        out.append(f"data.source={cfg.data.source!r} (the HDF5 source needs h5py; pass "
-                   "--source synthetic)")
     if cfg.data.sps != 1:
         out.append(f"data.sps={cfg.data.sps} (the SPS front-end)")
     if cfg.data.features != "iq":
@@ -114,8 +116,6 @@ def _unsupported(cfg: ExperimentConfig) -> list:
     if cfg.train.data_parallel > 1 or cfg.train.model_parallel > 1:
         out.append(f"data_parallel={cfg.train.data_parallel}, model_parallel="
                    f"{cfg.train.model_parallel} (one device only)")
-    if cfg.train.profile_steps:
-        out.append("profile_steps (per-step profiling)")
     return out
 
 
@@ -195,11 +195,21 @@ def cmd_train(args) -> int:
 
 
 def cmd_evaluate(args) -> int:
-    from vitiq_torch.runner import run_evaluation
+    if args.torch_checkpoint:
+        from vitiq_torch.runner import run_reference_evaluation
 
-    res = run_evaluation(args.checkpoint, dataset=args.dataset, batch_size=args.batch_size,
-                         config_path=args.config, int8=args.int8, device=args.device,
-                         make_plots=not args.no_plots)
+        res = run_reference_evaluation(
+            args.torch_checkpoint, config_path=args.config, output_dir=args.output,
+            dataset=args.dataset, batch_size=args.batch_size, data_path=args.data_path,
+            json_path=args.json_path, device=args.device, make_plots=not args.no_plots)
+    elif args.checkpoint:
+        from vitiq_torch.runner import run_evaluation
+
+        res = run_evaluation(args.checkpoint, dataset=args.dataset, batch_size=args.batch_size,
+                             config_path=args.config, int8=args.int8, device=args.device,
+                             make_plots=not args.no_plots)
+    else:
+        raise SystemExit("evaluate: --checkpoint or --torch-checkpoint is required")
     print(f"overall accuracy: {res['overall_accuracy'] * 100:.2f}%")
     for snr, acc in sorted(res["snr_accuracies"].items()):
         print(f"  SNR {snr:+3d} dB: {acc * 100:.2f}%")
@@ -253,8 +263,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("evaluate", help="Evaluate a trained experiment")
-    p.add_argument("--checkpoint", required=True,
+    p.add_argument("--checkpoint",
                    help="Experiment directory (containing config.json + model_best)")
+    p.add_argument("--torch-checkpoint", dest="torch_checkpoint",
+                   help="Evaluate a reference PyTorch .pth instead (config from --config, a "
+                        "sibling config.json, or the checkpoint's embedded reference config)")
+    p.add_argument("--data-path", dest="data_path",
+                   help="HDF5 dataset path override (with --torch-checkpoint)")
+    p.add_argument("--json-path", dest="json_path",
+                   help="classes JSON path override (with --torch-checkpoint)")
+    p.add_argument("--output",
+                   help="Artifact directory (with --torch-checkpoint; default "
+                        "result/reference_import/<stem>/evaluation)")
     p.add_argument("--dataset", choices=["train", "valid", "test"], default="test")
     p.add_argument("--batch_size", type=int)
     p.add_argument("--config", type=str, help="Override config JSON path")

@@ -1,15 +1,24 @@
-"""Batch feeds for `fit` (counterpart of `vitiq/data/feeds.py`, in-RAM part).
+"""Batch feeds for `fit` and the evaluations (counterpart of
+`vitiq/data/feeds.py`).
 
-`ArrayFeed` holds whole splits in host memory and yields numpy batches:
-shuffled drop-last train batches (a permutation seeded `shuffle_seed +
-epoch`, so a resumed run sees the batch order of an uninterrupted one) and
-padded eval batches with a valid mask. The streaming and per-process feeds
-(`StreamFeed`, `ProcessShardFeed`) are not ported yet.
+* `ArrayFeed` holds whole splits in host memory: shuffled drop-last train
+  batches (a permutation seeded `shuffle_seed + epoch`, so a resumed run sees
+  the batch order of an uninterrupted one), padded eval batches with a valid
+  mask, and raw (x, y, snr) batches.
+* `StreamFeed` streams a split from storage through a per-epoch batch
+  iterator (`HDF5DataSource.batch_stream`'s windowed reads or
+  `PackedDataSource.batch_stream` over memory-mapped shards), epoch after
+  epoch the same under `shuffle_seed + epoch`; `close()` releases its
+  storage handle.
+
+Both yield host numpy batches; `fit` and the evaluations copy them to the
+card through `data/pipeline.py`'s `device_prefetch`. The per-process feed
+(`ProcessShardFeed`) waits for the device mesh.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -44,7 +53,11 @@ class DataFeed:
         raise NotImplementedError
 
     def raw_batches(self, batch_size: int) -> Iterator[RawBatch]:
+        """Sequential un-padded (x, y, snr) batches (the last may be partial)."""
         raise NotImplementedError
+
+    def close(self) -> None:
+        """Release any storage handle (nothing for in-RAM feeds)."""
 
 
 class ArrayFeed(DataFeed):
@@ -73,6 +86,40 @@ class ArrayFeed(DataFeed):
         for start in range(0, self.num_samples, batch_size):
             sl = slice(start, start + batch_size)
             yield self.x[sl], self.y[sl], self.snr[sl]
+
+
+class StreamFeed(DataFeed):
+    """Out-of-core feed over a per-epoch batch-iterator factory:
+    `make_iter(batch_size, shuffle, seed, drop_last)` yields raw (x, y, snr)
+    batches, the contract of `HDF5DataSource.batch_stream` and
+    `PackedDataSource.batch_stream`. Each epoch's iterator is seeded
+    `shuffle_seed + epoch`; `source` is the storage object behind
+    `make_iter`, closed by `close()` (a streaming run opens one a split)."""
+
+    def __init__(self, make_iter: Callable[..., Iterator[RawBatch]], num_samples: int,
+                 shuffle_seed: int = 0, source=None):
+        self._make_iter = make_iter
+        self.num_samples = num_samples
+        self.shuffle_seed = shuffle_seed
+        self.source = source
+
+    def close(self) -> None:
+        if self.source is not None and hasattr(self.source, "close"):
+            self.source.close()
+
+    def train_batches(self, epoch: int, batch_size: int) -> Iterator[Batch]:
+        it = self._make_iter(batch_size=batch_size, shuffle=True,
+                             seed=self.shuffle_seed + epoch, drop_last=True)
+        for bx, by, _ in it:
+            yield bx, by
+
+    def eval_batches(self, batch_size: int) -> Iterator[EvalBatch]:
+        it = self._make_iter(batch_size=batch_size, shuffle=False, seed=0, drop_last=False)
+        for bx, by, _ in it:
+            yield _pad_eval(bx, by, batch_size)
+
+    def raw_batches(self, batch_size: int) -> Iterator[RawBatch]:
+        return self._make_iter(batch_size=batch_size, shuffle=False, seed=0, drop_last=False)
 
 
 def as_feed(data, shuffle_seed: int = 0) -> DataFeed:

@@ -1,5 +1,5 @@
-"""Normalization statistics (counterpart of `vitiq/data/stats.py`, without
-the HDF5 reader).
+"""Normalization statistics (counterpart of `vitiq/data/stats.py`; h5py is
+imported inside `stats_from_hdf5`).
 
 Reproduces the reference's seeded-subset recipe exactly
 (ref: ViT/dataloader/dataset.py:116-158): min(5000, n) train indices drawn
@@ -55,3 +55,14 @@ def stats_from_array(x: np.ndarray, indices: np.ndarray, seed: int = 49,
     return compute_normalization_stats(
         lambda rows: x[rows], indices, seed=seed, num_samples=num_samples
     )
+
+
+def stats_from_hdf5(file_path: str, indices: np.ndarray, seed: int = 49,
+                    num_samples: int = 5000) -> Dict[str, float]:
+    import h5py
+
+    with h5py.File(file_path, "r") as f:
+        x = f["X"]
+        return compute_normalization_stats(
+            lambda rows: x[rows, ...], indices, seed=seed, num_samples=num_samples
+        )

@@ -11,8 +11,10 @@ Artifacts, as the JAX package writes them:
   {prefix}_results.pkl
 
 The plots need matplotlib and seaborn (``make_plots=False`` skips them); the
-confusion matrices and the report are numpy. Batches are read from the feed
-on the host one at a time (the prefetching feed is not ported yet).
+confusion matrices and the report are numpy. Batches reach the device
+through `data/pipeline.py`'s `device_prefetch` (on the card: pinned memory,
+a side stream, a worker thread ahead of the model), and the predictions stay
+on the device until the pass ends: one copy to the host a pass.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from vitiq_torch.data.pipeline import device_prefetch
 from vitiq_torch.eval.report import confusion_matrix, write_classification_report
 
 TARGET_SNRS = (-8, 0, 8)  # ref: ViT/training/utils.py:349
@@ -31,25 +34,31 @@ TARGET_SNRS = (-8, 0, 8)  # ref: ViT/training/utils.py:349
 
 @torch.no_grad()
 def predict_feed(forward_fn: Callable, feed, batch_size: int, device,
-                 preprocess_fn: Optional[Callable] = None):
+                 preprocess_fn: Optional[Callable] = None, prefetch_depth: int = 3):
     """Predictions over a DataFeed's raw (x, y, snr) batches: each batch is
-    padded to `batch_size` with zero frames, moved to `device`, run through
-    `preprocess_fn` and `forward_fn`, and its argmax (taken on the device)
-    copied back for the valid rows. Returns (preds, labels, snrs) numpy."""
+    padded to `batch_size` with zero frames on the host, prefetched to
+    `device`, run through `preprocess_fn` and `forward_fn`, and the argmax of
+    its valid rows kept on the device; labels and SNRs stay on the host.
+    Returns (preds, labels, snrs) numpy, the predictions copied once."""
     device = torch.device(device)
+
+    def padded():
+        for bx, by, bz in feed.raw_batches(batch_size):
+            n_valid = len(bx)
+            bx = np.asarray(bx, np.float32)
+            if n_valid < batch_size:
+                bx = np.concatenate(
+                    [bx, np.zeros((batch_size - n_valid,) + bx.shape[1:], bx.dtype)])
+            yield bx, (np.asarray(by), np.asarray(bz)), n_valid
+
     preds, labels, snrs = [], [], []
-    for bx, by, bz in feed.raw_batches(batch_size):
-        n_valid = len(bx)
-        x = torch.as_tensor(np.asarray(bx, np.float32)).to(device)
-        if n_valid < batch_size:
-            pad = torch.zeros((batch_size - n_valid,) + tuple(x.shape[1:]), dtype=x.dtype,
-                              device=device)
-            x = torch.cat([x, pad])
+    for x, (by, bz), n_valid in device_prefetch(padded(), device, prefetch_depth):
+        x = torch.as_tensor(x, device=device)
         inputs = preprocess_fn(x) if preprocess_fn is not None else x
-        preds.append(forward_fn(inputs).argmax(dim=-1)[:n_valid].cpu().numpy())
-        labels.append(np.asarray(by))
-        snrs.append(np.asarray(bz))
-    return np.concatenate(preds), np.concatenate(labels), np.concatenate(snrs)
+        preds.append(forward_fn(inputs).argmax(dim=-1)[:n_valid])
+        labels.append(by)
+        snrs.append(bz)
+    return torch.cat(preds).cpu().numpy(), np.concatenate(labels), np.concatenate(snrs)
 
 
 def evaluate_feed_with_confusion(

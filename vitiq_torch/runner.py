@@ -19,11 +19,17 @@ through the W8A8 quantized model (`ops/quant.py`: K6 and K2 on the card).
 `run_training` on the same data, each evaluated on its test split, then the
 cross-arm comparison of their reports (`eval/compare.py`).
 
-All three run on the card unless the caller asks for another device, and
-raise where CUDA is absent; under ``VITIQ_ATTN_INT8=1`` their float
-evaluation passes run K7 (`Encoder.forward`). Only the synthetic source is
-ported: the HDF5 source needs h5py. The reference-checkpoint import is not
-ported yet.
+`run_reference_evaluation` evaluates a reference PyTorch ``.pth`` without
+retraining: the port keeps the reference's parameter names, so its
+``model_state_dict`` loads with `load_state_dict`.
+
+The data is the synthetic corpus or a RadioML-layout HDF5 file (h5py is
+imported where the file is read): in RAM (`ArrayFeed`), or with
+``data.streaming`` one `StreamFeed` a split over windowed reads, each with
+its own file handle, closed when the run ends. All four run on the card
+unless the caller asks for another device, and raise where CUDA is absent;
+under ``VITIQ_ATTN_INT8=1`` their float evaluation passes run K7
+(`Encoder.forward`).
 """
 
 from __future__ import annotations
@@ -37,21 +43,48 @@ import numpy as np
 import torch
 
 from vitiq_torch.config import ExperimentConfig
-from vitiq_torch.data import ArrayFeed, SyntheticAMCDataset, channel_from_config, stats_from_array
+from vitiq_torch.data import (
+    ArrayFeed,
+    DataFeed,
+    HDF5DataSource,
+    StreamFeed,
+    SyntheticAMCDataset,
+    channel_from_config,
+    stats_from_array,
+)
 
 
-def _check_source(cfg: ExperimentConfig) -> None:
-    if cfg.data.source != "synthetic":
-        raise NotImplementedError(
-            f"data source {cfg.data.source!r}: the port reads the synthetic source only "
-            "(the HDF5 source needs h5py and is not ported yet)")
+def _check_frame_geometry(cfg: ExperimentConfig, frame_len: int) -> None:
+    """Fail fast where the HDF5 file's frame length (after SPS decimation)
+    does not fit the model: it is known only once the file is open."""
+    if frame_len % cfg.data.sps:
+        raise ValueError(f"dataset frame length ({frame_len}) must be a multiple of "
+                         f"data.sps ({cfg.data.sps})")
+    eff = frame_len // cfg.data.sps
+    if cfg.model.arm == "rawiq" and cfg.model.seq_length != eff:
+        raise ValueError(
+            f"model.seq_length ({cfg.model.seq_length}) != effective frame "
+            f"length ({eff} = dataset frame_len {frame_len} / sps {cfg.data.sps})")
+    if (cfg.model.arm == "vit" and cfg.data.features == "iq"
+            and cfg.model.img_size_h * cfg.model.img_size_w != 2 * eff):
+        raise ValueError(f"ViT image {cfg.model.img_size_h}x{cfg.model.img_size_w} must "
+                         f"hold 2*(frame_len/sps) = {2 * eff} values")
 
 
 def load_experiment_data(cfg: ExperimentConfig):
-    """Returns (splits dict of (x, y, snr), stats, class_names): the
-    synthetic corpus of `cfg.data`, split in order into train / valid / test,
-    the stats from a seeded subset of the train split."""
-    _check_source(cfg)
+    """Returns (splits dict of (x, y, snr), stats, class_names): the HDF5
+    file's reference split, each split read into RAM in sorted row order, or
+    the synthetic corpus of `cfg.data` split in order into train / valid /
+    test; the stats from a seeded subset of the train split."""
+    if cfg.data.source == "hdf5":
+        with HDF5DataSource(cfg.data.file_path, cfg.data.json_path) as src:
+            _check_frame_geometry(cfg, src.frame_len)
+            s = src.split(cfg.data)
+            stats = src.normalization_stats(s.train, cfg.data)
+            splits = {name: src.load_split_arrays(idx, s.label_map)
+                      for name, idx in (("train", s.train), ("valid", s.valid),
+                                        ("test", s.test))}
+        return splits, stats, list(cfg.data.target_modulations)
     ds = SyntheticAMCDataset(
         classes=cfg.data.synthetic_classes,
         frames_per_class=cfg.data.synthetic_frames_per_class,
@@ -76,7 +109,27 @@ def load_experiment_data(cfg: ExperimentConfig):
 
 
 def load_experiment_feeds(cfg: ExperimentConfig):
-    """Returns (feeds dict of ArrayFeed, stats, class_names)."""
+    """Returns (feeds dict of DataFeed, stats, class_names). With
+    ``data.streaming`` and the HDF5 source each split is a `StreamFeed` over
+    `HDF5DataSource.batch_stream` (``data.stream_window_rows`` a window) with
+    a file handle of its own, which the feed's `close()` releases; otherwise
+    the splits are read into RAM as `ArrayFeed`s."""
+    if cfg.data.source == "hdf5" and cfg.data.streaming:
+        import functools
+
+        with HDF5DataSource(cfg.data.file_path, cfg.data.json_path) as meta_src:
+            _check_frame_geometry(cfg, meta_src.frame_len)
+            s = meta_src.split(cfg.data)
+            stats = meta_src.normalization_stats(s.train, cfg.data)
+        feeds: Dict[str, DataFeed] = {}
+        for name, idx in (("train", s.train), ("valid", s.valid), ("test", s.test)):
+            src = HDF5DataSource(cfg.data.file_path, cfg.data.json_path)
+            feeds[name] = StreamFeed(
+                functools.partial(src.batch_stream, idx, s.label_map,
+                                  window_rows=cfg.data.stream_window_rows),
+                num_samples=len(idx), shuffle_seed=cfg.train.shuffle_seed, source=src)
+        return feeds, stats, list(cfg.data.target_modulations)
+
     splits, stats, class_names = load_experiment_data(cfg)
     feeds = {name: ArrayFeed(x, y, z, shuffle_seed=cfg.train.shuffle_seed)
              for name, (x, y, z) in splits.items()}
@@ -149,10 +202,104 @@ def run_evaluation(
     else:
         forward, preprocess = build_forward_and_preprocess(cfg, model, stats, device)
         forward.eval()
-    return evaluate_feed_with_confusion(
-        forward, feeds[dataset], class_names, exp_dir / "evaluation", device, prefix=prefix,
-        batch_size=cfg.train.batch_size, preprocess_fn=preprocess, make_plots=make_plots,
-        verbose=verbose)
+    try:
+        return evaluate_feed_with_confusion(
+            forward, feeds[dataset], class_names, exp_dir / "evaluation", device, prefix=prefix,
+            batch_size=cfg.train.batch_size, preprocess_fn=preprocess, make_plots=make_plots,
+            verbose=verbose)
+    finally:
+        for f in feeds.values():
+            f.close()
+
+
+def _config_from_json(path: Path) -> ExperimentConfig:
+    """A vitiq config JSON, or the reference's UPPERCASE config.json (told
+    apart by the case of its keys)."""
+    d = json.loads(Path(path).read_text())
+    if any(k.isupper() for k in d):
+        return ExperimentConfig.from_reference_dict(d)
+    return ExperimentConfig.from_dict(d)
+
+
+def run_reference_evaluation(
+    torch_checkpoint: str,
+    config_path: Optional[str] = None,
+    output_dir: Optional[str] = None,
+    dataset: str = "test",
+    batch_size: Optional[int] = None,
+    data_path: Optional[str] = None,
+    json_path: Optional[str] = None,
+    device="cuda",
+    make_plots: bool = True,
+    verbose: bool = True,
+) -> Dict:
+    """Evaluate a reference PyTorch checkpoint (a ``.pth`` holding
+    ``model_state_dict``, or a bare state dict) on one split and write the
+    evaluation artifacts, without retraining.
+
+    The config comes from, in order: `config_path` (a vitiq config JSON or
+    the reference's UPPERCASE config.json); a config JSON beside the
+    checkpoint (``<stem>.json``, else ``config.json`` in its directory); the
+    reference config the checkpoint embeds under ``config``.
+    `data_path` / `json_path` override the dataset's location (and
+    `data_path` selects the HDF5 source). The weights load with
+    `load_state_dict` (the port keeps the reference's parameter names;
+    entries the model does not have, such as buffers, are ignored, and a
+    missing parameter raises KeyError). The checkpoint is read with
+    ``torch.load(weights_only=True)``: tensors, containers and plain values
+    only. Artifacts go to `output_dir`, by default
+    ``result/reference_import/<stem>/evaluation``."""
+    from vitiq_torch.eval import evaluate_feed_with_confusion
+    from vitiq_torch.models.amc import AMCModel
+    from vitiq_torch.serve import build_forward_and_preprocess, resolve_device
+
+    device = resolve_device(device)
+    ckpt_path = Path(torch_checkpoint)
+    blob = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    sd = blob.get("model_state_dict", blob) if isinstance(blob, dict) else blob
+
+    cfg = None
+    if config_path:
+        cfg = _config_from_json(Path(config_path))
+    else:
+        for cand in (ckpt_path.with_suffix(".json"), ckpt_path.parent / "config.json"):
+            if cand.exists():
+                cfg = _config_from_json(cand)
+                break
+        if cfg is None and isinstance(blob, dict) and blob.get("config"):
+            cfg = ExperimentConfig.from_reference_dict(blob["config"])
+    if cfg is None:
+        raise FileNotFoundError(
+            f"no config found for {ckpt_path}: pass --config, place a config.json next to "
+            "the checkpoint, or use a reference training checkpoint with an embedded config")
+    if data_path:
+        cfg.data.file_path = data_path
+        cfg.data.source = "hdf5"
+    if json_path:
+        cfg.data.json_path = json_path
+    if batch_size:
+        cfg.train.batch_size = batch_size
+    cfg.model.validate()
+
+    model = AMCModel(cfg.model)
+    missing = model.load_state_dict(sd, strict=False).missing_keys
+    if missing:
+        raise KeyError(f"the checkpoint has no {missing[0]!r} for this config "
+                       f"({len(missing)} parameters missing)")
+
+    out = Path(output_dir) if output_dir else (
+        Path("result/reference_import") / ckpt_path.stem / "evaluation")
+    feeds, stats, class_names = load_experiment_feeds(cfg)
+    try:
+        forward, preprocess = build_forward_and_preprocess(cfg, model, stats, device)
+        forward.eval()
+        return evaluate_feed_with_confusion(
+            forward, feeds[dataset], class_names, out, device, prefix=dataset,
+            batch_size=cfg.train.batch_size, preprocess_fn=preprocess, make_plots=make_plots,
+            verbose=verbose)
+    finally:
+        for f in feeds.values():
+            f.close()
 
 
 def _newest_checkpoint(exp_dir: Path) -> Optional[str]:
@@ -196,7 +343,6 @@ def run_training(cfg: ExperimentConfig, resume: Optional[str] = None, evaluate_t
 
     device = resolve_device(device)
     cfg.validate(check_paths=cfg.data.source == "hdf5")
-    _check_source(cfg)
     exp_dir = Path(cfg.checkpoint_dir) / cfg.experiment_name
     log_dir = Path(cfg.log_dir)
     exp_dir.mkdir(parents=True, exist_ok=True)
@@ -243,7 +389,8 @@ def run_training(cfg: ExperimentConfig, resume: Optional[str] = None, evaluate_t
     try:
         result = fit(cfg, model, feeds["train"], feeds["valid"], preprocess_fn=preprocess,
                      epoch_callback=tracking_callback, resume_state=resume_state,
-                     resume_history=resume_history, start_epoch=start_epoch, verbose=verbose)
+                     resume_history=resume_history, start_epoch=start_epoch, verbose=verbose,
+                     profile=cfg.train.profile_steps)
     except KeyboardInterrupt:
         if last["state"] is not None:
             save_checkpoint(exp_dir / "checkpoint_interrupted", last["state"], last["epoch"],
@@ -252,6 +399,8 @@ def run_training(cfg: ExperimentConfig, resume: Optional[str] = None, evaluate_t
                   f"{exp_dir / 'checkpoint_interrupted.npz'} (epoch {last['epoch'] + 1})")
         else:
             print("interrupted before the first epoch completed — nothing to rescue")
+        for f in feeds.values():
+            f.close()
         raise
     train_wall = time.perf_counter() - t0
 
@@ -286,6 +435,8 @@ def run_training(cfg: ExperimentConfig, resume: Optional[str] = None, evaluate_t
         "history": history,
         "normalization_stats": stats,
     }
+    if result.step_times:
+        summary["step_times"] = result.step_times
     if evaluate_test:
         model.load_state_dict(best_params)
         model.eval()
@@ -297,6 +448,8 @@ def run_training(cfg: ExperimentConfig, resume: Optional[str] = None, evaluate_t
         summary["test_snr_accuracies"] = res["snr_accuracies"]
     (exp_dir / "summary.json").write_text(json.dumps(
         {k: v for k, v in summary.items() if k != "history"}, indent=2, default=float))
+    for f in feeds.values():
+        f.close()  # a streaming run holds a file handle a split
     return summary
 
 

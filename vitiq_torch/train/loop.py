@@ -14,10 +14,17 @@ the feed's per-epoch shuffle and the step's dropout seed continue where the
 saved run stopped, so a resumed run takes the steps an uninterrupted one
 takes.
 
-Not ported yet (later work): the device mesh and data parallelism, device-
-scan superbatching (`TrainConfig.device_scan_steps`, one device call per K
-steps), the prefetching host-to-device feed (`device_prefetch`) and, with
-it, per-step profiling (`fit(profile=True)`, `TrainConfig.profile_steps`).
+Train and eval batches reach the model through `data/pipeline.py`'s
+`device_prefetch`: on the card a worker thread copies batch N+1 through
+pinned memory on a side stream while step N runs. `evaluate_feed` keeps its
+sums on the device (float64, added in the order the host added them before)
+and reads them once a pass. `fit(profile=True)` times each step with
+`utils/profiling.StepTimer`, which waits for the device before its clock
+stops, and adds per-epoch ``step_p50`` / ``step_p90`` to the history.
+
+Not ported yet (later work): the device mesh and data parallelism, and
+device-scan superbatching (`TrainConfig.device_scan_steps`, one device call
+per K steps).
 """
 
 from __future__ import annotations
@@ -26,10 +33,12 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from vitiq_torch.config import ExperimentConfig
 from vitiq_torch.data.feeds import DataFeed, as_feed
+from vitiq_torch.data.pipeline import device_prefetch
 from vitiq_torch.ops.metrics import (
     accuracy,
     label_smoothed_cross_entropy,
@@ -112,14 +121,18 @@ def make_eval_step(label_smoothing: float, preprocess_fn: Optional[Callable] = N
     return step
 
 
-def evaluate_feed(eval_step, model, feed: DataFeed, batch_size: int) -> Dict[str, float]:
-    """Padded batches over a DataFeed: every sample scored exactly once."""
-    loss_sum = correct_sum = count = 0.0
-    for bx, by, mask in feed.eval_batches(batch_size):
+def evaluate_feed(eval_step, model, feed: DataFeed, batch_size: int,
+                  prefetch_depth: int = 3) -> Dict[str, float]:
+    """Padded batches over a DataFeed, prefetched to the model's device:
+    every sample scored exactly once. The loss, correct and count sums stay
+    on the device in float64, each batch's float32 sums added in batch order,
+    and are read once at the end."""
+    device = _device(model)
+    sums = torch.zeros(3, dtype=torch.float64, device=device)
+    for bx, by, mask in device_prefetch(feed.eval_batches(batch_size), device, prefetch_depth):
         m = eval_step(model, bx, by, mask)
-        loss_sum += float(m["loss_sum"])
-        correct_sum += float(m["correct_sum"])
-        count += float(m["count"])
+        sums += torch.stack([m["loss_sum"], m["correct_sum"], m["count"]]).double()
+    loss_sum, correct_sum, count = sums.tolist()
     return {"loss": loss_sum / count, "accuracy": correct_sum / count}
 
 
@@ -133,6 +146,8 @@ class FitResult:
     # True iff best_params was tracked by early stopping in this run; False
     # means it is the final epoch's parameters
     best_tracked: bool = False
+    # StepTimer.summary() when fit(profile=True): p50/p90/best/mean step s
+    step_times: Optional[Dict] = None
 
 
 def fit(
@@ -146,6 +161,7 @@ def fit(
     resume_history: Optional[Dict] = None,
     start_epoch: int = 0,
     verbose: bool = True,
+    profile: bool = False,
 ) -> FitResult:
     """Train `model` in place with the reference's control semantics:
     plateau LR, early stop, best-parameter tracking, full history.
@@ -154,12 +170,14 @@ def fit(
     `epoch_callback(epoch, state, history)` runs after each epoch. To resume,
     pass the loaded state (its model must be `model`), the saved history
     (extended in place) and the first epoch to run: the plateau scheduler
-    and early stopping are re-primed from the history's validation losses."""
+    and early stopping are re-primed from the history's validation losses.
+
+    Batches reach the model's device through `device_prefetch`, at most
+    `TrainConfig.prefetch_depth` ahead. `profile=True` times each step after
+    the device has finished it (`StepTimer`) and adds per-epoch step_p50 /
+    step_p90 (seconds; the first step of the first epoch, the warm-up, left
+    out) to the history and the summary to `FitResult.step_times`."""
     tcfg = cfg.train
-    if tcfg.profile_steps:
-        raise NotImplementedError(
-            "TrainConfig.profile_steps: per-step profiling (vitiq's fit(profile=True) with its "
-            "StepTimer) is not ported yet; it comes with the prefetching host-to-device feed")
     tx = make_optimizer(tcfg)
     if resume_state is not None:
         if resume_state.model is not model:
@@ -193,18 +211,36 @@ def fit(
         raise ValueError("validation set is empty: plateau LR and early stopping "
                          "need a validation metric")
 
+    timer = None
+    if profile:
+        from vitiq_torch.utils.profiling import StepTimer
+
+        timer = StepTimer()
+        history.setdefault("step_p50", [])
+        history.setdefault("step_p90", [])
+
+    device = _device(model)
     result = FitResult(state=state, best_params=None, history=history)
     for epoch in range(start_epoch, tcfg.num_epochs):
         t0 = time.perf_counter()
         losses, accs = [], []
-        for bx, by in train_feed.train_batches(epoch, tcfg.batch_size):
-            state, metrics = train_step(state, bx, by, tcfg.dropout_seed)
+        epoch_steps0 = len(timer.times) if timer else 0
+        batches = device_prefetch(train_feed.train_batches(epoch, tcfg.batch_size), device,
+                                  tcfg.prefetch_depth)
+        for bx, by in batches:
+            if timer is not None:
+                with timer.step():
+                    state, metrics = train_step(state, bx, by, tcfg.dropout_seed)
+                    timer.sync(metrics["loss"])
+            else:
+                state, metrics = train_step(state, bx, by, tcfg.dropout_seed)
             losses.append(metrics["loss"])
             accs.append(metrics["accuracy"])
         train_loss = float(torch.stack(losses).mean())
         train_acc = float(torch.stack(accs).mean())
 
-        val = evaluate_feed(eval_step, state.model, valid_feed, tcfg.batch_size)
+        val = evaluate_feed(eval_step, state.model, valid_feed, tcfg.batch_size,
+                            tcfg.prefetch_depth)
         epoch_time = time.perf_counter() - t0
 
         lr = get_learning_rate(state)
@@ -218,10 +254,20 @@ def fit(
         history["val_acc"].append(val["accuracy"])
         history["lr"].append(lr)
         history["epoch_time"].append(epoch_time)
+        step_note = ""
+        if timer is not None:
+            et = np.asarray(timer.times[epoch_steps0:])
+            if epoch == start_epoch and len(et) > 1:
+                et = et[1:]  # the first step of the run warms up
+            p50 = float(np.median(et)) if len(et) else float("nan")
+            p90 = float(np.percentile(et, 90)) if len(et) else float("nan")
+            history["step_p50"].append(p50)
+            history["step_p90"].append(p90)
+            step_note = f" step p50={p50 * 1e3:.1f}ms p90={p90 * 1e3:.1f}ms"
         if verbose:
             print(f"epoch {epoch + 1}/{tcfg.num_epochs} train_loss={train_loss:.4f} "
                   f"train_acc={train_acc:.4f} val_loss={val['loss']:.4f} "
-                  f"val_acc={val['accuracy']:.4f} lr={lr:.2e} ({epoch_time:.1f}s)")
+                  f"val_acc={val['accuracy']:.4f} lr={lr:.2e} ({epoch_time:.1f}s){step_note}")
 
         result.state = state
         result.epochs_run = epoch + 1
@@ -234,6 +280,8 @@ def fit(
             break
 
     result.state = state
+    if timer is not None:
+        result.step_times = timer.summary()
     result.best_tracked = early_stopping.best_params is not None
     result.best_params = (early_stopping.best_params if result.best_tracked else
                           {k: v.detach().clone() for k, v in state.model.state_dict().items()})
