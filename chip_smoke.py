@@ -221,6 +221,33 @@ which raises (exit code 1) on failure:
    --torch-checkpoint` with a synthetic config on the card: K1 5 and K2 1
    a batch, and its predictions equal `run_evaluation`'s on the same
    weights.
+   dsp: the DSP front-end on the card. timing_scan_kernel (csrc/timing.cu,
+   the Gardner and Mueller-Mueller loops) is built without a spill and held
+   to its plain loop (`tk.timing_scan_plain`) bit for bit on synthetic
+   frames RRC-shaped at sps 2 (B=4096, 2,048 samples) and sps 4 (B=1024,
+   4,096 samples), both loops, full (L//sps steps) and hybrid (64 steps
+   from p0), 30 launches the same bits; the matched filter within 1e-5 of
+   a float64 np.convolve (not TF32); vitiq's contract bar
+   (tests/test_dsp.py:104-130) with `extract_symbols` on the card. Then one
+   request of 4,096 frames each through `Server` at full width, against the
+   f32 path on the same input (the serving gates), every counter reset
+   just before and read just after (K1 5, K2 1, and timing_scan_kernel once
+   for the loops): the rawIQ flagship at 1,024 symbols from 2,048-sample
+   frames at sps 2 with each of the four timing methods (the loops hybrid)
+   and with the Gardner and Mueller-Mueller full loops; the rawIQ flagship
+   on amp_phase features and the ViT flagship on spectrogram images
+   (1,024-sample frames); the streaming classifier (64 windows of the
+   64-channel channelizer, the ViT flagship). Each is timed (frames/s a
+   call, the front-end and the model alone), the streaming call with the
+   channelizer alone, the device's idle share of one SPS serving call
+   (`torch.profiler`) printed, and timing_scan_kernel timed against its
+   plain loop beside its byte and chain bounds (`scan_bounds`). dsp-train:
+   `cli train --sps 2 --timing_method gardner` of the rawIQ flagship on
+   synthetic 2,048-sample frames RRC-shaped at sps 2 (3 classes,
+   DSP_TRAIN_EPOCHS epochs): K4 6 + 6 and the scan kernel once a step, K1 5,
+   K2 1 and the scan kernel once an evaluated batch, a falling train loss,
+   and `cli evaluate` of its checkpoint printing the run's test accuracy.
+   ``--dsp`` runs only the device, build and dsp phases.
 7. timing (CUDA events after warm-up): per-layer kernel time against the
    plain version (K1 and K2 at the three shapes, B=4096 and, at 1025 tokens,
    B=256; K3 at the ViT and rawIQ shapes and K4 at the rawIQ one, B=4096;
@@ -326,6 +353,9 @@ The launches of K2's pooling kernel and K7's two cores are counted by the C
 code where it launches each (`fel.kernel_launches`); the kernels line gives
 those counts from the main path's runs (the ViT flagship's serve phase, and
 the ViT flagship's and rawiq_best's evaluations under VITIQ_ATTN_INT8=1).
+timing_scan_kernel's launches are counted by timing.cu (`tk.kernel_launches`)
+over the dsp phase's serving requests; it has no TPU twin (the JAX package
+runs the loops as a lax.scan), which its entry says.
 """
 
 from __future__ import annotations
@@ -362,6 +392,7 @@ from vitiq_torch.ops.cuda import fused_encoder_layer as fel
 from vitiq_torch.ops.cuda import fused_encoder_layer_int8 as k6
 from vitiq_torch.ops.cuda import fused_encoder_layer_int8attn as k7
 from vitiq_torch.ops.cuda import fused_layer_train as flt
+from vitiq_torch.ops.cuda import timing as tk
 from vitiq_torch.ops.metrics import label_smoothed_cross_entropy
 from vitiq_torch.ops.quant import QuantizedEncoderLayer, quantize_params_int8
 from vitiq_torch.probes import exp as p3
@@ -960,6 +991,28 @@ def check_attention_kernels(device, B: int = 64) -> dict:
     return errs
 
 
+def gate_logits(label: str, got, want, n: int, num_classes: int) -> float:
+    """The serving gates on the logits of n frames against the f32 path's:
+    finite, of the expected shape, max |dlogit| < LOGIT_GATE, argmax
+    agreement >= AGREE_GATE on the rows whose f32 top-2 margin exceeds 4 max
+    |dlogit|."""
+    if got.shape != (n, num_classes) or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: bad logits {tuple(got.shape)}")
+    max_abs = (got - want).abs().max().item()
+    top2 = want.topk(2, dim=-1).values
+    confident = (top2[:, 0] - top2[:, 1]) > 4 * max_abs
+    agree = (got.argmax(-1) == want.argmax(-1)).float()
+    agree_conf = agree[confident].mean().item() if confident.any() else 1.0
+    print(f"  {label}: B={n}; max |dlogit| vs f32 path {max_abs:.6g}; argmax agreement "
+          f"{agree.mean().item():.4f} (confident rows: {agree_conf:.4f} over "
+          f"{int(confident.sum())})", flush=True)
+    if not max_abs < LOGIT_GATE:
+        raise AssertionError(f"{label}: bf16 logits diverge from the f32 path")
+    if agree_conf < AGREE_GATE:
+        raise AssertionError(f"{label}: argmax diverges on confident rows")
+    return max_abs
+
+
 def serve_check(label: str, model_cfg, stats, device, sizes, buckets, k5_route=False) -> dict:
     """Serve ragged requests through the kernels; compare with the f32 path.
     By default each request must launch K1 once per full layer and K2 once
@@ -1009,23 +1062,11 @@ def serve_check(label: str, model_cfg, stats, device, sizes, buckets, k5_route=F
     got = torch.cat(outs)
     want = torch.cat([ref_serve(x) for x in requests])
     torch.cuda.synchronize()
-    if got.shape != (sum(sizes), model_cfg.num_classes) or not torch.isfinite(got).all():
-        raise AssertionError(f"{label}: bad logits {tuple(got.shape)}")
-    max_abs = (got - want).abs().max().item()
-    top2 = want.topk(2, dim=-1).values
-    confident = (top2[:, 0] - top2[:, 1]) > 4 * max_abs
-    agree = (got.argmax(-1) == want.argmax(-1)).float()
-    agree_conf = agree[confident].mean().item() if confident.any() else 1.0
     front = "fused raw embedding" if model.raw_stats is not None else "preprocess + embedding"
     print(f"  {label}: requests {list(sizes)} via buckets {list(buckets)} ({front}); launches "
           f"K1 {counts['fused_encoder_layer']}, K2 {counts['fused_encoder_layer_cls']}, "
-          f"K5-fwd {counts[K5[0]]}; max |dlogit| vs f32 path {max_abs:.6g}; argmax agreement "
-          f"{agree.mean().item():.4f} (confident rows: {agree_conf:.4f} over "
-          f"{int(confident.sum())})", flush=True)
-    if not max_abs < LOGIT_GATE:
-        raise AssertionError(f"{label}: bf16 logits diverge from the f32 path")
-    if agree_conf < AGREE_GATE:
-        raise AssertionError(f"{label}: argmax diverges on confident rows")
+          f"K5-fwd {counts[K5[0]]}", flush=True)
+    max_abs = gate_logits(label, got, want, sum(sizes), model_cfg.num_classes)
     del ref_model, ref_serve
     torch.cuda.empty_cache()
     return {"counts": counts, "kernel_counts": kernel_counts, "max_abs": max_abs, "model": model,
@@ -3847,6 +3888,418 @@ def time_k4_host(device, card: str, B: int = 4096) -> dict:
     return out
 
 
+# The dsp phase: the SPS front-end (RRC matched filter, then timing recovery
+# with the error-feedback loops in timing_scan_kernel), the amp_phase and
+# spectrogram features and the streaming classifier (the 64-channel
+# polyphase channelizer), each served at full width through K1/K2, and an
+# SPS training run through K4.
+DSP_BATCH = 4096
+DSP_SPS = 2
+DSP_SPS_FRAME = DSP_SPS * FRAME_LEN  # 2,048 samples -> the rawIQ flagship's 1,024 symbols
+DSP_CHANNELS = 64  # the streaming classifier's channels; 64 windows of them
+DSP_TRAIN_EPOCHS, DSP_TRAIN_BATCH, DSP_TRAIN_LR = 4, 256, 1e-3
+TIMING_SOURCE = "vitiq_torch/csrc/timing.cu"
+TIMING_JAX_LOOPS = "vitiq/dsp/timing.py:76"  # _gardner_scan's lax.scan: no TPU kernel
+# a Gardner step's float32 operations a frame: three interpolation points
+# (clip, floor, two subtractions, then two products and a sum in I and in Q),
+# the error and the update; Mueller-Mueller's two points and signs are fewer
+SCAN_OPS_PER_STEP = {"gardner": 40, "mueller_muller": 34}
+PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
+# the chain bound: a step's loads wait on the previous step's position, so
+# a frame takes at least steps x (one dependent load); an L1 hit's
+# load-to-use latency on Hopper is taken as 32 cycles (assumed, not measured)
+L1_LOAD_CYCLES = 32
+
+
+def check_timing_build() -> None:
+    """Both instances of timing_scan_kernel are built and do not spill."""
+    entries = {n: v for n, v in _build.ptxas_entries(_build.ptxas_report("timing")).items()
+               if "timing_scan_kernel" in n}
+    if len(entries) != 2:
+        raise AssertionError(f"{len(entries)} timing_scan_kernel instances in the build")
+    for name, (regs, stores, loads) in sorted(entries.items()):
+        method = "gardner" if "ILi0E" in name else "mueller_muller"
+        print(f"  timing_scan_kernel<{method}>: {regs} registers, spill {stores}/{loads} bytes",
+              flush=True)
+        if stores or loads:
+            raise AssertionError(f"timing_scan_kernel<{method}> spills")
+
+
+def dsp_frames(n: int, frame_len: int, sps: int, seed: int = 0) -> torch.Tensor:
+    """n synthetic frames of the default classes and SNRs, RRC-shaped at
+    `sps` samples a symbol (iid symbols at sps 1), [n, frame_len, 2] f32 on
+    the host."""
+    from vitiq_torch.data import SyntheticAMCDataset
+
+    data = DataConfig()
+    ds = SyntheticAMCDataset(classes=data.synthetic_classes, frames_per_class=-(-n // 3),
+                             frame_len=frame_len, snrs_db=data.synthetic_snr_db, seed=seed,
+                             shaping_sps=sps)
+    perm = np.random.default_rng(seed).permutation(len(ds.X))[:n]
+    return torch.from_numpy(np.ascontiguousarray(ds.X[perm]))
+
+
+def check_timing_kernel(device, frames, launches: int = 30) -> float:
+    """timing_scan_kernel against its plain loop (`tk.timing_scan_plain`) on
+    the card at the SPS serving path's shape (B=4096 frames of 2,048
+    samples at sps 2; and B=1024 frames of 4,096 at sps 4): both loops, the full loop
+    (L//sps steps from sps) and the hybrid's 64 steps from p0, positions and
+    valid flags bit for bit (the kernel rounds as the loop's operations do);
+    30 launches give the same bits."""
+    from vitiq_torch.dsp.filtering import matched_filter_batch
+
+    worst = 0.0
+    # sps 4: 1,024 symbols a frame, a quarter of the batch
+    for sps, x in ((2, frames), (4, dsp_frames(frames.shape[0] // 4, 4 * FRAME_LEN, 4, seed=3))):
+        f = matched_filter_batch(x.to(device), sps)
+        L = f.shape[1]
+        p0 = (torch.arange(f.shape[0], device=device) % sps).float() + sps
+        for method in tk.METHODS:
+            for label, steps, start in (("full", L // sps, None), ("hybrid", 64, p0)):
+                want = tk.timing_scan_plain(f, sps, steps, method, p0=start)
+                got = tk.timing_scan(f, sps, steps, method, p0=start)
+                torch.cuda.synchronize()
+                err = (got[0] - want[0]).abs().max().item()
+                same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                repeat = all(torch.equal(tk.timing_scan(f, sps, steps, method, p0=start)[0],
+                                         got[0]) for _ in range(launches))
+                print(f"  timing_scan_kernel {method} {label} sps {sps} B={f.shape[0]} "
+                      f"L={L} steps={steps}: max |kernel - plain| {err:.6g}, bit for bit "
+                      f"{same}, {launches} launches the same bits {repeat}", flush=True)
+                if not (same and repeat):
+                    raise AssertionError(f"timing_scan_kernel {method} {label} sps {sps} "
+                                         "disagrees with its plain loop")
+                worst = max(worst, err)
+    return worst
+
+
+def check_fir(device) -> None:
+    """The matched filter on the card (a grouped float32 convolution, TF32
+    off inside its scope) within 1e-5 of the signal's peak from a float64
+    np.convolve (TF32 shows about 1e-3); the global flag left as it was."""
+    from vitiq_torch.dsp.filtering import matched_filter_batch
+    from vitiq_torch.dsp.taps import rrc_filter
+
+    before = torch.backends.cudnn.allow_tf32
+    x = np.random.default_rng(11).standard_normal((64, DSP_SPS_FRAME, 2)).astype(np.float32)
+    for sps in (2, 4):
+        got = matched_filter_batch(torch.from_numpy(x).to(device), sps).cpu().numpy()
+        taps = rrc_filter(sps=sps)
+        want = np.stack([[np.convolve(xb[:, c].astype(np.float64), taps, mode="same")
+                          for c in range(2)] for xb in x]).transpose(0, 2, 1)
+        rel = np.abs(got - want).max() / np.abs(want).max()
+        print(f"  FIR sps {sps} ({len(taps)} taps) on the card vs float64: max error "
+              f"{rel:.3g} of the peak (gate 1e-5)", flush=True)
+        if not rel <= 1e-5:
+            raise AssertionError(f"the matched filter at sps {sps} is not float32")
+    if torch.backends.cudnn.allow_tf32 != before:
+        raise AssertionError("the matched filter changed the global TF32 flag")
+
+
+def check_contract_bar(device) -> None:
+    """vitiq's DSP contract bar (tests/test_dsp.py:104-130) with the filter
+    and the loops on the card: QPSK, 100 symbols, sps 2, 20 dB: recovery
+    rate within 0.9-1.1 and mean timing error <= 0.75 samples for each
+    method; BPSK at sps 2 and 4: 0.85-1.15 and <= 0.3 sps."""
+    from vitiq_torch.data import generate_test_signal
+    from vitiq_torch.dsp import extract_symbols
+
+    cases = [("QPSK", 100, 2, 4, (0.9, 1.1), 0.75)] + [
+        ("BPSK", 80, sps, 5, (0.85, 1.15), 0.3 * sps) for sps in (2, 4)]
+    for mod, n, sps, seed, (lo, hi), bar in cases:
+        i, q, true_idx = generate_test_signal(mod, n, sps, 20.0, seed=seed)
+        for method in ("simple_energy", "simple_correlation", "gardner", "mueller_muller"):
+            rec = extract_symbols(i, q, sps=sps, method=method, device=device)["symbol_indices"]
+            rate = len(rec) / n
+            err = float(np.mean([np.min(np.abs(true_idx - r)) for r in rec]))
+            if not (lo <= rate <= hi and err <= bar):
+                raise AssertionError(f"{mod} sps {sps} {method}: rate {rate:.2f}, mean "
+                                     f"timing error {err:.3f} (bar {bar})")
+        print(f"  contract bar on the card: {mod} sps {sps}, 4 methods within rate "
+              f"[{lo}, {hi}] and mean timing error <= {bar}", flush=True)
+
+
+def dsp_serve_check(label: str, model_cfg, data: DataConfig, stats, x, device,
+                    scans: int) -> dict:
+    """One request of x's B frames through `Server` (one bucket of B) with
+    the experiment's front-end, against the f32 `reference` path on the same
+    input: max |dlogit| < LOGIT_GATE, argmax agreement >= AGREE_GATE on
+    confident rows (`gate_logits`). Every counter is reset just before
+    the request and read just after: K1 n_layers - 1, K2 1 and
+    timing_scan_kernel `scans` times, nothing else."""
+    exp = ExperimentConfig(model=model_cfg, data=data)
+    model = AMCModel(model_cfg, generator=torch.Generator().manual_seed(0))
+    ref_cfg = ExperimentConfig(model=dataclasses.replace(model_cfg, numerics="reference"),
+                               data=data)
+    ref_model = AMCModel(ref_cfg.model)
+    ref_model.load_state_dict(model.state_dict())
+    serve = build_serving_fn(exp, model, stats, device)
+    server = Server(serve, x.shape[1], (x.shape[0],), device)
+    x = x.to(device)
+    reset_all_launches()
+    tk.reset_launches()
+    got = server.run(x)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in all_launches().items() if v}
+    scan_counts = (tk.launches["timing_scan"], tk.kernel_launches())
+    want_counts = {"fused_encoder_layer": model_cfg.n_layers - 1, "fused_encoder_layer_cls": 1}
+    if counts != want_counts or scan_counts != (scans, scans):
+        raise AssertionError(f"{label}: launched {counts} and timing_scan {scan_counts}, "
+                             f"expected {want_counts} and {scans}")
+    want = build_serving_fn(ref_cfg, ref_model, stats, device)(x)
+    gate_logits(label, got, want, x.shape[0], model_cfg.num_classes)
+    del ref_model
+    torch.cuda.empty_cache()
+    return {"serve": serve, "model": model, "exp": exp, "scans": scan_counts[1]}
+
+
+def streaming_check(device, card: str, windows: int = DSP_CHANNELS) -> dict:
+    """The streaming classifier (64-channel polyphase channelizer, then the
+    ViT flagship on every channel's frame) over `windows` wideband windows of
+    64 x 1,024 complex samples (tones in channels 3 and 17 over noise),
+    against the f32 path with the same weights (`gate_logits`); K1 5
+    and K2 1 per call, nothing else; then its frames/s and the channelizer's
+    time alone."""
+    from vitiq_torch.dsp.channelizer import (design_prototype_lowpass, polyphase_channelize,
+                                             synthesize_multitone)
+    from vitiq_torch.streaming import make_streaming_classifier
+
+    cfg = flagship_vit_config("tpu")
+    model = AMCModel(cfg, generator=torch.Generator().manual_seed(0))
+    ref = AMCModel(dataclasses.replace(cfg, numerics="reference"))
+    ref.load_state_dict(model.state_dict())
+    classify = make_streaming_classifier(cfg, model, STATS, DSP_CHANNELS, device=device)
+    ref_classify = make_streaming_classifier(dataclasses.replace(cfg, numerics="reference"),
+                                             ref, STATS, DSP_CHANNELS, device=device)
+    w = torch.from_numpy(np.concatenate([
+        synthesize_multitone(DSP_CHANNELS, cfg.seq_length, active=((3, 1.0), (17, 0.5)),
+                             seed=i, noise_db=-10.0) for i in range(windows)])).to(device)
+    reset_all_launches()
+    got = classify(w)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in all_launches().items() if v}
+    want_counts = {"fused_encoder_layer": cfg.n_layers - 1, "fused_encoder_layer_cls": 1}
+    if counts != want_counts:
+        raise AssertionError(f"streaming: launched {counts}, expected {want_counts}")
+    want = ref_classify(w)
+    n = windows * DSP_CHANNELS
+    gate_logits(f"streaming ({windows} windows x {DSP_CHANNELS} channels, ViT flagship)",
+                got.reshape(n, -1), want.reshape(n, -1), n, cfg.num_classes)
+    del ref, ref_classify
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: classify(w), 10)
+    taps = design_prototype_lowpass(DSP_CHANNELS, 8)
+    chan_ms = cuda_ms(lambda: polyphase_channelize(w, DSP_CHANNELS, taps), 20)
+    print(f"  streaming B={windows} windows x {DSP_CHANNELS} channels: {n / (ms / 1e3):.1f} "
+          f"frames/s ({ms:.4f} ms a call; the channelizer alone {chan_ms:.4f} ms)  [{card}]",
+          flush=True)
+    return {"frames_per_s": n / (ms / 1e3), "ms": ms, "channelizer_ms": chan_ms}
+
+
+def time_front_end(label: str, res: dict, stats, x, device, card: str, iters: int = 10) -> dict:
+    """Frames/s of one serving call at B frames, and its two parts alone:
+    the front-end (`build_preprocess`) and the model on its output."""
+    from vitiq_torch.serve import build_preprocess
+
+    x = x.to(device)
+    pre = build_preprocess(res["exp"], stats)
+    model = res["model"]
+    with torch.no_grad():
+        inputs = pre(x)
+        front_ms = cuda_ms(lambda: pre(x), iters)
+        model_ms = cuda_ms(lambda: model(inputs), iters)
+        ms = cuda_ms(lambda: res["serve"](x), iters)
+    B = x.shape[0]
+    print(f"  {label} serving B={B}: {B / (ms / 1e3):.1f} frames/s ({ms:.4f} ms a call); "
+          f"front-end alone {front_ms:.4f} ms, model alone {model_ms:.4f} ms  [{card}]",
+          flush=True)
+    return {"frames_per_s": B / (ms / 1e3), "ms": ms, "front_ms": front_ms,
+            "model_ms": model_ms}
+
+
+def scan_bounds(B: int, L: int, steps: int, method: str) -> dict:
+    """timing_scan_kernel's bounds: bytes (the frames read once, positions
+    and valid flags written), operations (float32 outside the tensor cores)
+    and the chain (steps dependent loads, L1_LOAD_CYCLES each)."""
+    nbytes = B * L * 8 + B * steps * 5
+    ops = B * steps * SCAN_OPS_PER_STEP[method]
+    byte_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    chain_ms = steps * L1_LOAD_CYCLES / max_sm_clock_hz() * 1e3
+    bound = (byte_ms, "bytes") if byte_ms >= ops_ms else (ops_ms, "operations")
+    return {"bound": bound, "chain_ms": chain_ms, "bytes": nbytes, "ops": ops}
+
+
+def time_timing_scan(device, card: str, frames) -> dict:
+    """timing_scan_kernel against its plain loop at B=4096, 2,048 samples,
+    sps 2: the hybrid's 64 steps (the serving default) and the full loop's
+    1,024, each beside its bounds."""
+    from vitiq_torch.dsp.filtering import matched_filter_batch
+
+    f = matched_filter_batch(frames.to(device), DSP_SPS)
+    B, L, _ = f.shape
+    p0 = (torch.arange(B, device=device) % DSP_SPS).float() + DSP_SPS
+    out = {}
+    for method in tk.METHODS:
+        for label, steps, start in (("hybrid", 64, p0), ("full", L // DSP_SPS, None)):
+            ms = cuda_ms(lambda: tk.timing_scan(f, DSP_SPS, steps, method, p0=start), 20)
+            plain_ms = cuda_ms(lambda: tk.timing_scan_plain(f, DSP_SPS, steps, method,
+                                                            p0=start), 2, warmup=1)
+            b = scan_bounds(B, L, steps, method)
+            print(f"  timing_scan_kernel {method} {label} B={B} L={L} steps={steps}: "
+                  f"{ms:.4f} ms, plain loop {plain_ms:.4f} ms, byte bound "
+                  f"{b['bound'][0]:.4f} ms ({b['bound'][1]}), chain bound {b['chain_ms']:.4f} "
+                  f"ms  [{card}]", flush=True)
+            out[f"{method}_{label}"] = {"ms": ms, "plain_ms": plain_ms, **b}
+    return out
+
+
+def profile_sps_call(serve, x, device, card: str, calls: int = 10) -> float:
+    """The device's idle share of one SPS serving call: the kernels' device
+    time (torch.profiler) against the host clock of the synced call, with
+    the profiler on, and against the median host clock of `calls` synced
+    calls without it (the profiler adds host time a launch)."""
+    x = x.to(device)
+    walls = []
+    for _ in range(calls + 1):
+        t0 = time.perf_counter()
+        serve(x)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    bare_ms = statistics.median(walls[1:]) * 1e3
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        serve(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3
+    print(f"  profile of one SPS serving call (Gardner, hybrid) B={x.shape[0]}: host wall "
+          f"{wall_ms:.4f} ms (profiler on), device kernel time {busy_ms:.4f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.4f}; without the profiler, host wall p50 {bare_ms:.4f} ms "
+          f"over {calls} calls, idle share {1 - busy_ms / bare_ms:.4f}  [{card}]", flush=True)
+    for e in sorted(kernels, key=device_us, reverse=True)[:12]:
+        print(f"    {device_us(e) / 1e3:9.4f} ms  {e.count:4d}x  {e.key[:100]}", flush=True)
+    return 1 - busy_ms / bare_ms
+
+
+def dsp_cli_train_check(device, card: str,
+                        frames_per_class: int = DataConfig.synthetic_frames_per_class,
+                        batch: int = DSP_TRAIN_BATCH) -> dict:
+    """`python -m vitiq_torch.cli train` of the rawIQ flagship (the
+    rawiq_reference preset, `tpu` numerics) at sps 2 with the Gardner loop
+    (hybrid) on synthetic frames RRC-shaped at 2 samples a symbol (2,048
+    samples -> 1,024 symbols, 3 classes), DSP_TRAIN_EPOCHS epochs in this
+    process: every train step launches K4 6 + 6 times and the scan kernel
+    once, every evaluated batch K1 5, K2 1 and the scan kernel once; the
+    train loss falls; then `cli evaluate` of the checkpoint prints the run's
+    test accuracy."""
+    import io
+    import tempfile
+
+    print(f"phase dsp-train: the rawIQ flagship through `cli train --sps 2 --timing_method "
+          f"gardner` ({DSP_TRAIN_EPOCHS} epochs, B={batch}) and `cli evaluate`", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = ExperimentConfig.rawiq_reference(**{
+            "checkpoint_dir": tmp, "log_dir": str(Path(tmp) / "logs"),
+            "experiment_name": "sps2_gardner", "train.save_freq": 100})
+        cfg_path = Path(tmp) / "sps2.json"
+        cfg.to_json(str(cfg_path))
+        data = DataConfig()
+        fpc = frames_per_class
+        args = ["train", "--config", str(cfg_path), "--source", "synthetic", "--numerics", "tpu",
+                "--sps", str(DSP_SPS), "--timing_method", "gardner", "--frame_len",
+                str(DSP_SPS_FRAME), "--seq_length", str(DSP_SPS_FRAME // DSP_SPS),
+                "--shaping_sps", str(DSP_SPS), "--batch_size", str(batch),
+                "--frames_per_class", str(fpc),
+                "--learning_rate", str(DSP_TRAIN_LR), "--num_epochs", str(DSP_TRAIN_EPOCHS),
+                "--device", str(device), "--no_plots"]
+        n = int(data.train_size * 3 * fpc)
+        n_valid = int(data.valid_size * 3 * fpc)
+        n_test = 3 * fpc - n - n_valid
+        spe = n // batch
+        batches = DSP_TRAIN_EPOCHS * -(-n_valid // batch) + -(-n_test // batch)
+        reset_all_launches()
+        tk.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in all_launches().items() if v}
+        steps = spe * DSP_TRAIN_EPOCHS
+        want = {K4[0]: 6 * steps, K4[1]: 6 * steps, "fused_encoder_layer": 5 * batches,
+                "fused_encoder_layer_cls": batches}
+        scans = (tk.launches["timing_scan"], tk.kernel_launches())
+        print(f"  cli train: {DSP_TRAIN_EPOCHS} epochs of {spe} steps in {wall:.1f} s (data "
+              f"generation included); launches {got}, timing_scan {scans[1]}", flush=True)
+        if got != want or scans != (steps + batches,) * 2:
+            raise AssertionError(f"cli train at sps 2 launched {got} and timing_scan {scans}, "
+                                 f"expected {want} and {steps + batches}")
+        exp_dir = Path(tmp) / "sps2_gardner"
+        summary = json.loads((exp_dir / "summary.json").read_text())
+        loss = json.loads((exp_dir / "checkpoint_final.json").read_text())["history"][
+            "train_loss"]
+        saved = json.loads((exp_dir / "config.json").read_text())["data"]
+        print(f"  train loss by epoch {[round(v, 4) for v in loss]}, test accuracy "
+              f"{summary['test_overall_accuracy'] * 100:.2f}%; config.json sps {saved['sps']}, "
+              f"{saved['timing_method']}, window {saved['timing_hybrid_window']}", flush=True)
+        if not loss[-1] < loss[0] or (saved["sps"], saved["timing_method"]) != (2, "gardner"):
+            raise AssertionError("the sps-2 training run did not learn or lost its front-end")
+        out = io.StringIO()
+        tk.reset_launches()
+        with contextlib.redirect_stdout(out):
+            cli.main(["evaluate", "--checkpoint", str(exp_dir), "--device", str(device),
+                      "--no_plots"])
+        line = f"overall accuracy: {summary['test_overall_accuracy'] * 100:.2f}%"
+        printed = [ln for ln in out.getvalue().splitlines() if ln.startswith("overall")]
+        print(f"  cli evaluate: {printed} (the run's test {line}); timing_scan "
+              f"{tk.kernel_launches()}", flush=True)
+        if line not in out.getvalue() or tk.kernel_launches() == 0:
+            raise AssertionError("cli evaluate did not re-derive the sps-2 front-end")
+    return {"scans": scans[1], "loss": loss}
+
+
+def dsp_check(device, card: str) -> dict:
+    """The dsp phase (see the module docstring)."""
+    t0 = time.perf_counter()
+    print(f"phase dsp: the SPS front-end, the features and the streaming classifier on "
+          f"{card}", flush=True)
+    check_timing_build()
+    frames = dsp_frames(DSP_BATCH, DSP_SPS_FRAME, DSP_SPS)
+    err = check_timing_kernel(device, frames)
+    check_fir(device)
+    check_contract_bar(device)
+    raw, vit = flagship_rawiq_config("tpu"), flagship_vit_config("tpu")
+    raw_sps = dataclasses.replace(raw, seq_length=DSP_SPS_FRAME // DSP_SPS)
+    sps_cases = [("gardner", 64), ("mueller_muller", 64), ("simple_energy", 64),
+                 ("simple_correlation", 64), ("gardner", 0), ("mueller_muller", 0)]
+    served, times = {}, {}
+    tk_total = 0
+    for method, window in sps_cases:
+        label = f"rawIQ flagship, sps 2, {method}" + (", full loop" if window == 0 else "")
+        data = DataConfig(synthetic_frame_len=DSP_SPS_FRAME, sps=DSP_SPS, timing_method=method,
+                          timing_hybrid_window=window)
+        res = dsp_serve_check(label, raw_sps, data, RAW_STATS, frames, device,
+                              int(method in tk.METHODS))
+        tk_total += res["scans"]
+        times[label] = time_front_end(label, res, RAW_STATS, frames, device, card)
+        served[(method, window)] = res
+    x1024 = frames[:, :FRAME_LEN].contiguous()
+    for label, cfg, data in (
+            ("rawIQ flagship, amp_phase", raw, DataConfig(features="amp_phase")),
+            ("ViT flagship, spectrogram", vit, DataConfig(features="spectrogram"))):
+        res = dsp_serve_check(label, cfg, data, RAW_STATS, x1024, device, 0)
+        times[label] = time_front_end(label, res, RAW_STATS, x1024, device, card)
+    times["streaming"] = streaming_check(device, card)
+    times["idle_share"] = profile_sps_call(served[("gardner", 64)]["serve"], frames, device,
+                                           card)
+    times["scan"] = time_timing_scan(device, card, frames)
+    train = dsp_cli_train_check(device, card)
+    print(f"  dsp phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"err": err, "launches": tk_total, "times": times, "train": train}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3877,6 +4330,9 @@ def main() -> int:
     if sys.argv[1:] == ["--k3"]:
         print(f"phase k3: K3's layers, stages and train steps on {card}:", flush=True)
         print(json.dumps({"k3": time_k3(device, card)}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--dsp"]:
+        dsp_check(device, card)
         return 0
     if sys.argv[1:] == ["--k2k7"]:
         print(f"phase k2k7: K2's and K7's layers, K7's core and their stages on {card}:",
@@ -3960,6 +4416,7 @@ def main() -> int:
     t0 = time.perf_counter()
     stream_train_check(device, card)
     print(f"  stream-train phase {time.perf_counter() - t0:.1f} s", flush=True)
+    dsp = dsp_check(device, card)
 
     print(f"phase timing (CUDA events after warm-up) on {card}:", flush=True)
     times = {name: time_serving_layers(name, L, ffn, B, D, device, card)
@@ -4143,6 +4600,12 @@ def main() -> int:
               k5[K5[1]], errs["k5b"], ct["k5b_ms"], ct["k5b_plain_ms"], ct["k5b"],
               ct["sdpa_bwd_ms"]),
     ]
+    scan = dsp["times"]["scan"]["gardner_hybrid"]
+    kernels.append({**entry("timing_scan_kernel (the Gardner / Mueller-Mueller loops of the SPS "
+                            "front-end; no TPU twin: the JAX package runs a lax.scan)",
+                            TIMING_SOURCE, TIMING_JAX_LOOPS, dsp["launches"], dsp["err"],
+                            scan["ms"], scan["plain_ms"], scan["bound"], None),
+                    "tpu_twin": False})
     for name in mask_ops.VARIANTS + mask_ops.MM_VARIANTS:
         t = probe_times[name]
         kernel = "mm_mask_kernel" if name.startswith("mm_") else "mask_op_kernel"

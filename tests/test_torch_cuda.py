@@ -65,6 +65,15 @@ versions: the two-pass `attention_plain` and the kernel's exact function,
 kernels run wgmma (HGMMA in their SASS) without a spill, and their TMA rings
 give the same bits over 30 launches.
 
+The DSP front-end: timing_scan_kernel (`csrc/timing.cu`, the Gardner and
+Mueller-Mueller loops) equals its plain loop (`ops/cuda/timing.py`) bit for
+bit, both loops, full and hybrid (64 steps from p0), sps 2 and 4, over 30
+launches (it rounds each product and sum on its own, as the loop's tensor
+operations do), and does not spill; the hybrid on the card is within 1e-3
+of a sample of the host's; the matched filter on the card is within 1e-5 of
+the signal's peak from a float64 convolution (TF32 would show about 1e-3);
+SPS serving launches the kernel once a request for each loop.
+
 The prefetching feed (`vitiq_torch/data/pipeline.py`): 30 batches copied to
 the card through pinned buffers on a side stream arrive byte for byte, and
 keep their bits while the consumer sleeps between batches on the host (the
@@ -1951,3 +1960,135 @@ def test_prefetcher_keeps_the_bits_while_the_consumer_sleeps(cuda):
     for (x, _, i), (s, j) in zip(batches, sums):
         assert j == i
         assert int(s) == int(torch.from_numpy(x).view(torch.int32).sum(dtype=torch.int64))
+
+
+# --------------------------------------------------------------------------
+# the DSP front-end: timing_scan_kernel (csrc/timing.cu) and the FIR
+# --------------------------------------------------------------------------
+
+def _shaped_frames(B, frame_len, sps, seed=0):
+    """RRC-shaped QPSK frames of `frame_len` samples at `sps`, [B, L, 2] f32."""
+    from vitiq_torch.data import generate_test_signal
+
+    return np.asarray([np.stack(generate_test_signal("QPSK", frame_len // sps, sps, 15.0,
+                                                     seed=seed + b)[:2], -1)
+                       for b in range(B)], np.float32)
+
+
+def _filtered(cuda, B, frame_len, sps, seed=0):
+    from vitiq_torch.dsp.filtering import matched_filter_batch
+
+    return matched_filter_batch(torch.from_numpy(_shaped_frames(B, frame_len, sps, seed))
+                                .to(cuda), sps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sps", [2, 4])
+@pytest.mark.parametrize("window", [0, 64], ids=["full", "hybrid64"])
+@pytest.mark.parametrize("method", ["gardner", "mueller_muller"])
+def test_timing_scan_kernel_equals_its_plain_loop(cuda, method, window, sps):
+    """The kernel rounds each product and sum on its own, as the plain loop's
+    tensor operations do: the same positions and valid flags bit for bit,
+    over the full loop (L//sps steps from sps) and the hybrid's window (from
+    p0), and over 30 launches."""
+    from vitiq_torch.ops.cuda import timing as tk
+
+    x = _filtered(cuda, 256, 2048, sps, seed=sps)
+    steps = window or 2048 // sps
+    p0 = (torch.arange(256, device=cuda) % sps).float() + sps if window else None
+    want = tk.timing_scan_plain(x, sps, steps, method, p0=p0)
+    tk.reset_launches()
+    got = tk.timing_scan(x, sps, steps, method, p0=p0)
+    assert got[0].shape == (256, steps) and got[1].dtype == torch.bool
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for _ in range(30):
+        again = tk.timing_scan(x, sps, steps, method, p0=p0)
+        assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    torch.cuda.synchronize()
+    assert tk.launches["timing_scan"] == 31 and tk.kernel_launches() == 31
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["gardner", "mueller_muller"])
+def test_hybrid_positions_on_the_card_match_the_host(cuda, method):
+    """The hybrid loop on the card (the kernel, then the circular mean on the
+    card) against the same on the host (the plain loop): within 1e-3 of a
+    sample (sin, cos and atan2 of two libraries)."""
+    from vitiq_torch.dsp.timing import hybrid_positions
+
+    x = _filtered(cuda, 64, 1024, 2, seed=7)
+    got = hybrid_positions(x, 2, method)
+    want = hybrid_positions(x.cpu(), 2, method)
+    assert (got.cpu() - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sps", [2, 4])
+def test_fir_on_the_card_is_float32_not_tf32(cuda, sps):
+    """The matched filter on the card within 1e-5 of the signal's peak from a
+    float64 np.convolve (TF32 would show about 1e-3); the global TF32 flag
+    is left as it was."""
+    from vitiq_torch.dsp.filtering import matched_filter_batch
+    from vitiq_torch.dsp.taps import rrc_filter
+
+    before = torch.backends.cudnn.allow_tf32
+    x = np.random.default_rng(sps).standard_normal((64, 2048, 2)).astype(np.float32)
+    got = matched_filter_batch(torch.from_numpy(x).to(cuda), sps).cpu().numpy()
+    taps = rrc_filter(sps=sps)
+    want = np.stack([[np.convolve(xb[:, c].astype(np.float64), taps, mode="same")
+                      for c in range(2)] for xb in x]).transpose(0, 2, 1)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    assert torch.backends.cudnn.allow_tf32 == before
+
+
+@pytest.mark.cuda
+def test_sps_serving_launches_the_scan_kernel(cuda):
+    """A model served at sps 2 with each loop, hybrid and full, launches
+    timing_scan_kernel once a request; the energy picker never."""
+    from vitiq_torch.config import DataConfig, ExperimentConfig, ModelConfig
+    from vitiq_torch.models import AMCModel
+    from vitiq_torch.ops.cuda import timing as tk
+    from vitiq_torch.serve import build_serving_fn
+
+    mcfg = ModelConfig(arm="rawiq", num_classes=5, d_model=64, n_head=4, n_layers=2,
+                       ffn_hidden=128, seq_length=512, segment_size=16, numerics="tpu")
+    x = torch.from_numpy(_shaped_frames(32, 1024, 2)).to(cuda)
+    stats = {"i_mean": 0.0, "i_std": 1.0, "q_mean": 0.0, "q_std": 1.0}
+    for method, window, want in (("gardner", 64, 1), ("gardner", 0, 1),
+                                 ("mueller_muller", 64, 1), ("simple_energy", 64, 0)):
+        cfg = ExperimentConfig(model=mcfg, data=DataConfig(
+            synthetic_frame_len=1024, sps=2, timing_method=method,
+            timing_hybrid_window=window))
+        serve = build_serving_fn(cfg, AMCModel(mcfg, generator=torch.Generator().manual_seed(0)),
+                                 stats, cuda)
+        tk.reset_launches()
+        logits = serve(x)
+        torch.cuda.synchronize()
+        assert tuple(logits.shape) == (32, 5) and torch.isfinite(logits).all()
+        assert tk.launches["timing_scan"] == want and tk.kernel_launches() == want
+
+
+@pytest.mark.cuda
+def test_timing_scan_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    from vitiq_torch.ops.cuda import timing as tk
+
+    x = _filtered(cuda, 4, 256, 2)
+    with pytest.raises(ValueError):
+        tk.timing_scan(x.double(), 2, 8, "gardner")
+    with pytest.raises(ValueError):
+        tk.timing_scan(x.transpose(0, 1), 2, 8, "gardner")  # not contiguous
+    with pytest.raises(ValueError):
+        tk.timing_scan(x[..., :1].contiguous(), 2, 8, "gardner")
+    with pytest.raises(ValueError):
+        tk.timing_scan(x, 2, 8, "gardner", p0=torch.zeros(4))  # p0 on the host
+    with pytest.raises(ValueError):
+        tk.timing_scan(x, 2, 8, "psychic")
+
+
+@pytest.mark.cuda
+def test_timing_scan_kernel_does_not_spill(cuda):
+    entries = {n: v for n, v in _build.ptxas_entries(_build.ptxas_report("timing")).items()
+               if "timing_scan_kernel" in n}
+    assert len(entries) == 2
+    for name, (regs, stores, loads) in entries.items():
+        assert (stores, loads) == (0, 0), name

@@ -12,7 +12,10 @@ the interrupt rescue and the configurations the port refuses.
   dropout on at f32 (the learning rate compared at f32, the width a
   checkpoint stores it at; epoch times are wall clock).
 * A KeyboardInterrupt during `fit` writes ``checkpoint_interrupted``, which
-  ``resume="auto"`` picks up; a missing resume starts the run fresh."""
+  ``resume="auto"`` picks up; a missing resume starts the run fresh.
+* The front-ends: ``cli train`` at sps 2 (Gardner) and with the amp_phase
+  and spectrogram features writes a checkpoint that ``cli evaluate`` reads
+  back through the same front-end."""
 
 import json
 import pickle
@@ -142,13 +145,54 @@ def test_a_missing_resume_starts_fresh(tmp_path, capsys):
     assert summary["epochs_run"] == 1 and len(summary["history"]["val_loss"]) == 1
 
 
-@pytest.mark.parametrize("args", [
-    ["--sps", "2"], ["--features", "amp_phase"], ["--data_parallel", "2"],
-    ["--model_parallel", "2"]], ids=lambda a: "".join(a).strip("-"))
+@pytest.mark.parametrize("args", [["--data_parallel", "2"], ["--model_parallel", "2"]],
+                         ids=lambda a: "".join(a).strip("-"))
 def test_cli_train_refuses_what_the_port_cannot_run(args):
     base = ["--arm", "rawiq", "--source", "synthetic"]
     with pytest.raises(NotImplementedError, match="cannot run"):
         cli.main(["train", "--device", "cpu", *base, *args])
+
+
+# the front-ends `cli train` runs before the model: flags over `_cfg`'s
+# experiment (128-sample frames); the sps-2 frames are RRC-shaped at 2
+# samples a symbol, and the ViT arm takes 32 x 64 spectrogram images in 8 x 8
+# patches (33 tokens) of 1024-sample frames (the config holds a ViT image to
+# 2 * frame_len values whatever its features, as vitiq's does)
+FRONT_ENDS = {
+    "sps2-gardner": ["--sps", "2", "--timing_method", "gardner", "--timing_hybrid_window", "16",
+                     "--shaping_sps", "2", "--seq_length", "64", "--segment_size", "8"],
+    "features-amp_phase": ["--features", "amp_phase"],
+    "features-spectrogram": ["--arm", "vit", "--features", "spectrogram", "--frame_len", "1024",
+                             "--patch_size", "8"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(FRONT_ENDS))
+def test_cli_train_and_evaluate_run_the_front_end(name, tmp_path, capsys):
+    """`cli train` through the SPS front-end or the feature transforms to a
+    checkpoint; config.json keeps the front-end, so `cli evaluate` re-derives
+    it and gives the run's test accuracy (after tests/test_sps_e2e.py)."""
+    path = tmp_path / "exp.json"
+    _cfg(tmp_path, name, num_epochs=1).to_json(str(path))
+    assert cli.main(["train", "--config", str(path), "--device", "cpu", "--no_plots",
+                     *FRONT_ENDS[name]]) == 0
+    exp_dir = tmp_path / "ckpt" / name
+    summary = json.loads((exp_dir / "summary.json").read_text())
+    saved = json.loads((exp_dir / "config.json").read_text())["data"]
+    flags = dict(zip(FRONT_ENDS[name][::2], FRONT_ENDS[name][1::2]))
+    assert saved["sps"] == int(flags.get("--sps", 1))
+    assert saved["features"] == flags.get("--features", "iq")
+    if "--timing_method" in flags:
+        assert (saved["timing_method"], saved["timing_hybrid_window"]) == ("gardner", 16)
+    capsys.readouterr()
+    assert cli.main(["evaluate", "--checkpoint", str(exp_dir), "--device", "cpu",
+                     "--no_plots"]) == 0
+    printed = capsys.readouterr().out
+    assert f"overall accuracy: {summary['test_overall_accuracy'] * 100:.2f}%" in printed
+    with open(exp_dir / "evaluation" / "test_results.pkl", "rb") as f:
+        res = pickle.load(f)
+    assert float(np.mean(res["predictions"] == res["labels"])) == pytest.approx(
+        summary["test_overall_accuracy"], abs=1e-9)
 
 
 @pytest.mark.parametrize("args", [["--source", "hdf5"], ["--preset", "rawiq_best"]],

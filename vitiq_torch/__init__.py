@@ -50,7 +50,13 @@ path from file to card: the HDF5 source and the reference split (numpy, no
 scikit-learn), packed shards, the streaming feed, the prefetching
 host-to-device feed (`data/`), per-step profiling (`utils/profiling.py`) and
 the evaluation of a reference `.pth` (`runner.run_reference_evaluation`,
-`python -m vitiq_torch.cli evaluate --torch-checkpoint`).
+`python -m vitiq_torch.cli evaluate --torch-checkpoint`); and the DSP
+front-end (`dsp/`): the RRC matched filter, symbol timing recovery (the
+Gardner and Mueller-Mueller loops one launch of `csrc/timing.cu`, a kernel
+with no TPU twin), the SPS, spectrogram, amplitude/phase and MDF front-ends,
+the polyphase channelizer and the streaming classifier (`streaming.py`),
+taken by `serve.build_preprocess` and so by serving, training and
+evaluation.
 """
 
 from vitiq_torch.config import (  # noqa: F401

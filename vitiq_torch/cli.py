@@ -23,9 +23,13 @@ features), as ``<experiment_name>_vit`` and ``<experiment_name>_rawiq``
 (base name ``h2h``), and compares their test reports. ``evaluate
 --torch-checkpoint`` evaluates a reference PyTorch ``.pth``
 (`runner.run_reference_evaluation`). The presets read the HDF5 source
-unless ``--source synthetic`` is given. A configuration the port cannot run
-yet raises instead of being dropped: ``--sps`` above 1, features other than
-``iq`` and ``--data_parallel`` / ``--model_parallel`` above 1.
+unless ``--source synthetic`` is given. ``--sps`` 2 or more runs the SPS
+front-end (RRC matched filter, then ``--timing_method``; the Gardner and
+Mueller-Mueller loops are one kernel launch on the card) before the model,
+and ``--features`` picks the arm's input; `config.json` keeps both, so
+``evaluate`` re-derives the same front-end. A configuration the port cannot
+run yet raises instead of being dropped: ``--data_parallel`` /
+``--model_parallel`` above 1.
 """
 
 from __future__ import annotations
@@ -51,16 +55,19 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     # data
     p.add_argument("--source", choices=["synthetic", "hdf5"], default=None)
     p.add_argument("--features", choices=["iq", "amp_phase", "spectrogram"], default=None,
-                   help="input features (the port runs iq)")
+                   help="input features: raw I/Q (both arms), the amplitude/phase "
+                        "transform (rawiq) or STFT spectrogram images (vit)")
     p.add_argument("--file_path", type=str, help="Path to HDF5 data file")
     p.add_argument("--json_path", type=str, help="Path to classes JSON file")
     p.add_argument("--sps", type=int, default=None,
-                   help="samples per symbol: 1 = RadioML bypass (the port runs 1)")
+                   help="samples per symbol: 1 = RadioML bypass (default); >= 2 runs the "
+                        "RRC matched filter and timing recovery before the model")
     p.add_argument("--timing_method",
                    choices=["simple_energy", "simple_correlation", "gardner", "mueller_muller"],
                    default=None, help="timing recovery for --sps >= 2")
     p.add_argument("--timing_hybrid_window", type=int, default=None,
-                   help="gardner/mueller_muller: hybrid tracking-window length")
+                   help="gardner/mueller_muller: hybrid tracking-window length (default "
+                        "64; 0 = the full per-symbol feedback loop for drifting clocks)")
     p.add_argument("--streaming", action="store_true", default=None,
                    help="stream splits from the HDF5 file")
     p.add_argument("--stream_window_rows", type=int,
@@ -109,10 +116,6 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
 def _unsupported(cfg: ExperimentConfig) -> list:
     """What of `cfg` the port cannot run yet."""
     out = []
-    if cfg.data.sps != 1:
-        out.append(f"data.sps={cfg.data.sps} (the SPS front-end)")
-    if cfg.data.features != "iq":
-        out.append(f"data.features={cfg.data.features!r} (only iq)")
     if cfg.train.data_parallel > 1 or cfg.train.model_parallel > 1:
         out.append(f"data_parallel={cfg.train.data_parallel}, model_parallel="
                    f"{cfg.train.model_parallel} (one device only)")

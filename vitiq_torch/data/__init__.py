@@ -25,4 +25,5 @@ from vitiq_torch.data.synthetic import (  # noqa: F401
     ChannelModel,
     SyntheticAMCDataset,
     channel_from_config,
+    generate_test_signal,
 )

@@ -4,8 +4,8 @@ JAX package's frames, labels and SNRs bit for bit).
 
 `SyntheticAMCDataset` is a CPU-generated labeled dataset of RadioML-style
 1024-sample sps=1 frames, optionally through the 2018.01A-style channel
-model (`ChannelModel`, `channel_from_config`). The DSP test fixture
-`generate_test_signal` is not ported.
+model (`ChannelModel`, `channel_from_config`). `generate_test_signal` is the
+DSP fixture: an RRC-shaped signal with known symbol timing.
 """
 
 from __future__ import annotations
@@ -426,6 +426,46 @@ def generate_frames(mod: str, F: int, L: int, rng: np.random.Generator,
     if shaping_sps > 1:
         return _shaped_constellation_frames(mod, F, L, rng, shaping_sps)
     return _symbols(mod, F * L, rng).reshape(F, L)
+
+
+def generate_test_signal(
+    modulation: str = "QPSK",
+    num_symbols: int = 100,
+    sps: int = 2,
+    snr_db: float = 20.0,
+    seed: int | None = None,
+):
+    """RRC-shaped test signal with known symbol timing.
+
+    Mirrors the reference fixture: symbols upsampled by zero-insertion at
+    indices i*sps, shaped with rrc_filter(alpha=0.35, span=8, sps) via 'same'
+    convolution (so true symbol peaks stay at i*sps), then AWGN at the
+    requested measured-signal SNR.
+
+    Returns (i_signal, q_signal, true_symbol_indices).
+    """
+    rng = np.random.default_rng(seed)
+    syms = _symbols(modulation, num_symbols, rng)
+
+    n = num_symbols * sps
+    i_up = np.zeros(n)
+    q_up = np.zeros(n)
+    true_indices = np.arange(num_symbols) * sps
+    i_up[true_indices] = syms.real
+    q_up[true_indices] = syms.imag
+
+    if sps > 1:
+        rrc = rrc_filter(alpha=0.35, span=8, sps=sps)
+        i_shaped = np.convolve(i_up, rrc, mode="same")
+        q_shaped = np.convolve(q_up, rrc, mode="same")
+    else:
+        i_shaped, q_shaped = i_up, q_up
+
+    signal_power = np.mean(i_shaped**2 + q_shaped**2)
+    noise_power = signal_power / (10.0 ** (snr_db / 10.0))
+    i_signal = i_shaped + np.sqrt(noise_power / 2) * rng.standard_normal(n)
+    q_signal = q_shaped + np.sqrt(noise_power / 2) * rng.standard_normal(n)
+    return i_signal, q_signal, true_indices
 
 
 @dataclass

@@ -91,6 +91,10 @@ SIGNATURES = {
     "vitiq_attention_bwd": ([_P] * 10 + [_I] * 7 + [_P], _I),
     # kernel (0 fwd, 1 dQ pass, 2 dK/dV pass), d_head, int[4] out
     "vitiq_attention_ring": ([_I, _I, _P], _I),
+    # timing.cu. x, p0, positions, valid; B, L, sps, steps, method, gain; stream
+    "vitiq_timing_scan": ([_P] * 4 + [_I] * 5 + [_F, _P], _I),
+    # unsigned long long[1] out, reset
+    "vitiq_timing_scan_launches": ([_P, _I], _I),
     # probes.cu. op, x, out, n; stream
     "vitiq_probe_mask_op": ([_I, _P, _P, _I, _P], _I),
     # op, x, w, out; stream

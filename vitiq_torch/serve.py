@@ -14,7 +14,9 @@ The entry points run on the card: `build_forward_and_preprocess` and
 `build_serving_fn` takes its device as a required argument. Asking for the
 card where CUDA is absent raises; nothing falls back to the CPU.
 `build_int8_serving_fn` serves the int8 W8A8 twin of a model (K6 and K2 on
-the card).
+the card). Every one of them takes the experiment's front-end
+(`build_preprocess`): the SPS front-end at ``data.sps >= 2`` and the arm's
+features.
 """
 
 from __future__ import annotations
@@ -24,32 +26,52 @@ from typing import Callable, Dict, Sequence, Tuple, Union
 import torch
 
 from vitiq_torch.config import ExperimentConfig, ModelConfig
-from vitiq_torch.dsp.frontend import preprocess_batch_rawiq, preprocess_batch_vit
+from vitiq_torch.dsp.frontend import (
+    preprocess_batch_amplitude_phase,
+    preprocess_batch_rawiq,
+    preprocess_batch_sps,
+    preprocess_batch_vit,
+    preprocess_batch_vit_spectrogram,
+)
 from vitiq_torch.models.amc import AMCModel
 from vitiq_torch.models.raw_embed import fused_raw_embed_enabled
+from vitiq_torch.utils.device import resolve_device
 
 
 def build_preprocess(cfg: ExperimentConfig, stats: Dict[str, float]) -> Callable:
-    """The arm's front-end: raw [B, L, 2] -> model input. Only the I/Q
-    features at one sample per symbol are ported."""
-    if cfg.data.sps != 1 or cfg.data.features != "iq":
-        raise NotImplementedError(
-            f"the port serves iq features at sps=1 only (got features="
-            f"{cfg.data.features!r}, sps={cfg.data.sps})")
-    m = cfg.model
+    """The front-end matching the experiment: raw [B, L, 2] -> model input.
+
+    With ``data.sps >= 2`` the SPS front-end runs first (RRC matched filter,
+    then timing recovery by ``data.timing_method``: L samples to L/sps
+    symbols, the error-feedback loops one kernel launch on the card), and the
+    arm's features are taken from the symbol stream. The normalization stats
+    are the raw frames': the RRC taps have unit energy, so the symbol instants
+    keep their scale. Features: 'iq' (both arms), 'spectrogram' (the ViT arm:
+    STFT images), 'amp_phase' (the rawIQ arm: amplitude and phase); any other
+    raises ValueError, as in the JAX package."""
+    arm_pre = _build_arm_preprocess(cfg, stats)
+    if cfg.data.sps <= 1:
+        return arm_pre
+    sps, method = cfg.data.sps, cfg.data.timing_method
+    hyb = cfg.data.timing_hybrid_window
+    return lambda x: arm_pre(preprocess_batch_sps(x, sps, method=method, hybrid_window=hyb))
+
+
+def _build_arm_preprocess(cfg: ExperimentConfig, stats: Dict[str, float]) -> Callable:
+    m, features = cfg.model, cfg.data.features
     if m.arm == "vit":
+        if features == "spectrogram":
+            return lambda x: preprocess_batch_vit_spectrogram(x, H=m.img_size_h, W=m.img_size_w)
+        if features != "iq":
+            raise ValueError(f"features={features!r} is not valid for the vit arm "
+                             "(use 'iq' or 'spectrogram')")
         return lambda x: preprocess_batch_vit(x, stats, H=m.img_size_h, W=m.img_size_w)
+    if features == "amp_phase":
+        return preprocess_batch_amplitude_phase
+    if features != "iq":
+        raise ValueError(f"features={features!r} is not valid for the rawiq arm "
+                         "(use 'iq' or 'amp_phase')")
     return lambda x: preprocess_batch_rawiq(x, stats)
-
-
-def resolve_device(device) -> torch.device:
-    """`device` as a torch.device; raises where a CUDA device is asked for
-    and CUDA is absent (no fallback to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} was asked for, but CUDA is not available; "
-                           "pass device='cpu' to run on the host")
-    return device
 
 
 def build_forward_and_preprocess(cfg: ExperimentConfig, model_or_cfg: Union[AMCModel, ModelConfig],

@@ -1,1 +1,2 @@
-"""Utilities: per-step timing and traces (`utils/profiling.py`)."""
+"""Utilities: per-step timing and traces (`utils/profiling.py`), the device
+an entry point runs on (`utils/device.py`)."""
