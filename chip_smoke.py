@@ -241,7 +241,10 @@ which raises (exit code 1) on failure:
    call, the front-end and the model alone), the streaming call with the
    channelizer alone, the device's idle share of one SPS serving call
    (`torch.profiler`) printed, and timing_scan_kernel timed against its
-   plain loop beside its byte and chain bounds (`scan_bounds`). dsp-train:
+   plain loop beside its bounds on the bytes its steps touch (`scan_bounds`).
+   dsp-train: the gradient of one K4 step of the rawIQ flagship on the sps-2
+   front-end's symbols against the plain bf16 layers and the f32 path (the
+   train phase's cosine limits); then
    `cli train --sps 2 --timing_method gardner` of the rawIQ flagship on
    synthetic 2,048-sample frames RRC-shaped at sps 2 (3 classes,
    DSP_TRAIN_EPOCHS epochs): K4 6 + 6 and the scan kernel once a step, K1 5,
@@ -1013,51 +1016,66 @@ def gate_logits(label: str, got, want, n: int, num_classes: int) -> float:
     return max_abs
 
 
-def serve_check(label: str, model_cfg, stats, device, sizes, buckets, k5_route=False) -> dict:
+def serve_check(label: str, model_cfg, stats, device, sizes, buckets, k5_route=False,
+                data: DataConfig = None, frames=None, scans: int = 0) -> dict:
     """Serve ragged requests through the kernels; compare with the f32 path.
     By default each request must launch K1 once per full layer and K2 once
     (a model that pools on the CLS row), or K1 once per layer and K2 never
     (mean pooling); with `k5_route` (VITIQ_NO_FUSED_LAYER=1, the plain layer
-    loop) K5-fwd once per layer and K1/K2 never. Frames are the model's
-    `seq_length` samples long."""
-    n_layers, frame_len = model_cfg.n_layers, model_cfg.seq_length
-    exp = ExperimentConfig(model=model_cfg, data=DataConfig(synthetic_frame_len=frame_len))
+    loop) K5-fwd once per layer and K1/K2 never. No other kernel may launch,
+    and timing_scan_kernel `scans` times a request. Requests are random
+    frames of the model's `seq_length` samples, or the first `sizes` of
+    `frames`; `data` (default: iq features at sps 1) sets the experiment's
+    front-end."""
+    n_layers = model_cfg.n_layers
+    frame_len = model_cfg.seq_length if frames is None else frames.shape[1]
+    data = dataclasses.replace(data or DataConfig(), synthetic_frame_len=frame_len)
+    exp = ExperimentConfig(model=model_cfg, data=data)
     model = AMCModel(model_cfg, generator=torch.Generator().manual_seed(0))
     cls = model.cls_pooling
     ref_cfg = ExperimentConfig(model=dataclasses.replace(model_cfg, numerics="reference"),
-                               data=exp.data)
+                               data=data)
     ref_model = AMCModel(ref_cfg.model)
     ref_model.load_state_dict(model.state_dict())
-    server = Server(build_serving_fn(exp, model, stats, device), frame_len, buckets, device)
+    serve = build_serving_fn(exp, model, stats, device)
+    server = Server(serve, frame_len, buckets, device)
     ref_serve = build_serving_fn(ref_cfg, ref_model, stats, device)
-    gen = torch.Generator().manual_seed(1)
-    requests = [torch.randn((n, frame_len, 2), generator=gen).to(device) for n in sizes]
+    if frames is None:
+        gen = torch.Generator().manual_seed(1)
+        requests = [torch.randn((n, frame_len, 2), generator=gen).to(device) for n in sizes]
+    else:
+        requests = [x.to(device) for x in torch.split(frames[:sum(sizes)], list(sizes))]
     want_per_request = ({"fused_encoder_layer": 0, "fused_encoder_layer_cls": 0,
                          K5[0]: n_layers, K5[1]: 0} if k5_route else
                         {"fused_encoder_layer": n_layers - int(cls),
                          "fused_encoder_layer_cls": int(cls), K5[0]: 0, K5[1]: 0})
+    want_per_request = {k: v for k, v in want_per_request.items() if v}
 
     if k5_route:
         os.environ["VITIQ_NO_FUSED_LAYER"] = "1"
     try:
-        fel.reset_launches()
-        fa.reset_launches()
+        reset_all_launches()
+        tk.reset_launches()
         outs = []
         for x in requests:
-            before = {**fel.launches, **fa.launches}
+            before = all_launches()
             outs.append(server.run(x))
             torch.cuda.synchronize()
-            got = {k: v - before[k] for k, v in {**fel.launches, **fa.launches}.items()}
+            got = {k: v - before[k] for k, v in all_launches().items() if v != before[k]}
             if got != want_per_request:
                 raise AssertionError(f"{label}: request of {x.shape[0]} launched {got}, "
                                      f"expected {want_per_request}")
         counts = {**fel.launches, **fa.launches}
         kernel_counts = fel.kernel_launches()
+        scan_counts = (tk.launches["timing_scan"], tk.kernel_launches())
     finally:
         os.environ.pop("VITIQ_NO_FUSED_LAYER", None)
     if kernel_counts["cls_pool_kernel"] != counts["fused_encoder_layer_cls"]:
         raise AssertionError(f"{label}: {kernel_counts['cls_pool_kernel']} pooling kernels "
                              f"launched by {counts['fused_encoder_layer_cls']} K2 calls")
+    if scan_counts != (scans * len(requests),) * 2:
+        raise AssertionError(f"{label}: timing_scan launched {scan_counts}, expected "
+                             f"{scans} a request")
 
     got = torch.cat(outs)
     want = torch.cat([ref_serve(x) for x in requests])
@@ -1065,12 +1083,13 @@ def serve_check(label: str, model_cfg, stats, device, sizes, buckets, k5_route=F
     front = "fused raw embedding" if model.raw_stats is not None else "preprocess + embedding"
     print(f"  {label}: requests {list(sizes)} via buckets {list(buckets)} ({front}); launches "
           f"K1 {counts['fused_encoder_layer']}, K2 {counts['fused_encoder_layer_cls']}, "
-          f"K5-fwd {counts[K5[0]]}", flush=True)
+          f"K5-fwd {counts[K5[0]]}, timing_scan {scan_counts[1]}", flush=True)
     max_abs = gate_logits(label, got, want, sum(sizes), model_cfg.num_classes)
     del ref_model, ref_serve
     torch.cuda.empty_cache()
     return {"counts": counts, "kernel_counts": kernel_counts, "max_abs": max_abs, "model": model,
-            "exp": exp, "stats": stats, "raw_embed": model.raw_stats is not None}
+            "exp": exp, "stats": stats, "raw_embed": model.raw_stats is not None,
+            "serve": serve, "scans": scan_counts[1]}
 
 
 def time_serving(label: str, serve, batch: int, device, card: str, iters: int = 20,
@@ -1687,11 +1706,25 @@ def train_check(label: str, cfg, stats, kernels, device, cos_plain: float = COSI
 
     cfg0 = dataclasses.replace(cfg, drop_prob=0.0)
     grad_batch = grad_batch or batch
-    frames, labels = frames[:grad_batch], labels[:grad_batch]
-    fused, pre0 = build_forward_and_preprocess(train_experiment(cfg0, grad_batch), cfg0, stats,
-                                               device)
+    grad_parity(label, train_experiment(cfg0, grad_batch), stats, init, frames[:grad_batch],
+                labels[:grad_batch], kernels, device, cos_plain)
+    del model
+    torch.cuda.empty_cache()
+    return {"counts": counts, "stats": stats}
+
+
+def grad_parity(label: str, exp, stats, init, frames, labels, kernels, device,
+                cos_plain: float = COSINE_PLAIN) -> None:
+    """The gradient of one dropout-free step (exp's model, weights `init`,
+    the experiment's front-end on raw `frames`) through the training kernels
+    `kernels` (K3 or K4: the backward once a layer) against the plain bf16
+    layers (VITIQ_FUSED_TRAIN=0, cosine >= `cos_plain`) and the f32
+    `reference` path (cosine >= COSINE_F32) on the same frames."""
+    cfg = exp.model
+    n = cfg.n_layers
+    fused, pre = build_forward_and_preprocess(exp, cfg, stats, device)
     fused.load_state_dict(init)
-    inputs = pre0(frames)
+    inputs = pre(frames)
     flt.reset_launches()
     g_fused = flat_grad(fused, inputs, labels, TRAIN_SEED)
     if flt.launches[kernels[1]] != n:
@@ -1701,21 +1734,20 @@ def train_check(label: str, cfg, stats, kernels, device, cos_plain: float = COSI
         g_plain = flat_grad(fused, inputs, labels, TRAIN_SEED)
     finally:
         del os.environ["VITIQ_FUSED_TRAIN"]
-    ref_cfg = dataclasses.replace(cfg0, numerics="reference")
-    ref, ref_pre = build_forward_and_preprocess(train_experiment(ref_cfg, grad_batch), ref_cfg,
+    ref_cfg = dataclasses.replace(cfg, numerics="reference")
+    ref, ref_pre = build_forward_and_preprocess(dataclasses.replace(exp, model=ref_cfg), ref_cfg,
                                                 stats, device)
     ref.load_state_dict(init)
     g_ref = flat_grad(ref, ref_pre(frames), labels, TRAIN_SEED)
     cos_p = torch.nn.functional.cosine_similarity(g_fused, g_plain, dim=0).item()
     cos_f32 = torch.nn.functional.cosine_similarity(g_fused, g_ref, dim=0).item()
-    print(f"  gradient cosine at dropout 0, B={grad_batch}: vs plain bf16 layers {cos_p:.6f} (limit "
-          f"{cos_plain}), vs f32 reference path {cos_f32:.6f} (limit {COSINE_F32})",
+    print(f"  gradient cosine at dropout 0, B={frames.shape[0]}: vs plain bf16 layers {cos_p:.6f} "
+          f"(limit {cos_plain}), vs f32 reference path {cos_f32:.6f} (limit {COSINE_F32})",
           flush=True)
     if not cos_p >= cos_plain or not cos_f32 >= COSINE_F32:
         raise AssertionError(f"{label}: fused training gradients diverge from the plain paths")
-    del model, fused, ref
+    del fused, ref
     torch.cuda.empty_cache()
-    return {"counts": counts, "stats": stats}
 
 
 def conv1d_train_check(device, batch: int = 64, steps: int = 20, grad_batch: int = 8) -> dict:
@@ -4019,40 +4051,6 @@ def check_contract_bar(device) -> None:
               f"[{lo}, {hi}] and mean timing error <= {bar}", flush=True)
 
 
-def dsp_serve_check(label: str, model_cfg, data: DataConfig, stats, x, device,
-                    scans: int) -> dict:
-    """One request of x's B frames through `Server` (one bucket of B) with
-    the experiment's front-end, against the f32 `reference` path on the same
-    input: max |dlogit| < LOGIT_GATE, argmax agreement >= AGREE_GATE on
-    confident rows (`gate_logits`). Every counter is reset just before
-    the request and read just after: K1 n_layers - 1, K2 1 and
-    timing_scan_kernel `scans` times, nothing else."""
-    exp = ExperimentConfig(model=model_cfg, data=data)
-    model = AMCModel(model_cfg, generator=torch.Generator().manual_seed(0))
-    ref_cfg = ExperimentConfig(model=dataclasses.replace(model_cfg, numerics="reference"),
-                               data=data)
-    ref_model = AMCModel(ref_cfg.model)
-    ref_model.load_state_dict(model.state_dict())
-    serve = build_serving_fn(exp, model, stats, device)
-    server = Server(serve, x.shape[1], (x.shape[0],), device)
-    x = x.to(device)
-    reset_all_launches()
-    tk.reset_launches()
-    got = server.run(x)
-    torch.cuda.synchronize()
-    counts = {k: v for k, v in all_launches().items() if v}
-    scan_counts = (tk.launches["timing_scan"], tk.kernel_launches())
-    want_counts = {"fused_encoder_layer": model_cfg.n_layers - 1, "fused_encoder_layer_cls": 1}
-    if counts != want_counts or scan_counts != (scans, scans):
-        raise AssertionError(f"{label}: launched {counts} and timing_scan {scan_counts}, "
-                             f"expected {want_counts} and {scans}")
-    want = build_serving_fn(ref_cfg, ref_model, stats, device)(x)
-    gate_logits(label, got, want, x.shape[0], model_cfg.num_classes)
-    del ref_model
-    torch.cuda.empty_cache()
-    return {"serve": serve, "model": model, "exp": exp, "scans": scan_counts[1]}
-
-
 def streaming_check(device, card: str, windows: int = DSP_CHANNELS) -> dict:
     """The streaming classifier (64-channel polyphase channelizer, then the
     ViT flagship on every channel's frame) over `windows` wideband windows of
@@ -4117,11 +4115,19 @@ def time_front_end(label: str, res: dict, stats, x, device, card: str, iters: in
             "model_ms": model_ms}
 
 
-def scan_bounds(B: int, L: int, steps: int, method: str) -> dict:
-    """timing_scan_kernel's bounds: bytes (the frames read once, positions
-    and valid flags written), operations (float32 outside the tensor cores)
-    and the chain (steps dependent loads, L1_LOAD_CYCLES each)."""
-    nbytes = B * L * 8 + B * steps * 5
+def scan_bounds(positions: torch.Tensor, L: int, sps: int, method: str, p0=None) -> dict:
+    """timing_scan_kernel's bounds on this run's data, from the positions
+    [B, steps] it wrote: bytes (each frame's span that its steps touch, from
+    the sample under its first strobe less one symbol to the one past its
+    last strobe, clipped to the frame, read once in whole 32-byte sectors;
+    p0 read; positions and valid flags written), operations (float32
+    outside the tensor cores) and the chain (steps dependent loads,
+    L1_LOAD_CYCLES each)."""
+    B, steps = positions.shape
+    first = positions.min(dim=1).values.sub(sps).clamp(0, L - 1).floor().long()
+    last = (positions.max(dim=1).values.clamp(0, L - 1).floor().long() + 1).clamp(max=L - 1)
+    sectors = (last * 8 + 7) // 32 - (first * 8) // 32 + 1  # 8 bytes a sample
+    nbytes = int(sectors.sum().item()) * 32 + (B * 4 if p0 is not None else 0) + B * steps * 5
     ops = B * steps * SCAN_OPS_PER_STEP[method]
     byte_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
     chain_ms = steps * L1_LOAD_CYCLES / max_sm_clock_hz() * 1e3
@@ -4144,11 +4150,13 @@ def time_timing_scan(device, card: str, frames) -> dict:
             ms = cuda_ms(lambda: tk.timing_scan(f, DSP_SPS, steps, method, p0=start), 20)
             plain_ms = cuda_ms(lambda: tk.timing_scan_plain(f, DSP_SPS, steps, method,
                                                             p0=start), 2, warmup=1)
-            b = scan_bounds(B, L, steps, method)
+            positions = tk.timing_scan(f, DSP_SPS, steps, method, p0=start)[0]
+            b = scan_bounds(positions, L, DSP_SPS, method, start)
             print(f"  timing_scan_kernel {method} {label} B={B} L={L} steps={steps}: "
-                  f"{ms:.4f} ms, plain loop {plain_ms:.4f} ms, byte bound "
-                  f"{b['bound'][0]:.4f} ms ({b['bound'][1]}), chain bound {b['chain_ms']:.4f} "
-                  f"ms  [{card}]", flush=True)
+                  f"{ms:.4f} ms, plain loop {plain_ms:.4f} ms, bound {b['bound'][0]:.6f} ms "
+                  f"({b['bound'][1]}: {b['bytes']} bytes touched, {b['ops']} operations), "
+                  f"{ms / b['bound'][0]:.1f}x the bound; chain bound {b['chain_ms']:.4f} ms  "
+                  f"[{card}]", flush=True)
             out[f"{method}_{label}"] = {"ms": ms, "plain_ms": plain_ms, **b}
     return out
 
@@ -4186,7 +4194,10 @@ def profile_sps_call(serve, x, device, card: str, calls: int = 10) -> float:
 def dsp_cli_train_check(device, card: str,
                         frames_per_class: int = DataConfig.synthetic_frames_per_class,
                         batch: int = DSP_TRAIN_BATCH) -> dict:
-    """`python -m vitiq_torch.cli train` of the rawIQ flagship (the
+    """The gradient of one K4 step of the rawIQ flagship on the sps-2
+    front-end's symbols (Gardner, hybrid) against the plain bf16 layers and
+    the f32 path (`grad_parity`, the K4 phase's limits). Then `python -m
+    vitiq_torch.cli train` of the rawIQ flagship (the
     rawiq_reference preset, `tpu` numerics) at sps 2 with the Gardner loop
     (hybrid) on synthetic frames RRC-shaped at 2 samples a symbol (2,048
     samples -> 1,024 symbols, 3 classes), DSP_TRAIN_EPOCHS epochs in this
@@ -4199,6 +4210,19 @@ def dsp_cli_train_check(device, card: str,
 
     print(f"phase dsp-train: the rawIQ flagship through `cli train --sps 2 --timing_method "
           f"gardner` ({DSP_TRAIN_EPOCHS} epochs, B={batch}) and `cli evaluate`", flush=True)
+    cfg0 = dataclasses.replace(flagship_rawiq_config("tpu"), drop_prob=0.0,
+                               seq_length=DSP_SPS_FRAME // DSP_SPS)
+    exp0 = ExperimentConfig(model=cfg0, data=DataConfig(
+        synthetic_frame_len=DSP_SPS_FRAME, sps=DSP_SPS, timing_method="gardner"),
+        train=TrainConfig(batch_size=batch, learning_rate=DSP_TRAIN_LR))
+    init = AMCModel(cfg0, generator=torch.Generator().manual_seed(0)).state_dict()
+    frames = dsp_frames(batch, DSP_SPS_FRAME, DSP_SPS, seed=7).to(device)
+    labels = torch.randint(0, 3, (batch,), generator=torch.Generator().manual_seed(7)).to(device)
+    tk.reset_launches()
+    grad_parity("rawIQ flagship at sps 2 (Gardner, hybrid)", exp0, RAW_STATS, init, frames,
+                labels, K4, device)
+    if tk.kernel_launches() != 2:
+        raise AssertionError("the sps-2 gradient check did not run the scan kernel twice")
     with tempfile.TemporaryDirectory() as tmp:
         cfg = ExperimentConfig.rawiq_reference(**{
             "checkpoint_dir": tmp, "log_dir": str(Path(tmp) / "logs"),
@@ -4280,8 +4304,8 @@ def dsp_check(device, card: str) -> dict:
         label = f"rawIQ flagship, sps 2, {method}" + (", full loop" if window == 0 else "")
         data = DataConfig(synthetic_frame_len=DSP_SPS_FRAME, sps=DSP_SPS, timing_method=method,
                           timing_hybrid_window=window)
-        res = dsp_serve_check(label, raw_sps, data, RAW_STATS, frames, device,
-                              int(method in tk.METHODS))
+        res = serve_check(label, raw_sps, RAW_STATS, device, (DSP_BATCH,), (DSP_BATCH,),
+                          data=data, frames=frames, scans=int(method in tk.METHODS))
         tk_total += res["scans"]
         times[label] = time_front_end(label, res, RAW_STATS, frames, device, card)
         served[(method, window)] = res
@@ -4289,7 +4313,8 @@ def dsp_check(device, card: str) -> dict:
     for label, cfg, data in (
             ("rawIQ flagship, amp_phase", raw, DataConfig(features="amp_phase")),
             ("ViT flagship, spectrogram", vit, DataConfig(features="spectrogram"))):
-        res = dsp_serve_check(label, cfg, data, RAW_STATS, x1024, device, 0)
+        res = serve_check(label, cfg, RAW_STATS, device, (DSP_BATCH,), (DSP_BATCH,), data=data,
+                          frames=x1024)
         times[label] = time_front_end(label, res, RAW_STATS, x1024, device, card)
     times["streaming"] = streaming_check(device, card)
     times["idle_share"] = profile_sps_call(served[("gardner", 64)]["serve"], frames, device,
