@@ -2893,29 +2893,63 @@ def time_serving_layers(name: str, L: int, ffn: int, B: int, D: int, device, car
 K6_STAGES = ("row quantization", "QKV", "attention", "out-proj + LN1", "FFN1", "FFN2 + LN2")
 
 
-def profile_stages(layer, labels, kind, calls: int = 20) -> list:
-    """A layer's time by stage: `torch.profiler` over `calls` calls of
-    layer(), each call's kernels told apart by kind(name) in launch order
-    (`labels`, as kinds). The profiler can miss kernels of a window (a full
-    smoke run kept 6 of 10 calls whole), so the split averages the calls it
-    holds whole, at least half of them. Returns each stage's ms."""
+# Profile windows a stage split may take. The profiler can miss the first
+# kernels of a window (a full smoke run kept 7 of a window's 20 K1 calls
+# whole, the first kernel it kept being a call's last), so a window starts
+# with PROFILE_PAD launches of `torch.cuda._sleep` (`spin_kernel`, about
+# 0.1 ms each, left out of the split) and a split takes windows until they
+# hold half a window's calls.
+PROFILE_WINDOWS = 4
+PROFILE_PAD = 256
+
+
+def profile_whole_calls(call, calls: int, split, label: str) -> list:
+    """`torch.profiler` over windows of `calls` calls of call(), after two
+    warm-up calls: each window's device kernels that started inside it, in
+    start order and without its pad, go to split(kernels), which returns the
+    calls it holds whole. Windows repeat, up to PROFILE_WINDOWS, until they hold at least
+    calls // 2 whole calls; a window that holds fewer than `calls` is
+    reported. Returns the whole calls."""
     for _ in range(2):
-        layer()
+        call()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(calls):
-            layer()
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0),
-                     key=lambda e: e.time_range.start)
-    kinds = [kind(e.name) for e in kernels]
+    whole = []
+    for window in range(1, PROFILE_WINDOWS + 1):
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(200_000)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+                          and e.time_range.start >= 0 and "spin_kernel" not in e.name),
+                         key=lambda e: e.time_range.start)
+        held = split(kernels)
+        whole += held
+        if len(held) < calls:
+            print(f"  {label}: profile window {window} held {len(held)} of {calls} calls whole "
+                  f"({len(kernels)} kernels)", flush=True)
+        if len(whole) >= calls // 2:
+            return whole
+    raise AssertionError(f"{label}: {len(whole)} whole calls in {PROFILE_WINDOWS} profile windows "
+                         f"of {calls}")
+
+
+def profile_stages(layer, labels, kind, calls: int = 20) -> list:
+    """A layer's time by stage: `profile_whole_calls` over calls of layer(),
+    each call's kernels told apart by kind(name) in launch order (`labels`,
+    as kinds). Returns each stage's ms, averaged over the calls held whole."""
     n = len(labels)
-    whole = [kernels[i:i + n] for i in range(len(kernels) - n + 1) if kinds[i:i + n] == labels]
-    if len(whole) < calls // 2:
-        raise AssertionError(f"{len(whole)} whole layer calls in the profile of {calls}: "
-                             f"{kinds[:12]}")
+
+    def split(kernels):
+        kinds = [kind(e.name) for e in kernels]
+        return [kernels[i:i + n] for i in range(len(kernels) - n + 1)
+                if kinds[i:i + n] == labels]
+
+    whole = profile_whole_calls(layer, calls, split, "/".join(labels))
     return [sum(device_us(c[i]) for c in whole) / len(whole) / 1e3 for i in range(n)]
 
 
@@ -3561,40 +3595,37 @@ def kernel_name(name: str) -> str:
 
 
 def profile_layer_stages(label: str, call, gemm_stages, calls: int) -> dict:
-    """One layer call's time by stage: `torch.profiler` over `calls` calls of
+    """One layer call's time by stage: `profile_whole_calls` over calls of
     `call`, each call's kernels told apart by kernel and order (its GEMM
     stages, `train_gemm_kernel`, in the order of `gemm_stages`; every other
-    kernel by its function name). The profiler can miss kernels of a window, so
-    the split averages the calls it holds whole (a call starts at its QKV
-    stage), at least half of them. Returns ms a call by stage."""
+    kernel by its function name). A call starts at its QKV stage and is whole
+    when it holds every GEMM stage. Returns ms a call by stage, averaged over
+    the calls held whole."""
+
+    def split(kernels):
+        starts = [i for i, e in enumerate(kernels) if "train_gemm_kernel<0," in e.name]
+        held = []
+        for i, j in zip(starts, starts[1:] + [len(kernels)]):
+            gemms = [e for e in kernels[i:j] if "train_gemm_kernel<" in e.name]
+            if len(gemms) != len(gemm_stages):
+                continue
+            stages = dict.fromkeys(gemm_stages, 0.0)
+            for stage, e in zip(gemm_stages, gemms):
+                stages[stage] += device_us(e)
+            for e in kernels[i:j]:
+                if "train_gemm_kernel<" not in e.name:
+                    kind = kernel_name(e.name)
+                    stages[kind] = stages.get(kind, 0.0) + device_us(e)
+            held.append(stages)
+        return held
+
     with torch.no_grad():
-        for _ in range(2):
-            call()
-        torch.cuda.synchronize()
-        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=activities) as prof:
-            for _ in range(calls):
-                call()
-            torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                      and device_us(e) > 0), key=lambda e: e.time_range.start)
-    starts = [i for i, e in enumerate(kernels) if "train_gemm_kernel<0," in e.name]
-    split, whole = {}, 0
-    for i, j in zip(starts, starts[1:] + [len(kernels)]):
-        call_kernels = kernels[i:j]
-        gemms = [e for e in call_kernels if "train_gemm_kernel<" in e.name]
-        if len(gemms) != len(gemm_stages):
-            continue
-        whole += 1
-        for stage, e in zip(gemm_stages, gemms):
-            split[stage] = split.get(stage, 0.0) + device_us(e)
-        for e in call_kernels:
-            if "train_gemm_kernel<" not in e.name:
-                kind = kernel_name(e.name)
-                split[kind] = split.get(kind, 0.0) + device_us(e)
-    if whole < calls // 2:
-        raise AssertionError(f"{label}: {whole} whole calls in the profile of {calls}")
-    return {k: v / whole / 1e3 for k, v in split.items()}
+        whole = profile_whole_calls(call, calls, split, label)
+    out = {}
+    for stages in whole:
+        for k, v in stages.items():
+            out[k] = out.get(k, 0.0) + v
+    return {k: v / len(whole) / 1e3 for k, v in out.items()}
 
 
 def print_split(label: str, split: dict, card: str) -> None:
