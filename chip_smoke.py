@@ -251,6 +251,31 @@ which raises (exit code 1) on failure:
    K2 1 and the scan kernel once an evaluated batch, a falling train loss,
    and `cli evaluate` of its checkpoint printing the run's test accuracy.
    ``--dsp`` runs only the device, build and dsp phases.
+   export: the serving artifact (`serve.export_serving`, `ServingArtifact`).
+   The ViT flagship and rawiq_best (both at full width: d128/L6/H8, 129
+   tokens; d256/L9/H8, 65 tokens) at buckets EXPORT_BUCKETS, and the rawIQ
+   flagship at sps 2 (Gardner hybrid, 2,048-sample frames) at
+   EXPORT_SPS_BUCKETS, each from a port-written experiment directory
+   (config.json, normalization_stats.json, model_best.npz of seeded
+   weights) through `export_from_experiment`, then loaded on the card (one
+   CUDA graph a bucket, largest first, one memory pool). Each bucket's
+   captured launches (`captured_launches`) must equal what one eager request
+   launches (K1 n_layers - 1, K2 1, timing_scan_kernel 1 at sps 2). Ragged
+   requests (EXPORT_SIZES, EXPORT_SPS_SIZES) through the graphs must equal
+   the eager `Server` on the same weights bit for bit (else within
+   EXPORT_TOL with the same argmax, counted and printed), a returned result
+   must not change under later requests, and the logits pass the serving
+   gates against the f32 `reference` path. `torch.profiler` over
+   EXPORT_REPLAYS replays of bucket 8 must show per replay each of the
+   port's serving kernels (SERVING_KERNELS, by full name) as many times as
+   one eager request launches it. Host-side counters do not tick on a
+   replay: the phase's launches are each graph's captured counts times its
+   replays, and they are added to K1's, K2's, its pooling kernel's and
+   timing_scan_kernel's launches in the kernels line.
+   mdf: MDF-NET (`models/mdf.py`) at B=MDF_BATCH on the card against the
+   CPU, TF32 off (`mdf_check`): logits and a training step's loss within
+   MDF_REL, gradients against float64 (MDF_COND), one Adam step.
+   ``--export`` runs only the device, build, export and mdf phases.
 7. timing (CUDA events after warm-up): per-layer kernel time against the
    plain version (K1 and K2 at the three shapes, B=4096 and, at 1025 tokens,
    B=256; K3 at the ViT and rawIQ shapes and K4 at the rawIQ one, B=4096;
@@ -288,7 +313,8 @@ which raises (exit code 1) on failure:
    breakdown by kernel, rawiq_best_mp through K4); ViT (B=4096) and conv1d
    (B=2048) serving with VITIQ_ATTN_INT8=1 (K7 + K2); serving p50 latency
    at the small batches SMALL_BATCHES (ViT flagship and rawiq_best through
-   K1 + K2) and the host time of one K1 call at B=1 (`time_small_batches`);
+   K1 + K2, eager and through a serving artifact's graphs) and the host time
+   of one K1 call at B=1 (`time_small_batches`);
    train-step frames/s and peak device memory: the ViT flagship through K3
    and through the plain layers, the rawIQ flagship through K4, through K3
    (VITIQ_TRAIN_STASH=0) and through the plain layers (B=4096), the conv1d
@@ -344,7 +370,8 @@ line is {"ok": true, "device": {...}}.
 ``python3 chip_smoke.py --latency`` runs only the device and build phases
 and `time_small_batches`, and prints its numbers as one JSON line (to
 compare two trees of the port in one call: copy this script into each tree's
-root and run it there). ``--k4`` does the same with `time_k4`: K4's layers
+root and run it there; its artifact p50s need a tree with
+`serve.ServingArtifact`). ``--k4`` does the same with `time_k4`: K4's layers
 by stage and the train steps that go through it; ``--k3`` with `time_k3`:
 K3's layers at the shapes it trains, each by stage, and the train steps
 through K3; ``--k2k7`` with `time_k2k7`: K2, K7 and K1 a layer, K7's and
@@ -358,7 +385,8 @@ those counts from the main path's runs (the ViT flagship's serve phase, and
 the ViT flagship's and rawiq_best's evaluations under VITIQ_ATTN_INT8=1).
 timing_scan_kernel's launches are counted by timing.cu (`tk.kernel_launches`)
 over the dsp phase's serving requests; it has no TPU twin (the JAX package
-runs the loops as a lax.scan), which its entry says.
+runs the loops as a lax.scan), which its entry says. K1's, K2's, the pooling
+kernel's and the scan kernel's counts add the export phase's graph replays.
 """
 
 from __future__ import annotations
@@ -372,6 +400,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -405,10 +434,13 @@ from vitiq_torch import cli
 from vitiq_torch.runner import run_evaluation, run_training
 from vitiq_torch.serve import (
     Server,
+    ServingArtifact,
     build_forward_and_preprocess,
     build_int8_serving_fn,
     build_serving_fn,
+    export_from_experiment,
 )
+from vitiq_torch.train.checkpoint import load_params, save_params
 from vitiq_torch.train import make_train_step
 from vitiq_torch.train.optim import create_train_state, make_optimizer
 
@@ -1117,44 +1149,66 @@ def time_serving(label: str, serve, batch: int, device, card: str, iters: int = 
 SMALL_BATCHES = (1, 8, 32)
 
 
+def p50_and_busy(call, iters: int) -> tuple:
+    """A request's p50 (host clock, synced per request, `iters` requests
+    after 5 warm-up ones) and the device's busy time a request (its kernels'
+    time under `torch.profiler`, over 10 requests after PROFILE_PAD sleeps:
+    the profiler drops a window's first records), ms."""
+    for _ in range(5):
+        call()
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(200_000)
+        torch.cuda.synchronize()
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    busy = sum(device_us(e) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+               and e.time_range.start >= 0 and "spin_kernel" not in e.name)
+    return statistics.median(lat) * 1e3, busy / 1e4
+
+
 def time_small_batches(device, card: str, iters: int = 100) -> dict:
     """Serving p50 latency (host clock, synced per request, `iters` requests)
     at SMALL_BATCHES for the ViT flagship and rawiq_best through K1 + K2
     (random weights) beside the device's busy time a request (the kernels'
-    time under `torch.profiler`, over 10 requests), and the host time of one
-    K1 call at B=1 on the ViT shape: the mean over `iters` calls issued
-    without a sync, and the p50 of synced calls. Only the port's public
-    entry points are used, so the function runs on an earlier tree of the
-    port too (`--latency`)."""
+    time under `torch.profiler`, over 10 requests), eager (`build_serving_fn`)
+    and through a serving artifact of the same weights with the buckets
+    SMALL_BATCHES (one CUDA graph a bucket: `artifact_p50_ms_b*`, its busy
+    time counting the input copy and the output clone around the replay);
+    and the host time of one K1 call at B=1 on the ViT shape: the mean over
+    `iters` calls issued without a sync, and the p50 of synced calls."""
+    import tempfile
+
     out = {}
     for label, model_cfg, stats in (("vit", flagship_vit_config("tpu"), STATS),
                                     ("rawiq_best", rawiq_best_config("tpu"), RAW_STATS)):
         exp = ExperimentConfig(model=model_cfg,
                                data=DataConfig(synthetic_frame_len=model_cfg.seq_length))
         model = AMCModel(model_cfg, generator=torch.Generator().manual_seed(0))
+        with tempfile.TemporaryDirectory() as tmp:
+            exp_dir = write_experiment(Path(tmp) / "experiment", exp, model, stats)
+            art = ServingArtifact.load(export_from_experiment(
+                exp_dir, Path(tmp) / "artifact", batch_sizes=SMALL_BATCHES, platforms=["cuda"]),
+                device=device)
         serve = build_serving_fn(exp, model, stats, device)
         for batch in SMALL_BATCHES:
             x = torch.randn((batch, model_cfg.seq_length, 2),
                             generator=torch.Generator().manual_seed(batch)).to(device)
-            for _ in range(5):
-                serve(x)
-            torch.cuda.synchronize()
-            lat = []
-            for _ in range(iters):
-                t0 = time.perf_counter()
-                serve(x)
-                torch.cuda.synchronize()
-                lat.append(time.perf_counter() - t0)
-            out[f"{label}_p50_ms_b{batch}"] = statistics.median(lat) * 1e3
-            activities = [torch.profiler.ProfilerActivity.CPU,
-                          torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=activities) as prof:
-                for _ in range(10):
-                    serve(x)
-                torch.cuda.synchronize()
-            busy = sum(device_us(e) for e in device_kernels(prof)) / 10
-            out[f"{label}_device_ms_b{batch}"] = busy / 1e3
-        del model, serve
+            out[f"{label}_p50_ms_b{batch}"], out[f"{label}_device_ms_b{batch}"] = p50_and_busy(
+                lambda: serve(x), iters)
+            (out[f"{label}_artifact_p50_ms_b{batch}"],
+             out[f"{label}_artifact_device_ms_b{batch}"]) = p50_and_busy(lambda: art.run(x), iters)
+        del model, serve, art
     ops = fel.layer_operands(random_layers(1, 512, seed=5, device=device)[0], 8)
     x = torch.randn((1, 129, 128), generator=torch.Generator().manual_seed(6))
     x = x.to(device, torch.bfloat16)
@@ -1181,7 +1235,8 @@ def time_small_batches(device, card: str, iters: int = 100) -> dict:
                    iters)
     out["k2_host_us_b1"], out["k2_p50_us_b1"] = k2["host_us"], k2["p50_us"]
     print("  small batches: " + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
-          + f" (serving p50: host clock, synced, {iters} requests; K1 and K2 at B=1, L=129: "
+          + f" (serving p50: host clock, synced, {iters} requests, eager and through the "
+          f"artifact's graphs; K1 and K2 at B=1, L=129: "
           f"host time a call unsynced, p50 synced)  [{card}]", flush=True)
     return out
 
@@ -4356,6 +4411,254 @@ def dsp_check(device, card: str) -> dict:
     return {"err": err, "launches": tk_total, "times": times, "train": train}
 
 
+# the export phase: each artifact's buckets and the ragged requests served
+# through it; a request's logits through the graph must equal the eager
+# Server's bit for bit, or (where an op runs otherwise under capture) within
+# EXPORT_TOL with the same argmax
+EXPORT_BUCKETS = (1, 8, 32, 256, 4096)
+EXPORT_SIZES = (1, 5, 8, 20, 32, 200, 256, 1000, 4096)
+EXPORT_SPS_BUCKETS, EXPORT_SPS_SIZES = (8, 4096), (3, 8, 1000, 4096)
+EXPORT_TOL = 1e-3
+EXPORT_REPLAYS = 3  # replays under the profiler against one eager request
+# the port's kernels on a float serving path, by function name
+SERVING_KERNELS = ("gemm_wgmma_kernel", "attention_core_kernel", "cls_pool_kernel",
+                   "timing_scan_kernel")
+
+
+def write_experiment(root: Path, exp: ExperimentConfig, model, stats) -> Path:
+    """A training-run directory as `run_training` writes it (config.json,
+    normalization_stats.json, model_best.npz) with `model`'s weights."""
+    root.mkdir(parents=True)
+    exp.to_json(str(root / "config.json"))
+    (root / "normalization_stats.json").write_text(json.dumps(stats))
+    save_params(root / "model_best", model.state_dict(), exp.model)
+    return root
+
+
+def serving_kernel_names(call, calls: int) -> Counter:
+    """The port's serving kernels (SERVING_KERNELS) that `calls` calls of
+    call() launch on the device, by full name, from one `torch.profiler`
+    window (PROFILE_PAD sleeps first: the profiler drops a window's first
+    records); one warm-up call before it."""
+    call()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(200_000)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    return Counter(e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+                   and e.time_range.start >= 0 and kernel_name(e.name) in SERVING_KERNELS)
+
+
+def export_case(root: Path, label: str, model_cfg, stats, data: DataConfig, buckets, sizes,
+                device) -> dict:
+    """One artifact of the export phase (see the module docstring): a
+    port-written experiment directory with seeded weights, exported by
+    `export_from_experiment` and loaded on the card (one graph a bucket),
+    then ragged requests through it against the eager `Server` and the f32
+    path. Returns the launches its requests replayed (captured counts a
+    bucket times its replays) and the times."""
+    frame_len = model_cfg.seq_length * max(1, data.sps)
+    data = dataclasses.replace(data, synthetic_frame_len=frame_len)
+    exp = ExperimentConfig(model=model_cfg, data=data)
+    model = AMCModel(model_cfg, generator=torch.Generator().manual_seed(0))
+    exp_dir = write_experiment(root / "experiment", exp, model, stats)
+    t0 = time.perf_counter()
+    art_dir = export_from_experiment(exp_dir, root / "artifact", batch_sizes=buckets,
+                                     platforms=["cuda"])
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = ServingArtifact.load(art_dir, device=device)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    eager = AMCModel(model_cfg)
+    eager.load_state_dict(load_params(exp_dir / "model_best.npz", model_cfg))
+    server = Server(build_serving_fn(exp, eager, stats, device), frame_len, buckets, device)
+    cls = int(eager.cls_pooling)
+    want = {"fused_encoder_layer": model_cfg.n_layers - cls, "fused_encoder_layer_cls": cls,
+            "timing_scan": int(data.sps > 1 and data.timing_method in tk.METHODS)}
+    want = {k: v for k, v in want.items() if v}
+    before = {**all_launches(), **tk.launches}
+    server.run(torch.zeros((buckets[0], frame_len, 2), device=device))
+    torch.cuda.synchronize()
+    eager_counts = {k: v - before[k] for k, v in {**all_launches(), **tk.launches}.items()
+                    if v != before[k]}
+    if eager_counts != want:
+        raise AssertionError(f"{label}: an eager request launched {eager_counts}, expected {want}")
+    for b in buckets:
+        if art.captured_launches[b] != eager_counts:
+            raise AssertionError(f"{label}: bucket {b}'s graph captured "
+                                 f"{art.captured_launches[b]}, an eager request launches "
+                                 f"{eager_counts}")
+
+    if data.sps > 1:
+        frames = dsp_frames(sum(sizes), frame_len, data.sps)
+    else:
+        frames = torch.randn((sum(sizes), frame_len, 2), generator=torch.Generator().manual_seed(1))
+    requests = [x.to(device) for x in torch.split(frames, list(sizes))]
+    replayed, outs, not_exact, max_diff = Counter(), [], 0, 0.0
+    for x in requests:
+        got = art.run(x)
+        ref = server.run(x)
+        replayed[art.bucket(x.shape[0])] += 1
+        if not torch.equal(got, ref):
+            diff = (got - ref).abs().max().item()
+            not_exact, max_diff = not_exact + 1, max(max_diff, diff)
+            if not (diff <= EXPORT_TOL and torch.equal(got.argmax(-1), ref.argmax(-1))):
+                raise AssertionError(f"{label}: request of {x.shape[0]} through the graph differs "
+                                     f"from the eager Server by {diff:.6g}")
+        outs.append(got)
+    first = outs[0].clone()
+    got = torch.cat(outs)
+    if not torch.equal(outs[0], first):
+        raise AssertionError(f"{label}: a returned result changed under a later request")
+    ref_cfg = ExperimentConfig(model=dataclasses.replace(model_cfg, numerics="reference"),
+                               data=data)
+    ref_model = AMCModel(ref_cfg.model)
+    ref_model.load_state_dict(eager.state_dict())
+    ref_serve = build_serving_fn(ref_cfg, ref_model, stats, device)
+    want_logits = torch.cat([ref_serve(x) for x in requests])
+    torch.cuda.synchronize()
+    print(f"  {label}: exported in {t_export:.2f} s, loaded (warm-up + {len(buckets)} captures) "
+          f"in {t_load:.2f} s; requests {list(sizes)} via buckets {list(buckets)}: "
+          f"{len(requests) - not_exact} of {len(requests)} equal the eager Server bit for bit"
+          + (f", {not_exact} within {max_diff:.6g}" if not_exact else "")
+          + f"; each graph captured {eager_counts}", flush=True)
+    max_abs = gate_logits(label + " (graph)", got, want_logits, sum(sizes), model_cfg.num_classes)
+    del ref_model, ref_serve
+
+    b = 8
+    x8 = requests[0].new_zeros((b, frame_len, 2)).copy_(frames[:b])
+    eager_names = serving_kernel_names(lambda: server.run(x8), 1)
+    graph_names = serving_kernel_names(lambda: art.run(x8), EXPORT_REPLAYS)
+    replayed[b] += EXPORT_REPLAYS + 1
+    per_replay = {k: v / EXPORT_REPLAYS for k, v in graph_names.items()}
+    if not eager_names or per_replay != dict(eager_names):
+        raise AssertionError(f"{label}: {EXPORT_REPLAYS} replays launched {dict(graph_names)}, "
+                             f"one eager request {dict(eager_names)}")
+    by_function = Counter()
+    for name, n in eager_names.items():
+        by_function[kernel_name(name)] += n
+    print(f"  {label}: torch.profiler, bucket {b}: each of {EXPORT_REPLAYS} replays launched "
+          + ", ".join(f"{k} {v}" for k, v in sorted(by_function.items()))
+          + f" ({len(eager_names)} instances), as one eager request does", flush=True)
+    launches = Counter()
+    for bucket, n in replayed.items():
+        for k, v in art.captured_launches[bucket].items():
+            launches[k] += n * v
+    del art, server, eager
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs": max_abs, "not_exact": not_exact, "load_s": t_load}
+
+
+def export_check(device, card: str) -> dict:
+    """The export phase (see the module docstring)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    print(f"phase export: serving artifacts, one CUDA graph a bucket, on {card}", flush=True)
+    raw_sps = dataclasses.replace(flagship_rawiq_config("tpu"),
+                                  seq_length=DSP_SPS_FRAME // DSP_SPS)
+    cases = (("vit flagship", flagship_vit_config("tpu"), STATS, DataConfig(), EXPORT_BUCKETS,
+              EXPORT_SIZES),
+             ("rawiq_best", rawiq_best_config("tpu"), RAW_STATS, DataConfig(), EXPORT_BUCKETS,
+              EXPORT_SIZES),
+             ("rawIQ flagship, sps 2, gardner (hybrid)", raw_sps, RAW_STATS,
+              DataConfig(sps=DSP_SPS, timing_method="gardner"), EXPORT_SPS_BUCKETS,
+              EXPORT_SPS_SIZES))
+    launches, results = Counter(), {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (label, model_cfg, stats, data, buckets, sizes) in enumerate(cases):
+            res = export_case(Path(tmp) / str(i), label, model_cfg, stats, data, buckets, sizes,
+                              device)
+            launches.update(res["launches"])
+            results[label] = res
+    print(f"  export phase {time.perf_counter() - t0:.1f} s; launches through the graphs "
+          f"{dict(launches)}", flush=True)
+    return {"launches": launches, "results": results}
+
+
+MDF_BATCH, MDF_CLASSES = 1024, 19
+MDF_REL = 1e-4
+# a gradient that float32 itself resolves no better than this (the CPU's f32
+# gradient against its float64 one, relative L2) is held to float64 within
+# MDF_COND times the CPU's own error instead of MDF_REL: the first conv
+# layers' weight gradients sum ~1M products through ReLU and max-pool, where
+# f32 roundings flip which input a pool window passes on (the CPU's f32 reads
+# up to ~1e-3 from float64 there, the later layers and the LSTM 1e-7-1e-5)
+MDF_COND = 4.0
+
+
+def mdf_check(device) -> dict:
+    """MDF-NET (`models/mdf.py`) on the card against the same module on the
+    CPU at B=MDF_BATCH, with TF32 off in its convolutions and LSTM, forward
+    and backward: the forward's logits and a training step's loss
+    (cross-entropy, dropout off) within MDF_REL relative of the CPU's f32,
+    and each parameter's gradient within MDF_REL of the CPU's float64
+    gradient, or within MDF_COND times the CPU's own f32 error where float32
+    resolves it no better (see MDF_COND); then one Adam step, whose
+    parameters and loss must stay finite. cuDNN's global TF32 flag must be as
+    it was after the step."""
+    import copy
+
+    from vitiq_torch.dsp.frontend import preprocess_batch_mdf
+    from vitiq_torch.models.mdf import create_multi_domain_model
+
+    print("phase mdf: MDF-NET on the card vs the CPU", flush=True)
+    t0 = time.perf_counter()
+    cpu = create_multi_domain_model(MDF_CLASSES, generator=torch.Generator().manual_seed(0))
+    x = torch.randn((MDF_BATCH, 1024, 2), generator=torch.Generator().manual_seed(3))
+    labels = torch.arange(MDF_BATCH) % MDF_CLASSES
+    tf32 = torch.backends.cudnn.allow_tf32
+    runs = {}
+    for name, dev, dtype in (("cpu", "cpu", torch.float32), ("f64", "cpu", torch.float64),
+                             ("card", device, torch.float32)):
+        model = copy.deepcopy(cpu).to(dev, dtype)
+        inputs = [t.to(dtype) for t in preprocess_batch_mdf(x.to(dev))]
+        out = model(*inputs, train=True)  # no generator: dropout off, the eval forward
+        loss = torch.nn.functional.cross_entropy(out, labels.to(dev))
+        loss.backward()
+        logits = out.detach().double().cpu()
+        grads = {n: p.grad.double().cpu() for n, p in model.named_parameters()}
+        if name == "card":
+            torch.optim.Adam(model.parameters(), lr=1e-3).step()
+            after = torch.nn.functional.cross_entropy(model(*inputs, train=True),
+                                                      labels.to(dev)).item()
+            if not (math.isfinite(after) and all(torch.isfinite(p).all()
+                                                  for p in model.parameters())):
+                raise AssertionError(f"MDF-NET's Adam step on the card: loss {after}")
+        runs[name] = (logits, loss.item(), grads)
+    if torch.backends.cudnn.allow_tf32 != tf32:
+        raise AssertionError("MDF-NET left cuDNN's TF32 flag changed")
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    (l_cpu, loss_cpu, g_cpu), (_, _, g64), (l_card, loss_card, g_card) = (
+        runs["cpu"], runs["f64"], runs["card"])
+    worst = {"logits": rel(l_card, l_cpu), "loss": abs(loss_card - loss_cpu) / abs(loss_cpu)}
+    excess = {}
+    for n in g64:
+        err, own = rel(g_card[n], g64[n]), rel(g_cpu[n], g64[n])
+        excess[n] = (err / max(MDF_REL, MDF_COND * own), err, own)
+    n = max(excess, key=lambda k: excess[k][0])
+    print(f"  MDF-NET B={MDF_BATCH}: relative L2 card vs CPU: logits {worst['logits']:.3g}, "
+          f"loss {worst['loss']:.3g}; gradients vs float64: worst against its limit {n} "
+          f"{excess[n][1]:.3g} (CPU f32 {excess[n][2]:.3g}); the largest "
+          + ", ".join(f"{k} {v[1]:.3g} (CPU {v[2]:.3g})" for k, v in sorted(
+              excess.items(), key=lambda kv: -kv[1][1])[:3])
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if max(worst.values()) > MDF_REL or excess[n][0] > 1.0:
+        raise AssertionError(f"MDF-NET on the card differs from the CPU: {worst}, gradient "
+                             f"{n} {excess[n][1:]}")
+    return {**worst, "grads": {k: v[1] for k, v in excess.items()}}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4389,6 +4692,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--dsp"]:
         dsp_check(device, card)
+        return 0
+    if sys.argv[1:] == ["--export"]:
+        export_check(device, card)
+        mdf_check(device)
         return 0
     if sys.argv[1:] == ["--k2k7"]:
         print(f"phase k2k7: K2's and K7's layers, K7's core and their stages on {card}:",
@@ -4473,6 +4780,8 @@ def main() -> int:
     stream_train_check(device, card)
     print(f"  stream-train phase {time.perf_counter() - t0:.1f} s", flush=True)
     dsp = dsp_check(device, card)
+    exported = export_check(device, card)["launches"]
+    mdf_check(device)
 
     print(f"phase timing (CUDA events after warm-up) on {card}:", flush=True)
     times = {name: time_serving_layers(name, L, ffn, B, D, device, card)
@@ -4606,17 +4915,21 @@ def main() -> int:
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
 
+    # the export phase's requests replay their buckets' graphs: their launches
+    # are each graph's captured counts times its replays (host counters do not
+    # tick on a replay; the phase's profiler trace shows the kernels run)
     kernels = [
         entry("fused_encoder_layer (K1, full layers)", SOURCE, f"{TPU_SOURCE}:717",
-              counts["fused_encoder_layer"], errs["k1"], vt["k1_ms"], vt["k1_plain_ms"], vt["k1"],
-              vt["k1_library_ms"]),
+              counts["fused_encoder_layer"] + exported["fused_encoder_layer"], errs["k1"],
+              vt["k1_ms"], vt["k1_plain_ms"], vt["k1"], vt["k1_library_ms"]),
         entry("fused_encoder_layer_cls (K2, CLS row)", SOURCE, f"{TPU_SOURCE}:920",
-              counts["fused_encoder_layer_cls"], errs["k2"], vt["k2_ms"], vt["k2_plain_ms"],
-              vt["k2"], None),
+              counts["fused_encoder_layer_cls"] + exported["fused_encoder_layer_cls"], errs["k2"],
+              vt["k2_ms"], vt["k2_plain_ms"], vt["k2"], None),
         entry("fused_encoder_layer_int8 (K6, W8A8 full layers)", SOURCE, f"{TPU_SOURCE}:1695",
               vit8["counts"][K6], errs["k6"], vt["k6_ms"], vt["k6_plain_ms"], vt["k6"], None),
         entry("cls_pool_kernel (K2's pooling: the CLS query's attention as one read of x)",
-              SOURCE, f"{TPU_SOURCE}:371", vit["kernel_counts"]["cls_pool_kernel"],
+              SOURCE, f"{TPU_SOURCE}:371",
+              vit["kernel_counts"]["cls_pool_kernel"] + exported["fused_encoder_layer_cls"],
               errs["cls_pool"], vt["pool_ms"], vt["pool_plain_ms"], vt["pool"],
               vt["pool_sdpa_ms"]),
         entry("fused_encoder_layer_int8attn (K7, int8-attention full layers)", SOURCE,
@@ -4659,7 +4972,8 @@ def main() -> int:
     scan = dsp["times"]["scan"]["gardner_hybrid"]
     kernels.append({**entry("timing_scan_kernel (the Gardner / Mueller-Mueller loops of the SPS "
                             "front-end; no TPU twin: the JAX package runs a lax.scan)",
-                            TIMING_SOURCE, TIMING_JAX_LOOPS, dsp["launches"], dsp["err"],
+                            TIMING_SOURCE, TIMING_JAX_LOOPS,
+                            dsp["launches"] + exported["timing_scan"], dsp["err"],
                             scan["ms"], scan["plain_ms"], scan["bound"], None),
                     "tpu_twin": False})
     for name in mask_ops.VARIANTS + mask_ops.MM_VARIANTS:

@@ -2092,3 +2092,95 @@ def test_timing_scan_kernel_does_not_spill(cuda):
     assert len(entries) == 2
     for name, (regs, stores, loads) in entries.items():
         assert (stores, loads) == (0, 0), name
+
+
+# The serving artifact (`serve.ServingArtifact`): one CUDA graph a bucket.
+# Its replay runs the kernels the eager `Server` runs on the same bytes (the
+# padded rows zeroed in place of concatenated), so their logits agree bit
+# for bit.
+ARTIFACT_CASES = {
+    "rawiq": (dict(arm="rawiq", seq_length=512, segment_size=16), {}),
+    "vit": (dict(arm="vit", img_size_h=16, img_size_w=16, seq_length=128), {}),
+    "rawiq-sps2-gardner": (dict(arm="rawiq", seq_length=256, segment_size=16),
+                           dict(sps=2, timing_method="gardner")),
+}
+
+
+def _artifact(cuda, tmp_path, case="rawiq", buckets=(4, 16)):
+    """(artifact loaded on the card, the eager Server of the same weights,
+    frame_len) for a small model of ARTIFACT_CASES."""
+    from vitiq_torch.config import DataConfig, ExperimentConfig, ModelConfig
+    from vitiq_torch.models import AMCModel
+    from vitiq_torch.serve import Server, ServingArtifact, build_serving_fn, export_serving
+
+    model_kw, data_kw = ARTIFACT_CASES[case]
+    mcfg = ModelConfig(num_classes=5, d_model=64, n_head=4, n_layers=2, ffn_hidden=128,
+                       numerics="tpu", **model_kw)
+    frame_len = mcfg.seq_length * data_kw.get("sps", 1)
+    cfg = ExperimentConfig(model=mcfg, data=DataConfig(synthetic_frame_len=frame_len, **data_kw))
+    model = AMCModel(mcfg, generator=torch.Generator().manual_seed(0))
+    stats = {"i_mean": 0.1, "i_std": 1.2, "q_mean": -0.05, "q_std": 0.9}
+    art = ServingArtifact.load(export_serving(cfg, model, stats, tmp_path / "art", buckets),
+                               device=cuda)
+    server = Server(build_serving_fn(cfg, model, stats, cuda), frame_len, buckets, cuda)
+    return art, server, frame_len
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ARTIFACT_CASES))
+def test_artifact_graph_replay_equals_eager_server(cuda, case, tmp_path):
+    art, server, frame_len = _artifact(cuda, tmp_path, case)
+    want = {"fused_encoder_layer": 1, "fused_encoder_layer_cls": 1}
+    if case.endswith("gardner"):
+        want["timing_scan"] = 1
+    assert art.captured_launches == {4: want, 16: want}
+    x = torch.from_numpy(_shaped_frames(16, frame_len, 2)).to(cuda)
+    for n in (1, 4, 7, 16):
+        got = art.run(x[:n])
+        assert got.dtype == torch.float32 and tuple(got.shape) == (n, 5)
+        assert torch.equal(got, server.run(x[:n])), n
+
+
+@pytest.mark.cuda
+def test_artifact_result_survives_a_later_run(cuda, tmp_path):
+    art, _, frame_len = _artifact(cuda, tmp_path)
+    gen = torch.Generator().manual_seed(1)
+    a = torch.randn((16, frame_len, 2), generator=gen).to(cuda)
+    first = art.run(a)
+    kept = first.clone()
+    art.run(torch.randn((16, frame_len, 2), generator=gen).to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(first, kept)
+
+
+@pytest.mark.cuda
+def test_artifact_short_batch_after_a_full_one(cuda, tmp_path):
+    """The rows a short batch leaves of its bucket are zeroed, whatever the
+    full batch before it put there."""
+    art, server, frame_len = _artifact(cuda, tmp_path)
+    gen = torch.Generator().manual_seed(2)
+    art.run(100.0 * torch.randn((16, frame_len, 2), generator=gen).to(cuda))
+    short = torch.randn((9, frame_len, 2), generator=gen).to(cuda)
+    assert torch.equal(art.run(short), server.run(short))
+
+
+@pytest.mark.cuda
+def test_artifact_capture_that_fails_raises(cuda, tmp_path, monkeypatch):
+    """A serving function that reads the device from the host cannot be
+    captured: loading raises, and nothing falls back to an eager run."""
+    import vitiq_torch.serve as sv
+
+    build = sv.build_serving_fn
+
+    def syncing(*args, **kwargs):
+        serve = build(*args, **kwargs)
+
+        def f(x):
+            out = serve(x)
+            return out * (1.0 if out.sum().item() == out.sum().item() else 0.0)
+
+        return f
+
+    monkeypatch.setattr(sv, "build_serving_fn", syncing)
+    with pytest.raises(RuntimeError):
+        _artifact(cuda, tmp_path)

@@ -12,8 +12,10 @@ K7's plain version (``VITIQ_ATTN_INT8=1``). With h5py and scikit-learn still
 blocked it imports the split and HDF5 modules (neither imports either at
 load), trains an epoch with step profiling on a `StreamFeed` over packed
 shards and evaluates a reference ``.pth`` with ``cli evaluate
---torch-checkpoint``. The port's sources, and `chip_smoke.py`, import
-neither jax nor vitiq."""
+--torch-checkpoint``; it exports an experiment with ``cli export`` and
+serves the artifact, loads the reference ``.pth`` through the softmax guard
+and runs MDF-NET. The port's sources, and `chip_smoke.py`, import neither
+jax nor vitiq."""
 
 import re
 import subprocess
@@ -192,6 +194,22 @@ with tempfile.TemporaryDirectory() as tmp:
                      tmp + "/synthetic.json", "--output", tmp + "/out", "--device", "cpu",
                      "--no_plots"]) == 0
     assert Path(tmp, "out", "test_classification_report.txt").exists()
+    # the serving artifact of an experiment (`cli export`) loaded on the CPU,
+    # the softmax guard on the reference .pth, and MDF-NET
+    from vitiq_torch.dsp.frontend import preprocess_batch_mdf
+    from vitiq_torch.interop import load_torch_checkpoint
+    from vitiq_torch.models.mdf import create_multi_domain_model
+    from vitiq_torch.serve import ServingArtifact
+    exp = Path(tmp, "exp")
+    eval_cfg.to_json(str(exp / "config.json"))
+    (exp / "normalization_stats.json").write_text(json.dumps(raw_stats))
+    save_params(exp / "model_best", model.state_dict(), eval_cfg.model)
+    assert cli.main(["export", "--experiment_dir", str(exp), "--output", tmp + "/art",
+                     "--batch_sizes", "8", "--platforms", "cpu"]) == 0
+    assert ServingArtifact.load(tmp + "/art", device="cpu").run(frames[:3]).shape == (3, 3)
+    assert set(load_torch_checkpoint(tmp + "/ref.pth", eval_cfg.model)) == set(model.state_dict())
+    mdf_in = preprocess_batch_mdf(torch.randn((2, 1024, 2)))
+    assert create_multi_domain_model(3)(*mdf_in).shape == (2, 3)
 assert sys.modules["h5py"] is None and sys.modules["sklearn"] is None
 leaked = sorted(m for m in sys.modules if m.startswith(("jax", "vitiq."))
                 and sys.modules[m] is not None)

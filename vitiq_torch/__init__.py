@@ -56,7 +56,18 @@ Gardner and Mueller-Mueller loops one launch of `csrc/timing.cu`, a kernel
 with no TPU twin), the SPS, spectrogram, amplitude/phase and MDF front-ends,
 the polyphase channelizer and the streaming classifier (`streaming.py`),
 taken by `serve.build_preprocess` and so by serving, training and
-evaluation.
+evaluation; the serving artifact (`serve.export_serving`,
+`serve.ServingArtifact`, `serve.export_from_experiment`, `python -m
+vitiq_torch.cli export`: the weights, config and stats, loaded on the card as
+one captured CUDA graph a batch bucket), MDF-NET (`models/mdf.py`) and the
+softmax calibration guard (`ops/guards.py`, `interop.load_torch_checkpoint`).
+
+Not ported, by design: `vitiq/utils/compile_cache.py` keeps XLA's persistent
+compilation cache, and the port compiles nothing at run time but its kernel
+library, which `ops/cuda/_build.py` already keeps under `build/` keyed by the
+sources' hash; `vitiq/train/orbax_io.py` wraps Orbax checkpointing, a JAX
+library, and the port's checkpoints are vitiq's npz-plus-manifest layout
+(`train/checkpoint.py`), which either package reads and resumes.
 """
 
 from vitiq_torch.config import (  # noqa: F401

@@ -1,5 +1,5 @@
 """Command-line interface (counterpart of `vitiq/cli.py`): ``train``,
-``evaluate``, ``compare`` and ``head-to-head``, with the JAX package's
+``evaluate``, ``export``, ``compare`` and ``head-to-head``, with the JAX package's
 argument names, presets, overrides and printed lines.
 
     python -m vitiq_torch.cli train [--preset NAME | --config PATH | --arm vit|rawiq]
@@ -11,6 +11,8 @@ argument names, presets, overrides and printed lines.
     python -m vitiq_torch.cli evaluate --torch-checkpoint PTH [--config PATH]
         [--data-path H5] [--json-path JSON] [--output DIR] [--dataset test]
         [--batch_size N] [--device cuda] [--no_plots]
+    python -m vitiq_torch.cli export --experiment_dir DIR --output ART
+        [--batch_sizes 256,8192] [--platforms cuda,cpu] [--checkpoint model_best.npz]
     python -m vitiq_torch.cli compare --vit_report PATH --transformer_report PATH
         [--output_dir DIR] [--no_plots]
     python -m vitiq_torch.cli head-to-head [train's flags] [--output_dir DIR]
@@ -22,7 +24,9 @@ rawIQ arm from the same flags on a deep copy of the ViT arm's data (iq
 features), as ``<experiment_name>_vit`` and ``<experiment_name>_rawiq``
 (base name ``h2h``), and compares their test reports. ``evaluate
 --torch-checkpoint`` evaluates a reference PyTorch ``.pth``
-(`runner.run_reference_evaluation`). The presets read the HDF5 source
+(`runner.run_reference_evaluation`). ``export`` writes the serving artifact
+of a training-run directory (`serve.export_from_experiment`) and prints
+vitiq's keys; ``--platforms`` takes cuda and cpu. The presets read the HDF5 source
 unless ``--source synthetic`` is given. ``--sps`` 2 or more runs the SPS
 front-end (RRC matched filter, then ``--timing_method``; the Gardner and
 Mueller-Mueller loops are one kernel launch on the card) before the model,
@@ -227,6 +231,22 @@ def cmd_compare(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    from vitiq_torch.serve import export_from_experiment
+
+    out = export_from_experiment(
+        args.experiment_dir, args.output,
+        batch_sizes=[int(b) for b in args.batch_sizes.split(",")],
+        platforms=args.platforms.split(",") if args.platforms else None,
+        checkpoint=args.checkpoint,
+    )
+    manifest = json.loads((out / "manifest.json").read_text())
+    print(json.dumps({"artifact": str(out), "batch_sizes": manifest["batch_sizes"],
+                      "platforms": manifest["platforms"], "entries": manifest["entries"]},
+                     indent=2))
+    return 0
+
+
 def head_to_head_configs(args):
     """(vit_cfg, rawiq_cfg) of `cmd_head_to_head`: the ViT arm from the
     flags, the rawIQ arm from the same flags (its arm's preset defaults where
@@ -288,6 +308,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_plots", action="store_true",
                    help="Skip the plots (they need matplotlib and seaborn)")
     p.set_defaults(fn=cmd_evaluate)
+
+    p = sub.add_parser("export", help="Export a serving artifact (the weights, config and stats; "
+                                      "one CUDA graph a bucket when loaded on the card)")
+    p.add_argument("--experiment_dir", required=True,
+                   help="Training-run directory (config.json + normalization_stats.json + "
+                        "model_best.npz)")
+    p.add_argument("--output", required=True, help="Artifact directory to write")
+    p.add_argument("--batch_sizes", default="256,8192",
+                   help="Comma-separated fixed batch buckets")
+    p.add_argument("--platforms", default=None,
+                   help="Comma-separated devices it may load on (cuda, cpu); default cuda")
+    p.add_argument("--checkpoint", default="model_best.npz",
+                   help="Weights file inside the experiment dir")
+    p.set_defaults(fn=cmd_export)
 
     p = sub.add_parser("compare", help="Compare two classification reports")
     p.add_argument("--vit_report", required=True)

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from vitiq_torch.dsp.taps import rrc_filter
-from vitiq_torch.utils.device import resolve_device
+from vitiq_torch.utils.device import device_values, resolve_device
 
 
 def f32_conv():
@@ -36,7 +36,7 @@ def _fir_same(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     k = len(taps)
     pad = (k - 1) // 2
     # np.convolve is correlation with the flipped taps; conv1d correlates
-    w = torch.as_tensor(np.ascontiguousarray(taps[::-1]), dtype=x.dtype, device=x.device)
+    w = device_values(taps[::-1], x.dtype, x.device)
     C = x.shape[1]
     with f32_conv():
         return F.conv1d(x, w.expand(C, 1, k), padding=pad, groups=C)

@@ -28,6 +28,7 @@ from vitiq_torch.dsp.timing import (
     timing_recovery_gardner,
     timing_recovery_mueller_muller,
 )
+from vitiq_torch.utils.device import device_values
 
 _METHODS = ("simple_energy", "simple_correlation", "gardner", "mueller_muller")
 
@@ -113,8 +114,8 @@ def preprocess_for_transformer(i_signal, q_signal, stats: Dict[str, float]):
 # --------------------------------------------------------------------------
 
 def _zscore(x: torch.Tensor, stats: Dict[str, float]) -> torch.Tensor:
-    mean = torch.tensor([stats["i_mean"], stats["q_mean"]], dtype=x.dtype, device=x.device)
-    std = torch.tensor([stats["i_std"], stats["q_std"]], dtype=x.dtype, device=x.device)
+    mean = device_values([stats["i_mean"], stats["q_mean"]], x.dtype, x.device)
+    std = device_values([stats["i_std"], stats["q_std"]], x.dtype, x.device)
     return (x - mean) / std
 
 
@@ -254,7 +255,7 @@ def preprocess_batch_mdf(x: torch.Tensor, H: int = 32, W: int = 32,
     i_sig, q_sig = x[..., 0], x[..., 1]
     amp = torch.sqrt(i_sig * i_sig + q_sig * q_sig)
     if stats is not None and "amp_max" in stats:
-        amp_max = torch.tensor(stats["amp_max"], dtype=amp.dtype, device=amp.device).clamp(
+        amp_max = torch.full((), stats["amp_max"], dtype=amp.dtype, device=amp.device).clamp(
             min=1e-8)
     else:
         amp_max = amp.amax(dim=-1, keepdim=True).clamp(min=1e-8)

@@ -10,6 +10,10 @@ The tree's leaves may be numpy arrays or anything `numpy.asarray` accepts.
 `vitiq_tree_from_state_dict` is the inverse, with numpy leaves (the layout
 `vitiq`'s parameter files store, `train/checkpoint.py`); `tree_leaves` and
 `tree_unflatten` walk a tree in `jax.tree_util`'s order.
+`mdf_state_dict_from_vitiq` carries vitiq's MDF-NET parameters over to
+`models/mdf.py`. `load_torch_checkpoint` reads a reference ``.pth`` and runs
+the softmax calibration guard on it (counterpart of
+`vitiq.interop.load_torch_checkpoint`).
 """
 
 from __future__ import annotations
@@ -134,3 +138,56 @@ def vitiq_tree_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: ModelConfig)
             "head_norm": {"gamma": _np(sd["mlp_head.0.weight"]),
                           "beta": _np(sd["mlp_head.0.bias"])},
             "mlp_head": _dense(sd, "mlp_head.1")}
+
+
+def mdf_state_dict_from_vitiq(params: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    """vitiq's MDF-NET parameter tree (`vitiq/models/mdf.py: init_fn`) ->
+    the state_dict of `models.mdf.MultiDomainModel`. Conv kernels are OIHW in
+    both; the LSTM's weight_ih = wx.kernel^T, bias_ih = wx.bias, weight_hh =
+    wh.kernel^T, bias_hh = wh.bias (gates i, f, g, o in both)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for tower in ("amp_cnn", "phase_cnn"):
+        for i, conv in enumerate(params[tower]):
+            sd[f"{tower}.{i}.weight"] = _t(conv["kernel"])
+            sd[f"{tower}.{i}.bias"] = _t(conv["bias"])
+    sd["iq_conv.weight"] = _t(params["iq_conv"]["kernel"])
+    sd["iq_conv.bias"] = _t(params["iq_conv"]["bias"])
+    lstm = params["lstm"]
+    sd["lstm.weight_ih_l0"] = _t(np.asarray(lstm["wx"]["kernel"]).T)
+    sd["lstm.weight_hh_l0"] = _t(np.asarray(lstm["wh"]["kernel"]).T)
+    sd["lstm.bias_ih_l0"] = _t(lstm["wx"]["bias"])
+    sd["lstm.bias_hh_l0"] = _t(lstm["wh"]["bias"])
+    _linear(sd, "fuse1", params["fuse1"])
+    _linear(sd, "head", params["head"])
+    return sd
+
+
+def load_reference_state_dict(model: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> None:
+    """Load a reference state dict into `model` (the port keeps the
+    reference's parameter names): entries the model does not have, such as
+    buffers, are ignored; a missing parameter raises KeyError."""
+    missing = model.load_state_dict(sd, strict=False).missing_keys
+    if missing:
+        raise KeyError(f"the checkpoint has no {missing[0]!r} for this config "
+                       f"({len(missing)} parameters missing)")
+
+
+def load_torch_checkpoint(path, cfg: ModelConfig, check_bounds: bool = True
+                          ) -> "OrderedDict[str, torch.Tensor]":
+    """A reference ``.pth`` training checkpoint (its ``model_state_dict``,
+    or a bare state dict; read with ``torch.load(weights_only=True)``) as the
+    state_dict of an `AMCModel` for `cfg`; a parameter the checkpoint lacks
+    raises KeyError. With `check_bounds`, runs the softmax calibration guard
+    (`ops.guards.check_softmax_bound`) on the weights, which warns where
+    their attention scores near the bound of the TPU kernels' max-free
+    softmax."""
+    from vitiq_torch.models.amc import AMCModel
+    from vitiq_torch.ops.guards import check_softmax_bound
+
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    model = AMCModel(cfg)
+    load_reference_state_dict(model, blob.get("model_state_dict", blob)
+                              if isinstance(blob, dict) else blob)
+    if check_bounds:
+        check_softmax_bound(model)
+    return model.state_dict()

@@ -108,7 +108,7 @@ def sinusoidal_encoding(max_len: int, d_model: int, dtype=torch.float32,
     """[max_len, d_model] table, computed in f32 as the reference does."""
     pos = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
     two_i = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
-    denominator = torch.pow(torch.tensor(10000.0, device=device), two_i / d_model)
+    denominator = torch.pow(torch.full((), 10000.0, device=device), two_i / d_model)
     angles = pos / denominator
     enc = torch.stack([torch.sin(angles), torch.cos(angles)], dim=-1)
     return enc.reshape(max_len, -1)[:, :d_model].to(dtype)

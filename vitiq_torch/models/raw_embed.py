@@ -31,12 +31,12 @@ from __future__ import annotations
 import os
 from typing import Dict
 
-import numpy as np
 import torch
 
 from vitiq_torch.config import ModelConfig
 from vitiq_torch.models.embeddings import sinusoidal_encoding
 from vitiq_torch.ops.numerics import Policy
+from vitiq_torch.utils.device import device_values
 
 
 def fused_raw_embed_supported(cfg: ModelConfig) -> bool:
@@ -64,20 +64,17 @@ def fused_raw_embed_enabled(cfg: ModelConfig) -> bool:
     return cfg.arm != "vit" or cfg.num_tokens * cfg.d_model <= 2048
 
 
-def _vit_maps(cfg: ModelConfig):
+def _vit_maps(cfg: ModelConfig, device):
     """Static (p_of, t_of, c_of) over the interleaved flat index f = 2*l + c:
-    the element's position in its patch, its patch, its channel."""
+    the element's position in its patch, its patch, its channel. Computed on
+    `device` from aranges, so no host copy (and no stream sync) is made."""
     L, W_img, ps = cfg.seq_length, cfg.img_size_w, cfg.patch_size
-    m = np.arange(2 * L)  # channel-major flat position (I block then Q block)
+    f = torch.arange(2 * L, device=device)
+    c_of = f % 2
+    m = c_of * L + f // 2  # channel-major flat position (I block then Q block)
     r, col = m // W_img, m % W_img
-    t_of_m = (r // ps) * (W_img // ps) + col // ps
-    p_of_m = (r % ps) * ps + (col % ps)
-    c_of_m, l_of_m = m // L, m % L
-    f_of_m = 2 * l_of_m + c_of_m
-    p_of = np.empty(2 * L, np.int64)
-    t_of = np.empty(2 * L, np.int64)
-    c_of = np.empty(2 * L, np.int64)
-    p_of[f_of_m], t_of[f_of_m], c_of[f_of_m] = p_of_m, t_of_m, c_of_m
+    t_of = (r // ps) * (W_img // ps) + col // ps
+    p_of = (r % ps) * ps + (col % ps)
     return p_of, t_of, c_of
 
 
@@ -95,12 +92,11 @@ def fused_raw_embed_apply(encoder, x: torch.Tensor, cfg: ModelConfig,
     proj = embedding.projection
     W = proj.weight.reshape(D, -1).t()  # the JAX kernel [(C*k...), D]
     b = proj.bias.float()
-    mu = torch.tensor([stats["i_mean"], stats["q_mean"]], dtype=torch.float32, device=dev)
-    inv_sigma = 1.0 / torch.tensor([stats["i_std"], stats["q_std"]], dtype=torch.float32,
-                                   device=dev)
+    mu = device_values([stats["i_mean"], stats["q_mean"]], torch.float32, dev)
+    inv_sigma = 1.0 / device_values([stats["i_std"], stats["q_std"]], torch.float32, dev)
 
     if cfg.arm == "vit":
-        p_of, t_of, c_of = (torch.from_numpy(a).to(dev) for a in _vit_maps(cfg))
+        p_of, t_of, c_of = _vit_maps(cfg, dev)
         N = (cfg.img_size_h // cfg.patch_size) * (cfg.img_size_w // cfg.patch_size)
         wp = W[p_of] * inv_sigma[c_of][:, None]                        # [2L, D]
         onehot = torch.eye(N + 1, dtype=torch.float32, device=dev)[t_of + 1]

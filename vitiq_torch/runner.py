@@ -250,6 +250,7 @@ def run_reference_evaluation(
     only. Artifacts go to `output_dir`, by default
     ``result/reference_import/<stem>/evaluation``."""
     from vitiq_torch.eval import evaluate_feed_with_confusion
+    from vitiq_torch.interop import load_reference_state_dict
     from vitiq_torch.models.amc import AMCModel
     from vitiq_torch.serve import build_forward_and_preprocess, resolve_device
 
@@ -282,10 +283,7 @@ def run_reference_evaluation(
     cfg.model.validate()
 
     model = AMCModel(cfg.model)
-    missing = model.load_state_dict(sd, strict=False).missing_keys
-    if missing:
-        raise KeyError(f"the checkpoint has no {missing[0]!r} for this config "
-                       f"({len(missing)} parameters missing)")
+    load_reference_state_dict(model, sd)
 
     out = Path(output_dir) if output_dir else (
         Path("result/reference_import") / ckpt_path.stem / "evaluation")
