@@ -271,3 +271,56 @@ def test_artifacts_of_both_packages_agree(arm, data_kw, numerics, tmp_path):
         same = np.abs(sym - sym_want).max(axis=(1, 2)) <= 1e-5
         assert same.sum() >= len(x) - 1
     assert np.abs(got[same] - want[same]).max() <= TOL[numerics]
+
+
+@pytest.mark.parametrize("arm,data_kw", [
+    ("rawiq", {}), ("vit", {}),
+    ("rawiq", dict(sps=2, timing_method="gardner", timing_hybrid_window=16)),
+], ids=["rawiq", "vit", "rawiq-sps2-gardner-hybrid"])
+def test_built_front_end_makes_its_constants_once(arm, data_kw, monkeypatch):
+    """`build_preprocess` with a device puts the z-score stats and the RRC
+    taps there once, where it is built: its calls make no tensor from host
+    numbers, and give the bits of the front-end that makes them each call."""
+    from vitiq_torch.serve import build_preprocess
+
+    frame = FRAMES[arm] * (2 if data_kw else 1)
+    model = dict(RAW if arm == "rawiq" else VIT)
+    model["seq_length"] = FRAMES[arm]
+    cfg = ExperimentConfig(model=ModelConfig(**model),
+                           data=DataConfig(synthetic_frame_len=frame, **data_kw))
+    x = torch.from_numpy(_frames(6, frame, 7))
+    want = build_preprocess(cfg, STATS)(x)
+    built = build_preprocess(cfg, STATS, device="cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a built front-end made a tensor from host numbers")
+
+    monkeypatch.setattr(torch, "tensor", refuse)
+    monkeypatch.setattr(torch, "as_tensor", refuse)
+    assert torch.equal(built(x), want)
+
+
+@pytest.mark.parametrize("arm", ["rawiq", "vit"])
+def test_fused_raw_embedding_keeps_its_constants(arm, monkeypatch):
+    """The fused raw embedding makes mu, 1/sigma and its index maps at its
+    first call and keeps them on the encoder: a later call makes no tensor
+    from host numbers, and new stats or another device make them anew."""
+    from vitiq_torch.models import raw_embed
+
+    cfg = _tiny_cfg(arm).model
+    cfg.numerics = "tpu"
+    other = {k: v * 1.5 for k, v in STATS.items()}
+    x = torch.from_numpy(_frames(4, FRAMES[arm], 8))
+    model = AMCModel(cfg, generator=torch.Generator().manual_seed(0), raw_stats=STATS).eval()
+    fresh = AMCModel(cfg, raw_stats=other).eval()
+    fresh.load_state_dict(model.state_dict())
+    policy = model.policy
+    with torch.no_grad():
+        first = raw_embed.fused_raw_embed_apply(model.encoder, x, cfg, STATS, policy)
+        with monkeypatch.context() as m:
+            m.setattr(torch, "tensor", lambda *a, **k: pytest.fail("constants made again"))
+            again = raw_embed.fused_raw_embed_apply(model.encoder, x, cfg, STATS, policy)
+        assert torch.equal(first, again)
+        got = raw_embed.fused_raw_embed_apply(model.encoder, x, cfg, other, policy)
+        want = raw_embed.fused_raw_embed_apply(fresh.encoder, x, cfg, other, policy)
+    assert torch.equal(got, want) and not torch.equal(got, first)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import logging
 import math
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,7 +28,6 @@ from vitiq_torch.dsp.timing import (
     timing_recovery_gardner,
     timing_recovery_mueller_muller,
 )
-from vitiq_torch.utils.device import device_values
 
 _METHODS = ("simple_energy", "simple_correlation", "gardner", "mueller_muller")
 
@@ -113,23 +112,39 @@ def preprocess_for_transformer(i_signal, q_signal, stats: Dict[str, float]):
 # batched device path
 # --------------------------------------------------------------------------
 
-def _zscore(x: torch.Tensor, stats: Dict[str, float]) -> torch.Tensor:
-    mean = device_values([stats["i_mean"], stats["q_mean"]], x.dtype, x.device)
-    std = device_values([stats["i_std"], stats["q_std"]], x.dtype, x.device)
+Stats = Union[Mapping[str, float], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def zscore_constants(stats: Mapping[str, float], device,
+                     dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The I and Q channels' (mean, std) from `stats` as [2] tensors on
+    `device`. The host copy synchronizes the stream, which a CUDA graph's
+    capture refuses, so a built front-end (`serve.build_preprocess`) makes
+    them once and passes them to the batched functions in place of the
+    dict."""
+    return (torch.tensor([stats["i_mean"], stats["q_mean"]], dtype=dtype, device=device),
+            torch.tensor([stats["i_std"], stats["q_std"]], dtype=dtype, device=device))
+
+
+def _zscore(x: torch.Tensor, stats: Stats) -> torch.Tensor:
+    mean, std = (zscore_constants(stats, x.device, x.dtype) if isinstance(stats, Mapping)
+                 else stats)
     return (x - mean) / std
 
 
-def preprocess_batch_vit(x: torch.Tensor, stats: Dict[str, float],
+def preprocess_batch_vit(x: torch.Tensor, stats: Stats,
                          H: int = 32, W: int = 64) -> torch.Tensor:
     """[B, L, 2] raw frames -> [B, 1, H, W] images: the normalized I samples,
-    then the Q samples (channel-major), viewed as one image."""
+    then the Q samples (channel-major), viewed as one image. `stats` is the
+    stats dict or its `zscore_constants`."""
     norm = _zscore(x, stats)
     flat = torch.cat([norm[..., 0], norm[..., 1]], dim=-1)  # [B, 2L]
     return flat.reshape(x.shape[0], 1, H, W)
 
 
-def preprocess_batch_rawiq(x: torch.Tensor, stats: Dict[str, float]) -> torch.Tensor:
-    """[B, L, 2] raw frames -> [B, 2, L] normalized sequences."""
+def preprocess_batch_rawiq(x: torch.Tensor, stats: Stats) -> torch.Tensor:
+    """[B, L, 2] raw frames -> [B, 2, L] normalized sequences (`stats` as in
+    `preprocess_batch_vit`)."""
     return _zscore(x, stats).transpose(1, 2)
 
 
@@ -151,8 +166,8 @@ def _log_hybrid_engaged_once(method: str, window: int) -> None:
 
 
 def preprocess_batch_sps(x: torch.Tensor, sps: int, alpha: float = 0.35, span: int = 8,
-                         method: str = "simple_energy",
-                         hybrid_window: int = 64) -> torch.Tensor:
+                         method: str = "simple_energy", hybrid_window: int = 64,
+                         weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The SPS-aware front-end on the device: [B, L, 2] -> [B, L//sps, 2].
 
     sps == 1: identity (the RadioML rule: every sample is a symbol).
@@ -165,6 +180,8 @@ def preprocess_batch_sps(x: torch.Tensor, sps: int, alpha: float = 0.35, span: i
         `dsp/timing.hybrid_positions`); hybrid_window=0 (or a window of at
         least L//sps) runs the full per-symbol loop. Strobes past the frame's
         end clamp to its last sample, so the shape stays [B, L//sps, 2].
+    `weights` are the filter's `filtering.rrc_weights` where the caller made
+    them once (a built front-end does), else they are made here.
     """
     if sps == 1:
         return x
@@ -173,7 +190,7 @@ def preprocess_batch_sps(x: torch.Tensor, sps: int, alpha: float = 0.35, span: i
     B, L, _ = x.shape
     if L % sps:
         raise ValueError(f"frame length {L} must be a multiple of sps ({sps})")
-    filtered = matched_filter_batch(x, sps=sps, alpha=alpha, span=span)
+    filtered = matched_filter_batch(x, sps=sps, alpha=alpha, span=span, weights=weights)
     n_sym = L // sps
 
     if method in ("gardner", "mueller_muller"):

@@ -197,7 +197,7 @@ def run_evaluation(
         from vitiq_torch.ops.quant import QuantizedAMCModel
 
         forward = QuantizedAMCModel.from_model(model.to(device))
-        preprocess = build_preprocess(cfg, stats)
+        preprocess = build_preprocess(cfg, stats, device)
         prefix = f"{dataset}_int8"
     else:
         forward, preprocess = build_forward_and_preprocess(cfg, model, stats, device)

@@ -55,12 +55,14 @@ import torch
 from torch import nn
 
 from vitiq_torch.config import ExperimentConfig, ModelConfig
+from vitiq_torch.dsp.filtering import rrc_weights
 from vitiq_torch.dsp.frontend import (
     preprocess_batch_amplitude_phase,
     preprocess_batch_rawiq,
     preprocess_batch_sps,
     preprocess_batch_vit,
     preprocess_batch_vit_spectrogram,
+    zscore_constants,
 )
 from vitiq_torch.models.amc import AMCModel
 from vitiq_torch.models.raw_embed import fused_raw_embed_enabled
@@ -72,7 +74,8 @@ from vitiq_torch.train.checkpoint import load_params, save_params
 from vitiq_torch.utils.device import resolve_device
 
 
-def build_preprocess(cfg: ExperimentConfig, stats: Dict[str, float]) -> Callable:
+def build_preprocess(cfg: ExperimentConfig, stats: Dict[str, float],
+                     device=None) -> Callable:
     """The front-end matching the experiment: raw [B, L, 2] -> model input.
 
     With ``data.sps >= 2`` the SPS front-end runs first (RRC matched filter,
@@ -82,17 +85,27 @@ def build_preprocess(cfg: ExperimentConfig, stats: Dict[str, float]) -> Callable
     are the raw frames': the RRC taps have unit energy, so the symbol instants
     keep their scale. Features: 'iq' (both arms), 'spectrogram' (the ViT arm:
     STFT images), 'amp_phase' (the rawIQ arm: amplitude and phase); any other
-    raises ValueError, as in the JAX package."""
-    arm_pre = _build_arm_preprocess(cfg, stats)
+    raises ValueError, as in the JAX package.
+
+    With a `device`, the z-score stats and the RRC taps are put there once,
+    here: each call then copies nothing from the host (a host copy
+    synchronizes the stream, which a CUDA graph's capture refuses). Without
+    one, each call makes them on its frames' device."""
+    arm_pre = _build_arm_preprocess(cfg, stats, device)
     if cfg.data.sps <= 1:
         return arm_pre
     sps, method = cfg.data.sps, cfg.data.timing_method
     hyb = cfg.data.timing_hybrid_window
-    return lambda x: arm_pre(preprocess_batch_sps(x, sps, method=method, hybrid_window=hyb))
+    weights = None if device is None else rrc_weights(sps, device=resolve_device(device))
+    return lambda x: arm_pre(preprocess_batch_sps(x, sps, method=method, hybrid_window=hyb,
+                                                  weights=weights))
 
 
-def _build_arm_preprocess(cfg: ExperimentConfig, stats: Dict[str, float]) -> Callable:
+def _build_arm_preprocess(cfg: ExperimentConfig, stats: Dict[str, float],
+                          device) -> Callable:
     m, features = cfg.model, cfg.data.features
+    if features == "iq" and device is not None:
+        stats = zscore_constants(stats, resolve_device(device))
     if m.arm == "vit":
         if features == "spectrogram":
             return lambda x: preprocess_batch_vit_spectrogram(x, H=m.img_size_h, W=m.img_size_w)
@@ -127,7 +140,7 @@ def build_forward_and_preprocess(cfg: ExperimentConfig, model_or_cfg: Union[AMCM
         model.raw_stats = raw_stats
     else:
         model = AMCModel(model_or_cfg, device=device, raw_stats=raw_stats)
-    return model, ((lambda x: x) if fused else build_preprocess(cfg, stats))
+    return model, ((lambda x: x) if fused else build_preprocess(cfg, stats, device))
 
 
 def build_serving_fn(cfg: ExperimentConfig, model: AMCModel, stats: Dict[str, float],
@@ -157,7 +170,7 @@ def build_int8_serving_fn(cfg: ExperimentConfig, model: AMCModel, stats: Dict[st
 
     device = resolve_device(device)
     qmodel = QuantizedAMCModel.from_model(model.to(device))
-    pre = build_preprocess(cfg, stats)
+    pre = build_preprocess(cfg, stats, device)
 
     def serve(x) -> torch.Tensor:
         return qmodel(pre(torch.as_tensor(x, dtype=torch.float32, device=device)))

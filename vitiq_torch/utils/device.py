@@ -1,4 +1,4 @@
-"""The device an entry point runs on, and host constants made on it."""
+"""The device an entry point runs on."""
 
 from __future__ import annotations
 
@@ -13,12 +13,3 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device {device} was asked for, but CUDA is not available; "
                            "pass device='cpu' to run on the host")
     return device
-
-
-def device_values(values, dtype: torch.dtype, device) -> torch.Tensor:
-    """The host numbers `values` as a 1-D tensor on `device`, each rounded to
-    `dtype` as `torch.tensor` rounds it, written by fill kernels. A copy from
-    pageable host memory (`torch.tensor(..., device=...)`) synchronizes the
-    stream, which a CUDA graph's capture refuses; fill kernels are captured
-    like any other launch, so the serving path may make its constants so."""
-    return torch.stack([torch.full((), float(v), dtype=dtype, device=device) for v in values])
