@@ -145,7 +145,9 @@ which raises (exit code 1) on failure:
    giving the same bits; each shape's route and the wgmma passes' blocks an
    SM printed. The build phase fails unless every instance of K4's passes
    (K4_ATTENTION_INSTANCES) and of K3's (K3_ATTENTION_INSTANCES) is in the
-   build, spills nothing and runs HGMMA.
+   build, spills nothing and runs HGMMA. Then the plain dropout sites'
+   kernel (`check_hash_dropout`) at the main path's activations
+   (DROP_SHAPES) against its plain version on the card, bit for bit.
 6. train: the ViT flagship and the rawIQ flagship (bf16 `tpu` numerics,
    seeded random weights) each take 20 `make_train_step` steps at B=256 on
    one repeated random batch at lr 1e-3, the rawIQ one on raw frames through
@@ -153,13 +155,15 @@ which raises (exit code 1) on failure:
    step and read just after: every ViT step must launch K3-fwd and K3-bwd
    once per layer (6 each) and K4 and K5 never; every rawIQ step K4-fwd and
    K4-bwd 6 times each and K3 and K5 never, the regimes the JAX package's
-   stash gate picks (Lp 144 and 80). The loss must stay finite and end
+   stash gate picks (Lp 144 and 80); each the plain dropout sites' kernel
+   twice (the embedding's dropout, forward and backward). The loss must stay finite and end
    below where it started. One step's gradient at dropout 0 from the same weights is held
    against the plain bf16 layers (VITIQ_FUSED_TRAIN=0, cosine >= 0.999) and
    the f32 `reference` path (cosine >= 0.995). The conv1d flagship takes 20
    steps at B=64 through the plain layers, rematerialized (VITIQ_TRAIN_REMAT
    auto), with K5 as their attention: every step must launch K5-fwd 12
-   times (6 forward, 6 recompute) and K5-bwd 6 times, K3 and K4 never; its
+   times (6 forward, 6 recompute) and K5-bwd 6 times, the plain dropout
+   sites' kernel 56 times (2 + 9 a layer), K3 and K4 never; its
    gradient at dropout 0 is held to the f32 path at B=8 (cosine >= 0.995).
    rawiq_best takes 20 steps at B=256 through K3 (9 forward and 9 backward
    launches a step), rawiq_best_mp through K4 (9 + 9), each gradient held to
@@ -283,6 +287,40 @@ which raises (exit code 1) on failure:
    (MDF_COND), one Adam step; a control whose backward runs under the flag
    must fail the gradient gate.
    ``--export`` runs only the device, build, export and mdf phases.
+   scan-train: device-scan training, K train steps as one captured CUDA
+   graph (`train/loop.make_train_scan_step`). The ViT flagship (K3) and the
+   rawIQ flagship (K4) at full width, `tpu` numerics, dropout SCAN_DROP,
+   B=SCAN_BATCH, each trained through `fit` for SCAN_EPOCHS epochs twice
+   from the same weights and seeds, with ``device_scan_steps`` 0 and SCAN_K,
+   on a synthetic 3-class split of two full superbatches and three single
+   steps an epoch (SCAN_TRAIN frames): the histories (but the epoch times)
+   and the final parameters must be equal bit for bit; each run's ms a step
+   over its epochs (host clock, evaluation included) and peak device memory
+   are printed. Then per arm one group of SCAN_K steps eager against the
+   scan step (its first call the eager warm-up and the capture, the next a
+   replay) on the same data (`scan_graph_check`): parameters and moments
+   bit for bit, `torch.profiler`'s kernels of the replay by name equal to
+   those of the eager group's steps, and K3's or K4's launches counted in
+   the replay's own trace (`replay_launches`: each wrapper's kernel
+   instances in one eager call, the replay's instances solved for the two
+   wrappers' counts, every instance accounted for) equal to SCAN_K times a
+   step's (`scan_launches` in the kernels line's K3 / K4 entries), and ms a
+   step eager and through the graph (host
+   clock and CUDA events), the device's idle share (its kernels' time under
+   `torch.profiler` against the unprofiled host clock), the capture time and
+   the peak memory. The conv1d flagship at depth SCAN_CONV1D_LAYERS with
+   K=SCAN_CONV1D_K (K5, each layer rematerialized) is held the same way.
+   sweep: `sweep.run_pso_sweep(n_particles=4, iters=2, train_steps=30,
+   bucket=True)` on the card (its evaluations, architectures captured and
+   wall time printed), then one architecture evaluated through eager steps
+   and through its graph (the first call capturing, the second replaying):
+   the trained parameters and the accuracy equal, the three times printed.
+   ``--scan`` runs only the device, build, scan-train and sweep phases;
+   ``--sweep`` the sweep phase and a longer sweep (`sweep_scale_check`:
+   SWEEP_SCALE and the largest architecture at its train_steps: times,
+   graphs captured, peak memory); ``--steps`` only the train steps whose
+   dropout the plain sites' kernel draws (`time_steps`), which also runs on
+   a tree without that kernel.
 7. timing (CUDA events after warm-up): per-layer kernel time against the
    plain version (K1 and K2 at the three shapes, B=4096 and, at 1025 tokens,
    B=256; K3 at the ViT and rawIQ shapes and K4 at the rawIQ one, B=4096;
@@ -394,7 +432,12 @@ timing_scan_kernel's launches are counted by timing.cu (`tk.kernel_launches`)
 over the dsp phase's serving requests; it has no TPU twin (the JAX package
 runs the loops as a lax.scan), which its entry says. The K1, K2, pooling and
 scan entries also give `export_launches`: the export phase's launches of
-each through the graphs, from its `torch.profiler` traces.
+each through the graphs, from its `torch.profiler` traces. The K3 and K4
+entries give `scan_launches`: the launches of one replay of the scan-train
+phase's graph (SCAN_K steps), counted in that replay's own `torch.profiler`
+trace. The plain dropout sites' kernel (`hash_dropout_kernel`, no TPU twin:
+the JAX package draws these masks with jax.random) gives the conv1d train
+phase's launches.
 """
 
 from __future__ import annotations
@@ -447,7 +490,7 @@ from vitiq_torch.serve import (
     build_serving_fn,
 )
 from vitiq_torch.train.checkpoint import load_params, save_params
-from vitiq_torch.train import make_train_step
+from vitiq_torch.train import fit, make_train_step
 from vitiq_torch.train.optim import create_train_state, make_optimizer
 
 # (atol, rtol) on bf16 outputs, |kernel - plain| <= atol + rtol * |plain|.
@@ -497,6 +540,23 @@ ATTN_SOURCE = "vitiq_torch/csrc/flash_attention.cu"
 ATTN_TPU_SOURCE = "vitiq/ops/pallas/flash_attention.py"
 K5 = ("fused_attention_fwd", "fused_attention_bwd")
 CONV1D_L = 1025  # the conv1d flagship's tokens, CLS included
+# the plain dropout sites' kernel (`flt.hash_dropout`): its counter, what it
+# stands in for in the JAX package (the plain layers' and the embedding's
+# jax.random.bernoulli dropout, no TPU kernel), and where the check holds it
+# to its plain version: the main path's activations (the conv1d flagship's
+# FFN hidden, attention output and embedding at B=64; the ViT and rawIQ
+# flagships' embeddings at B=256), bf16 and f32
+DROP_KERNEL = "hash_dropout"
+DROP_JAX = "vitiq/models/layers.py:76"
+DROP_SHAPES = (((64, CONV1D_L, 1024), torch.bfloat16), ((64, CONV1D_L, 128), torch.bfloat16),
+               ((256, 129, 128), torch.bfloat16), ((256, 65, 128), torch.float32),
+               ((8, CONV1D_L, 128), torch.float32), ((3, 17, 96), torch.bfloat16))
+# timed at the conv1d flagship's FFN hidden in its B=256 train step
+DROP_TIME_SHAPE = (256, CONV1D_L, 1024)
+# the hash's 32-bit operations a position: the lane's product and xor, the
+# seed add, fmix32's three shifts, three xors and two products, the mask,
+# the compare, the scale
+DROP_OPS = 14
 K6 = "fused_encoder_layer_int8"
 # K6 against its plain version: (relative L2, max in quantization steps),
 # ||kernel - plain|| <= rel ||plain|| and every element within `steps` of a
@@ -1414,6 +1474,62 @@ def check_train_stages(device, batch: int = 256) -> float:
     return worst
 
 
+def check_hash_dropout(device, launches: int = 30) -> float:
+    """The plain dropout sites' kernel alone (`flt.hash_dropout_apply`, rate
+    TRAIN_DROP, a device-tensor seed) at DROP_SHAPES against its plain
+    version (`flt.hash_dropout_plain`) run on the card on the same inputs:
+    bit for bit (tolerance 0), on activations and on a gradient, with about
+    the rate's share dropped; then `launches` launches the same bits.
+    Returns the largest absolute difference (0.0)."""
+    print(f"phase hash-dropout: the plain sites' dropout kernel vs its plain version on the "
+          f"GPU, bit for bit, {launches} launches the same bits", flush=True)
+    gen = torch.Generator().manual_seed(8)
+    seed = torch.tensor([TRAIN_SEED], dtype=torch.int32, device=device)
+    worst = 0.0
+    for i, (shape, dtype) in enumerate(DROP_SHAPES):
+        salt = flt.site_salt(i, 1)
+        x = torch.randn(shape, generator=gen).to(device, dtype)
+        got = flt.hash_dropout_apply(x, TRAIN_DROP, seed, salt)
+        want = flt.hash_dropout_plain(x, TRAIN_DROP, seed, salt)
+        err = (got.float() - want.float()).abs().max().item()
+        dropped = (want == 0).float().mean().item()
+        worst = max(worst, err)
+        same = all(torch.equal(flt.hash_dropout_apply(x, TRAIN_DROP, seed, salt), got)
+                   for _ in range(launches - 1))
+        print(f"  {tuple(shape)} {str(dtype)[6:]}: max |kernel - plain| {err:.3g}, dropped "
+              f"{dropped:.4f}, bits equal {torch.equal(got, want)}, {launches} launches the same "
+              f"bits {same}", flush=True)
+        if not torch.equal(got, want) or not same or abs(dropped - TRAIN_DROP) > 0.02:
+            raise AssertionError(f"hash_dropout {tuple(shape)} {dtype}: the kernel differs from "
+                                 f"its plain version ({err}) or between launches, or dropped "
+                                 f"{dropped}")
+    return worst
+
+
+def time_hash_dropout(device, card: str) -> dict:
+    """The plain sites' dropout kernel at DROP_TIME_SHAPE in bf16 (CUDA
+    events after warm-up) against its plain version on the card, with its
+    bound: x read once and the output written once over the HBM rate, or
+    DROP_OPS 32-bit operations a position over the f32 rate outside the
+    tensor cores."""
+    x = torch.randn(DROP_TIME_SHAPE, generator=torch.Generator().manual_seed(4)).to(
+        device, torch.bfloat16)
+    seed = torch.tensor([TRAIN_SEED], dtype=torch.int32, device=device)
+    salt = flt.site_salt(0, 1)
+    ms = cuda_ms(lambda: flt.hash_dropout_apply(x, TRAIN_DROP, seed, salt), 20)
+    plain_ms = cuda_ms(lambda: flt.hash_dropout_plain(x, TRAIN_DROP, seed, salt), 5)
+    nbytes = 2 * x.numel() * x.element_size() + 4
+    byte_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, DROP_OPS * x.numel() / PEAK_F32_FLOPS * 1e3
+    bnd = (byte_ms, "bytes") if byte_ms >= ops_ms else (ops_ms, "operations")
+    print(f"  hash_dropout_kernel {DROP_TIME_SHAPE} bf16: {ms:.4f} ms, plain version "
+          f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]} ({nbytes} bytes, "
+          f"{DROP_OPS * x.numel()} operations), {ms / bnd[0]:.2f}x the bound  [{card}]",
+          flush=True)
+    del x
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound": bnd}
+
+
 def check_train_bits(device, launches: int = 30) -> None:
     """K3-fwd, K3-bwd (rawiq_best) and K4-bwd (the rawIQ flagship) over ~100K
     rows, so that each warpgroup of a persistent GEMM stage refills its ring
@@ -1718,8 +1834,7 @@ def time_recompute_passes(device, card: str, B: int = 4096, shapes=K3_PASS_TIMED
 def flat_grad(model, inputs, labels, seed) -> torch.Tensor:
     """The gradient of one training step's loss, flat in f32."""
     model.train()
-    gen = torch.Generator(device=inputs.device).manual_seed(0)
-    loss = label_smoothed_cross_entropy(model(inputs, generator=gen, seed=seed), labels, 0.1)
+    loss = label_smoothed_cross_entropy(model(inputs, seed=seed), labels, 0.1)
     grads = torch.autograd.grad(loss, list(model.parameters()))
     return torch.cat([g.reshape(-1).float() for g in grads])
 
@@ -1731,7 +1846,8 @@ def train_experiment(cfg, batch: int) -> ExperimentConfig:
 
 def train_steps(label: str, exp, model, pre, frames, labels, want: dict, steps: int) -> dict:
     """`steps` make_train_step steps on one batch. The training kernels'
-    launch counters (K3, K4, K5) are reset just before each step and read
+    launch counters (K3, K4, K5, the plain dropout sites' kernel) are reset
+    just before each step and read
     just after: every step must launch exactly `want`. The loss must stay
     finite and end below where it started. Returns the launches summed."""
     step = make_train_step(make_optimizer(exp.train), exp.train.label_smoothing, pre)
@@ -1743,7 +1859,7 @@ def train_steps(label: str, exp, model, pre, frames, labels, want: dict, steps: 
         fa.reset_launches()
         state, metrics = step(state, frames, labels, exp.train.dropout_seed)
         losses.append(float(metrics["loss"]))
-        got = {**flt.launches, **fa.launches}
+        got = {**flt.launches, **fa.launches, **flt.dropout_launches}
         if got != want:
             raise AssertionError(f"{label} train step {i} launched {got}, expected {want}")
         counts = {k: counts[k] + got[k] for k in counts}
@@ -1774,7 +1890,10 @@ def train_check(label: str, cfg, stats, kernels, device, cos_plain: float = COSI
     labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen).to(device)
     n = cfg.n_layers
     others = K4 if kernels == K3 else K3
-    want = {kernels[0]: n, kernels[1]: n, others[0]: 0, others[1]: 0, K5[0]: 0, K5[1]: 0}
+    # the embedding's dropout, forward and backward, through the plain
+    # sites' kernel
+    want = {kernels[0]: n, kernels[1]: n, others[0]: 0, others[1]: 0, K5[0]: 0, K5[1]: 0,
+            DROP_KERNEL: 2 if cfg.drop_prob > 0 else 0}
     counts = train_steps(label, exp, model, pre, frames, labels, want, 20)
 
     cfg0 = dataclasses.replace(cfg, drop_prob=0.0)
@@ -1829,7 +1948,9 @@ def conv1d_train_check(device, batch: int = 64, steps: int = 20, grad_batch: int
     the shape down, so every layer is a plain layer rematerialized in the
     backward (VITIQ_TRAIN_REMAT auto) with K5 as its attention. Every step
     must launch K5-fwd 12 times (6 forward, 6 recompute) and K5-bwd 6 times,
-    K3 and K4 never; the loss must stay finite and fall. Then one step's
+    the plain dropout sites' kernel 56 times (the embedding's forward and
+    backward, each layer's three sites in the forward, the recompute and
+    the backward), K3 and K4 never; the loss must stay finite and fall. Then one step's
     gradient at dropout 0 against the f32 `reference` path at B=8."""
     cfg = flagship_conv1d_config("tpu")
     n = cfg.n_layers
@@ -1844,7 +1965,9 @@ def conv1d_train_check(device, batch: int = 64, steps: int = 20, grad_batch: int
     gen = torch.Generator().manual_seed(5)
     frames = torch.randn((batch, cfg.seq_length, 2), generator=gen).to(device)
     labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen).to(device)
-    want = {K5[0]: 2 * n, K5[1]: n, **{k: 0 for k in flt.launches}}
+    # the plain dropout sites' kernel: the embedding's and each layer's three
+    # in the forward, the recompute and the backward
+    want = {K5[0]: 2 * n, K5[1]: n, **{k: 0 for k in flt.launches}, DROP_KERNEL: 2 + 9 * n}
     counts = train_steps("conv1d flagship", exp, model, pre, frames, labels, want, steps)
     del model
     torch.cuda.empty_cache()
@@ -4585,6 +4708,416 @@ def export_case(root: Path, label: str, model_cfg, stats, data: DataConfig, buck
     return {"launches": launches, "max_abs": max_abs, "not_exact": not_exact, "load_s": t_load}
 
 
+# the scan-train phase (see the module docstring)
+SCAN_K, SCAN_BATCH, SCAN_EPOCHS, SCAN_DROP = 64, 256, 2, 0.1
+SCAN_TRAIN = 2 * SCAN_K * SCAN_BATCH + 3 * SCAN_BATCH  # 33,536 frames: 131 steps an epoch
+SCAN_VALID = 2048
+SCAN_CONV1D_LAYERS, SCAN_CONV1D_K, SCAN_CONV1D_BATCH = 2, 4, 64
+SCAN_REPEATS = 3  # timed groups eager and through the graph
+# the port's training kernels, by function name (K3 / K4's stages and
+# passes, K5's kernels)
+TRAIN_KERNELS = ("train_gemm_kernel", "train_attention_fwd", "train_attention_bwd",
+                 "wg_attention_fwd", "wg_attention_bwd_stash", "wg_recompute_attention_fwd",
+                 "wg_recompute_attention_bwd", "ln_bwd_rows", "rebuild_ln_out",
+                 "reduce_rows", "hash_dropout_kernel") + fa.KERNELS
+
+
+def scan_corpus(n: int, L: int, seed: int) -> tuple:
+    """n [L, 2] f32 frames of 3 classes (the class shifts the I mean by
+    0.5 a step) and their labels, made from `seed`."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 3, n).astype(np.int32)
+    x = rng.standard_normal((n, L, 2), dtype=np.float32)
+    x[:, :, 0] += 0.5 * (y[:, None] - 1)
+    return x, y
+
+
+def training_kernels(call) -> tuple:
+    """(call()'s result, its TRAIN_KERNELS launches by full name) from one
+    `torch.profiler` window (PROFILE_PAD sleeps first; device activity only:
+    the host's op records of 64 eager steps took the profiler minutes to
+    order), and the device time of every kernel in the window, ms."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(200_000)
+        torch.cuda.synchronize()
+        out = call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+              and e.time_range.start >= 0 and "spin_kernel" not in e.name]
+    names = Counter(e.name for e in events if kernel_name(e.name) in TRAIN_KERNELS)
+    return out, names, sum(device_us(e) for e in events) / 1e3
+
+
+def wrapper_kernels(cfg, wrappers, batch: int, device) -> dict:
+    """The kernel instances (TRAIN_KERNELS by full name, `training_kernels`)
+    that one eager call of each of `wrappers` (K3 or K4: its forward, then
+    its backward) launches on one layer of `cfg` at `batch` frames, the
+    shapes of the scan step's layers: {wrapper: Counter}."""
+    layer = EncoderLayer(cfg.d_model, cfg.ffn_hidden, cfg.n_head, device=device,
+                         generator=torch.Generator().manual_seed(0))
+    ops = flt.flat_weights(layer, torch.bfloat16)
+    gen = torch.Generator().manual_seed(9)
+    shape = (batch, cfg.num_tokens, cfg.d_model)
+    x = torch.randn(shape, generator=gen).to(device, torch.bfloat16)
+    dy = (0.1 * torch.randn(shape, generator=gen)).to(device, torch.bfloat16)
+    seed = torch.tensor([TRAIN_SEED], dtype=torch.int32, device=device)
+    args = (cfg.n_head, cfg.drop_prob, seed, 0)
+    if wrappers == K4:
+        stash = flt.fused_train_layer_fwd_stash(x, ops, *args)[1]
+        calls = {K4[0]: lambda: flt.fused_train_layer_fwd_stash(x, ops, *args),
+                 K4[1]: lambda: flt.fused_train_layer_bwd_stash(x, dy, stash, ops, *args)}
+    else:
+        calls = {K3[0]: lambda: flt.fused_train_layer_fwd(x, ops, *args),
+                 K3[1]: lambda: flt.fused_train_layer_bwd(x, dy, ops, *args)}
+    return {name: training_kernels(call)[1] for name, call in calls.items()}
+
+
+def replay_launches(label: str, names: Counter, per_call: dict) -> dict:
+    """Each of two wrappers' launches in a profiled window, from the window's
+    own kernel instances (`names`) and each wrapper's instances in one call
+    (`per_call`, `wrapper_kernels`): one wrapper's count from an instance
+    that it launches and the other does not (K3-bwd's attention backward,
+    K4's passes), the other's from its own first instance less what the
+    first wrapper put there (K3-bwd recomputes K3-fwd's forward). Raises
+    unless every instance of either wrapper is accounted for exactly."""
+    (a, ca), (b, cb) = per_call.items()
+    only_b = [n for n in cb if n not in ca]
+    only_a = [n for n in ca if n not in cb]
+    if only_b:
+        nb = names[only_b[0]] / cb[only_b[0]]
+        first = next(iter(ca))
+        na = (names[first] - nb * cb[first]) / ca[first]
+    elif only_a:
+        na = names[only_a[0]] / ca[only_a[0]]
+        first = next(iter(cb))
+        nb = (names[first] - na * ca[first]) / cb[first]
+    else:
+        raise AssertionError(f"{label}: {a} and {b} launch the same kernel instances")
+    counts = {a: int(round(na)), b: int(round(nb))}
+    for n in set(ca) | set(cb):
+        if names[n] != counts[a] * ca[n] + counts[b] * cb[n]:
+            raise AssertionError(f"{label}: {names[n]} launches of {kernel_name(n)} are not "
+                                 f"{counts[a]} x {ca[n]} ({a}) + {counts[b]} x {cb[n]} ({b})")
+    return counts
+
+
+def scan_experiment(cfg, batch: int, k: int, epochs: int = 1) -> ExperimentConfig:
+    return ExperimentConfig(model=dataclasses.replace(cfg, drop_prob=SCAN_DROP),
+                            data=DataConfig(synthetic_frame_len=cfg.seq_length),
+                            train=TrainConfig(batch_size=batch, num_epochs=epochs,
+                                              learning_rate=1e-3, device_scan_steps=k))
+
+
+def scan_fit_pair(label: str, cfg, stats, device, card: str) -> dict:
+    """`fit` twice from the same weights and seeds, per batch and through
+    the scan graph: histories and parameters bit for bit (see the module
+    docstring)."""
+    train = scan_corpus(SCAN_TRAIN, cfg.seq_length, 1)
+    valid = scan_corpus(SCAN_VALID, cfg.seq_length, 2)
+    steps = SCAN_TRAIN // SCAN_BATCH
+    runs = {}
+    for k in (0, SCAN_K):
+        exp = scan_experiment(cfg, SCAN_BATCH, k, SCAN_EPOCHS)
+        model, pre = build_forward_and_preprocess(
+            exp, AMCModel(exp.model, generator=torch.Generator().manual_seed(0)), stats, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        res = fit(exp, model, train, valid, preprocess_fn=pre, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[k] = {"history": res.history, "params": [p.detach().clone() for p in
+                                                      model.parameters()],
+                   "launches": {n: v for n, v in all_launches().items() if v},
+                   "wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "epoch_ms_step": [t * 1e3 / steps for t in res.history["epoch_time"]]}
+        del model, res
+        torch.cuda.empty_cache()
+    eager, scan = runs[0], runs[SCAN_K]
+    for key in ("train_loss", "train_acc", "val_loss", "val_acc", "lr"):
+        if eager["history"][key] != scan["history"][key]:
+            raise AssertionError(f"{label}: fit's {key} through the scan graph "
+                                 f"{scan['history'][key]} differs from per batch "
+                                 f"{eager['history'][key]}")
+    for i, (a, b) in enumerate(zip(eager["params"], scan["params"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: parameter {i} after the scanned fit differs from "
+                                 f"the per-batch fit's by {(a - b).abs().max().item():.3g}")
+    for k, run in runs.items():
+        print(f"  {label} fit, device_scan_steps {k}, {SCAN_EPOCHS} epochs x {steps} steps at "
+              f"B={SCAN_BATCH}: {run['wall_s']:.2f} s; ms/step over each epoch (host clock, "
+              f"its evaluation of {SCAN_VALID} frames included) "
+              + ", ".join(f"{v:.4f}" for v in run["epoch_ms_step"])
+              + f"; peak device memory {run['peak_gib']:.3f} GiB; host counters "
+              f"{run['launches']}  [{card}]", flush=True)
+    print(f"  {label}: the histories ({eager['history']['train_loss']} train loss) and the "
+          f"{len(eager['params'])} parameters are equal bit for bit", flush=True)
+    return runs
+
+
+def scan_graph_check(label: str, cfg, stats, per_step: dict, device, card: str,
+                     k: int = SCAN_K, batch: int = SCAN_BATCH, wrappers=None) -> dict:
+    """One group of k steps eager against the scan step's warm-up + capture,
+    then one group eager against a replay, from the same weights, on the
+    same batches; then SCAN_REPEATS groups of each timed (see the module
+    docstring). `per_step`: each counted wrapper's launches in one eager
+    step. `wrappers` (K3 or K4): count their launches in the replay's own
+    trace (`replay_launches`), which must be k times `per_step`'s. Returns
+    the eager group's host counters (`launches`), the replay's traced
+    launches of `wrappers` (`scan_launches`) and the times."""
+    from vitiq_torch.train.loop import make_train_scan_step
+
+    exp = scan_experiment(cfg, batch, k)
+    models = [build_forward_and_preprocess(
+        exp, AMCModel(exp.model, generator=torch.Generator().manual_seed(0)), stats, device)
+        for _ in range(2)]
+    (model_e, pre_e), (model_g, pre_g) = models
+    tx_e, tx_g = make_optimizer(exp.train), make_optimizer(exp.train)
+    step = make_train_step(tx_e, exp.train.label_smoothing, pre_e)
+    scan = make_train_scan_step(tx_g, exp.train.label_smoothing, pre_g)
+    state_e = create_train_state(model_e, exp.train)
+    state_g = create_train_state(model_g, exp.train)
+    gen = torch.Generator().manual_seed(7)
+    groups = [(torch.randn((k, batch, cfg.seq_length, 2), generator=gen).to(device),
+               torch.randint(0, 3, (k, batch), generator=gen).to(device)) for _ in range(2)]
+    seed = exp.train.dropout_seed
+
+    def eager_group(xs, ys):
+        for x, y in zip(xs, ys):
+            step(state_e, x, y, seed)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scan(state_g, *groups[0], seed)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    capture_s = next(iter(scan.capture_seconds.values()))
+    reset_all_launches()
+    eager_group(*groups[0])
+    torch.cuda.synchronize()
+    counts = {n: v for n, v in all_launches().items() if v}
+    if counts != {n: k * v for n, v in per_step.items()}:
+        raise AssertionError(f"{label}: {k} eager steps launched {counts}, expected {per_step} "
+                             "a step")
+    _, eager_names, eager_busy = training_kernels(lambda: eager_group(*groups[1]))
+    reset_all_launches()
+    _, graph_names, graph_busy = training_kernels(lambda: scan(state_g, *groups[1], seed))
+    if device.type == "cuda" and any(all_launches().values()):
+        raise AssertionError(f"{label}: a replay ticked the host counters {all_launches()}")
+    if not eager_names or graph_names != eager_names:
+        raise AssertionError(f"{label}: the replay of {k} steps launched {dict(graph_names)}, "
+                             f"the {k} eager steps {dict(eager_names)}")
+    replayed = {}
+    if wrappers:
+        per_call = wrapper_kernels(exp.model, wrappers, batch, device)
+        replayed = replay_launches(label, graph_names, per_call)
+        if replayed != {n: k * per_step[n] for n in wrappers}:
+            raise AssertionError(f"{label}: the replay's trace counts {replayed}, expected "
+                                 f"{k} x {per_step}")
+        print(f"  {label}: the replay's trace counts {replayed} (by "
+              + ", ".join(f"{w}: {len(c)} kernel instances a call" for w, c in per_call.items())
+              + ")", flush=True)
+    for name, a, b in (("parameters", model_e.parameters(), model_g.parameters()),
+                       ("moments", (state_e.opt_state.mu, state_e.opt_state.nu),
+                        (state_g.opt_state.mu, state_g.opt_state.nu))):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{label}: {name} {i} through the graph differ from eager "
+                                     f"by {(x - y).abs().max().item():.3g}")
+    if not int(state_e.step) == int(state_g.step) == 2 * k:
+        raise AssertionError(f"{label}: steps {int(state_e.step)} / {int(state_g.step)}")
+
+    def timed(call) -> tuple:
+        call()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(SCAN_REPEATS):
+            call()
+        end.record()
+        end.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / (SCAN_REPEATS * k)
+        return host, start.elapsed_time(end) / (SCAN_REPEATS * k)
+
+    xs, ys = groups[1]
+    out = {}
+    for way, call, busy in (("eager", lambda: eager_group(xs, ys), eager_busy),
+                            ("graph", lambda: scan(state_g, xs, ys, seed), graph_busy)):
+        host, events = timed(call)
+        out[way] = {"host_ms": host, "event_ms": events, "busy_ms": busy / k,
+                    "idle": 1 - busy / k / host}
+    print(f"  {label} scan graph, K={k}, B={batch}: first call (K eager steps + capture) "
+          f"{first_s:.3f} s, capture {capture_s:.3f} s, peak device memory {peak:.3f} GiB; "
+          f"a replay launched {sum(graph_names.values())} training kernels "
+          f"({len(graph_names)} instances), as the {k} eager steps, which launched {counts}; "
+          "parameters and moments bit for bit", flush=True)
+    for way, t in out.items():
+        print(f"  {label} {way}: {t['host_ms']:.4f} ms/step (host clock), {t['event_ms']:.4f} "
+              f"ms/step (CUDA events), device kernel time {t['busy_ms']:.4f} ms/step, idle "
+              f"share {t['idle']:.4f}  [{card}]", flush=True)
+    del models, model_e, model_g, state_e, state_g, scan, groups
+    torch.cuda.empty_cache()
+    return {"launches": counts, "scan_launches": replayed, "times": out, "capture_s": capture_s,
+            "first_s": first_s, "peak_gib": peak}
+
+
+def sweep_check(device, card: str) -> dict:
+    """The sweep phase (see the module docstring)."""
+    from vitiq_torch.data import SyntheticAMCDataset
+    from vitiq_torch.sweep import make_amc_fitness, run_pso_sweep
+
+    print(f"phase sweep: PSO through one captured graph an architecture on {card}", flush=True)
+    t0 = time.perf_counter()
+    res = run_pso_sweep(n_particles=4, iters=2, train_steps=30, bucket=True, verbose=False,
+                        device=device)
+    wall = time.perf_counter() - t0
+    print(f"  run_pso_sweep(n_particles=4, iters=2, train_steps=30, bucket=True): "
+          f"{res['evaluations']} evaluations, {res['distinct_architectures_compiled']} "
+          f"architectures captured, {wall:.2f} s; best accuracy "
+          f"{res['best_val_accuracy']:.4f} at {res['best_hparams']}  [{card}]", flush=True)
+    ds = SyntheticAMCDataset(classes=("BPSK", "QPSK", "16QAM"), frames_per_class=512,
+                             frame_len=256, seed=0)
+    split = int(0.85 * len(ds))
+    fitness = make_amc_fitness((ds.X[:split], ds.Y[:split]), (ds.X[split:], ds.Y[split:]), 3,
+                               256, train_steps=30, bucket=True, device=device)
+    hp = {"arm": "rawiq", "segment_size": 16, "d_model": 128, "n_head": 8, "n_layers": 4,
+          "ffn_hidden": 512, "drop_prob": 0.1, "learning_rate": 1e-3, "batch_size": 64}
+    times, accs, params = {}, {}, {}
+    for way, eager in (("eager", True), ("capture", False), ("replay", False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accs[way] = fitness.eval_hp(hp, eager=eager)
+        torch.cuda.synchronize()
+        times[way] = time.perf_counter() - t0
+        arch = next(iter(fitness.compile_cache.values()))
+        params[way] = [p.detach().clone() for p in arch.model.parameters()]
+    for way in ("capture", "replay"):
+        if accs[way] != accs["eager"] or not all(
+                torch.equal(a, b) for a, b in zip(params[way], params["eager"])):
+            raise AssertionError(f"sweep: the evaluation through the graph ({way}: accuracy "
+                                 f"{accs[way]}) differs from eager steps ({accs['eager']})")
+    print(f"  one architecture ({hp}), 30 steps + the valid split: eager {times['eager']:.3f} "
+          f"s, first graph call (eager warm-up + capture) {times['capture']:.3f} s, replay "
+          f"{times['replay']:.3f} s; accuracy {accs['eager']:.4f} and the trained parameters "
+          f"equal bit for bit  [{card}]", flush=True)
+    del fitness
+    torch.cuda.empty_cache()
+    return {"result": res, "wall_s": wall, "times": times}
+
+
+# the sweep at a longer budget (`--sweep`): a smaller swarm at the README's
+# card example's train_steps, and the search space's largest architecture
+SWEEP_SCALE = dict(n_particles=6, iters=3, train_steps=400)
+SWEEP_LARGEST = {"arm": "rawiq", "segment_size": 4, "d_model": 512, "n_head": 16, "n_layers": 8,
+                 "ffn_hidden": 2048, "drop_prob": 0.1, "learning_rate": 1e-3,
+                 "batch_size": 128}
+
+
+def sweep_scale_check(device, card: str) -> dict:
+    """`run_pso_sweep(**SWEEP_SCALE, bucket=True)`: wall time, evaluations,
+    graphs captured, the fitness's peak device memory; then SWEEP_LARGEST
+    (the bounds' widest, deepest rawIQ model at the largest batch and the
+    shortest segment, 64 tokens) for SWEEP_SCALE's train_steps: its first
+    evaluation (eager warm-up + capture), the capture alone, a replayed
+    evaluation, its peak memory and the cache's bytes for it
+    (`_Arch.nbytes`). Nothing is gated but that they run."""
+    from vitiq_torch.data import SyntheticAMCDataset
+    from vitiq_torch.sweep import make_amc_fitness, run_pso_sweep
+
+    steps = SWEEP_SCALE["train_steps"]
+    print(f"phase sweep-scale: {SWEEP_SCALE} and the largest architecture on {card}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_pso_sweep(bucket=True, verbose=False, device=device, **SWEEP_SCALE)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  run_pso_sweep({SWEEP_SCALE}, bucket=True): {res['evaluations']} evaluations, "
+          f"{res['distinct_architectures_compiled']} graphs captured, {wall:.2f} s, peak device "
+          f"memory {peak:.3f} GiB  [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    ds = SyntheticAMCDataset(classes=("BPSK", "QPSK", "16QAM"), frames_per_class=512,
+                             frame_len=256, seed=0)
+    split = int(0.85 * len(ds))
+    fitness = make_amc_fitness((ds.X[:split], ds.Y[:split]), (ds.X[split:], ds.Y[split:]), 3,
+                               256, train_steps=steps, bucket=True, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    for way in ("first", "replay"):
+        t0 = time.perf_counter()
+        fitness.eval_hp(SWEEP_LARGEST)
+        torch.cuda.synchronize()
+        times[way] = time.perf_counter() - t0
+    arch = next(iter(fitness.compile_cache.values()))
+    capture = next(iter(arch.scan.capture_seconds.values()))
+    largest_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  {SWEEP_LARGEST}, {steps} steps: first evaluation (eager warm-up + capture) "
+          f"{times['first']:.3f} s, capture {capture:.3f} s, replayed evaluation "
+          f"{times['replay']:.3f} s; peak device memory {largest_peak:.3f} GiB, the cache's "
+          f"bytes for it {arch.nbytes / 2 ** 30:.3f} GiB  [{card}]", flush=True)
+    del fitness, arch
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "peak_gib": peak, "largest": times, "capture_s": capture,
+            "largest_peak_gib": largest_peak}
+
+
+# `--steps`: the train steps whose dropout the plain sites' kernel draws, as
+# the full run's timing phase times them; the flag runs on a tree without
+# the kernel too, so that two trees compare in one call
+def time_steps(device, card: str) -> dict:
+    vit, raw = flagship_vit_config("tpu"), flagship_rawiq_config("tpu")
+    conv = flagship_conv1d_config("tpu")
+    plain = {"VITIQ_FUSED_TRAIN": "0"}
+    cases = (("vit flagship (K3 kernels)", vit, STATS, 4096, 5, None),
+             ("vit flagship (plain layers, VITIQ_FUSED_TRAIN=0)", vit, STATS, 4096, 3, plain),
+             ("rawiq flagship (K4 kernels)", raw, RAW_STATS, 4096, 5, None),
+             ("rawiq flagship (plain layers, VITIQ_FUSED_TRAIN=0)", raw, RAW_STATS, 4096, 3,
+              plain),
+             ("conv1d flagship (K5, remat auto)", conv, RAW_STATS, 256, 5, None),
+             ("conv1d flagship (K5, VITIQ_TRAIN_REMAT=0)", conv, RAW_STATS, 256, 5,
+              {"VITIQ_TRAIN_REMAT": "0"}),
+             ("vit_tpu_production (plain layers with K5, VITIQ_FUSED_TRAIN=0)",
+              VIT_TPU_PRODUCTION, STATS, 4096, 3, plain),
+             ("vit_tiny_2016 (plain layers with K5, VITIQ_FUSED_TRAIN=0)",
+              vit_tiny_2016_config("tpu"), STATS, 4096, 3, plain))
+    return {label: time_train_step(label, cfg, stats, batch, device, card, iters, env)
+            for label, cfg, stats, batch, iters, env in cases}
+
+
+def scan_train_check(device, card: str) -> dict:
+    """The scan-train phase (see the module docstring)."""
+    t0 = time.perf_counter()
+    print(f"phase scan-train: K={SCAN_K} train steps a captured CUDA graph on {card}", flush=True)
+    vit_cfg, raw_cfg = flagship_vit_config("tpu"), flagship_rawiq_config("tpu")
+    out = {}
+    for label, cfg, stats, kernels in (("ViT flagship (K3)", vit_cfg, STATS, K3),
+                                       ("rawIQ flagship (K4)", raw_cfg, RAW_STATS, K4)):
+        t1 = time.perf_counter()
+        pair = scan_fit_pair(label, cfg, stats, device, card)
+        t2 = time.perf_counter()
+        out[label] = {"fit": pair, **scan_graph_check(label, cfg, stats,
+                                                      {n: cfg.n_layers for n in kernels},
+                                                      device, card, k=SCAN_K, batch=SCAN_BATCH,
+                                                      wrappers=kernels)}
+        print(f"  {label}: fit pair {t2 - t1:.1f} s, graph check "
+              f"{time.perf_counter() - t2:.1f} s", flush=True)
+    conv = dataclasses.replace(flagship_conv1d_config("tpu"), n_layers=SCAN_CONV1D_LAYERS)
+    # remat runs each layer's forward, K5-fwd with it, again in the backward
+    out["conv1d"] = scan_graph_check(f"conv1d flagship at depth {SCAN_CONV1D_LAYERS} (K5, remat)",
+                                     conv, RAW_STATS, {K5[0]: 2 * conv.n_layers,
+                                                       K5[1]: conv.n_layers},
+                                     device, card, k=SCAN_CONV1D_K, batch=SCAN_CONV1D_BATCH)
+    print(f"  scan-train phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def export_check(device, card: str) -> dict:
     """The export phase (see the module docstring)."""
     import tempfile
@@ -4765,6 +5298,18 @@ def main() -> int:
         export_check(device, card)
         mdf_check(device)
         return 0
+    if sys.argv[1:] == ["--scan"]:
+        scan_train_check(device, card)
+        sweep_check(device, card)
+        return 0
+    if sys.argv[1:] == ["--sweep"]:
+        sweep_check(device, card)
+        sweep_scale_check(device, card)
+        return 0
+    if sys.argv[1:] == ["--steps"]:
+        print(f"phase steps: train steps through the plain dropout sites on {card}:", flush=True)
+        print(json.dumps({"steps": time_steps(device, card)}), flush=True)
+        return 0
     if sys.argv[1:] == ["--k2k7"]:
         print(f"phase k2k7: K2's and K7's layers, K7's core and their stages on {card}:",
               flush=True)
@@ -4828,6 +5373,7 @@ def main() -> int:
     errs.update({f"k3_{k}_pass": v for k, v in check_recompute_passes(device).items()})
     errs["k3_stages"] = check_train_stages(device)
     check_train_bits(device)
+    errs[DROP_KERNEL] = check_hash_dropout(device)
     vit_train = train_check("ViT flagship", flagship_vit_config("tpu"), STATS, K3, device)
     raw_train = train_check("rawIQ flagship", flagship_rawiq_config("tpu"), RAW_STATS, K4, device)
     conv_train = conv1d_train_check(device)
@@ -4850,6 +5396,8 @@ def main() -> int:
     dsp = dsp_check(device, card)
     exported = export_check(device, card)["launches"]
     mdf_check(device)
+    scanned = scan_train_check(device, card)
+    sweep_check(device, card)
 
     print(f"phase timing (CUDA events after warm-up) on {card}:", flush=True)
     times = {name: time_serving_layers(name, L, ffn, B, D, device, card)
@@ -4895,6 +5443,7 @@ def main() -> int:
         profile_k4_stages(name, 4096, L, D, F, H, drop, device, card)
     time_k3_host(device, card)
     times["conv1d"].update(time_attention(device, card))
+    times[DROP_KERNEL] = time_hash_dropout(device, card)
 
     vit_cfg, raw_cfg = flagship_vit_config("tpu"), flagship_rawiq_config("tpu")
     conv_cfg = flagship_conv1d_config("tpu")
@@ -4974,6 +5523,10 @@ def main() -> int:
     # the routing sends to them (rawiq_best's forward, the ViT flagship's
     # backward; `flt.recompute_tile_plan`)
     kp, bk3 = times["k3_passes"], best_train["counts"]
+    # the scan-train phase's replays of K3 / K4, counted in the replay's own
+    # torch.profiler trace (`replay_launches`)
+    scan_k3 = scanned["ViT flagship (K3)"]["scan_launches"]
+    scan_k4 = scanned["rawIQ flagship (K4)"]["scan_launches"]
     if not (flt.recompute_tile_plan(65, 32)["fwd_wgmma"]
             and flt.recompute_tile_plan(129, 16)["bwd_wgmma"]):
         raise AssertionError("K3's wgmma passes are not on the main path's route")
@@ -5014,12 +5567,14 @@ def main() -> int:
               "tokens: rawiq_best)", SOURCE, f"{TPU_SOURCE}:812",
               best_eval["kernel_launches"]["attention_int8_sync_kernel"], errs["k7_sync_core"],
               bt["k7_core_ms"], bt["k7_core_plain_ms"], bt["k7_core"], None),
-        entry("fused_train_layer_fwd (K3-fwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:417",
-              k3["fused_train_layer_fwd"], errs["k3f"], vt["k3f_ms"], vt["k3f_plain_ms"],
-              vt["k3f"], None),
-        entry("fused_train_layer_bwd (K3-bwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:674",
-              k3["fused_train_layer_bwd"], errs["k3b"], vt["k3b_ms"], vt["k3b_plain_ms"],
-              vt["k3b"], None),
+        {**entry("fused_train_layer_fwd (K3-fwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:417",
+                 k3["fused_train_layer_fwd"], errs["k3f"], vt["k3f_ms"], vt["k3f_plain_ms"],
+                 vt["k3f"], None),
+         "scan_launches": scan_k3[K3[0]]},
+        {**entry("fused_train_layer_bwd (K3-bwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:674",
+                 k3["fused_train_layer_bwd"], errs["k3b"], vt["k3b_ms"], vt["k3b_plain_ms"],
+                 vt["k3b"], None),
+         "scan_launches": scan_k3[K3[1]]},
         entry("wg_recompute_attention_fwd (K3's attention forward pass, rawiq_best)",
               TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:202", bk3[K3[0]] + bk3[K3[1]],
               errs["k3_fwd_pass"], kp["rawiq_best"]["fwd_ms"], kp["rawiq_best"]["fwd_plain_ms"],
@@ -5027,12 +5582,14 @@ def main() -> int:
         entry("wg_recompute_attention_bwd (K3's attention backward pass, ViT)", TRAIN_SOURCE,
               f"{TRAIN_TPU_SOURCE}:1195", k3[K3[1]], errs["k3_bwd_pass"], kp["vit"]["bwd_ms"],
               kp["vit"]["bwd_plain_ms"], kp["vit"]["bwd"], kp["vit"]["sdpa_bwd_ms"]),
-        entry("fused_train_layer_fwd_stash (K4-fwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:478",
-              k4["fused_train_layer_fwd_stash"], errs["k4f"], rt["k4f_ms"], rt["k4f_plain_ms"],
-              rt["k4f"], None),
-        entry("fused_train_layer_bwd_stash (K4-bwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:674",
-              k4["fused_train_layer_bwd_stash"], errs["k4b"], rt["k4b_ms"], rt["k4b_plain_ms"],
-              rt["k4b"], None),
+        {**entry("fused_train_layer_fwd_stash (K4-fwd)", TRAIN_SOURCE,
+                 f"{TRAIN_TPU_SOURCE}:478", k4["fused_train_layer_fwd_stash"], errs["k4f"],
+                 rt["k4f_ms"], rt["k4f_plain_ms"], rt["k4f"], None),
+         "scan_launches": scan_k4[K4[0]]},
+        {**entry("fused_train_layer_bwd_stash (K4-bwd)", TRAIN_SOURCE,
+                 f"{TRAIN_TPU_SOURCE}:674", k4["fused_train_layer_bwd_stash"], errs["k4b"],
+                 rt["k4b_ms"], rt["k4b_plain_ms"], rt["k4b"], None),
+         "scan_launches": scan_k4[K4[1]]},
         entry("fused_attention_fwd (K5-fwd)", ATTN_SOURCE, f"{ATTN_TPU_SOURCE}:62",
               k5[K5[0]], errs["k5f"], ct["k5f_ms"], ct["k5f_plain_ms"], ct["k5f"],
               ct["sdpa_fwd_ms"]),
@@ -5040,6 +5597,13 @@ def main() -> int:
               k5[K5[1]], errs["k5b"], ct["k5b_ms"], ct["k5b_plain_ms"], ct["k5b"],
               ct["sdpa_bwd_ms"]),
     ]
+    dt = times[DROP_KERNEL]
+    kernels.append({**entry("hash_dropout_kernel (the plain dropout sites: the embedding's and "
+                            "the plain layers'; no TPU twin: the JAX package draws these masks "
+                            "with jax.random.bernoulli)", TRAIN_SOURCE, DROP_JAX,
+                            k5[DROP_KERNEL], errs[DROP_KERNEL], dt["ms"], dt["plain_ms"],
+                            dt["bound"], None),
+                    "tpu_twin": False})
     scan = dsp["times"]["scan"]["gardner_hybrid"]
     kernels.append({**entry("timing_scan_kernel (the Gardner / Mueller-Mueller loops of the SPS "
                             "front-end; no TPU twin: the JAX package runs a lax.scan)",

@@ -11,8 +11,9 @@ and [in, out] kernels to the port's flat torch order), counts and learning
 rate equal the writer's, and the next step's loss agrees at rtol 1e-5 and
 its parameters at atol 1e-5 (the tolerance `test_torch_train.py` holds f32
 steps to: the w_k bias has an exactly zero gradient, so AdamW turns each
-package's rounding noise there into updates). A checkpoint of vitiq's
-per-leaf optimizer (``VITIQ_FUSED_OPT=0``) or of another config raises."""
+package's rounding noise there into updates). A checkpoint of another
+config raises (vitiq's per-leaf optimizer, ``VITIQ_FUSED_OPT=0``, loads:
+`tests/test_torch_scan_train.py`)."""
 
 import jax
 import jax.numpy as jnp
@@ -214,8 +215,13 @@ def test_port_checkpoint_resumes_in_vitiq(case, tmp_path):
 
 
 def test_checkpoints_of_another_optimizer_or_config_are_refused(tmp_path, monkeypatch):
+    """vitiq's per-leaf optax chain (VITIQ_FUSED_OPT=0) loads
+    (`test_per_leaf_optimizer_checkpoint_resumes_in_the_port`), but not one
+    of another config; nor a port checkpoint of another width or a missing
+    file."""
     vcfg, pcfg = _cfgs("rawiq_cls")
-    params = init_amc_params(jax.random.PRNGKey(2), vcfg)
+    vdeep, _ = _cfgs("rawiq_cls", n_layers=3)
+    params = init_amc_params(jax.random.PRNGKey(2), vdeep)
     monkeypatch.setenv("VITIQ_FUSED_OPT", "0")  # vitiq's per-leaf optax chain
     vitiq_save_checkpoint(tmp_path / "chain", joptim.create_train_state(params, TrainConfig()),
                           0, 1.0, HISTORY)

@@ -134,14 +134,13 @@ def test_train_steps_match_vitiq_in_f32():
             np.testing.assert_allclose(got[name].numpy(), w.numpy(), atol=1e-5, err_msg=name)
 
 
-def _port_grad(model, x, y, seed=0, generator_seed=3):
+def _port_grad(model, x, y, seed=0):
     model.train()
-    gen = torch.Generator().manual_seed(generator_seed)
-    logits = model(torch.from_numpy(x), generator=gen, seed=seed)
+    logits = model(torch.from_numpy(x), seed=seed)
     loss = pmetrics.label_smoothed_cross_entropy(logits, torch.from_numpy(y).long(), 0.1)
     grads = torch.autograd.grad(loss, list(model.parameters()))
     named = dict(zip([n for n, _ in model.named_parameters()], grads))
-    return loss.item(), named, gen.get_state()
+    return loss.item(), named
 
 
 @pytest.mark.parametrize("seq", [128, 600])
@@ -159,7 +158,7 @@ def test_gradient_matches_vitiq(seq, numerics):
 
     jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(params)
     want = state_dict_from_vitiq(jax.tree_util.tree_map(np.asarray, jgrads), cfg)
-    loss, got, _ = _port_grad(model, x, y)
+    loss, got = _port_grad(model, x, y)
     if numerics == "reference":
         np.testing.assert_allclose(loss, float(jloss), rtol=1e-5)
         for name, w in want.items():
@@ -176,22 +175,22 @@ def test_remat_with_dropout_gives_the_gradient_without_remat(numerics, monkeypat
     """Dropout 0.2 at 601 tokens and an FFN width of 96, which the fused
     training stack turns down, so the plain layers run (with K5 under
     `tpu`, once more per layer in the recompute): the rematerialized layers
-    (auto) replay the forward's dropout masks from the step's generator, so
+    (auto) draw the forward's dropout masks again from the step's seed, so
     the gradient equals the one without remat (VITIQ_TRAIN_REMAT=0) at
-    1e-6, and the generator ends where it ends without remat."""
+    1e-6."""
     cfg = dataclasses.replace(_cfg(600, numerics, drop=0.2), ffn_hidden=96)
     _, model, x, y = _setup(cfg, seed=4, batch=2)
     assert port_encoder.use_remat(True, cfg.num_tokens)
-    loss, remat, gen_state = _port_grad(model, x, y)
+    loss, remat = _port_grad(model, x, y)
     n = cfg.n_layers if numerics == "tpu" else 0
     assert k5_calls == {"fwd": 2 * n, "bwd": n}
     monkeypatch.setenv("VITIQ_TRAIN_REMAT", "0")
     assert not port_encoder.use_remat(True, cfg.num_tokens)
-    loss0, plain, gen_state0 = _port_grad(model, x, y)
-    assert loss == loss0 and torch.equal(gen_state, gen_state0)
+    loss0, plain = _port_grad(model, x, y)
+    assert loss == loss0
     for name, g in plain.items():
         torch.testing.assert_close(remat[name], g, atol=1e-6, rtol=0, msg=name)
-    _, other, _ = _port_grad(model, x, y, generator_seed=4)  # the masks do matter
+    _, other = _port_grad(model, x, y, seed=4)  # the masks do matter
     assert not torch.equal(other["encoder.layers.0.ffn.linear1.weight"],
                            plain["encoder.layers.0.ffn.linear1.weight"])
 

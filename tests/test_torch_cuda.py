@@ -80,7 +80,18 @@ keep their bits while the consumer sleeps between batches on the host (the
 worker fills the queue and waits for each pinned buffer's copy before it
 refills it) and lags on the device (each batch read after a sleep queued on
 the consumer's stream, after the consumer has let go of it: `record_stream`
-keeps its memory from the next copies)."""
+keeps its memory from the next copies).
+
+Device-scan training (`train/loop.make_train_scan_step`): K=4 train steps
+of a tiny model (K4 under `tpu`, the plain layers under `reference`) at
+dropout 0.1, captured once and replayed, equal eager steps bit for bit
+(parameters, moments, losses, the step counter), the replays launching no
+wrapper; a replay after `set_learning_rate` takes the new rate with no new
+capture; K3 and K4 read the seed from device memory (a seed tensor gives
+the int seed's bits; a graph captured with one seed and replayed after the
+tensor is filled with another gives the other's bits); a capture that fails
+raises, with no eager fallback; the bias corrections computed on the card
+equal the host's."""
 
 import math
 import subprocess
@@ -1076,15 +1087,18 @@ def test_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 def test_remat_replays_the_dropout_masks_of_a_cuda_generator(cuda, numerics, monkeypatch):
     """A conv1d model at 601 tokens, dropout 0.2 and an FFN width of 96
     (which the fused training stack turns down, so the plain layers run,
-    with K5 under `tpu`), one step's gradient with the generator
-    `make_train_step` uses on the card (a CUDA Philox `torch.Generator`):
-    the rematerialized layers (VITIQ_TRAIN_REMAT auto) give the gradient
-    without remat (0) at 1e-6 and leave the generator in the same state;
-    another generator seed gives another gradient."""
+    with K5 under `tpu`), one step's gradient with the step's seed as
+    `make_train_step` passes it on the card (an int32 tensor there): the
+    rematerialized layers (VITIQ_TRAIN_REMAT auto) draw the forward's masks
+    again from it (the plain sites' kernel once more a site) and give the
+    gradient without remat (0) at 1e-6; another seed gives another
+    gradient. (The masks came from a CUDA generator before they came from
+    the seed; the name is kept.)"""
     from vitiq_torch.config import ModelConfig
     from vitiq_torch.models import AMCModel
     from vitiq_torch.models import encoder as port_encoder
     from vitiq_torch.ops.cuda import flash_attention as fa
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
     from vitiq_torch.ops.metrics import label_smoothed_cross_entropy
 
     cfg = ModelConfig(arm="rawiq", num_classes=5, d_model=64, n_head=4, n_layers=2,
@@ -1095,23 +1109,27 @@ def test_remat_replays_the_dropout_masks_of_a_cuda_generator(cuda, numerics, mon
     x = torch.randn((2, 2, cfg.seq_length), generator=gen).to(cuda)
     y = torch.randint(0, cfg.num_classes, (2,), generator=gen).to(cuda)
 
-    def grad(generator_seed=3):
-        g = torch.Generator(device=cuda)
-        g.manual_seed(generator_seed)
-        loss = label_smoothed_cross_entropy(model(x, generator=g, seed=0), y, 0.1)
-        return loss.item(), torch.autograd.grad(loss, list(model.parameters())), g.get_state()
+    def grad(seed=3):
+        seed_t = torch.tensor([seed], dtype=torch.int32, device=cuda)
+        loss = label_smoothed_cross_entropy(model(x, seed=seed_t), y, 0.1)
+        return loss.item(), torch.autograd.grad(loss, list(model.parameters()))
 
+    n = cfg.n_layers
     assert port_encoder.use_remat(True, cfg.num_tokens)
     fa.reset_launches()
-    loss, remat, state = grad()
-    n = cfg.n_layers if numerics == "tpu" else 0
-    assert fa.launches == {"fused_attention_fwd": 2 * n, "fused_attention_bwd": n}
+    flt.reset_launches()
+    loss, remat = grad()
+    k5 = n if numerics == "tpu" else 0
+    assert fa.launches == {"fused_attention_fwd": 2 * k5, "fused_attention_bwd": k5}
+    assert flt.dropout_launches == {"hash_dropout": 2 + 9 * n}
     monkeypatch.setenv("VITIQ_TRAIN_REMAT", "0")
-    loss0, plain, state0 = grad()
-    assert loss == loss0 and torch.equal(state, state0)
+    flt.reset_launches()
+    loss0, plain = grad()
+    assert flt.dropout_launches == {"hash_dropout": 2 + 6 * n}
+    assert loss == loss0
     for a, b in zip(remat, plain):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
-    other = grad(generator_seed=4)[1]
+    other = grad(seed=4)[1]
     assert not torch.equal(other[0], plain[0])
 
 
@@ -2184,3 +2202,230 @@ def test_artifact_capture_that_fails_raises(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(sv, "build_serving_fn", syncing)
     with pytest.raises(RuntimeError):
         _artifact(cuda, tmp_path)
+
+
+# --------------------------------------------------------------------------
+# device-scan training: K train steps as one captured CUDA graph
+# --------------------------------------------------------------------------
+
+def _scan_setup(cuda, numerics="tpu", drop=0.1, seed=0):
+    """A tiny rawIQ model (d64, 9 tokens: K4 under `tpu`) on the card with
+    its train state, the scan step and four batches of raw frames."""
+    from vitiq_torch.config import ModelConfig, TrainConfig
+    from vitiq_torch.dsp.frontend import preprocess_batch_rawiq, zscore_constants
+    from vitiq_torch.models import AMCModel
+    from vitiq_torch.train.loop import make_train_scan_step, make_train_step
+    from vitiq_torch.train.optim import create_train_state, make_optimizer
+
+    cfg = ModelConfig(arm="rawiq", num_classes=3, d_model=64, n_head=4, n_layers=2,
+                      ffn_hidden=128, drop_prob=drop, seq_length=128, segment_size=16,
+                      numerics=numerics)
+    model = AMCModel(cfg, generator=torch.Generator().manual_seed(seed)).to(cuda)
+    tcfg = TrainConfig(learning_rate=1e-3)
+    stats = zscore_constants({"i_mean": 0.0, "i_std": 1.0, "q_mean": 0.0, "q_std": 1.0}, cuda)
+    pre = lambda x: preprocess_batch_rawiq(x, stats)  # noqa: E731
+    tx = make_optimizer(tcfg)
+    gen = torch.Generator().manual_seed(seed + 1)
+    xs = torch.randn((4, 32, 128, 2), generator=gen).to(cuda)
+    ys = torch.randint(0, 3, (4, 32), generator=gen).to(cuda)
+    return (model, create_train_state(model, tcfg), make_train_scan_step(tx, 0.1, pre),
+            make_train_step(tx, 0.1, pre), xs, ys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("numerics", ["tpu", "reference"])
+def test_captured_scan_equals_eager_steps_bit_for_bit(cuda, numerics):
+    """Three groups of K=4 steps at dropout 0.1 (under `tpu` through K4):
+    the first group eager (the warm-up, which also captures), the next two
+    replays of the graph, against twelve eager `make_train_step` steps from
+    the same weights: losses, accuracies, parameters, moments and the step
+    counter bit for bit; K4 launches only outside the replays."""
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    model_g, state_g, scan, _, xs, ys = _scan_setup(cuda, numerics)
+    model_e, state_e, _, step, _, _ = _scan_setup(cuda, numerics)
+    got, want = [], []
+    for group in range(3):
+        flt.reset_launches()
+        state_g, losses, accs = scan(state_g, xs + group, ys, 1)
+        if group:
+            assert sum(flt.launches.values()) == 0  # the replay launches from the graph
+        got.append((losses, accs))
+        ms = [step(state_e, x, y, 1)[1] for x, y in zip(xs + group, ys)]
+        want.append((torch.stack([m["loss"] for m in ms]),
+                     torch.stack([m["accuracy"] for m in ms])))
+    assert len(scan.graphs) == 1
+    for (gl, ga), (wl, wa) in zip(got, want):
+        assert torch.equal(gl, wl) and torch.equal(ga, wa)
+    for a, b in zip(model_g.parameters(), model_e.parameters()):
+        assert torch.equal(a, b)
+    assert torch.equal(state_g.opt_state.mu, state_e.opt_state.mu)
+    assert torch.equal(state_g.opt_state.nu, state_e.opt_state.nu)
+    assert int(state_g.step) == int(state_e.step) == 12
+
+
+@pytest.mark.cuda
+def test_scan_replay_reads_the_new_learning_rate(cuda):
+    """`set_learning_rate` fills the device scalar the graph reads: a replay
+    after it takes the eager steps at the new rate, with no new capture."""
+    from vitiq_torch.train.optim import set_learning_rate
+
+    model_g, state_g, scan, _, xs, ys = _scan_setup(cuda, drop=0.0)
+    model_e, state_e, _, step, _, _ = _scan_setup(cuda, drop=0.0)
+    scan(state_g, xs, ys, 1)
+    for x, y in zip(xs, ys):
+        step(state_e, x, y, 1)
+    set_learning_rate(state_g, 3e-4)
+    set_learning_rate(state_e, 3e-4)
+    scan(state_g, xs, ys, 1)
+    for x, y in zip(xs, ys):
+        step(state_e, x, y, 1)
+    assert len(scan.graphs) == 1
+    for a, b in zip(model_g.parameters(), model_e.parameters()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stash", [False, True])
+def test_k3_k4_read_the_seed_from_device_memory(cuda, stash):
+    """K3 (recompute) and K4 (stash) at dropout 0.1 with the seed as a device
+    tensor give the int seed's bits; captured in a CUDA graph with one seed
+    and replayed after the tensor is filled with another, they give that
+    other int seed's bits (forward and backward)."""
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    gen = torch.Generator().manual_seed(12)
+    layer = EncoderLayer(64, 128, 4, device=cuda, generator=gen)
+    ops = flt.flat_weights(layer, torch.bfloat16)
+    x = torch.randn((16, 9, 64), generator=gen).to(cuda, torch.bfloat16)
+    dy = (0.1 * torch.randn((16, 9, 64), generator=gen)).to(cuda, torch.bfloat16)
+
+    def run(seed):
+        if stash:
+            y, st = flt.fused_train_layer_fwd_stash(x, ops, 4, 0.1, seed, 2)
+            dx, grads = flt.fused_train_layer_bwd_stash(x, dy, st, ops, 4, 0.1, seed, 2)
+        else:
+            y = flt.fused_train_layer_fwd(x, ops, 4, 0.1, seed, 2)
+            dx, grads = flt.fused_train_layer_bwd(x, dy, ops, 4, 0.1, seed, 2)
+        return [y, dx, *grads]
+
+    seed_t = torch.tensor([31], dtype=torch.int32, device=cuda)
+    for a, b in zip(run(seed_t), run(31)):
+        assert torch.equal(a, b)
+    other = run(-977)
+    assert not torch.equal(other[0], run(31)[0])
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        run(seed_t)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run(seed_t)
+    seed_t.fill_(-977)
+    graph.replay()
+    for a, b in zip(captured, other):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,offset", [((4, 1025, 1024), 0), ((3, 17, 128), 0),
+                                          ((2, 9, 96), 0), ((2, 5, 7), 0), ((2, 9, 64), 3)])
+def test_hash_dropout_kernel_equals_its_plain_version(cuda, dtype, shape, offset):
+    """The plain sites' dropout kernel at rate 0.1 (the conv1d arm's FFN
+    hidden at B=4, an embedding, widths off the 16-byte path, a view at an
+    unaligned offset) gives its plain version's bits for a device-tensor
+    seed, forward and backward, counts one launch a call, and, captured in
+    a CUDA graph and replayed after the seed tensor is filled with another
+    value, that other seed's bits."""
+    from vitiq_torch.ops.cuda import fused_layer_train as flt
+
+    gen = torch.Generator().manual_seed(3)
+    n = math.prod(shape)
+    base = torch.randn((n + offset,), generator=gen).to(cuda, dtype)
+    x = base[offset:].view(shape).requires_grad_(True)
+    dy = torch.randn(shape, generator=gen).to(cuda, dtype)
+    salt = flt.site_salt(5, 1)
+    seed_t = torch.tensor([-41], dtype=torch.int32, device=cuda)
+    flt.reset_launches()
+    y = flt.hash_dropout(x, 0.1, seed_t, salt)
+    (dx,) = torch.autograd.grad(y, x, dy)
+    assert flt.dropout_launches == {"hash_dropout": 2}
+    want = flt.hash_dropout_plain(x.detach().cpu(), 0.1, -41, salt)
+    assert torch.equal(y.cpu(), want)
+    assert torch.equal(dx.cpu(), flt.hash_dropout_plain(dy.cpu(), 0.1, -41, salt))
+    if n > 10_000:
+        assert 0.09 < (want == 0).float().mean().item() < 0.11
+    xd = x.detach()
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        flt.hash_dropout_apply(xd, 0.1, seed_t, salt)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = flt.hash_dropout_apply(xd, 0.1, seed_t, salt)
+    seed_t.fill_(77)
+    graph.replay()
+    assert torch.equal(captured.cpu(), flt.hash_dropout_plain(xd.cpu(), 0.1, 77, salt))
+
+
+@pytest.mark.cuda
+def test_scan_capture_that_fails_raises(cuda):
+    """A preprocess that reads the device from the host cannot be captured:
+    the scan step raises after its eager warm-up group, and raises again on
+    the next group; nothing falls back to eager steps."""
+    from vitiq_torch.train.loop import make_train_scan_step
+    from vitiq_torch.train.optim import make_optimizer
+    from vitiq_torch.config import TrainConfig
+
+    model, state, _, _, xs, ys = _scan_setup(cuda)
+
+    def syncing(x):
+        return (x * (1.0 if x.sum().item() == x.sum().item() else 0.0)).transpose(1, 2)
+
+    scan = make_train_scan_step(make_optimizer(TrainConfig()), 0.1, syncing)
+    with pytest.raises(RuntimeError):
+        scan(state, xs, ys, 1)
+    assert not scan.graphs
+    with pytest.raises(RuntimeError):
+        scan(state, xs, ys, 1)
+
+
+@pytest.mark.cuda
+def test_device_adamw_equals_the_host_form_on_the_card(cuda):
+    """1,800 updates on the card, past the end of both bias-correction
+    tables, with the clip active: the device form (the count, the learning
+    rate and the tabulated corrections on the card) equals the former host
+    form (the corrections computed on the host each update, from 0-d f32
+    tensors, and copied over) bit for bit. The card's own f32 pow differs
+    from the host's in the last bit at some counts, which the table avoids."""
+    from vitiq_torch.config import TrainConfig
+    from vitiq_torch.train import optim
+
+    cfg = TrainConfig(learning_rate=3e-3, weight_decay=1e-2)
+    gen = torch.Generator().manual_seed(3)
+    p0 = torch.randn(37, generator=gen).to(cuda)
+    grads = (4 * torch.randn((1800, 37), generator=gen)).to(cuda)
+    module = torch.nn.ParameterDict({"w": torch.nn.Parameter(p0.clone())})
+    state = optim.create_train_state(module, cfg)
+    tx = optim.make_optimizer(cfg)
+    host_p, mu, nu = p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)
+    for i, g in enumerate(grads):
+        (upd,), _ = tx.update([g], state.opt_state, [module["w"]])
+        with torch.no_grad():
+            module["w"].add_(upd)
+        gn = torch.sqrt(torch.sum(torch.square(g)))
+        gs = g * torch.clamp(cfg.grad_clip_max_norm / (gn + 1e-16), max=1.0)
+        mu = cfg.adam_b1 * mu + (1.0 - cfg.adam_b1) * gs
+        nu = cfg.adam_b2 * nu + (1.0 - cfg.adam_b2) * torch.square(gs)
+        c = torch.tensor(float(i + 1), dtype=torch.float32)
+        b1 = torch.tensor(cfg.adam_b1, dtype=torch.float32)
+        b2 = torch.tensor(cfg.adam_b2, dtype=torch.float32)
+        mhat = mu / (1.0 - torch.pow(b1, c)).to(cuda)
+        vhat = nu / (1.0 - torch.pow(b2, c)).to(cuda)
+        host_p = host_p + -cfg.learning_rate * (mhat / (torch.sqrt(vhat) + cfg.adam_eps)
+                                                + cfg.weight_decay * host_p)
+    assert torch.equal(module["w"].detach(), host_p)
+    assert torch.equal(state.opt_state.nu, nu) and int(state.opt_state.count) == 1800

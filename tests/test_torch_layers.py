@@ -84,9 +84,9 @@ def test_train_mode_dropout_is_seeded():
     layer.drop_prob = 0.5
     layer.train()
     x = torch.from_numpy(_rng_array(13, (2, 9, 64)))
-    a = layer(x, generator=torch.Generator().manual_seed(1))
-    b = layer(x, generator=torch.Generator().manual_seed(1))
-    c = layer(x, generator=torch.Generator().manual_seed(2))
+    a = layer(x, seed=1)
+    b = layer(x, seed=torch.tensor(1, dtype=torch.int32))
+    c = layer(x, seed=2)
     assert torch.equal(a, b) and not torch.equal(a, c)
     layer.eval()
     assert torch.equal(layer(x), layer(x))

@@ -14,8 +14,9 @@ load), trains an epoch with step profiling on a `StreamFeed` over packed
 shards and evaluates a reference ``.pth`` with ``cli evaluate
 --torch-checkpoint``; it exports an experiment with ``cli export`` and
 serves the artifact, loads the reference ``.pth`` through the softmax guard
-and runs MDF-NET. The port's sources, and `chip_smoke.py`, import neither
-jax nor vitiq."""
+and runs MDF-NET. A second subprocess, with matplotlib blocked too, runs
+`fit` through the scan step, the sweep's fitness and imports `viz`. The
+port's sources, and `chip_smoke.py`, import neither jax nor vitiq."""
 
 import re
 import subprocess
@@ -261,3 +262,57 @@ def test_port_sources_never_import_sklearn():
     """The reference split is reproduced with numpy (`data/splits.py`)."""
     offenders = _offending_imports(r"\s*(from|import)\s+sklearn(\.|\s|$)")
     assert not offenders, offenders
+
+
+SCAN_SCRIPT = r"""
+import sys
+for name in [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))]:
+    del sys.modules[name]
+for name in [m for m in sys.modules if m == "vitiq" or m.startswith("vitiq.")]:
+    del sys.modules[name]
+for name in ("jax", "jaxlib", "vitiq", "sklearn", "matplotlib", "seaborn", "h5py"):
+    sys.modules[name] = None
+
+import numpy as np
+import torch
+from vitiq_torch import ExperimentConfig, ModelConfig
+from vitiq_torch.config import TrainConfig
+from vitiq_torch.dsp.frontend import preprocess_batch_rawiq
+from vitiq_torch.models import AMCModel
+from vitiq_torch.sweep import decode_particle, make_amc_fitness
+from vitiq_torch.train import fit
+import vitiq_torch.viz  # noqa: F401  (matplotlib only inside its functions)
+
+stats = {"i_mean": 0.0, "i_std": 1.0, "q_mean": 0.0, "q_std": 1.0}
+rng = np.random.default_rng(0)
+x = rng.standard_normal((96, 64, 2)).astype(np.float32)
+y = rng.integers(0, 2, 96).astype(np.int32)
+cfg = ExperimentConfig(
+    model=ModelConfig(arm="rawiq", num_classes=2, d_model=64, n_head=4, n_layers=1,
+                      ffn_hidden=64, drop_prob=0.1, seq_length=64, segment_size=16,
+                      numerics="tpu"),
+    train=TrainConfig(batch_size=16, num_epochs=1, device_scan_steps=2))
+model = AMCModel(cfg.model, generator=torch.Generator().manual_seed(0))
+res = fit(cfg, model, (x[:80], y[:80]), (x[80:], y[80:]),
+          preprocess_fn=lambda b: preprocess_batch_rawiq(b, stats), verbose=False)
+assert int(res.state.step) == 5 and np.isfinite(res.history["train_loss"]).all()
+fitness = make_amc_fitness((x[:80], y[:80]), (x[80:], y[80:]), num_classes=2, seq_length=64,
+                           train_steps=2, bucket=True, device="cpu")
+p = np.array([1.0, 64, 4, 1, 64, 0.1, 1e-3, 16, 16])
+assert -1.0 <= fitness(p[None])[0] <= 0.0 and len(fitness.compile_cache) == 1
+assert decode_particle(p, bucket=True)["arm"] == "rawiq"
+leaked = sorted(m for m in sys.modules if m.startswith(("jax", "vitiq."))
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_scan_training_and_the_sweep_run_without_jax():
+    """`fit` through the scan step (K = 2: two groups and a single step of
+    five), the sweep's fitness and the viz module, with jax, vitiq and
+    matplotlib blocked."""
+    proc = subprocess.run([sys.executable, "-c", SCAN_SCRIPT], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")

@@ -60,7 +60,18 @@ evaluation; the serving artifact (`serve.export_serving`,
 `serve.ServingArtifact`, `serve.export_from_experiment`, `python -m
 vitiq_torch.cli export`: the weights, config and stats, loaded on the card as
 one captured CUDA graph a batch bucket), MDF-NET (`models/mdf.py`) and the
-softmax calibration guard (`ops/guards.py`, `interop.load_torch_checkpoint`).
+softmax calibration guard (`ops/guards.py`, `interop.load_torch_checkpoint`);
+device-scan training (`train/loop.make_train_scan_step`, which `fit` takes
+for every full group of `TrainConfig.device_scan_steps` batches: on the card
+the group's train steps are one replay of a captured CUDA graph, their step
+counter, dropout seed, learning rate and AdamW state on the device, K3/K4
+reading the seed from device memory), the PSO hyperparameter sweep
+(`sweep.py`, `python -m vitiq_torch.cli sweep`: each architecture's short
+training one captured graph on the card) and the preprocessing figures
+(`viz.py`, `python -m vitiq_torch.cli visualize`, a host tool).
+
+Not ported yet: the device mesh and data parallelism (`vitiq/parallel/`,
+`ProcessShardFeed`) and the benchmark (`cli bench`).
 
 Not ported, by design: `vitiq/utils/compile_cache.py` keeps XLA's persistent
 compilation cache, and the port compiles nothing at run time but its kernel

@@ -1,6 +1,7 @@
 """Command-line interface (counterpart of `vitiq/cli.py`): ``train``,
-``evaluate``, ``export``, ``compare`` and ``head-to-head``, with the JAX package's
-argument names, presets, overrides and printed lines.
+``evaluate``, ``export``, ``compare``, ``head-to-head``, ``visualize`` and
+``sweep``, with the JAX package's argument names, presets, overrides and
+printed lines.
 
     python -m vitiq_torch.cli train [--preset NAME | --config PATH | --arm vit|rawiq]
         [--source synthetic|hdf5 --file_path H5 --json_path JSON [--streaming]]
@@ -16,13 +17,22 @@ argument names, presets, overrides and printed lines.
     python -m vitiq_torch.cli compare --vit_report PATH --transformer_report PATH
         [--output_dir DIR] [--no_plots]
     python -m vitiq_torch.cli head-to-head [train's flags] [--output_dir DIR]
+    python -m vitiq_torch.cli visualize [--file_path H5 --json_path JSON]
+        [--output_dir DIR] [--modulations M ...] [--num_samples N]
+        [--create_overview] [--dpi N] [--sps N]
+    python -m vitiq_torch.cli sweep [--n_particles N] [--iters N] [--seed N]
+        [--train_steps N] [--source synthetic|hdf5 --file_path H5 --json_path JSON]
+        [--output PATH] [--resume] [--device cuda]
 
 ``--device`` (default ``cuda``) picks where the model runs; ``--device cpu``
 runs on the host. ``--no_plots`` skips the plots, which need matplotlib and
 seaborn. ``head-to-head`` trains the ViT arm from train's flags, then the
 rawIQ arm from the same flags on a deep copy of the ViT arm's data (iq
 features), as ``<experiment_name>_vit`` and ``<experiment_name>_rawiq``
-(base name ``h2h``), and compares their test reports. ``evaluate
+(base name ``h2h``), and compares their test reports. ``visualize`` draws
+vitiq's preprocessing figures on the host (`viz.py`, needs matplotlib);
+``sweep`` runs the PSO search (`sweep.py`: each architecture's short
+training one captured CUDA graph on the card) and prints its result. ``evaluate
 --torch-checkpoint`` evaluates a reference PyTorch ``.pth``
 (`runner.run_reference_evaluation`). ``export`` writes the serving artifact
 of a training-run directory (`serve.export_from_experiment`) and prints
@@ -277,6 +287,33 @@ def cmd_head_to_head(args) -> int:
     return 0
 
 
+def cmd_visualize(args) -> int:
+    from vitiq_torch.viz import run_visualization
+
+    run_visualization(
+        file_path=args.file_path, json_path=args.json_path,
+        output_dir=args.output_dir, modulations=args.modulations,
+        num_samples=args.num_samples, create_overview=args.create_overview,
+        dpi=args.dpi, sps=args.sps,
+    )
+    return 0
+
+
+def cmd_sweep(args) -> int:
+    from vitiq_torch.sweep import run_pso_sweep
+
+    best = run_pso_sweep(
+        n_particles=args.n_particles, iters=args.iters, seed=args.seed,
+        train_steps=args.train_steps, source=args.source,
+        file_path=args.file_path, json_path=args.json_path,
+        output_path=args.output,
+        resume_path=args.output if args.resume else None,
+        device=args.device,
+    )
+    print(json.dumps(best, indent=2, default=float))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="vitiq_torch", description="PyTorch/CUDA port of vitiq (ViT vs raw-IQ AMC)")
@@ -335,6 +372,34 @@ def build_parser() -> argparse.ArgumentParser:
     _add_train_args(p)
     p.add_argument("--output_dir", default="comparison_results")
     p.set_defaults(fn=cmd_head_to_head)
+
+    p = sub.add_parser("visualize", help="Preprocessing visualization figures")
+    p.add_argument("--file_path", type=str, default=None,
+                   help="HDF5 path (omit for synthetic data)")
+    p.add_argument("--json_path", type=str, default=None)
+    p.add_argument("--output_dir", default="visualization_results")
+    p.add_argument("--modulations", nargs="+", default=None)
+    p.add_argument("--num_samples", type=int, default=1)
+    p.add_argument("--create_overview", action="store_true")
+    p.add_argument("--dpi", type=int, default=150)
+    p.add_argument("--sps", type=int, default=1)
+    p.set_defaults(fn=cmd_visualize)
+
+    p = sub.add_parser("sweep", help="PSO hyperparameter search")
+    p.add_argument("--n_particles", type=int, default=18)
+    p.add_argument("--iters", type=int, default=25)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--train_steps", type=int, default=30)
+    p.add_argument("--source", choices=["synthetic", "hdf5"], default="synthetic")
+    p.add_argument("--file_path", type=str)
+    p.add_argument("--json_path", type=str)
+    p.add_argument("--output", type=str, default="sweep_results.json")
+    p.add_argument("--resume", action="store_true",
+                   help="Resume the exact swarm trajectory from a partial "
+                        "trace at --output (written every iteration)")
+    p.add_argument("--device", default="cuda",
+                   help="Device to train on (default cuda; cpu runs on the host)")
+    p.set_defaults(fn=cmd_sweep)
     return parser
 
 

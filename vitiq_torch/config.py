@@ -266,9 +266,10 @@ class TrainConfig:
     # record dispatch-synchronized per-step wall times (StepTimer) and emit
     # per-epoch step_p50/step_p90 into history
     profile_steps: bool = False
-    # device-scan superbatching (the JAX package): stage K train batches in
-    # one transfer and run them as a K-step scan in one device call. 0/1 =
-    # off (per-batch steps). Not ported yet: the port's loop runs per batch.
+    # device-scan superbatching: stage K train batches in one transfer and
+    # run them as K steps of one device call (the port: one replay of a
+    # captured CUDA graph, `train/loop.make_train_scan_step`). 0/1 = off
+    # (per-batch steps).
     device_scan_steps: int = 64
     # parallelism: number of mesh devices along the data / model axes
     data_parallel: int = 1

@@ -304,8 +304,12 @@ constexpr float LN_EPS = 1e-12f;
 // dropout: keep/(1-rate) from a stateless hash of the absolute position
 // ---------------------------------------------------------------------------
 
+// The step's seed is read from device memory, not passed by value, so that a
+// CUDA graph captured over train steps draws each replayed step's masks from
+// the seed the step itself computed there.
 struct Drop {
-  uint32_t seed_salt;  // step seed + the (layer, site) salt
+  const int* seed;     // the step's int32 seed (device memory)
+  uint32_t salt;       // the (layer, site) salt
   uint32_t thresh;     // dropped iff (hash & 0x7fffffff) < thresh
   float scale;         // 1 / (1 - rate)
   int L;               // tokens per frame: row r is frame r / L, token r % L
@@ -313,16 +317,25 @@ struct Drop {
 };
 
 // _hash_mask of train_xpack.py is murmur3's fmix32 over (b C1) ^ (l C2) ^
-// (w C3) + seed_salt for frame b, token l, lane w. row_mix is a row's part
-// (b C1) ^ (l C2), found once per row; keep_of finishes the hash of one lane.
+// (w C3) + seed + salt for frame b, token l, lane w. row_mix is a row's part
+// (b C1) ^ (l C2), found once per row; seed_salt loads the seed and adds the
+// salt: once per block in the row kernels and in kLnBwd's GEMM stages (into
+// shared memory: see ln_bwd_epilogue), once per tile's epilogue in the other
+// GEMM stages that hash (a value held across the main loop would cost the
+// 256-wide stages a register they lack); keep_of finishes the hash of one
+// lane.
 __device__ __forceinline__ uint32_t row_mix(const Drop& d, long long row) {
   const long long b = row / d.L;
   const uint32_t l = (uint32_t)(row - b * d.L);
   return ((uint32_t)b * 0x9E3779B1u) ^ (l * 0x85EBCA77u);
 }
 
-__device__ __forceinline__ float keep_of(const Drop& d, uint32_t mix, int col) {
-  uint32_t h = (mix ^ ((uint32_t)col * 0xC2B2AE3Du)) + d.seed_salt;
+__device__ __forceinline__ uint32_t seed_salt(const Drop& d) {
+  return (uint32_t)__ldg(d.seed) + d.salt;
+}
+
+__device__ __forceinline__ float keep_of(const Drop& d, uint32_t ss, uint32_t mix, int col) {
+  uint32_t h = (mix ^ ((uint32_t)col * 0xC2B2AE3Du)) + ss;
   h ^= h >> 16;
   h *= 0x85EBCA6Bu;
   h ^= h >> 13;
@@ -507,7 +520,9 @@ __device__ __forceinline__ void store_col_sums(const float* red, const Stage& p,
 // their offsets and bounds (ld_pair); mix their dropout hash parts. Three
 // passes over the accumulators (the sums that need no xh first, then those
 // that do, then dz), so that few values besides the 128 accumulators of a
-// 256-wide tile live at once.
+// 256-wide tile live at once. The seed plus salt is read for the third from
+// vec[0], where the block stored it (a value loaded from global memory, even
+// just before the third pass, spilled the 256-wide XH16 instance).
 template <int BN, class XH>
 __device__ __forceinline__ void ln_bwd_epilogue(float* acc, const Stage& p, const XH* xh,
                                                 const long long rows[2], const long long at[2],
@@ -566,6 +581,7 @@ __device__ __forceinline__ void ln_bwd_epilogue(float* acc, const Stage& p, cons
     m1[hh] = quad_sum(s1[hh]) * (1.0f / BN);
     m2[hh] = quad_sum(s2[hh]) * (1.0f / BN);
   }
+  const uint32_t ss = p.drop.on ? reinterpret_cast<const uint32_t*>(vec)[0] : 0u;
 #pragma unroll
   for (int G = 0; G < BN / 32; ++G) {  // dz, dz mask and its column sums
     float cc[8];
@@ -583,8 +599,8 @@ __device__ __forceinline__ void ln_bwd_epilogue(float* acc, const Stage& p, cons
         if (in[hh]) *reinterpret_cast<float2*>(p.out32 + at[hh] + c) = make_float2(dz0, dz1);
         float k0 = 1.f, k1 = 1.f;
         if (p.drop.on) {
-          k0 = keep_of(p.drop, mix[hh], c);
-          k1 = keep_of(p.drop, mix[hh], c + 1);
+          k0 = keep_of(p.drop, ss, mix[hh], c);
+          k1 = keep_of(p.drop, ss, mix[hh], c + 1);
         }
         acc[e] = dz0 * k0;
         acc[e + 1] = dz1 * k1;
@@ -608,10 +624,11 @@ __device__ __forceinline__ void stage_store(float* acc, const Stage& p, long lon
   const bool in[2] = {rows[0] < p.m, rows[1] < p.m};
   // the rows' offsets in the [row][ldo] operands, row 0's past m (see ld_pair)
   const long long at[2] = {in[0] ? rows[0] * p.ldo : 0, in[1] ? rows[1] * p.ldo : 0};
-  uint32_t mix[2] = {0u, 0u};
-  if (EPI != kDpre && p.drop.on) {
+  uint32_t mix[2] = {0u, 0u}, ss = 0u;
+  if (EPI != kDpre && EPI != kPartial && p.drop.on) {
     mix[0] = row_mix(p.drop, rows[0]);
     mix[1] = row_mix(p.drop, rows[1]);
+    if (EPI != kLnBwd) ss = seed_salt(p.drop);  // kLnBwd reads the block's, vec[0]
   }
   if constexpr (EPI == kPartial) {
     float* dst = p.out32 + (long long)split * p.m * p.ldo + n0;
@@ -627,7 +644,8 @@ __device__ __forceinline__ void stage_store(float* acc, const Stage& p, long lon
 #pragma unroll
     for (int e = 0; e < BN / 2; ++e) {
       float v = fmaxf(acc[e], 0.f);
-      if (p.drop.on) v *= keep_of(p.drop, mix[(e >> 1) & 1], n0 + (e >> 2) * 8 + 2 * t + (e & 1));
+      if (p.drop.on)
+        v *= keep_of(p.drop, ss, mix[(e >> 1) & 1], n0 + (e >> 2) * 8 + 2 * t + (e & 1));
       acc[e] = v;
     }
   } else if constexpr (EPI == kLnFwd) {
@@ -639,8 +657,8 @@ __device__ __forceinline__ void stage_store(float* acc, const Stage& p, long lon
       const int hh = (e >> 1) & 1, c = (e >> 2) * 8 + 2 * t;
       const float2 r = ld_pair(p.res, at[hh] + c, in[hh]);
       if (p.drop.on) {
-        acc[e] *= keep_of(p.drop, mix[hh], c);
-        acc[e + 1] *= keep_of(p.drop, mix[hh], c + 1);
+        acc[e] *= keep_of(p.drop, ss, mix[hh], c);
+        acc[e + 1] *= keep_of(p.drop, ss, mix[hh], c + 1);
       }
       acc[e] += r.x;
       acc[e + 1] += r.y;
@@ -736,6 +754,9 @@ __global__ void __launch_bounds__(GW_THREADS, 1) train_gemm_kernel(
     if (is_ln(EPI)) vec[BN + i] = p.gamma[i];
     if (EPI == kLnFwd) vec[2 * BN + i] = p.beta[i];
   }
+  // kLnBwd's seed plus salt, once a block, in the bias slot it does not read
+  if (EPI == kLnBwd && threadIdx.x == 0 && p.drop.on)
+    reinterpret_cast<uint32_t*>(vec)[0] = seed_salt(p.drop);
   gemm_wgmma_loop<BN, RESIDENT, a_transposed(EPI), b_mn_major(EPI), EPI == kPartial>(
       a_map, b_map, s, p.k, n0, first, stride, n_rt, n_rt * p.splits, ring, th,
       [&](float* acc, long long row0) { stage_init<EPI, BN>(acc, p, row0, n0, vec, th); },
@@ -2306,6 +2327,7 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_rows(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long m0 = (long long)blockIdx.x * ROW_TILE, RT = gridDim.x;
   float cs[3][PER_LANE] = {};
+  const uint32_t ss = drop.on ? seed_salt(drop) : 0u;
   for (int r = warp; r < ROW_TILE; r += THREADS / 32) {
     const long long gm = m0 + r;
     if (gm >= M) break;
@@ -2329,7 +2351,7 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_rows(
     for (int t = 0; t < PER_LANE; ++t) {
       const int c = lane + 32 * t;
       const float dz = rr * (d[t] * gamma[c] - m1 - x[t] * m2);
-      const float df = drop.on ? dz * keep_of(drop, mix, c) : dz;
+      const float df = drop.on ? dz * keep_of(drop, ss, mix, c) : dz;
       cs[2][t] += df;
       dz_out[row + c] = dz;
       df_out[row + c] = __float2bfloat16(df);
@@ -2572,10 +2594,11 @@ bool stash_shapes_ok(const Shape& s) {
          wg_bwd_smem_bytes(s.L, s.dh()) <= (size_t)MAX_SMEM;
 }
 
-Drop make_drop(const Shape& s, uint32_t thresh, float scale, int seed, int layer, int site) {
+Drop make_drop(const Shape& s, uint32_t thresh, float scale, const int* seed, int layer,
+               int site) {
   Drop d;
-  const uint32_t salt = (uint32_t)(layer * 3 + site) * 0x9E3779B9u + 0x61C88647u;
-  d.seed_salt = (uint32_t)seed + salt;
+  d.seed = seed;
+  d.salt = (uint32_t)(layer * 3 + site) * 0x9E3779B9u + 0x61C88647u;
   d.thresh = thresh;
   d.scale = scale;
   d.L = s.L;
@@ -3043,7 +3066,7 @@ struct Drops {
   Drop site[3];  // attention output, FFN hidden, FFN output
 };
 
-Drops make_drops(const Shape& s, uint32_t thresh, float scale, int seed, int layer) {
+Drops make_drops(const Shape& s, uint32_t thresh, float scale, const int* seed, int layer) {
   return Drops{{make_drop(s, thresh, scale, seed, layer, 0),
                 make_drop(s, thresh, scale, seed, layer, 1),
                 make_drop(s, thresh, scale, seed, layer, 2)}};
@@ -3090,12 +3113,13 @@ extern "C" size_t vitiq_train_layer_bwd_stash_workspace(int B, int L, int D, int
 // b1, W2 [F, D], b2, g2, be2 (matrices bf16, vectors f32); workspace of
 // vitiq_train_layer_fwd_workspace bytes. Dropout: drop iff the position
 // hash's low 31 bits < thresh, keep scaled by `scale` (thresh 0 and scale 1:
-// no dropout). Returns cudaGetLastError().
+// no dropout); `seed` points to the step's int32 seed in device memory.
+// Returns cudaGetLastError().
 extern "C" int vitiq_train_layer_fwd(
     const void* x, void* y, const void* w0, const void* w1, const void* w2, const void* w3,
     const void* w4, const void* w5, const void* w6, const void* w7, const void* w8,
     const void* w9, const void* w10, const void* w11, void* workspace, int B, int L, int D,
-    int H, int F, uint32_t thresh, float scale, int seed, int layer, void* stream_ptr) {
+    int H, int F, uint32_t thresh, float scale, const int* seed, int layer, void* stream_ptr) {
   const Shape s{B, L, D, H, F};
   if (!shapes_ok(s)) return (int)cudaErrorInvalidValue;
   const void* wp[12] = {w0, w1, w2, w3, w4, w5, w6, w7, w8, w9, w10, w11};
@@ -3117,8 +3141,8 @@ extern "C" int vitiq_train_layer_bwd(
     const void* x, const void* dy, void* dx, void* grads, const void* w0, const void* w1,
     const void* w2, const void* w3, const void* w4, const void* w5, const void* w6,
     const void* w7, const void* w8, const void* w9, const void* w10, const void* w11,
-    void* workspace, int B, int L, int D, int H, int F, uint32_t thresh, float scale, int seed,
-    int layer, void* stream_ptr) {
+    void* workspace, int B, int L, int D, int H, int F, uint32_t thresh, float scale,
+    const int* seed, int layer, void* stream_ptr) {
   const Shape s{B, L, D, H, F};
   if (!shapes_ok(s)) return (int)cudaErrorInvalidValue;
   const void* wp[12] = {w0, w1, w2, w3, w4, w5, w6, w7, w8, w9, w10, w11};
@@ -3141,7 +3165,7 @@ extern "C" int vitiq_train_layer_fwd_stash(
     const void* w0, const void* w1, const void* w2, const void* w3, const void* w4,
     const void* w5, const void* w6, const void* w7, const void* w8, const void* w9,
     const void* w10, const void* w11, void* workspace, int B, int L, int D, int H, int F,
-    uint32_t thresh, float scale, int seed, int layer, void* stream_ptr) {
+    uint32_t thresh, float scale, const int* seed, int layer, void* stream_ptr) {
   const Shape s{B, L, D, H, F};
   if (!stash_shapes_ok(s)) return (int)cudaErrorInvalidValue;
   const void* wp[12] = {w0, w1, w2, w3, w4, w5, w6, w7, w8, w9, w10, w11};
@@ -3169,7 +3193,7 @@ extern "C" int vitiq_train_layer_bwd_stash(
     void* r1, void* r2, void* pbar, const void* w0, const void* w1, const void* w2,
     const void* w3, const void* w4, const void* w5, const void* w6, const void* w7,
     const void* w8, const void* w9, const void* w10, const void* w11, void* workspace, int B,
-    int L, int D, int H, int F, uint32_t thresh, float scale, int seed, int layer,
+    int L, int D, int H, int F, uint32_t thresh, float scale, const int* seed, int layer,
     void* stream_ptr) {
   const Shape s{B, L, D, H, F};
   if (!stash_shapes_ok(s)) return (int)cudaErrorInvalidValue;
@@ -3280,7 +3304,7 @@ extern "C" int vitiq_train_attention_recompute_blocks(int L, int D, int H, int* 
 // (kPartial). The epilogue's operands as the Stage fields (null where
 // unused; rows of N, f32 vectors of N); LayerNorm stages take N = 64, 128
 // or 256. Dropout (kReluDrop, kLnFwd, kDpre, kLnBwd) at site `site` of layer
-// `layer` and `seed`, row r being token r % L of frame r / L (thresh 0 and
+// `layer` and the int32 seed at `seed` (device memory), row r being token r % L of frame r / L (thresh 0 and
 // scale 1: none). kPartial writes out32 [chunks, M, N]; kDpre and kLnBwd
 // their column sums to part [sums][sum_stride(M)][N], of which the first
 // ceil(M / 64) tiles are the sums'. Returns the error of the launch or of
@@ -3289,8 +3313,8 @@ extern "C" int vitiq_train_gemm_bf16(
     const void* a, const void* b, const void* bias, const void* res, const void* res32,
     const void* xh, const void* xh16, const void* rstd, const void* gamma, const void* beta,
     void* out, void* out32, void* xh_out, void* xh_out16, void* rstd_out, void* part, int M,
-    int K, int N, int epi, int splits, int L, uint32_t thresh, float scale, int seed, int layer,
-    int site, void* stream_ptr) {
+    int K, int N, int epi, int splits, int L, uint32_t thresh, float scale, const int* seed,
+    int layer, int site, void* stream_ptr) {
   if (M <= 0 || K <= 0 || N <= 0 || N % 64 || epi < kBias || epi > kPartial || splits <= 0 ||
       L <= 0 || (epi != kPartial && K % 64) || (is_ln(epi) && N != 64 && N != 128 && N != 256))
     return (int)cudaErrorInvalidValue;
@@ -3332,4 +3356,88 @@ extern "C" int vitiq_train_gemm_bf16(
     case kPartial: err = stage<kPartial>(g, N, st); break;
   }
   return (int)err;
+}
+
+// ---------------------------------------------------------------------------
+// the plain dropout sites (the embedding's, and the plain layers' three)
+// ---------------------------------------------------------------------------
+
+// out = x * keep_of(...) over x [rows, W]: row r is frame r / L, token r % L,
+// so a site drops what K3/K4 drop at the same (frame, token, lane), seed and
+// salt. A dropped position is +0 (a select, not x * 0). Each thread loads the
+// seed once and moves VEC elements of one row a step (16 bytes where W and
+// the pointers allow); the backward is this function of the gradient.
+__device__ __forceinline__ float drop_in(float v) { return v; }
+__device__ __forceinline__ float drop_in(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void drop_out(float& o, float f) { o = f; }
+__device__ __forceinline__ void drop_out(bf16& o, float f) { o = __float2bfloat16(f); }
+
+template <class T, int VEC>
+__global__ void __launch_bounds__(THREADS) hash_dropout_kernel(const T* __restrict__ x,
+                                                               T* __restrict__ out, Drop d,
+                                                               long long rows, int W) {
+  const uint32_t ss = seed_salt(d);
+  const int per_row = W / VEC;
+  const long long n = rows * per_row;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long row = i / per_row;
+    const int c0 = (int)(i - row * per_row) * VEC;
+    const uint32_t mix = row_mix(d, row);
+    const long long base = row * W + c0;
+    T v[VEC];
+    if constexpr (VEC * sizeof(T) == 16) {
+      *reinterpret_cast<uint4*>(v) = __ldg(reinterpret_cast<const uint4*>(x + base));
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) v[j] = x[base + j];
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float k = keep_of(d, ss, mix, c0 + j);
+      drop_out(v[j], k != 0.f ? drop_in(v[j]) * k : 0.f);
+    }
+    if constexpr (VEC * sizeof(T) == 16) {
+      *reinterpret_cast<uint4*>(out + base) = *reinterpret_cast<const uint4*>(v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) out[base + j] = v[j];
+    }
+  }
+}
+
+template <class T, int VEC>
+cudaError_t launch_hash_dropout(const void* x, void* out, const Drop& d, long long rows, int W,
+                                cudaStream_t stream) {
+  const long long n = rows * (W / VEC);
+  const long long blocks = std::min<long long>((n + THREADS - 1) / THREADS, 132LL * 16);
+  hash_dropout_kernel<T, VEC><<<(int)blocks, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), d, rows, W);
+  return cudaGetLastError();
+}
+
+// The plain sites' dropout: out [rows, W] = x [rows, W] * scale where the
+// position hash of (frame r / L, token r % L, lane w) + seed + salt keeps it
+// (its low 31 bits >= thresh), else +0; dtype 0 bf16, 1 f32. `seed` points to
+// the step's int32 seed in device memory; `salt` is the site's. Returns the
+// launch's error, or cudaErrorInvalidValue at an empty or ragged shape.
+extern "C" int vitiq_hash_dropout(const void* x, void* out, long long rows, int L, int W,
+                                  int dtype, uint32_t thresh, float scale, const int* seed,
+                                  uint32_t salt, void* stream_ptr) {
+  if (rows <= 0 || L <= 0 || W <= 0 || rows % L != 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  Drop d;
+  d.seed = seed;
+  d.salt = salt;
+  d.thresh = thresh;
+  d.scale = scale;
+  d.L = L;
+  d.on = 1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  if (dtype == 0)
+    return (int)(aligned && W % 8 == 0 ? launch_hash_dropout<bf16, 8>(x, out, d, rows, W, st)
+                                       : launch_hash_dropout<bf16, 1>(x, out, d, rows, W, st));
+  return (int)(aligned && W % 4 == 0 ? launch_hash_dropout<float, 4>(x, out, d, rows, W, st)
+                                     : launch_hash_dropout<float, 1>(x, out, d, rows, W, st));
 }

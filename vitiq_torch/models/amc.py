@@ -28,7 +28,7 @@ sequence and CLS outputs), `count_parameters` and `make_attention_map_fn`
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 from torch import nn
@@ -83,12 +83,11 @@ class AMCModel(nn.Module):
         self.cls_pooling = cfg.arm == "vit" or cfg.use_cls_token
 
     def forward(self, src: torch.Tensor,
-                generator: Optional[torch.Generator] = None,
-                seed: Optional[int] = None) -> torch.Tensor:
-        """In training, `generator` draws the dropout of the plain paths and
-        `seed` (the step's int32 seed) that of the fused training kernels."""
+                seed: Optional[Union[int, torch.Tensor]] = None) -> torch.Tensor:
+        """In training, `seed` (the step's int32 seed: an int, or an int32
+        tensor on the device) draws every dropout mask (see `Encoder`)."""
         x = self.encoder(src, self.policy, cls_only_fused=self.cls_pooling,
-                         generator=generator, seed=seed, raw_stats=self.raw_stats,
+                         seed=seed, raw_stats=self.raw_stats,
                          attention_fn=self.attention_fn)
         feat = x[:, 0] if self.cls_pooling else x.mean(dim=1)
         if self.cfg.arm == "vit":

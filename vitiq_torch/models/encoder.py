@@ -31,16 +31,25 @@ raises in a kernel and one it turns away never reaches one. Everything else
 runs the plain layers with `attention_fn` (under `tpu`, K5 for every layer's
 attention: in training the conv1d arm's 1025 tokens, which
 `fused_train_supported` turns down; in eval the conv1d arm with n_head 2,
-which `fused_infer_supported` turns down, and ``VITIQ_NO_FUSED_LAYER=1``),
-their dropout drawn from `generator`. In training above 512 tokens each plain
-layer is rematerialized (`use_remat`, ``VITIQ_TRAIN_REMAT``), as the JAX
-encoder does with `jax.checkpoint`.
+which `fused_infer_supported` turns down, and ``VITIQ_NO_FUSED_LAYER=1``).
+In training above 512 tokens each plain layer is rematerialized (`use_remat`,
+``VITIQ_TRAIN_REMAT``), as the JAX encoder does with `jax.checkpoint`.
+
+Dropout outside the fused kernels (the embedding's, and the plain layers')
+is the kernels' position hash of the step's `seed`, salted per site
+(`EMBED_SALT`, and each layer's `site_salt(layer, site)`, the kernels' own),
+through `hash_dropout` (one kernel on the card). `make_train_step` passes
+the seed as an int32 tensor on the device, so a step's masks are a function
+of a device value: an eager step and a replayed CUDA graph draw the same
+bits, and remat recomputes them with no RNG state. A training forward
+without a seed (which the fused stack then turns down) takes one from
+torch's default generator for its plain sites.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -59,8 +68,15 @@ from vitiq_torch.ops.cuda.fused_encoder_layer import (
     fused_infer_supported,
 )
 from vitiq_torch.ops.cuda.fused_encoder_layer_int8attn import fused_encoder_layer_int8attn_stack
-from vitiq_torch.ops.cuda.fused_layer_train import fused_train_layer_stack, fused_train_supported
+from vitiq_torch.ops.cuda.fused_layer_train import (
+    fused_train_layer_stack,
+    fused_train_supported,
+    site_salt,
+)
 from vitiq_torch.ops.numerics import Policy
+
+# the embedding dropout's salt: layer -1's first site, apart from every layer's
+EMBED_SALT = site_salt(-1, 0)
 
 
 class Encoder(nn.Module):
@@ -107,21 +123,24 @@ class Encoder(nn.Module):
     def forward(self, src: torch.Tensor, policy: Policy, attention_fn: Callable,
                 mask: Optional[torch.Tensor] = None,
                 cls_only_fused: bool = False,
-                generator: Optional[torch.Generator] = None,
-                seed: Optional[int] = None,
+                seed: Optional[Union[int, torch.Tensor]] = None,
                 raw_stats: Optional[Dict[str, float]] = None) -> torch.Tensor:
         """The full token sequence [B, L, D], or [B, 1, D] when the fused path
         computes the CLS row only (``cls_only_fused``). `attention_fn` is the
         plain layers' attention (see `EncoderLayer`); only a packed one admits
         the fused families, so it has no default. `seed` is the training
-        step's int32 dropout seed for the fused training stack. With
-        `raw_stats`, `src` is the raw [B, L, 2] frame batch."""
+        step's int32 dropout seed (an int, or an int32 tensor on the
+        device), which every dropout site hashes. With `raw_stats`, `src` is
+        the raw [B, L, 2] frame batch."""
         cfg = self.cfg
         if raw_stats is not None:
             x = fused_raw_embed_apply(self, src, cfg, raw_stats, policy)
         else:
             x = self.embed(src, policy)
-        x = dropout(x, cfg.drop_prob, self.training, generator)
+        drop_seed = seed
+        if self.training and seed is None and cfg.drop_prob > 0.0:
+            drop_seed = int(torch.randint(-2 ** 31, 2 ** 31, ()))
+        x = dropout(x, cfg.drop_prob, self.training, drop_seed, EMBED_SALT)
         fused_family = (policy.compute_dtype == torch.bfloat16
                         and getattr(attention_fn, "packed_layout", False))
         if (self.training
@@ -143,13 +162,14 @@ class Encoder(nn.Module):
                      if os.environ.get("VITIQ_ATTN_INT8") == "1" else fused_encoder_layer_stack)
             return stack(policy.cast_compute(x), list(self.layers), cfg.n_head,
                          cls_only=cls_only)
-        kwargs = dict(mask=mask, policy=policy, attention_fn=attention_fn)
-        if use_remat(self.training, x.shape[1]):
-            for layer in self.layers:
-                x = _checkpointed(layer, x, generator, kwargs)
-            return x
-        for layer in self.layers:
-            x = layer(x, generator=generator, **kwargs)
+        kwargs = dict(mask=mask, policy=policy, attention_fn=attention_fn, seed=drop_seed)
+        remat = use_remat(self.training, x.shape[1])
+        for i, layer in enumerate(self.layers):
+            if remat:  # no RNG state to replay: the masks are the seed's
+                x = checkpoint(layer, x, use_reentrant=False, preserve_rng_state=False,
+                               layer_idx=i, **kwargs)
+            else:
+                x = layer(x, layer_idx=i, **kwargs)
         return x
 
 
@@ -159,30 +179,3 @@ def use_remat(train: bool, seq_len: int) -> bool:
     always, ``0`` never."""
     env = os.environ.get("VITIQ_TRAIN_REMAT", "auto")
     return train and (env == "1" or (env == "auto" and seq_len > 512))
-
-
-def _checkpointed(layer, x, generator, kwargs):
-    """One plain layer under `torch.utils.checkpoint` (the counterpart of
-    `jax.checkpoint`): its activations are dropped after the forward and
-    recomputed in the backward. `checkpoint` replays the default CPU and CUDA
-    RNG states, not an explicit generator, and the layer draws its dropout
-    masks from `generator`: its state is taken before the layer, the
-    recompute starts from it and so draws the forward's masks, and the
-    generator is handed back where the recompute found it."""
-    if generator is None:
-        return checkpoint(layer, x, use_reentrant=False, **kwargs)
-    state = generator.get_state()
-    forward_done = []
-
-    def run(inp):
-        if not forward_done:
-            forward_done.append(True)
-            return layer(inp, generator=generator, **kwargs)
-        caller = generator.get_state()
-        generator.set_state(state)
-        try:
-            return layer(inp, generator=generator, **kwargs)
-        finally:
-            generator.set_state(caller)
-
-    return checkpoint(run, x, use_reentrant=False)

@@ -19,12 +19,13 @@ CPU from an optional `torch.Generator`.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 from torch import nn
 
 from vitiq_torch.ops.attention import scaled_dot_product_attention
+from vitiq_torch.ops.cuda.fused_layer_train import hash_dropout, site_salt
 from vitiq_torch.ops.numerics import REFERENCE, Policy
 
 LN_EPS = 1e-12  # reference LayerNorm eps
@@ -41,14 +42,21 @@ def _uniform_(param: torch.Tensor, bound: float,
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Inverted dropout; identity when not training. The keep mask is drawn
-    from `generator` (on `x`'s device) when one is given."""
+            seed: Optional[Union[int, torch.Tensor]] = None, salt: int = 0) -> torch.Tensor:
+    """Inverted dropout; identity when not training. In training a position
+    is dropped iff the low 31 bits of the fused training kernels' hash of
+    the step's `seed` (an int, or an int32 tensor on `x`'s device) + `salt`,
+    over x's last two dims as (token, lane) and the rest as frames, fall
+    below rate * 2^31, and a kept one is scaled by 1 / (1 - rate) in f32
+    (`hash_dropout`: one kernel on the card, its plain version on the CPU).
+    The mask is a function of the seed alone, so a rematerialized layer
+    recomputes it and a captured CUDA graph draws each replay's. Like
+    vitiq's `dropout` without an rng, training without a seed raises."""
     if not train or rate == 0.0:
         return x
-    keep = 1.0 - rate
-    draw = torch.rand(x.shape, device=x.device, generator=generator)
-    return torch.where(draw < keep, x / keep, torch.zeros_like(x))
+    if seed is None:
+        raise ValueError("dropout requires the step's seed when train=True and rate > 0")
+    return hash_dropout(x, rate, seed, salt)
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -132,16 +140,20 @@ class PositionwiseFeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor, drop_prob: float, train: bool,
                 policy: Policy = REFERENCE,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                seed: Optional[Union[int, torch.Tensor]] = None,
+                salt: int = 0) -> torch.Tensor:
         h = torch.relu(self.linear1(x, policy))
-        h = dropout(h, drop_prob, train, generator)
+        h = dropout(h, drop_prob, train, seed, salt)
         return self.linear2(h, policy)
 
 
 class EncoderLayer(nn.Module):
     """Post-norm encoder layer. `kernel_operands` caches the weights in the
     fused kernel's layout (see `vitiq_torch.ops.cuda.fused_encoder_layer.
-    layer_operands`), rebuilt whenever a parameter changes."""
+    layer_operands`), rebuilt whenever a parameter changes. In training its
+    three dropout sites draw from the step's `seed` with the fused training
+    kernels' salts of (`layer_idx`, site), so a plain layer drops what K3/K4
+    drop at that layer."""
 
     def __init__(self, d_model: int, ffn_hidden: int, n_head: int,
                  drop_prob: float = 0.0, device=None,
@@ -156,15 +168,17 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 policy: Policy = REFERENCE,
-                generator: Optional[torch.Generator] = None,
-                attention_fn: Callable = scaled_dot_product_attention) -> torch.Tensor:
+                attention_fn: Callable = scaled_dot_product_attention,
+                seed: Optional[Union[int, torch.Tensor]] = None,
+                layer_idx: int = 0) -> torch.Tensor:
         train = self.training
         # residual stream: f32 under the reference policy, the compute dtype
         # (bf16) under the TPU policy
         stream = None if policy.compute_dtype == torch.float32 else policy.compute_dtype
         attn = self.attention(x, mask=mask, policy=policy, attention_fn=attention_fn)
-        x = self.norm1(dropout(attn, self.drop_prob, train, generator) + x,
+        x = self.norm1(dropout(attn, self.drop_prob, train, seed, site_salt(layer_idx, 0)) + x,
                        out_dtype=stream)
-        ffn = self.ffn(x, self.drop_prob, train, policy=policy, generator=generator)
-        return self.norm2(dropout(ffn, self.drop_prob, train, generator) + x,
+        ffn = self.ffn(x, self.drop_prob, train, policy=policy, seed=seed,
+                       salt=site_salt(layer_idx, 1))
+        return self.norm2(dropout(ffn, self.drop_prob, train, seed, site_salt(layer_idx, 2)) + x,
                           out_dtype=stream)

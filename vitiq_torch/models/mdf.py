@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vitiq_torch.dsp.filtering import f32_conv
-from vitiq_torch.models.layers import Linear, _uniform_, dropout
+from vitiq_torch.models.layers import Linear, _uniform_
 
 CNN_CHANNELS = (32, 64, 128)
 IQ_CONV_CH = 64
@@ -135,6 +135,19 @@ class MultiDomainModel(nn.Module):
         hid = F.relu(self.fuse1(fused))
         hid = dropout(hid, self.dropout_rate, drop_on, generator)
         return self.head(hid).float()
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """MDF-NET's inverted dropout (vitiq's, with a generator for its rng);
+    identity when not training. The keep mask is drawn from `generator` (on
+    `x`'s device). The AMC encoder's dropout is `layers.dropout` instead:
+    the fused kernels' hash of the step's seed."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    draw = torch.rand(x.shape, device=x.device, generator=generator)
+    return torch.where(draw < keep, x / keep, torch.zeros_like(x))
 
 
 def create_multi_domain_model(num_classes: int, dropout_rate: float = 0.7, device=None,

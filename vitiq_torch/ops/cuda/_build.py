@@ -33,9 +33,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _LAYER_ARGS = [_P] * 18 + [_I] * 5 + [_P]
 # x, out (y or dy), [dx, grads,] [the 6 stash tensors,] the 12 weights,
-# workspace; B, L, D, H, F; dropout threshold and scale, seed, layer index;
-# stream
-_DROP_ARGS = [_I] * 5 + [_U, _F, _I, _I, _P]
+# workspace; B, L, D, H, F; dropout threshold and scale, the seed's device
+# pointer, layer index; stream
+_DROP_ARGS = [_I] * 5 + [_U, _F, _P, _I, _P]
 SIGNATURES = {
     "vitiq_encoder_layer_full": (_LAYER_ARGS, _I),
     # x, out, q, qt, xbar, attn, x1, hid, the 12 weights, Kblk, Vblk, qt's
@@ -69,8 +69,11 @@ SIGNATURES = {
     "vitiq_train_layer_bwd_stash": ([_P] * 23 + _DROP_ARGS, _I),
     # a, b, bias, res, res32, xh, xh16, rstd, gamma, beta, out, out32, xh_out,
     # xh_out16, rstd_out, part; M, K, N, epi, splits, L; dropout threshold and
-    # scale, seed, layer index, site; stream
-    "vitiq_train_gemm_bf16": ([_P] * 16 + [_I] * 6 + [_U, _F, _I, _I, _I, _P], _I),
+    # scale, the seed's device pointer, layer index, site; stream
+    "vitiq_train_gemm_bf16": ([_P] * 16 + [_I] * 6 + [_U, _F, _P, _I, _I, _P], _I),
+    # the plain dropout sites: x, out; rows, L, W, dtype; threshold, scale,
+    # the seed's device pointer, salt; stream
+    "vitiq_hash_dropout": ([_P, _P, ctypes.c_longlong] + [_I] * 3 + [_U, _F, _P, _U, _P], _I),
     # K4's attention passes alone. qkv, attn, pbar; B, L, D, H; stream
     "vitiq_train_attention_fwd_stash": ([_P] * 3 + [_I] * 4 + [_P], _I),
     # qkv, attn, dattn, pbar, dqkv, part; B, L, D, H; stream

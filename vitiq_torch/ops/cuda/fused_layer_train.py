@@ -32,6 +32,15 @@ Dropout is K8's counter-based hash (`vitiq/ops/pallas/train_xpack.py`:
 `_hash_mask`, `_site_salt`) over the absolute (frame, token, lane) position,
 so the forward and the backward, and the kernels and their plain versions,
 draw the same masks. This stream differs from K3's TPU PRNG stream by design.
+The kernels read the step's seed from device memory (`seed_tensor`: a
+one-element int32 tensor), so a CUDA graph captured over train steps draws
+each replayed step's masks; the autograd Functions save that tensor for the
+backward. The dropout sites outside K3/K4 (the embedding's, and the plain
+layers' three) draw the same hash through one more kernel of the .cu,
+`hash_dropout_kernel` (`hash_dropout`: one pass that hashes each position
+and writes x * scale or +0; its backward is the same pass over the
+gradient; plain version `hash_dropout_plain`), so a plain layer drops what
+K3/K4 drop at that layer.
 
 The kernels run a chain of stages per layer (the .cu's `forward` and
 `backward`): persistent wgmma GEMM stages fed by TMA (the main loop K1
@@ -54,8 +63,9 @@ mma.sync forward at d_head 16 past 80 keys; the mma.sync passes past 144).
 Each wrapper launches its kernel on a CUDA tensor (raising on any build,
 launch or shape error) and runs its plain version on a CPU tensor.
 `launches` counts kernel launches, one per call of a C entry point,
-`stage_launches` those of `train_gemm` and `pass_launches` those of the
-attention passes alone; the plain versions count nothing.
+`stage_launches` those of `train_gemm`, `pass_launches` those of the
+attention passes alone and `dropout_launches` those of `hash_dropout_kernel`;
+the plain versions count nothing.
 """
 
 from __future__ import annotations
@@ -86,10 +96,13 @@ launches = {"fused_train_layer_fwd": 0, "fused_train_layer_bwd": 0,
 stage_launches = {"train_gemm": 0}
 pass_launches = {"stash_attention_fwd": 0, "stash_attention_bwd": 0,
                  "recompute_attention_fwd": 0, "recompute_attention_bwd": 0}
+# the plain dropout sites' kernel (`hash_dropout`): the embedding's, and the
+# plain layers' (the conv1d arm, VITIQ_FUSED_TRAIN=0)
+dropout_launches = {"hash_dropout": 0}
 
 
 def reset_launches() -> None:
-    for counts in (launches, stage_launches, pass_launches):
+    for counts in (launches, stage_launches, pass_launches, dropout_launches):
         for name in counts:
             counts[name] = 0
 
@@ -296,29 +309,55 @@ def site_salt(layer_idx: int, site: int) -> int:
     return ((layer_idx * 3 + site) * 0x9E3779B9 + 0x61C88647) & _M32
 
 
-def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+def mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     """(a * c) mod 2^32 for int64 a in [0, 2^32), without int64 overflow."""
     lo = a * (c & 0xFFFF)
     hi = ((a * (c >> 16)) & 0xFFFF) << 16
     return (lo + hi) & _M32
 
 
-def mask_bits(shape: Tuple[int, int, int], seed: int, salt: int,
-              device=None) -> torch.Tensor:
+def fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3's fmix32 of int64 h in [0, 2^32)."""
+    h = h ^ (h >> 16)
+    h = mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def seed_plus(seed, salt: int):
+    """(seed + salt) mod 2^32: an int for an int seed, an int64 tensor on the
+    seed's device for a tensor one (the step's int32 seed on the card)."""
+    if isinstance(seed, torch.Tensor):
+        return (seed.reshape(()).to(torch.int64) + salt) & _M32
+    return (int(seed) + salt) & _M32
+
+
+def mask_bits(shape: Tuple[int, int, int], seed, salt: int, device=None) -> torch.Tensor:
     """The 32 hash bits of every position of a [G, L, W] block (int64 in
     [0, 2^32)): murmur3 fmix32 over the mixed (frame, token, lane) index plus
-    seed + salt, as `_hash_mask` computes them in int32."""
+    seed + salt, as `_hash_mask` computes them in int32. `seed` is an int or
+    an int32 tensor on `device` (one element), whose value is read on the
+    device, so a captured CUDA graph draws the masks of each replay's seed."""
     G, L, W = shape
     gi = torch.arange(G, dtype=torch.int64, device=device).view(G, 1, 1)
     li = torch.arange(L, dtype=torch.int64, device=device).view(1, L, 1)
     wi = torch.arange(W, dtype=torch.int64, device=device).view(1, 1, W)
-    h = _mul32(gi, 0x9E3779B1) ^ _mul32(li, 0x85EBCA77) ^ _mul32(wi, 0xC2B2AE3D)
-    h = (h + ((seed + salt) & _M32)) & _M32
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
+    h = mul32(gi, 0x9E3779B1) ^ mul32(li, 0x85EBCA77) ^ mul32(wi, 0xC2B2AE3D)
+    return fmix32((h + seed_plus(seed, salt)) & _M32)
+
+
+def seed_tensor(seed, device) -> torch.Tensor:
+    """The step seed as the kernels read it: a one-element int32 tensor on
+    `device` (a tensor seed is used as it is where it already is one; an int
+    is copied there, which a CUDA graph capture does not allow)."""
+    if isinstance(seed, torch.Tensor):
+        t = seed.reshape(1)
+        if t.dtype != torch.int32 or t.device != torch.device(device):
+            t = t.to(device=device, dtype=torch.int32)
+        return t.contiguous()
+    return torch.tensor([(int(seed) + 2 ** 31) % 2 ** 32 - 2 ** 31], dtype=torch.int32,
+                        device=device)
 
 
 def drop_threshold(rate: float) -> Tuple[int, float]:
@@ -330,10 +369,70 @@ def drop_threshold(rate: float) -> Tuple[int, float]:
     return int(rate * 2147483648.0), float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
 
 
-def dropout_mask(shape: Tuple[int, int, int], rate: float, seed: int, layer_idx: int,
+def hash_dropout_plain(x: torch.Tensor, rate: float, seed, salt: int) -> torch.Tensor:
+    """The plain version of `hash_dropout_kernel`: x * scale (f32, rounded
+    to x's dtype) where the position hash of seed + `salt` over x's last two
+    dims as (token, lane) and the rest as frames keeps a position, +0 where
+    it drops it (`mask_bits`, `drop_threshold`)."""
+    thresh, scale = drop_threshold(rate)
+    L, W = x.shape[-2], x.shape[-1]
+    bits = mask_bits((x.numel() // (L * W), L, W), seed, salt, x.device)
+    kept = ((bits & 0x7FFFFFFF) >= thresh).reshape(x.shape)
+    scaled = x.float() * torch.tensor(scale, dtype=torch.float32, device=x.device)
+    return torch.where(kept, scaled, torch.zeros((), device=x.device)).to(x.dtype)
+
+
+def hash_dropout_apply(x: torch.Tensor, rate: float, seed, salt: int) -> torch.Tensor:
+    """The plain dropout sites' kernel (C entry `vitiq_hash_dropout`, one
+    pass: each position's hash, read x, write x * scale or +0) on a CUDA
+    tensor of at least two dims, bf16 or f32; `seed` an int or an int32
+    tensor on x's device, read there. The plain version for a CPU tensor."""
+    if x.device.type == "cpu":
+        return hash_dropout_plain(x, rate, seed, salt)
+    if x.dim() < 2 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"hash_dropout takes a bf16 or f32 tensor of at least 2 dims, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    thresh, scale = drop_threshold(rate)
+    seed_t = seed_tensor(seed, x.device)
+    L, W = x.shape[-2], x.shape[-1]
+    _build.call("vitiq_hash_dropout", x.device, x.data_ptr(), out.data_ptr(), x.numel() // W, L,
+                W, 0 if x.dtype == torch.bfloat16 else 1, thresh, scale, seed_t.data_ptr(),
+                salt & _M32)
+    dropout_launches["hash_dropout"] += 1
+    return out
+
+
+class _HashDropout(torch.autograd.Function):
+    """Dropout at a plain site: the forward and the backward each apply the
+    kernel (the backward to the gradient: the same mask and scale), so
+    nothing but the seed tensor is saved."""
+
+    @staticmethod
+    def forward(ctx, x, rate, seed, salt):
+        ctx.save_for_backward(seed)
+        ctx.site = (rate, salt)
+        return hash_dropout_apply(x, rate, seed, salt)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (seed,) = ctx.saved_tensors
+        rate, salt = ctx.site
+        return hash_dropout_apply(dy, rate, seed, salt), None, None, None
+
+
+def hash_dropout(x: torch.Tensor, rate: float, seed, salt: int) -> torch.Tensor:
+    """Differentiable dropout at a plain site (`hash_dropout_apply`); `seed`
+    an int or an int32 tensor on x's device."""
+    return _HashDropout.apply(x, float(rate), seed_tensor(seed, x.device), int(salt))
+
+
+def dropout_mask(shape: Tuple[int, int, int], rate: float, seed, layer_idx: int,
                  site: int, device=None) -> torch.Tensor:
     """f32 keep/(1 - rate) multiplier of a [B, L, W] activation at dropout
-    site 0 (attention output), 1 (FFN hidden) or 2 (FFN output)."""
+    site 0 (attention output), 1 (FFN hidden) or 2 (FFN output); `seed` an
+    int or an int32 device tensor (`mask_bits`)."""
     thresh, scale = drop_threshold(rate)
     if thresh == 0 and scale == 1.0:
         return torch.ones(shape, dtype=torch.float32, device=device)
@@ -839,20 +938,20 @@ def _check_inputs(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
 
 
 def _launch(entry: str, counter: str, x: torch.Tensor, pointers, ops, n_head: int, F: int,
-            drop: float, seed: int, layer_idx: int) -> None:
+            drop: float, seed, layer_idx: int) -> None:
     """Allocate the workspace, launch one C entry point, raise on its error,
-    count the launch."""
+    count the launch. The kernel reads the seed from device memory."""
     B, L, D = x.shape
     lib = _build.library()
     size = getattr(lib, entry + "_workspace")(B, L, D, n_head, F)
     workspace = torch.empty(size, dtype=torch.uint8, device=x.device)
     thresh, scale = drop_threshold(drop)
-    seed32 = (int(seed) + 2 ** 31) % 2 ** 32 - 2 ** 31  # as an int32
+    seed_t = seed_tensor(seed, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, entry)(*pointers, *(t.data_ptr() for t in ops),
                                   workspace.data_ptr(), B, L, D, n_head, F, thresh, scale,
-                                  seed32, layer_idx, stream)
+                                  seed_t.data_ptr(), layer_idx, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err} "
                            f"({lib.vitiq_error_string(err).decode()})")
@@ -860,9 +959,10 @@ def _launch(entry: str, counter: str, x: torch.Tensor, pointers, ops, n_head: in
 
 
 def fused_train_layer_fwd(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
-                          drop: float, seed: int, layer_idx: int) -> torch.Tensor:
+                          drop: float, seed, layer_idx: int) -> torch.Tensor:
     """K3-fwd: one training layer, bf16 [B, L, D] -> bf16 [B, L, D]; the plain
-    version for a CPU tensor."""
+    version for a CPU tensor. `seed`: the step's int32 dropout seed, an int or
+    a one-element int32 tensor on x's device (`seed_tensor`)."""
     if x.device.type == "cpu":
         return fused_train_layer_reference(x, ops, n_head, drop, seed, layer_idx)
     F = _check_inputs(x, ops, n_head)
@@ -873,7 +973,7 @@ def fused_train_layer_fwd(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: 
 
 
 def fused_train_layer_bwd(x: torch.Tensor, dy: torch.Tensor, ops: Sequence[torch.Tensor],
-                          n_head: int, drop: float, seed: int,
+                          n_head: int, drop: float, seed,
                           layer_idx: int) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """K3-bwd: dx and the 12 operand gradients (matrices rounded to bf16,
     vectors f32); the plain version for a CPU tensor."""
@@ -942,12 +1042,13 @@ def train_gemm(a: torch.Tensor, b: torch.Tensor, epi: str, *, bias=None, res=Non
     xh32 = xh if xh is not None and xh16 is None else None
     rate, seed, layer_idx, site, L = drop if drop is not None else (0.0, 0, 0, 0, 1)
     thresh, scale = drop_threshold(rate)
+    seed_t = seed_tensor(seed, dev)
     ptr = (lambda t: None if t is None else t.contiguous().data_ptr())
     _build.call("vitiq_train_gemm_bf16", dev, a.data_ptr(), b.data_ptr(), ptr(bias), ptr(res),
                 ptr(res32), ptr(xh32), ptr(xh16), ptr(rstd), ptr(gamma), ptr(beta), ptr(out),
                 ptr(out32), ptr(xh_out), ptr(xh_out16), ptr(rstd_out), ptr(part), M, K, N,
-                EPILOGUES.index(epi), splits, L, thresh, scale,
-                (int(seed) + 2 ** 31) % 2 ** 32 - 2 ** 31, layer_idx, site)
+                EPILOGUES.index(epi), splits, L, thresh, scale, seed_t.data_ptr(), layer_idx,
+                site)
     stage_launches["train_gemm"] += 1
     if epi == "partial":
         return out32
@@ -1090,7 +1191,7 @@ def recompute_blocks_per_sm(L: int, D: int, n_head: int) -> Tuple[int, int]:
 
 
 def fused_train_layer_fwd_stash(x: torch.Tensor, ops: Sequence[torch.Tensor], n_head: int,
-                                drop: float, seed: int,
+                                drop: float, seed,
                                 layer_idx: int) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """K4-fwd: (y, stash) for bf16 [B, L, D] activations (see
     `fused_train_layer_stash_reference`); the plain version for a CPU
@@ -1108,7 +1209,7 @@ def fused_train_layer_fwd_stash(x: torch.Tensor, ops: Sequence[torch.Tensor], n_
 
 
 def fused_train_layer_bwd_stash(x: torch.Tensor, dy: torch.Tensor, stash: Sequence[torch.Tensor],
-                                ops: Sequence[torch.Tensor], n_head: int, drop: float, seed: int,
+                                ops: Sequence[torch.Tensor], n_head: int, drop: float, seed,
                                 layer_idx: int) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """K4-bwd: dx and the 12 operand gradients (matrices rounded to bf16,
     vectors f32) from x, dy and K4-fwd's stash; the plain version for a CPU
@@ -1140,20 +1241,21 @@ def fused_train_layer_bwd_stash(x: torch.Tensor, dy: torch.Tensor, stash: Sequen
 
 
 class _FusedTrainLayer(torch.autograd.Function):
-    """One training layer: the forward launches K3-fwd and saves only x and
-    the operands (the seed rides along as a constant); the backward launches
-    K3-bwd, which recomputes the layer."""
+    """One training layer: the forward launches K3-fwd and saves only x, the
+    seed tensor and the operands; the backward launches K3-bwd, which
+    recomputes the layer and reads the same seed from device memory."""
 
     @staticmethod
     def forward(ctx, x, n_head, drop, seed, layer_idx, *ops):
-        ctx.save_for_backward(x, *ops)
-        ctx.layer = (n_head, drop, seed, layer_idx)
+        ctx.save_for_backward(x, seed, *ops)
+        ctx.layer = (n_head, drop, layer_idx)
         return fused_train_layer_fwd(x, ops, n_head, drop, seed, layer_idx)
 
     @staticmethod
     def backward(ctx, dy):
-        x, *ops = ctx.saved_tensors
-        dx, grads = fused_train_layer_bwd(x, dy, ops, *ctx.layer)
+        x, seed, *ops = ctx.saved_tensors
+        n_head, drop, layer_idx = ctx.layer
+        dx, grads = fused_train_layer_bwd(x, dy, ops, n_head, drop, seed, layer_idx)
         return (dx, None, None, None, None, *grads)
 
 
@@ -1165,29 +1267,33 @@ class _FusedTrainLayerStash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, n_head, drop, seed, layer_idx, *ops):
         y, stash = fused_train_layer_fwd_stash(x, ops, n_head, drop, seed, layer_idx)
-        ctx.save_for_backward(x, *stash, *ops)
-        ctx.layer = (n_head, drop, seed, layer_idx)
+        ctx.save_for_backward(x, seed, *stash, *ops)
+        ctx.layer = (n_head, drop, layer_idx)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, *rest = ctx.saved_tensors
+        x, seed, *rest = ctx.saved_tensors
         stash, ops = rest[:6], rest[6:]
-        dx, grads = fused_train_layer_bwd_stash(x, dy, stash, ops, *ctx.layer)
+        n_head, drop, layer_idx = ctx.layer
+        dx, grads = fused_train_layer_bwd_stash(x, dy, stash, ops, n_head, drop, seed, layer_idx)
         return (dx, None, None, None, None, *grads)
 
 
 def fused_train_layer_stack(x: torch.Tensor, layers, n_head: int, drop_prob: float,
-                            seed: int) -> torch.Tensor:
+                            seed) -> torch.Tensor:
     """Differentiable fused training stack over `EncoderLayer` modules: x
-    [B, L, D] in the compute dtype; `seed` the step's int32 dropout seed.
+    [B, L, D] in the compute dtype; `seed` the step's int32 dropout seed, an
+    int or an int32 tensor on x's device (`make_train_step` passes the
+    tensor that `step_seed_tensor` computes there).
     Each layer runs K4 where `stash_enabled` puts the stash (the rawIQ
     flagship, Lp=80), K3 elsewhere (the ViT flagship, Lp=144); gradients
     reach x and every layer parameter through K4-bwd or K3-bwd."""
     B, L, D = x.shape
     layer_fn = (_FusedTrainLayerStash if stash_enabled(L, n_head, D, B, x.dtype)
                 else _FusedTrainLayer)
+    seed = seed_tensor(seed, x.device)
     for i, layer in enumerate(layers):
-        x = layer_fn.apply(x, n_head, float(drop_prob), int(seed), i,
+        x = layer_fn.apply(x, n_head, float(drop_prob), seed, i,
                            *flat_weights(layer, x.dtype))
     return x

@@ -9,7 +9,9 @@ checkpoint is ``<path>.npz`` of the TrainState's leaves in the same order
 counts, AdamW's moments in vitiq's leaf order) plus ``<path>.json``, the
 manifest (``format_version``, ``num_leaves``, ``epoch``, ``val_loss``,
 ``history``, ``config``, ``extra``). Each package therefore reads the
-other's ``model_best.npz`` and resumes from the other's checkpoints. Loading
+other's ``model_best.npz`` and resumes from the other's checkpoints, and the
+port also loads a checkpoint that vitiq wrote under ``VITIQ_FUSED_OPT=0``
+(its per-leaf optimizer state, `optim.fused_leaves_from_chain`). Loading
 checks the leaf count and every leaf's shape against what a model of the
 config has, and raises ValueError on a mismatch instead of loading garbage.
 """
@@ -31,7 +33,13 @@ from vitiq_torch.interop import (
     tree_unflatten,
     vitiq_tree_from_state_dict,
 )
-from vitiq_torch.train.optim import TrainState, train_state_from_leaves, train_state_leaves
+from vitiq_torch.train.optim import (
+    TrainState,
+    chain_leaf_count,
+    fused_leaves_from_chain,
+    train_state_from_leaves,
+    train_state_leaves,
+)
 
 FORMAT_VERSION = 1
 
@@ -66,12 +74,19 @@ def save_checkpoint(path, state: TrainState, epoch: int, val_loss: float, histor
 def load_checkpoint(path, template_state: TrainState) -> Tuple[TrainState, Dict]:
     """Restore a checkpoint written by either package into the structure of
     `template_state` (built for the same config): the parameters are loaded
-    into its model in place. Returns (state, manifest). Raises ValueError on
-    a leaf count or a leaf shape the template does not have (nothing is
-    loaded then), FileNotFoundError on a missing file."""
+    into its model in place. A checkpoint of vitiq's per-leaf optimizer
+    (``VITIQ_FUSED_OPT=0``) is taken into the flat state. Returns (state,
+    manifest). Raises ValueError on a leaf count or a leaf shape the template
+    does not have (nothing is loaded then), FileNotFoundError on a missing
+    file."""
     npz = _npz(path)
     manifest = json.loads(npz.with_suffix(".json").read_text())
     want = [np.shape(leaf) for leaf in train_state_leaves(template_state)]
+    n_params = len(want) - 6
+    chain = manifest["num_leaves"] == chain_leaf_count(n_params)
+    if chain:  # per-leaf mu and nu: trees shaped like the parameters
+        params = want[:n_params]
+        want = params + [(), (), ()] + params + params + [()]
     if manifest["num_leaves"] != len(want):
         raise ValueError(f"checkpoint has {manifest['num_leaves']} leaves but the model/optimizer "
                          f"built from the current config has {len(want)} — config mismatch?")
@@ -82,6 +97,8 @@ def load_checkpoint(path, template_state: TrainState) -> Tuple[TrainState, Dict]
             if tuple(arr.shape) != shape:
                 raise ValueError(f"leaf {i}: checkpoint shape {arr.shape} != expected {shape}")
             leaves.append(np.asarray(arr))
+    if chain:
+        leaves = fused_leaves_from_chain(leaves, n_params)
     return train_state_from_leaves(template_state, leaves), manifest
 
 

@@ -3,16 +3,35 @@
 
 One train step = preprocess (raw [B, L, 2] frames to the model input) +
 forward + label-smoothed loss + backward + clip + AdamW, the parameters
-updated in place, the step counter advanced. Dropout is a pure function of
-(`TrainConfig.dropout_seed`, step): `step_seed` gives the step's int32 seed,
-which the fused training kernels hash, and seeds the `torch.Generator` of
-the plain dropout sites (the embedding, and the plain layers where the
-fused stack does not run). Plateau LR, early stopping, best-parameter
-tracking and the history stay on the host between epochs. `fit` resumes from
-a checkpoint's state and history (`train/checkpoint.py`) at `start_epoch`:
-the feed's per-epoch shuffle and the step's dropout seed continue where the
-saved run stopped, so a resumed run takes the steps an uninterrupted one
-takes.
+updated in place, the step counter advanced. Everything the step reads and
+advances lives on the model's device (`train/optim.py`: the step counter,
+AdamW's count, moments and learning rate), and so does its dropout seed:
+`step_seed_tensor` computes `step_seed(TrainConfig.dropout_seed, step)` there
+from the step counter, bit for bit, and every dropout site hashes that int32
+tensor (the fused training kernels read it from device memory; the
+embedding and the plain layers salt it per site, `models/encoder.py`). A
+step therefore holds no host state, and K of them can be captured in one
+CUDA graph. Plateau LR, early stopping, best-parameter tracking and the
+history stay on the host between epochs. `fit` resumes from a checkpoint's
+state and history (`train/checkpoint.py`) at `start_epoch`: the feed's
+per-epoch shuffle and the step's dropout seed continue where the saved run
+stopped, so a resumed run takes the steps an uninterrupted one takes.
+
+Device-scan superbatching (`TrainConfig.device_scan_steps` K > 1, the
+default 64, and not `profile`): `superbatches` groups the epoch's batches
+into equal-shape groups of K (a shape change flushes the group as single
+steps; the ragged tail runs as single steps), and `make_train_scan_step`
+runs a group's K steps. On the card they are one captured
+`torch.cuda.CUDAGraph` a (K, batch shape): the first group of a shape runs
+its K steps eagerly on a side stream (the warm-up, and steps of the
+trajectory like any other), then the K steps are captured over static
+[K, B, L, 2] and [K, B] input buffers into static [K] loss and accuracy
+outputs; every later group is copied into the buffers (device to device)
+and replayed. A failed capture or replay raises; nothing falls back to
+eager steps. On the CPU the K steps run eagerly through the same functions.
+Either way the steps, and so the parameters and the history, are the
+per-batch path's bit for bit: the epoch's loss and accuracy are the mean
+over its steps' values, as there.
 
 Train and eval batches reach the model through `data/pipeline.py`'s
 `device_prefetch`: on the card a worker thread copies batch N+1 through
@@ -22,9 +41,10 @@ and reads them once a pass. `fit(profile=True)` times each step with
 `utils/profiling.StepTimer`, which waits for the device before its clock
 stops, and adds per-epoch ``step_p50`` / ``step_p90`` to the history.
 
-Not ported yet (later work): the device mesh and data parallelism, and
-device-scan superbatching (`TrainConfig.device_scan_steps`, one device call
-per K steps).
+`TrainConfig.dispatch_sync_steps` N bounds how far the host runs ahead of
+the card: one loss is read every N single steps, and after every scan call.
+
+Not ported yet (later work): the device mesh and data parallelism.
 """
 
 from __future__ import annotations
@@ -39,6 +59,7 @@ import torch
 from vitiq_torch.config import ExperimentConfig
 from vitiq_torch.data.feeds import DataFeed, as_feed
 from vitiq_torch.data.pipeline import device_prefetch
+from vitiq_torch.ops.cuda.fused_layer_train import fmix32, mul32
 from vitiq_torch.ops.metrics import (
     accuracy,
     label_smoothed_cross_entropy,
@@ -67,13 +88,25 @@ def step_seed(dropout_seed: int, step: int) -> int:
     return h - (1 << 32) if h >= 1 << 31 else h
 
 
+def step_seed_tensor(dropout_seed: int, step: torch.Tensor) -> torch.Tensor:
+    """`step_seed(dropout_seed, step)` on the step tensor's device, bit for
+    bit: int64 arithmetic masked to 32 bits (each product split in 16-bit
+    halves, `mul32`), returned as an int32 scalar there. No host value of
+    the step is read, so a captured CUDA graph computes each replay's seed."""
+    h = (((dropout_seed * 0x9E3779B1) & _M32) + mul32(step & _M32, 0x85EBCA77)) & _M32
+    h = fmix32(h)
+    return torch.where(h >= 1 << 31, h - (1 << 32), h).to(torch.int32)
+
+
 def _device(model) -> torch.device:
     return next(model.parameters()).device
 
 
 def make_train_step(tx, label_smoothing: float, preprocess_fn: Optional[Callable] = None):
     """Returns step(state, x, y, dropout_seed) -> (state, metrics); x is the
-    raw [B, L, 2] batch (or the model input when preprocess_fn is None)."""
+    raw [B, L, 2] batch (or the model input when preprocess_fn is None).
+    The state's tensors are updated in place (the returned state holds the
+    same ones); the metrics are device scalars."""
 
     def step(state: TrainState, x, y, dropout_seed: int):
         model = state.model
@@ -81,12 +114,10 @@ def make_train_step(tx, label_smoothing: float, preprocess_fn: Optional[Callable
         device = _device(model)
         x = torch.as_tensor(x, device=device)
         y = torch.as_tensor(y, device=device).long()
-        seed = step_seed(dropout_seed, state.step)
-        generator = torch.Generator(device=device)
-        generator.manual_seed(seed & _M32)
+        seed = step_seed_tensor(dropout_seed, state.step)
         inputs = preprocess_fn(x) if preprocess_fn is not None else x
         params = list(model.parameters())
-        logits = model(inputs, generator=generator, seed=seed)
+        logits = model(inputs, seed=seed)
         loss = label_smoothed_cross_entropy(logits, y, label_smoothing)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
@@ -94,10 +125,103 @@ def make_train_step(tx, label_smoothing: float, preprocess_fn: Optional[Callable
         with torch.no_grad():
             for p, u in zip(params, updates):
                 p.add_(u)
+            state.step.add_(1)
         metrics = {"loss": loss.detach(), "accuracy": accuracy(logits.detach(), y)}
-        return TrainState(model, opt_state, state.step + 1), metrics
+        return TrainState(model, opt_state, state.step), metrics
 
     return step
+
+
+def make_train_scan_step(tx, label_smoothing: float, preprocess_fn: Optional[Callable] = None,
+                         pool=None):
+    """K train steps a call: step(state, xs [K, B, ...], ys [K, B],
+    dropout_seed) -> (state, losses [K], accuracies [K]), the K calls of
+    `make_train_step`'s step in order (the same seeds, the same updates).
+    On a CUDA model one captured CUDA graph a (K, batch shape, dtypes, seed,
+    state) holds the K steps (see the module docstring); the returned
+    function's `graphs` maps those keys to (static xs, static ys, static
+    outputs, graph), and `capture_seconds` to the host time each capture
+    took. On the CPU the steps run eagerly.
+
+    Every graph is captured into one memory pool: `pool` (a
+    `torch.cuda.graph_pool_handle()`, which other scan steps may share, as
+    the sweep's architectures do), else one of this step's own. Graphs of
+    one pool must not run concurrently, and one's replay may reuse what
+    another freed inside its capture, its outputs included: so each call
+    clones its outputs before it returns, and nothing reads a graph's
+    static outputs after another graph ran."""
+    single = make_train_step(tx, label_smoothing, preprocess_fn)
+    graphs: Dict[tuple, tuple] = {}
+    capture_seconds: Dict[tuple, float] = {}
+    pools = [pool]
+
+    def run(state: TrainState, xs, ys, dropout_seed: int):
+        losses, accs = [], []
+        for k in range(xs.shape[0]):
+            state, m = single(state, xs[k], ys[k], dropout_seed)
+            losses.append(m["loss"])
+            accs.append(m["accuracy"])
+        return torch.stack(losses), torch.stack(accs)
+
+    def step(state: TrainState, xs, ys, dropout_seed: int):
+        device = _device(state.model)
+        xs = torch.as_tensor(xs, device=device)
+        ys = torch.as_tensor(ys, device=device)
+        if device.type != "cuda":
+            return (state,) + run(state, xs, ys, dropout_seed)
+        key = (tuple(xs.shape), xs.dtype, tuple(ys.shape), ys.dtype, int(dropout_seed),
+               id(state.model), id(state.opt_state.mu), id(state.step))
+        params = list(state.model.parameters())
+        if key not in graphs:
+            current = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):  # the warm-up: this group's steps
+                out = run(state, xs, ys, dropout_seed)
+            current.wait_stream(side)
+            static_x, static_y = torch.empty_like(xs), torch.empty_like(ys)
+            graph = torch.cuda.CUDAGraph()
+            if pools[0] is None:
+                pools[0] = torch.cuda.graph_pool_handle()
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph, pool=pools[0]):
+                static_out = run(state, static_x, static_y, dropout_seed)
+            capture_seconds[key] = time.perf_counter() - t0
+            graphs[key] = (static_x, static_y, static_out, graph)
+            return (state,) + out
+        static_x, static_y, static_out, graph = graphs[key]
+        static_x.copy_(xs)
+        static_y.copy_(ys)
+        graph.replay()
+        # the replay updated the parameters in place without bumping their
+        # version counters, which the inference kernels' operand caches read
+        for p in params:
+            torch.autograd.graph.increment_version(p)
+        return state, static_out[0].clone(), static_out[1].clone()
+
+    step.graphs = graphs
+    step.capture_seconds = capture_seconds
+    return step
+
+
+def superbatches(src_iter, k: int):
+    """Group the batches of `src_iter` into ("scan", xs [k, B, ...], ys [k, B])
+    items, equal-shape groups only (vitiq's `superbatches`). A batch whose
+    shape differs from the group in progress flushes that group as
+    ("single", x, y) items at once; the ragged tail ends as single items
+    too."""
+    buf = []
+    for item in src_iter:
+        if buf and item[0].shape != buf[0][0].shape:
+            for b in buf:
+                yield ("single",) + tuple(b)
+            buf = []
+        buf.append(item)
+        if len(buf) == k:
+            yield ("scan", np.stack([b[0] for b in buf]), np.stack([b[1] for b in buf]))
+            buf = []
+    for item in buf:
+        yield ("single",) + tuple(item)
 
 
 def make_eval_step(label_smoothing: float, preprocess_fn: Optional[Callable] = None):
@@ -173,10 +297,14 @@ def fit(
     and early stopping are re-primed from the history's validation losses.
 
     Batches reach the model's device through `device_prefetch`, at most
-    `TrainConfig.prefetch_depth` ahead. `profile=True` times each step after
-    the device has finished it (`StepTimer`) and adds per-epoch step_p50 /
-    step_p90 (seconds; the first step of the first epoch, the warm-up, left
-    out) to the history and the summary to `FitResult.step_times`."""
+    `TrainConfig.prefetch_depth` ahead (superbatches: half that, at least 2).
+    With `TrainConfig.device_scan_steps` K > 1 and `profile` false, full
+    groups of K batches run through `make_train_scan_step` (one CUDA graph
+    replay a group on the card), the rest as single steps. `profile=True`
+    times each step after the device has finished it (`StepTimer`) and adds
+    per-epoch step_p50 / step_p90 (seconds; the first step of the first
+    epoch, the warm-up, left out) to the history and the summary to
+    `FitResult.step_times`."""
     tcfg = cfg.train
     tx = make_optimizer(tcfg)
     if resume_state is not None:
@@ -187,6 +315,10 @@ def fit(
         state = create_train_state(model, tcfg)
     train_step = make_train_step(tx, tcfg.label_smoothing, preprocess_fn)
     eval_step = make_eval_step(tcfg.label_smoothing, preprocess_fn)
+    scan_k = (tcfg.device_scan_steps
+              if tcfg.device_scan_steps and tcfg.device_scan_steps > 1 and not profile else 0)
+    scan_step = make_train_scan_step(tx, tcfg.label_smoothing, preprocess_fn) if scan_k else None
+    sync = tcfg.dispatch_sync_steps
 
     scheduler = ReduceLROnPlateau(factor=tcfg.lr_plateau_factor,
                                   patience=tcfg.lr_plateau_patience, min_lr=tcfg.min_lr)
@@ -223,21 +355,36 @@ def fit(
     result = FitResult(state=state, best_params=None, history=history)
     for epoch in range(start_epoch, tcfg.num_epochs):
         t0 = time.perf_counter()
-        losses, accs = [], []
+        losses, accs = [], []  # one [n] tensor a train call, n its steps
         epoch_steps0 = len(timer.times) if timer else 0
-        batches = device_prefetch(train_feed.train_batches(epoch, tcfg.batch_size), device,
-                                  tcfg.prefetch_depth)
+        batches = train_feed.train_batches(epoch, tcfg.batch_size)
+        if scan_k:  # a group's labels are [K, B], a single batch's [B]
+            batches = device_prefetch(((bx, by) for _, bx, by in superbatches(batches, scan_k)),
+                                      device, max(2, tcfg.prefetch_depth // 2))
+        else:
+            batches = device_prefetch(batches, device, tcfg.prefetch_depth)
+        singles = 0
         for bx, by in batches:
-            if timer is not None:
+            kind = "scan" if by.ndim == 2 else "single"
+            if kind == "scan":
+                state, loss, acc = scan_step(state, bx, by, tcfg.dropout_seed)
+            elif timer is not None:
                 with timer.step():
                     state, metrics = train_step(state, bx, by, tcfg.dropout_seed)
                     timer.sync(metrics["loss"])
             else:
                 state, metrics = train_step(state, bx, by, tcfg.dropout_seed)
-            losses.append(metrics["loss"])
-            accs.append(metrics["accuracy"])
-        train_loss = float(torch.stack(losses).mean())
-        train_acc = float(torch.stack(accs).mean())
+            if kind == "single":
+                loss, acc = metrics["loss"].reshape(1), metrics["accuracy"].reshape(1)
+                singles += 1
+            losses.append(loss)
+            accs.append(acc)
+            # bound how far the host runs ahead: a scan call is a sync
+            # window's worth of steps, single steps are read every `sync`
+            if sync and (kind == "scan" or singles % sync == 0):
+                float(loss[-1])
+        train_loss = float(torch.cat(losses).mean())
+        train_acc = float(torch.cat(accs).mean())
 
         val = evaluate_feed(eval_step, state.model, valid_feed, tcfg.batch_size,
                             tcfg.prefetch_depth)
