@@ -34,7 +34,9 @@ which raises (exit code 1) on failure:
    Then K5-fwd and K5-bwd (the standalone
    packed attention) against their plain versions at L 1, 17, 1025, 1040
    and 4097 (past what K1's core holds in shared memory), d_head 16, 32 and
-   64, B=64 (B=4 at 4097): out within GRAD_REL in the L2 norm and
+   64, B=64 (B=4 at 4097), and at the parallel phase's TP 2 shape
+   (K5_TP_SHAPE: B=256, L=129, 4 heads of d_head 16 sliced from a 192-wide
+   qkv): out within GRAD_REL in the L2 norm and
    elementwise within K5_OUT_TOL (scaled to the output's rms), the f32
    log-sum-exp within K5_LSE_ATOL, dq, dk, dv each within GRAD_REL in the L2
    norm (max |difference| printed; at L=1, where dq and dk are zero, within
@@ -321,6 +323,28 @@ which raises (exit code 1) on failure:
    graphs captured, peak memory); ``--steps`` only the train steps whose
    dropout the plain sites' kernel draws (`time_steps`), which also runs on
    a tree without that kernel.
+   parallel: the device mesh (`vitiq_torch/parallel/`) in two worlds of two
+   ranks, each a process spawned by `parallel.comm.spawn` on the card (gloo
+   when the machine has fewer cards than ranks, NCCL otherwise; the backend
+   printed) after this process built the kernel library: DP 2 trains the
+   ViT flagship through K3 at a global B=512 (256 a rank), dropout 0, then
+   evaluates 2,048 frames through K1/K2 sharded; TP 2 trains it through the
+   plain layers with K5 on 4 heads and FFN 256 a rank at dropout 0.1
+   (the FFN hidden site's mask drawn over the shard's lanes). Each against
+   one process on the same inputs (TP against the plain layers,
+   VITIQ_FUSED_TRAIN=0): every step's loss within PARALLEL_LOSS_GAP
+   relative, the first step's gradient cosine >= COSINE_F32, argmax
+   agreement >= PARALLEL_AGREE on rows of top-2 margin >= PARALLEL_MARGIN,
+   each rank's launches of K3, K1, K2 and K5 (counters zeroed in the rank
+   just before its main path), a step's host time per world beside one
+   process's (two ranks share one card: not a gain), and the phase within
+   PARALLEL_SECONDS. parallel-cli: ``cli train`` of the ViT flagship
+   (``--numerics tpu``, one epoch on a small synthetic corpus) under
+   torchrun, ``--data_parallel 2`` then ``--model_parallel 2``: exit 0, the
+   backend printed, summary.json, model_best.npz in the one-process layout.
+   ``--parallel`` runs only the device, build, parallel and parallel-cli
+   phases. The hash-dropout phase also holds the kernel's column
+   shards (`lane0`) to the whole activation's bits.
 7. timing (CUDA events after warm-up): per-layer kernel time against the
    plain version (K1 and K2 at the three shapes, B=4096 and, at 1025 tokens,
    B=256; K3 at the ViT and rawIQ shapes and K4 at the rawIQ one, B=4096;
@@ -513,6 +537,9 @@ GRAD_REL = 1e-2
 # a few tenths of a percent off moves it more).
 K5_OUT_TOL = (0.08, 1.6e-2)
 K5_LSE_ATOL = 1e-3
+# (B, L, n_head, D) of K5 in the parallel phase's TP 2 world: the ViT
+# flagship's 8 heads of d_head 16 split over 2 ranks, B=256 at 129 tokens
+K5_TP_SHAPE = (256, 129, 4, 64)
 # K4's forward pass alone, pbar = bf16(bf16(exp2(s - max)) / l) on the same
 # qkv as the plain version: s sums the same bf16 products in another order and
 # the quotients are IEEE's, so only a bf16 rounding of p or of p / l may flip.
@@ -1023,12 +1050,14 @@ def check_pbar(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
 def check_attention_kernels(device, B: int = 64) -> dict:
     """K5-fwd and K5-bwd against their plain versions on the same bf16
     inputs (q, k, v the column slices of one [B, L, 3D] qkv, as the model
-    passes them), at L 1, 17, 1025, 1040 and 4097 (B=4 there) and d_head 16,
-    32 and 64. K5-fwd: out within GRAD_REL of the plain output in the L2
-    norm and elementwise within K5_OUT_TOL (its atol a share of the plain
-    output's rms, which falls as 1/sqrt(L): a tolerance fixed at LAYER_TOL's
-    3e-2 would pass a kernel that drops a key or mis-sums the denominator at
-    L=1025), and the f32 lse within K5_LSE_ATOL of the plain one; out and
+    passes them), at D=128, L 1, 17, 1025, 1040 and 4097 (B=4 there) and
+    d_head 16, 32 and 64, and at the TP 2 world's shape (K5_TP_SHAPE: the
+    ViT flagship's 4 heads a rank, D=64 from a 192-wide qkv). K5-fwd: out
+    within GRAD_REL of the plain output in the L2 norm and elementwise
+    within K5_OUT_TOL (its atol a share of the plain output's rms, which
+    falls as 1/sqrt(L): a tolerance fixed at LAYER_TOL's 3e-2 would pass a
+    kernel that drops a key or mis-sums the denominator at L=1025), and the
+    f32 lse within K5_LSE_ATOL of the plain one; out and
     lse also against the kernel's own function, `fa.attention_onepass_plain`
     (GRAD_REL, K5_LSE_ATOL). K5-bwd: dq, dk, dv each within GRAD_REL of the
     plain gradient in the L2 norm (at L=1, where dq and dk are zero in exact
@@ -1037,57 +1066,58 @@ def check_attention_kernels(device, B: int = 64) -> dict:
     difference of each kernel."""
     errs = {"k5f": 0.0, "k5b": 0.0}
     gen = torch.Generator().manual_seed(9)
-    for L in (1, 17, CONV1D_L, 1040, 4097):
-        for n_head in (8, 4, 2):
-            dh, b = 128 // n_head, 4 if L > 2048 else B
-            print(f"phase attention-kernels: K5 vs plain version on the GPU, B={b} L={L} "
-                  f"H={n_head} d_head={dh}", flush=True)
-            qkv = torch.randn((b, L, 384), generator=gen).to(device, torch.bfloat16)
-            dout = (0.1 * torch.randn((b, L, 128), generator=gen)).to(device, torch.bfloat16)
-            q, k, v = qkv.split(128, dim=-1)
-            with torch.no_grad():
-                out, lse = fa.fused_attention_fwd(q, k, v, n_head)
-                grads = fa.fused_attention_bwd(q, k, v, out, lse, dout, n_head)
-                torch.cuda.synchronize()
-                want, want_lse = fa.attention_plain(q, k, v, n_head)
-                one, one_lse = fa.attention_onepass_plain(q, k, v, n_head)
-                want_grads = fa.attention_bwd_reference(q, k, v, out, dout, n_head)
-            label = f"(L={L}, d_head {dh})"
-            rms = want.float().square().mean().sqrt().item()
-            tol = (K5_OUT_TOL[0] * rms, K5_OUT_TOL[1])
-            print(f"  K5-fwd out {label}: rms of the plain output {rms:.6g}, atol {tol[0]:.6g}",
-                  flush=True)
-            errs["k5f"] = max(errs["k5f"], check_close(f"K5-fwd out {label}", out, want, tol),
-                              check_rel(f"K5-fwd out {label}", out, want))
-            check_rel(f"K5-fwd out vs its one-pass function {label}", out, one)
-            for name, ref in (("plain", want_lse), ("one-pass", one_lse)):
-                if lse.shape != ref.shape or not torch.isfinite(lse).all():
-                    raise AssertionError(f"K5-fwd lse {label}: bad shape or values")
-                lse_err = (lse - ref).abs().max().item()
-                print(f"  K5-fwd lse {label} vs the {name} version: max |kernel - plain| = "
-                      f"{lse_err:.6g} (limit {K5_LSE_ATOL})", flush=True)
-                if not lse_err <= K5_LSE_ATOL:
-                    raise AssertionError(f"K5-fwd lse {label}: kernel disagrees with the "
-                                         f"{name} version")
-            for name, grad, want_grad in zip(("dq", "dk", "dv"), grads, want_grads):
-                floor = 1e-6 if L == 1 and name != "dv" else 0.0
-                errs["k5b"] = max(errs["k5b"], check_rel(f"K5-bwd {name} {label}", grad,
-                                                         want_grad, floor))
-            with torch.no_grad():
-                dense = [t.contiguous() for t in (q, k, v)]
-                got = [*fa.fused_attention_fwd(*dense, n_head)]
-                got += fa.fused_attention_bwd(*dense, got[0], got[1], dout, n_head)
-                same = all(torch.equal(x, y) for x, y in zip(got, (out, lse, *grads)))
-                for _ in range(30):
-                    got = [*fa.fused_attention_fwd(q, k, v, n_head)]
-                    got += fa.fused_attention_bwd(q, k, v, out, lse, dout, n_head)
-                    same = same and all(torch.equal(x, y) for x, y in
-                                        zip(got, (out, lse, *grads)))
-            print(f"  K5 {label}: contiguous inputs and 30 repeated launches give the same "
-                  f"bits: {same}", flush=True)
-            if not same:
-                raise AssertionError(f"K5 {label}: the bits moved between launches or layouts")
-            del qkv, dout, q, k, v, out, lse, grads, want, one, want_grads, dense, got
+    shapes = [(4 if L > 2048 else B, L, n_head, 128) for L in (1, 17, CONV1D_L, 1040, 4097)
+              for n_head in (8, 4, 2)] + [K5_TP_SHAPE]
+    for b, L, n_head, D in shapes:
+        dh = D // n_head
+        print(f"phase attention-kernels: K5 vs plain version on the GPU, B={b} L={L} "
+              f"H={n_head} d_head={dh}", flush=True)
+        qkv = torch.randn((b, L, 3 * D), generator=gen).to(device, torch.bfloat16)
+        dout = (0.1 * torch.randn((b, L, D), generator=gen)).to(device, torch.bfloat16)
+        q, k, v = qkv.split(D, dim=-1)
+        with torch.no_grad():
+            out, lse = fa.fused_attention_fwd(q, k, v, n_head)
+            grads = fa.fused_attention_bwd(q, k, v, out, lse, dout, n_head)
+            torch.cuda.synchronize()
+            want, want_lse = fa.attention_plain(q, k, v, n_head)
+            one, one_lse = fa.attention_onepass_plain(q, k, v, n_head)
+            want_grads = fa.attention_bwd_reference(q, k, v, out, dout, n_head)
+        label = f"(L={L}, H={n_head}, d_head {dh})"
+        rms = want.float().square().mean().sqrt().item()
+        tol = (K5_OUT_TOL[0] * rms, K5_OUT_TOL[1])
+        print(f"  K5-fwd out {label}: rms of the plain output {rms:.6g}, atol {tol[0]:.6g}",
+              flush=True)
+        errs["k5f"] = max(errs["k5f"], check_close(f"K5-fwd out {label}", out, want, tol),
+                          check_rel(f"K5-fwd out {label}", out, want))
+        check_rel(f"K5-fwd out vs its one-pass function {label}", out, one)
+        for name, ref in (("plain", want_lse), ("one-pass", one_lse)):
+            if lse.shape != ref.shape or not torch.isfinite(lse).all():
+                raise AssertionError(f"K5-fwd lse {label}: bad shape or values")
+            lse_err = (lse - ref).abs().max().item()
+            print(f"  K5-fwd lse {label} vs the {name} version: max |kernel - plain| = "
+                  f"{lse_err:.6g} (limit {K5_LSE_ATOL})", flush=True)
+            if not lse_err <= K5_LSE_ATOL:
+                raise AssertionError(f"K5-fwd lse {label}: kernel disagrees with the "
+                                     f"{name} version")
+        for name, grad, want_grad in zip(("dq", "dk", "dv"), grads, want_grads):
+            floor = 1e-6 if L == 1 and name != "dv" else 0.0
+            errs["k5b"] = max(errs["k5b"], check_rel(f"K5-bwd {name} {label}", grad,
+                                                     want_grad, floor))
+        with torch.no_grad():
+            dense = [t.contiguous() for t in (q, k, v)]
+            got = [*fa.fused_attention_fwd(*dense, n_head)]
+            got += fa.fused_attention_bwd(*dense, got[0], got[1], dout, n_head)
+            same = all(torch.equal(x, y) for x, y in zip(got, (out, lse, *grads)))
+            for _ in range(30):
+                got = [*fa.fused_attention_fwd(q, k, v, n_head)]
+                got += fa.fused_attention_bwd(q, k, v, out, lse, dout, n_head)
+                same = same and all(torch.equal(x, y) for x, y in
+                                    zip(got, (out, lse, *grads)))
+        print(f"  K5 {label}: contiguous inputs and 30 repeated launches give the same "
+              f"bits: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"K5 {label}: the bits moved between launches or layouts")
+        del qkv, dout, q, k, v, out, lse, grads, want, one, want_grads, dense, got
     torch.cuda.empty_cache()
     return errs
 
@@ -1503,6 +1533,20 @@ def check_hash_dropout(device, launches: int = 30) -> float:
             raise AssertionError(f"hash_dropout {tuple(shape)} {dtype}: the kernel differs from "
                                  f"its plain version ({err}) or between launches, or dropped "
                                  f"{dropped}")
+    # a column shard of the TP 2 FFN hidden site: lanes numbered from its
+    # first column, the whole activation's mask over them
+    x = torch.randn((256, 129, 512), generator=gen).to(device, torch.bfloat16)
+    salt = flt.site_salt(3, 1)
+    whole = flt.hash_dropout_apply(x, TRAIN_DROP, seed, salt)
+    for j in range(2):
+        part = x[..., 256 * j:256 * (j + 1)].contiguous()
+        got = flt.hash_dropout_apply(part, TRAIN_DROP, seed, salt, lane0=256 * j)
+        if not torch.equal(got, whole[..., 256 * j:256 * (j + 1)]) or not torch.equal(
+                got, flt.hash_dropout_plain(part, TRAIN_DROP, seed, salt, lane0=256 * j)):
+            raise AssertionError(f"hash_dropout with lane0 {256 * j}: not the whole "
+                                 f"activation's mask over its lanes")
+    print("  (256, 129, 256) bf16 column shards at lane0 0 and 256: the whole (256, 129, 512) "
+          "activation's bits", flush=True)
     return worst
 
 
@@ -5260,6 +5304,266 @@ def mdf_check(device) -> dict:
     return {**worst, "grads": {k: v[1] for k, v in excess.items()}}
 
 
+# the parallel phase: the ViT flagship over two ranks on the card (spawned
+# processes; two ranks share one card over gloo unless the machine has two)
+PARALLEL_BATCH, PARALLEL_TP_BATCH, PARALLEL_STEPS = 512, 256, 6
+PARALLEL_EVAL = 2048
+# per-step loss against one process (vitiq's DP bound, tests/test_train.py),
+# argmax agreement on rows whose top-2 logit margin is at least
+# PARALLEL_MARGIN, and the phase's time limit
+PARALLEL_LOSS_GAP, PARALLEL_AGREE, PARALLEL_MARGIN = 2e-3, 0.99, 0.05
+PARALLEL_SECONDS = 90.0
+
+
+def parallel_model(drop: float, device):
+    """The ViT flagship (`tpu` numerics, seed 0, dropout `drop`) on `device`
+    and its preprocess."""
+    cfg = dataclasses.replace(flagship_vit_config("tpu"), drop_prob=drop)
+    exp = train_experiment(cfg, PARALLEL_BATCH)
+    return build_forward_and_preprocess(
+        exp, AMCModel(cfg, generator=torch.Generator().manual_seed(0)), STATS, device) + (exp,)
+
+
+def parallel_inputs(tmp: Path, kind: str):
+    d = torch.load(tmp / f"inputs_{kind}.pt")
+    return d["frames"], d["labels"], d["eval"]
+
+
+def timed_steps(exp, model, pre, frames, labels, steps: int) -> tuple:
+    """`steps` make_train_step steps on one batch: (losses, host ms a step
+    after the first, the device synchronized)."""
+    step = make_train_step(make_optimizer(exp.train, model), exp.train.label_smoothing, pre)
+    state = create_train_state(model, exp.train)
+    losses, t = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, frames, labels, exp.train.dropout_seed)
+        losses.append(float(metrics["loss"]))
+        if frames.is_cuda:
+            torch.cuda.synchronize()
+        t.append(time.perf_counter() - t0)
+    return losses, 1e3 * statistics.mean(t[1:])
+
+
+def parallel_rank(rank: int, world: int, tmp: str, kind: str, steps: int,
+                  eval_batch: int) -> None:
+    """One rank of the DP 2 (`kind` "dp": K3 training at dropout 0, then K1/K2
+    evaluation) or TP 2 ("tp": the plain layers with K5 at the flagship's
+    dropout) world: the first step's whole gradient, PARALLEL_STEPS steps'
+    losses, the launches of the main path's kernels (counters zeroed just
+    before it), written to `tmp`."""
+    from vitiq_torch.data.feeds import ArrayFeed
+    from vitiq_torch.eval import predict_feed
+    from vitiq_torch.parallel import comm
+    from vitiq_torch.parallel.mesh import full_state_dict, make_mesh, shard_batch, shard_model
+
+    tmp = Path(tmp)
+    device = torch.device("cpu")
+    if torch.cuda.is_available():
+        _build.library()  # built by the parent: the ranks only load it
+        device = torch.device("cuda", torch.cuda.current_device())
+    frames, labels, eval_x = parallel_inputs(tmp, kind)
+    dp = kind == "dp"
+    mesh = make_mesh(data=2) if dp else make_mesh(data=1, model=2)
+    model, pre, exp = parallel_model(0.0 if dp else TRAIN_DROP, device)
+    shard_model(model, mesh)
+    if dp:
+        frames, labels = shard_batch((frames, labels), mesh)
+    frames, labels = frames.to(device), labels.to(device)
+    names = [n for n, _ in model.named_parameters()]
+    model.train()
+    loss = label_smoothed_cross_entropy(model(pre(frames), seed=TRAIN_SEED), labels, 0.1)
+    grads = dict(zip(names, torch.autograd.grad(loss, list(model.parameters()))))
+    grads = full_state_dict(model, grads)
+    grad = torch.cat([grads[n].reshape(-1).float() for n in names])
+    comm.all_reduce_(grad, mesh.data_group)
+    grad /= mesh.data_size
+    reset_all_launches()
+    losses, ms = timed_steps(exp, model, pre, frames, labels, steps)
+    out = {"backend": comm.dist.get_backend(), "grad": grad.cpu(), "losses": losses, "ms": ms,
+           "train_launches": all_launches()}
+    if dp:
+        reset_all_launches()
+        model.eval()
+        out["preds"] = predict_feed(model, ArrayFeed(eval_x.numpy(), np.zeros(len(eval_x),
+                                                                              np.int32)),
+                                    eval_batch, device, pre)[0]
+        out["eval_launches"] = all_launches()
+    torch.save(out, tmp / f"{kind}{rank}.pt")
+
+
+def parallel_check(device, card: str) -> dict:
+    """The parallel phase: the ViT flagship in two worlds of two ranks
+    (`parallel.comm.spawn`, each rank a process on the card, after this
+    process has built the kernel library) against one process on the same
+    inputs: DP 2 trains through K3 at a global B=PARALLEL_BATCH, dropout 0,
+    then evaluates PARALLEL_EVAL frames through K1/K2 sharded; TP 2 trains
+    through the plain layers with K5 on 4 heads and FFN 256 a rank at the
+    flagship's dropout, against one process's plain layers
+    (VITIQ_FUSED_TRAIN=0) at B=PARALLEL_TP_BATCH. Gated: every step's loss
+    within PARALLEL_LOSS_GAP relative, the first step's gradient cosine >=
+    COSINE_F32, argmax agreement >= PARALLEL_AGREE on confident rows, each
+    rank's launches of K3 (DP), K1/K2 (DP eval) and K5 (TP), and the phase
+    within PARALLEL_SECONDS. Returns each rank's launches."""
+    import tempfile
+
+    from vitiq_torch.data.feeds import ArrayFeed
+    from vitiq_torch.eval import predict_feed
+    from vitiq_torch.parallel import comm
+
+    t_start = time.perf_counter()
+    print(f"phase parallel: the ViT flagship over 2 ranks (DP 2, then TP 2) on {card}",
+          flush=True)
+    gen = torch.Generator().manual_seed(23)
+    L = flagship_vit_config("tpu").seq_length
+    frames = torch.randn((PARALLEL_BATCH, L, 2), generator=gen)
+    labels = torch.randint(0, flagship_vit_config("tpu").num_classes, (PARALLEL_BATCH,),
+                           generator=gen)
+    eval_x = torch.randn((PARALLEL_EVAL, L, 2), generator=gen)
+    n = flagship_vit_config("tpu").n_layers
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        tmp = Path(tmp)
+        runs = (("dp", PARALLEL_BATCH, 0.0), ("tp", PARALLEL_TP_BATCH, TRAIN_DROP))
+        for kind, batch, _ in runs:
+            torch.save({"frames": frames[:batch], "labels": labels[:batch], "eval": eval_x},
+                       tmp / f"inputs_{kind}.pt")
+        for kind, batch, drop in runs:
+            env = {} if kind == "dp" else {"VITIQ_FUSED_TRAIN": "0"}
+            os.environ.update(env)
+            try:
+                model, pre, exp = parallel_model(drop, device)
+                x, y = frames[:batch].to(device), labels[:batch].to(device)
+                g_one = flat_grad(model, pre(x), y, TRAIN_SEED)
+                one_losses, one_ms = timed_steps(exp, model, pre, x, y, PARALLEL_STEPS)
+                if kind == "dp":
+                    model.eval()
+                    preds = predict_feed(model, ArrayFeed(eval_x.numpy(),
+                                                          np.zeros(PARALLEL_EVAL, np.int32)),
+                                         PARALLEL_BATCH, device, pre)[0]
+                    with torch.no_grad():
+                        top2 = torch.cat([model(pre(eval_x[i:i + PARALLEL_BATCH].to(device)))
+                                          .topk(2, dim=-1).values
+                                          for i in range(0, PARALLEL_EVAL, PARALLEL_BATCH)])
+                    confident = (top2[:, 0] - top2[:, 1] >= PARALLEL_MARGIN).cpu().numpy()
+            finally:
+                for k in env:
+                    del os.environ[k]
+            del model
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            comm.spawn(parallel_rank, 2, str(tmp), kind, PARALLEL_STEPS, PARALLEL_BATCH,
+                       device=device.type)
+            world_s = time.perf_counter() - t0
+            ranks = [torch.load(tmp / f"{kind}{r}.pt", weights_only=False) for r in range(2)]
+            label = (f"DP 2 (K3, B={batch}, {batch // 2} a rank, dropout 0)" if kind == "dp"
+                     else f"TP 2 (plain layers with K5, 4 heads and FFN 256 a rank, B={batch}, "
+                     f"dropout {TRAIN_DROP})")
+            print(f"  {label}: backend {ranks[0]['backend']}, world up and done in "
+                  f"{world_s:.1f} s on {card}", flush=True)
+            gaps = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], one_losses)]
+            print(f"    losses {['%.6g' % v for v in ranks[0]['losses']]} vs one process "
+                  f"{['%.6g' % v for v in one_losses]}: max relative gap {max(gaps):.3g} "
+                  f"(limit {PARALLEL_LOSS_GAP})", flush=True)
+            cos = torch.nn.functional.cosine_similarity(ranks[0]["grad"], g_one.cpu(),
+                                                        dim=0).item()
+            print(f"    first step's gradient cosine vs one process {cos:.6f} (limit "
+                  f"{COSINE_F32})", flush=True)
+            print(f"    ms a step (host clock, synchronized; two ranks share the card, not a "
+                  f"gain): ranks {ranks[0]['ms']:.2f} / {ranks[1]['ms']:.2f}, one process "
+                  f"{one_ms:.2f}, on {card}", flush=True)
+            if ranks[0]["losses"] != ranks[1]["losses"]:
+                raise AssertionError(f"{label}: the ranks' reduced losses differ")
+            if not max(gaps) <= PARALLEL_LOSS_GAP or not cos >= COSINE_F32:
+                raise AssertionError(f"{label}: the world's training diverges from one process")
+            want = ({K3[0]: n * PARALLEL_STEPS, K3[1]: n * PARALLEL_STEPS, K5[0]: 0, K5[1]: 0}
+                    if kind == "dp" else
+                    {K3[0]: 0, K3[1]: 0, K5[0]: n * PARALLEL_STEPS, K5[1]: n * PARALLEL_STEPS})
+            for r, res in enumerate(ranks):
+                got = {k: res["train_launches"][k] for k in want}
+                print(f"    rank {r} train launches: {got}", flush=True)
+                if got != want:
+                    raise AssertionError(f"{label} rank {r} launched {got}, expected {want}")
+            results[kind] = ranks
+        ranks = results["dp"]
+        eval_want = {"fused_encoder_layer": (n - 1) * PARALLEL_EVAL // PARALLEL_BATCH,
+                     "fused_encoder_layer_cls": PARALLEL_EVAL // PARALLEL_BATCH}
+        for r, res in enumerate(ranks):
+            got = {k: res["eval_launches"][k] for k in eval_want}
+            print(f"    rank {r} K1/K2 launches over {PARALLEL_EVAL} frames: {got}", flush=True)
+            if got != eval_want:
+                raise AssertionError(f"DP 2 evaluation rank {r} launched {got}, expected "
+                                     f"{eval_want}")
+            if not np.array_equal(res["preds"], ranks[0]["preds"]):
+                raise AssertionError("the ranks' gathered predictions differ")
+        agree = float((ranks[0]["preds"][confident] == preds[confident]).mean())
+        print(f"  DP 2 evaluation (K1/K2, {PARALLEL_BATCH // 2} rows a rank a batch): argmax "
+              f"agreement with one process {agree:.4f} on {int(confident.sum())} confident rows "
+              f"(margin >= {PARALLEL_MARGIN}; limit {PARALLEL_AGREE}), "
+              f"{float((ranks[0]['preds'] == preds).mean()):.4f} on all", flush=True)
+        if not agree >= PARALLEL_AGREE:
+            raise AssertionError("the sharded evaluation disagrees with one process")
+    seconds = time.perf_counter() - t_start
+    print(f"  parallel phase {seconds:.1f} s (limit {PARALLEL_SECONDS:.0f}) on {card}",
+          flush=True)
+    if seconds > PARALLEL_SECONDS:
+        raise AssertionError(f"the parallel phase took {seconds:.1f} s")
+    return {"dp_train": [r["train_launches"] for r in results["dp"]],
+            "dp_eval": [r["eval_launches"] for r in results["dp"]],
+            "tp_train": [r["train_launches"] for r in results["tp"]]}
+
+
+PARALLEL_CLI_FRAMES = 512  # synthetic frames a class for the torchrun runs
+
+
+def parallel_cli_check(card: str) -> dict:
+    """The parallel-cli phase: ``cli train`` of the ViT flagship (``--arm vit
+    --numerics tpu``, the 3-class synthetic corpus at PARALLEL_CLI_FRAMES a
+    class, one epoch, B=256) under torchrun (`torch.distributed.run
+    --standalone --nproc_per_node 2`), once with ``--data_parallel 2`` and
+    once with ``--model_parallel 2``, in a temporary directory. Each must
+    exit 0, print its backend, and leave a summary.json of one epoch and a
+    model_best.npz in the one-process layout (`load_params`). Returns each
+    run's seconds and test accuracy."""
+    import tempfile
+
+    print(f"phase parallel-cli: `cli train` of the ViT flagship under torchrun, DP 2 and TP 2, "
+          f"on {card}", flush=True)
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    out = {}
+    for flag in ("--data_parallel", "--model_parallel"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node", "2", "-m", "vitiq_torch.cli", "train", "--arm", "vit",
+                   "--source", "synthetic", "--numerics", "tpu", "--frames_per_class",
+                   str(PARALLEL_CLI_FRAMES), "--num_epochs", "1", "--no_plots", flag, "2"]
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True,
+                                 timeout=300)
+            seconds = time.perf_counter() - t0
+            if run.returncode != 0:
+                print(run.stdout[-4000:], run.stderr[-4000:], flush=True)
+                raise AssertionError(f"torchrun cli train {flag} 2 exited {run.returncode}")
+            backend = [ln for ln in run.stdout.splitlines() if ln.startswith("process group:")]
+            exp_dir = Path(tmp) / "result" / "checkpoints" / "exp"
+            summary = json.loads((exp_dir / "summary.json").read_text())
+            cfg = ExperimentConfig.from_json(str(exp_dir / "config.json"))
+            whole = AMCModel(cfg.model)
+            whole.load_state_dict(load_params(exp_dir / "model_best.npz", cfg.model))
+            print(f"  {flag} 2: exit 0 in {seconds:.1f} s (world start included) on {card}; "
+                  f"{backend[0] if backend else 'no backend line'}; epochs "
+                  f"{summary['epochs_run']}, test accuracy "
+                  f"{summary['test_overall_accuracy']:.4f}; model_best.npz loads into a "
+                  f"one-process model ({sum(p.numel() for p in whole.parameters()):,} "
+                  f"parameters)", flush=True)
+            if not backend or summary["epochs_run"] != 1:
+                raise AssertionError(f"torchrun cli train {flag} 2: no backend line or no epoch")
+            out[flag.strip("-")] = {"seconds": seconds,
+                                    "test_accuracy": summary["test_overall_accuracy"]}
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5309,6 +5613,11 @@ def main() -> int:
     if sys.argv[1:] == ["--steps"]:
         print(f"phase steps: train steps through the plain dropout sites on {card}:", flush=True)
         print(json.dumps({"steps": time_steps(device, card)}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--parallel"]:
+        launches = parallel_check(device, card)
+        print(json.dumps({"parallel_launches": launches, "parallel_cli": parallel_cli_check(card)}),
+              flush=True)
         return 0
     if sys.argv[1:] == ["--k2k7"]:
         print(f"phase k2k7: K2's and K7's layers, K7's core and their stages on {card}:",
@@ -5398,6 +5707,9 @@ def main() -> int:
     mdf_check(device)
     scanned = scan_train_check(device, card)
     sweep_check(device, card)
+    torch.cuda.empty_cache()
+    parallel = parallel_check(device, card)
+    parallel_cli_check(card)
 
     print(f"phase timing (CUDA events after warm-up) on {card}:", flush=True)
     times = {name: time_serving_layers(name, L, ffn, B, D, device, card)
@@ -5531,6 +5843,9 @@ def main() -> int:
             and flt.recompute_tile_plan(129, 16)["bwd_wgmma"]):
         raise AssertionError("K3's wgmma passes are not on the main path's route")
 
+    def par(world, name):  # each rank's launches in the parallel phase
+        return [r[name] for r in parallel[world]]
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -5544,11 +5859,13 @@ def main() -> int:
         {**entry("fused_encoder_layer (K1, full layers)", SOURCE, f"{TPU_SOURCE}:717",
                  counts["fused_encoder_layer"], errs["k1"], vt["k1_ms"], vt["k1_plain_ms"],
                  vt["k1"], vt["k1_library_ms"]),
-         "export_launches": exported["attention_core_kernel"]},
+         "export_launches": exported["attention_core_kernel"],
+         "parallel_launches": par("dp_eval", "fused_encoder_layer")},
         {**entry("fused_encoder_layer_cls (K2, CLS row)", SOURCE, f"{TPU_SOURCE}:920",
                  counts["fused_encoder_layer_cls"], errs["k2"], vt["k2_ms"], vt["k2_plain_ms"],
                  vt["k2"], None),
-         "export_launches": exported["cls_pool_kernel"]},
+         "export_launches": exported["cls_pool_kernel"],
+         "parallel_launches": par("dp_eval", "fused_encoder_layer_cls")},
         entry("fused_encoder_layer_int8 (K6, W8A8 full layers)", SOURCE, f"{TPU_SOURCE}:1695",
               vit8["counts"][K6], errs["k6"], vt["k6_ms"], vt["k6_plain_ms"], vt["k6"], None),
         {**entry("cls_pool_kernel (K2's pooling: the CLS query's attention as one read of x)",
@@ -5570,11 +5887,11 @@ def main() -> int:
         {**entry("fused_train_layer_fwd (K3-fwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:417",
                  k3["fused_train_layer_fwd"], errs["k3f"], vt["k3f_ms"], vt["k3f_plain_ms"],
                  vt["k3f"], None),
-         "scan_launches": scan_k3[K3[0]]},
+         "scan_launches": scan_k3[K3[0]], "parallel_launches": par("dp_train", K3[0])},
         {**entry("fused_train_layer_bwd (K3-bwd)", TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:674",
                  k3["fused_train_layer_bwd"], errs["k3b"], vt["k3b_ms"], vt["k3b_plain_ms"],
                  vt["k3b"], None),
-         "scan_launches": scan_k3[K3[1]]},
+         "scan_launches": scan_k3[K3[1]], "parallel_launches": par("dp_train", K3[1])},
         entry("wg_recompute_attention_fwd (K3's attention forward pass, rawiq_best)",
               TRAIN_SOURCE, f"{TRAIN_TPU_SOURCE}:202", bk3[K3[0]] + bk3[K3[1]],
               errs["k3_fwd_pass"], kp["rawiq_best"]["fwd_ms"], kp["rawiq_best"]["fwd_plain_ms"],
@@ -5590,12 +5907,14 @@ def main() -> int:
                  f"{TRAIN_TPU_SOURCE}:674", k4["fused_train_layer_bwd_stash"], errs["k4b"],
                  rt["k4b_ms"], rt["k4b_plain_ms"], rt["k4b"], None),
          "scan_launches": scan_k4[K4[1]]},
-        entry("fused_attention_fwd (K5-fwd)", ATTN_SOURCE, f"{ATTN_TPU_SOURCE}:62",
-              k5[K5[0]], errs["k5f"], ct["k5f_ms"], ct["k5f_plain_ms"], ct["k5f"],
-              ct["sdpa_fwd_ms"]),
-        entry("fused_attention_bwd (K5-bwd)", ATTN_SOURCE, f"{ATTN_TPU_SOURCE}:176",
-              k5[K5[1]], errs["k5b"], ct["k5b_ms"], ct["k5b_plain_ms"], ct["k5b"],
-              ct["sdpa_bwd_ms"]),
+        {**entry("fused_attention_fwd (K5-fwd)", ATTN_SOURCE, f"{ATTN_TPU_SOURCE}:62",
+                 k5[K5[0]], errs["k5f"], ct["k5f_ms"], ct["k5f_plain_ms"], ct["k5f"],
+                 ct["sdpa_fwd_ms"]),
+         "parallel_launches": par("tp_train", K5[0])},
+        {**entry("fused_attention_bwd (K5-bwd)", ATTN_SOURCE, f"{ATTN_TPU_SOURCE}:176",
+                 k5[K5[1]], errs["k5b"], ct["k5b_ms"], ct["k5b_plain_ms"], ct["k5b"],
+                 ct["sdpa_bwd_ms"]),
+         "parallel_launches": par("tp_train", K5[1])},
     ]
     dt = times[DROP_KERNEL]
     kernels.append({**entry("hash_dropout_kernel (the plain dropout sites: the embedding's and "

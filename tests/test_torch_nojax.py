@@ -282,6 +282,7 @@ from vitiq_torch.models import AMCModel
 from vitiq_torch.sweep import decode_particle, make_amc_fitness
 from vitiq_torch.train import fit
 import vitiq_torch.viz  # noqa: F401  (matplotlib only inside its functions)
+import vitiq_torch.parallel.comm  # noqa: F401  (the device mesh)
 
 stats = {"i_mean": 0.0, "i_std": 1.0, "q_mean": 0.0, "q_std": 1.0}
 rng = np.random.default_rng(0)

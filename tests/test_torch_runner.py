@@ -148,8 +148,9 @@ def test_a_missing_resume_starts_fresh(tmp_path, capsys):
 @pytest.mark.parametrize("args", [["--data_parallel", "2"], ["--model_parallel", "2"]],
                          ids=lambda a: "".join(a).strip("-"))
 def test_cli_train_refuses_what_the_port_cannot_run(args):
+    """A two-rank mesh in a process group of one rank raises."""
     base = ["--arm", "rawiq", "--source", "synthetic"]
-    with pytest.raises(NotImplementedError, match="cannot run"):
+    with pytest.raises(ValueError, match="needs a process group of 2 ranks"):
         cli.main(["train", "--device", "cpu", *base, *args])
 
 

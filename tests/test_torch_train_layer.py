@@ -212,7 +212,7 @@ def _vit(numerics="tpu", d_model=128, ffn=256):
 @pytest.mark.parametrize("numerics,env,kw,fused", [
     ("tpu", None, {"seed": 3}, True),
     ("tpu", "0", {"seed": 3}, False),         # VITIQ_FUSED_TRAIN=0
-    ("tpu", None, {}, False),                 # no step seed
+    ("tpu", None, {}, False),                 # no step seed: raises, as vitiq does
     ("reference", None, {"seed": 3}, False),  # f32 policy
     ("tpu", None, {"seed": 3, "d_model": 64}, False),  # shape the kernels do not take
 ])
@@ -231,6 +231,11 @@ def test_training_dispatch(numerics, env, kw, fused, monkeypatch):
     model = AMCModel(_vit(numerics, **kw), generator=torch.Generator().manual_seed(0)).train()
     src = torch.from_numpy(np.random.default_rng(6).standard_normal((2, 1, 16, 16))
                            .astype(np.float32))
+    if seed is None:  # training with dropout and no seed raises before any layer runs
+        with pytest.raises(ValueError, match="requires the step's seed"):
+            model(src)
+        assert calls == []
+        return
     logits = model(src, seed=seed)
     logits.sum().backward()
     assert logits.shape == (2, 5)

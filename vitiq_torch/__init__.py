@@ -68,10 +68,13 @@ counter, dropout seed, learning rate and AdamW state on the device, K3/K4
 reading the seed from device memory), the PSO hyperparameter sweep
 (`sweep.py`, `python -m vitiq_torch.cli sweep`: each architecture's short
 training one captured graph on the card) and the preprocessing figures
-(`viz.py`, `python -m vitiq_torch.cli visualize`, a host tool).
+(`viz.py`, `python -m vitiq_torch.cli visualize`, a host tool); and the
+device mesh (`parallel/`: data and tensor parallelism over
+`torch.distributed`, one process a rank, started by torchrun or
+`parallel.comm.spawn`), `ProcessShardFeed`, and `cli train --data_parallel /
+--model_parallel`.
 
-Not ported yet: the device mesh and data parallelism (`vitiq/parallel/`,
-`ProcessShardFeed`) and the benchmark (`cli bench`).
+Not ported yet: the benchmark (`cli bench`).
 
 Not ported, by design: `vitiq/utils/compile_cache.py` keeps XLA's persistent
 compilation cache, and the port compiles nothing at run time but its kernel

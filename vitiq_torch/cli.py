@@ -41,9 +41,16 @@ unless ``--source synthetic`` is given. ``--sps`` 2 or more runs the SPS
 front-end (RRC matched filter, then ``--timing_method``; the Gardner and
 Mueller-Mueller loops are one kernel launch on the card) before the model,
 and ``--features`` picks the arm's input; `config.json` keeps both, so
-``evaluate`` re-derives the same front-end. A configuration the port cannot
-run yet raises instead of being dropped: ``--data_parallel`` /
-``--model_parallel`` above 1.
+``evaluate`` re-derives the same front-end.
+
+``train --data_parallel D --model_parallel M`` trains over a (data, model)
+mesh of D x M ranks, one process each, started by torchrun::
+
+    torchrun --nproc_per_node 2 -m vitiq_torch.cli train --data_parallel 2 ...
+
+(`runner.start_ranks`: NCCL when every local rank has a card of its own,
+gloo otherwise, e.g. two ranks sharing one card; the world must be D x M;
+scan training is off above one rank).
 """
 
 from __future__ import annotations
@@ -127,15 +134,6 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                    help="Skip the plots (they need matplotlib and seaborn)")
 
 
-def _unsupported(cfg: ExperimentConfig) -> list:
-    """What of `cfg` the port cannot run yet."""
-    out = []
-    if cfg.train.data_parallel > 1 or cfg.train.model_parallel > 1:
-        out.append(f"data_parallel={cfg.train.data_parallel}, model_parallel="
-                   f"{cfg.train.model_parallel} (one device only)")
-    return out
-
-
 def _config_from_args(args) -> ExperimentConfig:
     if args.config:
         cfg = ExperimentConfig.from_json(args.config)
@@ -187,27 +185,22 @@ def _config_from_args(args) -> ExperimentConfig:
     if cfg.data.source == "synthetic":
         # synthetic class count drives the head size
         cfg.model.num_classes = len(cfg.data.synthetic_classes)
-    _check_supported(cfg)
     if not args.no_validate_config:
         cfg.validate(check_paths=cfg.data.source == "hdf5")
     return cfg
 
 
-def _check_supported(cfg: ExperimentConfig) -> None:
-    unsupported = _unsupported(cfg)
-    if unsupported:
-        raise NotImplementedError("the port cannot run this configuration yet: "
-                                  + "; ".join(unsupported))
-
-
 def cmd_train(args) -> int:
     from vitiq_torch.runner import run_training
+
+    from vitiq_torch.parallel import comm
 
     cfg = _config_from_args(args)
     summary = run_training(cfg, resume=args.resume, device=args.device,
                            make_plots=not args.no_plots)
-    print(json.dumps({k: v for k, v in summary.items() if k != "history"}, indent=2,
-                     default=float))
+    if comm.rank() == 0:
+        print(json.dumps({k: v for k, v in summary.items() if k != "history"}, indent=2,
+                         default=float))
     return 0
 
 
@@ -273,7 +266,6 @@ def head_to_head_configs(args):
     rawiq_cfg.data = copy.deepcopy(vit_cfg.data)  # identical data for both arms
     rawiq_cfg.data.features = "iq"
     rawiq_cfg.experiment_name = f"{base_name}_rawiq"
-    _check_supported(rawiq_cfg)
     return vit_cfg, rawiq_cfg
 
 

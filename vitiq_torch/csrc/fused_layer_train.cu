@@ -3375,7 +3375,8 @@ __device__ __forceinline__ void drop_out(bf16& o, float f) { o = __float2bfloat1
 template <class T, int VEC>
 __global__ void __launch_bounds__(THREADS) hash_dropout_kernel(const T* __restrict__ x,
                                                                T* __restrict__ out, Drop d,
-                                                               long long rows, int W) {
+                                                               long long rows, int W,
+                                                               int lane0) {
   const uint32_t ss = seed_salt(d);
   const int per_row = W / VEC;
   const long long n = rows * per_row;
@@ -3394,7 +3395,7 @@ __global__ void __launch_bounds__(THREADS) hash_dropout_kernel(const T* __restri
     }
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
-      const float k = keep_of(d, ss, mix, c0 + j);
+      const float k = keep_of(d, ss, mix, lane0 + c0 + j);
       drop_out(v[j], k != 0.f ? drop_in(v[j]) * k : 0.f);
     }
     if constexpr (VEC * sizeof(T) == 16) {
@@ -3408,23 +3409,25 @@ __global__ void __launch_bounds__(THREADS) hash_dropout_kernel(const T* __restri
 
 template <class T, int VEC>
 cudaError_t launch_hash_dropout(const void* x, void* out, const Drop& d, long long rows, int W,
-                                cudaStream_t stream) {
+                                int lane0, cudaStream_t stream) {
   const long long n = rows * (W / VEC);
   const long long blocks = std::min<long long>((n + THREADS - 1) / THREADS, 132LL * 16);
   hash_dropout_kernel<T, VEC><<<(int)blocks, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), d, rows, W);
+      static_cast<const T*>(x), static_cast<T*>(out), d, rows, W, lane0);
   return cudaGetLastError();
 }
 
 // The plain sites' dropout: out [rows, W] = x [rows, W] * scale where the
 // position hash of (frame r / L, token r % L, lane w) + seed + salt keeps it
 // (its low 31 bits >= thresh), else +0; dtype 0 bf16, 1 f32. `seed` points to
-// the step's int32 seed in device memory; `salt` is the site's. Returns the
-// launch's error, or cudaErrorInvalidValue at an empty or ragged shape.
+// the step's int32 seed in device memory; `salt` is the site's; the lanes are
+// numbered from `lane0` (a column shard's first lane in the whole activation).
+// Returns the launch's error, or cudaErrorInvalidValue at an empty or ragged
+// shape.
 extern "C" int vitiq_hash_dropout(const void* x, void* out, long long rows, int L, int W,
                                   int dtype, uint32_t thresh, float scale, const int* seed,
-                                  uint32_t salt, void* stream_ptr) {
-  if (rows <= 0 || L <= 0 || W <= 0 || rows % L != 0 || (dtype != 0 && dtype != 1))
+                                  uint32_t salt, int lane0, void* stream_ptr) {
+  if (rows <= 0 || L <= 0 || W <= 0 || lane0 < 0 || rows % L != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Drop d;
   d.seed = seed;
@@ -3436,8 +3439,10 @@ extern "C" int vitiq_hash_dropout(const void* x, void* out, long long rows, int 
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   if (dtype == 0)
-    return (int)(aligned && W % 8 == 0 ? launch_hash_dropout<bf16, 8>(x, out, d, rows, W, st)
-                                       : launch_hash_dropout<bf16, 1>(x, out, d, rows, W, st));
-  return (int)(aligned && W % 4 == 0 ? launch_hash_dropout<float, 4>(x, out, d, rows, W, st)
-                                     : launch_hash_dropout<float, 1>(x, out, d, rows, W, st));
+    return (int)(aligned && W % 8 == 0
+                     ? launch_hash_dropout<bf16, 8>(x, out, d, rows, W, lane0, st)
+                     : launch_hash_dropout<bf16, 1>(x, out, d, rows, W, lane0, st));
+  return (int)(aligned && W % 4 == 0
+                   ? launch_hash_dropout<float, 4>(x, out, d, rows, W, lane0, st)
+                   : launch_hash_dropout<float, 1>(x, out, d, rows, W, lane0, st));
 }

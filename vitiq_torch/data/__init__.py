@@ -3,7 +3,13 @@ split and normalization statistics, the HDF5 source and packed shards, the
 in-RAM and streaming feeds, and the prefetching host-to-device feed. h5py is
 imported only where an HDF5 file is read; nothing here needs scikit-learn."""
 
-from vitiq_torch.data.feeds import ArrayFeed, DataFeed, StreamFeed, as_feed  # noqa: F401
+from vitiq_torch.data.feeds import (  # noqa: F401
+    ArrayFeed,
+    DataFeed,
+    ProcessShardFeed,
+    StreamFeed,
+    as_feed,
+)
 from vitiq_torch.data.hdf5 import (  # noqa: F401
     HDF5DataSource,
     PackedDataSource,

@@ -11,9 +11,14 @@
   epoch the same under `shuffle_seed + epoch`; `close()` releases its
   storage handle.
 
-Both yield host numpy batches; `fit` and the evaluations copy them to the
-card through `data/pipeline.py`'s `device_prefetch`. The per-process feed
-(`ProcessShardFeed`) waits for the device mesh.
+* `ProcessShardFeed` is one rank's view of a global feed on a device mesh:
+  every rank builds the same feed (the same seeds, so the same global
+  permutation) and takes the rows of each global batch that its data index
+  owns (`parallel.mesh.process_local_rows`); `fit` wraps its feeds so
+  whenever the process group has more than one rank.
+
+All yield host numpy batches; `fit` and the evaluations copy them to the
+card through `data/pipeline.py`'s `device_prefetch`.
 """
 
 from __future__ import annotations
@@ -120,6 +125,55 @@ class StreamFeed(DataFeed):
 
     def raw_batches(self, batch_size: int) -> Iterator[RawBatch]:
         return self._make_iter(batch_size=batch_size, shuffle=False, seed=0, drop_last=False)
+
+
+class ProcessShardFeed(DataFeed):
+    """One process's rows of a global feed on a device mesh (vitiq's
+    `ProcessShardFeed`): train and eval batches are sliced to the rows that
+    `process_local_rows(mesh, batch_size, process_index, process_of_device)`
+    gives (default: this rank's), and a partial batch raises, since its rows
+    would be mis-sharded; `raw_batches` stays global (the host-side
+    confusion evaluation takes whole, possibly partial, batches)."""
+
+    def __init__(self, inner: DataFeed, mesh, process_index=None, process_of_device=None):
+        self._inner = inner
+        self._mesh = mesh
+        self._process_index = process_index
+        self._process_of_device = process_of_device
+        self.num_samples = inner.num_samples
+
+    def local_rows(self, global_batch: int) -> slice:
+        from vitiq_torch.parallel.mesh import process_local_rows
+
+        return process_local_rows(self._mesh, global_batch, process_index=self._process_index,
+                                  process_of_device=self._process_of_device)
+
+    def close(self) -> None:
+        self._inner.close()
+
+    def train_batches(self, epoch: int, batch_size: int) -> Iterator[Batch]:
+        sl = self.local_rows(batch_size)
+        for bx, by in self._inner.train_batches(epoch, batch_size):
+            if bx.shape[0] != batch_size:
+                raise ValueError(
+                    f"ProcessShardFeed.train_batches: got a partial batch of "
+                    f"{bx.shape[0]} rows (expected {batch_size}); per-process "
+                    f"sharding requires equal-size batches — use a drop-last "
+                    f"train feed")
+            yield bx[sl], by[sl]
+
+    def eval_batches(self, batch_size: int) -> Iterator[EvalBatch]:
+        sl = self.local_rows(batch_size)
+        for bx, by, mask in self._inner.eval_batches(batch_size):
+            if bx.shape[0] != batch_size:
+                raise ValueError(
+                    f"ProcessShardFeed.eval_batches: got a partial batch of "
+                    f"{bx.shape[0]} rows (expected {batch_size}); pad+mask "
+                    f"eval batches to a fixed size before process sharding")
+            yield bx[sl], by[sl], mask[sl]
+
+    def raw_batches(self, batch_size: int) -> Iterator[RawBatch]:
+        return self._inner.raw_batches(batch_size)
 
 
 def as_feed(data, shuffle_seed: int = 0) -> DataFeed:

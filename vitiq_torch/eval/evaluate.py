@@ -14,7 +14,12 @@ The plots need matplotlib and seaborn (``make_plots=False`` skips them); the
 confusion matrices and the report are numpy. Batches reach the device
 through `data/pipeline.py`'s `device_prefetch` (on the card: pinned memory,
 a side stream, a worker thread ahead of the model), and the predictions stay
-on the device until the pass ends: one copy to the host a pass.
+on the device until the pass ends: one copy to the host a pass. On a device
+mesh (the model's, recorded by `parallel.mesh.shard_model`; vitiq's
+`predict_all` takes one) each data rank predicts its rows of every padded
+batch and the whole predictions are gathered by
+one all-reduce of a zeroed buffer over the data group at the end of the
+pass (gloo has no all-gather for CUDA tensors); every rank returns them.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import torch
 
 from vitiq_torch.data.pipeline import device_prefetch
 from vitiq_torch.eval.report import confusion_matrix, write_classification_report
+from vitiq_torch.parallel.comm import all_reduce_
+from vitiq_torch.parallel.mesh import batch_sharding, model_mesh
 
 TARGET_SNRS = (-8, 0, 8)  # ref: ViT/training/utils.py:349
 
@@ -39,8 +46,18 @@ def predict_feed(forward_fn: Callable, feed, batch_size: int, device,
     padded to `batch_size` with zero frames on the host, prefetched to
     `device`, run through `preprocess_fn` and `forward_fn`, and the argmax of
     its valid rows kept on the device; labels and SNRs stay on the host.
-    Returns (preds, labels, snrs) numpy, the predictions copied once."""
+    Returns (preds, labels, snrs) numpy, the predictions copied once. When
+    `forward_fn` is a model sharded over a mesh, each rank runs its data
+    index's rows of every batch and the predictions are gathered over the
+    data group; `batch_size` must divide over the mesh's data axes."""
     device = torch.device(device)
+    mesh = model_mesh(forward_fn)
+    rows = slice(None)
+    if mesh is not None:
+        if batch_size % mesh.data_size:
+            raise ValueError(f"batch_size {batch_size} must divide evenly over the mesh's "
+                             f"data axes {mesh.shape}")
+        rows = batch_sharding(mesh, batch_size)
 
     def padded():
         for bx, by, bz in feed.raw_batches(batch_size):
@@ -49,16 +66,25 @@ def predict_feed(forward_fn: Callable, feed, batch_size: int, device,
             if n_valid < batch_size:
                 bx = np.concatenate(
                     [bx, np.zeros((batch_size - n_valid,) + bx.shape[1:], bx.dtype)])
-            yield bx, (np.asarray(by), np.asarray(bz)), n_valid
+            yield bx[rows], (np.asarray(by), np.asarray(bz)), n_valid
 
-    preds, labels, snrs = [], [], []
+    preds, labels, snrs, valid = [], [], [], []
     for x, (by, bz), n_valid in device_prefetch(padded(), device, prefetch_depth):
         x = torch.as_tensor(x, device=device)
         inputs = preprocess_fn(x) if preprocess_fn is not None else x
-        preds.append(forward_fn(inputs).argmax(dim=-1)[:n_valid])
+        preds.append(forward_fn(inputs).argmax(dim=-1))
         labels.append(by)
         snrs.append(bz)
-    return torch.cat(preds).cpu().numpy(), np.concatenate(labels), np.concatenate(snrs)
+        valid.append(n_valid)
+    if not preds:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.float32)
+    local = torch.stack(preds)  # [batches, the rank's rows]
+    if mesh is not None and mesh.data_size > 1:
+        whole = torch.zeros((len(preds), batch_size), dtype=torch.int64, device=local.device)
+        whole[:, rows] = local
+        local = all_reduce_(whole, mesh.data_group)
+    out = torch.cat([row[:n] for row, n in zip(local, valid)])
+    return out.cpu().numpy(), np.concatenate(labels), np.concatenate(snrs)
 
 
 def evaluate_feed_with_confusion(
@@ -74,8 +100,14 @@ def evaluate_feed_with_confusion(
     make_plots: bool = True,
     verbose: bool = True,
 ) -> Dict:
-    """`predict_feed` then `confusion_artifacts`; returns the results dict."""
+    """`predict_feed` then `confusion_artifacts`; returns the results dict.
+    For a model sharded over a mesh every rank predicts and only rank 0
+    writes the artifacts (the others return the results unwritten)."""
     preds, labels, snrs = predict_feed(forward_fn, feed, batch_size, device, preprocess_fn)
+    mesh = model_mesh(forward_fn)
+    if mesh is not None and mesh.rank != 0:
+        save_pickle = make_plots = verbose = False
+        save_dir = None
     return confusion_artifacts(preds, labels, snrs, class_names, save_dir, prefix=prefix,
                                save_pickle=save_pickle, make_plots=make_plots,
                                verbose=verbose)
@@ -93,9 +125,13 @@ def confusion_artifacts(
     verbose: bool = True,
 ) -> Dict:
     """The confusion matrices, the report, accuracy against SNR and the
-    pickle, given predictions (ref: ViT/training/utils.py:284-466)."""
-    save_dir = Path(save_dir)
-    save_dir.mkdir(parents=True, exist_ok=True)
+    pickle, given predictions (ref: ViT/training/utils.py:284-466). With
+    `save_dir` None nothing is written (nor plotted)."""
+    if save_dir is None:
+        save_pickle = make_plots = False
+    else:
+        save_dir = Path(save_dir)
+        save_dir.mkdir(parents=True, exist_ok=True)
     if make_plots:
         from vitiq_torch.eval.plots import plot_accuracy_vs_snr, plot_confusion_matrix
 
@@ -133,10 +169,11 @@ def confusion_artifacts(
             print(f"Accuracy @ {target} dB: {acc * 100:.2f}%  ({int(mask.sum()):,} samples)")
 
     # 3. the classification report, the format the comparison tool parses
-    write_classification_report(
-        save_dir / f"{prefix}_classification_report.txt",
-        prefix, acc_overall, snr_accuracies, labels, preds, list(class_names),
-    )
+    if save_dir is not None:
+        write_classification_report(
+            save_dir / f"{prefix}_classification_report.txt",
+            prefix, acc_overall, snr_accuracies, labels, preds, list(class_names),
+        )
 
     # 4. accuracy against every unique SNR
     snr_acc_pairs: List = []

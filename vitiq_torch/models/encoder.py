@@ -42,13 +42,26 @@ through `hash_dropout` (one kernel on the card). `make_train_step` passes
 the seed as an int32 tensor on the device, so a step's masks are a function
 of a device value: an eager step and a replayed CUDA graph draw the same
 bits, and remat recomputes them with no RNG state. A training forward
-without a seed (which the fused stack then turns down) takes one from
-torch's default generator for its plain sites.
+with dropout and no seed raises ValueError, as vitiq's does.
+
+On a device mesh (`parallel/mesh.py`: `shard_model` records the mesh on
+the model and its encoder, ``self.mesh``), as vitiq's encoder under an
+ambient mesh:
+* data axes above 1: the rank's linear data index is folded into the seed,
+  ``seed + idx * -1640531527`` with int32 wrap-around, on the device when
+  the seed is a device tensor; every dropout site hashes the folded seed,
+  so the data ranks draw different masks and the model ranks of one data
+  index the same ones. The fused families run on the rank's rows.
+* a model axis above 1: the fused families stay off (they take whole
+  weights), with a one-time warning, and the plain layers run the rank's
+  heads and FFN columns with one all-reduce after attention and one after
+  the FFN (`models/layers.py`); under `tpu` numerics K5 is their attention.
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Callable, Dict, Optional, Union
 
 import torch
@@ -77,6 +90,21 @@ from vitiq_torch.ops.numerics import Policy
 
 # the embedding dropout's salt: layer -1's first site, apart from every layer's
 EMBED_SALT = site_salt(-1, 0)
+# the golden-ratio step that folds a data rank's index into the seed (vitiq's)
+DATA_FOLD = -1640531527
+_M32 = 0xFFFFFFFF
+
+
+def fold_data_index(seed: Union[int, torch.Tensor], idx: int) -> Union[int, torch.Tensor]:
+    """``seed + idx * DATA_FOLD`` in int32 with wrap-around: an int for an
+    int seed, an int32 tensor on the seed's device (no host read) for a
+    tensor one."""
+    step = (idx * DATA_FOLD) & _M32
+    if isinstance(seed, torch.Tensor):
+        h = (seed.to(torch.int64) + step) & _M32
+        return torch.where(h >= 1 << 31, h - (1 << 32), h).to(torch.int32)
+    h = (int(seed) + step) & _M32
+    return h - (1 << 32) if h >= 1 << 31 else h
 
 
 class Encoder(nn.Module):
@@ -101,6 +129,7 @@ class Encoder(nn.Module):
             self.cls_token = nn.Parameter(cls.to(device))
         else:
             self.cls_token = None
+        self.mesh = None  # set by `parallel.mesh.shard_model`
 
     def embed(self, src: torch.Tensor, policy: Policy) -> torch.Tensor:
         """Tokens with the CLS row prepended and the PE added: [B, L, D]."""
@@ -137,12 +166,19 @@ class Encoder(nn.Module):
             x = fused_raw_embed_apply(self, src, cfg, raw_stats, policy)
         else:
             x = self.embed(src, policy)
-        drop_seed = seed
-        if self.training and seed is None and cfg.drop_prob > 0.0:
-            drop_seed = int(torch.randint(-2 ** 31, 2 ** 31, ()))
-        x = dropout(x, cfg.drop_prob, self.training, drop_seed, EMBED_SALT)
+        mesh = self.mesh
+        tp = tp_index = None
+        if mesh is not None and mesh.model_size > 1:
+            tp, tp_index = mesh.model_group, mesh.model_index()
+        if seed is not None and mesh is not None and mesh.data_size > 1:
+            seed = fold_data_index(seed, mesh.data_index())
+        x = dropout(x, cfg.drop_prob, self.training, seed, EMBED_SALT)
         fused_family = (policy.compute_dtype == torch.bfloat16
                         and getattr(attention_fn, "packed_layout", False))
+        if tp is not None and fused_family:
+            warnings.warn("the fused kernels are data-parallel only; a model axis above 1 "
+                          "runs the plain layers (Megatron tensor parallelism)", stacklevel=2)
+            fused_family = False
         if (self.training
                 and seed is not None
                 and mask is None
@@ -162,7 +198,9 @@ class Encoder(nn.Module):
                      if os.environ.get("VITIQ_ATTN_INT8") == "1" else fused_encoder_layer_stack)
             return stack(policy.cast_compute(x), list(self.layers), cfg.n_head,
                          cls_only=cls_only)
-        kwargs = dict(mask=mask, policy=policy, attention_fn=attention_fn, seed=drop_seed)
+        kwargs = dict(mask=mask, policy=policy, attention_fn=attention_fn, seed=seed)
+        if tp is not None:
+            kwargs.update(tp=tp, tp_index=tp_index)
         remat = use_remat(self.training, x.shape[1])
         for i, layer in enumerate(self.layers):
             if remat:  # no RNG state to replay: the masks are the seed's

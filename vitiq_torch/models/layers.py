@@ -10,6 +10,14 @@ Reference numerics, as in `vitiq`:
   * PositionwiseFeedForward: Linear -> ReLU -> Dropout -> Linear.
   * EncoderLayer: post-norm, dropout before each residual add.
 
+Tensor parallelism (`parallel/mesh.py`): a layer sharded over a model
+group of n ranks holds H/n heads (its rows of w_q/w_k/w_v, its columns of
+w_concat) and F/n FFN columns; given the group (`tp`), the attention and
+the FFN each take their input through `copy_to_model` and end in one
+all-reduce of the row-parallel product in f32 (`reduce_from_model`), the
+bias added after it. The FFN hidden site's dropout numbers its lanes from
+the shard's first column, so the n ranks drop what one process drops.
+
 Parameters are stored in PyTorch layout (`Linear.weight` is [out, in]) under
 the reference checkpoint's key names. Initialization follows
 torch.nn.Linear's bounds, U(-1/sqrt(fan_in), 1/sqrt(fan_in)), drawn on the
@@ -25,6 +33,7 @@ import torch
 from torch import nn
 
 from vitiq_torch.ops.attention import scaled_dot_product_attention
+from vitiq_torch.parallel.comm import copy_to_model, reduce_from_model
 from vitiq_torch.ops.cuda.fused_layer_train import hash_dropout, site_salt
 from vitiq_torch.ops.numerics import REFERENCE, Policy
 
@@ -42,7 +51,8 @@ def _uniform_(param: torch.Tensor, bound: float,
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            seed: Optional[Union[int, torch.Tensor]] = None, salt: int = 0) -> torch.Tensor:
+            seed: Optional[Union[int, torch.Tensor]] = None, salt: int = 0,
+            lane0: int = 0) -> torch.Tensor:
     """Inverted dropout; identity when not training. In training a position
     is dropped iff the low 31 bits of the fused training kernels' hash of
     the step's `seed` (an int, or an int32 tensor on `x`'s device) + `salt`,
@@ -50,13 +60,14 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     below rate * 2^31, and a kept one is scaled by 1 / (1 - rate) in f32
     (`hash_dropout`: one kernel on the card, its plain version on the CPU).
     The mask is a function of the seed alone, so a rematerialized layer
-    recomputes it and a captured CUDA graph draws each replay's. Like
-    vitiq's `dropout` without an rng, training without a seed raises."""
+    recomputes it and a captured CUDA graph draws each replay's; a column
+    shard numbers its lanes from `lane0`. Like vitiq's `dropout` without an
+    rng, training without a seed raises."""
     if not train or rate == 0.0:
         return x
     if seed is None:
         raise ValueError("dropout requires the step's seed when train=True and rate > 0")
-    return hash_dropout(x, rate, seed, salt)
+    return hash_dropout(x, rate, seed, salt, lane0)
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -85,6 +96,12 @@ class Linear(nn.Module):
     def forward(self, x: torch.Tensor, policy: Policy = REFERENCE) -> torch.Tensor:
         return policy.cast_output(policy.dot(x, self.weight.t()) + self.bias)
 
+    def row_parallel(self, x: torch.Tensor, policy: Policy, group) -> torch.Tensor:
+        """The layer over its input columns' shard: the partial products
+        summed over the model group in f32, then the whole bias."""
+        return policy.cast_output(reduce_from_model(policy.dot(x, self.weight.t()), group)
+                                  + self.bias)
+
 
 class LayerNorm(nn.Module):
     """The encoder's LayerNorm: parameters named gamma/beta, eps 1e-12."""
@@ -112,22 +129,30 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 policy: Policy = REFERENCE,
-                attention_fn: Callable = scaled_dot_product_attention) -> torch.Tensor:
-        """Self-attention (q = k = v = x); one [D, 3D] QKV GEMM."""
+                attention_fn: Callable = scaled_dot_product_attention,
+                tp=None) -> torch.Tensor:
+        """Self-attention (q = k = v = x); one [D, 3D] QKV GEMM. Under
+        tensor parallelism (`tp`, the model group) the rank's heads only,
+        then one all-reduce."""
         B, L, D = x.shape
         d_head = D // self.n_head
+        width = self.w_q.weight.shape[0]  # D, or the rank's heads' columns
+        heads = width // d_head
+        x = copy_to_model(x, tp)
         w_qkv = torch.cat([self.w_q.weight, self.w_k.weight, self.w_v.weight]).t()
         b_qkv = torch.cat([self.w_q.bias, self.w_k.bias, self.w_v.bias])
         qkv = policy.cast_output(policy.dot(x, w_qkv) + b_qkv)
-        q, k, v = qkv.split(D, dim=-1)
+        q, k, v = qkv.split(width, dim=-1)
         if getattr(attention_fn, "packed_layout", False):
-            out = attention_fn(q, k, v, self.n_head, mask=mask, policy=policy)
+            out = attention_fn(q, k, v, heads, mask=mask, policy=policy)
         else:
-            def split(t):  # [B, L, D] -> [B, H, L, Dh]
-                return t.reshape(B, L, self.n_head, d_head).transpose(1, 2)
+            def split(t):  # [B, L, width] -> [B, heads, L, Dh]
+                return t.reshape(B, L, heads, d_head).transpose(1, 2)
 
             out = attention_fn(split(q), split(k), split(v), mask=mask, policy=policy)
-            out = out.transpose(1, 2).reshape(B, L, D)
+            out = out.transpose(1, 2).reshape(B, L, width)
+        if tp is not None:
+            return self.w_concat.row_parallel(out, policy, tp)
         return self.w_concat(out, policy)
 
 
@@ -141,9 +166,13 @@ class PositionwiseFeedForward(nn.Module):
     def forward(self, x: torch.Tensor, drop_prob: float, train: bool,
                 policy: Policy = REFERENCE,
                 seed: Optional[Union[int, torch.Tensor]] = None,
-                salt: int = 0) -> torch.Tensor:
-        h = torch.relu(self.linear1(x, policy))
-        h = dropout(h, drop_prob, train, seed, salt)
+                salt: int = 0, tp=None, tp_index: int = 0) -> torch.Tensor:
+        """Under tensor parallelism (`tp`, the model group; `tp_index`, the
+        rank's index in it) the rank's hidden columns, then one all-reduce."""
+        h = torch.relu(self.linear1(copy_to_model(x, tp), policy))
+        h = dropout(h, drop_prob, train, seed, salt, lane0=tp_index * h.shape[-1])
+        if tp is not None:
+            return self.linear2.row_parallel(h, policy, tp)
         return self.linear2(h, policy)
 
 
@@ -170,15 +199,15 @@ class EncoderLayer(nn.Module):
                 policy: Policy = REFERENCE,
                 attention_fn: Callable = scaled_dot_product_attention,
                 seed: Optional[Union[int, torch.Tensor]] = None,
-                layer_idx: int = 0) -> torch.Tensor:
+                layer_idx: int = 0, tp=None, tp_index: int = 0) -> torch.Tensor:
         train = self.training
         # residual stream: f32 under the reference policy, the compute dtype
         # (bf16) under the TPU policy
         stream = None if policy.compute_dtype == torch.float32 else policy.compute_dtype
-        attn = self.attention(x, mask=mask, policy=policy, attention_fn=attention_fn)
+        attn = self.attention(x, mask=mask, policy=policy, attention_fn=attention_fn, tp=tp)
         x = self.norm1(dropout(attn, self.drop_prob, train, seed, site_salt(layer_idx, 0)) + x,
                        out_dtype=stream)
         ffn = self.ffn(x, self.drop_prob, train, policy=policy, seed=seed,
-                       salt=site_salt(layer_idx, 1))
+                       salt=site_salt(layer_idx, 1), tp=tp, tp_index=tp_index)
         return self.norm2(dropout(ffn, self.drop_prob, train, seed, site_salt(layer_idx, 2)) + x,
                           out_dtype=stream)

@@ -72,8 +72,9 @@ SIGNATURES = {
     # scale, the seed's device pointer, layer index, site; stream
     "vitiq_train_gemm_bf16": ([_P] * 16 + [_I] * 6 + [_U, _F, _P, _I, _I, _P], _I),
     # the plain dropout sites: x, out; rows, L, W, dtype; threshold, scale,
-    # the seed's device pointer, salt; stream
-    "vitiq_hash_dropout": ([_P, _P, ctypes.c_longlong] + [_I] * 3 + [_U, _F, _P, _U, _P], _I),
+    # the seed's device pointer, salt, the first lane's index; stream
+    "vitiq_hash_dropout": ([_P, _P, ctypes.c_longlong] + [_I] * 3 + [_U, _F, _P, _U, _I, _P],
+                           _I),
     # K4's attention passes alone. qkv, attn, pbar; B, L, D, H; stream
     "vitiq_train_attention_fwd_stash": ([_P] * 3 + [_I] * 4 + [_P], _I),
     # qkv, attn, dattn, pbar, dqkv, part; B, L, D, H; stream

@@ -333,16 +333,19 @@ def seed_plus(seed, salt: int):
     return (int(seed) + salt) & _M32
 
 
-def mask_bits(shape: Tuple[int, int, int], seed, salt: int, device=None) -> torch.Tensor:
+def mask_bits(shape: Tuple[int, int, int], seed, salt: int, device=None,
+              lane0: int = 0) -> torch.Tensor:
     """The 32 hash bits of every position of a [G, L, W] block (int64 in
     [0, 2^32)): murmur3 fmix32 over the mixed (frame, token, lane) index plus
     seed + salt, as `_hash_mask` computes them in int32. `seed` is an int or
     an int32 tensor on `device` (one element), whose value is read on the
-    device, so a captured CUDA graph draws the masks of each replay's seed."""
+    device, so a captured CUDA graph draws the masks of each replay's seed.
+    The lanes are numbered from `lane0` (a column shard of a wider
+    activation: its lanes' positions in the whole)."""
     G, L, W = shape
     gi = torch.arange(G, dtype=torch.int64, device=device).view(G, 1, 1)
     li = torch.arange(L, dtype=torch.int64, device=device).view(1, L, 1)
-    wi = torch.arange(W, dtype=torch.int64, device=device).view(1, 1, W)
+    wi = torch.arange(lane0, lane0 + W, dtype=torch.int64, device=device).view(1, 1, W)
     h = mul32(gi, 0x9E3779B1) ^ mul32(li, 0x85EBCA77) ^ mul32(wi, 0xC2B2AE3D)
     return fmix32((h + seed_plus(seed, salt)) & _M32)
 
@@ -369,26 +372,29 @@ def drop_threshold(rate: float) -> Tuple[int, float]:
     return int(rate * 2147483648.0), float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
 
 
-def hash_dropout_plain(x: torch.Tensor, rate: float, seed, salt: int) -> torch.Tensor:
+def hash_dropout_plain(x: torch.Tensor, rate: float, seed, salt: int,
+                       lane0: int = 0) -> torch.Tensor:
     """The plain version of `hash_dropout_kernel`: x * scale (f32, rounded
     to x's dtype) where the position hash of seed + `salt` over x's last two
-    dims as (token, lane) and the rest as frames keeps a position, +0 where
-    it drops it (`mask_bits`, `drop_threshold`)."""
+    dims as (token, lane from `lane0`) and the rest as frames keeps a
+    position, +0 where it drops it (`mask_bits`, `drop_threshold`)."""
     thresh, scale = drop_threshold(rate)
     L, W = x.shape[-2], x.shape[-1]
-    bits = mask_bits((x.numel() // (L * W), L, W), seed, salt, x.device)
+    bits = mask_bits((x.numel() // (L * W), L, W), seed, salt, x.device, lane0)
     kept = ((bits & 0x7FFFFFFF) >= thresh).reshape(x.shape)
     scaled = x.float() * torch.tensor(scale, dtype=torch.float32, device=x.device)
     return torch.where(kept, scaled, torch.zeros((), device=x.device)).to(x.dtype)
 
 
-def hash_dropout_apply(x: torch.Tensor, rate: float, seed, salt: int) -> torch.Tensor:
+def hash_dropout_apply(x: torch.Tensor, rate: float, seed, salt: int,
+                       lane0: int = 0) -> torch.Tensor:
     """The plain dropout sites' kernel (C entry `vitiq_hash_dropout`, one
     pass: each position's hash, read x, write x * scale or +0) on a CUDA
     tensor of at least two dims, bf16 or f32; `seed` an int or an int32
-    tensor on x's device, read there. The plain version for a CPU tensor."""
+    tensor on x's device, read there; lanes numbered from `lane0`. The plain
+    version for a CPU tensor."""
     if x.device.type == "cpu":
-        return hash_dropout_plain(x, rate, seed, salt)
+        return hash_dropout_plain(x, rate, seed, salt, lane0)
     if x.dim() < 2 or x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"hash_dropout takes a bf16 or f32 tensor of at least 2 dims, got "
                          f"{x.dtype} {tuple(x.shape)}")
@@ -399,7 +405,7 @@ def hash_dropout_apply(x: torch.Tensor, rate: float, seed, salt: int) -> torch.T
     L, W = x.shape[-2], x.shape[-1]
     _build.call("vitiq_hash_dropout", x.device, x.data_ptr(), out.data_ptr(), x.numel() // W, L,
                 W, 0 if x.dtype == torch.bfloat16 else 1, thresh, scale, seed_t.data_ptr(),
-                salt & _M32)
+                salt & _M32, lane0)
     dropout_launches["hash_dropout"] += 1
     return out
 
@@ -410,22 +416,23 @@ class _HashDropout(torch.autograd.Function):
     nothing but the seed tensor is saved."""
 
     @staticmethod
-    def forward(ctx, x, rate, seed, salt):
+    def forward(ctx, x, rate, seed, salt, lane0):
         ctx.save_for_backward(seed)
-        ctx.site = (rate, salt)
-        return hash_dropout_apply(x, rate, seed, salt)
+        ctx.site = (rate, salt, lane0)
+        return hash_dropout_apply(x, rate, seed, salt, lane0)
 
     @staticmethod
     def backward(ctx, dy):
         (seed,) = ctx.saved_tensors
-        rate, salt = ctx.site
-        return hash_dropout_apply(dy, rate, seed, salt), None, None, None
+        rate, salt, lane0 = ctx.site
+        return hash_dropout_apply(dy, rate, seed, salt, lane0), None, None, None, None
 
 
-def hash_dropout(x: torch.Tensor, rate: float, seed, salt: int) -> torch.Tensor:
+def hash_dropout(x: torch.Tensor, rate: float, seed, salt: int, lane0: int = 0) -> torch.Tensor:
     """Differentiable dropout at a plain site (`hash_dropout_apply`); `seed`
-    an int or an int32 tensor on x's device."""
-    return _HashDropout.apply(x, float(rate), seed_tensor(seed, x.device), int(salt))
+    an int or an int32 tensor on x's device; lanes numbered from `lane0`."""
+    return _HashDropout.apply(x, float(rate), seed_tensor(seed, x.device), int(salt),
+                              int(lane0))
 
 
 def dropout_mask(shape: Tuple[int, int, int], rate: float, seed, layer_idx: int,

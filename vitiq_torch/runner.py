@@ -318,6 +318,31 @@ def _newest_checkpoint(exp_dir: Path) -> Optional[str]:
     return str(max(candidates)[1].with_suffix("")) if candidates else None
 
 
+def start_ranks(cfg: ExperimentConfig, device="cuda") -> torch.device:
+    """The rank's device for a run. Above one rank (torchrun's
+    ``WORLD_SIZE``, or a process group already started, as
+    `parallel.comm.spawn` starts one) the group is started if it is not
+    (`parallel.comm.init_distributed`: NCCL when every local rank has a
+    card, gloo otherwise, printed) and the rank placed on
+    ``cuda:LOCAL_RANK``, or on the CPU when it is asked for. The world must
+    be ``data_parallel * model_parallel``, else ValueError."""
+    import os
+
+    from vitiq_torch.parallel import comm
+    from vitiq_torch.utils.device import resolve_device
+
+    data, model = cfg.train.data_parallel, cfg.train.model_parallel
+    if comm.is_initialized() or int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        device, _ = comm.init_distributed(device)
+    else:
+        device = resolve_device(device)
+    if comm.world_size() != data * model:
+        raise ValueError(f"data_parallel={data} x model_parallel={model} needs a process group "
+                         f"of {data * model} ranks (torchrun --nproc_per_node "
+                         f"{data * model}), have {comm.world_size()}")
+    return device
+
+
 def run_training(cfg: ExperimentConfig, resume: Optional[str] = None, evaluate_test: bool = True,
                  verbose: bool = True, device="cuda", make_plots: bool = True) -> Dict:
     """Train and evaluate an experiment in ``<checkpoint_dir>/<experiment_name>``
@@ -326,10 +351,20 @@ def run_training(cfg: ExperimentConfig, resume: Optional[str] = None, evaluate_t
     checkpoint path, or "auto" for the newest in the experiment directory; a
     missing or corrupt one starts the run fresh. ``make_plots=False`` skips
     the plots (they need matplotlib and seaborn); a failing history plot
-    only warns."""
+    only warns.
+
+    Over a (data, model) mesh of ranks (`start_ranks`: every rank runs this
+    function, started by torchrun or `parallel.comm.spawn`), each rank
+    builds the whole seeded model, `fit` shards it, the checkpoints and
+    parameter files are gathered and written by rank 0 in the one-process
+    layout, and rank 0 alone writes config.json, the stats, the test
+    evaluation's artifacts, the plots and summary.json; every rank returns
+    the summary. The interrupt rescue is a one-rank feature."""
     from vitiq_torch.eval import evaluate_feed_with_confusion
     from vitiq_torch.models.amc import AMCModel, count_parameters
-    from vitiq_torch.serve import build_forward_and_preprocess, resolve_device
+    from vitiq_torch.parallel import comm
+    from vitiq_torch.parallel.mesh import shard_state_dict
+    from vitiq_torch.serve import build_forward_and_preprocess
     from vitiq_torch.train import fit
     from vitiq_torch.train.checkpoint import (
         load_checkpoint,
@@ -339,20 +374,27 @@ def run_training(cfg: ExperimentConfig, resume: Optional[str] = None, evaluate_t
     )
     from vitiq_torch.train.optim import create_train_state
 
-    device = resolve_device(device)
     cfg.validate(check_paths=cfg.data.source == "hdf5")
+    device = start_ranks(cfg, device)
+    lead = comm.rank() == 0
+    verbose = verbose and lead
+    make_plots = make_plots and lead
     exp_dir = Path(cfg.checkpoint_dir) / cfg.experiment_name
     log_dir = Path(cfg.log_dir)
-    exp_dir.mkdir(parents=True, exist_ok=True)
-    log_dir.mkdir(parents=True, exist_ok=True)
-    cfg.to_json(str(exp_dir / "config.json"))
+    if lead:
+        exp_dir.mkdir(parents=True, exist_ok=True)
+        log_dir.mkdir(parents=True, exist_ok=True)
+        cfg.to_json(str(exp_dir / "config.json"))
 
     feeds, stats, class_names = load_experiment_feeds(cfg)
-    (exp_dir / "normalization_stats.json").write_text(json.dumps(stats, indent=2))
+    if lead:
+        (exp_dir / "normalization_stats.json").write_text(json.dumps(stats, indent=2))
     model = AMCModel(cfg.model, generator=torch.Generator().manual_seed(cfg.train.init_seed))
     model, preprocess = build_forward_and_preprocess(cfg, model, stats, device)
     if verbose:
-        print(f"model: {cfg.model.arm}, {count_parameters(model):,} parameters")
+        data, tp = cfg.train.data_parallel, cfg.train.model_parallel
+        print(f"model: {cfg.model.arm}, {count_parameters(model):,} parameters"
+              + (f", mesh data {data} x model {tp}" if data * tp > 1 else ""))
 
     resume_state = resume_history = None
     start_epoch = 0
@@ -374,7 +416,8 @@ def run_training(cfg: ExperimentConfig, resume: Optional[str] = None, evaluate_t
             save_checkpoint(exp_dir / f"checkpoint_epoch_{epoch + 1}", state, epoch,
                             history["val_loss"][-1], history, cfg)
         if history["val_loss"][-1] <= min(history["val_loss"]):  # rolling best
-            save_params(exp_dir / "model_best", state.model.state_dict(), cfg.model)
+            save_params(exp_dir / "model_best", state.model.state_dict(), cfg.model,
+                        model=state.model)
 
     # rescue state for Ctrl-C (the reference saves checkpoint_interrupted)
     last = {"state": None, "epoch": -1, "history": None}
@@ -390,6 +433,8 @@ def run_training(cfg: ExperimentConfig, resume: Optional[str] = None, evaluate_t
                      resume_history=resume_history, start_epoch=start_epoch, verbose=verbose,
                      profile=cfg.train.profile_steps)
     except KeyboardInterrupt:
+        if comm.world_size() > 1:
+            raise
         if last["state"] is not None:
             save_checkpoint(exp_dir / "checkpoint_interrupted", last["state"], last["epoch"],
                             last["history"]["val_loss"][-1], last["history"], cfg)
@@ -406,15 +451,15 @@ def run_training(cfg: ExperimentConfig, resume: Optional[str] = None, evaluate_t
     save_checkpoint(exp_dir / "checkpoint_final", result.state, result.epochs_run - 1,
                     history["val_loss"][-1] if history["val_loss"] else float("inf"),
                     history, cfg)
-    save_params(exp_dir / "model_final", model.state_dict(), cfg.model)
+    save_params(exp_dir / "model_final", model.state_dict(), cfg.model, model=model)
     best_params = result.best_params
     best_path = exp_dir / "model_best.npz"
-    if result.best_tracked or not best_path.exists():
-        save_params(best_path, best_params, cfg.model)
+    if result.best_tracked or not comm.agree(best_path.exists()):
+        save_params(best_path, best_params, cfg.model, model=model)
     else:
         # a resumed run whose epochs never beat the historical best: the
         # rolling model_best of the original run holds the best weights
-        best_params = load_params(best_path, cfg.model)
+        best_params = shard_state_dict(load_params(best_path, cfg.model), model)
 
     if make_plots:
         try:
@@ -444,8 +489,9 @@ def run_training(cfg: ExperimentConfig, resume: Optional[str] = None, evaluate_t
             verbose=verbose)
         summary["test_overall_accuracy"] = res["overall_accuracy"]
         summary["test_snr_accuracies"] = res["snr_accuracies"]
-    (exp_dir / "summary.json").write_text(json.dumps(
-        {k: v for k, v in summary.items() if k != "history"}, indent=2, default=float))
+    if lead:
+        (exp_dir / "summary.json").write_text(json.dumps(
+            {k: v for k, v in summary.items() if k != "history"}, indent=2, default=float))
     for f in feeds.values():
         f.close()  # a streaming run holds a file handle a split
     return summary

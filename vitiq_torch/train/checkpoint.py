@@ -14,6 +14,14 @@ port also loads a checkpoint that vitiq wrote under ``VITIQ_FUSED_OPT=0``
 (its per-leaf optimizer state, `optim.fused_leaves_from_chain`). Loading
 checks the leaf count and every leaf's shape against what a model of the
 config has, and raises ValueError on a mismatch instead of loading garbage.
+
+On a device mesh (a model sharded by `parallel.mesh.shard_model`) saving is
+a collective of every rank: the tensor-parallel shards are gathered into
+the whole parameters and moments first (`full_train_state`,
+`full_state_dict`), rank 0 alone writes, and every rank waits at a barrier
+until it has. The files are then the one-process layout, so a checkpoint
+written under any mesh loads into a one-process model of either package;
+to resume under a mesh, load it into a whole model and let `fit` shard it.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ from vitiq_torch.interop import (
     tree_unflatten,
     vitiq_tree_from_state_dict,
 )
+from vitiq_torch.parallel import comm
+from vitiq_torch.parallel.mesh import full_state_dict, full_train_state, model_mesh
 from vitiq_torch.train.optim import (
     TrainState,
     chain_leaf_count,
@@ -49,12 +59,25 @@ def _npz(path) -> Path:
     return path if path.suffix == ".npz" else path.with_suffix(".npz")
 
 
+def _barrier(model) -> None:
+    """Every rank of a sharded model's process group waits for rank 0's
+    write."""
+    if model_mesh(model) is not None and comm.world_size() > 1:
+        torch.distributed.barrier()
+
+
 def save_checkpoint(path, state: TrainState, epoch: int, val_loss: float, history: Dict,
                     config: Optional[ExperimentConfig] = None,
                     extra: Optional[Dict] = None) -> Path:
     """Write ``<path>.npz`` (the TrainState's leaves) and ``<path>.json`` (the
-    manifest); returns the npz path."""
+    manifest); returns the npz path. On a mesh every rank calls it and rank 0
+    writes the whole state (see the module docstring)."""
     npz = _npz(path)
+    model = state.model
+    state = full_train_state(state)
+    if comm.rank() != 0:
+        _barrier(model)
+        return npz
     npz.parent.mkdir(parents=True, exist_ok=True)
     leaves = train_state_leaves(state)
     np.savez(npz, **{f"leaf_{i}": leaf for i, leaf in enumerate(leaves)})
@@ -68,6 +91,7 @@ def save_checkpoint(path, state: TrainState, epoch: int, val_loss: float, histor
         "extra": extra or {},
     }
     npz.with_suffix(".json").write_text(json.dumps(manifest, indent=2))
+    _barrier(model)
     return npz
 
 
@@ -102,13 +126,22 @@ def load_checkpoint(path, template_state: TrainState) -> Tuple[TrainState, Dict]
     return train_state_from_leaves(template_state, leaves), manifest
 
 
-def save_params(path, state_dict, cfg: ModelConfig) -> Path:
+def save_params(path, state_dict, cfg: ModelConfig, model=None) -> Path:
     """Write a model's parameters (its state dict) as `vitiq`'s parameter
-    file ``<path>.npz``; returns that path."""
+    file ``<path>.npz``; returns that path. With `model` sharded over a mesh,
+    `state_dict` holds its shards: every rank calls it, the whole
+    parameters are gathered and rank 0 writes them."""
     npz = _npz(path)
+    if model is not None:
+        state_dict = full_state_dict(model, state_dict)
+        if comm.rank() != 0:
+            _barrier(model)
+            return npz
     npz.parent.mkdir(parents=True, exist_ok=True)
     leaves = tree_leaves(vitiq_tree_from_state_dict(state_dict, cfg))
     np.savez(npz, **{f"leaf_{i}": leaf for i, leaf in enumerate(leaves)})
+    if model is not None:
+        _barrier(model)
     return npz
 
 

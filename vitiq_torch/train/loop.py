@@ -44,7 +44,23 @@ stops, and adds per-epoch ``step_p50`` / ``step_p90`` to the history.
 `TrainConfig.dispatch_sync_steps` N bounds how far the host runs ahead of
 the card: one loss is read every N single steps, and after every scan call.
 
-Not ported yet (later work): the device mesh and data parallelism.
+The device mesh (`parallel/mesh.py`), as vitiq's `fit` builds it: `fit`
+shards the model over ``make_mesh(data=TrainConfig.data_parallel,
+model=TrainConfig.model_parallel)`` (`shard_model`, which records the mesh
+on the model) unless the model is already sharded. Every rank
+runs the same `fit`; with more than one rank in the process group the feeds
+are wrapped in `ProcessShardFeed` (each rank takes its data index's rows of
+every global batch), the parameters and AdamW moments are broadcast from
+data rank 0 before the first step, each train step all-reduces its flat
+gradient and its loss and accuracy over the data group in one call and
+divides them by the data size, and each evaluation all-reduces its sums
+there: every rank's history, plateau LR and early stop are then the ones
+the whole batch gives. The scan path is off above one rank (vitiq's
+multi-process rule): the gloo collectives are host calls, which a CUDA
+graph cannot capture. Under a model axis above 1 the clip's norm is the
+whole parameters' (`train/optim.py`), and the best parameters and the
+final model are the rank's shards (`parallel.mesh.full_state_dict` gathers
+them).
 """
 
 from __future__ import annotations
@@ -57,7 +73,7 @@ import numpy as np
 import torch
 
 from vitiq_torch.config import ExperimentConfig
-from vitiq_torch.data.feeds import DataFeed, as_feed
+from vitiq_torch.data.feeds import DataFeed, ProcessShardFeed, as_feed
 from vitiq_torch.data.pipeline import device_prefetch
 from vitiq_torch.ops.cuda.fused_layer_train import fmix32, mul32
 from vitiq_torch.ops.metrics import (
@@ -65,8 +81,11 @@ from vitiq_torch.ops.metrics import (
     label_smoothed_cross_entropy,
     label_smoothed_cross_entropy_per_sample,
 )
+from vitiq_torch.parallel import comm
+from vitiq_torch.parallel.mesh import make_mesh, model_mesh, shard_model
 from vitiq_torch.train.optim import (
     TrainState,
+    _flat,
     create_train_state,
     get_learning_rate,
     make_optimizer,
@@ -106,7 +125,10 @@ def make_train_step(tx, label_smoothing: float, preprocess_fn: Optional[Callable
     """Returns step(state, x, y, dropout_seed) -> (state, metrics); x is the
     raw [B, L, 2] batch (or the model input when preprocess_fn is None).
     The state's tensors are updated in place (the returned state holds the
-    same ones); the metrics are device scalars."""
+    same ones); the metrics are device scalars. On a mesh with data axes
+    above 1 (the model's) x is the rank's rows, and the flat gradient, the
+    loss and the accuracy are averaged over the data group in one
+    all-reduce before the update."""
 
     def step(state: TrainState, x, y, dropout_seed: int):
         model = state.model
@@ -121,12 +143,20 @@ def make_train_step(tx, label_smoothing: float, preprocess_fn: Optional[Callable
         loss = label_smoothed_cross_entropy(logits, y, label_smoothing)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        metrics = {"loss": loss.detach(), "accuracy": accuracy(logits.detach(), y)}
+        mesh = model_mesh(model)
+        if mesh is not None and mesh.data_size > 1:
+            flat = torch.cat([_flat(grads), metrics["loss"].float().reshape(1),
+                              metrics["accuracy"].float().reshape(1)])
+            comm.all_reduce_(flat, mesh.data_group)
+            flat /= mesh.data_size
+            grads = flat[:-2]
+            metrics = {"loss": flat[-2], "accuracy": flat[-1]}
         updates, opt_state = tx.update(grads, state.opt_state, params)
         with torch.no_grad():
             for p, u in zip(params, updates):
                 p.add_(u)
             state.step.add_(1)
-        metrics = {"loss": loss.detach(), "accuracy": accuracy(logits.detach(), y)}
         return TrainState(model, opt_state, state.step), metrics
 
     return step
@@ -250,12 +280,15 @@ def evaluate_feed(eval_step, model, feed: DataFeed, batch_size: int,
     """Padded batches over a DataFeed, prefetched to the model's device:
     every sample scored exactly once. The loss, correct and count sums stay
     on the device in float64, each batch's float32 sums added in batch order,
-    and are read once at the end."""
+    and are read once at the end; a model sharded over data axes above 1
+    (the feed a `ProcessShardFeed`) sums them over its data group first."""
     device = _device(model)
     sums = torch.zeros(3, dtype=torch.float64, device=device)
     for bx, by, mask in device_prefetch(feed.eval_batches(batch_size), device, prefetch_depth):
         m = eval_step(model, bx, by, mask)
         sums += torch.stack([m["loss_sum"], m["correct_sum"], m["count"]]).double()
+    mesh = model_mesh(model)
+    comm.all_reduce_(sums, mesh.data_group if mesh is not None else None)
     loss_sum, correct_sum, count = sums.tolist()
     return {"loss": loss_sum / count, "accuracy": correct_sum / count}
 
@@ -304,19 +337,36 @@ def fit(
     times each step after the device has finished it (`StepTimer`) and adds
     per-epoch step_p50 / step_p90 (seconds; the first step of the first
     epoch, the warm-up, left out) to the history and the summary to
-    `FitResult.step_times`."""
+    `FitResult.step_times`.
+
+    The device mesh is the model's, else ``make_mesh(data=
+    TrainConfig.data_parallel, model=TrainConfig.model_parallel)``, over
+    which the model, and a resume state built on the whole model, are
+    sharded (see the module docstring). The scan path runs only in a
+    process group of one rank."""
     tcfg = cfg.train
-    tx = make_optimizer(tcfg)
-    if resume_state is not None:
-        if resume_state.model is not model:
-            raise ValueError("resume_state must hold the model being trained")
-        state = resume_state
-    else:
-        state = create_train_state(model, tcfg)
+    if resume_state is not None and resume_state.model is not model:
+        raise ValueError("resume_state must hold the model being trained")
+    mesh = model_mesh(model) or make_mesh(data=tcfg.data_parallel, model=tcfg.model_parallel)
+    resume_state = shard_model(model, mesh, resume_state)
+    state = resume_state if resume_state is not None else create_train_state(model, tcfg)
+    multi = comm.world_size() > 1
+    if mesh.data_size > 1:  # every data rank starts from data rank 0's state
+        params = list(model.parameters())
+        flat = torch.cat([_flat(params), state.opt_state.mu, state.opt_state.nu])
+        comm.broadcast_(flat, mesh.data_src(), mesh.data_group)
+        n = sum(p.numel() for p in params)
+        with torch.no_grad():
+            for p, piece in zip(params, flat[:n].split([p.numel() for p in params])):
+                p.copy_(piece.view_as(p))
+            state.opt_state.mu.copy_(flat[n:2 * n])
+            state.opt_state.nu.copy_(flat[2 * n:])
+    tx = make_optimizer(tcfg, model)
     train_step = make_train_step(tx, tcfg.label_smoothing, preprocess_fn)
     eval_step = make_eval_step(tcfg.label_smoothing, preprocess_fn)
     scan_k = (tcfg.device_scan_steps
-              if tcfg.device_scan_steps and tcfg.device_scan_steps > 1 and not profile else 0)
+              if tcfg.device_scan_steps and tcfg.device_scan_steps > 1 and not profile
+              and not multi else 0)
     scan_step = make_train_scan_step(tx, tcfg.label_smoothing, preprocess_fn) if scan_k else None
     sync = tcfg.dispatch_sync_steps
 
@@ -334,6 +384,9 @@ def fit(
 
     train_feed = as_feed(train_data, shuffle_seed=tcfg.shuffle_seed)
     valid_feed = as_feed(valid_data, shuffle_seed=tcfg.shuffle_seed)
+    if multi:  # every rank takes its data index's rows of each global batch
+        train_feed = ProcessShardFeed(train_feed, mesh)
+        valid_feed = ProcessShardFeed(valid_feed, mesh)
     if train_feed.num_samples < tcfg.batch_size:
         raise ValueError(
             f"batch_size ({tcfg.batch_size}) exceeds the training-set size "

@@ -26,6 +26,13 @@ gives it there.
 `set_learning_rate` fills the device scalar, so a captured graph sees the
 plateau's new rate without a new capture.
 
+On a mesh with a model axis above 1 (`make_optimizer(cfg, model)` of a
+sharded model) the clip's global norm is vitiq's norm of the whole
+parameters' gradient: the squares of the sharded gradients are summed over
+the model group (one all-reduce of a scalar) and the replicated ones, the
+same on every model rank, are counted once. The flat vectors (mu, nu, the
+update) run over the rank's shards.
+
 Checkpoint layout (`train_state_leaves`, `train_state_from_leaves`): the
 leaves of `vitiq`'s TrainState under its default fused optimizer, in
 `jax.tree_util` order -- the parameter tree's leaves (dict keys sorted,
@@ -50,13 +57,14 @@ writes only the fused layout.
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, List, NamedTuple, Sequence, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from vitiq_torch.config import TrainConfig
+from vitiq_torch.parallel.comm import all_reduce_
 from vitiq_torch.interop import (
     state_dict_from_vitiq,
     tree_leaves,
@@ -119,11 +127,37 @@ def _scalar(value, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.full((), value, dtype=dtype, device=device)
 
 
-def make_optimizer(cfg: TrainConfig) -> GradientTransformation:
+def _sharded_norm(model: Optional[nn.Module]):
+    """(flat 0/1 mask of the sharded elements, model group) of a model
+    sharded over a model axis above 1, else None."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None or mesh.model_size == 1:
+        return None
+    from vitiq_torch.parallel.mesh import _spec_for
+
+    mask = torch.cat([torch.full((p.numel(),), float(_spec_for(n) is not None),
+                                 device=p.device) for n, p in model.named_parameters()])
+    return mask, mesh.model_group
+
+
+def make_optimizer(cfg: TrainConfig, model: Optional[nn.Module] = None) -> GradientTransformation:
     """clip-by-global-norm -> AdamW on ONE flat vector: init(params) ->
-    state; update(grads, state, params) -> (updates, state), the updates a
-    list shaped like the parameters, to be added to them. `update` advances
-    the state's count, mu and nu in place and returns the same state."""
+    state; update(grads, state, params) -> (updates, state), `grads` a list
+    shaped like the parameters or one flat f32 vector, the updates a list
+    shaped like the parameters, to be added to them. `update` advances the
+    state's count, mu and nu in place and returns the same state. `model`,
+    when it is sharded over a model axis above 1, makes the clip's norm the
+    whole parameters' (see the module docstring)."""
+    sharded = _sharded_norm(model)
+
+    def square_norm(g: torch.Tensor) -> torch.Tensor:
+        sq = torch.square(g)
+        if sharded is None:
+            return torch.sum(sq)
+        mask, group = sharded
+        shard = torch.sum(sq * mask).reshape(1)
+        all_reduce_(shard, group)
+        return torch.sum(sq * (1.0 - mask)) + shard[0]
 
     def init(params: Sequence[torch.Tensor]) -> FusedAdamWState:
         flat = _flat(params)
@@ -135,8 +169,9 @@ def make_optimizer(cfg: TrainConfig) -> GradientTransformation:
 
     def update(grads: Sequence[torch.Tensor], state: FusedAdamWState,
                params: Sequence[torch.Tensor]) -> Tuple[List[torch.Tensor], FusedAdamWState]:
-        gflat, pflat = _flat(grads), _flat(params)
-        gnorm = torch.sqrt(torch.sum(torch.square(gflat)))
+        gflat = grads if isinstance(grads, torch.Tensor) else _flat(grads)
+        pflat = _flat(params)
+        gnorm = torch.sqrt(square_norm(gflat))
         scale = torch.clamp(cfg.grad_clip_max_norm / (gnorm + 1e-16), max=1.0)
         g = gflat * scale
         state.count.add_(1)
