@@ -302,7 +302,8 @@ which raises (exit code 1) on failure:
    scan step (its first call the eager warm-up and the capture, the next a
    replay) on the same data (`scan_graph_check`): parameters and moments
    bit for bit, `torch.profiler`'s kernels of the replay by name equal to
-   those of the eager group's steps, and K3's or K4's launches counted in
+   those of the eager group's steps (profiled SCAN_PROFILE_STEPS steps a
+   window, the windows summed), and K3's or K4's launches counted in
    the replay's own trace (`replay_launches`: each wrapper's kernel
    instances in one eager call, the replay's instances solved for the two
    wrappers' counts, every instance accounted for) equal to SCAN_K times a
@@ -345,6 +346,29 @@ which raises (exit code 1) on failure:
    ``--parallel`` runs only the device, build, parallel and parallel-cli
    phases. The hash-dropout phase also holds the kernel's column
    shards (`lane0`) to the whole activation's bits.
+   bench: the throughput module (`vitiq_torch/bench.py`). The three
+   geometries no earlier phase serves, rawiq_seg64 (17 tokens, K1 5 + K2 1
+   a request), rawiq_seg64_mp (16 tokens) and rawiq_mp (64 tokens; the
+   two mean-pool arms K1 6, K2 never), through `Server` against the f32
+   path (`serve_check`: 0.05 and 0.99, the fused raw embedding);
+   rawiq_seg64_mp trained 20 steps through K4 at L=16, K3 never launching
+   (`train_check`, cosine >= COSINE_F32 against the f32 path); the ViT
+   flagship's last BENCH_TAIL rows at B=16384 (2,113,536 token rows: the
+   FFN hidden past 2^31 bytes) against the same rows served alone, in bf16
+   (K1/K2) and int8 (K6/K2), within EXPORT_TOL with the same argmax. Then
+   `bench.run_benchmarks` once for every ``cli bench --which`` but
+   ingestion (h5py, absent here) and all, at the bench's own batches
+   (B=16384 serving; train_step B=4096), plus conv1d_infer at n_head 2
+   (d_head 64 past K1's shared memory: the plain layers with K5-fwd; at
+   BENCH_K5_BATCH),
+   `bench_train_step` of rawiq_best (K3) and rawiq_seg64_mp (K4) at
+   B=8192, each in its own `torch.profiler` window, the timing cut by
+   BENCH_KNOBS and BENCH_STEPS: every value positive and finite, every
+   graph-timed step bit for bit its eager step (the bench raises
+   otherwise), the kernels launched in each window counted by name
+   (`bench_launches`; the kernels line's `bench_launches`), the bench's
+   kernels each launched. ``--bench`` runs only the device, build and
+   bench phases.
 7. timing (CUDA events after warm-up): per-layer kernel time against the
    plain version (K1 and K2 at the three shapes, B=4096 and, at 1025 tokens,
    B=256; K3 at the ViT and rawIQ shapes and K4 at the rawIQ one, B=4096;
@@ -459,7 +483,9 @@ scan entries also give `export_launches`: the export phase's launches of
 each through the graphs, from its `torch.profiler` traces. The K3 and K4
 entries give `scan_launches`: the launches of one replay of the scan-train
 phase's graph (SCAN_K steps), counted in that replay's own `torch.profiler`
-trace. The plain dropout sites' kernel (`hash_dropout_kernel`, no TPU twin:
+trace. Every entry gives `bench_launches`: its launches in the bench
+phase's profiled windows (zero for a kernel off the bench's path). The
+plain dropout sites' kernel (`hash_dropout_kernel`, no TPU twin:
 the JAX package draws these masks with jax.random) gives the conv1d train
 phase's launches.
 """
@@ -488,8 +514,12 @@ from vitiq_torch.config import (
     flagship_vit_config,
     rawiq_best_config,
     rawiq_best_mp_config,
+    rawiq_mp_config,
+    rawiq_seg64_config,
+    rawiq_seg64_mp_config,
     vit_tiny_2016_config,
 )
+from vitiq_torch import bench
 from vitiq_torch.eval import ClassificationReportParser
 from vitiq_torch.models import AMCModel
 from vitiq_torch.models.layers import EncoderLayer
@@ -4758,6 +4788,10 @@ SCAN_TRAIN = 2 * SCAN_K * SCAN_BATCH + 3 * SCAN_BATCH  # 33,536 frames: 131 step
 SCAN_VALID = 2048
 SCAN_CONV1D_LAYERS, SCAN_CONV1D_K, SCAN_CONV1D_BATCH = 2, 4, 64
 SCAN_REPEATS = 3  # timed groups eager and through the graph
+# eager steps a profiled window: one window of a K=64 group's eager steps
+# (1-2 s of host launches) lost two to five steps' kernels on the card,
+# so the group is profiled in windows of this many steps and summed
+SCAN_PROFILE_STEPS = 8
 # the port's training kernels, by function name (K3 / K4's stages and
 # passes, K5's kernels)
 TRAIN_KERNELS = ("train_gemm_kernel", "train_attention_fwd", "train_attention_bwd",
@@ -4948,7 +4982,12 @@ def scan_graph_check(label: str, cfg, stats, per_step: dict, device, card: str,
     if counts != {n: k * v for n, v in per_step.items()}:
         raise AssertionError(f"{label}: {k} eager steps launched {counts}, expected {per_step} "
                              "a step")
-    _, eager_names, eager_busy = training_kernels(lambda: eager_group(*groups[1]))
+    eager_names, eager_busy = Counter(), 0.0
+    for c in range(0, k, SCAN_PROFILE_STEPS):
+        part = [t[c:c + SCAN_PROFILE_STEPS] for t in groups[1]]
+        _, names, busy = training_kernels(lambda: eager_group(*part))
+        eager_names += names
+        eager_busy += busy
     reset_all_launches()
     _, graph_names, graph_busy = training_kernels(lambda: scan(state_g, *groups[1], seed))
     if device.type == "cuda" and any(all_launches().values()):
@@ -5564,6 +5603,193 @@ def parallel_cli_check(card: str) -> dict:
     return out
 
 
+# the bench phase: the timing of every bench cut to a shallow slope
+# (vitiq's knobs) and BENCH_STEPS eager calls a window, at the bench's own
+# batches
+BENCH_KNOBS = {"VITIQ_BENCH_K_SMALL": "2", "VITIQ_BENCH_K_CAP": "6", "VITIQ_BENCH_REPS": "2"}
+BENCH_STEPS = 3
+BENCH_WHICH = tuple(w for w in cli.BENCH_CHOICES if w not in ("ingestion", "all"))
+BENCH_TAIL = 256  # the B=16384 batch's last rows, served again alone
+BENCH_K5_BATCH = 256  # conv1d_infer at n_head 2: the plain layers take ~0.5 s at B=2048
+# the kernels the bench phase must launch (`bench_launches` keys)
+BENCH_KERNELS = ("fused_encoder_layer", "fused_encoder_layer_cls", "fused_encoder_layer_int8",
+                 "cls_pool_kernel", "fused_train_layer_fwd", "fused_train_layer_bwd",
+                 "wg_recompute_attention_fwd", "wg_recompute_attention_bwd",
+                 "fused_train_layer_fwd_stash", "fused_train_layer_bwd_stash",
+                 "fused_attention_fwd", "hash_dropout_kernel", "timing_scan_kernel")
+
+
+def bench_window(call) -> tuple:
+    """(call()'s result, every kernel it launched on the device by full
+    name) from one `torch.profiler` window of device activity
+    (PROFILE_PAD sleeps first, as `training_kernels`)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(200_000)
+        torch.cuda.synchronize()
+        out = call()
+        torch.cuda.synchronize()
+    return out, Counter(e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+                        and e.time_range.start >= 0 and "spin_kernel" not in e.name)
+
+
+def bench_launches(windows: dict) -> dict:
+    """Each kernels-line entry's launches (keyed by the first word of its
+    name) in the bench phase's windows {label: kernel names}, from the
+    kernels that one call of each wrapper launches once: K1 and K6 one
+    attention_core_kernel (K6's are the int8_infer window's), K2 one
+    cls_pool_kernel (in float and int8 serving alike), K3-fwd one attention
+    forward pass and K3-bwd one forward (its recompute) and one backward
+    pass, K4-fwd one wg_attention_fwd and K4-bwd one wg_attention_bwd_stash,
+    K5-fwd one attention_fwd and K5-bwd one attention_bwd_dq; P3 is K1's
+    core with its NOEXP flag (`<DH, true>`)."""
+    fn, int8 = Counter(), Counter()
+    for label, names in windows.items():
+        for name, n in names.items():
+            f = kernel_name(name)
+            if f == "attention_core_kernel" and ", true>" in name:
+                f = "attention_core_kernel_noexp"
+            (int8 if label == "int8_infer" else fn)[f] += n
+    k3b = fn["wg_recompute_attention_bwd"] + fn["train_attention_bwd"]
+    k2 = fn["cls_pool_kernel"] + int8["cls_pool_kernel"]
+    return {
+        "fused_encoder_layer": fn["attention_core_kernel"],
+        "fused_encoder_layer_cls": k2,
+        "fused_encoder_layer_int8": int8["attention_core_kernel"],
+        "cls_pool_kernel": k2,
+        "fused_encoder_layer_int8attn": (fn["attention_int8_kernel"]
+                                         + fn["attention_int8_sync_kernel"]),
+        "attention_int8_kernel": fn["attention_int8_kernel"],
+        "attention_int8_sync_kernel": fn["attention_int8_sync_kernel"],
+        "fused_train_layer_fwd": (fn["wg_recompute_attention_fwd"] + fn["train_attention_fwd"]
+                                  - k3b),
+        "fused_train_layer_bwd": k3b,
+        "wg_recompute_attention_fwd": fn["wg_recompute_attention_fwd"],
+        "wg_recompute_attention_bwd": fn["wg_recompute_attention_bwd"],
+        "fused_train_layer_fwd_stash": fn["wg_attention_fwd"],
+        "fused_train_layer_bwd_stash": fn["wg_attention_bwd_stash"],
+        "fused_attention_fwd": fn["attention_fwd"],
+        "fused_attention_bwd": fn["attention_bwd_dq"],
+        "hash_dropout_kernel": fn["hash_dropout_kernel"],
+        "timing_scan_kernel": fn["timing_scan_kernel"],
+        "mask_op_kernel": fn["mask_op_kernel"],
+        "mm_mask_kernel": fn["mm_mask_kernel"],
+        "refcost_kernel": fn["refcost_kernel"],
+        "fused_encoder_layer_noexp": fn["attention_core_kernel_noexp"],
+    }
+
+
+def bench_tail_check(label: str, serve, x: torch.Tensor) -> float:
+    """The logits of x's last BENCH_TAIL rows served in the whole batch
+    against the same rows served alone: within EXPORT_TOL, the same argmax
+    (a row's result does not depend on the batch it rides in; past 2^31
+    bytes of an operand a 32-bit offset would break that)."""
+    with torch.no_grad():
+        whole = serve(x)[-BENCH_TAIL:]
+        alone = serve(x[-BENCH_TAIL:].contiguous())
+    torch.cuda.synchronize()
+    if not (torch.isfinite(whole).all() and torch.isfinite(alone).all()):
+        raise AssertionError(f"{label}: non-finite logits at B={x.shape[0]}")
+    diff = (whole - alone).abs().max().item()
+    same = bool((whole.argmax(-1) == alone.argmax(-1)).all())
+    print(f"  {label}: the last {BENCH_TAIL} of B={x.shape[0]} rows against them alone: max "
+          f"|dlogit| {diff:.6g} (limit {EXPORT_TOL}), argmax {'equal' if same else 'DIFFERS'}",
+          flush=True)
+    if not diff <= EXPORT_TOL or not same:
+        raise AssertionError(f"{label}: rows served at B={x.shape[0]} differ from the same rows "
+                             "alone")
+    return diff
+
+
+def check_bench_result(label: str, res: dict) -> None:
+    """Every rate of a bench result positive and finite; a graph-timed step
+    checked against its eager step."""
+    for key in ("value", "eager_value"):
+        if key in res and not (math.isfinite(res[key]) and res[key] > 0):
+            raise AssertionError(f"bench {label}: {key} = {res[key]}")
+    if "value" not in res:
+        raise AssertionError(f"bench {label}: no value in {res}")
+    graph = res.get("timing_method", res.get("step_timing")) == "graph-slope"
+    if graph and res.get("graph_equals_eager") is not True:
+        raise AssertionError(f"bench {label}: graph-timed step not checked against its eager step")
+
+
+def bench_check(device, card: str) -> dict:
+    """The bench phase (see the module docstring); returns `bench_launches`
+    of its windows."""
+    t_phase = time.perf_counter()
+    print("phase bench: the three geometries no earlier phase serves, through Server, bf16 "
+          "kernels vs f32 path", flush=True)
+    for label, cfg, per_request in (
+            ("rawiq_seg64 (17 tokens)", rawiq_seg64_config("tpu"), "K1 5 + K2 1"),
+            ("rawiq_seg64_mp (16 tokens, mean-pool)", rawiq_seg64_mp_config("tpu"), "K1 6"),
+            ("rawiq_mp (64 tokens, mean-pool)", rawiq_mp_config("tpu"), "K1 6")):
+        res = serve_check(f"{label}, {per_request} a request", cfg, RAW_STATS, device,
+                          (1, 37, 256, 1000), (256, 1024))
+        if not res["raw_embed"]:
+            raise AssertionError(f"{label} must be served through the fused raw embedding")
+        del res
+    train_check("rawiq_seg64_mp (K4 at L=16)", rawiq_seg64_mp_config("tpu"), RAW_STATS, K4, device,
+                COSINE_F32)
+
+    print(f"phase bench: the ViT flagship at B=16384 against its last {BENCH_TAIL} rows alone",
+          flush=True)
+    s = bench.fused_infer_setup("vit", 16384, device=device)
+    x = s["x"]
+    bench_tail_check("vit flagship bf16 (K1 + K2)",
+                     lambda t: s["infer"](torch.zeros((), device=device), t)[1], x)
+    cfg = s["cfg"]
+    int8 = build_int8_serving_fn(ExperimentConfig(model=cfg, data=DataConfig()), s["model"],
+                                 bench.FLAGSHIP_STATS, device)
+    bench_tail_check("vit flagship int8 (K6 + K2)", int8, x)
+    del s, x, int8
+    torch.cuda.empty_cache()
+
+    runs = [(w, lambda w=w: bench.run_benchmarks(w, steps=BENCH_STEPS, device=device))
+            for w in BENCH_WHICH]
+    runs += [("conv1d_infer --n_head 2 (K5-fwd)",
+              lambda: bench.run_benchmarks("conv1d_infer", BENCH_K5_BATCH, BENCH_STEPS, n_head=2,
+                                           device=device)),
+             ("rawiq_best train B=8192 (K3)",
+              lambda: bench.bench_train_step("rawiq_best", 8192, BENCH_STEPS, device=device)),
+             ("rawiq_seg64_mp train B=8192 (K4)",
+              lambda: bench.bench_train_step("rawiq_seg64_mp", 8192, BENCH_STEPS,
+                                             device=device))]
+    print(f"phase bench: run_benchmarks for every --which but ingestion and all, each under "
+          f"torch.profiler, {BENCH_KNOBS}, {BENCH_STEPS} eager calls a window, on {card}:",
+          flush=True)
+    old = {k: os.environ.get(k) for k in BENCH_KNOBS}
+    os.environ.update(BENCH_KNOBS)
+    windows = {}
+    try:
+        for label, call in runs:
+            t0 = time.perf_counter()
+            res, windows[label] = bench_window(call)
+            check_bench_result(label, res)
+            rate = f"{res['value']:.1f} {res['unit']}"
+            if "eager_value" in res:
+                method = res.get("step_timing", res.get("timing_method"))
+                rate += f" {method}, eager {res['eager_value']:.1f}"
+            batch = res.get("batch_size", res.get("windows_per_call"))
+            print(f"  {label}: {res['metric']} B={batch} {rate} (k_big {res.get('k_big')}; "
+                  f"{time.perf_counter() - t0:.1f} s) [{card}]", flush=True)
+            torch.cuda.empty_cache()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    counts = bench_launches(windows)
+    print(f"  bench launches by kernel: {counts}", flush=True)
+    missing = [k for k in BENCH_KERNELS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"the bench phase never launched {missing}")
+    print(f"  bench phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5618,6 +5844,9 @@ def main() -> int:
         launches = parallel_check(device, card)
         print(json.dumps({"parallel_launches": launches, "parallel_cli": parallel_cli_check(card)}),
               flush=True)
+        return 0
+    if sys.argv[1:] == ["--bench"]:
+        print(json.dumps({"bench_launches": bench_check(device, card)}), flush=True)
         return 0
     if sys.argv[1:] == ["--k2k7"]:
         print(f"phase k2k7: K2's and K7's layers, K7's core and their stages on {card}:",
@@ -5710,6 +5939,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     parallel = parallel_check(device, card)
     parallel_cli_check(card)
+    torch.cuda.empty_cache()
+    benched = bench_check(device, card)
 
     print(f"phase timing (CUDA events after warm-up) on {card}:", flush=True)
     times = {name: time_serving_layers(name, L, ffn, B, D, device, card)
@@ -5945,6 +6176,7 @@ def main() -> int:
                          probes["p3"], probe_times["p3_err"], t["ms"], t["plain_ms"],
                          t["bound"], None))
     for k in kernels:
+        k["bench_launches"] = benched[k["name"].split(" ")[0]]
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on the main path")
     print(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s",

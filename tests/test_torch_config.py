@@ -76,7 +76,9 @@ def test_validation_errors_match(kwargs):
 
 @pytest.mark.parametrize("name", ["flagship_vit_config", "flagship_rawiq_config",
                                   "flagship_conv1d_config", "rawiq_best_config",
-                                  "rawiq_best_mp_config", "vit_tiny_2016_config"])
+                                  "rawiq_best_mp_config", "vit_tiny_2016_config",
+                                  "rawiq_seg64_config", "rawiq_seg64_mp_config",
+                                  "rawiq_mp_config"])
 @pytest.mark.parametrize("numerics", ["tpu", "reference"])
 def test_flagships_equal_vitiq_bench(name, numerics):
     got, want = getattr(pcfg, name)(numerics), getattr(jbench, name)(numerics)

@@ -75,7 +75,8 @@ the signal's peak from a float64 convolution (TF32 would show about 1e-3);
 SPS serving launches the kernel once a request for each loop.
 
 The prefetching feed (`vitiq_torch/data/pipeline.py`): 30 batches copied to
-the card through pinned buffers on a side stream arrive byte for byte, and
+the card through pinned buffers on a side stream arrive byte for byte (and
+items of one array come back as one tensor), and
 keep their bits while the consumer sleeps between batches on the host (the
 worker fills the queue and waits for each pinned buffer's copy before it
 refills it) and lags on the device (each batch read after a sleep queued on
@@ -1963,6 +1964,17 @@ def test_prefetcher_copies_batches_to_the_card_byte_for_byte(cuda):
         assert _same_bytes(dx, x) and _same_bytes(dy, y)
         got += 1
     assert got == 30
+
+
+@pytest.mark.cuda
+def test_prefetcher_copies_one_array_items(cuda):
+    """An item that is one array (as vitiq's tree_map takes it) comes back as
+    one tensor; its rows were once taken for the item's elements."""
+    batches = [x for x, _, _ in _host_batches(6, seed=2)]
+    got = list(device_prefetch(iter(batches), cuda, 2))
+    assert len(got) == 6
+    for x, dx in zip(batches, got):
+        assert isinstance(dx, torch.Tensor) and dx.device == cuda and _same_bytes(dx, x)
 
 
 @pytest.mark.cuda

@@ -15,7 +15,8 @@ shards and evaluates a reference ``.pth`` with ``cli evaluate
 --torch-checkpoint``; it exports an experiment with ``cli export`` and
 serves the artifact, loads the reference ``.pth`` through the softmax guard
 and runs MDF-NET. A second subprocess, with matplotlib blocked too, runs
-`fit` through the scan step, the sweep's fitness and imports `viz`. The
+`fit` through the scan step, the sweep's fitness and a bench
+(`bench.run_benchmarks`), and imports `viz`. The
 port's sources, and `chip_smoke.py`, import neither jax nor vitiq."""
 
 import re
@@ -302,6 +303,11 @@ fitness = make_amc_fitness((x[:80], y[:80]), (x[80:], y[80:]), num_classes=2, se
 p = np.array([1.0, 64, 4, 1, 64, 0.1, 1e-3, 16, 16])
 assert -1.0 <= fitness(p[None])[0] <= 0.0 and len(fitness.compile_cache) == 1
 assert decode_particle(p, bucket=True)["arm"] == "rawiq"
+import os
+from vitiq_torch import bench
+os.environ.update(VITIQ_BENCH_K_CAP="2", VITIQ_BENCH_REPS="1")  # the shallowest slope
+line = bench.run_benchmarks("vit_tiny_infer", batch_size=2, steps=1, device="cpu")
+assert line["metric"] == "iq_frames_per_sec_per_chip_vit_tiny" and line["value"] > 0
 leaked = sorted(m for m in sys.modules if m.startswith(("jax", "vitiq."))
                 and sys.modules[m] is not None)
 assert not leaked, leaked
@@ -311,8 +317,8 @@ print("OK")
 
 def test_scan_training_and_the_sweep_run_without_jax():
     """`fit` through the scan step (K = 2: two groups and a single step of
-    five), the sweep's fitness and the viz module, with jax, vitiq and
-    matplotlib blocked."""
+    five), the sweep's fitness, the viz module and a bench (`cli bench`'s
+    vit_tiny_infer at B=2), with jax, vitiq and matplotlib blocked."""
     proc = subprocess.run([sys.executable, "-c", SCAN_SCRIPT], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

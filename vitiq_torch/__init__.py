@@ -72,9 +72,15 @@ training one captured graph on the card) and the preprocessing figures
 device mesh (`parallel/`: data and tensor parallelism over
 `torch.distributed`, one process a rank, started by torchrun or
 `parallel.comm.spawn`), `ProcessShardFeed`, and `cli train --data_parallel /
---model_parallel`.
+--model_parallel`; and the throughput module (`bench.py`, `python -m
+vitiq_torch.cli bench` with vitiq's `--which` choices, and `python -m
+vitiq_torch.bench`, the counterpart of the JAX package's headline benchmark) over
+vitiq's nine bench geometries, `rawiq_seg64_config`, `rawiq_seg64_mp_config`
+and `rawiq_mp_config` among them: on the card each timed step is one
+captured CUDA graph, timed by the slope over its replays beside the eager
+step.
 
-Not ported yet: the benchmark (`cli bench`).
+Every module of `vitiq/` has its counterpart here but two.
 
 Not ported, by design: `vitiq/utils/compile_cache.py` keeps XLA's persistent
 compilation cache, and the port compiles nothing at run time but its kernel

@@ -1,7 +1,7 @@
 """Command-line interface (counterpart of `vitiq/cli.py`): ``train``,
-``evaluate``, ``export``, ``compare``, ``head-to-head``, ``visualize`` and
-``sweep``, with the JAX package's argument names, presets, overrides and
-printed lines.
+``evaluate``, ``export``, ``compare``, ``head-to-head``, ``visualize``,
+``sweep`` and ``bench``, with the JAX package's argument names, presets,
+overrides and printed lines.
 
     python -m vitiq_torch.cli train [--preset NAME | --config PATH | --arm vit|rawiq]
         [--source synthetic|hdf5 --file_path H5 --json_path JSON [--streaming]]
@@ -23,6 +23,9 @@ printed lines.
     python -m vitiq_torch.cli sweep [--n_particles N] [--iters N] [--seed N]
         [--train_steps N] [--source synthetic|hdf5 --file_path H5 --json_path JSON]
         [--output PATH] [--resume] [--device cuda]
+    python -m vitiq_torch.cli bench [--which fused_vit_infer|...] [--batch_size N]
+        [--steps N] [--sps N] [--timing_method M] [--n_head N] [--data_parallel N]
+        [--trace DIR] [--device cuda]
 
 ``--device`` (default ``cuda``) picks where the model runs; ``--device cpu``
 runs on the host. ``--no_plots`` skips the plots, which need matplotlib and
@@ -36,12 +39,15 @@ training one captured CUDA graph on the card) and prints its result. ``evaluate
 --torch-checkpoint`` evaluates a reference PyTorch ``.pth``
 (`runner.run_reference_evaluation`). ``export`` writes the serving artifact
 of a training-run directory (`serve.export_from_experiment`) and prints
-vitiq's keys; ``--platforms`` takes cuda and cpu. The presets read the HDF5 source
-unless ``--source synthetic`` is given. ``--sps`` 2 or more runs the SPS
-front-end (RRC matched filter, then ``--timing_method``; the Gardner and
-Mueller-Mueller loops are one kernel launch on the card) before the model,
-and ``--features`` picks the arm's input; `config.json` keeps both, so
-``evaluate`` re-derives the same front-end.
+vitiq's keys; ``--platforms`` takes cuda and cpu. ``bench`` runs one of
+vitiq's benchmarks by its ``--which`` name (`bench.run_benchmarks`) and
+prints its JSON line; ``--trace DIR`` writes a `torch.profiler` trace of it.
+The presets read the HDF5 source unless ``--source synthetic`` is given.
+``--sps`` 2 or more runs the SPS front-end (RRC matched filter, then
+``--timing_method``; the Gardner and Mueller-Mueller loops are one kernel
+launch on the card) before the model, and ``--features`` picks the arm's
+input; `config.json` keeps both, so ``evaluate`` re-derives the same
+front-end.
 
 ``train --data_parallel D --model_parallel M`` trains over a (data, model)
 mesh of D x M ranks, one process each, started by torchrun::
@@ -50,7 +56,8 @@ mesh of D x M ranks, one process each, started by torchrun::
 
 (`runner.start_ranks`: NCCL when every local rank has a card of its own,
 gloo otherwise, e.g. two ranks sharing one card; the world must be D x M;
-scan training is off above one rank).
+scan training is off above one rank). ``bench --data_parallel N`` serves
+over a data mesh the same way; rank 0 prints.
 """
 
 from __future__ import annotations
@@ -306,6 +313,38 @@ def cmd_sweep(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    import contextlib
+
+    from vitiq_torch.bench import run_benchmarks
+    from vitiq_torch.parallel import comm
+
+    ctx = contextlib.nullcontext()
+    if args.trace:
+        # --trace DIR: a torch.profiler trace of the bench window,
+        # DIR/trace.json (Perfetto or chrome://tracing)
+        from vitiq_torch.utils.profiling import trace_context
+
+        ctx = trace_context(args.trace)
+    with ctx:
+        result = run_benchmarks(
+            which=args.which, batch_size=args.batch_size, steps=args.steps,
+            n_head=args.n_head, data_parallel=args.data_parallel, sps=args.sps or 2,
+            timing_method=args.timing_method, device=args.device)
+    if args.trace:
+        result["trace_dir"] = args.trace
+    if comm.rank() == 0:
+        print(json.dumps(result, default=float))
+    return 0
+
+
+BENCH_CHOICES = ["fused_vit_infer", "vit_tiny_infer", "rawiq_infer", "rawiq_mp_infer",
+                 "rawiq64_infer", "rawiq64_mp_infer", "rawiq_best_mp_infer",
+                 "rawiq_best_infer", "conv1d_infer", "int8_infer", "train_step",
+                 "head_variant", "dsp_frontend", "sps_infer", "ingestion", "e2e_serving",
+                 "streaming", "all"]
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="vitiq_torch", description="PyTorch/CUDA port of vitiq (ViT vs raw-IQ AMC)")
@@ -392,6 +431,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="Device to train on (default cuda; cpu runs on the host)")
     p.set_defaults(fn=cmd_sweep)
+
+    p = sub.add_parser("bench", help="Throughput / latency benchmarks")
+    p.add_argument("--which", default="fused_vit_infer", choices=BENCH_CHOICES)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--steps", type=int, default=30)
+    p.add_argument("--sps", type=int, default=2,
+                   help="sps_infer: samples per symbol of the front-end + classifier bench")
+    p.add_argument("--timing_method", default=None,
+                   choices=["simple_energy", "simple_correlation", "gardner",
+                            "mueller_muller"],
+                   help="sps_infer: timing-recovery method (default gardner)")
+    p.add_argument("--n_head", type=int, default=None,
+                   help="head_variant: override the flagship head count "
+                        "(d_head = d_model / n_head)")
+    p.add_argument("--data_parallel", type=int, default=None,
+                   help="serve the bench batch over a data mesh of this many ranks "
+                        "(torchrun --nproc_per_node N)")
+    p.add_argument("--trace", type=str, default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the bench window to DIR/trace.json")
+    p.add_argument("--device", default="cuda",
+                   help="Device to run on (default cuda; cpu runs on the host)")
+    p.set_defaults(fn=cmd_bench)
     return parser
 
 

@@ -588,6 +588,33 @@ def flagship_conv1d_config(numerics: str = "tpu") -> ModelConfig:
                        embedding_type="conv1d", numerics=numerics)
 
 
+def rawiq_seg64_config(numerics: str = "tpu") -> ModelConfig:
+    """rawIQ segment-64: the reference's production_rawIQv1 tokenization,
+    16 segments and CLS (17 tokens), d128/L6/H8, FFN 1024, dropout 0.2."""
+    return ModelConfig(arm="rawiq", num_classes=19, d_model=128, n_head=8,
+                       n_layers=6, ffn_hidden=1024, drop_prob=0.2,
+                       segment_size=64, numerics=numerics)
+
+
+def rawiq_seg64_mp_config(numerics: str = "tpu") -> ModelConfig:
+    """`rawiq_seg64_config` with the mean-pool readout (use_cls_token=False,
+    the reference's own pooling flag, ref: transformer_rawIQ.py:88-93): 16
+    tokens, no CLS row."""
+    return ModelConfig(arm="rawiq", num_classes=19, d_model=128, n_head=8,
+                       n_layers=6, ffn_hidden=1024, drop_prob=0.2,
+                       segment_size=64, use_cls_token=False,
+                       numerics=numerics)
+
+
+def rawiq_mp_config(numerics: str = "tpu") -> ModelConfig:
+    """The rawIQ flagship (segment 16) with the mean-pool readout: 64
+    tokens, no CLS row."""
+    return ModelConfig(arm="rawiq", num_classes=19, d_model=128, n_head=8,
+                       n_layers=6, ffn_hidden=1024, drop_prob=0.2,
+                       segment_size=16, use_cls_token=False,
+                       numerics=numerics)
+
+
 def rawiq_best_config(numerics: str = "tpu") -> ModelConfig:
     """The reference's best published checkpoint geometry (rawIQ
     exp_L9_H8_F1024_W1e-3, 63.44%): d256/L9/H8, FFN 1024, segment-16 tokens

@@ -10,8 +10,9 @@ after the item's copies. The consumer's current stream waits on that event
 before the item is yielded, and each tensor is marked with `record_stream`,
 so the caching allocator cannot hand its memory out again while the consumer
 still uses it. A pinned buffer is refilled only after its last copy's event
-has completed (two buffers a shape and dtype, in turns). Elements of an item
-that are not numpy arrays pass through unchanged. There is no fallback: on a
+has completed (two buffers a shape and dtype, in turns). An item is a tuple
+(or list) of arrays, or one array, which comes back as one tensor; elements
+of an item that are not numpy arrays pass through unchanged. There is no fallback: on a
 CUDA device without CUDA it raises. On the CPU it is a plain thread
 prefetcher that yields the items as they come. A worker's error reaches the
 consumer where the stream ends.
@@ -128,9 +129,10 @@ class CudaPrefetcher(Prefetcher):
         return slot
 
     def _to_device(self, item):
+        bare = isinstance(item, np.ndarray)  # one array, as vitiq's tree_map takes it
         out, used = [], []
         with torch.cuda.device(self._device), torch.cuda.stream(self._stream):
-            for a in item:
+            for a in ((item,) if bare else item):
                 if not isinstance(a, np.ndarray):
                     out.append(a)
                     continue
@@ -144,13 +146,13 @@ class CudaPrefetcher(Prefetcher):
             event.record(self._stream)
         for slot in used:
             slot[1] = event
-        return tuple(out), event
+        return (out[0] if bare else tuple(out)), event
 
     def _receive(self, item):
         tensors, event = item
         stream = torch.cuda.current_stream(self._device)
         stream.wait_event(event)
-        for t in tensors:
+        for t in (tensors if isinstance(tensors, tuple) else (tensors,)):
             if isinstance(t, torch.Tensor):
                 t.record_stream(stream)
         return tensors

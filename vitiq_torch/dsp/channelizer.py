@@ -10,7 +10,7 @@ without TF32) and an FFT across the branches yields the K channel streams.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -29,11 +29,15 @@ def design_prototype_lowpass(num_channels: int, taps_per_phase: int = 8,
     return (h / h.sum()).astype(np.float64)
 
 
-def polyphase_channelize(x: torch.Tensor, num_channels: int, taps: np.ndarray) -> torch.Tensor:
+def polyphase_channelize(x: torch.Tensor, num_channels: int,
+                         taps: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
     """[B, N] complex wideband -> [B, K, N//K] complex64 channel streams.
 
     N must be a multiple of K. Channel k is centered at f = k/K of the input
-    sample rate (fftfreq ordering: k > K/2 are negative frequencies).
+    sample rate (fftfreq ordering: k > K/2 are negative frequencies). `taps`
+    is the prototype (`design_prototype_lowpass`), or its f32 copy on x's
+    device where the caller made it once: a host copy synchronizes the
+    stream, which a CUDA graph's capture refuses.
     """
     B, N = x.shape
     K = num_channels
@@ -47,7 +51,8 @@ def polyphase_channelize(x: torch.Tensor, num_channels: int, taps: np.ndarray) -
     # commutator: branch k takes samples n = m*K + k
     xb = x.reshape(B, M, K)
     # phase k of the prototype is taps[k::K]: h[p, k] = taps[p*K + k]
-    h = torch.as_tensor(np.asarray(taps, np.float32).reshape(P, K), device=x.device)
+    h = (taps if isinstance(taps, torch.Tensor)
+         else torch.as_tensor(np.asarray(taps, np.float32), device=x.device)).reshape(P, K)
     # branch FIR along m, causal: y[b, m, k] = sum_p x[b, m - p, k] h[p, k],
     # as a correlation with each branch's flipped phase; the real and the
     # imaginary parts are two halves of one batch

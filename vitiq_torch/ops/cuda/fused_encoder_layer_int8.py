@@ -177,9 +177,11 @@ def absmax_scale(t32: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def scale_of_absmax(amax: torch.Tensor) -> torch.Tensor:
-    """A row's scale from its f32 absmax: max(amax, 1e-8) / 127."""
+    """A row's scale from its f32 absmax: max(amax, 1e-8) / 127. The divisor
+    is filled on the device (a host copy would synchronize the stream, which
+    a CUDA graph's capture refuses)."""
     return (torch.clamp(amax, min=ROW_SCALE_FLOOR)
-            / torch.tensor(float(QMAX), device=amax.device))
+            / torch.full((), float(QMAX), device=amax.device))
 
 
 def row_quant(t: torch.Tensor):

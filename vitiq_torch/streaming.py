@@ -17,7 +17,11 @@ import torch
 
 from vitiq_torch.config import ModelConfig
 from vitiq_torch.dsp.channelizer import design_prototype_lowpass, polyphase_channelize
-from vitiq_torch.dsp.frontend import preprocess_batch_rawiq, preprocess_batch_vit
+from vitiq_torch.dsp.frontend import (
+    preprocess_batch_rawiq,
+    preprocess_batch_vit,
+    zscore_constants,
+)
 from vitiq_torch.models.amc import AMCModel
 from vitiq_torch.utils.device import resolve_device
 
@@ -34,7 +38,11 @@ def make_streaming_classifier(cfg: ModelConfig, model: AMCModel, stats: Dict[str
     """
     device = resolve_device(device)
     frame_len = cfg.seq_length
-    taps = design_prototype_lowpass(num_channels, taps_per_phase)
+    # the taps and the z-score constants go to the device once, here: a
+    # call copies nothing from the host, so it can be captured in a graph
+    taps = torch.as_tensor(design_prototype_lowpass(num_channels, taps_per_phase),
+                           dtype=torch.float32, device=device)
+    stats = zscore_constants(stats, device)
     if cfg.arm == "vit":
         pre = lambda x: preprocess_batch_vit(x, stats, H=cfg.img_size_h, W=cfg.img_size_w)
     else:
