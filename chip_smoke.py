@@ -227,18 +227,26 @@ which raises (exit code 1) on failure:
    --torch-checkpoint` with a synthetic config on the card: K1 5 and K2 1
    a batch, and its predictions equal `run_evaluation`'s on the same
    weights.
-   dsp: the DSP front-end on the card. timing_scan_kernel (csrc/timing.cu,
-   the Gardner and Mueller-Mueller loops) is built without a spill and held
-   to its plain loop (`tk.timing_scan_plain`) bit for bit on synthetic
-   frames RRC-shaped at sps 2 (B=4096, 2,048 samples) and sps 4 (B=1024,
-   4,096 samples), both loops, full (L//sps steps) and hybrid (64 steps
-   from p0), 30 launches the same bits; the matched filter within 1e-5 of
+   dsp: the DSP front-end on the card. timing_recovery_kernel
+   (csrc/timing.cu: filtered frames to symbols, the coarse phase, the
+   Gardner and Mueller-Mueller loops, the circular mean, the strobes) is
+   built without a spill (all six instances) and held on synthetic frames
+   RRC-shaped at sps 2 and sps 4 (B=4096, 2,048 samples), both loops: in
+   positions mode to its plain loop (`tk.timing_scan_plain`) bit for bit,
+   full (L//sps steps) and 64 steps from p0; in symbols mode to
+   `tk.timing_symbols_plain`, full (bit for bit) and hybrid (window 64: the
+   phase within PHASE_TOL, every strobe farther than that from a
+   half-integer equal), also at B=4095 and B=1; 30 launches the same bits;
+   the matched filter within 1e-5 of
    a float64 np.convolve (not TF32); vitiq's contract bar
    (tests/test_dsp.py:104-130) with `extract_symbols` on the card. Then one
    request of 4,096 frames each through `Server` at full width, against the
    f32 path on the same input (the serving gates), every counter reset
-   just before and read just after (K1 5, K2 1, and timing_scan_kernel once
-   for the loops): the rawIQ flagship at 1,024 symbols from 2,048-sample
+   just before and read just after (K1 5, K2 1, and timing_recovery_kernel
+   once for the loops, in symbols mode; each loop request under
+   `torch.profiler` runs the matched filter, that one kernel, the arm's
+   preprocess and the model, and nothing else): the rawIQ flagship at 1,024
+   symbols from 2,048-sample
    frames at sps 2 with each of the four timing methods (the loops hybrid)
    and with the Gardner and Mueller-Mueller full loops; the rawIQ flagship
    on amp_phase features and the ViT flagship on spectrogram images
@@ -246,15 +254,20 @@ which raises (exit code 1) on failure:
    64-channel channelizer, the ViT flagship). Each is timed (frames/s a
    call, the front-end and the model alone), the streaming call with the
    channelizer alone, the device's idle share of one SPS serving call
-   (`torch.profiler`) printed, and timing_scan_kernel timed against its
-   plain loop beside its bounds on the bytes its steps touch (`scan_bounds`).
+   (`torch.profiler`) printed, and timing_recovery_kernel timed in symbols
+   mode against the composition the front-end ran before (the positions-mode
+   kernel inside tensor operations) and its plain version, and in positions
+   mode against the plain loop, beside its bounds (`symbol_bounds`,
+   `scan_bounds`: the bytes the run's strobes touch, the chain).
    dsp-train: the gradient of one K4 step of the rawIQ flagship on the sps-2
    front-end's symbols against the plain bf16 layers and the f32 path (the
    train phase's cosine limits); then
    `cli train --sps 2 --timing_method gardner` of the rawIQ flagship on
    synthetic 2,048-sample frames RRC-shaped at sps 2 (3 classes,
-   DSP_TRAIN_EPOCHS epochs): K4 6 + 6 and the scan kernel once a step, K1 5,
-   K2 1 and the scan kernel once an evaluated batch, a falling train loss,
+   DSP_TRAIN_EPOCHS epochs; its front-end under `torch.profiler` first: the
+   matched filter, one timing_recovery_kernel, the arm's preprocess): K4 6 +
+   6 and timing_recovery_kernel once a step, K1 5, K2 1 and
+   timing_recovery_kernel once an evaluated batch, a falling train loss,
    and `cli evaluate` of its checkpoint printing the run's test accuracy.
    ``--dsp`` runs only the device, build and dsp phases.
    export: the serving artifact (`serve.export_serving`, `ServingArtifact`).
@@ -266,7 +279,9 @@ which raises (exit code 1) on failure:
    weights) through `export_from_experiment`, then loaded on the card (one
    CUDA graph a bucket, largest first, one memory pool). Each bucket's
    captured launches (`captured_launches`) must equal what one eager request
-   launches (K1 n_layers - 1, K2 1, timing_scan_kernel 1 at sps 2). Ragged
+   launches (K1 n_layers - 1, K2 1, timing_recovery_kernel 1 at sps 2; a
+   replay of the sps-2 graph runs the matched filter, that kernel, the
+   arm's preprocess and the model in that order). Ragged
    requests (EXPORT_SIZES, EXPORT_SPS_SIZES) through the graphs must equal
    the eager `Server` on the same weights bit for bit (else within
    EXPORT_TOL with the same argmax, counted and printed; every request goes
@@ -445,7 +460,9 @@ which raises (exit code 1) on failure:
    stack against K1's at P3_SHAPES. Then each probe kernel against its plain
    version with its time, bound and PyTorch yardstick (P1: torch.add or
    torch.exp2 on the same input; P2: each arm bit for bit against in + 1,
-   beside torch._foreach_add and x + 1; P3 at each P3 shape, its layer within
+   beside torch._foreach_add and x + 1; P1's and P2's kernels and those
+   yardsticks also by their device time alone, `device_ms`, since a P1
+   wrapper call's host cost is ~20x its kernel; P3 at each P3 shape, its layer within
    1e-2 relative L2 over the rows whose sums of scores are not small beside
    their magnitudes (over all rows too at the ViT and conv1d shapes) and its
    attention core alone within 1e-2 in each such row on the same qkv), and
@@ -476,9 +493,9 @@ The launches of K2's pooling kernel and K7's two cores are counted by the C
 code where it launches each (`fel.kernel_launches`); the kernels line gives
 those counts from the main path's runs (the ViT flagship's serve phase, and
 the ViT flagship's and rawiq_best's evaluations under VITIQ_ATTN_INT8=1).
-timing_scan_kernel's launches are counted by timing.cu (`tk.kernel_launches`)
-over the dsp phase's serving requests; it has no TPU twin (the JAX package
-runs the loops as a lax.scan), which its entry says. The K1, K2, pooling and
+timing_recovery_kernel's launches are counted by timing.cu
+(`tk.kernel_launches`) over the dsp phase's serving requests; it has no TPU
+twin (the JAX package runs the loops as a lax.scan), which its entry says. The K1, K2, pooling and
 scan entries also give `export_launches`: the export phase's launches of
 each through the graphs, from its `torch.profiler` traces. The K3 and K4
 entries give `scan_launches`: the launches of one replay of the scan-train
@@ -1181,7 +1198,8 @@ def serve_check(label: str, model_cfg, stats, device, sizes, buckets, k5_route=F
     (a model that pools on the CLS row), or K1 once per layer and K2 never
     (mean pooling); with `k5_route` (VITIQ_NO_FUSED_LAYER=1, the plain layer
     loop) K5-fwd once per layer and K1/K2 never. No other kernel may launch,
-    and timing_scan_kernel `scans` times a request. Requests are random
+    and timing_recovery_kernel `scans` times a request, every time in
+    symbols mode (`tk.timing_symbols`). Requests are random
     frames of the model's `seq_length` samples, or the first `sizes` of
     `frames`; `data` (default: iq features at sps 1) sets the experiment's
     front-end."""
@@ -1225,15 +1243,17 @@ def serve_check(label: str, model_cfg, stats, device, sizes, buckets, k5_route=F
                                      f"expected {want_per_request}")
         counts = {**fel.launches, **fa.launches}
         kernel_counts = fel.kernel_launches()
-        scan_counts = (tk.launches["timing_scan"], tk.kernel_launches())
+        scan_counts = (tk.launches["timing_symbols"], tk.kernel_launches(),
+                       tk.launches["timing_scan"])
     finally:
         os.environ.pop("VITIQ_NO_FUSED_LAYER", None)
     if kernel_counts["cls_pool_kernel"] != counts["fused_encoder_layer_cls"]:
         raise AssertionError(f"{label}: {kernel_counts['cls_pool_kernel']} pooling kernels "
                              f"launched by {counts['fused_encoder_layer_cls']} K2 calls")
-    if scan_counts != (scans * len(requests),) * 2:
-        raise AssertionError(f"{label}: timing_scan launched {scan_counts}, expected "
-                             f"{scans} a request")
+    if scan_counts != (scans * len(requests),) * 2 + (0,):
+        raise AssertionError(f"{label}: timing_recovery_kernel launched {scan_counts} (symbols "
+                             f"mode, the C count, positions mode), expected {scans} a request "
+                             "in symbols mode")
 
     got = torch.cat(outs)
     want = torch.cat([ref_serve(x) for x in requests])
@@ -1241,7 +1261,7 @@ def serve_check(label: str, model_cfg, stats, device, sizes, buckets, k5_route=F
     front = "fused raw embedding" if model.raw_stats is not None else "preprocess + embedding"
     print(f"  {label}: requests {list(sizes)} via buckets {list(buckets)} ({front}); launches "
           f"K1 {counts['fused_encoder_layer']}, K2 {counts['fused_encoder_layer_cls']}, "
-          f"K5-fwd {counts[K5[0]]}, timing_scan {scan_counts[1]}", flush=True)
+          f"K5-fwd {counts[K5[0]]}, timing_recovery_kernel {scan_counts[1]}", flush=True)
     max_abs = gate_logits(label, got, want, sum(sizes), model_cfg.num_classes)
     del ref_model, ref_serve
     torch.cuda.empty_cache()
@@ -3723,13 +3743,36 @@ def drive_probes(device, card: str) -> dict:
             "refcost": refcost_rows, "stacks": stacks}
 
 
+def device_ms(fn, calls: int = 100) -> float:
+    """The device time of one call of fn(): its kernels' own time under
+    `torch.profiler` over `calls` back-to-back calls after a warm-up, summed
+    and divided by `calls`. The host's time between launches does not count
+    (`cuda_ms` counts it where the host is slower than the kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(200_000)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(device_us(e) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+             and e.time_range.start >= 0 and "spin_kernel" not in e.name)
+    return us / calls / 1e3
+
+
 def check_probes(device, card: str, probes: dict) -> dict:
     """Each probe kernel against its plain version beside the main path's
     readings in `probes` (P1's errors as `mask_ops.report` took them; P2
     each arm bit for bit against ``in + 1``; P3 by `p3.check_layer` and
     `p3.check_core` at each P3 shape), and each one's time per launch beside
     its plain version, its bound and a PyTorch call that computes the same
-    function where there is one (P2's kernel time is `refcost.measure`'s)."""
+    function where there is one (P2's kernel time is `refcost.measure`'s).
+    P1's and P2's kernels run for a microsecond or less, under the host's
+    cost of a wrapper call: each is also timed by its device time alone
+    (`device_ms`), beside the PyTorch call's device time."""
     out = {}
     args = mask_ops.inputs(device)
     for name in mask_ops.VARIANTS + mask_ops.MM_VARIANTS:
@@ -3747,13 +3790,18 @@ def check_probes(device, card: str, probes: dict) -> dict:
             row = None if name == "exp2" else mask_ops.mask_row(name, device)
             library_ms = cuda_ms((lambda: torch.exp2(x)) if row is None else
                                  (lambda: torch.add(x, row)), 200)
+        library_device_ms = None if mm else device_ms(
+            (lambda: torch.exp2(x)) if row is None else (lambda: torch.add(x, row)))
         out[name] = {"err": err, "ms": cuda_ms(fn, 200),
                      "plain_ms": cuda_ms(lambda: mask_ops.reference(name, args), 200),
-                     "bound": bnd, "library_ms": library_ms}
+                     "bound": bnd, "library_ms": library_ms, "device_ms": device_ms(fn),
+                     "library_device_ms": library_device_ms}
         print(f"  P1 {name}: max |kernel - plain| = {err:.6g}; {out[name]['ms']:.4f} ms a "
               f"launch vs plain {out[name]['plain_ms']:.4f} ms"
               + ("" if library_ms is None else f" vs one PyTorch call {library_ms:.4f} ms")
-              + f" (bound {bnd[0]:.6f} ms by {bnd[1]})  [{card}]", flush=True)
+              + f" (bound {bnd[0]:.6f} ms by {bnd[1]}); device time {out[name]['device_ms']:.6f}"
+              + ("" if mm else f" ms vs the PyTorch call's {library_device_ms:.6f}")
+              + f" ms  [{card}]", flush=True)
 
     batch, g, nr = REFCOST_ARGS
     for (tag, nrefs, width), row in zip(refcost.arms(nr), probes["refcost"], strict=True):
@@ -3769,11 +3817,15 @@ def check_probes(device, card: str, probes: dict) -> dict:
              "plain_ms": time_amortized(lambda seed, *xs: refcost.refcost_reference(xs), xs) * 1e3,
              "library_ms": time_amortized((lambda seed, *xs: torch._foreach_add(xs, 1))
                                           if nrefs > 1 else (lambda seed, x: x + 1), xs) * 1e3,
-             "bound": bound(0.0, 2.0 * sum(x.numel() for x in xs) * 2)}
+             "bound": bound(0.0, 2.0 * sum(x.numel() for x in xs) * 2),
+             "device_ms": device_ms(lambda: refcost.refcost(xs, g)),
+             "library_device_ms": device_ms((lambda: torch._foreach_add(xs, 1)) if nrefs > 1
+                                            else (lambda: xs[0] + 1))}
         print(f"  P2 {tag} ({2 * nrefs} operands of width {width}): bit for bit; kernel "
               f"{t['ms']:.4f} ms vs plain {t['plain_ms']:.4f} ms vs {library} "
               f"{t['library_ms']:.4f} ms (bound {t['bound'][0]:.4f} ms by {t['bound'][1]}); "
-              f"{t['ms'] / (batch // g) * 1e3:.4f} us a block  [{card}]", flush=True)
+              f"{t['ms'] / (batch // g) * 1e3:.4f} us a block; device time {t['device_ms']:.4f} "
+              f"ms vs {library}'s {t['library_device_ms']:.4f} ms  [{card}]", flush=True)
         out[tag] = t
         del xs
         torch.cuda.empty_cache()
@@ -4221,8 +4273,8 @@ def time_k4_host(device, card: str, B: int = 4096) -> dict:
     return out
 
 
-# The dsp phase: the SPS front-end (RRC matched filter, then timing recovery
-# with the error-feedback loops in timing_scan_kernel), the amp_phase and
+# The dsp phase: the SPS front-end (RRC matched filter, then timing recovery:
+# the error-feedback loops in timing_recovery_kernel), the amp_phase and
 # spectrogram features and the streaming classifier (the 64-channel
 # polyphase channelizer), each served at full width through K1/K2, and an
 # SPS training run through K4.
@@ -4231,31 +4283,48 @@ DSP_SPS = 2
 DSP_SPS_FRAME = DSP_SPS * FRAME_LEN  # 2,048 samples -> the rawIQ flagship's 1,024 symbols
 DSP_CHANNELS = 64  # the streaming classifier's channels; 64 windows of them
 DSP_TRAIN_EPOCHS, DSP_TRAIN_BATCH, DSP_TRAIN_LR = 4, 256, 1e-3
+DSP_WINDOW = 64  # the hybrid's loop steps (DataConfig.timing_hybrid_window)
 TIMING_SOURCE = "vitiq_torch/csrc/timing.cu"
 TIMING_JAX_LOOPS = "vitiq/dsp/timing.py:76"  # _gardner_scan's lax.scan: no TPU kernel
+TIMING_KERNEL = "timing_recovery_kernel"
+# its instances: <METHOD, MODE, GROUP> for both methods, positions (mode 0)
+# and the full loop's symbols (mode 1) at GROUP 8, the hybrid's at GROUP 16
+TIMING_INSTANCES = {f"ILi{m}ELi{mode}ELi{g}E": f"{name} {label}"
+                    for m, name in enumerate(("gardner", "mueller_muller"))
+                    for mode, g, label in ((0, 8, "positions"), (1, 8, "symbols, full loop"),
+                                           (1, 16, "symbols, hybrid"))}
+# symbols mode against its plain version: the hybrid's phase within PHASE_TOL
+# of a sample (its sums of sin and cos are taken in another order); a strobe
+# within PHASE_TOL of a half-integer may round to the other side
+PHASE_TOL = 1e-4
 # a Gardner step's float32 operations a frame: three interpolation points
 # (clip, floor, two subtractions, then two products and a sum in I and in Q),
 # the error and the update; Mueller-Mueller's two points and signs are fewer
 SCAN_OPS_PER_STEP = {"gardner": 40, "mueller_muller": 34}
+COARSE_OPS_PER_SAMPLE = 4  # two squares, their sum, the phase's running sum
 PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
 # the chain bound: a step's loads wait on the previous step's position, so
-# a frame takes at least steps x (one dependent load); an L1 hit's
-# load-to-use latency on Hopper is taken as 32 cycles (assumed, not measured)
+# a frame takes at least steps x (one dependent load); a shared-memory (or
+# L1) load's load-to-use latency on Hopper is taken as 32 cycles (assumed,
+# not measured)
 L1_LOAD_CYCLES = 32
 
 
 def check_timing_build() -> None:
-    """Both instances of timing_scan_kernel are built and do not spill."""
+    """Every instance of timing_recovery_kernel is built and none spills."""
     entries = {n: v for n, v in _build.ptxas_entries(_build.ptxas_report("timing")).items()
-               if "timing_scan_kernel" in n}
-    if len(entries) != 2:
-        raise AssertionError(f"{len(entries)} timing_scan_kernel instances in the build")
+               if TIMING_KERNEL in n}
+    labels = {tag: label for tag, label in TIMING_INSTANCES.items()
+              if any(tag in n for n in entries)}
+    if len(entries) != len(TIMING_INSTANCES) or len(labels) != len(TIMING_INSTANCES):
+        raise AssertionError(f"{len(entries)} {TIMING_KERNEL} instances in the build, expected "
+                             f"{len(TIMING_INSTANCES)}: {sorted(entries)}")
     for name, (regs, stores, loads) in sorted(entries.items()):
-        method = "gardner" if "ILi0E" in name else "mueller_muller"
-        print(f"  timing_scan_kernel<{method}>: {regs} registers, spill {stores}/{loads} bytes",
+        label = next(v for tag, v in labels.items() if tag in name)
+        print(f"  {TIMING_KERNEL}<{label}>: {regs} registers, spill {stores}/{loads} bytes",
               flush=True)
         if stores or loads:
-            raise AssertionError(f"timing_scan_kernel<{method}> spills")
+            raise AssertionError(f"{TIMING_KERNEL}<{label}> spills")
 
 
 def dsp_frames(n: int, frame_len: int, sps: int, seed: int = 0) -> torch.Tensor:
@@ -4272,37 +4341,92 @@ def dsp_frames(n: int, frame_len: int, sps: int, seed: int = 0) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(ds.X[perm]))
 
 
-def check_timing_kernel(device, frames, launches: int = 30) -> float:
-    """timing_scan_kernel against its plain loop (`tk.timing_scan_plain`) on
-    the card at the SPS serving path's shape (B=4096 frames of 2,048
-    samples at sps 2; and B=1024 frames of 4,096 at sps 4): both loops, the full loop
-    (L//sps steps from sps) and the hybrid's 64 steps from p0, positions and
-    valid flags bit for bit (the kernel rounds as the loop's operations do);
-    30 launches give the same bits."""
+def held_symbols(label: str, got: torch.Tensor, want: torch.Tensor, positions: torch.Tensor,
+                 phase=None) -> tuple:
+    """Symbols mode against its plain version (`tk.timing_symbols_plain`,
+    whose strobes are `positions`): equal at every strobe more than
+    PHASE_TOL from a half-integer, and the hybrid's phase (where given)
+    within PHASE_TOL of the plain one. Returns (the phase's largest error,
+    the strobes near a half-integer, the symbols that differ)."""
+    near = (positions - positions.floor() - 0.5).abs() <= PHASE_TOL
+    differ = (got != want).any(-1)
+    err = 0.0 if phase is None else (phase - positions[:, 0]).abs().max().item()
+    if got.shape != want.shape or (differ & ~near).any() or not err <= PHASE_TOL:
+        raise AssertionError(f"{TIMING_KERNEL} {label}: {int((differ & ~near).sum())} symbols "
+                             f"differ from the plain version away from a half-integer; phase "
+                             f"error {err:.3g} (limit {PHASE_TOL})")
+    return err, int(near.sum()), int(differ.sum())
+
+
+def check_timing_kernel(device, frames, launches: int = 30) -> dict:
+    """timing_recovery_kernel on the card at the SPS serving path's shape
+    (B=4096 frames of 2,048 samples, at sps 2 and at sps 4), both loops.
+    Positions mode (`tk.timing_scan`) against the plain loop
+    (`tk.timing_scan_plain`): the full loop (L//sps steps from sps) and 64
+    steps from p0, positions and valid flags bit for bit (the kernel rounds
+    as the loop's operations do). Symbols mode (`tk.timing_symbols`) against
+    `tk.timing_symbols_plain`, the full loop and the hybrid (window 64), also
+    at B=4095 and B=1: the full loop's symbols bit for bit, the hybrid's by
+    `held_symbols`. Every case: 30 launches give the same bits."""
     from vitiq_torch.dsp.filtering import matched_filter_batch
 
-    worst = 0.0
-    # sps 4: 1,024 symbols a frame, a quarter of the batch
-    for sps, x in ((2, frames), (4, dsp_frames(frames.shape[0] // 4, 4 * FRAME_LEN, 4, seed=3))):
+    worst = {"positions": 0.0, "phase": 0.0}
+    for sps, x in ((2, frames), (4, dsp_frames(frames.shape[0], frames.shape[1], 4, seed=3))):
         f = matched_filter_batch(x.to(device), sps)
-        L = f.shape[1]
-        p0 = (torch.arange(f.shape[0], device=device) % sps).float() + sps
+        B, L, _ = f.shape
+        n_sym = L // sps
+        p0 = (torch.arange(B, device=device) % sps).float() + sps
         for method in tk.METHODS:
-            for label, steps, start in (("full", L // sps, None), ("hybrid", 64, p0)):
+            def again(call, want):
+                return all(torch.equal(call(), want) for _ in range(launches))
+
+            # positions mode; the full loop's positions also give its symbols
+            full = None
+            for label, steps, start in (("full", n_sym, None), ("hybrid", DSP_WINDOW, p0)):
                 want = tk.timing_scan_plain(f, sps, steps, method, p0=start)
                 got = tk.timing_scan(f, sps, steps, method, p0=start)
                 torch.cuda.synchronize()
                 err = (got[0] - want[0]).abs().max().item()
                 same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-                repeat = all(torch.equal(tk.timing_scan(f, sps, steps, method, p0=start)[0],
-                                         got[0]) for _ in range(launches))
-                print(f"  timing_scan_kernel {method} {label} sps {sps} B={f.shape[0]} "
-                      f"L={L} steps={steps}: max |kernel - plain| {err:.6g}, bit for bit "
-                      f"{same}, {launches} launches the same bits {repeat}", flush=True)
+                repeat = again(lambda: tk.timing_scan(f, sps, steps, method, p0=start)[0], got[0])
+                print(f"  {TIMING_KERNEL} positions {method} {label} sps {sps} B={B} L={L} "
+                      f"steps={steps}: max |kernel - plain| {err:.6g}, bit for bit {same}, "
+                      f"{launches} launches the same bits {repeat}", flush=True)
                 if not (same and repeat):
-                    raise AssertionError(f"timing_scan_kernel {method} {label} sps {sps} "
+                    raise AssertionError(f"{TIMING_KERNEL} positions {method} {label} sps {sps} "
                                          "disagrees with its plain loop")
-                worst = max(worst, err)
+                worst["positions"] = max(worst["positions"], err)
+                full = want[0] if full is None else full
+
+            # symbols mode: timing_symbols_plain is strobe_symbols(symbol_positions)
+            for label, window in (("full", 0), ("hybrid", DSP_WINDOW)):
+                positions = full if not window else tk.symbol_positions(f, sps, method, window)
+                want = tk.strobe_symbols(f, positions)
+                for b in (B, B - 1, 1):
+                    fb = f[:b]
+                    phase = torch.empty(b, device=device) if window else None
+                    got = tk.timing_symbols(fb, sps, method, window, phase=phase)
+                    torch.cuda.synchronize()
+                    if window:
+                        err, near, differ = held_symbols(f"{method} {label} sps {sps} B={b}", got,
+                                                         want[:b], positions[:b], phase)
+                    elif not torch.equal(got, want[:b]):
+                        raise AssertionError(f"{TIMING_KERNEL} symbols {method} full sps {sps} "
+                                             f"B={b}: not the plain version's bits")
+                    else:
+                        err, near, differ = 0.0, 0, 0
+                    repeat = b < B or again(lambda: tk.timing_symbols(fb, sps, method, window),
+                                            got)
+                    print(f"  {TIMING_KERNEL} symbols {method} {label} sps {sps} B={b} L={L}: "
+                          + ("bit for bit" if not window else
+                             f"phase within {err:.3g} of the plain version's, {differ} symbols "
+                             f"differ, {near} strobes within {PHASE_TOL} of a half-integer")
+                          + ("" if b < B else f"; {launches} launches the same bits {repeat}"),
+                          flush=True)
+                    if not repeat:
+                        raise AssertionError(f"{TIMING_KERNEL} symbols {method} {label}: "
+                                             "launches differ")
+                    worst["phase"] = max(worst["phase"], err)
     return worst
 
 
@@ -4416,30 +4540,61 @@ def time_front_end(label: str, res: dict, stats, x, device, card: str, iters: in
             "model_ms": model_ms}
 
 
-def scan_bounds(positions: torch.Tensor, L: int, sps: int, method: str, p0=None) -> dict:
-    """timing_scan_kernel's bounds on this run's data, from the positions
-    [B, steps] it wrote: bytes (each frame's span that its steps touch, from
-    the sample under its first strobe less one symbol to the one past its
-    last strobe, clipped to the frame, read once in whole 32-byte sectors;
-    p0 read; positions and valid flags written), operations (float32
-    outside the tensor cores) and the chain (steps dependent loads,
-    L1_LOAD_CYCLES each)."""
-    B, steps = positions.shape
+def span_bytes(positions: torch.Tensor, L: int, sps: int) -> int:
+    """The bytes of each frame's span that steps at `positions` [B, steps]
+    touch, from the sample under the first strobe less one symbol to the one
+    past the last strobe, clipped to the frame, read once in whole 32-byte
+    sectors (8 bytes a sample)."""
     first = positions.min(dim=1).values.sub(sps).clamp(0, L - 1).floor().long()
     last = (positions.max(dim=1).values.clamp(0, L - 1).floor().long() + 1).clamp(max=L - 1)
-    sectors = (last * 8 + 7) // 32 - (first * 8) // 32 + 1  # 8 bytes a sample
-    nbytes = int(sectors.sum().item()) * 32 + (B * 4 if p0 is not None else 0) + B * steps * 5
-    ops = B * steps * SCAN_OPS_PER_STEP[method]
+    sectors = (last * 8 + 7) // 32 - (first * 8) // 32 + 1
+    return int(sectors.sum().item()) * 32
+
+
+def timing_bound(nbytes: int, ops: int, steps: int, clock_hz=None) -> dict:
+    """(bound, chain): the larger of the bytes over the HBM rate and the
+    float32 operations over the non-tensor-core peak, and the chain of
+    `steps` dependent loads, L1_LOAD_CYCLES each, at `clock_hz` (default the
+    card's max SM clock)."""
     byte_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
-    chain_ms = steps * L1_LOAD_CYCLES / max_sm_clock_hz() * 1e3
+    chain_ms = steps * L1_LOAD_CYCLES / (clock_hz or max_sm_clock_hz()) * 1e3
     bound = (byte_ms, "bytes") if byte_ms >= ops_ms else (ops_ms, "operations")
     return {"bound": bound, "chain_ms": chain_ms, "bytes": nbytes, "ops": ops}
 
 
-def time_timing_scan(device, card: str, frames) -> dict:
-    """timing_scan_kernel against its plain loop at B=4096, 2,048 samples,
-    sps 2: the hybrid's 64 steps (the serving default) and the full loop's
-    1,024, each beside its bounds."""
+def scan_bounds(positions: torch.Tensor, L: int, sps: int, method: str, p0=None,
+                clock_hz=None) -> dict:
+    """Positions mode's bounds on this run's data, from the positions
+    [B, steps] it wrote: bytes (`span_bytes`; p0 read; positions and valid
+    flags written), operations and the chain (`timing_bound`)."""
+    B, steps = positions.shape
+    nbytes = span_bytes(positions, L, sps) + (B * 4 if p0 is not None else 0) + B * steps * 5
+    return timing_bound(nbytes, B * steps * SCAN_OPS_PER_STEP[method], steps, clock_hz)
+
+
+def symbol_bounds(f: torch.Tensor, positions: torch.Tensor, sps: int, method: str,
+                  window: int, clock_hz=None) -> dict:
+    """Symbols mode's bounds on this run's data: the hybrid reads every
+    sample once (its coarse phase) and the full loop the span its strobes
+    `positions` touch (`span_bytes`); both write the symbols [B, L//sps, 2]
+    f32. Operations: the loop's steps, and the hybrid's coarse pass."""
+    B, L, _ = f.shape
+    n_sym = L // sps
+    steps = window or n_sym
+    nbytes = (B * L * 8 if window else span_bytes(positions, L, sps)) + B * n_sym * 8
+    ops = B * steps * SCAN_OPS_PER_STEP[method] + (B * L * COARSE_OPS_PER_SAMPLE if window else 0)
+    return timing_bound(nbytes, ops, steps, clock_hz)
+
+
+def time_timing_recovery(device, card: str, frames) -> dict:
+    """timing_recovery_kernel at B=4096, 2,048 samples, sps 2, both loops,
+    the hybrid's 64 steps (the serving default) and the full loop's 1,024: in
+    symbols mode (`tk.timing_symbols`, the front-end's call) against the
+    composition the front-end ran before (`tk.timing_symbols_plain` around the
+    positions-mode kernel: the coarse phase, the circular mean and the gather
+    as tensor operations) and against the plain version (the same around the
+    plain loop), each beside its bounds; and in positions mode
+    (`tk.timing_scan`) against the plain loop."""
     from vitiq_torch.dsp.filtering import matched_filter_batch
 
     f = matched_filter_batch(frames.to(device), DSP_SPS)
@@ -4447,19 +4602,96 @@ def time_timing_scan(device, card: str, frames) -> dict:
     p0 = (torch.arange(B, device=device) % DSP_SPS).float() + DSP_SPS
     out = {}
     for method in tk.METHODS:
-        for label, steps, start in (("hybrid", 64, p0), ("full", L // DSP_SPS, None)):
-            ms = cuda_ms(lambda: tk.timing_scan(f, DSP_SPS, steps, method, p0=start), 20)
-            plain_ms = cuda_ms(lambda: tk.timing_scan_plain(f, DSP_SPS, steps, method,
-                                                            p0=start), 2, warmup=1)
+        for label, window in (("hybrid", DSP_WINDOW), ("full", 0)):
+            steps = window or L // DSP_SPS
+            start = p0 if window else None
+            ms = cuda_ms(lambda: tk.timing_symbols(f, DSP_SPS, method, window), 20)
+            comp_ms = cuda_ms(lambda: tk.timing_symbols_plain(f, DSP_SPS, method, window,
+                                                              scan=tk.timing_scan), 10)
+            plain_ms = cuda_ms(lambda: tk.timing_symbols_plain(f, DSP_SPS, method, window), 1,
+                               warmup=0)
+            pos_ms = cuda_ms(lambda: tk.timing_scan(f, DSP_SPS, steps, method, p0=start), 20)
+            # the full loop's plain positions cost what its plain symbols do (the
+            # gather is a few kernels beside 1,024 steps of ~45): not timed twice
+            pos_plain_ms = (None if not window else
+                            cuda_ms(lambda: tk.timing_scan_plain(f, DSP_SPS, steps, method,
+                                                                 p0=start), 1, warmup=0))
             positions = tk.timing_scan(f, DSP_SPS, steps, method, p0=start)[0]
-            b = scan_bounds(positions, L, DSP_SPS, method, start)
-            print(f"  timing_scan_kernel {method} {label} B={B} L={L} steps={steps}: "
-                  f"{ms:.4f} ms, plain loop {plain_ms:.4f} ms, bound {b['bound'][0]:.6f} ms "
-                  f"({b['bound'][1]}: {b['bytes']} bytes touched, {b['ops']} operations), "
-                  f"{ms / b['bound'][0]:.1f}x the bound; chain bound {b['chain_ms']:.4f} ms  "
-                  f"[{card}]", flush=True)
-            out[f"{method}_{label}"] = {"ms": ms, "plain_ms": plain_ms, **b}
+            b = symbol_bounds(f, tk.symbol_positions(f, DSP_SPS, method, window, tk.timing_scan),
+                              DSP_SPS, method, window)
+            pb = scan_bounds(positions, L, DSP_SPS, method, start)
+            print(f"  {TIMING_KERNEL} {method} {label} B={B} L={L} steps={steps}: symbols mode "
+                  f"{ms:.4f} ms against the composition around positions mode {comp_ms:.4f} ms "
+                  f"and the plain version {plain_ms:.4f} ms; bound {b['bound'][0]:.6f} ms "
+                  f"({b['bound'][1]}: {b['bytes']} bytes, {b['ops']} operations), "
+                  f"{ms / b['bound'][0]:.1f}x the bound; chain bound {b['chain_ms']:.4f} ms. "
+                  f"Positions mode {pos_ms:.4f} ms"
+                  + ("" if pos_plain_ms is None else
+                     f" against the plain loop {pos_plain_ms:.4f} ms")
+                  + f", bound {pb['bound'][0]:.6f} ms ({pb['bytes']} bytes touched)  [{card}]",
+                  flush=True)
+            out[f"{method}_{label}"] = {"ms": ms, "plain_ms": plain_ms, "composition_ms": comp_ms,
+                                        "positions_ms": pos_ms, "positions_plain_ms": pos_plain_ms,
+                                        "positions_bound": pb["bound"], **b}
     return out
+
+
+def kernel_sequence(call, tries: int = 3) -> tuple:
+    """(call()'s result, the names of what it ran on the device, kernels and
+    copies, in the order they started), from one `torch.profiler` window
+    (PROFILE_PAD sleeps first: the profiler drops a window's first
+    records). Every call given here launches work, and a window has come
+    back empty on the card (two kernels at B=8 in one run of the same tree
+    that recorded them in another): an empty window is profiled again, up
+    to `tries` windows."""
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(200_000)
+            torch.cuda.synchronize()
+            out = call()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+                  and e.time_range.start >= 0 and "spin_kernel" not in e.name]
+        if events:
+            break
+        print("  torch.profiler recorded nothing of a call; profiling it again", flush=True)
+    return out, [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
+
+
+def front_end_parts(exp: ExperimentConfig, stats, x: torch.Tensor, device) -> tuple:
+    """What the SPS front-end of `exp` runs on x before and after timing
+    recovery, each alone: the matched filter's kernels (its taps made once,
+    as `build_preprocess` makes them) and the arm's preprocess on the
+    symbols."""
+    from vitiq_torch.dsp.filtering import matched_filter_batch, rrc_weights
+    from vitiq_torch.serve import _build_arm_preprocess
+
+    sps, data = exp.data.sps, exp.data
+    w = rrc_weights(sps, device=device)
+    arm_pre = _build_arm_preprocess(exp, stats, device)
+    filtered, fir = kernel_sequence(lambda: matched_filter_batch(x, sps, weights=w))
+    symbols = tk.timing_symbols(filtered, sps, data.timing_method, data.timing_hybrid_window)
+    inputs, arm = kernel_sequence(lambda: arm_pre(symbols))
+    return fir, arm, inputs
+
+
+def check_front_end_order(label: str, names: list, fir: list, arm: list, model=()) -> int:
+    """Every timing_recovery_kernel in `names` (the device's work in start
+    order) comes right after the matched filter's kernels `fir` and right
+    before the arm's preprocess `arm` (and the model's `model`, where
+    given): no other kernel runs between the FIR and the model. Returns how
+    many there were."""
+    at = [i for i, name in enumerate(names) if kernel_name(name) == TIMING_KERNEL]
+    for i in at:
+        after = names[i + 1:i + 1 + len(arm) + len(model)]
+        if names[max(0, i - len(fir)):i] != list(fir) or after != list(arm) + list(model):
+            seen = names[max(0, i - len(fir) - 2):i + 3 + len(arm)]
+            raise AssertionError(f"{label}: the device ran {seen} around {TIMING_KERNEL}, "
+                                 f"expected the matched filter's {fir}, then the arm's "
+                                 f"preprocess {arm}")
+    return len(at)
 
 
 def profile_sps_call(serve, x, device, card: str, calls: int = 10) -> float:
@@ -4502,8 +4734,9 @@ def dsp_cli_train_check(device, card: str,
     rawiq_reference preset, `tpu` numerics) at sps 2 with the Gardner loop
     (hybrid) on synthetic frames RRC-shaped at 2 samples a symbol (2,048
     samples -> 1,024 symbols, 3 classes), DSP_TRAIN_EPOCHS epochs in this
-    process: every train step launches K4 6 + 6 times and the scan kernel
-    once, every evaluated batch K1 5, K2 1 and the scan kernel once; the
+    process: every train step launches K4 6 + 6 times and
+    timing_recovery_kernel once, every evaluated batch K1 5, K2 1 and
+    timing_recovery_kernel once; the
     train loss falls; then `cli evaluate` of the checkpoint prints the run's
     test accuracy."""
     import io
@@ -4523,7 +4756,20 @@ def dsp_cli_train_check(device, card: str,
     grad_parity("rawIQ flagship at sps 2 (Gardner, hybrid)", exp0, RAW_STATS, init, frames,
                 labels, K4, device)
     if tk.kernel_launches() != 2:
-        raise AssertionError("the sps-2 gradient check did not run the scan kernel twice")
+        raise AssertionError(f"the sps-2 gradient check did not run {TIMING_KERNEL} twice")
+    # the front-end `cli train` builds (build_forward_and_preprocess ->
+    # build_preprocess): the FIR, one timing_recovery_kernel, the arm's
+    # preprocess, nothing else
+    from vitiq_torch.serve import build_preprocess
+
+    pre = build_preprocess(exp0, RAW_STATS, device)
+    fir, arm, _ = front_end_parts(exp0, RAW_STATS, frames, device)
+    _, names = kernel_sequence(lambda: pre(frames))
+    if (check_front_end_order("the training front-end", names, fir, arm) != 1
+            or len(names) != len(fir) + 1 + len(arm)):
+        raise AssertionError(f"the training front-end ran {names}")
+    print(f"  the training front-end (B={batch}): the matched filter ({len(fir)} kernels), one "
+          f"{TIMING_KERNEL}, the arm's preprocess ({len(arm)}), nothing else", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         cfg = ExperimentConfig.rawiq_reference(**{
             "checkpoint_dir": tmp, "log_dir": str(Path(tmp) / "logs"),
@@ -4555,12 +4801,12 @@ def dsp_cli_train_check(device, card: str,
         steps = spe * DSP_TRAIN_EPOCHS
         want = {K4[0]: 6 * steps, K4[1]: 6 * steps, "fused_encoder_layer": 5 * batches,
                 "fused_encoder_layer_cls": batches}
-        scans = (tk.launches["timing_scan"], tk.kernel_launches())
+        scans = (tk.launches["timing_symbols"], tk.kernel_launches())
         print(f"  cli train: {DSP_TRAIN_EPOCHS} epochs of {spe} steps in {wall:.1f} s (data "
-              f"generation included); launches {got}, timing_scan {scans[1]}", flush=True)
+              f"generation included); launches {got}, {TIMING_KERNEL} {scans[1]}", flush=True)
         if got != want or scans != (steps + batches,) * 2:
-            raise AssertionError(f"cli train at sps 2 launched {got} and timing_scan {scans}, "
-                                 f"expected {want} and {steps + batches}")
+            raise AssertionError(f"cli train at sps 2 launched {got} and {TIMING_KERNEL} "
+                                 f"{scans}, expected {want} and {steps + batches}")
         exp_dir = Path(tmp) / "sps2_gardner"
         summary = json.loads((exp_dir / "summary.json").read_text())
         loss = json.loads((exp_dir / "checkpoint_final.json").read_text())["history"][
@@ -4578,11 +4824,38 @@ def dsp_cli_train_check(device, card: str,
                       "--no_plots"])
         line = f"overall accuracy: {summary['test_overall_accuracy'] * 100:.2f}%"
         printed = [ln for ln in out.getvalue().splitlines() if ln.startswith("overall")]
-        print(f"  cli evaluate: {printed} (the run's test {line}); timing_scan "
+        print(f"  cli evaluate: {printed} (the run's test {line}); {TIMING_KERNEL} "
               f"{tk.kernel_launches()}", flush=True)
         if line not in out.getvalue() or tk.kernel_launches() == 0:
             raise AssertionError("cli evaluate did not re-derive the sps-2 front-end")
     return {"scans": scans[1], "loss": loss}
+
+
+def check_sps_request(label: str, res: dict, x: torch.Tensor, device, parts=None) -> tuple:
+    """One SPS serving call (`res["serve"]`, the eager Server's function) on
+    x under `torch.profiler`: the device runs the matched filter, one
+    timing_recovery_kernel, the arm's preprocess and the model, in that
+    order and nothing else (`check_front_end_order`). `parts` are those
+    three alone (the kernels of `front_end_parts` and of the model), as an
+    earlier call returned them for the same configuration and shapes;
+    returns them."""
+    if parts is None:
+        fir, arm, inputs = front_end_parts(res["exp"], res["stats"], x, device)
+        with torch.no_grad():
+            _, model = kernel_sequence(lambda: res["model"](inputs))
+        parts = (fir, arm, model)
+    fir, arm, model = parts
+    with torch.no_grad():
+        _, names = kernel_sequence(lambda: res["serve"](x))
+    if check_front_end_order(label, names, fir, arm, model) != 1 or (
+            names[:len(fir)] != fir or len(names) != len(fir) + 1 + len(arm) + len(model)):
+        raise AssertionError(f"{label}: one request ran {len(names)} kernels, not the matched "
+                             f"filter's {len(fir)}, one {TIMING_KERNEL}, the arm's {len(arm)} "
+                             f"and the model's {len(model)}")
+    print(f"  {label}: one request ran the matched filter ({len(fir)} kernels), one "
+          f"{TIMING_KERNEL}, the arm's preprocess ({len(arm)}) and the model ({len(model)}), "
+          "nothing else (torch.profiler)", flush=True)
+    return parts
 
 
 def dsp_check(device, card: str) -> dict:
@@ -4597,10 +4870,12 @@ def dsp_check(device, card: str) -> dict:
     check_contract_bar(device)
     raw, vit = flagship_rawiq_config("tpu"), flagship_vit_config("tpu")
     raw_sps = dataclasses.replace(raw, seq_length=DSP_SPS_FRAME // DSP_SPS)
-    sps_cases = [("gardner", 64), ("mueller_muller", 64), ("simple_energy", 64),
-                 ("simple_correlation", 64), ("gardner", 0), ("mueller_muller", 0)]
+    sps_cases = [("gardner", DSP_WINDOW), ("mueller_muller", DSP_WINDOW),
+                 ("simple_energy", DSP_WINDOW), ("simple_correlation", DSP_WINDOW),
+                 ("gardner", 0), ("mueller_muller", 0)]
     served, times = {}, {}
     tk_total = 0
+    x_dev, parts = frames.to(device), None  # the loop cases share their FIR, arm and model
     for method, window in sps_cases:
         label = f"rawIQ flagship, sps 2, {method}" + (", full loop" if window == 0 else "")
         data = DataConfig(synthetic_frame_len=DSP_SPS_FRAME, sps=DSP_SPS, timing_method=method,
@@ -4609,6 +4884,8 @@ def dsp_check(device, card: str) -> dict:
                           data=data, frames=frames, scans=int(method in tk.METHODS))
         tk_total += res["scans"]
         times[label] = time_front_end(label, res, RAW_STATS, frames, device, card)
+        if method in tk.METHODS:
+            parts = check_sps_request(label, res, x_dev, device, parts)
         served[(method, window)] = res
     x1024 = frames[:, :FRAME_LEN].contiguous()
     for label, cfg, data in (
@@ -4618,9 +4895,9 @@ def dsp_check(device, card: str) -> dict:
                           frames=x1024)
         times[label] = time_front_end(label, res, RAW_STATS, x1024, device, card)
     times["streaming"] = streaming_check(device, card)
-    times["idle_share"] = profile_sps_call(served[("gardner", 64)]["serve"], frames, device,
-                                           card)
-    times["scan"] = time_timing_scan(device, card, frames)
+    times["idle_share"] = profile_sps_call(served[("gardner", DSP_WINDOW)]["serve"], frames,
+                                           device, card)
+    times["scan"] = time_timing_recovery(device, card, frames)
     train = dsp_cli_train_check(device, card)
     print(f"  dsp phase {time.perf_counter() - t0:.1f} s", flush=True)
     return {"err": err, "launches": tk_total, "times": times, "train": train}
@@ -4637,11 +4914,11 @@ EXPORT_TOL = 1e-3
 EXPORT_REPLAYS = 3  # replays under the profiler against one eager request
 # the port's kernels on a float serving path, by function name
 SERVING_KERNELS = ("gemm_wgmma_kernel", "attention_core_kernel", "cls_pool_kernel",
-                   "timing_scan_kernel")
+                   TIMING_KERNEL)
 # the kernel that one call of each counted wrapper launches once: K1's
-# attention core, K2's pooling kernel, the timing scan
+# attention core, K2's pooling kernel, timing recovery (symbols mode)
 CALL_KERNELS = {"fused_encoder_layer": "attention_core_kernel",
-                "fused_encoder_layer_cls": "cls_pool_kernel", "timing_scan": "timing_scan_kernel"}
+                "fused_encoder_layer_cls": "cls_pool_kernel", "timing_symbols": TIMING_KERNEL}
 
 
 def write_experiment(root: Path, exp: ExperimentConfig, model, stats) -> Path:
@@ -4709,7 +4986,7 @@ def export_case(root: Path, label: str, model_cfg, stats, data: DataConfig, buck
     server = Server(build_serving_fn(exp, eager, stats, device), frame_len, buckets, device)
     cls = int(eager.cls_pooling)
     want = {"fused_encoder_layer": model_cfg.n_layers - cls, "fused_encoder_layer_cls": cls,
-            "timing_scan": int(data.sps > 1 and data.timing_method in tk.METHODS)}
+            "timing_symbols": int(data.sps > 1 and data.timing_method in tk.METHODS)}
     want = {k: v for k, v in want.items() if v}
     before = {**all_launches(), **tk.launches}
     server.run(torch.zeros((buckets[0], frame_len, 2), device=device))
@@ -4775,6 +5052,16 @@ def export_case(root: Path, label: str, model_cfg, stats, data: DataConfig, buck
           + ", ".join(f"{k} {v}" for k, v in sorted(by_function(eager_names).items()))
           + f" ({len(eager_names)} instances), as one eager request does", flush=True)
     launches.update(by_function(graph_names))
+    if want.get("timing_symbols"):  # the replay's front-end: the FIR, timing recovery, the arm
+        fir, arm, inputs = front_end_parts(exp, stats, x8, device)
+        with torch.no_grad():
+            _, model = kernel_sequence(lambda: eager(inputs))
+        _, order = kernel_sequence(lambda: art.run(x8))
+        if check_front_end_order(label + " (graph)", order, fir, arm, model) != 1:
+            raise AssertionError(f"{label}: a replay of bucket {b} ran {TIMING_KERNEL} other "
+                                 "than once")
+        print(f"  {label}: a replay of bucket {b} ran the matched filter, one {TIMING_KERNEL}, "
+              "the arm's preprocess and the model in that order (torch.profiler)", flush=True)
     print(f"  {label}: {len(requests) + EXPORT_REPLAYS} replays under torch.profiler launched "
           + ", ".join(f"{k} {v}" for k, v in sorted(launches.items())), flush=True)
     del art, server, eager
@@ -5616,7 +5903,7 @@ BENCH_KERNELS = ("fused_encoder_layer", "fused_encoder_layer_cls", "fused_encode
                  "cls_pool_kernel", "fused_train_layer_fwd", "fused_train_layer_bwd",
                  "wg_recompute_attention_fwd", "wg_recompute_attention_bwd",
                  "fused_train_layer_fwd_stash", "fused_train_layer_bwd_stash",
-                 "fused_attention_fwd", "hash_dropout_kernel", "timing_scan_kernel")
+                 "fused_attention_fwd", "hash_dropout_kernel", TIMING_KERNEL)
 
 
 def bench_window(call) -> tuple:
@@ -5672,7 +5959,7 @@ def bench_launches(windows: dict) -> dict:
         "fused_attention_fwd": fn["attention_fwd"],
         "fused_attention_bwd": fn["attention_bwd_dq"],
         "hash_dropout_kernel": fn["hash_dropout_kernel"],
-        "timing_scan_kernel": fn["timing_scan_kernel"],
+        TIMING_KERNEL: fn[TIMING_KERNEL],
         "mask_op_kernel": fn["mask_op_kernel"],
         "mm_mask_kernel": fn["mm_mask_kernel"],
         "refcost_kernel": fn["refcost_kernel"],
@@ -6155,22 +6442,27 @@ def main() -> int:
                             dt["bound"], None),
                     "tpu_twin": False})
     scan = dsp["times"]["scan"]["gardner_hybrid"]
-    kernels.append({**entry("timing_scan_kernel (the Gardner / Mueller-Mueller loops of the SPS "
-                            "front-end; no TPU twin: the JAX package runs a lax.scan)",
-                            TIMING_SOURCE, TIMING_JAX_LOOPS, dsp["launches"], dsp["err"],
-                            scan["ms"], scan["plain_ms"], scan["bound"], None),
-                    "export_launches": exported["timing_scan_kernel"], "tpu_twin": False})
+    kernels.append({**entry(f"{TIMING_KERNEL} (the SPS front-end's timing recovery: the coarse "
+                            "phase, the Gardner / Mueller-Mueller loops, the circular mean, the "
+                            "strobes; timed in symbols mode, Gardner, hybrid; no TPU twin: the "
+                            "JAX package runs a lax.scan)", TIMING_SOURCE, TIMING_JAX_LOOPS,
+                            dsp["launches"], dsp["err"]["phase"], scan["ms"], scan["plain_ms"],
+                            scan["bound"], None),
+                    "export_launches": exported[TIMING_KERNEL], "tpu_twin": False})
     for name in mask_ops.VARIANTS + mask_ops.MM_VARIANTS:
         t = probe_times[name]
         kernel = "mm_mask_kernel" if name.startswith("mm_") else "mask_op_kernel"
-        kernels.append(entry(f"{kernel} {name} (P1)", PROBES_SOURCE,
-                             f"{P1_TPU_SOURCE}:{P1_TPU_LINES[name]}", probes["p1"][name],
-                             t["err"], t["ms"], t["plain_ms"], t["bound"], t["library_ms"]))
+        kernels.append({**entry(f"{kernel} {name} (P1)", PROBES_SOURCE,
+                                f"{P1_TPU_SOURCE}:{P1_TPU_LINES[name]}", probes["p1"][name],
+                                t["err"], t["ms"], t["plain_ms"], t["bound"], t["library_ms"]),
+                        "device_ms": t["device_ms"], "library_device_ms": t["library_device_ms"]})
     for tag, nrefs, width in refcost.arms(REFCOST_ARGS[2]):
         t = probe_times[tag]
-        kernels.append(entry(f"refcost_kernel {tag}: {2 * nrefs} operands (P2)", PROBES_SOURCE,
-                             P2_TPU, probes["p2"].get(refcost.arm_key(nrefs, width), 0),
-                             t["err"], t["ms"], t["plain_ms"], t["bound"], t["library_ms"]))
+        kernels.append({**entry(f"refcost_kernel {tag}: {2 * nrefs} operands (P2)",
+                                PROBES_SOURCE, P2_TPU,
+                                probes["p2"].get(refcost.arm_key(nrefs, width), 0), t["err"],
+                                t["ms"], t["plain_ms"], t["bound"], t["library_ms"]),
+                        "device_ms": t["device_ms"], "library_device_ms": t["library_device_ms"]})
     t = probe_times["p3"]
     kernels.append(entry("fused_encoder_layer_noexp (P3, K1 without its exp)", SOURCE, P3_TPU,
                          probes["p3"], probe_times["p3_err"], t["ms"], t["plain_ms"],

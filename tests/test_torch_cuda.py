@@ -65,14 +65,19 @@ versions: the two-pass `attention_plain` and the kernel's exact function,
 kernels run wgmma (HGMMA in their SASS) without a spill, and their TMA rings
 give the same bits over 30 launches.
 
-The DSP front-end: timing_scan_kernel (`csrc/timing.cu`, the Gardner and
-Mueller-Mueller loops) equals its plain loop (`ops/cuda/timing.py`) bit for
-bit, both loops, full and hybrid (64 steps from p0), sps 2 and 4, over 30
-launches (it rounds each product and sum on its own, as the loop's tensor
-operations do), and does not spill; the hybrid on the card is within 1e-3
-of a sample of the host's; the matched filter on the card is within 1e-5 of
-the signal's peak from a float64 convolution (TF32 would show about 1e-3);
-SPS serving launches the kernel once a request for each loop.
+The DSP front-end: timing_recovery_kernel (`csrc/timing.cu`, filtered frames
+to symbols: the coarse phase, the Gardner and Mueller-Mueller loops, the
+circular mean, the strobes) in positions mode equals its plain loop
+(`ops/cuda/timing.py`) bit for bit, both loops, full and hybrid (64 steps
+from p0), sps 2 and 4, over 30 launches (it rounds each product and sum on
+its own, as the loop's tensor operations do); in symbols mode it equals
+`timing_symbols_plain` (the full loop bit for bit, the hybrid's phase
+within 1e-4 of a sample and every strobe farther than that from a
+half-integer the same symbol), over 30 launches and inside a CUDA graph;
+no instance spills; the hybrid on the card is within 1e-3 of a sample of
+the host's; the matched filter on the card is within 1e-5 of the signal's
+peak from a float64 convolution (TF32 would show about 1e-3); SPS serving
+launches the kernel once a request for each loop, in symbols mode.
 
 The prefetching feed (`vitiq_torch/data/pipeline.py`): 30 batches copied to
 the card through pinned buffers on a side stream arrive byte for byte (and
@@ -1993,7 +1998,7 @@ def test_prefetcher_keeps_the_bits_while_the_consumer_sleeps(cuda):
 
 
 # --------------------------------------------------------------------------
-# the DSP front-end: timing_scan_kernel (csrc/timing.cu) and the FIR
+# the DSP front-end: timing_recovery_kernel (csrc/timing.cu) and the FIR
 # --------------------------------------------------------------------------
 
 def _shaped_frames(B, frame_len, sps, seed=0):
@@ -2039,6 +2044,54 @@ def test_timing_scan_kernel_equals_its_plain_loop(cuda, method, window, sps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sps", [2, 4])
+@pytest.mark.parametrize("window", [0, 64], ids=["full", "hybrid64"])
+@pytest.mark.parametrize("method", ["gardner", "mueller_muller"])
+def test_timing_recovery_symbols_mode_equals_its_plain_version(cuda, method, window, sps):
+    """Symbols mode against `timing_symbols_plain` (the tensor composition):
+    the full loop's symbols bit for bit; the hybrid's phase within 1e-4 of a
+    sample (sin, cos and atan2 of two libraries, summed in other orders) and
+    every strobe farther than that from a half-integer the same symbol, also
+    at B=255 and B=1; 30 launches give the same bits, and so does a replay
+    of a CUDA graph that captured the launch."""
+    from vitiq_torch.ops.cuda import timing as tk
+
+    x = _filtered(cuda, 256, 2048, sps, seed=10 + sps)
+    positions = tk.symbol_positions(x, sps, method, window)
+    want = tk.timing_symbols_plain(x, sps, method, window)
+    assert torch.equal(want, tk.strobe_symbols(x, positions))
+    near = (positions - positions.floor() - 0.5).abs() <= 1e-4
+    tk.reset_launches()
+    for b in (256, 255, 1):
+        phase = torch.empty(b, device=cuda) if window else None
+        got = tk.timing_symbols(x[:b], sps, method, window, phase=phase)
+        assert got.shape == (b, 2048 // sps, 2) and got.dtype == torch.float32
+        if window:
+            assert (phase - positions[:b, 0]).abs().max().item() <= 1e-4
+            assert not ((got != want[:b]).any(-1) & ~near[:b]).any()
+        else:
+            assert torch.equal(got, want[:b])
+    first = tk.timing_symbols(x, sps, method, window)
+    for _ in range(30):
+        assert torch.equal(tk.timing_symbols(x, sps, method, window), first)
+    torch.cuda.synchronize()
+    assert tk.launches["timing_symbols"] == 34 and tk.kernel_launches() == 34
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tk.timing_symbols(x, sps, method, window)  # warm-up on the capturing stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tk.timing_symbols(x, sps, method, window)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("method", ["gardner", "mueller_muller"])
 def test_hybrid_positions_on_the_card_match_the_host(cuda, method):
     """The hybrid loop on the card (the kernel, then the circular mean on the
@@ -2074,7 +2127,8 @@ def test_fir_on_the_card_is_float32_not_tf32(cuda, sps):
 @pytest.mark.cuda
 def test_sps_serving_launches_the_scan_kernel(cuda):
     """A model served at sps 2 with each loop, hybrid and full, launches
-    timing_scan_kernel once a request; the energy picker never."""
+    timing_recovery_kernel once a request, in symbols mode; the energy
+    picker never."""
     from vitiq_torch.config import DataConfig, ExperimentConfig, ModelConfig
     from vitiq_torch.models import AMCModel
     from vitiq_torch.ops.cuda import timing as tk
@@ -2095,7 +2149,8 @@ def test_sps_serving_launches_the_scan_kernel(cuda):
         logits = serve(x)
         torch.cuda.synchronize()
         assert tuple(logits.shape) == (32, 5) and torch.isfinite(logits).all()
-        assert tk.launches["timing_scan"] == want and tk.kernel_launches() == want
+        assert tk.launches["timing_symbols"] == want and tk.kernel_launches() == want
+        assert tk.launches["timing_scan"] == 0
 
 
 @pytest.mark.cuda
@@ -2113,13 +2168,24 @@ def test_timing_scan_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         tk.timing_scan(x, 2, 8, "gardner", p0=torch.zeros(4))  # p0 on the host
     with pytest.raises(ValueError):
         tk.timing_scan(x, 2, 8, "psychic")
+    for bad in (x.double(), x.transpose(0, 1), x[..., :1].contiguous()):
+        with pytest.raises(ValueError):
+            tk.timing_symbols(bad, 2, "gardner")
+    with pytest.raises(ValueError):
+        tk.timing_symbols(x, 1, "gardner")
+    with pytest.raises(ValueError):
+        tk.timing_symbols(x, 2, "psychic")
+    with pytest.raises(ValueError):
+        tk.timing_symbols(x, tk.MAX_SPS + 1, "gardner")
+    with pytest.raises(ValueError):  # the phase of the full loop
+        tk.timing_symbols(x, 2, "gardner", 0, phase=torch.empty(4, device=cuda))
 
 
 @pytest.mark.cuda
 def test_timing_scan_kernel_does_not_spill(cuda):
     entries = {n: v for n, v in _build.ptxas_entries(_build.ptxas_report("timing")).items()
-               if "timing_scan_kernel" in n}
-    assert len(entries) == 2
+               if "timing_recovery_kernel" in n}
+    assert len(entries) == 6
     for name, (regs, stores, loads) in entries.items():
         assert (stores, loads) == (0, 0), name
 
@@ -2162,7 +2228,7 @@ def test_artifact_graph_replay_equals_eager_server(cuda, case, tmp_path):
     art, server, frame_len = _artifact(cuda, tmp_path, case)
     want = {"fused_encoder_layer": 1, "fused_encoder_layer_cls": 1}
     if case.endswith("gardner"):
-        want["timing_scan"] = 1
+        want["timing_symbols"] = 1
     assert art.captured_launches == {4: want, 16: want}
     x = torch.from_numpy(_shaped_frames(16, frame_len, 2)).to(cuda)
     for n in (1, 4, 7, 16):

@@ -316,6 +316,84 @@ def test_sps_front_end_loops_match_vitiq(method, window, sps):
     assert differ.mean() < FLIP_SHARE
 
 
+@pytest.mark.parametrize("window", [0, 16], ids=["full", "hybrid16"])
+@pytest.mark.parametrize("method", LOOPS)
+@pytest.mark.parametrize("sps", [2, 4])
+def test_timing_symbols_is_the_composition_and_matches_vitiq(method, window, sps):
+    """`timing_symbols` on the CPU (its plain version) equals the tensor
+    composition the front-end ran before it, bit for bit: the loop's
+    positions (`hybrid_positions` / `full_positions`), rounded half to even,
+    clamped, gathered. Against vitiq's front-end on the same frames the
+    symbols differ only where a strobe rounds the other way (FLIP_SHARE)."""
+    x = _frames(6, 256, sps, seed=50 + sps)
+    f = pfilt.matched_filter_batch(torch.as_tensor(x), sps)
+    got = tk.timing_symbols(f, sps, method, window)
+    if window:
+        positions = ptiming.hybrid_positions(f, sps, method, window)
+    else:
+        positions = ptiming.full_positions(f, sps, method)[0]
+    idx = positions.round().clamp(0, 255).long()
+    assert torch.equal(got, f.gather(1, idx[..., None].expand(6, 256 // sps, 2)))
+    assert torch.equal(got, tk.timing_symbols_plain(f, sps, method, window))
+    want = np.asarray(jdsp.preprocess_batch_sps(jnp.asarray(x), sps, method=method,
+                                                hybrid_window=window))
+    assert got.shape == want.shape == (6, 256 // sps, 2)
+    assert (np.abs(got.numpy() - want).max(-1) > FIR_ATOL).mean() < FLIP_SHARE
+
+
+def test_timing_symbols_refuses_what_vitiq_refuses():
+    x = _noise((2, 64, 2), seed=8)
+    with pytest.raises(ValueError):
+        jtiming.hybrid_timing_positions(jnp.asarray(x[..., 0]), jnp.asarray(x[..., 1]), 1,
+                                        "gardner")
+    with pytest.raises(ValueError):
+        jdsp.preprocess_batch_sps(jnp.asarray(x), 2, method="psychic")
+    tk.reset_launches()
+    for sps, method in ((1, "gardner"), (0, "mueller_muller"), (2, "psychic")):
+        for fn in (tk.timing_symbols, tk.timing_symbols_plain):
+            with pytest.raises(ValueError):
+                fn(torch.as_tensor(x), sps, method)
+    assert tk.launches["timing_symbols"] == 0 and tk.kernel_launches() == 0
+
+
+def test_timing_recovery_bounds_from_shapes():
+    """chip_smoke.py's bounds of the kernel from the run's shapes: symbols
+    mode reads the whole frame for the hybrid (its coarse pass) or the span
+    its strobes touch in 32-byte sectors for the full loop, and writes the
+    symbols; positions mode reads that span and writes 5 bytes a step; the
+    chain is steps x 32 cycles."""
+    import chip_smoke as cs
+
+    B, L, sps, clock = 6, 256, 2, 2e9
+    f = torch.zeros((B, L, 2))
+    strobes = torch.arange(2, L + 2, sps, dtype=torch.float32).expand(B, L // sps)  # to 256
+    hybrid = cs.symbol_bounds(f, strobes, sps, "gardner", 16, clock_hz=clock)
+    assert hybrid["bytes"] == B * L * 8 + B * (L // sps) * 8
+    assert hybrid["ops"] == B * 16 * cs.SCAN_OPS_PER_STEP["gardner"] + B * L * 4
+    assert hybrid["bound"] == (hybrid["bytes"] / cs.PEAK_BYTES * 1e3, "bytes")
+    assert hybrid["chain_ms"] == pytest.approx(16 * 32 / clock * 1e3)
+    # the strobes span samples 0 to 255: all 64 sectors of 2,048 bytes a frame
+    full = cs.symbol_bounds(f, strobes, sps, "mueller_muller", 0, clock_hz=clock)
+    assert full["bytes"] == B * 64 * 32 + B * (L // sps) * 8
+    assert full["ops"] == B * (L // sps) * cs.SCAN_OPS_PER_STEP["mueller_muller"]
+    # a quarter of the frame (samples 62 to 127): sectors 15 to 31
+    part = torch.arange(64, 128, sps, dtype=torch.float32).expand(B, 32)
+    got = cs.scan_bounds(part, L, sps, "gardner", p0=torch.zeros(B), clock_hz=clock)
+    assert got["bytes"] == B * 17 * 32 + B * 4 + B * 32 * 5
+
+
+def test_timing_variants_edit_the_kernel_source_as_it_is():
+    """`ops/cuda/timing_variants.py`'s experiments are text edits of
+    `csrc/timing.cu`: each must still find its text there."""
+    from vitiq_torch.ops.cuda import _build
+    from vitiq_torch.ops.cuda import timing_variants as tv
+
+    text = (_build.CSRC / tv.SOURCE).read_text()
+    edits = [old for variants in tv.EXPERIMENTS.values() for edits in variants.values()
+             for old, _ in edits]
+    assert edits and all(old in text for old in edits)
+
+
 def test_sps_front_end_identity_errors_and_log(caplog):
     x = _noise((2, 250, 2), seed=6)
     assert pfront.preprocess_batch_sps(torch.as_tensor(x), 1) is not None

@@ -51,9 +51,10 @@ scikit-learn), packed shards, the streaming feed, the prefetching
 host-to-device feed (`data/`), per-step profiling (`utils/profiling.py`) and
 the evaluation of a reference `.pth` (`runner.run_reference_evaluation`,
 `python -m vitiq_torch.cli evaluate --torch-checkpoint`); and the DSP
-front-end (`dsp/`): the RRC matched filter, symbol timing recovery (the
-Gardner and Mueller-Mueller loops one launch of `csrc/timing.cu`, a kernel
-with no TPU twin), the SPS, spectrogram, amplitude/phase and MDF front-ends,
+front-end (`dsp/`): the RRC matched filter, symbol timing recovery (with
+the Gardner and Mueller-Mueller loops one launch of `csrc/timing.cu`'s
+`timing_recovery_kernel` from filtered frames to symbols, a kernel with no
+TPU twin), the SPS, spectrogram, amplitude/phase and MDF front-ends,
 the polyphase channelizer and the streaming classifier (`streaming.py`),
 taken by `serve.build_preprocess` and so by serving, training and
 evaluation; the serving artifact (`serve.export_serving`,

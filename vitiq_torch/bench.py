@@ -601,7 +601,7 @@ def bench_sps_infer(batch_size: Optional[int] = None, steps: int = 30,
                     sps: int = 2, method: str = "gardner", device="cuda") -> Dict:
     """Oversampled [B, sps * 1024, 2] frames -> RRC matched filter -> timing
     recovery (`method`; the Gardner / Mueller-Mueller loops one launch of
-    `timing_scan_kernel`) -> z-score -> the rawIQ flagship, through the
+    `timing_recovery_kernel`) -> z-score -> the rawIQ flagship, through the
     serving function of an experiment at that sps."""
     from vitiq_torch.serve import build_serving_fn
 

@@ -6,7 +6,8 @@ The single-frame numpy APIs (`extract_symbols`, `apply_normalization`,
 helpers and its `extract_symbols` contract. The batched functions take
 [B, L, 2] frames on the device and stay there: the per-channel z-score and
 the arm's input shape, the SPS front-end (RRC matched filter, then timing
-recovery, the error-feedback loops one kernel launch on the card), the
+recovery: with the error-feedback loops one kernel launch on the card from
+filtered frames to symbols), the
 spectrogram images, and the amplitude/phase features.
 """
 
@@ -22,12 +23,11 @@ import torch.nn.functional as F
 
 from vitiq_torch.dsp.filtering import matched_filter, matched_filter_batch
 from vitiq_torch.dsp.timing import (
-    full_positions,
-    hybrid_positions,
     simple_timing_recovery,
     timing_recovery_gardner,
     timing_recovery_mueller_muller,
 )
+from vitiq_torch.ops.cuda import timing as tk
 
 _METHODS = ("simple_energy", "simple_correlation", "gardner", "mueller_muller")
 
@@ -176,10 +176,11 @@ def preprocess_batch_sps(x: torch.Tensor, sps: int, alpha: float = 0.35, span: i
       simple_energy / simple_correlation -- the best decimation phase a
         frame, picked by vector reductions;
       gardner / mueller_muller -- by default the hybrid loop (coarse energy
-        phase, `hybrid_window` loop steps, uniform strobes:
-        `dsp/timing.hybrid_positions`); hybrid_window=0 (or a window of at
-        least L//sps) runs the full per-symbol loop. Strobes past the frame's
-        end clamp to its last sample, so the shape stays [B, L//sps, 2].
+        phase, `hybrid_window` loop steps, uniform strobes); hybrid_window=0
+        (or a window of at least L//sps) runs the full per-symbol loop.
+        Strobes past the frame's end clamp to its last sample, so the shape
+        stays [B, L//sps, 2]. Both are `ops/cuda/timing.timing_symbols`: on
+        the card one kernel launch from filtered frames to symbols.
     `weights` are the filter's `filtering.rrc_weights` where the caller made
     them once (a built front-end does), else they are made here.
     """
@@ -194,13 +195,9 @@ def preprocess_batch_sps(x: torch.Tensor, sps: int, alpha: float = 0.35, span: i
     n_sym = L // sps
 
     if method in ("gardner", "mueller_muller"):
-        if hybrid_window and hybrid_window < n_sym:
+        if tk.hybrid_window(hybrid_window, n_sym):
             _log_hybrid_engaged_once(method, hybrid_window)
-            positions = hybrid_positions(filtered, sps, method, window=hybrid_window)
-        else:
-            positions, _valid = full_positions(filtered, sps, method)
-        idx = positions.round().clamp(0, L - 1).long()
-        return filtered.gather(1, idx[..., None].expand(B, n_sym, 2))
+        return tk.timing_symbols(filtered, sps, method, hybrid_window)
 
     phased = filtered.reshape(B, n_sym, sps, 2)
     if method == "simple_energy":

@@ -2,22 +2,22 @@
 
 The four methods of the reference's DSP contract: `simple_energy` and
 `simple_correlation` (vectorized phase pickers) and `gardner`,
-`mueller_muller` (sequential error-feedback loops). The loops run as
-`ops/cuda/timing.timing_scan`: one kernel launch for the whole batch on a
-CUDA tensor, the plain PyTorch loop on a CPU tensor. Their fixed trip count
-and validity mask are the JAX package's. The host-facing wrappers take numpy
-signals and return numpy index arrays; they compute on `device` (the card
-unless the caller asks for the CPU).
+`mueller_muller` (sequential error-feedback loops). The loops' positions
+come from `ops/cuda/timing.timing_scan`: one launch of the timing-recovery
+kernel for the whole batch on a CUDA tensor, the plain PyTorch loop on a CPU
+tensor (the SPS front-end takes its symbols straight from the kernel:
+`ops/cuda/timing.timing_symbols`). Their fixed trip count and validity mask
+are the JAX package's. The host-facing wrappers take numpy signals and
+return numpy index arrays; they compute on `device` (the card unless the
+caller asks for the CPU).
 """
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
-from vitiq_torch.ops.cuda.timing import GAINS, timing_scan
+from vitiq_torch.ops.cuda import timing as tk
 from vitiq_torch.utils.device import resolve_device
 
 
@@ -59,20 +59,12 @@ def _scan_to_indices(positions, valid, n: int) -> np.ndarray:
     return np.clip(idx, 0, n - 1)
 
 
-def _check_method(sps: int, method: str) -> None:
-    if sps < 2:
-        raise ValueError("error-feedback timing recovery requires sps >= 2")
-    if method not in GAINS:
-        raise ValueError(f"unknown error-feedback method {method!r}; choose from "
-                         f"{tuple(GAINS)}")
-
-
 def full_positions(x: torch.Tensor, sps: int, method: str):
     """The full loops over filtered frames x [B, L, 2] f32 (contiguous):
     L//sps steps a frame from position sps. Returns (positions, valid)
     [B, L//sps]."""
-    _check_method(sps, method)
-    return timing_scan(x, sps, x.shape[1] // sps, method)
+    tk.check_loop(sps, method)
+    return tk.timing_scan(x, sps, x.shape[1] // sps, method)
 
 
 def hybrid_positions(x: torch.Tensor, sps: int, method: str, window: int = 64) -> torch.Tensor:
@@ -80,20 +72,10 @@ def hybrid_positions(x: torch.Tensor, sps: int, method: str, window: int = 64) -
     the best integer decimation phase by mean symbol energy, `window` loop
     steps from one symbol past it, the circular mean (period sps) of the
     second half-window's positions as the steady-state phase, then uniform
-    strobes phase + k sps for the whole frame. Returns positions
-    [B, L//sps] f32, clipped to [0, L-1]."""
-    _check_method(sps, method)
-    B, n, _ = x.shape
-    n_sym = n // sps
-    ph = x[:, : n_sym * sps].reshape(B, n_sym, sps, 2).square().sum(-1)  # [B, n_sym, sps]
-    p0 = ph.mean(1).argmax(-1).to(torch.float32)
-    positions, _ = timing_scan(x, sps, window, method, p0=(p0 + sps).contiguous())
-    theta = positions * (2.0 * math.pi / sps)
-    w = (torch.arange(window, device=x.device) >= window // 2).to(theta.dtype)
-    frac = torch.atan2((theta.sin() * w).sum(-1), (theta.cos() * w).sum(-1))
-    frac = (frac * (sps / (2.0 * math.pi))) % sps
-    pos = frac[:, None] + sps * torch.arange(n_sym, dtype=torch.float32, device=x.device)
-    return pos.clamp(0.0, n - 1.0)
+    strobes phase + k sps for the whole frame (`ops/cuda/timing.
+    hybrid_positions` around `timing_scan`). Returns positions [B, L//sps]
+    f32, clipped to [0, L-1]."""
+    return tk.hybrid_positions(x, sps, method, window, scan=tk.timing_scan)
 
 
 def batched_timing_positions(i_sig: torch.Tensor, q_sig: torch.Tensor, sps: int,
@@ -123,7 +105,7 @@ def _recover(i_signal, q_signal, sps: int, method: str, device) -> np.ndarray:
     x = torch.as_tensor(np.stack([np.asarray(i_signal, np.float32),
                                   np.asarray(q_signal, np.float32)], -1)[None], device=device)
     n = x.shape[1]
-    positions, valid = timing_scan(x, sps, n // sps, method)
+    positions, valid = tk.timing_scan(x, sps, n // sps, method)
     return _scan_to_indices(positions[0].cpu().numpy(), valid[0].cpu().numpy(), n)
 
 

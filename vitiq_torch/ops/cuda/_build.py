@@ -97,8 +97,10 @@ SIGNATURES = {
     "vitiq_attention_ring": ([_I, _I, _P], _I),
     # timing.cu. x, p0, positions, valid; B, L, sps, steps, method, gain; stream
     "vitiq_timing_scan": ([_P] * 4 + [_I] * 5 + [_F, _P], _I),
+    # x, symbols, phase; B, L, sps, window, method, gain; stream
+    "vitiq_timing_symbols": ([_P] * 3 + [_I] * 5 + [_F, _P], _I),
     # unsigned long long[1] out, reset
-    "vitiq_timing_scan_launches": ([_P, _I], _I),
+    "vitiq_timing_recovery_launches": ([_P, _I], _I),
     # probes.cu. op, x, out, n; stream
     "vitiq_probe_mask_op": ([_I, _P, _P, _I, _P], _I),
     # op, x, w, out; stream
